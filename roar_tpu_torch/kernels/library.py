@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 Every `roar_tpu_torch/csrc/*.cu` file is compiled by `nvcc` for `sm_90a`
+(one `nvcc` per source, all started together) and the objects are linked
 into one shared library with a plain C interface, which is loaded with
 `ctypes`.  The build happens at first use, never at import, into
 `roar_tpu_torch/build/` under a name that carries a hash of the sources,
@@ -21,9 +22,10 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
+# no --use_fast_math: the Viterbi kernels' decodes are exact by contract
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -53,21 +55,27 @@ def build_library() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-            capture_output=True, text=True,
-        )
-        log = proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [str(Path(tmp) / (src.stem + ".o")) for src in sources]
+        compiles = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)
+        ]
+        log = "".join(proc.communicate()[0] for proc in compiles)
+        failed = [src.name for src, proc in zip(sources, compiles) if proc.returncode != 0]
+        if not failed:
+            out = str(Path(tmp) / lib.name)
+            link = subprocess.run([nvcc, "-shared", "-o", out, *objects],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["link"]
         lib.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+        os.replace(out, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 
 
@@ -78,6 +86,13 @@ def load_library() -> ctypes.CDLL:
     fa = lib.roar_flash_attention_fwd
     fa.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fa.restype = ctypes.c_int
+    vf = lib.roar_pyin_viterbi_fwd
+    vf.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p])
+    vf.restype = ctypes.c_int
+    bt = lib.roar_pyin_backtrack
+    bt.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    bt.restype = ctypes.c_int
     lib.roar_cuda_error_string.argtypes = [ctypes.c_int]
     lib.roar_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -176,6 +176,33 @@ print("ok")
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
 
 
+def test_port_sources_name_no_banned_import():
+    """Every .py of the port, chip_smoke.py and the port's scripts: no
+    `import` statement, at any depth, names jax, flax, optax or roar_tpu."""
+    import ast
+
+    files = [p for p in sorted((REPO / "roar_tpu_torch").rglob("*.py"))
+             if "build" not in p.relative_to(REPO).parts]  # build outputs are not sources
+    files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "scripts").rglob("*_torch.py"))
+    names = {p.name for p in files}
+    assert {"serve_tts_torch.py", "extract_sup_data_torch.py", "chip_smoke.py", "pyin.py",
+            "pyin_viterbi.py", "sup_data.py"} <= names
+    banned = {"jax", "jaxlib", "flax", "optax", "roar_tpu"}
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                modules = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                modules = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(REPO)}:{node.lineno} {m}" for m in modules
+                    if m.split(".")[0] in banned]
+    assert not bad, bad
+
+
 def _assert_subdict(small, big, path=""):
     for key, value in small.items():
         assert key in big, f"{path}{key} not in the YAML"
