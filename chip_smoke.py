@@ -10,9 +10,11 @@ Phases, each printing JSON lines:
 2. build: compile the CUDA kernels from roar_tpu_torch/csrc/;
 3. kernel: every kernel against its plain PyTorch version on the card at its
    main path's shapes, with the times of both, the kernel's bound on this
-   card and, for attention, the time of the one PyTorch call that computes
-   the same function: flash attention (allclose), the pYIN Viterbi forward
-   pass and backtrack (exactly equal, ties included);
+   card and, where there is one, the time of the one PyTorch call that
+   computes the same function: flash attention (allclose), the pYIN Viterbi
+   forward pass and backtrack (exactly equal, ties included), the grouped
+   conv forward, input gradient and weight gradient (relative to the
+   result's scale; the weight gradient bit-identical across two runs);
 4. slice: full-size FastPitch (flash attention in all 12 layers) and HiFi-GAN
    v1 with seeded random weights, served through `SynthesisEngine.warmup`,
    `synthesize_batch` and the HTTP server; checks sample counts, WAV headers,
@@ -25,7 +27,16 @@ Phases, each printing JSON lines:
    and F0 against the synthesis truth, one launch of each Viterbi kernel per
    bucket, the kernel decode against the plain decode, and the numpy
    reference `pyin_cpu`; then one batch of 128 x 10 s for the throughput and
-   the time split.
+   the time split;
+6. train_hifigan: HiFi-GAN training at the full width of
+   configs/hifigan_22050.yaml (v1 generator, MPD, grouped MSD, batch 16 x
+   8192, fp32): 64 seeded synthetic utterances written as WAVs with a
+   manifest and run through the training CLI's `run` for 8 steps; checks
+   finite losses, 30 / 30 / 15 grouped-conv kernel launches per step
+   (forward / dX / dW), the spectral norm's stored u and sigma, the learning
+   rate against the schedule, one D+G step with the kernels against one with
+   their plain versions, and the saved `.roar` restored, folded and run; then
+   the step time, its split and the kernels' share.
 
 Then the kernels line, the card line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -113,15 +124,53 @@ def fastpitch_config() -> dict:
 
 def hifigan_config() -> dict:
     """The `model` block of configs/hifigan_22050.yaml that the port reads:
-    the preprocessor's mel width and rate, and the v1 generator."""
+    the preprocessor and the v1 generator."""
     return {
-        "preprocessor": {"nfilt": 80, "sample_rate": 22050, "n_window_stride": 256},
+        "preprocessor": {
+            "nfilt": 80, "lowfreq": 0, "highfreq": 8000, "n_fft": 1024, "n_window_size": 1024,
+            "n_window_stride": 256, "pad_to": 0, "pad_value": -11.52, "sample_rate": 22050,
+            "window": "hann", "normalize": None, "preemph": None, "dither": 0.0, "log": True,
+            "log_zero_guard_type": "clamp", "log_zero_guard_value": 1e-05, "mag_power": 1.0,
+            "exact_pad": True,
+        },
         "generator": {
             "resblock": 1, "upsample_rates": [8, 8, 2, 2],
             "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 512,
             "resblock_kernel_sizes": [3, 7, 11],
             "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
         },
+    }
+
+
+def hifigan_train_config(manifest: str, exp_dir: str, device: str = "cuda", max_steps: int = 8,
+                         batch_size: int = 16, n_segments: int = 8192, debug: bool = False) -> dict:
+    """configs/hifigan_22050.yaml as the loader resolves it, for the keys the
+    training CLI reads, with `trainer.max_steps`, `trainer.log_every_n_steps=1`
+    `trainer.max_epochs` and `exp_manager.always_save_roar=true`
+    (tests/test_torch_train_gan.py holds it to the YAML).  Two epochs of 64
+    utterances are 8 steps.  No validation set: they end before epoch 20."""
+    model = {
+        **hifigan_config(),
+        "train_ds": {
+            "dataset": {"_target_": "roar_tpu.data.dataset.VocoderDataset",
+                        "manifest_filepath": manifest, "sample_rate": 22050,
+                        "n_segments": n_segments, "max_duration": None, "min_duration": 0.75},
+            "dataloader_params": {"drop_last": False, "shuffle": True, "batch_size": batch_size,
+                                  "num_workers": 4},
+        },
+        "optim": {"name": "adamw", "lr": 0.0002, "betas": [0.8, 0.99],
+                  "sched": {"name": "CosineAnnealing", "min_lr": 1e-5, "warmup_ratio": 0.02}},
+        "max_steps": 2500000, "l1_loss_factor": 45,
+    }
+    if debug:
+        model["debug"] = True
+    return {
+        "name": "HifiGan", "model": model,
+        "trainer": {"max_steps": max_steps, "max_epochs": 2, "log_every_n_steps": 1,
+                    "check_val_every_n_epoch": 20, "seed": 0},
+        "exp_manager": {"exp_dir": exp_dir, "name": "HifiGan", "resume_if_exists": False,
+                        "always_save_roar": True},
+        "device": device,
     }
 
 
@@ -328,6 +377,460 @@ def phase_kernel_viterbi(device: torch.device) -> dict:
             summary = {"fwd": fwd, "backtrack": back}
         del log_obs, ptrs, ptrs_p, v_final, v_final_p, states, states_p
     return summary
+
+
+# K3/K4 against the plain versions.  fp32 sums of up to 64 x 41 products
+# (forward), 64 x 11 (dX per phase) and 32 x 4096 (dW) run in another order
+# than cuBLAS's inside the plain einsum: the bar is the largest difference
+# relative to the largest magnitude of the result
+GROUPED_CONV_REL_TOL = 2e-4
+# (B, W, cin, cout, k, s, g, pad): the shape classes of tests/test_grouped_conv.py
+GROUPED_CONV_SMALL = [
+    (2, 64, 8, 8, 5, 1, 4, 2), (2, 64, 8, 16, 5, 2, 4, 2), (2, 64, 16, 16, 9, 4, 4, 4),
+    (2, 64, 8, 8, 5, 1, 1, 2), (2, 64, 8, 8, 5, 1, 4, 1), (1, 66, 8, 8, 9, 1, 2, 4),
+    (3, 64, 8, 8, 41, 2, 4, 20), (2, 257, 16, 16, 9, 4, 4, 4), (2, 63, 12, 6, 5, 3, 2, 1),
+]
+MSD_GROUPED_LAYERS = [  # (cin, cout, stride, groups), all k 41 pad 20
+    (128, 128, 2, 4), (128, 256, 2, 16), (256, 512, 4, 16), (512, 1024, 4, 16),
+    (1024, 1024, 1, 16),
+]
+
+
+def msd_grouped_shapes(batch: int = 32, segment: int = 8192):
+    """The 15 grouped-conv calls of one multi-scale discriminator pass on a
+    joint real/fake batch: (B, W, cin, cout, k, s, g, pad) per scale and layer."""
+    shapes, width = [], segment
+    for scale in range(3):
+        if scale:
+            width = width // 2 + 1  # avg_pool1d(4, 2, padding=2)
+        w = width
+        for cin, cout, s, g in MSD_GROUPED_LAYERS:
+            shapes.append((batch, w, cin, cout, 41, s, g, 20))
+            w = (w + 40 - 41) // s + 1
+    return shapes
+
+
+def _chunked(fn, chunk: int = 4):
+    """A plain version run in batch chunks, so its unfolded taps fit memory."""
+    def run_cat(a, w, *rest):
+        return torch.cat([fn(ac, w, *rest) for ac in a.split(chunk)])
+
+    def run_sum(x, dy, *rest):
+        return sum(fn(xc, dyc, *rest) for xc, dyc in zip(x.split(chunk), dy.split(chunk)))
+
+    return run_sum if fn.__name__.endswith("dw_plain") else run_cat
+
+
+def phase_kernel_grouped_conv(device: torch.device, batch: int = 32, segment: int = 8192) -> dict:
+    """K3 forward, K3 dX and K4 against their plain versions at the small
+    shape classes and at the 15 production shapes, two K4 runs bit for bit,
+    the autograd Function against autograd of F.conv1d; returns per kernel
+    the worst error and the times summed over the 15 production shapes."""
+    import torch.nn.functional as F
+
+    from roar_tpu_torch.kernels import grouped_conv as gk
+    from roar_tpu_torch.ops.grouped_conv import grouped_conv1d_cf
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    names = ("fwd", "dx", "dw")
+    summary = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                   "library_ms": 0.0, "library_tf32_ms": 0.0, "bytes": 0.0, "operations": 0.0}
+               for n in names}
+    production = msd_grouped_shapes(batch, segment)
+    for case in GROUPED_CONV_SMALL + production:
+        b, width, cin, cout, k, s, g, pad = case
+        timed = case in production
+        wout = gk.out_len(width, k, s, pad)
+        x = torch.randn(b, cin, width, device=device, generator=gen)
+        w = torch.randn(cout, cin // g, k, device=device, generator=gen) / (k * cin // g) ** 0.5
+        dy = torch.randn(b, cout, wout, device=device, generator=gen)
+        calls = {
+            "fwd": (lambda: gk.grouped_conv_fwd(x, w, s, pad, g),
+                    lambda: _chunked(gk.grouped_conv_fwd_plain)(x, w, s, pad, g),
+                    lambda: F.conv1d(x, w, stride=s, padding=pad, groups=g)),
+            "dx": (lambda: gk.grouped_conv_dx(dy, w, width, s, pad, g),
+                   lambda: _chunked(gk.grouped_conv_dx_plain)(dy, w, width, s, pad, g),
+                   lambda: torch.nn.grad.conv1d_input(x.shape, w, dy, stride=s, padding=pad,
+                                                      groups=g)),
+            "dw": (lambda: gk.grouped_conv_dw(x, dy, k, s, pad, g),
+                   lambda: _chunked(gk.grouped_conv_dw_plain)(x, dy, k, s, pad, g),
+                   lambda: torch.nn.grad.conv1d_weight(x, w.shape, dy, stride=s, padding=pad,
+                                                       groups=g)),
+        }
+        flops = 2.0 * b * cout * (cin // g) * k * wout
+        nbytes = {"fwd": 4.0 * (x.numel() + w.numel() + dy.numel()),
+                  "dx": 4.0 * (x.numel() + w.numel() + dy.numel()),
+                  "dw": 4.0 * (x.numel() + w.numel() + dy.numel())}
+        line = {"phase": "kernel", "kernel": "grouped_conv", "shape_bwiokSgp": list(case),
+                "rel_tol": GROUPED_CONV_REL_TOL}
+        for name in names:
+            kernel, plain, library = calls[name]
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"grouped_conv_{name} at {case}: shape {tuple(got.shape)} "
+                                     f"vs {tuple(want.shape)} or not finite")
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            if rel > GROUPED_CONV_REL_TOL:
+                raise AssertionError(f"grouped_conv_{name} at {case}: max abs err {err}, "
+                                     f"relative {rel} > {GROUPED_CONV_REL_TOL}")
+            lib_out = library()
+            lib_rel = float((lib_out - want).abs().max()) / float(want.abs().max())
+            if lib_rel > GROUPED_CONV_REL_TOL:
+                raise AssertionError(f"library call for {name} at {case} disagrees: {lib_rel}")
+            if name == "dw" and not torch.equal(got, kernel()):
+                raise AssertionError(f"grouped_conv_dw at {case}: two runs differ")
+            acc = summary[name]
+            acc["max_abs_err"] = max(acc["max_abs_err"], err)
+            acc["max_rel_err"] = max(acc["max_rel_err"], rel)
+            line[name] = {"max_abs_err": err, "rel_err": rel}
+            del got, want, lib_out
+            if timed:
+                times = {"ms": _time_ms(kernel, reps=5), "plain_ms": _time_ms(plain, reps=2),
+                         "library_ms": _time_ms(library, reps=5)}
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    times["library_tf32_ms"] = _time_ms(library, reps=5)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                bound = _bound(nbytes[name], flops)
+                line[name].update(times, **bound)
+                for key, value in times.items():
+                    acc[key] += value
+                acc["bytes"] += bound["bytes"]
+                acc["operations"] += bound["operations"]
+        if timed:
+            line["dw_bit_identical"] = True
+        _emit(line)
+        del x, w, dy
+    torch.cuda.empty_cache()
+
+    # the autograd Function against autograd of the library conv, float32
+    for b, width, cin, cout, k, s, g, pad in [(2, 130, 16, 32, 41, 2, 4, 20), (3, 77, 8, 8, 7, 4, 2, 3)]:
+        x = torch.randn(b, cin, width, device=device, generator=gen, requires_grad=True)
+        w = torch.randn(cout, cin // g, k, device=device, generator=gen, requires_grad=True)
+        cot = torch.randn(b, cout, gk.out_len(width, k, s, pad), device=device, generator=gen)
+        gx, gw = torch.autograd.grad(grouped_conv1d_cf(x, w, s, pad, g), (x, w), cot)
+        rx, rw = torch.autograd.grad(F.conv1d(x, w, stride=s, padding=pad, groups=g), (x, w), cot)
+        for name, got, want in (("dx", gx, rx), ("dw", gw, rw)):
+            rel = float((got - want).abs().max()) / float(want.abs().max())
+            if rel > GROUPED_CONV_REL_TOL:
+                raise AssertionError(f"GroupedConv1dCF {name} vs autograd of F.conv1d: {rel}")
+    # a pass that needs no weight gradient must not run K4
+    before = gk.LAUNCHES_DW
+    x = torch.randn(2, 8, 64, device=device, generator=gen, requires_grad=True)
+    w = torch.randn(8, 2, 5, device=device, generator=gen)
+    grouped_conv1d_cf(x, w, 1, 2, 4).sum().backward()
+    if gk.LAUNCHES_DW != before:
+        raise AssertionError("K4 ran although the weight needs no gradient")
+    for acc in summary.values():
+        acc.update({k: v for k, v in _bound(acc["bytes"], acc["operations"]).items()
+                    if k.startswith("bound")})
+    # a D+G step runs each shape's forward and dX twice (D pass, G pass), dW once
+    per_step = {key: 2 * summary["fwd"][key] + 2 * summary["dx"][key] + summary["dw"][key]
+                for key in ("ms", "plain_ms", "library_ms", "library_tf32_ms", "bound_ms")}
+    _emit({"phase": "kernel", "kernel": "grouped_conv", "step": "sum_over_production_shapes",
+           "shapes": len(production), "batch": batch, "segment": segment, **summary,
+           "per_train_step": per_step})
+    return summary
+
+
+# one D+G step with the kernels against one with their plain versions, same
+# weights and batch, fp32, TF32 off: the sums inside 30 convs run in another
+# order, and cuDNN may pick other algorithms for the convs around them
+TRAIN_LOSS_RTOL = 1e-4
+# per gradient tensor: |delta|_2 over |gradient|_2, and the largest single
+# difference over the tensor's largest gradient (one element's rounding after
+# some forty layers of forward and backward, so a wider bar).  cuDNN's weight
+# gradients sum with atomics, so both vary from run to run: 6e-4 and 3e-3 at
+# worst over three runs on an H100; a wrong tap or phase gives errors near 1
+TRAIN_GRAD_L2_TOL = 5e-3
+TRAIN_GRAD_MAX_TOL = 3e-2
+TRAIN_LR = 2e-4
+# AdamW's first update moves every weight by lr x sign(gradient): where a
+# gradient is at rounding level its sign may differ between the two paths
+TRAIN_PARAM_ATOL = 2.5 * TRAIN_LR
+
+
+class _PlainGroupedConv:
+    """While active, the grouped-conv wrappers take their plain versions
+    whatever the device (in batch chunks, so the unfolded taps fit memory)."""
+
+    NAMES = ("grouped_conv_fwd", "grouped_conv_dx", "grouped_conv_dw")
+
+    def __enter__(self):
+        from roar_tpu_torch.kernels import grouped_conv as gk
+
+        self.saved = {n: getattr(gk, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(gk, n, _chunked(getattr(gk, n + "_plain"), chunk=8))
+
+    def __exit__(self, *exc):
+        from roar_tpu_torch.kernels import grouped_conv as gk
+
+        for n, fn in self.saved.items():
+            setattr(gk, n, fn)
+
+
+def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int = 64,
+                        steps: int = 8, batch_size: int = 16, n_segments: int = 8192,
+                        debug: bool = False) -> dict:
+    """HiFi-GAN training through the CLI's `run`; returns the grouped-conv
+    launch counts of that run."""
+    import copy
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "tts"))
+    import hifigan_torch as cli
+
+    from roar_tpu_torch.data.audio import write_wav
+    from roar_tpu_torch.data.manifest import write_manifest
+    from roar_tpu_torch.kernels import grouped_conv as gk
+    from roar_tpu_torch.models.hifigan import SpectralNormConv
+    from roar_tpu_torch.models.hifigan_model import HifiGanModel, vocoder_from_config
+    from roar_tpu_torch.training import convert
+    from roar_tpu_torch.training.gan import GANTrainState, gan_train_step
+    from roar_tpu_torch.training.optim import build_optimizer, get_schedule
+    from roar_tpu_torch.training.save_restore import restore_from
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    rng = np.random.default_rng(SEED + 1)
+    benchmark_was = torch.backends.cudnn.benchmark
+    # training meets dozens of new conv shapes: no autotuning of each
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            entries = []
+            for i in range(n_utterances):
+                audio = synth_utterance(rng, float(rng.uniform(1.0, 2.0)))[0]
+                path = os.path.join(tmp, f"utt{i:03d}.wav")
+                write_wav(path, audio, SUP_SAMPLE_RATE)
+                entries.append({"audio_filepath": path, "duration": len(audio) / SUP_SAMPLE_RATE})
+            manifest = os.path.join(tmp, "train_manifest.json")
+            write_manifest(manifest, entries)
+            cfg = hifigan_train_config(manifest, os.path.join(tmp, "exp"), str(device), steps,
+                                       batch_size, n_segments, debug)
+
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            gk.LAUNCHES_FWD = gk.LAUNCHES_DX = gk.LAUNCHES_DW = 0
+            t0 = time.perf_counter()
+            state = cli.run(cfg)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = {"fwd": gk.LAUNCHES_FWD, "dx": gk.LAUNCHES_DX, "dw": gk.LAUNCHES_DW}
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            model = state.model
+
+            n_grouped = sum(1 for m in model.msd.modules() if getattr(m, "groups", 1) > 1)
+            want = {"fwd": 2 * n_grouped * steps, "dx": 2 * n_grouped * steps,
+                    "dw": n_grouped * steps}
+            if n_grouped != 15 or state.step != steps:
+                raise AssertionError(f"{n_grouped} grouped convs, {state.step} steps")
+            if on_card and launches != want:
+                raise AssertionError(f"grouped-conv launches {launches} != {want}: K4 ran in the "
+                                     f"G pass, or a grouped conv went round its kernel")
+
+            root = os.path.join(tmp, "exp", "HifiGan")
+            with open(os.path.join(root, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f if line.strip()]
+            if [r["step"] for r in records] != list(range(1, steps + 1)):
+                raise AssertionError(f"logged steps {[r['step'] for r in records]}")
+            for r in records:
+                bad = [k for k in ("d_loss", "g_loss", "d_loss_mpd", "d_loss_msd", "g_mel_loss",
+                                   "g_fm_loss", "g_adv_loss") if not np.isfinite(r[k])]
+                if bad:
+                    raise AssertionError(f"step {r['step']}: {bad} not finite")
+            sched = cfg["model"]["optim"]["sched"]
+            schedule = get_schedule(sched["name"], cfg["model"]["optim"]["lr"],
+                                    max_steps=cfg["model"]["max_steps"], min_lr=sched["min_lr"],
+                                    warmup_ratio=sched["warmup_ratio"])
+            lrs = [r["lr"] for r in records]
+            if not np.allclose(lrs, [schedule(i) for i in range(steps)], rtol=1e-9, atol=0.0):
+                raise AssertionError(f"learning rates {lrs} are not the schedule's")
+
+            # the spectral norm of scale 0 stored a new u and sigma
+            fresh = HifiGanModel(cfg["model"], generator=torch.Generator().manual_seed(0))
+            moved = []
+            for (name, m), (_, m0) in zip(model.msd.named_modules(), fresh.msd.named_modules()):
+                if isinstance(m, SpectralNormConv):
+                    moved.append(not torch.equal(m.u.cpu(), m0.u) and float(m.sigma) != 1.0
+                                 and bool(torch.isfinite(m.u).all()))
+            if len(moved) != 8 or not all(moved):
+                raise AssertionError(f"spectral-norm stats of scale 0 not updated: {moved}")
+            _emit({"phase": "train_hifigan", "step": "cli", "card": card, "steps": steps,
+                   "batch": batch_size, "segment": n_segments, "utterances": n_utterances,
+                   "grouped_conv_launches": launches, "per_step": {k: v // steps for k, v in
+                                                                   launches.items()},
+                   "losses_first": {k: records[0][k] for k in ("d_loss", "g_loss", "g_mel_loss")},
+                   "losses_last": {k: records[-1][k] for k in ("d_loss", "g_loss", "g_mel_loss")},
+                   "lr": lrs, "spectral_norm_convs_updated": len(moved), "wall_s": wall,
+                   "wall_includes": "model build, WAV reads, logging every step, checkpoint "
+                                    "and bundle writes",
+                   "peak_device_memory_bytes": peak})
+
+            # the bundle: restored, folded, one mel through it
+            path = os.path.join(root, "checkpoints", "HifiGan.roar")
+            _, tree = restore_from(path)
+            trainable = HifiGanModel(cfg["model"]).generator
+            convert.load_generator_train_params(trainable, tree["g_params"])
+            folded = trainable.fold_weight_norm().to(device)
+            served = convert.load_generator_params(vocoder_from_config(cfg["model"]),
+                                                   tree["g_params"]).to(device)
+            mel = torch.from_numpy(rng.standard_normal((1, 64, 80)).astype(np.float32)).to(device)
+            with torch.no_grad():
+                audio = folded(mel)
+                if not torch.equal(audio, served(mel)):
+                    raise AssertionError("folded generator != the bundle loaded for serving")
+                trained_audio = model.generator(mel)
+            if tuple(audio.shape) != (1, 64 * 256) or not torch.isfinite(audio).all():
+                raise AssertionError(f"vocoder output {tuple(audio.shape)} or not finite")
+            fold_err = float((audio - trained_audio).abs().max())
+            if fold_err > 1e-4:
+                raise AssertionError(f"folded generator differs from the trained one: {fold_err}")
+            _emit({"phase": "train_hifigan", "step": "bundle", "bundle_bytes": os.path.getsize(path),
+                   "audio_shape": list(audio.shape), "folded_vs_trained_max_abs": fold_err,
+                   "folded_equals_serving_load": True})
+
+            # one D+G step, kernels against plain versions, same weights and batch
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in next(iter(_batches(cfg))).items()}
+            optim_cfg = {"name": "adamw", "lr": TRAIN_LR, "betas": [0.8, 0.99]}
+
+            def one_step(m):
+                st = GANTrainState(model=m,
+                                   g_opt=build_optimizer(m.g_parameters(), optim_cfg),
+                                   d_opt=build_optimizer(m.d_parameters(), optim_cfg))
+                _, metrics = gan_train_step(st, batch)
+                sync()
+                return {k: float(v) for k, v in metrics.items()}
+
+            twin = copy.deepcopy(model)
+            metrics_k = one_step(model)
+            with _PlainGroupedConv():
+                metrics_p = one_step(twin)
+            worst = {"grad_l2": 0.0, "grad_max": 0.0, "param_abs": 0.0, "tensor": ""}
+            for k in ("d_loss", "g_loss"):
+                if abs(metrics_k[k] - metrics_p[k]) > TRAIN_LOSS_RTOL * abs(metrics_p[k]):
+                    raise AssertionError(f"{k}: kernels {metrics_k[k]} vs plain {metrics_p[k]}")
+            for part in ("generator", "mpd", "msd"):
+                for (name, pk), (_, pp) in zip(getattr(model, part).named_parameters(),
+                                                getattr(twin, part).named_parameters()):
+                    delta = pk.grad - pp.grad
+                    l2 = float(delta.norm()) / max(float(pp.grad.norm()), 1e-30)
+                    top = float(delta.abs().max()) / max(float(pp.grad.abs().max()), 1e-30)
+                    if top > worst["grad_max"]:
+                        worst["tensor"] = f"{part}.{name}"
+                    worst["grad_l2"] = max(worst["grad_l2"], l2)
+                    worst["grad_max"] = max(worst["grad_max"], top)
+                    worst["param_abs"] = max(worst["param_abs"],
+                                             float((pk.detach() - pp.detach()).abs().max()))
+                    if l2 > TRAIN_GRAD_L2_TOL or top > TRAIN_GRAD_MAX_TOL:
+                        raise AssertionError(
+                            f"{part}.{name}: gradient differs between kernel path and plain "
+                            f"path by {l2} (L2, relative) and {top} (largest, relative)")
+            if worst["param_abs"] > TRAIN_PARAM_ATOL:
+                raise AssertionError(f"updated parameters differ by {worst['param_abs']}")
+            _emit({"phase": "train_hifigan", "step": "kernel_path_vs_plain_path",
+                   "kernels": metrics_k, "plain": metrics_p, "loss_rtol": TRAIN_LOSS_RTOL,
+                   "max_grad_l2_rel_err": worst["grad_l2"], "grad_l2_tol": TRAIN_GRAD_L2_TOL,
+                   "max_grad_max_rel_err": worst["grad_max"], "grad_max_tol": TRAIN_GRAD_MAX_TOL,
+                   "worst_gradient_tensor": worst["tensor"],
+                   "max_param_abs_diff": worst["param_abs"], "param_atol": TRAIN_PARAM_ATOL})
+            del twin
+
+            result = {"launches": launches}
+            if on_card:
+                result["timing"] = _time_train_step(model, batch, optim_cfg, card)
+            return result
+    finally:
+        torch.backends.cudnn.benchmark = benchmark_was
+
+
+def _batches(cfg: dict):
+    """Collated training batches of `cfg`, as the runner reads them."""
+    from roar_tpu_torch.data.sampling import LengthBucketBatchSampler
+    from roar_tpu_torch.training.run import batch_iterator, build_vocoder_dataset
+
+    dataset = build_vocoder_dataset(cfg["model"]["train_ds"]["dataset"])
+    params = cfg["model"]["train_ds"]["dataloader_params"]
+    sampler = LengthBucketBatchSampler(dataset.lengths, batch_size=params["batch_size"],
+                                       shuffle=False, drop_last=True)
+    return batch_iterator(dataset, sampler)
+
+
+def _time_train_step(model, batch, optim_cfg: dict, card: str) -> dict:
+    """Step time (median of 5 after two warm steps, CUDA events), its split
+    by the parts `gan_train_step` marks, and the grouped-conv kernels' time
+    inside a step (events around every launch, in two further steps)."""
+    from roar_tpu_torch.kernels import grouped_conv as gk
+    from roar_tpu_torch.training.gan import GANTrainState, gan_train_step
+    from roar_tpu_torch.training.optim import build_optimizer
+
+    state = GANTrainState(model=model, g_opt=build_optimizer(model.g_parameters(), optim_cfg),
+                          d_opt=build_optimizer(model.d_parameters(), optim_cfg))
+    parts = ("generator_forward", "d_pass", "d_optimizer", "g_pass", "g_optimizer")
+    totals, splits = [], {p: [] for p in parts}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(7):
+        events = {"start": torch.cuda.Event(enable_timing=True)}
+        events["start"].record()
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        gan_train_step(state, batch, mark=mark)
+        torch.cuda.synchronize()
+        if i < 2:
+            continue
+        totals.append(events["start"].elapsed_time(events["g_optimizer"]))
+        for before, name in zip(("start",) + parts, parts):
+            splits[name].append(events[before].elapsed_time(events[name]))
+    peak = torch.cuda.max_memory_allocated()
+
+    spans = {"grouped_conv_fwd": [], "grouped_conv_dx": [], "grouped_conv_dw": []}
+    saved = {n: getattr(gk, n) for n in spans}
+
+    def timed(name):
+        def call(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = saved[name](*args)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    n_steps = 2
+    try:
+        for n in spans:
+            setattr(gk, n, timed(n))
+        for _ in range(n_steps):
+            gan_train_step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(gk, n, fn)
+    kernel_ms = {n: sum(a.elapsed_time(b) for a, b in pairs) / n_steps
+                 for n, pairs in spans.items()}
+    step_ms = float(np.median(totals))
+    timing = {"phase": "train_hifigan", "step": "timing", "card": card,
+              "step_ms": step_ms, "step_ms_all": totals,
+              "split_ms": {p: float(np.median(v)) for p, v in splits.items()},
+              "grouped_conv_ms_per_step": kernel_ms,
+              "grouped_conv_launches_per_step": {n: len(v) // n_steps for n, v in spans.items()},
+              "grouped_conv_share_of_step": sum(kernel_ms.values()) / step_ms,
+              "peak_device_memory_bytes": peak,
+              "method": "CUDA events; median of 5 steps after 2 warm steps; cudnn.benchmark off, "
+                        "TF32 off; batch already on the card"}
+    _emit(timing)
+    return timing
 
 
 def _post(url: str, payload: dict, timeout: float = 300.0):
@@ -763,8 +1266,10 @@ def main() -> int:
 
     kern = phase_kernel(device)
     vit = phase_kernel_viterbi(device)
+    conv = phase_kernel_grouped_conv(device)
     run = phase_slice(device, fastpitch_config(), hifigan_config(), TAMIL_SENTENCES, card)
     sup = phase_supdata(device, card)
+    train = phase_train_hifigan(device, card)
 
     def pick(d):
         return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -785,6 +1290,17 @@ def main() -> int:
          "replaces": "roar_tpu/ops/pyin_pallas.py:279",
          "launches": sup["launches"]["backtrack"], "max_abs_err": 0.0,
          **pick(vit["backtrack"]), "library_ms": None},
+        # K3 and K4: times and bounds summed over the 15 grouped-conv shapes
+        # of one discriminator pass (B = 32); library = cuDNN with TF32 off
+        *[{"name": f"grouped_conv_{name}", "route": "cuda",
+           "source": "roar_tpu_torch/csrc/grouped_conv.cu", "replaces": replaces,
+           "launches": train["launches"][name], "max_abs_err": conv[name]["max_abs_err"],
+           "max_rel_err": conv[name]["max_rel_err"], **pick(conv[name]),
+           "library_ms": conv[name]["library_ms"],
+           "library_tf32_ms": conv[name]["library_tf32_ms"]}
+          for name, replaces in (("fwd", "roar_tpu/ops/grouped_conv.py:208"),
+                                 ("dx", "roar_tpu/ops/grouped_conv.py:208"),
+                                 ("dw", "roar_tpu/ops/grouped_conv.py:272"))],
     ]})
     print(card, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,6 +93,16 @@ def load_library() -> ctypes.CDLL:
     bt = lib.roar_pyin_backtrack
     bt.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     bt.restype = ctypes.c_int
+    conv_shape = [ctypes.c_int] * 9  # B, Cin, W, Cout, k, stride, pad, G, Wout
+    for name in ("roar_grouped_conv_fwd", "roar_grouped_conv_dx"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + conv_shape + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.roar_grouped_conv_dw_parts.argtypes = conv_shape
+    lib.roar_grouped_conv_dw_parts.restype = ctypes.c_int
+    dw = lib.roar_grouped_conv_dw
+    dw.argtypes = [ctypes.c_void_p] * 4 + conv_shape + [ctypes.c_int, ctypes.c_void_p]
+    dw.restype = ctypes.c_int
     lib.roar_cuda_error_string.argtypes = [ctypes.c_int]
     lib.roar_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -73,3 +73,35 @@ def test_converter_rejects_unconsumed_and_missing_leaves():
     missing = {"params": {k: v for k, v in params["params"].items() if k != "conv_post"}}
     with pytest.raises(KeyError, match="unfilled"):
         load_generator_params(generator_from_config(V3_NARROW, 12), missing)
+
+
+@pytest.mark.parametrize("cfg", [V1_NARROW, V3_NARROW], ids=["resblock1", "resblock2"])
+def test_folded_trainable_generator_equals_the_loaded_serving_form(cfg):
+    """Training keeps (v, scale) per layer; `fold_weight_norm` of that form
+    and `load_generator_params` of the same JAX tree are one conversion: the
+    folded weights are equal bit for bit, and the trainable form computes
+    the same audio."""
+    from roar_tpu_torch.models.hifigan import Generator
+    from roar_tpu_torch.training.convert import load_generator_train_params
+
+    rng = np.random.default_rng(2)
+    n_mel = 12
+    mel = rng.standard_normal((1, 6, n_mel)).astype(np.float32)
+    params = _random_tree(jax_generator(cfg, n_mel), mel, rng)
+    for path, leaf in flatten_dict(params).items():  # scales away from 1
+        if path[-1].endswith("scale"):
+            leaf[...] = rng.uniform(0.5, 1.5, leaf.shape)
+
+    served = load_generator_params(generator_from_config(cfg, n_mel), params)
+    kwargs = dict(served.config)
+    trainable = load_generator_train_params(Generator(**kwargs, weight_norm=True), params)
+    folded = trainable.fold_weight_norm()
+    want, got = served.state_dict(), folded.state_dict()
+    assert set(want) == set(got)
+    for name, value in want.items():
+        assert torch.equal(got[name], value), name
+    with torch.no_grad():
+        np.testing.assert_allclose(trainable(torch.from_numpy(mel)).numpy(),
+                                   served(torch.from_numpy(mel)).numpy(), **PARITY_TOL)
+    with pytest.raises(ValueError, match="folded weights already"):
+        folded.fold_weight_norm()

@@ -177,7 +177,7 @@ print("ok")
 
 
 def test_port_sources_name_no_banned_import():
-    """Every .py of the port, chip_smoke.py and the port's scripts: no
+    """Every .py of the port, chip_smoke.py and the port's scripts and examples: no
     `import` statement, at any depth, names jax, flax, optax or roar_tpu."""
     import ast
 
@@ -185,9 +185,11 @@ def test_port_sources_name_no_banned_import():
              if "build" not in p.relative_to(REPO).parts]  # build outputs are not sources
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "scripts").rglob("*_torch.py"))
+    files += sorted((REPO / "examples").rglob("*_torch.py"))
     names = {p.name for p in files}
     assert {"serve_tts_torch.py", "extract_sup_data_torch.py", "chip_smoke.py", "pyin.py",
-            "pyin_viterbi.py", "sup_data.py"} <= names
+            "pyin_viterbi.py", "sup_data.py", "hifigan_torch.py", "grouped_conv.py", "gan.py",
+            "run.py", "optim.py", "exp_manager.py"} <= names
     banned = {"jax", "jaxlib", "flax", "optax", "roar_tpu"}
     bad = []
     for path in files:
