@@ -36,7 +36,27 @@ Phases, each printing JSON lines:
    (forward / dX / dW), the spectral norm's stored u and sigma, the learning
    rate against the schedule, one D+G step with the kernels against one with
    their plain versions, and the saved `.roar` restored, folded and run; then
-   the step time, its split and the kernels' share.
+   the step time, its split and the kernels' share;
+7. kernel_flash_bwd: the flash-attention backward kernels (dK/dV and dQ) and
+   the forward's log-sum-exp against their plain versions at small ragged
+   shapes and at (32, 160, 1, 64) and (32, 864, 1, 64) (batches of 20 s
+   utterances, longer than phase 8 draws), two runs bit for bit, the
+   forward's output unchanged by asking for the log-sum-exp, the autograd
+   Function against autograd of the plain forward, and the times beside the
+   bounds and autograd of SDPA;
+8. train_fastpitch: FastPitch training with learned alignment at the full
+   width of configs/fastpitch_22050_align.yaml (flash attention on, `dropatt`
+   0, an energy predictor, 4 speakers, batch 32, fp32): 128 seeded synthetic
+   utterances of 2 to 10 s with Tamil text, their sup-data extracted first
+   through `extract_sup_data_torch.run`, then 8 steps through the training
+   CLI's `run`; checks 12 / 12 / 12 flash launches per step (forward, dK/dV,
+   dQ) and 12 forwards for the validation batch, finite losses with every
+   term present, the learning rate against the Noam schedule, one step with
+   the kernels against one with their plain versions, hard durations that
+   sum to the mel lengths, the flash kernels held and timed as in phase 7 at
+   the two shapes and key lengths that step gave them (the kernels line takes
+   these), and the saved `.roar` served by `SynthesisEngine`; then the step
+   time, its split and the kernels' share.
 
 Then the kernels line, the card line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -169,6 +189,64 @@ def hifigan_train_config(manifest: str, exp_dir: str, device: str = "cuda", max_
         "trainer": {"max_steps": max_steps, "max_epochs": 2, "log_every_n_steps": 1,
                     "check_val_every_n_epoch": 20, "seed": 0},
         "exp_manager": {"exp_dir": exp_dir, "name": "HifiGan", "resume_if_exists": False,
+                        "always_save_roar": True},
+        "device": device,
+    }
+
+
+def fastpitch_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_dir: str,
+                           pitch_mean: float, pitch_std: float, device: str = "cuda",
+                           max_steps: int = 8, batch_size: int = 32) -> dict:
+    """configs/fastpitch_22050_align.yaml as the loader resolves it, for the
+    keys the training CLI reads, with the overrides of the configuration that
+    runs the attention kernels: `model.{input_fft,output_fft}.use_flash=true`
+    and `.dropatt=0.0` (every other dropout stays 0.1), 4 speakers,
+    `+model.energy_predictor` (the pitch predictor's block) with `energy` in
+    `sup_data_types`, `trainer.precision=32`, `trainer.max_steps`,
+    `trainer.log_every_n_steps=1` and `exp_manager.always_save_roar=true`
+    (tests/test_torch_train_supervised.py holds it to the YAML)."""
+    model = fastpitch_config()
+    for fft in ("input_fft", "output_fft"):
+        model[fft].update(dropout=0.1, dropatt=0.0, dropemb=0.0)
+    for predictor in ("duration_predictor", "pitch_predictor"):
+        model[predictor]["dropout"] = 0.1
+    model["energy_predictor"] = dict(model["pitch_predictor"])
+    model["preprocessor"] = {
+        "features": 80, "lowfreq": 0, "highfreq": 8000, "n_fft": 2048, "n_window_size": 2048,
+        "n_window_stride": 512, "pad_to": 1, "pad_value": 0, "sample_rate": 22050,
+        "window": "hann", "normalize": None, "preemph": None, "dither": 0.0, "log": True,
+        "log_zero_guard_type": "add", "log_zero_guard_value": 1e-05, "mag_power": 1.0,
+    }
+
+    def dataset(manifest):
+        return {"_target_": "roar_tpu.data.dataset.TTSDataset", "manifest_filepath": manifest,
+                "sample_rate": 22050, "sup_data_path": sup_dir,
+                "sup_data_types": ["align_prior_matrix", "pitch", "speaker_id", "energy"],
+                "n_fft": 2048, "win_length": 2048, "hop_length": 512, "window": "hann",
+                "n_mels": 80, "lowfreq": 0, "highfreq": 8000, "max_duration": None,
+                "min_duration": 0.1, "ignore_file": None, "trim": False,
+                "pitch_fmin": 65.40639132514966, "pitch_fmax": 2093.004522404789,
+                "pitch_norm": True, "pitch_mean": pitch_mean, "pitch_std": pitch_std,
+                "use_beta_binomial_interpolator": True}
+
+    model.update({
+        "bin_loss_warmup_epochs": 100,
+        "train_ds": {"dataset": dataset(train_manifest),
+                     "dataloader_params": {"drop_last": False, "shuffle": True,
+                                           "batch_size": batch_size, "num_workers": 4}},
+        "validation_ds": {"dataset": dataset(val_manifest),
+                          "dataloader_params": {"drop_last": False, "shuffle": False,
+                                                "batch_size": batch_size, "num_workers": 4}},
+        "optim": {"name": "adamw", "lr": 0.001, "betas": [0.9, 0.999], "weight_decay": 1e-06,
+                  "sched": {"name": "NoamAnnealing", "warmup_steps": 1000, "last_epoch": -1,
+                            "d_model": 1}},
+    })
+    return {
+        "name": "FastPitch", "model": model,
+        "trainer": {"max_epochs": 1000, "precision": 32, "gradient_clip_val": 1000.0,
+                    "log_every_n_steps": 1, "check_val_every_n_epoch": 1, "seed": 0,
+                    "model_parallel_size": 1, "max_steps": max_steps},
+        "exp_manager": {"exp_dir": exp_dir, "name": "FastPitch", "resume_if_exists": False,
                         "always_save_roar": True},
         "device": device,
     }
@@ -833,6 +911,603 @@ def _time_train_step(model, batch, optim_cfg: dict, card: str) -> dict:
     return timing
 
 
+# K5-bwd against the plain versions: fp32 FMA sums inside the kernels against
+# cuBLAS fp32 einsums over up to 864 keys, so each gradient is held to an
+# absolute error of 1e-4 of its own largest magnitude plus rtol 1e-3 (the
+# forward's KERNEL_TOL, made relative to the gradient's scale)
+FLASH_BWD_ATOL_REL = 1e-4
+FLASH_BWD_RTOL = 1e-3
+# (B, T, H, D, key lengths): T no multiple of 64, all-valid rows, a row that is
+# mostly padding, a single valid key, D = 32 / 128 / 64
+FLASH_BWD_SMALL = [
+    (3, 70, 2, 32, [70, 33, 1]), (2, 130, 2, 128, [130, 9]), (4, 200, 1, 64, [200, 200, 63, 5]),
+]
+# the text and mel buckets of 20 s utterances at batch 32: longer than any
+# batch phase `train_fastpitch` draws from its 2 to 10 s corpus, so they stand
+# beside the path's own shapes (which that phase holds and times) and are
+# labelled so
+FLASH_LONG_SHAPES = [(32, 160, 1, 64), (32, 864, 1, 64)]
+
+
+def _assert_grad_close(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} or not finite")
+    top = float(want.abs().max())
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, atol=FLASH_BWD_ATOL_REL * top, rtol=FLASH_BWD_RTOL,
+                               msg=lambda m: f"{what}: {m}")
+    return {"max_abs_err": err, "rel_to_largest": err / max(top, 1e-30)}
+
+
+def _flash_bwd_case(gen: torch.Generator, key_mask: torch.Tensor, h: int, d: int, timed: bool,
+                    where: str) -> dict:
+    """The forward with its log-sum-exp and the two backward kernels against
+    the plain versions on seeded q, k, v and cotangent under `key_mask`
+    [B, T]; with `timed`, also the times beside the bounds and SDPA.  Emits
+    one line and returns its errors, times and bounds."""
+    import torch.nn.functional as F
+
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.ops.flash_attention import flash_self_attention
+
+    device = key_mask.device
+    (b, t), lens = key_mask.shape, [int(n) for n in key_mask.sum(1)]
+    shape = (b, t, h, d)
+    q, k, v, do = (torch.randn(b, t, h, d, device=device, generator=gen) for _ in range(4))
+    scale = 1.0 / d ** 0.5
+    out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True)
+    if not torch.equal(out, fa.flash_self_attention(q, k, v, key_mask, scale)):
+        raise AssertionError(f"asking for lse changed the forward's output at {shape}")
+    out_p, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, return_lse=True)
+    torch.testing.assert_close(out, out_p, **KERNEL_TOL)
+    torch.testing.assert_close(lse, lse_p, **KERNEL_TOL)
+    errs = {"o": {"max_abs_err": float((out - out_p).abs().max())},
+            "lse": {"max_abs_err": float((lse - lse_p).abs().max())}}
+    # the cotangent holds garbage on the pad rows too: a pad query's
+    # gradient must stay inside the pad segment
+    got = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
+    again = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
+    want = fa.flash_self_attention_bwd_plain(q, k, v, key_mask, scale, out_p, lse_p, do)
+    torch.cuda.synchronize()
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"flash bwd {name} at {shape}: two runs differ")
+        errs[name] = _assert_grad_close(a, w, f"flash bwd {name} at {shape}")
+    # a cotangent that is zero on the pad rows (what TransformerLayer's
+    # mask makes it) leaves the pad keys' gradients exactly zero
+    do_valid = do * key_mask[:, :, None, None]
+    _, dk0, dv0 = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do_valid)
+    pad_rows = ~key_mask[:, :, None, None].expand_as(dk0)
+    if pad_rows.any() and (float(dk0[pad_rows].abs().max()) != 0.0
+                           or float(dv0[pad_rows].abs().max()) != 0.0):
+        raise AssertionError(f"pad keys got a gradient at {shape}")
+    # the autograd Function against autograd of the plain forward
+    qkv = [z.clone().requires_grad_(True) for z in (q, k, v)]
+    g_fn = torch.autograd.grad(flash_self_attention(*qkv, key_mask, scale), qkv, do)
+    g_plain = torch.autograd.grad(fa.flash_self_attention_plain(*qkv, key_mask, scale), qkv, do)
+    for name, a, w in zip(("dq", "dk", "dv"), g_fn, g_plain):
+        _assert_grad_close(a, w, f"Function {name} vs autograd of the plain forward")
+    line = {"phase": "kernel_flash_bwd", "where": where, "shape_bthd": list(shape),
+            "key_lens": lens if b <= 4 else {"min": min(lens), "max": max(lens),
+                                             "mean": float(np.mean(lens))},
+            "errors": errs, "tol": KERNEL_TOL,
+            "atol_rel_to_largest": FLASH_BWD_ATOL_REL, "rtol": FLASH_BWD_RTOL,
+            "bit_identical_across_two_runs": True, "forward_unchanged_by_lse": True,
+            "function_vs_autograd_of_plain": True}
+    case = {"errors": errs}
+    if timed:
+        delta = (out * do).sum(-1).permute(0, 2, 1).contiguous()
+        args = (q, k, v, key_mask, scale, out, lse, do)
+        # the one PyTorch call that computes the same function: SDPA with
+        # the segment mask and its autograd (a yardstick only; the port
+        # never calls it); its backward gives dq, dk and dv together
+        qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_(True) for z in (q, k, v))
+        visible = (key_mask[:, None, :, None] == key_mask[:, None, None, :])
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=visible, scale=scale)
+        lib_do = do.transpose(1, 2)
+        lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
+        for name, a, w in zip(("dq", "dk", "dv"), lib_grads, want):
+            _assert_grad_close(a.transpose(1, 2), w, f"SDPA autograd {name}")
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=visible, scale=scale)
+
+        times = {
+            "dkv_ms": _time_ms(lambda: fa.flash_self_attention_bwd(
+                *args, need_dq=False, delta=delta)),
+            "dq_ms": _time_ms(lambda: fa.flash_self_attention_bwd(
+                *args, need_dkv=False, delta=delta)),
+            "delta_ms": _time_ms(lambda: (out * do).sum(-1).permute(0, 2, 1).contiguous()),
+            # delta, dkv and dq as a training step's backward calls them
+            "backward_ms": _time_ms(lambda: fa.flash_self_attention_bwd(*args)),
+            # the plain backward gives all three gradients at once
+            "backward_plain_ms": _time_ms(lambda: fa.flash_self_attention_bwd_plain(
+                q, k, v, key_mask, scale, out_p, lse_p, do), reps=5),
+            "backward_library_ms": _time_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), lib_do, retain_graph=True)),
+            "fwd_ms": _time_ms(lambda: fa.flash_self_attention(q, k, v, key_mask, scale)),
+            "fwd_with_lse_ms": _time_ms(lambda: fa.flash_self_attention(
+                q, k, v, key_mask, scale, return_lse=True)),
+            "fwd_plain_ms": _time_ms(lambda: fa.flash_self_attention_plain(
+                q, k, v, key_mask, scale, return_lse=True), reps=5),
+            "fwd_library_ms": _time_ms(lib_fwd),
+        }
+        # what this data needs: a query sees the keys of its segment, so
+        # len^2 + (T - len)^2 pairs per row.  The backward as a function is
+        # five products (10 operations per pair and head-dim element); of
+        # them dkv does q.k^T, dO.v^T, p^T dO and dS^T q (8) and dq does
+        # q.k^T, dO.v^T and dS k (6), so the split does seven products for
+        # five.  The forward is two (4).  Bytes: q, k, v, (o,) dO read, the
+        # results written, seg / lse / delta rows.
+        pairs = float(sum(n * n + (t - n) * (t - n) for n in lens))
+        elems, rows = float(b * t * h * d), float(b * h * t)
+        bounds = {"backward": _bound(4.0 * (8 * elems + 2 * rows), 10.0 * pairs * h * d),
+                  "dkv_own_work": _bound(4.0 * (6 * elems + 3 * rows), 8.0 * pairs * h * d),
+                  "dq_own_work": _bound(4.0 * (5 * elems + 3 * rows), 6.0 * pairs * h * d),
+                  "fwd_with_lse": _bound(4.0 * (4 * elems + 2 * rows), 4.0 * pairs * h * d)}
+        line.update(times, bounds=bounds,
+                    backward_share_of_fp32_peak=(bounds["backward"]["bound_ms"]
+                                                 / times["backward_ms"]),
+                    library_call="F.scaled_dot_product_attention(attn_mask=segment mask) and "
+                                 "its autograd: dq, dk, dv together")
+        case.update(times=times, bounds=bounds)
+    _emit(line)
+    return case
+
+
+def phase_kernel_flash_bwd(device: torch.device) -> dict:
+    """K5-bwd (dK/dV kernel, dQ kernel) and the forward's log-sum-exp against
+    the plain versions at small ragged shapes and at two shapes longer than
+    the training phase's own; returns the worst error per result."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    cases = [(*case, False, "small ragged shape") for case in FLASH_BWD_SMALL]
+    for b, t, h, d in FLASH_LONG_SHAPES:
+        lens = rng.integers(int(0.4 * t), t + 1, b)
+        lens[0] = t  # one utterance fills the bucket
+        cases.append((b, t, h, d, [int(n) for n in lens], True,
+                      "batch 32 of utterances up to 20 s; not on the path of train_fastpitch"))
+    worst = {}
+    for b, t, h, d, lens, timed, where in cases:
+        key_mask = (torch.arange(t, device=device)[None, :]
+                    < torch.tensor(lens, device=device)[:, None])
+        case = _flash_bwd_case(gen, key_mask, h, d, timed, where)
+        for name, e in case["errors"].items():
+            worst[name] = max(worst.get(name, 0.0), e["max_abs_err"])
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst}
+
+
+class _PlainFlash:
+    """While active, the flash-attention wrappers take their plain versions
+    whatever the device."""
+
+    def __enter__(self):
+        from roar_tpu_torch.kernels import flash_attention as fa
+
+        self.saved = (fa.flash_self_attention, fa.flash_self_attention_bwd)
+
+        def bwd(q, k, v, key_mask, scale, o, lse, do, need_dq=True, need_dkv=True, delta=None):
+            return fa.flash_self_attention_bwd_plain(q, k, v, key_mask, scale, o, lse, do)
+
+        fa.flash_self_attention, fa.flash_self_attention_bwd = fa.flash_self_attention_plain, bwd
+
+    def __exit__(self, *exc):
+        from roar_tpu_torch.kernels import flash_attention as fa
+
+        fa.flash_self_attention, fa.flash_self_attention_bwd = self.saved
+
+
+# one FastPitch step with the kernels against one with their plain versions,
+# same weights, batch and dropout masks, fp32, TF32 off: the attention sums run
+# in another order through 12 layers forward and backward, and the backwards of
+# `F.ctc_loss`, of the embedding and of the gathers in length regulation add
+# with atomics, so two runs of ONE path differ too.  Held: the whole gradient
+# (|delta|_2 over |gradient|_2 across all tensors) and every tensor on its own.
+# A small tensor's gradient is a sum that nearly cancels (a conditional
+# LayerNorm projection read 1.3e-4 to 1.6e-3 over three runs on an H100), so
+# the per-tensor bar is wider; a wrong tile or mask gives errors near 1
+FP_TRAIN_LOSS_RTOL = 1e-4
+FP_TRAIN_GRAD_L2_TOL = 1e-3
+FP_TRAIN_TENSOR_L2_TOL = 2e-2
+FP_LOSS_TERMS = ("loss", "mel_loss", "dur_loss", "pitch_loss", "energy_loss", "ctc_loss",
+                 "bin_loss")
+
+
+def _narrow_fastpitch(cfg: dict) -> None:
+    """Shrink a FastPitch training config to a rehearsal width, in place."""
+    model = cfg["model"]
+    model["symbols_embedding_dim"] = 32
+    for fft in ("input_fft", "output_fft"):
+        model[fft].update(n_layer=2, d_model=32, d_head=16, n_head=2, d_inner=48)
+    model["input_fft"]["d_embed"] = 32
+    for predictor in ("duration_predictor", "pitch_predictor", "energy_predictor"):
+        model[predictor].update(input_size=32, filter_size=16)
+    model["alignment_module"]["n_text_channels"] = 32
+    model["speaker_encoder"]["lookup_module"]["embedding_dim"] = 32
+
+
+def _fastpitch_batch(cfg: dict, tokenizer, device: torch.device) -> dict:
+    """The collated training batch of `cfg` that holds the longest utterances
+    (the largest buckets a step meets), on `device`."""
+    from roar_tpu_torch.data.dataset import BucketSpec
+    from roar_tpu_torch.data.sampling import LengthBucketBatchSampler
+    from roar_tpu_torch.training.run import batch_iterator, build_tts_dataset
+    from roar_tpu_torch.training.trainer import to_device
+
+    dataset = build_tts_dataset(cfg["model"]["train_ds"]["dataset"], tokenizer, device)
+    batch_size = cfg["model"]["train_ds"]["dataloader_params"]["batch_size"]
+    sampler = LengthBucketBatchSampler(dataset.lengths, batch_size=batch_size, shuffle=False,
+                                       drop_last=True)
+    longest = max(sampler, key=lambda idxs: max(dataset.lengths[i] for i in idxs))
+    return to_device(next(iter(batch_iterator(dataset, [longest], BucketSpec()))), device)
+
+
+def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: int = 128,
+                          steps: int = 8, batch_size: int = 32, max_seconds: float = 10.0,
+                          narrow: bool = False) -> dict:
+    """FastPitch training with learned alignment: sup-data extraction, then
+    the training CLI's `run`; returns the flash-attention launch counts of
+    that run."""
+    import copy
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "examples", "tts"))
+    sys.path.insert(0, os.path.join(here, "scripts", "dataset_processing", "tts"))
+    import extract_sup_data_torch as sup_cli
+    import fastpitch_torch as cli
+
+    from roar_tpu_torch.data.audio import write_wav
+    from roar_tpu_torch.data.manifest import write_manifest
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models.fastpitch_model import FastPitchModel, make_tokenizer
+    from roar_tpu_torch.models.hifigan_model import vocoder_from_config
+    from roar_tpu_torch.serving import SynthesisEngine
+    from roar_tpu_torch.training import convert
+    from roar_tpu_torch.training.optim import noam_annealing
+    from roar_tpu_torch.training.save_restore import restore_from
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    rng = np.random.default_rng(SEED + 2)
+    tokenizer = make_tokenizer(fastpitch_config()["text_tokenizer"])
+    n_tokens = [len(tokenizer(s)) for s in TAMIL_SENTENCES]
+    benchmark_was = torch.backends.cudnn.benchmark
+    # training meets a new conv shape per bucket: no autotuning of each (the
+    # workspaces cuDNN tries would also count as this phase's peak memory)
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            wav_dir = os.path.join(tmp, "wavs")
+            os.makedirs(wav_dir)
+            seconds = rng.uniform(min(2.0, max_seconds / 2), max_seconds, n_utterances)
+            seconds[0] = max_seconds
+            entries = []
+            for i, sec in enumerate(seconds):
+                audio = synth_utterance(rng, float(sec))[0]
+                frames = len(audio) // 512 + 1
+                # a text its mel can hold: at least two frames per token
+                fits = [j for j, n in enumerate(n_tokens) if 2 * n <= frames]
+                if not fits:
+                    raise AssertionError(f"no sentence fits {frames} mel frames")
+                path = os.path.join(wav_dir, f"utt{i:03d}.wav")
+                write_wav(path, audio, SUP_SAMPLE_RATE)
+                entries.append({"audio_filepath": path, "duration": len(audio) / SUP_SAMPLE_RATE,
+                                "text": TAMIL_SENTENCES[fits[int(rng.integers(len(fits)))]],
+                                "speaker_id": i % 4})
+            manifest = os.path.join(tmp, "train_manifest.json")
+            val_manifest = os.path.join(tmp, "val_manifest.json")
+            write_manifest(manifest, entries)
+            write_manifest(val_manifest, entries[:batch_size])
+
+            # stage 1 feeds stage 2: pitch, energy and the prior's lengths come from this cache
+            sup_dir = os.path.join(tmp, "sup")
+            stats = sup_cli.run(sup_data_config(manifest, sup_dir, str(device)))
+            cfg = fastpitch_train_config(
+                manifest, val_manifest, sup_dir, os.path.join(tmp, "exp"), stats["pitch_mean"],
+                stats["pitch_std"], str(device), steps, batch_size)
+            if narrow:
+                _narrow_fastpitch(cfg)
+            steps_per_epoch = n_utterances // batch_size
+            # an epoch that ends before the last step is followed by validation
+            val_epochs = -(-steps // steps_per_epoch) - 1
+            val_batches = val_epochs * (min(batch_size, len(entries)) // batch_size)
+
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            fa.LAUNCHES = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_BWD_DQ = 0
+            t0 = time.perf_counter()
+            state = cli.run(cfg)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = {"fwd": fa.LAUNCHES, "dkv": fa.LAUNCHES_BWD_DKV, "dq": fa.LAUNCHES_BWD_DQ}
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            model = state.model
+            module = model.module
+            n_attn = len(module.encoder_module.stack.layers) + len(module.decoder_module.layers)
+            want = {"fwd": n_attn * (steps + val_batches), "dkv": n_attn * steps,
+                    "dq": n_attn * steps}
+            if state.step != steps or n_attn != (4 if narrow else 12):
+                raise AssertionError(f"{state.step} steps, {n_attn} attention layers")
+            if model.attention_paths() != {"input_fft": "flash", "output_fft": "flash"}:
+                raise AssertionError(f"attention paths {model.attention_paths()}")
+            if on_card and launches != want:
+                raise AssertionError(f"flash launches {launches} != {want}: an attention layer "
+                                     f"went round its kernel, or validation ran a backward")
+
+            root = os.path.join(tmp, "exp", "FastPitch")
+            with open(os.path.join(root, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f if line.strip()]
+            train = [r for r in records if "mel_loss" in r]
+            val = [r for r in records if "val_mel_loss" in r]
+            if [r["step"] for r in train] != list(range(1, steps + 1)):
+                raise AssertionError(f"logged steps {[r['step'] for r in train]}")
+            for r in train:
+                bad = [k for k in FP_LOSS_TERMS + ("grad_norm",)
+                       if not np.isfinite(r.get(k, np.nan))]
+                if bad:
+                    raise AssertionError(f"step {r['step']}: {bad} missing or not finite")
+            if any(r["bin_loss"] != 0.0 for r in train[:steps_per_epoch]):
+                raise AssertionError("bin_loss carries weight in epoch 0")
+            if len(val) != (1 if val_batches else 0) or not all(
+                    np.isfinite(r[f"val_{k}"]) for r in val for k in FP_LOSS_TERMS):
+                raise AssertionError(f"validation records {val}")
+            sched = cfg["model"]["optim"]["sched"]
+            schedule = noam_annealing(cfg["model"]["optim"]["lr"], d_model=sched["d_model"],
+                                      warmup_steps=sched["warmup_steps"])
+            lrs = [r["lr"] for r in train]
+            if not np.allclose(lrs, [schedule(i) for i in range(steps)], rtol=1e-9, atol=0.0):
+                raise AssertionError(f"learning rates {lrs} are not the schedule's")
+            _emit({"phase": "train_fastpitch", "step": "cli", "card": card, "steps": steps,
+                   "batch": batch_size, "utterances": n_utterances,
+                   "seconds_of_audio": float(seconds.sum()),
+                   "sup_data": {k: stats[k] for k in ("pitch_mean", "pitch_std", "mel_frames",
+                                                      "seconds")},
+                   "flash_launches": launches, "attention_layers": n_attn,
+                   "per_step": {k: launches[k] // steps for k in ("dkv", "dq")},
+                   "validation_batches": val_batches,
+                   "losses_first": {k: train[0][k] for k in FP_LOSS_TERMS},
+                   "losses_last": {k: train[-1][k] for k in FP_LOSS_TERMS},
+                   "val": {k: v for r in val for k, v in r.items() if k.startswith("val_")},
+                   "grad_norm": [r["grad_norm"] for r in train], "lr": lrs, "wall_s": wall,
+                   "wall_includes": "model build, WAV reads, cache reads, logging every step "
+                                    "(a sync each), one validation batch, checkpoints, bundle",
+                   "peak_device_memory_bytes": peak})
+
+            # one step, kernels against plain versions: same weights, batch and dropout masks
+            batch = _fastpitch_batch(cfg, model.tokenizer, device)
+            epoch = 50  # half of the bin-loss warm-up: every term carries weight
+
+            def one_step(m):
+                m.set_dropout_generator(torch.Generator(device=device).manual_seed(7))
+                m.module.train()
+                m.module.zero_grad(set_to_none=True)
+                seen = {}
+                hook = m.module.register_forward_hook(
+                    lambda mod, args, out: seen.update(durs=out["attn_hard_dur"]))
+                try:
+                    loss, metrics = m.loss_fn(batch, epoch)
+                finally:
+                    hook.remove()
+                loss.backward()
+                sync()
+                return {k: float(v) for k, v in metrics.items()}, seen["durs"]
+
+            twin = copy.deepcopy(model)
+            before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+            # what this step hands the attention kernels: shape -> key mask
+            given, forward = {}, fa.flash_self_attention
+
+            def noting(q, k, v, key_mask, scale, **kwargs):
+                given.setdefault(tuple(q.shape), key_mask)
+                return forward(q, k, v, key_mask, scale, **kwargs)
+
+            fa.flash_self_attention = noting
+            try:
+                metrics_k, durs_k = one_step(model)
+            finally:
+                fa.flash_self_attention = forward
+            step_launches = tuple(b - a for a, b in zip(
+                before, (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)))
+            if on_card and step_launches != (n_attn, n_attn, n_attn):
+                raise AssertionError(f"one step launched {step_launches}, not {n_attn} of each")
+            with _PlainFlash():
+                metrics_p, durs_p = one_step(twin)
+            for k in FP_LOSS_TERMS:
+                if abs(metrics_k[k] - metrics_p[k]) > FP_TRAIN_LOSS_RTOL * abs(metrics_p[k]):
+                    raise AssertionError(f"{k}: kernels {metrics_k[k]} vs plain {metrics_p[k]}")
+            if not torch.equal(durs_k, durs_p):
+                raise AssertionError("hard alignments differ between the kernel and plain paths")
+            if not torch.equal(durs_k.sum(1).long(), batch["mel_len"].long()):
+                raise AssertionError(f"hard durations sum to {durs_k.sum(1).tolist()}, mel lengths "
+                                     f"are {batch['mel_len'].tolist()}")
+            worst = {"grad_l2": 0.0, "tensor": ""}
+            delta_sq = total_sq = 0.0
+            for (name, pk), (_, pp) in zip(model.module.named_parameters(),
+                                            twin.module.named_parameters()):
+                delta, norm = float((pk.grad - pp.grad).norm()), float(pp.grad.norm())
+                delta_sq, total_sq = delta_sq + delta ** 2, total_sq + norm ** 2
+                l2 = delta / max(norm, 1e-30)
+                if l2 > worst["grad_l2"]:
+                    worst = {"grad_l2": l2, "tensor": name}
+                if l2 > FP_TRAIN_TENSOR_L2_TOL:
+                    raise AssertionError(f"{name}: gradient differs between kernel path and plain "
+                                         f"path by {l2} (L2, relative)")
+            whole_l2 = (delta_sq / max(total_sq, 1e-60)) ** 0.5
+            if whole_l2 > FP_TRAIN_GRAD_L2_TOL:
+                raise AssertionError(f"the whole gradient differs between kernel path and plain "
+                                     f"path by {whole_l2} (L2, relative)")
+            _emit({"phase": "train_fastpitch", "step": "kernel_path_vs_plain_path", "epoch": epoch,
+                   "batch_shapes": {k: list(v.shape) for k, v in batch.items()},
+                   "kernels": metrics_k, "plain": metrics_p, "loss_rtol": FP_TRAIN_LOSS_RTOL,
+                   "whole_grad_l2_rel_err": whole_l2, "grad_l2_tol": FP_TRAIN_GRAD_L2_TOL,
+                   "max_grad_l2_rel_err": worst["grad_l2"],
+                   "tensor_l2_tol": FP_TRAIN_TENSOR_L2_TOL,
+                   "worst_gradient_tensor": worst["tensor"], "hard_durations_equal": True,
+                   "hard_durations_sum_to_mel_lens": True})
+            del twin
+
+            # the attention kernels against their plain versions at the shapes
+            # and key lengths that step gave them: the encoder's (text bucket)
+            # and the decoder's (mel bucket)
+            if on_card:
+                if len(given) != 2 or any(m is None for m in given.values()):
+                    raise AssertionError(f"the step gave its attention {list(given)}")
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                flash = {}
+                for (_, t, h, d), key_mask in sorted(given.items()):
+                    flash[t] = _flash_bwd_case(
+                        gen, key_mask, h, d, True,
+                        "the longest batch of train_fastpitch, its own key lengths")
+
+            # the bundle: read back, loaded and served by the engine
+            path = os.path.join(root, "checkpoints", "FastPitch.roar")
+            bundle_cfg, tree = restore_from(path)
+            # eight steps teach no durations (most tokens get 0 frames): a floor
+            # of one frame per token gives the vocoder something to render
+            bundle_cfg["model"]["min_token_duration"] = 1
+            served = FastPitchModel(bundle_cfg["model"])
+            convert.load_fastpitch_params(served.module, tree)
+            for (name, a), (_, b) in zip(served.module.state_dict().items(),
+                                         state.model.module.state_dict().items()):
+                if not torch.equal(a, b.cpu()):
+                    raise AssertionError(f"bundle parameter {name} is not the trained one")
+            hg_cfg = hifigan_config()
+            if narrow:
+                hg_cfg["generator"]["upsample_initial_channel"] = 16
+            vocoder = vocoder_from_config(hg_cfg)
+            seed_weights(vocoder, np.random.default_rng(SEED))
+            engine = SynthesisEngine(served, vocoder, device=device)
+            try:
+                sentence = TAMIL_SENTENCES[1]
+                tokens = torch.from_numpy(served.parse(sentence)).long().to(device)
+                mel, n_frames = served.generate_spectrogram(
+                    tokens, torch.tensor([1], device=device), max_mel_len=1024)
+                (wave,) = engine.synthesize_batch([sentence], [1])
+            finally:
+                engine.close()
+            if tuple(mel.shape) != (1, 1024, 80) or not torch.isfinite(mel).all():
+                raise AssertionError(f"mel of the trained bundle: {tuple(mel.shape)} or not finite")
+            if wave.dtype != np.int16 or wave.size != int(n_frames[0]) * engine.hop \
+                    or wave.size == 0:
+                raise AssertionError(f"served audio: {wave.dtype}, {wave.size} samples for "
+                                     f"{int(n_frames[0])} mel frames")
+            _emit({"phase": "train_fastpitch", "step": "bundle",
+                   "bundle_bytes": os.path.getsize(path),
+                   "parameters_equal_trained": True, "mel_shape": list(mel.shape),
+                   "mel_frames": int(n_frames[0]), "served_samples": int(wave.size)})
+
+            result = {"launches": launches}
+            if on_card:
+                result["flash"] = flash
+                result["timing"] = _time_fastpitch_step(model, batch, cfg, card)
+            return result
+    finally:
+        torch.backends.cudnn.benchmark = benchmark_was
+
+
+def _time_fastpitch_step(model, batch, cfg: dict, card: str) -> dict:
+    """Step time (median of 5 after two warm steps, CUDA events), its split
+    by forward hooks and the marks of `loss_fn` and `train_step`, and the time
+    of forward-sum and of the flash kernels inside a step (events around
+    every call, in two further steps)."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models import fastpitch_model as fpm
+    from roar_tpu_torch.training.optim import build_optimizer
+    from roar_tpu_torch.training.trainer import TrainState, train_step
+
+    device = batch["audio"].device
+    generator = torch.Generator(device=device).manual_seed(0)
+    model.set_dropout_generator(generator)
+    model.module.zero_grad(set_to_none=True)
+    state = TrainState(model=model, opt=build_optimizer(
+        model.parameters(), cfg["model"]["optim"],
+        gradient_clip_val=cfg["trainer"]["gradient_clip_val"]), dropout_generator=generator)
+    module = model.module
+    parts = ("mel_front_end", "encoder", "duration_predictor", "aligner", "mas",
+             "prosody_and_length_regulation", "decoder", "model_forward", "losses", "backward",
+             "optimizer")
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    hooks = [
+        module.encoder_module.register_forward_hook(lambda *a: mark("encoder")),
+        module.aligner_module.register_forward_pre_hook(lambda *a: mark("duration_predictor")),
+        module.aligner_module.register_forward_hook(lambda *a: mark("aligner")),
+        module.pitch_predictor_module.register_forward_pre_hook(lambda *a: mark("mas")),
+        module.decoder_module.register_forward_pre_hook(
+            lambda *a: mark("prosody_and_length_regulation")),
+        module.decoder_module.register_forward_hook(lambda *a: mark("decoder")),
+    ]
+    totals, splits = [], {p: [] for p in parts}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(7):
+            events.clear()
+            mark("start")
+            train_step(state, batch, 0, mark=mark)
+            torch.cuda.synchronize()
+            if i < 2:
+                continue
+            totals.append(events["start"].elapsed_time(events["optimizer"]))
+            for before, name in zip(("start",) + parts, parts):
+                splits[name].append(events[before].elapsed_time(events[name]))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    peak = torch.cuda.max_memory_allocated()
+
+    spans = {"flash_fwd": [], "flash_bwd": [], "forward_sum": []}
+    saved = (fa.flash_self_attention, fa.flash_self_attention_bwd, fpm.forward_sum_loss)
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    n_steps = 2
+    try:
+        fa.flash_self_attention = timed("flash_fwd", saved[0])
+        fa.flash_self_attention_bwd = timed("flash_bwd", saved[1])
+        fpm.forward_sum_loss = timed("forward_sum", saved[2])
+        for _ in range(n_steps):
+            train_step(state, batch, 0)
+        torch.cuda.synchronize()
+    finally:
+        fa.flash_self_attention, fa.flash_self_attention_bwd, fpm.forward_sum_loss = saved
+    inside = {n: sum(a.elapsed_time(b) for a, b in pairs) / n_steps for n, pairs in spans.items()}
+    step_ms = float(np.median(totals))
+    split = {p: float(np.median(v)) for p, v in splits.items()}
+    split["mel_projection"] = split.pop("model_forward")
+    timing = {"phase": "train_fastpitch", "step": "timing", "card": card,
+              "batch_shapes": {k: list(batch[k].shape) for k in ("text", "audio", "pitch")},
+              "step_ms": step_ms, "step_ms_all": totals, "split_ms": split,
+              "forward_sum_forward_ms": inside["forward_sum"],
+              "flash_ms_per_step": {"fwd": inside["flash_fwd"],
+                                    "bwd_delta_dkv_dq": inside["flash_bwd"]},
+              "flash_calls_per_step": {n: len(v) // n_steps for n, v in spans.items()},
+              "flash_share_of_step": (inside["flash_fwd"] + inside["flash_bwd"]) / step_ms,
+              "peak_device_memory_bytes": peak,
+              "method": "CUDA events; median of 5 steps after 2 warm steps; TF32 off; batch "
+                        "already on the card; `losses` holds the forward of forward-sum, "
+                        "`backward` its backward"}
+    _emit(timing)
+    return timing
+
+
 def _post(url: str, payload: dict, timeout: float = 300.0):
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -1267,19 +1942,68 @@ def main() -> int:
     kern = phase_kernel(device)
     vit = phase_kernel_viterbi(device)
     conv = phase_kernel_grouped_conv(device)
+    fbwd = phase_kernel_flash_bwd(device)
     run = phase_slice(device, fastpitch_config(), hifigan_config(), TAMIL_SENTENCES, card)
     sup = phase_supdata(device, card)
     train = phase_train_hifigan(device, card)
+    fp_train = phase_train_fastpitch(device, card)
 
     def pick(d):
         return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
-    _emit({"kernels": [
+    # K5 on the training path: one encoder-layer launch (text bucket) plus
+    # one decoder-layer launch (mel bucket) of the longest batch, summed; a
+    # step makes six of each
+    flash = fp_train["flash"]
+
+    def over_shapes(get):
+        return sum(get(case) for case in flash.values())
+
+    def flash_errs(*names):
+        return max(max(case["errors"][n]["max_abs_err"] for case in flash.values()) for n in names)
+
+    flash_shapes = {str(t): {**case["times"],
+                             **{k: v["bound_ms"] for k, v in case["bounds"].items()}}
+                    for t, case in flash.items()}
+    backward_bound = over_shapes(lambda c: c["bounds"]["backward"]["bound_ms"])
+    kernels = [
+        # `ms` and its neighbours: serving's decoder shape (8, 3072, 1, 64);
+        # `train_fastpitch`: the same at the training step's two shapes, with
+        # the log-sum-exp written
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/transformer.py:72",
-         "launches": run["launches"], "max_abs_err": kern["max_abs_err"],
-         **pick(kern), "library_ms": kern["library_ms"]},
+         "launches": run["launches"], "launches_train_fastpitch": fp_train["launches"]["fwd"],
+         "max_abs_err": max(kern["max_abs_err"], fbwd["max_abs_err"]["o"], flash_errs("o")),
+         **pick(kern), "library_ms": kern["library_ms"],
+         "train_fastpitch": {
+             "ms": over_shapes(lambda c: c["times"]["fwd_with_lse_ms"]),
+             "plain_ms": over_shapes(lambda c: c["times"]["fwd_plain_ms"]),
+             "bound_ms": over_shapes(lambda c: c["bounds"]["fwd_with_lse"]["bound_ms"]),
+             "bound_by": flash[max(flash)]["bounds"]["fwd_with_lse"]["bound_by"],
+             "library_ms": over_shapes(lambda c: c["times"]["fwd_library_ms"]),
+             "lse_max_abs_err": max(fbwd["max_abs_err"]["lse"], flash_errs("lse")),
+             "by_mel_or_text_bucket": flash_shapes}},
+        # K5-bwd: `bound_ms` is that of the whole backward (five products),
+        # which the two kernels and the delta reduction share; `backward_ms`
+        # times them together; plain and library give dq, dk and dv in one
+        # call too.  `own_work_bound_ms` counts the products this kernel does
+        # itself (the split recomputes q.k^T and dO.v^T)
+        *[{"name": f"flash_attention_bwd_{name}", "route": "cuda",
+           "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu", "replaces": replaces,
+           "launches": fp_train["launches"][name],
+           "max_abs_err": max(*(fbwd["max_abs_err"][g] for g in grads), flash_errs(*grads)),
+           "ms": over_shapes(lambda c: c["times"][f"{name}_ms"]),
+           "backward_ms": over_shapes(lambda c: c["times"]["backward_ms"]),
+           "plain_ms": over_shapes(lambda c: c["times"]["backward_plain_ms"]),
+           "bound_ms": backward_bound,
+           "bound_by": flash[max(flash)]["bounds"]["backward"]["bound_by"],
+           "own_work_bound_ms": over_shapes(
+               lambda c: c["bounds"][f"{name}_own_work"]["bound_ms"]),
+           "library_ms": over_shapes(lambda c: c["times"]["backward_library_ms"])}
+          for name, grads, replaces in (
+              ("dkv", ("dk", "dv"), "roar_tpu/models/transformer.py:110"),
+              ("dq", ("dq",), "roar_tpu/models/transformer.py:110"))],
         {"name": "pyin_viterbi_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:34",
@@ -1301,7 +2025,10 @@ def main() -> int:
           for name, replaces in (("fwd", "roar_tpu/ops/grouped_conv.py:208"),
                                  ("dx", "roar_tpu/ops/grouped_conv.py:208"),
                                  ("dw", "roar_tpu/ops/grouped_conv.py:272"))],
-    ]})
+    ]
+    if not all(k["launches"] > 0 for k in kernels) or fp_train["launches"]["fwd"] == 0:
+        raise AssertionError(f"a kernel was launched no time on its path: {kernels}")
+    _emit({"kernels": kernels})
     print(card, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

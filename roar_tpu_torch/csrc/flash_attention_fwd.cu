@@ -24,6 +24,12 @@
 // for a tile of valid queries, and the reverse): when half of a decoder
 // bucket is padding, about half the passes.  Tensor cores (wgmma), TMA and
 // bf16 are later work.
+//
+// Training: when the caller passes `lse`, each in-range row also writes its
+// log-sum-exp `m + log l` to lse[B, H, T] (one tensor in place of the TPU
+// kernel's lane-broadcast `l` and `m`), the residual the backward kernels in
+// flash_attention_bwd.cu recompute the probabilities from.  With a null
+// pointer the kernel does what it did before.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -47,7 +53,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ seg,
-                 float* __restrict__ out, int T, int H, float scale) {
+                 float* __restrict__ out, float* __restrict__ lse, int T, int H,
+                 float scale) {
   constexpr int DP = D + 1;   // padded row stride of the Q and K tiles
   constexpr int CJ = D / 16;  // output columns per thread
   constexpr int D4 = D / 4;   // float4s per row
@@ -201,33 +208,35 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float inv = 1.f / l[i];
 #pragma unroll
       for (int j = 0; j < CJ; ++j) out[base + t * ld + tx + 16 * j] = acc[i][j] * inv;
+      if (lse != nullptr && tx == 0) lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
     }
   }
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, const int* seg,
-                   float* out, int B, int T, int H, float scale, cudaStream_t stream) {
+                   float* out, float* lse, int B, int T, int H, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, seg, out, T, H, scale);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, seg, out, lse, T, H, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int roar_flash_attention_fwd(const float* q, const float* k, const float* v,
-                                        const int* seg, float* out, int B, int T, int H,
-                                        int D, float scale, void* stream) {
+                                        const int* seg, float* out, float* lse, int B, int T,
+                                        int H, int D, float scale, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return (int)launch<32>(q, k, v, seg, out, B, T, H, scale, s);
-    case 64: return (int)launch<64>(q, k, v, seg, out, B, T, H, scale, s);
-    case 128: return (int)launch<128>(q, k, v, seg, out, B, T, H, scale, s);
+    case 32: return (int)launch<32>(q, k, v, seg, out, lse, B, T, H, scale, s);
+    case 64: return (int)launch<64>(q, k, v, seg, out, lse, B, T, H, scale, s);
+    case 128: return (int)launch<128>(q, k, v, seg, out, lse, B, T, H, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

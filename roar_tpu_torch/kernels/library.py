@@ -84,8 +84,14 @@ def load_library() -> ctypes.CDLL:
     """The kernel library, built on first call and loaded once per process."""
     lib = ctypes.CDLL(str(build_library()))
     fa = lib.roar_flash_attention_fwd
-    fa.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fa.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fa.restype = ctypes.c_int
+    # q, k, v, seg, lse, delta, dout, then the outputs (dk, dv | dq)
+    for name, n_out in (("roar_flash_attention_bwd_dkv", 2), ("roar_flash_attention_bwd_dq", 1)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     vf = lib.roar_pyin_viterbi_fwd
     vf.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
                    + [ctypes.c_void_p])

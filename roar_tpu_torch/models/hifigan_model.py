@@ -115,6 +115,13 @@ class HifiGanModel:
             m.to(device)
         return self
 
+    def to_jax_tree(self) -> Dict[str, Any]:
+        """`{'g_params', 'd_params', 'd_stats'}` as the JAX package's task
+        holds them (what a `.roar` bundle stores)."""
+        from roar_tpu_torch.training import convert
+
+        return convert.to_jax_tree(self.generator, self.mpd, self.msd)
+
     def g_parameters(self):
         return list(self.generator.parameters())
 

@@ -1,6 +1,7 @@
-"""Shared neural submodules: conditional LayerNorm and conditional input.
+"""Shared neural submodules: `ConvNorm`, conditional LayerNorm, conditional
+input, and the dropout the training modules share.
 
-Port of roar_tpu/models/submodules.py:75-163.  Activations are [B, T, C].
+Port of roar_tpu/models/submodules.py:54-163.  Activations are [B, T, C].
 LayerNorm epsilon is 1e-6, flax's default, not torch's 1e-5.
 """
 
@@ -13,12 +14,54 @@ from torch import nn
 
 SUPPORTED_CONDITION_TYPES = ("add", "concat", "layernorm")
 LN_EPS = 1e-6
+XAVIER_GAINS = {"linear": 1.0, "relu": 2.0 ** 0.5, "tanh": 5.0 / 3.0, "sigmoid": 1.0}
 
 
 def check_support_condition_types(condition_types: Sequence[str]) -> None:
     for tp in condition_types:
         if tp not in SUPPORTED_CONDITION_TYPES:
             raise ValueError(f"Unknown conditioning type {tp}")
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: in training mode each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate); the identity in eval
+    mode or at rate 0.  The mask comes from `generator` (on the input's
+    device) when one was set with `set_dropout_generator`, else from torch's
+    default generator of that device."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.rate <= 0.0:
+            return x
+        keep = torch.rand(x.shape, device=x.device, generator=self.generator) >= self.rate
+        return x * keep.to(x.dtype) / (1.0 - self.rate)
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Make every `Dropout` under `module` draw its masks from `generator`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class ConvNorm(nn.Module):
+    """1-D conv over [B, T, C] with "same" padding
+    (roar_tpu/models/submodules.py:54; `w_init_gain` names the xavier gain
+    its initialiser uses)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 1,
+                 w_init_gain: str = "linear"):
+        super().__init__()
+        self.w_init_gain = w_init_gain
+        self.conv = nn.Conv1d(in_channels, features, kernel_size, padding="same")
+
+    def forward(self, x):
+        return self.conv(x.transpose(1, 2)).transpose(1, 2)
 
 
 class ConditionalLayerNorm(nn.Module):

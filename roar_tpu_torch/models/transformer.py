@@ -1,15 +1,20 @@
-"""FastPitch "FFT" transformer blocks, inference only.
+"""FastPitch "FFT" transformer blocks, for serving and training.
 
 Port of roar_tpu/models/transformer.py: sinusoidal positions, `MultiHeadAttn`,
 `PositionwiseConvFF`, `TransformerLayer`, `FFTransformerDecoder` and
 `FFTransformerEncoder`.  Activations are [B, T, C] and attention heads
-[B, T, H, D], as in the JAX package.  Dropout is absent: the port serves.
+[B, T, H, D], as in the JAX package.  `dropout`, `dropatt` and `dropemb` act
+in training mode only (`submodules.Dropout`).
 
 Attention has two paths, as in JAX:
-- `use_flash=True`: `kernels.flash_attention.flash_self_attention`, the CUDA
-  kernel on a CUDA tensor (segment semantics: pad queries see pad keys);
+- `use_flash=True`: `ops.flash_attention.flash_self_attention`, the CUDA
+  kernels on a CUDA tensor, forward and backward (segment semantics: pad
+  queries see pad keys);
 - otherwise the plain einsum path with an additive -1e9 key mask.
 Both give the same valid rows; pad rows are zeroed by the layer's mask.
+The flash kernels cannot drop attention probabilities, so, as in JAX
+(roar_tpu/models/transformer.py:165-166), `use_flash` with `dropatt > 0`
+takes the einsum path while the module is in training mode.
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from roar_tpu_torch.kernels.flash_attention import flash_self_attention
-from roar_tpu_torch.models.submodules import ConditionalInput, ConditionalLayerNorm
+from roar_tpu_torch.models.submodules import ConditionalInput, ConditionalLayerNorm, Dropout
+from roar_tpu_torch.ops.flash_attention import flash_self_attention
 
 _MASK_NEG = -1e9
 
@@ -52,7 +57,7 @@ class MultiHeadAttn(nn.Module):
 
     def __init__(self, n_head: int, d_model: int, d_head: int, pre_lnorm: bool = False,
                  condition_types: Sequence[str] = (), use_rope: bool = False,
-                 use_flash: bool = False):
+                 use_flash: bool = False, dropout: float = 0.0, dropatt: float = 0.0):
         super().__init__()
         if use_rope:
             raise NotImplementedError("RoPE attention is not ported yet")
@@ -62,6 +67,14 @@ class MultiHeadAttn(nn.Module):
         self.qkv_net = nn.Linear(d_model, 3 * n_head * d_head)
         self.o_net = nn.Linear(n_head * d_head, d_model, bias=False)
         self.layer_norm = ConditionalLayerNorm(d_model, d_model, condition_types)
+        self.drop = Dropout(dropout)
+        self.dropatt = Dropout(dropatt)
+
+    def attention_path(self) -> str:
+        """"flash" or "einsum": the path `forward` takes in the module's
+        present mode."""
+        drop_active = self.dropatt.rate > 0.0 and self.training
+        return "flash" if self.use_flash and not drop_active else "einsum"
 
     def forward(self, x, key_mask=None, conditioning=None):
         residual = x
@@ -70,14 +83,15 @@ class MultiHeadAttn(nn.Module):
         b, t, _ = x.shape
         q, k, v = (z.reshape(b, t, self.n_head, self.d_head).contiguous()
                    for z in self.qkv_net(x).chunk(3, dim=-1))
-        if self.use_flash:
+        if self.attention_path() == "flash":
             attn = flash_self_attention(q, k, v, key_mask, self.scale)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * self.scale
             if key_mask is not None:
                 scores = scores + torch.where(key_mask[:, None, None, :], 0.0, _MASK_NEG)
-            attn = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
-        out = self.o_net(attn.reshape(b, t, self.n_head * self.d_head))
+            probs = self.dropatt(torch.softmax(scores, dim=-1))
+            attn = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        out = self.drop(self.o_net(attn.reshape(b, t, self.n_head * self.d_head)))
         if self.pre_lnorm:
             return residual + out
         return self.layer_norm(residual + out, conditioning)
@@ -88,15 +102,17 @@ class PositionwiseConvFF(nn.Module):
     conditional LayerNorm."""
 
     def __init__(self, d_model: int, d_inner: int, kernel_size: int,
-                 pre_lnorm: bool = False, condition_types: Sequence[str] = ()):
+                 pre_lnorm: bool = False, condition_types: Sequence[str] = (),
+                 dropout: float = 0.0):
         super().__init__()
         self.pre_lnorm = pre_lnorm
         self.conv1 = nn.Conv1d(d_model, d_inner, kernel_size, padding="same")
         self.conv2 = nn.Conv1d(d_inner, d_model, kernel_size, padding="same")
         self.layer_norm = ConditionalLayerNorm(d_model, d_model, condition_types)
+        self.drop = Dropout(dropout)
 
     def _core(self, x):
-        return conv1d_btc(self.conv2, F.relu(conv1d_btc(self.conv1, x)))
+        return self.drop(conv1d_btc(self.conv2, F.relu(conv1d_btc(self.conv1, x))))
 
     def forward(self, x, conditioning=None):
         if self.pre_lnorm:
@@ -108,12 +124,12 @@ class TransformerLayer(nn.Module):
     def __init__(self, n_head: int, d_model: int, d_head: int, d_inner: int,
                  kernel_size: int, pre_lnorm: bool = False,
                  condition_types: Sequence[str] = (), use_rope: bool = False,
-                 use_flash: bool = False):
+                 use_flash: bool = False, dropout: float = 0.0, dropatt: float = 0.0):
         super().__init__()
         self.dec_attn = MultiHeadAttn(n_head, d_model, d_head, pre_lnorm,
-                                      condition_types, use_rope, use_flash)
+                                      condition_types, use_rope, use_flash, dropout, dropatt)
         self.pos_ff = PositionwiseConvFF(d_model, d_inner, kernel_size, pre_lnorm,
-                                         condition_types)
+                                         condition_types, dropout)
 
     def forward(self, x, mask, conditioning=None):
         # mask: [B, T, 1] float, 1 = valid
@@ -129,18 +145,23 @@ class FFTransformerDecoder(nn.Module):
     def __init__(self, n_layer: int, n_head: int, d_model: int, d_head: int,
                  d_inner: int, kernel_size: int, pre_lnorm: bool = False,
                  condition_types: Sequence[str] = (), use_rope: bool = False,
-                 use_flash: bool = False):
+                 use_flash: bool = False, dropout: float = 0.0, dropatt: float = 0.0,
+                 dropemb: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.cond_input = ConditionalInput(d_model, d_model, condition_types)
+        self.dropemb = Dropout(dropemb)
         self.layers = nn.ModuleList(
             TransformerLayer(n_head, d_model, d_head, d_inner, kernel_size, pre_lnorm,
-                             condition_types, use_rope, use_flash)
+                             condition_types, use_rope, use_flash, dropout, dropatt)
             for _ in range(n_layer))
+
+    def attention_path(self) -> str:
+        return self.layers[0].dec_attn.attention_path() if len(self.layers) else "none"
 
     def forward(self, x, mask, conditioning=None):
         pos = sinusoidal_positional_embedding(x.shape[1], self.d_model, x.device, x.dtype)
-        x = self.cond_input(x + pos[None] * mask, conditioning)
+        x = self.dropemb(self.cond_input(x + pos[None] * mask, conditioning))
         for layer in self.layers:
             x = layer(x, mask, conditioning)
         return x, mask
@@ -154,16 +175,22 @@ class FFTransformerEncoder(nn.Module):
                  d_inner: int, kernel_size: int, n_embed: int,
                  d_embed: Optional[int] = None, padding_idx: int = 0,
                  pre_lnorm: bool = False, condition_types: Sequence[str] = (),
-                 use_rope: bool = False, use_flash: bool = False):
+                 use_rope: bool = False, use_flash: bool = False, dropout: float = 0.0,
+                 dropatt: float = 0.0, dropemb: float = 0.0):
         super().__init__()
         self.padding_idx = padding_idx
         self.word_emb = nn.Embedding(n_embed, d_embed or d_model)
         self.stack = FFTransformerDecoder(n_layer, n_head, d_model, d_head, d_inner,
                                           kernel_size, pre_lnorm, condition_types,
-                                          use_rope, use_flash)
+                                          use_rope, use_flash, dropout, dropatt, dropemb)
 
-    def forward(self, tokens, conditioning=None):
+    def embed(self, tokens):
+        """(embeddings with the padding token's zeroed [B, T, C], mask [B, T, 1])."""
         mask = (tokens != self.padding_idx)[..., None]
         emb = self.word_emb(tokens)
         mask = mask.to(emb.dtype)
-        return self.stack(emb * mask, mask, conditioning)
+        return emb * mask, mask
+
+    def forward(self, tokens, conditioning=None):
+        emb, mask = self.embed(tokens)
+        return self.stack(emb, mask, conditioning)

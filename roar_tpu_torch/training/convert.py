@@ -1,4 +1,4 @@
-"""JAX parameter trees -> the port's torch state_dicts.
+"""JAX parameter trees <-> the port's torch state_dicts.
 
 The reverse direction of roar_tpu/training/convert.py.  A JAX tree is nested
 dicts of arrays, as `flax.serialization.to_state_dict`, `jax.device_get` or a
@@ -20,9 +20,14 @@ layer, so their conversion is a change of layout only and runs both ways:
 port's modules from the JAX trees, `to_jax_tree` writes them back as the
 `{'g_params', 'd_params', 'd_stats'}` bundle of roar_tpu/training/run.py.
 
+FastPitch is a change of layout only as well: `load_fastpitch_params` fills a
+port `FastPitchModule` (or any of its sub-modules) from the flax tree and
+`fastpitch_to_jax_tree` writes it back.
+
 Every converter raises on a JAX leaf it does not consume and on a port
-parameter it leaves unfilled.  FastPitch `aligner_module` leaves are skipped:
-the aligner serves training only and is not ported.
+parameter it leaves unfilled.  FastPitch `aligner_module` leaves are skipped
+only when the port module was built without an aligner (it serves training
+only).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from roar_tpu_torch.models.hifigan import (
     SpectralNormConv,
     WeightNormConv,
 )
-from roar_tpu_torch.models.submodules import ConditionalInput, ConditionalLayerNorm
+from roar_tpu_torch.models.submodules import ConditionalInput, ConditionalLayerNorm, ConvNorm
 from roar_tpu_torch.models.transformer import PositionwiseConvFF
 
 WN_EPS = 1e-12  # flax nn.WeightNorm's epsilon
@@ -104,56 +109,87 @@ def _flax_child(parent: nn.Module, name: str) -> str:
         return "Dense_1" if name == "concat_proj" and hasattr(parent, "add_proj") else "Dense_0"
     if isinstance(parent, PositionwiseConvFF):
         return {"conv1": "Conv_0", "conv2": "Conv_1"}.get(name, name)
-    if isinstance(parent, ConvReLUNorm) and name == "conv":
+    if isinstance(parent, (ConvReLUNorm, ConvNorm)) and name == "conv":
         return "Conv_0"
     return name
 
 
-def _leaf_params(module: nn.Module, path: str, leaves: _Leaves) -> Dict[str, np.ndarray]:
-    """The torch parameters of one leaf module, read from flax scope `path`."""
-    if isinstance(module, nn.Linear):
-        out = {"weight": leaves.take(f"{path}/kernel").T}
-    elif isinstance(module, nn.Conv1d):
-        out = {"weight": leaves.take(f"{path}/kernel").transpose(2, 1, 0)}
-    elif isinstance(module, nn.Embedding):
-        return {"weight": leaves.take(f"{path}/embedding")}
-    elif isinstance(module, nn.LayerNorm):
-        if not module.elementwise_affine:
-            return {}
-        return {"weight": leaves.take(f"{path}/scale"), "bias": leaves.take(f"{path}/bias")}
-    else:
-        raise TypeError(f"no conversion for {type(module).__name__} at {path}")
-    if module.bias is not None:
-        out["bias"] = leaves.take(f"{path}/bias")
-    return out
-
-
-def _mirror(module: nn.Module, torch_prefix: str, flax_prefix: str, leaves: _Leaves,
-            sd: Dict[str, np.ndarray]) -> None:
+def _fastpitch_sites(module: nn.Module, torch_prefix: str = "", flax_prefix: str = ""):
+    """(torch prefix, flax scope, leaf module) of every parameter-holding leaf
+    module under `module`, in registration order."""
     if next(module.parameters(), None) is None:
         return
     children = list(module.named_children())
     if not children:
-        for k, v in _leaf_params(module, flax_prefix.rstrip("/"), leaves).items():
-            sd[torch_prefix + k] = v
+        yield torch_prefix, flax_prefix.rstrip("/"), module
         return
     for name, child in children:
         if isinstance(child, nn.ModuleList):
             for i, sub in enumerate(child):
-                _mirror(sub, f"{torch_prefix}{name}.{i}.", f"{flax_prefix}{name}_{i}/", leaves, sd)
+                yield from _fastpitch_sites(sub, f"{torch_prefix}{name}.{i}.",
+                                            f"{flax_prefix}{name}_{i}/")
         else:
-            _mirror(child, f"{torch_prefix}{name}.", f"{flax_prefix}{_flax_child(module, name)}/",
-                    leaves, sd)
+            yield from _fastpitch_sites(child, f"{torch_prefix}{name}.",
+                                        f"{flax_prefix}{_flax_child(module, name)}/")
+
+
+def _leaf_names(module: nn.Module, path: str):
+    """(torch parameter name, flax leaf name, axes that turn the flax array
+    into the torch one) of one leaf module; the same axes turn it back."""
+    if isinstance(module, nn.Linear):
+        names = [("weight", "kernel", (1, 0))]
+    elif isinstance(module, nn.Conv1d):
+        names = [("weight", "kernel", (2, 1, 0))]
+    elif isinstance(module, nn.Embedding):
+        return [("weight", "embedding", None)]
+    elif isinstance(module, nn.LayerNorm):
+        return [("weight", "scale", None), ("bias", "bias", None)] \
+            if module.elementwise_affine else []
+    else:
+        raise TypeError(f"no conversion for {type(module).__name__} at {path}")
+    if module.bias is not None:
+        names.append(("bias", "bias", None))
+    return names
 
 
 def load_fastpitch_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Fill a port FastPitchModule from the JAX FastPitchModule's tree."""
-    leaves = _Leaves(params, FASTPITCH_SKIPPED)
-    sd: Dict[str, np.ndarray] = {}
-    _mirror(module, "", "", leaves, sd)
+    """Fill a port FastPitchModule from the JAX FastPitchModule's tree.  The
+    aligner serves training only: a tree's aligner leaves are skipped when
+    the port module has no aligner, and a tree with no aligner leaf at all
+    (one initialised through `infer`) leaves the port's aligner as it is.
+    Anything else unconsumed or unfilled raises."""
+    has_aligner = getattr(module, "aligner_module", None) is not None
+    leaves = _Leaves(params, () if has_aligner else FASTPITCH_SKIPPED)
+    keep = {}
+    if has_aligner and not any(k.startswith(FASTPITCH_SKIPPED) for k in leaves.leaves):
+        keep = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()
+                if k.startswith("aligner_module.")}
+    sd: Dict[str, np.ndarray] = dict(keep)
+    for torch_prefix, path, leaf in _fastpitch_sites(module):
+        for torch_name, flax_name, axes in _leaf_names(leaf, path):
+            if torch_prefix + torch_name in keep:
+                continue
+            value = leaves.take(f"{path}/{flax_name}")
+            sd[torch_prefix + torch_name] = value if axes is None else value.transpose(axes)
     leaves.check_consumed()
     _load(module, sd)
     return module
+
+
+def fastpitch_to_jax_tree(module: nn.Module) -> Dict[str, Any]:
+    """{'params': ...} of a port FastPitchModule in the flax tree's names and
+    layouts: what `roar_tpu`'s `FastPitchModel` applies and its `restore_from`
+    reads.  The reverse of `load_fastpitch_params`."""
+    state = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+    flat: Dict[Tuple[str, ...], np.ndarray] = {}
+    for torch_prefix, path, leaf in _fastpitch_sites(module):
+        for torch_name, flax_name, axes in _leaf_names(leaf, path):
+            value = state.pop(torch_prefix + torch_name)
+            flat[(*path.split("/"), flax_name)] = np.ascontiguousarray(
+                value if axes is None else value.transpose(axes))
+    if state:
+        raise ValueError(f"port parameters not written to the JAX tree: {sorted(state)}")
+    return {"params": _nest(flat)}
 
 
 # ---------------------------------------------------------------------------

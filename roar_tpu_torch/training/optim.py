@@ -193,10 +193,19 @@ def get_optimizer(name: str, params: Iterable[torch.nn.Parameter], learning_rate
     raise ValueError(f"Unknown optimizer {name!r}")
 
 
-def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
-    """optax `clip_by_global_norm` on the `.grad`s, in place; returns the norm."""
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """optax `global_norm`: the L2 norm of all the tensors taken as one vector."""
+    return torch.sqrt(sum((t.detach() ** 2).sum() for t in tensors))
+
+
+def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """optax `clip_by_global_norm` on the `.grad`s, in place; returns the
+    norm.  `norm`, when the caller has it already, is the global norm of
+    those gradients and is not computed again."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g.detach() ** 2).sum() for g in grads))
+    if norm is None:
+        norm = global_norm(grads)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(factor)
@@ -226,12 +235,14 @@ class ScheduledOptimizer:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
-    def step(self) -> float:
+    def step(self, grad_norm: Optional[torch.Tensor] = None) -> float:
+        """One update; `grad_norm` is the global norm of the `.grad`s where
+        the caller has computed it (the clip then reuses it)."""
         lr = self.current_lr()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         if self.gradient_clip_val:
-            clip_by_global_norm(self.params, self.gradient_clip_val)
+            clip_by_global_norm(self.params, self.gradient_clip_val, norm=grad_norm)
         self.optimizer.step()
         self.count += 1
         return lr

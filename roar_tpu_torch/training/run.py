@@ -1,10 +1,10 @@
 """Config-driven training runner.
 
-Port of roar_tpu/training/run.py for the GAN path: dataset constructors, the
-validation-set naming, the threaded batch iterator and `train_gan`.  One
-card, one process: there is no mesh, and batches go to `device` as they are
-read.  `train_supervised`, `run_test` and the profiler window are not ported
-yet.
+Port of roar_tpu/training/run.py: dataset constructors, the validation-set
+naming, the threaded batch iterator, `train_supervised` (loss_fn-style tasks:
+FastPitch) and `train_gan` (HiFi-GAN).  One card, one process: there is no
+mesh, and batches go to `device` as they are read.  `run_test`, the profiler
+window, validation artifacts and early stopping are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,14 +16,23 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
-from roar_tpu_torch.data.dataset import VocoderDataset
+from roar_tpu_torch.data.dataset import BucketSpec, TTSDataset, VocoderDataset
 from roar_tpu_torch.data.sampling import LengthBucketBatchSampler
 from roar_tpu_torch.training.exp_manager import ExpManager
 from roar_tpu_torch.training.gan import GANTrainState, gan_train_step
 from roar_tpu_torch.training.optim import build_optimizer
+from roar_tpu_torch.training.trainer import Trainer, TrainState, to_device
+
+
+def build_tts_dataset(ds_cfg: Dict[str, Any], tokenizer, device="cuda") -> TTSDataset:
+    """A TTSDataset from a `train_ds.dataset` block (its `_target_` names the
+    JAX package's class; the port builds its own).  `device` is where a
+    missing sup-data cache entry is extracted."""
+    kwargs = {k: v for k, v in ds_cfg.items() if k != "_target_"}
+    kwargs["text_tokenizer"] = tokenizer
+    return TTSDataset(**kwargs, device=device)
 
 
 def build_vocoder_dataset(ds_cfg: Dict[str, Any]) -> VocoderDataset:
@@ -87,13 +96,16 @@ def _val_sets(val_dataset, model_cfg: Dict[str, Any]):
     return sets, idx
 
 
-def batch_iterator(dataset, sampler, num_workers: int = 0, prefetch_factor: int = 2):
-    """Collated batches in sampler order.  With `num_workers` > 0, loading
-    and collation run in a thread pool with a bounded in-order window of
-    batches in flight, so the host's audio decode overlaps the device step."""
+def batch_iterator(dataset, sampler, buckets: Optional[BucketSpec] = None, num_workers: int = 0,
+                   prefetch_factor: int = 2):
+    """Collated batches in sampler order, padded to `buckets` where given.
+    With `num_workers` > 0, loading and collation run in a thread pool with a
+    bounded in-order window of batches in flight, so the host's audio decode
+    overlaps the device step."""
 
     def load(idxs):
-        return dataset.collate([dataset[i] for i in idxs])
+        items = [dataset[i] for i in idxs]
+        return dataset.collate(items, buckets)
 
     if num_workers <= 0:
         for idxs in sampler:
@@ -131,21 +143,21 @@ def _yaml_safe(obj):
     return str(obj)
 
 
-def _maybe_save_roar(cfg, exp: ExpManager, state: GANTrainState) -> Optional[str]:
-    """End-of-training `.roar` bundle `{'g_params', 'd_params', 'd_stats'}`
-    in the JAX package's layouts, when `exp_manager.always_save_roar` (or
-    `exp_manager.checkpoint_callback_params.always_save_roar`) is set."""
+def _maybe_save_roar(cfg, exp: ExpManager, state) -> Optional[str]:
+    """End-of-training `.roar` bundle in the JAX package's layouts, when
+    `exp_manager.always_save_roar` (or
+    `exp_manager.checkpoint_callback_params.always_save_roar`) is set: the
+    task's own `to_jax_tree()` (the parameter tree, or for a GAN
+    `{'g_params', 'd_params', 'd_stats'}`)."""
     exp_cfg = cfg.get("exp_manager") or {}
     ccp = exp_cfg.get("checkpoint_callback_params") or {}
     if not (exp_cfg.get("always_save_roar") or ccp.get("always_save_roar")):
         return None
-    from roar_tpu_torch.training.convert import to_jax_tree
     from roar_tpu_torch.training.save_restore import save_to
 
     name = exp_cfg.get("name") or cfg.get("name") or "model"
     path = str(exp.ckpt_dir / f"{name}.roar")
-    model = state.model
-    save_to(path, _yaml_safe(cfg), to_jax_tree(model.generator, model.mpd, model.msd))
+    save_to(path, _yaml_safe(cfg), state.model.to_jax_tree())
     print(f"saved end-of-training bundle: {path}", flush=True)
     return path
 
@@ -161,9 +173,82 @@ def _first_batch_indices(sampler, dataset, batch_size):
     return batches[0]
 
 
-def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items() if not isinstance(v, (str, list, tuple))}
+def train_supervised(cfg: Dict[str, Any], model, dataset, val_dataset=None,
+                     max_epochs: Optional[int] = None, buckets: Optional[BucketSpec] = None,
+                     device="cuda") -> TrainState:
+    """Train a loss_fn-style task (`FastPitchModel`) on `device` ("cuda"
+    unless the caller asks for "cpu").  The host waits for the device only
+    where it logs, validates or saves."""
+    device = torch.device(device)
+    trainer_cfg = cfg.get("trainer", {})
+    exp_cfg = cfg.get("exp_manager", {}) or {}
+    model_cfg = cfg.get("model", {})
+    dl_cfg = (model_cfg.get("train_ds") or {}).get("dataloader_params", {})
+    batch_size = dl_cfg.get("batch_size", 16)
+    max_epochs = max_epochs or trainer_cfg.get("max_epochs", 1)
+    if int(trainer_cfg.get("model_parallel_size", 1) or 1) > 1:
+        raise NotImplementedError("model_parallel_size > 1 is not ported: one device")
+
+    sampler = LengthBucketBatchSampler(
+        dataset.lengths, batch_size=batch_size, shuffle=dl_cfg.get("shuffle", True),
+        drop_last=True, seed=trainer_cfg.get("seed", 0))
+    _first_batch_indices(sampler, dataset, batch_size)
+    steps_per_epoch = max(len(sampler), 1)
+    optimizer = build_optimizer(
+        model.parameters(), model_cfg.get("optim", {}), steps_per_epoch=steps_per_epoch,
+        max_epochs=max_epochs,
+        max_steps=model_cfg.get("max_steps") or trainer_cfg.get("max_steps"),
+        gradient_clip_val=trainer_cfg.get("gradient_clip_val"))
+    trainer = Trainer(
+        model=model, optimizer=optimizer, device=device, seed=trainer_cfg.get("seed", 0),
+        log_every=trainer_cfg.get("log_every_n_steps", 100),
+        precision=_map_precision(trainer_cfg.get("precision")),
+        accumulate_grad_batches=int(trainer_cfg.get("accumulate_grad_batches", 1) or 1),
+        # trainer.max_steps stops the run; model.max_steps is the schedule's horizon
+        max_steps=trainer_cfg.get("max_steps") or model_cfg.get("max_steps"),
+        freeze_updates=model_cfg.get("freeze_updates"))
+    exp = ExpManager(
+        exp_dir=exp_cfg.get("exp_dir") or "./exp",
+        name=exp_cfg.get("name", cfg.get("name", "run")),
+        version=exp_cfg.get("version"),
+        resume_if_exists=exp_cfg.get("resume_if_exists", False),
+        max_time_seconds=trainer_cfg.get("max_time_seconds"),
+    )
+    state = trainer.init_state()
+    state, _ = exp.maybe_resume(state, map_location=device)
+
+    check_val_every = trainer_cfg.get("check_val_every_n_epoch", 1)
+    val_sets, val_dl_idx = _val_sets(val_dataset, model_cfg)
+    num_workers = int(dl_cfg.get("num_workers") or 0)
+    model.module.train()
+    if hasattr(model, "attention_paths"):
+        print(f"attention paths in training: {model.attention_paths()}", flush=True)
+    metrics: Dict[str, float] = {}
+    for epoch in range(max_epochs):
+        sampler.set_epoch(epoch)
+        batches = batch_iterator(dataset, sampler, buckets, num_workers=num_workers)
+        state, metrics = trainer.run_epoch(state, batches, epoch=epoch, logger=exp.logger)
+        stop = exp.should_stop() or trainer.reached_max_steps
+        if not stop and val_sets and (epoch + 1) % check_val_every == 0:
+            val_logged: Dict[str, float] = {}
+            for si, (ds_name, vds) in enumerate(val_sets):
+                val_sampler = LengthBucketBatchSampler(
+                    vds.lengths, batch_size=batch_size, shuffle=False, drop_last=True)
+                val_metrics = trainer.evaluate(
+                    state, batch_iterator(vds, val_sampler, buckets, num_workers=num_workers),
+                    epoch=epoch)
+                # every set logs '<name>val_*'; the val_dl_idx set is THE 'val_*'
+                if len(val_sets) > 1:
+                    val_logged.update({f"{ds_name}val_{k}": v for k, v in val_metrics.items()})
+                if si == val_dl_idx:
+                    val_logged.update({f"val_{k}": v for k, v in val_metrics.items()})
+            exp.logger.log_metrics(val_logged, step=state.step)
+        exp.save(state, metrics)
+        if stop:
+            break
+    exp.close()
+    _maybe_save_roar(cfg, exp, state)
+    return state
 
 
 def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
@@ -225,7 +310,7 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
         metrics: Dict[str, torch.Tensor] = {}
         for i, batch in enumerate(batch_iterator(dataset, sampler, num_workers=num_workers)):
             lr = state.g_opt.current_lr()
-            state, metrics = gan_train_step(state, _to_device(batch, device))
+            state, metrics = gan_train_step(state, to_device(batch, device))
             gstep += 1
             if i % log_every == 0:
                 host = {k: float(v) for k, v in metrics.items()}  # the one sync
@@ -247,7 +332,7 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
                 n = 0
                 for batch in batch_iterator(vds, val_sampler, num_workers=num_workers):
                     with torch.no_grad():
-                        _, vmetrics = model.g_loss_fn(_to_device(batch, device))
+                        _, vmetrics = model.g_loss_fn(to_device(batch, device))
                     for k, v in vmetrics.items():
                         totals[k] = totals.get(k, 0.0) + float(v)
                     n += 1

@@ -77,12 +77,14 @@ OPTIM_CASES = {
     "adamw_clip": {"name": "adamw", "lr": 2e-3, "sched": {"name": "NoamAnnealing",
                                                            "warmup_steps": 3, "d_model": 4}},
 }
+# the same clip, handed the gradients' global norm the caller already holds
+OPTIM_CASES["adamw_clip_given_norm"] = OPTIM_CASES["adamw_clip"]
 
 
 @pytest.mark.parametrize("case", sorted(OPTIM_CASES))
 def test_five_updates_match_optax(case):
     cfg = OPTIM_CASES[case]
-    clip = 0.5 if case == "adamw_clip" else None
+    clip = 0.5 if case.startswith("adamw_clip") else None
     rng = np.random.default_rng(0)
     params0 = _tree(rng)
     grads = [_tree(rng) for _ in range(5)]
@@ -101,7 +103,10 @@ def test_five_updates_match_optax(case):
         topt.zero_grad()
         for k, p in tparams.items():
             p.grad = torch.from_numpy(g[k].copy())
-        topt.step()
+        if case == "adamw_clip_given_norm":
+            topt.step(grad_norm=optim.global_norm(p.grad for p in tparams.values()))
+        else:
+            topt.step()
     assert topt.count == 5
     for k in params0:
         np.testing.assert_allclose(tparams[k].detach().numpy(), np.asarray(params[k]),
