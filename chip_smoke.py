@@ -42,8 +42,8 @@ Phases, each printing JSON lines:
    shapes and at (32, 160, 1, 64) and (32, 864, 1, 64) (batches of 20 s
    utterances, longer than phase 8 draws), two runs bit for bit, the
    forward's output unchanged by asking for the log-sum-exp, the autograd
-   Function against autograd of the plain forward, and the times beside the
-   bounds and autograd of SDPA;
+   Function's gradients the kernels' own and close to autograd of the plain
+   forward, and the times beside the bounds and autograd of SDPA;
 8. train_fastpitch: FastPitch training with learned alignment at the full
    width of configs/fastpitch_22050_align.yaml (flash attention on, `dropatt`
    0, an energy predictor, 4 speakers, batch 32, fp32): 128 seeded synthetic
@@ -57,6 +57,29 @@ Phases, each printing JSON lines:
    the two shapes and key lengths that step gave them (the kernels line takes
    these), and the saved `.roar` served by `SynthesisEngine`; then the step
    time, its split and the kernels' share.
+
+9. kernel_flash_causal: the causal flash-attention kernels (forward with and
+   without the log-sum-exp, dK/dV, dQ) against their plain versions in fp32
+   and in bf16 at small shapes (ragged T, D 32 / 64 / 128, a trailing pad
+   mask, B 4 x T 2048, T 1) and at the GPT path's (1, 4096, 32, 64), by the
+   same routine as phase 7 (bf16 element by element at a bar that follows each
+   row's own scale), and at the path's shape the times beside the bounds and
+   `F.scaled_dot_product_attention(is_causal=True)` with its autograd;
+10. train_gpt: GPT causal-LM training at the full width and depth of
+   tiny-llama-1.1b (22 layers, d 2048, 32 heads of 64 in 4 KV groups, SwiGLU
+   5632, vocabulary 32000, 1.1 B parameters), S 4096, bf16 compute from fp32
+   master parameters, `remat` with `remat_policy=flash`, the fused cross
+   entropy, 4 micro-batches of one sequence per update: a seeded synthetic
+   corpus of 31,994 distinct words run through the training CLI's `run` for 3
+   updates and a validation pass; checks 22 / 22 / 22 causal flash launches
+   per micro-batch (forward, dK/dV, dQ), 22 forwards per validation batch and
+   no non-causal launch, a finite loss that falls over the updates, the
+   learning rate against the cosine schedule, the saved `.roar` loaded back
+   equal to the masters, one micro-batch under `remat_policy=nothing` (44
+   forwards, the same gradients), one micro-batch with the kernels against one
+   with their plain versions in bf16 at full depth (loss, whole gradient and
+   each attention projection's gradient) and in fp32 at 4 layers;
+   then the update's time, its split, tokens/s and peak memory.
 
 Then the kernels line, the card line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -72,6 +95,8 @@ import tempfile
 import threading
 import time
 import urllib.request
+from collections import Counter
+from typing import Optional
 
 import numpy as np
 import torch
@@ -92,9 +117,10 @@ VITERBI_CASES = [
     (1, 1, 601, 101),
 ]
 # published peaks of one H100 SXM: device memory bytes/s, fp32 FLOP/s outside
-# the tensor cores
+# the tensor cores, dense bf16 FLOP/s in them
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 SUP_SAMPLE_RATE = 22050
 # bars of tests/test_pyin.py GOLDEN_TOLERANCES for moving pitch: voicing
 # agreement, voiced-F0 RMSE in cents, rate of errors over 100 cents
@@ -375,10 +401,11 @@ def phase_kernel(device: torch.device) -> dict:
     return {"max_abs_err": worst, **decoder_times}
 
 
-def _bound(nbytes: float, flops: float) -> dict:
+def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
     """The least time this card could take: the larger of bytes over the
-    memory rate and operations over the fp32 (non-tensor) peak."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    memory rate and operations over the peak rate for their type (fp32
+    outside the tensor cores unless `peak_flops` says otherwise)."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": nbytes, "operations": flops}
@@ -911,14 +938,36 @@ def _time_train_step(model, batch, optim_cfg: dict, card: str) -> dict:
     return timing
 
 
-# K5-bwd against the plain versions: fp32 FMA sums inside the kernels against
-# cuBLAS fp32 einsums over up to 864 keys, so each gradient is held to an
+# K5-bwd and K5-causal against the plain versions.
+# fp32: FMA sums inside the kernels against cuBLAS fp32 einsums over up to 4096
+# keys, so `o` and `lse` are held to KERNEL_TOL and each gradient to an
 # absolute error of 1e-4 of its own largest magnitude plus rtol 1e-3 (the
-# forward's KERNEL_TOL, made relative to the gradient's scale)
+# forward's KERNEL_TOL, made relative to the gradient's scale).
 FLASH_BWD_ATOL_REL = 1e-4
 FLASH_BWD_RTOL = 1e-3
-# (B, T, H, D, key lengths): T no multiple of 64, all-valid rows, a row that is
-# mostly padding, a single valid key, D = 32 / 128 / 64
+# bf16: the plain versions round where the kernels do, so what is left is the
+# order of the fp32 sums and the forward's rounding of p against a running
+# maximum (the plain version's against the final one).  Before the result is
+# stored the two differ by a few 1e-3 of the row's own scale (each of n keys
+# adds an independent 2^-9 of its term), and the store rounds each side to
+# bf16, whose step is 2^-8 to 2^-7 of the value.  So every element is held
+# within 2^-6 of its own magnitude plus 2^-7 of the largest magnitude in its
+# row (the D values of one token and head), and every tensor within 1e-2 in
+# relative L2.  The bar follows each row's scale: a causal row that sees n
+# keys has values near 1 / sqrt(n), so a bar tied to the tensor's largest
+# value would pass a late row that is all zeros; this one fails a dropped
+# tile, a wrong mask or a zeroed row wherever it lies.  The floor stands in
+# for a row's largest magnitude where the row is zero but for rounding (dq
+# and dk of a query that sees one key).
+FLASH_BF16_RTOL = 2.0 ** -6
+FLASH_BF16_ROW_ATOL = 2.0 ** -7
+FLASH_BF16_L2_TOL = 1e-2
+FLASH_ROW_FLOOR = 1e-2
+# SDPA is a yardstick, not under test: in bf16 it rounds at places of its own,
+# so it is only held to compute the same function
+FLASH_LIBRARY_BF16_L2_TOL = 2e-2
+# (B, T, H, D, valid lengths): T no multiple of 64, all-valid rows, a row that
+# is mostly padding, a single valid key, D = 32 / 128 / 64
 FLASH_BWD_SMALL = [
     (3, 70, 2, 32, [70, 33, 1]), (2, 130, 2, 128, [130, 9]), (4, 200, 1, 64, [200, 200, 63, 5]),
 ]
@@ -927,133 +976,226 @@ FLASH_BWD_SMALL = [
 # beside the path's own shapes (which that phase holds and times) and are
 # labelled so
 FLASH_LONG_SHAPES = [(32, 160, 1, 64), (32, 864, 1, 64)]
+# (B, T, H, D, valid lengths or None): ragged T, D 32 / 128 / 64, a trailing
+# pad mask, B 4 x T 2048, T 1
+FLASH_CAUSAL_SMALL = [
+    (2, 70, 2, 32, None), (2, 130, 2, 128, [130, 41]), (1, 200, 1, 64, None),
+    (2, 1000, 2, 64, [1000, 333]), (4, 2048, 2, 64, None), (2, 1, 2, 64, None),
+]
+GPT_FLASH_SHAPE = (1, 4096, 32, 64)  # tiny-llama-1.1b at S 4096, GQA expanded
 
 
-def _assert_grad_close(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        raise AssertionError(f"{what}: shape {tuple(got.shape)} or not finite")
-    top = float(want.abs().max())
-    err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, atol=FLASH_BWD_ATOL_REL * top, rtol=FLASH_BWD_RTOL,
-                               msg=lambda m: f"{what}: {m}")
-    return {"max_abs_err": err, "rel_to_largest": err / max(top, 1e-30)}
+def _rel_l2(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """|got - want|_2 over |want|_2; `floor` stands in for a root mean square
+    of `want` below it."""
+    got, want = got.detach().float(), want.detach().float()
+    norm = max(float(want.norm()), floor * want.numel() ** 0.5, 1e-30)
+    return float((got - want).norm()) / norm
 
 
-def _flash_bwd_case(gen: torch.Generator, key_mask: torch.Tensor, h: int, d: int, timed: bool,
-                    where: str) -> dict:
-    """The forward with its log-sum-exp and the two backward kernels against
-    the plain versions on seeded q, k, v and cotangent under `key_mask`
-    [B, T]; with `timed`, also the times beside the bounds and SDPA.  Emits
-    one line and returns its errors, times and bounds."""
+def assert_flash_close(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """Hold a result [B, T, H, D] of an attention kernel against the plain
+    version's.  fp32: within 1e-4 of `want`'s largest magnitude + rtol 1e-3.
+    bf16: every element within 2^-6 of its own magnitude + 2^-7 of the largest
+    magnitude in its row, and the tensor within 1e-2 in relative L2.  Returns
+    the errors measured."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {tuple(got.shape)}, type {got.dtype} or not finite")
+    bf16 = want.dtype == torch.bfloat16
+    got, want = got.detach().float(), want.detach().float()
+    top = max(float(want.abs().max()), FLASH_ROW_FLOOR)
+    err = (got - want).abs()
+    out = {"max_abs_err": float(err.max()), "rel_to_largest": float(err.max()) / top}
+    if not bf16:
+        torch.testing.assert_close(got, want, atol=FLASH_BWD_ATOL_REL * top, rtol=FLASH_BWD_RTOL,
+                                   msg=lambda m: f"{what}: {m}")
+        return out
+    row = want.abs().amax(-1, keepdim=True).clamp_min(FLASH_ROW_FLOOR)
+    share = err / (FLASH_BF16_RTOL * want.abs() + FLASH_BF16_ROW_ATOL * row)
+    out.update(worst_share_of_bar=float(share.max()),
+               rel_l2=_rel_l2(got, want, FLASH_ROW_FLOOR))
+    if out["worst_share_of_bar"] > 1.0:
+        at = [int(i) for i in np.unravel_index(int(share.argmax()), share.shape)]
+        raise AssertionError(f"{what}: at {at} got {float(got[tuple(at)])}, want "
+                             f"{float(want[tuple(at)])}: {out['worst_share_of_bar']} of the bar "
+                             f"(2^-6 of the value + 2^-7 of its row's largest)")
+    if out["rel_l2"] > FLASH_BF16_L2_TOL:
+        raise AssertionError(f"{what}: relative L2 error {out['rel_l2']} > {FLASH_BF16_L2_TOL}")
+    return out
+
+
+def _flash_bounds(pairs: float, shape, elem_bytes: float = 4.0,
+                  peak_flops: float = FP32_FLOPS) -> dict:
+    """Bounds of the attention functions over `pairs` visible (query, key)
+    pairs per head at `shape` (B, T, H, D).  The backward as a function is
+    five products (10 operations per pair and head-dim element); of them dkv
+    does q.k^T, dO.v^T, p^T dO and dS^T q (8) and dq does q.k^T, dO.v^T and
+    dS k (6), so the split does seven products for five.  The forward is two
+    (4).  Bytes: q, k, v, (o,) dO read and the results written at
+    `elem_bytes` each, seg / lse / delta rows at four."""
+    b, t, h, d = shape
+    elems, rows, ops = elem_bytes * b * t * h * d, 4.0 * b * h * t, pairs * h * d
+    return {"backward": _bound(8 * elems + 2 * rows, 10.0 * ops, peak_flops),
+            "dkv_own_work": _bound(6 * elems + 3 * rows, 8.0 * ops, peak_flops),
+            "dq_own_work": _bound(5 * elems + 3 * rows, 6.0 * ops, peak_flops),
+            "fwd_with_lse": _bound(4 * elems + 2 * rows, 4.0 * ops, peak_flops)}
+
+
+def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], timed: bool,
+                where: str, phase: str = "kernel_flash_bwd", causal: bool = False,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """The forward (with and without its log-sum-exp) and the two backward
+    kernels against the plain versions on seeded q, k, v and cotangent of
+    `shape` (B, T, H, D) and `dtype` under `key_mask` [B, T] (None: all valid)
+    and `causal`; with `timed`, also the times beside the bounds and SDPA with
+    its autograd.  Emits one line and returns its errors, times and bounds."""
     import torch.nn.functional as F
 
     from roar_tpu_torch.kernels import flash_attention as fa
     from roar_tpu_torch.ops.flash_attention import flash_self_attention
 
-    device = key_mask.device
-    (b, t), lens = key_mask.shape, [int(n) for n in key_mask.sum(1)]
-    shape = (b, t, h, d)
-    q, k, v, do = (torch.randn(b, t, h, d, device=device, generator=gen) for _ in range(4))
+    device = gen.device
+    b, t, h, d = shape
+    bf16 = dtype == torch.bfloat16
+    lens = [t] * b if key_mask is None else [int(n) for n in key_mask.sum(1)]
+    q, k, v, do = (torch.randn(b, t, h, d, device=device, generator=gen).to(dtype)
+                   for _ in range(4))
     scale = 1.0 / d ** 0.5
-    out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True)
-    if not torch.equal(out, fa.flash_self_attention(q, k, v, key_mask, scale)):
+    out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True, causal=causal)
+    if not torch.equal(out, fa.flash_self_attention(q, k, v, key_mask, scale, causal=causal)):
         raise AssertionError(f"asking for lse changed the forward's output at {shape}")
-    out_p, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, return_lse=True)
-    torch.testing.assert_close(out, out_p, **KERNEL_TOL)
+    out_p, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, True, causal)
+    if bf16:
+        errs = {"o": assert_flash_close(out, out_p, f"o at {shape} {dtype}")}
+    else:
+        torch.testing.assert_close(out, out_p, **KERNEL_TOL)
+        errs = {"o": {"max_abs_err": float((out - out_p).abs().max())}}
     torch.testing.assert_close(lse, lse_p, **KERNEL_TOL)
-    errs = {"o": {"max_abs_err": float((out - out_p).abs().max())},
-            "lse": {"max_abs_err": float((lse - lse_p).abs().max())}}
+    errs["lse"] = {"max_abs_err": float((lse - lse_p).abs().max())}
     # the cotangent holds garbage on the pad rows too: a pad query's
     # gradient must stay inside the pad segment
-    got = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
-    again = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
-    want = fa.flash_self_attention_bwd_plain(q, k, v, key_mask, scale, out_p, lse_p, do)
+    args = (q, k, v, key_mask, scale, out, lse, do)
+    got = fa.flash_self_attention_bwd(*args, causal=causal)
+    again = fa.flash_self_attention_bwd(*args, causal=causal)
+    want = fa.flash_self_attention_bwd_plain(q, k, v, key_mask, scale, out_p, lse_p, do, causal)
     torch.cuda.synchronize()
     for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
         if not torch.equal(a, a2):
             raise AssertionError(f"flash bwd {name} at {shape}: two runs differ")
-        errs[name] = _assert_grad_close(a, w, f"flash bwd {name} at {shape}")
-    # a cotangent that is zero on the pad rows (what TransformerLayer's
-    # mask makes it) leaves the pad keys' gradients exactly zero
-    do_valid = do * key_mask[:, :, None, None]
-    _, dk0, dv0 = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do_valid)
-    pad_rows = ~key_mask[:, :, None, None].expand_as(dk0)
-    if pad_rows.any() and (float(dk0[pad_rows].abs().max()) != 0.0
-                           or float(dv0[pad_rows].abs().max()) != 0.0):
-        raise AssertionError(f"pad keys got a gradient at {shape}")
-    # the autograd Function against autograd of the plain forward
+        errs[name] = assert_flash_close(a, w, f"flash bwd {name} at {shape} {dtype}")
+    if key_mask is not None:
+        # a cotangent that is zero on the pad rows (what TransformerLayer's
+        # mask makes it) leaves the pad keys' gradients exactly zero
+        do_valid = do * key_mask[:, :, None, None]
+        _, dk0, dv0 = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do_valid,
+                                                  causal=causal)
+        pad_rows = ~key_mask[:, :, None, None].expand_as(dk0)
+        if pad_rows.any() and (float(dk0[pad_rows].abs().max()) != 0.0
+                               or float(dv0[pad_rows].abs().max()) != 0.0):
+            raise AssertionError(f"pad keys got a gradient at {shape}")
+    # the autograd Function launches these same kernels, and in fp32 agrees
+    # with autograd of the plain forward
     qkv = [z.clone().requires_grad_(True) for z in (q, k, v)]
-    g_fn = torch.autograd.grad(flash_self_attention(*qkv, key_mask, scale), qkv, do)
-    g_plain = torch.autograd.grad(fa.flash_self_attention_plain(*qkv, key_mask, scale), qkv, do)
-    for name, a, w in zip(("dq", "dk", "dv"), g_fn, g_plain):
-        _assert_grad_close(a, w, f"Function {name} vs autograd of the plain forward")
-    line = {"phase": "kernel_flash_bwd", "where": where, "shape_bthd": list(shape),
+    g_fn = torch.autograd.grad(flash_self_attention(*qkv, key_mask, scale, causal=causal), qkv, do)
+    if not all(torch.equal(a, w) for a, w in zip(g_fn, got)):
+        raise AssertionError(f"the Function's gradients are not the kernels' at {shape}")
+    if not bf16:
+        g_plain = torch.autograd.grad(
+            fa.flash_self_attention_plain(*qkv, key_mask, scale, causal=causal), qkv, do)
+        for name, a, w in zip(("dq", "dk", "dv"), g_fn, g_plain):
+            assert_flash_close(a, w, f"Function {name} vs autograd of the plain forward")
+        del g_plain
+    del again, g_fn, qkv
+    line = {"phase": phase, "where": where, "shape_bthd": list(shape), "causal": causal,
+            "dtype": str(dtype).replace("torch.", ""),
             "key_lens": lens if b <= 4 else {"min": min(lens), "max": max(lens),
                                              "mean": float(np.mean(lens))},
             "errors": errs, "tol": KERNEL_TOL,
-            "atol_rel_to_largest": FLASH_BWD_ATOL_REL, "rtol": FLASH_BWD_RTOL,
             "bit_identical_across_two_runs": True, "forward_unchanged_by_lse": True,
-            "function_vs_autograd_of_plain": True}
+            "function_launches_the_kernels": True, "function_vs_autograd_of_plain": not bf16}
+    if bf16:
+        line.update(rtol=FLASH_BF16_RTOL, atol_rel_to_row_largest=FLASH_BF16_ROW_ATOL,
+                    rel_l2_tol=FLASH_BF16_L2_TOL)
+    else:
+        line.update(rtol=FLASH_BWD_RTOL, atol_rel_to_largest=FLASH_BWD_ATOL_REL)
     case = {"errors": errs}
     if timed:
-        delta = (out * do).sum(-1).permute(0, 2, 1).contiguous()
-        args = (q, k, v, key_mask, scale, out, lse, do)
+        if causal and key_mask is not None:
+            raise AssertionError("the timed causal case has no padding mask: "
+                                 "SDPA(is_causal) takes none")
+        delta = (out.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
         # the one PyTorch call that computes the same function: SDPA with
-        # the segment mask and its autograd (a yardstick only; the port
-        # never calls it); its backward gives dq, dk and dv together
+        # is_causal or the segment mask, and its autograd (a yardstick only;
+        # the port never calls it); its backward gives dq, dk and dv together
         qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_(True) for z in (q, k, v))
-        visible = (key_mask[:, None, :, None] == key_mask[:, None, None, :])
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=visible, scale=scale)
+        if causal:
+            how, library_call = {"is_causal": True}, "is_causal=True"
+        else:
+            how = {"attn_mask": key_mask[:, None, :, None] == key_mask[:, None, None, :]}
+            library_call = "attn_mask=segment mask"
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale, **how)
         lib_do = do.transpose(1, 2)
         lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
-        for name, a, w in zip(("dq", "dk", "dv"), lib_grads, want):
-            _assert_grad_close(a.transpose(1, 2), w, f"SDPA autograd {name}")
+        for name, a, w in zip(("o", "dq", "dk", "dv"), (lib_out, *lib_grads), (out_p, *want)):
+            a = a.transpose(1, 2).contiguous()
+            if not bf16:
+                assert_flash_close(a, w, f"SDPA {name}")
+            elif _rel_l2(a, w) > FLASH_LIBRARY_BF16_L2_TOL:
+                raise AssertionError(f"SDPA {name} is {_rel_l2(a, w)} (relative L2) from the "
+                                     f"plain version")
 
         def lib_fwd():
             with torch.no_grad():
-                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=visible, scale=scale)
+                F.scaled_dot_product_attention(qt, kt, vt, scale=scale, **how)
+
+        def bwd(**kwargs):
+            return fa.flash_self_attention_bwd(*args, causal=causal, **kwargs)
 
         times = {
-            "dkv_ms": _time_ms(lambda: fa.flash_self_attention_bwd(
-                *args, need_dq=False, delta=delta)),
-            "dq_ms": _time_ms(lambda: fa.flash_self_attention_bwd(
-                *args, need_dkv=False, delta=delta)),
-            "delta_ms": _time_ms(lambda: (out * do).sum(-1).permute(0, 2, 1).contiguous()),
+            "dkv_ms": _time_ms(lambda: bwd(need_dq=False, delta=delta)),
+            "dq_ms": _time_ms(lambda: bwd(need_dkv=False, delta=delta)),
+            "delta_ms": _time_ms(
+                lambda: (out.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()),
             # delta, dkv and dq as a training step's backward calls them
-            "backward_ms": _time_ms(lambda: fa.flash_self_attention_bwd(*args)),
+            "backward_ms": _time_ms(bwd),
             # the plain backward gives all three gradients at once
             "backward_plain_ms": _time_ms(lambda: fa.flash_self_attention_bwd_plain(
-                q, k, v, key_mask, scale, out_p, lse_p, do), reps=5),
+                q, k, v, key_mask, scale, out_p, lse_p, do, causal), reps=5),
             "backward_library_ms": _time_ms(lambda: torch.autograd.grad(
                 lib_out, (qt, kt, vt), lib_do, retain_graph=True)),
-            "fwd_ms": _time_ms(lambda: fa.flash_self_attention(q, k, v, key_mask, scale)),
+            "fwd_ms": _time_ms(lambda: fa.flash_self_attention(q, k, v, key_mask, scale,
+                                                               causal=causal)),
             "fwd_with_lse_ms": _time_ms(lambda: fa.flash_self_attention(
-                q, k, v, key_mask, scale, return_lse=True)),
+                q, k, v, key_mask, scale, return_lse=True, causal=causal)),
             "fwd_plain_ms": _time_ms(lambda: fa.flash_self_attention_plain(
-                q, k, v, key_mask, scale, return_lse=True), reps=5),
+                q, k, v, key_mask, scale, True, causal), reps=5),
             "fwd_library_ms": _time_ms(lib_fwd),
         }
-        # what this data needs: a query sees the keys of its segment, so
-        # len^2 + (T - len)^2 pairs per row.  The backward as a function is
-        # five products (10 operations per pair and head-dim element); of
-        # them dkv does q.k^T, dO.v^T, p^T dO and dS^T q (8) and dq does
-        # q.k^T, dO.v^T and dS k (6), so the split does seven products for
-        # five.  The forward is two (4).  Bytes: q, k, v, (o,) dO read, the
-        # results written, seg / lse / delta rows.
-        pairs = float(sum(n * n + (t - n) * (t - n) for n in lens))
-        elems, rows = float(b * t * h * d), float(b * h * t)
-        bounds = {"backward": _bound(4.0 * (8 * elems + 2 * rows), 10.0 * pairs * h * d),
-                  "dkv_own_work": _bound(4.0 * (6 * elems + 3 * rows), 8.0 * pairs * h * d),
-                  "dq_own_work": _bound(4.0 * (5 * elems + 3 * rows), 6.0 * pairs * h * d),
-                  "fwd_with_lse": _bound(4.0 * (4 * elems + 2 * rows), 4.0 * pairs * h * d)}
-        line.update(times, bounds=bounds,
-                    backward_share_of_fp32_peak=(bounds["backward"]["bound_ms"]
-                                                 / times["backward_ms"]),
-                    library_call="F.scaled_dot_product_attention(attn_mask=segment mask) and "
-                                 "its autograd: dq, dk, dv together")
+        # what this data needs: a query sees the keys of its segment, and with
+        # `causal` those at or before it, so n^2 or n (n + 1) / 2 pairs for a
+        # segment of n.  A bf16 element is two bytes and its products are held
+        # against the tensor cores' dense bf16 peak, whatever the kernel
+        # multiplies on today.
+        pairs = float(sum(n * (n + 1) // 2 if causal else n * n
+                          for valid in lens for n in (valid, t - valid)))
+        size, peak = (2.0, BF16_FLOPS) if bf16 else (4.0, FP32_FLOPS)
+        bounds = _flash_bounds(pairs, shape, size, peak)
+        line.update(times, bounds=bounds, visible_pairs_per_head=pairs, peak_flops=peak,
+                    achieved_tflops={"fwd": 4.0 * pairs * h * d / times["fwd_with_lse_ms"] / 1e9,
+                                     "dkv": 8.0 * pairs * h * d / times["dkv_ms"] / 1e9,
+                                     "dq": 6.0 * pairs * h * d / times["dq_ms"] / 1e9},
+                    library_call=f"F.scaled_dot_product_attention({library_call}) and its "
+                                 f"autograd: dq, dk, dv together")
         case.update(times=times, bounds=bounds)
     _emit(line)
     return case
+
+
+def _key_mask(lens, t: int, device) -> Optional[torch.Tensor]:
+    """[B, T] bool, True on the first `lens[b]` positions; None for None."""
+    if lens is None:
+        return None
+    return torch.arange(t, device=device)[None, :] < torch.tensor(lens, device=device)[:, None]
 
 
 def phase_kernel_flash_bwd(device: torch.device) -> dict:
@@ -1070,13 +1212,34 @@ def phase_kernel_flash_bwd(device: torch.device) -> dict:
                       "batch 32 of utterances up to 20 s; not on the path of train_fastpitch"))
     worst = {}
     for b, t, h, d, lens, timed, where in cases:
-        key_mask = (torch.arange(t, device=device)[None, :]
-                    < torch.tensor(lens, device=device)[:, None])
-        case = _flash_bwd_case(gen, key_mask, h, d, timed, where)
+        case = _flash_case(gen, (b, t, h, d), _key_mask(lens, t, device), timed, where)
         for name, e in case["errors"].items():
             worst[name] = max(worst.get(name, 0.0), e["max_abs_err"])
     torch.cuda.empty_cache()
     return {"max_abs_err": worst}
+
+
+def phase_kernel_flash_causal(device: torch.device) -> dict:
+    """K5-causal (forward, dK/dV, dQ) against the plain versions in fp32 and
+    bf16 at small shapes, and at the GPT path's shape with the times; returns
+    the worst error per result and type, and the path shape's times."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    worst, path = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        cases = [(c[:4], c[4], False, "small shape") for c in FLASH_CAUSAL_SMALL]
+        cases.append((GPT_FLASH_SHAPE, None, True,
+                      "one layer of train_gpt: tiny-llama-1.1b, one sequence of 4096"))
+        for shape, lens, timed, where in cases:
+            case = _flash_case(gen, shape, _key_mask(lens, shape[1], device), timed, where,
+                               "kernel_flash_causal", causal=True, dtype=dtype)
+            for key, e in case["errors"].items():
+                slot = worst.setdefault(name, {})
+                slot[key] = max(slot.get(key, 0.0), e["max_abs_err"])
+            if timed:
+                path[name] = case
+            torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "path": path}
 
 
 class _PlainFlash:
@@ -1088,8 +1251,9 @@ class _PlainFlash:
 
         self.saved = (fa.flash_self_attention, fa.flash_self_attention_bwd)
 
-        def bwd(q, k, v, key_mask, scale, o, lse, do, need_dq=True, need_dkv=True, delta=None):
-            return fa.flash_self_attention_bwd_plain(q, k, v, key_mask, scale, o, lse, do)
+        def bwd(q, k, v, key_mask, scale, o, lse, do, need_dq=True, need_dkv=True, delta=None,
+                causal=False):
+            return fa.flash_self_attention_bwd_plain(q, k, v, key_mask, scale, o, lse, do, causal)
 
         fa.flash_self_attention, fa.flash_self_attention_bwd = fa.flash_self_attention_plain, bwd
 
@@ -1220,12 +1384,12 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
 
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
-            fa.LAUNCHES = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_BWD_DQ = 0
+            fa.LAUNCHES.clear()
             t0 = time.perf_counter()
             state = cli.run(cfg)
             sync()
             wall = time.perf_counter() - t0
-            launches = {"fwd": fa.LAUNCHES, "dkv": fa.LAUNCHES_BWD_DKV, "dq": fa.LAUNCHES_BWD_DQ}
+            launches = {k: fa.LAUNCHES[k] for k in ("fwd", "dkv", "dq")}
             peak = torch.cuda.max_memory_allocated() if on_card else None
             model = state.model
             module = model.module
@@ -1299,7 +1463,7 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                 return {k: float(v) for k, v in metrics.items()}, seen["durs"]
 
             twin = copy.deepcopy(model)
-            before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+            before = fa.LAUNCHES.copy()
             # what this step hands the attention kernels: shape -> key mask
             given, forward = {}, fa.flash_self_attention
 
@@ -1312,9 +1476,8 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                 metrics_k, durs_k = one_step(model)
             finally:
                 fa.flash_self_attention = forward
-            step_launches = tuple(b - a for a, b in zip(
-                before, (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)))
-            if on_card and step_launches != (n_attn, n_attn, n_attn):
+            step_launches = dict(fa.LAUNCHES - before)
+            if on_card and step_launches != dict.fromkeys(("fwd", "dkv", "dq"), n_attn):
                 raise AssertionError(f"one step launched {step_launches}, not {n_attn} of each")
             with _PlainFlash():
                 metrics_p, durs_p = one_step(twin)
@@ -1360,9 +1523,10 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                     raise AssertionError(f"the step gave its attention {list(given)}")
                 gen = torch.Generator(device=device).manual_seed(SEED)
                 flash = {}
-                for (_, t, h, d), key_mask in sorted(given.items()):
-                    flash[t] = _flash_bwd_case(
-                        gen, key_mask, h, d, True,
+                for shape, key_mask in sorted(given.items()):
+                    t = shape[1]
+                    flash[t] = _flash_case(
+                        gen, shape, key_mask, True,
                         "the longest batch of train_fastpitch, its own key lengths")
 
             # the bundle: read back, loaded and served by the engine
@@ -1409,6 +1573,18 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
             return result
     finally:
         torch.backends.cudnn.benchmark = benchmark_was
+
+
+def _timed(spans: list, fn):
+    """`fn` with a pair of CUDA events around every call, appended to `spans`."""
+    def call(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+    return call
 
 
 def _time_fastpitch_step(model, batch, cfg: dict, card: str) -> dict:
@@ -1468,21 +1644,11 @@ def _time_fastpitch_step(model, batch, cfg: dict, card: str) -> dict:
     spans = {"flash_fwd": [], "flash_bwd": [], "forward_sum": []}
     saved = (fa.flash_self_attention, fa.flash_self_attention_bwd, fpm.forward_sum_loss)
 
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            spans[name].append((start, end))
-            return out
-        return call
-
     n_steps = 2
     try:
-        fa.flash_self_attention = timed("flash_fwd", saved[0])
-        fa.flash_self_attention_bwd = timed("flash_bwd", saved[1])
-        fpm.forward_sum_loss = timed("forward_sum", saved[2])
+        fa.flash_self_attention = _timed(spans["flash_fwd"], saved[0])
+        fa.flash_self_attention_bwd = _timed(spans["flash_bwd"], saved[1])
+        fpm.forward_sum_loss = _timed(spans["forward_sum"], saved[2])
         for _ in range(n_steps):
             train_step(state, batch, 0)
         torch.cuda.synchronize()
@@ -1504,6 +1670,422 @@ def _time_fastpitch_step(model, batch, cfg: dict, card: str) -> dict:
               "method": "CUDA events; median of 5 steps after 2 warm steps; TF32 off; batch "
                         "already on the card; `losses` holds the forward of forward-sum, "
                         "`backward` its backward"}
+    _emit(timing)
+    return timing
+
+
+# one micro-batch of the GPT step, kernels against plain versions, same weights
+# and tokens.  fp32 (4 layers, full width, TF32 off): only the attention sums
+# run in another order, so the loss is held to rtol 1e-4 and the whole gradient
+# (|delta|_2 over |gradient|_2 across all tensors) to 1e-3.  bf16 (full depth):
+# both paths round at the same places but sum in another order, and an output
+# that lands on the other side of a bf16 rounding boundary moves by 2^-8 of its
+# value; through 22 layers the loss (an fp32 mean over 4096 tokens, near
+# log 32000 = 10.4 whatever the attention does, so it says little) is held to
+# rtol 2e-3, and the whole gradient and the gradient of each layer's two
+# attention projections (the tensors next to the kernels: a wrong tile, mask
+# or product in one layer moves them by tenths) to 2e-2 each; an H100 read
+# 3.9e-3 for the whole and 5.1e-3 for the worst projection (layer 0's qkv).
+GPT_FP32_LOSS_RTOL = 1e-4
+GPT_FP32_GRAD_L2_TOL = 1e-3
+GPT_BF16_LOSS_RTOL = 2e-3
+GPT_BF16_GRAD_L2_TOL = 2e-2
+GPT_BF16_ATTN_TENSOR_L2_TOL = 2e-2
+GPT_SCHEDULE_STEPS = 1000
+GPT_NARROW = {"n_layer": 2, "n_embd": 64, "n_head": 4, "n_query_groups": 2,
+              "intermediate_size": 96}
+
+
+def gpt_train_config(train_file: str, val_file: str, exp_dir: str, device: str = "cuda",
+                     seq_length: int = 4096, vocab_size: int = 32000) -> dict:
+    """The config phase `train_gpt` trains at, as a dict: the model block
+    holds `config_name` and only the overrides it means (any other GPTConfig
+    field there would override tiny-llama's own), the optimizer, schedule,
+    clip and logger blocks are those of configs/gpt_pretraining.yaml
+    (tests/test_torch_gpt_train.py holds them to the YAML), with
+    `trainer.precision=bf16`, `trainer.accumulate_grad_batches=4`, batch 1,
+    `trainer.max_steps=1000` (the schedule's horizon: 20 warm-up updates, of
+    which the phase's one epoch takes the first three; from the YAML's peak
+    rate at once, a model of this width loses ground on its first updates),
+    `trainer.log_every_n_steps=1` and `exp_manager.always_save_roar=true`."""
+    model = {
+        "config_name": "tiny-llama-1.1b", "block_size": seq_length, "seq_length": seq_length,
+        "vocab_size": vocab_size, "use_flash": True, "scan_layers": True, "remat": True,
+        "remat_policy": "flash", "fused_ce": True,
+        "train_ds": {"dataloader_params": {"batch_size": 1, "shuffle": True}},
+        "optim": {"name": "adamw", "lr": 3e-4, "weight_decay": 0.1, "betas": [0.9, 0.95],
+                  "sched": {"name": "CosineAnnealing", "warmup_ratio": 0.02, "min_lr": 3e-5}},
+    }
+    return {
+        "name": "GPTPretraining", "train_dataset": train_file, "validation_dataset": val_file,
+        "model": model,
+        "trainer": {"max_epochs": 1, "max_steps": GPT_SCHEDULE_STEPS, "gradient_clip_val": 1.0,
+                    "log_every_n_steps": 1, "model_parallel_size": 1, "precision": "bf16",
+                    "accumulate_grad_batches": 4, "seed": 0},
+        "exp_manager": {"exp_dir": exp_dir, "name": "GPTPretraining",
+                        "create_tensorboard_logger": True, "always_save_roar": True},
+        "device": device,
+    }
+
+
+def write_lm_corpus(rng: np.random.Generator, train_file: str, val_file: str, n_words: int,
+                    train_tokens: int) -> None:
+    """A seeded synthetic corpus, one document per line.  The training file
+    draws `train_tokens` words from a Zipf law over `n_words` distinct words
+    (a learnable unigram distribution); the validation file holds every word
+    once in a seeded order, so the two files together give the tokenizer
+    `n_words` distinct words."""
+    words = np.array([f"w{i}" for i in range(n_words)])
+    weights = 1.0 / np.arange(1, n_words + 1)
+    drawn = rng.choice(n_words, size=train_tokens, p=weights / weights.sum())
+    for path, ids in ((train_file, drawn), (val_file, rng.permutation(n_words))):
+        with open(path, "w", encoding="utf-8") as f:
+            at = 0
+            while at < len(ids):
+                n = int(rng.integers(40, 200))  # a line's EOS counts as a token too
+                f.write(" ".join(words[ids[at:at + n]]) + "\n")
+                at += n
+
+
+def _set_gpt_config(module, **fields) -> None:
+    """Replace fields of the (frozen, shared) GPTConfig on a built GPT and
+    every sub-module that holds it."""
+    import dataclasses
+
+    config = dataclasses.replace(module.config, **fields)
+    for m in module.modules():
+        if hasattr(m, "config"):
+            m.config = config
+
+
+def _gpt_micro_batch(model, batch: dict):
+    """(loss, gradients of every parameter) of one micro-batch in training mode."""
+    model.module.train()
+    loss, _ = model.loss_fn(batch)
+    grads = torch.autograd.grad(loss, model.parameters())
+    return float(loss.detach()), grads
+
+
+def _grad_l2_rel(got, want, names=None):
+    """|got - want|_2 over |want|_2 across all tensors; with `names`, also
+    the same of each tensor by its name."""
+    delta = [float((a.float() - b.float()).square().sum()) for a, b in zip(got, want)]
+    total = [float(b.float().square().sum()) for b in want]
+    whole = (sum(delta) / max(sum(total), 1e-60)) ** 0.5
+    if names is None:
+        return whole
+    return whole, {n: (d / max(t, 1e-60)) ** 0.5 for n, d, t in zip(names, delta, total)}
+
+
+def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
+                    seq_length: int = 4096, vocab_size: int = 32000, updates: int = 3) -> dict:
+    """GPT causal-LM training through the CLI's `run` at the full width and
+    depth of tiny-llama-1.1b (`narrow`: a rehearsal width); returns the causal
+    flash launch counts of that run and, on the card, the step's timing."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "examples", "nlp"))
+    import gpt_pretraining_torch as cli
+
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models.gpt_model import GPTLMModel
+    from roar_tpu_torch.training import convert
+    from roar_tpu_torch.training.optim import cosine_annealing
+    from roar_tpu_torch.training.save_restore import restore_from
+    from roar_tpu_torch.training.trainer import to_device
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def since(before):
+        """The launches after `before`, by kernel: all must be causal."""
+        new = fa.LAUNCHES - before
+        if on_card and any(not k.startswith("causal_") for k in new):
+            raise AssertionError(f"a non-causal flash kernel was launched: {dict(new)}")
+        return {k: new[f"causal_{k}"] for k in ("fwd", "dkv", "dq")}
+
+    rng = np.random.default_rng(SEED + 4)
+    accumulate = 4
+    micro_batches = updates * accumulate
+    n_words = vocab_size - 6  # the tokenizer's six specials fill the rest
+    with tempfile.TemporaryDirectory() as tmp:
+        train_file, val_file = os.path.join(tmp, "train.txt"), os.path.join(tmp, "val.txt")
+        # `micro_batches` packed blocks exactly: the epoch ends, so validation runs
+        write_lm_corpus(rng, train_file, val_file, n_words,
+                        train_tokens=micro_batches * seq_length + seq_length // 2)
+        cfg = gpt_train_config(train_file, val_file, os.path.join(tmp, "exp"), str(device),
+                               seq_length, vocab_size)
+        if narrow:
+            cfg["model"].update(GPT_NARROW)
+
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state = cli.run(cfg)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = since(Counter())
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        tokenizer = cli.SimpleWordTokenizer([train_file, val_file], max_vocab=vocab_size)
+        dataset = cli.CausalLMDataset(tokenizer, train_file, seq_length=seq_length)
+        n_val = len(cli.CausalLMDataset(tokenizer, val_file, seq_length=seq_length))
+        if len(dataset) != micro_batches or n_val < 1:
+            raise AssertionError(f"{len(dataset)} training blocks, {n_val} validation blocks")
+        model, module = state.model, state.model.module
+        config = module.config
+        n_layer = config.n_layer
+        n_params = sum(p.numel() for p in module.parameters())
+        if not narrow and (n_layer, config.n_embd, config.n_head, config.groups,
+                           config.intermediate_size, config.padded_vocab, config.block_size,
+                           n_params) != (22, 2048, 32, 4, 5632, 32000, 4096, 1100048384):
+            raise AssertionError(f"not tiny-llama-1.1b at S 4096: {config}, {n_params} parameters")
+        if config.vocab_size != vocab_size:
+            raise AssertionError(f"the corpus gave {config.vocab_size} tokens, not {vocab_size}")
+        if state.step != micro_batches or state.opt.count != updates:
+            raise AssertionError(f"{state.step} micro-batches, {state.opt.count} updates")
+        if module.compute_dtype != torch.bfloat16 or any(
+                p.dtype != torch.float32 for p in module.parameters()):
+            raise AssertionError("not bf16 compute from fp32 master parameters")
+
+        root = os.path.join(tmp, "exp", "GPTPretraining")
+        with open(os.path.join(root, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        train = [r for r in records if "loss" in r]
+        val = [r for r in records if "val_loss" in r]
+        if [r["step"] for r in train] != list(range(1, micro_batches + 1)):
+            raise AssertionError(f"logged steps {[r['step'] for r in train]}")
+        if not all(np.isfinite(r[k]) for r in train for k in ("loss", "ppl", "token_acc",
+                                                              "grad_norm")):
+            raise AssertionError(f"a training metric is not finite: {train}")
+        if len(val) != 1 or not all(np.isfinite(v) for k, v in val[0].items()):
+            raise AssertionError(f"validation records {val}")
+        # the mean loss of each update's micro-batches: the first is taken
+        # before any update, each later one after one more
+        by_update = [float(np.mean([r["loss"] for r in train[i:i + accumulate]]))
+                     for i in range(0, micro_batches, accumulate)]
+        if not by_update[-1] < by_update[0]:
+            raise AssertionError(f"the loss does not fall over the updates: {by_update}")
+        sched = cfg["model"]["optim"]["sched"]
+        horizon = cfg["trainer"]["max_steps"]
+        schedule = cosine_annealing(cfg["model"]["optim"]["lr"], max_steps=horizon,
+                                    warmup_steps=int(sched["warmup_ratio"] * horizon),
+                                    min_lr=sched["min_lr"])
+        lrs = [r["lr"] for r in train]
+        if not np.allclose(lrs, [schedule(i // accumulate) for i in range(micro_batches)],
+                           rtol=1e-9, atol=0.0):
+            raise AssertionError(f"learning rates {lrs} are not the schedule's")
+        # every attention of the run went through the causal kernels: a
+        # forward, a dkv and a dq per layer and micro-batch (`remat_policy=
+        # flash` keeps the forward's results), a forward per layer and
+        # validation batch, and nothing through the non-causal ones
+        want = {"fwd": n_layer * (micro_batches + n_val), "dkv": n_layer * micro_batches,
+                "dq": n_layer * micro_batches}
+        if on_card and launches != want:
+            raise AssertionError(f"causal flash launches {launches} != {want}")
+        _emit({"phase": "train_gpt", "step": "cli", "card": card,
+               "config": {k: v for k, v in cfg["model"].items()
+                          if k not in ("train_ds", "optim")},
+               "parameters": n_params, "layers": n_layer, "micro_batches": micro_batches,
+               "updates": updates, "tokens_per_update": accumulate * seq_length,
+               "causal_flash_launches": launches,
+               "per_micro_batch": {"fwd": (launches["fwd"] - n_layer * n_val) // micro_batches,
+                                   "dkv": launches["dkv"] // micro_batches,
+                                   "dq": launches["dq"] // micro_batches},
+               "validation_batches": n_val, "loss_by_micro_batch": [r["loss"] for r in train],
+               "loss_by_update": by_update, "token_acc_last": train[-1]["token_acc"],
+               "val": {k: v for k, v in val[0].items() if k.startswith("val_")},
+               "grad_norm": [r["grad_norm"] for r in train], "lr": lrs, "wall_s": wall,
+               "wall_includes": "tokenizer, model build, logging every micro-batch (a sync "
+                                "each), validation, the checkpoint of masters and moments, "
+                                "the bundle",
+               "peak_device_memory_bytes": peak})
+
+        # the bundle: read back and loaded by the converter, equal to the masters
+        path = os.path.join(root, "checkpoints", "GPTPretraining.roar")
+        bundle_cfg, tree = restore_from(path)
+        with device:
+            loaded = GPTLMModel(bundle_cfg["model"])
+        convert.load_gpt_params(loaded.module, tree)
+        flat = convert.flatten_params(tree)
+        if "h_scan/attn/attn/kernel" not in flat or len(flat["h_scan/attn/attn/kernel"]) != n_layer:
+            raise AssertionError("the bundle is not in the stacked h_scan layout")
+        for (name, a), b in zip(loaded.module.state_dict().items(),
+                                module.state_dict().values()):
+            if a.dtype != torch.float32 or not torch.equal(a, b):
+                raise AssertionError(f"bundle parameter {name} is not the trained master")
+        _emit({"phase": "train_gpt", "step": "bundle", "bundle_bytes": os.path.getsize(path),
+               "layout": "h_scan", "parameters_equal_trained": True})
+        del loaded, tree, flat
+
+    # one micro-batch under each remat policy
+    batch = to_device(dataset.collate([dataset[0]]), device)
+    state.opt.zero_grad()
+
+    def under_policy(name):
+        _set_gpt_config(module, remat_policy=name)
+        before = fa.LAUNCHES.copy()
+        loss, grads = _gpt_micro_batch(model, batch)
+        sync()
+        return {"loss": loss, "grads": grads, "launches": since(before)}
+
+    policy = {name: under_policy(name) for name in ("flash", "nothing")}
+    _set_gpt_config(module, remat_policy="flash")
+    want = {"flash": {"fwd": n_layer, "dkv": n_layer, "dq": n_layer},
+            "nothing": {"fwd": 2 * n_layer, "dkv": n_layer, "dq": n_layer}}
+    if on_card and {k: v["launches"] for k, v in policy.items()} != want:
+        raise AssertionError(f"launches per micro-batch {policy} != {want}")
+    policy_l2 = _grad_l2_rel(policy["nothing"]["grads"], policy["flash"]["grads"])
+    identical = all(torch.equal(a, b) for a, b in zip(policy["nothing"]["grads"],
+                                                       policy["flash"]["grads"]))
+    if policy["flash"]["loss"] != policy["nothing"]["loss"] or policy_l2 > 1e-6:
+        raise AssertionError(f"the two remat policies disagree: losses "
+                             f"{policy['flash']['loss']} / {policy['nothing']['loss']}, "
+                             f"gradients by {policy_l2}")
+    _emit({"phase": "train_gpt", "step": "remat_policies",
+           "launches_per_micro_batch": {k: v["launches"] for k, v in policy.items()},
+           "loss": policy["flash"]["loss"], "losses_equal": True,
+           "gradients_bit_identical": identical, "grad_l2_rel_diff": policy_l2})
+    grads_k, loss_k = policy["flash"]["grads"], policy["flash"]["loss"]
+    per_micro_batch = policy["flash"]["launches"]
+    del policy
+
+    # bf16 at full depth: the trained model, kernels against plain versions
+    with _PlainFlash():
+        loss_p, grads_p = _gpt_micro_batch(model, batch)
+    sync()
+    bf16_l2, by_tensor = _grad_l2_rel(grads_k, grads_p,
+                                      [n for n, _ in module.named_parameters()])
+    del grads_k, grads_p
+    if abs(loss_k - loss_p) > GPT_BF16_LOSS_RTOL * abs(loss_p) or bf16_l2 > GPT_BF16_GRAD_L2_TOL:
+        raise AssertionError(f"bf16, kernels vs plain: loss {loss_k} vs {loss_p}, whole "
+                             f"gradient differs by {bf16_l2}")
+    attn = {n: e for n, e in by_tensor.items() if ".attn." in n}
+    if len(attn) != 2 * n_layer:
+        raise AssertionError(f"attention projections: {sorted(attn)}")
+    worst_attn, worst_any = max(attn, key=attn.get), max(by_tensor, key=by_tensor.get)
+    if attn[worst_attn] > GPT_BF16_ATTN_TENSOR_L2_TOL:
+        raise AssertionError(f"bf16, kernels vs plain: the gradient of {worst_attn} differs by "
+                             f"{attn[worst_attn]} (L2, relative)")
+    bf16_line = {"layers": n_layer, "loss_kernels": loss_k, "loss_plain": loss_p,
+                 "loss_rtol": GPT_BF16_LOSS_RTOL, "whole_grad_l2_rel_err": bf16_l2,
+                 "grad_l2_tol": GPT_BF16_GRAD_L2_TOL,
+                 "attn_projection_grad_l2_rel_err": {
+                     "worst": attn[worst_attn], "tensor": worst_attn,
+                     "median": float(np.median(list(attn.values()))),
+                     "tol": GPT_BF16_ATTN_TENSOR_L2_TOL},
+                 "worst_tensor_grad_l2_rel_err": {"tensor": worst_any,
+                                                  "err": by_tensor[worst_any]}}
+
+    # fp32 at full width and 4 layers: a model of its own, seeded on the device
+    fp32_cfg = {k: v for k, v in cfg["model"].items() if k not in ("train_ds", "optim")}
+    fp32_cfg.update(n_layer=min(4, n_layer), vocab_size=config.vocab_size)
+    with device:
+        small = GPTLMModel(fp32_cfg)
+    small.module.to(device)
+    small.init_parameters(torch.Generator(device=device).manual_seed(SEED))
+    before = fa.LAUNCHES.copy()
+    loss_k32, grads_k32 = _gpt_micro_batch(small, batch)
+    sync()
+    step32 = since(before)
+    with _PlainFlash():
+        loss_p32, grads_p32 = _gpt_micro_batch(small, batch)
+    sync()
+    fp32_l2 = _grad_l2_rel(grads_k32, grads_p32)
+    n32 = small.config.n_layer
+    del grads_k32, grads_p32, small
+    if on_card and step32 != {"fwd": n32, "dkv": n32, "dq": n32}:
+        raise AssertionError(f"the fp32 micro-batch launched {step32}")
+    if abs(loss_k32 - loss_p32) > GPT_FP32_LOSS_RTOL * abs(loss_p32) \
+            or fp32_l2 > GPT_FP32_GRAD_L2_TOL:
+        raise AssertionError(f"fp32, kernels vs plain: loss {loss_k32} vs {loss_p32}, whole "
+                             f"gradient differs by {fp32_l2}")
+    _emit({"phase": "train_gpt", "step": "kernel_path_vs_plain_path",
+           "batch_shape": list(batch["input_ids"].shape), "bf16": bf16_line,
+           "fp32": {"layers": n32, "loss_kernels": loss_k32, "loss_plain": loss_p32,
+                    "loss_rtol": GPT_FP32_LOSS_RTOL, "whole_grad_l2_rel_err": fp32_l2,
+                    "grad_l2_tol": GPT_FP32_GRAD_L2_TOL}})
+    if on_card:
+        torch.cuda.empty_cache()
+
+    result = {"launches": launches, "per_micro_batch": per_micro_batch}
+    if on_card:
+        result["timing"] = _time_gpt_step(state, batch, accumulate, card)
+    return result
+
+
+def _time_gpt_step(state, batch: dict, accumulate: int, card: str) -> dict:
+    """The time of one optimizer update (`accumulate` micro-batches of
+    `batch`; median of 3 after 1 warm, CUDA events), its split by the marks of
+    `GPT.forward`, `loss_fn` and `train_step` summed over the micro-batches,
+    and the time inside the attention kernels' wrappers (events around every
+    call, in one further update)."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.training.trainer import train_step
+
+    parts = ("embedding", "blocks_forward", "model_forward", "loss", "backward", "optimizer")
+    state.step = 0
+    state.opt.zero_grad()
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    totals, splits = [], {p: [] for p in parts}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(4):
+        torch.cuda.synchronize()
+        begin = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        split = dict.fromkeys(parts, 0.0)
+        for _ in range(accumulate):
+            events.clear()
+            mark("start")
+            train_step(state, batch, 0, accumulate, mark=mark)
+            torch.cuda.synchronize()
+            for before, name in zip(("start",) + parts, parts):
+                split[name] += events[before].elapsed_time(events[name])
+        if i:
+            totals.append(begin.elapsed_time(events["optimizer"]))
+            for name in parts:
+                splits[name].append(split[name])
+    peak = torch.cuda.max_memory_allocated()
+
+    spans = {"flash_fwd": [], "flash_bwd": []}
+    saved = (fa.flash_self_attention, fa.flash_self_attention_bwd)
+
+    try:
+        fa.flash_self_attention = _timed(spans["flash_fwd"], saved[0])
+        fa.flash_self_attention_bwd = _timed(spans["flash_bwd"], saved[1])
+        for _ in range(accumulate):
+            train_step(state, batch, 0, accumulate)
+        torch.cuda.synchronize()
+    finally:
+        fa.flash_self_attention, fa.flash_self_attention_bwd = saved
+    inside = {n: sum(a.elapsed_time(b) for a, b in pairs) for n, pairs in spans.items()}
+    step_ms = float(np.median(totals))
+    tokens = accumulate * int(batch["input_ids"].numel())
+    split = {p: float(np.median(v)) for p, v in splits.items()}
+    split["final_norm"], split["fused_ce"] = split.pop("model_forward"), split.pop("loss")
+    timing = {"phase": "train_gpt", "step": "timing", "card": card,
+              "micro_batch_shape": list(batch["input_ids"].shape), "micro_batches": accumulate,
+              "step_ms": step_ms, "step_ms_all": totals, "tokens_per_update": tokens,
+              "tokens_per_s": tokens / step_ms * 1e3,
+              "split_ms": split,
+              "flash_ms_per_step": {"fwd": inside["flash_fwd"],
+                                    "bwd_delta_dkv_dq": inside["flash_bwd"]},
+              "flash_calls_per_step": {n: len(v) for n, v in spans.items()},
+              "flash_share_of_step": (inside["flash_fwd"] + inside["flash_bwd"]) / step_ms,
+              "peak_device_memory_bytes": peak,
+              "method": "CUDA events; one step = one optimizer update = 4 micro-batches of one "
+                        "sequence; median of 3 updates after 1 warm; the split sums each part "
+                        "over the micro-batches (a sync after each, so the parts' sum is below "
+                        "step_ms by the host's gaps); `blocks_forward` holds the attention "
+                        "forward kernels, `backward` the recomputation of each block's two "
+                        "halves and the attention backward kernels; batch already on the card"}
     _emit(timing)
     return timing
 
@@ -1548,7 +2130,8 @@ def phase_slice(device: torch.device, fp_cfg: dict, hg_cfg: dict, sentences,
         if device.type == "cuda":
             torch.cuda.synchronize()
 
-    fa.LAUNCHES, engine.programs_run = 0, 0
+    fa.LAUNCHES.clear()
+    engine.programs_run = 0
     t0 = time.perf_counter()
     n_programs = engine.warmup()
     sync()
@@ -1616,7 +2199,7 @@ def phase_slice(device: torch.device, fp_cfg: dict, hg_cfg: dict, sentences,
         server.batcher.close()
         engine.close()
     sync()
-    launches, programs = fa.LAUNCHES, engine.programs_run
+    launches, programs = fa.LAUNCHES["fwd"], engine.programs_run
     _emit({"phase": "slice", "step": "http", "concurrent_requests": len(picks),
            "concurrent_wall_s": concurrent_s, "batches_run": server.batcher.batches_run,
            "stream_chunks": len(chunks), "programs": programs, "flash_launches": launches})
@@ -1943,67 +2526,102 @@ def main() -> int:
     vit = phase_kernel_viterbi(device)
     conv = phase_kernel_grouped_conv(device)
     fbwd = phase_kernel_flash_bwd(device)
+    fcausal = phase_kernel_flash_causal(device)
     run = phase_slice(device, fastpitch_config(), hifigan_config(), TAMIL_SENTENCES, card)
     sup = phase_supdata(device, card)
     train = phase_train_hifigan(device, card)
     fp_train = phase_train_fastpitch(device, card)
+    torch.cuda.empty_cache()
+    gpt = phase_train_gpt(device, card)
 
     def pick(d):
         return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+    def flash_rows(cases):
+        """The forward's numbers and those of the dkv and dq kernels, summed
+        over `cases` (one `_flash_case` result per shape a step hands the
+        kernels).  For the two backward kernels `bound_ms`, `plain_ms` and
+        `library_ms` are those of the whole backward (five products), which
+        the two kernels and the delta reduction share: plain and library give
+        dq, dk and dv in one call; `backward_ms` times them together, and
+        `own_work_bound_ms` counts the products this kernel does itself (the
+        split recomputes q.k^T and dO.v^T)."""
+        def total(get):
+            return sum(get(case) for case in cases)
+
+        def bound(which):
+            return total(lambda c: c["bounds"][which]["bound_ms"])
+
+        fwd = {"ms": total(lambda c: c["times"]["fwd_with_lse_ms"]),
+               "plain_ms": total(lambda c: c["times"]["fwd_plain_ms"]),
+               "bound_ms": bound("fwd_with_lse"),
+               "bound_by": cases[-1]["bounds"]["fwd_with_lse"]["bound_by"],
+               "library_ms": total(lambda c: c["times"]["fwd_library_ms"])}
+        bwd = {name: {"ms": total(lambda c: c["times"][f"{name}_ms"]),
+                      "backward_ms": total(lambda c: c["times"]["backward_ms"]),
+                      "plain_ms": total(lambda c: c["times"]["backward_plain_ms"]),
+                      "bound_ms": bound("backward"),
+                      "bound_by": cases[-1]["bounds"]["backward"]["bound_by"],
+                      "own_work_bound_ms": bound(f"{name}_own_work"),
+                      "library_ms": total(lambda c: c["times"]["backward_library_ms"])}
+               for name in ("dkv", "dq")}
+        return fwd, bwd
+
+    def worst(errors, *names):
+        return max(e[n]["max_abs_err"] if isinstance(e[n], dict) else e[n]
+                   for e in errors for n in names)
 
     # K5 on the training path: one encoder-layer launch (text bucket) plus
     # one decoder-layer launch (mel bucket) of the longest batch, summed; a
     # step makes six of each
     flash = fp_train["flash"]
-
-    def over_shapes(get):
-        return sum(get(case) for case in flash.values())
-
-    def flash_errs(*names):
-        return max(max(case["errors"][n]["max_abs_err"] for case in flash.values()) for n in names)
-
+    flash_fwd, flash_bwd = flash_rows([flash[t] for t in sorted(flash)])
+    flash_errors = [case["errors"] for case in flash.values()] + [fbwd["max_abs_err"]]
     flash_shapes = {str(t): {**case["times"],
                              **{k: v["bound_ms"] for k, v in case["bounds"].items()}}
                     for t, case in flash.items()}
-    backward_bound = over_shapes(lambda c: c["bounds"]["backward"]["bound_ms"])
+    # K5-causal: every launch of phase `train_gpt`'s run is causal and bf16,
+    # at (1, 4096, 32, 64); `ms` and its neighbours are one layer's call at
+    # that shape and type, `fp32` the same call in fp32;
+    # `launches_per_micro_batch` is the count of one micro-batch under
+    # `remat_policy=flash`
+    causal_fwd, causal_bwd = flash_rows([fcausal["path"]["bfloat16"]])
+    causal_fwd32, causal_bwd32 = flash_rows([fcausal["path"]["float32"]])
+    causal_errors = list(fcausal["max_abs_err"].values())
+    backward_kernels = (("dkv", ("dk", "dv")), ("dq", ("dq",)))
     kernels = [
         # `ms` and its neighbours: serving's decoder shape (8, 3072, 1, 64);
         # `train_fastpitch`: the same at the training step's two shapes, with
         # the log-sum-exp written
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
-         "replaces": "roar_tpu/models/transformer.py:72",
+         "replaces": "roar_tpu/models/transformer.py:72", "causal": False,
          "launches": run["launches"], "launches_train_fastpitch": fp_train["launches"]["fwd"],
-         "max_abs_err": max(kern["max_abs_err"], fbwd["max_abs_err"]["o"], flash_errs("o")),
+         "max_abs_err": max(kern["max_abs_err"], worst(flash_errors, "o")),
          **pick(kern), "library_ms": kern["library_ms"],
-         "train_fastpitch": {
-             "ms": over_shapes(lambda c: c["times"]["fwd_with_lse_ms"]),
-             "plain_ms": over_shapes(lambda c: c["times"]["fwd_plain_ms"]),
-             "bound_ms": over_shapes(lambda c: c["bounds"]["fwd_with_lse"]["bound_ms"]),
-             "bound_by": flash[max(flash)]["bounds"]["fwd_with_lse"]["bound_by"],
-             "library_ms": over_shapes(lambda c: c["times"]["fwd_library_ms"]),
-             "lse_max_abs_err": max(fbwd["max_abs_err"]["lse"], flash_errs("lse")),
-             "by_mel_or_text_bucket": flash_shapes}},
-        # K5-bwd: `bound_ms` is that of the whole backward (five products),
-        # which the two kernels and the delta reduction share; `backward_ms`
-        # times them together; plain and library give dq, dk and dv in one
-        # call too.  `own_work_bound_ms` counts the products this kernel does
-        # itself (the split recomputes q.k^T and dO.v^T)
+         "train_fastpitch": {**flash_fwd, "lse_max_abs_err": worst(flash_errors, "lse"),
+                             "by_mel_or_text_bucket": flash_shapes}},
         *[{"name": f"flash_attention_bwd_{name}", "route": "cuda",
-           "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu", "replaces": replaces,
+           "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "roar_tpu/models/transformer.py:110", "causal": False,
            "launches": fp_train["launches"][name],
-           "max_abs_err": max(*(fbwd["max_abs_err"][g] for g in grads), flash_errs(*grads)),
-           "ms": over_shapes(lambda c: c["times"][f"{name}_ms"]),
-           "backward_ms": over_shapes(lambda c: c["times"]["backward_ms"]),
-           "plain_ms": over_shapes(lambda c: c["times"]["backward_plain_ms"]),
-           "bound_ms": backward_bound,
-           "bound_by": flash[max(flash)]["bounds"]["backward"]["bound_by"],
-           "own_work_bound_ms": over_shapes(
-               lambda c: c["bounds"][f"{name}_own_work"]["bound_ms"]),
-           "library_ms": over_shapes(lambda c: c["times"]["backward_library_ms"])}
-          for name, grads, replaces in (
-              ("dkv", ("dk", "dv"), "roar_tpu/models/transformer.py:110"),
-              ("dq", ("dq",), "roar_tpu/models/transformer.py:110"))],
+           "max_abs_err": worst(flash_errors, *grads), **flash_bwd[name]}
+          for name, grads in backward_kernels],
+        {"name": "flash_attention_causal_fwd", "route": "cuda",
+         "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
+         "launches": gpt["launches"]["fwd"],
+         "launches_per_micro_batch": gpt["per_micro_batch"]["fwd"],
+         "max_abs_err": worst(causal_errors, "o"),
+         "lse_max_abs_err": worst(causal_errors, "lse"), **causal_fwd, "fp32": causal_fwd32},
+        *[{"name": f"flash_attention_causal_bwd_{name}", "route": "cuda",
+           "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
+           "launches": gpt["launches"][name],
+           "launches_per_micro_batch": gpt["per_micro_batch"][name],
+           "max_abs_err": worst(causal_errors, *grads), **causal_bwd[name],
+           "fp32": causal_bwd32[name]}
+          for name, grads in backward_kernels],
         {"name": "pyin_viterbi_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:34",

@@ -1,12 +1,17 @@
-// Segment-masked flash-attention forward, fp32, for Hopper (sm_90a).
+// Segment-masked flash-attention forward, non-causal and causal, fp32 and
+// bf16, for Hopper (sm_90a).
 //
 // Replaces: the upstream Pallas TPU kernel
-// `jax.experimental.pallas.ops.tpu.flash_attention` (non-causal, SegmentIds)
-// that roar_tpu/models/transformer.py:72 `flash_self_attention` reaches.
-// Query i sees key j only when seg[b, i] == seg[b, j]; the FastPitch stacks
-// give valid tokens id 0 and padding id 1, so pad queries see only pad keys.
+// `jax.experimental.pallas.ops.tpu.flash_attention` with SegmentIds, that
+// roar_tpu/models/transformer.py:72 `flash_self_attention` reaches with
+// `causal=False` and roar_tpu/models/gpt.py:491 `_causal_flash` with
+// `causal=True`.  Query i sees key j only when seg[b, i] == seg[b, j] and,
+// with `causal`, j <= i; valid tokens carry id 0 and padding id 1, so pad
+// queries see only pad keys, and every query sees at least its own key.
 //
-// Layout: q, k, v, out are contiguous [B, T, H, D] fp32; seg is [B, T] int32.
+// Layout: q, k, v, out are contiguous [B, T, H, D], fp32 or bf16 (see
+// flash_attention_common.cuh for the roundings of the bf16 form); seg is
+// [B, T] int32.
 // One thread block per (64-query tile, head, batch row); 256 threads as a
 // 16 x 16 grid: thread (ty, tx) owns query rows 4*ty .. 4*ty+3, score columns
 // tx + 16*j of each 64-key tile, and output columns tx + 16*j.  K/V tiles are
@@ -22,8 +27,11 @@
 // does about it: a K/V tile whose segment ids all lie outside the query
 // tile's [min, max] segment range is skipped without being loaded (pad keys
 // for a tile of valid queries, and the reverse): when half of a decoder
-// bucket is padding, about half the passes.  Tensor cores (wgmma), TMA and
-// bf16 are later work.
+// bucket is padding, about half the passes.  With `causal` the key loop ends
+// at the query tile's own diagonal tile (about half the passes again), and
+// the query tiles are handed out longest first, so that the short ones fill
+// the tail.  The bf16 form halves the bytes but still multiplies on the FMA
+// pipe: tensor cores (wgmma) and TMA are later work.
 //
 // Training: when the caller passes `lse`, each in-range row also writes its
 // log-sum-exp `m + log l` to lse[B, H, T] (one tensor in place of the TPU
@@ -31,17 +39,17 @@
 // flash_attention_bwd.cu recompute the probabilities from.  With a null
 // pointer the kernel does what it did before.
 
-#include <cuda_runtime.h>
 #include <climits>
+
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16
-constexpr int PS = BK + 1;    // padded row stride of the P tile
+using namespace flash;
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+constexpr int BQ = TILE;    // query rows per block
+constexpr int BK = TILE;    // keys per tile
+constexpr int PS = BK + 1;  // padded row stride of the P tile
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -49,15 +57,16 @@ constexpr size_t smem_bytes() {
          sizeof(int) * (BQ + BK);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ seg,
-                 float* __restrict__ out, float* __restrict__ lse, int T, int H,
-                 float scale) {
+// Shared memory lets three blocks of D <= 64 live on an SM (66 KB each) and
+// one of D = 128: the register budget is set for that many, so that ptxas
+// neither spills to fit a fourth block nor starves the third.
+template <typename E, int D>
+__global__ void __launch_bounds__(THREADS, (D <= 64 ? 3 : 1))
+flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                 const int* __restrict__ seg, E* __restrict__ out, float* __restrict__ lse,
+                 int T, int H, float scale, int causal) {
   constexpr int DP = D + 1;   // padded row stride of the Q and K tiles
   constexpr int CJ = D / 16;  // output columns per thread
-  constexpr int D4 = D / 4;   // float4s per row
 
   extern __shared__ float smem[];
   float* Qs = smem;            // [BQ][DP]
@@ -70,7 +79,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const long ld = (long)H * D;  // elements between consecutive t
   const long base = (long)b * T * ld + (long)h * D;
@@ -80,13 +89,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     qlo = INT_MAX;
     qhi = INT_MIN;
   }
-  for (int i = tid; i < BQ * D4; i += THREADS) {
-    const int r = i / D4, c = (i % D4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < T) x = *reinterpret_cast<const float4*>(q + base + (q0 + r) * ld + c);
-    float* dst = Qs + r * DP + c;
-    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
-  }
+  load_tile<E, D, DP>(Qs, q, base, ld, q0, T, tid);
   __syncthreads();
   if (tid < BQ) {
     const int s = (q0 + tid < T) ? segb[q0 + tid] : 0;
@@ -107,7 +110,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < T; k0 += BK) {
+  // causal: the tiles past the diagonal tile (k0 == q0) hold no visible key
+  const int k_end = causal ? min(T, q0 + BQ) : T;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
     // Every read of the previous tile's segk finished before the barrier
     // that followed its P tile; this barrier also ends its reads of Vs/Ps.
     bool seen = false;
@@ -118,18 +123,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     if (!__syncthreads_or(seen)) continue;
 
-    for (int i = tid; i < BK * D4; i += THREADS) {
-      const int r = i / D4, c = (i % D4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + r < T) {
-        kx = *reinterpret_cast<const float4*>(k + base + (k0 + r) * ld + c);
-        vx = *reinterpret_cast<const float4*>(v + base + (k0 + r) * ld + c);
-      }
-      float* kd = Ks + r * DP + c;
-      kd[0] = kx.x; kd[1] = kx.y; kd[2] = kx.z; kd[3] = kx.w;
-      *reinterpret_cast<float4*>(Vs + r * D + c) = vx;
-    }
+    load_tile<E, D, DP>(Ks, k, base, ld, k0, T, tid);
+    load_tile<E, D, D>(Vs, v, base, ld, k0, T, tid);
     __syncthreads();
+    // causal: key c of this tile is visible to row r when k0 + c <= q0 + r
+    const int lim = causal ? q0 - k0 : BK;
 
     float s[4][4];
 #pragma unroll
@@ -157,7 +155,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const bool ok = (k0 + c < T) && segk[c] == sq;
+        const bool ok = (k0 + c < T) && segk[c] == sq && (c - r <= lim);
         s[i][j] = ok ? s[i][j] * scale : neg_inf();
         mx = fmaxf(mx, s[i][j]);
       }
@@ -174,7 +172,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_use);
-        Ps[r * PS + tx + 16 * j] = p;
+        Ps[r * PS + tx + 16 * j] = round_as<E>(p);  // bf16: rounded for p.v only
         rs += p;
       }
 #pragma unroll
@@ -207,38 +205,51 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // l > 0: every in-range query sees at least its own key
       const float inv = 1.f / l[i];
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) out[base + t * ld + tx + 16 * j] = acc[i][j] * inv;
+      for (int j = 0; j < CJ; ++j) store_as(out + base + t * ld + tx + 16 * j, acc[i][j] * inv);
       if (lse != nullptr && tx == 0) lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
     }
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, const int* seg,
-                   float* out, float* lse, int B, int T, int H, float scale,
+template <typename E, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
+                   float* lse, int B, int T, int H, float scale, int causal,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, seg, out, lse, T, H, scale);
+  flash_fwd_kernel<E, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), seg,
+      static_cast<E*>(out), lse, T, H, scale, causal);
   return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* seg,
+                     void* out, float* lse, int B, int T, int H, float scale, int causal,
+                     cudaStream_t s) {
+  switch (D) {
+    case 32: return launch<E, 32>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    case 64: return launch<E, 64>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    case 128: return launch<E, 128>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-extern "C" int roar_flash_attention_fwd(const float* q, const float* k, const float* v,
-                                        const int* seg, float* out, float* lse, int B, int T,
-                                        int H, int D, float scale, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+// q, k, v, out: [B, T, H, D] of `bf16 ? bf16 : fp32`; lse: fp32 [B, H, T] or null
+extern "C" int roar_flash_attention_fwd(const void* q, const void* k, const void* v,
+                                        const int* seg, void* out, float* lse, int B, int T,
+                                        int H, int D, float scale, int causal, int bf16,
+                                        void* stream) {
+  if (flash::bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return (int)launch<32>(q, k, v, seg, out, lse, B, T, H, scale, s);
-    case 64: return (int)launch<64>(q, k, v, seg, out, lse, B, T, H, scale, s);
-    case 128: return (int)launch<128>(q, k, v, seg, out, lse, B, T, H, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (bf16)
+    return (int)launch_d<__nv_bfloat16>(D, q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+  return (int)launch_d<float>(D, q, k, v, seg, out, lse, B, T, H, scale, causal, s);
 }
 
 extern "C" const char* roar_cuda_error_string(int err) {

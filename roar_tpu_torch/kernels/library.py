@@ -4,8 +4,9 @@ Every `roar_tpu_torch/csrc/*.cu` file is compiled by `nvcc` for `sm_90a`
 (one `nvcc` per source, all started together) and the objects are linked
 into one shared library with a plain C interface, which is loaded with
 `ctypes`.  The build happens at first use, never at import, into
-`roar_tpu_torch/build/` under a name that carries a hash of the sources,
-so an edited source is rebuilt and a stale library is never loaded.
+`roar_tpu_torch/build/` under a name that carries a hash of the sources
+(the `*.cuh` headers they include too), so an edited source is rebuilt and a
+stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def build_library() -> Path:
     if not sources:
         raise RuntimeError(f"no CUDA sources in {CSRC_DIR}")
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -83,14 +84,15 @@ def build_library() -> Path:
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first call and loaded once per process."""
     lib = ctypes.CDLL(str(build_library()))
+    # every flash function ends: B, T, H, D, scale, causal, bf16, stream
+    flash_tail = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fa = lib.roar_flash_attention_fwd
-    fa.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fa.argtypes = [ctypes.c_void_p] * 6 + flash_tail
     fa.restype = ctypes.c_int
     # q, k, v, seg, lse, delta, dout, then the outputs (dk, dv | dq)
     for name, n_out in (("roar_flash_attention_bwd_dkv", 2), ("roar_flash_attention_bwd_dq", 1)):
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * (7 + n_out) + flash_tail
         fn.restype = ctypes.c_int
     vf = lib.roar_pyin_viterbi_fwd
     vf.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3

@@ -13,7 +13,6 @@ not ported yet.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -27,6 +26,7 @@ from roar_tpu_torch.models.submodules import (
     ConditionalLayerNorm,
     ConvNorm,
     Dropout,
+    trunc_normal_,
 )
 from roar_tpu_torch.models.transformer import (
     FFTransformerDecoder,
@@ -129,13 +129,6 @@ def _fft_kwargs(cfg: FFTConfig) -> Dict[str, object]:
                 dropatt=cfg.dropatt, dropemb=cfg.dropemb)
 
 
-def _trunc_normal(t: torch.Tensor, std: float, generator) -> None:
-    """jax's truncated normal at +-2 sigma, rescaled to the asked std."""
-    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = lo + (1.0 - 2.0 * lo) * torch.rand(t.shape, generator=generator)
-    t.copy_(torch.erfinv(2.0 * u - 1.0) * (math.sqrt(2.0) * std / 0.87962566103423978))
-
-
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """Draw every parameter under `module` from the distribution the flax
@@ -153,7 +146,7 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
                 bound = xavier[id(m)] * (6.0 / (fan_in + fan_out)) ** 0.5
                 m.weight.copy_((torch.rand(m.weight.shape, generator=generator) * 2 - 1) * bound)
             else:
-                _trunc_normal(m.weight, fan_in ** -0.5, generator)
+                trunc_normal_(m.weight, fan_in ** -0.5, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):

@@ -7,6 +7,7 @@ LayerNorm epsilon is 1e-6, flax's default, not torch's 1e-5.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -15,6 +16,16 @@ from torch import nn
 SUPPORTED_CONDITION_TYPES = ("add", "concat", "layernorm")
 LN_EPS = 1e-6
 XAVIER_GAINS = {"linear": 1.0, "relu": 2.0 ** 0.5, "tanh": 5.0 / 3.0, "sigmoid": 1.0}
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]) -> None:
+    """Fill `t` from jax's truncated normal at +-2 sigma, rescaled to the asked
+    std (what flax's lecun-normal draws).  The numbers are drawn on the
+    generator's device (the CPU when there is none)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = lo + (1.0 - 2.0 * lo) * torch.rand(
+        t.shape, generator=generator, device=None if generator is None else generator.device)
+    t.copy_(torch.erfinv(2.0 * u - 1.0) * (math.sqrt(2.0) * std / 0.87962566103423978))
 
 
 def check_support_condition_types(condition_types: Sequence[str]) -> None:

@@ -24,6 +24,11 @@ FastPitch is a change of layout only as well: `load_fastpitch_params` fills a
 port `FastPitchModule` (or any of its sub-modules) from the flax tree and
 `fastpitch_to_jax_tree` writes it back.
 
+GPT is a change of layout only too: `load_gpt_params` fills a port `GPT` from
+the flax tree in either block layout (`h_0 .. h_{L-1}`, or `h_scan` with a
+leading layer axis per leaf, what `scan_layers=True` trains), and
+`gpt_to_jax_tree` writes the layout the module's `scan_layers` names.
+
 Every converter raises on a JAX leaf it does not consume and on a port
 parameter it leaves unfilled.  FastPitch `aligner_module` leaves are skipped
 only when the port module was built without an aligner (it serves training
@@ -39,6 +44,7 @@ import torch
 from torch import nn
 
 from roar_tpu_torch.models.fastpitch import ConvReLUNorm
+from roar_tpu_torch.models.gpt import GPT, RMSNorm
 from roar_tpu_torch.models.hifigan import (
     Generator,
     MultiPeriodDiscriminator,
@@ -145,6 +151,8 @@ def _leaf_names(module: nn.Module, path: str):
     elif isinstance(module, nn.LayerNorm):
         return [("weight", "scale", None), ("bias", "bias", None)] \
             if module.elementwise_affine else []
+    elif isinstance(module, RMSNorm):
+        return [("weight", "scale", None)]
     else:
         raise TypeError(f"no conversion for {type(module).__name__} at {path}")
     if module.bias is not None:
@@ -189,6 +197,65 @@ def fastpitch_to_jax_tree(module: nn.Module) -> Dict[str, Any]:
                 value if axes is None else value.transpose(axes))
     if state:
         raise ValueError(f"port parameters not written to the JAX tree: {sorted(state)}")
+    return {"params": _nest(flat)}
+
+
+# ---------------------------------------------------------------------------
+# GPT: the port's names are the flax scopes (`h.3.attn.proj` is `h_3/attn/proj`)
+# ---------------------------------------------------------------------------
+
+
+def _gpt_sites(module: GPT):
+    """(torch prefix, flax scope, leaf module) of every parameter-holding leaf
+    module of a port GPT, blocks in the unrolled `h_{i}` naming."""
+    for name, leaf in module.named_modules():
+        if name and not list(leaf.children()) and next(leaf.parameters(recurse=False), None) \
+                is not None:
+            scope = name.replace("h.", "h_", 1) if name.startswith("h.") else name
+            yield name + ".", scope.replace(".", "/"), leaf
+
+
+def load_gpt_params(module: GPT, params: Mapping[str, Any]) -> GPT:
+    """Fill a port GPT from the JAX GPT's tree, in the unrolled layout
+    (`h_{i}`) or the stacked one (`h_scan`, each leaf with a leading layer
+    axis).  An unconsumed leaf or an unfilled parameter raises."""
+    leaves = _Leaves(params)
+    stacked = {k: v for k, v in leaves.leaves.items() if k.startswith("h_scan/")}
+    for path, value in stacked.items():
+        del leaves.leaves[path]
+        if value.shape[0] != module.config.n_layer:
+            raise ValueError(f"{path}: {value.shape[0]} stacked layers, the module has "
+                             f"{module.config.n_layer}")
+        for i, layer in enumerate(value):
+            leaves.leaves[f"h_{i}/{path[len('h_scan/'):]}"] = layer
+    sd: Dict[str, np.ndarray] = {}
+    for torch_prefix, path, leaf in _gpt_sites(module):
+        for torch_name, flax_name, axes in _leaf_names(leaf, path):
+            value = leaves.take(f"{path}/{flax_name}")
+            sd[torch_prefix + torch_name] = value if axes is None else value.transpose(axes)
+    leaves.check_consumed()
+    _load(module, sd)
+    return module
+
+
+def gpt_to_jax_tree(module: GPT) -> Dict[str, Any]:
+    """{'params': ...} of a port GPT in the flax tree's names and layouts:
+    what `roar_tpu`'s `GPTLMModel` applies and its `restore_from` reads.
+    With `scan_layers` the blocks are stacked under `h_scan`."""
+    state = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+    flat: Dict[Tuple[str, ...], np.ndarray] = {}
+    for torch_prefix, path, leaf in _gpt_sites(module):
+        for torch_name, flax_name, axes in _leaf_names(leaf, path):
+            value = state.pop(torch_prefix + torch_name)
+            flat[(*path.split("/"), flax_name)] = np.ascontiguousarray(
+                value if axes is None else value.transpose(axes))
+    if state:
+        raise ValueError(f"port parameters not written to the JAX tree: {sorted(state)}")
+    if module.config.scan_layers:
+        n_layer = module.config.n_layer
+        for key in [k for k in flat if k[0] == "h_0"]:
+            flat[("h_scan", *key[1:])] = np.stack(
+                [flat.pop((f"h_{i}", *key[1:])) for i in range(n_layer)])
     return {"params": _nest(flat)}
 
 

@@ -2,7 +2,7 @@
 
 Port of roar_tpu/training/run.py: dataset constructors, the validation-set
 naming, the threaded batch iterator, `train_supervised` (loss_fn-style tasks:
-FastPitch) and `train_gan` (HiFi-GAN).  One card, one process: there is no
+FastPitch, and GPT on a `CausalLMDataset`) and `train_gan` (HiFi-GAN).  One card, one process: there is no
 mesh, and batches go to `device` as they are read.  `run_test`, the profiler
 window, validation artifacts and early stopping are not ported yet.
 """
@@ -176,9 +176,9 @@ def _first_batch_indices(sampler, dataset, batch_size):
 def train_supervised(cfg: Dict[str, Any], model, dataset, val_dataset=None,
                      max_epochs: Optional[int] = None, buckets: Optional[BucketSpec] = None,
                      device="cuda") -> TrainState:
-    """Train a loss_fn-style task (`FastPitchModel`) on `device` ("cuda"
-    unless the caller asks for "cpu").  The host waits for the device only
-    where it logs, validates or saves."""
+    """Train a loss_fn-style task (`FastPitchModel`, `GPTLMModel`) on `device`
+    ("cuda" unless the caller asks for "cpu").  The host waits for the device
+    only where it logs, validates or saves."""
     device = torch.device(device)
     trainer_cfg = cfg.get("trainer", {})
     exp_cfg = cfg.get("exp_manager", {}) or {}

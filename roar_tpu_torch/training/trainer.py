@@ -4,15 +4,23 @@ Port of roar_tpu/training/trainer.py:128-393 to eager PyTorch on one device.
 A task is an object with `module` (an `nn.Module` holding every parameter),
 `loss_fn(batch, epoch, mark=None) -> (loss, metrics)` and
 `set_dropout_generator(generator)`; `models/fastpitch_model.py::FastPitchModel`
-is one.  One step: forward in training mode, backward, `grad_norm` of this
-batch's gradients, then (every `accumulate_grad_batches` steps, on the mean of
-the gradients since the last update, as `optax.MultiSteps` does) the global-
-norm clip and the optimizer update of `optim.ScheduledOptimizer`.  Metrics
-stay tensors on the device: the host waits for the device only where it logs.
+and `models/gpt_model.py::GPTLMModel` are two.  One step: forward in training
+mode, backward, `grad_norm` of this batch's gradients, then (every
+`accumulate_grad_batches` steps, on the mean of the gradients since the last
+update, as `optax.MultiSteps` does) the global-norm clip and the optimizer
+update of `optim.ScheduledOptimizer`.  Metrics stay tensors on the device: the
+host waits for the device only where it logs.
 
-Not ported: `precision=bf16` (fp32 masters with bf16 compute), `freeze_updates`
-(dynamic freezing), tensor-parallel rules and the device mesh; each raises
-`NotImplementedError`.  There is no EMA of the parameters.
+`precision="bf16"` is what roar_tpu/training/trainer.py:152-174 does: the
+parameters and the optimizer state stay fp32, forward and backward run on a
+bf16 cast of the parameters and of the batch's floating tensors, and the
+gradients come back in fp32.  A task takes it by declaring
+`set_compute_dtype(dtype)` (`GPTLMModel` does); for any other task it raises
+`NotImplementedError`.
+
+Not ported: `freeze_updates` (dynamic freezing), tensor-parallel rules and the
+device mesh; each raises `NotImplementedError`.  There is no EMA of the
+parameters.
 """
 
 from __future__ import annotations
@@ -27,10 +35,15 @@ import torch
 from roar_tpu_torch.training.optim import ScheduledOptimizer, global_norm
 
 
-def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    """A collated numpy batch as tensors on `device`."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items() if not isinstance(v, (str, list, tuple))}
+def to_device(batch: Dict[str, Any], device: torch.device,
+              float_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """A collated numpy batch as tensors on `device`; with `float_dtype`, its
+    floating tensors in that type."""
+    out = {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+           for k, v in batch.items() if not isinstance(v, (str, list, tuple))}
+    if float_dtype is not None:
+        out = {k: v.to(float_dtype) if v.is_floating_point() else v for k, v in out.items()}
+    return out
 
 
 @dataclasses.dataclass
@@ -113,10 +126,13 @@ class Trainer:
     mesh: Optional[Any] = None
 
     def __post_init__(self):
+        self.compute_dtype = None
         if self.precision in ("bf16", "bfloat16", "bf16-mixed"):
-            raise NotImplementedError(
-                "precision=bf16 (bf16 compute with fp32 master weights, and the bf16 form of "
-                "the attention kernels) is not ported yet; train in fp32")
+            if not hasattr(self.model, "set_compute_dtype"):
+                raise NotImplementedError(
+                    f"precision=bf16 (bf16 compute with fp32 master weights) is not ported for "
+                    f"{type(self.model).__name__}; train in fp32")
+            self.compute_dtype = torch.bfloat16
         if self.freeze_updates and self.freeze_updates.get("enabled", False):
             raise NotImplementedError("freeze_updates (dynamic freezing) is not ported yet")
         if self.tp_rules is not None or self.mesh is not None:
@@ -128,6 +144,8 @@ class Trainer:
     def init_state(self) -> TrainState:
         """Move the task to the device and start the dropout generator there."""
         self.model.module.to(self.device)
+        if self.compute_dtype is not None:
+            self.model.set_compute_dtype(self.compute_dtype)
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.model.set_dropout_generator(generator)
         return TrainState(model=self.model, opt=self.optimizer, dropout_generator=generator)
@@ -138,8 +156,9 @@ class Trainer:
         t0 = time.perf_counter()
         for i, batch in enumerate(batches):
             lr = state.opt.current_lr()
-            state, metrics = train_step(state, to_device(batch, self.device), epoch,
-                                        self.accumulate_grad_batches)
+            state, metrics = train_step(
+                state, to_device(batch, self.device, self.compute_dtype), epoch,
+                self.accumulate_grad_batches)
             if logger is not None and i % self.log_every == 0:
                 host = {k: float(v) for k, v in metrics.items()}  # the one sync
                 host["lr"] = lr
@@ -163,7 +182,8 @@ class Trainer:
         n = 0
         try:
             for batch in batches:
-                _, metrics = state.model.loss_fn(to_device(batch, self.device), epoch)
+                _, metrics = state.model.loss_fn(
+                    to_device(batch, self.device, self.compute_dtype), epoch)
                 for k, v in metrics.items():
                     totals[k] = totals[k] + v if k in totals else v
                 n += 1

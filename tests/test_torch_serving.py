@@ -191,7 +191,8 @@ def test_port_sources_name_no_banned_import():
             "pyin_viterbi.py", "sup_data.py", "hifigan_torch.py", "grouped_conv.py", "gan.py",
             "run.py", "optim.py", "exp_manager.py", "fastpitch_torch.py", "trainer.py", "mas.py",
             "forward_sum.py", "aligner.py", "fastpitch_losses.py", "flash_attention.py",
-            "dataset.py"} <= names
+            "dataset.py", "gpt.py", "gpt_model.py", "fused_ce.py", "rope.py", "lm_dataset.py",
+            "gpt_pretraining_torch.py"} <= names
     banned = {"jax", "jaxlib", "flax", "optax", "roar_tpu"}
     bad = []
     for path in files:
