@@ -89,6 +89,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -409,6 +410,129 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": nbytes, "operations": flops}
+
+
+# the bf16 flash kernels on the tensor cores: they must not spill, and their
+# SASS must hold HMMA instructions
+FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
+
+
+def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
+    """Dynamic shared memory per block that the launch functions of
+    csrc/flash_attention_{fwd,bwd}.cu ask for (ptxas reports static only)."""
+    tile, padded = 64 * d, 64 * (d + 1)
+    if kernel == "flash_fwd_mma_kernel":
+        return 2 * tile * 5
+    if kernel == "flash_bwd_dkv_mma_kernel":
+        return 2 * tile * 6 + 4 * 64 * 4
+    if kernel == "flash_fwd_kernel":
+        return 4 * (2 * padded + tile + 64 * 65) + 4 * 128
+    n_prob_tiles = 2 if kernel == "flash_bwd_dkv_kernel" else 1
+    return 4 * (4 * padded + n_prob_tiles * 64 * 65 + 128) + 4 * 128
+
+
+def _flash_instance(mangled: str) -> Optional[tuple]:
+    """(kernel, dtype, D) of a flash kernel's mangled name, else None.
+
+    The name is a length-prefixed `<n>flash_..._kernel` followed by its
+    template arguments `I...E`; the anonymous namespace before it may hold
+    the source's name (`flash_attention_fwd_cu`) and end in digits, so each
+    split of the digit run into namespace tail and length is tried."""
+    for found in re.finditer(r"(\d+)(?=flash_)", mangled):
+        digits, start = found.group(1), found.end()
+        for cut in range(len(digits)):
+            n = int(digits[cut:])
+            name, args = mangled[start:start + n], mangled[start + n:]
+            if name.endswith("_kernel") and args.startswith("I"):
+                dim = re.search(r"Li(\d+)E", args)
+                dtype = "float32" if args.startswith("If") else "bfloat16"
+                return name, dtype, int(dim.group(1)) if dim else 0
+    return None
+
+
+def parse_ptxas(log: str) -> dict:
+    """{(kernel, dtype, D): registers, spill bytes, stack, static shared
+    memory} of every flash kernel instance in a `ptxas -v` log."""
+    out, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = _flash_instance(entry.group(1))
+            if current is not None:
+                out[current] = {"registers": None, "spill_store_bytes": None,
+                                "spill_load_bytes": None, "stack_bytes": None,
+                                "static_smem_bytes": 0}
+            continue
+        if current is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame:
+            out[current].update(stack_bytes=int(frame.group(1)),
+                                spill_store_bytes=int(frame.group(2)),
+                                spill_load_bytes=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[current]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            if smem:
+                out[current]["static_smem_bytes"] = int(smem.group(1))
+    return out
+
+
+def count_hmma(lib_path) -> Optional[dict]:
+    """{(kernel, dtype, D): HMMA instructions in its SASS} from `cuobjdump
+    -sass`, or None where the tool is not installed."""
+    import shutil
+
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        candidate = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                 "cuobjdump")
+        tool = candidate if os.path.exists(candidate) else None
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = _flash_instance(line.split("Function :", 1)[1].strip())
+            if current is not None:
+                counts[current] = 0
+        elif current is not None and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def phase_kernel_build(lib_path) -> dict:
+    """Registers, shared memory and spills of every flash kernel instance from
+    the build's `ptxas -v` log, and where `cuobjdump` is installed the HMMA
+    count of each; raises if a tensor-core kernel spills or has no HMMA."""
+    from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
+
+    table = parse_ptxas(lib_path.with_suffix(".log").read_text())
+    hmma = count_hmma(lib_path)
+    rows = []
+    for (kernel, dtype, d), info in sorted(table.items()):
+        row = {"kernel": kernel, "dtype": dtype, "head_dim": d, **info,
+               "dynamic_smem_bytes": flash_dynamic_smem(kernel, dtype, d)}
+        if hmma is not None:
+            row["hmma"] = hmma.get((kernel, dtype, d), 0)
+        rows.append(row)
+    for kernel in FLASH_MMA_KERNELS:
+        for d in HEAD_DIMS:
+            info = table.get((kernel, "bfloat16", d))
+            if info is None or info["registers"] is None:
+                raise AssertionError(f"{kernel}<{d}> is not in the ptxas log")
+            if info["spill_store_bytes"] or info["spill_load_bytes"]:
+                raise AssertionError(f"{kernel}<{d}> spills: {info}")
+            if hmma is not None and hmma.get((kernel, "bfloat16", d), 0) == 0:
+                raise AssertionError(f"{kernel}<{d}> has no HMMA instruction in its SASS")
+    line = {"phase": "kernel_build", "instances": rows,
+            "cuobjdump": hmma is not None}
+    _emit(line)
+    return line
 
 
 def viterbi_log_obs(rng: np.random.Generator, b: int, t: int, n: int, ties: bool) -> np.ndarray:
@@ -1201,8 +1325,10 @@ def _key_mask(lens, t: int, device) -> Optional[torch.Tensor]:
 def phase_kernel_flash_bwd(device: torch.device) -> dict:
     """K5-bwd (dK/dV kernel, dQ kernel) and the forward's log-sum-exp against
     the plain versions at small ragged shapes and at two shapes longer than
-    the training phase's own; returns the worst error per result."""
+    the training phase's own, in fp32 and in bf16; returns the worst error
+    per result (fp32 under "max_abs_err") and the bf16 times."""
     gen = torch.Generator(device=device).manual_seed(SEED)
+    gen16 = torch.Generator(device=device).manual_seed(SEED + 1)
     rng = np.random.default_rng(SEED)
     cases = [(*case, False, "small ragged shape") for case in FLASH_BWD_SMALL]
     for b, t, h, d in FLASH_LONG_SHAPES:
@@ -1210,13 +1336,22 @@ def phase_kernel_flash_bwd(device: torch.device) -> dict:
         lens[0] = t  # one utterance fills the bucket
         cases.append((b, t, h, d, [int(n) for n in lens], True,
                       "batch 32 of utterances up to 20 s; not on the path of train_fastpitch"))
-    worst = {}
+    worst, worst_bf16, bf16_times = {}, {}, {}
     for b, t, h, d, lens, timed, where in cases:
         case = _flash_case(gen, (b, t, h, d), _key_mask(lens, t, device), timed, where)
         for name, e in case["errors"].items():
             worst[name] = max(worst.get(name, 0.0), e["max_abs_err"])
+        # the bf16 form of the same shapes: the tensor-core forward and dK/dV
+        # kernels (and the FMA dQ kernel) under ragged segment masks
+        case = _flash_case(gen16, (b, t, h, d), _key_mask(lens, t, device), timed, where,
+                           dtype=torch.bfloat16)
+        for name, e in case["errors"].items():
+            worst_bf16[name] = max(worst_bf16.get(name, 0.0), e["max_abs_err"])
+        if timed:
+            bf16_times[str((b, t, h, d))] = {**case["times"], **{
+                k: v["bound_ms"] for k, v in case["bounds"].items()}}
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst}
+    return {"max_abs_err": worst, "bfloat16": {"max_abs_err": worst_bf16, "times": bf16_times}}
 
 
 def phase_kernel_flash_causal(device: torch.device) -> dict:
@@ -2521,6 +2656,7 @@ def main() -> int:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
            "library": os.path.relpath(lib_path), "ptxas": ptxas})
+    phase_kernel_build(lib_path)
 
     kern = phase_kernel(device)
     vit = phase_kernel_viterbi(device)
@@ -2545,7 +2681,8 @@ def main() -> int:
         the two kernels and the delta reduction share: plain and library give
         dq, dk and dv in one call; `backward_ms` times them together, and
         `own_work_bound_ms` counts the products this kernel does itself (the
-        split recomputes q.k^T and dO.v^T)."""
+        split recomputes q.k^T and dO.v^T).  `bound_share` (forward) and
+        `own_work_bound_share` (dkv, dq) are bound over time."""
         def total(get):
             return sum(get(case) for case in cases)
 
@@ -2557,6 +2694,7 @@ def main() -> int:
                "bound_ms": bound("fwd_with_lse"),
                "bound_by": cases[-1]["bounds"]["fwd_with_lse"]["bound_by"],
                "library_ms": total(lambda c: c["times"]["fwd_library_ms"])}
+        fwd["bound_share"] = fwd["bound_ms"] / fwd["ms"]
         bwd = {name: {"ms": total(lambda c: c["times"][f"{name}_ms"]),
                       "backward_ms": total(lambda c: c["times"]["backward_ms"]),
                       "plain_ms": total(lambda c: c["times"]["backward_plain_ms"]),
@@ -2565,6 +2703,8 @@ def main() -> int:
                       "own_work_bound_ms": bound(f"{name}_own_work"),
                       "library_ms": total(lambda c: c["times"]["backward_library_ms"])}
                for name in ("dkv", "dq")}
+        for row in bwd.values():
+            row["own_work_bound_share"] = row["own_work_bound_ms"] / row["ms"]
         return fwd, bwd
 
     def worst(errors, *names):

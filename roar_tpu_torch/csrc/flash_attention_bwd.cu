@@ -24,29 +24,40 @@
 // Every output element belongs to one thread of one block and is summed in a
 // fixed order, so there are no float atomics and two runs give the same bits.
 //
-// 256 threads as a 16 x 16 grid.  In the tile products thread (ty, tx) owns
-// query rows 4*ty .. 4*ty+3 and key columns tx + 16*j; in the accumulation it
-// owns rows 4*ty .. 4*ty+3 of the block's own tile and head-dim columns
-// tx + 16*j.  p and dS pass through shared memory between the two.
+// fp32 (all three kernels) and the bf16 dq kernel, on the FMA pipe: 256
+// threads as a 16 x 16 grid.  In the tile products thread (ty, tx) owns query
+// rows 4*ty .. 4*ty+3 and key columns tx + 16*j; in the accumulation it owns
+// rows 4*ty .. 4*ty+3 of the block's own tile and head-dim columns tx + 16*j.
+// p and dS pass through shared memory between the two, and every fused
+// multiply-add reads shared memory.
 //
-// What bounds it on the H100: the function is five T x T x D products
+// bf16 dK/dV, `flash_bwd_dkv_mma_kernel` on the tensor cores (mma.sync
+// m16n8k16, fp32 sums; flash_attention_mma.cuh): 4 warps, each owning 16 keys
+// of the block's 64-key tile as the rows of S^T = K q^T and dP^T = V dO^T, so
+// that P^T and dS^T come out of the accumulators as the A operands of
+// dV += P^T dO and dK += dS^T q without leaving registers; q and dO tiles are
+// double-buffered by cp.async and read by ldmatrix (.trans for the second
+// products).  dK and dV stay fp32 in registers and are rounded once.
+//
+// What bounds them on the H100: the function is five T x T x D products
 // (10 B H T^2 D operations); the split into two kernels recomputes q.k^T and
-// dout.v^T, so seven are done, all on the FMA pipe with one shared-memory load
-// per two FMAs, far above the bytes' time.  What the design does about it:
-// the ragged edge is masked in the kernel (T is never padded), and a tile
+// dout.v^T, so seven are done.  The tensor-core dK/dV kernel's four products
+// are held against the 989 TFLOP/s bf16 peak; at D 64 its per-element work
+// (exp, masks, dS) on the FMA and SFU pipes is of the same order.  The design
+// masks the ragged edge in the kernel (T is never padded), and skips a tile
 // whose segment ids all lie outside the block's own [min, max] segment range
-// is skipped without being loaded, as in the forward.  With `causal` the
-// tiles above the diagonal are skipped too: the dkv kernel's loop over query
-// tiles starts at the key tile's own row, the dq kernel's loop over key tiles
-// ends at the query tile's own column, and the diagonal tile is masked element
-// by element; the dq kernel hands its query tiles out longest first (the dkv
-// kernel's first key tile is its longest already).  The bf16 form halves the
-// bytes but still multiplies on the FMA pipe: tensor cores and TMA are later
-// work.
+// without loading it.  With `causal` the tiles above the diagonal are skipped
+// too: the dkv loop over query tiles starts at the key tile's own row, the dq
+// loop over key tiles ends at the query tile's own column, and the diagonal
+// tile is masked element by element; the dq kernel hands its query tiles out
+// longest first (the dkv kernel's first key tile is its longest already).
+// Later work: dq on the same tensor-core blocks, then wgmma / TMA, a fused
+// five-product backward, and a GQA-aware kernel.
 
 #include <climits>
 
 #include "flash_attention_common.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace {
 
@@ -328,6 +339,208 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 dK/dV kernel on the tensor cores.  One block of 4 warps per 64-key
+// tile; warp w owns keys 16 w .. 16 w + 15 whole, as the rows of
+//   S^T = K Q^T  and  dP^T = V dO^T   (K and V held as A fragments),
+// and loops over the visible 64-query tiles (from the diagonal with `causal`),
+// 16 queries at a time:
+//   P^T  = exp(S^T * scale - lse)            (0 where masked)
+//   dS^T = P^T o (dP^T - delta) * scale      (from the unrounded P^T)
+//   dV  += bf16(P^T) dO,   dK += bf16(dS^T) Q   (dO and Q read by ldmatrix.trans)
+// so the probability tiles never leave registers.  Q, dO and their lse / delta
+// rows are double-buffered by cp.async.  dK and dV stay fp32 in registers and
+// are rounded once, as they are stored.  Each output element is one thread's
+// and is summed in a fixed order: no atomics, two runs give the same bits.
+// ---------------------------------------------------------------------------
+
+namespace fa_mma = flash::mma;
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K, V, then Q and dO x 2; lse and delta rows x 2
+  return sizeof(__nv_bfloat16) * fa_mma::ROWS * D * 6 + sizeof(float) * fa_mma::ROWS * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(fa_mma::THREADS)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int T, int H, float scale, int causal) {
+  using namespace fa_mma;
+  constexpr int TILE_ELEMS = ROWS * D;
+  constexpr int KC = D / 16;  // k-chunks of the two score products
+  constexpr int NT = D / 8;   // n-tiles of dK and dV
+  // D 128 reads its K and V fragments from shared memory per chunk, to stay
+  // clear of spills; narrower heads hold them in registers
+  constexpr bool KV_IN_REGS = D <= 64;
+
+  extern __shared__ uint4 smem_dkv[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_dkv);
+  bf16* Vs = Ks + TILE_ELEMS;
+  bf16* Qs = Vs + TILE_ELEMS;           // [2][ROWS][D]
+  bf16* Os = Qs + 2 * TILE_ELEMS;       // [2][ROWS][D], dO
+  float* lse_s = reinterpret_cast<float*>(Os + 2 * TILE_ELEMS);  // [2][ROWS]
+  float* delta_s = lse_s + 2 * ROWS;                              // [2][ROWS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+  const long row_base = ((long)b * H + h) * T;
+
+  int klo, khi;
+  segment_range(segb, k0, T, lane, klo, khi);
+
+  stage_tile<D>(Ks, k, base, ld, k0, T, tid);
+  stage_tile<D>(Vs, v, base, ld, k0, T, tid);
+  cp_async_commit();
+  // causal: the query tiles before this key tile's own row see none of its keys
+  bool uniform, uniform_next;
+  int q0 = next_tile(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
+  if (q0 < T) {
+    stage_tile<D>(Qs, q, base, ld, q0, T, tid);
+    stage_tile<D>(Os, dout, base, ld, q0, T, tid);
+    stage_rows(lse_s, lse + row_base, q0, T, tid);
+    stage_rows(delta_s, delta + row_base, q0, T, tid);
+  }
+  cp_async_commit();
+
+  // this thread's two keys, rows g and g + 8 of the warp's 16
+  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
+  const int seg0 = key0 < T ? segb[key0] : -1, seg1 = key1 < T ? segb[key1] : -1;
+
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t ka[KV_IN_REGS ? KC : 1][4], va[KV_IN_REGS ? KC : 1][4];
+  if constexpr (KV_IN_REGS) {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      load_a<D>(ka[kc], Ks, warp * 16, kc, lane);
+      load_a<D>(va[kc], Vs, warp * 16, kc, lane);
+    }
+  }
+
+  float acc_dk[NT][4], acc_dv[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+
+  const float scale_log2 = scale * LOG2E;
+  int stage = 0;
+  while (q0 < T) {
+    const int qn = next_tile(segb, q0 + ROWS, T, T, klo, khi, lane, uniform_next);
+    if (qn < T) {
+      const int nx = stage ^ 1;
+      stage_tile<D>(Qs + nx * TILE_ELEMS, q, base, ld, qn, T, tid);
+      stage_tile<D>(Os + nx * TILE_ELEMS, dout, base, ld, qn, T, tid);
+      stage_rows(lse_s + nx * ROWS, lse + row_base, qn, T, tid);
+      stage_rows(delta_s + nx * ROWS, delta + row_base, qn, T, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qt = Qs + stage * TILE_ELEMS;
+    const bf16* Ot = Os + stage * TILE_ELEMS;
+    const float* lse_t = lse_s + stage * ROWS;
+    const float* delta_t = delta_s + stage * ROWS;
+    // the ragged edge, the diagonal tile (q0 == k0) and a tile whose ids are
+    // not all the key tile's single id are masked element by element
+    const bool masked = !uniform || q0 + ROWS > T || (causal && q0 < k0 + ROWS);
+
+    // D 128 keeps 128 accumulators a thread: one chunk at a time, so that the
+    // next chunk's fragment loads are not hoisted into registers it lacks
+#pragma unroll(KV_IN_REGS ? ROWS / 16 : 1)
+    for (int c = 0; c < ROWS / 16; ++c) {  // queries 16 c .. 16 c + 15 of the tile
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t kf[4], vf[4], qb[4], ob[4];
+        if constexpr (KV_IN_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            kf[i] = ka[kc][i];
+            vf[i] = va[kc][i];
+          }
+        } else {
+          load_a<D>(kf, Ks, warp * 16, kc, lane);
+          load_a<D>(vf, Vs, warp * 16, kc, lane);
+        }
+        load_b<D>(qb, Qt, c * 16, kc, lane);
+        load_b<D>(ob, Ot, c * 16, kc, lane);
+        mma_bf16(st[0], kf, qb[0], qb[1]);
+        mma_bf16(st[1], kf, qb[2], qb[3]);
+        mma_bf16(dpt[0], vf, ob[0], ob[1]);
+        mma_bf16(dpt[1], vf, ob[2], ob[3]);
+      }
+      // element (n, e): key row e < 2 ? g : g + 8, query 16 c + 8 n + 2 t4 + (e & 1)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = c * 16 + n * 8 + 2 * t4 + (e & 1);
+          const float row_lse = lse_t[qc];
+          float p = exp2f(fmaf(st[n][e], scale_log2, -row_lse * LOG2E));
+          if (masked) {
+            const int query = q0 + qc;
+            const int key = e < 2 ? key0 : key1;
+            const bool ok = query < T && segb[query] == (e < 2 ? seg0 : seg1) &&
+                            (!causal || key <= query);
+            p = ok ? p : 0.f;
+          }
+          dpt[n][e] = p * (dpt[n][e] - delta_t[qc]) * scale;  // dS^T, from the unrounded p
+          st[n][e] = p;
+        }
+      }
+      // the two n-tiles of queries 16 c .. 16 c + 15 are one A fragment
+      const uint32_t pa[4] = {pack_bf16(st[0][0], st[0][1]), pack_bf16(st[0][2], st[0][3]),
+                              pack_bf16(st[1][0], st[1][1]), pack_bf16(st[1][2], st[1][3])};
+      const uint32_t sa[4] = {pack_bf16(dpt[0][0], dpt[0][1]), pack_bf16(dpt[0][2], dpt[0][3]),
+                              pack_bf16(dpt[1][0], dpt[1][1]), pack_bf16(dpt[1][2], dpt[1][3])};
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t ob[4], qb[4];
+        load_b_trans<D>(ob, Ot, c * 16, np, lane);
+        mma_bf16(acc_dv[2 * np], pa, ob[0], ob[1]);
+        mma_bf16(acc_dv[2 * np + 1], pa, ob[2], ob[3]);
+        load_b_trans<D>(qb, Qt, c * 16, np, lane);
+        mma_bf16(acc_dk[2 * np], sa, qb[0], qb[1]);
+        mma_bf16(acc_dk[2 * np + 1], sa, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    q0 = qn;
+    uniform = uniform_next;
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = i == 0 ? key0 : key1;
+    if (t < T) {
+      const long at = base + (long)t * ld + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+            __floats2bfloat162_rn(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+            __floats2bfloat162_rn(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
 // what both kernels read, as the C interface hands it over
 struct Inputs {
   const void *q, *k, *v;
@@ -378,6 +591,30 @@ cudaError_t launch_dkv_d(int D, const Inputs& in, void* dk, void* dv) {
   }
 }
 
+template <int D>
+cudaError_t launch_dkv_mma(const Inputs& in, void* dk, void* dv) {
+  constexpr size_t smem = dkv_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
+  flash_bwd_dkv_mma_kernel<D><<<grid, fa_mma::THREADS, smem, in.stream>>>(
+      static_cast<const __nv_bfloat16*>(in.q), static_cast<const __nv_bfloat16*>(in.k),
+      static_cast<const __nv_bfloat16*>(in.v), in.seg, in.lse, in.delta,
+      static_cast<const __nv_bfloat16*>(in.dout), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), in.T, in.H, in.scale, in.causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_mma_d(int D, const Inputs& in, void* dk, void* dv) {
+  switch (D) {
+    case 32: return launch_dkv_mma<32>(in, dk, dv);
+    case 64: return launch_dkv_mma<64>(in, dk, dv);
+    case 128: return launch_dkv_mma<128>(in, dk, dv);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename E>
 cudaError_t launch_dq_d(int D, const Inputs& in, void* dq) {
   switch (D) {
@@ -399,7 +636,7 @@ extern "C" int roar_flash_attention_bwd_dkv(const void* q, const void* k, const 
   if (flash::bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
   const Inputs in{q, k, v, seg, lse, delta, dout, B, T, H, scale, causal,
                   static_cast<cudaStream_t>(stream)};
-  if (bf16) return (int)launch_dkv_d<__nv_bfloat16>(D, in, dk, dv);
+  if (bf16) return (int)launch_dkv_mma_d(D, in, dk, dv);
   return (int)launch_dkv_d<float>(D, in, dk, dv);
 }
 

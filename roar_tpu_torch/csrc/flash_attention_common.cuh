@@ -1,18 +1,21 @@
 // What the flash-attention forward and backward kernels share: the element
 // types they take in device memory and how a tile of them reaches shared
-// memory.
+// memory in the FMA kernels.
 //
 // Types.  q, k, v, o, dO, dq, dk, dv are fp32 or bf16 in device memory; every
-// tile is widened to fp32 as it is staged in shared memory, every product
-// accumulates in fp32, and lse and delta are always fp32.  A bf16 kernel
-// rounds to bf16 at exactly these places (the upstream Pallas kernels round
-// at the same ones, casting to the other operand's type before each of the
-// products named):
+// product accumulates in fp32, and lse and delta are always fp32.  The FMA
+// kernels (fp32, and the bf16 dq kernel) widen every tile to fp32 as they
+// stage it in shared memory; the bf16 forward and dK/dV kernels keep tiles in
+// bf16 and multiply on the tensor cores (flash_attention_mma.cuh).  A bf16
+// kernel rounds to bf16 at exactly these places (the upstream Pallas kernels
+// round at the same ones, casting to the other operand's type before each of
+// the products named):
 //   forward:   p = exp(s - m) before p.v (its row sum is taken unrounded),
 //              and o as it is stored;
 //   backward:  p = exp(s - lse) before p^T dO; dS before dS^T q and dS k;
 //              dq, dk, dv as they are stored.
-// `round_as<E>` is that rounding (the identity for fp32).
+// `round_as<E>` is that rounding (the identity for fp32); the tensor-core
+// kernels round the same values as they pack their fragments.
 //
 // Causal masking.  With `causal`, query i also sees key j only when j <= i.
 // The query and key tiles are both 64 wide, so a key tile lies wholly above

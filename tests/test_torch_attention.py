@@ -91,13 +91,18 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,t,h,d", [(8, 256, 1, 64), (1, 200, 1, 64), (2, 200, 2, 32),
                                      (2, 130, 2, 128)])
-def test_cuda_kernel_matches_plain(b, t, h, d):
+def test_cuda_kernel_matches_plain(b, t, h, d, dtype):
+    """Ragged segment masks: a full row, a single valid key, half, T - 37, a
+    pad-heavy row of 5 valid keys.  fp32 (the FMA kernel) against the cuBLAS
+    fp32 einsum: summation order only.  bf16 (the tensor-core kernel) at the
+    bars of `chip_smoke.assert_flash_close`, with `lse` and without."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g) for _ in range(3))
+    q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype) for _ in range(3))
     lens = torch.tensor([t, 1, t // 2, t - 37, 5, t, 64, 65][:b], device="cuda")
     key_mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
     scale = 1.0 / d ** 0.5
@@ -105,9 +110,14 @@ def test_cuda_kernel_matches_plain(b, t, h, d):
     got = fa.flash_self_attention(q, k, v, key_mask, scale)
     torch.cuda.synchronize()
     assert fa.LAUNCHES - before == {"fwd": 1}
-    want = fa.flash_self_attention_plain(q, k, v, key_mask, scale)
-    # fp32 FMA kernel vs cuBLAS fp32 einsum: summation order only
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+    want, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, return_lse=True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+        return
+    _chip_smoke().assert_flash_close(got, want, "o")
+    out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True)
+    assert torch.equal(out, got)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-3)
 
 
 def _qkv(rng, b, t, h, d):
@@ -252,16 +262,19 @@ def test_multihead_attn_gradients_match_jax():
         np.testing.assert_allclose(grads[name], want, err_msg=name, atol=2e-5, rtol=1e-4)
 
 
-# kernel vs plain on the card: every gradient within atol = 1e-4 of its largest
-# magnitude and rtol 1e-3 (fp32 FMA sums against cuBLAS fp32 einsums)
+# kernel vs plain on the card: fp32, every gradient within atol = 1e-4 of its
+# largest magnitude and rtol 1e-3 (fp32 FMA sums against cuBLAS fp32 einsums);
+# bf16 at the bars of `chip_smoke.assert_flash_close`
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,t,h,d", [(4, 200, 1, 64), (2, 130, 2, 32), (2, 70, 2, 128),
                                      (32, 160, 1, 64)])
-def test_cuda_backward_kernels_match_plain(b, t, h, d):
+def test_cuda_backward_kernels_match_plain(b, t, h, d, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=g) for _ in range(4))
+    q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
     lens = torch.tensor(([t, 1, t // 2, t - 37] * 8)[:b], device="cuda")
     key_mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
     scale = 1.0 / d ** 0.5
@@ -275,13 +288,26 @@ def test_cuda_backward_kernels_match_plain(b, t, h, d):
     out_p, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, return_lse=True)
     torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-3)
     want = fa.flash_self_attention_bwd_plain(q, k, v, key_mask, scale, out_p, lse_p, do)
+    bf16 = dtype == torch.bfloat16
     for name, a, a2, w in zip("qkv", got, again, want):
         assert torch.equal(a, a2), f"d{name}: two runs differ"
-        torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=1e-3,
-                                   msg=lambda m, n=name: f"d{n}: {m}")
-    # the Function on the card against autograd of the plain forward
+        if bf16:
+            _chip_smoke().assert_flash_close(a, w, f"d{name}")
+        else:
+            torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=1e-3,
+                                       msg=lambda m, n=name: f"d{n}: {m}")
     qkv = [z.clone().requires_grad_(True) for z in (q, k, v)]
     gf = torch.autograd.grad(flash_self_attention(*qkv, key_mask, scale), qkv, do)
+    if bf16:  # the Function launches these same kernels
+        assert all(torch.equal(a, w) for a, w in zip(gf, got))
+        # a cotangent that is zero on the pad rows leaves the pad keys'
+        # gradients exactly zero
+        _, dk0, dv0 = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse,
+                                                  do * key_mask[:, :, None, None])
+        pad = ~key_mask[:, :, None, None].expand_as(dk0)
+        assert not dk0[pad].any() and not dv0[pad].any()
+        return
+    # the Function on the card against autograd of the plain forward
     gp = torch.autograd.grad(fa.flash_self_attention_plain(*qkv, key_mask, scale), qkv, do)
     for a, w in zip(gf, gp):
         torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=1e-3)
@@ -472,28 +498,31 @@ def test_cuda_causal_kernels_match_plain(case, dtype):
         assert torch.equal(a, a2)
 
 
-def _tiled_causal_forward_bf16(q, k, v, scale, tile=64, drop=None):
-    """The causal forward as a tiled kernel runs it in bf16: key tiles taken
-    in turn, p rounded to bf16 against the running maximum, fp32 sums.  `drop`
-    = (query tile, key tile) leaves that tile's keys out, as a wrong tile loop
-    would."""
+def _tiled_causal_forward_bf16(q, k, v, scale, q_tile=64, k_tile=64, drop=None):
+    """The causal forward as a tiled kernel runs it in bf16: query tiles of
+    `q_tile` rows, key tiles of `k_tile` taken in turn up to the query tile's
+    last row, p rounded to bf16 against the running maximum, fp32 sums.
+    `drop` = (query tile, key tile) leaves that tile's keys out, as a wrong
+    tile loop would."""
     b, t, h, d = q.shape
     out = torch.empty_like(q)
     q32, k32, v32 = (z.float() for z in (q, k, v))
-    for i0 in range(0, t, tile):
-        rows = torch.arange(i0, min(i0 + tile, t))
+    for i0 in range(0, t, q_tile):
+        rows = torch.arange(i0, min(i0 + q_tile, t))
         top = torch.full((b, h, len(rows)), float("-inf"))
         total = torch.zeros(b, h, len(rows))
         acc = torch.zeros(b, h, len(rows), d)
-        for j0 in range(0, i0 + 1, tile):
-            if drop == (i0 // tile, j0 // tile):
+        for j0 in range(0, min(i0 + q_tile, t), k_tile):
+            if drop == (i0 // q_tile, j0 // k_tile):
                 continue
-            cols = torch.arange(j0, min(j0 + tile, t))
+            cols = torch.arange(j0, min(j0 + k_tile, t))
             s_ = torch.einsum("bqhd,bkhd->bhqk", q32[:, rows], k32[:, cols]) * scale
             s_ = s_.masked_fill(cols[None, :] > rows[:, None], float("-inf"))
             new_top = torch.maximum(top, s_.amax(-1))
-            p = torch.exp(s_ - new_top[..., None])
-            fix = torch.exp(top - new_top)
+            # a row that has seen no visible key yet takes its exponents against 0
+            use = torch.where(new_top == float("-inf"), 0.0, new_top)
+            p = torch.exp(s_ - use[..., None])
+            fix = torch.exp(top - use)
             total = total * fix + p.sum(-1)
             acc = acc * fix[..., None] + torch.einsum(
                 "bhqk,bkhd->bhqd", p.bfloat16().float(), v32[:, cols])
@@ -508,13 +537,20 @@ def _bf16_bar_inputs():
     return q, k, v, do, 1.0 / 8.0
 
 
-def test_bf16_bar_takes_a_tiled_kernel_s_roundings():
+# (query tile, key tile): the FMA kernel's 64 x 64 block; the tensor-core
+# kernel's 16-row warp tile over 64-key tiles; 128-row tiles over 64-key tiles,
+# where the diagonal spans two key tiles
+TILINGS = [(64, 64), (16, 64), (128, 64)]
+
+
+@pytest.mark.parametrize("tiling", TILINGS, ids=lambda c: "x".join(map(str, c)))
+def test_bf16_bar_takes_a_tiled_kernel_s_roundings(tiling):
     """What the bar must let through: the running-maximum rounding of p and
     the other order of the fp32 sums, at rows that see 1 to 1024 keys."""
     close = _chip_smoke().assert_flash_close
     q, k, v, _, scale = _bf16_bar_inputs()
     want = fa.flash_self_attention_plain(q, k, v, None, scale, causal=True)
-    got = _tiled_causal_forward_bf16(q, k, v, scale)
+    got = _tiled_causal_forward_bf16(q, k, v, scale, *tiling)
     assert not torch.equal(got, want)
     errs = close(got, want, "tiled o")
     assert errs["worst_share_of_bar"] < 0.75 and errs["rel_l2"] < 5e-3
@@ -559,3 +595,56 @@ def test_bf16_bar_fails_a_fault_among_the_late_rows(fault):
     assert float((got.float() - want.float()).abs().max()) < 0.1 * float(want.float().abs().max())
     with pytest.raises(AssertionError):
         close(got, want, fault)
+
+
+def _tiled_dkv_bf16(q, k, v, do, o, lse, scale, k_tile=64, chunk=16, skip_diagonal=False):
+    """dK and dV of the causal attention as the tensor-core dK/dV kernel
+    orders them: per key tile, the query tiles from the diagonal on, 16
+    queries at a time; P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T -
+    delta) * scale in fp32, each rounded to bf16 before its product, fp32
+    accumulators rounded once at the end.  `skip_diagonal` leaves out the
+    query tile on the key tile's own diagonal, as a loop starting one tile
+    late would."""
+    b, t, h, d = q.shape
+    q32, k32, v32, do32 = (z.float() for z in (q, k, v, do))
+    delta = (o.float() * do32).sum(-1).permute(0, 2, 1)  # [B, H, T]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, t, k_tile):
+        keys = torch.arange(k0, min(k0 + k_tile, t))
+        acc_dk = torch.zeros(b, h, len(keys), d)
+        acc_dv = torch.zeros(b, h, len(keys), d)
+        for q0 in range(k0, t, k_tile):
+            if skip_diagonal and q0 == k0:
+                continue
+            for c0 in range(q0, min(q0 + k_tile, t), chunk):
+                rows = torch.arange(c0, min(c0 + chunk, t))
+                st = torch.einsum("bkhd,bqhd->bhkq", k32[:, keys], q32[:, rows])
+                dpt = torch.einsum("bkhd,bqhd->bhkq", v32[:, keys], do32[:, rows])
+                pt = torch.exp(st * scale - lse[:, :, None, rows])
+                pt = pt.masked_fill(keys[:, None] > rows[None, :], 0.0)
+                dst = pt * (dpt - delta[:, :, None, rows]) * scale
+                acc_dv += torch.einsum("bhkq,bqhd->bhkd", pt.bfloat16().float(), do32[:, rows])
+                acc_dk += torch.einsum("bhkq,bqhd->bhkd", dst.bfloat16().float(), q32[:, rows])
+        dk[:, keys] = acc_dk.permute(0, 2, 1, 3).to(k.dtype)
+        dv[:, keys] = acc_dv.permute(0, 2, 1, 3).to(v.dtype)
+    return dk, dv
+
+
+@pytest.mark.parametrize("skip_diagonal", [False, True], ids=["kernel_order", "diagonal_skipped"])
+def test_bf16_bar_takes_the_tensor_core_dkv_order(skip_diagonal):
+    """The dK/dV kernel's loop order and roundings pass the bar against the
+    plain backward at (1, 1024, 2, 64); the same loop starting one query tile
+    late fails it."""
+    close = _chip_smoke().assert_flash_close
+    q, k, v, do, scale = _bf16_bar_inputs()
+    o, lse = fa.flash_self_attention_plain(q, k, v, None, scale, True, causal=True)
+    _, dk_w, dv_w = fa.flash_self_attention_bwd_plain(q, k, v, None, scale, o, lse, do, True)
+    dk, dv = _tiled_dkv_bf16(q, k, v, do, o, lse, scale, skip_diagonal=skip_diagonal)
+    for name, got, want in (("dk", dk, dk_w), ("dv", dv, dv_w)):
+        if skip_diagonal:
+            with pytest.raises(AssertionError):
+                close(got, want, name)
+        else:
+            assert not torch.equal(got, want)
+            errs = close(got, want, name)
+            assert errs["worst_share_of_bar"] < 0.75 and errs["rel_l2"] < 5e-3
