@@ -414,7 +414,8 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
 
 # the bf16 flash kernels on the tensor cores: they must not spill, and their
 # SASS must hold HMMA instructions
-FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
+FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                     "flash_bwd_dq_mma_kernel")
 
 
 def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
@@ -425,6 +426,8 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
         return 2 * tile * 5
     if kernel == "flash_bwd_dkv_mma_kernel":
         return 2 * tile * 6 + 4 * 64 * 4
+    if kernel == "flash_bwd_dq_mma_kernel":
+        return 2 * tile * 6
     if kernel == "flash_fwd_kernel":
         return 4 * (2 * padded + tile + 64 * 65) + 4 * 128
     n_prob_tiles = 2 if kernel == "flash_bwd_dkv_kernel" else 1
@@ -435,9 +438,10 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
     """(kernel, dtype, D) of a flash kernel's mangled name, else None.
 
     The name is a length-prefixed `<n>flash_..._kernel` followed by its
-    template arguments `I...E`; the anonymous namespace before it may hold
-    the source's name (`flash_attention_fwd_cu`) and end in digits, so each
-    split of the digit run into namespace tail and length is tried."""
+    template arguments `I...E` (the head dim); the anonymous namespace before
+    it may hold the source's name (`flash_attention_fwd_cu`) and end in
+    digits, so each split of the digit run into namespace tail and length is
+    tried.  The `_mma_` kernels take bf16, the others fp32."""
     for found in re.finditer(r"(\d+)(?=flash_)", mangled):
         digits, start = found.group(1), found.end()
         for cut in range(len(digits)):
@@ -445,7 +449,7 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
             name, args = mangled[start:start + n], mangled[start + n:]
             if name.endswith("_kernel") and args.startswith("I"):
                 dim = re.search(r"Li(\d+)E", args)
-                dtype = "float32" if args.startswith("If") else "bfloat16"
+                dtype = "bfloat16" if "_mma_" in name else "float32"
                 return name, dtype, int(dim.group(1)) if dim else 0
     return None
 
@@ -1341,8 +1345,8 @@ def phase_kernel_flash_bwd(device: torch.device) -> dict:
         case = _flash_case(gen, (b, t, h, d), _key_mask(lens, t, device), timed, where)
         for name, e in case["errors"].items():
             worst[name] = max(worst.get(name, 0.0), e["max_abs_err"])
-        # the bf16 form of the same shapes: the tensor-core forward and dK/dV
-        # kernels (and the FMA dQ kernel) under ragged segment masks
+        # the bf16 form of the same shapes: the tensor-core forward, dK/dV
+        # and dQ kernels under ragged segment masks
         case = _flash_case(gen16, (b, t, h, d), _key_mask(lens, t, device), timed, where,
                            dtype=torch.bfloat16)
         for name, e in case["errors"].items():

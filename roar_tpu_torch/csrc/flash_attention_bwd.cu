@@ -24,35 +24,43 @@
 // Every output element belongs to one thread of one block and is summed in a
 // fixed order, so there are no float atomics and two runs give the same bits.
 //
-// fp32 (all three kernels) and the bf16 dq kernel, on the FMA pipe: 256
+// fp32, `flash_bwd_dkv_kernel` and `flash_bwd_dq_kernel` on the FMA pipe: 256
 // threads as a 16 x 16 grid.  In the tile products thread (ty, tx) owns query
 // rows 4*ty .. 4*ty+3 and key columns tx + 16*j; in the accumulation it owns
 // rows 4*ty .. 4*ty+3 of the block's own tile and head-dim columns tx + 16*j.
 // p and dS pass through shared memory between the two, and every fused
-// multiply-add reads shared memory.
+// multiply-add reads shared memory.  (TF32 would not hold fp32's bar.)
 //
-// bf16 dK/dV, `flash_bwd_dkv_mma_kernel` on the tensor cores (mma.sync
-// m16n8k16, fp32 sums; flash_attention_mma.cuh): 4 warps, each owning 16 keys
-// of the block's 64-key tile as the rows of S^T = K q^T and dP^T = V dO^T, so
-// that P^T and dS^T come out of the accumulators as the A operands of
-// dV += P^T dO and dK += dS^T q without leaving registers; q and dO tiles are
-// double-buffered by cp.async and read by ldmatrix (.trans for the second
-// products).  dK and dV stay fp32 in registers and are rounded once.
+// bf16, `flash_bwd_dkv_mma_kernel` and `flash_bwd_dq_mma_kernel` on the tensor
+// cores (mma.sync m16n8k16, fp32 sums; flash_attention_mma.cuh), 4 warps a
+// block.  dK/dV: each warp owns 16 keys of the block's 64-key tile as the rows
+// of S^T = K q^T and dP^T = V dO^T, so that P^T and dS^T come out of the
+// accumulators as the A operands of dV += P^T dO and dK += dS^T q without
+// leaving registers; q and dO tiles are double-buffered by cp.async.  dQ: each
+// warp owns 16 queries of the block's 64-query tile as the rows of S = q K^T
+// and dP = dO V^T, 16 keys at a time, so that the two n-tiles of one 16-key
+// chunk of dS are the A operand of dQ += dS K; K and V tiles are
+// double-buffered by cp.async.  The second products read their B operand by
+// ldmatrix.trans; dQ, dK and dV stay fp32 in registers and are rounded once.
 //
 // What bounds them on the H100: the function is five T x T x D products
 // (10 B H T^2 D operations); the split into two kernels recomputes q.k^T and
 // dout.v^T, so seven are done.  The tensor-core dK/dV kernel's four products
-// are held against the 989 TFLOP/s bf16 peak; at D 64 its per-element work
-// (exp, masks, dS) on the FMA and SFU pipes is of the same order.  The design
-// masks the ragged edge in the kernel (T is never padded), and skips a tile
-// whose segment ids all lie outside the block's own [min, max] segment range
-// without loading it.  With `causal` the tiles above the diagonal are skipped
-// too: the dkv loop over query tiles starts at the key tile's own row, the dq
-// loop over key tiles ends at the query tile's own column, and the diagonal
-// tile is masked element by element; the dq kernel hands its query tiles out
-// longest first (the dkv kernel's first key tile is its longest already).
-// Later work: dq on the same tensor-core blocks, then wgmma / TMA, a fused
-// five-product backward, and a GQA-aware kernel.
+// (8 pairs D operations) and the dQ kernel's three (6 pairs D) are held
+// against the 989 TFLOP/s bf16 peak; at D 64 their per-element work (exp,
+// masks, dS) on the FMA and SFU pipes is of the same order.  What holds them
+// back from it: `mma.sync` rather than `wgmma`, every warp reading the whole
+// staged tile of the other side from shared memory (one ldmatrix per two
+// mma.sync), and cp.async rather than TMA.  The design masks the ragged edge in
+// the kernel (T is never padded), and skips a tile whose segment ids all lie
+// outside the block's own [min, max] segment range without loading it.  With
+// `causal` the tiles above the diagonal are skipped too: the dkv loop over
+// query tiles starts at the key tile's own row, the dq loop over key tiles
+// ends at the query tile's own column, and the diagonal tile is masked element
+// by element; the dq kernels hand their query tiles out longest first (the dkv
+// kernels' first key tile is their longest already).
+// Later work: wgmma / TMA, a fused five-product backward, and a GQA-aware
+// kernel.
 
 #include <climits>
 
@@ -96,9 +104,8 @@ __device__ __forceinline__ void tile_dot(const float* a, const float* b, int ty,
 }
 
 // p and dS of one 64 x 64 tile from the staged Q, K, V, dO tiles, written to
-// shared memory (Ps may be null when only dS is wanted), each rounded as the
-// element type E asks before it enters a product
-template <typename E, int D>
+// shared memory (Ps may be null when only dS is wanted)
+template <int D>
 __device__ __forceinline__ void prob_tile(const float* Qs, const float* Ks, const float* Vs,
                                           const float* Os, const int* segq, const int* segk,
                                           const float* lse_s, const float* delta_s, int q0,
@@ -119,19 +126,19 @@ __device__ __forceinline__ void prob_tile(const float* Qs, const float* Ks, cons
       const int c = tx + 16 * j;
       const bool ok = (q0 + r < T) && (k0 + c < T) && segk[c] == sq && (c - r <= lim);
       const float p = ok ? expf(s[i][j] * scale - row_lse) : 0.f;
-      if (Ps != nullptr) Ps[r * PS + c] = round_as<E>(p);
-      Ss[r * PS + c] = round_as<E>(p * (dp[i][j] - row_delta) * scale);
+      if (Ps != nullptr) Ps[r * PS + c] = p;
+      Ss[r * PS + c] = p * (dp[i][j] - row_delta) * scale;
     }
   }
 }
 
-template <typename E, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                     const int* __restrict__ seg, const float* __restrict__ lse,
-                     const float* __restrict__ delta, const E* __restrict__ dout,
-                     E* __restrict__ dk, E* __restrict__ dv, int T, int H, float scale,
-                     int causal) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ seg,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ dout, float* __restrict__ dk,
+                     float* __restrict__ dv, int T, int H, float scale, int causal) {
   constexpr int DP = D + 1;
   constexpr int CJ = D / 16;
 
@@ -161,8 +168,8 @@ flash_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* 
     klo = INT_MAX;
     khi = INT_MIN;
   }
-  load_tile<E, D, DP>(Ks, k, base, ld, k0, T, tid);
-  load_tile<E, D, DP>(Vs, v, base, ld, k0, T, tid);
+  load_tile<D, DP>(Ks, k, base, ld, k0, T, tid);
+  load_tile<D, DP>(Vs, v, base, ld, k0, T, tid);
   __syncthreads();
   if (tid < BM) {
     const int s = (k0 + tid < T) ? segb[k0 + tid] : 0;
@@ -196,10 +203,10 @@ flash_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* 
     }
     if (!__syncthreads_or(seen)) continue;
 
-    load_tile<E, D, DP>(Qs, q, base, ld, q0, T, tid);
-    load_tile<E, D, DP>(Os, dout, base, ld, q0, T, tid);
+    load_tile<D, DP>(Qs, q, base, ld, q0, T, tid);
+    load_tile<D, DP>(Os, dout, base, ld, q0, T, tid);
     __syncthreads();
-    prob_tile<E, D>(Qs, Ks, Vs, Os, segq, segk, lse_s, delta_s, q0, k0, T, scale, causal, ty, tx,
+    prob_tile<D>(Qs, Ks, Vs, Os, segq, segk, lse_s, delta_s, q0, k0, T, scale, causal, ty, tx,
                     Ps, Ss);
     __syncthreads();
 
@@ -232,19 +239,20 @@ flash_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* 
     if (t < T) {
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        store_as(dk + base + t * ld + tx + 16 * j, acc_dk[i][j]);
-        store_as(dv + base + t * ld + tx + 16 * j, acc_dv[i][j]);
+        dk[base + t * ld + tx + 16 * j] = acc_dk[i][j];
+        dv[base + t * ld + tx + 16 * j] = acc_dv[i][j];
       }
     }
   }
 }
 
-template <typename E, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                    const int* __restrict__ seg, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const E* __restrict__ dout,
-                    E* __restrict__ dq, int T, int H, float scale, int causal) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ seg,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const float* __restrict__ dout, float* __restrict__ dq, int T, int H,
+                    float scale, int causal) {
   constexpr int DP = D + 1;
   constexpr int CJ = D / 16;
 
@@ -273,8 +281,8 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* _
     qlo = INT_MAX;
     qhi = INT_MIN;
   }
-  load_tile<E, D, DP>(Qs, q, base, ld, q0, T, tid);
-  load_tile<E, D, DP>(Os, dout, base, ld, q0, T, tid);
+  load_tile<D, DP>(Qs, q, base, ld, q0, T, tid);
+  load_tile<D, DP>(Os, dout, base, ld, q0, T, tid);
   __syncthreads();
   if (tid < BM) {
     const bool in = q0 + tid < T;
@@ -308,10 +316,10 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* _
     }
     if (!__syncthreads_or(seen)) continue;
 
-    load_tile<E, D, DP>(Ks, k, base, ld, k0, T, tid);
-    load_tile<E, D, DP>(Vs, v, base, ld, k0, T, tid);
+    load_tile<D, DP>(Ks, k, base, ld, k0, T, tid);
+    load_tile<D, DP>(Vs, v, base, ld, k0, T, tid);
     __syncthreads();
-    prob_tile<E, D>(Qs, Ks, Vs, Os, segq, segk, lse_s, delta_s, q0, k0, T, scale, causal, ty, tx,
+    prob_tile<D>(Qs, Ks, Vs, Os, segq, segk, lse_s, delta_s, q0, k0, T, scale, causal, ty, tx,
                     nullptr, Ss);
     __syncthreads();
 
@@ -334,7 +342,7 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* _
     const int t = q0 + ty * 4 + i;
     if (t < T) {
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) store_as(dq + base + t * ld + tx + 16 * j, acc[i][j]);
+      for (int j = 0; j < CJ; ++j) dq[base + t * ld + tx + 16 * j] = acc[i][j];
     }
   }
 }
@@ -541,6 +549,193 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 dQ kernel on the tensor cores.  One block of 4 warps per (64-query
+// tile, head, batch row); warp w owns queries 16 w .. 16 w + 15 whole, as the
+// rows of
+//   S = Q K^T  and  dP = dO V^T   (Q and dO held as A fragments),
+// and loops over the visible 64-key tiles (up to the diagonal with `causal`),
+// 16 keys at a time:
+//   P  = exp(S * scale - lse)              (0 where masked)
+//   dS = P o (dP - delta) * scale          (from the unrounded P)
+//   dQ += bf16(dS) K                       (K read by ldmatrix.trans)
+// The two n-tiles of one 16-key chunk of dS are the A fragment of that chunk,
+// so dS never leaves registers, and only one chunk of S and dP is live at a
+// time.  Each thread keeps the lse and delta of its two rows in registers.
+// K and V are double-buffered by cp.async.  dQ stays fp32 in registers and is
+// rounded once, as it is stored; each element is one thread's and is summed in
+// a fixed order: no atomics, two runs give the same bits.
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * fa_mma::ROWS * D * 6;  // Q, dO, then K and V x 2
+}
+
+template <int D>
+__global__ void __launch_bounds__(fa_mma::THREADS)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
+                        int T, int H, float scale, int causal) {
+  using namespace fa_mma;
+  constexpr int TILE_ELEMS = ROWS * D;
+  constexpr int KC = D / 16;  // k-chunks of the two score products
+  constexpr int NT = D / 8;   // n-tiles of dQ
+  // D 128 reads its Q and dO fragments from shared memory per chunk, to stay
+  // clear of spills; narrower heads hold them in registers
+  constexpr bool QO_IN_REGS = D <= 64;
+
+  extern __shared__ uint4 smem_dq[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_dq);
+  bf16* Os = Qs + TILE_ELEMS;      // dO
+  bf16* Ks = Os + TILE_ELEMS;      // [2][ROWS][D]
+  bf16* Vs = Ks + 2 * TILE_ELEMS;  // [2][ROWS][D]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+  const long row_base = ((long)b * H + h) * T;
+
+  int qlo, qhi;
+  segment_range(segb, q0, T, lane, qlo, qhi);
+  // causal: the tiles past the diagonal tile (k0 == q0) hold no visible key
+  const int k_end = causal ? min(T, q0 + ROWS) : T;
+
+  stage_tile<D>(Qs, q, base, ld, q0, T, tid);
+  stage_tile<D>(Os, dout, base, ld, q0, T, tid);
+  cp_async_commit();
+  bool uniform, uniform_next;
+  int k0 = next_tile(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+  if (k0 < k_end) {  // always: every in-range query sees its own key
+    stage_tile<D>(Ks, k, base, ld, k0, T, tid);
+    stage_tile<D>(Vs, v, base, ld, k0, T, tid);
+  }
+  cp_async_commit();
+
+  // this thread's two queries, rows g and g + 8 of the warp's 16; rows past T
+  // are never stored
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+  const float lse_l2[2] = {row0 < T ? lse[row_base + row0] * LOG2E : 0.f,
+                           row1 < T ? lse[row_base + row1] * LOG2E : 0.f};
+  const float row_delta[2] = {row0 < T ? delta[row_base + row0] : 0.f,
+                              row1 < T ? delta[row_base + row1] : 0.f};
+
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qa[QO_IN_REGS ? KC : 1][4], oa[QO_IN_REGS ? KC : 1][4];
+  if constexpr (QO_IN_REGS) {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      load_a<D>(qa[kc], Qs, warp * 16, kc, lane);
+      load_a<D>(oa[kc], Os, warp * 16, kc, lane);
+    }
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  const float scale_log2 = scale * LOG2E;
+  int stage = 0;
+  while (k0 < k_end) {
+    const int kn = next_tile(segb, k0 + ROWS, k_end, T, qlo, qhi, lane, uniform_next);
+    if (kn < k_end) {
+      stage_tile<D>(Ks + (stage ^ 1) * TILE_ELEMS, k, base, ld, kn, T, tid);
+      stage_tile<D>(Vs + (stage ^ 1) * TILE_ELEMS, v, base, ld, kn, T, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + stage * TILE_ELEMS;
+    const bf16* Vt = Vs + stage * TILE_ELEMS;
+    // the ragged edge, the diagonal tile and a tile whose ids are not all the
+    // query tile's single id are masked element by element
+    const bool masked = !uniform || k0 + ROWS > T || (causal && k0 + ROWS > q0);
+
+    // D 128 keeps 64 accumulators a thread: one chunk at a time, so that the
+    // next chunk's fragment loads are not hoisted into registers it lacks
+#pragma unroll(QO_IN_REGS ? ROWS / 16 : 1)
+    for (int c = 0; c < ROWS / 16; ++c) {  // keys 16 c .. 16 c + 15 of the tile
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t qf[4], of[4], kb[4], vb[4];
+        if constexpr (QO_IN_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            qf[i] = qa[kc][i];
+            of[i] = oa[kc][i];
+          }
+        } else {
+          load_a<D>(qf, Qs, warp * 16, kc, lane);
+          load_a<D>(of, Os, warp * 16, kc, lane);
+        }
+        load_b<D>(kb, Kt, c * 16, kc, lane);
+        load_b<D>(vb, Vt, c * 16, kc, lane);
+        mma_bf16(s[0], qf, kb[0], kb[1]);
+        mma_bf16(s[1], qf, kb[2], kb[3]);
+        mma_bf16(dp[0], of, vb[0], vb[1]);
+        mma_bf16(dp[1], of, vb[2], vb[3]);
+      }
+      // element (n, e): query row e < 2 ? g : g + 8, key 16 c + 8 n + 2 t4 + (e & 1)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = exp2f(fmaf(s[n][e], scale_log2, -lse_l2[i]));
+          if (masked) {
+            const int key = k0 + c * 16 + n * 8 + 2 * t4 + (e & 1);
+            const int row = i == 0 ? row0 : row1;
+            const bool ok = key < T && segb[key] == (i == 0 ? seg0 : seg1) &&
+                            (!causal || key <= row);
+            p = ok ? p : 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - row_delta[i]) * scale;  // dS, from the unrounded p
+        }
+      }
+      // the two n-tiles of keys 16 c .. 16 c + 15 are one A fragment
+      const uint32_t sa[4] = {pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
+                              pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t kb[4];
+        load_b_trans<D>(kb, Kt, c * 16, np, lane);
+        mma_bf16(acc[2 * np], sa, kb[0], kb[1]);
+        mma_bf16(acc[2 * np + 1], sa, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    k0 = kn;
+    uniform = uniform_next;
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = i == 0 ? row0 : row1;
+    if (t < T) {
+      __nv_bfloat16* dst = dq + base + (long)t * ld + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
 // what both kernels read, as the C interface hands it over
 struct Inputs {
   const void *q, *k, *v;
@@ -553,40 +748,41 @@ struct Inputs {
   cudaStream_t stream;
 };
 
-template <typename E, int D>
+template <int D>
 cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
   constexpr size_t smem = smem_bytes<D>(2);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((in.T + BM - 1) / BM, in.H, in.B);
-  flash_bwd_dkv_kernel<E, D><<<grid, THREADS, smem, in.stream>>>(
-      static_cast<const E*>(in.q), static_cast<const E*>(in.k), static_cast<const E*>(in.v),
-      in.seg, in.lse, in.delta, static_cast<const E*>(in.dout), static_cast<E*>(dk),
-      static_cast<E*>(dv), in.T, in.H, in.scale, in.causal);
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, in.stream>>>(
+      static_cast<const float*>(in.q), static_cast<const float*>(in.k),
+      static_cast<const float*>(in.v), in.seg, in.lse, in.delta,
+      static_cast<const float*>(in.dout), static_cast<float*>(dk), static_cast<float*>(dv),
+      in.T, in.H, in.scale, in.causal);
   return cudaGetLastError();
 }
 
-template <typename E, int D>
+template <int D>
 cudaError_t launch_dq(const Inputs& in, void* dq) {
   constexpr size_t smem = smem_bytes<D>(1);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((in.T + BM - 1) / BM, in.H, in.B);
-  flash_bwd_dq_kernel<E, D><<<grid, THREADS, smem, in.stream>>>(
-      static_cast<const E*>(in.q), static_cast<const E*>(in.k), static_cast<const E*>(in.v),
-      in.seg, in.lse, in.delta, static_cast<const E*>(in.dout), static_cast<E*>(dq), in.T, in.H,
-      in.scale, in.causal);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, in.stream>>>(
+      static_cast<const float*>(in.q), static_cast<const float*>(in.k),
+      static_cast<const float*>(in.v), in.seg, in.lse, in.delta,
+      static_cast<const float*>(in.dout), static_cast<float*>(dq), in.T, in.H, in.scale,
+      in.causal);
   return cudaGetLastError();
 }
 
-template <typename E>
 cudaError_t launch_dkv_d(int D, const Inputs& in, void* dk, void* dv) {
   switch (D) {
-    case 32: return launch_dkv<E, 32>(in, dk, dv);
-    case 64: return launch_dkv<E, 64>(in, dk, dv);
-    case 128: return launch_dkv<E, 128>(in, dk, dv);
+    case 32: return launch_dkv<32>(in, dk, dv);
+    case 64: return launch_dkv<64>(in, dk, dv);
+    case 128: return launch_dkv<128>(in, dk, dv);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -615,12 +811,35 @@ cudaError_t launch_dkv_mma_d(int D, const Inputs& in, void* dk, void* dv) {
   }
 }
 
-template <typename E>
 cudaError_t launch_dq_d(int D, const Inputs& in, void* dq) {
   switch (D) {
-    case 32: return launch_dq<E, 32>(in, dq);
-    case 64: return launch_dq<E, 64>(in, dq);
-    case 128: return launch_dq<E, 128>(in, dq);
+    case 32: return launch_dq<32>(in, dq);
+    case 64: return launch_dq<64>(in, dq);
+    case 128: return launch_dq<128>(in, dq);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const Inputs& in, void* dq) {
+  constexpr size_t smem = dq_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
+  flash_bwd_dq_mma_kernel<D><<<grid, fa_mma::THREADS, smem, in.stream>>>(
+      static_cast<const __nv_bfloat16*>(in.q), static_cast<const __nv_bfloat16*>(in.k),
+      static_cast<const __nv_bfloat16*>(in.v), in.seg, in.lse, in.delta,
+      static_cast<const __nv_bfloat16*>(in.dout), static_cast<__nv_bfloat16*>(dq), in.T, in.H,
+      in.scale, in.causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_mma_d(int D, const Inputs& in, void* dq) {
+  switch (D) {
+    case 32: return launch_dq_mma<32>(in, dq);
+    case 64: return launch_dq_mma<64>(in, dq);
+    case 128: return launch_dq_mma<128>(in, dq);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -637,7 +856,7 @@ extern "C" int roar_flash_attention_bwd_dkv(const void* q, const void* k, const 
   const Inputs in{q, k, v, seg, lse, delta, dout, B, T, H, scale, causal,
                   static_cast<cudaStream_t>(stream)};
   if (bf16) return (int)launch_dkv_mma_d(D, in, dk, dv);
-  return (int)launch_dkv_d<float>(D, in, dk, dv);
+  return (int)launch_dkv_d(D, in, dk, dv);
 }
 
 extern "C" int roar_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -648,6 +867,6 @@ extern "C" int roar_flash_attention_bwd_dq(const void* q, const void* k, const v
   if (flash::bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
   const Inputs in{q, k, v, seg, lse, delta, dout, B, T, H, scale, causal,
                   static_cast<cudaStream_t>(stream)};
-  if (bf16) return (int)launch_dq_d<__nv_bfloat16>(D, in, dq);
-  return (int)launch_dq_d<float>(D, in, dq);
+  if (bf16) return (int)launch_dq_mma_d(D, in, dq);
+  return (int)launch_dq_d(D, in, dq);
 }

@@ -75,11 +75,12 @@ constexpr size_t smem_bytes() {
 // Shared memory lets three blocks of D <= 64 live on an SM (66 KB each) and
 // one of D = 128: the register budget is set for that many, so that ptxas
 // neither spills to fit a fourth block nor starves the third.
-template <typename E, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, (D <= 64 ? 3 : 1))
-flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                 const int* __restrict__ seg, E* __restrict__ out, float* __restrict__ lse,
-                 int T, int H, float scale, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ seg,
+                 float* __restrict__ out, float* __restrict__ lse, int T, int H, float scale,
+                 int causal) {
   constexpr int DP = D + 1;   // padded row stride of the Q and K tiles
   constexpr int CJ = D / 16;  // output columns per thread
 
@@ -104,7 +105,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
     qlo = INT_MAX;
     qhi = INT_MIN;
   }
-  load_tile<E, D, DP>(Qs, q, base, ld, q0, T, tid);
+  load_tile<D, DP>(Qs, q, base, ld, q0, T, tid);
   __syncthreads();
   if (tid < BQ) {
     const int s = (q0 + tid < T) ? segb[q0 + tid] : 0;
@@ -138,8 +139,8 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
     }
     if (!__syncthreads_or(seen)) continue;
 
-    load_tile<E, D, DP>(Ks, k, base, ld, k0, T, tid);
-    load_tile<E, D, D>(Vs, v, base, ld, k0, T, tid);
+    load_tile<D, DP>(Ks, k, base, ld, k0, T, tid);
+    load_tile<D, D>(Vs, v, base, ld, k0, T, tid);
     __syncthreads();
     // causal: key c of this tile is visible to row r when k0 + c <= q0 + r
     const int lim = causal ? q0 - k0 : BK;
@@ -187,7 +188,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_use);
-        Ps[r * PS + tx + 16 * j] = round_as<E>(p);  // bf16: rounded for p.v only
+        Ps[r * PS + tx + 16 * j] = p;
         rs += p;
       }
 #pragma unroll
@@ -220,35 +221,34 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
       // l > 0: every in-range query sees at least its own key
       const float inv = 1.f / l[i];
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) store_as(out + base + t * ld + tx + 16 * j, acc[i][j] * inv);
+      for (int j = 0; j < CJ; ++j) out[base + t * ld + tx + 16 * j] = acc[i][j] * inv;
       if (lse != nullptr && tx == 0) lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
     }
   }
 }
 
-template <typename E, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
                    float* lse, int B, int T, int H, float scale, int causal,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<E, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), seg,
-      static_cast<E*>(out), lse, T, H, scale, causal);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      seg, static_cast<float*>(out), lse, T, H, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename E>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* seg,
                      void* out, float* lse, int B, int T, int H, float scale, int causal,
                      cudaStream_t s) {
   switch (D) {
-    case 32: return launch<E, 32>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
-    case 64: return launch<E, 64>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
-    case 128: return launch<E, 128>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    case 32: return launch<32>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    case 64: return launch<64>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    case 128: return launch<128>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -481,7 +481,7 @@ extern "C" int roar_flash_attention_fwd(const void* q, const void* k, const void
   if (flash::bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return (int)launch_mma_d(D, q, k, v, seg, out, lse, B, T, H, scale, causal, s);
-  return (int)launch_d<float>(D, q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+  return (int)launch_d(D, q, k, v, seg, out, lse, B, T, H, scale, causal, s);
 }
 
 extern "C" const char* roar_cuda_error_string(int err) {

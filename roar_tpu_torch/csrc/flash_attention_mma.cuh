@@ -1,5 +1,5 @@
-// The tensor-core building blocks of the bf16 flash-attention forward and
-// dK/dV kernels: `cp.async` staging of bf16 tiles into an XOR-swizzled shared
+// The tensor-core building blocks of the bf16 flash-attention forward, dK/dV
+// and dQ kernels: `cp.async` staging of bf16 tiles into an XOR-swizzled shared
 // layout, `ldmatrix` fragment loads, `mma.sync.m16n8k16` on bf16 with fp32
 // accumulation, and the warp-level segment votes that decide which tiles a
 // block loads and which it must mask.

@@ -8,9 +8,9 @@ kernel `jax.experimental.pallas.ops.tpu.flash_attention` (`SegmentIds`, with
 launches, `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`.  The
 kernels are `csrc/flash_attention_fwd.cu` and `csrc/flash_attention_bwd.cu`;
 their source notes say what bounds them on the H100 and what their design does
-about it.  fp32 runs on the FMA pipe; in bf16 the forward and the dK/dV
-kernel run on the tensor cores (`mma.sync`, `csrc/flash_attention_mma.cuh`)
-and the dQ kernel on the FMA pipe.  The C interface is the same for all.
+about it.  fp32 runs on the FMA pipe; in bf16 the forward, the dK/dV and the
+dQ kernel run on the tensor cores (`mma.sync`, `csrc/flash_attention_mma.cuh`).
+The C interface is the same for all.
 
 Semantics: softmax attention in which query i sees key j only when both carry
 the same segment id and, with `causal`, j <= i.  Valid tokens have id 0 and

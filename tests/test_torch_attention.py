@@ -648,3 +648,54 @@ def test_bf16_bar_takes_the_tensor_core_dkv_order(skip_diagonal):
             assert not torch.equal(got, want)
             errs = close(got, want, name)
             assert errs["worst_share_of_bar"] < 0.75 and errs["rel_l2"] < 5e-3
+
+
+def _tiled_dq_bf16(q, k, v, do, o, lse, scale, q_tile=64, warp_rows=16, chunk=16,
+                   skip_diagonal=False):
+    """dQ of the causal attention as the tensor-core dQ kernel orders it: per
+    64-query tile, 16 queries a warp; the key tiles up to the diagonal, 16
+    keys at a time; P = exp(S * scale - lse) and dS = P (dP - delta) * scale
+    in fp32 from the unrounded P, dS rounded to bf16 before dS K, fp32
+    accumulators rounded once at the end.  `skip_diagonal` leaves out the key
+    tile on the query tile's own diagonal, as a loop ending one tile early
+    would."""
+    b, t, h, d = q.shape
+    q32, k32, v32, do32 = (z.float() for z in (q, k, v, do))
+    delta = (o.float() * do32).sum(-1).permute(0, 2, 1)  # [B, H, T]
+    dq = torch.empty_like(q)
+    for q0 in range(0, t, q_tile):
+        for w0 in range(q0, min(q0 + q_tile, t), warp_rows):
+            rows = torch.arange(w0, min(w0 + warp_rows, t))
+            acc = torch.zeros(b, h, len(rows), d)
+            for k0 in range(0, min(q0 + q_tile, t), q_tile):
+                if skip_diagonal and k0 == q0:
+                    continue
+                for c0 in range(k0, min(k0 + q_tile, t), chunk):
+                    keys = torch.arange(c0, min(c0 + chunk, t))
+                    s_ = torch.einsum("bqhd,bkhd->bhqk", q32[:, rows], k32[:, keys])
+                    dp = torch.einsum("bqhd,bkhd->bhqk", do32[:, rows], v32[:, keys])
+                    p = torch.exp(s_ * scale - lse[:, :, rows, None])
+                    p = p.masked_fill(keys[None, :] > rows[:, None], 0.0)
+                    ds = p * (dp - delta[:, :, rows, None]) * scale
+                    acc += torch.einsum("bhqk,bkhd->bhqd", ds.bfloat16().float(), k32[:, keys])
+            dq[:, rows] = acc.permute(0, 2, 1, 3).to(q.dtype)
+    return dq
+
+
+@pytest.mark.parametrize("skip_diagonal", [False, True], ids=["kernel_order", "diagonal_skipped"])
+def test_bf16_bar_takes_the_tensor_core_dq_order(skip_diagonal):
+    """The dQ kernel's loop order and roundings pass the bar against the
+    plain backward at (1, 1024, 2, 64); the same loop ending one key tile
+    early fails it."""
+    close = _chip_smoke().assert_flash_close
+    q, k, v, do, scale = _bf16_bar_inputs()
+    o, lse = fa.flash_self_attention_plain(q, k, v, None, scale, True, causal=True)
+    dq_w = fa.flash_self_attention_bwd_plain(q, k, v, None, scale, o, lse, do, True)[0]
+    dq = _tiled_dq_bf16(q, k, v, do, o, lse, scale, skip_diagonal=skip_diagonal)
+    if skip_diagonal:
+        with pytest.raises(AssertionError):
+            close(dq, dq_w, "dq")
+    else:
+        assert not torch.equal(dq, dq_w)
+        errs = close(dq, dq_w, "dq")
+        assert errs["worst_share_of_bar"] < 0.75 and errs["rel_l2"] < 5e-3
