@@ -14,7 +14,7 @@ Phases, each printing JSON lines:
    computes the same function: flash attention (allclose), the pYIN Viterbi
    forward pass and backtrack (exactly equal, ties included), the grouped
    conv forward, input gradient and weight gradient (relative to the
-   result's scale; the weight gradient bit-identical across two runs);
+   result's scale; each bit-identical across two runs);
 4. slice: full-size FastPitch (flash attention in all 12 layers) and HiFi-GAN
    v1 with seeded random weights, served through `SynthesisEngine.warmup`,
    `synthesize_batch` and the HTTP server; checks sample counts, WAV headers,
@@ -122,6 +122,7 @@ VITERBI_CASES = [
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12  # H100 SXM dense TF32, NVIDIA's data sheet
 SUP_SAMPLE_RATE = 22050
 # bars of tests/test_pyin.py GOLDEN_TOLERANCES for moving pitch: voicing
 # agreement, voiced-F0 RMSE in cents, rate of errors over 100 cents
@@ -454,14 +455,34 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
     return None
 
 
+def _conv_instance(mangled: str) -> Optional[tuple]:
+    """("conv_mma_kernel", "fwd" or "dx", (WN, NT, MT)) of a K3 instance's
+    mangled name (template arguments: warps along the output channels,
+    n-tiles and m-tiles per warp, dX), else None."""
+    found = re.search(r"(conv_mma_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", mangled)
+    if found is None:
+        return None
+    return (found.group(1), "dx" if found.group(5) == "1" else "fwd",
+            tuple(int(found.group(i)) for i in (2, 3, 4)))
+
+
+# the K3 instances `dispatch_conv_mma` of csrc/grouped_conv.cu can launch
+CONV_MMA_TILES = [(wn, nt, mt) for wn, nt in ((1, 1), (1, 2), (1, 4), (2, 4)) for mt in (1, 2)]
+
+
+def _any_instance(mangled: str) -> Optional[tuple]:
+    return _flash_instance(mangled) or _conv_instance(mangled)
+
+
 def parse_ptxas(log: str) -> dict:
-    """{(kernel, dtype, D): registers, spill bytes, stack, static shared
-    memory} of every flash kernel instance in a `ptxas -v` log."""
+    """{instance key: registers, spill bytes, stack, static shared memory} of
+    every flash kernel instance (keyed (kernel, dtype, D)) and K3 instance
+    (keyed (kernel, view, tiles)) in a `ptxas -v` log."""
     out, current = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            current = _flash_instance(entry.group(1))
+            current = _any_instance(entry.group(1))
             if current is not None:
                 out[current] = {"registers": None, "spill_store_bytes": None,
                                 "spill_load_bytes": None, "stack_bytes": None,
@@ -485,8 +506,9 @@ def parse_ptxas(log: str) -> dict:
 
 
 def count_hmma(lib_path) -> Optional[dict]:
-    """{(kernel, dtype, D): HMMA instructions in its SASS} from `cuobjdump
-    -sass`, or None where the tool is not installed."""
+    """{instance key: HMMA instructions in its SASS} of every flash and K3
+    instance, from `cuobjdump -sass`, or None where the tool is not
+    installed.  TF32 products show as `HMMA.1684.F32.TF32`."""
     import shutil
 
     tool = shutil.which("cuobjdump")
@@ -501,7 +523,7 @@ def count_hmma(lib_path) -> Optional[dict]:
     counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = _flash_instance(line.split("Function :", 1)[1].strip())
+            current = _any_instance(line.split("Function :", 1)[1].strip())
             if current is not None:
                 counts[current] = 0
         elif current is not None and "HMMA" in line:
@@ -510,12 +532,14 @@ def count_hmma(lib_path) -> Optional[dict]:
 
 
 def phase_kernel_build(lib_path) -> dict:
-    """Registers, shared memory and spills of every flash kernel instance from
-    the build's `ptxas -v` log, and where `cuobjdump` is installed the HMMA
-    count of each; raises if a tensor-core kernel spills or has no HMMA."""
+    """Registers, shared memory and spills of every flash kernel instance and
+    every K3 instance from the build's `ptxas -v` log, and where `cuobjdump`
+    is installed the HMMA count of each; raises if a tensor-core kernel
+    spills or has no HMMA."""
     from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
-    table = parse_ptxas(lib_path.with_suffix(".log").read_text())
+    everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
+    table = {key: info for key, info in everything.items() if key[0] != "conv_mma_kernel"}
     hmma = count_hmma(lib_path)
     rows = []
     for (kernel, dtype, d), info in sorted(table.items()):
@@ -533,7 +557,26 @@ def phase_kernel_build(lib_path) -> dict:
                 raise AssertionError(f"{kernel}<{d}> spills: {info}")
             if hmma is not None and hmma.get((kernel, "bfloat16", d), 0) == 0:
                 raise AssertionError(f"{kernel}<{d}> has no HMMA instruction in its SASS")
-    line = {"phase": "kernel_build", "instances": rows,
+    # K3, fp32 in and out, 3xTF32 products: one dynamic shared memory size
+    # per launch (csrc/grouped_conv.cu `k3_smem`), so none is listed here
+    conv_rows = []
+    for view in ("fwd", "dx"):
+        for tiles in CONV_MMA_TILES:
+            key = ("conv_mma_kernel", view, tiles)
+            info = everything.get(key)
+            if info is None or info["registers"] is None:
+                raise AssertionError(f"conv_mma_kernel<{tiles}, {view}> is not in the ptxas log")
+            if info["spill_store_bytes"] or info["spill_load_bytes"]:
+                raise AssertionError(f"conv_mma_kernel<{tiles}, {view}> spills: {info}")
+            row = {"kernel": "conv_mma_kernel", "view": view, "wn_nt_mt": list(tiles),
+                   "dtype": "float32 (3xTF32 products)", **info}
+            if hmma is not None:
+                row["hmma"] = hmma.get(key, 0)
+                if row["hmma"] == 0:
+                    raise AssertionError(f"conv_mma_kernel<{tiles}, {view}> has no HMMA "
+                                         "instruction in its SASS")
+            conv_rows.append(row)
+    line = {"phase": "kernel_build", "instances": rows, "grouped_conv_instances": conv_rows,
             "cuobjdump": hmma is not None}
     _emit(line)
     return line
@@ -614,8 +657,10 @@ def phase_kernel_viterbi(device: torch.device) -> dict:
 
 # K3/K4 against the plain versions.  fp32 sums of up to 64 x 41 products
 # (forward), 64 x 11 (dX per phase) and 32 x 4096 (dW) run in another order
-# than cuBLAS's inside the plain einsum: the bar is the largest difference
-# relative to the largest magnitude of the result
+# than cuBLAS's inside the plain einsum, and K3 forms its products in 3xTF32
+# (up to about 2.6e-6 of the scale on an H100; one TF32 product alone would
+# read about 3e-4): the bar is the largest difference relative to the
+# largest magnitude of the result
 GROUPED_CONV_REL_TOL = 2e-4
 # (B, W, cin, cout, k, s, g, pad): the shape classes of tests/test_grouped_conv.py
 GROUPED_CONV_SMALL = [
@@ -654,11 +699,85 @@ def _chunked(fn, chunk: int = 4):
     return run_sum if fn.__name__.endswith("dw_plain") else run_cat
 
 
+# the peak rate of each grouped-conv kernel's operations: K3 does three TF32
+# products on the tensor cores for each fp32 multiply-add, K4 runs on the
+# fp32 FMA pipe
+GROUPED_CONV_PEAK_FLOPS = {"fwd": TF32_FLOPS / 3, "dx": TF32_FLOPS / 3, "dw": FP32_FLOPS}
+
+
+def grouped_conv_inputs(case, gen, device) -> tuple:
+    """Seeded x [B, Cin, W], w [Cout, Cin/G, k] (scaled by 1/sqrt(fan in)) and
+    dy [B, Cout, Wout] of a (B, W, cin, cout, k, s, g, pad) case."""
+    from roar_tpu_torch.kernels import grouped_conv as gk
+
+    b, width, cin, cout, k, s, g, pad = case
+    x = torch.randn(b, cin, width, device=device, generator=gen)
+    w = torch.randn(cout, cin // g, k, device=device, generator=gen) / (k * cin // g) ** 0.5
+    dy = torch.randn(b, cout, gk.out_len(width, k, s, pad), device=device, generator=gen)
+    return x, w, dy
+
+
+def grouped_conv_calls(case, x, w, dy) -> dict:
+    """{"fwd" | "dx" | "dw": (kernel, plain version, library call)} on a
+    case's inputs; the library calls are cuDNN's."""
+    import torch.nn.functional as F
+
+    from roar_tpu_torch.kernels import grouped_conv as gk
+
+    b, width, cin, cout, k, s, g, pad = case
+    return {
+        "fwd": (lambda: gk.grouped_conv_fwd(x, w, s, pad, g),
+                lambda: _chunked(gk.grouped_conv_fwd_plain)(x, w, s, pad, g),
+                lambda: F.conv1d(x, w, stride=s, padding=pad, groups=g)),
+        "dx": (lambda: gk.grouped_conv_dx(dy, w, width, s, pad, g),
+               lambda: _chunked(gk.grouped_conv_dx_plain)(dy, w, width, s, pad, g),
+               lambda: torch.nn.grad.conv1d_input(x.shape, w, dy, stride=s, padding=pad,
+                                                  groups=g)),
+        "dw": (lambda: gk.grouped_conv_dw(x, dy, k, s, pad, g),
+               lambda: _chunked(gk.grouped_conv_dw_plain)(x, dy, k, s, pad, g),
+               lambda: torch.nn.grad.conv1d_weight(x, w.shape, dy, stride=s, padding=pad,
+                                                   groups=g)),
+    }
+
+
+def grouped_conv_bound(name: str, nbytes: float, flops: float) -> dict:
+    """`_bound` at the kernel's own peak (`GROUPED_CONV_PEAK_FLOPS`), and
+    `bound_fp32_fma_ms`, the same work on the fp32 FMA pipe, which compares
+    with the rows of the FMA kernels."""
+    return {**_bound(nbytes, flops, GROUPED_CONV_PEAK_FLOPS[name]),
+            "bound_fp32_fma_ms": _bound(nbytes, flops)["bound_ms"]}
+
+
+def grouped_conv_case_bound(name: str, case, x, w, dy) -> dict:
+    """`grouped_conv_bound` of one case: each input read and the output
+    written once (the three tensors), 2 k Cg FLOP per output element."""
+    b, width, cin, cout, k, s, g, pad = case
+    flops = 2.0 * b * cout * (cin // g) * k * dy.shape[-1]
+    return grouped_conv_bound(name, 4.0 * (x.numel() + w.numel() + dy.numel()), flops)
+
+
+def time_grouped_conv(kernel, library, plain=None) -> dict:
+    """Median of 5 by CUDA events of the kernel and of its library call with
+    TF32 off and on; of the plain version too (median of 2) when given."""
+    times = {"ms": _time_ms(kernel, reps=5)}
+    if plain is not None:
+        times["plain_ms"] = _time_ms(plain, reps=2)
+    times["library_ms"] = _time_ms(library, reps=5)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        times["library_tf32_ms"] = _time_ms(library, reps=5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return times
+
+
 def phase_kernel_grouped_conv(device: torch.device, batch: int = 32, segment: int = 8192) -> dict:
     """K3 forward, K3 dX and K4 against their plain versions at the small
-    shape classes and at the 15 production shapes, two K4 runs bit for bit,
-    the autograd Function against autograd of F.conv1d; returns per kernel
-    the worst error and the times summed over the 15 production shapes."""
+    shape classes and at the 15 production shapes, two runs of each kernel
+    bit for bit, the autograd Function against autograd of F.conv1d; returns
+    per kernel the worst error and the times summed over the 15 production
+    shapes, with `grouped_conv_bound` (K3's `bound_ms` on the tensor cores'
+    3xTF32 rate, `bound_fp32_fma_ms` beside it)."""
     import torch.nn.functional as F
 
     from roar_tpu_torch.kernels import grouped_conv as gk
@@ -671,29 +790,9 @@ def phase_kernel_grouped_conv(device: torch.device, batch: int = 32, segment: in
                for n in names}
     production = msd_grouped_shapes(batch, segment)
     for case in GROUPED_CONV_SMALL + production:
-        b, width, cin, cout, k, s, g, pad = case
         timed = case in production
-        wout = gk.out_len(width, k, s, pad)
-        x = torch.randn(b, cin, width, device=device, generator=gen)
-        w = torch.randn(cout, cin // g, k, device=device, generator=gen) / (k * cin // g) ** 0.5
-        dy = torch.randn(b, cout, wout, device=device, generator=gen)
-        calls = {
-            "fwd": (lambda: gk.grouped_conv_fwd(x, w, s, pad, g),
-                    lambda: _chunked(gk.grouped_conv_fwd_plain)(x, w, s, pad, g),
-                    lambda: F.conv1d(x, w, stride=s, padding=pad, groups=g)),
-            "dx": (lambda: gk.grouped_conv_dx(dy, w, width, s, pad, g),
-                   lambda: _chunked(gk.grouped_conv_dx_plain)(dy, w, width, s, pad, g),
-                   lambda: torch.nn.grad.conv1d_input(x.shape, w, dy, stride=s, padding=pad,
-                                                      groups=g)),
-            "dw": (lambda: gk.grouped_conv_dw(x, dy, k, s, pad, g),
-                   lambda: _chunked(gk.grouped_conv_dw_plain)(x, dy, k, s, pad, g),
-                   lambda: torch.nn.grad.conv1d_weight(x, w.shape, dy, stride=s, padding=pad,
-                                                       groups=g)),
-        }
-        flops = 2.0 * b * cout * (cin // g) * k * wout
-        nbytes = {"fwd": 4.0 * (x.numel() + w.numel() + dy.numel()),
-                  "dx": 4.0 * (x.numel() + w.numel() + dy.numel()),
-                  "dw": 4.0 * (x.numel() + w.numel() + dy.numel())}
+        x, w, dy = grouped_conv_inputs(case, gen, device)
+        calls = grouped_conv_calls(case, x, w, dy)
         line = {"phase": "kernel", "kernel": "grouped_conv", "shape_bwiokSgp": list(case),
                 "rel_tol": GROUPED_CONV_REL_TOL}
         for name in names:
@@ -712,31 +811,25 @@ def phase_kernel_grouped_conv(device: torch.device, batch: int = 32, segment: in
             lib_rel = float((lib_out - want).abs().max()) / float(want.abs().max())
             if lib_rel > GROUPED_CONV_REL_TOL:
                 raise AssertionError(f"library call for {name} at {case} disagrees: {lib_rel}")
-            if name == "dw" and not torch.equal(got, kernel()):
-                raise AssertionError(f"grouped_conv_dw at {case}: two runs differ")
+            if not torch.equal(got, kernel()):
+                raise AssertionError(f"grouped_conv_{name} at {case}: two runs differ")
             acc = summary[name]
             acc["max_abs_err"] = max(acc["max_abs_err"], err)
             acc["max_rel_err"] = max(acc["max_rel_err"], rel)
             line[name] = {"max_abs_err": err, "rel_err": rel}
             del got, want, lib_out
             if timed:
-                times = {"ms": _time_ms(kernel, reps=5), "plain_ms": _time_ms(plain, reps=2),
-                         "library_ms": _time_ms(library, reps=5)}
-                torch.backends.cudnn.allow_tf32 = True
-                try:
-                    times["library_tf32_ms"] = _time_ms(library, reps=5)
-                finally:
-                    torch.backends.cudnn.allow_tf32 = False
-                bound = _bound(nbytes[name], flops)
+                times = time_grouped_conv(kernel, library, plain)
+                bound = grouped_conv_case_bound(name, case, x, w, dy)
                 line[name].update(times, **bound)
                 for key, value in times.items():
                     acc[key] += value
                 acc["bytes"] += bound["bytes"]
                 acc["operations"] += bound["operations"]
         if timed:
-            line["dw_bit_identical"] = True
+            line["bit_identical"] = True
         _emit(line)
-        del x, w, dy
+        del x, w, dy, calls
     torch.cuda.empty_cache()
 
     # the autograd Function against autograd of the library conv, float32
@@ -757,8 +850,9 @@ def phase_kernel_grouped_conv(device: torch.device, batch: int = 32, segment: in
     grouped_conv1d_cf(x, w, 1, 2, 4).sum().backward()
     if gk.LAUNCHES_DW != before:
         raise AssertionError("K4 ran although the weight needs no gradient")
-    for acc in summary.values():
-        acc.update({k: v for k, v in _bound(acc["bytes"], acc["operations"]).items()
+    for name, acc in summary.items():
+        acc.update({k: v for k, v in grouped_conv_bound(name, acc["bytes"],
+                                                        acc["operations"]).items()
                     if k.startswith("bound")})
     # a D+G step runs each shape's forward and dX twice (D pass, G pass), dW once
     per_step = {key: 2 * summary["fwd"][key] + 2 * summary["dx"][key] + summary["dw"][key]
@@ -2777,13 +2871,15 @@ def main() -> int:
          "launches": sup["launches"]["backtrack"], "max_abs_err": 0.0,
          **pick(vit["backtrack"]), "library_ms": None},
         # K3 and K4: times and bounds summed over the 15 grouped-conv shapes
-        # of one discriminator pass (B = 32); library = cuDNN with TF32 off
+        # of one discriminator pass (B = 32); library = cuDNN with TF32 off;
+        # K3's bound on the tensor cores (3xTF32), the fp32 FMA bound beside
         *[{"name": f"grouped_conv_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/grouped_conv.cu", "replaces": replaces,
            "launches": train["launches"][name], "max_abs_err": conv[name]["max_abs_err"],
            "max_rel_err": conv[name]["max_rel_err"], **pick(conv[name]),
            "library_ms": conv[name]["library_ms"],
-           "library_tf32_ms": conv[name]["library_tf32_ms"]}
+           "library_tf32_ms": conv[name]["library_tf32_ms"],
+           "bound_fp32_fma_ms": conv[name]["bound_fp32_fma_ms"]}
           for name, replaces in (("fwd", "roar_tpu/ops/grouped_conv.py:208"),
                                  ("dx", "roar_tpu/ops/grouped_conv.py:208"),
                                  ("dw", "roar_tpu/ops/grouped_conv.py:272"))],

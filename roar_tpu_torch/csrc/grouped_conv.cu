@@ -19,53 +19,89 @@
 // What bounds them on an H100: operations.  The multi-scale discriminator's
 // layers (41 taps, 8 to 64 channels per group) do 2 k Cg FLOP per output
 // element, 650 to 5000 FLOP per 4-byte output, far above the card's 20 fp32
-// FLOP per byte, so the bound is the fp32 FMA rate (67 TFLOP/s without
-// tensor cores), not device memory.  The design therefore spends its effort
-// on FMAs per shared-memory load:
+// FLOP per byte, so the bound is an arithmetic rate, not device memory.
 //
-// K3 (`conv_tile_kernel`, ONE device routine behind both entry points).  A
-//   block of 8 warps owns (batch, group, 8 RO output channels, 32 RN output
-//   positions); warp = channel sub-tile, lane = position, each thread an
-//   RO x RN register tile (8 x 4 at the production shapes).  The contraction
-//   runs over chunks of 4 input channels: the input window and the weight
-//   slab of a chunk are staged in shared memory, the window de-interleaved by
-//   stride phase so that lanes read consecutive words for any stride, the
-//   weights with the output channel fastest so that one 16-byte broadcast
-//   load feeds 4 rows of FMAs.  Per tap a thread makes RN + RO/4 loads for
-//   RO RN FMAs.  Both ragged edges are masked (zero fill on load, bounds on
-//   store); RO and RN are picked per shape so narrow layers (33, 65, 129
-//   outputs) pad little.
+// K3 (`conv_mma_kernel`, ONE device routine behind both entry points) runs
+//   on the tensor cores: an implicit GEMM per (batch, group) with M = output
+//   positions, N = the group's output channels, K = (input channel, tap)
+//   pairs, and `mma.sync.m16n8k8` on TF32 with fp32 sums.  One TF32 product
+//   keeps 10 mantissa bits, about 3e-4 of the result's scale at these
+//   contractions, over the fp32 bar of 2e-4; so every operand v is split into
+//   big = tf32(v) and small = tf32(v - big) (`cvt.rna`) and each k-chunk adds
+//   small.big, big.small, then big.big (3xTF32: small.small is below fp32's
+//   level).  The tensor cores' accumulator rounds toward zero: carried over
+//   1312 to 2624 products it drifts to about 2.4e-5 of the scale on an H100,
+//   one way.  So each k-chunk's three products go into a fresh accumulator,
+//   and one fp32 add, rounded to nearest, puts that into the thread's sum:
+//   the truncation touches a sum of 24 products only (2.6e-6 of the scale
+//   at worst on an H100 at the discriminator's shapes, 2.4e-5 without the
+//   flush; the flush costs about 5 % of the time).
+//   Its bound is 3x the operations over the dense TF32 rate.
+//   A block of 8 warps owns (batch, group, BM positions, BN <= 64 output
+//   channels); the warps tile it WM x WN, each warp MT m-tiles of 16 by NT
+//   n-tiles of 8.  The contraction runs over stages of `cc` input channels,
+//   staged by 4-byte `cp.async` with zero fill (padding, ragged edges,
+//   channels past the group) in two buffers, the next stage's copies in
+//   flight while the current one is multiplied:
+//   - the input window of a stage, split by stride phase so that the A
+//     operand's row n, column (c, j) is word n + j / s of phase j % s: A is
+//     the Toeplitz view x[c][n s + j - pad], never materialised, and a
+//     fragment's rows are consecutive words;
+//   - the weights of a stage, [n][(c, j)], a row stride = 4 (mod 32) so that
+//     a B fragment's 32 words fall in 32 banks.
+//   Both stay fp32 in shared memory and each fragment word is split after
+//   its load (cvt, subtract, cvt): no second array, no splitting pass, and a
+//   pre-split copy of the window (each word split once, by the thread that
+//   copied it) measured no faster on an H100.  A warp covers up to 32 output
+//   channels (4 n-tiles) before the block adds a second warp along N: its
+//   MT x 4 A words and NT x 2 B words, each loaded and split once per
+//   k-chunk, feed 3 MT NT products and 4 MT NT adds.
+//   A per-block table maps a (channel, tap) column to its window offset and
+//   its weight offset, so the inner loop does no division; stage columns are
+//   padded to whole k-chunks of 8 with zero weights.  `cc` is the most
+//   channels (8, 4, 2, 1) whose two stages fit two blocks on an SM.
 //   dX is the same routine in another view: for each output phase r = m % s
 //   only the taps j = (r + pad) % s + s t contribute, and they form a
 //   stride-1 correlation of dy with the reversed sub-sampled weight, so a
 //   block takes one (batch, phase) and contracts over the group's output
 //   channels; weights are gathered transposed from the same tensor, nothing
 //   is packed in device memory.  Tail positions that no tap reaches get 0.
-// K4 (`dw_partial_kernel` + `dw_reduce_kernel`).  The TPU kernel carries its
-//   sum along a sequential grid axis; blocks here run in no order, and the
-//   output (G x Og x Cg k values) alone cannot fill 132 SMs, so the
-//   batch x width range is split into `parts`: a block owns (group, 8 RO
-//   output channels, 128 (channel, tap) pairs, one part), walks its part in
-//   tiles of 64 positions staged in shared memory (dy transposed so that the
-//   output channels of one position are one broadcast load), and keeps an
-//   RO x 4 register tile for the whole walk.  Partial sums go to a workspace
-//   and a second kernel adds them in part order: no float atomics, so two
-//   runs give the same bits.
+//   No atomics: each output is one accumulator of one thread, summed in a
+//   fixed order, so two runs give the same bits.
+// K4 (`dw_partial_kernel` + `dw_reduce_kernel`), on the FMA pipe.  The TPU
+//   kernel carries its sum along a sequential grid axis; blocks here run in
+//   no order, and the output (G x Og x Cg k values) alone cannot fill 132
+//   SMs, so the batch x width range is split into `parts`: a block owns
+//   (group, 8 RO output channels, 128 (channel, tap) pairs, one part), walks
+//   its part in tiles of 64 positions staged in shared memory (dy transposed
+//   so that the output channels of one position are one broadcast load), and
+//   keeps an RO x 4 register tile for the whole walk.  Partial sums go to a
+//   workspace and a second kernel adds them in part order: no float atomics,
+//   so two runs give the same bits.
 //
-// Tensor cores (TF32/bf16 `wgmma`), TMA and async staging are later work.
+// `wgmma`, TMA and warp specialisation are later work.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "flash_attention_mma.cuh"  // cp.async helpers
+
 namespace {
+
+using flash::mma::cp_async4;
+using flash::mma::cp_async_commit;
+using flash::mma::cp_async_wait;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 4;       // K3: contraction channels staged per chunk
 constexpr int kPairs = 128;     // K4: (channel, tap) pairs per block
 constexpr int kPairRegs = kPairs / 32;
 constexpr int kDwTile = 64;     // K4: contraction positions staged per tile
 constexpr int kDwTargetBlocks = 4 * 132;
 constexpr size_t kMaxSmem = 227 * 1024;
+// K3: two blocks a SM, each with 1 KB the system reserves, in the SM's 228 KB
+constexpr size_t kTwoBlockSmem = 228 * 1024 / 2 - 1024;
 
 struct ConvGeom {
   int B, G, Cg, Og, W, Wout, k, s, pad;
@@ -89,18 +125,71 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[RO]) {
   }
 }
 
+// K3's shared memory, in 4-byte words: two stages of [window | weights],
+// then three column tables of `kpad` ints.  Sized for the most taps any
+// block of the launch has (dX phases differ by one).
+struct K3Smem {
+  int pl;     // words per stride phase of a staged channel
+  int cs;     // words per staged channel
+  int kpad;   // (channel, tap) columns of a stage, in whole k-chunks of 8
+  int ksp;    // row stride of the staged weights, = 4 (mod 32)
+  int stage;  // words per stage
+  __host__ __device__ size_t bytes() const { return 4ull * (2ull * stage + 3ull * kpad); }
+};
+
+__host__ __device__ inline K3Smem k3_smem(const ConvGeom& q, bool dx, int bm, int bn, int cc) {
+  const int st = dx ? 1 : q.s;
+  const int taps = dx ? (q.k + q.s - 1) / q.s : q.k;
+  K3Smem L;
+  // a fragment's 8 rows x 4 columns read phases j % st at rows + j / st: a
+  // phase length of 32 / st (mod 32) puts the st phases in disjoint banks
+  L.pl = bm + (taps - 1) / st;
+  if (st > 1) L.pl += (((32 / st) - L.pl) % 32 + 32) % 32;
+  L.cs = st * L.pl;
+  L.kpad = (cc * taps + 7) / 8 * 8;
+  L.ksp = L.kpad + ((4 - L.kpad) % 32 + 32) % 32;
+  L.stage = cc * L.cs + bn * L.ksp;
+  return L;
+}
+
+// fp32 -> TF32 (as a 32-bit pattern): nearest, ties away from zero
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32(v);
+  small = tf32(v - __uint_as_float(big));
+}
+
+// c += a . b on the tensor cores, m16n8k8, TF32 in, fp32 sums.  Fragments
+// (lane = 4 g + t): A a0 (g, t) a1 (g+8, t) a2 (g, t+4) a3 (g+8, t+4);
+// B b0 (k t, n g) b1 (k t+4, n g); C c0, c1 (g, 2t..2t+1) c2, c3 (g+8, 2t..)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // K3.  DX = false: forward, `in` is x and `out` is y.  DX = true: input
 // gradient, `in` is dy and `out` is dx, blockIdx.z = batch * s + phase.
-template <int RO, int RN, bool DX>
-__global__ void __launch_bounds__(kThreads)
-conv_tile_kernel(const float* __restrict__ in, const float* __restrict__ w,
-                 float* __restrict__ out, ConvGeom q, int st_shift) {
+// `cc` input channels per stage; `st_shift` = log2 of the view's stride, or
+// -1 when it is not a power of two.
+template <int WN, int NT, int MT, bool DX>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
+                float* __restrict__ out, ConvGeom q, int cc, int st_shift) {
+  constexpr int WM = kWarps / WN;
+  constexpr int BM = WM * MT * 16;  // output positions per block
+  constexpr int BN = WN * NT * 8;   // output channels per block
   extern __shared__ __align__(16) float smem[];
-  constexpr int OT = kWarps * RO;   // output channels per block
-  constexpr int NT = 32 * RN;       // output positions per block
-  constexpr int WS = OT + 4;        // weight row stride: keeps 16-byte alignment, spreads banks
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;
 
   // this block's view: a stride-`st` correlation of `taps` taps with left
   // padding `pd` over an input of width `win`, giving `nout` positions
@@ -118,97 +207,136 @@ conv_tile_kernel(const float* __restrict__ in, const float* __restrict__ w,
     win = q.Wout;
     nout = (q.W - r + q.s - 1) / q.s;
   }
-  const int n0 = blockIdx.x * NT;
+  const int n0 = blockIdx.x * BM;
   if (n0 >= nout) return;
-  const int o_tiles = (oc + OT - 1) / OT;
-  const int g = blockIdx.y / o_tiles;
-  const int o0 = (blockIdx.y % o_tiles) * OT;
+  const int o_tiles = (oc + BN - 1) / BN;
+  const int grp = blockIdx.y / o_tiles;
+  const int o0 = (blockIdx.y % o_tiles) * BN;
 
-  const int ph_len = NT + (taps + st - 1) / st;  // words per stride phase of the window
-  float* w_s = smem;                              // [kChunk * taps][WS]
-  float* x_s = smem + kChunk * taps * WS;         // [kChunk][st][ph_len]
-  const int xw = (NT - 1) * st + taps;            // window length in input positions
-  const int p0 = n0 * st - pd;                    // input position of the window's start
-  const float* in_g = in + (static_cast<size_t>(b) * q.G + g) * kc * win;
+  const K3Smem L = k3_smem(q, DX, BM, BN, cc);
+  int* xoff = reinterpret_cast<int*>(smem + 2 * L.stage);  // column -> window word
+  int* wsrc = xoff + L.kpad;                                // column -> weight offset
+  int* wch = wsrc + L.kpad;                                 // column -> stage channel
+  const int ks = cc * taps;
+  const int kpad = (ks + 7) / 8 * 8;
+  for (int kk = tid; kk < kpad; kk += kThreads) {
+    const int c = kk / taps, j = kk - c * taps;
+    const bool real = kk < ks;
+    xoff[kk] = real ? c * L.cs + (j % st) * L.pl + j / st : 0;
+    wsrc[kk] = !real ? 0 : DX ? c * q.Cg * q.k + j0 + q.s * (taps - 1 - j) : kk;
+    wch[kk] = real ? c : 1 << 30;
+  }
 
-  float acc[RO][RN];
-#pragma unroll
-  for (int i = 0; i < RO; ++i)
-#pragma unroll
-    for (int n = 0; n < RN; ++n) acc[i][n] = 0.0f;
+  const int xw = (BM - 1) * st + taps;  // window length in input positions
+  const int p0 = n0 * st - pd;          // input position of the window's start
+  const float* in_g = in + (static_cast<size_t>(b) * q.G + grp) * kc * win;
+  // weight offset of (row n, stage channel 0, column offset 0): forward
+  // w[g Og + o0 + n][c0 + c][j]; dX w[g Og + c0 + c][o0 + n][j0 + s (taps-1-j)]
+  auto w_row = [&](int c0, int n) -> size_t {
+    return DX ? (static_cast<size_t>(grp) * q.Og + c0) * q.Cg * q.k +
+                    static_cast<size_t>(o0 + n) * q.k
+              : (static_cast<size_t>(grp) * q.Og + o0 + n) * q.Cg * q.k +
+                    static_cast<size_t>(c0) * q.k;
+  };
 
-  for (int c0 = 0; c0 < kc; c0 += kChunk) {
-    // weights of the chunk: w_s[(cc * taps + j) * WS + o]
-    for (int o = warp; o < OT; o += kWarps) {
-      const bool o_ok = o0 + o < oc;
-#pragma unroll
-      for (int cc = 0; cc < kChunk; ++cc) {
-        const bool ok = o_ok && c0 + cc < kc;
-        for (int j = lane; j < taps; j += 32) {
-          float v = 0.0f;
-          if (ok) {
-            const size_t idx = DX
-                ? (static_cast<size_t>(g * q.Og + c0 + cc) * q.Cg + (o0 + o)) * q.k
-                      + j0 + q.s * (taps - 1 - j)
-                : (static_cast<size_t>(g * q.Og + o0 + o) * q.Cg + (c0 + cc)) * q.k + j;
-            v = w[idx];
-          }
-          w_s[(cc * taps + j) * WS + o] = v;
-        }
-      }
-    }
-    // input window of the chunk, split by stride phase: position p0 + i goes
-    // to x_s[cc][i % st][i / st]
-#pragma unroll
-    for (int cc = 0; cc < kChunk; ++cc) {
-      const bool c_ok = c0 + cc < kc;
-      const float* src = in_g + static_cast<size_t>(c0 + cc) * win;
-      for (int i = threadIdx.x; i < xw; i += kThreads) {
+  // stage `s` into buffer `buf`: position p0 + i of channel c0 + c goes to
+  // word c cs + (i % st) pl + i / st of the window
+  auto copy_stage = [&](int s, int buf) {
+    const int c0 = s * cc;
+    float* xs = smem + buf * L.stage;
+    float* ws = xs + cc * L.cs;
+    for (int c = 0; c < cc; ++c) {
+      const bool c_ok = c0 + c < kc;
+      const float* src = in_g + static_cast<size_t>(c_ok ? c0 + c : 0) * win;
+      for (int i = tid; i < xw; i += kThreads) {
         const int p = p0 + i;
-        const float v = (c_ok && p >= 0 && p < win) ? src[p] : 0.0f;
+        const bool ok = c_ok && p >= 0 && p < win;
         const int ix = st_shift >= 0 ? i >> st_shift : i / st;
-        const int ph = i - ix * st;
-        x_s[(cc * st + ph) * ph_len + ix] = v;
+        cp_async4(xs + c * L.cs + (i - ix * st) * L.pl + ix, ok ? src + p : in, ok);
       }
     }
-    __syncthreads();
+    for (int kk = lane; kk < kpad; kk += 32) {
+      const int off = wsrc[kk];
+      const bool k_ok = c0 + wch[kk] < kc;
+      for (int n = warp; n < BN; n += kWarps) {
+        const bool ok = k_ok && o0 + n < oc;
+        cp_async4(ws + n * L.ksp + kk, ok ? w + w_row(c0, n) + off : w, ok);
+      }
+    }
+  };
 
+  float acc[MT][NT][4];
 #pragma unroll
-    for (int cc = 0; cc < kChunk; ++cc) {
-      for (int ph = 0; ph < st; ++ph) {
-        // taps j = ph, ph + st, ...: output n reads word n + (j / st) of phase ph
-        const float* xp = x_s + (cc * st + ph) * ph_len + lane;
-        const float* wp = w_s + (cc * taps + ph) * WS + warp * RO;
-#pragma unroll 4
-        for (int j = ph; j < taps; j += st) {
-          float wv[RO], xv[RN];
-          load_row<RO>(wp, wv);
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int n = 0; n < RN; ++n) xv[n] = xp[32 * n];
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int i = 0; i < RO; ++i)
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  auto compute = [&](int buf) {
+    const float* xs = smem + buf * L.stage;
+    const float* wrow = xs + cc * L.cs + (wn * NT * 8 + g8) * L.ksp + t4;
+    const int row0 = wm * MT * 16 + g8;
+#pragma unroll 1  // unrolled twice, a warp's 2 x 4 fragment tiles spill
+    for (int k0 = 0; k0 < kpad; k0 += 8) {
+      const int ca = xoff[k0 + t4] + row0, cb = xoff[k0 + t4 + 4] + row0;
+      uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
-            for (int n = 0; n < RN; ++n) acc[i][n] = fmaf(wv[i], xv[n], acc[i][n]);
-          xp += 1;
-          wp += st * WS;
+      for (int mt = 0; mt < MT; ++mt) {
+        const int m = 16 * mt;
+        split_tf32(xs[ca + m], ab[mt][0], as[mt][0]);
+        split_tf32(xs[ca + m + 8], ab[mt][1], as[mt][1]);
+        split_tf32(xs[cb + m], ab[mt][2], as[mt][2]);
+        split_tf32(xs[cb + m + 8], ab[mt][3], as[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(wrow[nt * 8 * L.ksp + k0], bb0, bs0);
+        split_tf32(wrow[nt * 8 * L.ksp + k0 + 4], bb1, bs1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32(part, as[mt], bb0, bb1);
+          mma_tf32(part, ab[mt], bs0, bs1);
+          mma_tf32(part, ab[mt], bb0, bb1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[e];
         }
       }
     }
-    __syncthreads();
+  };
+
+  // two buffers: stage s + 1's copies fly while stage s is multiplied
+  const int n_stages = taps > 0 ? (kc + cc - 1) / cc : 0;
+  __syncthreads();  // the tables
+  if (n_stages > 0) copy_stage(0, 0);
+  cp_async_commit();
+  for (int s = 0; s < n_stages; ++s) {
+    if (s + 1 < n_stages) copy_stage(s + 1, (s + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of stage s have landed
+    __syncthreads();     // and everyone's
+    compute(s & 1);
+    __syncthreads();     // buffer s & 1 is free for stage s + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < RO; ++i) {
-    const int o = o0 + warp * RO + i;
-    if (o >= oc) continue;
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int n = 0; n < RN; ++n) {
-      const int pos = n0 + lane + 32 * n;
-      if (pos >= nout) continue;
-      if (DX) {
-        out[((static_cast<size_t>(b) * q.G + g) * q.Cg + o) * q.W + pos * q.s + r] = acc[i][n];
-      } else {
-        out[((static_cast<size_t>(b) * q.G + g) * q.Og + o) * q.Wout + pos] = acc[i][n];
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = n0 + wm * MT * 16 + 16 * mt + g8 + 8 * (e >> 1);
+        const int o = o0 + wn * NT * 8 + 8 * nt + 2 * t4 + (e & 1);
+        if (pos >= nout || o >= oc) continue;
+        if (DX) {
+          out[((static_cast<size_t>(b) * q.G + grp) * q.Cg + o) * q.W + pos * q.s + r] =
+              acc[mt][nt][e];
+        } else {
+          out[((static_cast<size_t>(b) * q.G + grp) * q.Og + o) * q.Wout + pos] =
+              acc[mt][nt][e];
+        }
       }
     }
   }
@@ -329,65 +457,73 @@ int pick_ro(int channels) {
   return 8;
 }
 
-// RN in {1, 2, 4}: the least padded width, the larger tile on a tie.
-int pick_rn(int nout) {
-  int best = 4, best_padded = (nout + 127) / 128 * 128;
-  for (int rn = 2; rn >= 1; --rn) {
-    const int tile = 32 * rn;
-    const int padded = (nout + tile - 1) / tile * tile;
-    if (padded < best_padded) { best = rn; best_padded = padded; }
-  }
-  return best;
-}
-
 bool geom_ok(const ConvGeom& q) {
   return q.B >= 1 && q.G >= 1 && q.Cg >= 1 && q.Og >= 1 && q.W >= 1 && q.Wout >= 1 &&
          q.k >= 1 && q.s >= 1 && q.pad >= 0 && q.pad < q.k &&
          q.Wout == (q.W + 2 * q.pad - q.k) / q.s + 1 && q.W + 2 * q.pad >= q.k;
 }
 
-template <int RO, int RN, bool DX>
-int launch_conv_tile(const float* in, const float* w, float* out, const ConvGeom& q,
-                     cudaStream_t stream) {
-  constexpr int OT = kWarps * RO, NT = 32 * RN, WS = OT + 4;
-  const int st = DX ? 1 : q.s;
-  const int taps = DX ? (q.k + q.s - 1) / q.s : q.k;  // the most any phase has
+// K3: input channels per stage, the most of 8, 4, 2, 1 (no more than the
+// group has) whose two stages fit two blocks a SM; 0 if not even one fits a block
+int k3_channels_per_stage(const ConvGeom& q, bool dx, int bm, int bn) {
+  const int kc = dx ? q.Og : q.Cg;
+  int cc = 8;
+  while (cc > 1 && cc / 2 >= kc) cc /= 2;
+  while (cc > 1 && k3_smem(q, dx, bm, bn, cc).bytes() > kTwoBlockSmem) cc /= 2;
+  return k3_smem(q, dx, bm, bn, cc).bytes() <= kMaxSmem ? cc : 0;
+}
+
+template <int WN, int NT, int MT, bool DX>
+int launch_conv_mma(const float* in, const float* w, float* out, const ConvGeom& q,
+                    cudaStream_t stream) {
+  constexpr int BM = (kWarps / WN) * MT * 16, BN = WN * NT * 8;
   const int oc = DX ? q.Cg : q.Og;
-  const int nout = DX ? (q.W + q.s - 1) / q.s : q.Wout;
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(kChunk) * taps * WS +
-       static_cast<size_t>(kChunk) * st * (NT + (taps + st - 1) / st));
-  const long long grid_y = static_cast<long long>(q.G) * ((oc + OT - 1) / OT);
+  const int nout = DX ? (q.W + q.s - 1) / q.s : q.Wout;  // the most any phase has
+  const int cc = k3_channels_per_stage(q, DX, BM, BN);
+  if (cc == 0) return cudaErrorInvalidValue;
+  const size_t smem = k3_smem(q, DX, BM, BN, cc).bytes();
+  const long long grid_y = static_cast<long long>(q.G) * ((oc + BN - 1) / BN);
   const long long grid_z = static_cast<long long>(q.B) * (DX ? q.s : 1);
-  if (smem > kMaxSmem || grid_y > 65535 || grid_z > 65535) return cudaErrorInvalidValue;
-  auto kernel = conv_tile_kernel<RO, RN, DX>;
+  if (grid_y > 65535 || grid_z > 65535) return cudaErrorInvalidValue;
+  auto kernel = conv_mma_kernel<WN, NT, MT, DX>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
+  const int st = DX ? 1 : q.s;
   int st_shift = -1;
   for (int sh = 0; sh < 16; ++sh)
     if ((1 << sh) == st) st_shift = sh;
-  const dim3 grid((nout + NT - 1) / NT, static_cast<unsigned>(grid_y),
+  const dim3 grid((nout + BM - 1) / BM, static_cast<unsigned>(grid_y),
                   static_cast<unsigned>(grid_z));
-  kernel<<<grid, kThreads, smem, stream>>>(in, w, out, q, st_shift);
+  kernel<<<grid, kThreads, smem, stream>>>(in, w, out, q, cc, st_shift);
   return cudaGetLastError();
 }
 
+int padded(int n, int tile) { return (n + tile - 1) / tile * tile; }
+
+// Output channels per block: the least of 8, 16, 32, 64 that holds the
+// group's (wider groups take several blocks), one warp across up to 32 of
+// them; positions per block: the warps' rows x 16 or twice that, the less
+// padded, the larger on a tie.
 template <bool DX>
-int dispatch_conv_tile(const float* in, const float* w, float* out, const ConvGeom& q,
-                       cudaStream_t stream) {
-  const int ro = pick_ro(DX ? q.Cg : q.Og);
-  const int rn = pick_rn(DX ? (q.W + q.s - 1) / q.s : q.Wout);
-#define ROAR_CASE(RO_, RN_) \
-  if (ro == RO_ && rn == RN_) return launch_conv_tile<RO_, RN_, DX>(in, w, out, q, stream);
-  ROAR_CASE(1, 1) ROAR_CASE(1, 2) ROAR_CASE(1, 4)
-  ROAR_CASE(2, 1) ROAR_CASE(2, 2) ROAR_CASE(2, 4)
-  ROAR_CASE(4, 1) ROAR_CASE(4, 2) ROAR_CASE(4, 4)
-  ROAR_CASE(8, 1) ROAR_CASE(8, 2) ROAR_CASE(8, 4)
+int dispatch_conv_mma(const float* in, const float* w, float* out, const ConvGeom& q,
+                      cudaStream_t stream) {
+  const int oc = DX ? q.Cg : q.Og;
+  const int nout = DX ? (q.W + q.s - 1) / q.s : q.Wout;
+#define ROAR_CASE(WN_, NT_)                                                        \
+  {                                                                                \
+    constexpr int bm = (kWarps / WN_) * 16;                                        \
+    return padded(nout, bm) < padded(nout, 2 * bm)                                 \
+               ? launch_conv_mma<WN_, NT_, 1, DX>(in, w, out, q, stream)           \
+               : launch_conv_mma<WN_, NT_, 2, DX>(in, w, out, q, stream);          \
+  }
+  if (oc <= 8) ROAR_CASE(1, 1)
+  if (oc <= 16) ROAR_CASE(1, 2)
+  if (oc <= 32) ROAR_CASE(1, 4)
+  ROAR_CASE(2, 4)
 #undef ROAR_CASE
-  return cudaErrorInvalidValue;
 }
 
 // Blocks of the first pass without a split, and positions tiles to split.
@@ -456,7 +592,7 @@ extern "C" int roar_grouped_conv_fwd(
   if (G < 1 || Cin % G || Cout % G) return cudaErrorInvalidValue;
   const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
   if (!geom_ok(q)) return cudaErrorInvalidValue;
-  return dispatch_conv_tile<false>(static_cast<const float*>(x), static_cast<const float*>(w),
+  return dispatch_conv_mma<false>(static_cast<const float*>(x), static_cast<const float*>(w),
                                    static_cast<float*>(y), q, static_cast<cudaStream_t>(stream));
 }
 
@@ -466,7 +602,7 @@ extern "C" int roar_grouped_conv_dx(
   if (G < 1 || Cin % G || Cout % G) return cudaErrorInvalidValue;
   const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
   if (!geom_ok(q)) return cudaErrorInvalidValue;
-  return dispatch_conv_tile<true>(static_cast<const float*>(dy), static_cast<const float*>(w),
+  return dispatch_conv_mma<true>(static_cast<const float*>(dy), static_cast<const float*>(w),
                                   static_cast<float*>(dx), q, static_cast<cudaStream_t>(stream));
 }
 

@@ -16,7 +16,8 @@ import torch
 from roar_tpu_torch.kernels import grouped_conv as gk
 from roar_tpu_torch.ops.grouped_conv import GroupedConv1dCF, grouped_conv1d_cf, out_len
 
-# fp32 on both sides; only the order of summation differs
+# fp32 on both sides (the plain versions on the CPU); only the order of
+# summation differs
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -151,5 +152,10 @@ def test_kernels_match_plain_on_the_card():
              gk.grouped_conv_dw_plain(x, cot, k, s, pad, g)),
         ):
             torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        # fixed summation orders, no atomics: two runs give the same bits
+        assert torch.equal(gk.grouped_conv_fwd(x, w, s, pad, g),
+                           gk.grouped_conv_fwd(x, w, s, pad, g))
+        assert torch.equal(gk.grouped_conv_dx(cot, w, wid, s, pad, g),
+                           gk.grouped_conv_dx(cot, w, wid, s, pad, g))
         assert torch.equal(gk.grouped_conv_dw(x, cot, k, s, pad, g),
                            gk.grouped_conv_dw(x, cot, k, s, pad, g))
