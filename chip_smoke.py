@@ -413,26 +413,30 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
             "bytes": nbytes, "operations": flops}
 
 
-# the bf16 flash kernels on the tensor cores: they must not spill, and their
-# SASS must hold HMMA instructions
-FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
-                     "flash_bwd_dq_mma_kernel")
+# the flash kernels on the tensor cores, bf16 and fp32 (3xTF32): they must
+# not spill, and their SASS must hold HMMA instructions
+FLASH_MMA_KERNELS = {"bfloat16": ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                                  "flash_bwd_dq_mma_kernel"),
+                     "float32": ("flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel")}
 
 
 def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
     """Dynamic shared memory per block that the launch functions of
     csrc/flash_attention_{fwd,bwd}.cu ask for (ptxas reports static only)."""
-    tile, padded = 64 * d, 64 * (d + 1)
+    tile, padded, stride4 = 64 * d, 64 * (d + 1), 64 * (d + 4)
     if kernel == "flash_fwd_mma_kernel":
         return 2 * tile * 5
     if kernel == "flash_bwd_dkv_mma_kernel":
         return 2 * tile * 6 + 4 * 64 * 4
     if kernel == "flash_bwd_dq_mma_kernel":
         return 2 * tile * 6
+    if kernel == "flash_bwd_dkv_tf32_kernel":
+        return 4 * stride4 * 6 + 4 * 64 * 2
+    if kernel == "flash_bwd_dq_tf32_kernel":
+        return 4 * stride4 * 6
     if kernel == "flash_fwd_kernel":
         return 4 * (2 * padded + tile + 64 * 65) + 4 * 128
-    n_prob_tiles = 2 if kernel == "flash_bwd_dkv_kernel" else 1
-    return 4 * (4 * padded + n_prob_tiles * 64 * 65 + 128) + 4 * 128
+    raise ValueError(f"unknown flash kernel {kernel}")
 
 
 def _flash_instance(mangled: str) -> Optional[tuple]:
@@ -442,7 +446,8 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
     template arguments `I...E` (the head dim); the anonymous namespace before
     it may hold the source's name (`flash_attention_fwd_cu`) and end in
     digits, so each split of the digit run into namespace tail and length is
-    tried.  The `_mma_` kernels take bf16, the others fp32."""
+    tried.  The `_mma_` kernels take bf16, the others (`_tf32_`: 3xTF32
+    products on the tensor cores) fp32."""
     for found in re.finditer(r"(\d+)(?=flash_)", mangled):
         digits, start = found.group(1), found.end()
         for cut in range(len(digits)):
@@ -534,8 +539,9 @@ def count_hmma(lib_path) -> Optional[dict]:
 def phase_kernel_build(lib_path) -> dict:
     """Registers, shared memory and spills of every flash kernel instance and
     every K3 instance from the build's `ptxas -v` log, and where `cuobjdump`
-    is installed the HMMA count of each; raises if a tensor-core kernel
-    spills or has no HMMA."""
+    is installed the HMMA count of each; raises if a tensor-core kernel (the
+    bf16 flash kernels, the fp32 flash backward in 3xTF32, K3) spills or has
+    no HMMA."""
     from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
     everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
@@ -548,15 +554,16 @@ def phase_kernel_build(lib_path) -> dict:
         if hmma is not None:
             row["hmma"] = hmma.get((kernel, dtype, d), 0)
         rows.append(row)
-    for kernel in FLASH_MMA_KERNELS:
-        for d in HEAD_DIMS:
-            info = table.get((kernel, "bfloat16", d))
-            if info is None or info["registers"] is None:
-                raise AssertionError(f"{kernel}<{d}> is not in the ptxas log")
-            if info["spill_store_bytes"] or info["spill_load_bytes"]:
-                raise AssertionError(f"{kernel}<{d}> spills: {info}")
-            if hmma is not None and hmma.get((kernel, "bfloat16", d), 0) == 0:
-                raise AssertionError(f"{kernel}<{d}> has no HMMA instruction in its SASS")
+    for dtype, kernels in FLASH_MMA_KERNELS.items():
+        for kernel in kernels:
+            for d in HEAD_DIMS:
+                info = table.get((kernel, dtype, d))
+                if info is None or info["registers"] is None:
+                    raise AssertionError(f"{kernel}<{d}> is not in the ptxas log")
+                if info["spill_store_bytes"] or info["spill_load_bytes"]:
+                    raise AssertionError(f"{kernel}<{d}> spills: {info}")
+                if hmma is not None and hmma.get((kernel, dtype, d), 0) == 0:
+                    raise AssertionError(f"{kernel}<{d}> has no HMMA instruction in its SASS")
     # K3, fp32 in and out, 3xTF32 products: one dynamic shared memory size
     # per launch (csrc/grouped_conv.cu `k3_smem`), so none is listed here
     conv_rows = []
@@ -1161,10 +1168,12 @@ def _time_train_step(model, batch, optim_cfg: dict, card: str) -> dict:
 
 
 # K5-bwd and K5-causal against the plain versions.
-# fp32: FMA sums inside the kernels against cuBLAS fp32 einsums over up to 4096
-# keys, so `o` and `lse` are held to KERNEL_TOL and each gradient to an
-# absolute error of 1e-4 of its own largest magnitude plus rtol 1e-3 (the
-# forward's KERNEL_TOL, made relative to the gradient's scale).
+# fp32: the forward's FMA sums and the backward's 3xTF32 sums (flushed per
+# k-chunk into a round-to-nearest fp32 sum, at fp32's level) inside the
+# kernels against cuBLAS fp32 einsums over up to 4096 keys, so `o` and `lse`
+# are held to KERNEL_TOL and each gradient to an absolute error of 1e-4 of its
+# own largest magnitude plus rtol 1e-3 (the forward's KERNEL_TOL, made
+# relative to the gradient's scale).
 FLASH_BWD_ATOL_REL = 1e-4
 FLASH_BWD_RTOL = 1e-3
 # bf16: the plain versions round where the kernels do, so what is left is the
@@ -1247,19 +1256,21 @@ def assert_flash_close(got: torch.Tensor, want: torch.Tensor, what: str) -> dict
 
 
 def _flash_bounds(pairs: float, shape, elem_bytes: float = 4.0,
-                  peak_flops: float = FP32_FLOPS) -> dict:
+                  peak_flops: float = FP32_FLOPS, bwd_peak_flops: Optional[float] = None) -> dict:
     """Bounds of the attention functions over `pairs` visible (query, key)
     pairs per head at `shape` (B, T, H, D).  The backward as a function is
     five products (10 operations per pair and head-dim element); of them dkv
     does q.k^T, dO.v^T, p^T dO and dS^T q (8) and dq does q.k^T, dO.v^T and
     dS k (6), so the split does seven products for five.  The forward is two
     (4).  Bytes: q, k, v, (o,) dO read and the results written at
-    `elem_bytes` each, seg / lse / delta rows at four."""
+    `elem_bytes` each, seg / lse / delta rows at four.  The backward's
+    operations are held against `bwd_peak_flops` (default `peak_flops`)."""
     b, t, h, d = shape
     elems, rows, ops = elem_bytes * b * t * h * d, 4.0 * b * h * t, pairs * h * d
-    return {"backward": _bound(8 * elems + 2 * rows, 10.0 * ops, peak_flops),
-            "dkv_own_work": _bound(6 * elems + 3 * rows, 8.0 * ops, peak_flops),
-            "dq_own_work": _bound(5 * elems + 3 * rows, 6.0 * ops, peak_flops),
+    bwd_peak = peak_flops if bwd_peak_flops is None else bwd_peak_flops
+    return {"backward": _bound(8 * elems + 2 * rows, 10.0 * ops, bwd_peak),
+            "dkv_own_work": _bound(6 * elems + 3 * rows, 8.0 * ops, bwd_peak),
+            "dq_own_work": _bound(5 * elems + 3 * rows, 6.0 * ops, bwd_peak),
             "fwd_with_lse": _bound(4 * elems + 2 * rows, 4.0 * ops, peak_flops)}
 
 
@@ -1396,13 +1407,23 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
         # what this data needs: a query sees the keys of its segment, and with
         # `causal` those at or before it, so n^2 or n (n + 1) / 2 pairs for a
         # segment of n.  A bf16 element is two bytes and its products are held
-        # against the tensor cores' dense bf16 peak, whatever the kernel
-        # multiplies on today.
+        # against the tensor cores' dense bf16 peak.  In fp32 the forward's
+        # are held against the FMA pipe and the backward's, three TF32
+        # products each, against the dense TF32 rate over three, with the FMA
+        # pipe's bounds beside (`bounds_fp32_fma`).
         pairs = float(sum(n * (n + 1) // 2 if causal else n * n
                           for valid in lens for n in (valid, t - valid)))
-        size, peak = (2.0, BF16_FLOPS) if bf16 else (4.0, FP32_FLOPS)
-        bounds = _flash_bounds(pairs, shape, size, peak)
+        if bf16:
+            bounds = _flash_bounds(pairs, shape, 2.0, BF16_FLOPS)
+        else:
+            bounds = _flash_bounds(pairs, shape, 4.0, FP32_FLOPS, TF32_FLOPS / 3)
+            fma = _flash_bounds(pairs, shape, 4.0, FP32_FLOPS)
+            case["bounds_fp32_fma"] = {k: fma[k] for k in ("backward", "dkv_own_work",
+                                                           "dq_own_work")}
+            line["bounds_fp32_fma"] = case["bounds_fp32_fma"]
+        peak = BF16_FLOPS if bf16 else FP32_FLOPS
         line.update(times, bounds=bounds, visible_pairs_per_head=pairs, peak_flops=peak,
+                    bwd_peak_flops=peak if bf16 else TF32_FLOPS / 3,
                     achieved_tflops={"fwd": 4.0 * pairs * h * d / times["fwd_with_lse_ms"] / 1e9,
                                      "dkv": 8.0 * pairs * h * d / times["dkv_ms"] / 1e9,
                                      "dq": 6.0 * pairs * h * d / times["dq_ms"] / 1e9},
@@ -2780,7 +2801,9 @@ def main() -> int:
         dq, dk and dv in one call; `backward_ms` times them together, and
         `own_work_bound_ms` counts the products this kernel does itself (the
         split recomputes q.k^T and dO.v^T).  `bound_share` (forward) and
-        `own_work_bound_share` (dkv, dq) are bound over time."""
+        `own_work_bound_share` (dkv, dq) are bound over time.  In fp32 the
+        backward's bounds are at the 3xTF32 rate, with the FMA pipe's beside
+        (`bound_fp32_fma_ms`, `own_work_bound_fp32_fma_ms`)."""
         def total(get):
             return sum(get(case) for case in cases)
 
@@ -2801,8 +2824,13 @@ def main() -> int:
                       "own_work_bound_ms": bound(f"{name}_own_work"),
                       "library_ms": total(lambda c: c["times"]["backward_library_ms"])}
                for name in ("dkv", "dq")}
-        for row in bwd.values():
+        for name, row in bwd.items():
             row["own_work_bound_share"] = row["own_work_bound_ms"] / row["ms"]
+            if "bounds_fp32_fma" in cases[-1]:
+                row["bound_fp32_fma_ms"] = total(
+                    lambda c: c["bounds_fp32_fma"]["backward"]["bound_ms"])
+                row["own_work_bound_fp32_fma_ms"] = total(
+                    lambda c: c["bounds_fp32_fma"][f"{name}_own_work"]["bound_ms"])
         return fwd, bwd
 
     def worst(errors, *names):
@@ -2816,7 +2844,9 @@ def main() -> int:
     flash_fwd, flash_bwd = flash_rows([flash[t] for t in sorted(flash)])
     flash_errors = [case["errors"] for case in flash.values()] + [fbwd["max_abs_err"]]
     flash_shapes = {str(t): {**case["times"],
-                             **{k: v["bound_ms"] for k, v in case["bounds"].items()}}
+                             **{k: v["bound_ms"] for k, v in case["bounds"].items()},
+                             **{f"{k}_fp32_fma": v["bound_ms"]
+                                for k, v in case["bounds_fp32_fma"].items()}}
                     for t, case in flash.items()}
     # K5-causal: every launch of phase `train_gpt`'s run is causal and bf16,
     # at (1, 4096, 32, 64); `ms` and its neighbours are one layer's call at

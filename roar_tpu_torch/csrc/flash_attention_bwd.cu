@@ -1,5 +1,5 @@
 // Segment-masked flash-attention backward, non-causal and causal, fp32 and
-// bf16, for Hopper (sm_90a).
+// bf16, for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces: the two upstream Pallas TPU kernels `_flash_attention_bwd_dkv` and
 // `_flash_attention_bwd_dq` of `jax.experimental.pallas.ops.tpu.flash_attention`
@@ -17,335 +17,82 @@
 //   dP = dout . v^T
 //   dS = p * (dP - delta) * scale
 // and then
-//   dkv kernel: one block per 64-key tile, looping over query tiles:
-//               dV += p^T dout,  dK += dS^T q
-//   dq kernel:  one block per 64-query tile, looping over key tiles:
-//               dQ += dS k
+//   dkv kernels: one block per 64-key tile, looping over query tiles:
+//                dV += p^T dout,  dK += dS^T q
+//   dq kernels:  one block per 64-query tile, looping over key tiles:
+//                dQ += dS k
 // Every output element belongs to one thread of one block and is summed in a
 // fixed order, so there are no float atomics and two runs give the same bits.
 //
-// fp32, `flash_bwd_dkv_kernel` and `flash_bwd_dq_kernel` on the FMA pipe: 256
-// threads as a 16 x 16 grid.  In the tile products thread (ty, tx) owns query
-// rows 4*ty .. 4*ty+3 and key columns tx + 16*j; in the accumulation it owns
-// rows 4*ty .. 4*ty+3 of the block's own tile and head-dim columns tx + 16*j.
-// p and dS pass through shared memory between the two, and every fused
-// multiply-add reads shared memory.  (TF32 would not hold fp32's bar.)
+// Both types share one block layout, 4 warps a block.  dK/dV: each warp owns
+// 16 keys of the block's 64-key tile as the rows of S^T = K q^T and
+// dP^T = V dO^T, so that P^T and dS^T come out of the accumulators as the A
+// operands of dV += P^T dO and dK += dS^T q without leaving registers; q and dO
+// tiles are staged by cp.async.  dQ: each warp owns 16 queries of the block's
+// 64-query tile as the rows of S = q K^T and dP = dO V^T, so that dS is the A
+// operand of dQ += dS K; K and V tiles are staged by cp.async.  dQ, dK and dV
+// stay fp32 in registers until they are stored.
 //
-// bf16, `flash_bwd_dkv_mma_kernel` and `flash_bwd_dq_mma_kernel` on the tensor
-// cores (mma.sync m16n8k16, fp32 sums; flash_attention_mma.cuh), 4 warps a
-// block.  dK/dV: each warp owns 16 keys of the block's 64-key tile as the rows
-// of S^T = K q^T and dP^T = V dO^T, so that P^T and dS^T come out of the
-// accumulators as the A operands of dV += P^T dO and dK += dS^T q without
-// leaving registers; q and dO tiles are double-buffered by cp.async.  dQ: each
-// warp owns 16 queries of the block's 64-query tile as the rows of S = q K^T
-// and dP = dO V^T, 16 keys at a time, so that the two n-tiles of one 16-key
-// chunk of dS are the A operand of dQ += dS K; K and V tiles are
-// double-buffered by cp.async.  The second products read their B operand by
-// ldmatrix.trans; dQ, dK and dV stay fp32 in registers and are rounded once.
+// bf16, `flash_bwd_dkv_mma_kernel` and `flash_bwd_dq_mma_kernel`: mma.sync
+// m16n8k16 with fp32 sums (flash_attention_mma.cuh) on XOR-swizzled bf16
+// tiles; the accumulators of two neighbouring 8-wide n-tiles are, element for
+// element, the A fragment of one 16-wide k-chunk of the next product; the
+// second products read their B operand by ldmatrix.trans; the streamed tiles
+// are double-buffered.
+//
+// fp32, `flash_bwd_dkv_tf32_kernel` and `flash_bwd_dq_tf32_kernel`: mma.sync
+// m16n8k8 on TF32 in 3xTF32 (tf32x3.cuh): every fp32 operand is split into
+// big + small, each k-chunk of 8 forms small.big, big.small and big.big in a
+// fresh accumulator, and one round-to-nearest add puts that into the thread's
+// fp32 sum (dK and dV sum over up to 4096 queries, 512 chunks: carried in one
+// accumulator, the tensor cores' truncating sums drift to about 5e-5 of the
+// largest magnitude at (1, 4096, 32, 64) on an H100, against 4e-6 flushed).
+// The split is done by integer operations (`split_tf32_int`: the bits of
+// `cvt.rna`).  The block's own tiles (K, V for dK/dV; q, dO for dQ) stay fp32
+// and each A fragment is split after its ldmatrix load; the other side's tiles,
+// read as B operands by all four warps in both products, are split once per
+// tile in shared memory into a big and a small half.  That costs a tile of
+// shared memory per half, so they are staged in one stage, not two (two
+// blocks a SM at D <= 64 overlap each other's copies).
+// An m16n8k8 C fragment (c0, c1 at (g, 2t..2t+1)) is not its A fragment (a0
+// at (g, t), a2 at (g, t+4)), so the contraction index of the second products
+// is permuted within each k-chunk of 8: A's column t is C's column 2t and A's
+// column t + 4 is C's column 2t + 1, and the B operand (dO or q rows for dK/dV,
+// K rows for dQ) is read with the same permutation, rows 2t and 2t + 1.  No
+// shuffle, and p and dS never pass through shared memory.  Tiles are fp32
+// [64][D + 4] words: a row stride of 4 (mod 32) banks puts the 32 words of the
+// (row 2t, column g) reads of the second products in 32 banks, and the 8 row
+// addresses of each ldmatrix in 8 different 16-byte bank groups.
+// p = expf(s * scale - lse), as the FMA kernels they replaced.
 //
 // What bounds them on the H100: the function is five T x T x D products
 // (10 B H T^2 D operations); the split into two kernels recomputes q.k^T and
-// dout.v^T, so seven are done.  The tensor-core dK/dV kernel's four products
-// (8 pairs D operations) and the dQ kernel's three (6 pairs D) are held
-// against the 989 TFLOP/s bf16 peak; at D 64 their per-element work (exp,
-// masks, dS) on the FMA and SFU pipes is of the same order.  What holds them
-// back from it: `mma.sync` rather than `wgmma`, every warp reading the whole
-// staged tile of the other side from shared memory (one ldmatrix per two
-// mma.sync), and cp.async rather than TMA.  The design masks the ragged edge in
-// the kernel (T is never padded), and skips a tile whose segment ids all lie
-// outside the block's own [min, max] segment range without loading it.  With
-// `causal` the tiles above the diagonal are skipped too: the dkv loop over
-// query tiles starts at the key tile's own row, the dq loop over key tiles
-// ends at the query tile's own column, and the diagonal tile is masked element
-// by element; the dq kernels hand their query tiles out longest first (the dkv
-// kernels' first key tile is their longest already).
-// Later work: wgmma / TMA, a fused five-product backward, and a GQA-aware
-// kernel.
-
-#include <climits>
+// dout.v^T, so seven are done: dK/dV four (8 pairs D operations), dQ three
+// (6 pairs D).  bf16 is held against the 989 TFLOP/s dense bf16 peak; fp32
+// does three TF32 products for each, against 494.7 / 3 = 165 TFLOP/s (2.46x
+// the 67 TFLOP/s of the FMA pipe).  What holds them back from it: `mma.sync`
+// rather than `wgmma`, every warp reading the whole staged tile of the other
+// side from shared memory, cp.async rather than TMA, per-element work (exp,
+// masks, dS) of the same order as the products at D 64, and in fp32 the
+// splits (five integer and fp32 operations a word) and the flush adds (four
+// a k-chunk, about a fifth of the fp32 kernels' time), issued beside the
+// tensor cores by eight warps a SM, which registers (about 190 a thread at
+// D 64) and shared memory both cap.  The design
+// masks the ragged edge in the kernel (T is never padded), and skips a tile
+// whose segment ids all lie outside the block's own [min, max] segment range
+// without loading it.  With `causal` the tiles above the diagonal are skipped
+// too: the dkv loop over query tiles starts at the key tile's own row, the dq
+// loop over key tiles ends at the query tile's own column, and the diagonal
+// tile is masked element by element; the dq kernels hand their query tiles
+// out longest first (the dkv kernels' first key tile is their longest
+// already).  Later work: wgmma / TMA, a fused five-product backward, and a
+// GQA-aware kernel.
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
+#include "tf32x3.cuh"
 
 namespace {
-
-using namespace flash;
-
-constexpr int BM = TILE;    // tile rows (queries) and columns (keys)
-constexpr int PS = BM + 1;  // padded row stride of the p and dS tiles
-
-template <int D>
-constexpr size_t smem_bytes(int n_prob_tiles) {
-  return sizeof(float) * (4 * BM * (D + 1) + n_prob_tiles * BM * PS + 2 * BM) +
-         sizeof(int) * (2 * BM);
-}
-
-// s[i][j] = sum_d a[4*ty + i][d] * b[tx + 16*j][d]
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b, int ty, int tx,
-                                         float (&s)[4][4]) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty * 4 + i) * DP + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// p and dS of one 64 x 64 tile from the staged Q, K, V, dO tiles, written to
-// shared memory (Ps may be null when only dS is wanted)
-template <int D>
-__device__ __forceinline__ void prob_tile(const float* Qs, const float* Ks, const float* Vs,
-                                          const float* Os, const int* segq, const int* segk,
-                                          const float* lse_s, const float* delta_s, int q0,
-                                          int k0, int T, float scale, int causal, int ty,
-                                          int tx, float* Ps, float* Ss) {
-  // causal: key c of this tile is visible to row r when k0 + c <= q0 + r
-  const int lim = causal ? q0 - k0 : BM;
-  float s[4][4], dp[4][4];
-  tile_dot<D>(Qs, Ks, ty, tx, s);
-  tile_dot<D>(Os, Vs, ty, tx, dp);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int sq = segq[r];
-    const float row_lse = lse_s[r], row_delta = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const bool ok = (q0 + r < T) && (k0 + c < T) && segk[c] == sq && (c - r <= lim);
-      const float p = ok ? expf(s[i][j] * scale - row_lse) : 0.f;
-      if (Ps != nullptr) Ps[r * PS + c] = p;
-      Ss[r * PS + c] = p * (dp[i][j] - row_delta) * scale;
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ seg,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ dout, float* __restrict__ dk,
-                     float* __restrict__ dv, int T, int H, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int CJ = D / 16;
-
-  extern __shared__ float smem[];
-  float* Ks = smem;             // [BM][DP], this block's keys
-  float* Vs = Ks + BM * DP;     // [BM][DP]
-  float* Qs = Vs + BM * DP;     // [BM][DP], the query tile in flight
-  float* Os = Qs + BM * DP;     // [BM][DP], its dout rows
-  float* Ps = Os + BM * DP;     // [BM][PS]
-  float* Ss = Ps + BM * PS;     // [BM][PS]
-  float* lse_s = Ss + BM * PS;  // [BM]
-  float* delta_s = lse_s + BM;  // [BM]
-  int* segq = reinterpret_cast<int*>(delta_s + BM);  // [BM]
-  int* segk = segq + BM;                             // [BM]
-  __shared__ int klo, khi;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long ld = (long)H * D;
-  const long base = (long)b * T * ld + (long)h * D;
-  const int* segb = seg + (long)b * T;
-  const long row_base = ((long)b * H + h) * T;
-
-  if (tid == 0) {
-    klo = INT_MAX;
-    khi = INT_MIN;
-  }
-  load_tile<D, DP>(Ks, k, base, ld, k0, T, tid);
-  load_tile<D, DP>(Vs, v, base, ld, k0, T, tid);
-  __syncthreads();
-  if (tid < BM) {
-    const int s = (k0 + tid < T) ? segb[k0 + tid] : 0;
-    segk[tid] = s;
-    if (k0 + tid < T) {
-      atomicMin(&klo, s);
-      atomicMax(&khi, s);
-    }
-  }
-  __syncthreads();
-
-  float acc_dk[4][CJ], acc_dv[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
-
-  // causal: the query tiles before this key tile's own row see none of its keys
-  for (int q0 = causal ? k0 : 0; q0 < T; q0 += BM) {
-    // The previous tile's reads of segq, lse_s and delta_s ended before the
-    // barrier that followed its p and dS tiles; the barrier below also ends
-    // its reads of Qs, Os, Ps and Ss.
-    bool seen = false;
-    if (tid < BM) {
-      const bool in = q0 + tid < T;
-      const int s = in ? segb[q0 + tid] : 0;
-      segq[tid] = s;
-      lse_s[tid] = in ? lse[row_base + q0 + tid] : 0.f;
-      delta_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
-      seen = in && s >= klo && s <= khi;
-    }
-    if (!__syncthreads_or(seen)) continue;
-
-    load_tile<D, DP>(Qs, q, base, ld, q0, T, tid);
-    load_tile<D, DP>(Os, dout, base, ld, q0, T, tid);
-    __syncthreads();
-    prob_tile<D>(Qs, Ks, Vs, Os, segq, segk, lse_s, delta_s, q0, k0, T, scale, causal, ty, tx,
-                    Ps, Ss);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < BM; ++r) {
-      float pv[4], sv[4], ov[CJ], qv[CJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[r * PS + ty * 4 + i];
-        sv[i] = Ss[r * PS + ty * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        ov[j] = Os[r * DP + tx + 16 * j];
-        qv[j] = Qs[r * DP + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          acc_dv[i][j] = fmaf(pv[i], ov[j], acc_dv[i][j]);
-          acc_dk[i][j] = fmaf(sv[i], qv[j], acc_dk[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty * 4 + i;
-    if (t < T) {
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        dk[base + t * ld + tx + 16 * j] = acc_dk[i][j];
-        dv[base + t * ld + tx + 16 * j] = acc_dv[i][j];
-      }
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ seg,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const float* __restrict__ dout, float* __restrict__ dq, int T, int H,
-                    float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int CJ = D / 16;
-
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [BM][DP], this block's queries
-  float* Os = Qs + BM * DP;     // [BM][DP], their dout rows
-  float* Ks = Os + BM * DP;     // [BM][DP], the key tile in flight
-  float* Vs = Ks + BM * DP;     // [BM][DP]
-  float* Ss = Vs + BM * DP;     // [BM][PS]
-  float* lse_s = Ss + BM * PS;  // [BM]
-  float* delta_s = lse_s + BM;  // [BM]
-  int* segq = reinterpret_cast<int*>(delta_s + BM);  // [BM]
-  int* segk = segq + BM;                             // [BM]
-  __shared__ int qlo, qhi;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long ld = (long)H * D;
-  const long base = (long)b * T * ld + (long)h * D;
-  const int* segb = seg + (long)b * T;
-  const long row_base = ((long)b * H + h) * T;
-
-  if (tid == 0) {
-    qlo = INT_MAX;
-    qhi = INT_MIN;
-  }
-  load_tile<D, DP>(Qs, q, base, ld, q0, T, tid);
-  load_tile<D, DP>(Os, dout, base, ld, q0, T, tid);
-  __syncthreads();
-  if (tid < BM) {
-    const bool in = q0 + tid < T;
-    const int s = in ? segb[q0 + tid] : 0;
-    segq[tid] = s;
-    lse_s[tid] = in ? lse[row_base + q0 + tid] : 0.f;
-    delta_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
-    if (in) {
-      atomicMin(&qlo, s);
-      atomicMax(&qhi, s);
-    }
-  }
-  __syncthreads();
-
-  float acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-
-  // causal: the tiles past the diagonal tile (k0 == q0) hold no visible key
-  const int k_end = causal ? min(T, q0 + BM) : T;
-  for (int k0 = 0; k0 < k_end; k0 += BM) {
-    // segk of the previous tile was last read before the barrier that
-    // followed its dS tile; the barrier below also ends its reads of Ks and Ss.
-    bool seen = false;
-    if (tid < BM) {
-      const int s = (k0 + tid < T) ? segb[k0 + tid] : 0;
-      segk[tid] = s;
-      seen = (k0 + tid < T) && s >= qlo && s <= qhi;
-    }
-    if (!__syncthreads_or(seen)) continue;
-
-    load_tile<D, DP>(Ks, k, base, ld, k0, T, tid);
-    load_tile<D, DP>(Vs, v, base, ld, k0, T, tid);
-    __syncthreads();
-    prob_tile<D>(Qs, Ks, Vs, Os, segq, segk, lse_s, delta_s, q0, k0, T, scale, causal, ty, tx,
-                    nullptr, Ss);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BM; ++c) {
-      float kv[CJ];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) kv[j] = Ks[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = Ss[(ty * 4 + i) * PS + c];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t < T) {
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) dq[base + t * ld + tx + 16 * j] = acc[i][j];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 dK/dV kernel on the tensor cores.  One block of 4 warps per 64-key
@@ -736,6 +483,444 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 kernels on the tensor cores, 3xTF32 (see the notes at the top).
+// The block's own tiles (K and V for dK/dV, Q and dO for dQ) stay fp32 and
+// each A fragment is split after its load; the streamed tiles of the other
+// side, read as B operands by all four warps in both products, are split once
+// per tile in shared memory into a big and a small half (TF32 bit patterns).
+// ---------------------------------------------------------------------------
+
+using tf32x3::mma_3xtf32;
+using tf32x3::split_tf32_int;
+
+// rows r0 .. r0+63 of x[b, :, h, :] (row t at base + t * ld) into an fp32
+// tile of row stride D + 4 by 16-byte cp.async; rows past T are zero-filled
+template <int D>
+__device__ __forceinline__ void stage_tile_f32(float* dst, const float* __restrict__ x,
+                                               long base, long ld, int r0, int T, int tid) {
+  constexpr int CHUNKS = D / 4;
+#pragma unroll
+  for (int j = 0; j < fa_mma::ROWS * CHUNKS / fa_mma::THREADS; ++j) {
+    const int i = tid + j * fa_mma::THREADS;
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool in = r0 + r < T;
+    fa_mma::cp_async16(dst + r * (D + 4) + c * 4, x + base + (long)(in ? r0 + r : 0) * ld + c * 4,
+                       in);
+  }
+}
+
+// every word of a staged tile replaced by its big half, its small half
+// written to the same place of `small`
+template <int D>
+__device__ __forceinline__ void split_tile_f32(float* big, float* small, int tid) {
+  constexpr int CHUNKS = D / 4;
+#pragma unroll
+  for (int j = 0; j < fa_mma::ROWS * CHUNKS / fa_mma::THREADS; ++j) {
+    const int i = tid + j * fa_mma::THREADS;
+    const int at = (i / CHUNKS) * (D + 4) + (i % CHUNKS) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(big + at);
+    uint4 hi, lo;
+    split_tf32_int(v.x, hi.x, lo.x);
+    split_tf32_int(v.y, hi.y, lo.y);
+    split_tf32_int(v.z, hi.z, lo.z);
+    split_tf32_int(v.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(big + at) = hi;
+    *reinterpret_cast<uint4*>(small + at) = lo;
+  }
+}
+
+// ldmatrix.x4 on 32-bit words: lane 4 g + t gets word t of row g of each of
+// the four 8 x 4-word matrices whose row addresses lanes 8 i .. 8 i + 7 give
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  fa_mma::ldmatrix_x4(r, reinterpret_cast<const fa_mma::bf16*>(p));
+}
+
+// the split A fragment of the 16 x 8 block at rows row0.., head-dim columns
+// 8 kc.. of an fp32 tile: a0 (g, t) a1 (g+8, t) a2 (g, t+4) a3 (g+8, t+4)
+template <int D>
+__device__ __forceinline__ void load_a_split(uint32_t (&big)[4], uint32_t (&small)[4],
+                                             const float* tile, int row0, int kc, int lane) {
+  uint32_t r[4];
+  ldsm_x4(r, tile + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * (D + 4) + 8 * kc +
+                 4 * (lane >> 4));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32_int(__uint_as_float(r[i]), big[i], small[i]);
+}
+
+// B fragments of the two n-tiles at rows n0 .. n0+7 and n0+8 .. n0+15 of a
+// split half (a row is a column n of B) over head-dim k-chunk kc: b0 (k t,
+// n g) = tile[n0 + g][8 kc + t], b1 at column 8 kc + t + 4; {b0, b1} of the
+// first n-tile in r[0..1], of the second in r[2..3]
+template <int D>
+__device__ __forceinline__ void load_b2(uint32_t (&r)[4], const float* half, int n0, int kc,
+                                        int lane) {
+  ldsm_x4(r, half + (n0 + (lane & 7) + 8 * (lane >> 4)) * (D + 4) + 8 * kc +
+                 4 * ((lane >> 3) & 1));
+}
+
+// the B fragment of the k-chunk over rows k0 .. k0+7 of a split half (rows
+// are k, head-dim columns 8 j .. 8 j + 7 are n) in the permuted contraction
+// order: b0 (k t, n g) = half[k0 + 2t][8 j + g], b1 (k t+4, n g) =
+// half[k0 + 2t + 1][8 j + g]
+template <int D>
+__device__ __forceinline__ void load_bt(uint32_t (&r)[2], const float* half, int k0, int j, int g,
+                                        int t) {
+  const float* p = half + (k0 + 2 * t) * (D + 4) + 8 * j + g;
+  r[0] = __float_as_uint(p[0]);
+  r[1] = __float_as_uint(p[D + 4]);
+}
+
+// the accumulator of one 8-wide n-tile (c0, c1 at (g, 2t..2t+1), c2, c3 at
+// (g+8, 2t..2t+1)) as the split A fragment of the k-chunk over those 8
+// columns, permuted as `load_bt` reads B: A's column t is C's column 2t, A's
+// column t + 4 is C's column 2t + 1
+__device__ __forceinline__ void acc_as_a(const float (&c)[4], uint32_t (&big)[4],
+                                         uint32_t (&small)[4]) {
+  split_tf32_int(c[0], big[0], small[0]);  // (g, 2t)
+  split_tf32_int(c[2], big[1], small[1]);  // (g+8, 2t)
+  split_tf32_int(c[1], big[2], small[2]);  // (g, 2t+1)
+  split_tf32_int(c[3], big[3], small[3]);  // (g+8, 2t+1)
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 dK/dV kernel.  One block of 4 warps per 64-key tile; warp w owns
+// keys 16 w .. 16 w + 15 whole, as the rows of
+//   S^T = K Q^T  and  dP^T = V dO^T   (K and V as A fragments),
+// and loops over the visible 64-query tiles (from the diagonal with `causal`),
+// 8 NQ queries at a time:
+//   P^T  = exp(S^T * scale - lse)            (0 where masked)
+//   dS^T = P^T o (dP^T - delta) * scale
+//   dV  += P^T dO,   dK += dS^T Q             (dO and Q rows read permuted)
+// Each query tile is staged by cp.async with its lse / delta rows and split in
+// place; one stage, so the copies of the next tile wait for this one's
+// products (two blocks a SM at D <= 64 overlap each other's).
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr size_t dkv_tf32_smem_bytes() {
+  // K, V, then Q and dO as big and small halves; lse and delta rows
+  return sizeof(float) * (6 * fa_mma::ROWS * (D + 4) + 2 * fa_mma::ROWS);
+}
+
+template <int D>
+__global__ void __launch_bounds__(fa_mma::THREADS)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ seg,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const float* __restrict__ dout, float* __restrict__ dk,
+                          float* __restrict__ dv, int T, int H, float scale, int causal) {
+  using namespace fa_mma;
+  constexpr int TW = ROWS * (D + 4);  // words of a staged tile
+  constexpr int KC = D / 8;           // k-chunks of the score products; n-tiles of dK, dV
+  // 8-query n-tiles a chunk, in pairs; D 128 keeps 128 accumulators a thread,
+  // takes 16 queries a chunk and unrolls its inner loops 4 times
+  constexpr int NQ = D <= 64 ? 4 : 2;
+  constexpr int UNROLL = D <= 64 ? KC : 4;
+
+  extern __shared__ float4 smem_dkv_tf32[];
+  float* Ks = reinterpret_cast<float*>(smem_dkv_tf32);
+  float* Vs = Ks + TW;
+  float* Qbig = Vs + TW;
+  float* Qsmall = Qbig + TW;
+  float* Obig = Qsmall + TW;  // dO
+  float* Osmall = Obig + TW;
+  float* lse_s = Osmall + TW;     // [ROWS]
+  float* delta_s = lse_s + ROWS;  // [ROWS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+  const long row_base = ((long)b * H + h) * T;
+
+  int klo, khi;
+  segment_range(segb, k0, T, lane, klo, khi);
+
+  stage_tile_f32<D>(Ks, k, base, ld, k0, T, tid);
+  stage_tile_f32<D>(Vs, v, base, ld, k0, T, tid);
+  cp_async_commit();
+  // causal: the query tiles before this key tile's own row see none of its keys
+  bool uniform, uniform_next;
+  int q0 = next_tile(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
+
+  // this thread's two keys, rows g and g + 8 of the warp's 16
+  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
+  const int seg0 = key0 < T ? segb[key0] : -1, seg1 = key1 < T ? segb[key1] : -1;
+
+  float acc_dk[KC][4], acc_dv[KC][4];
+#pragma unroll
+  for (int j = 0; j < KC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+
+  while (q0 < T) {
+    stage_tile_f32<D>(Qbig, q, base, ld, q0, T, tid);
+    stage_tile_f32<D>(Obig, dout, base, ld, q0, T, tid);
+    stage_rows(lse_s, lse + row_base, q0, T, tid);
+    stage_rows(delta_s, delta + row_base, q0, T, tid);
+    cp_async_commit();
+    const int qn = next_tile(segb, q0 + ROWS, T, T, klo, khi, lane, uniform_next);
+    cp_async_wait<0>();
+    __syncthreads();
+    split_tile_f32<D>(Qbig, Qsmall, tid);
+    split_tile_f32<D>(Obig, Osmall, tid);
+    __syncthreads();
+    // the ragged edge, the diagonal tile (q0 == k0) and a tile whose ids are
+    // not all the key tile's single id are masked element by element
+    const bool masked = !uniform || q0 + ROWS > T || (causal && q0 < k0 + ROWS);
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < ROWS; c0 += 8 * NQ) {  // queries c0 .. c0 + 8 NQ - 1 of the tile
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll(UNROLL)
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t kb[4], ks[4], vb[4], vs[4];
+        load_a_split<D>(kb, ks, Ks, warp * 16, kc, lane);
+        load_a_split<D>(vb, vs, Vs, warp * 16, kc, lane);
+#pragma unroll
+        for (int n = 0; n < NQ; n += 2) {
+          uint32_t qb[4], qs[4], ob[4], os[4];
+          load_b2<D>(qb, Qbig, c0 + 8 * n, kc, lane);
+          load_b2<D>(qs, Qsmall, c0 + 8 * n, kc, lane);
+          load_b2<D>(ob, Obig, c0 + 8 * n, kc, lane);
+          load_b2<D>(os, Osmall, c0 + 8 * n, kc, lane);
+          mma_3xtf32(st[n], kb, ks, qb[0], qb[1], qs[0], qs[1]);
+          mma_3xtf32(dpt[n], vb, vs, ob[0], ob[1], os[0], os[1]);
+          mma_3xtf32(st[n + 1], kb, ks, qb[2], qb[3], qs[2], qs[3]);
+          mma_3xtf32(dpt[n + 1], vb, vs, ob[2], ob[3], os[2], os[3]);
+        }
+      }
+      // element (n, e): key row e < 2 ? g : g + 8, query c0 + 8 n + 2 t4 + (e & 1)
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = c0 + 8 * n + 2 * t4 + (e & 1);
+          float p = expf(st[n][e] * scale - lse_s[qc]);
+          if (masked) {
+            const int query = q0 + qc;
+            const int key = e < 2 ? key0 : key1;
+            const bool ok = query < T && segb[query] == (e < 2 ? seg0 : seg1) &&
+                            (!causal || key <= query);
+            p = ok ? p : 0.f;
+          }
+          dpt[n][e] = p * (dpt[n][e] - delta_s[qc]) * scale;  // dS^T
+          st[n][e] = p;
+        }
+      }
+      // n-tile n of P^T and dS^T is the A operand of the k-chunk over its 8
+      // queries: dV += P^T dO, dK += dS^T Q
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        uint32_t pb[4], ps[4], sb[4], ss[4];
+        acc_as_a(st[n], pb, ps);
+        acc_as_a(dpt[n], sb, ss);
+#pragma unroll(UNROLL)
+        for (int j = 0; j < KC; ++j) {
+          uint32_t ob[2], os[2], qb[2], qs[2];
+          load_bt<D>(ob, Obig, c0 + 8 * n, j, g, t4);
+          load_bt<D>(os, Osmall, c0 + 8 * n, j, g, t4);
+          mma_3xtf32(acc_dv[j], pb, ps, ob[0], ob[1], os[0], os[1]);
+          load_bt<D>(qb, Qbig, c0 + 8 * n, j, g, t4);
+          load_bt<D>(qs, Qsmall, c0 + 8 * n, j, g, t4);
+          mma_3xtf32(acc_dk[j], sb, ss, qb[0], qb[1], qs[0], qs[1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this tile before the next is staged
+    q0 = qn;
+    uniform = uniform_next;
+  }
+  cp_async_wait<0>();  // K and V of a block that saw no query tile
+
+  // element (j, e): key row e < 2 ? g : g + 8, head-dim column 8 j + 2 t4 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = i == 0 ? key0 : key1;
+    if (t < T) {
+      const long at = base + (long)t * ld + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        *reinterpret_cast<float2*>(dk + at + 8 * j) =
+            make_float2(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
+        *reinterpret_cast<float2*>(dv + at + 8 * j) =
+            make_float2(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 dQ kernel.  One block of 4 warps per (64-query tile, head, batch
+// row); warp w owns queries 16 w .. 16 w + 15 whole, as the rows of
+//   S = Q K^T  and  dP = dO V^T   (Q and dO as A fragments),
+// and loops over the visible 64-key tiles (up to the diagonal with `causal`),
+// 8 NK keys at a time:
+//   P  = exp(S * scale - lse)              (0 where masked)
+//   dS = P o (dP - delta) * scale
+//   dQ += dS K                             (K rows read permuted)
+// Each thread keeps the lse and delta of its two rows in registers.  Each key
+// tile is staged by cp.async and split in place, one stage, as in dK/dV.
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr size_t dq_tf32_smem_bytes() {
+  // Q, dO, then K and V as big and small halves
+  return sizeof(float) * 6 * fa_mma::ROWS * (D + 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(fa_mma::THREADS)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ seg,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const float* __restrict__ dout, float* __restrict__ dq, int T, int H,
+                         float scale, int causal) {
+  using namespace fa_mma;
+  constexpr int TW = ROWS * (D + 4);
+  constexpr int KC = D / 8;  // k-chunks of the score products; n-tiles of dQ
+  // 8-key n-tiles a chunk, in pairs; D 128 takes 16 keys a chunk and unrolls
+  // its inner loops 4 times
+  constexpr int NK = D <= 64 ? 4 : 2;
+  constexpr int UNROLL = D <= 64 ? KC : 4;
+
+  extern __shared__ float4 smem_dq_tf32[];
+  float* Qs = reinterpret_cast<float*>(smem_dq_tf32);
+  float* Os = Qs + TW;  // dO
+  float* Kbig = Os + TW;
+  float* Ksmall = Kbig + TW;
+  float* Vbig = Ksmall + TW;
+  float* Vsmall = Vbig + TW;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+  const long row_base = ((long)b * H + h) * T;
+
+  int qlo, qhi;
+  segment_range(segb, q0, T, lane, qlo, qhi);
+  // causal: the tiles past the diagonal tile (k0 == q0) hold no visible key
+  const int k_end = causal ? min(T, q0 + ROWS) : T;
+
+  stage_tile_f32<D>(Qs, q, base, ld, q0, T, tid);
+  stage_tile_f32<D>(Os, dout, base, ld, q0, T, tid);
+  cp_async_commit();
+  bool uniform, uniform_next;
+  int k0 = next_tile(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+
+  // this thread's two queries, rows g and g + 8 of the warp's 16; rows past T
+  // are never stored
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+  const float row_lse[2] = {row0 < T ? lse[row_base + row0] : 0.f,
+                            row1 < T ? lse[row_base + row1] : 0.f};
+  const float row_delta[2] = {row0 < T ? delta[row_base + row0] : 0.f,
+                              row1 < T ? delta[row_base + row1] : 0.f};
+
+  float acc[KC][4];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  while (k0 < k_end) {  // always entered: every in-range query sees its own key
+    stage_tile_f32<D>(Kbig, k, base, ld, k0, T, tid);
+    stage_tile_f32<D>(Vbig, v, base, ld, k0, T, tid);
+    cp_async_commit();
+    const int kn = next_tile(segb, k0 + ROWS, k_end, T, qlo, qhi, lane, uniform_next);
+    cp_async_wait<0>();
+    __syncthreads();
+    split_tile_f32<D>(Kbig, Ksmall, tid);
+    split_tile_f32<D>(Vbig, Vsmall, tid);
+    __syncthreads();
+    // the ragged edge, the diagonal tile and a tile whose ids are not all the
+    // query tile's single id are masked element by element
+    const bool masked = !uniform || k0 + ROWS > T || (causal && k0 + ROWS > q0);
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < ROWS; c0 += 8 * NK) {  // keys c0 .. c0 + 8 NK - 1 of the tile
+      float s[NK][4], dp[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll(UNROLL)
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t qb[4], qs[4], ob[4], os[4];
+        load_a_split<D>(qb, qs, Qs, warp * 16, kc, lane);
+        load_a_split<D>(ob, os, Os, warp * 16, kc, lane);
+#pragma unroll
+        for (int n = 0; n < NK; n += 2) {
+          uint32_t kb[4], ks[4], vb[4], vs[4];
+          load_b2<D>(kb, Kbig, c0 + 8 * n, kc, lane);
+          load_b2<D>(ks, Ksmall, c0 + 8 * n, kc, lane);
+          load_b2<D>(vb, Vbig, c0 + 8 * n, kc, lane);
+          load_b2<D>(vs, Vsmall, c0 + 8 * n, kc, lane);
+          mma_3xtf32(s[n], qb, qs, kb[0], kb[1], ks[0], ks[1]);
+          mma_3xtf32(dp[n], ob, os, vb[0], vb[1], vs[0], vs[1]);
+          mma_3xtf32(s[n + 1], qb, qs, kb[2], kb[3], ks[2], ks[3]);
+          mma_3xtf32(dp[n + 1], ob, os, vb[2], vb[3], vs[2], vs[3]);
+        }
+      }
+      // element (n, e): query row e < 2 ? g : g + 8, key c0 + 8 n + 2 t4 + (e & 1)
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = expf(s[n][e] * scale - row_lse[i]);
+          if (masked) {
+            const int key = k0 + c0 + 8 * n + 2 * t4 + (e & 1);
+            const int row = i == 0 ? row0 : row1;
+            const bool ok = key < T && segb[key] == (i == 0 ? seg0 : seg1) &&
+                            (!causal || key <= row);
+            p = ok ? p : 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - row_delta[i]) * scale;  // dS
+        }
+      }
+      // n-tile n of dS is the A operand of the k-chunk over its 8 keys
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        uint32_t sb[4], ss[4];
+        acc_as_a(dp[n], sb, ss);
+#pragma unroll(UNROLL)
+        for (int j = 0; j < KC; ++j) {
+          uint32_t kb[2], ks[2];
+          load_bt<D>(kb, Kbig, c0 + 8 * n, j, g, t4);
+          load_bt<D>(ks, Ksmall, c0 + 8 * n, j, g, t4);
+          mma_3xtf32(acc[j], sb, ss, kb[0], kb[1], ks[0], ks[1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this tile before the next is staged
+    k0 = kn;
+    uniform = uniform_next;
+  }
+
+  // element (j, e): query row e < 2 ? g : g + 8, head-dim column 8 j + 2 t4 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = i == 0 ? row0 : row1;
+    if (t < T) {
+      float* dst = dq + base + (long)t * ld + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
 // what both kernels read, as the C interface hands it over
 struct Inputs {
   const void *q, *k, *v;
@@ -748,98 +933,70 @@ struct Inputs {
   cudaStream_t stream;
 };
 
+template <typename T>
+const T* in_ptr(const void* p) {
+  return static_cast<const T*>(p);
+}
+
+// each kernel by its element type
 template <int D>
+auto dkv_kernel(const float*) { return flash_bwd_dkv_tf32_kernel<D>; }
+template <int D>
+auto dkv_kernel(const __nv_bfloat16*) { return flash_bwd_dkv_mma_kernel<D>; }
+template <int D>
+auto dq_kernel(const float*) { return flash_bwd_dq_tf32_kernel<D>; }
+template <int D>
+auto dq_kernel(const __nv_bfloat16*) { return flash_bwd_dq_mma_kernel<D>; }
+
+// One block of fa_mma::THREADS per (64-row tile, head, batch row).  `Elem` is
+// float (the 3xTF32 kernels) or __nv_bfloat16 (the bf16 kernels).
+template <int D, typename Elem>
 cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
-  constexpr size_t smem = smem_bytes<D>(2);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((in.T + BM - 1) / BM, in.H, in.B);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, in.stream>>>(
-      static_cast<const float*>(in.q), static_cast<const float*>(in.k),
-      static_cast<const float*>(in.v), in.seg, in.lse, in.delta,
-      static_cast<const float*>(in.dout), static_cast<float*>(dk), static_cast<float*>(dv),
-      in.T, in.H, in.scale, in.causal);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dq(const Inputs& in, void* dq) {
-  constexpr size_t smem = smem_bytes<D>(1);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((in.T + BM - 1) / BM, in.H, in.B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, in.stream>>>(
-      static_cast<const float*>(in.q), static_cast<const float*>(in.k),
-      static_cast<const float*>(in.v), in.seg, in.lse, in.delta,
-      static_cast<const float*>(in.dout), static_cast<float*>(dq), in.T, in.H, in.scale,
-      in.causal);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_dkv_d(int D, const Inputs& in, void* dk, void* dv) {
-  switch (D) {
-    case 32: return launch_dkv<32>(in, dk, dv);
-    case 64: return launch_dkv<64>(in, dk, dv);
-    case 128: return launch_dkv<128>(in, dk, dv);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <int D>
-cudaError_t launch_dkv_mma(const Inputs& in, void* dk, void* dv) {
-  constexpr size_t smem = dkv_mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr bool bf16 = sizeof(Elem) == 2;
+  constexpr size_t smem = bf16 ? dkv_mma_smem_bytes<D>() : dkv_tf32_smem_bytes<D>();
+  const auto kernel = dkv_kernel<D>(static_cast<const Elem*>(nullptr));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
-  flash_bwd_dkv_mma_kernel<D><<<grid, fa_mma::THREADS, smem, in.stream>>>(
-      static_cast<const __nv_bfloat16*>(in.q), static_cast<const __nv_bfloat16*>(in.k),
-      static_cast<const __nv_bfloat16*>(in.v), in.seg, in.lse, in.delta,
-      static_cast<const __nv_bfloat16*>(in.dout), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), in.T, in.H, in.scale, in.causal);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_dkv_mma_d(int D, const Inputs& in, void* dk, void* dv) {
-  switch (D) {
-    case 32: return launch_dkv_mma<32>(in, dk, dv);
-    case 64: return launch_dkv_mma<64>(in, dk, dv);
-    case 128: return launch_dkv_mma<128>(in, dk, dv);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t launch_dq_d(int D, const Inputs& in, void* dq) {
-  switch (D) {
-    case 32: return launch_dq<32>(in, dq);
-    case 64: return launch_dq<64>(in, dq);
-    case 128: return launch_dq<128>(in, dq);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <int D>
-cudaError_t launch_dq_mma(const Inputs& in, void* dq) {
-  constexpr size_t smem = dq_mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
-  flash_bwd_dq_mma_kernel<D><<<grid, fa_mma::THREADS, smem, in.stream>>>(
-      static_cast<const __nv_bfloat16*>(in.q), static_cast<const __nv_bfloat16*>(in.k),
-      static_cast<const __nv_bfloat16*>(in.v), in.seg, in.lse, in.delta,
-      static_cast<const __nv_bfloat16*>(in.dout), static_cast<__nv_bfloat16*>(dq), in.T, in.H,
+  kernel<<<grid, fa_mma::THREADS, smem, in.stream>>>(
+      in_ptr<Elem>(in.q), in_ptr<Elem>(in.k), in_ptr<Elem>(in.v), in.seg, in.lse, in.delta,
+      in_ptr<Elem>(in.dout), static_cast<Elem*>(dk), static_cast<Elem*>(dv), in.T, in.H,
       in.scale, in.causal);
   return cudaGetLastError();
 }
 
-cudaError_t launch_dq_mma_d(int D, const Inputs& in, void* dq) {
+template <int D, typename Elem>
+cudaError_t launch_dq(const Inputs& in, void* dq) {
+  constexpr bool bf16 = sizeof(Elem) == 2;
+  constexpr size_t smem = bf16 ? dq_mma_smem_bytes<D>() : dq_tf32_smem_bytes<D>();
+  const auto kernel = dq_kernel<D>(static_cast<const Elem*>(nullptr));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
+  kernel<<<grid, fa_mma::THREADS, smem, in.stream>>>(
+      in_ptr<Elem>(in.q), in_ptr<Elem>(in.k), in_ptr<Elem>(in.v), in.seg, in.lse, in.delta,
+      in_ptr<Elem>(in.dout), static_cast<Elem*>(dq), in.T, in.H, in.scale, in.causal);
+  return cudaGetLastError();
+}
+
+template <typename Elem>
+cudaError_t launch_dkv_d(int D, const Inputs& in, void* dk, void* dv) {
   switch (D) {
-    case 32: return launch_dq_mma<32>(in, dq);
-    case 64: return launch_dq_mma<64>(in, dq);
-    case 128: return launch_dq_mma<128>(in, dq);
+    case 32: return launch_dkv<32, Elem>(in, dk, dv);
+    case 64: return launch_dkv<64, Elem>(in, dk, dv);
+    case 128: return launch_dkv<128, Elem>(in, dk, dv);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Elem>
+cudaError_t launch_dq_d(int D, const Inputs& in, void* dq) {
+  switch (D) {
+    case 32: return launch_dq<32, Elem>(in, dq);
+    case 64: return launch_dq<64, Elem>(in, dq);
+    case 128: return launch_dq<128, Elem>(in, dq);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -855,8 +1012,8 @@ extern "C" int roar_flash_attention_bwd_dkv(const void* q, const void* k, const 
   if (flash::bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
   const Inputs in{q, k, v, seg, lse, delta, dout, B, T, H, scale, causal,
                   static_cast<cudaStream_t>(stream)};
-  if (bf16) return (int)launch_dkv_mma_d(D, in, dk, dv);
-  return (int)launch_dkv_d(D, in, dk, dv);
+  if (bf16) return (int)launch_dkv_d<__nv_bfloat16>(D, in, dk, dv);
+  return (int)launch_dkv_d<float>(D, in, dk, dv);
 }
 
 extern "C" int roar_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -867,6 +1024,6 @@ extern "C" int roar_flash_attention_bwd_dq(const void* q, const void* k, const v
   if (flash::bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
   const Inputs in{q, k, v, seg, lse, delta, dout, B, T, H, scale, causal,
                   static_cast<cudaStream_t>(stream)};
-  if (bf16) return (int)launch_dq_mma_d(D, in, dq);
-  return (int)launch_dq_d(D, in, dq);
+  if (bf16) return (int)launch_dq_d<__nv_bfloat16>(D, in, dq);
+  return (int)launch_dq_d<float>(D, in, dq);
 }

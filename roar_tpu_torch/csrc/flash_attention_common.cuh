@@ -3,10 +3,12 @@
 // the fp32 kernels.
 //
 // Types.  q, k, v, o, dO, dq, dk, dv are fp32 or bf16 in device memory; every
-// product accumulates in fp32, and lse and delta are always fp32.  fp32 runs
-// on the FMA pipe (this header's `load_tile` stages its tiles in shared
-// memory); every bf16 kernel, the forward, dK/dV and dQ, keeps its tiles in
-// bf16 and multiplies on the tensor cores (flash_attention_mma.cuh).  A bf16
+// product accumulates in fp32, and lse and delta are always fp32.  The fp32
+// forward runs on the FMA pipe (this header's `load_tile` stages its tiles in
+// shared memory); the fp32 dK/dV and dQ kernels multiply on the tensor cores
+// in 3xTF32 (tf32x3.cuh); every bf16 kernel, the forward, dK/dV and dQ, keeps
+// its tiles in bf16 and multiplies on the tensor cores
+// (flash_attention_mma.cuh).  A bf16
 // kernel rounds to bf16 at exactly these places (the upstream Pallas kernels
 // round at the same ones, casting to the other operand's type before each of
 // the products named), as it packs its A fragments or stores:

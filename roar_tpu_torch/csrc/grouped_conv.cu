@@ -24,18 +24,14 @@
 // K3 (`conv_mma_kernel`, ONE device routine behind both entry points) runs
 //   on the tensor cores: an implicit GEMM per (batch, group) with M = output
 //   positions, N = the group's output channels, K = (input channel, tap)
-//   pairs, and `mma.sync.m16n8k8` on TF32 with fp32 sums.  One TF32 product
-//   keeps 10 mantissa bits, about 3e-4 of the result's scale at these
-//   contractions, over the fp32 bar of 2e-4; so every operand v is split into
-//   big = tf32(v) and small = tf32(v - big) (`cvt.rna`) and each k-chunk adds
-//   small.big, big.small, then big.big (3xTF32: small.small is below fp32's
-//   level).  The tensor cores' accumulator rounds toward zero: carried over
-//   1312 to 2624 products it drifts to about 2.4e-5 of the scale on an H100,
-//   one way.  So each k-chunk's three products go into a fresh accumulator,
-//   and one fp32 add, rounded to nearest, puts that into the thread's sum:
-//   the truncation touches a sum of 24 products only (2.6e-6 of the scale
-//   at worst on an H100 at the discriminator's shapes, 2.4e-5 without the
-//   flush; the flush costs about 5 % of the time).
+//   pairs, and `mma.sync.m16n8k8` on TF32 with fp32 sums, in 3xTF32
+//   (tf32x3.cuh: each operand split into big + small, three products per
+//   k-chunk in a fresh accumulator flushed into a round-to-nearest sum).  One
+//   TF32 product keeps 10 mantissa bits, about 3e-4 of the result's scale at
+//   these contractions, over the fp32 bar of 2e-4.  Unflushed, the tensor
+//   cores' truncating sums over 1312 to 2624 products drift to about 2.4e-5 of
+//   the scale on an H100; flushed, 2.6e-6 at worst at the discriminator's
+//   shapes (the flush costs about 5 % of the time).
 //   Its bound is 3x the operations over the dense TF32 rate.
 //   A block of 8 warps owns (batch, group, BM positions, BN <= 64 output
 //   channels); the warps tile it WM x WN, each warp MT m-tiles of 16 by NT
@@ -86,12 +82,15 @@
 #include <cstdint>
 
 #include "flash_attention_mma.cuh"  // cp.async helpers
+#include "tf32x3.cuh"
 
 namespace {
 
 using flash::mma::cp_async4;
 using flash::mma::cp_async_commit;
 using flash::mma::cp_async_wait;
+using tf32x3::mma_3xtf32;
+using tf32x3::split_tf32;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -150,29 +149,6 @@ __host__ __device__ inline K3Smem k3_smem(const ConvGeom& q, bool dx, int bm, in
   L.ksp = L.kpad + ((4 - L.kpad) % 32 + 32) % 32;
   L.stage = cc * L.cs + bn * L.ksp;
   return L;
-}
-
-// fp32 -> TF32 (as a 32-bit pattern): nearest, ties away from zero
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  big = tf32(v);
-  small = tf32(v - __uint_as_float(big));
-}
-
-// c += a . b on the tensor cores, m16n8k8, TF32 in, fp32 sums.  Fragments
-// (lane = 4 g + t): A a0 (g, t) a1 (g+8, t) a2 (g, t+4) a3 (g+8, t+4);
-// B b0 (k t, n g) b1 (k t+4, n g); C c0, c1 (g, 2t..2t+1) c2, c3 (g+8, 2t..)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // K3.  DX = false: forward, `in` is x and `out` is y.  DX = true: input
@@ -295,14 +271,8 @@ conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
         split_tf32(wrow[nt * 8 * L.ksp + k0], bb0, bs0);
         split_tf32(wrow[nt * 8 * L.ksp + k0 + 4], bb1, bs1);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_tf32(part, as[mt], bb0, bb1);
-          mma_tf32(part, ab[mt], bs0, bs1);
-          mma_tf32(part, ab[mt], bb0, bb1);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[e];
-        }
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32(acc[mt][nt], ab[mt], as[mt], bb0, bb1, bs0, bs1);
       }
     }
   };

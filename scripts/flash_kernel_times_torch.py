@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 flash-attention kernels of one checkout on the card.
+"""Time the port's flash-attention kernels of one checkout on the card.
 
-    python3 scripts/flash_kernel_times_torch.py [--repo DIR] [--shape B T H D [--non-causal]]
+    python3 scripts/flash_kernel_times_torch.py [--repo DIR] [--dtype {bfloat16,float32}]
+        [--shape B T H D [--shape B T H D ...] [--non-causal [--ragged]]]
 
 Imports `roar_tpu_torch` from `--repo` (default: this checkout), so that two
 checkouts can be timed in turns in one run on one card (parent, change,
-change, parent).  Builds that checkout's kernels, then times in bf16, with no
-padding mask, the GPT path's (1, 4096, 32, 64) with `causal=True` and the
-20 s FastPitch bucket's (32, 864, 1, 64) without it (or only `--shape`): the
-forward with its log-sum-exp, the dK/dV kernel, the dQ kernel, the whole
-backward as the autograd Function calls it (delta + dK/dV + dQ) and, as a
-yardstick, autograd of `F.scaled_dot_product_attention`, each the median of
-20 calls by CUDA events after 3 warm-up calls.  Beside them the dQ kernel's
-own bound: its three T x T x D products (6 pairs D operations per head and
-batch row) over the 989 TFLOP/s dense bf16 peak.  Prints one JSON line per
-shape with the card's name and power limit.
+change, parent).  Builds that checkout's kernels, then times in `--dtype`
+(default bf16), with no padding mask, the GPT path's (1, 4096, 32, 64) with
+`causal=True` and the 20 s FastPitch bucket's (32, 864, 1, 64) without it (or
+only the `--shape`s, causal unless `--non-causal`): the forward with its
+log-sum-exp, the dK/dV kernel, the dQ kernel, the whole backward as the
+autograd Function calls it (delta + dK/dV + dQ) and, as a yardstick, autograd
+of `F.scaled_dot_product_attention`, each the median of 20 calls by CUDA
+events after 3 warm-up calls.  With `--ragged` (non-causal only) each batch
+row has a seeded valid length in [0.4 T, T] (the first T) and the segment
+mask of padding, as FastPitch's batches have, and SDPA takes that mask.
+Beside them each backward kernel's own bound:
+the dQ kernel's three T x T x D products (6 pairs D operations per head and
+batch row) and the dK/dV kernel's four (8 pairs D), in bf16 over the 989
+TFLOP/s dense bf16 peak; in fp32 over the 3xTF32 rate (494.7 TFLOP/s dense
+TF32 over three products), with the same work over the 67 TFLOP/s of the fp32
+FMA pipe beside.  In fp32 also each gradient's largest difference from the
+plain version (`flash_self_attention_bwd_plain`) over its largest magnitude.
+Prints one JSON line per shape with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -25,16 +34,23 @@ import subprocess
 import sys
 from pathlib import Path
 
-BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA's data sheet
+# H100 SXM, NVIDIA's data sheet: dense bf16, dense TF32, fp32 outside the tensor cores
+BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
+FP32_FLOPS = 67e12
 CASES = (((1, 4096, 32, 64), True), ((32, 864, 1, 64), False))
 
 
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--repo", default=str(Path(__file__).resolve().parents[1]))
-    parser.add_argument("--shape", type=int, nargs=4, default=None)
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    parser.add_argument("--shape", type=int, nargs=4, action="append", default=None)
     parser.add_argument("--non-causal", action="store_true")
+    parser.add_argument("--ragged", action="store_true")
     args = parser.parse_args()
+    if args.ragged and not args.non_causal:
+        parser.error("--ragged takes --non-causal")
     sys.path.insert(0, str(Path(args.repo).resolve()))
 
     import numpy as np
@@ -48,7 +64,8 @@ def main() -> int:
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    cases = CASES if args.shape is None else ((tuple(args.shape), not args.non_causal),)
+    cases = CASES if args.shape is None else [(tuple(s), not args.non_causal) for s in args.shape]
+    dtype = getattr(torch, args.dtype)
 
     def timed(fn) -> float:
         for _ in range(3):
@@ -65,35 +82,56 @@ def main() -> int:
 
     for (b, t, h, d), causal in cases:
         gen = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen).bfloat16()
+        q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype)
                        for _ in range(4))
         scale = 1.0 / d ** 0.5
-        out, lse = fa.flash_self_attention(q, k, v, None, scale, return_lse=True, causal=causal)
+        key_mask, how, pairs = None, {"is_causal": causal}, t * (t + 1) // 2 if causal else t * t
+        if args.ragged:
+            lens = np.random.default_rng(0).integers(int(0.4 * t), t + 1, b)
+            lens[0] = t
+            key_mask = (torch.arange(t, device="cuda")[None, :]
+                        < torch.tensor(lens, device="cuda")[:, None])
+            how = {"attn_mask": key_mask[:, None, :, None] == key_mask[:, None, None, :]}
+            pairs = float(np.mean([n * n + (t - n) * (t - n) for n in lens]))
+        out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True, causal=causal)
         delta = (out.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
 
         def bwd(**kw):
-            return fa.flash_self_attention_bwd(q, k, v, None, scale, out, lse, do,
+            return fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do,
                                                causal=causal, **kw)
 
         qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_(True) for z in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale, is_causal=causal)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale, **how)
         lib_do = do.transpose(1, 2)
-        pairs = t * (t + 1) // 2 if causal else t * t
         result = {
             "repo": str(Path(args.repo).resolve()), "shape_bthd": [b, t, h, d],
-            "causal": causal, "dtype": "bfloat16", "card": card,
+            "causal": causal, "ragged": args.ragged, "dtype": args.dtype, "card": card,
             "fwd_with_lse_ms": timed(lambda: fa.flash_self_attention(
-                q, k, v, None, scale, return_lse=True, causal=causal)),
+                q, k, v, key_mask, scale, return_lse=True, causal=causal)),
             "dkv_ms": timed(lambda: bwd(need_dq=False, delta=delta)),
             "dq_ms": timed(lambda: bwd(need_dkv=False, delta=delta)),
             "backward_ms": timed(bwd),
             "backward_library_ms": timed(lambda: torch.autograd.grad(
                 lib_out, (qt, kt, vt), lib_do, retain_graph=True)),
-            "dq_own_bound_ms": 6.0 * pairs * b * h * d / BF16_FLOPS * 1e3,
         }
-        result["dq_own_bound_share"] = result["dq_own_bound_ms"] / result["dq_ms"]
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32_FLOPS / 3
+        for name, per_pair in (("dkv", 8.0), ("dq", 6.0)):
+            ops = per_pair * pairs * b * h * d
+            result[f"{name}_own_bound_ms"] = ops / peak * 1e3
+            result[f"{name}_own_bound_share"] = (result[f"{name}_own_bound_ms"]
+                                                 / result[f"{name}_ms"])
+            if dtype == torch.float32:
+                result[f"{name}_own_bound_fp32_fma_ms"] = ops / FP32_FLOPS * 1e3
+        if dtype == torch.float32:
+            got = bwd()
+            want = fa.flash_self_attention_bwd_plain(q, k, v, key_mask, scale, out, lse, do,
+                                                     causal)
+            result["rel_to_largest"] = {
+                name: float((a - w).abs().max() / w.abs().max())
+                for name, a, w in zip(("dq", "dk", "dv"), got, want)}
+            del got, want
         print(json.dumps(result), flush=True)
-        del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out
+        del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out, key_mask, how
         torch.cuda.empty_cache()
     return 0
 

@@ -1,0 +1,245 @@
+"""The arithmetic of the fp32 flash-attention backward kernels (K5 dK/dV and
+dQ on the tensor cores, 3xTF32), emulated in numpy on the CPU.
+
+`csrc/flash_attention_bwd.cu` forms every product of the fp32 backward, the
+score products q.k^T and dO.v^T and the gradient products p^T dO, dS^T q and
+dS k, on `mma.sync.m16n8k8` with TF32 operands and fp32 sums.  Every fp32
+operand v is split into big = tf32(v) and small = tf32(v - big) (round to
+nearest, ties away from zero, 10 mantissa bits: the bits of
+`cvt.rna.tf32.f32`, formed there by integer operations), and each k-chunk of
+8 adds small.big, then big.small, then big.big into a fresh accumulator,
+which one fp32 add rounded to nearest puts into the thread's sum.  The
+emulation forms each chunk's products exactly and rounds once per `mma`, as
+the tensor core adds its products to the accumulator, toward zero (the H100's
+accumulator truncates: carried over a whole contraction of 4096 queries, the
+kernel's error on the card is over ten times the flushed one).
+p = exp(s * scale - lse) and dS = p (dP - delta) scale are fp32 operations on
+the emulated sums, as in the kernels.
+
+The gradient products take the score tiles' accumulators as their A operand.
+An m16n8k8 C fragment holds columns 2t and 2t + 1 in lane 4 g + t where the A
+fragment holds columns t and t + 4, so the kernels permute the contraction
+index within each k-chunk (A's column t is C's column 2t, A's column t + 4 is
+C's column 2t + 1) and read the B operand's rows with the same permutation;
+`test_permuted_contraction_index` checks that mapping lane by lane.  Within a
+chunk the order of the 8 products does not change an exact chunk sum, so the
+matrix-level emulation needs no permutation.
+
+Every case holds the emulated kernel to the card's fp32 bar (`chip_smoke.py`
+`assert_flash_close`: within 1e-4 of the largest magnitude plus rtol 1e-3),
+against the port's plain fp32 backward and against upstream's
+`mha_reference_bwd` in fp32, at a small causal shape and at a ragged,
+segment-masked one.  What the other orders read at these shapes (largest
+error over the largest magnitude of dq, dk, dv against the plain version):
+3xTF32 flushed 2e-7 to 1.4e-6; 3xTF32 unflushed 1e-6 to 9e-6; plain TF32
+(big.big only) 3e-4 to 1.2e-3, which fails the bar, so a kernel that dropped
+the small terms would fail it too.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from roar_tpu_torch.kernels import flash_attention as fa
+
+ATOL_REL = 1e-4  # chip_smoke.FLASH_BWD_ATOL_REL, unchanged from the FMA kernels
+RTOL = 1e-3      # chip_smoke.FLASH_BWD_RTOL
+# (B, T, H, D, valid lengths or None, causal): the GPT path's kind, and
+# FastPitch's kind with a ragged T, a short row and a single valid key
+CASES = {"causal": (1, 512, 2, 64, None, True),
+         "ragged_segments": (3, 200, 1, 64, [200, 117, 1], False)}
+
+
+def tf32_rna(v: np.ndarray) -> np.ndarray:
+    """fp32 -> the nearest TF32 value, ties away from zero, as fp32: the
+    int32 view with 0x1000 added to the 13 dropped bits, then cleared."""
+    bits = np.ascontiguousarray(v, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def to_fp32(v: np.ndarray, toward_zero: bool) -> np.ndarray:
+    """fp64 -> fp32, to nearest or toward zero."""
+    out = v.astype(np.float32)
+    if toward_zero:
+        bits = out.view(np.uint32)
+        bits -= (np.abs(out.astype(np.float64)) > np.abs(v)).astype(np.uint32)
+    return out
+
+
+def product(a: np.ndarray, b: np.ndarray, three_terms: bool = True, toward_zero: bool = True,
+            flushed: bool = True) -> np.ndarray:
+    """a [..., M, K] @ b [..., K, N] as the kernels sum it: k-chunks of 8 in
+    order (K padded with zeros, as the kernels mask a ragged tile), per chunk
+    small.big, big.small, big.big (or big.big alone), each `mma` one rounding
+    of (accumulator + exact chunk sum) to fp32.  `flushed`: each chunk's
+    products go into a fresh accumulator, added to the sum in fp32."""
+    pad = (-a.shape[-1]) % 8
+    if pad:
+        a = np.concatenate([a, np.zeros(a.shape[:-1] + (pad,), np.float32)], -1)
+        b = np.concatenate([b, np.zeros(b.shape[:-2] + (pad, b.shape[-1]), np.float32)], -2)
+    a_big, b_big = tf32_rna(a), tf32_rna(b)
+    a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
+    terms = ((a_small, b_big), (a_big, b_small), (a_big, b_big)) if three_terms else (
+        (a_big, b_big),)
+    total = np.zeros(a.shape[:-1] + (b.shape[-1],), np.float32)
+    acc = total
+    for k0 in range(0, a.shape[-1], 8):
+        if flushed:
+            acc = np.zeros_like(total)
+        for x, y in terms:
+            part = x[..., k0:k0 + 8].astype(np.float64) @ y[..., k0:k0 + 8, :].astype(np.float64)
+            acc = to_fp32(acc.astype(np.float64) + part, toward_zero)
+        if flushed:
+            total = total + acc
+    return total if flushed else acc
+
+
+def emulate_bwd(q, k, v, do, lse, delta, seg, scale, causal, **order):
+    """(dq, dk, dv) [B, T, H, D] of the two kernels from fp32 q, k, v, do
+    [B, T, H, D], lse and delta [B, H, T], segment ids [B, T]."""
+    t = q.shape[1]
+    bq, bk, bv, bo = (np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v, do))
+    s = product(bq, bk.transpose(0, 1, 3, 2), **order)
+    dp = product(bo, bv.transpose(0, 1, 3, 2), **order)
+    visible = seg[:, None, :, None] == seg[:, None, None, :]
+    if causal:
+        visible = visible & np.tril(np.ones((t, t), bool))
+    f32 = np.float32
+    p = np.where(visible, np.exp(s * f32(scale) - lse[..., None]), f32(0)).astype(f32)
+    ds = (p * (dp - delta[..., None]) * f32(scale)).astype(f32)
+    dv = product(p.transpose(0, 1, 3, 2), bo, **order)
+    dk = product(ds.transpose(0, 1, 3, 2), bq, **order)
+    dq = product(ds, bk, **order)
+    return tuple(x.transpose(0, 2, 1, 3) for x in (dq, dk, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name: str):
+    """Seeded inputs of CASES[name], the plain fp32 forward's o and lse, and
+    the plain fp32 backward (what the kernels are held against on the card)."""
+    b, t, h, d, lens, causal = CASES[name]
+    rng = np.random.default_rng(0)
+    q, k, v, do = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(4))
+    mask = np.ones((b, t), bool) if lens is None else np.arange(t)[None] < np.array(lens)[:, None]
+    scale = 1.0 / np.sqrt(d)
+    tq, tk, tv, tdo = (torch.from_numpy(z) for z in (q, k, v, do))
+    tmask = torch.from_numpy(mask)
+    o, lse = fa.flash_self_attention_plain(tq, tk, tv, tmask, scale, True, causal)
+    want = fa.flash_self_attention_bwd_plain(tq, tk, tv, tmask, scale, o, lse, tdo, causal)
+    delta = (o * tdo).sum(-1).permute(0, 2, 1).numpy()
+    inputs = dict(q=q, k=k, v=v, do=do, lse=lse.numpy(), delta=delta,
+                  seg=(~mask).astype(np.int32), scale=scale, causal=causal)
+    return inputs, o.numpy(), [w.numpy() for w in want]
+
+
+@functools.lru_cache(maxsize=None)
+def _emulated(name: str, three_terms: bool = True, flushed: bool = True):
+    inputs, _, _ = _case(name)
+    return emulate_bwd(**inputs, three_terms=three_terms, flushed=flushed)
+
+
+def _within_bar(got: np.ndarray, want: np.ndarray) -> bool:
+    top = float(np.abs(want).max())
+    return bool(np.all(np.abs(got - want) <= ATOL_REL * top + RTOL * np.abs(want)))
+
+
+def _upstream_reference(name: str):
+    """(dq, dk, dv) of upstream's `mha_reference_bwd` in fp32 with
+    SegmentIds (and `causal`).  It takes sm_scale 1 only, so it is handed
+    q * scale (exact: scale is 2^-3 at D 64) and its dq is scaled back."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, mha_reference_bwd
+
+    inputs, o, _ = _case(name)
+    q, k, v, do, seg = (inputs[n] for n in ("q", "k", "v", "do", "seg"))
+    scale, causal, t = inputs["scale"], inputs["causal"], q.shape[1]
+    assert scale == 0.125
+    qs = q * np.float32(scale)
+    scores = np.einsum("bqhd,bkhd->bhqk", qs.astype(np.float64), k.astype(np.float64))
+    visible = seg[:, None, :, None] == seg[:, None, None, :]
+    if causal:
+        visible = visible & np.tril(np.ones((t, t), bool))
+    scores = np.where(visible, scores, -np.inf)
+    m = scores.max(-1)
+    l = np.exp(scores - m[..., None]).sum(-1)
+    ids = jnp.asarray(seg)
+    bhtd = lambda z: jnp.asarray(np.swapaxes(np.asarray(z, np.float32), 1, 2))
+    dq, dk, dv, _ = mha_reference_bwd(
+        bhtd(qs), bhtd(k), bhtd(v), None, SegmentIds(q=ids, kv=ids), bhtd(o),
+        jnp.asarray(l, jnp.float32), jnp.asarray(m, jnp.float32), bhtd(do), causal=causal,
+        sm_scale=1.0)
+    dq = np.asarray(dq) * np.float32(scale)
+    return [np.swapaxes(np.asarray(x), 1, 2) for x in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("against", ["plain", "upstream"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_order_holds_the_fp32_bar(name, against):
+    """3xTF32, truncating `mma`, flushed per k-chunk: dq, dk and dv within
+    1e-4 of the largest magnitude + rtol 1e-3 of the port's plain fp32
+    backward and of upstream's reference."""
+    want = _case(name)[2] if against == "plain" else _upstream_reference(name)
+    for grad, got, w in zip(("dq", "dk", "dv"), _emulated(name), want):
+        top = float(np.abs(w).max())
+        torch.testing.assert_close(torch.tensor(got), torch.tensor(w), atol=ATOL_REL * top,
+                                   rtol=RTOL, msg=lambda m: f"{grad}: {m}")
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_tf32_fails_the_fp32_bar(name):
+    """One TF32 product (big.big alone) misses the bar on every gradient, so
+    the bar tells a kernel that dropped the small terms."""
+    got = _emulated(name, three_terms=False, flushed=False)
+    for grad, g, w in zip(("dq", "dk", "dv"), got, _case(name)[2]):
+        assert not _within_bar(g, w), f"{grad}: plain TF32 passes the bar, the test cannot tell"
+
+
+def test_flushed_sums_stay_at_fp32_level():
+    """Against a float64 backward at the causal shape (dk and dv sum over up
+    to 512 queries): the kernels' order errs within 3x of the plain fp32
+    backward's own error; the truncating accumulator carried over the whole
+    contraction errs over 5x of the flushed order on dk and dv."""
+    inputs, _, want = _case("causal")
+    t_in = {n: torch.from_numpy(inputs[n]).double() for n in ("q", "k", "v", "do")}
+    mask = torch.from_numpy(inputs["seg"] == 0)
+    o64, lse64 = fa.flash_self_attention_plain(t_in["q"], t_in["k"], t_in["v"], mask,
+                                               inputs["scale"], True, True)
+    exact = [x.numpy() for x in fa.flash_self_attention_bwd_plain(
+        t_in["q"], t_in["k"], t_in["v"], mask, inputs["scale"], o64, lse64, t_in["do"], True)]
+
+    def err(got):
+        return [float(np.abs(g.astype(np.float64) - e).max() / np.abs(e).max())
+                for g, e in zip(got, exact)]
+
+    fp32, flushed = err(want), err(_emulated("causal"))
+    carried = err(_emulated("causal", flushed=False))
+    for i, grad in enumerate(("dq", "dk", "dv")):
+        assert flushed[i] <= 3 * fp32[i], (grad, flushed[i], fp32[i])
+    for i, grad in ((1, "dk"), (2, "dv")):
+        assert carried[i] > 5 * flushed[i], (grad, carried[i], flushed[i])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_permuted_contraction_index(seed):
+    """Lane by lane, as `acc_as_a` and `load_bt` of the kernels build them:
+    the C fragment of a 16 x 8 score tile (c0, c1 at (g, 2t..2t+1), c2, c3 at
+    (g+8, 2t..2t+1)) taken as A = {c0, c2, c1, c3}, and B read from rows
+    k0 + 2t and k0 + 2t + 1, column 8 j + g of the other operand's tile.  Put
+    where m16n8k8 reads them (a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3
+    (g+8, t+4); b0 (k t, n g), b1 (k t+4, n g)), their product is exactly
+    C @ X[k0 : k0 + 8, 8 j : 8 j + 8]."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-8, 9, (16, 8)).astype(np.float64)  # a score tile's accumulator
+    x = rng.integers(-8, 9, (64, 64)).astype(np.float64)  # the other side's staged tile
+    k0, j = 8 * int(rng.integers(0, 8)), int(rng.integers(0, 8))
+    a_hw, b_hw = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        frag_c = (c[g, 2 * t], c[g, 2 * t + 1], c[g + 8, 2 * t], c[g + 8, 2 * t + 1])
+        a0, a1, a2, a3 = frag_c[0], frag_c[2], frag_c[1], frag_c[3]  # acc_as_a
+        a_hw[g, t], a_hw[g + 8, t], a_hw[g, t + 4], a_hw[g + 8, t + 4] = a0, a1, a2, a3
+        b0, b1 = x[k0 + 2 * t, 8 * j + g], x[k0 + 2 * t + 1, 8 * j + g]  # load_bt
+        b_hw[t, g], b_hw[t + 4, g] = b0, b1
+    np.testing.assert_array_equal(a_hw @ b_hw, c @ x[k0:k0 + 8, 8 * j:8 * j + 8])
