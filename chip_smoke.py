@@ -104,7 +104,8 @@ import torch
 
 SEED = 0
 FRAMES_PER_TOKEN = 6  # every token lasts exactly this long (duration bias log 7)
-KERNEL_TOL = dict(atol=1e-4, rtol=1e-3)  # fp32 FMA kernel vs cuBLAS fp32 einsum
+# fp32 kernel (3xTF32 products on the tensor cores, fp32 sums) vs cuBLAS fp32 einsum
+KERNEL_TOL = dict(atol=1e-4, rtol=1e-3)
 # kernel path vs plain path through 12 fp32 layers: the attention sums run in
 # another order, and cuDNN may pick other conv algorithms for the two runs
 MEL_TOL = dict(atol=5e-4, rtol=1e-3)
@@ -385,11 +386,14 @@ def phase_kernel(device: torch.device) -> dict:
             qt, kt, vt, attn_mask=visible, scale=scale))
         # bound: a query sees only the keys of its segment, so the products
         # this data needs are len^2 + (T - len)^2 per row, 4 FLOP per product
-        # and head-dim element (QK^T and PV); q, k, v read and out written once
+        # and head-dim element (QK^T and PV), each three TF32 products (3xTF32)
+        # against the dense TF32 rate, the fp32 FMA pipe's bound beside; q, k,
+        # v read and out written once
         pairs = sum(n * n + (t - n) * (t - n) for n in lens)
         flops = 4.0 * pairs * h * d
         nbytes = 4.0 * (4 * b * t * h * d + b * t)
-        bound = _bound(nbytes, flops)
+        bound = {**_bound(nbytes, flops, TF32_FLOPS / 3),
+                 "bound_fp32_fma_ms": _bound(nbytes, flops)["bound_ms"]}
         worst = max(worst, err_valid, err_pad)
         if (b, t) == (8, 3072):
             decoder_times = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
@@ -417,15 +421,18 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
 # not spill, and their SASS must hold HMMA instructions
 FLASH_MMA_KERNELS = {"bfloat16": ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
                                   "flash_bwd_dq_mma_kernel"),
-                     "float32": ("flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel")}
+                     "float32": ("flash_fwd_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
+                                 "flash_bwd_dq_tf32_kernel")}
 
 
 def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
     """Dynamic shared memory per block that the launch functions of
     csrc/flash_attention_{fwd,bwd}.cu ask for (ptxas reports static only)."""
-    tile, padded, stride4 = 64 * d, 64 * (d + 1), 64 * (d + 4)
+    tile, stride4 = 64 * d, 64 * (d + 4)
     if kernel == "flash_fwd_mma_kernel":
         return 2 * tile * 5
+    if kernel == "flash_fwd_tf32_kernel":  # Q tile 64 rows, K/V tiles 32
+        return 4 * (d + 4) * (2 * 64 + 4 * 32)
     if kernel == "flash_bwd_dkv_mma_kernel":
         return 2 * tile * 6 + 4 * 64 * 4
     if kernel == "flash_bwd_dq_mma_kernel":
@@ -434,8 +441,6 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
         return 4 * stride4 * 6 + 4 * 64 * 2
     if kernel == "flash_bwd_dq_tf32_kernel":
         return 4 * stride4 * 6
-    if kernel == "flash_fwd_kernel":
-        return 4 * (2 * padded + tile + 64 * 65) + 4 * 128
     raise ValueError(f"unknown flash kernel {kernel}")
 
 
@@ -539,9 +544,8 @@ def count_hmma(lib_path) -> Optional[dict]:
 def phase_kernel_build(lib_path) -> dict:
     """Registers, shared memory and spills of every flash kernel instance and
     every K3 instance from the build's `ptxas -v` log, and where `cuobjdump`
-    is installed the HMMA count of each; raises if a tensor-core kernel (the
-    bf16 flash kernels, the fp32 flash backward in 3xTF32, K3) spills or has
-    no HMMA."""
+    is installed the HMMA count of each; raises if a tensor-core kernel (every
+    flash kernel, bf16 and fp32 in 3xTF32, and K3) spills or has no HMMA."""
     from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
     everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
@@ -1168,12 +1172,11 @@ def _time_train_step(model, batch, optim_cfg: dict, card: str) -> dict:
 
 
 # K5-bwd and K5-causal against the plain versions.
-# fp32: the forward's FMA sums and the backward's 3xTF32 sums (flushed per
-# k-chunk into a round-to-nearest fp32 sum, at fp32's level) inside the
-# kernels against cuBLAS fp32 einsums over up to 4096 keys, so `o` and `lse`
-# are held to KERNEL_TOL and each gradient to an absolute error of 1e-4 of its
-# own largest magnitude plus rtol 1e-3 (the forward's KERNEL_TOL, made
-# relative to the gradient's scale).
+# fp32: the kernels' 3xTF32 sums, forward and backward (flushed per k-chunk
+# into a round-to-nearest fp32 sum, at fp32's level) against cuBLAS fp32
+# einsums over up to 4096 keys, so `o` and `lse` are held to KERNEL_TOL and
+# each gradient to an absolute error of 1e-4 of its own largest magnitude plus
+# rtol 1e-3 (the forward's KERNEL_TOL, made relative to the gradient's scale).
 FLASH_BWD_ATOL_REL = 1e-4
 FLASH_BWD_RTOL = 1e-3
 # bf16: the plain versions round where the kernels do, so what is left is the
@@ -1255,22 +1258,20 @@ def assert_flash_close(got: torch.Tensor, want: torch.Tensor, what: str) -> dict
     return out
 
 
-def _flash_bounds(pairs: float, shape, elem_bytes: float = 4.0,
-                  peak_flops: float = FP32_FLOPS, bwd_peak_flops: Optional[float] = None) -> dict:
+def _flash_bounds(pairs: float, shape, elem_bytes: float, peak_flops: float) -> dict:
     """Bounds of the attention functions over `pairs` visible (query, key)
     pairs per head at `shape` (B, T, H, D).  The backward as a function is
     five products (10 operations per pair and head-dim element); of them dkv
     does q.k^T, dO.v^T, p^T dO and dS^T q (8) and dq does q.k^T, dO.v^T and
     dS k (6), so the split does seven products for five.  The forward is two
     (4).  Bytes: q, k, v, (o,) dO read and the results written at
-    `elem_bytes` each, seg / lse / delta rows at four.  The backward's
-    operations are held against `bwd_peak_flops` (default `peak_flops`)."""
+    `elem_bytes` each, seg / lse / delta rows at four.  Operations are held
+    against `peak_flops`."""
     b, t, h, d = shape
     elems, rows, ops = elem_bytes * b * t * h * d, 4.0 * b * h * t, pairs * h * d
-    bwd_peak = peak_flops if bwd_peak_flops is None else bwd_peak_flops
-    return {"backward": _bound(8 * elems + 2 * rows, 10.0 * ops, bwd_peak),
-            "dkv_own_work": _bound(6 * elems + 3 * rows, 8.0 * ops, bwd_peak),
-            "dq_own_work": _bound(5 * elems + 3 * rows, 6.0 * ops, bwd_peak),
+    return {"backward": _bound(8 * elems + 2 * rows, 10.0 * ops, peak_flops),
+            "dkv_own_work": _bound(6 * elems + 3 * rows, 8.0 * ops, peak_flops),
+            "dq_own_work": _bound(5 * elems + 3 * rows, 6.0 * ops, peak_flops),
             "fwd_with_lse": _bound(4 * elems + 2 * rows, 4.0 * ops, peak_flops)}
 
 
@@ -1407,23 +1408,17 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
         # what this data needs: a query sees the keys of its segment, and with
         # `causal` those at or before it, so n^2 or n (n + 1) / 2 pairs for a
         # segment of n.  A bf16 element is two bytes and its products are held
-        # against the tensor cores' dense bf16 peak.  In fp32 the forward's
-        # are held against the FMA pipe and the backward's, three TF32
-        # products each, against the dense TF32 rate over three, with the FMA
-        # pipe's bounds beside (`bounds_fp32_fma`).
+        # against the tensor cores' dense bf16 peak.  In fp32 every product is
+        # three TF32 products, held against the dense TF32 rate over three,
+        # with the FMA pipe's bounds beside (`bounds_fp32_fma`).
         pairs = float(sum(n * (n + 1) // 2 if causal else n * n
                           for valid in lens for n in (valid, t - valid)))
-        if bf16:
-            bounds = _flash_bounds(pairs, shape, 2.0, BF16_FLOPS)
-        else:
-            bounds = _flash_bounds(pairs, shape, 4.0, FP32_FLOPS, TF32_FLOPS / 3)
-            fma = _flash_bounds(pairs, shape, 4.0, FP32_FLOPS)
-            case["bounds_fp32_fma"] = {k: fma[k] for k in ("backward", "dkv_own_work",
-                                                           "dq_own_work")}
+        peak = BF16_FLOPS if bf16 else TF32_FLOPS / 3
+        bounds = _flash_bounds(pairs, shape, 2.0 if bf16 else 4.0, peak)
+        if not bf16:
+            case["bounds_fp32_fma"] = _flash_bounds(pairs, shape, 4.0, FP32_FLOPS)
             line["bounds_fp32_fma"] = case["bounds_fp32_fma"]
-        peak = BF16_FLOPS if bf16 else FP32_FLOPS
         line.update(times, bounds=bounds, visible_pairs_per_head=pairs, peak_flops=peak,
-                    bwd_peak_flops=peak if bf16 else TF32_FLOPS / 3,
                     achieved_tflops={"fwd": 4.0 * pairs * h * d / times["fwd_with_lse_ms"] / 1e9,
                                      "dkv": 8.0 * pairs * h * d / times["dkv_ms"] / 1e9,
                                      "dq": 6.0 * pairs * h * d / times["dq_ms"] / 1e9},
@@ -2264,7 +2259,8 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
     if on_card:
         torch.cuda.empty_cache()
 
-    result = {"launches": launches, "per_micro_batch": per_micro_batch}
+    result = {"launches": launches, "per_micro_batch": per_micro_batch,
+              "fp32_check_launches": step32}
     if on_card:
         result["timing"] = _time_gpt_step(state, batch, accumulate, card)
     return result
@@ -2802,7 +2798,7 @@ def main() -> int:
         `own_work_bound_ms` counts the products this kernel does itself (the
         split recomputes q.k^T and dO.v^T).  `bound_share` (forward) and
         `own_work_bound_share` (dkv, dq) are bound over time.  In fp32 the
-        backward's bounds are at the 3xTF32 rate, with the FMA pipe's beside
+        bounds are at the 3xTF32 rate, with the FMA pipe's beside
         (`bound_fp32_fma_ms`, `own_work_bound_fp32_fma_ms`)."""
         def total(get):
             return sum(get(case) for case in cases)
@@ -2816,6 +2812,9 @@ def main() -> int:
                "bound_by": cases[-1]["bounds"]["fwd_with_lse"]["bound_by"],
                "library_ms": total(lambda c: c["times"]["fwd_library_ms"])}
         fwd["bound_share"] = fwd["bound_ms"] / fwd["ms"]
+        if "bounds_fp32_fma" in cases[-1]:
+            fwd["bound_fp32_fma_ms"] = total(
+                lambda c: c["bounds_fp32_fma"]["fwd_with_lse"]["bound_ms"])
         bwd = {name: {"ms": total(lambda c: c["times"][f"{name}_ms"]),
                       "backward_ms": total(lambda c: c["times"]["backward_ms"]),
                       "plain_ms": total(lambda c: c["times"]["backward_plain_ms"]),
@@ -2850,7 +2849,8 @@ def main() -> int:
                     for t, case in flash.items()}
     # K5-causal: every launch of phase `train_gpt`'s run is causal and bf16,
     # at (1, 4096, 32, 64); `ms` and its neighbours are one layer's call at
-    # that shape and type, `fp32` the same call in fp32;
+    # that shape and type, `fp32` the same call in fp32 (its launches: those
+    # of the fp32 micro-batch at 4 layers that phase `train_gpt` checks);
     # `launches_per_micro_batch` is the count of one micro-batch under
     # `remat_policy=flash`
     causal_fwd, causal_bwd = flash_rows([fcausal["path"]["bfloat16"]])
@@ -2858,15 +2858,19 @@ def main() -> int:
     causal_errors = list(fcausal["max_abs_err"].values())
     backward_kernels = (("dkv", ("dk", "dv")), ("dq", ("dq",)))
     kernels = [
-        # `ms` and its neighbours: serving's decoder shape (8, 3072, 1, 64);
+        # fp32 (3xTF32) on both of its paths: `launches` is serving's,
+        # `launches_train_fastpitch` the FastPitch run's; `ms` and its
+        # neighbours: serving's decoder shape (8, 3072, 1, 64);
         # `train_fastpitch`: the same at the training step's two shapes, with
         # the log-sum-exp written
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
+         "kernel": "flash_fwd_tf32_kernel", "dtype": "float32",
          "replaces": "roar_tpu/models/transformer.py:72", "causal": False,
          "launches": run["launches"], "launches_train_fastpitch": fp_train["launches"]["fwd"],
          "max_abs_err": max(kern["max_abs_err"], worst(flash_errors, "o")),
          **pick(kern), "library_ms": kern["library_ms"],
+         "bound_fp32_fma_ms": kern["bound_fp32_fma_ms"],
          "train_fastpitch": {**flash_fwd, "lse_max_abs_err": worst(flash_errors, "lse"),
                              "by_mel_or_text_bucket": flash_shapes}},
         *[{"name": f"flash_attention_bwd_{name}", "route": "cuda",
@@ -2878,10 +2882,12 @@ def main() -> int:
         {"name": "flash_attention_causal_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
-         "launches": gpt["launches"]["fwd"],
+         "kernel": "flash_fwd_mma_kernel", "launches": gpt["launches"]["fwd"],
          "launches_per_micro_batch": gpt["per_micro_batch"]["fwd"],
          "max_abs_err": worst(causal_errors, "o"),
-         "lse_max_abs_err": worst(causal_errors, "lse"), **causal_fwd, "fp32": causal_fwd32},
+         "lse_max_abs_err": worst(causal_errors, "lse"), **causal_fwd,
+         "fp32": {**causal_fwd32, "kernel": "flash_fwd_tf32_kernel",
+                  "launches": gpt["fp32_check_launches"]["fwd"]}},
         *[{"name": f"flash_attention_causal_bwd_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",

@@ -47,22 +47,16 @@
 // fp32 sum (dK and dV sum over up to 4096 queries, 512 chunks: carried in one
 // accumulator, the tensor cores' truncating sums drift to about 5e-5 of the
 // largest magnitude at (1, 4096, 32, 64) on an H100, against 4e-6 flushed).
-// The split is done by integer operations (`split_tf32_int`: the bits of
-// `cvt.rna`).  The block's own tiles (K, V for dK/dV; q, dO for dQ) stay fp32
-// and each A fragment is split after its ldmatrix load; the other side's tiles,
-// read as B operands by all four warps in both products, are split once per
-// tile in shared memory into a big and a small half.  That costs a tile of
-// shared memory per half, so they are staged in one stage, not two (two
-// blocks a SM at D <= 64 overlap each other's copies).
-// An m16n8k8 C fragment (c0, c1 at (g, 2t..2t+1)) is not its A fragment (a0
-// at (g, t), a2 at (g, t+4)), so the contraction index of the second products
-// is permuted within each k-chunk of 8: A's column t is C's column 2t and A's
-// column t + 4 is C's column 2t + 1, and the B operand (dO or q rows for dK/dV,
-// K rows for dQ) is read with the same permutation, rows 2t and 2t + 1.  No
-// shuffle, and p and dS never pass through shared memory.  Tiles are fp32
-// [64][D + 4] words: a row stride of 4 (mod 32) banks puts the 32 words of the
-// (row 2t, column g) reads of the second products in 32 banks, and the 8 row
-// addresses of each ldmatrix in 8 different 16-byte bank groups.
+// The block's own tiles (K, V for dK/dV; q, dO for dQ) stay fp32 and each A
+// fragment is split after its ldmatrix load; the other side's tiles, read as
+// B operands by all four warps in both products, are split once per tile in
+// shared memory into a big and a small half.  That costs a tile of shared
+// memory per half, so they are staged in one stage, not two (two blocks a SM
+// at D <= 64 overlap each other's copies).  The second products take p and dS
+// from the score accumulators as their A operand through a permuted
+// contraction index (B operand: dO or q rows for dK/dV, K rows for dQ), so p
+// and dS never pass through shared memory; tiles, split and permutation:
+// flash_attention_tf32.cuh, which the fp32 forward shares.
 // p = expf(s * scale - lse), as the FMA kernels they replaced.
 //
 // What bounds them on the H100: the function is five T x T x D products
@@ -90,7 +84,7 @@
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
-#include "tf32x3.cuh"
+#include "flash_attention_tf32.cuh"
 
 namespace {
 
@@ -491,97 +485,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // per tile in shared memory into a big and a small half (TF32 bit patterns).
 // ---------------------------------------------------------------------------
 
-using tf32x3::mma_3xtf32;
-using tf32x3::split_tf32_int;
-
-// rows r0 .. r0+63 of x[b, :, h, :] (row t at base + t * ld) into an fp32
-// tile of row stride D + 4 by 16-byte cp.async; rows past T are zero-filled
-template <int D>
-__device__ __forceinline__ void stage_tile_f32(float* dst, const float* __restrict__ x,
-                                               long base, long ld, int r0, int T, int tid) {
-  constexpr int CHUNKS = D / 4;
-#pragma unroll
-  for (int j = 0; j < fa_mma::ROWS * CHUNKS / fa_mma::THREADS; ++j) {
-    const int i = tid + j * fa_mma::THREADS;
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const bool in = r0 + r < T;
-    fa_mma::cp_async16(dst + r * (D + 4) + c * 4, x + base + (long)(in ? r0 + r : 0) * ld + c * 4,
-                       in);
-  }
-}
-
-// every word of a staged tile replaced by its big half, its small half
-// written to the same place of `small`
-template <int D>
-__device__ __forceinline__ void split_tile_f32(float* big, float* small, int tid) {
-  constexpr int CHUNKS = D / 4;
-#pragma unroll
-  for (int j = 0; j < fa_mma::ROWS * CHUNKS / fa_mma::THREADS; ++j) {
-    const int i = tid + j * fa_mma::THREADS;
-    const int at = (i / CHUNKS) * (D + 4) + (i % CHUNKS) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(big + at);
-    uint4 hi, lo;
-    split_tf32_int(v.x, hi.x, lo.x);
-    split_tf32_int(v.y, hi.y, lo.y);
-    split_tf32_int(v.z, hi.z, lo.z);
-    split_tf32_int(v.w, hi.w, lo.w);
-    *reinterpret_cast<uint4*>(big + at) = hi;
-    *reinterpret_cast<uint4*>(small + at) = lo;
-  }
-}
-
-// ldmatrix.x4 on 32-bit words: lane 4 g + t gets word t of row g of each of
-// the four 8 x 4-word matrices whose row addresses lanes 8 i .. 8 i + 7 give
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
-  fa_mma::ldmatrix_x4(r, reinterpret_cast<const fa_mma::bf16*>(p));
-}
-
-// the split A fragment of the 16 x 8 block at rows row0.., head-dim columns
-// 8 kc.. of an fp32 tile: a0 (g, t) a1 (g+8, t) a2 (g, t+4) a3 (g+8, t+4)
-template <int D>
-__device__ __forceinline__ void load_a_split(uint32_t (&big)[4], uint32_t (&small)[4],
-                                             const float* tile, int row0, int kc, int lane) {
-  uint32_t r[4];
-  ldsm_x4(r, tile + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * (D + 4) + 8 * kc +
-                 4 * (lane >> 4));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32_int(__uint_as_float(r[i]), big[i], small[i]);
-}
-
-// B fragments of the two n-tiles at rows n0 .. n0+7 and n0+8 .. n0+15 of a
-// split half (a row is a column n of B) over head-dim k-chunk kc: b0 (k t,
-// n g) = tile[n0 + g][8 kc + t], b1 at column 8 kc + t + 4; {b0, b1} of the
-// first n-tile in r[0..1], of the second in r[2..3]
-template <int D>
-__device__ __forceinline__ void load_b2(uint32_t (&r)[4], const float* half, int n0, int kc,
-                                        int lane) {
-  ldsm_x4(r, half + (n0 + (lane & 7) + 8 * (lane >> 4)) * (D + 4) + 8 * kc +
-                 4 * ((lane >> 3) & 1));
-}
-
-// the B fragment of the k-chunk over rows k0 .. k0+7 of a split half (rows
-// are k, head-dim columns 8 j .. 8 j + 7 are n) in the permuted contraction
-// order: b0 (k t, n g) = half[k0 + 2t][8 j + g], b1 (k t+4, n g) =
-// half[k0 + 2t + 1][8 j + g]
-template <int D>
-__device__ __forceinline__ void load_bt(uint32_t (&r)[2], const float* half, int k0, int j, int g,
-                                        int t) {
-  const float* p = half + (k0 + 2 * t) * (D + 4) + 8 * j + g;
-  r[0] = __float_as_uint(p[0]);
-  r[1] = __float_as_uint(p[D + 4]);
-}
-
-// the accumulator of one 8-wide n-tile (c0, c1 at (g, 2t..2t+1), c2, c3 at
-// (g+8, 2t..2t+1)) as the split A fragment of the k-chunk over those 8
-// columns, permuted as `load_bt` reads B: A's column t is C's column 2t, A's
-// column t + 4 is C's column 2t + 1
-__device__ __forceinline__ void acc_as_a(const float (&c)[4], uint32_t (&big)[4],
-                                         uint32_t (&small)[4]) {
-  split_tf32_int(c[0], big[0], small[0]);  // (g, 2t)
-  split_tf32_int(c[2], big[1], small[1]);  // (g+8, 2t)
-  split_tf32_int(c[1], big[2], small[2]);  // (g, 2t+1)
-  split_tf32_int(c[3], big[3], small[3]);  // (g+8, 2t+1)
-}
+using namespace flash::tf32;
 
 // ---------------------------------------------------------------------------
 // The fp32 dK/dV kernel.  One block of 4 warps per 64-key tile; warp w owns

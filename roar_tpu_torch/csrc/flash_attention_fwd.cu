@@ -1,5 +1,5 @@
 // Segment-masked flash-attention forward, non-causal and causal, fp32 and
-// bf16, for Hopper (sm_90a).
+// bf16, for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces: the upstream Pallas TPU kernel
 // `jax.experimental.pallas.ops.tpu.flash_attention` with SegmentIds, that
@@ -11,41 +11,65 @@
 //
 // Layout: q, k, v, out are contiguous [B, T, H, D], fp32 or bf16 (see
 // flash_attention_common.cuh for the roundings of the bf16 form); seg is
-// [B, T] int32.  Two kernels, one contract:
+// [B, T] int32.  Two kernels, one block layout and one contract: one block of
+// 4 warps per (64-query tile, head, batch row); warp w owns query rows
+// 16 w .. 16 w + 15 whole, so that a row's running max and sum reduce within
+// its lane quad and no barrier sits between the two products.  Per key tile:
+//   S = Q K^T             (fp32 sums; then s = S * scale, masked)
+//   p = exp(s - m)        in registers, m the row's running maximum
+//   O = O * alpha + P V   (p stays in registers as the A operand)
+// so the [T, T] scores never reach device memory.
 //
-// fp32, `flash_fwd_kernel` on the FMA pipe: one thread block per (64-query
-// tile, head, batch row); 256 threads as a 16 x 16 grid: thread (ty, tx) owns
-// query rows 4*ty .. 4*ty+3, score columns tx + 16*j of each 64-key tile, and
-// output columns tx + 16*j.  K/V tiles are staged in shared memory as fp32;
-// each row keeps a running max and sum (online softmax) and an fp32
-// accumulator in registers, so the [T, T] scores never reach device memory.
-// At D = 64 every fused multiply-add reads shared memory (one load per two
-// FMAs), so the FMA pipe waits on shared-memory bandwidth, not on HBM.
+// bf16, `flash_fwd_mma_kernel` (mma.sync m16n8k16, fp32 sums;
+// flash_attention_mma.cuh): p's accumulator fragment is rounded to bf16 as
+// the A operand of p.v (its row sum taken unrounded); V is read by
+// ldmatrix.trans.  K/V tiles of 64 keys are staged by cp.async into a
+// double-buffered, swizzled bf16 layout, the next tile's copy overlapping the
+// current tile's products.
 //
-// bf16, `flash_fwd_mma_kernel` on the tensor cores (mma.sync m16n8k16, fp32
-// sums; flash_attention_mma.cuh): one block of 4 warps per (64-query tile,
-// head, batch row), each warp owning 16 whole query rows, so that the row max
-// and sum reduce within a lane quad and no barrier sits between the two
-// products.  q.k^T is scaled in fp32 after the product; p stays in registers,
-// its accumulator fragment rounded to bf16 as the A operand of p.v (its row
-// sum taken unrounded); V is read by ldmatrix.trans.  K/V tiles of 64 keys are
-// staged by cp.async into a double-buffered, swizzled bf16 layout, the next
-// tile's copy overlapping the current tile's products.  What bounds it on the
-// H100: the two products (4 B H T^2 D operations against the 989 TFLOP/s bf16
-// peak) and, at D 64, as much again in per-element softmax work on the
-// FMA and SFU pipes (scale, mask, max, exp, row sum, rescale of o); with 16
-// rows a warp, every warp reads the whole K/V tile from shared memory.
-// Later work: wgmma on 64-row warpgroup tiles with TMA staging and warp
+// fp32, `flash_fwd_tf32_kernel` (mma.sync m16n8k8 on TF32, tf32x3.cuh;
+// tiles, split and permutation: flash_attention_tf32.cuh): every fp32
+// operand is split into TF32 parts, and each k-chunk of 8 forms its partial
+// products in a fresh accumulator that one round-to-nearest add puts into the
+// fp32 sum (the tensor cores' own sums truncate).  S = Q K^T is 3xTF32
+// (small.big, big.small, big.big).  P V splits V exactly, big + mid + low
+// (`mma_4xtf32`, four products): a two-part split keeps 22 of fp32's 24 bits,
+// and a row that sees a single key must get o = v to the bit, as the
+// backward's cancellation dP - delta then reads 1e-6 for every bit lost.  The
+// Q tile is staged once and split into big and small halves in shared
+// memory; each K/V tile of 32 keys is staged by cp.async and split once (K
+// into halves, V into big half and unrounded rest), read as B operands by all
+// four warps.  Each 8-key n-tile of the score accumulator is the split A
+// fragment of one k-chunk of P V through the permuted contraction index
+// (`acc_as_a`; V rows read by `load_bt`): p is not rounded to a narrower type,
+// and the row sum is taken from the same p.  p = exp2((s - m) * log2 e): the
+// row's largest element gets exactly 1.  Shared memory, two 64-row and four
+// 32-row tiles of D + 4 words: 70 KB at D 64, three blocks a SM (with 64-key
+// tiles two fit, and the kernel ran 12 to 16 % slower at (1, 4096, 32, 64)
+// causal on an H100); one stage, so each block's copies wait for its
+// products and the other blocks' overlap them.
+//
+// What bounds them on the H100: the two products, 4 B H pairs D operations
+// (pairs: the visible (query, key) pairs per head), against the 989 TFLOP/s
+// dense bf16 peak, or in fp32 three TF32 products each against 494.7 / 3 =
+// 165 TFLOP/s (the bound counts three for P V too, not the four it takes);
+// and, at D 64, as much again in per-element softmax work on the FMA and SFU
+// pipes (scale, mask, max, exp, row sum, rescale of o), with the splits and
+// flush adds beside it in fp32.  What holds them back from it:
+// `mma.sync` rather than `wgmma`, every warp reading the whole staged K/V
+// tile from shared memory (16 rows a warp), cp.async rather than TMA.  Later
+// work: wgmma on 64-row warpgroup tiles with TMA staging and warp
 // specialisation, 128-row query tiles, and a GQA-aware kernel (K/V are
 // repeated before the call today).
 //
 // Both kernels: rows past T load as zeros and are never stored (T is never
 // padded).  A K/V tile whose segment ids all lie outside the query tile's
 // [min, max] segment range is skipped without being loaded (pad keys for a
-// tile of valid queries, and the reverse).  With `causal` the key loop ends at
-// the query tile's own diagonal tile, which is masked element by element, and
-// the query tiles are handed out longest first, so that the short ones fill
-// the tail.
+// tile of valid queries, and the reverse); the ragged edge, the diagonal tile
+// and a tile whose ids are not all the query tile's single id are masked
+// element by element, the rest is not.  With `causal` the key loop ends at
+// the query tile's last row, and the query tiles are handed out longest
+// first, so that the short ones fill the tail.
 //
 // Training: when the caller passes `lse`, each in-range row also writes its
 // log-sum-exp `m + log l` to lse[B, H, T] (one tensor in place of the TPU
@@ -53,206 +77,13 @@
 // flash_attention_bwd.cu recompute the probabilities from.  With a null
 // pointer the kernel does what it did before.
 
-#include <climits>
-
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
+#include "flash_attention_tf32.cuh"
 
 namespace {
 
 using namespace flash;
-
-constexpr int BQ = TILE;    // query rows per block
-constexpr int BK = TILE;    // keys per tile
-constexpr int PS = BK + 1;  // padded row stride of the P tile
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * PS) +
-         sizeof(int) * (BQ + BK);
-}
-
-// Shared memory lets three blocks of D <= 64 live on an SM (66 KB each) and
-// one of D = 128: the register budget is set for that many, so that ptxas
-// neither spills to fit a fourth block nor starves the third.
-template <int D>
-__global__ void __launch_bounds__(THREADS, (D <= 64 ? 3 : 1))
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ seg,
-                 float* __restrict__ out, float* __restrict__ lse, int T, int H, float scale,
-                 int causal) {
-  constexpr int DP = D + 1;   // padded row stride of the Q and K tiles
-  constexpr int CJ = D / 16;  // output columns per thread
-
-  extern __shared__ float smem[];
-  float* Qs = smem;            // [BQ][DP]
-  float* Ks = Qs + BQ * DP;    // [BK][DP]
-  float* Vs = Ks + BK * DP;    // [BK][D]
-  float* Ps = Vs + BK * D;     // [BQ][PS]
-  int* segq = reinterpret_cast<int*>(Ps + BQ * PS);  // [BQ]
-  int* segk = segq + BQ;                             // [BK]
-  __shared__ int qlo, qhi;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long ld = (long)H * D;  // elements between consecutive t
-  const long base = (long)b * T * ld + (long)h * D;
-  const int* segb = seg + (long)b * T;
-
-  if (tid == 0) {
-    qlo = INT_MAX;
-    qhi = INT_MIN;
-  }
-  load_tile<D, DP>(Qs, q, base, ld, q0, T, tid);
-  __syncthreads();
-  if (tid < BQ) {
-    const int s = (q0 + tid < T) ? segb[q0 + tid] : 0;
-    segq[tid] = s;
-    if (q0 + tid < T) {
-      atomicMin(&qlo, s);
-      atomicMax(&qhi, s);
-    }
-  }
-  __syncthreads();
-
-  float m[4], l[4], acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = neg_inf();
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-  }
-
-  // causal: the tiles past the diagonal tile (k0 == q0) hold no visible key
-  const int k_end = causal ? min(T, q0 + BQ) : T;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    // Every read of the previous tile's segk finished before the barrier
-    // that followed its P tile; this barrier also ends its reads of Vs/Ps.
-    bool seen = false;
-    if (tid < BK) {
-      const int s = (k0 + tid < T) ? segb[k0 + tid] : 0;
-      segk[tid] = s;
-      seen = (k0 + tid < T) && s >= qlo && s <= qhi;
-    }
-    if (!__syncthreads_or(seen)) continue;
-
-    load_tile<D, DP>(Ks, k, base, ld, k0, T, tid);
-    load_tile<D, D>(Vs, v, base, ld, k0, T, tid);
-    __syncthreads();
-    // causal: key c of this tile is visible to row r when k0 + c <= q0 + r
-    const int lim = causal ? q0 - k0 : BK;
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int sq = segq[r];
-      float mx = neg_inf();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = (k0 + c < T) && segk[c] == sq && (c - r <= lim);
-        s[i][j] = ok ? s[i][j] * scale : neg_inf();
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 threads sharing row r are one half-warp: lanes differing in
-      // their low four bits
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      // a row that has seen no visible key yet keeps m = -inf; exponents
-      // are then taken against 0 so that no -inf - -inf makes a NaN
-      const float m_use = (m_new == neg_inf()) ? 0.f : m_new;
-      const float alpha = expf(m[i] - m_use);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_use);
-        Ps[r * PS + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float vv[CJ];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) vv[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(ty * 4 + i) * PS + c];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t < T) {
-      // l > 0: every in-range query sees at least its own key
-      const float inv = 1.f / l[i];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) out[base + t * ld + tx + 16 * j] = acc[i][j] * inv;
-      if (lse != nullptr && tx == 0) lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
-                   float* lse, int B, int T, int H, float scale, int causal,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      seg, static_cast<float*>(out), lse, T, H, scale, causal);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* seg,
-                     void* out, float* lse, int B, int T, int H, float scale, int causal,
-                     cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<32>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
-    case 64: return launch<64>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
-    case 128: return launch<128>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // The bf16 form on the tensor cores.  One block of 4 warps per (64-query tile,
@@ -444,29 +275,228 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 form on the tensor cores, 3xTF32 (see the notes at the top).  The
+// bf16 kernel's block layout and loop; Q is held split in shared memory, and
+// each 32-key K/V tile is staged in one stage and split in place.
+// ---------------------------------------------------------------------------
+
+constexpr int BK = 32;  // keys of a staged K/V tile in the fp32 kernel
+
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const int* seg, void* out,
-                       float* lse, int B, int T, int H, float scale, int causal,
-                       cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+constexpr size_t tf32_smem_bytes() {
+  // Q as big and small halves (64 rows); K as big and small halves, V as big
+  // half and rest (32 rows each)
+  return sizeof(float) * (D + 4) * (2 * fa_mma::ROWS + 4 * BK);
+}
+
+template <int D>
+__global__ void __launch_bounds__(fa_mma::THREADS)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ seg,
+                      float* __restrict__ out, float* __restrict__ lse, int T, int H,
+                      float scale, int causal) {
+  using namespace fa_mma;
+  using namespace flash::tf32;
+  constexpr int QW = ROWS * (D + 4);  // words of the staged Q tile
+  constexpr int KW = BK * (D + 4);    // words of a staged K or V tile
+  constexpr int KC = D / 8;           // k-chunks of q.k^T; n-tiles of the output
+  constexpr int NC = BK / 8;          // 8-key n-tiles of a K/V tile
+  // D 128 unrolls its loop over the k-chunks of q.k^T 8 times of 16 (ptxas
+  // spilled at 2 and 4)
+  constexpr int UNROLL = D <= 64 ? KC : 8;
+
+  extern __shared__ float4 smem_fwd_tf32[];
+  float* Qbig = reinterpret_cast<float*>(smem_fwd_tf32);
+  float* Qsmall = Qbig + QW;
+  float* Kbig = Qsmall + QW;
+  float* Ksmall = Kbig + KW;
+  float* Vbig = Ksmall + KW;
+  float* Vrest = Vbig + KW;  // v - big, unrounded
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+
+  int qlo, qhi;
+  segment_range(segb, q0, T, lane, qlo, qhi);
+  // causal: the keys past the query tile's last row are visible to none of it
+  const int k_end = causal ? min(T, q0 + ROWS) : T;
+
+  stage_tile_f32<D>(Qbig, q, base, ld, q0, T, tid);
+  cp_async_commit();
+  bool uniform, uniform_next;
+  int k0 = next_tile<BK>(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+
+  // this thread's two rows, r and r + 8 of the warp's 16
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile_f32<D>(Qbig, Qsmall, tid);  // read after the loop's first barrier
+
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  float o[KC][4];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  while (k0 < k_end) {  // always entered: every in-range query sees its own key
+    stage_tile_f32<D, BK>(Kbig, k, base, ld, k0, T, tid);
+    stage_tile_f32<D, BK>(Vbig, v, base, ld, k0, T, tid);
+    cp_async_commit();
+    const int kn = next_tile<BK>(segb, k0 + BK, k_end, T, qlo, qhi, lane, uniform_next);
+    cp_async_wait<0>();
+    __syncthreads();
+    split_tile_f32<D, false, BK>(Kbig, Ksmall, tid);
+    split_tile_f32<D, true, BK>(Vbig, Vrest, tid);
+    __syncthreads();
+
+    // element (n, e) of s: row e < 2 ? g : g + 8, key k0 + 8 n + 2 t4 + (e & 1)
+    float s[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll(UNROLL)
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qb[4], qs[4];
+      load_a_f32<D>(qb, Qbig, warp * 16, kc, lane);
+      load_a_f32<D>(qs, Qsmall, warp * 16, kc, lane);
+#pragma unroll
+      for (int n = 0; n < NC; n += 2) {
+        uint32_t kb[4], ks[4];
+        load_b2<D>(kb, Kbig, 8 * n, kc, lane);
+        load_b2<D>(ks, Ksmall, 8 * n, kc, lane);
+        mma_3xtf32(s[n], qb, qs, kb[0], kb[1], ks[0], ks[1]);
+        mma_3xtf32(s[n + 1], qb, qs, kb[2], kb[3], ks[2], ks[3]);
+      }
+    }
+
+    // the ragged edge, the diagonal tiles and a tile whose ids are not all
+    // the query tile's single id are masked element by element
+    const bool masked = !uniform || k0 + BK > T || (causal && k0 + BK > q0);
+    float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (masked) {
+          const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          const bool ok = key < T && segb[key] == (e < 2 ? seg0 : seg1) &&
+                          (!causal || key <= row);
+          x = ok ? x : neg_inf();
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // a row that has seen no visible key yet keeps m = -inf; exponents
+      // are then taken against 0 so that no -inf - -inf makes a NaN
+      m_use[i] = (m_new == neg_inf()) ? 0.f : m_new;
+      alpha[i] = exp2f((m[i] - m_use[i]) * LOG2E);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // (s - m) first: the row's largest element gets exactly 1
+        const float p = exp2f((s[n][e] - m_use[e >> 1]) * LOG2E);
+        l[e >> 1] += p;  // this thread's share of the row sum, of the p that enters P V
+        s[n][e] = p;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+    // n-tile n of p is the A operand of the k-chunk over its 8 keys; each
+    // output n-tile j takes the tile's k-chunks in turn (at D 128 the other
+    // loop order spills)
+    uint32_t pb[NC][4], ps[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc_as_a(s[n], pb[n], ps[n]);
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        uint32_t vb[2], vr[2];
+        load_bt<D>(vb, Vbig, 8 * n, j, g, t4);
+        load_bt<D>(vr, Vrest, 8 * n, j, g, t4);
+        mma_4xtf32(o[j], pb[n], ps[n], vb[0], vb[1], vr[0], vr[1]);
+      }
+    }
+    __syncthreads();  // every warp is done with this tile before the next is staged
+    k0 = kn;
+    uniform = uniform_next;
+  }
+
+  // element (j, e) of o: row e < 2 ? g : g + 8, head-dim column 8 j + 2 t4 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int t = i == 0 ? row0 : row1;
+    if (t < T) {
+      // l > 0: every in-range query sees at least its own key
+      const float inv = 1.f / l[i];
+      float* dst = out + base + (long)t * ld + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+      if (lse != nullptr && t4 == 0) lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+// each kernel and its dynamic shared memory by element type
+template <int D>
+auto fwd_kernel(const float*) { return flash_fwd_tf32_kernel<D>; }
+template <int D>
+auto fwd_kernel(const __nv_bfloat16*) { return flash_fwd_mma_kernel<D>; }
+
+// One block of fa_mma::THREADS per (64-query tile, head, batch row).  `Elem`
+// is float (the 3xTF32 kernel) or __nv_bfloat16 (the bf16 kernel).
+template <int D, typename Elem>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
+                   float* lse, int B, int T, int H, float scale, int causal,
+                   cudaStream_t stream) {
+  constexpr size_t smem = sizeof(Elem) == 2 ? mma_smem_bytes<D>() : tf32_smem_bytes<D>();
+  const auto kernel = fwd_kernel<D>(static_cast<const Elem*>(nullptr));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + fa_mma::ROWS - 1) / fa_mma::ROWS, H, B);
-  flash_fwd_mma_kernel<D><<<grid, fa_mma::THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(out), lse, T, H,
-      scale, causal);
+  kernel<<<grid, fa_mma::THREADS, smem, stream>>>(
+      static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v), seg,
+      static_cast<Elem*>(out), lse, T, H, scale, causal);
   return cudaGetLastError();
 }
 
-cudaError_t launch_mma_d(int D, const void* q, const void* k, const void* v, const int* seg,
-                         void* out, float* lse, int B, int T, int H, float scale, int causal,
-                         cudaStream_t s) {
+template <typename Elem>
+cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* seg,
+                     void* out, float* lse, int B, int T, int H, float scale, int causal,
+                     cudaStream_t s) {
   switch (D) {
-    case 32: return launch_mma<32>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
-    case 64: return launch_mma<64>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
-    case 128: return launch_mma<128>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    case 32: return launch<32, Elem>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    case 64: return launch<64, Elem>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    case 128: return launch<128, Elem>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -480,8 +510,9 @@ extern "C" int roar_flash_attention_fwd(const void* q, const void* k, const void
                                         void* stream) {
   if (flash::bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return (int)launch_mma_d(D, q, k, v, seg, out, lse, B, T, H, scale, causal, s);
-  return (int)launch_d(D, q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+  if (bf16) return (int)launch_d<__nv_bfloat16>(D, q, k, v, seg, out, lse, B, T, H, scale,
+                                                causal, s);
+  return (int)launch_d<float>(D, q, k, v, seg, out, lse, B, T, H, scale, causal, s);
 }
 
 extern "C" const char* roar_cuda_error_string(int err) {

@@ -171,17 +171,18 @@ __device__ __forceinline__ void segment_range(const int* __restrict__ segb, int 
   hi = __reduce_max_sync(0xffffffffu, mx);
 }
 
-// The first tile start t0, t0 + 64, ... below `end` that holds an in-range row
-// whose segment id lies in [lo, hi] (`end` if none).  `uniform` says that
-// every in-range row of that tile carries the id lo == hi, so that no element
-// of it needs the segment mask.  Every warp computes the same answer from the
-// same ids.
+// The first tile start t0, t0 + R, ... below `end` of R-row tiles (R 32 or
+// 64) that holds an in-range row whose segment id lies in [lo, hi] (`end` if
+// none).  `uniform` says that every in-range row of that tile carries the id
+// lo == hi, so that no element of it needs the segment mask.  Every warp
+// computes the same answer from the same ids.
+template <int R = ROWS>
 __device__ __forceinline__ int next_tile(const int* __restrict__ segb, int t0, int end, int T,
                                          int lo, int hi, int lane, bool& uniform) {
-  for (; t0 < end; t0 += ROWS) {
+  for (; t0 < end; t0 += R) {
     bool seen = false, other = false;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < R / 32; ++i) {
       const int r = t0 + lane + 32 * i;
       if (r < T) {
         const int s = segb[r];

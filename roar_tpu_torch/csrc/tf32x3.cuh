@@ -1,7 +1,7 @@
 // 3xTF32: fp32 products at fp32's level on the tensor cores, from TF32
 // `mma.sync.m16n8k8` with fp32 sums.  Shared by the grouped-conv kernel K3
-// (grouped_conv.cu) and the fp32 flash-attention backward
-// (flash_attention_bwd.cu).
+// (grouped_conv.cu) and the fp32 flash-attention kernels, forward, dK/dV and
+// dQ (flash_attention_{fwd,bwd}.cu, through flash_attention_tf32.cuh).
 //
 // One TF32 product keeps 10 mantissa bits of each operand, about 3e-4 of the
 // result's scale, over the fp32 bars of those kernels.  So every fp32 operand

@@ -8,12 +8,12 @@ kernel `jax.experimental.pallas.ops.tpu.flash_attention` (`SegmentIds`, with
 launches, `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`.  The
 kernels are `csrc/flash_attention_fwd.cu` and `csrc/flash_attention_bwd.cu`;
 their source notes say what bounds them on the H100 and what their design does
-about it.  In bf16 the forward, the dK/dV and the dQ kernel run on the tensor
-cores (`mma.sync`, `csrc/flash_attention_mma.cuh`).  In fp32 the dK/dV and dQ
-kernels run on the tensor cores too, in 3xTF32 (`mma.sync` on TF32, each
-operand split into big + small, each k-chunk's three products flushed into a
-round-to-nearest fp32 sum: `csrc/tf32x3.cuh`), at fp32's level; the fp32
-forward runs on the FMA pipe.  The C interface is the same for all.
+about it.  Every kernel runs on the tensor cores (`mma.sync`): in bf16 the
+forward, the dK/dV and the dQ kernel (`csrc/flash_attention_mma.cuh`); in
+fp32 the same three in 3xTF32 (TF32 products of operands split into big +
+small, each k-chunk's products flushed into a round-to-nearest fp32 sum:
+`csrc/tf32x3.cuh`, `csrc/flash_attention_tf32.cuh`), at fp32's level.  The C
+interface is the same for all.
 
 Semantics: softmax attention in which query i sees key j only when both carry
 the same segment id and, with `causal`, j <= i.  Valid tokens have id 0 and

@@ -11,24 +11,29 @@ change, parent).  Builds that checkout's kernels, then times in `--dtype`
 `causal=True` and the 20 s FastPitch bucket's (32, 864, 1, 64) without it (or
 only the `--shape`s, causal unless `--non-causal`): the forward with its
 log-sum-exp, the dK/dV kernel, the dQ kernel, the whole backward as the
-autograd Function calls it (delta + dK/dV + dQ) and, as a yardstick, autograd
-of `F.scaled_dot_product_attention`, each the median of 20 calls by CUDA
-events after 3 warm-up calls.  With `--ragged` (non-causal only) each batch
+autograd Function calls it (delta + dK/dV + dQ) and, as yardsticks,
+`F.scaled_dot_product_attention` and its autograd, each the median of 20
+calls by CUDA events after 3 warm-up calls.  With `--ragged` (non-causal only) each batch
 row has a seeded valid length in [0.4 T, T] (the first T) and the segment
 mask of padding, as FastPitch's batches have, and SDPA takes that mask.
-Beside them each backward kernel's own bound:
-the dQ kernel's three T x T x D products (6 pairs D operations per head and
-batch row) and the dK/dV kernel's four (8 pairs D), in bf16 over the 989
-TFLOP/s dense bf16 peak; in fp32 over the 3xTF32 rate (494.7 TFLOP/s dense
-TF32 over three products), with the same work over the 67 TFLOP/s of the fp32
-FMA pipe beside.  In fp32 also each gradient's largest difference from the
-plain version (`flash_self_attention_bwd_plain`) over its largest magnitude.
+Beside them each kernel's own bound, from the visible (query, key) pairs:
+the forward's two T x T x D products (4 pairs D operations per head and
+batch row), the dQ kernel's three (6 pairs D) and the dK/dV kernel's four
+(8 pairs D), in bf16 over the 989 TFLOP/s dense bf16 peak; in fp32 over the
+3xTF32 rate (494.7 TFLOP/s dense TF32 over three products), with the same
+work over the 67 TFLOP/s of the fp32 FMA pipe beside.  In fp32 also the
+largest difference of o, lse and each gradient from the plain versions
+(`flash_self_attention_plain`, `flash_self_attention_bwd_plain`) over its
+largest magnitude.  `bits` holds a short SHA-256 of each kernel's result,
+the backward's taken from the plain forward's o and lse, so that two
+checkouts' kernels can be shown bit-identical (or not) on the same inputs.
 Prints one JSON line per shape with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -108,6 +113,8 @@ def main() -> int:
             "causal": causal, "ragged": args.ragged, "dtype": args.dtype, "card": card,
             "fwd_with_lse_ms": timed(lambda: fa.flash_self_attention(
                 q, k, v, key_mask, scale, return_lse=True, causal=causal)),
+            "fwd_library_ms": timed(lambda: F.scaled_dot_product_attention(
+                qt.detach(), kt.detach(), vt.detach(), scale=scale, **how)),
             "dkv_ms": timed(lambda: bwd(need_dq=False, delta=delta)),
             "dq_ms": timed(lambda: bwd(need_dkv=False, delta=delta)),
             "backward_ms": timed(bwd),
@@ -115,21 +122,31 @@ def main() -> int:
                 lib_out, (qt, kt, vt), lib_do, retain_graph=True)),
         }
         peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32_FLOPS / 3
-        for name, per_pair in (("dkv", 8.0), ("dq", 6.0)):
+        for name, per_pair, timed_as in (("fwd", 4.0, "fwd_with_lse"), ("dkv", 8.0, "dkv"),
+                                         ("dq", 6.0, "dq")):
             ops = per_pair * pairs * b * h * d
             result[f"{name}_own_bound_ms"] = ops / peak * 1e3
             result[f"{name}_own_bound_share"] = (result[f"{name}_own_bound_ms"]
-                                                 / result[f"{name}_ms"])
+                                                 / result[f"{timed_as}_ms"])
             if dtype == torch.float32:
                 result[f"{name}_own_bound_fp32_fma_ms"] = ops / FP32_FLOPS * 1e3
         if dtype == torch.float32:
-            got = bwd()
-            want = fa.flash_self_attention_bwd_plain(q, k, v, key_mask, scale, out, lse, do,
-                                                     causal)
+            got = (out, lse, *bwd())
+            out_p, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, True, causal)
+            want = (out_p, lse_p, *fa.flash_self_attention_bwd_plain(
+                q, k, v, key_mask, scale, out, lse, do, causal))
             result["rel_to_largest"] = {
                 name: float((a - w).abs().max() / w.abs().max())
-                for name, a, w in zip(("dq", "dk", "dv"), got, want)}
-            del got, want
+                for name, a, w in zip(("o", "lse", "dq", "dk", "dv"), got, want)}
+            del got, want, out_p, lse_p
+        out_p, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, True, causal)
+        results = (out, lse, *fa.flash_self_attention_bwd(q, k, v, key_mask, scale,
+                                                          out_p.contiguous(), lse_p, do,
+                                                          causal=causal))
+        result["bits"] = {name: hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy()
+                                               .tobytes()).hexdigest()[:16]
+                          for name, x in zip(("o", "lse", "dq", "dk", "dv"), results)}
+        del out_p, lse_p, results
         print(json.dumps(result), flush=True)
         del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out, key_mask, how
         torch.cuda.empty_cache()

@@ -96,9 +96,10 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
                                      (2, 130, 2, 128)])
 def test_cuda_kernel_matches_plain(b, t, h, d, dtype):
     """Ragged segment masks: a full row, a single valid key, half, T - 37, a
-    pad-heavy row of 5 valid keys.  fp32 (the FMA kernel) against the cuBLAS
-    fp32 einsum: summation order only.  bf16 (the tensor-core kernel) at the
-    bars of `chip_smoke.assert_flash_close`, with `lse` and without."""
+    pad-heavy row of 5 valid keys.  fp32 (the tensor-core kernel in 3xTF32,
+    at fp32's level) against the cuBLAS fp32 einsum: summation order only.
+    bf16 (the tensor-core kernel) at the bars of
+    `chip_smoke.assert_flash_close`, with `lse` and without."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -263,8 +264,9 @@ def test_multihead_attn_gradients_match_jax():
 
 
 # kernel vs plain on the card: fp32, every gradient within atol = 1e-4 of its
-# largest magnitude and rtol 1e-3 (fp32 FMA sums against cuBLAS fp32 einsums);
-# bf16 at the bars of `chip_smoke.assert_flash_close`
+# largest magnitude and rtol 1e-3 (the kernels' 3xTF32 sums on the tensor
+# cores, at fp32's level, against cuBLAS fp32 einsums); bf16 at the bars of
+# `chip_smoke.assert_flash_close`
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,t,h,d", [(4, 200, 1, 64), (2, 130, 2, 32), (2, 70, 2, 128),
@@ -461,9 +463,10 @@ def _chip_smoke():
 def test_cuda_causal_kernels_match_plain(case, dtype):
     """Forward (with and without lse), dkv and dq with `causal=True` against
     the plain versions, at the bars of `chip_smoke.assert_flash_close`: fp32
-    as the non-causal kernels; bf16 against plain versions that round at the
-    same places, element by element within 2^-6 of the value + 2^-7 of its
-    row's largest, and within 1e-2 in relative L2."""
+    (the tensor-core kernels in 3xTF32) as the non-causal kernels; bf16
+    against plain versions that round at the same places, element by element
+    within 2^-6 of the value + 2^-7 of its row's largest, and within 1e-2 in
+    relative L2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     close = _chip_smoke().assert_flash_close
@@ -537,9 +540,9 @@ def _bf16_bar_inputs():
     return q, k, v, do, 1.0 / 8.0
 
 
-# (query tile, key tile): the FMA kernel's 64 x 64 block; the tensor-core
-# kernel's 16-row warp tile over 64-key tiles; 128-row tiles over 64-key tiles,
-# where the diagonal spans two key tiles
+# (query tile, key tile): a 64 x 64 block; the tensor-core kernel's 16-row
+# warp tile over 64-key tiles; 128-row tiles over 64-key tiles, where the
+# diagonal spans two key tiles
 TILINGS = [(64, 64), (16, 64), (128, 64)]
 
 
@@ -595,107 +598,3 @@ def test_bf16_bar_fails_a_fault_among_the_late_rows(fault):
     assert float((got.float() - want.float()).abs().max()) < 0.1 * float(want.float().abs().max())
     with pytest.raises(AssertionError):
         close(got, want, fault)
-
-
-def _tiled_dkv_bf16(q, k, v, do, o, lse, scale, k_tile=64, chunk=16, skip_diagonal=False):
-    """dK and dV of the causal attention as the tensor-core dK/dV kernel
-    orders them: per key tile, the query tiles from the diagonal on, 16
-    queries at a time; P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T -
-    delta) * scale in fp32, each rounded to bf16 before its product, fp32
-    accumulators rounded once at the end.  `skip_diagonal` leaves out the
-    query tile on the key tile's own diagonal, as a loop starting one tile
-    late would."""
-    b, t, h, d = q.shape
-    q32, k32, v32, do32 = (z.float() for z in (q, k, v, do))
-    delta = (o.float() * do32).sum(-1).permute(0, 2, 1)  # [B, H, T]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    for k0 in range(0, t, k_tile):
-        keys = torch.arange(k0, min(k0 + k_tile, t))
-        acc_dk = torch.zeros(b, h, len(keys), d)
-        acc_dv = torch.zeros(b, h, len(keys), d)
-        for q0 in range(k0, t, k_tile):
-            if skip_diagonal and q0 == k0:
-                continue
-            for c0 in range(q0, min(q0 + k_tile, t), chunk):
-                rows = torch.arange(c0, min(c0 + chunk, t))
-                st = torch.einsum("bkhd,bqhd->bhkq", k32[:, keys], q32[:, rows])
-                dpt = torch.einsum("bkhd,bqhd->bhkq", v32[:, keys], do32[:, rows])
-                pt = torch.exp(st * scale - lse[:, :, None, rows])
-                pt = pt.masked_fill(keys[:, None] > rows[None, :], 0.0)
-                dst = pt * (dpt - delta[:, :, None, rows]) * scale
-                acc_dv += torch.einsum("bhkq,bqhd->bhkd", pt.bfloat16().float(), do32[:, rows])
-                acc_dk += torch.einsum("bhkq,bqhd->bhkd", dst.bfloat16().float(), q32[:, rows])
-        dk[:, keys] = acc_dk.permute(0, 2, 1, 3).to(k.dtype)
-        dv[:, keys] = acc_dv.permute(0, 2, 1, 3).to(v.dtype)
-    return dk, dv
-
-
-@pytest.mark.parametrize("skip_diagonal", [False, True], ids=["kernel_order", "diagonal_skipped"])
-def test_bf16_bar_takes_the_tensor_core_dkv_order(skip_diagonal):
-    """The dK/dV kernel's loop order and roundings pass the bar against the
-    plain backward at (1, 1024, 2, 64); the same loop starting one query tile
-    late fails it."""
-    close = _chip_smoke().assert_flash_close
-    q, k, v, do, scale = _bf16_bar_inputs()
-    o, lse = fa.flash_self_attention_plain(q, k, v, None, scale, True, causal=True)
-    _, dk_w, dv_w = fa.flash_self_attention_bwd_plain(q, k, v, None, scale, o, lse, do, True)
-    dk, dv = _tiled_dkv_bf16(q, k, v, do, o, lse, scale, skip_diagonal=skip_diagonal)
-    for name, got, want in (("dk", dk, dk_w), ("dv", dv, dv_w)):
-        if skip_diagonal:
-            with pytest.raises(AssertionError):
-                close(got, want, name)
-        else:
-            assert not torch.equal(got, want)
-            errs = close(got, want, name)
-            assert errs["worst_share_of_bar"] < 0.75 and errs["rel_l2"] < 5e-3
-
-
-def _tiled_dq_bf16(q, k, v, do, o, lse, scale, q_tile=64, warp_rows=16, chunk=16,
-                   skip_diagonal=False):
-    """dQ of the causal attention as the tensor-core dQ kernel orders it: per
-    64-query tile, 16 queries a warp; the key tiles up to the diagonal, 16
-    keys at a time; P = exp(S * scale - lse) and dS = P (dP - delta) * scale
-    in fp32 from the unrounded P, dS rounded to bf16 before dS K, fp32
-    accumulators rounded once at the end.  `skip_diagonal` leaves out the key
-    tile on the query tile's own diagonal, as a loop ending one tile early
-    would."""
-    b, t, h, d = q.shape
-    q32, k32, v32, do32 = (z.float() for z in (q, k, v, do))
-    delta = (o.float() * do32).sum(-1).permute(0, 2, 1)  # [B, H, T]
-    dq = torch.empty_like(q)
-    for q0 in range(0, t, q_tile):
-        for w0 in range(q0, min(q0 + q_tile, t), warp_rows):
-            rows = torch.arange(w0, min(w0 + warp_rows, t))
-            acc = torch.zeros(b, h, len(rows), d)
-            for k0 in range(0, min(q0 + q_tile, t), q_tile):
-                if skip_diagonal and k0 == q0:
-                    continue
-                for c0 in range(k0, min(k0 + q_tile, t), chunk):
-                    keys = torch.arange(c0, min(c0 + chunk, t))
-                    s_ = torch.einsum("bqhd,bkhd->bhqk", q32[:, rows], k32[:, keys])
-                    dp = torch.einsum("bqhd,bkhd->bhqk", do32[:, rows], v32[:, keys])
-                    p = torch.exp(s_ * scale - lse[:, :, rows, None])
-                    p = p.masked_fill(keys[None, :] > rows[:, None], 0.0)
-                    ds = p * (dp - delta[:, :, rows, None]) * scale
-                    acc += torch.einsum("bhqk,bkhd->bhqd", ds.bfloat16().float(), k32[:, keys])
-            dq[:, rows] = acc.permute(0, 2, 1, 3).to(q.dtype)
-    return dq
-
-
-@pytest.mark.parametrize("skip_diagonal", [False, True], ids=["kernel_order", "diagonal_skipped"])
-def test_bf16_bar_takes_the_tensor_core_dq_order(skip_diagonal):
-    """The dQ kernel's loop order and roundings pass the bar against the
-    plain backward at (1, 1024, 2, 64); the same loop ending one key tile
-    early fails it."""
-    close = _chip_smoke().assert_flash_close
-    q, k, v, do, scale = _bf16_bar_inputs()
-    o, lse = fa.flash_self_attention_plain(q, k, v, None, scale, True, causal=True)
-    dq_w = fa.flash_self_attention_bwd_plain(q, k, v, None, scale, o, lse, do, True)[0]
-    dq = _tiled_dq_bf16(q, k, v, do, o, lse, scale, skip_diagonal=skip_diagonal)
-    if skip_diagonal:
-        with pytest.raises(AssertionError):
-            close(dq, dq_w, "dq")
-    else:
-        assert not torch.equal(dq, dq_w)
-        errs = close(dq, dq_w, "dq")
-        assert errs["worst_share_of_bar"] < 0.75 and errs["rel_l2"] < 5e-3

@@ -1,4 +1,4 @@
-"""The arithmetic of the fp32 flash-attention backward kernels (K5 dK/dV and
+"""The arithmetic of the fp32 flash-attention kernels (K5 forward, dK/dV and
 dQ on the tensor cores, 3xTF32), emulated in numpy on the CPU.
 
 `csrc/flash_attention_bwd.cu` forms every product of the fp32 backward, the
@@ -34,9 +34,24 @@ error over the largest magnitude of dq, dk, dv against the plain version):
 3xTF32 flushed 2e-7 to 1.4e-6; 3xTF32 unflushed 1e-6 to 9e-6; plain TF32
 (big.big only) 3e-4 to 1.2e-3, which fails the bar, so a kernel that dropped
 the small terms would fail it too.
+
+The forward (`csrc/flash_attention_fwd.cu`) forms S = q.k^T the same way and,
+per 32-key tile, the online softmax (running maximum, p = 2^((s - m) log2 e),
+o rescaled by alpha) and P V with p's accumulator as the split A operand.
+For P V it splits V exactly, big + mid + low (`mma_4xtf32`: the rest v - big
+with its 13 low bits cleared, and what remains), since a row that sees one
+key must get o = v to the bit; `test_forward_single_key_rows_get_v_exactly`
+shows that a two-part split misses bits there.  The emulation holds o and lse
+to `chip_smoke.KERNEL_TOL` (and o to `assert_flash_close`'s fp32 bar)
+against the port's plain fp32 forward and upstream's `mha_reference` at the
+same two cases.  What it reads: o 1.9e-7 to 3.3e-7 of its largest magnitude,
+lse 4.8e-7 to 9.5e-7 absolute (0.0017 to 0.0026 of KERNEL_TOL); plain TF32 in
+both products 2.1e-4 to 4.4e-4 of the largest magnitude, 2.7 to 3.8 times
+KERNEL_TOL, which fails it.
 """
 
 import functools
+from typing import Optional
 
 import numpy as np
 import pytest
@@ -44,7 +59,7 @@ import torch
 
 from roar_tpu_torch.kernels import flash_attention as fa
 
-ATOL_REL = 1e-4  # chip_smoke.FLASH_BWD_ATOL_REL, unchanged from the FMA kernels
+ATOL_REL = 1e-4  # chip_smoke.FLASH_BWD_ATOL_REL
 RTOL = 1e-3      # chip_smoke.FLASH_BWD_RTOL
 # (B, T, H, D, valid lengths or None, causal): the GPT path's kind, and
 # FastPitch's kind with a ragged T, a short row and a single valid key
@@ -69,21 +84,32 @@ def to_fp32(v: np.ndarray, toward_zero: bool) -> np.ndarray:
 
 
 def product(a: np.ndarray, b: np.ndarray, three_terms: bool = True, toward_zero: bool = True,
-            flushed: bool = True) -> np.ndarray:
+            flushed: bool = True, exact_b: bool = False,
+            init: Optional[np.ndarray] = None) -> np.ndarray:
     """a [..., M, K] @ b [..., K, N] as the kernels sum it: k-chunks of 8 in
     order (K padded with zeros, as the kernels mask a ragged tile), per chunk
     small.big, big.small, big.big (or big.big alone), each `mma` one rounding
     of (accumulator + exact chunk sum) to fp32.  `flushed`: each chunk's
-    products go into a fresh accumulator, added to the sum in fp32."""
+    products go into a fresh accumulator, added to the sum in fp32.
+    `exact_b`: b split exactly as the forward's P V splits V (`mma_4xtf32`):
+    small.big, big.low, big.mid, big.big, where mid is the rest b - big with
+    its 13 low bits cleared and low = rest - mid.  `init`: the sum the
+    chunks are added to (default zeros)."""
     pad = (-a.shape[-1]) % 8
     if pad:
         a = np.concatenate([a, np.zeros(a.shape[:-1] + (pad,), np.float32)], -1)
         b = np.concatenate([b, np.zeros(b.shape[:-2] + (pad, b.shape[-1]), np.float32)], -2)
     a_big, b_big = tf32_rna(a), tf32_rna(b)
     a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
-    terms = ((a_small, b_big), (a_big, b_small), (a_big, b_big)) if three_terms else (
-        (a_big, b_big),)
-    total = np.zeros(a.shape[:-1] + (b.shape[-1],), np.float32)
+    if exact_b and three_terms:
+        rest = (b - b_big).astype(np.float32)
+        mid = (rest.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+        terms = ((a_small, b_big), (a_big, rest - mid), (a_big, mid), (a_big, b_big))
+    elif three_terms:
+        terms = ((a_small, b_big), (a_big, b_small), (a_big, b_big))
+    else:
+        terms = ((a_big, b_big),)
+    total = np.zeros(a.shape[:-1] + (b.shape[-1],), np.float32) if init is None else init
     acc = total
     for k0 in range(0, a.shape[-1], 8):
         if flushed:
@@ -243,3 +269,144 @@ def test_permuted_contraction_index(seed):
         b0, b1 = x[k0 + 2 * t, 8 * j + g], x[k0 + 2 * t + 1, 8 * j + g]  # load_bt
         b_hw[t, g], b_hw[t + 4, g] = b0, b1
     np.testing.assert_array_equal(a_hw @ b_hw, c @ x[k0:k0 + 8, 8 * j:8 * j + 8])
+
+
+# ---------------------------------------------------------------------------
+# The forward (`flash_fwd_tf32_kernel`, csrc/flash_attention_fwd.cu)
+
+FWD_KEYS = 32  # keys of a staged K/V tile of the forward kernel
+LOG2E = np.float32(1.4426950408889634)
+KERNEL_TOL = dict(atol=1e-4, rtol=1e-3)  # chip_smoke.KERNEL_TOL: o and lse
+
+
+def _exp2(x: np.ndarray) -> np.ndarray:
+    """2^x of fp32 arguments, rounded to fp32 (the card's exp2f errs within 2
+    ulp of this)."""
+    return np.exp2(x.astype(np.float64)).astype(np.float32)
+
+
+def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exact_b=True):
+    """(o [B, T, H, D], lse [B, H, T]) as `flash_fwd_tf32_kernel` forms them
+    from fp32 q, k, v [B, T, H, D] and segment ids [B, T]: S = q.k^T in
+    `product`'s order; per 32-key tile, s = S * scale masked to -inf, the
+    running maximum m, alpha = 2^((m_old - m) log2 e), p = 2^((s - m) log2 e)
+    (exactly 1 at the row's largest), o = o * alpha + p.V with p split as the
+    A operand and V split exactly (`exact_b`); the row sum in each lane's
+    order (keys 8 n + 2 t + e of a tile for lane t, a quad's four sums added
+    pairwise at the end), o / l and lse = m + log l.  A tile the kernel skips
+    is all masked here, which changes nothing: alpha is 1 and p 0."""
+    b, t, h, d = q.shape
+    bq, bk, bv = (np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v))
+    order = dict(three_terms=three_terms, flushed=flushed)
+    s = product(bq, bk.transpose(0, 1, 3, 2), **order)
+    visible = seg[:, None, :, None] == seg[:, None, None, :]
+    if causal:
+        visible = visible & np.tril(np.ones((t, t), bool))
+    f32 = np.float32
+    x = np.where(visible, (s * f32(scale)).astype(f32), f32(-np.inf))
+    pad = (-t) % FWD_KEYS
+    x = np.concatenate([x, np.full((b, h, t, pad), -np.inf, f32)], -1)
+    bv = np.concatenate([bv, np.zeros((b, h, pad, d), f32)], -2)
+    m = np.full((b, h, t), -np.inf, f32)
+    lanes = np.zeros((b, h, t, 4), f32)
+    o = np.zeros((b, h, t, d), f32)
+    for k0 in range(0, t + pad, FWD_KEYS):
+        xt = x[..., k0:k0 + FWD_KEYS]
+        m_new = np.maximum(m, xt.max(-1))
+        m_use = np.where(m_new == -np.inf, f32(0), m_new)
+        alpha = _exp2((m - m_use) * LOG2E)
+        p = _exp2((xt - m_use[..., None]) * LOG2E)
+        lanes = lanes * alpha[..., None]
+        for n in range(FWD_KEYS // 8):
+            for e in range(2):
+                lanes = lanes + p[..., 8 * n + 2 * np.arange(4) + e]
+        o = product(p, bv[..., k0:k0 + FWD_KEYS, :], init=o * alpha[..., None],
+                    exact_b=exact_b, **order)
+        m = m_new
+    l = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
+    o = o * (f32(1) / l)[..., None]
+    lse = m + np.log(l.astype(np.float64)).astype(f32)
+    return o.transpose(0, 2, 1, 3), lse
+
+
+@functools.lru_cache(maxsize=None)
+def _emulated_fwd(name: str, **order):
+    inputs, _, _ = _case(name)
+    return emulate_fwd(*(inputs[n] for n in ("q", "k", "v", "seg", "scale", "causal")), **order)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_fwd(name: str):
+    """(o, lse) of the port's plain fp32 forward (what the card holds the
+    kernel against)."""
+    inputs, o, _ = _case(name)
+    mask = torch.from_numpy(inputs["seg"] == 0)
+    q, k, v = (torch.from_numpy(inputs[n]) for n in ("q", "k", "v"))
+    _, lse = fa.flash_self_attention_plain(q, k, v, mask, inputs["scale"], True,
+                                           inputs["causal"])
+    return o, lse.numpy()
+
+
+def _upstream_fwd(name: str):
+    """(o, lse) of upstream's `mha_reference` in fp32 with SegmentIds (and
+    `causal`); lse = m + log l from its residuals."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas.ops.tpu.flash_attention import (
+        SegmentIds, mha_reference, mha_reference_no_custom_vjp)
+
+    inputs, _, _ = _case(name)
+    q, k, v = (jnp.asarray(np.swapaxes(inputs[n], 1, 2)) for n in ("q", "k", "v"))
+    ids = jnp.asarray(inputs["seg"])
+    how = dict(segment_ids=SegmentIds(q=ids, kv=ids), causal=inputs["causal"],
+               sm_scale=float(inputs["scale"]))
+    o = np.swapaxes(np.asarray(mha_reference(q, k, v, None, **how)), 1, 2)
+    _, l, m = mha_reference_no_custom_vjp(q, k, v, None, save_residuals=True, **how)
+    return o, np.asarray(m) + np.log(np.asarray(l))
+
+
+def _fwd_within_bars(o, lse, want_o, want_lse) -> bool:
+    """o within KERNEL_TOL and within 1e-4 of its largest magnitude + rtol
+    1e-3 (`assert_flash_close` in fp32), lse within KERNEL_TOL."""
+    top = float(np.abs(want_o).max())
+    err = np.abs(o - want_o)
+    return bool(np.all(err <= KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * np.abs(want_o))
+                and np.all(err <= ATOL_REL * top + RTOL * np.abs(want_o))
+                and np.all(np.abs(lse - want_lse)
+                           <= KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * np.abs(want_lse)))
+
+
+@pytest.mark.parametrize("against", ["plain", "upstream"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_forward_kernel_order_holds_the_fp32_bars(name, against):
+    """S in 3xTF32 and P V with V split exactly, truncating `mma`, flushed per
+    k-chunk, the online softmax per 32-key tile: o and lse within KERNEL_TOL
+    (and o within `assert_flash_close`'s fp32 bar) of the port's plain fp32
+    forward and of upstream's `mha_reference`."""
+    want_o, want_lse = _plain_fwd(name) if against == "plain" else _upstream_fwd(name)
+    o, lse = _emulated_fwd(name)
+    torch.testing.assert_close(torch.tensor(o), torch.tensor(want_o), **KERNEL_TOL)
+    torch.testing.assert_close(torch.tensor(lse), torch.tensor(want_lse), **KERNEL_TOL)
+    assert _fwd_within_bars(o, lse, want_o, want_lse)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_forward_plain_tf32_fails_the_fp32_bars(name):
+    """One TF32 product (big.big alone) in both products misses the bars, so
+    they tell a forward that dropped the small terms."""
+    o, lse = _emulated_fwd(name, three_terms=False, flushed=False)
+    assert not _fwd_within_bars(o, lse, *_plain_fwd(name))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_forward_single_key_rows_get_v_exactly(name):
+    """A row that sees one key (the first causal row; the ragged case's row
+    of length 1) has p = 1, and with V split exactly its o is that key's v to
+    the bit, as the backward's dP - delta needs; a two-part split of V (3xTF32
+    on both products) misses bits there."""
+    inputs, _, _ = _case(name)
+    rows = (slice(None), 0) if inputs["causal"] else (2, 0)  # (batch, token)
+    v = inputs["v"][rows]
+    exact = _emulated_fwd(name)[0][rows]
+    two_part = _emulated_fwd(name, exact_b=False)[0][rows]
+    np.testing.assert_array_equal(exact, v)
+    assert not np.array_equal(two_part, v)

@@ -371,7 +371,7 @@ def test_chip_smoke_gpt_phase_rehearsal_on_the_cpu(capsys):
     out = chip_smoke.phase_train_gpt(torch.device("cpu"), narrow=True, seq_length=256,
                                      vocab_size=300)
     none = {"fwd": 0, "dkv": 0, "dq": 0}
-    assert out == {"launches": none, "per_micro_batch": none}
+    assert out == {"launches": none, "per_micro_batch": none, "fp32_check_launches": none}
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
              if line.startswith("{")]
     steps = {line["step"]: line for line in lines if line.get("phase") == "train_gpt"}
