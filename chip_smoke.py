@@ -468,16 +468,22 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
 def _conv_instance(mangled: str) -> Optional[tuple]:
     """("conv_mma_kernel", "fwd" or "dx", (WN, NT, MT)) of a K3 instance's
     mangled name (template arguments: warps along the output channels,
-    n-tiles and m-tiles per warp, dX), else None."""
+    n-tiles and m-tiles per warp, dX), or ("dw_mma_kernel", "dw", (NT, MT))
+    of a K4 instance's (n-tiles of the block, m-tiles per warp), else None."""
     found = re.search(r"(conv_mma_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", mangled)
-    if found is None:
-        return None
-    return (found.group(1), "dx" if found.group(5) == "1" else "fwd",
-            tuple(int(found.group(i)) for i in (2, 3, 4)))
+    if found is not None:
+        return (found.group(1), "dx" if found.group(5) == "1" else "fwd",
+                tuple(int(found.group(i)) for i in (2, 3, 4)))
+    found = re.search(r"(dw_mma_kernel)ILi(\d+)ELi(\d+)E", mangled)
+    if found is not None:
+        return found.group(1), "dw", (int(found.group(2)), int(found.group(3)))
+    return None
 
 
-# the K3 instances `dispatch_conv_mma` of csrc/grouped_conv.cu can launch
+# the K3 instances `dispatch_conv_mma` of csrc/grouped_conv.cu can launch,
+# and the K4 instances of `roar_grouped_conv_dw` (`dw_tiles`)
 CONV_MMA_TILES = [(wn, nt, mt) for wn, nt in ((1, 1), (1, 2), (1, 4), (2, 4)) for mt in (1, 2)]
+DW_MMA_TILES = [(1, 4), (2, 4), (4, 4), (8, 2)]
 
 
 def _any_instance(mangled: str) -> Optional[tuple]:
@@ -543,13 +549,15 @@ def count_hmma(lib_path) -> Optional[dict]:
 
 def phase_kernel_build(lib_path) -> dict:
     """Registers, shared memory and spills of every flash kernel instance and
-    every K3 instance from the build's `ptxas -v` log, and where `cuobjdump`
-    is installed the HMMA count of each; raises if a tensor-core kernel (every
-    flash kernel, bf16 and fp32 in 3xTF32, and K3) spills or has no HMMA."""
+    every K3 and K4 instance from the build's `ptxas -v` log, and where
+    `cuobjdump` is installed the HMMA count of each; raises if a tensor-core
+    kernel (every flash kernel, bf16 and fp32 in 3xTF32, K3 and K4) spills or
+    has no HMMA."""
     from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
     everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
-    table = {key: info for key, info in everything.items() if key[0] != "conv_mma_kernel"}
+    table = {key: info for key, info in everything.items()
+             if key[0] not in ("conv_mma_kernel", "dw_mma_kernel")}
     hmma = count_hmma(lib_path)
     rows = []
     for (kernel, dtype, d), info in sorted(table.items()):
@@ -568,25 +576,28 @@ def phase_kernel_build(lib_path) -> dict:
                     raise AssertionError(f"{kernel}<{d}> spills: {info}")
                 if hmma is not None and hmma.get((kernel, dtype, d), 0) == 0:
                     raise AssertionError(f"{kernel}<{d}> has no HMMA instruction in its SASS")
-    # K3, fp32 in and out, 3xTF32 products: one dynamic shared memory size
-    # per launch (csrc/grouped_conv.cu `k3_smem`), so none is listed here
+    # K3 and K4, fp32 in and out, 3xTF32 products: one dynamic shared memory
+    # size per launch (csrc/grouped_conv.cu `k3_smem`, `launch_dw`), so none
+    # is listed here
     conv_rows = []
-    for view in ("fwd", "dx"):
-        for tiles in CONV_MMA_TILES:
-            key = ("conv_mma_kernel", view, tiles)
-            info = everything.get(key)
-            if info is None or info["registers"] is None:
-                raise AssertionError(f"conv_mma_kernel<{tiles}, {view}> is not in the ptxas log")
-            if info["spill_store_bytes"] or info["spill_load_bytes"]:
-                raise AssertionError(f"conv_mma_kernel<{tiles}, {view}> spills: {info}")
-            row = {"kernel": "conv_mma_kernel", "view": view, "wn_nt_mt": list(tiles),
-                   "dtype": "float32 (3xTF32 products)", **info}
-            if hmma is not None:
-                row["hmma"] = hmma.get(key, 0)
-                if row["hmma"] == 0:
-                    raise AssertionError(f"conv_mma_kernel<{tiles}, {view}> has no HMMA "
-                                         "instruction in its SASS")
-            conv_rows.append(row)
+    for kernel, view, tiles in ([("conv_mma_kernel", view, tiles) for view in ("fwd", "dx")
+                                 for tiles in CONV_MMA_TILES]
+                                + [("dw_mma_kernel", "dw", tiles) for tiles in DW_MMA_TILES]):
+        key = (kernel, view, tiles)
+        info = everything.get(key)
+        if info is None or info["registers"] is None:
+            raise AssertionError(f"{kernel}<{tiles}, {view}> is not in the ptxas log")
+        if info["spill_store_bytes"] or info["spill_load_bytes"]:
+            raise AssertionError(f"{kernel}<{tiles}, {view}> spills: {info}")
+        row = {"kernel": kernel, "view": view,
+               ("wn_nt_mt" if view != "dw" else "nt_mt"): list(tiles),
+               "dtype": "float32 (3xTF32 products)", **info}
+        if hmma is not None:
+            row["hmma"] = hmma.get(key, 0)
+            if row["hmma"] == 0:
+                raise AssertionError(f"{kernel}<{tiles}, {view}> has no HMMA instruction in "
+                                     "its SASS")
+        conv_rows.append(row)
     line = {"phase": "kernel_build", "instances": rows, "grouped_conv_instances": conv_rows,
             "cuobjdump": hmma is not None}
     _emit(line)
@@ -668,10 +679,10 @@ def phase_kernel_viterbi(device: torch.device) -> dict:
 
 # K3/K4 against the plain versions.  fp32 sums of up to 64 x 41 products
 # (forward), 64 x 11 (dX per phase) and 32 x 4096 (dW) run in another order
-# than cuBLAS's inside the plain einsum, and K3 forms its products in 3xTF32
-# (up to about 2.6e-6 of the scale on an H100; one TF32 product alone would
-# read about 3e-4): the bar is the largest difference relative to the
-# largest magnitude of the result
+# than cuBLAS's inside the plain einsum, and both kernels form their products
+# in 3xTF32 (K3 up to about 2.6e-6 of the scale on an H100; one TF32 product
+# alone would read about 3e-4): the bar is the largest difference relative
+# to the largest magnitude of the result
 GROUPED_CONV_REL_TOL = 2e-4
 # (B, W, cin, cout, k, s, g, pad): the shape classes of tests/test_grouped_conv.py
 GROUPED_CONV_SMALL = [
@@ -710,10 +721,9 @@ def _chunked(fn, chunk: int = 4):
     return run_sum if fn.__name__.endswith("dw_plain") else run_cat
 
 
-# the peak rate of each grouped-conv kernel's operations: K3 does three TF32
-# products on the tensor cores for each fp32 multiply-add, K4 runs on the
-# fp32 FMA pipe
-GROUPED_CONV_PEAK_FLOPS = {"fwd": TF32_FLOPS / 3, "dx": TF32_FLOPS / 3, "dw": FP32_FLOPS}
+# the peak rate of each grouped-conv kernel's operations: K3 and K4 do three
+# TF32 products on the tensor cores for each fp32 multiply-add
+GROUPED_CONV_PEAK_FLOPS = {"fwd": TF32_FLOPS / 3, "dx": TF32_FLOPS / 3, "dw": TF32_FLOPS / 3}
 
 
 def grouped_conv_inputs(case, gen, device) -> tuple:
@@ -754,7 +764,7 @@ def grouped_conv_calls(case, x, w, dy) -> dict:
 def grouped_conv_bound(name: str, nbytes: float, flops: float) -> dict:
     """`_bound` at the kernel's own peak (`GROUPED_CONV_PEAK_FLOPS`), and
     `bound_fp32_fma_ms`, the same work on the fp32 FMA pipe, which compares
-    with the rows of the FMA kernels."""
+    with the times of the FMA kernels these replaced."""
     return {**_bound(nbytes, flops, GROUPED_CONV_PEAK_FLOPS[name]),
             "bound_fp32_fma_ms": _bound(nbytes, flops)["bound_ms"]}
 
@@ -787,8 +797,8 @@ def phase_kernel_grouped_conv(device: torch.device, batch: int = 32, segment: in
     shape classes and at the 15 production shapes, two runs of each kernel
     bit for bit, the autograd Function against autograd of F.conv1d; returns
     per kernel the worst error and the times summed over the 15 production
-    shapes, with `grouped_conv_bound` (K3's `bound_ms` on the tensor cores'
-    3xTF32 rate, `bound_fp32_fma_ms` beside it)."""
+    shapes, with `grouped_conv_bound` (`bound_ms` on the tensor cores' 3xTF32
+    rate, `bound_fp32_fma_ms` beside it)."""
     import torch.nn.functional as F
 
     from roar_tpu_torch.kernels import grouped_conv as gk
@@ -2908,7 +2918,7 @@ def main() -> int:
          **pick(vit["backtrack"]), "library_ms": None},
         # K3 and K4: times and bounds summed over the 15 grouped-conv shapes
         # of one discriminator pass (B = 32); library = cuDNN with TF32 off;
-        # K3's bound on the tensor cores (3xTF32), the fp32 FMA bound beside
+        # bounds on the tensor cores (3xTF32), the fp32 FMA bound beside
         *[{"name": f"grouped_conv_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/grouped_conv.cu", "replaces": replaces,
            "launches": train["launches"][name], "max_abs_err": conv[name]["max_abs_err"],

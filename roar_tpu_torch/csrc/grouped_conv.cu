@@ -64,16 +64,40 @@
 //   is packed in device memory.  Tail positions that no tap reaches get 0.
 //   No atomics: each output is one accumulator of one thread, summed in a
 //   fixed order, so two runs give the same bits.
-// K4 (`dw_partial_kernel` + `dw_reduce_kernel`), on the FMA pipe.  The TPU
-//   kernel carries its sum along a sequential grid axis; blocks here run in
-//   no order, and the output (G x Og x Cg k values) alone cannot fill 132
-//   SMs, so the batch x width range is split into `parts`: a block owns
-//   (group, 8 RO output channels, 128 (channel, tap) pairs, one part), walks
-//   its part in tiles of 64 positions staged in shared memory (dy transposed
-//   so that the output channels of one position are one broadcast load), and
-//   keeps an RO x 4 register tile for the whole walk.  Partial sums go to a
-//   workspace and a second kernel adds them in part order: no float atomics,
-//   so two runs give the same bits.
+// K4 (`dw_mma_kernel` + `dw_reduce_kernel`) also runs on the tensor cores in
+//   3xTF32: an implicit GEMM per group with M = the group's (input channel,
+//   tap) pairs, N = its output channels (one n-tile of 8 per 8 of them, up
+//   to 64 a block) and K = batch x width positions.  The TPU kernel carries
+//   its sum along a sequential grid axis; blocks here run in no order, and
+//   the output (G x Og x Cg k values) alone cannot fill 132 SMs, so the
+//   positions are split into `parts` (a count that depends on the shape
+//   only): a block of 4 warps owns (group, BM pairs, up to 64 output
+//   channels, one part), each warp MT m-tiles of pairs by all the block's
+//   n-tiles, and walks its part in items of 64 positions of one batch row.
+//   Per item it stages, by `cp.async` with zero fill in two buffers (the
+//   next item's copies in flight while this one is multiplied; 16-byte
+//   copies where widths and padding keep them aligned, 4-byte ones
+//   elsewhere; only the words the item's k-chunks read):
+//   - the x window of the channels its pairs touch, contiguous per channel,
+//     so that A row (c, j) at position n is word c cs + j + n s: the
+//     Toeplitz view x[c][n s + j - pad], never materialised as columns; the
+//     channel stride cs keeps a fragment's 8 rows x 4 positions in distinct
+//     banks where the stride allows;
+//   - the dy rows of all the block's output channels, row stride = 4 (mod
+//     32), so that a B fragment's 32 words fall in 32 banks.
+//   Each fragment word is split after its load (integer rounding, the bits
+//   of `cvt.rna`); each k-chunk of 8 positions puts small.big, big.small
+//   and big.big into a fresh accumulator that one round-to-nearest add puts
+//   into the thread's sum, so the tensor cores' truncation touches 24
+//   products at a time, not a part's walk of thousands of positions.
+//   Splitting each staged word once into shared big and small halves
+//   measured 13 % slower on an H100, interleaving those halves for 8-byte
+//   loads slower still.
+//   Tail positions past Wout are zeros, and a chunk that holds none is
+//   skipped; m-tiles past the group's pairs are skipped by the whole warp.
+//   The accumulators live for the whole walk; partial sums go to a
+//   workspace and a second kernel adds them in part order: no float
+//   atomics, so two runs give the same bits.
 //
 // `wgmma`, TMA and warp specialisation are later work.
 
@@ -86,18 +110,21 @@
 
 namespace {
 
+using flash::mma::cp_async16;
 using flash::mma::cp_async4;
 using flash::mma::cp_async_commit;
 using flash::mma::cp_async_wait;
 using tf32x3::mma_3xtf32;
 using tf32x3::split_tf32;
+using tf32x3::split_tf32_int;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPairs = 128;     // K4: (channel, tap) pairs per block
-constexpr int kPairRegs = kPairs / 32;
-constexpr int kDwTile = 64;     // K4: contraction positions staged per tile
-constexpr int kDwTargetBlocks = 4 * 132;
+constexpr int kDwWarps = 4;     // K4: warps per block, along the pairs
+constexpr int kDwThreads = 32 * kDwWarps;
+constexpr int kDwTile = 64;     // K4: contraction positions staged per item
+constexpr int kDwRowStride = kDwTile + 4;  // K4: staged dy row stride, = 4 (mod 32)
+constexpr int kDwTargetBlocks = 8 * 132;
 constexpr size_t kMaxSmem = 227 * 1024;
 // K3: two blocks a SM, each with 1 KB the system reserves, in the SM's 228 KB
 constexpr size_t kTwoBlockSmem = 228 * 1024 / 2 - 1024;
@@ -105,24 +132,6 @@ constexpr size_t kTwoBlockSmem = 228 * 1024 / 2 - 1024;
 struct ConvGeom {
   int B, G, Cg, Og, W, Wout, k, s, pad;
 };
-
-// RO consecutive floats from shared memory, by the widest aligned load.
-template <int RO>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[RO]) {
-  if constexpr (RO % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < RO; i += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + i);
-      v[i] = t.x; v[i + 1] = t.y; v[i + 2] = t.z; v[i + 3] = t.w;
-    }
-  } else if constexpr (RO == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < RO; ++i) v[i] = p[i];
-  }
-}
 
 // K3's shared memory, in 4-byte words: two stages of [window | weights],
 // then three column tables of `kpad` ints.  Sized for the most taps any
@@ -312,101 +321,176 @@ conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
   }
 }
 
-// K4, first pass.  Block (x: tile of 128 (channel, tap) pairs of the group,
+// K4's layout for one launch (words): one stage is the x windows of `nch`
+// channels, `cs` words each, then BN dy rows of kDwRowStride words; shared
+// memory holds two stages.
+struct DwLayout {
+  int nch;       // channels the block's pairs can touch
+  int cs;        // words per staged channel window, a multiple of 4
+  int xw;        // nch * cs
+  int stage;     // xw + BN * kDwRowStride
+  int per_part;  // items (batch row, 64 positions) per part
+  int vec_x;     // 1: the windows go by 16-byte copies
+  int vec_dy;    // 1: the dy rows go by 16-byte copies
+};
+
+// K4, first pass.  Block (x: tile of BM (channel, tap) pairs of the group,
 // y: group and output-channel tile, z: part).  Writes
-// out[part][g Og + o][c k + j] for its tile.
-template <int RO>
-__global__ void __launch_bounds__(kThreads)
-dw_partial_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                  float* __restrict__ out, ConvGeom q, int items_per_part, int max_channels) {
+// out[part][g Og + o][c k + j] for its tile.  The block's warps split the
+// pairs, each MT m-tiles of 16 by NT n-tiles of 8 (all the block's outputs).
+template <int NT, int MT>
+__global__ void __launch_bounds__(kDwThreads)
+dw_mma_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+              float* __restrict__ out, ConvGeom q, DwLayout L) {
+  constexpr int BM = kDwWarps * MT * 16;
+  constexpr int BN = NT * 8;
   extern __shared__ __align__(16) float smem[];
-  constexpr int OT = kWarps * RO;
-  constexpr int WS = OT + 4;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
 
   const int pairs = q.Cg * q.k;
-  const int e0 = blockIdx.x * kPairs;
-  const int o_tiles = (q.Og + OT - 1) / OT;
-  const int g = blockIdx.y / o_tiles;
-  const int o0 = (blockIdx.y % o_tiles) * OT;
+  const int e0 = blockIdx.x * BM;
+  const int o_tiles = (q.Og + BN - 1) / BN;
+  const int grp = blockIdx.y / o_tiles;
+  const int o0 = (blockIdx.y % o_tiles) * BN;
   const int part = blockIdx.z;
-
   const int c_lo = e0 / q.k;
-  const int c_hi = (min(e0 + kPairs, pairs) - 1) / q.k;
-  const int nch = min(c_hi - c_lo + 1, max_channels);
-  const int xw = (kDwTile - 1) * q.s + q.k;
-  float* dy_s = smem;                 // [kDwTile][WS], output channel fastest
-  float* x_s = smem + kDwTile * WS;   // [nch][xw]
+  const int m_warp = warp * MT * 16;
+  // m-tiles of this warp that hold a pair of the group (warp-uniform)
+  const int live = min(MT, max(0, (pairs - e0 - m_warp + 15) / 16));
 
-  int off[kPairRegs];                 // word of x_s that pair e reads at position 0
+  // window word of A row m (a pair) at position 0; rows past the group's
+  // pairs read word 0 and are never stored
+  int roff[MT][2];
 #pragma unroll
-  for (int i = 0; i < kPairRegs; ++i) {
-    const int e = e0 + lane + 32 * i;
-    off[i] = 0;
-    if (e < pairs) {
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = e0 + m_warp + 16 * mt + g8 + 8 * h;
       const int c = e / q.k;
-      off[i] = (c - c_lo) * xw + (e - c * q.k);
+      roff[mt][h] = e < pairs ? (c - c_lo) * L.cs + (e - c * q.k) : 0;
     }
-  }
 
-  float acc[RO][kPairRegs];
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < RO; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int e = 0; e < kPairRegs; ++e) acc[i][e] = 0.0f;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
 
   const int n_tiles = (q.Wout + kDwTile - 1) / kDwTile;
   const int total = q.B * n_tiles;
-  const int first = part * items_per_part;
-  const int last = min(first + items_per_part, total);
-  for (int item = first; item < last; ++item) {
+  const int first = part * L.per_part;
+  const int last = min(first + L.per_part, total);
+
+  // item (batch row b, positions n0 ..): its positions rounded up to whole
+  // k-chunks, and the window words those read, rounded up to 4
+  auto positions = [&](int item) {
+    const int n0 = (item % n_tiles) * kDwTile;
+    return (min(kDwTile, q.Wout - n0) + 7) / 8 * 8;
+  };
+  auto window = [&](int nv8) { return ((nv8 - 1) * q.s + q.k + 3) / 4 * 4; };
+
+  // stage an item into buffer `raw`: window word i of channel c_lo + c is x
+  // position n0 s - pad + i; only the words its k-chunks read
+  auto copy_item = [&](int item, float* raw) {
     const int b = item / n_tiles;
     const int n0 = (item - b * n_tiles) * kDwTile;
-    const float* dy_g = dy + (static_cast<size_t>(b) * q.G + g) * q.Og * q.Wout;
-    for (int o = warp; o < OT; o += kWarps) {
-      const bool o_ok = o0 + o < q.Og;
-      const float* src = dy_g + static_cast<size_t>(o0 + o) * q.Wout;
-      for (int n = lane; n < kDwTile; n += 32)
-        dy_s[n * WS + o] = (o_ok && n0 + n < q.Wout) ? src[n0 + n] : 0.0f;
-    }
-    const float* x_g = x + ((static_cast<size_t>(b) * q.G + g) * q.Cg + c_lo) * q.W;
+    const int nv8 = positions(item), len4 = window(nv8);
     const int p0 = n0 * q.s - q.pad;
-    for (int cc = 0; cc < nch; ++cc) {
-      const float* src = x_g + static_cast<size_t>(cc) * q.W;
-      for (int i = threadIdx.x; i < xw; i += kThreads) {
-        const int p = p0 + i;
-        x_s[cc * xw + i] = (p >= 0 && p < q.W) ? src[p] : 0.0f;
+    const float* xg = x + (static_cast<size_t>(b) * q.G + grp) * q.Cg * q.W;
+    // a warp per channel window, a thread per copy: no division
+    for (int c = warp; c < L.nch; c += kDwWarps) {
+      const bool c_ok = c_lo + c < q.Cg;
+      const float* src = xg + static_cast<size_t>(c_ok ? c_lo + c : 0) * q.W;
+      if (L.vec_x) {  // W, p0 multiples of 4: a chunk is all inside or all outside
+        for (int w = 4 * lane; w < len4; w += 128) {
+          const int p = p0 + w;
+          const bool ok = c_ok && p >= 0 && p < q.W;
+          cp_async16(raw + c * L.cs + w, ok ? src + p : x, ok);
+        }
+      } else {
+        for (int i = lane; i < len4; i += 32) {
+          const int p = p0 + i;
+          const bool ok = c_ok && p >= 0 && p < q.W;
+          cp_async4(raw + c * L.cs + i, ok ? src + p : x, ok);
+        }
       }
     }
-    __syncthreads();
-
-    const int n_valid = min(kDwTile, q.Wout - n0);
-    const float* dp = dy_s + warp * RO;
-#pragma unroll 4
-    for (int n = 0; n < n_valid; ++n) {
-      float dv[RO], xv[kPairRegs];
-      load_row<RO>(dp + n * WS, dv);
-#pragma unroll
-      for (int e = 0; e < kPairRegs; ++e) xv[e] = x_s[off[e] + n * q.s];
-#pragma unroll
-      for (int i = 0; i < RO; ++i)
-#pragma unroll
-        for (int e = 0; e < kPairRegs; ++e) acc[i][e] = fmaf(dv[i], xv[e], acc[i][e]);
+    const float* dg = dy + ((static_cast<size_t>(b) * q.G + grp) * q.Og + o0) * q.Wout + n0;
+    float* ds = raw + L.xw;
+    if (L.vec_dy) {  // Wout, n0 multiples of 4
+      constexpr int chunks = kDwTile / 4;
+      for (int i = tid; i < BN * chunks; i += kDwThreads) {
+        const int o = i / chunks, n = (i % chunks) * 4;
+        if (n >= nv8) continue;
+        const bool ok = o0 + o < q.Og && n0 + n < q.Wout;
+        cp_async16(ds + o * kDwRowStride + n, ok ? dg + static_cast<size_t>(o) * q.Wout + n : dy,
+                   ok);
+      }
+    } else {
+      for (int i = tid; i < BN * kDwTile; i += kDwThreads) {
+        const int o = i / kDwTile, n = i % kDwTile;
+        if (n >= nv8) continue;
+        const bool ok = o0 + o < q.Og && n0 + n < q.Wout;
+        cp_async4(ds + o * kDwRowStride + n, ok ? dg + static_cast<size_t>(o) * q.Wout + n : dy,
+                  ok);
+      }
     }
-    __syncthreads();
+  };
+
+  auto compute = [&](int n_valid, const float* buf) {
+    const float* dsrc = buf + L.xw + g8 * kDwRowStride + t4;
+#pragma unroll 1
+    for (int k0 = 0; k0 < n_valid; k0 += 8) {
+      const int pa = (k0 + t4) * q.s, pb = pa + 4 * q.s;
+      uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32_int(buf[roff[mt][0] + pa], ab[mt][0], as[mt][0]);
+        split_tf32_int(buf[roff[mt][1] + pa], ab[mt][1], as[mt][1]);
+        split_tf32_int(buf[roff[mt][0] + pb], ab[mt][2], as[mt][2]);
+        split_tf32_int(buf[roff[mt][1] + pb], ab[mt][3], as[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int d = nt * 8 * kDwRowStride + k0;
+        uint32_t bb0, bb1, bs0, bs1;
+        split_tf32_int(dsrc[d], bb0, bs0);
+        split_tf32_int(dsrc[d + 4], bb1, bs1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          if (mt < live) mma_3xtf32(acc[mt][nt], ab[mt], as[mt], bb0, bb1, bs0, bs1);
+      }
+    }
+  };
+
+  // the next item's copies fly while this one is multiplied
+  copy_item(first, smem);
+  cp_async_commit();
+  for (int item = first; item < last; ++item) {
+    const int buf = (item - first) & 1;
+    if (item + 1 < last) copy_item(item + 1, smem + (buf ^ 1) * L.stage);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of the item have landed
+    __syncthreads();     // and everyone's
+    if (live > 0) compute(positions(item), smem + buf * L.stage);
+    __syncthreads();     // buffer `buf` is free for the item after next
   }
 
-  const size_t cout = static_cast<size_t>(q.G) * q.Og;
+  float* dst = out + static_cast<size_t>(part) * q.G * q.Og * pairs;
 #pragma unroll
-  for (int i = 0; i < RO; ++i) {
-    const int o = o0 + warp * RO + i;
-    if (o >= q.Og) continue;
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int e = 0; e < kPairRegs; ++e) {
-      const int pair = e0 + lane + 32 * e;
-      if (pair < pairs)
-        out[(part * cout + g * q.Og + o) * pairs + pair] = acc[i][e];
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pair = e0 + m_warp + 16 * mt + g8 + 8 * (e >> 1);
+        const int o = o0 + nt * 8 + 2 * t4 + (e & 1);
+        if (pair < pairs && o < q.Og)
+          dst[(static_cast<size_t>(grp) * q.Og + o) * pairs + pair] = acc[mt][nt][e];
+      }
     }
   }
 }
@@ -419,12 +503,6 @@ __global__ void dw_reduce_kernel(const float* __restrict__ partial, float* __res
   float sum = 0.0f;
   for (int p = 0; p < parts; ++p) sum += partial[p * numel + i];
   dw[i] = sum;
-}
-
-int pick_ro(int channels) {
-  for (int ro = 1; ro < 8; ro *= 2)
-    if (kWarps * ro >= channels) return ro;
-  return 8;
 }
 
 bool geom_ok(const ConvGeom& q) {
@@ -496,11 +574,24 @@ int dispatch_conv_mma(const float* in, const float* w, float* out, const ConvGeo
 #undef ROAR_CASE
 }
 
-// Blocks of the first pass without a split, and positions tiles to split.
+// K4's tiles: n-tiles of 8 output channels per block (all of a group's, up
+// to 64) and m-tiles of 16 pairs per warp, 16 to 64 accumulators a thread
+struct DwTiles {
+  int nt, mt;
+};
+
+DwTiles dw_tiles(const ConvGeom& q) {
+  if (q.Og <= 8) return {1, 4};
+  if (q.Og <= 16) return {2, 4};
+  if (q.Og <= 32) return {4, 4};
+  return {8, 2};
+}
+
+// Blocks of the first pass without a split, and position items to split.
 void dw_shape(const ConvGeom& q, int* base_blocks, int* total_items) {
-  const int ot = kWarps * pick_ro(q.Og);
-  const int e_tiles = (q.Cg * q.k + kPairs - 1) / kPairs;
-  *base_blocks = e_tiles * q.G * ((q.Og + ot - 1) / ot);
+  const DwTiles t = dw_tiles(q);
+  const int bm = kDwWarps * t.mt * 16, bn = t.nt * 8;
+  *base_blocks = (q.Cg * q.k + bm - 1) / bm * q.G * ((q.Og + bn - 1) / bn);
   *total_items = q.B * ((q.Wout + kDwTile - 1) / kDwTile);
 }
 
@@ -513,28 +604,46 @@ int dw_parts(const ConvGeom& q) {
   return (total + per - 1) / per;  // no empty part
 }
 
-template <int RO>
+// The channel stride of the staged windows: a multiple of 4 words (16-byte
+// copies) at least `len4`, and where one exists, one that puts a fragment's
+// rows on both sides of a channel boundary in distinct banks: channel c + 1
+// continues channel c's banks after a gap d = (cs - k) mod 32 with
+// 3 s <= d <= 24 - 3 s.
+int dw_channel_stride(int len4, int k, int s) {
+  for (int cs = len4; cs < len4 + 32; cs += 4) {
+    const int d = ((cs - k) % 32 + 32) % 32;
+    if (d >= 3 * s && d <= 24 - 3 * s) return cs;
+  }
+  return len4;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int NT, int MT>
 int launch_dw(const float* x, const float* dy, float* dw, float* workspace, const ConvGeom& q,
               int parts, cudaStream_t stream) {
-  constexpr int OT = kWarps * RO, WS = OT + 4;
+  constexpr int BM = kDwWarps * MT * 16, BN = NT * 8;
   int base, total;
   dw_shape(q, &base, &total);
-  const int max_channels = min(q.Cg, (kPairs - 2 + q.k) / q.k + 1);
-  const int xw = (kDwTile - 1) * q.s + q.k;
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(kDwTile) * WS + static_cast<size_t>(max_channels) * xw);
-  const long long grid_y = static_cast<long long>(q.G) * ((q.Og + OT - 1) / OT);
+  DwLayout L;
+  L.nch = min(q.Cg, (BM + q.k - 2) / q.k + 1);
+  L.cs = dw_channel_stride(((kDwTile - 1) * q.s + q.k + 3) / 4 * 4, q.k, q.s);
+  L.xw = L.nch * L.cs;
+  L.stage = L.xw + BN * kDwRowStride;
+  L.per_part = (total + parts - 1) / parts;
+  L.vec_x = q.W % 4 == 0 && q.pad % 4 == 0 && aligned16(x);
+  L.vec_dy = q.Wout % 4 == 0 && aligned16(dy);
+  const size_t smem = 2ull * 4 * L.stage;
+  const long long grid_y = static_cast<long long>(q.G) * ((q.Og + BN - 1) / BN);
   if (smem > kMaxSmem || grid_y > 65535 || parts > 65535) return cudaErrorInvalidValue;
-  auto kernel = dw_partial_kernel<RO>;
+  auto kernel = dw_mma_kernel<NT, MT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((q.Cg * q.k + kPairs - 1) / kPairs, static_cast<unsigned>(grid_y), parts);
-  const int per = (total + parts - 1) / parts;
-  kernel<<<grid, kThreads, smem, stream>>>(x, dy, parts > 1 ? workspace : dw, q, per,
-                                           max_channels);
+  const dim3 grid((q.Cg * q.k + BM - 1) / BM, static_cast<unsigned>(grid_y), parts);
+  kernel<<<grid, kDwThreads, smem, stream>>>(x, dy, parts > 1 ? workspace : dw, q, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return err;
   const size_t numel = static_cast<size_t>(q.G) * q.Og * q.Cg * q.k;
@@ -597,10 +706,10 @@ extern "C" int roar_grouped_conv_dw(
   float* dwp = static_cast<float*>(dw);
   float* ws = static_cast<float*>(workspace);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (pick_ro(q.Og)) {
-    case 1: return launch_dw<1>(xp, dyp, dwp, ws, q, parts, st);
-    case 2: return launch_dw<2>(xp, dyp, dwp, ws, q, parts, st);
-    case 4: return launch_dw<4>(xp, dyp, dwp, ws, q, parts, st);
-    default: return launch_dw<8>(xp, dyp, dwp, ws, q, parts, st);
+  switch (dw_tiles(q).nt) {
+    case 1: return launch_dw<1, 4>(xp, dyp, dwp, ws, q, parts, st);
+    case 2: return launch_dw<2, 4>(xp, dyp, dwp, ws, q, parts, st);
+    case 4: return launch_dw<4, 4>(xp, dyp, dwp, ws, q, parts, st);
+    default: return launch_dw<8, 2>(xp, dyp, dwp, ws, q, parts, st);
   }
 }

@@ -1,7 +1,8 @@
 // 3xTF32: fp32 products at fp32's level on the tensor cores, from TF32
-// `mma.sync.m16n8k8` with fp32 sums.  Shared by the grouped-conv kernel K3
-// (grouped_conv.cu) and the fp32 flash-attention kernels, forward, dK/dV and
-// dQ (flash_attention_{fwd,bwd}.cu, through flash_attention_tf32.cuh).
+// `mma.sync.m16n8k8` with fp32 sums.  Shared by the grouped-conv kernels K3
+// and K4 (grouped_conv.cu) and the fp32 flash-attention kernels, forward,
+// dK/dV and dQ (flash_attention_{fwd,bwd}.cu, through
+// flash_attention_tf32.cuh).
 //
 // One TF32 product keeps 10 mantissa bits of each operand, about 3e-4 of the
 // result's scale, over the fp32 bars of those kernels.  So every fp32 operand
@@ -42,7 +43,7 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& sma
 // every finite v.  `cvt` runs on a slower pipe: in the flash-attention
 // backward, where every product splits two or more operand words, the
 // integer form measured 12 to 14 % faster on an H100 with the same bits.
-// K3 keeps `cvt` (its SASS as it was measured).
+// K4 uses it too; K3 keeps `cvt` (its SASS as it was measured).
 __device__ __forceinline__ uint32_t tf32_int(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }

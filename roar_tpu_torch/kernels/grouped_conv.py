@@ -5,11 +5,11 @@ Port of roar_tpu/ops/grouped_conv.py: `_core_kernel` (K3, which the JAX
 package runs for the forward and, with a phase-packed transposed weight, for
 dX) and `_dw_kernel` (K4, dW).  The kernels are in `csrc/grouped_conv.cu`;
 its source note says what bounds them on the H100 and what the design does
-about it.  K3 multiplies on the tensor cores in 3xTF32 (each fp32 operand
-split into two TF32 parts, three products per multiply-add, fp32 sums: about
-1e-7 to 3e-6 of the result's scale); K4 in fp32 on the FMA pipe.  The TPU
-kernel's fold, pack and tile helpers are not ported: the CUDA kernels take
-stride, padding and groups at run time and index the raw tensors.
+about it.  K3 and K4 multiply on the tensor cores in 3xTF32 (each fp32
+operand split into two TF32 parts, three products per multiply-add, fp32
+sums: about 1e-7 to 3e-6 of the result's scale).  The TPU kernel's fold,
+pack and tile helpers are not ported: the CUDA kernels take stride, padding
+and groups at run time and index the raw tensors.
 
 Layouts: activations [B, C, W] as in the JAX op; the weight is torch's
 [Cout, Cin/G, k] (the JAX op takes flax's [k, Cin/G, Cout]).  Output channel

@@ -159,3 +159,69 @@ def test_kernels_match_plain_on_the_card():
                            gk.grouped_conv_dx(cot, w, wid, s, pad, g))
         assert torch.equal(gk.grouped_conv_dw(x, cot, k, s, pad, g),
                            gk.grouped_conv_dw(x, cot, k, s, pad, g))
+
+
+# `ptxas -v` lines of one kernel instance, as nvcc prints them, with the
+# mangled names of a K3 (dX view) and a K4 instance of csrc/grouped_conv.cu
+_NAMESPACE = "_ZN54_GLOBAL__N__5d1e6a7c_15_grouped_conv_cu_8f3c2b1e"
+K3_MANGLED = _NAMESPACE + "15conv_mma_kernelILi2ELi4ELi2ELb1EEEvPKfS2_PfNS_8ConvGeomEii"
+K4_MANGLED = _NAMESPACE + "13dw_mma_kernelILi8ELi2EEEvPKfS2_PfNS_8ConvGeomENS_8DwLayoutE"
+
+
+def _ptxas_entry(mangled: str, registers: int, spill: int = 0) -> str:
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    {spill} bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+            f"ptxas info    : Used {registers} registers, used 1 barriers, 404 bytes cmem[0]\n")
+
+
+def _build_log(k4_spill: int = 0, drop_k4=None) -> str:
+    """A log with every instance `chip_smoke.phase_kernel_build` requires."""
+    import chip_smoke as cs
+    from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
+
+    log = ""
+    for kernels in cs.FLASH_MMA_KERNELS.values():
+        for kernel in kernels:
+            for d in HEAD_DIMS:
+                log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{d}EEEvv", 128)
+    for view in ("fwd", "dx"):
+        for wn, nt, mt in cs.CONV_MMA_TILES:
+            log += _ptxas_entry(K3_MANGLED.replace("ILi2ELi4ELi2ELb1E",
+                                                   f"ILi{wn}ELi{nt}ELi{mt}ELb{int(view == 'dx')}E"),
+                                100)
+    for nt, mt in cs.DW_MMA_TILES:
+        if (nt, mt) != drop_k4:
+            log += _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", f"ILi{nt}ELi{mt}E"), 128,
+                                k4_spill if (nt, mt) == (8, 2) else 0)
+    return log
+
+
+def test_ptxas_parser_reads_k3_and_k4_instances():
+    import chip_smoke as cs
+
+    table = cs.parse_ptxas(_ptxas_entry(K3_MANGLED, 122) + _ptxas_entry(K4_MANGLED, 128, 8))
+    assert set(table) == {("conv_mma_kernel", "dx", (2, 4, 2)), ("dw_mma_kernel", "dw", (8, 2))}
+    assert table[("conv_mma_kernel", "dx", (2, 4, 2))]["registers"] == 122
+    k4 = table[("dw_mma_kernel", "dw", (8, 2))]
+    assert (k4["registers"], k4["spill_store_bytes"], k4["spill_load_bytes"]) == (128, 8, 8)
+
+
+@pytest.mark.parametrize("fault", [None, "spill", "missing"])
+def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, monkeypatch,
+                                                                     fault):
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "count_hmma", lambda lib: None)  # no cuobjdump on the CPU host
+    log = _build_log(k4_spill=8 if fault == "spill" else 0,
+                     drop_k4=(2, 4) if fault == "missing" else None)
+    (tmp_path / "lib.log").write_text(log)
+    if fault is None:
+        line = cs.phase_kernel_build(tmp_path / "lib.so")
+        k4 = [row for row in line["grouped_conv_instances"] if row["kernel"] == "dw_mma_kernel"]
+        assert [tuple(row["nt_mt"]) for row in k4] == cs.DW_MMA_TILES
+        assert len(line["grouped_conv_instances"]) == 2 * len(cs.CONV_MMA_TILES) + len(k4)
+    else:
+        match = "spills" if fault == "spill" else "not in the ptxas log"
+        with pytest.raises(AssertionError, match=f"dw_mma_kernel.*{match}"):
+            cs.phase_kernel_build(tmp_path / "lib.so")
