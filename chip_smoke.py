@@ -486,14 +486,27 @@ CONV_MMA_TILES = [(wn, nt, mt) for wn, nt in ((1, 1), (1, 2), (1, 4), (2, 4)) fo
 DW_MMA_TILES = [(1, 4), (2, 4), (4, 4), (8, 2)]
 
 
+def _viterbi_instance(mangled: str) -> Optional[tuple]:
+    """("pyin_viterbi_fwd_kernel", W, P) of a K1 instance's mangled name
+    (template arguments: band width, 0 for the run-time one; lanes a bin),
+    ("pyin_backtrack_kernel",) of K2's, else None."""
+    found = re.search(r"(pyin_viterbi_fwd_kernel)ILi(\d+)ELi(\d+)E", mangled)
+    if found is not None:
+        return found.group(1), int(found.group(2)), int(found.group(3))
+    if "pyin_backtrack_kernel" in mangled:
+        return ("pyin_backtrack_kernel",)
+    return None
+
+
 def _any_instance(mangled: str) -> Optional[tuple]:
-    return _flash_instance(mangled) or _conv_instance(mangled)
+    return _flash_instance(mangled) or _conv_instance(mangled) or _viterbi_instance(mangled)
 
 
 def parse_ptxas(log: str) -> dict:
     """{instance key: registers, spill bytes, stack, static shared memory} of
-    every flash kernel instance (keyed (kernel, dtype, D)) and K3 instance
-    (keyed (kernel, view, tiles)) in a `ptxas -v` log."""
+    every flash kernel instance (keyed (kernel, dtype, D)), K3 and K4
+    instance (keyed (kernel, view, tiles)) and K1 and K2 instance (keyed
+    (kernel, W, P) and (kernel,)) in a `ptxas -v` log."""
     out, current = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -548,16 +561,16 @@ def count_hmma(lib_path) -> Optional[dict]:
 
 
 def phase_kernel_build(lib_path) -> dict:
-    """Registers, shared memory and spills of every flash kernel instance and
-    every K3 and K4 instance from the build's `ptxas -v` log, and where
-    `cuobjdump` is installed the HMMA count of each; raises if a tensor-core
-    kernel (every flash kernel, bf16 and fp32 in 3xTF32, K3 and K4) spills or
-    has no HMMA."""
+    """Registers, shared memory and spills of every flash kernel instance,
+    every K3 and K4 instance and every K1 and K2 instance from the build's
+    `ptxas -v` log, and where `cuobjdump` is installed the HMMA count of each
+    tensor-core kernel; raises if a tensor-core kernel (every flash kernel,
+    bf16 and fp32 in 3xTF32, K3 and K4) spills or has no HMMA, or if a K1 or
+    K2 instance spills or is missing."""
     from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
     everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
-    table = {key: info for key, info in everything.items()
-             if key[0] not in ("conv_mma_kernel", "dw_mma_kernel")}
+    table = {key: info for key, info in everything.items() if key[0].startswith("flash_")}
     hmma = count_hmma(lib_path)
     rows = []
     for (kernel, dtype, d), info in sorted(table.items()):
@@ -598,16 +611,38 @@ def phase_kernel_build(lib_path) -> dict:
                 raise AssertionError(f"{kernel}<{tiles}, {view}> has no HMMA instruction in "
                                      "its SASS")
         conv_rows.append(row)
+    # K1 (one instance per band width, 101 and the run-time one, and lanes a
+    # bin, 1 / 2 / 4 / 8) and K2: dynamic shared memory depends on the launch
+    viterbi_rows = []
+    for key, info in sorted(everything.items()):
+        if key[0] not in ("pyin_viterbi_fwd_kernel", "pyin_backtrack_kernel"):
+            continue
+        if info["registers"] is None:
+            raise AssertionError(f"{key} has no register count in the ptxas log")
+        if info["spill_store_bytes"] or info["spill_load_bytes"]:
+            raise AssertionError(f"{key} spills: {info}")
+        names = ("kernel", "band_width", "lanes_per_bin")[:len(key)]
+        viterbi_rows.append({**dict(zip(names, key)), **info})
+    # the lanes a bin `pick_lanes` of csrc/pyin_viterbi.cu can return, at
+    # both band widths
+    fwd_splits = {(row["band_width"], row["lanes_per_bin"]) for row in viterbi_rows
+                  if row["kernel"] == "pyin_viterbi_fwd_kernel"}
+    if fwd_splits != {(w, p) for w in (101, 0) for p in (1, 2, 4, 8)} or not any(
+            row["kernel"] == "pyin_backtrack_kernel" for row in viterbi_rows):
+        raise AssertionError(f"K1/K2 instances missing from the ptxas log: {viterbi_rows}")
     line = {"phase": "kernel_build", "instances": rows, "grouped_conv_instances": conv_rows,
-            "cuobjdump": hmma is not None}
+            "viterbi_instances": viterbi_rows, "cuobjdump": hmma is not None}
     _emit(line)
     return line
 
 
 def viterbi_log_obs(rng: np.random.Generator, b: int, t: int, n: int, ties: bool) -> np.ndarray:
     """Seeded log observations [B, T, 2N]: random rows normalised, log, -700
-    floor.  With `ties`, one row is constant over states and frames and
-    another repeats one frame, so whole bands of candidates are equal."""
+    floor.  With `ties`, one row is constant over states and frames, another
+    repeats one frame, and a third (where B > 2) is a comb of equal peaks 20
+    bins apart in every frame, so whole bands of candidates are equal and a
+    bin midway between two peaks has its two best offsets in different
+    sub-ranges of K1's split."""
     obs = rng.random((b, t, 2 * n)).astype(np.float32)
     obs[rng.random(obs.shape) < 0.3] = 0.0  # zero-probability states hit the floor
     obs /= obs.sum(-1, keepdims=True)
@@ -616,63 +651,87 @@ def viterbi_log_obs(rng: np.random.Generator, b: int, t: int, n: int, ties: bool
         log_obs[0] = np.float32(np.log(1.0 / (2 * n)))
         if b > 1:
             log_obs[1] = log_obs[1, :1]
+        if b > 2:
+            log_obs[2] = -700.0
+            log_obs[2, :, ::20] = np.float32(np.log(0.05))
     return log_obs
+
+
+def viterbi_bounds(b: int, t: int, n: int, w: int) -> tuple:
+    """(K1's, K2's) least time on this card, `_bound` dicts.  K1: per frame
+    and source bin 10 add/max/compare operations, per target state and
+    offset one add and one compare, one add of the observation; observations
+    read and pointers written once.  K2 follows one pointer per frame and
+    row: the bytes this data needs are those entries, the final states and
+    the states written."""
+    fwd_ops = float(b) * (t - 1) * (10 * n + 2 * n * (2 * w + 1))
+    fwd_bytes = 4.0 * (2 * b * t * 2 * n + b * 2 * n + n + w)
+    back_bytes = 4.0 * (b * (t - 1) + b + b * t)
+    return _bound(fwd_bytes, fwd_ops), _bound(back_bytes, float(b) * (t - 1))
 
 
 def phase_kernel_viterbi(device: torch.device) -> dict:
     """K1 and K2 against their plain versions: exact equality of pointers,
-    final scores and states.  Returns each kernel's numbers at the CLI's
-    bucket shape (16, 449, 601, 101)."""
+    final scores and states, at every `VITERBI_CASES` shape with the cluster
+    size K1 picks, and at the CLI's bucket shape (16, 449, 601, 101) with
+    every admissible cluster size forced.  Returns each kernel's numbers at
+    that shape with the picked size, the sweep, and B 128's."""
     from roar_tpu_torch.kernels import pyin_viterbi as pv
     from roar_tpu_torch.ops.pyin import _band_tables
 
     rng = np.random.default_rng(SEED)
-    summary = {}
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    log_stay, log_switch = float(np.log1p(-0.01)), float(np.log(0.01))
+    summary = {"sweep": []}
     for case, (b, t, n, w) in enumerate(VITERBI_CASES):
         ties = case in (0, 2)
         log_obs = torch.from_numpy(viterbi_log_obs(rng, b, t, n, ties)).to(device)
         log_tri, log_norm = (torch.from_numpy(a).to(device) for a in _band_tables(n, w))
         if not torch.isfinite(log_tri).all():
             raise AssertionError("log-triangle weights not finite")
-        log_stay, log_switch = float(np.log1p(-0.01)), float(np.log(0.01))
         args = (log_obs, log_tri, log_norm, log_stay, log_switch)
-        ptrs, v_final = pv.viterbi_forward(*args)
         ptrs_p, v_final_p = pv.viterbi_forward_plain(*args)
-        torch.cuda.synchronize()
-        # additions and comparisons only, in one order: equality is the bar
-        if not torch.equal(ptrs, ptrs_p):
-            raise AssertionError(f"viterbi_fwd pointers differ at {(b, t, n, w)}: "
-                                 f"{int((ptrs != ptrs_p).sum())} entries")
-        if not torch.equal(v_final, v_final_p):
-            raise AssertionError(f"viterbi_fwd final scores differ at {(b, t, n, w)}: max "
-                                 f"{float((v_final - v_final_p).abs().max())}")
-        last = torch.argmax(v_final, dim=-1).to(torch.int32)
-        states = pv.viterbi_backtrack(ptrs, last)
-        states_p = pv.viterbi_backtrack_plain(ptrs, last)
-        torch.cuda.synchronize()
-        if not torch.equal(states, states_p):
-            raise AssertionError(f"backtrack states differ at {(b, t, n, w)}")
-        fwd_ms = _time_ms(lambda: pv.viterbi_forward(*args))
         fwd_plain_ms = _time_ms(lambda: pv.viterbi_forward_plain(*args), reps=3)
-        back_ms = _time_ms(lambda: pv.viterbi_backtrack(ptrs, last))
-        back_plain_ms = _time_ms(lambda: pv.viterbi_backtrack_plain(ptrs, last), reps=3)
-        # K1: per frame and source bin 10 add/max/compare operations, per
-        # target state and offset one add and one compare, one add of the
-        # observation; observations read and pointers written once
-        fwd_ops = float(b) * (t - 1) * (10 * n + 2 * n * (2 * w + 1))
-        fwd_bytes = 4.0 * (2 * b * t * 2 * n + b * 2 * n + n + w)
-        # K2 follows one pointer per frame and row: the bytes this data needs
-        # are those entries, the final states and the states written
-        back_bytes = 4.0 * (b * (t - 1) + b + b * t)
-        fwd = {"ms": fwd_ms, "plain_ms": fwd_plain_ms, **_bound(fwd_bytes, fwd_ops)}
-        back = {"ms": back_ms, "plain_ms": back_plain_ms,
-                **_bound(back_bytes, float(b) * (t - 1))}
-        _emit({"phase": "kernel", "kernel": "pyin_viterbi_fwd", "shape_btnw": [b, t, n, w],
-               "ties": ties, "pointers_equal": True, "final_scores_equal": True, **fwd})
-        _emit({"phase": "kernel", "kernel": "pyin_backtrack", "shape_btnw": [b, t, n, w],
-               "ties": ties, "states_equal": True, **back})
-        if case == 0:
-            summary = {"fwd": fwd, "backtrack": back}
+        picked = pv.cluster_size(b, n, w, sm_count)
+        forced = [c for c in (1, 2, 4, 8) if pv.cluster_admissible(n, w, c)] if case == 0 else []
+        for cluster in [None] + forced:
+            c = picked if cluster is None else cluster
+            ptrs, v_final = pv.viterbi_forward(*args, cluster=cluster)
+            torch.cuda.synchronize()
+            # additions and comparisons only, in one order: equality is the bar
+            where = f"{(b, t, n, w)}, cluster {c}"
+            if not torch.equal(ptrs, ptrs_p):
+                raise AssertionError(f"viterbi_fwd pointers differ at {where}: "
+                                     f"{int((ptrs != ptrs_p).sum())} entries")
+            if not torch.equal(v_final, v_final_p):
+                raise AssertionError(f"viterbi_fwd final scores differ at {where}: max "
+                                     f"{float((v_final - v_final_p).abs().max())}")
+            last = torch.argmax(v_final, dim=-1).to(torch.int32)
+            states = pv.viterbi_backtrack(ptrs, last)
+            states_p = pv.viterbi_backtrack_plain(ptrs, last)
+            torch.cuda.synchronize()
+            if not torch.equal(states, states_p):
+                raise AssertionError(f"backtrack states differ at {where}")
+            fwd_bound, back_bound = viterbi_bounds(b, t, n, w)
+            fwd = {"ms": _time_ms(lambda: pv.viterbi_forward(*args, cluster=cluster)),
+                   "plain_ms": fwd_plain_ms, **fwd_bound, "cluster": c,
+                   "max_active_clusters": pv.max_active_clusters(b, n, w, c)}
+            fwd["bound_share"] = fwd["bound_ms"] / fwd["ms"]
+            _emit({"phase": "kernel", "kernel": "pyin_viterbi_fwd", "shape_btnw": [b, t, n, w],
+                   "ties": ties, "cluster_forced": cluster is not None, "pointers_equal": True,
+                   "final_scores_equal": True, **fwd})
+            if cluster is not None:
+                summary["sweep"].append({"cluster": c, "ms": fwd["ms"],
+                                         "max_active_clusters": fwd["max_active_clusters"]})
+                continue
+            back = {"ms": _time_ms(lambda: pv.viterbi_backtrack(ptrs, last)),
+                    "plain_ms": _time_ms(lambda: pv.viterbi_backtrack_plain(ptrs, last), reps=3),
+                    **back_bound}
+            _emit({"phase": "kernel", "kernel": "pyin_backtrack", "shape_btnw": [b, t, n, w],
+                   "ties": ties, "states_equal": True, **back})
+            if case in (0, 1):
+                summary["fwd" if case == 0 else "fwd_b128"] = fwd
+                summary["backtrack" if case == 0 else "backtrack_b128"] = back
         del log_obs, ptrs, ptrs_p, v_final, v_final_p, states, states_p
     return summary
 
@@ -2910,12 +2969,14 @@ def main() -> int:
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:34",
          "launches": sup["launches"]["fwd"], "max_abs_err": 0.0,
-         **pick(vit["fwd"]), "library_ms": None},
+         **pick(vit["fwd"]), "library_ms": None, "cluster": vit["fwd"]["cluster"],
+         "max_active_clusters": vit["fwd"]["max_active_clusters"],
+         "cluster_sweep": vit["sweep"], "b128": pick(vit["fwd_b128"])},
         {"name": "pyin_backtrack", "route": "cuda",
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:279",
          "launches": sup["launches"]["backtrack"], "max_abs_err": 0.0,
-         **pick(vit["backtrack"]), "library_ms": None},
+         **pick(vit["backtrack"]), "library_ms": None, "b128": pick(vit["backtrack_b128"])},
         # K3 and K4: times and bounds summed over the 15 grouped-conv shapes
         # of one discriminator pass (B = 32); library = cuDNN with TF32 off;
         # bounds on the tensor cores (3xTF32), the fp32 FMA bound beside

@@ -95,9 +95,12 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * (7 + n_out) + flash_tail
         fn.restype = ctypes.c_int
     vf = lib.roar_pyin_viterbi_fwd
-    vf.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p])
+    vf.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p])  # ..., B, T, N, W, C, log_stay, log_switch, log_init_u
     vf.restype = ctypes.c_int
+    vc = lib.roar_pyin_viterbi_max_active_clusters
+    vc.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]  # B, N, W, C, out
+    vc.restype = ctypes.c_int
     bt = lib.roar_pyin_backtrack
     bt.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     bt.restype = ctypes.c_int

@@ -175,7 +175,14 @@ def _ptxas_entry(mangled: str, registers: int, spill: int = 0) -> str:
             f"ptxas info    : Used {registers} registers, used 1 barriers, 404 bytes cmem[0]\n")
 
 
-def _build_log(k4_spill: int = 0, drop_k4=None) -> str:
+# and of K1 and K2 of csrc/pyin_viterbi.cu (template arguments: band width,
+# lanes a bin)
+_VITERBI_NAMESPACE = "_ZN48_GLOBAL__N__08a71874_15_pyin_viterbi_cu_44b51aa9"
+K1_MANGLED = _VITERBI_NAMESPACE + "23pyin_viterbi_fwd_kernelILi101ELi4EEEvNS_9FwdParamsE"
+K2_MANGLED = _VITERBI_NAMESPACE + "21pyin_backtrack_kernelEPKiS1_Piiiiii"
+
+
+def _build_log(k4_spill: int = 0, drop_k4=None, k1_spill: int = 0) -> str:
     """A log with every instance `chip_smoke.phase_kernel_build` requires."""
     import chip_smoke as cs
     from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
@@ -194,7 +201,11 @@ def _build_log(k4_spill: int = 0, drop_k4=None) -> str:
         if (nt, mt) != drop_k4:
             log += _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", f"ILi{nt}ELi{mt}E"), 128,
                                 k4_spill if (nt, mt) == (8, 2) else 0)
-    return log
+    for width in (101, 0):
+        for lanes in (1, 2, 4, 8):
+            log += _ptxas_entry(K1_MANGLED.replace("ILi101ELi4E", f"ILi{width}ELi{lanes}E"), 64,
+                                k1_spill if (width, lanes) == (101, 4) else 0)
+    return log + _ptxas_entry(K2_MANGLED, 25)
 
 
 def test_ptxas_parser_reads_k3_and_k4_instances():
@@ -207,20 +218,25 @@ def test_ptxas_parser_reads_k3_and_k4_instances():
     assert (k4["registers"], k4["spill_store_bytes"], k4["spill_load_bytes"]) == (128, 8, 8)
 
 
-@pytest.mark.parametrize("fault", [None, "spill", "missing"])
+@pytest.mark.parametrize("fault", [None, "spill", "missing", "viterbi_spill"])
 def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, monkeypatch,
                                                                      fault):
     import chip_smoke as cs
 
     monkeypatch.setattr(cs, "count_hmma", lambda lib: None)  # no cuobjdump on the CPU host
     log = _build_log(k4_spill=8 if fault == "spill" else 0,
-                     drop_k4=(2, 4) if fault == "missing" else None)
+                     drop_k4=(2, 4) if fault == "missing" else None,
+                     k1_spill=8 if fault == "viterbi_spill" else 0)
     (tmp_path / "lib.log").write_text(log)
     if fault is None:
         line = cs.phase_kernel_build(tmp_path / "lib.so")
         k4 = [row for row in line["grouped_conv_instances"] if row["kernel"] == "dw_mma_kernel"]
         assert [tuple(row["nt_mt"]) for row in k4] == cs.DW_MMA_TILES
         assert len(line["grouped_conv_instances"]) == 2 * len(cs.CONV_MMA_TILES) + len(k4)
+        assert len(line["viterbi_instances"]) == 9  # K1 at two widths x four splits, K2
+    elif fault == "viterbi_spill":
+        with pytest.raises(AssertionError, match="pyin_viterbi_fwd_kernel.*spills"):
+            cs.phase_kernel_build(tmp_path / "lib.so")
     else:
         match = "spills" if fault == "spill" else "not in the ptxas log"
         with pytest.raises(AssertionError, match=f"dw_mma_kernel.*{match}"):

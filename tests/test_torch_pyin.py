@@ -536,16 +536,24 @@ def test_pyin_cpu_equals_the_jax_packages_copy():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8], ids=["picked", "c1", "c2", "c4", "c8"])
 @pytest.mark.parametrize("b,t,n,w", [(16, 449, 601, 101), (3, 14, 279, 71), (1, 2, 601, 101),
                                      (1, 1, 601, 101)])
-def test_cuda_viterbi_kernels_equal_plain(b, t, n, w):
+def test_cuda_viterbi_kernels_equal_plain(b, t, n, w, cluster):
+    """K1 with the cluster size it picks and with each one forced (every size
+    is admissible at these shapes), then K2, against the plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    log_obs = torch.from_numpy(_ragged_ties(_log_obs(np.random.default_rng(0), b, t, n))).cuda()
+    assert cluster is None or pv.cluster_admissible(n, w, cluster)
+    log_obs = _ragged_ties(_log_obs(np.random.default_rng(0), b, t, n))
+    if b > 3:  # a comb of equal peaks: ties between two lanes' sub-ranges
+        log_obs[3] = -700.0
+        log_obs[3, :, ::20] = np.float32(np.log(0.05))
+    log_obs = torch.from_numpy(log_obs).cuda()
     log_tri, log_norm = (torch.from_numpy(a).cuda() for a in tp._band_tables(n, w))
     args = (log_obs, log_tri, log_norm, float(np.log1p(-0.01)), float(np.log(0.01)))
     before = (pv.LAUNCHES_FWD, pv.LAUNCHES_BACKTRACK)
-    ptrs, v_final = pv.viterbi_forward(*args)
+    ptrs, v_final = pv.viterbi_forward(*args, cluster=cluster)
     last = torch.argmax(v_final, dim=-1).to(torch.int32)
     states = pv.viterbi_backtrack(ptrs, last)
     torch.cuda.synchronize()
