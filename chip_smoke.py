@@ -14,7 +14,9 @@ Phases, each printing JSON lines:
    computes the same function: flash attention (allclose), the pYIN Viterbi
    forward pass and backtrack (exactly equal, ties included), the grouped
    conv forward, input gradient and weight gradient (relative to the
-   result's scale; each bit-identical across two runs);
+   result's scale; each bit-identical across two runs), these at the 15
+   discriminator shapes of HiFi-GAN's 32 x 8192 samples and of JETS's
+   32 x 16384;
 4. slice: full-size FastPitch (flash attention in all 12 layers) and HiFi-GAN
    v1 with seeded random weights, served through `SynthesisEngine.warmup`,
    `synthesize_batch` and the HTTP server; checks sample counts, WAV headers,
@@ -57,15 +59,36 @@ Phases, each printing JSON lines:
    the two shapes and key lengths that step gave them (the kernels line takes
    these), and the saved `.roar` served by `SynthesisEngine`; then the step
    time, its split and the kernels' share.
+9. train_jets: JETS (the FastPitch graph + the HiFi-GAN v1 generator,
+   end-to-end text->wav) at the full width and depth of
+   configs/jets_22050_align.yaml (flash attention on, `dropatt` 0, 4
+   speakers, MPD and the grouped MSD, batch 16, segments of 64 frames =
+   16384 samples, fp32): 64 seeded synthetic utterances of 2 to 10 s with
+   Bengali text and 16 for validation, their sup-data extracted first through
+   `extract_sup_data_torch.run` at the model's hop of 256 (K1 and K2, one
+   launch per bucket), then 8 steps through the training CLI's `run`; checks
+   12 / 12 / 12 flash launches per step and 12 forwards per validation
+   batch, 30 / 30 / 15 grouped-conv launches per step (forward / dX / dW) and
+   15 forwards per validation batch, finite losses with every term present,
+   the bin loss's warm-up by epoch, the learning rate against the cosine
+   schedule, the spectral norm's stored u and sigma, the saved `.roar`
+   loaded into a fresh model and synthesising one text and a batch of 8
+   (12 flash forwards a call, the kernel path's audio against the plain
+   path's), one D+G step with the kernels against one with their plain
+   versions (same weights, batch, segment starts and dropout masks; hard
+   durations that sum to the mel lengths, segment starts inside the valid
+   frames), the flash kernels held and timed at the step's two shapes; then
+   the step time, its split, the kernels' and MAS's time in it and peak
+   memory.
 
-9. kernel_flash_causal: the causal flash-attention kernels (forward with and
+10. kernel_flash_causal: the causal flash-attention kernels (forward with and
    without the log-sum-exp, dK/dV, dQ) against their plain versions in fp32
    and in bf16 at small shapes (ragged T, D 32 / 64 / 128, a trailing pad
    mask, B 4 x T 2048, T 1) and at the GPT path's (1, 4096, 32, 64), by the
    same routine as phase 7 (bf16 element by element at a bar that follows each
    row's own scale), and at the path's shape the times beside the bounds and
    `F.scaled_dot_product_attention(is_causal=True)` with its autograd;
-10. train_gpt: GPT causal-LM training at the full width and depth of
+11. train_gpt: GPT causal-LM training at the full width and depth of
    tiny-llama-1.1b (22 layers, d 2048, 32 heads of 64 in 4 KV groups, SwiGLU
    5632, vocabulary 32000, 1.1 B parameters), S 4096, bf16 compute from fp32
    master parameters, `remat` with `remat_policy=flash`, the fused cross
@@ -113,11 +136,17 @@ KERNEL_CASES = [  # (B, T, H, D): encoder and decoder buckets, a ragged T, H = 2
     (8, 256, 1, 64), (8, 3072, 1, 64), (1, 200, 1, 64), (2, 200, 2, 32),
 ]
 # (B, T, N, W): the CLI's bucket and a batch of 128 at the production widths
-# (10 s of 22050 Hz audio is T = 449 frames), the small test config, T = 2 and 1
+# (10 s of 22050 Hz audio is T = 449 frames at hop 512), the small test
+# config, T = 2 and 1, and JETS's bucket (10 s at hop 256 is 862 frames, in a
+# bucket of 864)
 VITERBI_CASES = [
     (16, 449, 601, 101), (128, 449, 601, 101), (3, 14, 279, 71), (1, 2, 601, 101),
-    (1, 1, 601, 101),
+    (1, 1, 601, 101), (16, 864, 601, 101),
 ]
+# the cases held with their ties planted and with every admissible cluster
+# size forced, and the key of each in the summary
+VITERBI_TIES = (0, 2, 5)
+VITERBI_SWEPT = {0: "", 5: "_jets"}
 # published peaks of one H100 SXM: device memory bytes/s, fp32 FLOP/s outside
 # the tensor cores, dense bf16 FLOP/s in them
 HBM_BYTES_PER_S = 3.35e12
@@ -139,6 +168,17 @@ TAMIL_SENTENCES = [
     "சென்னை தமிழ்நாட்டின் தலைநகரம்; இங்கு கடற்கரை, அருங்காட்சியகங்கள், பழைய கோயில்கள் "
     "மற்றும் பல்கலைக்கழகங்கள் உள்ளன, ஒவ்வொரு ஆண்டும் உலகம் முழுவதிலிருந்தும் பயணிகள் "
     "இந்த நகரத்தைக் காண வருகிறார்கள்.",
+]
+BENGALI_SENTENCES = [
+    "নমস্কার.",
+    "আজ আবহাওয়া খুব ভালো.",
+    "আমি সকালে চা খেয়েছি, তারপর অফিসে গিয়েছি.",
+    "বাংলা একটি সুন্দর ভাষা.",
+    "আমাদের গ্রামে একটি বড় নদী আছে, সেখানে অনেক মানুষ মাছ ধরতে যায়.",
+    "ধন্যবাদ!",
+    "বই পড়া জ্ঞান বাড়ায়; তাই প্রতিদিন কিছুক্ষণ পড়ুন.",
+    "ঢাকা বাংলাদেশের রাজধানী; এখানে অনেক পুরনো মসজিদ, জাদুঘর, বিশ্ববিদ্যালয় এবং ব্যস্ত "
+    "বাজার রয়েছে, আর প্রতি বছর সারা পৃথিবী থেকে মানুষ এই শহর দেখতে আসে.",
 ]
 
 
@@ -276,6 +316,94 @@ def fastpitch_train_config(train_manifest: str, val_manifest: str, sup_dir: str,
                     "log_every_n_steps": 1, "check_val_every_n_epoch": 1, "seed": 0,
                     "model_parallel_size": 1, "max_steps": max_steps},
         "exp_manager": {"exp_dir": exp_dir, "name": "FastPitch", "resume_if_exists": False,
+                        "always_save_roar": True},
+        "device": device,
+    }
+
+
+JETS_HOP = 256
+
+
+def jets_sup_data_config(manifest: str, sup_dir: str, device: str = "cuda") -> dict:
+    """configs/ds_for_jets_ben_align.yaml as the loader resolves it, for the
+    keys the extraction script reads, at the STFT of the JETS model
+    (configs/jets_22050_align.yaml: n_fft 1024, win_length 1024, hop 256):
+    the YAML's hop of 512 would give frames that the model, at hop 256, does
+    not read."""
+    cfg = sup_data_config(manifest, sup_dir, device)
+    cfg["dataset"].update(n_fft=1024, win_length=1024, hop_length=JETS_HOP)
+    return cfg
+
+
+def jets_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_dir: str,
+                      pitch_mean: float, pitch_std: float, device: str = "cuda",
+                      max_steps: int = 8, batch_size: int = 16) -> dict:
+    """configs/jets_22050_align.yaml as the loader resolves it, for the keys
+    the training CLI reads, with only the overrides of the configuration that
+    runs the attention kernels: `model.{input_fft,output_fft}.use_flash=true`
+    and `.dropatt=0.0` (every other dropout stays 0.1), 4 speakers, the
+    extraction's `pitch_mean` and `pitch_std`, `trainer.precision=32`,
+    `trainer.max_steps`, `trainer.log_every_n_steps=1` and
+    `exp_manager.always_save_roar=true` (tests/test_torch_train_jets.py holds
+    it to the YAML).  Full width and depth: d 384, 6 + 6 FFT layers of one
+    head of 64, predictors 256 wide, the HiFi-GAN v1 generator from 384
+    channels, MPD and the grouped MSD at full channels, segments of 64
+    frames."""
+    cond = ["add", "layernorm"]
+    fft = {"n_layer": 6, "n_head": 1, "d_model": 384, "d_head": 64, "d_inner": 1536,
+           "kernel_size": 3, "dropout": 0.1, "dropatt": 0.0, "condition_types": cond,
+           "use_flash": True}
+    predictor = {"input_size": 384, "kernel_size": 3, "filter_size": 256, "dropout": 0.1,
+                 "n_layers": 2, "condition_types": cond}
+    pitch = {"pitch_fmin": 65.40639132514966, "pitch_fmax": 2093.004522404789,
+             "pitch_mean": pitch_mean, "pitch_std": pitch_std}
+    stft = {"n_fft": 1024, "lowfreq": 0, "highfreq": 8000, "window": "hann"}
+
+    def data(manifest, train):
+        dataset = {"_target_": "roar_tpu.data.dataset.TTSDataset", "manifest_filepath": manifest,
+                   "sample_rate": 22050, "sup_data_path": sup_dir,
+                   "sup_data_types": ["align_prior_matrix", "pitch", "energy", "speaker_id"],
+                   "win_length": 1024, "hop_length": JETS_HOP, "n_mels": 80, **stft, **pitch,
+                   "pitch_norm": True, "use_beta_binomial_interpolator": True}
+        if train:
+            dataset.update(max_duration=None, min_duration=0.1)
+        return {"dataset": dataset,
+                "dataloader_params": {"drop_last": False, "shuffle": train,
+                                      "batch_size": batch_size, "num_workers": 4}}
+
+    model = {
+        "learn_alignment": True, "bin_loss_warmup_epochs": 100, "max_token_duration": 75,
+        "symbols_embedding_dim": 384, "pitch_embedding_kernel_size": 3,
+        "energy_embedding_kernel_size": 3, "segment_size": 64, "mel_loss_scale": 45.0,
+        "feature_loss_scale": 2.0, "adv_loss_scale": 1.0, "aligner_loss_scale": 2.0, **pitch,
+        "sample_rate": 22050, "n_mel_channels": 80, "n_window_size": 1024,
+        "n_window_stride": JETS_HOP, **stft,
+        "text_tokenizer": {"_target_": "roar_tpu.data.tokenizers.BengaliCharsTokenizer",
+                           "punct": True, "apostrophe": True, "pad_with_space": True},
+        "train_ds": data(train_manifest, True), "validation_ds": data(val_manifest, False),
+        "preprocessor": {"nfilt": 80, "n_window_size": 1024, "n_window_stride": JETS_HOP,
+                         "pad_to": 0, "pad_value": -11.52, "sample_rate": 22050, **stft,
+                         "normalize": None, "preemph": None, "dither": 0.0, "log": True,
+                         "log_zero_guard_type": "clamp", "log_zero_guard_value": 1e-05,
+                         "mag_power": 1.0, "exact_pad": True},
+        "input_fft": dict(fft), "output_fft": dict(fft),
+        "alignment_module": {"n_text_channels": 384, "condition_types": ["add"]},
+        "duration_predictor": dict(predictor), "pitch_predictor": dict(predictor),
+        "energy_predictor": dict(predictor),
+        "waveform_generator": {**hifigan_config()["generator"], "initial_input_size": 384},
+        "speaker_encoder": {"lookup_module": {"n_speakers": 4, "embedding_dim": 384}},
+        "speaker_emb_condition_prosody": True, "speaker_emb_condition_decoder": True,
+        "speaker_emb_condition_aligner": True,
+        "optim": {"name": "adamw", "lr": 0.0002, "betas": [0.8, 0.99],
+                  "sched": {"name": "CosineAnnealing", "min_lr": 1e-5, "warmup_ratio": 0.02}},
+        "max_steps": 2500000,
+    }
+    return {
+        "name": "JETS", "model": model,
+        "trainer": {"max_steps": max_steps, "precision": 32, "max_epochs": 1000,
+                    "gradient_clip_val": 1000.0, "log_every_n_steps": 1, "seed": 0,
+                    "model_parallel_size": 1},
+        "exp_manager": {"exp_dir": exp_dir, "name": "JETS", "resume_if_exists": False,
                         "always_save_roar": True},
         "device": device,
     }
@@ -673,18 +801,19 @@ def viterbi_bounds(b: int, t: int, n: int, w: int) -> tuple:
 def phase_kernel_viterbi(device: torch.device) -> dict:
     """K1 and K2 against their plain versions: exact equality of pointers,
     final scores and states, at every `VITERBI_CASES` shape with the cluster
-    size K1 picks, and at the CLI's bucket shape (16, 449, 601, 101) with
-    every admissible cluster size forced.  Returns each kernel's numbers at
-    that shape with the picked size, the sweep, and B 128's."""
+    size K1 picks, and at the CLI's bucket shape (16, 449, 601, 101) and
+    JETS's (16, 864, 601, 101) with every admissible cluster size forced.
+    Returns each kernel's numbers at those two shapes with the picked size,
+    their sweeps, and B 128's."""
     from roar_tpu_torch.kernels import pyin_viterbi as pv
     from roar_tpu_torch.ops.pyin import _band_tables
 
     rng = np.random.default_rng(SEED)
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
     log_stay, log_switch = float(np.log1p(-0.01)), float(np.log(0.01))
-    summary = {"sweep": []}
+    summary = {"sweep": [], "sweep_jets": []}
     for case, (b, t, n, w) in enumerate(VITERBI_CASES):
-        ties = case in (0, 2)
+        ties = case in VITERBI_TIES
         log_obs = torch.from_numpy(viterbi_log_obs(rng, b, t, n, ties)).to(device)
         log_tri, log_norm = (torch.from_numpy(a).to(device) for a in _band_tables(n, w))
         if not torch.isfinite(log_tri).all():
@@ -693,7 +822,8 @@ def phase_kernel_viterbi(device: torch.device) -> dict:
         ptrs_p, v_final_p = pv.viterbi_forward_plain(*args)
         fwd_plain_ms = _time_ms(lambda: pv.viterbi_forward_plain(*args), reps=3)
         picked = pv.cluster_size(b, n, w, sm_count)
-        forced = [c for c in (1, 2, 4, 8) if pv.cluster_admissible(n, w, c)] if case == 0 else []
+        forced = ([c for c in (1, 2, 4, 8) if pv.cluster_admissible(n, w, c)]
+                  if case in VITERBI_SWEPT else [])
         for cluster in [None] + forced:
             c = picked if cluster is None else cluster
             ptrs, v_final = pv.viterbi_forward(*args, cluster=cluster)
@@ -721,17 +851,19 @@ def phase_kernel_viterbi(device: torch.device) -> dict:
                    "ties": ties, "cluster_forced": cluster is not None, "pointers_equal": True,
                    "final_scores_equal": True, **fwd})
             if cluster is not None:
-                summary["sweep"].append({"cluster": c, "ms": fwd["ms"],
-                                         "max_active_clusters": fwd["max_active_clusters"]})
+                summary["sweep" + VITERBI_SWEPT[case]].append(
+                    {"cluster": c, "ms": fwd["ms"],
+                     "max_active_clusters": fwd["max_active_clusters"]})
                 continue
             back = {"ms": _time_ms(lambda: pv.viterbi_backtrack(ptrs, last)),
                     "plain_ms": _time_ms(lambda: pv.viterbi_backtrack_plain(ptrs, last), reps=3),
                     **back_bound}
             _emit({"phase": "kernel", "kernel": "pyin_backtrack", "shape_btnw": [b, t, n, w],
                    "ties": ties, "states_equal": True, **back})
-            if case in (0, 1):
-                summary["fwd" if case == 0 else "fwd_b128"] = fwd
-                summary["backtrack" if case == 0 else "backtrack_b128"] = back
+            suffix = {0: "", 1: "_b128", 5: "_jets"}.get(case)
+            if suffix is not None:
+                summary["fwd" + suffix] = fwd
+                summary["backtrack" + suffix] = back
         del log_obs, ptrs, ptrs_p, v_final, v_final_p, states, states_p
     return summary
 
@@ -1121,39 +1253,34 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
             metrics_k = one_step(model)
             with _PlainGroupedConv():
                 metrics_p = one_step(twin)
-            worst = {"grad_l2": 0.0, "grad_max": 0.0, "param_abs": 0.0, "tensor": ""}
             for k in ("d_loss", "g_loss"):
                 if abs(metrics_k[k] - metrics_p[k]) > TRAIN_LOSS_RTOL * abs(metrics_p[k]):
                     raise AssertionError(f"{k}: kernels {metrics_k[k]} vs plain {metrics_p[k]}")
-            for part in ("generator", "mpd", "msd"):
-                for (name, pk), (_, pp) in zip(getattr(model, part).named_parameters(),
-                                                getattr(twin, part).named_parameters()):
-                    delta = pk.grad - pp.grad
-                    l2 = float(delta.norm()) / max(float(pp.grad.norm()), 1e-30)
-                    top = float(delta.abs().max()) / max(float(pp.grad.abs().max()), 1e-30)
-                    if top > worst["grad_max"]:
-                        worst["tensor"] = f"{part}.{name}"
-                    worst["grad_l2"] = max(worst["grad_l2"], l2)
-                    worst["grad_max"] = max(worst["grad_max"], top)
-                    worst["param_abs"] = max(worst["param_abs"],
-                                             float((pk.detach() - pp.detach()).abs().max()))
-                    if l2 > TRAIN_GRAD_L2_TOL or top > TRAIN_GRAD_MAX_TOL:
-                        raise AssertionError(
-                            f"{part}.{name}: gradient differs between kernel path and plain "
-                            f"path by {l2} (L2, relative) and {top} (largest, relative)")
-            if worst["param_abs"] > TRAIN_PARAM_ATOL:
-                raise AssertionError(f"updated parameters differ by {worst['param_abs']}")
+            grads = _grad_errors(
+                [(f"{part}.{name}", pk, pp) for part in ("generator", "mpd", "msd")
+                 for (name, pk), (_, pp) in zip(getattr(model, part).named_parameters(),
+                                                getattr(twin, part).named_parameters())],
+                TRAIN_GRAD_L2_TOL, TRAIN_GRAD_MAX_TOL)
+            if grads["failures"]:
+                raise AssertionError(grads["failures"][0])
+            if grads["param_abs"] > TRAIN_PARAM_ATOL:
+                raise AssertionError(f"updated parameters differ by {grads['param_abs']}")
             _emit({"phase": "train_hifigan", "step": "kernel_path_vs_plain_path",
                    "kernels": metrics_k, "plain": metrics_p, "loss_rtol": TRAIN_LOSS_RTOL,
-                   "max_grad_l2_rel_err": worst["grad_l2"], "grad_l2_tol": TRAIN_GRAD_L2_TOL,
-                   "max_grad_max_rel_err": worst["grad_max"], "grad_max_tol": TRAIN_GRAD_MAX_TOL,
-                   "worst_gradient_tensor": worst["tensor"],
-                   "max_param_abs_diff": worst["param_abs"], "param_atol": TRAIN_PARAM_ATOL})
+                   "max_grad_l2_rel_err": grads["worst_l2"][0], "grad_l2_tol": TRAIN_GRAD_L2_TOL,
+                   "max_grad_max_rel_err": grads["worst_max"][0],
+                   "grad_max_tol": TRAIN_GRAD_MAX_TOL,
+                   "worst_gradient_tensor": grads["worst_max"][1],
+                   "max_param_abs_diff": grads["param_abs"], "param_atol": TRAIN_PARAM_ATOL})
             del twin
 
             result = {"launches": launches}
             if on_card:
-                result["timing"] = _time_train_step(model, batch, optim_cfg, card)
+                timing_state = GANTrainState(
+                    model=model, g_opt=build_optimizer(model.g_parameters(), optim_cfg),
+                    d_opt=build_optimizer(model.d_parameters(), optim_cfg))
+                result["timing"] = _time_gan_step(timing_state, batch, card, "train_hifigan",
+                                                  {n: (gk, n) for n in _PlainGroupedConv.NAMES})
             return result
     finally:
         torch.backends.cudnn.benchmark = benchmark_was
@@ -1171,16 +1298,65 @@ def _batches(cfg: dict):
     return batch_iterator(dataset, sampler)
 
 
-def _time_train_step(model, batch, optim_cfg: dict, card: str) -> dict:
-    """Step time (median of 5 after two warm steps, CUDA events), its split
-    by the parts `gan_train_step` marks, and the grouped-conv kernels' time
-    inside a step (events around every launch, in two further steps)."""
-    from roar_tpu_torch.kernels import grouped_conv as gk
-    from roar_tpu_torch.training.gan import GANTrainState, gan_train_step
-    from roar_tpu_torch.training.optim import build_optimizer
+def _grad_errors(pairs, l2_tol: float, max_tol: float = float("inf")) -> dict:
+    """Kernel path against plain path after one step, over `pairs` ((name,
+    kernel-path parameter, plain-path parameter)): per tensor the relative
+    L2 and the largest difference of the gradients (over the plain one's
+    largest magnitude), the whole gradient's relative L2, the worst tensor of
+    each, the largest difference of the parameters, and a failure line for
+    each tensor over `l2_tol` or `max_tol`."""
+    out = {"tensors": {}, "failures": [], "param_abs": 0.0}
+    delta_sq = total_sq = 0.0
+    for name, pk, pp in pairs:
+        gk, gp = pk.grad, pp.grad
+        if gk is None and gp is None:
+            continue
+        if gk is None or gp is None:
+            out["failures"].append(f"{name}: a gradient on one path only")
+            continue
+        delta = gk - gp
+        d, n = float(delta.norm()), float(gp.norm())
+        delta_sq, total_sq = delta_sq + d ** 2, total_sq + n ** 2
+        l2 = d / max(n, 1e-30)
+        top = float(delta.abs().max()) / max(float(gp.abs().max()), 1e-30)
+        out["tensors"][name] = (l2, top)
+        out["param_abs"] = max(out["param_abs"], float((pk.detach() - pp.detach()).abs().max()))
+        if l2 > l2_tol or top > max_tol:
+            out["failures"].append(f"{name}: gradient differs between kernel path and plain "
+                                   f"path by {l2} (L2, relative) and {top} (largest, relative)")
+    out["whole_l2"] = (delta_sq / max(total_sq, 1e-60)) ** 0.5
+    out["worst_l2"] = max(((v[0], k) for k, v in out["tensors"].items()), default=(0.0, ""))
+    out["worst_max"] = max(((v[1], k) for k, v in out["tensors"].items()), default=(0.0, ""))
+    return out
 
-    state = GANTrainState(model=model, g_opt=build_optimizer(model.g_parameters(), optim_cfg),
-                          d_opt=build_optimizer(model.d_parameters(), optim_cfg))
+
+def _time_inside(timed: dict, step, n_steps: int = 2) -> tuple:
+    """Run `step()` `n_steps` times with CUDA events around every call of
+    each function of `timed` (name -> (module, attribute)).  Returns (ms per
+    step, calls per step), by name."""
+    spans = {n: [] for n in timed}
+    saved = {n: getattr(mod, attr) for n, (mod, attr) in timed.items()}
+    try:
+        for n, (mod, attr) in timed.items():
+            setattr(mod, attr, _timed(spans[n], saved[n]))
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        for n, (mod, attr) in timed.items():
+            setattr(mod, attr, saved[n])
+    return ({n: sum(a.elapsed_time(b) for a, b in pairs) / n_steps
+             for n, pairs in spans.items()},
+            {n: len(pairs) // n_steps for n, pairs in spans.items()})
+
+
+def _time_gan_step(state, batch, card: str, phase: str, timed: dict, epoch: int = 0) -> dict:
+    """Step time of `gan_train_step` on `state` (median of 5 after two warm
+    steps, CUDA events), its split by the parts the step marks, peak memory,
+    and inside two further steps the time of each function of `timed` (name
+    -> (module, attribute); events around every call)."""
+    from roar_tpu_torch.training.gan import gan_train_step
+
     parts = ("generator_forward", "d_pass", "d_optimizer", "g_pass", "g_optimizer")
     totals, splits = [], {p: [] for p in parts}
     torch.cuda.reset_peak_memory_stats()
@@ -1192,7 +1368,7 @@ def _time_train_step(model, batch, optim_cfg: dict, card: str) -> dict:
             events[name] = torch.cuda.Event(enable_timing=True)
             events[name].record()
 
-        gan_train_step(state, batch, mark=mark)
+        gan_train_step(state, batch, mark=mark, epoch=epoch)
         torch.cuda.synchronize()
         if i < 2:
             continue
@@ -1201,38 +1377,15 @@ def _time_train_step(model, batch, optim_cfg: dict, card: str) -> dict:
             splits[name].append(events[before].elapsed_time(events[name]))
     peak = torch.cuda.max_memory_allocated()
 
-    spans = {"grouped_conv_fwd": [], "grouped_conv_dx": [], "grouped_conv_dw": []}
-    saved = {n: getattr(gk, n) for n in spans}
-
-    def timed(name):
-        def call(*args):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = saved[name](*args)
-            end.record()
-            spans[name].append((start, end))
-            return out
-        return call
-
-    n_steps = 2
-    try:
-        for n in spans:
-            setattr(gk, n, timed(n))
-        for _ in range(n_steps):
-            gan_train_step(state, batch)
-        torch.cuda.synchronize()
-    finally:
-        for n, fn in saved.items():
-            setattr(gk, n, fn)
-    kernel_ms = {n: sum(a.elapsed_time(b) for a, b in pairs) / n_steps
-                 for n, pairs in spans.items()}
+    inside, calls = _time_inside(timed, lambda: gan_train_step(state, batch, epoch=epoch))
     step_ms = float(np.median(totals))
-    timing = {"phase": "train_hifigan", "step": "timing", "card": card,
+    timing = {"phase": phase, "step": "timing", "card": card,
+              "batch_shapes": {k: list(v.shape) for k, v in batch.items()},
               "step_ms": step_ms, "step_ms_all": totals,
               "split_ms": {p: float(np.median(v)) for p, v in splits.items()},
-              "grouped_conv_ms_per_step": kernel_ms,
-              "grouped_conv_launches_per_step": {n: len(v) // n_steps for n, v in spans.items()},
-              "grouped_conv_share_of_step": sum(kernel_ms.values()) / step_ms,
+              "ms_per_step": inside,
+              "calls_per_step": calls,
+              "share_of_step": {n: inside[n] / step_ms for n in inside},
               "peak_device_memory_bytes": peak,
               "method": "CUDA events; median of 5 steps after 2 warm steps; cudnn.benchmark off, "
                         "TF32 off; batch already on the card"}
@@ -1610,7 +1763,7 @@ def _narrow_fastpitch(cfg: dict) -> None:
     model["speaker_encoder"]["lookup_module"]["embedding_dim"] = 32
 
 
-def _fastpitch_batch(cfg: dict, tokenizer, device: torch.device) -> dict:
+def _longest_tts_batch(cfg: dict, tokenizer, device: torch.device) -> dict:
     """The collated training batch of `cfg` that holds the longest utterances
     (the largest buckets a step meets), on `device`."""
     from roar_tpu_torch.data.dataset import BucketSpec
@@ -1762,7 +1915,7 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                    "peak_device_memory_bytes": peak})
 
             # one step, kernels against plain versions: same weights, batch and dropout masks
-            batch = _fastpitch_batch(cfg, model.tokenizer, device)
+            batch = _longest_tts_batch(cfg, model.tokenizer, device)
             epoch = 50  # half of the bin-loss warm-up: every term carries weight
 
             def one_step(m):
@@ -1807,19 +1960,13 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
             if not torch.equal(durs_k.sum(1).long(), batch["mel_len"].long()):
                 raise AssertionError(f"hard durations sum to {durs_k.sum(1).tolist()}, mel lengths "
                                      f"are {batch['mel_len'].tolist()}")
-            worst = {"grad_l2": 0.0, "tensor": ""}
-            delta_sq = total_sq = 0.0
-            for (name, pk), (_, pp) in zip(model.module.named_parameters(),
-                                            twin.module.named_parameters()):
-                delta, norm = float((pk.grad - pp.grad).norm()), float(pp.grad.norm())
-                delta_sq, total_sq = delta_sq + delta ** 2, total_sq + norm ** 2
-                l2 = delta / max(norm, 1e-30)
-                if l2 > worst["grad_l2"]:
-                    worst = {"grad_l2": l2, "tensor": name}
-                if l2 > FP_TRAIN_TENSOR_L2_TOL:
-                    raise AssertionError(f"{name}: gradient differs between kernel path and plain "
-                                         f"path by {l2} (L2, relative)")
-            whole_l2 = (delta_sq / max(total_sq, 1e-60)) ** 0.5
+            grads = _grad_errors(
+                [(name, pk, pp) for (name, pk), (_, pp) in zip(model.module.named_parameters(),
+                                                               twin.module.named_parameters())],
+                FP_TRAIN_TENSOR_L2_TOL)
+            if grads["failures"]:
+                raise AssertionError(grads["failures"][0])
+            whole_l2 = grads["whole_l2"]
             if whole_l2 > FP_TRAIN_GRAD_L2_TOL:
                 raise AssertionError(f"the whole gradient differs between kernel path and plain "
                                      f"path by {whole_l2} (L2, relative)")
@@ -1827,9 +1974,9 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                    "batch_shapes": {k: list(v.shape) for k, v in batch.items()},
                    "kernels": metrics_k, "plain": metrics_p, "loss_rtol": FP_TRAIN_LOSS_RTOL,
                    "whole_grad_l2_rel_err": whole_l2, "grad_l2_tol": FP_TRAIN_GRAD_L2_TOL,
-                   "max_grad_l2_rel_err": worst["grad_l2"],
+                   "max_grad_l2_rel_err": grads["worst_l2"][0],
                    "tensor_l2_tol": FP_TRAIN_TENSOR_L2_TOL,
-                   "worst_gradient_tensor": worst["tensor"], "hard_durations_equal": True,
+                   "worst_gradient_tensor": grads["worst_l2"][1], "hard_durations_equal": True,
                    "hard_durations_sum_to_mel_lens": True})
             del twin
 
@@ -1959,20 +2106,10 @@ def _time_fastpitch_step(model, batch, cfg: dict, card: str) -> dict:
             hook.remove()
     peak = torch.cuda.max_memory_allocated()
 
-    spans = {"flash_fwd": [], "flash_bwd": [], "forward_sum": []}
-    saved = (fa.flash_self_attention, fa.flash_self_attention_bwd, fpm.forward_sum_loss)
-
-    n_steps = 2
-    try:
-        fa.flash_self_attention = _timed(spans["flash_fwd"], saved[0])
-        fa.flash_self_attention_bwd = _timed(spans["flash_bwd"], saved[1])
-        fpm.forward_sum_loss = _timed(spans["forward_sum"], saved[2])
-        for _ in range(n_steps):
-            train_step(state, batch, 0)
-        torch.cuda.synchronize()
-    finally:
-        fa.flash_self_attention, fa.flash_self_attention_bwd, fpm.forward_sum_loss = saved
-    inside = {n: sum(a.elapsed_time(b) for a, b in pairs) / n_steps for n, pairs in spans.items()}
+    inside, calls = _time_inside({"flash_fwd": (fa, "flash_self_attention"),
+                                  "flash_bwd": (fa, "flash_self_attention_bwd"),
+                                  "forward_sum": (fpm, "forward_sum_loss")},
+                                 lambda: train_step(state, batch, 0))
     step_ms = float(np.median(totals))
     split = {p: float(np.median(v)) for p, v in splits.items()}
     split["mel_projection"] = split.pop("model_forward")
@@ -1982,7 +2119,7 @@ def _time_fastpitch_step(model, batch, cfg: dict, card: str) -> dict:
               "forward_sum_forward_ms": inside["forward_sum"],
               "flash_ms_per_step": {"fwd": inside["flash_fwd"],
                                     "bwd_delta_dkv_dq": inside["flash_bwd"]},
-              "flash_calls_per_step": {n: len(v) // n_steps for n, v in spans.items()},
+              "flash_calls_per_step": calls,
               "flash_share_of_step": (inside["flash_fwd"] + inside["flash_bwd"]) / step_ms,
               "peak_device_memory_bytes": peak,
               "method": "CUDA events; median of 5 steps after 2 warm steps; TF32 off; batch "
@@ -1990,6 +2127,445 @@ def _time_fastpitch_step(model, batch, cfg: dict, card: str) -> dict:
                         "`backward` its backward"}
     _emit(timing)
     return timing
+
+
+# one JETS D+G step with the kernels against one with their plain versions:
+# same weights, batch, segment starts and dropout masks, fp32, TF32 off.  Every
+# loss term is held to rtol 1e-4 (phases 6 and 8), each gradient tensor to
+# phase 6's bars (relative L2 TRAIN_GRAD_L2_TOL, largest difference
+# TRAIN_GRAD_MAX_TOL), the whole gradient of each part to phase 8's
+# FP_TRAIN_GRAD_L2_TOL.  The hard alignment must be the same on both paths:
+# the aligner reads the encoder output, which passed through six attention
+# layers, and a flipped MAS decision would change every later gradient
+JETS_G_TERMS = ("g_mel_loss", "dur_loss", "pitch_loss", "energy_loss", "ctc_loss", "bin_loss",
+                "g_fm_loss", "g_adv_loss")
+JETS_LOSS_TERMS = ("d_loss", "g_loss", "d_loss_mpd", "d_loss_msd") + JETS_G_TERMS
+# synthesis from the bundle, kernel path against plain path: twelve fp32
+# attention layers (the kernels' 3xTF32 sums against cuBLAS fp32) held at
+# MEL_TOL in phase 4, then the generator's 22 convs over 384 to 32 channels and
+# tanh.  The bar is the largest difference over the valid samples relative to
+# the plain path's RMS there: an H100 read 1.2e-5 to 1.9e-5 of an RMS of
+# 0.044 at batch 1 and 8.  The same call with the key mask dropped (every
+# padding key visible) must move the audio by more than JETS_WAV_PLANTED_MIN
+# times the bar, so the bar is known to see a masking fault at these shapes
+# (it read 3.6 to 4.4 times the RMS)
+JETS_WAV_REL_TOL = 1e-4
+JETS_WAV_PLANTED_MIN = 10.0
+
+
+def _narrow_jets(cfg: dict) -> None:
+    """Shrink a JETS training config to a rehearsal width, in place: d 32,
+    2 + 2 layers of two heads of 16, predictors 16 wide, a generator from 32
+    channels (still upsampling 256), debug discriminators, 16-frame segments."""
+    model = cfg["model"]
+    model.update(symbols_embedding_dim=32, segment_size=16, debug=True)
+    for fft in ("input_fft", "output_fft"):
+        model[fft].update(n_layer=2, d_model=32, d_head=16, n_head=2, d_inner=48)
+    for predictor in ("duration_predictor", "pitch_predictor", "energy_predictor"):
+        model[predictor].update(input_size=32, filter_size=16)
+    model["alignment_module"]["n_text_channels"] = 32
+    model["speaker_encoder"]["lookup_module"]["embedding_dim"] = 32
+    model["waveform_generator"].update(upsample_initial_channel=32, initial_input_size=32,
+                                       resblock_kernel_sizes=[3],
+                                       resblock_dilation_sizes=[[1, 3]])
+
+
+def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 64,
+                     n_val: int = 16, steps: int = 8, batch_size: int = 16,
+                     max_seconds: float = 10.0, narrow: bool = False) -> dict:
+    """JETS training: sup-data extraction at the model's STFT, then the
+    training CLI's `run`; the kernel step against the plain step; the
+    `.roar` loaded and synthesised from.  Returns the launch counts of that
+    run (K1/K2 of the extraction, K3/K4/K5 of the training), the synthesis
+    numbers and, on the card, the flash kernels held at the step's two shapes
+    and the step's timing."""
+    import copy
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "examples", "tts"))
+    sys.path.insert(0, os.path.join(here, "scripts", "dataset_processing", "tts"))
+    import extract_sup_data_torch as sup_cli
+    import jets_torch as cli
+
+    from roar_tpu_torch.data.audio import write_wav
+    from roar_tpu_torch.data.manifest import write_manifest
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.kernels import grouped_conv as gk
+    from roar_tpu_torch.kernels import pyin_viterbi as pv
+    from roar_tpu_torch.models import jets as jets_mod
+    from roar_tpu_torch.models.fastpitch_model import make_tokenizer
+    from roar_tpu_torch.models.hifigan import SpectralNormConv
+    from roar_tpu_torch.models.jets_model import JETSModel
+    from roar_tpu_torch.training.gan import GANTrainState, gan_train_step
+    from roar_tpu_torch.training.optim import build_optimizer, get_schedule
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    rng = np.random.default_rng(SEED + 3)
+    tokenizer = make_tokenizer({"_target_": "roar_tpu.data.tokenizers.BengaliCharsTokenizer",
+                                "punct": True, "apostrophe": True, "pad_with_space": True})
+    n_tokens = [len(tokenizer(s)) for s in BENGALI_SENTENCES]
+    benchmark_was = torch.backends.cudnn.benchmark
+    # training meets a new conv shape per bucket: no autotuning of each
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            wav_dir = os.path.join(tmp, "wavs")
+            os.makedirs(wav_dir)
+            total = n_utterances + n_val
+            seconds = rng.uniform(min(2.0, max_seconds / 2), max_seconds, total)
+            seconds[0] = max_seconds
+            entries = []
+            for i, sec in enumerate(seconds):
+                audio = synth_utterance(rng, float(sec))[0]
+                frames = len(audio) // JETS_HOP + 1
+                # a text its mel can hold: at least two frames per token
+                fits = [j for j, n in enumerate(n_tokens) if 2 * n <= frames]
+                if not fits:
+                    raise AssertionError(f"no sentence fits {frames} mel frames")
+                path = os.path.join(wav_dir, f"utt{i:03d}.wav")
+                write_wav(path, audio, SUP_SAMPLE_RATE)
+                entries.append({"audio_filepath": path, "duration": len(audio) / SUP_SAMPLE_RATE,
+                                "text": BENGALI_SENTENCES[fits[int(rng.integers(len(fits)))]],
+                                "speaker_id": i % 4})
+            manifest = os.path.join(tmp, "train_manifest.json")
+            val_manifest = os.path.join(tmp, "val_manifest.json")
+            all_manifest = os.path.join(tmp, "all_manifest.json")
+            write_manifest(manifest, entries[:n_utterances])
+            write_manifest(val_manifest, entries[n_utterances:])
+            write_manifest(all_manifest, entries)
+
+            # stage 1 feeds stage 2: pitch, energy and the prior's lengths come
+            # from this cache, at the model's hop of 256
+            sup_dir = os.path.join(tmp, "sup")
+            sup_cfg = jets_sup_data_config(all_manifest, sup_dir, str(device))
+            pv.LAUNCHES_FWD, pv.LAUNCHES_BACKTRACK = 0, 0
+            stats = sup_cli.run(sup_cfg)
+            sync()
+            sup_launches = {"fwd": pv.LAUNCHES_FWD, "backtrack": pv.LAUNCHES_BACKTRACK}
+            n_buckets = -(-total // sup_cfg["batch_size"])
+            if on_card and sup_launches != {"fwd": n_buckets, "backtrack": n_buckets}:
+                raise AssertionError(f"{sup_launches} Viterbi launches for {n_buckets} buckets")
+            cfg = jets_train_config(
+                manifest, val_manifest, sup_dir, os.path.join(tmp, "exp"), stats["pitch_mean"],
+                stats["pitch_std"], str(device), steps, batch_size)
+            if narrow:
+                _narrow_jets(cfg)
+            steps_per_epoch = n_utterances // batch_size
+            epochs = -(-steps // steps_per_epoch)
+            # validation follows every epoch, the last one too
+            val_batches = epochs * (n_val // batch_size)
+
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            fa.LAUNCHES.clear()
+            gk.LAUNCHES_FWD = gk.LAUNCHES_DX = gk.LAUNCHES_DW = 0
+            t0 = time.perf_counter()
+            state = cli.run(cfg)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = {**{k: fa.LAUNCHES[k] for k in ("fwd", "dkv", "dq")},
+                        "grouped_conv_fwd": gk.LAUNCHES_FWD, "grouped_conv_dx": gk.LAUNCHES_DX,
+                        "grouped_conv_dw": gk.LAUNCHES_DW}
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            model = state.model
+            module = model.module
+            n_attn = len(module.encoder_module.stack.layers) + len(module.decoder_module.layers)
+            n_grouped = sum(1 for m in model.msd.modules() if getattr(m, "groups", 1) > 1)
+            # a step: every attention layer forward, dK/dV and dQ once; each
+            # grouped conv forward and dX in the D pass and in the G pass, dW
+            # in the D pass only; a validation batch: the forwards of the
+            # generator graph and of the G pass's discriminators
+            want = {"fwd": n_attn * (steps + val_batches), "dkv": n_attn * steps,
+                    "dq": n_attn * steps,
+                    "grouped_conv_fwd": n_grouped * (2 * steps + val_batches),
+                    "grouped_conv_dx": 2 * n_grouped * steps, "grouped_conv_dw": n_grouped * steps}
+            if state.step != steps or n_attn != (4 if narrow else 12) or n_grouped != 15:
+                raise AssertionError(f"{state.step} steps, {n_attn} attention layers, "
+                                     f"{n_grouped} grouped convs")
+            if model.attention_paths() != {"input_fft": "flash", "output_fft": "flash"}:
+                raise AssertionError(f"attention paths {model.attention_paths()}")
+            if on_card and launches != want:
+                raise AssertionError(f"launches {launches} != {want}: a layer went round its "
+                                     f"kernel, K4 ran in the G pass, or validation ran a backward")
+
+            root = os.path.join(tmp, "exp", "JETS")
+            with open(os.path.join(root, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f if line.strip()]
+            train = [r for r in records if "d_loss" in r]
+            val = [r for r in records if "val_g_mel_loss" in r]
+            if [r["step"] for r in train] != list(range(1, steps + 1)):
+                raise AssertionError(f"logged steps {[r['step'] for r in train]}")
+            for r in train:
+                bad = [k for k in JETS_LOSS_TERMS if not np.isfinite(r.get(k, np.nan))]
+                if bad:
+                    raise AssertionError(f"step {r['step']}: {bad} missing or not finite")
+            if any(r["bin_loss"] != 0.0 for r in train[:steps_per_epoch]) or \
+                    any(r["bin_loss"] == 0.0 for r in train[steps_per_epoch:]):
+                raise AssertionError("bin_loss does not follow the epoch's warm-up weight")
+            if len(val) != epochs or not all(np.isfinite(r[f"val_{k}"]) for r in val
+                                              for k in JETS_G_TERMS):
+                raise AssertionError(f"validation records {val}")
+            sched = cfg["model"]["optim"]["sched"]
+            schedule = get_schedule(sched["name"], cfg["model"]["optim"]["lr"],
+                                    max_steps=cfg["model"]["max_steps"], min_lr=sched["min_lr"],
+                                    warmup_ratio=sched["warmup_ratio"])
+            lrs = [r["lr"] for r in train]
+            if not np.allclose(lrs, [schedule(i) for i in range(steps)], rtol=1e-9, atol=0.0):
+                raise AssertionError(f"learning rates {lrs} are not the schedule's")
+            # the spectral norm of scale 0 stored a new u and sigma
+            fresh = JETSModel(cfg["model"], generator=torch.Generator().manual_seed(0))
+            moved = [not torch.equal(m.u.cpu(), m0.u) and float(m.sigma) != 1.0
+                     and bool(torch.isfinite(m.u).all())
+                     for m, m0 in zip(model.msd.modules(), fresh.msd.modules())
+                     if isinstance(m, SpectralNormConv)]
+            if len(moved) != 8 or not all(moved):
+                raise AssertionError(f"spectral-norm stats of scale 0 not updated: {moved}")
+            del fresh
+            _emit({"phase": "train_jets", "step": "cli", "card": card, "steps": steps,
+                   "batch": batch_size, "utterances": n_utterances, "validation_utterances": n_val,
+                   "seconds_of_audio": float(seconds[:n_utterances].sum()),
+                   "sup_data": {**{k: stats[k] for k in ("pitch_mean", "pitch_std",
+                                                         "mel_frames", "seconds")},
+                                "hop_length": JETS_HOP, "viterbi_launches": sup_launches},
+                   "launches": launches, "attention_layers": n_attn, "grouped_convs": n_grouped,
+                   "per_step": {"flash_dkv": launches["dkv"] // steps,
+                                "flash_dq": launches["dq"] // steps,
+                                "grouped_conv_dx": launches["grouped_conv_dx"] // steps,
+                                "grouped_conv_dw": launches["grouped_conv_dw"] // steps},
+                   "validation_batches": val_batches,
+                   "losses_first": {k: train[0][k] for k in JETS_LOSS_TERMS},
+                   "losses_last": {k: train[-1][k] for k in JETS_LOSS_TERMS},
+                   "val": {k: v for k, v in val[-1].items() if k.startswith("val_")},
+                   "lr": lrs, "spectral_norm_convs_updated": len(moved), "wall_s": wall,
+                   "wall_includes": "model build, WAV and cache reads, logging every step (a "
+                                    "sync each), two validation batches, checkpoints, bundle",
+                   "peak_device_memory_bytes": peak})
+
+            synth = _jets_bundle_synthesis(state, root, device, n_attn,
+                                           max_mel_len=128 if narrow else 1024)
+
+            # one D+G step, kernels against plain versions: same weights, batch,
+            # segment starts and dropout masks
+            batch = _longest_tts_batch(cfg, model.tokenizer, device)
+            epoch = 50  # half of the bin-loss warm-up: every term carries weight
+            optim_cfg = {"name": "adamw", "lr": TRAIN_LR, "betas": [0.8, 0.99]}
+
+            def one_step(m):
+                m.set_dropout_generator(torch.Generator(device=device).manual_seed(7))
+                st = GANTrainState(model=m, g_opt=build_optimizer(m.g_parameters(), optim_cfg),
+                                   d_opt=build_optimizer(m.d_parameters(), optim_cfg))
+                seen, forward = {}, m.forward_split
+
+                def noting(b, e):
+                    seen.update(forward(b, e))
+                    return seen
+
+                m.forward_split = noting
+                try:
+                    _, metrics = gan_train_step(st, batch, epoch=epoch)
+                finally:
+                    del m.forward_split
+                sync()
+                return {k: float(v) for k, v in metrics.items()}, seen
+
+            model.set_dropout_generator(None)  # the generators stay out of the copy
+            twin = copy.deepcopy(model)
+            before = fa.LAUNCHES.copy()
+            # what this step hands the attention kernels: shape -> key mask
+            given, flash_forward = {}, fa.flash_self_attention
+
+            def noting_flash(q, k, v, key_mask, scale, **kwargs):
+                given.setdefault(tuple(q.shape), key_mask)
+                return flash_forward(q, k, v, key_mask, scale, **kwargs)
+
+            fa.flash_self_attention = noting_flash
+            try:
+                metrics_k, out_k = one_step(model)
+            finally:
+                fa.flash_self_attention = flash_forward
+            step_launches = dict(fa.LAUNCHES - before)
+            if on_card and step_launches != dict.fromkeys(("fwd", "dkv", "dq"), n_attn):
+                raise AssertionError(f"one step launched {step_launches}, not {n_attn} of each")
+            with _PlainFlash(), _PlainGroupedConv():
+                metrics_p, out_p = one_step(twin)
+            durs = out_k["attn_hard_dur"]
+            if not torch.equal(durs.sum(1).long(), out_k["mel_lens"].long()):
+                raise AssertionError(f"hard durations sum to {durs.sum(1).tolist()}, mel lengths "
+                                     f"are {out_k['mel_lens'].tolist()}")
+            z = out_k["z_start_idxs"].long()
+            if not bool(((z >= 0) & (z + model.segment_size <= out_k["mel_lens"])
+                         | ((z == 0) & (out_k["mel_lens"] < model.segment_size))).all()):
+                raise AssertionError(f"segment starts {z.tolist()} outside the valid frames "
+                                     f"{out_k['mel_lens'].tolist()}")
+            for k in ("attn_hard", "z_start_idxs", "num_frames"):
+                if not torch.equal(out_k[k], out_p[k]):
+                    raise AssertionError(f"{k} differs between the kernel and plain paths")
+            failures = [f"{k}: kernels {metrics_k[k]} vs plain {metrics_p[k]}"
+                        for k in JETS_LOSS_TERMS
+                        if abs(metrics_k[k] - metrics_p[k]) > TRAIN_LOSS_RTOL * abs(metrics_p[k])]
+            grads = {}
+            for part in ("module", "mpd", "msd"):
+                pairs = [(f"{part}.{name}", pk, pp) for (name, pk), (_, pp) in zip(
+                    getattr(model, part).named_parameters(), getattr(twin, part).named_parameters())]
+                grads[part] = _grad_errors(pairs, TRAIN_GRAD_L2_TOL, TRAIN_GRAD_MAX_TOL)
+                if grads[part]["whole_l2"] > FP_TRAIN_GRAD_L2_TOL:
+                    failures.append(f"{part}: whole gradient differs by {grads[part]['whole_l2']}")
+                failures += grads[part]["failures"]
+            worst_l2 = max(g["worst_l2"] for g in grads.values())
+            worst_top = max(g["worst_max"] for g in grads.values())
+            _emit({"phase": "train_jets", "step": "kernel_path_vs_plain_path", "epoch": epoch,
+                   "batch_shapes": {k: list(v.shape) for k, v in batch.items()},
+                   "kernels": metrics_k, "plain": metrics_p, "loss_rtol": TRAIN_LOSS_RTOL,
+                   "whole_grad_l2_rel_err": {p: g["whole_l2"] for p, g in grads.items()},
+                   "whole_grad_l2_tol": FP_TRAIN_GRAD_L2_TOL,
+                   "max_grad_l2_rel_err": worst_l2, "grad_l2_tol": TRAIN_GRAD_L2_TOL,
+                   "max_grad_max_rel_err": worst_top, "grad_max_tol": TRAIN_GRAD_MAX_TOL,
+                   "hard_alignment_equal": True, "hard_durations_sum_to_mel_lens": True,
+                   "z_start_idxs": z.tolist(), "mel_lens": out_k["mel_lens"].tolist(),
+                   "failures": failures})
+            if failures:
+                raise AssertionError(f"kernel path vs plain path: {failures[:8]}")
+            del twin, out_k, out_p
+
+            # the attention kernels against their plain versions at the shapes
+            # and key lengths that step gave them: the encoder's (text bucket)
+            # and the decoder's (mel bucket)
+            flash = {}
+            if on_card:
+                if len(given) != 2 or any(m is None for m in given.values()):
+                    raise AssertionError(f"the step gave its attention {list(given)}")
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                for shape, key_mask in sorted(given.items()):
+                    flash[shape[1]] = _flash_case(
+                        gen, shape, key_mask, True,
+                        "the longest batch of train_jets, its own key lengths", phase="train_jets")
+
+            result = {"launches": launches, "sup_launches": sup_launches, "flash": flash,
+                      "synthesis": synth}
+            if on_card:
+                # the runner's optimizers: the schedule and the clip
+                model.set_dropout_generator(torch.Generator(device=device).manual_seed(0))
+                opt_kwargs = dict(max_steps=cfg["model"]["max_steps"],
+                                  gradient_clip_val=cfg["trainer"]["gradient_clip_val"])
+                timing_state = GANTrainState(
+                    model=model, g_opt=build_optimizer(model.g_parameters(),
+                                                       cfg["model"]["optim"], **opt_kwargs),
+                    d_opt=build_optimizer(model.d_parameters(), cfg["model"]["optim"],
+                                          **opt_kwargs))
+                # `flash_bwd` holds the delta reduction, dK/dV and dQ; `mas` the
+                # device DP and its backtrack
+                timed = {**{n: (gk, n) for n in _PlainGroupedConv.NAMES},
+                         "flash_fwd": (fa, "flash_self_attention"),
+                         "flash_bwd": (fa, "flash_self_attention_bwd"),
+                         "mas": (jets_mod, "binarize_attention")}
+                result["timing"] = _time_gan_step(timing_state, batch, card, "train_jets", timed,
+                                                  epoch=1)
+            return result
+    finally:
+        torch.backends.cudnn.benchmark = benchmark_was
+
+
+def _jets_bundle_synthesis(state, root: str, device: torch.device, n_attn: int,
+                           max_mel_len: int = 1024) -> dict:
+    """The saved `.roar` loaded into a fresh JETSModel (its parameters the
+    trained ones), then `convert_text_to_waveform` into a `max_mel_len`
+    bucket on one Bengali text and on a batch of 8: the flash forwards per
+    call, the samples per frame, and the kernel path's audio against the
+    plain path's and against a planted masking fault.  Returns the synthesis
+    numbers (wall time and real-time factor on the card)."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models.jets_model import JETSModel
+    from roar_tpu_torch.training import convert
+    from roar_tpu_torch.training.save_restore import restore_from
+
+    on_card = device.type == "cuda"
+    path = os.path.join(root, "checkpoints", "JETS.roar")
+    bundle_cfg, tree = restore_from(path)
+    served = JETSModel(bundle_cfg["model"])
+    convert.load_jets_bundle(served.module, served.mpd, served.msd, tree)
+    for part, trained in state.model.state_modules().items():
+        for (name, a), (_, b) in zip(served.state_modules()[part].state_dict().items(),
+                                     trained.state_dict().items()):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"bundle parameter {part}.{name} is not the trained one")
+    served.to(device)
+    hop = served.hop_length
+    texts = {1: BENGALI_SENTENCES[2:3], 8: BENGALI_SENTENCES}
+    synth = {"bundle_bytes": os.path.getsize(path), "parameters_equal_trained": True,
+             "max_mel_len": max_mel_len, "wav_rel_tol": JETS_WAV_REL_TOL,
+             "planted_min": JETS_WAV_PLANTED_MIN,
+             "bar": "largest difference over the valid samples / RMS of the plain path's"}
+    flash_forward = fa.flash_self_attention
+
+    def unmasked(q, k, v, key_mask, scale, **kwargs):
+        return flash_forward(q, k, v, None if key_mask is None else torch.ones_like(key_mask),
+                             scale, **kwargs)
+
+    for n, sentences in texts.items():
+        ids = [served.parse(s)[0] for s in sentences]
+        tokens = torch.zeros(n, max(len(t) for t in ids), dtype=torch.long)
+        for j, t in enumerate(ids):
+            tokens[j, :len(t)] = torch.from_numpy(t)
+        tokens = tokens.to(device)
+        speaker = torch.arange(n, device=device) % 4
+
+        def call():
+            return served.convert_text_to_waveform(tokens, speaker, max_mel_len=max_mel_len)
+
+        before = fa.LAUNCHES["fwd"]
+        wav, frames = call()
+        if on_card:
+            torch.cuda.synchronize()
+            if fa.LAUNCHES["fwd"] - before != n_attn:
+                raise AssertionError(f"{fa.LAUNCHES['fwd'] - before} flash forwards for one "
+                                     f"synthesis call, not {n_attn}")
+        with _PlainFlash():
+            wav_p, frames_p = call()
+        fa.flash_self_attention = unmasked
+        try:
+            wav_x, _ = call()
+        finally:
+            fa.flash_self_attention = flash_forward
+        if tuple(wav.shape) != (n, max_mel_len * hop) or not torch.isfinite(wav).all():
+            raise AssertionError(f"synthesised audio {tuple(wav.shape)} or not finite")
+        if not torch.equal(frames, frames_p) or int(frames.max()) > max_mel_len \
+                or int(frames.sum()) == 0:
+            raise AssertionError(f"frames {frames.tolist()} (plain path {frames_p.tolist()})")
+        lens = [int(f) * hop for f in frames]
+        valid = torch.cat([wav_p[j, :m] for j, m in enumerate(lens)])
+        rms = float(valid.square().mean().sqrt())
+        err, planted = (max(float((w[j, :m] - wav_p[j, :m]).abs().max())
+                            for j, m in enumerate(lens) if m) for w in (wav, wav_x))
+        if not rms > 0.0 or err > JETS_WAV_REL_TOL * rms:
+            raise AssertionError(f"batch {n}: kernel-path audio differs from the plain path's "
+                                 f"by {err}, RMS {rms}, bar {JETS_WAV_REL_TOL} of the RMS")
+        if on_card and planted <= JETS_WAV_PLANTED_MIN * JETS_WAV_REL_TOL * rms:
+            raise AssertionError(f"batch {n}: dropping the key mask moves the audio by only "
+                                 f"{planted / rms} of its RMS")
+        line = {"batch": n, "num_frames": frames.tolist(), "samples": lens,
+                "samples_per_frame": hop, "wav_rms": rms, "max_abs_err_vs_plain": err,
+                "rel_err_vs_plain": err / rms, "planted_unmasked_rel_err": planted / rms}
+        if on_card:
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            wall = float(np.median(walls))
+            line.update(wall_s=wall, audio_s=sum(lens) / served.sample_rate,
+                        real_time_factor=wall / (sum(lens) / served.sample_rate),
+                        method="host wall clock around one call, synchronised; median of 3 "
+                               "after one warm call; the whole bucket is vocoded")
+        synth[f"batch_{n}"] = line
+    _emit({"phase": "train_jets", "step": "bundle_synthesis", **synth})
+    return synth
 
 
 # one micro-batch of the GPT step, kernels against plain versions, same weights
@@ -2373,18 +2949,13 @@ def _time_gpt_step(state, batch: dict, accumulate: int, card: str) -> dict:
                 splits[name].append(split[name])
     peak = torch.cuda.max_memory_allocated()
 
-    spans = {"flash_fwd": [], "flash_bwd": []}
-    saved = (fa.flash_self_attention, fa.flash_self_attention_bwd)
-
-    try:
-        fa.flash_self_attention = _timed(spans["flash_fwd"], saved[0])
-        fa.flash_self_attention_bwd = _timed(spans["flash_bwd"], saved[1])
+    def update():
         for _ in range(accumulate):
             train_step(state, batch, 0, accumulate)
-        torch.cuda.synchronize()
-    finally:
-        fa.flash_self_attention, fa.flash_self_attention_bwd = saved
-    inside = {n: sum(a.elapsed_time(b) for a, b in pairs) for n, pairs in spans.items()}
+
+    inside, calls = _time_inside({"flash_fwd": (fa, "flash_self_attention"),
+                                  "flash_bwd": (fa, "flash_self_attention_bwd")},
+                                 update, n_steps=1)
     step_ms = float(np.median(totals))
     tokens = accumulate * int(batch["input_ids"].numel())
     split = {p: float(np.median(v)) for p, v in splits.items()}
@@ -2396,7 +2967,7 @@ def _time_gpt_step(state, batch: dict, accumulate: int, card: str) -> dict:
               "split_ms": split,
               "flash_ms_per_step": {"fwd": inside["flash_fwd"],
                                     "bwd_delta_dkv_dq": inside["flash_bwd"]},
-              "flash_calls_per_step": {n: len(v) for n, v in spans.items()},
+              "flash_calls_per_step": calls,
               "flash_share_of_step": (inside["flash_fwd"] + inside["flash_bwd"]) / step_ms,
               "peak_device_memory_bytes": peak,
               "method": "CUDA events; one step = one optimizer update = 4 micro-batches of one "
@@ -2845,12 +3416,16 @@ def main() -> int:
     kern = phase_kernel(device)
     vit = phase_kernel_viterbi(device)
     conv = phase_kernel_grouped_conv(device)
+    # the JETS discriminators' widths: 16 segments of 16384 samples, real and fake joined
+    conv16k = phase_kernel_grouped_conv(device, batch=32, segment=16384)
     fbwd = phase_kernel_flash_bwd(device)
     fcausal = phase_kernel_flash_causal(device)
     run = phase_slice(device, fastpitch_config(), hifigan_config(), TAMIL_SENTENCES, card)
     sup = phase_supdata(device, card)
     train = phase_train_hifigan(device, card)
     fp_train = phase_train_fastpitch(device, card)
+    torch.cuda.empty_cache()
+    jets = phase_train_jets(device, card)
     torch.cuda.empty_cache()
     gpt = phase_train_gpt(device, card)
 
@@ -2910,12 +3485,16 @@ def main() -> int:
     # step makes six of each
     flash = fp_train["flash"]
     flash_fwd, flash_bwd = flash_rows([flash[t] for t in sorted(flash)])
-    flash_errors = [case["errors"] for case in flash.values()] + [fbwd["max_abs_err"]]
-    flash_shapes = {str(t): {**case["times"],
-                             **{k: v["bound_ms"] for k, v in case["bounds"].items()},
-                             **{f"{k}_fp32_fma": v["bound_ms"]
-                                for k, v in case["bounds_fp32_fma"].items()}}
-                    for t, case in flash.items()}
+    jets_flash = jets["flash"]
+    jets_fwd, jets_bwd = flash_rows([jets_flash[t] for t in sorted(jets_flash)])
+    flash_errors = ([case["errors"] for case in flash.values()]
+                    + [case["errors"] for case in jets_flash.values()] + [fbwd["max_abs_err"]])
+
+    def by_bucket(cases):
+        return {str(t): {**case["times"], **{k: v["bound_ms"] for k, v in case["bounds"].items()},
+                         **{f"{k}_fp32_fma": v["bound_ms"]
+                            for k, v in case["bounds_fp32_fma"].items()}}
+                for t, case in cases.items()}
     # K5-causal: every launch of phase `train_gpt`'s run is causal and bf16,
     # at (1, 4096, 32, 64); `ms` and its neighbours are one layer's call at
     # that shape and type, `fp32` the same call in fp32 (its launches: those
@@ -2937,16 +3516,22 @@ def main() -> int:
          "kernel": "flash_fwd_tf32_kernel", "dtype": "float32",
          "replaces": "roar_tpu/models/transformer.py:72", "causal": False,
          "launches": run["launches"], "launches_train_fastpitch": fp_train["launches"]["fwd"],
+         "launches_train_jets": jets["launches"]["fwd"],
          "max_abs_err": max(kern["max_abs_err"], worst(flash_errors, "o")),
          **pick(kern), "library_ms": kern["library_ms"],
          "bound_fp32_fma_ms": kern["bound_fp32_fma_ms"],
          "train_fastpitch": {**flash_fwd, "lse_max_abs_err": worst(flash_errors, "lse"),
-                             "by_mel_or_text_bucket": flash_shapes}},
+                             "by_mel_or_text_bucket": by_bucket(flash)},
+         "train_jets": {**jets_fwd, "by_mel_or_text_bucket": by_bucket(jets_flash)}},
+        # `launches` and the times: the FastPitch step's; `train_jets`: the
+        # JETS step's two shapes
         *[{"name": f"flash_attention_bwd_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/transformer.py:110", "causal": False,
            "launches": fp_train["launches"][name],
-           "max_abs_err": worst(flash_errors, *grads), **flash_bwd[name]}
+           "launches_train_jets": jets["launches"][name],
+           "max_abs_err": worst(flash_errors, *grads), **flash_bwd[name],
+           "train_jets": jets_bwd[name]}
           for name, grads in backward_kernels],
         {"name": "flash_attention_causal_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -2968,30 +3553,43 @@ def main() -> int:
         {"name": "pyin_viterbi_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:34",
-         "launches": sup["launches"]["fwd"], "max_abs_err": 0.0,
+         "launches": sup["launches"]["fwd"],
+         "launches_train_jets": jets["sup_launches"]["fwd"], "max_abs_err": 0.0,
          **pick(vit["fwd"]), "library_ms": None, "cluster": vit["fwd"]["cluster"],
          "max_active_clusters": vit["fwd"]["max_active_clusters"],
-         "cluster_sweep": vit["sweep"], "b128": pick(vit["fwd_b128"])},
+         "cluster_sweep": vit["sweep"], "b128": pick(vit["fwd_b128"]),
+         "train_jets": {**pick(vit["fwd_jets"]), "shape_btnw": list(VITERBI_CASES[5]),
+                        "cluster": vit["fwd_jets"]["cluster"],
+                        "cluster_sweep": vit["sweep_jets"]}},
         {"name": "pyin_backtrack", "route": "cuda",
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:279",
-         "launches": sup["launches"]["backtrack"], "max_abs_err": 0.0,
-         **pick(vit["backtrack"]), "library_ms": None, "b128": pick(vit["backtrack_b128"])},
+         "launches": sup["launches"]["backtrack"],
+         "launches_train_jets": jets["sup_launches"]["backtrack"], "max_abs_err": 0.0,
+         **pick(vit["backtrack"]), "library_ms": None, "b128": pick(vit["backtrack_b128"]),
+         "train_jets": {**pick(vit["backtrack_jets"]), "shape_btnw": list(VITERBI_CASES[5])}},
         # K3 and K4: times and bounds summed over the 15 grouped-conv shapes
-        # of one discriminator pass (B = 32); library = cuDNN with TF32 off;
+        # of one discriminator pass (B = 32) at HiFi-GAN's 8192 samples, and
+        # in `train_jets` at JETS's 16384; library = cuDNN with TF32 off;
         # bounds on the tensor cores (3xTF32), the fp32 FMA bound beside
         *[{"name": f"grouped_conv_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/grouped_conv.cu", "replaces": replaces,
-           "launches": train["launches"][name], "max_abs_err": conv[name]["max_abs_err"],
-           "max_rel_err": conv[name]["max_rel_err"], **pick(conv[name]),
-           "library_ms": conv[name]["library_ms"],
+           "launches": train["launches"][name],
+           "launches_train_jets": jets["launches"][f"grouped_conv_{name}"],
+           "max_abs_err": max(conv[name]["max_abs_err"], conv16k[name]["max_abs_err"]),
+           "max_rel_err": max(conv[name]["max_rel_err"], conv16k[name]["max_rel_err"]),
+           **pick(conv[name]), "library_ms": conv[name]["library_ms"],
            "library_tf32_ms": conv[name]["library_tf32_ms"],
-           "bound_fp32_fma_ms": conv[name]["bound_fp32_fma_ms"]}
+           "bound_fp32_fma_ms": conv[name]["bound_fp32_fma_ms"],
+           "train_jets": {**pick(conv16k[name]), "segment": 16384, "batch": 32,
+                          **{k: conv16k[name][k] for k in ("library_ms", "library_tf32_ms",
+                                                           "bound_fp32_fma_ms", "max_rel_err")}}}
           for name, replaces in (("fwd", "roar_tpu/ops/grouped_conv.py:208"),
                                  ("dx", "roar_tpu/ops/grouped_conv.py:208"),
                                  ("dw", "roar_tpu/ops/grouped_conv.py:272"))],
     ]
-    if not all(k["launches"] > 0 for k in kernels) or fp_train["launches"]["fwd"] == 0:
+    if not all(k["launches"] > 0 for k in kernels) or fp_train["launches"]["fwd"] == 0 \
+            or not all(k.get("launches_train_jets", 1) > 0 for k in kernels):
         raise AssertionError(f"a kernel was launched no time on its path: {kernels}")
     _emit({"kernels": kernels})
     print(card, flush=True)

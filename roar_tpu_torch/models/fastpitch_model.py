@@ -125,6 +125,26 @@ def preprocessor_config(cfg: Dict[str, Any]) -> MelConfig:
     )
 
 
+@torch.no_grad()
+def spec_from_batch(batch: Dict[str, torch.Tensor], mel_cfg: MelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, T_mel, n_mel] log-mel of the batch's audio on the device and its
+    lengths, the time axis cropped or zero-padded to the batch's mel bucket
+    (the sup-data's frames; the audio is padded to an audio bucket, so the raw
+    frame count can exceed the collated mel bucket)."""
+    mel, mel_lens = log_mel_spectrogram(batch["audio"], batch["audio_len"], mel_cfg)
+    spec = mel.transpose(1, 2)
+    t_mel = next((batch[key].shape[1] for key in ("align_prior_matrix", "pitch", "energy")
+                  if batch.get(key) is not None), None)
+    if t_mel is not None:
+        if spec.shape[1] > t_mel:
+            spec = spec[:, :t_mel]
+        elif spec.shape[1] < t_mel:
+            spec = torch.nn.functional.pad(spec, (0, 0, 0, t_mel - spec.shape[1]))
+        mel_lens = torch.clamp(mel_lens, max=t_mel)
+    return spec.contiguous(), mel_lens
+
+
 def _instantiate(cfg: Dict[str, Any]):
     """Build a `_target_` config: class path, then keyword arguments."""
     cfg = dict(cfg)
@@ -231,23 +251,6 @@ class FastPitchModel:
         return {"input_fft": self.module.encoder_module.stack.attention_path(),
                 "output_fft": self.module.decoder_module.attention_path()}
 
-    @torch.no_grad()
-    def _spec_from_batch(self, audio, audio_len, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B, T_mel, n_mel] log-mel on the device, its time axis cropped or
-        zero-padded to the batch's mel bucket (the audio is padded to an audio
-        bucket, so the raw frame count can exceed the collated mel bucket)."""
-        mel, mel_lens = log_mel_spectrogram(audio, audio_len, self.mel_cfg)
-        spec = mel.transpose(1, 2)
-        t_mel = next((batch[key].shape[1] for key in ("align_prior_matrix", "pitch", "energy")
-                      if batch.get(key) is not None), None)
-        if t_mel is not None:
-            if spec.shape[1] > t_mel:
-                spec = spec[:, :t_mel]
-            elif spec.shape[1] < t_mel:
-                spec = torch.nn.functional.pad(spec, (0, 0, 0, t_mel - spec.shape[1]))
-            mel_lens = torch.clamp(mel_lens, max=t_mel)
-        return spec.contiguous(), mel_lens
-
     def loss_fn(self, batch: Dict[str, torch.Tensor], epoch: int = 0,
                 mark=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Training loss of one batch (roar_tpu/models/fastpitch_model.py:243-313):
@@ -255,7 +258,7 @@ class FastPitchModel:
         module's mode.  `mark(name)`, when given, is called as each part has
         been enqueued ("mel_front_end", "model_forward", "losses")."""
         mark = mark or (lambda name: None)
-        spec, mel_lens = self._spec_from_batch(batch["audio"], batch["audio_len"], batch)
+        spec, mel_lens = spec_from_batch(batch, self.mel_cfg)
         mark("mel_front_end")
         text_lens = batch["text_len"]
         out = self.module(

@@ -122,6 +122,10 @@ class HifiGanModel:
 
         return convert.to_jax_tree(self.generator, self.mpd, self.msd)
 
+    def state_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules a checkpoint holds, by name."""
+        return {"generator": self.generator, "mpd": self.mpd, "msd": self.msd}
+
     def g_parameters(self):
         return list(self.generator.parameters())
 
@@ -141,8 +145,8 @@ class HifiGanModel:
             return batch["mel"]
         return self._mel(batch["audio"], batch["audio_len"])[0]
 
-    def forward_split(self, batch) -> Dict[str, torch.Tensor]:
-        """The generator forward, run once per step."""
+    def forward_split(self, batch, epoch: int = 0) -> Dict[str, torch.Tensor]:
+        """The generator forward, run once per step (`epoch` is not read)."""
         return {"fake": self.generator(self._input_mel(batch))}
 
     def _disc_all(self, y, y_hat, update_stats: bool):
@@ -156,9 +160,11 @@ class HifiGanModel:
         loss_msd, _, _ = discriminator_loss(msd_out[0], msd_out[1])
         return loss_mpd + loss_msd, {"d_loss_mpd": loss_mpd, "d_loss_msd": loss_msd}
 
-    def g_loss_from_out(self, diff_out, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def g_loss_from_out(self, diff_out, batch, epoch: int = 0
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """L1 mel x l1_loss_factor on the full-band mels of the ground-truth
-        and generated audio, feature matching, LSGAN generator loss."""
+        and generated audio, feature matching, LSGAN generator loss (`epoch`
+        is not read)."""
         audio, lens, fake = batch["audio"], batch["audio_len"], diff_out["fake"]
         mel_gt, _ = self._mel(audio, lens, self.trg_mel_cfg)
         mel_fake, _ = self._mel(fake, lens, self.trg_mel_cfg)
@@ -171,7 +177,7 @@ class HifiGanModel:
         loss = l_mel + l_fm + l_adv
         return loss, {"g_mel_loss": l_mel, "g_fm_loss": l_fm, "g_adv_loss": l_adv}
 
-    def g_loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def g_loss_fn(self, batch, epoch: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Generator forward and its loss, as validation reads it."""
         return self.g_loss_from_out(self.forward_split(batch), batch)
 

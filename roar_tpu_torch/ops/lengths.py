@@ -1,8 +1,9 @@
 """Length / duration utilities: masks, duration decoding, length regulation,
 feature averaging.
 
-Port of roar_tpu/ops/lengths.py:25-121 (`mask_from_lens`, `regulate_len`,
-`average_features`, `log_to_duration`).  The JAX `regulate_len` is a
+Port of roar_tpu/ops/lengths.py:25-153 (`mask_from_lens`, `regulate_len`,
+`average_features`, `log_to_duration`, `slice_segments`,
+`rand_slice_segments`).  The JAX `regulate_len` is a
 one-hot-matrix product; here it is a gather of the token each frame falls
 in, which selects the same rows exactly.  The decoder length stays a caller-chosen bucket `max_len`, and
 frames past the regulated length are zero.
@@ -10,7 +11,7 @@ frames past the regulated length are zero.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,3 +74,37 @@ def average_features(feats: torch.Tensor, durs: torch.Tensor) -> torch.Tensor:
     sums = gather_spans(cums)
     nelems = gather_spans(nonzero_cums)
     return torch.where(nelems == 0.0, 0.0, sums / torch.clamp(nelems, min=1.0))
+
+
+def slice_segments(x: torch.Tensor, start_idxs: torch.Tensor, segment_size: int) -> torch.Tensor:
+    """[B, C, T] -> [B, C, segment_size] slices at per-row offsets, one gather
+    on the device.  As `jax.lax.dynamic_slice` does, a start is clamped to
+    [0, T - segment_size] so every slice lies inside the row."""
+    t = x.shape[-1]
+    if segment_size > t:
+        raise ValueError(f"segment of {segment_size} is longer than the axis of {t}")
+    starts = torch.clamp(start_idxs.long(), 0, t - segment_size)
+    idx = starts[:, None] + torch.arange(segment_size, device=x.device)  # [B, segment_size]
+    return torch.gather(x, 2, idx[:, None, :].expand(-1, x.shape[1], -1))
+
+
+def draw_segment_starts(x_lengths: torch.Tensor, segment_size: int,
+                        generator: Optional[torch.Generator]) -> torch.Tensor:
+    """[B] int32 starts, floor(u_b * max(len_b - segment_size + 1, 1)) with
+    u_b drawn in [0, 1) from `generator` (torch's default generator of the
+    lengths' device when None): where `rand_slice_segments` takes its
+    randomness."""
+    ids_str_max = torch.clamp(x_lengths - segment_size + 1, min=1)
+    u = torch.rand(x_lengths.shape[0], generator=generator, device=x_lengths.device)
+    return (u * ids_str_max.to(u.dtype)).to(torch.int32)
+
+
+def rand_slice_segments(x: torch.Tensor, x_lengths: Optional[torch.Tensor] = None,
+                        segment_size: int = 4, generator: Optional[torch.Generator] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random fixed-size segments of [B, C, T]: (segments [B, C, segment_size],
+    starts [B]), the starts drawn by `draw_segment_starts`."""
+    if x_lengths is None:
+        x_lengths = torch.full((x.shape[0],), x.shape[-1], dtype=torch.long, device=x.device)
+    ids_str = draw_segment_starts(x_lengths, segment_size, generator)
+    return slice_segments(x, ids_str, segment_size), ids_str

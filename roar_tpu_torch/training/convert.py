@@ -29,6 +29,10 @@ the flax tree in either block layout (`h_0 .. h_{L-1}`, or `h_scan` with a
 leading layer axis per leaf, what `scan_layers=True` trains), and
 `gpt_to_jax_tree` writes the layout the module's `scan_layers` names.
 
+JETS joins the two: `load_jets_params` fills a port `JETSModule` from the
+flax tree, its FastPitch-graph scopes as FastPitch's and its `generator` scope
+as the trainable generator's, and `jets_to_jax_tree` writes it back.
+
 Every converter raises on a JAX leaf it does not consume and on a port
 parameter it leaves unfilled.  FastPitch `aligner_module` leaves are skipped
 only when the port module was built without an aligner (it serves training
@@ -360,6 +364,14 @@ def _msd_sites(msd: MultiScaleDiscriminator):
 
 def _load_norm_convs(module: nn.Module, sites, params: Mapping[str, Any],
                      stats: Mapping[str, Any] = None) -> nn.Module:
+    _load(module, _norm_convs_state(module, sites, params, stats))
+    return module
+
+
+def _norm_convs_state(module: nn.Module, sites, params: Mapping[str, Any],
+                      stats: Mapping[str, Any] = None) -> Dict[str, np.ndarray]:
+    """The state_dict of `module`'s norm convs from the JAX trees; raises on
+    a leaf left unconsumed."""
     leaves = _Leaves(params)
     stat_leaves = _Leaves(stats or {})
     sd: Dict[str, np.ndarray] = {}
@@ -379,8 +391,7 @@ def _load_norm_convs(module: nn.Module, sites, params: Mapping[str, Any],
             raise TypeError(f"no conversion for {type(conv).__name__} at {name}")
     leaves.check_consumed()
     stat_leaves.check_consumed()
-    _load(module, sd)
-    return module
+    return sd
 
 
 def _nest(flat: Mapping[Tuple[str, ...], np.ndarray]) -> Dict[str, Any]:
@@ -455,19 +466,94 @@ def to_jax_tree(gen: Generator, mpd: MultiPeriodDiscriminator,
                 msd: MultiScaleDiscriminator) -> Dict[str, Any]:
     """The GAN bundle `{'g_params', 'd_params', 'd_stats'}` as
     roar_tpu/training/run.py saves it, from the port's three modules."""
+    return {"g_params": generator_to_jax_tree(gen), **_discriminator_trees(mpd, msd)}
+
+
+def _discriminator_trees(mpd: MultiPeriodDiscriminator,
+                         msd: MultiScaleDiscriminator) -> Dict[str, Any]:
     mpd_params, _ = _norm_convs_to_jax(mpd, _mpd_sites(mpd))
     msd_params, msd_stats = _norm_convs_to_jax(msd, _msd_sites(msd))
-    return {
-        "g_params": generator_to_jax_tree(gen),
-        "d_params": {"params": {"mpd": mpd_params, "msd": msd_params}},
-        "d_stats": {"msd": msd_stats},
-    }
+    return {"d_params": {"params": {"mpd": mpd_params, "msd": msd_params}},
+            "d_stats": {"msd": msd_stats}}
 
 
 def load_gan_bundle(gen: Generator, mpd: MultiPeriodDiscriminator,
                     msd: MultiScaleDiscriminator, tree: Mapping[str, Any]) -> None:
     """The reverse of `to_jax_tree`."""
     load_generator_train_params(gen, tree["g_params"])
+    _load_discriminators(mpd, msd, tree)
+
+
+def _load_discriminators(mpd: MultiPeriodDiscriminator, msd: MultiScaleDiscriminator,
+                         tree: Mapping[str, Any]) -> None:
     d_params = tree["d_params"]["params"]
     load_mpd_params(mpd, d_params["mpd"])
     load_msd_params(msd, d_params["msd"], (tree.get("d_stats") or {}).get("msd") or {})
+
+
+# ---------------------------------------------------------------------------
+# JETS: the FastPitch graph's scopes plus the trainable generator's
+# ---------------------------------------------------------------------------
+
+JETS_GENERATOR = "generator"  # the flax scope of JETSModule's waveform generator
+
+
+def _jets_sites(module: nn.Module):
+    """`_fastpitch_sites` of every child of a JETSModule but its generator."""
+    for name, child in module.named_children():
+        if name != JETS_GENERATOR:
+            yield from _fastpitch_sites(child, f"{name}.", f"{name}/")
+
+
+def load_jets_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Fill a port JETSModule from the JAX JETSModule's tree (`{'params':
+    ...}` or the bare tree).  An unconsumed leaf or an unfilled parameter
+    raises."""
+    tree = params["params"] if set(params) == {"params"} else params
+    if JETS_GENERATOR not in tree:
+        raise KeyError(f"port parameter left unfilled: no JAX scope {JETS_GENERATOR!r}")
+    leaves = _Leaves({k: v for k, v in tree.items() if k != JETS_GENERATOR})
+    sd: Dict[str, np.ndarray] = {}
+    for torch_prefix, path, leaf in _jets_sites(module):
+        for torch_name, flax_name, axes in _leaf_names(leaf, path):
+            value = leaves.take(f"{path}/{flax_name}")
+            sd[torch_prefix + torch_name] = value if axes is None else value.transpose(axes)
+    leaves.check_consumed()
+    gen = module.generator
+    for k, v in _norm_convs_state(gen, _generator_sites(gen), tree[JETS_GENERATOR]).items():
+        sd[f"{JETS_GENERATOR}.{k}"] = v
+    _load(module, sd)
+    return module
+
+
+def jets_to_jax_tree(module: nn.Module) -> Dict[str, Any]:
+    """{'params': ...} of a port JETSModule in the flax tree's names and
+    layouts: what `roar_tpu`'s `JETSModel` applies (its `g_params`).  The
+    reverse of `load_jets_params`."""
+    state = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()
+             if not k.startswith(JETS_GENERATOR + ".")}
+    flat: Dict[Tuple[str, ...], np.ndarray] = {}
+    for torch_prefix, path, leaf in _jets_sites(module):
+        for torch_name, flax_name, axes in _leaf_names(leaf, path):
+            value = state.pop(torch_prefix + torch_name)
+            flat[(*path.split("/"), flax_name)] = np.ascontiguousarray(
+                value if axes is None else value.transpose(axes))
+    if state:
+        raise ValueError(f"port parameters not written to the JAX tree: {sorted(state)}")
+    tree = _nest(flat)
+    tree[JETS_GENERATOR] = generator_to_jax_tree(module.generator)["params"]
+    return {"params": tree}
+
+
+def jets_bundle_to_jax_tree(module: nn.Module, mpd: MultiPeriodDiscriminator,
+                            msd: MultiScaleDiscriminator) -> Dict[str, Any]:
+    """The JETS GAN bundle `{'g_params', 'd_params', 'd_stats'}` as
+    roar_tpu/training/run.py saves it."""
+    return {"g_params": jets_to_jax_tree(module), **_discriminator_trees(mpd, msd)}
+
+
+def load_jets_bundle(module: nn.Module, mpd: MultiPeriodDiscriminator,
+                     msd: MultiScaleDiscriminator, tree: Mapping[str, Any]) -> None:
+    """The reverse of `jets_bundle_to_jax_tree`."""
+    load_jets_params(module, tree["g_params"])
+    _load_discriminators(mpd, msd, tree)

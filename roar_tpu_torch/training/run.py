@@ -2,7 +2,7 @@
 
 Port of roar_tpu/training/run.py: dataset constructors, the validation-set
 naming, the threaded batch iterator, `train_supervised` (loss_fn-style tasks:
-FastPitch, and GPT on a `CausalLMDataset`) and `train_gan` (HiFi-GAN).  One card, one process: there is no
+FastPitch, and GPT on a `CausalLMDataset`) and `train_gan` (HiFi-GAN, JETS).  One card, one process: there is no
 mesh, and batches go to `device` as they are read.  `run_test`, the profiler
 window, validation artifacts and early stopping are not ported yet.
 """
@@ -252,9 +252,14 @@ def train_supervised(cfg: Dict[str, Any], model, dataset, val_dataset=None,
 
 
 def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
-              max_epochs: Optional[int] = None, device="cuda") -> GANTrainState:
-    """Train a GAN task (`HifiGanModel`) on `device` ("cuda" unless the
-    caller asks for "cpu").  The host waits for the device only where it logs."""
+              max_epochs: Optional[int] = None, buckets: Optional[BucketSpec] = None,
+              device="cuda") -> GANTrainState:
+    """Train a GAN task (`HifiGanModel`, `JETSModel`) on `device` ("cuda"
+    unless the caller asks for "cpu"), batches padded to `buckets` where
+    given.  A task that draws random numbers (`set_dropout_generator`: JETS's
+    dropout and segment starts) draws them from one generator on `device`
+    seeded with `trainer.seed`, saved with the checkpoints.  The host waits
+    for the device only where it logs."""
     device = torch.device(device)
     trainer_cfg = cfg.get("trainer", {})
     exp_cfg = cfg.get("exp_manager", {}) or {}
@@ -265,7 +270,8 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
     if _map_precision(trainer_cfg.get("precision")) == "bf16":
         raise NotImplementedError(
             f"trainer.precision={trainer_cfg.get('precision')!r}: the bf16 form of the GAN "
-            f"step and of the grouped-conv kernels is not ported yet; train in fp32")
+            f"step and of the grouped-conv kernels (ROADMAP queue 2, P2) is not ported yet; "
+            f"train in fp32")
 
     sampler = LengthBucketBatchSampler(
         dataset.lengths, batch_size=batch_size, shuffle=dl_cfg.get("shuffle", True),
@@ -276,15 +282,22 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
     # the JAX runner reads its first batch to initialise the parameters;
     # reading it here too keeps the dataset's crop sequence the same
     first = _first_batch_indices(sampler, dataset, batch_size)
-    dataset.collate([dataset[i] for i in first])
+    dataset.collate([dataset[i] for i in first], buckets)
 
     model.to(device)
+    generator = None
+    if hasattr(model, "set_dropout_generator"):
+        generator = torch.Generator(device=device).manual_seed(trainer_cfg.get("seed", 0))
+        model.set_dropout_generator(generator)
+    if hasattr(model, "attention_paths"):
+        print(f"attention paths in training: {model.attention_paths()}", flush=True)
     opt_kwargs = dict(steps_per_epoch=steps_per_epoch, max_epochs=max_epochs, max_steps=max_steps,
                       gradient_clip_val=trainer_cfg.get("gradient_clip_val"))
     state = GANTrainState(
         model=model,
         g_opt=build_optimizer(model.g_parameters(), optim_cfg, **opt_kwargs),
-        d_opt=build_optimizer(model.d_parameters(), optim_cfg, **opt_kwargs))
+        d_opt=build_optimizer(model.d_parameters(), optim_cfg, **opt_kwargs),
+        generator=generator)
 
     exp = ExpManager(
         exp_dir=exp_cfg.get("exp_dir") or "./exp",
@@ -308,9 +321,10 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
         sampler.set_epoch(epoch)
         t0 = time.perf_counter()
         metrics: Dict[str, torch.Tensor] = {}
-        for i, batch in enumerate(batch_iterator(dataset, sampler, num_workers=num_workers)):
+        for i, batch in enumerate(batch_iterator(dataset, sampler, buckets,
+                                                 num_workers=num_workers)):
             lr = state.g_opt.current_lr()
-            state, metrics = gan_train_step(state, to_device(batch, device))
+            state, metrics = gan_train_step(state, to_device(batch, device), epoch=epoch)
             gstep += 1
             if i % log_every == 0:
                 host = {k: float(v) for k, v in metrics.items()}  # the one sync
@@ -330,9 +344,9 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
                     vds.lengths, batch_size=batch_size, shuffle=False, drop_last=True)
                 totals: Dict[str, float] = {}
                 n = 0
-                for batch in batch_iterator(vds, val_sampler, num_workers=num_workers):
+                for batch in batch_iterator(vds, val_sampler, buckets, num_workers=num_workers):
                     with torch.no_grad():
-                        _, vmetrics = model.g_loss_fn(to_device(batch, device))
+                        _, vmetrics = model.g_loss_fn(to_device(batch, device), epoch)
                     for k, v in vmetrics.items():
                         totals[k] = totals.get(k, 0.0) + float(v)
                     n += 1

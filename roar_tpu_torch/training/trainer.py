@@ -3,7 +3,8 @@
 Port of roar_tpu/training/trainer.py:128-393 to eager PyTorch on one device.
 A task is an object with `module` (an `nn.Module` holding every parameter),
 `loss_fn(batch, epoch, mark=None) -> (loss, metrics)` and
-`set_dropout_generator(generator)`; `models/fastpitch_model.py::FastPitchModel`
+`set_dropout_generator(generator)` (every random draw of a training-mode
+forward); `models/fastpitch_model.py::FastPitchModel`
 and `models/gpt_model.py::GPTLMModel` are two.  One step: forward in training
 mode, backward, `grad_norm` of this batch's gradients, then (every
 `accumulate_grad_batches` steps, on the mean of the gradients since the last

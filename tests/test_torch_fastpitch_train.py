@@ -21,7 +21,7 @@ from flax.traverse_util import flatten_dict
 from roar_tpu.models.fastpitch_model import FastPitchModel as JaxFastPitchModel
 from roar_tpu.training.optim import build_optimizer as jax_build_optimizer
 from roar_tpu.training.trainer import create_train_state, make_train_step
-from roar_tpu_torch.models.fastpitch_model import FastPitchModel
+from roar_tpu_torch.models.fastpitch_model import FastPitchModel, spec_from_batch
 from roar_tpu_torch.models.submodules import Dropout
 from roar_tpu_torch.ops.priors import beta_binomial_prior_np
 from roar_tpu_torch.training import convert
@@ -181,7 +181,7 @@ def test_module_forward_matches_jax(jax_side):
     model = _port_model(jax_side["params"])
     assert not model.module.training
     batch = _torch_batch()
-    spec, mel_lens = model._spec_from_batch(batch["audio"], batch["audio_len"], batch)
+    spec, mel_lens = spec_from_batch(batch, model.mel_cfg)
     np.testing.assert_array_equal(mel_lens.numpy(), mel_lens_w)
     np.testing.assert_allclose(spec.numpy(), spec_w, **FWD_TOL)
     # the loss masks the mel by `target != 0`: the zeros must be the same zeros

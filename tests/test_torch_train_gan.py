@@ -1,15 +1,17 @@
-"""The HiFi-GAN training run of the port: data, runner, checkpoints, bundle.
+"""The HiFi-GAN training run of the port: data, config, bundle format, mel
+front end.
 
 `VocoderDataset` and `LengthBucketBatchSampler` against the JAX package's
-(same crops, same batch order), `train_gan(device="cpu")` at debug widths on
-a tiny WAV corpus (checkpoint, resume, `.roar`), the bundle read back by the
-JAX package's `restore_from`, and the gradient of the port's mel front end
-against `jax.grad` of the JAX one.
+(same crops, same batch order), the validation-set naming, the threaded batch
+iterator, the msgpack writer of `.roar` bundles, the gradient of the port's
+mel front end against `jax.grad` of the JAX one, and chip_smoke.py's training
+config against the YAML.  The runner's own run (`train_gan(device="cpu")`:
+checkpoint, resume, `.roar`) is in tests/test_torch_train_gan_cli.py, the
+rehearsal of chip_smoke.py's training phase in
+tests/test_torch_train_gan_rehearsal.py.
 """
 
 import dataclasses
-import json
-import shutil
 import sys
 from pathlib import Path
 
@@ -18,28 +20,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax.traverse_util import flatten_dict
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 from roar_tpu.data.dataset import VocoderDataset as JaxVocoderDataset
 from roar_tpu.data.sampling import LengthBucketBatchSampler as JaxSampler
 from roar_tpu.models.hifigan_model import HifiGanModel as JaxHifiGanModel
 from roar_tpu.ops import spectrogram as jax_spec
-from roar_tpu.training.save_restore import restore_from as jax_restore_from
 from roar_tpu_torch.config.config import load_config
 from roar_tpu_torch.data.audio import write_wav
 from roar_tpu_torch.data.dataset import VocoderDataset
 from roar_tpu_torch.data.manifest import write_manifest
 from roar_tpu_torch.data.sampling import LengthBucketBatchSampler
-from roar_tpu_torch.models.hifigan_model import HifiGanModel, generator_from_config
+from roar_tpu_torch.models.hifigan_model import HifiGanModel
 from roar_tpu_torch.ops import spectrogram as port_spec
-from roar_tpu_torch.training import convert, run
-from roar_tpu_torch.training.save_restore import restore_from
+from roar_tpu_torch.training import run
 
 REPO = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(REPO / "examples" / "tts"))
-import hifigan_torch  # noqa: E402  (the port's CLI module)
-
-PCM_LSB = 2  # a last-bit difference in the fp32 audio, as for the serving path
 SR = 22050
 
 
@@ -135,83 +131,6 @@ def _train_cfg(manifest, exp_dir, *extra):
         *extra])
 
 
-@pytest.fixture(scope="module")
-def trained(corpus, tmp_path_factory):
-    exp_dir = tmp_path_factory.mktemp("exp")
-    cfg = _train_cfg(corpus[0], exp_dir)
-    state = hifigan_torch.run(cfg)
-    return cfg, state, Path(exp_dir) / "HifiGan"
-
-
-def test_train_gan_two_steps_checkpoint_and_log(trained):
-    cfg, state, root = trained
-    assert state.step == 2 and state.g_opt.count == 2 and state.d_opt.count == 2
-    assert (root / "checkpoints" / "step_2.pt").exists()
-    assert (root / "checkpoints" / "HifiGan.roar").exists()
-    records = [json.loads(line) for line in (root / "metrics.jsonl").read_text().splitlines()]
-    steps = [r for r in records if "d_loss" in r]
-    assert [r["step"] for r in steps] == [1, 2]
-    for r in steps:
-        assert all(np.isfinite(r[k]) for k in ("d_loss", "g_loss", "g_mel_loss", "g_fm_loss",
-                                               "g_adv_loss", "d_loss_mpd", "d_loss_msd"))
-    # CosineAnnealing, warmup_ratio 0.02 of model.max_steps 2.5M: lr * (step + 1) / 50001
-    np.testing.assert_allclose([r["lr"] for r in steps], [2e-4 * 1 / 50001, 2e-4 * 2 / 50001],
-                               rtol=1e-9)
-    assert any("val_g_mel_loss" in r for r in records)
-
-
-def test_resume_continues_from_the_checkpoint(trained, corpus, tmp_path):
-    cfg, state, root = trained
-    shutil.copytree(root.parent, tmp_path / "exp")
-    again = _train_cfg(corpus[0], tmp_path / "exp", "exp_manager.resume_if_exists=true",
-                       "trainer.max_steps=3")
-    resumed = hifigan_torch.run(again)
-    assert resumed.step == 3 and resumed.g_opt.count == 3
-    assert (tmp_path / "exp" / "HifiGan" / "checkpoints" / "step_3.pt").exists()
-    adam = resumed.g_opt.optimizer.state_dict()["state"]
-    assert all(int(s["step"]) == 3 for s in adam.values())
-
-
-def test_bundle_is_read_by_the_jax_package_and_serves(trained):
-    cfg, state, root = trained
-    path = str(root / "checkpoints" / "HifiGan.roar")
-    model = state.model
-    want = convert.to_jax_tree(model.generator, model.mpd, model.msd)
-
-    jcfg, jtree = jax_restore_from(path)
-    assert jcfg["model"]["optim"]["lr"] == 0.0002 and jcfg["trainer"]["max_steps"] == 2
-    got_flat, want_flat = flatten_dict(jtree), flatten_dict(want)
-    assert set(got_flat) == set(want_flat)
-    for key, value in want_flat.items():
-        assert got_flat[key].shape == value.shape and got_flat[key].dtype == value.dtype, key
-        np.testing.assert_array_equal(got_flat[key], value, err_msg=str(key))
-    # the JAX task takes the tree as its own state
-    jmodel = JaxHifiGanModel(jcfg["model"])
-    mel = np.random.default_rng(4).standard_normal((1, 7, 80)).astype(np.float32)
-    jax_audio = np.asarray(jmodel.generator.apply(jtree["g_params"], jnp.asarray(mel)))
-    audio = {k: jnp.zeros((2, 2048)) for k in ("y", "y_hat")}
-    jmodel.msd.apply({"params": jtree["d_params"]["params"]["msd"],
-                      "batch_stats": jtree["d_stats"]["msd"]}, audio["y"], audio["y_hat"])
-    jmodel.mpd.apply({"params": jtree["d_params"]["params"]["mpd"]}, audio["y"], audio["y_hat"])
-
-    # the port reads it back, folds the generator and serves the same PCM
-    pcfg, ptree = restore_from(path)
-    assert pcfg == jcfg
-    trainable = HifiGanModel(pcfg["model"]).generator
-    convert.load_generator_train_params(trainable, ptree["g_params"])
-    folded = trainable.fold_weight_norm()
-    served = convert.load_generator_params(
-        generator_from_config(pcfg["model"]["generator"], 80), ptree["g_params"])
-    with torch.no_grad():
-        port_audio = folded(torch.from_numpy(mel)).numpy()
-        assert torch.equal(served(torch.from_numpy(mel)), folded(torch.from_numpy(mel)))
-
-    def pcm(x):
-        return (np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16).astype(np.int32)
-
-    assert np.abs(pcm(port_audio) - pcm(jax_audio)).max() <= PCM_LSB
-
-
 def test_msgpack_serialize_writes_flax_bytes():
     from flax import serialization
 
@@ -233,18 +152,6 @@ def test_msgpack_serialize_writes_flax_bytes():
         {"a": {"w": tree["g_params"]["params"]["conv"]["kernel"]}})
     with pytest.raises(TypeError, match="cannot store"):
         msgpack_serialize({"a": object()})
-
-
-def test_bf16_precision_raises(corpus, tmp_path):
-    cfg = _train_cfg(corpus[0], tmp_path, "+trainer.precision=bf16")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        hifigan_torch.run(cfg)
-
-
-def test_too_small_corpus_is_diagnosed(corpus, tmp_path):
-    cfg = _train_cfg(corpus[0], tmp_path, "model.train_ds.dataloader_params.batch_size=64")
-    with pytest.raises(ValueError, match="0 batches"):
-        hifigan_torch.run(cfg)
 
 
 @pytest.mark.parametrize("highfreq", [8000, None], ids=["input_mel", "target_mel"])
@@ -297,18 +204,3 @@ def test_chip_smoke_training_config_matches_yaml():
     assert len(shapes) == 15 and shapes[0] == (32, 8192, 128, 128, 41, 2, 4, 20)
     assert [s[1] for s in shapes[5:10]] == [4097, 2049, 1025, 257, 65]
     assert [s[1] for s in shapes[10:]] == [2049, 1025, 513, 129, 33]
-
-
-def test_chip_smoke_training_phase_rehearsal_on_the_cpu(capsys):
-    """The card's training phase at debug widths with the plain versions:
-    every check of the phase but the launch counts and the timings."""
-    sys.path.insert(0, str(REPO))
-    import chip_smoke
-
-    out = chip_smoke.phase_train_hifigan(torch.device("cpu"), n_utterances=4, steps=4,
-                                         batch_size=2, n_segments=2048, debug=True)
-    assert out == {"launches": {"fwd": 0, "dx": 0, "dw": 0}}
-    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
-             if line.startswith("{")]
-    assert [r["step"] for r in lines if r.get("phase") == "train_hifigan"] == [
-        "cli", "bundle", "kernel_path_vs_plain_path"]
