@@ -111,6 +111,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -232,11 +233,13 @@ def hifigan_config() -> dict:
 
 
 def hifigan_train_config(manifest: str, exp_dir: str, device: str = "cuda", max_steps: int = 8,
-                         batch_size: int = 16, n_segments: int = 8192, debug: bool = False) -> dict:
+                         batch_size: int = 16, n_segments: int = 8192, debug: bool = False,
+                         precision=None) -> dict:
     """configs/hifigan_22050.yaml as the loader resolves it, for the keys the
     training CLI reads, with `trainer.max_steps`, `trainer.log_every_n_steps=1`
     `trainer.max_epochs` and `exp_manager.always_save_roar=true`
-    (tests/test_torch_train_gan.py holds it to the YAML).  Two epochs of 64
+    (tests/test_torch_train_gan.py holds it to the YAML), and with `precision`
+    `trainer.precision` (the YAML sets none: fp32).  Two epochs of 64
     utterances are 8 steps.  No validation set: they end before epoch 20."""
     model = {
         **hifigan_config(),
@@ -253,10 +256,12 @@ def hifigan_train_config(manifest: str, exp_dir: str, device: str = "cuda", max_
     }
     if debug:
         model["debug"] = True
+    trainer = {"max_steps": max_steps, "max_epochs": 2, "log_every_n_steps": 1,
+               "check_val_every_n_epoch": 20, "seed": 0}
+    if precision is not None:
+        trainer["precision"] = precision
     return {
-        "name": "HifiGan", "model": model,
-        "trainer": {"max_steps": max_steps, "max_epochs": 2, "log_every_n_steps": 1,
-                    "check_val_every_n_epoch": 20, "seed": 0},
+        "name": "HifiGan", "model": model, "trainer": trainer,
         "exp_manager": {"exp_dir": exp_dir, "name": "HifiGan", "resume_if_exists": False,
                         "always_save_roar": True},
         "device": device,
@@ -265,13 +270,14 @@ def hifigan_train_config(manifest: str, exp_dir: str, device: str = "cuda", max_
 
 def fastpitch_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_dir: str,
                            pitch_mean: float, pitch_std: float, device: str = "cuda",
-                           max_steps: int = 8, batch_size: int = 32) -> dict:
+                           max_steps: int = 8, batch_size: int = 32, precision=32) -> dict:
     """configs/fastpitch_22050_align.yaml as the loader resolves it, for the
     keys the training CLI reads, with the overrides of the configuration that
     runs the attention kernels: `model.{input_fft,output_fft}.use_flash=true`
     and `.dropatt=0.0` (every other dropout stays 0.1), 4 speakers,
     `+model.energy_predictor` (the pitch predictor's block) with `energy` in
-    `sup_data_types`, `trainer.precision=32`, `trainer.max_steps`,
+    `sup_data_types`, `trainer.precision=32` (or the YAML's own `bf16` with
+    `precision="bf16"`), `trainer.max_steps`,
     `trainer.log_every_n_steps=1` and `exp_manager.always_save_roar=true`
     (tests/test_torch_train_supervised.py holds it to the YAML)."""
     model = fastpitch_config()
@@ -312,7 +318,7 @@ def fastpitch_train_config(train_manifest: str, val_manifest: str, sup_dir: str,
     })
     return {
         "name": "FastPitch", "model": model,
-        "trainer": {"max_epochs": 1000, "precision": 32, "gradient_clip_val": 1000.0,
+        "trainer": {"max_epochs": 1000, "precision": precision, "gradient_clip_val": 1000.0,
                     "log_every_n_steps": 1, "check_val_every_n_epoch": 1, "seed": 0,
                     "model_parallel_size": 1, "max_steps": max_steps},
         "exp_manager": {"exp_dir": exp_dir, "name": "FastPitch", "resume_if_exists": False,
@@ -337,12 +343,13 @@ def jets_sup_data_config(manifest: str, sup_dir: str, device: str = "cuda") -> d
 
 def jets_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_dir: str,
                       pitch_mean: float, pitch_std: float, device: str = "cuda",
-                      max_steps: int = 8, batch_size: int = 16) -> dict:
+                      max_steps: int = 8, batch_size: int = 16, precision=32) -> dict:
     """configs/jets_22050_align.yaml as the loader resolves it, for the keys
     the training CLI reads, with only the overrides of the configuration that
     runs the attention kernels: `model.{input_fft,output_fft}.use_flash=true`
     and `.dropatt=0.0` (every other dropout stays 0.1), 4 speakers, the
-    extraction's `pitch_mean` and `pitch_std`, `trainer.precision=32`,
+    extraction's `pitch_mean` and `pitch_std`, `trainer.precision=32` (or the
+    YAML's own `bf16-mixed` with `precision="bf16-mixed"`),
     `trainer.max_steps`, `trainer.log_every_n_steps=1` and
     `exp_manager.always_save_roar=true` (tests/test_torch_train_jets.py holds
     it to the YAML).  Full width and depth: d 384, 6 + 6 FFT layers of one
@@ -400,7 +407,7 @@ def jets_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_
     }
     return {
         "name": "JETS", "model": model,
-        "trainer": {"max_steps": max_steps, "precision": 32, "max_epochs": 1000,
+        "trainer": {"max_steps": max_steps, "precision": precision, "max_epochs": 1000,
                     "gradient_clip_val": 1000.0, "log_every_n_steps": 1, "seed": 0,
                     "model_parallel_size": 1},
         "exp_manager": {"exp_dir": exp_dir, "name": "JETS", "resume_if_exists": False,
@@ -594,17 +601,22 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
 
 
 def _conv_instance(mangled: str) -> Optional[tuple]:
-    """("conv_mma_kernel", "fwd" or "dx", (WN, NT, MT)) of a K3 instance's
-    mangled name (template arguments: warps along the output channels,
-    n-tiles and m-tiles per warp, dX), or ("dw_mma_kernel", "dw", (NT, MT))
-    of a K4 instance's (n-tiles of the block, m-tiles per warp), else None."""
-    found = re.search(r"(conv_mma_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", mangled)
+    """("conv_mma_kernel", view, (WN, NT, MT)) of a K3 instance's mangled
+    name (template arguments: warps along the output channels, n-tiles and
+    m-tiles per warp, dX, bf16), view "fwd" or "dx", or ("dw_mma_kernel",
+    "dw", (NT, MT)) of a K4 instance's (n-tiles of the block, m-tiles per
+    warp, bf16), else None.  A bf16 instance's view ends in "_bf16"; a name
+    without the bf16 argument is an fp32 instance."""
+    found = re.search(r"(conv_mma_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E(?:Lb([01])E)?",
+                      mangled)
     if found is not None:
-        return (found.group(1), "dx" if found.group(5) == "1" else "fwd",
-                tuple(int(found.group(i)) for i in (2, 3, 4)))
-    found = re.search(r"(dw_mma_kernel)ILi(\d+)ELi(\d+)E", mangled)
+        view = ("dx" if found.group(5) == "1" else "fwd") + (
+            "_bf16" if found.group(6) == "1" else "")
+        return found.group(1), view, tuple(int(found.group(i)) for i in (2, 3, 4))
+    found = re.search(r"(dw_mma_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?", mangled)
     if found is not None:
-        return found.group(1), "dw", (int(found.group(2)), int(found.group(3)))
+        return (found.group(1), "dw_bf16" if found.group(4) == "1" else "dw",
+                (int(found.group(2)), int(found.group(3))))
     return None
 
 
@@ -717,13 +729,16 @@ def phase_kernel_build(lib_path) -> dict:
                     raise AssertionError(f"{kernel}<{d}> spills: {info}")
                 if hmma is not None and hmma.get((kernel, dtype, d), 0) == 0:
                     raise AssertionError(f"{kernel}<{d}> has no HMMA instruction in its SASS")
-    # K3 and K4, fp32 in and out, 3xTF32 products: one dynamic shared memory
-    # size per launch (csrc/grouped_conv.cu `k3_smem`, `launch_dw`), so none
-    # is listed here
+    # K3 and K4 in fp32 (3xTF32 products) and in bf16 (one exact TF32
+    # product of the widened operands, fp32 sums; y and dX written in bf16,
+    # dW in fp32): one dynamic shared memory size per launch
+    # (csrc/grouped_conv.cu `k3_smem`, `launch_dw`), so none is listed here
     conv_rows = []
-    for kernel, view, tiles in ([("conv_mma_kernel", view, tiles) for view in ("fwd", "dx")
+    for kernel, view, tiles in ([("conv_mma_kernel", view + sfx, tiles)
+                                 for sfx in ("", "_bf16") for view in ("fwd", "dx")
                                  for tiles in CONV_MMA_TILES]
-                                + [("dw_mma_kernel", "dw", tiles) for tiles in DW_MMA_TILES]):
+                                + [("dw_mma_kernel", "dw" + sfx, tiles)
+                                   for sfx in ("", "_bf16") for tiles in DW_MMA_TILES]):
         key = (kernel, view, tiles)
         info = everything.get(key)
         if info is None or info["registers"] is None:
@@ -731,8 +746,9 @@ def phase_kernel_build(lib_path) -> dict:
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
             raise AssertionError(f"{kernel}<{tiles}, {view}> spills: {info}")
         row = {"kernel": kernel, "view": view,
-               ("wn_nt_mt" if view != "dw" else "nt_mt"): list(tiles),
-               "dtype": "float32 (3xTF32 products)", **info}
+               ("nt_mt" if view.startswith("dw") else "wn_nt_mt"): list(tiles),
+               "dtype": ("bfloat16 (one TF32 product of widened operands)"
+                         if view.endswith("_bf16") else "float32 (3xTF32 products)"), **info}
         if hmma is not None:
             row["hmma"] = hmma.get(key, 0)
             if row["hmma"] == 0:
@@ -915,6 +931,27 @@ def _chunked(fn, chunk: int = 4):
 # the peak rate of each grouped-conv kernel's operations: K3 and K4 do three
 # TF32 products on the tensor cores for each fp32 multiply-add
 GROUPED_CONV_PEAK_FLOPS = {"fwd": TF32_FLOPS / 3, "dx": TF32_FLOPS / 3, "dw": TF32_FLOPS / 3}
+# bf16 K3/K4 against their plain versions (tests/test_torch_grouped_conv_bf16.py
+# holds the plain versions to the Pallas kernels at the same bars): each
+# element within 2^-6 of its value plus 2^-7 of its row's largest magnitude,
+# the whole within 1e-2 relative L2.  Both sides sum the same exact products
+# in fp32 in another order and round y and dX once to bf16
+BF16_ELEM_REL = 2.0 ** -6
+BF16_ROW_REL = 2.0 ** -7
+BF16_L2_REL = 1e-2
+
+
+def bf16_errors(got: torch.Tensor, want: torch.Tensor, row: int) -> dict:
+    """The bf16 bars above, rows of `row` elements: the largest excess over
+    the per-element bar (<= 0 passes), the relative L2, the largest
+    difference and the largest difference over its row's magnitude."""
+    g = got.float().reshape(-1, row)
+    w = want.float().reshape(-1, row)
+    err = (g - w).abs()
+    row_max = w.abs().amax(dim=1, keepdim=True)
+    excess = float((err - BF16_ELEM_REL * w.abs() - BF16_ROW_REL * row_max).max())
+    return {"excess": excess, "l2": _rel_l2(g, w), "max_abs_err": float(err.max()),
+            "rel_err": float((err / row_max.clamp_min(1e-30)).max())}
 
 
 def grouped_conv_inputs(case, gen, device) -> tuple:
@@ -962,19 +999,28 @@ def grouped_conv_bound(name: str, nbytes: float, flops: float) -> dict:
 
 def grouped_conv_case_bound(name: str, case, x, w, dy) -> dict:
     """`grouped_conv_bound` of one case: each input read and the output
-    written once (the three tensors), 2 k Cg FLOP per output element."""
+    written once (the three tensors), 2 k Cg FLOP per output element.  In
+    bf16 every tensor is 2 bytes an element but K4's fp32 dW, and the bound
+    is at the dense bf16 rate (989 TFLOP/s)."""
     b, width, cin, cout, k, s, g, pad = case
     flops = 2.0 * b * cout * (cin // g) * k * dy.shape[-1]
+    if x.dtype == torch.bfloat16:
+        nbytes = 2.0 * (x.numel() + w.numel() + dy.numel()) + (2.0 * w.numel() if name == "dw"
+                                                                 else 0.0)
+        return _bound(nbytes, flops, BF16_FLOPS)
     return grouped_conv_bound(name, 4.0 * (x.numel() + w.numel() + dy.numel()), flops)
 
 
-def time_grouped_conv(kernel, library, plain=None) -> dict:
+def time_grouped_conv(kernel, library, plain=None, tf32: bool = True) -> dict:
     """Median of 5 by CUDA events of the kernel and of its library call with
-    TF32 off and on; of the plain version too (median of 2) when given."""
+    TF32 off and, with `tf32`, on; of the plain version too (median of 2)
+    when given."""
     times = {"ms": _time_ms(kernel, reps=5)}
     if plain is not None:
         times["plain_ms"] = _time_ms(plain, reps=2)
     times["library_ms"] = _time_ms(library, reps=5)
+    if not tf32:
+        return times
     torch.backends.cudnn.allow_tf32 = True
     try:
         times["library_tf32_ms"] = _time_ms(library, reps=5)
@@ -983,55 +1029,81 @@ def time_grouped_conv(kernel, library, plain=None) -> dict:
     return times
 
 
-def phase_kernel_grouped_conv(device: torch.device, batch: int = 32, segment: int = 8192) -> dict:
+def phase_kernel_grouped_conv(device: torch.device, batch: int = 32, segment: int = 8192,
+                              dtype: torch.dtype = torch.float32) -> dict:
     """K3 forward, K3 dX and K4 against their plain versions at the small
     shape classes and at the 15 production shapes, two runs of each kernel
     bit for bit, the autograd Function against autograd of F.conv1d; returns
     per kernel the worst error and the times summed over the 15 production
     shapes, with `grouped_conv_bound` (`bound_ms` on the tensor cores' 3xTF32
-    rate, `bound_fp32_fma_ms` beside it)."""
+    rate, `bound_fp32_fma_ms` beside it).  With `dtype=torch.bfloat16` the
+    bf16 kernels on bf16 inputs, held at the bf16 bars (`bf16_errors`), the
+    library calls cuDNN's in bf16, the bound at the dense bf16 rate, and no
+    autograd or TF32 check."""
     import torch.nn.functional as F
 
     from roar_tpu_torch.kernels import grouped_conv as gk
     from roar_tpu_torch.ops.grouped_conv import grouped_conv1d_cf
 
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(SEED)
     names = ("fwd", "dx", "dw")
     summary = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                   "library_ms": 0.0, "library_tf32_ms": 0.0, "bytes": 0.0, "operations": 0.0}
+                   "library_ms": 0.0, "bytes": 0.0, "operations": 0.0,
+                   **({"max_l2_rel_err": 0.0, "max_excess_over_bar": -1.0} if bf16
+                      else {"library_tf32_ms": 0.0})}
                for n in names}
     production = msd_grouped_shapes(batch, segment)
     for case in GROUPED_CONV_SMALL + production:
         timed = case in production
-        x, w, dy = grouped_conv_inputs(case, gen, device)
+        x, w, dy = (t.to(dtype) for t in grouped_conv_inputs(case, gen, device))
         calls = grouped_conv_calls(case, x, w, dy)
-        line = {"phase": "kernel", "kernel": "grouped_conv", "shape_bwiokSgp": list(case),
-                "rel_tol": GROUPED_CONV_REL_TOL}
+        line = {"phase": "kernel", "kernel": "grouped_conv", "dtype": str(dtype).split(".")[1],
+                "shape_bwiokSgp": list(case),
+                **({"elem_rel": BF16_ELEM_REL, "row_rel": BF16_ROW_REL, "l2_rel": BF16_L2_REL}
+                   if bf16 else {"rel_tol": GROUPED_CONV_REL_TOL})}
         for name in names:
             kernel, plain, library = calls[name]
             got, want = kernel(), plain()
             torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.isfinite(got).all():
+            if got.shape != want.shape or not torch.isfinite(got).all() or (
+                    bf16 and got.dtype != (torch.float32 if name == "dw" else dtype)):
                 raise AssertionError(f"grouped_conv_{name} at {case}: shape {tuple(got.shape)} "
-                                     f"vs {tuple(want.shape)} or not finite")
-            err = float((got - want).abs().max())
-            rel = err / float(want.abs().max())
-            if rel > GROUPED_CONV_REL_TOL:
-                raise AssertionError(f"grouped_conv_{name} at {case}: max abs err {err}, "
-                                     f"relative {rel} > {GROUPED_CONV_REL_TOL}")
+                                     f"vs {tuple(want.shape)}, {got.dtype}, or not finite")
             lib_out = library()
-            lib_rel = float((lib_out - want).abs().max()) / float(want.abs().max())
-            if lib_rel > GROUPED_CONV_REL_TOL:
-                raise AssertionError(f"library call for {name} at {case} disagrees: {lib_rel}")
+            if bf16:
+                row = got[0].numel() if name == "dw" else got.shape[-1]
+                errs = bf16_errors(got, want, row)
+                err, rel = errs["max_abs_err"], errs["rel_err"]
+                if errs["excess"] > 0.0 or errs["l2"] > BF16_L2_REL:
+                    raise AssertionError(f"grouped_conv_{name} bf16 at {case}: {errs}")
+                lib_errs = bf16_errors(lib_out, want, row)
+                if lib_errs["excess"] > 0.0 or lib_errs["l2"] > BF16_L2_REL:
+                    raise AssertionError(f"library call for {name} bf16 at {case} disagrees: "
+                                         f"{lib_errs}")
+            else:
+                err = float((got - want).abs().max())
+                rel = err / float(want.abs().max())
+                if rel > GROUPED_CONV_REL_TOL:
+                    raise AssertionError(f"grouped_conv_{name} at {case}: max abs err {err}, "
+                                         f"relative {rel} > {GROUPED_CONV_REL_TOL}")
+                lib_rel = float((lib_out - want).abs().max()) / float(want.abs().max())
+                if lib_rel > GROUPED_CONV_REL_TOL:
+                    raise AssertionError(f"library call for {name} at {case} disagrees: "
+                                         f"{lib_rel}")
             if not torch.equal(got, kernel()):
                 raise AssertionError(f"grouped_conv_{name} at {case}: two runs differ")
             acc = summary[name]
             acc["max_abs_err"] = max(acc["max_abs_err"], err)
             acc["max_rel_err"] = max(acc["max_rel_err"], rel)
             line[name] = {"max_abs_err": err, "rel_err": rel}
+            if bf16:
+                acc["max_l2_rel_err"] = max(acc["max_l2_rel_err"], errs["l2"])
+                acc["max_excess_over_bar"] = max(acc["max_excess_over_bar"], errs["excess"])
+                line[name].update(l2_rel_err=errs["l2"], excess_over_bar=errs["excess"])
             del got, want, lib_out
             if timed:
-                times = time_grouped_conv(kernel, library, plain)
+                times = time_grouped_conv(kernel, library, plain, tf32=not bf16)
                 bound = grouped_conv_case_bound(name, case, x, w, dy)
                 line[name].update(times, **bound)
                 for key, value in times.items():
@@ -1043,6 +1115,15 @@ def phase_kernel_grouped_conv(device: torch.device, batch: int = 32, segment: in
         _emit(line)
         del x, w, dy, calls
     torch.cuda.empty_cache()
+    if bf16:
+        for name, acc in summary.items():
+            acc.update(_bound(acc["bytes"], acc["operations"], BF16_FLOPS))
+        per_step = {key: 2 * summary["fwd"][key] + 2 * summary["dx"][key] + summary["dw"][key]
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        _emit({"phase": "kernel", "kernel": "grouped_conv", "dtype": "bfloat16",
+               "step": "sum_over_production_shapes", "shapes": len(production), "batch": batch,
+               "segment": segment, **summary, "per_train_step": per_step})
+        return summary
 
     # the autograd Function against autograd of the library conv, float32
     for b, width, cin, cout, k, s, g, pad in [(2, 130, 16, 32, 41, 2, 4, 20), (3, 77, 8, 8, 7, 4, 2, 3)]:
@@ -1092,6 +1173,37 @@ TRAIN_LR = 2e-4
 TRAIN_PARAM_ATOL = 2.5 * TRAIN_LR
 
 
+# a bf16 step (phases train_*_bf16), kernel path against plain path: the
+# bars of GPT's bf16 step, each loss term within 2e-3 relative and the whole
+# gradient within 2e-2 relative L2.  The terms the step holds in bf16 (the
+# discriminators' LSGAN means and the feature-matching and adversarial sums)
+# cannot agree closer than their own rounding: they are held within two bf16
+# steps of their value (`_loss_close`)
+BF16_STEP_LOSS_RTOL = 2e-3
+BF16_STEP_GRAD_L2_TOL = 2e-2
+# The JETS module's bf16 gradient: on one hard alignment an H100 read 3.6e-2
+# to 3.7e-2 relative L2 between the kernel and plain bf16 steps (four
+# runs), 4.1e-4 between two runs of the kernel step, and 4.2e-2 to 4.4e-2
+# between the plain step in bf16 and in fp32, where the kernel step was
+# 4.3e-2 to 4.4e-2 from fp32 (ratios 0.98 and 1.04): two bf16 roundings of
+# one fp32 step, each as far from it, apart where they round differently.
+# So a part whose kernel and plain bf16 gradients differ by more than 2e-2
+# is held by the fp32 step (run in the same phase): the kernel step's
+# gradient no further from it than BF16_TO_FP32_RATIO times the plain bf16
+# step's.  A kernel that computed a wrong value would stand far off both
+BF16_TO_FP32_RATIO = 1.25
+BF16_LOSS_TERMS = frozenset({"d_loss", "d_loss_mpd", "d_loss_msd", "g_fm_loss", "g_adv_loss"})
+
+
+def _loss_close(got: float, want: float, rtol: float, bf16_term: bool = False) -> bool:
+    """|got - want| within rtol of |want|, or for a term held in bf16 within
+    two bf16 rounding steps (2^(e - 7) each, e the exponent of |want|)."""
+    bar = rtol * abs(want)
+    if bf16_term and want != 0.0:
+        bar = max(bar, 2.0 * 2.0 ** (math.floor(math.log2(abs(want))) - 7))
+    return abs(got - want) <= bar
+
+
 class _PlainGroupedConv:
     """While active, the grouped-conv wrappers take their plain versions
     whatever the device (in batch chunks, so the unfolded taps fit memory)."""
@@ -1114,9 +1226,12 @@ class _PlainGroupedConv:
 
 def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int = 64,
                         steps: int = 8, batch_size: int = 16, n_segments: int = 8192,
-                        debug: bool = False) -> dict:
+                        debug: bool = False, precision=None) -> dict:
     """HiFi-GAN training through the CLI's `run`; returns the grouped-conv
-    launch counts of that run."""
+    launch counts of that run.  With `precision="bf16"` (phase
+    `train_hifigan_bf16`) the run trains with `trainer.precision=bf16`: every
+    grouped conv of a step is a bf16 launch, and the kernel step is held to
+    the plain step at the bf16 step's bars."""
     import copy
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "tts"))
@@ -1133,6 +1248,8 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
     from roar_tpu_torch.training.save_restore import restore_from
 
     on_card = device.type == "cuda"
+    bf16 = precision is not None
+    phase = "train_hifigan_bf16" if bf16 else "train_hifigan"
 
     def sync():
         if on_card:
@@ -1153,16 +1270,18 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
             manifest = os.path.join(tmp, "train_manifest.json")
             write_manifest(manifest, entries)
             cfg = hifigan_train_config(manifest, os.path.join(tmp, "exp"), str(device), steps,
-                                       batch_size, n_segments, debug)
+                                       batch_size, n_segments, debug, precision)
 
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
-            gk.LAUNCHES_FWD = gk.LAUNCHES_DX = gk.LAUNCHES_DW = 0
+            _zero_launch_counts()
             t0 = time.perf_counter()
             state = cli.run(cfg)
             sync()
             wall = time.perf_counter() - t0
-            launches = {"fwd": gk.LAUNCHES_FWD, "dx": gk.LAUNCHES_DX, "dw": gk.LAUNCHES_DW}
+            every, every_bf16 = _launch_counts()
+            launches = {k: every[f"grouped_conv_{k}"] for k in ("fwd", "dx", "dw")}
+            launches_bf16 = {k: every_bf16[f"grouped_conv_{k}"] for k in ("fwd", "dx", "dw")}
             peak = torch.cuda.max_memory_allocated() if on_card else None
             model = state.model
 
@@ -1171,9 +1290,13 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
                     "dw": n_grouped * steps}
             if n_grouped != 15 or state.step != steps:
                 raise AssertionError(f"{n_grouped} grouped convs, {state.step} steps")
-            if on_card and launches != want:
-                raise AssertionError(f"grouped-conv launches {launches} != {want}: K4 ran in the "
-                                     f"G pass, or a grouped conv went round its kernel")
+            if model.compute_dtype != (torch.bfloat16 if bf16 else None):
+                raise AssertionError(f"the run trained in {model.compute_dtype}")
+            if on_card and (launches != want
+                            or launches_bf16 != (want if bf16 else dict.fromkeys(want, 0))):
+                raise AssertionError(f"grouped-conv launches {launches} (bf16 {launches_bf16}) "
+                                     f"!= {want}: K4 ran in the G pass, a grouped conv went "
+                                     f"round its kernel, or a step ran in the wrong type")
 
             root = os.path.join(tmp, "exp", "HifiGan")
             with open(os.path.join(root, "metrics.jsonl")) as f:
@@ -1202,10 +1325,11 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
                                  and bool(torch.isfinite(m.u).all()))
             if len(moved) != 8 or not all(moved):
                 raise AssertionError(f"spectral-norm stats of scale 0 not updated: {moved}")
-            _emit({"phase": "train_hifigan", "step": "cli", "card": card, "steps": steps,
-                   "batch": batch_size, "segment": n_segments, "utterances": n_utterances,
-                   "grouped_conv_launches": launches, "per_step": {k: v // steps for k, v in
-                                                                   launches.items()},
+            _emit({"phase": phase, "step": "cli", "card": card, "steps": steps,
+                   "precision": precision, "batch": batch_size, "segment": n_segments,
+                   "utterances": n_utterances, "grouped_conv_launches": launches,
+                   "grouped_conv_launches_bf16": launches_bf16,
+                   "per_step": {k: v // steps for k, v in launches.items()},
                    "losses_first": {k: records[0][k] for k in ("d_loss", "g_loss", "g_mel_loss")},
                    "losses_last": {k: records[-1][k] for k in ("d_loss", "g_loss", "g_mel_loss")},
                    "lr": lrs, "spectral_norm_convs_updated": len(moved), "wall_s": wall,
@@ -1226,13 +1350,15 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
                 audio = folded(mel)
                 if not torch.equal(audio, served(mel)):
                     raise AssertionError("folded generator != the bundle loaded for serving")
+                model.set_compute_dtype(None)  # the fp32 masters, as the bundle holds them
                 trained_audio = model.generator(mel)
+                model.set_compute_dtype(torch.bfloat16 if bf16 else None)
             if tuple(audio.shape) != (1, 64 * 256) or not torch.isfinite(audio).all():
                 raise AssertionError(f"vocoder output {tuple(audio.shape)} or not finite")
             fold_err = float((audio - trained_audio).abs().max())
             if fold_err > 1e-4:
                 raise AssertionError(f"folded generator differs from the trained one: {fold_err}")
-            _emit({"phase": "train_hifigan", "step": "bundle", "bundle_bytes": os.path.getsize(path),
+            _emit({"phase": phase, "step": "bundle", "bundle_bytes": os.path.getsize(path),
                    "audio_shape": list(audio.shape), "folded_vs_trained_max_abs": fold_err,
                    "folded_equals_serving_load": True})
 
@@ -1253,33 +1379,45 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
             metrics_k = one_step(model)
             with _PlainGroupedConv():
                 metrics_p = one_step(twin)
+            loss_rtol = BF16_STEP_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL
             for k in ("d_loss", "g_loss"):
-                if abs(metrics_k[k] - metrics_p[k]) > TRAIN_LOSS_RTOL * abs(metrics_p[k]):
+                if not _loss_close(metrics_k[k], metrics_p[k], loss_rtol, bf16 and k == "d_loss"):
                     raise AssertionError(f"{k}: kernels {metrics_k[k]} vs plain {metrics_p[k]}")
-            grads = _grad_errors(
-                [(f"{part}.{name}", pk, pp) for part in ("generator", "mpd", "msd")
-                 for (name, pk), (_, pp) in zip(getattr(model, part).named_parameters(),
-                                                getattr(twin, part).named_parameters())],
-                TRAIN_GRAD_L2_TOL, TRAIN_GRAD_MAX_TOL)
+            pairs = [(f"{part}.{name}", pk, pp) for part in ("generator", "mpd", "msd")
+                     for (name, pk), (_, pp) in zip(getattr(model, part).named_parameters(),
+                                                    getattr(twin, part).named_parameters())]
+            # bf16: the whole gradient is held (the bar of the bf16 JETS step);
+            # AdamW's first update moves a weight by lr on its gradient's sign
+            # alone, which bf16 rounding flips where a gradient is near zero
+            grads = (_grad_errors(pairs, float("inf")) if bf16
+                     else _grad_errors(pairs, TRAIN_GRAD_L2_TOL, TRAIN_GRAD_MAX_TOL))
             if grads["failures"]:
                 raise AssertionError(grads["failures"][0])
-            if grads["param_abs"] > TRAIN_PARAM_ATOL:
+            if bf16 and grads["whole_l2"] > BF16_STEP_GRAD_L2_TOL:
+                raise AssertionError(f"whole gradient differs by {grads['whole_l2']}")
+            if not bf16 and grads["param_abs"] > TRAIN_PARAM_ATOL:
                 raise AssertionError(f"updated parameters differ by {grads['param_abs']}")
-            _emit({"phase": "train_hifigan", "step": "kernel_path_vs_plain_path",
-                   "kernels": metrics_k, "plain": metrics_p, "loss_rtol": TRAIN_LOSS_RTOL,
-                   "max_grad_l2_rel_err": grads["worst_l2"][0], "grad_l2_tol": TRAIN_GRAD_L2_TOL,
+            _emit({"phase": phase, "step": "kernel_path_vs_plain_path",
+                   "kernels": metrics_k, "plain": metrics_p, "loss_rtol": loss_rtol,
+                   "whole_grad_l2_rel_err": grads["whole_l2"],
+                   "whole_grad_l2_tol": BF16_STEP_GRAD_L2_TOL if bf16 else None,
+                   "max_grad_l2_rel_err": grads["worst_l2"][0],
+                   "grad_l2_tol": None if bf16 else TRAIN_GRAD_L2_TOL,
                    "max_grad_max_rel_err": grads["worst_max"][0],
-                   "grad_max_tol": TRAIN_GRAD_MAX_TOL,
+                   "grad_max_tol": None if bf16 else TRAIN_GRAD_MAX_TOL,
                    "worst_gradient_tensor": grads["worst_max"][1],
-                   "max_param_abs_diff": grads["param_abs"], "param_atol": TRAIN_PARAM_ATOL})
+                   "max_param_abs_diff": grads["param_abs"],
+                   "param_atol": None if bf16 else TRAIN_PARAM_ATOL})
             del twin
 
             result = {"launches": launches}
+            if bf16:
+                result["launches_bf16"] = launches_bf16
             if on_card:
                 timing_state = GANTrainState(
                     model=model, g_opt=build_optimizer(model.g_parameters(), optim_cfg),
                     d_opt=build_optimizer(model.d_parameters(), optim_cfg))
-                result["timing"] = _time_gan_step(timing_state, batch, card, "train_hifigan",
+                result["timing"] = _time_gan_step(timing_state, batch, card, phase,
                                                   {n: (gk, n) for n in _PlainGroupedConv.NAMES})
             return result
     finally:
@@ -1781,10 +1919,14 @@ def _longest_tts_batch(cfg: dict, tokenizer, device: torch.device) -> dict:
 
 def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: int = 128,
                           steps: int = 8, batch_size: int = 32, max_seconds: float = 10.0,
-                          narrow: bool = False) -> dict:
+                          narrow: bool = False, precision=32) -> dict:
     """FastPitch training with learned alignment: sup-data extraction, then
     the training CLI's `run`; returns the flash-attention launch counts of
-    that run."""
+    that run.  With `precision="bf16"` (phase `train_fastpitch_bf16`, the
+    YAML's own precision) every launch is a bf16 one, and the kernel step is
+    held to the plain step at the bf16 step's bars; a hard alignment that MAS
+    flips between the two paths is counted, then fed from the kernel path to
+    the plain path before the rest is compared."""
     import copy
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1796,6 +1938,7 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
     from roar_tpu_torch.data.audio import write_wav
     from roar_tpu_torch.data.manifest import write_manifest
     from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models import fastpitch as fastpitch_mod
     from roar_tpu_torch.models.fastpitch_model import FastPitchModel, make_tokenizer
     from roar_tpu_torch.models.hifigan_model import vocoder_from_config
     from roar_tpu_torch.serving import SynthesisEngine
@@ -1804,6 +1947,8 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
     from roar_tpu_torch.training.save_restore import restore_from
 
     on_card = device.type == "cuda"
+    bf16 = precision != 32
+    phase = "train_fastpitch_bf16" if bf16 else "train_fastpitch"
 
     def sync():
         if on_card:
@@ -1845,7 +1990,7 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
             stats = sup_cli.run(sup_data_config(manifest, sup_dir, str(device)))
             cfg = fastpitch_train_config(
                 manifest, val_manifest, sup_dir, os.path.join(tmp, "exp"), stats["pitch_mean"],
-                stats["pitch_std"], str(device), steps, batch_size)
+                stats["pitch_std"], str(device), steps, batch_size, precision)
             if narrow:
                 _narrow_fastpitch(cfg)
             steps_per_epoch = n_utterances // batch_size
@@ -1855,12 +2000,13 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
 
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
-            fa.LAUNCHES.clear()
+            _zero_launch_counts()
             t0 = time.perf_counter()
             state = cli.run(cfg)
             sync()
             wall = time.perf_counter() - t0
             launches = {k: fa.LAUNCHES[k] for k in ("fwd", "dkv", "dq")}
+            launches_bf16 = {k: fa.LAUNCHES_BF16[k] for k in ("fwd", "dkv", "dq")}
             peak = torch.cuda.max_memory_allocated() if on_card else None
             model = state.model
             module = model.module
@@ -1871,9 +2017,13 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                 raise AssertionError(f"{state.step} steps, {n_attn} attention layers")
             if model.attention_paths() != {"input_fft": "flash", "output_fft": "flash"}:
                 raise AssertionError(f"attention paths {model.attention_paths()}")
-            if on_card and launches != want:
-                raise AssertionError(f"flash launches {launches} != {want}: an attention layer "
-                                     f"went round its kernel, or validation ran a backward")
+            # bf16: the trainer's validation computes in bf16 too, as the JAX
+            # package's evaluation does
+            if on_card and (launches != want
+                            or launches_bf16 != (want if bf16 else dict.fromkeys(want, 0))):
+                raise AssertionError(f"flash launches {launches} (bf16 {launches_bf16}) != "
+                                     f"{want}: an attention layer went round its kernel, "
+                                     f"validation ran a backward, or a step ran in the wrong type")
 
             root = os.path.join(tmp, "exp", "FastPitch")
             with open(os.path.join(root, "metrics.jsonl")) as f:
@@ -1898,7 +2048,8 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
             lrs = [r["lr"] for r in train]
             if not np.allclose(lrs, [schedule(i) for i in range(steps)], rtol=1e-9, atol=0.0):
                 raise AssertionError(f"learning rates {lrs} are not the schedule's")
-            _emit({"phase": "train_fastpitch", "step": "cli", "card": card, "steps": steps,
+            _emit({"phase": phase, "step": "cli", "card": card, "steps": steps,
+                   "precision": precision, "flash_launches_bf16": launches_bf16,
                    "batch": batch_size, "utterances": n_utterances,
                    "seconds_of_audio": float(seconds.sum()),
                    "sup_data": {k: stats[k] for k in ("pitch_mean", "pitch_std", "mel_frames",
@@ -1916,6 +2067,9 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
 
             # one step, kernels against plain versions: same weights, batch and dropout masks
             batch = _longest_tts_batch(cfg, model.tokenizer, device)
+            if bf16:  # the trainer's batch: floating tensors in bf16
+                batch = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                         for k, v in batch.items()}
             epoch = 50  # half of the bin-loss warm-up: every term carries weight
 
             def one_step(m):
@@ -1924,16 +2078,18 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                 m.module.zero_grad(set_to_none=True)
                 seen = {}
                 hook = m.module.register_forward_hook(
-                    lambda mod, args, out: seen.update(durs=out["attn_hard_dur"]))
+                    lambda mod, args, out: seen.update(durs=out["attn_hard_dur"],
+                                                       hard=out["attn_hard"]))
                 try:
                     loss, metrics = m.loss_fn(batch, epoch)
                 finally:
                     hook.remove()
                 loss.backward()
                 sync()
-                return {k: float(v) for k, v in metrics.items()}, seen["durs"]
+                return {k: float(v) for k, v in metrics.items()}, seen
 
             twin = copy.deepcopy(model)
+            spare = copy.deepcopy(model) if bf16 else None
             before = fa.LAUNCHES.copy()
             # what this step hands the attention kernels: shape -> key mask
             given, forward = {}, fa.flash_self_attention
@@ -1944,39 +2100,57 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
 
             fa.flash_self_attention = noting
             try:
-                metrics_k, durs_k = one_step(model)
+                metrics_k, seen_k = one_step(model)
             finally:
                 fa.flash_self_attention = forward
             step_launches = dict(fa.LAUNCHES - before)
             if on_card and step_launches != dict.fromkeys(("fwd", "dkv", "dq"), n_attn):
                 raise AssertionError(f"one step launched {step_launches}, not {n_attn} of each")
             with _PlainFlash():
-                metrics_p, durs_p = one_step(twin)
+                metrics_p, seen_p = one_step(twin)
+            frames_apart = int((seen_k["hard"] != seen_p["hard"]).any(-1).sum())
+            if bf16 and frames_apart:
+                # MAS took another path on a near-tie of bf16 scores: the plain
+                # path again, fed the kernel path's hard alignment
+                hard, mas = seen_k["hard"], fastpitch_mod.binarize_attention
+                fastpitch_mod.binarize_attention = lambda *args: hard
+                try:
+                    with _PlainFlash():
+                        twin = spare
+                        metrics_p, seen_p = one_step(twin)
+                finally:
+                    fastpitch_mod.binarize_attention = mas
+            del spare
+            durs_k, durs_p = seen_k["durs"], seen_p["durs"]
+            loss_rtol = BF16_STEP_LOSS_RTOL if bf16 else FP_TRAIN_LOSS_RTOL
             for k in FP_LOSS_TERMS:
-                if abs(metrics_k[k] - metrics_p[k]) > FP_TRAIN_LOSS_RTOL * abs(metrics_p[k]):
+                if not _loss_close(metrics_k[k], metrics_p[k], loss_rtol):
                     raise AssertionError(f"{k}: kernels {metrics_k[k]} vs plain {metrics_p[k]}")
             if not torch.equal(durs_k, durs_p):
                 raise AssertionError("hard alignments differ between the kernel and plain paths")
             if not torch.equal(durs_k.sum(1).long(), batch["mel_len"].long()):
                 raise AssertionError(f"hard durations sum to {durs_k.sum(1).tolist()}, mel lengths "
                                      f"are {batch['mel_len'].tolist()}")
+            # bf16: the whole gradient is held; each tensor's error is reported
             grads = _grad_errors(
                 [(name, pk, pp) for (name, pk), (_, pp) in zip(model.module.named_parameters(),
                                                                twin.module.named_parameters())],
-                FP_TRAIN_TENSOR_L2_TOL)
+                float("inf") if bf16 else FP_TRAIN_TENSOR_L2_TOL)
             if grads["failures"]:
                 raise AssertionError(grads["failures"][0])
             whole_l2 = grads["whole_l2"]
-            if whole_l2 > FP_TRAIN_GRAD_L2_TOL:
+            whole_tol = BF16_STEP_GRAD_L2_TOL if bf16 else FP_TRAIN_GRAD_L2_TOL
+            if whole_l2 > whole_tol:
                 raise AssertionError(f"the whole gradient differs between kernel path and plain "
                                      f"path by {whole_l2} (L2, relative)")
-            _emit({"phase": "train_fastpitch", "step": "kernel_path_vs_plain_path", "epoch": epoch,
+            _emit({"phase": phase, "step": "kernel_path_vs_plain_path", "epoch": epoch,
                    "batch_shapes": {k: list(v.shape) for k, v in batch.items()},
-                   "kernels": metrics_k, "plain": metrics_p, "loss_rtol": FP_TRAIN_LOSS_RTOL,
-                   "whole_grad_l2_rel_err": whole_l2, "grad_l2_tol": FP_TRAIN_GRAD_L2_TOL,
+                   "kernels": metrics_k, "plain": metrics_p, "loss_rtol": loss_rtol,
+                   "whole_grad_l2_rel_err": whole_l2, "grad_l2_tol": whole_tol,
                    "max_grad_l2_rel_err": grads["worst_l2"][0],
-                   "tensor_l2_tol": FP_TRAIN_TENSOR_L2_TOL,
-                   "worst_gradient_tensor": grads["worst_l2"][1], "hard_durations_equal": True,
+                   "tensor_l2_tol": None if bf16 else FP_TRAIN_TENSOR_L2_TOL,
+                   "worst_gradient_tensor": grads["worst_l2"][1],
+                   "mas_frames_apart_before_feeding": frames_apart, "hard_durations_equal": True,
                    "hard_durations_sum_to_mel_lens": True})
             del twin
 
@@ -1992,7 +2166,8 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                     t = shape[1]
                     flash[t] = _flash_case(
                         gen, shape, key_mask, True,
-                        "the longest batch of train_fastpitch, its own key lengths")
+                        f"the longest batch of {phase}, its own key lengths", phase=phase,
+                        dtype=torch.bfloat16 if bf16 else torch.float32)
 
             # the bundle: read back, loaded and served by the engine
             path = os.path.join(root, "checkpoints", "FastPitch.roar")
@@ -2026,15 +2201,17 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                     or wave.size == 0:
                 raise AssertionError(f"served audio: {wave.dtype}, {wave.size} samples for "
                                      f"{int(n_frames[0])} mel frames")
-            _emit({"phase": "train_fastpitch", "step": "bundle",
+            _emit({"phase": phase, "step": "bundle",
                    "bundle_bytes": os.path.getsize(path),
                    "parameters_equal_trained": True, "mel_shape": list(mel.shape),
                    "mel_frames": int(n_frames[0]), "served_samples": int(wave.size)})
 
             result = {"launches": launches}
+            if bf16:
+                result.update(launches_bf16=launches_bf16, mas_frames_apart=frames_apart)
             if on_card:
                 result["flash"] = flash
-                result["timing"] = _time_fastpitch_step(model, batch, cfg, card)
+                result["timing"] = _time_fastpitch_step(model, batch, cfg, card, phase)
             return result
     finally:
         torch.backends.cudnn.benchmark = benchmark_was
@@ -2052,7 +2229,8 @@ def _timed(spans: list, fn):
     return call
 
 
-def _time_fastpitch_step(model, batch, cfg: dict, card: str) -> dict:
+def _time_fastpitch_step(model, batch, cfg: dict, card: str,
+                         phase: str = "train_fastpitch") -> dict:
     """Step time (median of 5 after two warm steps, CUDA events), its split
     by forward hooks and the marks of `loss_fn` and `train_step`, and the time
     of forward-sum and of the flash kernels inside a step (events around
@@ -2113,7 +2291,7 @@ def _time_fastpitch_step(model, batch, cfg: dict, card: str) -> dict:
     step_ms = float(np.median(totals))
     split = {p: float(np.median(v)) for p, v in splits.items()}
     split["mel_projection"] = split.pop("model_forward")
-    timing = {"phase": "train_fastpitch", "step": "timing", "card": card,
+    timing = {"phase": phase, "step": "timing", "card": card,
               "batch_shapes": {k: list(batch[k].shape) for k in ("text", "audio", "pitch")},
               "step_ms": step_ms, "step_ms_all": totals, "split_ms": split,
               "forward_sum_forward_ms": inside["forward_sum"],
@@ -2151,6 +2329,30 @@ JETS_LOSS_TERMS = ("d_loss", "g_loss", "d_loss_mpd", "d_loss_msd") + JETS_G_TERM
 # (it read 3.6 to 4.4 times the RMS)
 JETS_WAV_REL_TOL = 1e-4
 JETS_WAV_PLANTED_MIN = 10.0
+def _zero_launch_counts() -> None:
+    """Every flash-attention and grouped-conv launch count to 0."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.kernels import grouped_conv as gk
+
+    fa.LAUNCHES.clear()
+    fa.LAUNCHES_BF16.clear()
+    for name in ("FWD", "DX", "DW"):
+        setattr(gk, f"LAUNCHES_{name}", 0)
+        setattr(gk, f"LAUNCHES_{name}_BF16", 0)
+
+
+def _launch_counts() -> tuple:
+    """(all launches, the bf16 ones) of the non-causal flash kernels and of
+    K3/K4 since `_zero_launch_counts`."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.kernels import grouped_conv as gk
+
+    names = {"grouped_conv_fwd": "FWD", "grouped_conv_dx": "DX", "grouped_conv_dw": "DW"}
+    bf16 = {**{k: fa.LAUNCHES_BF16[k] for k in ("fwd", "dkv", "dq")},
+            **{k: getattr(gk, f"LAUNCHES_{n}_BF16") for k, n in names.items()}}
+    every = {**{k: fa.LAUNCHES[k] for k in ("fwd", "dkv", "dq")},
+             **{k: getattr(gk, f"LAUNCHES_{n}") + bf16[k] for k, n in names.items()}}
+    return every, bf16
 
 
 def _narrow_jets(cfg: dict) -> None:
@@ -2172,13 +2374,20 @@ def _narrow_jets(cfg: dict) -> None:
 
 def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 64,
                      n_val: int = 16, steps: int = 8, batch_size: int = 16,
-                     max_seconds: float = 10.0, narrow: bool = False) -> dict:
+                     max_seconds: float = 10.0, narrow: bool = False, precision=32) -> dict:
     """JETS training: sup-data extraction at the model's STFT, then the
     training CLI's `run`; the kernel step against the plain step; the
     `.roar` loaded and synthesised from.  Returns the launch counts of that
     run (K1/K2 of the extraction, K3/K4/K5 of the training), the synthesis
     numbers and, on the card, the flash kernels held at the step's two shapes
-    and the step's timing."""
+    and the step's timing.
+
+    `precision="bf16-mixed"` (phase `train_jets_bf16`) trains at the YAML's
+    own precision: the steps launch the bf16 K3/K4/K5 kernels (validation
+    stays fp32, as the JAX runner's), the kernel step is held to the plain
+    step at the bf16 bars (BF16_STEP_*), and a hard alignment that MAS flips
+    between the two paths is counted, then fed from the kernel path to the
+    plain path before the rest is compared."""
     import copy
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2200,6 +2409,8 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
     from roar_tpu_torch.training.optim import build_optimizer, get_schedule
 
     on_card = device.type == "cuda"
+    bf16 = precision != 32
+    phase = "train_jets_bf16" if bf16 else "train_jets"
 
     def sync():
         if on_card:
@@ -2252,7 +2463,7 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                 raise AssertionError(f"{sup_launches} Viterbi launches for {n_buckets} buckets")
             cfg = jets_train_config(
                 manifest, val_manifest, sup_dir, os.path.join(tmp, "exp"), stats["pitch_mean"],
-                stats["pitch_std"], str(device), steps, batch_size)
+                stats["pitch_std"], str(device), steps, batch_size, precision)
             if narrow:
                 _narrow_jets(cfg)
             steps_per_epoch = n_utterances // batch_size
@@ -2262,15 +2473,12 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
 
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
-            fa.LAUNCHES.clear()
-            gk.LAUNCHES_FWD = gk.LAUNCHES_DX = gk.LAUNCHES_DW = 0
+            _zero_launch_counts()
             t0 = time.perf_counter()
             state = cli.run(cfg)
             sync()
             wall = time.perf_counter() - t0
-            launches = {**{k: fa.LAUNCHES[k] for k in ("fwd", "dkv", "dq")},
-                        "grouped_conv_fwd": gk.LAUNCHES_FWD, "grouped_conv_dx": gk.LAUNCHES_DX,
-                        "grouped_conv_dw": gk.LAUNCHES_DW}
+            launches, launches_bf16 = _launch_counts()
             peak = torch.cuda.max_memory_allocated() if on_card else None
             model = state.model
             module = model.module
@@ -2284,14 +2492,21 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                     "dq": n_attn * steps,
                     "grouped_conv_fwd": n_grouped * (2 * steps + val_batches),
                     "grouped_conv_dx": 2 * n_grouped * steps, "grouped_conv_dw": n_grouped * steps}
+            # under bf16 every launch of the steps is a bf16 one, validation's fp32
+            want_bf16 = ({**want, "fwd": n_attn * steps, "grouped_conv_fwd": 2 * n_grouped * steps}
+                         if bf16 else dict.fromkeys(want, 0))
             if state.step != steps or n_attn != (4 if narrow else 12) or n_grouped != 15:
                 raise AssertionError(f"{state.step} steps, {n_attn} attention layers, "
                                      f"{n_grouped} grouped convs")
             if model.attention_paths() != {"input_fft": "flash", "output_fft": "flash"}:
                 raise AssertionError(f"attention paths {model.attention_paths()}")
-            if on_card and launches != want:
-                raise AssertionError(f"launches {launches} != {want}: a layer went round its "
-                                     f"kernel, K4 ran in the G pass, or validation ran a backward")
+            if model.compute_dtype != (torch.bfloat16 if bf16 else None):
+                raise AssertionError(f"the run trained in {model.compute_dtype}, not {precision}")
+            if on_card and (launches != want or launches_bf16 != want_bf16):
+                raise AssertionError(f"launches {launches} (bf16 {launches_bf16}) != {want} "
+                                     f"(bf16 {want_bf16}): a layer went round its kernel, K4 ran "
+                                     f"in the G pass, validation ran a backward, or a step ran "
+                                     f"in the wrong type")
 
             root = os.path.join(tmp, "exp", "JETS")
             with open(os.path.join(root, "metrics.jsonl")) as f:
@@ -2326,7 +2541,8 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
             if len(moved) != 8 or not all(moved):
                 raise AssertionError(f"spectral-norm stats of scale 0 not updated: {moved}")
             del fresh
-            _emit({"phase": "train_jets", "step": "cli", "card": card, "steps": steps,
+            _emit({"phase": phase, "step": "cli", "card": card, "steps": steps,
+                   "precision": precision, "launches_bf16": launches_bf16,
                    "batch": batch_size, "utterances": n_utterances, "validation_utterances": n_val,
                    "seconds_of_audio": float(seconds[:n_utterances].sum()),
                    "sup_data": {**{k: stats[k] for k in ("pitch_mean", "pitch_std",
@@ -2347,7 +2563,7 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                    "peak_device_memory_bytes": peak})
 
             synth = _jets_bundle_synthesis(state, root, device, n_attn,
-                                           max_mel_len=128 if narrow else 1024)
+                                           max_mel_len=128 if narrow else 1024, phase=phase)
 
             # one D+G step, kernels against plain versions: same weights, batch,
             # segment starts and dropout masks
@@ -2375,7 +2591,12 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
 
             model.set_dropout_generator(None)  # the generators stay out of the copy
             twin = copy.deepcopy(model)
+            # bf16: a second plain copy, for a rerun if MAS parts the paths, and
+            # one that takes the plain step in fp32 (bf16's own effect)
+            spare = copy.deepcopy(model) if bf16 else None
+            ref32 = copy.deepcopy(model) if bf16 else None
             before = fa.LAUNCHES.copy()
+            before_bf16 = fa.LAUNCHES_BF16.copy()
             # what this step hands the attention kernels: shape -> key mask
             given, flash_forward = {}, fa.flash_self_attention
 
@@ -2389,10 +2610,36 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
             finally:
                 fa.flash_self_attention = flash_forward
             step_launches = dict(fa.LAUNCHES - before)
-            if on_card and step_launches != dict.fromkeys(("fwd", "dkv", "dq"), n_attn):
-                raise AssertionError(f"one step launched {step_launches}, not {n_attn} of each")
+            step_bf16 = dict(fa.LAUNCHES_BF16 - before_bf16)
+            if on_card and (step_launches != dict.fromkeys(("fwd", "dkv", "dq"), n_attn)
+                            or step_bf16 != (step_launches if bf16 else {})):
+                raise AssertionError(f"one step launched {step_launches} (bf16 {step_bf16}), not "
+                                     f"{n_attn} of each")
             with _PlainFlash(), _PlainGroupedConv():
                 metrics_p, out_p = one_step(twin)
+            frames_apart = int((out_k["attn_hard"] != out_p["attn_hard"]).any(-1).sum())
+            if bf16 and frames_apart:
+                # MAS took another path on a near-tie of bf16 scores: the plain
+                # path again, fed the kernel path's hard alignment
+                hard, mas = out_k["attn_hard"], jets_mod.binarize_attention
+                jets_mod.binarize_attention = lambda *args: hard
+                try:
+                    with _PlainFlash(), _PlainGroupedConv():
+                        twin = spare
+                        metrics_p, out_p = one_step(twin)
+                finally:
+                    jets_mod.binarize_attention = mas
+            del spare
+            if bf16:
+                # the plain step in fp32 on the kernel step's hard alignment
+                ref32.set_compute_dtype(None)
+                hard, mas = out_k["attn_hard"], jets_mod.binarize_attention
+                jets_mod.binarize_attention = lambda *args: hard
+                try:
+                    with _PlainFlash(), _PlainGroupedConv():
+                        one_step(ref32)
+                finally:
+                    jets_mod.binarize_attention = mas
             durs = out_k["attn_hard_dur"]
             if not torch.equal(durs.sum(1).long(), out_k["mel_lens"].long()):
                 raise AssertionError(f"hard durations sum to {durs.sum(1).tolist()}, mel lengths "
@@ -2405,26 +2652,51 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
             for k in ("attn_hard", "z_start_idxs", "num_frames"):
                 if not torch.equal(out_k[k], out_p[k]):
                     raise AssertionError(f"{k} differs between the kernel and plain paths")
+            loss_rtol = BF16_STEP_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL
             failures = [f"{k}: kernels {metrics_k[k]} vs plain {metrics_p[k]}"
                         for k in JETS_LOSS_TERMS
-                        if abs(metrics_k[k] - metrics_p[k]) > TRAIN_LOSS_RTOL * abs(metrics_p[k])]
-            grads = {}
+                        if not _loss_close(metrics_k[k], metrics_p[k], loss_rtol,
+                                           bf16 and k in BF16_LOSS_TERMS)]
+            def whole_l2(a, b, part):
+                return _grad_errors([(n, pa, pb) for (n, pa), (_, pb) in zip(
+                    getattr(a, part).named_parameters(), getattr(b, part).named_parameters())],
+                    float("inf"))["whole_l2"]
+
+            whole_tol = BF16_STEP_GRAD_L2_TOL if bf16 else FP_TRAIN_GRAD_L2_TOL
+            grads, to_fp32 = {}, {}
             for part in ("module", "mpd", "msd"):
                 pairs = [(f"{part}.{name}", pk, pp) for (name, pk), (_, pp) in zip(
                     getattr(model, part).named_parameters(), getattr(twin, part).named_parameters())]
-                grads[part] = _grad_errors(pairs, TRAIN_GRAD_L2_TOL, TRAIN_GRAD_MAX_TOL)
-                if grads[part]["whole_l2"] > FP_TRAIN_GRAD_L2_TOL:
-                    failures.append(f"{part}: whole gradient differs by {grads[part]['whole_l2']}")
+                # bf16: the whole gradient is held; each tensor's error is reported
+                grads[part] = (_grad_errors(pairs, float("inf")) if bf16 else
+                               _grad_errors(pairs, TRAIN_GRAD_L2_TOL, TRAIN_GRAD_MAX_TOL))
+                held = grads[part]["whole_l2"] <= whole_tol
+                if bf16:
+                    to_fp32[part] = {"kernel_bf16": whole_l2(model, ref32, part),
+                                     "plain_bf16": whole_l2(twin, ref32, part)}
+                    held = held or (to_fp32[part]["kernel_bf16"]
+                                    <= BF16_TO_FP32_RATIO * to_fp32[part]["plain_bf16"])
+                if not held:
+                    failures.append(f"{part}: whole gradient differs by {grads[part]['whole_l2']}"
+                                    + (f", from the fp32 step's by {to_fp32[part]}" if bf16
+                                       else ""))
                 failures += grads[part]["failures"]
+            del ref32
             worst_l2 = max(g["worst_l2"] for g in grads.values())
             worst_top = max(g["worst_max"] for g in grads.values())
-            _emit({"phase": "train_jets", "step": "kernel_path_vs_plain_path", "epoch": epoch,
+            _emit({"phase": phase, "step": "kernel_path_vs_plain_path", "epoch": epoch,
                    "batch_shapes": {k: list(v.shape) for k, v in batch.items()},
-                   "kernels": metrics_k, "plain": metrics_p, "loss_rtol": TRAIN_LOSS_RTOL,
+                   "kernels": metrics_k, "plain": metrics_p, "loss_rtol": loss_rtol,
+                   "bf16_terms_within_two_bf16_steps": sorted(BF16_LOSS_TERMS) if bf16 else [],
                    "whole_grad_l2_rel_err": {p: g["whole_l2"] for p, g in grads.items()},
-                   "whole_grad_l2_tol": FP_TRAIN_GRAD_L2_TOL,
-                   "max_grad_l2_rel_err": worst_l2, "grad_l2_tol": TRAIN_GRAD_L2_TOL,
-                   "max_grad_max_rel_err": worst_top, "grad_max_tol": TRAIN_GRAD_MAX_TOL,
+                   "whole_grad_l2_tol": whole_tol,
+                   "whole_grad_l2_to_plain_fp32_step": to_fp32,
+                   "to_fp32_ratio_tol": BF16_TO_FP32_RATIO if bf16 else None,
+                   "max_grad_l2_rel_err": worst_l2,
+                   "grad_l2_tol": None if bf16 else TRAIN_GRAD_L2_TOL,
+                   "max_grad_max_rel_err": worst_top,
+                   "grad_max_tol": None if bf16 else TRAIN_GRAD_MAX_TOL,
+                   "mas_frames_apart_before_feeding": frames_apart,
                    "hard_alignment_equal": True, "hard_durations_sum_to_mel_lens": True,
                    "z_start_idxs": z.tolist(), "mel_lens": out_k["mel_lens"].tolist(),
                    "failures": failures})
@@ -2443,10 +2715,13 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                 for shape, key_mask in sorted(given.items()):
                     flash[shape[1]] = _flash_case(
                         gen, shape, key_mask, True,
-                        "the longest batch of train_jets, its own key lengths", phase="train_jets")
+                        f"the longest batch of {phase}, its own key lengths", phase=phase,
+                        dtype=torch.bfloat16 if bf16 else torch.float32)
 
             result = {"launches": launches, "sup_launches": sup_launches, "flash": flash,
                       "synthesis": synth}
+            if bf16:
+                result.update(launches_bf16=launches_bf16, mas_frames_apart=frames_apart)
             if on_card:
                 # the runner's optimizers: the schedule and the clip
                 model.set_dropout_generator(torch.Generator(device=device).manual_seed(0))
@@ -2463,7 +2738,7 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                          "flash_fwd": (fa, "flash_self_attention"),
                          "flash_bwd": (fa, "flash_self_attention_bwd"),
                          "mas": (jets_mod, "binarize_attention")}
-                result["timing"] = _time_gan_step(timing_state, batch, card, "train_jets", timed,
+                result["timing"] = _time_gan_step(timing_state, batch, card, phase, timed,
                                                   epoch=1)
             return result
     finally:
@@ -2471,7 +2746,7 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
 
 
 def _jets_bundle_synthesis(state, root: str, device: torch.device, n_attn: int,
-                           max_mel_len: int = 1024) -> dict:
+                           max_mel_len: int = 1024, phase: str = "train_jets") -> dict:
     """The saved `.roar` loaded into a fresh JETSModel (its parameters the
     trained ones), then `convert_text_to_waveform` into a `max_mel_len`
     bucket on one Bengali text and on a batch of 8: the flash forwards per
@@ -2564,7 +2839,7 @@ def _jets_bundle_synthesis(state, root: str, device: torch.device, n_attn: int,
                         method="host wall clock around one call, synchronised; median of 3 "
                                "after one warm call; the whole bucket is vocoded")
         synth[f"batch_{n}"] = line
-    _emit({"phase": "train_jets", "step": "bundle_synthesis", **synth})
+    _emit({"phase": phase, "step": "bundle_synthesis", **synth})
     return synth
 
 
@@ -3418,14 +3693,23 @@ def main() -> int:
     conv = phase_kernel_grouped_conv(device)
     # the JETS discriminators' widths: 16 segments of 16384 samples, real and fake joined
     conv16k = phase_kernel_grouped_conv(device, batch=32, segment=16384)
+    conv_bf16 = phase_kernel_grouped_conv(device, dtype=torch.bfloat16)
+    conv16k_bf16 = phase_kernel_grouped_conv(device, batch=32, segment=16384,
+                                             dtype=torch.bfloat16)
     fbwd = phase_kernel_flash_bwd(device)
     fcausal = phase_kernel_flash_causal(device)
     run = phase_slice(device, fastpitch_config(), hifigan_config(), TAMIL_SENTENCES, card)
     sup = phase_supdata(device, card)
     train = phase_train_hifigan(device, card)
+    train_bf16 = phase_train_hifigan(device, card, n_utterances=32, steps=4, precision="bf16")
     fp_train = phase_train_fastpitch(device, card)
+    fp_train_bf16 = phase_train_fastpitch(device, card, n_utterances=64, steps=4,
+                                          precision="bf16")
     torch.cuda.empty_cache()
     jets = phase_train_jets(device, card)
+    torch.cuda.empty_cache()
+    # configs/jets_22050_align.yaml at its shipped precision, full width and depth
+    jets_bf16 = phase_train_jets(device, card, precision="bf16-mixed")
     torch.cuda.empty_cache()
     gpt = phase_train_gpt(device, card)
 
@@ -3487,6 +3771,12 @@ def main() -> int:
     flash_fwd, flash_bwd = flash_rows([flash[t] for t in sorted(flash)])
     jets_flash = jets["flash"]
     jets_fwd, jets_bwd = flash_rows([jets_flash[t] for t in sorted(jets_flash)])
+    # the bf16 non-causal K5 on the bf16 JETS and FastPitch steps, at their shapes
+    fp16_flash, jets16_flash = fp_train_bf16["flash"], jets_bf16["flash"]
+    fp16_fwd, fp16_bwd = flash_rows([fp16_flash[t] for t in sorted(fp16_flash)])
+    jets16_fwd, jets16_bwd = flash_rows([jets16_flash[t] for t in sorted(jets16_flash)])
+    bf16_flash_errors = ([case["errors"] for case in fp16_flash.values()]
+                         + [case["errors"] for case in jets16_flash.values()])
     flash_errors = ([case["errors"] for case in flash.values()]
                     + [case["errors"] for case in jets_flash.values()] + [fbwd["max_abs_err"]])
 
@@ -3587,9 +3877,54 @@ def main() -> int:
           for name, replaces in (("fwd", "roar_tpu/ops/grouped_conv.py:208"),
                                  ("dx", "roar_tpu/ops/grouped_conv.py:208"),
                                  ("dw", "roar_tpu/ops/grouped_conv.py:272"))],
+        # K3 and K4 in bf16 (bf16 in, fp32 sums; y and dX bf16, dW fp32):
+        # `launches` is the bf16 JETS run's (configs/jets_22050_align.yaml as
+        # shipped), `launches_train_hifigan_bf16` the bf16 HiFi-GAN run's; the
+        # times and bounds summed over the 15 shapes at JETS's 32 x 16384, and
+        # in `train_hifigan` at 32 x 8192; library = cuDNN in bf16; bounds at
+        # the dense bf16 rate
+        *[{"name": f"grouped_conv_{name}_bf16", "route": "cuda",
+           "source": "roar_tpu_torch/csrc/grouped_conv.cu", "replaces": replaces,
+           "dtype": "bfloat16", "launches": jets_bf16["launches_bf16"][f"grouped_conv_{name}"],
+           "launches_train_hifigan_bf16": train_bf16["launches_bf16"][name],
+           "max_abs_err": max(conv_bf16[name]["max_abs_err"],
+                              conv16k_bf16[name]["max_abs_err"]),
+           "max_rel_err": max(conv_bf16[name]["max_rel_err"],
+                              conv16k_bf16[name]["max_rel_err"]),
+           "max_l2_rel_err": max(conv_bf16[name]["max_l2_rel_err"],
+                                 conv16k_bf16[name]["max_l2_rel_err"]),
+           **pick(conv16k_bf16[name]), "library_ms": conv16k_bf16[name]["library_ms"],
+           "segment": 16384, "batch": 32,
+           "train_hifigan": {**pick(conv_bf16[name]), "segment": 8192, "batch": 32,
+                             "library_ms": conv_bf16[name]["library_ms"]}}
+          for name, replaces in (("fwd", "roar_tpu/ops/grouped_conv.py:208"),
+                                 ("dx", "roar_tpu/ops/grouped_conv.py:208"),
+                                 ("dw", "roar_tpu/ops/grouped_conv.py:272"))],
+        # the non-causal K5 in bf16 on its first paths: `launches` the bf16
+        # JETS run's, `launches_train_fastpitch_bf16` the bf16 FastPitch run's;
+        # the times at the bf16 JETS step's two shapes (summed), and in
+        # `train_fastpitch` at the bf16 FastPitch step's
+        {"name": "flash_attention_fwd_bf16", "route": "cuda",
+         "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
+         "kernel": "flash_fwd_mma_kernel", "dtype": "bfloat16",
+         "replaces": "roar_tpu/models/transformer.py:72", "causal": False,
+         "launches": jets_bf16["launches_bf16"]["fwd"],
+         "launches_train_fastpitch_bf16": fp_train_bf16["launches_bf16"]["fwd"],
+         "max_abs_err": worst(bf16_flash_errors, "o"), **jets16_fwd,
+         "train_fastpitch": fp16_fwd},
+        *[{"name": f"flash_attention_bwd_{name}_bf16", "route": "cuda",
+           "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu", "dtype": "bfloat16",
+           "replaces": "roar_tpu/models/transformer.py:110", "causal": False,
+           "launches": jets_bf16["launches_bf16"][name],
+           "launches_train_fastpitch_bf16": fp_train_bf16["launches_bf16"][name],
+           "max_abs_err": worst(bf16_flash_errors, *grads), **jets16_bwd[name],
+           "train_fastpitch": fp16_bwd[name]}
+          for name, grads in backward_kernels],
     ]
     if not all(k["launches"] > 0 for k in kernels) or fp_train["launches"]["fwd"] == 0 \
-            or not all(k.get("launches_train_jets", 1) > 0 for k in kernels):
+            or not all(k.get("launches_train_jets", 1) > 0 for k in kernels) \
+            or not all(k.get(f"launches_{p}_bf16", 1) > 0 for k in kernels
+                       for p in ("train_hifigan", "train_fastpitch")):
         raise AssertionError(f"a kernel was launched no time on its path: {kernels}")
     _emit({"kernels": kernels})
     print(card, flush=True)

@@ -6,14 +6,15 @@ Same config and overrides as examples/tts/fastpitch.py:
     python examples/tts/fastpitch_torch.py --config-name=fastpitch_22050_align \
         train_dataset=train.json validation_datasets=val.json \
         sup_data_path=sup pitch_mean=212.35 pitch_std=68.52 \
-        model.speaker_encoder.lookup_module.n_speakers=4 trainer.precision=32 [device=cuda]
+        model.speaker_encoder.lookup_module.n_speakers=4 [device=cuda]
 
 With `model.input_fft.use_flash=true model.output_fft.use_flash=true` and
 `model.input_fft.dropatt=0.0 model.output_fft.dropatt=0.0` every attention
 layer runs the hand-written flash-attention kernels, forward and backward;
 with the YAML's `dropatt: 0.1` the step takes the einsum path, as the JAX
-package does.  `device=cpu` runs the same loop on the host with the kernels'
-plain versions.  `run(cfg)` takes the loaded config as a Python dict.
+package does.  The YAML's `trainer.precision: bf16` trains in bf16 from fp32
+masters; `trainer.precision=32` trains in fp32.  `device=cpu` runs the same
+loop on the host with the kernels' plain versions.  `run(cfg)` takes the loaded config as a Python dict.
 """
 
 import sys

@@ -5,8 +5,10 @@ Same config and overrides as examples/tts/hifigan.py:
     python examples/tts/hifigan_torch.py --config-name=hifigan_22050 \
         train_dataset=train.json validation_datasets=val.json [device=cuda]
 
-`device=cpu` runs the same loop on the host with the kernels' plain versions
-(add `model.debug=true` for narrow discriminators).  `run(cfg)` takes the
+`+trainer.precision=bf16` trains in bf16 from fp32 masters, through the bf16
+forms of the grouped-conv kernels.  `device=cpu` runs the same loop on the
+host with the kernels' plain versions (add `model.debug=true` for narrow
+discriminators).  `run(cfg)` takes the
 loaded config as a Python dict.
 """
 

@@ -5,15 +5,16 @@ Same config and overrides as examples/tts/jets.py:
     python examples/tts/jets_torch.py --config-name=jets_22050_align \
         train_dataset=train.json validation_datasets=val.json sup_data_path=sup \
         pitch_mean=212.35 pitch_std=68.52 \
-        model.speaker_encoder.lookup_module.n_speakers=4 trainer.precision=32 [device=cuda]
+        model.speaker_encoder.lookup_module.n_speakers=4 [device=cuda]
 
 With `model.input_fft.use_flash=true model.output_fft.use_flash=true` and
 `model.input_fft.dropatt=0.0 model.output_fft.dropatt=0.0` every attention
 layer runs the hand-written flash-attention kernels, forward and backward;
 the multi-scale discriminator's grouped convs always run the grouped-conv
-kernels on the card.  The YAML's `trainer.precision: bf16-mixed` raises: the
-port trains JETS in fp32.  `device=cpu` runs the same loop on the host with
-the kernels' plain versions.  `run(cfg)` takes the loaded config as a Python
+kernels on the card.  The YAML's `trainer.precision: bf16-mixed` trains in
+bf16 from fp32 masters, through the kernels' bf16 forms; `trainer.precision=32`
+trains in fp32.  `device=cpu` runs the same loop on the host with the
+kernels' plain versions.  `run(cfg)` takes the loaded config as a Python
 dict.
 """
 

@@ -1,5 +1,5 @@
-// K3 and K4: grouped 1-D convolution, channels-first, fp32: forward, input
-// gradient and weight gradient.
+// K3 and K4: grouped 1-D convolution, channels-first, fp32 or bf16: forward,
+// input gradient and weight gradient.
 //
 // Replace roar_tpu/ops/grouped_conv.py `_core_kernel` (K3: the forward and,
 // with a phase-packed transposed weight, dX) and `_dw_kernel` (K4: dW).  The
@@ -99,11 +99,32 @@
 //   workspace and a second kernel adds them in part order: no float
 //   atomics, so two runs give the same bits.
 //
+// bf16 (the JAX package's bf16 step: bf16 operands, fp32 sums, y and dX
+//   written in bf16, dW in fp32) is the same three kernels with BF16 = true.
+//   Their products run on the tensor cores as ONE TF32 product per
+//   multiply-add, and that product is exact: a bf16 value's 8-bit
+//   significand fits TF32's 11, so widening it to fp32 loses nothing and the
+//   product of two such values is exact in the fp32 accumulator.  No split,
+//   no second or third product.  Operands are read from device memory as
+//   bf16 (2 bytes each, half the fp32 traffic) and widened as they are
+//   staged, by plain loads through registers (a 2-byte `cp.async` does not
+//   exist, and the odd widths of the discriminator's scales rule out 4-byte
+//   pairs without a per-row shift), into the fp32 layouts above, so that the
+//   fragment walks are the fp32 kernels' own.  The sums go straight into the
+//   accumulators, with no per-k-chunk flush: their truncation (about 2.4e-5
+//   of the scale over 2624 products) is far below the bf16 rounding of y and
+//   dX (2^-9) and of the dW the op rounds to the weight's type.  y and dX
+//   are rounded to bf16 once, at the store.  Its bound is the operations
+//   over the dense bf16 rate (the card's rate for the same work), not the
+//   TF32 rate these products run at.
+//
 // `wgmma`, TMA and warp specialisation are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "flash_attention_mma.cuh"  // cp.async helpers
 #include "tf32x3.cuh"
@@ -115,8 +136,19 @@ using flash::mma::cp_async4;
 using flash::mma::cp_async_commit;
 using flash::mma::cp_async_wait;
 using tf32x3::mma_3xtf32;
+using tf32x3::mma_tf32;
 using tf32x3::split_tf32;
 using tf32x3::split_tf32_int;
+using bf16 = __nv_bfloat16;
+
+// the element type of a kernel's device-memory operands
+template <bool BF16>
+using Elem = std::conditional_t<BF16, bf16, float>;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -164,10 +196,10 @@ __host__ __device__ inline K3Smem k3_smem(const ConvGeom& q, bool dx, int bm, in
 // gradient, `in` is dy and `out` is dx, blockIdx.z = batch * s + phase.
 // `cc` input channels per stage; `st_shift` = log2 of the view's stride, or
 // -1 when it is not a power of two.
-template <int WN, int NT, int MT, bool DX>
+template <int WN, int NT, int MT, bool DX, bool BF16>
 __global__ void __launch_bounds__(kThreads, 2)
-conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
-                float* __restrict__ out, ConvGeom q, int cc, int st_shift) {
+conv_mma_kernel(const Elem<BF16>* __restrict__ in, const Elem<BF16>* __restrict__ w,
+                Elem<BF16>* __restrict__ out, ConvGeom q, int cc, int st_shift) {
   constexpr int WM = kWarps / WN;
   constexpr int BM = WM * MT * 16;  // output positions per block
   constexpr int BN = WN * NT * 8;   // output channels per block
@@ -214,7 +246,7 @@ conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
 
   const int xw = (BM - 1) * st + taps;  // window length in input positions
   const int p0 = n0 * st - pd;          // input position of the window's start
-  const float* in_g = in + (static_cast<size_t>(b) * q.G + grp) * kc * win;
+  const Elem<BF16>* in_g = in + (static_cast<size_t>(b) * q.G + grp) * kc * win;
   // weight offset of (row n, stage channel 0, column offset 0): forward
   // w[g Og + o0 + n][c0 + c][j]; dX w[g Og + c0 + c][o0 + n][j0 + s (taps-1-j)]
   auto w_row = [&](int c0, int n) -> size_t {
@@ -225,19 +257,30 @@ conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
   };
 
   // stage `s` into buffer `buf`: position p0 + i of channel c0 + c goes to
-  // word c cs + (i % st) pl + i / st of the window
+  // word c cs + (i % st) pl + i / st of the window.  fp32 by `cp.async`;
+  // bf16 by loads widened to fp32 on the way
   auto copy_stage = [&](int s, int buf) {
     const int c0 = s * cc;
     float* xs = smem + buf * L.stage;
     float* ws = xs + cc * L.cs;
     for (int c = 0; c < cc; ++c) {
       const bool c_ok = c0 + c < kc;
-      const float* src = in_g + static_cast<size_t>(c_ok ? c0 + c : 0) * win;
-      for (int i = tid; i < xw; i += kThreads) {
-        const int p = p0 + i;
-        const bool ok = c_ok && p >= 0 && p < win;
-        const int ix = st_shift >= 0 ? i >> st_shift : i / st;
-        cp_async4(xs + c * L.cs + (i - ix * st) * L.pl + ix, ok ? src + p : in, ok);
+      const Elem<BF16>* src = in_g + static_cast<size_t>(c_ok ? c0 + c : 0) * win;
+      if constexpr (BF16) {
+#pragma unroll 4
+        for (int i = tid; i < xw; i += kThreads) {
+          const int p = p0 + i;
+          const int ix = st_shift >= 0 ? i >> st_shift : i / st;
+          xs[c * L.cs + (i - ix * st) * L.pl + ix] =
+              c_ok && p >= 0 && p < win ? widen(src[p]) : 0.0f;
+        }
+      } else {
+        for (int i = tid; i < xw; i += kThreads) {
+          const int p = p0 + i;
+          const bool ok = c_ok && p >= 0 && p < win;
+          const int ix = st_shift >= 0 ? i >> st_shift : i / st;
+          cp_async4(xs + c * L.cs + (i - ix * st) * L.pl + ix, ok ? src + p : in, ok);
+        }
       }
     }
     for (int kk = lane; kk < kpad; kk += 32) {
@@ -245,7 +288,11 @@ conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
       const bool k_ok = c0 + wch[kk] < kc;
       for (int n = warp; n < BN; n += kWarps) {
         const bool ok = k_ok && o0 + n < oc;
-        cp_async4(ws + n * L.ksp + kk, ok ? w + w_row(c0, n) + off : w, ok);
+        if constexpr (BF16) {
+          ws[n * L.ksp + kk] = ok ? widen(w[w_row(c0, n) + off]) : 0.0f;
+        } else {
+          cp_async4(ws + n * L.ksp + kk, ok ? w + w_row(c0, n) + off : w, ok);
+        }
       }
     }
   };
@@ -265,6 +312,25 @@ conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
 #pragma unroll 1  // unrolled twice, a warp's 2 x 4 fragment tiles spill
     for (int k0 = 0; k0 < kpad; k0 += 8) {
       const int ca = xoff[k0 + t4] + row0, cb = xoff[k0 + t4 + 4] + row0;
+      if constexpr (BF16) {  // widened bf16 words are TF32 values: one exact product
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int m = 16 * mt;
+          a[mt][0] = __float_as_uint(xs[ca + m]);
+          a[mt][1] = __float_as_uint(xs[ca + m + 8]);
+          a[mt][2] = __float_as_uint(xs[cb + m]);
+          a[mt][3] = __float_as_uint(xs[cb + m + 8]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint32_t b0 = __float_as_uint(wrow[nt * 8 * L.ksp + k0]);
+          const uint32_t b1 = __float_as_uint(wrow[nt * 8 * L.ksp + k0 + 4]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], a[mt], b0, b1);
+        }
+        continue;
+      }
       uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -310,11 +376,11 @@ conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
         const int o = o0 + wn * NT * 8 + 8 * nt + 2 * t4 + (e & 1);
         if (pos >= nout || o >= oc) continue;
         if (DX) {
-          out[((static_cast<size_t>(b) * q.G + grp) * q.Cg + o) * q.W + pos * q.s + r] =
-              acc[mt][nt][e];
+          store(out + ((static_cast<size_t>(b) * q.G + grp) * q.Cg + o) * q.W + pos * q.s + r,
+                acc[mt][nt][e]);
         } else {
-          out[((static_cast<size_t>(b) * q.G + grp) * q.Og + o) * q.Wout + pos] =
-              acc[mt][nt][e];
+          store(out + ((static_cast<size_t>(b) * q.G + grp) * q.Og + o) * q.Wout + pos,
+                acc[mt][nt][e]);
         }
       }
     }
@@ -338,9 +404,9 @@ struct DwLayout {
 // y: group and output-channel tile, z: part).  Writes
 // out[part][g Og + o][c k + j] for its tile.  The block's warps split the
 // pairs, each MT m-tiles of 16 by NT n-tiles of 8 (all the block's outputs).
-template <int NT, int MT>
+template <int NT, int MT, bool BF16>
 __global__ void __launch_bounds__(kDwThreads)
-dw_mma_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+dw_mma_kernel(const Elem<BF16>* __restrict__ x, const Elem<BF16>* __restrict__ dy,
               float* __restrict__ out, ConvGeom q, DwLayout L) {
   constexpr int BM = kDwWarps * MT * 16;
   constexpr int BN = NT * 8;
@@ -399,12 +465,18 @@ dw_mma_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     const int n0 = (item - b * n_tiles) * kDwTile;
     const int nv8 = positions(item), len4 = window(nv8);
     const int p0 = n0 * q.s - q.pad;
-    const float* xg = x + (static_cast<size_t>(b) * q.G + grp) * q.Cg * q.W;
+    const Elem<BF16>* xg = x + (static_cast<size_t>(b) * q.G + grp) * q.Cg * q.W;
     // a warp per channel window, a thread per copy: no division
     for (int c = warp; c < L.nch; c += kDwWarps) {
       const bool c_ok = c_lo + c < q.Cg;
-      const float* src = xg + static_cast<size_t>(c_ok ? c_lo + c : 0) * q.W;
-      if (L.vec_x) {  // W, p0 multiples of 4: a chunk is all inside or all outside
+      const Elem<BF16>* src = xg + static_cast<size_t>(c_ok ? c_lo + c : 0) * q.W;
+      if constexpr (BF16) {  // loads widened to fp32 on the way
+#pragma unroll 4
+        for (int i = lane; i < len4; i += 32) {
+          const int p = p0 + i;
+          raw[c * L.cs + i] = c_ok && p >= 0 && p < q.W ? widen(src[p]) : 0.0f;
+        }
+      } else if (L.vec_x) {  // W, p0 multiples of 4: a chunk is all inside or all outside
         for (int w = 4 * lane; w < len4; w += 128) {
           const int p = p0 + w;
           const bool ok = c_ok && p >= 0 && p < q.W;
@@ -418,9 +490,17 @@ dw_mma_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         }
       }
     }
-    const float* dg = dy + ((static_cast<size_t>(b) * q.G + grp) * q.Og + o0) * q.Wout + n0;
+    const Elem<BF16>* dg = dy + ((static_cast<size_t>(b) * q.G + grp) * q.Og + o0) * q.Wout + n0;
     float* ds = raw + L.xw;
-    if (L.vec_dy) {  // Wout, n0 multiples of 4
+    if constexpr (BF16) {
+#pragma unroll 4
+      for (int i = tid; i < BN * kDwTile; i += kDwThreads) {
+        const int o = i / kDwTile, n = i % kDwTile;
+        if (n >= nv8) continue;
+        const bool ok = o0 + o < q.Og && n0 + n < q.Wout;
+        ds[o * kDwRowStride + n] = ok ? widen(dg[static_cast<size_t>(o) * q.Wout + n]) : 0.0f;
+      }
+    } else if (L.vec_dy) {  // Wout, n0 multiples of 4
       constexpr int chunks = kDwTile / 4;
       for (int i = tid; i < BN * chunks; i += kDwThreads) {
         const int o = i / chunks, n = (i % chunks) * 4;
@@ -445,6 +525,25 @@ dw_mma_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 #pragma unroll 1
     for (int k0 = 0; k0 < n_valid; k0 += 8) {
       const int pa = (k0 + t4) * q.s, pb = pa + 4 * q.s;
+      if constexpr (BF16) {  // widened bf16 words are TF32 values: one exact product
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          a[mt][0] = __float_as_uint(buf[roff[mt][0] + pa]);
+          a[mt][1] = __float_as_uint(buf[roff[mt][1] + pa]);
+          a[mt][2] = __float_as_uint(buf[roff[mt][0] + pb]);
+          a[mt][3] = __float_as_uint(buf[roff[mt][1] + pb]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int d = nt * 8 * kDwRowStride + k0;
+          const uint32_t b0 = __float_as_uint(dsrc[d]), b1 = __float_as_uint(dsrc[d + 4]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            if (mt < live) mma_tf32(acc[mt][nt], a[mt], b0, b1);
+        }
+        continue;
+      }
       uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -521,9 +620,9 @@ int k3_channels_per_stage(const ConvGeom& q, bool dx, int bm, int bn) {
   return k3_smem(q, dx, bm, bn, cc).bytes() <= kMaxSmem ? cc : 0;
 }
 
-template <int WN, int NT, int MT, bool DX>
-int launch_conv_mma(const float* in, const float* w, float* out, const ConvGeom& q,
-                    cudaStream_t stream) {
+template <int WN, int NT, int MT, bool DX, bool BF16>
+int launch_conv_mma(const Elem<BF16>* in, const Elem<BF16>* w, Elem<BF16>* out,
+                    const ConvGeom& q, cudaStream_t stream) {
   constexpr int BM = (kWarps / WN) * MT * 16, BN = WN * NT * 8;
   const int oc = DX ? q.Cg : q.Og;
   const int nout = DX ? (q.W + q.s - 1) / q.s : q.Wout;  // the most any phase has
@@ -533,7 +632,7 @@ int launch_conv_mma(const float* in, const float* w, float* out, const ConvGeom&
   const long long grid_y = static_cast<long long>(q.G) * ((oc + BN - 1) / BN);
   const long long grid_z = static_cast<long long>(q.B) * (DX ? q.s : 1);
   if (grid_y > 65535 || grid_z > 65535) return cudaErrorInvalidValue;
-  auto kernel = conv_mma_kernel<WN, NT, MT, DX>;
+  auto kernel = conv_mma_kernel<WN, NT, MT, DX, BF16>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -555,17 +654,20 @@ int padded(int n, int tile) { return (n + tile - 1) / tile * tile; }
 // group's (wider groups take several blocks), one warp across up to 32 of
 // them; positions per block: the warps' rows x 16 or twice that, the less
 // padded, the larger on a tie.
-template <bool DX>
-int dispatch_conv_mma(const float* in, const float* w, float* out, const ConvGeom& q,
+template <bool DX, bool BF16>
+int dispatch_conv_mma(const void* in_, const void* w_, void* out_, const ConvGeom& q,
                       cudaStream_t stream) {
+  const auto* in = static_cast<const Elem<BF16>*>(in_);
+  const auto* w = static_cast<const Elem<BF16>*>(w_);
+  auto* out = static_cast<Elem<BF16>*>(out_);
   const int oc = DX ? q.Cg : q.Og;
   const int nout = DX ? (q.W + q.s - 1) / q.s : q.Wout;
 #define ROAR_CASE(WN_, NT_)                                                        \
   {                                                                                \
     constexpr int bm = (kWarps / WN_) * 16;                                        \
     return padded(nout, bm) < padded(nout, 2 * bm)                                 \
-               ? launch_conv_mma<WN_, NT_, 1, DX>(in, w, out, q, stream)           \
-               : launch_conv_mma<WN_, NT_, 2, DX>(in, w, out, q, stream);          \
+               ? launch_conv_mma<WN_, NT_, 1, DX, BF16>(in, w, out, q, stream)     \
+               : launch_conv_mma<WN_, NT_, 2, DX, BF16>(in, w, out, q, stream);    \
   }
   if (oc <= 8) ROAR_CASE(1, 1)
   if (oc <= 16) ROAR_CASE(1, 2)
@@ -619,9 +721,9 @@ int dw_channel_stride(int len4, int k, int s) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int NT, int MT>
-int launch_dw(const float* x, const float* dy, float* dw, float* workspace, const ConvGeom& q,
-              int parts, cudaStream_t stream) {
+template <int NT, int MT, bool BF16>
+int launch_dw(const Elem<BF16>* x, const Elem<BF16>* dy, float* dw, float* workspace,
+              const ConvGeom& q, int parts, cudaStream_t stream) {
   constexpr int BM = kDwWarps * MT * 16, BN = NT * 8;
   int base, total;
   dw_shape(q, &base, &total);
@@ -631,12 +733,12 @@ int launch_dw(const float* x, const float* dy, float* dw, float* workspace, cons
   L.xw = L.nch * L.cs;
   L.stage = L.xw + BN * kDwRowStride;
   L.per_part = (total + parts - 1) / parts;
-  L.vec_x = q.W % 4 == 0 && q.pad % 4 == 0 && aligned16(x);
-  L.vec_dy = q.Wout % 4 == 0 && aligned16(dy);
+  L.vec_x = !BF16 && q.W % 4 == 0 && q.pad % 4 == 0 && aligned16(x);
+  L.vec_dy = !BF16 && q.Wout % 4 == 0 && aligned16(dy);
   const size_t smem = 2ull * 4 * L.stage;
   const long long grid_y = static_cast<long long>(q.G) * ((q.Og + BN - 1) / BN);
   if (smem > kMaxSmem || grid_y > 65535 || parts > 65535) return cudaErrorInvalidValue;
-  auto kernel = dw_mma_kernel<NT, MT>;
+  auto kernel = dw_mma_kernel<NT, MT, BF16>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -659,31 +761,52 @@ ConvGeom make_geom(int B, int Cin, int W, int Cout, int k, int s, int pad, int G
   return q;
 }
 
-}  // namespace
-
 // Every entry returns the CUDA error of its launch (0 on success) and 1
 // (cudaErrorInvalidValue) for sizes the kernels do not take.  All tensors are
-// contiguous fp32: x [B, Cin, W], w [Cout, Cin/G, k], y and dy [B, Cout, Wout].
+// contiguous: x [B, Cin, W], w [Cout, Cin/G, k], y and dy [B, Cout, Wout],
+// fp32 or (the `_bf16` entries) bf16; dW and its workspace are fp32 in both.
 
-extern "C" int roar_grouped_conv_fwd(
-    const void* x, const void* w, void* y, int B, int Cin, int W, int Cout, int k, int s,
-    int pad, int G, int Wout, void* stream) {
+template <bool DX, bool BF16>
+int conv_entry(const void* in, const void* w, void* out, int B, int Cin, int W, int Cout, int k,
+               int s, int pad, int G, int Wout, void* stream) {
   if (G < 1 || Cin % G || Cout % G) return cudaErrorInvalidValue;
   const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
   if (!geom_ok(q)) return cudaErrorInvalidValue;
-  return dispatch_conv_mma<false>(static_cast<const float*>(x), static_cast<const float*>(w),
-                                   static_cast<float*>(y), q, static_cast<cudaStream_t>(stream));
+  return dispatch_conv_mma<DX, BF16>(in, w, out, q, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int roar_grouped_conv_dx(
-    const void* dy, const void* w, void* dx, int B, int Cin, int W, int Cout, int k, int s,
-    int pad, int G, int Wout, void* stream) {
+template <bool BF16>
+int dw_entry(const void* x, const void* dy, void* dw, void* workspace, int B, int Cin, int W,
+             int Cout, int k, int s, int pad, int G, int Wout, int parts, void* stream) {
   if (G < 1 || Cin % G || Cout % G) return cudaErrorInvalidValue;
   const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
-  if (!geom_ok(q)) return cudaErrorInvalidValue;
-  return dispatch_conv_mma<true>(static_cast<const float*>(dy), static_cast<const float*>(w),
-                                  static_cast<float*>(dx), q, static_cast<cudaStream_t>(stream));
+  if (!geom_ok(q) || parts != dw_parts(q) || (parts > 1 && workspace == nullptr))
+    return cudaErrorInvalidValue;
+  const auto* xp = static_cast<const Elem<BF16>*>(x);
+  const auto* dyp = static_cast<const Elem<BF16>*>(dy);
+  float* dwp = static_cast<float*>(dw);
+  float* ws = static_cast<float*>(workspace);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dw_tiles(q).nt) {
+    case 1: return launch_dw<1, 4, BF16>(xp, dyp, dwp, ws, q, parts, st);
+    case 2: return launch_dw<2, 4, BF16>(xp, dyp, dwp, ws, q, parts, st);
+    case 4: return launch_dw<4, 4, BF16>(xp, dyp, dwp, ws, q, parts, st);
+    default: return launch_dw<8, 2, BF16>(xp, dyp, dwp, ws, q, parts, st);
+  }
 }
+
+}  // namespace
+
+#define ROAR_CONV_ENTRY(NAME, DX, BF16)                                                        \
+  extern "C" int NAME(const void* in, const void* w, void* out, int B, int Cin, int W,       \
+                      int Cout, int k, int s, int pad, int G, int Wout, void* stream) {      \
+    return conv_entry<DX, BF16>(in, w, out, B, Cin, W, Cout, k, s, pad, G, Wout, stream);    \
+  }
+ROAR_CONV_ENTRY(roar_grouped_conv_fwd, false, false)
+ROAR_CONV_ENTRY(roar_grouped_conv_dx, true, false)
+ROAR_CONV_ENTRY(roar_grouped_conv_fwd_bf16, false, true)
+ROAR_CONV_ENTRY(roar_grouped_conv_dx_bf16, true, true)
+#undef ROAR_CONV_ENTRY
 
 // Number of parts the weight gradient splits batch x width into; the caller
 // allocates a workspace of parts * Cout * Cin/G * k floats when it is > 1.
@@ -697,19 +820,14 @@ extern "C" int roar_grouped_conv_dw_parts(
 extern "C" int roar_grouped_conv_dw(
     const void* x, const void* dy, void* dw, void* workspace, int B, int Cin, int W, int Cout,
     int k, int s, int pad, int G, int Wout, int parts, void* stream) {
-  if (G < 1 || Cin % G || Cout % G) return cudaErrorInvalidValue;
-  const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
-  if (!geom_ok(q) || parts != dw_parts(q) || (parts > 1 && workspace == nullptr))
-    return cudaErrorInvalidValue;
-  const float* xp = static_cast<const float*>(x);
-  const float* dyp = static_cast<const float*>(dy);
-  float* dwp = static_cast<float*>(dw);
-  float* ws = static_cast<float*>(workspace);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dw_tiles(q).nt) {
-    case 1: return launch_dw<1, 4>(xp, dyp, dwp, ws, q, parts, st);
-    case 2: return launch_dw<2, 4>(xp, dyp, dwp, ws, q, parts, st);
-    case 4: return launch_dw<4, 4>(xp, dyp, dwp, ws, q, parts, st);
-    default: return launch_dw<8, 2>(xp, dyp, dwp, ws, q, parts, st);
-  }
+  return dw_entry<false>(x, dy, dw, workspace, B, Cin, W, Cout, k, s, pad, G, Wout, parts,
+                         stream);
+}
+
+// x and dy bf16, dW fp32 (the TPU kernel's output type)
+extern "C" int roar_grouped_conv_dw_bf16(
+    const void* x, const void* dy, void* dw, void* workspace, int B, int Cin, int W, int Cout,
+    int k, int s, int pad, int G, int Wout, int parts, void* stream) {
+  return dw_entry<true>(x, dy, dw, workspace, B, Cin, W, Cout, k, s, pad, G, Wout, parts,
+                        stream);
 }

@@ -42,7 +42,8 @@ its running maximum).
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises.  `LAUNCHES` counts the launches by kernel: "fwd", "dkv"
 and "dq" for the non-causal form, "causal_fwd", "causal_dkv" and "causal_dq"
-for the causal one; `LAUNCHES.clear()` sets them all to 0.  The differentiable
+for the causal one; `LAUNCHES.clear()` sets them all to 0.  `LAUNCHES_BF16`
+counts the bf16 launches among them under the same keys.  The differentiable
 entry point is `roar_tpu_torch.ops.flash_attention.flash_self_attention`.
 """
 
@@ -54,6 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 LAUNCHES: Counter = Counter()
+LAUNCHES_BF16: Counter = Counter()
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -147,6 +149,12 @@ def _check_bthd(**tensors) -> Tuple[int, int, int, int]:
     return b, t, h, d
 
 
+def _count(name: str, dtype: torch.dtype) -> None:
+    LAUNCHES[name] += 1
+    if dtype == torch.bfloat16:
+        LAUNCHES_BF16[name] += 1
+
+
 def flash_self_attention(q, k, v, key_mask, scale: float, return_lse: bool = False,
                          causal: bool = False):
     """Segment-masked attention over [B, T, H, D] q/k/v, forward only: the
@@ -170,7 +178,7 @@ def flash_self_attention(q, k, v, key_mask, scale: float, return_lse: bool = Fal
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(lib, err, "flash_attention_fwd launch")
-    LAUNCHES["causal_fwd" if causal else "fwd"] += 1
+    _count("causal_fwd" if causal else "fwd", q.dtype)
     return (out, lse) if return_lse else out
 
 
@@ -205,10 +213,10 @@ def flash_self_attention_bwd(q, k, v, key_mask, scale: float, o, lse, do,
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         err = lib.roar_flash_attention_bwd_dkv(*shared, dk.data_ptr(), dv.data_ptr(), *tail)
         check(lib, err, "flash_attention_bwd_dkv launch")
-        LAUNCHES["causal_dkv" if causal else "dkv"] += 1
+        _count("causal_dkv" if causal else "dkv", q.dtype)
     if need_dq:
         dq = torch.empty_like(q)
         err = lib.roar_flash_attention_bwd_dq(*shared, dq.data_ptr(), *tail)
         check(lib, err, "flash_attention_bwd_dq launch")
-        LAUNCHES["causal_dq" if causal else "dq"] += 1
+        _count("causal_dq" if causal else "dq", q.dtype)
     return dq, dk, dv

@@ -46,16 +46,23 @@ class AlignmentEncoder(nn.Module):
         q = self.query_proj[2](F.relu(self.query_proj[1](q)))
         return q, k
 
+    @staticmethod
+    def _product(q, k):
+        """q.k^T in the promoted type of the two, as `jnp.einsum` takes them:
+        under bf16 the mel queries are fp32 and the text keys bf16."""
+        dtype = torch.promote_types(q.dtype, k.dtype)
+        return torch.einsum("bqc,bkc->bqk", q.to(dtype), k.to(dtype))
+
     def _distance(self, q, k):
         """[B, T_mel, T_text] distance."""
         if self.dist_type == "l2":
             # ||q - k||^2 = |q|^2 + |k|^2 - 2 q.k, the expanded form of the JAX module
             q2 = q.square().sum(-1)[:, :, None]
             k2 = k.square().sum(-1)[:, None, :]
-            return q2 + k2 - 2.0 * torch.einsum("bqc,bkc->bqk", q, k)
+            return q2 + k2 - 2.0 * self._product(q, k)
         qn = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-8)
         kn = k / torch.clamp(torch.linalg.norm(k, dim=-1, keepdim=True), min=1e-8)
-        return -torch.einsum("bqc,bkc->bqk", qn, kn)
+        return -self._product(qn, kn)
 
     def forward(self, queries: torch.Tensor, keys: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None,

@@ -24,8 +24,11 @@ from roar_tpu_torch.models.submodules import (
     XAVIER_GAINS,
     ConditionalInput,
     ConditionalLayerNorm,
+    Conv1d,
     ConvNorm,
     Dropout,
+    Embedding,
+    Linear,
     trunc_normal_,
 )
 from roar_tpu_torch.models.transformer import (
@@ -49,7 +52,7 @@ class ConvReLUNorm(nn.Module):
                  condition_dim: int = 384, condition_types: Sequence[str] = (),
                  dropout: float = 0.0):
         super().__init__()
-        self.conv = nn.Conv1d(in_channels, out_channels, kernel_size, padding="same")
+        self.conv = Conv1d(in_channels, out_channels, kernel_size, padding="same")
         self.norm = ConditionalLayerNorm(out_channels, condition_dim, condition_types)
         self.drop = Dropout(dropout)
 
@@ -70,7 +73,7 @@ class TemporalPredictor(nn.Module):
                          condition_dim=input_size, condition_types=condition_types,
                          dropout=dropout)
             for i in range(n_layers))
-        self.fc = nn.Linear(filter_size, 1)
+        self.fc = Linear(filter_size, 1)
 
     def forward(self, enc, enc_mask, conditioning=None):
         # enc: [B, T, C]; enc_mask: [B, T, 1]
@@ -199,11 +202,11 @@ class FastPitchModule(nn.Module):
         self.pitch_predictor_module = _predictor(pitch_predictor)
         self.energy_predictor_module = _predictor(energy_predictor) if energy_predictor else None
         if n_speakers > 1:
-            self.speaker_table = nn.Embedding(n_speakers, d)
-        self.pitch_emb = nn.Conv1d(1, d, pitch_embedding_kernel_size, padding="same")
+            self.speaker_table = Embedding(n_speakers, d)
+        self.pitch_emb = Conv1d(1, d, pitch_embedding_kernel_size, padding="same")
         if energy_predictor is not None:
-            self.energy_emb = nn.Conv1d(1, d, energy_embedding_kernel_size, padding="same")
-        self.proj = nn.Linear(decoder.d_model, n_mel_channels)
+            self.energy_emb = Conv1d(1, d, energy_embedding_kernel_size, padding="same")
+        self.proj = Linear(decoder.d_model, n_mel_channels)
         # registered last: the modules before it keep their order for callers
         # that fill parameters in `modules()` order
         self.aligner_module = AlignmentEncoder(

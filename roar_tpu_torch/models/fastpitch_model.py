@@ -32,7 +32,7 @@ from roar_tpu_torch.models.fastpitch import (
     PredictorConfig,
     init_parameters,
 )
-from roar_tpu_torch.models.submodules import set_dropout_generator
+from roar_tpu_torch.models.submodules import set_compute_dtype, set_dropout_generator
 from roar_tpu_torch.ops.forward_sum import bin_loss, forward_sum_loss
 from roar_tpu_torch.ops.spectrogram import MelConfig, log_mel_spectrogram
 
@@ -244,6 +244,14 @@ class FastPitchModel:
         """Draw the dropout masks of training-mode forwards from `generator`
         (which must live on the module's device)."""
         set_dropout_generator(self.module, generator)
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        """Compute in `dtype` (bf16: `precision="bf16"` of
+        roar_tpu/training/trainer.py:152-174) from the fp32 masters, the
+        layers casting each parameter where they use it; the mel front end,
+        the aligner's mel queries, MAS and the loss masks stay fp32 as in the
+        JAX package.  None computes in the parameters' own type."""
+        set_compute_dtype(self.module, dtype)
 
     def attention_paths(self) -> Dict[str, str]:
         """Which attention path each FFT stack takes in the module's present

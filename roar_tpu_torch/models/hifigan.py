@@ -15,6 +15,14 @@ training; `fold_weight_norm()` turns the second into the first.  The
 discriminators exist only in the trainable form.  `WeightNormConv` and
 `SpectralNormConv` compute what flax 0.12 computes, term for term.
 
+bf16: every conv is a `CastsParameters` layer (models/submodules.py), so
+under `set_compute_dtype(torch.bfloat16)` the kernels, scales and biases are
+cast where they are used, as roar_tpu/models/hifigan.py:125-141 and :185-210
+cast them to the activation's type.  The spectral norm's power iteration then
+runs on the cast weight and a cast `u`, and stores the new `u` and `sigma` in
+its fp32 buffers, as the JAX step casts its `new_stats` back
+(roar_tpu/training/gan.py:122,221).
+
 All modules run channels-first.  The generator's input is the JAX layout, a
 mel [B, T, n_mel], and its output audio [B, T * hop]; the discriminators take
 audio [B, S] and return feature maps as [B, C, W] (period: [B, C, H, W]),
@@ -40,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from roar_tpu_torch.models.submodules import CastsParameters, Conv1d, ConvTranspose1d
 from roar_tpu_torch.ops.grouped_conv import grouped_conv1d_cf
 
 LRELU_SLOPE = 0.1
@@ -54,7 +63,7 @@ def _l2_normalize(x: torch.Tensor, dims=None) -> torch.Tensor:
     return x * torch.rsqrt(sq + NORM_EPS)
 
 
-class _NormConv(nn.Module):
+class _NormConv(CastsParameters, nn.Module):
     """A conv whose kernel passes through a reparametrization on every call.
 
     `kind` is "conv1d", "conv2d" or "conv_transpose1d"; the kernel is held in
@@ -85,15 +94,15 @@ class _NormConv(nn.Module):
         raise NotImplementedError
 
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
-        w = self.effective_weight(update_stats)
+        x, (w, bias) = self.operands(x, self.effective_weight(update_stats), self.bias)
         if self.kind == "conv_transpose1d":
-            return F.conv_transpose1d(x, w, self.bias, stride=self.stride, padding=self.padding)
+            return F.conv_transpose1d(x, w, bias, stride=self.stride, padding=self.padding)
         if self.kind == "conv2d":
-            return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
+            return F.conv2d(x, w, bias, stride=self.stride, padding=self.padding)
         if self.groups > 1:
             y = grouped_conv1d_cf(x, w, self.stride, self.padding, self.groups)
-            return y + self.bias[None, :, None]
-        return F.conv1d(x, w, self.bias, stride=self.stride, padding=self.padding,
+            return y + bias[None, :, None]
+        return F.conv1d(x, w, bias, stride=self.stride, padding=self.padding,
                         dilation=self.dilation)
 
 
@@ -110,8 +119,10 @@ class WeightNormConv(_NormConv):
         self.scale = nn.Parameter(torch.ones(self.kernel_shape[0]))
 
     def effective_weight(self, update_stats: bool = False) -> torch.Tensor:
-        dims = tuple(range(1, self.v.dim()))
-        return _l2_normalize(self.v, dims) * self.scale.reshape(-1, *([1] * len(dims)))
+        v = self.cast_parameter(self.v)
+        dims = tuple(range(1, v.dim()))
+        return _l2_normalize(v, dims) * self.cast_parameter(self.scale).reshape(
+            -1, *([1] * len(dims)))
 
 
 class SpectralNormConv(_NormConv):
@@ -120,7 +131,9 @@ class SpectralNormConv(_NormConv):
     runs on EVERY call, v = l2norm(u W^T), u' = l2norm(v W), both detached;
     sigma = v W u'^T; the conv uses W / where(sigma != 0, sigma, 1).  Only
     `update_stats=True` stores u' and sigma.  Parameters `weight`, `bias`;
-    buffers `u`, `sigma` (fp32)."""
+    buffers `u`, `sigma` (fp32).  Under a compute type the iteration runs on
+    the cast weight and a cast u, and u' and sigma are widened back into the
+    fp32 buffers as they are stored."""
 
     def __init__(self, *args, generator: Optional[torch.Generator] = None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -131,15 +144,16 @@ class SpectralNormConv(_NormConv):
         self.register_buffer("sigma", torch.ones(()))
 
     def effective_weight(self, update_stats: bool = False) -> torch.Tensor:
-        mat = self.weight.reshape(self.weight.shape[0], -1).t()  # [k * Cin/G, Cout], rows permuted
+        weight = self.cast_parameter(self.weight)
+        mat = weight.reshape(weight.shape[0], -1).t()  # [k * Cin/G, Cout], rows permuted
         with torch.no_grad():
-            v = _l2_normalize(self.u @ mat.t())
+            v = _l2_normalize(self.u.to(weight.dtype) @ mat.t())
             u = _l2_normalize(v @ mat)
         sigma = (v @ mat @ u.t())[0, 0]
         if update_stats:
-            self.u.copy_(u)
+            self.u.copy_(u)  # copy_ widens a bf16 u into the fp32 buffer
             self.sigma.copy_(sigma.detach())
-        return self.weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+        return weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
 
 def _same_conv(channels_in: int, channels_out: int, kernel_size: int, dilation: int = 1,
@@ -148,7 +162,7 @@ def _same_conv(channels_in: int, channels_out: int, kernel_size: int, dilation: 
         return WeightNormConv("conv1d", channels_in, channels_out, kernel_size,
                               padding=dilation * (kernel_size - 1) // 2, dilation=dilation,
                               generator=generator)
-    return nn.Conv1d(channels_in, channels_out, kernel_size, dilation=dilation, padding="same")
+    return Conv1d(channels_in, channels_out, kernel_size, dilation=dilation, padding="same")
 
 
 class ResBlock1(nn.Module):
@@ -222,7 +236,7 @@ class Generator(nn.Module):
                 self.ups.append(WeightNormConv("conv_transpose1d", ch, ch // 2, k, stride=u,
                                                padding=(k - u) // 2, generator=generator))
             else:
-                self.ups.append(nn.ConvTranspose1d(ch, ch // 2, k, stride=u,
+                self.ups.append(ConvTranspose1d(ch, ch // 2, k, stride=u,
                                                    padding=(k - u) // 2))
             ch //= 2
             self.resblocks.append(nn.ModuleList(

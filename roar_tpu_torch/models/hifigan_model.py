@@ -30,6 +30,7 @@ from roar_tpu_torch.models.hifigan import (
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
 )
+from roar_tpu_torch.models.submodules import set_compute_dtype
 from roar_tpu_torch.ops.spectrogram import MelConfig, log_mel_spectrogram
 
 
@@ -109,6 +110,14 @@ class HifiGanModel:
         self.msd = MultiScaleDiscriminator(debug=debug, variant=cfg.get("msd_variant", "grouped"),
                                            generator=generator)
         self.l1_factor = cfg.get("l1_loss_factor", 45)
+        self.compute_dtype: Optional[torch.dtype] = None
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        """Compute in `dtype` (bf16: the JAX step's `precision="bf16"`) from
+        the fp32 masters; None computes in the parameters' own type."""
+        self.compute_dtype = dtype
+        for m in (self.generator, self.mpd, self.msd):
+            set_compute_dtype(m, dtype)
 
     def to(self, device) -> "HifiGanModel":
         for m in (self.generator, self.mpd, self.msd):
@@ -140,10 +149,13 @@ class HifiGanModel:
     def _input_mel(self, batch) -> torch.Tensor:
         """The generator's input mel [B, T, n_mel]: a precomputed `mel` in
         the batch wins (fine-tuning on predicted mels), else it is computed
-        from the audio."""
-        if batch.get("mel") is not None:
-            return batch["mel"]
-        return self._mel(batch["audio"], batch["audio_len"])[0]
+        from the audio, in fp32 (the front end widens the audio).  Either is
+        cast to the compute type, so that an fp32 mel does not promote the
+        generator out of bf16 (roar_tpu/models/hifigan_model.py:114-135)."""
+        mel = batch.get("mel")
+        if mel is None:
+            mel = self._mel(batch["audio"], batch["audio_len"])[0]
+        return mel if self.compute_dtype is None else mel.to(self.compute_dtype)
 
     def forward_split(self, batch, epoch: int = 0) -> Dict[str, torch.Tensor]:
         """The generator forward, run once per step (`epoch` is not read)."""

@@ -32,7 +32,7 @@ from roar_tpu_torch.models.fastpitch import (
     _predictor,
 )
 from roar_tpu_torch.models.hifigan import Generator
-from roar_tpu_torch.models.submodules import set_dropout_generator
+from roar_tpu_torch.models.submodules import Conv1d, Embedding, set_dropout_generator
 from roar_tpu_torch.models.transformer import (
     FFTransformerDecoder,
     FFTransformerEncoder,
@@ -92,10 +92,10 @@ class JETSModule(nn.Module):
             condition_types=aligner.condition_types,
             dist_type=aligner.dist_type) if aligner is not None else None
         if n_speakers > 1:
-            self.speaker_table = nn.Embedding(n_speakers, d)
-        self.pitch_emb = nn.Conv1d(1, d, pitch_embedding_kernel_size, padding="same")
+            self.speaker_table = Embedding(n_speakers, d)
+        self.pitch_emb = Conv1d(1, d, pitch_embedding_kernel_size, padding="same")
         if energy_predictor is not None:
-            self.energy_emb = nn.Conv1d(1, d, energy_embedding_kernel_size, padding="same")
+            self.energy_emb = Conv1d(1, d, energy_embedding_kernel_size, padding="same")
         self.generator = generator
 
     @property

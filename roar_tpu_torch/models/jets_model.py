@@ -16,8 +16,11 @@ G losses that training/gan.py steps with its shared forward.  Per step:
 The modules hold their own parameters, so the loss functions take tensors
 only.  One preprocessor, full band (`highfreq=None`) with gradients, serves
 both the aligner's input mel and the segments' mel loss, as in the JAX
-package.  `maybe_remat_disc` is not ported; the Conformer stacks, GST and the
-bf16 step raise `NotImplementedError`.
+package.  bf16 (`precision: bf16-mixed`, the shipped config): `set_compute_dtype`
+makes every layer of the generator graph and of the discriminators cast its
+parameters where it uses them, and training/gan.py casts the batch.
+`maybe_remat_disc` is not ported; the Conformer stacks and GST raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from roar_tpu_torch.models.hifigan import (
 )
 from roar_tpu_torch.models.hifigan_model import _generator_kwargs
 from roar_tpu_torch.models.jets import JETSModule
+from roar_tpu_torch.models.submodules import set_compute_dtype
 from roar_tpu_torch.ops.forward_sum import bin_loss, forward_sum_loss
 from roar_tpu_torch.ops.lengths import slice_segments
 from roar_tpu_torch.ops.spectrogram import log_mel_spectrogram
@@ -132,8 +136,16 @@ class JETSModel:
         self.adversarial_loss_scale = cfg.get("adv_loss_scale", 1.0)
         self.aligner_loss_scale = cfg.get("aligner_loss_scale", 2.0)
         self.bin_loss_warmup_epochs = cfg.get("bin_loss_warmup_epochs", 100)
+        self.compute_dtype: Optional[torch.dtype] = None
 
     # ------------------------------------------------------------------
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        """Compute in `dtype` (bf16: the JAX step's `precision="bf16"`) from
+        the fp32 masters; None computes in the parameters' own type."""
+        self.compute_dtype = dtype
+        for m in (self.module, self.mpd, self.msd):
+            set_compute_dtype(m, dtype)
+
     def to(self, device) -> "JETSModel":
         for m in (self.module, self.mpd, self.msd):
             m.to(device)

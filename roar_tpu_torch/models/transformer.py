@@ -28,7 +28,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from roar_tpu_torch.models.submodules import ConditionalInput, ConditionalLayerNorm, Dropout
+from roar_tpu_torch.models.submodules import (
+    ConditionalInput,
+    ConditionalLayerNorm,
+    Conv1d,
+    Dropout,
+    Embedding,
+    Linear,
+)
 from roar_tpu_torch.ops.flash_attention import flash_self_attention
 
 _MASK_NEG = -1e9
@@ -64,8 +71,8 @@ class MultiHeadAttn(nn.Module):
         self.n_head, self.d_head = n_head, d_head
         self.pre_lnorm, self.use_flash = pre_lnorm, use_flash
         self.scale = 1.0 / math.sqrt(d_head)
-        self.qkv_net = nn.Linear(d_model, 3 * n_head * d_head)
-        self.o_net = nn.Linear(n_head * d_head, d_model, bias=False)
+        self.qkv_net = Linear(d_model, 3 * n_head * d_head)
+        self.o_net = Linear(n_head * d_head, d_model, bias=False)
         self.layer_norm = ConditionalLayerNorm(d_model, d_model, condition_types)
         self.drop = Dropout(dropout)
         self.dropatt = Dropout(dropatt)
@@ -88,7 +95,8 @@ class MultiHeadAttn(nn.Module):
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * self.scale
             if key_mask is not None:
-                scores = scores + torch.where(key_mask[:, None, None, :], 0.0, _MASK_NEG)
+                scores = scores + torch.where(key_mask[:, None, None, :], 0.0,
+                                              _MASK_NEG).to(scores.dtype)
             probs = self.dropatt(torch.softmax(scores, dim=-1))
             attn = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         out = self.drop(self.o_net(attn.reshape(b, t, self.n_head * self.d_head)))
@@ -106,8 +114,8 @@ class PositionwiseConvFF(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         self.pre_lnorm = pre_lnorm
-        self.conv1 = nn.Conv1d(d_model, d_inner, kernel_size, padding="same")
-        self.conv2 = nn.Conv1d(d_inner, d_model, kernel_size, padding="same")
+        self.conv1 = Conv1d(d_model, d_inner, kernel_size, padding="same")
+        self.conv2 = Conv1d(d_inner, d_model, kernel_size, padding="same")
         self.layer_norm = ConditionalLayerNorm(d_model, d_model, condition_types)
         self.drop = Dropout(dropout)
 
@@ -179,7 +187,7 @@ class FFTransformerEncoder(nn.Module):
                  dropatt: float = 0.0, dropemb: float = 0.0):
         super().__init__()
         self.padding_idx = padding_idx
-        self.word_emb = nn.Embedding(n_embed, d_embed or d_model)
+        self.word_emb = Embedding(n_embed, d_embed or d_model)
         self.stack = FFTransformerDecoder(n_layer, n_head, d_model, d_head, d_inner,
                                           kernel_size, pre_lnorm, condition_types,
                                           use_rope, use_flash, dropout, dropatt, dropemb)

@@ -8,7 +8,10 @@ caller that compares the two transposes the weight with `permute(2, 1, 0)`).
 
 On a CUDA tensor the forward runs kernel K3, the backward K3's dX entry and
 kernel K4 (dW), each only where a gradient is asked for; on a CPU tensor the
-plain versions in kernels/grouped_conv.py.  fp32 on the card.
+plain versions in kernels/grouped_conv.py.  fp32 or bf16, with the JAX
+op's casts (roar_tpu/ops/grouped_conv.py:489-519): the weight is cast to x's
+type, dy to the saved x's type; dX comes back in dy's type and dW (summed in
+fp32 by K4) in the weight's.
 """
 
 from __future__ import annotations
@@ -28,18 +31,19 @@ class GroupedConv1dCF(torch.autograd.Function):
     def forward(ctx, x, w, stride: int, padding: int, groups: int):
         ctx.save_for_backward(x, w)
         ctx.geometry = (stride, padding, groups)
-        return kernels.grouped_conv_fwd(x, w, stride, padding, groups)
+        return kernels.grouped_conv_fwd(x, w.to(x.dtype), stride, padding, groups)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         stride, padding, groups = ctx.geometry
-        dy = dy.contiguous()
+        dyc = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = kernels.grouped_conv_dx(dy, w, x.shape[2], stride, padding, groups)
+            dx = kernels.grouped_conv_dx(dyc, w.to(x.dtype), x.shape[2], stride, padding,
+                                         groups).to(dy.dtype)
         if ctx.needs_input_grad[1]:
-            dw = kernels.grouped_conv_dw(x, dy, w.shape[2], stride, padding, groups)
+            dw = kernels.grouped_conv_dw(x, dyc, w.shape[2], stride, padding, groups).to(w.dtype)
         return dx, dw, None, None, None
 
 

@@ -14,8 +14,14 @@ PyTorch.  One step:
 The task is HiFi-GAN's (`HifiGanModel`: the generator is the vocoder) or
 JETS's (`JETSModel`: the generator is the whole text->wav graph, whose bin
 loss follows the epoch).  No EMA of the generator and no
-rematerialisation.  fp32 only: the bf16 form of the JAX step is not ported
-yet.
+rematerialisation.
+
+bf16 (`precision="bf16"` of the JAX step, gan.py:162-258): a task whose
+`compute_dtype` is bf16 (`set_compute_dtype`) gets the batch's floating
+tensors cast to bf16 here, and its modules cast the generator's and the
+discriminators' parameters and the spectral norm's stats where they use them
+(models/submodules.py), so the masters, both optimizers' moments and the
+stored stats stay fp32 and the gradients reach the masters through the casts.
 """
 
 from __future__ import annotations
@@ -64,7 +70,8 @@ class GANTrainState:
 def gan_train_step(state: GANTrainState, batch: Dict[str, torch.Tensor],
                    mark: Optional[Callable[[str], None]] = None, epoch: int = 0
                    ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
-    """One D update then one G update on `batch` in epoch `epoch`; returns
+    """One D update then one G update on `batch` (cast to the task's compute
+    type, when it has one) in epoch `epoch`; returns
     the state and the step's metrics as tensors on the batch's device
     (nothing is synchronised).  `mark(name)`, when given, is called as each
     part of the step has been enqueued ("generator_forward", "d_pass",
@@ -73,6 +80,9 @@ def gan_train_step(state: GANTrainState, batch: Dict[str, torch.Tensor],
     model = state.model
     d_params = state.d_opt.params
     mark = mark or (lambda name: None)
+    dtype = getattr(model, "compute_dtype", None)
+    if dtype is not None:
+        batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
 
     out = model.forward_split(batch, epoch)
     mark("generator_forward")

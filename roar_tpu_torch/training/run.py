@@ -259,7 +259,9 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
     given.  A task that draws random numbers (`set_dropout_generator`: JETS's
     dropout and segment starts) draws them from one generator on `device`
     seeded with `trainer.seed`, saved with the checkpoints.  The host waits
-    for the device only where it logs."""
+    for the device only where it logs.  `trainer.precision` bf16 / bf16-mixed
+    trains through the task's `set_compute_dtype` (a task without it raises)
+    and validates in fp32, as the JAX runner does."""
     device = torch.device(device)
     trainer_cfg = cfg.get("trainer", {})
     exp_cfg = cfg.get("exp_manager", {}) or {}
@@ -267,11 +269,13 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
     dl_cfg = (model_cfg.get("train_ds") or {}).get("dataloader_params", {})
     batch_size = dl_cfg.get("batch_size", 16)
     max_epochs = max_epochs or trainer_cfg.get("max_epochs", 1)
+    compute_dtype = None
     if _map_precision(trainer_cfg.get("precision")) == "bf16":
-        raise NotImplementedError(
-            f"trainer.precision={trainer_cfg.get('precision')!r}: the bf16 form of the GAN "
-            f"step and of the grouped-conv kernels (ROADMAP queue 2, P2) is not ported yet; "
-            f"train in fp32")
+        if not hasattr(model, "set_compute_dtype"):
+            raise NotImplementedError(
+                f"trainer.precision={trainer_cfg.get('precision')!r}: the bf16 GAN step is not "
+                f"ported for {type(model).__name__}; train in fp32")
+        compute_dtype = torch.bfloat16
 
     sampler = LengthBucketBatchSampler(
         dataset.lengths, batch_size=batch_size, shuffle=dl_cfg.get("shuffle", True),
@@ -285,6 +289,8 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
     dataset.collate([dataset[i] for i in first], buckets)
 
     model.to(device)
+    if compute_dtype is not None:
+        model.set_compute_dtype(compute_dtype)
     generator = None
     if hasattr(model, "set_dropout_generator"):
         generator = torch.Generator(device=device).manual_seed(trainer_cfg.get("seed", 0))
@@ -336,8 +342,11 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
                 break
             if exp.should_stop():
                 break
-        # validation: the generator's losses without updates
+        # validation: the generator's losses without updates, in fp32 from the
+        # masters and the uncast batch, as the JAX runner validates
         if val_sets and (epoch + 1) % check_val_every == 0 and not exp.should_stop():
+            if compute_dtype is not None:
+                model.set_compute_dtype(None)
             val_logged: Dict[str, float] = {}
             for si, (ds_name, vds) in enumerate(val_sets):
                 val_sampler = LengthBucketBatchSampler(
@@ -361,6 +370,8 @@ def train_gan(cfg: Dict[str, Any], model, dataset, val_dataset=None,
                     val_logged.update({f"val_{k}": v / n for k, v in totals.items()})
             if val_logged:
                 exp.logger.log_metrics(val_logged, step=state.step)
+            if compute_dtype is not None:
+                model.set_compute_dtype(compute_dtype)
         exp.save(state, {k: float(v) for k, v in metrics.items()})
         if exp.should_stop() or reached_max_steps:
             break

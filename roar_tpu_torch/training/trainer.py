@@ -16,8 +16,8 @@ host waits for the device only where it logs.
 parameters and the optimizer state stay fp32, forward and backward run on a
 bf16 cast of the parameters and of the batch's floating tensors, and the
 gradients come back in fp32.  A task takes it by declaring
-`set_compute_dtype(dtype)` (`GPTLMModel` does); for any other task it raises
-`NotImplementedError`.
+`set_compute_dtype(dtype)` (`GPTLMModel` and `FastPitchModel` do); for any
+other task it raises `NotImplementedError`.
 
 Not ported: `freeze_updates` (dynamic freezing), tensor-parallel rules and the
 device mesh; each raises `NotImplementedError`.  There is no EMA of the

@@ -328,8 +328,14 @@ def test_unported_options_raise():
         FastPitchModel({**_cfg(), "use_gst": True})
     model = FastPitchModel(_cfg())
     opt = build_optimizer(model.parameters(), OPTIM)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        Trainer(model, opt, device="cpu", precision="bf16")
+    # FastPitch takes bf16 (set_compute_dtype); a task without it raises by name
+    assert Trainer(model, opt, device="cpu", precision="bf16").compute_dtype == torch.bfloat16
+
+    class TaskWithoutComputeDtype:
+        pass
+
+    with pytest.raises(NotImplementedError, match="bf16.*TaskWithoutComputeDtype"):
+        Trainer(TaskWithoutComputeDtype(), opt, device="cpu", precision="bf16")
     with pytest.raises(NotImplementedError, match="freeze_updates"):
         Trainer(model, opt, device="cpu", freeze_updates={"enabled": True, "modules": {}})
     with pytest.raises(NotImplementedError, match="mesh"):

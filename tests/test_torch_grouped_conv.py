@@ -192,15 +192,17 @@ def _build_log(k4_spill: int = 0, drop_k4=None, k1_spill: int = 0) -> str:
         for kernel in kernels:
             for d in HEAD_DIMS:
                 log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{d}EEEvv", 128)
-    for view in ("fwd", "dx"):
-        for wn, nt, mt in cs.CONV_MMA_TILES:
-            log += _ptxas_entry(K3_MANGLED.replace("ILi2ELi4ELi2ELb1E",
-                                                   f"ILi{wn}ELi{nt}ELi{mt}ELb{int(view == 'dx')}E"),
-                                100)
-    for nt, mt in cs.DW_MMA_TILES:
-        if (nt, mt) != drop_k4:
-            log += _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", f"ILi{nt}ELi{mt}E"), 128,
-                                k4_spill if (nt, mt) == (8, 2) else 0)
+    # the fp32 and the bf16 instances (last template argument 0 and 1)
+    for bf16 in (0, 1):
+        for view in ("fwd", "dx"):
+            for wn, nt, mt in cs.CONV_MMA_TILES:
+                log += _ptxas_entry(K3_MANGLED.replace(
+                    "ILi2ELi4ELi2ELb1E", f"ILi{wn}ELi{nt}ELi{mt}ELb{int(view == 'dx')}ELb{bf16}E"),
+                    100)
+        for nt, mt in cs.DW_MMA_TILES:
+            if (nt, mt) != drop_k4 or bf16:
+                log += _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", f"ILi{nt}ELi{mt}ELb{bf16}E"),
+                                    128, k4_spill if (nt, mt) == (8, 2) and not bf16 else 0)
     for width in (101, 0):
         for lanes in (1, 2, 4, 8):
             log += _ptxas_entry(K1_MANGLED.replace("ILi101ELi4E", f"ILi{width}ELi{lanes}E"), 64,
@@ -211,8 +213,13 @@ def _build_log(k4_spill: int = 0, drop_k4=None, k1_spill: int = 0) -> str:
 def test_ptxas_parser_reads_k3_and_k4_instances():
     import chip_smoke as cs
 
-    table = cs.parse_ptxas(_ptxas_entry(K3_MANGLED, 122) + _ptxas_entry(K4_MANGLED, 128, 8))
-    assert set(table) == {("conv_mma_kernel", "dx", (2, 4, 2)), ("dw_mma_kernel", "dw", (8, 2))}
+    table = cs.parse_ptxas(_ptxas_entry(K3_MANGLED, 122) + _ptxas_entry(K4_MANGLED, 128, 8)
+                           + _ptxas_entry(K3_MANGLED.replace("ELb1E", "ELb1ELb1E"), 90)
+                           + _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", "ILi8ELi2ELb1E"), 96))
+    assert set(table) == {("conv_mma_kernel", "dx", (2, 4, 2)), ("dw_mma_kernel", "dw", (8, 2)),
+                          ("conv_mma_kernel", "dx_bf16", (2, 4, 2)),
+                          ("dw_mma_kernel", "dw_bf16", (8, 2))}
+    assert table[("conv_mma_kernel", "dx_bf16", (2, 4, 2))]["registers"] == 90
     assert table[("conv_mma_kernel", "dx", (2, 4, 2))]["registers"] == 122
     k4 = table[("dw_mma_kernel", "dw", (8, 2))]
     assert (k4["registers"], k4["spill_store_bytes"], k4["spill_load_bytes"]) == (128, 8, 8)
@@ -231,8 +238,9 @@ def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, mo
     if fault is None:
         line = cs.phase_kernel_build(tmp_path / "lib.so")
         k4 = [row for row in line["grouped_conv_instances"] if row["kernel"] == "dw_mma_kernel"]
-        assert [tuple(row["nt_mt"]) for row in k4] == cs.DW_MMA_TILES
-        assert len(line["grouped_conv_instances"]) == 2 * len(cs.CONV_MMA_TILES) + len(k4)
+        assert [tuple(row["nt_mt"]) for row in k4] == cs.DW_MMA_TILES * 2  # fp32, then bf16
+        assert [row["view"] for row in k4] == ["dw"] * 4 + ["dw_bf16"] * 4
+        assert len(line["grouped_conv_instances"]) == 4 * len(cs.CONV_MMA_TILES) + len(k4)
         assert len(line["viterbi_instances"]) == 9  # K1 at two widths x four splits, K2
     elif fault == "viterbi_spill":
         with pytest.raises(AssertionError, match="pyin_viterbi_fwd_kernel.*spills"):

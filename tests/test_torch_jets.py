@@ -356,10 +356,14 @@ def test_same_seed_same_segment_starts_and_dropout():
 
 
 def test_unported_options_raise_by_name():
-    model = JETSModel(_cfg())
-    with pytest.raises(NotImplementedError, match="bf16"):
-        run.train_gan({"trainer": {"precision": "bf16-mixed"}, "model": {}}, model, None,
-                      device="cpu")
+    # JETS takes bf16 (set_compute_dtype); a GAN task without it raises by name
+
+    class TaskWithoutComputeDtype:
+        pass
+
+    with pytest.raises(NotImplementedError, match="bf16.*TaskWithoutComputeDtype"):
+        run.train_gan({"trainer": {"precision": "bf16-mixed"}, "model": {}},
+                      TaskWithoutComputeDtype(), None, device="cpu")
     cfg = _cfg()
     cfg["input_fft"] = {**cfg["input_fft"], "encoder_type": "conformer"}
     with pytest.raises(NotImplementedError, match="transformer FFT stack"):
