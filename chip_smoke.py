@@ -88,6 +88,12 @@ Phases, each printing JSON lines:
    same routine as phase 7 (bf16 element by element at a bar that follows each
    row's own scale), and at the path's shape the times beside the bounds and
    `F.scaled_dot_product_attention(is_causal=True)` with its autograd;
+   then kernel_flash_head_sizes: the same at the head sizes outside
+   32 / 64 / 128: D 256 (bf16 forward, dK/dV, dQ; fp32 forward, its
+   backward shown to raise) at pythia-1b's layer (1, 2048, 8, 256) causal
+   and at (4, 300, 2, 256) under a key mask, and D 80 / 100 through the
+   padded route (the D 128 kernels on zero-padded heads) at
+   (1, 2048, 32, 80|100), fp32 and bf16, each timed;
 11. train_gpt: GPT causal-LM training at the full width and depth of
    tiny-llama-1.1b (22 layers, d 2048, 32 heads of 64 in 4 KV groups, SwiGLU
    5632, vocabulary 32000, 1.1 B parameters), S 4096, bf16 compute from fp32
@@ -102,7 +108,16 @@ Phases, each printing JSON lines:
    forwards, the same gradients), one micro-batch with the kernels against one
    with their plain versions in bf16 at full depth (loss, whole gradient and
    each attention projection's gradient) and in fp32 at 4 layers;
-   then the update's time, its split, tokens/s and peak memory.
+   then the update's time, its split, tokens/s and peak memory.  Validation
+   runs from the fp32 masters, so its forwards are fp32 launches.  The same
+   again for pythia-1b (16 layers, d 2048, 8 heads of 256, GptNeoxMLP 8192,
+   parallel residual, its own vocabulary 50254, 1.01 B parameters), S 2048,
+   whose fp32 check is the validation forward at full depth (the fp32
+   backward at D 256 is not ported);
+12. gpt_head_sizes: one bf16 micro-batch each of phi-2 (D 80), open_llama_3b
+   (D 100) and gemma-2b (D 256, one KV group) at full width and 2 layers,
+   S 2048, seeded weights and tokens, the kernels against their plain
+   versions at phase 11's bf16 bars, with their (padded) launches.
 
 Then the kernels line, the card line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -560,14 +575,42 @@ FLASH_MMA_KERNELS = {"bfloat16": ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_ker
                                  "flash_bwd_dq_tf32_kernel")}
 
 
+# the dK/dV passes of the bf16 kernel at D 256 (template argument PASS 1 and
+# 2), as `_flash_instance` names them
+DKV_PASSES = {"1": ".dv", "2": ".dk"}
+H100_SMEM_PER_BLOCK = 232448  # the most dynamic shared memory a block may have
+
+
+def flash_instances() -> list:
+    """(kernel, dtype, D) of every flash kernel instance the launch functions
+    of csrc/flash_attention_{fwd,bwd}.cu can run: the six kernels at D 32, 64
+    and 128; at D 256 the bf16 forward, the bf16 dK/dV kernel's dV and dK
+    passes, the bf16 dQ kernel and the fp32 forward (the fp32 backward at
+    D 256 is not ported)."""
+    from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
+
+    out = []
+    for dtype, kernels in FLASH_MMA_KERNELS.items():
+        for kernel in kernels:
+            for d in HEAD_DIMS:
+                if d <= 128:
+                    out.append((kernel, dtype, d))
+                elif kernel == "flash_bwd_dkv_mma_kernel":
+                    out += [(kernel + sfx, dtype, d) for sfx in DKV_PASSES.values()]
+                elif dtype == "bfloat16" or kernel == "flash_fwd_tf32_kernel":
+                    out.append((kernel, dtype, d))
+    return out
+
+
 def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
     """Dynamic shared memory per block that the launch functions of
     csrc/flash_attention_{fwd,bwd}.cu ask for (ptxas reports static only)."""
     tile, stride4 = 64 * d, 64 * (d + 4)
+    kernel = kernel.split(".")[0]  # a dK/dV pass asks for the kernel's memory
     if kernel == "flash_fwd_mma_kernel":
         return 2 * tile * 5
-    if kernel == "flash_fwd_tf32_kernel":  # Q tile 64 rows, K/V tiles 32
-        return 4 * (d + 4) * (2 * 64 + 4 * 32)
+    if kernel == "flash_fwd_tf32_kernel":  # Q tile 64 rows, K/V tiles 32 (16 at D 256)
+        return 4 * (d + 4) * (2 * 64 + 4 * (32 if d <= 128 else 16))
     if kernel == "flash_bwd_dkv_mma_kernel":
         return 2 * tile * 6 + 4 * 64 * 4
     if kernel == "flash_bwd_dq_mma_kernel":
@@ -587,16 +630,23 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
     it may hold the source's name (`flash_attention_fwd_cu`) and end in
     digits, so each split of the digit run into namespace tail and length is
     tried.  The `_mma_` kernels take bf16, the others (`_tf32_`: 3xTF32
-    products on the tensor cores) fp32."""
+    products on the tensor cores) fp32.  The bf16 dK/dV kernel's second
+    argument is its pass: 0 (both) keeps the name, 1 and 2 add ".dv" and
+    ".dk"; a bf16 kernel's last argument, the columns a block forms, is not
+    part of the key (one instance per head size and pass)."""
     for found in re.finditer(r"(\d+)(?=flash_)", mangled):
         digits, start = found.group(1), found.end()
         for cut in range(len(digits)):
             n = int(digits[cut:])
             name, args = mangled[start:start + n], mangled[start + n:]
             if name.endswith("_kernel") and args.startswith("I"):
-                dim = re.search(r"Li(\d+)E", args)
+                dim = re.match(r"ILi(\d+)E(?:Li(\d+)E)?", args)
                 dtype = "bfloat16" if "_mma_" in name else "float32"
-                return name, dtype, int(dim.group(1)) if dim else 0
+                if dim is None:
+                    return name, dtype, 0
+                if name == "flash_bwd_dkv_mma_kernel":
+                    name += DKV_PASSES.get(dim.group(2), "")
+                return name, dtype, int(dim.group(1))
     return None
 
 
@@ -707,8 +757,6 @@ def phase_kernel_build(lib_path) -> dict:
     tensor-core kernel; raises if a tensor-core kernel (every flash kernel,
     bf16 and fp32 in 3xTF32, K3 and K4) spills or has no HMMA, or if a K1 or
     K2 instance spills or is missing."""
-    from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
-
     everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
     table = {key: info for key, info in everything.items() if key[0].startswith("flash_")}
     hmma = count_hmma(lib_path)
@@ -719,16 +767,17 @@ def phase_kernel_build(lib_path) -> dict:
         if hmma is not None:
             row["hmma"] = hmma.get((kernel, dtype, d), 0)
         rows.append(row)
-    for dtype, kernels in FLASH_MMA_KERNELS.items():
-        for kernel in kernels:
-            for d in HEAD_DIMS:
-                info = table.get((kernel, dtype, d))
-                if info is None or info["registers"] is None:
-                    raise AssertionError(f"{kernel}<{d}> is not in the ptxas log")
-                if info["spill_store_bytes"] or info["spill_load_bytes"]:
-                    raise AssertionError(f"{kernel}<{d}> spills: {info}")
-                if hmma is not None and hmma.get((kernel, dtype, d), 0) == 0:
-                    raise AssertionError(f"{kernel}<{d}> has no HMMA instruction in its SASS")
+    for kernel, dtype, d in flash_instances():
+        info = table.get((kernel, dtype, d))
+        if info is None or info["registers"] is None:
+            raise AssertionError(f"{kernel}<{d}> is not in the ptxas log")
+        if info["spill_store_bytes"] or info["spill_load_bytes"]:
+            raise AssertionError(f"{kernel}<{d}> spills: {info}")
+        if hmma is not None and hmma.get((kernel, dtype, d), 0) == 0:
+            raise AssertionError(f"{kernel}<{d}> has no HMMA instruction in its SASS")
+        smem = flash_dynamic_smem(kernel, dtype, d) + info["static_smem_bytes"]
+        if smem > H100_SMEM_PER_BLOCK:
+            raise AssertionError(f"{kernel}<{d}> asks for {smem} bytes of shared memory")
     # K3 and K4 in fp32 (3xTF32 products) and in bf16 (one exact TF32
     # product of the widened operands, fp32 sums; y and dX written in bf16,
     # dW in fp32): one dynamic shared memory size per launch
@@ -1577,6 +1626,18 @@ FLASH_CAUSAL_SMALL = [
     (2, 1000, 2, 64, [1000, 333]), (4, 2048, 2, 64, None), (2, 1, 2, 64, None),
 ]
 GPT_FLASH_SHAPE = (1, 4096, 32, 64)  # tiny-llama-1.1b at S 4096, GQA expanded
+# The head sizes outside 32 / 64 / 128 (shape, causal, valid lengths or None,
+# where): D 256 natively (pythia-1b's layer; a ragged non-causal case under
+# a key mask), and D 80 / 100 through the padded route (zero-padded to 128)
+# at the layer shapes of phi-2 and open_llama_3b at S 2048
+FLASH_HEAD_SIZE_CASES = [
+    ((1, 2048, 8, 256), True, None, "one layer of train_gpt_pythia: pythia-1b, one sequence "
+                                    "of 2048"),
+    ((4, 300, 2, 256), False, [300, 1, 150, 263], "ragged non-causal under a key mask"),
+    ((1, 2048, 32, 80), True, None, "one layer of phi-2 at S 2048; padded route, D 128"),
+    ((1, 2048, 32, 100), True, None, "one layer of open_llama_3b at S 2048; padded route, "
+                                     "D 128"),
+]
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
@@ -1637,16 +1698,16 @@ def _flash_bounds(pairs: float, shape, elem_bytes: float, peak_flops: float) -> 
 
 def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], timed: bool,
                 where: str, phase: str = "kernel_flash_bwd", causal: bool = False,
-                dtype: torch.dtype = torch.float32) -> dict:
+                dtype: torch.dtype = torch.float32, backward: bool = True) -> dict:
     """The forward (with and without its log-sum-exp) and the two backward
     kernels against the plain versions on seeded q, k, v and cotangent of
     `shape` (B, T, H, D) and `dtype` under `key_mask` [B, T] (None: all valid)
     and `causal`; with `timed`, also the times beside the bounds and SDPA with
-    its autograd.  Emits one line and returns its errors, times and bounds."""
+    its autograd.  Without `backward`, the forward alone.  Emits one line and
+    returns its errors, times and bounds."""
     import torch.nn.functional as F
 
     from roar_tpu_torch.kernels import flash_attention as fa
-    from roar_tpu_torch.ops.flash_attention import flash_self_attention
 
     device = gen.device
     b, t, h, d = shape
@@ -1666,6 +1727,101 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
         errs = {"o": {"max_abs_err": float((out - out_p).abs().max())}}
     torch.testing.assert_close(lse, lse_p, **KERNEL_TOL)
     errs["lse"] = {"max_abs_err": float((lse - lse_p).abs().max())}
+    if backward:
+        got, want = _flash_backward_checks(q, k, v, key_mask, scale, out, lse, do, out_p, lse_p,
+                                           causal, errs)
+    line = {"phase": phase, "where": where, "shape_bthd": list(shape), "causal": causal,
+            "dtype": str(dtype).replace("torch.", ""),
+            "key_lens": lens if b <= 4 else {"min": min(lens), "max": max(lens),
+                                             "mean": float(np.mean(lens))},
+            "errors": errs, "tol": KERNEL_TOL, "backward": backward,
+            "bit_identical_across_two_runs": backward, "forward_unchanged_by_lse": True,
+            "function_launches_the_kernels": backward,
+            "function_vs_autograd_of_plain": backward and not bf16}
+    if bf16:
+        line.update(rtol=FLASH_BF16_RTOL, atol_rel_to_row_largest=FLASH_BF16_ROW_ATOL,
+                    rel_l2_tol=FLASH_BF16_L2_TOL)
+    else:
+        line.update(rtol=FLASH_BWD_RTOL, atol_rel_to_largest=FLASH_BWD_ATOL_REL)
+    case = {"errors": errs}
+    if timed:
+        if causal and key_mask is not None:
+            raise AssertionError("the timed causal case has no padding mask: "
+                                 "SDPA(is_causal) takes none")
+        # the one PyTorch call that computes the same function: SDPA with
+        # is_causal or the segment mask, and its autograd (a yardstick only;
+        # the port never calls it); its backward gives dq, dk and dv together
+        qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_(backward) for z in (q, k, v))
+        if causal:
+            how, library_call = {"is_causal": True}, "is_causal=True"
+        else:
+            how = {"attn_mask": key_mask[:, None, :, None] == key_mask[:, None, None, :]}
+            library_call = "attn_mask=segment mask"
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale, **how)
+        results = [("o", lib_out, out_p)]
+        if backward:
+            lib_do = do.transpose(1, 2)
+            lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
+            results += list(zip(("dq", "dk", "dv"), lib_grads, want))
+        for name, a, w in results:
+            a = a.transpose(1, 2).contiguous()
+            if not bf16:
+                assert_flash_close(a, w, f"SDPA {name}")
+            elif _rel_l2(a, w) > FLASH_LIBRARY_BF16_L2_TOL:
+                raise AssertionError(f"SDPA {name} is {_rel_l2(a, w)} (relative L2) from the "
+                                     f"plain version")
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, scale=scale, **how)
+
+        times = {
+            "fwd_ms": _time_ms(lambda: fa.flash_self_attention(q, k, v, key_mask, scale,
+                                                               causal=causal)),
+            "fwd_with_lse_ms": _time_ms(lambda: fa.flash_self_attention(
+                q, k, v, key_mask, scale, return_lse=True, causal=causal)),
+            "fwd_plain_ms": _time_ms(lambda: fa.flash_self_attention_plain(
+                q, k, v, key_mask, scale, True, causal), reps=5),
+            "fwd_library_ms": _time_ms(lib_fwd),
+        }
+        if backward:
+            times.update(_flash_backward_times(q, k, v, key_mask, scale, out, lse, do, out_p,
+                                               lse_p, causal, lib_out, (qt, kt, vt), lib_do))
+        # what this data needs: a query sees the keys of its segment, and with
+        # `causal` those at or before it, so n^2 or n (n + 1) / 2 pairs for a
+        # segment of n.  A bf16 element is two bytes and its products are held
+        # against the tensor cores' dense bf16 peak.  In fp32 every product is
+        # three TF32 products, held against the dense TF32 rate over three,
+        # with the FMA pipe's bounds beside (`bounds_fp32_fma`).
+        pairs = float(sum(n * (n + 1) // 2 if causal else n * n
+                          for valid in lens for n in (valid, t - valid)))
+        peak = BF16_FLOPS if bf16 else TF32_FLOPS / 3
+        bounds = _flash_bounds(pairs, shape, 2.0 if bf16 else 4.0, peak)
+        if not bf16:
+            case["bounds_fp32_fma"] = _flash_bounds(pairs, shape, 4.0, FP32_FLOPS)
+            line["bounds_fp32_fma"] = case["bounds_fp32_fma"]
+        achieved = {"fwd": 4.0 * pairs * h * d / times["fwd_with_lse_ms"] / 1e9}
+        if backward:
+            achieved.update(dkv=8.0 * pairs * h * d / times["dkv_ms"] / 1e9,
+                            dq=6.0 * pairs * h * d / times["dq_ms"] / 1e9)
+        line.update(times, bounds=bounds, visible_pairs_per_head=pairs, peak_flops=peak,
+                    achieved_tflops=achieved,
+                    library_call=f"F.scaled_dot_product_attention({library_call})"
+                                 + (" and its autograd: dq, dk, dv together" if backward else ""))
+        case.update(times=times, bounds=bounds)
+    _emit(line)
+    return case
+
+
+def _flash_backward_checks(q, k, v, key_mask, scale: float, out, lse, do, out_p, lse_p,
+                           causal: bool, errs: dict) -> tuple:
+    """The backward kernels of one `_flash_case` against the plain version,
+    two runs bit for bit, the pad keys' gradients, and the autograd Function;
+    fills `errs` and returns (the kernels' gradients, the plain ones)."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.ops.flash_attention import flash_self_attention
+
+    shape, dtype = tuple(q.shape), q.dtype
     # the cotangent holds garbage on the pad rows too: a pad query's
     # gradient must stay inside the pad segment
     args = (q, k, v, key_mask, scale, out, lse, do)
@@ -1693,100 +1849,39 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
     g_fn = torch.autograd.grad(flash_self_attention(*qkv, key_mask, scale, causal=causal), qkv, do)
     if not all(torch.equal(a, w) for a, w in zip(g_fn, got)):
         raise AssertionError(f"the Function's gradients are not the kernels' at {shape}")
-    if not bf16:
+    if dtype != torch.bfloat16:
         g_plain = torch.autograd.grad(
             fa.flash_self_attention_plain(*qkv, key_mask, scale, causal=causal), qkv, do)
         for name, a, w in zip(("dq", "dk", "dv"), g_fn, g_plain):
             assert_flash_close(a, w, f"Function {name} vs autograd of the plain forward")
-        del g_plain
-    del again, g_fn, qkv
-    line = {"phase": phase, "where": where, "shape_bthd": list(shape), "causal": causal,
-            "dtype": str(dtype).replace("torch.", ""),
-            "key_lens": lens if b <= 4 else {"min": min(lens), "max": max(lens),
-                                             "mean": float(np.mean(lens))},
-            "errors": errs, "tol": KERNEL_TOL,
-            "bit_identical_across_two_runs": True, "forward_unchanged_by_lse": True,
-            "function_launches_the_kernels": True, "function_vs_autograd_of_plain": not bf16}
-    if bf16:
-        line.update(rtol=FLASH_BF16_RTOL, atol_rel_to_row_largest=FLASH_BF16_ROW_ATOL,
-                    rel_l2_tol=FLASH_BF16_L2_TOL)
-    else:
-        line.update(rtol=FLASH_BWD_RTOL, atol_rel_to_largest=FLASH_BWD_ATOL_REL)
-    case = {"errors": errs}
-    if timed:
-        if causal and key_mask is not None:
-            raise AssertionError("the timed causal case has no padding mask: "
-                                 "SDPA(is_causal) takes none")
-        delta = (out.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
-        # the one PyTorch call that computes the same function: SDPA with
-        # is_causal or the segment mask, and its autograd (a yardstick only;
-        # the port never calls it); its backward gives dq, dk and dv together
-        qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_(True) for z in (q, k, v))
-        if causal:
-            how, library_call = {"is_causal": True}, "is_causal=True"
-        else:
-            how = {"attn_mask": key_mask[:, None, :, None] == key_mask[:, None, None, :]}
-            library_call = "attn_mask=segment mask"
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale, **how)
-        lib_do = do.transpose(1, 2)
-        lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
-        for name, a, w in zip(("o", "dq", "dk", "dv"), (lib_out, *lib_grads), (out_p, *want)):
-            a = a.transpose(1, 2).contiguous()
-            if not bf16:
-                assert_flash_close(a, w, f"SDPA {name}")
-            elif _rel_l2(a, w) > FLASH_LIBRARY_BF16_L2_TOL:
-                raise AssertionError(f"SDPA {name} is {_rel_l2(a, w)} (relative L2) from the "
-                                     f"plain version")
+    return got, want
 
-        def lib_fwd():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(qt, kt, vt, scale=scale, **how)
 
-        def bwd(**kwargs):
-            return fa.flash_self_attention_bwd(*args, causal=causal, **kwargs)
+def _flash_backward_times(q, k, v, key_mask, scale: float, out, lse, do, out_p, lse_p,
+                          causal: bool, lib_out, lib_inputs, lib_do) -> dict:
+    """The backward's times of one timed `_flash_case`: each kernel, delta,
+    the three as a step calls them, the plain version and SDPA's autograd."""
+    from roar_tpu_torch.kernels import flash_attention as fa
 
-        times = {
-            "dkv_ms": _time_ms(lambda: bwd(need_dq=False, delta=delta)),
-            "dq_ms": _time_ms(lambda: bwd(need_dkv=False, delta=delta)),
-            "delta_ms": _time_ms(
-                lambda: (out.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()),
-            # delta, dkv and dq as a training step's backward calls them
-            "backward_ms": _time_ms(bwd),
-            # the plain backward gives all three gradients at once
-            "backward_plain_ms": _time_ms(lambda: fa.flash_self_attention_bwd_plain(
-                q, k, v, key_mask, scale, out_p, lse_p, do, causal), reps=5),
-            "backward_library_ms": _time_ms(lambda: torch.autograd.grad(
-                lib_out, (qt, kt, vt), lib_do, retain_graph=True)),
-            "fwd_ms": _time_ms(lambda: fa.flash_self_attention(q, k, v, key_mask, scale,
-                                                               causal=causal)),
-            "fwd_with_lse_ms": _time_ms(lambda: fa.flash_self_attention(
-                q, k, v, key_mask, scale, return_lse=True, causal=causal)),
-            "fwd_plain_ms": _time_ms(lambda: fa.flash_self_attention_plain(
-                q, k, v, key_mask, scale, True, causal), reps=5),
-            "fwd_library_ms": _time_ms(lib_fwd),
-        }
-        # what this data needs: a query sees the keys of its segment, and with
-        # `causal` those at or before it, so n^2 or n (n + 1) / 2 pairs for a
-        # segment of n.  A bf16 element is two bytes and its products are held
-        # against the tensor cores' dense bf16 peak.  In fp32 every product is
-        # three TF32 products, held against the dense TF32 rate over three,
-        # with the FMA pipe's bounds beside (`bounds_fp32_fma`).
-        pairs = float(sum(n * (n + 1) // 2 if causal else n * n
-                          for valid in lens for n in (valid, t - valid)))
-        peak = BF16_FLOPS if bf16 else TF32_FLOPS / 3
-        bounds = _flash_bounds(pairs, shape, 2.0 if bf16 else 4.0, peak)
-        if not bf16:
-            case["bounds_fp32_fma"] = _flash_bounds(pairs, shape, 4.0, FP32_FLOPS)
-            line["bounds_fp32_fma"] = case["bounds_fp32_fma"]
-        line.update(times, bounds=bounds, visible_pairs_per_head=pairs, peak_flops=peak,
-                    achieved_tflops={"fwd": 4.0 * pairs * h * d / times["fwd_with_lse_ms"] / 1e9,
-                                     "dkv": 8.0 * pairs * h * d / times["dkv_ms"] / 1e9,
-                                     "dq": 6.0 * pairs * h * d / times["dq_ms"] / 1e9},
-                    library_call=f"F.scaled_dot_product_attention({library_call}) and its "
-                                 f"autograd: dq, dk, dv together")
-        case.update(times=times, bounds=bounds)
-    _emit(line)
-    return case
+    args = (q, k, v, key_mask, scale, out, lse, do)
+    delta = (out.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+    def bwd(**kwargs):
+        return fa.flash_self_attention_bwd(*args, causal=causal, **kwargs)
+
+    return {
+        "dkv_ms": _time_ms(lambda: bwd(need_dq=False, delta=delta)),
+        "dq_ms": _time_ms(lambda: bwd(need_dkv=False, delta=delta)),
+        "delta_ms": _time_ms(
+            lambda: (out.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()),
+        # delta, dkv and dq as a training step's backward calls them
+        "backward_ms": _time_ms(bwd),
+        # the plain backward gives all three gradients at once
+        "backward_plain_ms": _time_ms(lambda: fa.flash_self_attention_bwd_plain(
+            q, k, v, key_mask, scale, out_p, lse_p, do, causal), reps=5),
+        "backward_library_ms": _time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_inputs, lib_do, retain_graph=True)),
+    }
 
 
 def _key_mask(lens, t: int, device) -> Optional[torch.Tensor]:
@@ -1849,6 +1944,43 @@ def phase_kernel_flash_causal(device: torch.device) -> dict:
                 path[name] = case
             torch.cuda.empty_cache()
     return {"max_abs_err": worst, "path": path}
+
+
+def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
+    """K5 at the head sizes outside 32 / 64 / 128 against the plain versions
+    in fp32 and bf16 (`FLASH_HEAD_SIZE_CASES`), timed beside the bounds and
+    SDPA: at D 256 the bf16 forward, dK/dV and dQ and the fp32 forward (the
+    fp32 backward at D 256 must raise NotImplementedError), and the padded
+    route at D 80 and 100, forward and backward in both types, counted in
+    `LAUNCHES_PADDED`.  Returns {(shape, dtype name): case}."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    out = {}
+    for shape, causal, lens, where in FLASH_HEAD_SIZE_CASES:
+        d = shape[3]
+        for dtype in (torch.float32, torch.bfloat16):
+            backward = not (d == 256 and dtype == torch.float32)
+            padded_before = fa.LAUNCHES_PADDED.copy()
+            case = _flash_case(gen, shape, _key_mask(lens, shape[1], device), True, where,
+                               "kernel_flash_head_sizes", causal=causal, dtype=dtype,
+                               backward=backward)
+            padded = fa.LAUNCHES_PADDED - padded_before
+            if (d in fa.HEAD_DIMS) == bool(padded):
+                raise AssertionError(f"D {d}: padded launches {dict(padded)}")
+            if not backward:
+                x = torch.zeros(1, 64, 1, d, device=device)
+                lse = torch.zeros(1, 1, 64, device=device)
+                try:
+                    fa.flash_self_attention_bwd(x, x, x, None, 1.0, x, lse, x, causal=causal)
+                except NotImplementedError as err:
+                    if "head size 256" not in str(err):
+                        raise
+                else:
+                    raise AssertionError("the fp32 backward at D 256 did not raise")
+            out[(shape, str(dtype).replace("torch.", ""))] = case
+            torch.cuda.empty_cache()
+    return out
 
 
 class _PlainFlash:
@@ -2017,10 +2149,10 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                 raise AssertionError(f"{state.step} steps, {n_attn} attention layers")
             if model.attention_paths() != {"input_fft": "flash", "output_fft": "flash"}:
                 raise AssertionError(f"attention paths {model.attention_paths()}")
-            # bf16: the trainer's validation computes in bf16 too, as the JAX
-            # package's evaluation does
-            if on_card and (launches != want
-                            or launches_bf16 != (want if bf16 else dict.fromkeys(want, 0))):
+            # bf16: the steps' launches are bf16; validation computes in fp32
+            # from the masters on the uncast batch, as the JAX trainer's does
+            want_bf16 = {k: n_attn * steps if bf16 else 0 for k in want}
+            if on_card and (launches != want or launches_bf16 != want_bf16):
                 raise AssertionError(f"flash launches {launches} (bf16 {launches_bf16}) != "
                                      f"{want}: an attention layer went round its kernel, "
                                      f"validation ran a backward, or a step ran in the wrong type")
@@ -2336,6 +2468,7 @@ def _zero_launch_counts() -> None:
 
     fa.LAUNCHES.clear()
     fa.LAUNCHES_BF16.clear()
+    fa.LAUNCHES_PADDED.clear()
     for name in ("FWD", "DX", "DW"):
         setattr(gk, f"LAUNCHES_{name}", 0)
         setattr(gk, f"LAUNCHES_{name}_BF16", 0)
@@ -2863,13 +2996,32 @@ GPT_BF16_ATTN_TENSOR_L2_TOL = 2e-2
 GPT_SCHEDULE_STEPS = 1000
 GPT_NARROW = {"n_layer": 2, "n_embd": 64, "n_head": 4, "n_query_groups": 2,
               "intermediate_size": 96}
+# The registry architectures phase `train_gpt` trains at full width and
+# depth: the sequence length and the corpus's vocabulary (the entry's own),
+# the updates, what the run must build (layers, width, heads, KV groups, MLP
+# width, padded vocabulary, block size, parameters), and whether its fp32
+# check is a whole micro-batch or, at D 256 where the fp32 backward is not
+# ported, the fp32 validation forward at full depth.  pythia-1b takes 8
+# updates: in its first ones each AdamW step overshoots (its first update
+# lifted the loss from 11.17 to 12.58 while the token accuracy rose from 0 to
+# 0.09, on an H100; at 4 layers on the CPU the mean loss of updates 1 to 8
+# read 11.37, 10.51, 11.78, 11.60, 9.45, 9.60, 9.39, 9.34), so 3 updates do
+# not show whether it learns
+GPT_RUNS = {
+    "tiny-llama-1.1b": {"seq_length": 4096, "vocab_size": 32000, "updates": 3,
+                        "fp32_backward": True,
+                        "shape": (22, 2048, 32, 4, 5632, 32000, 4096, 1100048384)},
+    "pythia-1b": {"seq_length": 2048, "vocab_size": 50254, "updates": 8, "fp32_backward": False,
+                  "shape": (16, 2048, 8, 8, 8192, 50304, 2048, 1011781632)},
+}
 
 
 def gpt_train_config(train_file: str, val_file: str, exp_dir: str, device: str = "cuda",
-                     seq_length: int = 4096, vocab_size: int = 32000) -> dict:
+                     seq_length: int = 4096, vocab_size: int = 32000,
+                     config_name: str = "tiny-llama-1.1b") -> dict:
     """The config phase `train_gpt` trains at, as a dict: the model block
     holds `config_name` and only the overrides it means (any other GPTConfig
-    field there would override tiny-llama's own), the optimizer, schedule,
+    field there would override the entry's own), the optimizer, schedule,
     clip and logger blocks are those of configs/gpt_pretraining.yaml
     (tests/test_torch_gpt_train.py holds them to the YAML), with
     `trainer.precision=bf16`, `trainer.accumulate_grad_batches=4`, batch 1,
@@ -2878,7 +3030,7 @@ def gpt_train_config(train_file: str, val_file: str, exp_dir: str, device: str =
     rate at once, a model of this width loses ground on its first updates),
     `trainer.log_every_n_steps=1` and `exp_manager.always_save_roar=true`."""
     model = {
-        "config_name": "tiny-llama-1.1b", "block_size": seq_length, "seq_length": seq_length,
+        "config_name": config_name, "block_size": seq_length, "seq_length": seq_length,
         "vocab_size": vocab_size, "use_flash": True, "scan_layers": True, "remat": True,
         "remat_policy": "flash", "fused_ce": True,
         "train_ds": {"dataloader_params": {"batch_size": 1, "shuffle": True}},
@@ -2947,10 +3099,15 @@ def _grad_l2_rel(got, want, names=None):
 
 
 def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
-                    seq_length: int = 4096, vocab_size: int = 32000, updates: int = 3) -> dict:
+                    seq_length: Optional[int] = None, vocab_size: Optional[int] = None,
+                    updates: Optional[int] = None,
+                    config_name: str = "tiny-llama-1.1b") -> dict:
     """GPT causal-LM training through the CLI's `run` at the full width and
-    depth of tiny-llama-1.1b (`narrow`: a rehearsal width); returns the causal
-    flash launch counts of that run and, on the card, the step's timing."""
+    depth of a `GPT_RUNS` entry, tiny-llama-1.1b or pythia-1b (`narrow`: a
+    rehearsal width; `seq_length`, `vocab_size` and `updates` default to the
+    entry's);
+    returns the causal flash launch counts of that run (all, and the bf16
+    ones) and of its fp32 check, and on the card the step's timing."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "examples", "nlp"))
     import gpt_pretraining_torch as cli
@@ -2962,18 +3119,17 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
     from roar_tpu_torch.training.save_restore import restore_from
     from roar_tpu_torch.training.trainer import to_device
 
+    spec = GPT_RUNS[config_name]
+    seq_length, vocab_size = seq_length or spec["seq_length"], vocab_size or spec["vocab_size"]
+    updates = updates or spec["updates"]
     on_card = device.type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
-    def since(before):
-        """The launches after `before`, by kernel: all must be causal."""
-        new = fa.LAUNCHES - before
-        if on_card and any(not k.startswith("causal_") for k in new):
-            raise AssertionError(f"a non-causal flash kernel was launched: {dict(new)}")
-        return {k: new[f"causal_{k}"] for k in ("fwd", "dkv", "dq")}
+    def since(before, counts=fa.LAUNCHES):
+        return _causal_launches_since(before, counts, strict=on_card)
 
     rng = np.random.default_rng(SEED + 4)
     accumulate = 4
@@ -2985,18 +3141,18 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
         write_lm_corpus(rng, train_file, val_file, n_words,
                         train_tokens=micro_batches * seq_length + seq_length // 2)
         cfg = gpt_train_config(train_file, val_file, os.path.join(tmp, "exp"), str(device),
-                               seq_length, vocab_size)
+                               seq_length, vocab_size, config_name)
         if narrow:
             cfg["model"].update(GPT_NARROW)
 
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES.clear()
+        _zero_launch_counts()
         t0 = time.perf_counter()
         state = cli.run(cfg)
         sync()
         wall = time.perf_counter() - t0
-        launches = since(Counter())
+        launches, launches_bf16 = since(Counter()), since(Counter(), fa.LAUNCHES_BF16)
         peak = torch.cuda.max_memory_allocated() if on_card else None
         tokenizer = cli.SimpleWordTokenizer([train_file, val_file], max_vocab=vocab_size)
         dataset = cli.CausalLMDataset(tokenizer, train_file, seq_length=seq_length)
@@ -3009,8 +3165,9 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
         n_params = sum(p.numel() for p in module.parameters())
         if not narrow and (n_layer, config.n_embd, config.n_head, config.groups,
                            config.intermediate_size, config.padded_vocab, config.block_size,
-                           n_params) != (22, 2048, 32, 4, 5632, 32000, 4096, 1100048384):
-            raise AssertionError(f"not tiny-llama-1.1b at S 4096: {config}, {n_params} parameters")
+                           n_params) != spec["shape"]:
+            raise AssertionError(f"not {config_name} at S {seq_length}: {config}, "
+                                 f"{n_params} parameters")
         if config.vocab_size != vocab_size:
             raise AssertionError(f"the corpus gave {config.vocab_size} tokens, not {vocab_size}")
         if state.step != micro_batches or state.opt.count != updates:
@@ -3046,23 +3203,27 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
         if not np.allclose(lrs, [schedule(i // accumulate) for i in range(micro_batches)],
                            rtol=1e-9, atol=0.0):
             raise AssertionError(f"learning rates {lrs} are not the schedule's")
-        # every attention of the run went through the causal kernels: a
-        # forward, a dkv and a dq per layer and micro-batch (`remat_policy=
-        # flash` keeps the forward's results), a forward per layer and
-        # validation batch, and nothing through the non-causal ones
-        want = {"fwd": n_layer * (micro_batches + n_val), "dkv": n_layer * micro_batches,
-                "dq": n_layer * micro_batches}
-        if on_card and launches != want:
-            raise AssertionError(f"causal flash launches {launches} != {want}")
-        _emit({"phase": "train_gpt", "step": "cli", "card": card,
+        # every attention of the run went through the causal kernels: a bf16
+        # forward, dkv and dq per layer and micro-batch (`remat_policy=flash`
+        # keeps the forward's results), an fp32 forward per layer and
+        # validation batch (validation runs from the fp32 masters), and
+        # nothing through the non-causal ones
+        steps = {"fwd": n_layer * micro_batches, "dkv": n_layer * micro_batches,
+                 "dq": n_layer * micro_batches}
+        want = {**steps, "fwd": steps["fwd"] + n_layer * n_val}
+        if on_card and (launches != want or launches_bf16 != steps):
+            raise AssertionError(f"causal flash launches {launches} (bf16 {launches_bf16}) != "
+                                 f"{want} (bf16 {steps})")
+        _emit({"phase": "train_gpt", "config_name": config_name, "step": "cli", "card": card,
                "config": {k: v for k, v in cfg["model"].items()
                           if k not in ("train_ds", "optim")},
                "parameters": n_params, "layers": n_layer, "micro_batches": micro_batches,
                "updates": updates, "tokens_per_update": accumulate * seq_length,
-               "causal_flash_launches": launches,
+               "causal_flash_launches": launches, "causal_flash_launches_bf16": launches_bf16,
                "per_micro_batch": {"fwd": (launches["fwd"] - n_layer * n_val) // micro_batches,
                                    "dkv": launches["dkv"] // micro_batches,
                                    "dq": launches["dq"] // micro_batches},
+               "fp32_fwd_per_validation_batch": (launches["fwd"] - launches_bf16["fwd"]) // n_val,
                "validation_batches": n_val, "loss_by_micro_batch": [r["loss"] for r in train],
                "loss_by_update": by_update, "token_acc_last": train[-1]["token_acc"],
                "val": {k: v for k, v in val[0].items() if k.startswith("val_")},
@@ -3085,7 +3246,8 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
                                 module.state_dict().values()):
             if a.dtype != torch.float32 or not torch.equal(a, b):
                 raise AssertionError(f"bundle parameter {name} is not the trained master")
-        _emit({"phase": "train_gpt", "step": "bundle", "bundle_bytes": os.path.getsize(path),
+        _emit({"phase": "train_gpt", "config_name": config_name, "step": "bundle",
+               "bundle_bytes": os.path.getsize(path),
                "layout": "h_scan", "parameters_equal_trained": True})
         del loaded, tree, flat
 
@@ -3113,7 +3275,7 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
         raise AssertionError(f"the two remat policies disagree: losses "
                              f"{policy['flash']['loss']} / {policy['nothing']['loss']}, "
                              f"gradients by {policy_l2}")
-    _emit({"phase": "train_gpt", "step": "remat_policies",
+    _emit({"phase": "train_gpt", "config_name": config_name, "step": "remat_policies",
            "launches_per_micro_batch": {k: v["launches"] for k, v in policy.items()},
            "loss": policy["flash"]["loss"], "losses_equal": True,
            "gradients_bit_identical": identical, "grad_l2_rel_diff": policy_l2})
@@ -3122,68 +3284,193 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
     del policy
 
     # bf16 at full depth: the trained model, kernels against plain versions
-    with _PlainFlash():
-        loss_p, grads_p = _gpt_micro_batch(model, batch)
-    sync()
-    bf16_l2, by_tensor = _grad_l2_rel(grads_k, grads_p,
-                                      [n for n, _ in module.named_parameters()])
-    del grads_k, grads_p
-    if abs(loss_k - loss_p) > GPT_BF16_LOSS_RTOL * abs(loss_p) or bf16_l2 > GPT_BF16_GRAD_L2_TOL:
-        raise AssertionError(f"bf16, kernels vs plain: loss {loss_k} vs {loss_p}, whole "
-                             f"gradient differs by {bf16_l2}")
-    attn = {n: e for n, e in by_tensor.items() if ".attn." in n}
-    if len(attn) != 2 * n_layer:
-        raise AssertionError(f"attention projections: {sorted(attn)}")
-    worst_attn, worst_any = max(attn, key=attn.get), max(by_tensor, key=by_tensor.get)
-    if attn[worst_attn] > GPT_BF16_ATTN_TENSOR_L2_TOL:
-        raise AssertionError(f"bf16, kernels vs plain: the gradient of {worst_attn} differs by "
-                             f"{attn[worst_attn]} (L2, relative)")
-    bf16_line = {"layers": n_layer, "loss_kernels": loss_k, "loss_plain": loss_p,
-                 "loss_rtol": GPT_BF16_LOSS_RTOL, "whole_grad_l2_rel_err": bf16_l2,
-                 "grad_l2_tol": GPT_BF16_GRAD_L2_TOL,
-                 "attn_projection_grad_l2_rel_err": {
-                     "worst": attn[worst_attn], "tensor": worst_attn,
-                     "median": float(np.median(list(attn.values()))),
-                     "tol": GPT_BF16_ATTN_TENSOR_L2_TOL},
-                 "worst_tensor_grad_l2_rel_err": {"tensor": worst_any,
-                                                  "err": by_tensor[worst_any]}}
+    bf16_line = _gpt_bf16_kernels_vs_plain(model, batch, loss_k, grads_k)
+    del grads_k
 
-    # fp32 at full width and 4 layers: a model of its own, seeded on the device
+    if spec["fp32_backward"]:
+        fp32_line, step32 = _gpt_fp32_micro_batch(cfg, config, batch, device)
+    else:
+        fp32_line, step32 = _gpt_fp32_validation_forward(model, batch)
+    sync()
+    want32 = fp32_line.pop("want_launches")
+    if on_card and step32 != want32:
+        raise AssertionError(f"the fp32 check launched {step32}")
+    _emit({"phase": "train_gpt", "config_name": config_name, "step": "kernel_path_vs_plain_path",
+           "batch_shape": list(batch["input_ids"].shape), "bf16": bf16_line, "fp32": fp32_line})
+    if on_card:
+        torch.cuda.empty_cache()
+
+    result = {"launches": launches, "launches_bf16": launches_bf16,
+              "per_micro_batch": per_micro_batch, "fp32_check_launches": step32}
+    if on_card:
+        result["timing"] = _time_gpt_step(state, batch, accumulate, card)
+    return result
+
+
+def _causal_launches_since(before: Counter, counts: Optional[Counter] = None,
+                           strict: bool = False) -> dict:
+    """The causal flash launches in `counts` (`LAUNCHES` by default) after
+    `before`, by kernel; with `strict`, raise if a non-causal one was made."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+
+    new = (fa.LAUNCHES if counts is None else counts) - before
+    if strict and any(not k.startswith("causal_") for k in new):
+        raise AssertionError(f"a non-causal flash kernel was launched: {dict(new)}")
+    return {k: new[f"causal_{k}"] for k in ("fwd", "dkv", "dq")}
+
+
+def _gpt_fp32_micro_batch(cfg: dict, config, batch: dict, device: torch.device) -> tuple:
+    """fp32 at full width and 4 layers: a model of its own, seeded on the
+    device, one micro-batch with the kernels against one with the plain
+    versions.  Returns (its line, its causal launches)."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models.gpt_model import GPTLMModel
+
     fp32_cfg = {k: v for k, v in cfg["model"].items() if k not in ("train_ds", "optim")}
-    fp32_cfg.update(n_layer=min(4, n_layer), vocab_size=config.vocab_size)
+    fp32_cfg.update(n_layer=min(4, config.n_layer), vocab_size=config.vocab_size)
     with device:
         small = GPTLMModel(fp32_cfg)
     small.module.to(device)
     small.init_parameters(torch.Generator(device=device).manual_seed(SEED))
     before = fa.LAUNCHES.copy()
     loss_k32, grads_k32 = _gpt_micro_batch(small, batch)
-    sync()
-    step32 = since(before)
+    step32 = _causal_launches_since(before)
     with _PlainFlash():
         loss_p32, grads_p32 = _gpt_micro_batch(small, batch)
-    sync()
     fp32_l2 = _grad_l2_rel(grads_k32, grads_p32)
     n32 = small.config.n_layer
     del grads_k32, grads_p32, small
-    if on_card and step32 != {"fwd": n32, "dkv": n32, "dq": n32}:
-        raise AssertionError(f"the fp32 micro-batch launched {step32}")
     if abs(loss_k32 - loss_p32) > GPT_FP32_LOSS_RTOL * abs(loss_p32) \
             or fp32_l2 > GPT_FP32_GRAD_L2_TOL:
         raise AssertionError(f"fp32, kernels vs plain: loss {loss_k32} vs {loss_p32}, whole "
                              f"gradient differs by {fp32_l2}")
-    _emit({"phase": "train_gpt", "step": "kernel_path_vs_plain_path",
-           "batch_shape": list(batch["input_ids"].shape), "bf16": bf16_line,
-           "fp32": {"layers": n32, "loss_kernels": loss_k32, "loss_plain": loss_p32,
-                    "loss_rtol": GPT_FP32_LOSS_RTOL, "whole_grad_l2_rel_err": fp32_l2,
-                    "grad_l2_tol": GPT_FP32_GRAD_L2_TOL}})
-    if on_card:
-        torch.cuda.empty_cache()
+    return ({"layers": n32, "loss_kernels": loss_k32, "loss_plain": loss_p32,
+             "loss_rtol": GPT_FP32_LOSS_RTOL, "whole_grad_l2_rel_err": fp32_l2,
+             "grad_l2_tol": GPT_FP32_GRAD_L2_TOL,
+             "want_launches": {"fwd": n32, "dkv": n32, "dq": n32}}, step32)
 
-    result = {"launches": launches, "per_micro_batch": per_micro_batch,
-              "fp32_check_launches": step32}
-    if on_card:
-        result["timing"] = _time_gpt_step(state, batch, accumulate, card)
-    return result
+
+def _gpt_fp32_validation_forward(model, batch: dict) -> tuple:
+    """fp32 at full width and depth where the fp32 backward is not ported
+    (D 256): the loss as validation forms it (the trained fp32 masters, no
+    gradient) with the kernels against the plain versions.  Returns (its
+    line, its causal launches)."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+
+    dtype = model.module.compute_dtype
+    model.set_compute_dtype(None)
+    try:
+        with torch.no_grad():
+            before = fa.LAUNCHES.copy()
+            loss_k32 = float(model.loss_fn(batch)[0])
+            step32 = _causal_launches_since(before)
+            with _PlainFlash():
+                loss_p32 = float(model.loss_fn(batch)[0])
+    finally:
+        model.set_compute_dtype(dtype)
+    if abs(loss_k32 - loss_p32) > GPT_FP32_LOSS_RTOL * abs(loss_p32):
+        raise AssertionError(f"fp32 validation forward, kernels vs plain: loss {loss_k32} vs "
+                             f"{loss_p32}")
+    n_layer = model.config.n_layer
+    return ({"layers": n_layer, "forward_only": "the fp32 backward at D 256 is not ported",
+             "loss_kernels": loss_k32, "loss_plain": loss_p32, "loss_rtol": GPT_FP32_LOSS_RTOL,
+             "want_launches": {"fwd": n_layer, "dkv": 0, "dq": 0}}, step32)
+
+
+def _gpt_bf16_kernels_vs_plain(model, batch: dict, loss_k: float, grads_k) -> dict:
+    """One bf16 micro-batch with the plain versions against the kernels'
+    (`loss_k`, `grads_k`), held at the GPT_BF16_* bars: the loss, the whole
+    gradient, and each attention projection's gradient (weights and, where
+    the model has them, biases).  Returns the errors."""
+    module = model.module
+    with _PlainFlash():
+        loss_p, grads_p = _gpt_micro_batch(model, batch)
+    bf16_l2, by_tensor = _grad_l2_rel(grads_k, grads_p,
+                                      [n for n, _ in module.named_parameters()])
+    del grads_p
+    if abs(loss_k - loss_p) > GPT_BF16_LOSS_RTOL * abs(loss_p) or bf16_l2 > GPT_BF16_GRAD_L2_TOL:
+        raise AssertionError(f"bf16, kernels vs plain: loss {loss_k} vs {loss_p}, whole "
+                             f"gradient differs by {bf16_l2}")
+    config = module.config
+    attn = {n: e for n, e in by_tensor.items() if ".attn." in n}
+    if len(attn) != 2 * config.n_layer * (2 if config.bias else 1):
+        raise AssertionError(f"attention projections: {sorted(attn)}")
+    worst_attn, worst_any = max(attn, key=attn.get), max(by_tensor, key=by_tensor.get)
+    if attn[worst_attn] > GPT_BF16_ATTN_TENSOR_L2_TOL:
+        raise AssertionError(f"bf16, kernels vs plain: the gradient of {worst_attn} differs by "
+                             f"{attn[worst_attn]} (L2, relative)")
+    return {"layers": config.n_layer, "loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rtol": GPT_BF16_LOSS_RTOL, "whole_grad_l2_rel_err": bf16_l2,
+            "grad_l2_tol": GPT_BF16_GRAD_L2_TOL,
+            "attn_projection_grad_l2_rel_err": {
+                "worst": attn[worst_attn], "tensor": worst_attn,
+                "median": float(np.median(list(attn.values()))),
+                "tol": GPT_BF16_ATTN_TENSOR_L2_TOL},
+            "worst_tensor_grad_l2_rel_err": {"tensor": worst_any, "err": by_tensor[worst_any]}}
+
+
+# Registry entries at a head size outside 32 / 64 / 128, one bf16
+# micro-batch each at full width and 2 layers, S 2048, the entry's own
+# vocabulary: (name, head size, parameters at 2 layers).  phi-2 and
+# open_llama_3b take the padded route; gemma-2b runs D 256 with its one KV
+# group repeated to the 8 query heads
+GPT_HEAD_SIZE_RUNS = [("phi-2", 80, 419543040), ("open_llama_3b", 100, 452624000),
+                      ("gemma-2b", 256, 1268787200)]
+
+
+def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int = 2048,
+                         narrow: bool = False) -> dict:
+    """One bf16 micro-batch of each `GPT_HEAD_SIZE_RUNS` entry (seeded
+    weights, seeded tokens) with the kernels against one with the plain
+    versions, at the bars of `_gpt_bf16_kernels_vs_plain`; `narrow`: two heads
+    of the entry's head size and a small vocabulary, for a rehearsal on the
+    CPU.  Returns {name: causal launches, bf16 and padded ones}."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models.gpt_model import GPTLMModel
+
+    rng = np.random.default_rng(SEED + 6)
+    on_card = device.type == "cuda"
+    out = {}
+    for name, head_size, n_params in GPT_HEAD_SIZE_RUNS:
+        cfg = {"config_name": name, "n_layer": 2, "use_flash": True, "scan_layers": True,
+               "remat": True, "remat_policy": "flash", "fused_ce": True}
+        if narrow:
+            cfg.update(n_embd=2 * head_size, n_head=2, intermediate_size=64, vocab_size=300,
+                       n_query_groups=1 if name.startswith("gemma") else 2)
+        with device:
+            model = GPTLMModel(cfg)
+        model.module.to(device)
+        model.init_parameters(torch.Generator(device=device).manual_seed(SEED))
+        config = model.config
+        count = sum(p.numel() for p in model.parameters())
+        if config.head_size != head_size or (not narrow and count != n_params):
+            raise AssertionError(f"{name}: head size {config.head_size}, {count} parameters")
+        model.set_compute_dtype(torch.bfloat16)
+        tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (1, seq_length + 1)))
+        batch = {"input_ids": tokens[:, :-1].to(device), "labels": tokens[:, 1:].to(device)}
+        _zero_launch_counts()
+        loss_k, grads_k = _gpt_micro_batch(model, batch)
+        if on_card:
+            torch.cuda.synchronize()
+        counts = {what: _causal_launches_since(Counter(), c, strict=on_card)
+                  for what, c in (("all", fa.LAUNCHES), ("bf16", fa.LAUNCHES_BF16),
+                                  ("padded", fa.LAUNCHES_PADDED))}
+        want = dict.fromkeys(("fwd", "dkv", "dq"), config.n_layer)
+        padded = want if head_size not in fa.HEAD_DIMS else dict.fromkeys(want, 0)
+        if on_card and counts != {"all": want, "bf16": want, "padded": padded}:
+            raise AssertionError(f"{name}: launches {counts}, want {want} (padded {padded})")
+        line = _gpt_bf16_kernels_vs_plain(model, batch, loss_k, grads_k)
+        del grads_k, model
+        _emit({"phase": "gpt_head_sizes", "config_name": name, "card": card,
+               "head_size": head_size, "kernel_head_size": fa.kernel_head_dim(
+                   head_size, torch.bfloat16, True), "kv_groups": config.n_query_groups,
+               "n_head": config.n_head, "n_embd": config.n_embd, "parameters": count,
+               "batch_shape": list(batch["input_ids"].shape), "launches": counts,
+               "bf16": line})
+        out[name] = counts
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
 
 
 def _time_gpt_step(state, batch: dict, accumulate: int, card: str) -> dict:
@@ -3698,6 +3985,7 @@ def main() -> int:
                                              dtype=torch.bfloat16)
     fbwd = phase_kernel_flash_bwd(device)
     fcausal = phase_kernel_flash_causal(device)
+    fheads = phase_kernel_flash_head_sizes(device)
     run = phase_slice(device, fastpitch_config(), hifigan_config(), TAMIL_SENTENCES, card)
     sup = phase_supdata(device, card)
     train = phase_train_hifigan(device, card)
@@ -3712,6 +4000,10 @@ def main() -> int:
     jets_bf16 = phase_train_jets(device, card, precision="bf16-mixed")
     torch.cuda.empty_cache()
     gpt = phase_train_gpt(device, card)
+    torch.cuda.empty_cache()
+    pythia = phase_train_gpt(device, card, config_name="pythia-1b")
+    torch.cuda.empty_cache()
+    heads = phase_gpt_head_sizes(device, card)
 
     def pick(d):
         return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -3743,6 +4035,8 @@ def main() -> int:
         if "bounds_fp32_fma" in cases[-1]:
             fwd["bound_fp32_fma_ms"] = total(
                 lambda c: c["bounds_fp32_fma"]["fwd_with_lse"]["bound_ms"])
+        if "dkv_ms" not in cases[-1]["times"]:  # a forward-only case
+            return fwd, None
         bwd = {name: {"ms": total(lambda c: c["times"][f"{name}_ms"]),
                       "backward_ms": total(lambda c: c["times"]["backward_ms"]),
                       "plain_ms": total(lambda c: c["times"]["backward_plain_ms"]),
@@ -3785,16 +4079,54 @@ def main() -> int:
                          **{f"{k}_fp32_fma": v["bound_ms"]
                             for k, v in case["bounds_fp32_fma"].items()}}
                 for t, case in cases.items()}
-    # K5-causal: every launch of phase `train_gpt`'s run is causal and bf16,
-    # at (1, 4096, 32, 64); `ms` and its neighbours are one layer's call at
-    # that shape and type, `fp32` the same call in fp32 (its launches: those
-    # of the fp32 micro-batch at 4 layers that phase `train_gpt` checks);
+    # K5-causal: every launch of phase `train_gpt`'s run is causal, bf16 in
+    # the steps and fp32 in validation, at (1, 4096, 32, 64); `ms` and its
+    # neighbours are one layer's call at that shape and type, `fp32` the same
+    # call in fp32 (its launches: those of the fp32 micro-batch at 4 layers
+    # that phase `train_gpt` checks, and the run's validation forwards);
     # `launches_per_micro_batch` is the count of one micro-batch under
     # `remat_policy=flash`
     causal_fwd, causal_bwd = flash_rows([fcausal["path"]["bfloat16"]])
     causal_fwd32, causal_bwd32 = flash_rows([fcausal["path"]["float32"]])
     causal_errors = list(fcausal["max_abs_err"].values())
     backward_kernels = (("dkv", ("dk", "dv")), ("dq", ("dq",)))
+    # K5 at the head sizes outside 32 / 64 / 128 (phase
+    # `kernel_flash_head_sizes`): D 256 on the pythia-1b run (`launches`: its
+    # bf16 forwards, dkv and dq, and its fp32 validation forwards); the
+    # padded route at D 80 / 100 on the phi-2 / open_llama_3b micro-batches
+    # of phase `gpt_head_sizes` (bf16; `fp32` beside: the same call in fp32)
+    d256, ragged = (1, 2048, 8, 256), (4, 300, 2, 256)
+    d256_fwd, d256_bwd = flash_rows([fheads[(d256, "bfloat16")]])
+    d256_fwd32, _ = flash_rows([fheads[(d256, "float32")]])
+    ragged_fwd, ragged_bwd = flash_rows([fheads[(ragged, "bfloat16")]])
+    ragged_fwd32, _ = flash_rows([fheads[(ragged, "float32")]])
+
+    def head_errors(d, dtype):
+        return [case["errors"] for (shape, name), case in fheads.items()
+                if shape[3] == d and name == dtype]
+
+    pythia_fp32_fwd = pythia["launches"]["fwd"] - pythia["launches_bf16"]["fwd"]
+    padded_rows = []
+    for d, config_name in ((80, "phi-2"), (100, "open_llama_3b")):
+        shape = (1, 2048, 32, d)
+        fwd16, bwd16 = flash_rows([fheads[(shape, "bfloat16")]])
+        fwd32, bwd32 = flash_rows([fheads[(shape, "float32")]])
+        errors16, errors32 = head_errors(d, "bfloat16"), head_errors(d, "float32")
+        launches = heads[config_name]["padded"]
+        common = {"route": "cuda", "padded_to": 128, "replaces": "roar_tpu/models/gpt.py:491",
+                  "causal": True, "dtype": "bfloat16", "head_size": d,
+                  "padding": "roar_tpu_torch/kernels/flash_attention.py (kernel_head_dim)",
+                  "launches_on": f"phase gpt_head_sizes, {config_name} micro-batch"}
+        padded_rows += [
+            {"name": f"flash_attention_causal_fwd_padded_d{d}",
+             "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu", **common,
+             "launches": launches["fwd"], "max_abs_err": worst(errors16, "o"), **fwd16,
+             "fp32": {**fwd32, "max_abs_err": worst(errors32, "o")}},
+            *[{"name": f"flash_attention_causal_bwd_{name}_padded_d{d}",
+               "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu", **common,
+               "launches": launches[name], "max_abs_err": worst(errors16, *grads),
+               **bwd16[name], "fp32": {**bwd32[name], "max_abs_err": worst(errors32, *grads)}}
+              for name, grads in backward_kernels]]
     kernels = [
         # fp32 (3xTF32) on both of its paths: `launches` is serving's,
         # `launches_train_fastpitch` the FastPitch run's; `ms` and its
@@ -3826,12 +4158,13 @@ def main() -> int:
         {"name": "flash_attention_causal_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
-         "kernel": "flash_fwd_mma_kernel", "launches": gpt["launches"]["fwd"],
+         "kernel": "flash_fwd_mma_kernel", "launches": gpt["launches_bf16"]["fwd"],
          "launches_per_micro_batch": gpt["per_micro_batch"]["fwd"],
          "max_abs_err": worst(causal_errors, "o"),
          "lse_max_abs_err": worst(causal_errors, "lse"), **causal_fwd,
          "fp32": {**causal_fwd32, "kernel": "flash_fwd_tf32_kernel",
-                  "launches": gpt["fp32_check_launches"]["fwd"]}},
+                  "launches": gpt["fp32_check_launches"]["fwd"],
+                  "launches_validation": gpt["launches"]["fwd"] - gpt["launches_bf16"]["fwd"]}},
         *[{"name": f"flash_attention_causal_bwd_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
@@ -3920,6 +4253,34 @@ def main() -> int:
            "max_abs_err": worst(bf16_flash_errors, *grads), **jets16_bwd[name],
            "train_fastpitch": fp16_bwd[name]}
           for name, grads in backward_kernels],
+        # K5 at D 256: `launches` the pythia-1b run's; times at its layer
+        # shape, `ragged_non_causal` at (4, 300, 2, 256) under a key mask
+        {"name": "flash_attention_causal_fwd_d256", "route": "cuda",
+         "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
+         "kernel": "flash_fwd_mma_kernel", "head_size": 256,
+         "launches": pythia["launches_bf16"]["fwd"],
+         "launches_per_micro_batch": pythia["per_micro_batch"]["fwd"],
+         "max_abs_err": worst(head_errors(256, "bfloat16"), "o"), **d256_fwd,
+         "ragged_non_causal": ragged_fwd},
+        *[{"name": f"flash_attention_causal_bwd_{name}_d256", "route": "cuda",
+           "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
+           "head_size": 256, "launches": pythia["launches_bf16"][name],
+           "launches_per_micro_batch": pythia["per_micro_batch"][name],
+           "max_abs_err": worst(head_errors(256, "bfloat16"), *grads), **d256_bwd[name],
+           "ragged_non_causal": ragged_bwd[name]}
+          for name, grads in backward_kernels],
+        # fp32 (3xTF32) at D 256: the forward only (validation from the fp32
+        # masters); `launches` the pythia-1b run's validation forwards
+        {"name": "flash_attention_causal_fwd_d256_fp32", "route": "cuda",
+         "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "float32",
+         "kernel": "flash_fwd_tf32_kernel", "head_size": 256, "launches": pythia_fp32_fwd,
+         "launches_fp32_check": pythia["fp32_check_launches"]["fwd"],
+         "max_abs_err": worst(head_errors(256, "float32"), "o"), **d256_fwd32,
+         "ragged_non_causal": ragged_fwd32},
+        *padded_rows,
     ]
     if not all(k["launches"] > 0 for k in kernels) or fp_train["launches"]["fwd"] == 0 \
             or not all(k.get("launches_train_jets", 1) > 0 for k in kernels) \

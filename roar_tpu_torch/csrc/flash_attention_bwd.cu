@@ -24,6 +24,11 @@
 // Every output element belongs to one thread of one block and is summed in a
 // fixed order, so there are no float atomics and two runs give the same bits.
 //
+// Head sizes 32, 64 and 128 in both types, and 256 in bf16 (192 KB of shared
+// memory a block; a block then forms half of the output columns, and the
+// dK/dV kernel runs dV and dK as separate passes, see its notes).  The fp32
+// kernels at D 256 would need 391 KB as they stand and are not built.
+//
 // Both types share one block layout, 4 warps a block.  dK/dV: each warp owns
 // 16 keys of the block's 64-key tile as the rows of S^T = K q^T and
 // dP^T = V dO^T, so that P^T and dS^T come out of the accumulators as the A
@@ -101,9 +106,19 @@ namespace {
 // rows are double-buffered by cp.async.  dK and dV stay fp32 in registers and
 // are rounded once, as they are stored.  Each output element is one thread's
 // and is summed in a fixed order: no atomics, two runs give the same bits.
+//
+// `PASS`: 0 forms dK and dV in one loop.  At D 256 the two would take 256
+// accumulator registers a thread before anything else, so the launch runs
+// the kernel for dV (PASS 1: no dP^T, no V tile) and for dK (PASS 2), each
+// over half of the columns at a time (`NCOL` 128 at `col0` 0 and 128): four
+// launches, each recomputing S^T (and dP^T for dK) and holding 64
+// accumulators (with a whole dV or dK, 128 of them, ptxas spilled).
+// Each output comes out of the same sums in the same order as in one pass.
 // ---------------------------------------------------------------------------
 
 namespace fa_mma = flash::mma;
+
+constexpr int DKV_BOTH = 0, DKV_DV = 1, DKV_DK = 2;
 
 template <int D>
 constexpr size_t dkv_mma_smem_bytes() {
@@ -111,21 +126,25 @@ constexpr size_t dkv_mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * fa_mma::ROWS * D * 6 + sizeof(float) * fa_mma::ROWS * 4;
 }
 
-template <int D>
+template <int D, int PASS, int NCOL>
 __global__ void __launch_bounds__(fa_mma::THREADS)
 flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int T, int H, float scale, int causal) {
+                         __nv_bfloat16* __restrict__ dv, int T, int H, float scale, int causal,
+                         int col0_arg) {
   using namespace fa_mma;
   constexpr int TILE_ELEMS = ROWS * D;
-  constexpr int KC = D / 16;  // k-chunks of the two score products
-  constexpr int NT = D / 8;   // n-tiles of dK and dV
-  // D 128 reads its K and V fragments from shared memory per chunk, to stay
-  // clear of spills; narrower heads hold them in registers
+  constexpr int KC = D / 16;    // k-chunks of the two score products
+  constexpr int NT = NCOL / 8;  // n-tiles of this block's columns of dK and dV
+  // the first column, a multiple of 64 (see swizzle_at)
+  const int col0 = NCOL == D ? 0 : col0_arg;
+  // D 128 and 256 read their K and V fragments from shared memory per chunk,
+  // to stay clear of spills; narrower heads hold them in registers
   constexpr bool KV_IN_REGS = D <= 64;
+  constexpr bool DO_DV = PASS != DKV_DK, DO_DK = PASS != DKV_DV;
 
   extern __shared__ uint4 smem_dkv[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_dkv);
@@ -148,7 +167,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   segment_range(segb, k0, T, lane, klo, khi);
 
   stage_tile<D>(Ks, k, base, ld, k0, T, tid);
-  stage_tile<D>(Vs, v, base, ld, k0, T, tid);
+  if constexpr (DO_DK) stage_tile<D>(Vs, v, base, ld, k0, T, tid);
   cp_async_commit();
   // causal: the query tiles before this key tile's own row see none of its keys
   bool uniform, uniform_next;
@@ -157,7 +176,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     stage_tile<D>(Qs, q, base, ld, q0, T, tid);
     stage_tile<D>(Os, dout, base, ld, q0, T, tid);
     stage_rows(lse_s, lse + row_base, q0, T, tid);
-    stage_rows(delta_s, delta + row_base, q0, T, tid);
+    if constexpr (DO_DK) stage_rows(delta_s, delta + row_base, q0, T, tid);
   }
   cp_async_commit();
 
@@ -176,11 +195,14 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  float acc_dk[NT][4], acc_dv[NT][4];
+  float acc_dk[DO_DK ? NT : 1][4], acc_dv[DO_DV ? NT : 1][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (DO_DK) acc_dk[j][e] = 0.f;
+      if constexpr (DO_DV) acc_dv[j][e] = 0.f;
+    }
 
   const float scale_log2 = scale * LOG2E;
   int stage = 0;
@@ -191,7 +213,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       stage_tile<D>(Qs + nx * TILE_ELEMS, q, base, ld, qn, T, tid);
       stage_tile<D>(Os + nx * TILE_ELEMS, dout, base, ld, qn, T, tid);
       stage_rows(lse_s + nx * ROWS, lse + row_base, qn, T, tid);
-      stage_rows(delta_s + nx * ROWS, delta + row_base, qn, T, tid);
+      if constexpr (DO_DK) stage_rows(delta_s + nx * ROWS, delta + row_base, qn, T, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -204,8 +226,9 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // not all the key tile's single id are masked element by element
     const bool masked = !uniform || q0 + ROWS > T || (causal && q0 < k0 + ROWS);
 
-    // D 128 keeps 128 accumulators a thread: one chunk at a time, so that the
-    // next chunk's fragment loads are not hoisted into registers it lacks
+    // D 128 keeps 128 accumulators a thread (each pass at D 256 64): one
+    // chunk at a time, so that the next chunk's fragment loads are not hoisted
+    // into registers it lacks
 #pragma unroll(KV_IN_REGS ? ROWS / 16 : 1)
     for (int c = 0; c < ROWS / 16; ++c) {  // queries 16 c .. 16 c + 15 of the tile
       float st[2][4], dpt[2][4];
@@ -224,14 +247,19 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
           }
         } else {
           load_a<D>(kf, Ks, warp * 16, kc, lane);
-          load_a<D>(vf, Vs, warp * 16, kc, lane);
+          if constexpr (DO_DK) load_a<D>(vf, Vs, warp * 16, kc, lane);
         }
+        // one pass issues both B loads before its products (a D 64 kernel
+        // that loaded dO after S's products ran 10 to 15 % slower on an H100)
         load_b<D>(qb, Qt, c * 16, kc, lane);
-        load_b<D>(ob, Ot, c * 16, kc, lane);
+        if constexpr (PASS == DKV_BOTH) load_b<D>(ob, Ot, c * 16, kc, lane);
         mma_bf16(st[0], kf, qb[0], qb[1]);
         mma_bf16(st[1], kf, qb[2], qb[3]);
-        mma_bf16(dpt[0], vf, ob[0], ob[1]);
-        mma_bf16(dpt[1], vf, ob[2], ob[3]);
+        if constexpr (DO_DK) {
+          if constexpr (PASS != DKV_BOTH) load_b<D>(ob, Ot, c * 16, kc, lane);
+          mma_bf16(dpt[0], vf, ob[0], ob[1]);
+          mma_bf16(dpt[1], vf, ob[2], ob[3]);
+        }
       }
       // element (n, e): key row e < 2 ? g : g + 8, query 16 c + 8 n + 2 t4 + (e & 1)
 #pragma unroll
@@ -248,7 +276,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             (!causal || key <= query);
             p = ok ? p : 0.f;
           }
-          dpt[n][e] = p * (dpt[n][e] - delta_t[qc]) * scale;  // dS^T, from the unrounded p
+          if constexpr (DO_DK)
+            dpt[n][e] = p * (dpt[n][e] - delta_t[qc]) * scale;  // dS^T, from the unrounded p
           st[n][e] = p;
         }
       }
@@ -258,14 +287,18 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const uint32_t sa[4] = {pack_bf16(dpt[0][0], dpt[0][1]), pack_bf16(dpt[0][2], dpt[0][3]),
                               pack_bf16(dpt[1][0], dpt[1][1]), pack_bf16(dpt[1][2], dpt[1][3])};
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
+      for (int np = 0; np < NCOL / 16; ++np) {
         uint32_t ob[4], qb[4];
-        load_b_trans<D>(ob, Ot, c * 16, np, lane);
-        mma_bf16(acc_dv[2 * np], pa, ob[0], ob[1]);
-        mma_bf16(acc_dv[2 * np + 1], pa, ob[2], ob[3]);
-        load_b_trans<D>(qb, Qt, c * 16, np, lane);
-        mma_bf16(acc_dk[2 * np], sa, qb[0], qb[1]);
-        mma_bf16(acc_dk[2 * np + 1], sa, qb[2], qb[3]);
+        if constexpr (DO_DV) {
+          load_b_trans<D>(ob, Ot + col0, c * 16, np, lane);
+          mma_bf16(acc_dv[2 * np], pa, ob[0], ob[1]);
+          mma_bf16(acc_dv[2 * np + 1], pa, ob[2], ob[3]);
+        }
+        if constexpr (DO_DK) {
+          load_b_trans<D>(qb, Qt + col0, c * 16, np, lane);
+          mma_bf16(acc_dk[2 * np], sa, qb[0], qb[1]);
+          mma_bf16(acc_dk[2 * np + 1], sa, qb[2], qb[3]);
+        }
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
@@ -278,13 +311,15 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int t = i == 0 ? key0 : key1;
     if (t < T) {
-      const long at = base + (long)t * ld + 2 * t4;
+      const long at = base + (long)t * ld + col0 + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
-            __floats2bfloat162_rn(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
-            __floats2bfloat162_rn(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+        if constexpr (DO_DK)
+          *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+              __floats2bfloat162_rn(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
+        if constexpr (DO_DV)
+          *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+              __floats2bfloat162_rn(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
       }
     }
   }
@@ -313,20 +348,26 @@ constexpr size_t dq_mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * fa_mma::ROWS * D * 6;  // Q, dO, then K and V x 2
 }
 
-template <int D>
-__global__ void __launch_bounds__(fa_mma::THREADS)
+// Blocks a SM: up to D 128 ptxas chose at most 168 registers (three blocks
+// of 128 threads) by itself, and the bound keeps that; at D 256 one block
+// fits in shared memory, and with no bound ptxas still aimed at three and
+// spilled 40 B at 168 registers
+template <int D, int NCOL>
+__global__ void __launch_bounds__(fa_mma::THREADS, D > 128 ? 1 : 3)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-                        int T, int H, float scale, int causal) {
+                        int T, int H, float scale, int causal, int col0_arg) {
   using namespace fa_mma;
   constexpr int TILE_ELEMS = ROWS * D;
-  constexpr int KC = D / 16;  // k-chunks of the two score products
-  constexpr int NT = D / 8;   // n-tiles of dQ
-  // D 128 reads its Q and dO fragments from shared memory per chunk, to stay
-  // clear of spills; narrower heads hold them in registers
+  constexpr int KC = D / 16;    // k-chunks of the two score products
+  constexpr int NT = NCOL / 8;  // n-tiles of this block's columns of dQ
+  // the first column, a multiple of 64 (see swizzle_at)
+  const int col0 = NCOL == D ? 0 : col0_arg;
+  // D 128 and 256 read their Q and dO fragments from shared memory per chunk,
+  // to stay clear of spills; narrower heads hold them in registers
   constexpr bool QO_IN_REGS = D <= 64;
 
   extern __shared__ uint4 smem_dq[];
@@ -401,8 +442,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // query tile's single id are masked element by element
     const bool masked = !uniform || k0 + ROWS > T || (causal && k0 + ROWS > q0);
 
-    // D 128 keeps 64 accumulators a thread: one chunk at a time, so that the
-    // next chunk's fragment loads are not hoisted into registers it lacks
+    // D 128 keeps 64 accumulators a thread (each column half at D 256 too):
+    // one chunk at a time, so that the next chunk's fragment loads are not
+    // hoisted into registers it lacks
 #pragma unroll(QO_IN_REGS ? ROWS / 16 : 1)
     for (int c = 0; c < ROWS / 16; ++c) {  // keys 16 c .. 16 c + 15 of the tile
       float s[2][4], dp[2][4];
@@ -451,9 +493,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const uint32_t sa[4] = {pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
                               pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
+      for (int np = 0; np < NCOL / 16; ++np) {
         uint32_t kb[4];
-        load_b_trans<D>(kb, Kt, c * 16, np, lane);
+        load_b_trans<D>(kb, Kt + col0, c * 16, np, lane);
         mma_bf16(acc[2 * np], sa, kb[0], kb[1]);
         mma_bf16(acc[2 * np + 1], sa, kb[2], kb[3]);
       }
@@ -468,7 +510,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int t = i == 0 ? row0 : row1;
     if (t < T) {
-      __nv_bfloat16* dst = dq + base + (long)t * ld + 2 * t4;
+      __nv_bfloat16* dst = dq + base + (long)t * ld + col0 + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
@@ -842,47 +884,80 @@ const T* in_ptr(const void* p) {
   return static_cast<const T*>(p);
 }
 
-// each kernel by its element type
-template <int D>
-auto dkv_kernel(const float*) { return flash_bwd_dkv_tf32_kernel<D>; }
-template <int D>
-auto dkv_kernel(const __nv_bfloat16*) { return flash_bwd_dkv_mma_kernel<D>; }
-template <int D>
-auto dq_kernel(const float*) { return flash_bwd_dq_tf32_kernel<D>; }
-template <int D>
-auto dq_kernel(const __nv_bfloat16*) { return flash_bwd_dq_mma_kernel<D>; }
+// One block of fa_mma::THREADS per (64-row tile, head, batch row), for every
+// (pass, column half) of `launch_dkv` and `launch_dq`.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
-// One block of fa_mma::THREADS per (64-row tile, head, batch row).  `Elem` is
-// float (the 3xTF32 kernels) or __nv_bfloat16 (the bf16 kernels).
+inline dim3 grid_of(const Inputs& in) {
+  return dim3((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
+}
+
+// bf16: one launch per `NCOL` columns (two at D 256), and at D 256 the dV
+// pass before the dK pass (see the dK/dV kernel's notes)
+template <int D, int PASS>
+cudaError_t launch_dkv_mma(const Inputs& in, void* dk, void* dv) {
+  constexpr int NCOL = D > 128 ? D / 2 : D;
+  const auto kernel = flash_bwd_dkv_mma_kernel<D, PASS, NCOL>;
+  cudaError_t err = prepare(kernel, dkv_mma_smem_bytes<D>());
+  for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += NCOL) {
+    kernel<<<grid_of(in), fa_mma::THREADS, dkv_mma_smem_bytes<D>(), in.stream>>>(
+        in_ptr<__nv_bfloat16>(in.q), in_ptr<__nv_bfloat16>(in.k), in_ptr<__nv_bfloat16>(in.v),
+        in.seg, in.lse, in.delta, in_ptr<__nv_bfloat16>(in.dout),
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), in.T, in.H, in.scale,
+        in.causal, col0);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+// `Elem` is float (the 3xTF32 kernels) or __nv_bfloat16 (the bf16 kernels)
 template <int D, typename Elem>
 cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
-  constexpr bool bf16 = sizeof(Elem) == 2;
-  constexpr size_t smem = bf16 ? dkv_mma_smem_bytes<D>() : dkv_tf32_smem_bytes<D>();
-  const auto kernel = dkv_kernel<D>(static_cast<const Elem*>(nullptr));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
-  kernel<<<grid, fa_mma::THREADS, smem, in.stream>>>(
-      in_ptr<Elem>(in.q), in_ptr<Elem>(in.k), in_ptr<Elem>(in.v), in.seg, in.lse, in.delta,
-      in_ptr<Elem>(in.dout), static_cast<Elem*>(dk), static_cast<Elem*>(dv), in.T, in.H,
-      in.scale, in.causal);
-  return cudaGetLastError();
+  if constexpr (sizeof(Elem) == 2 && D > 128) {
+    const cudaError_t err = launch_dkv_mma<D, DKV_DV>(in, dk, dv);
+    if (err != cudaSuccess) return err;
+    return launch_dkv_mma<D, DKV_DK>(in, dk, dv);
+  } else if constexpr (sizeof(Elem) == 2) {
+    return launch_dkv_mma<D, DKV_BOTH>(in, dk, dv);
+  } else {
+    const auto kernel = flash_bwd_dkv_tf32_kernel<D>;
+    const cudaError_t err = prepare(kernel, dkv_tf32_smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    kernel<<<grid_of(in), fa_mma::THREADS, dkv_tf32_smem_bytes<D>(), in.stream>>>(
+        in_ptr<float>(in.q), in_ptr<float>(in.k), in_ptr<float>(in.v), in.seg, in.lse,
+        in.delta, in_ptr<float>(in.dout), static_cast<float*>(dk), static_cast<float*>(dv),
+        in.T, in.H, in.scale, in.causal);
+    return cudaGetLastError();
+  }
 }
 
 template <int D, typename Elem>
 cudaError_t launch_dq(const Inputs& in, void* dq) {
-  constexpr bool bf16 = sizeof(Elem) == 2;
-  constexpr size_t smem = bf16 ? dq_mma_smem_bytes<D>() : dq_tf32_smem_bytes<D>();
-  const auto kernel = dq_kernel<D>(static_cast<const Elem*>(nullptr));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
-  kernel<<<grid, fa_mma::THREADS, smem, in.stream>>>(
-      in_ptr<Elem>(in.q), in_ptr<Elem>(in.k), in_ptr<Elem>(in.v), in.seg, in.lse, in.delta,
-      in_ptr<Elem>(in.dout), static_cast<Elem*>(dq), in.T, in.H, in.scale, in.causal);
-  return cudaGetLastError();
+  if constexpr (sizeof(Elem) == 2) {
+    constexpr int NCOL = D > 128 ? D / 2 : D;
+    const auto kernel = flash_bwd_dq_mma_kernel<D, NCOL>;
+    cudaError_t err = prepare(kernel, dq_mma_smem_bytes<D>());
+    for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += NCOL) {
+      kernel<<<grid_of(in), fa_mma::THREADS, dq_mma_smem_bytes<D>(), in.stream>>>(
+          in_ptr<__nv_bfloat16>(in.q), in_ptr<__nv_bfloat16>(in.k), in_ptr<__nv_bfloat16>(in.v),
+          in.seg, in.lse, in.delta, in_ptr<__nv_bfloat16>(in.dout),
+          static_cast<__nv_bfloat16*>(dq), in.T, in.H, in.scale, in.causal, col0);
+      err = cudaGetLastError();
+    }
+    return err;
+  } else {
+    const auto kernel = flash_bwd_dq_tf32_kernel<D>;
+    const cudaError_t err = prepare(kernel, dq_tf32_smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    kernel<<<grid_of(in), fa_mma::THREADS, dq_tf32_smem_bytes<D>(), in.stream>>>(
+        in_ptr<float>(in.q), in_ptr<float>(in.k), in_ptr<float>(in.v), in.seg, in.lse,
+        in.delta, in_ptr<float>(in.dout), static_cast<float*>(dq), in.T, in.H, in.scale,
+        in.causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename Elem>
@@ -891,6 +966,9 @@ cudaError_t launch_dkv_d(int D, const Inputs& in, void* dk, void* dv) {
     case 32: return launch_dkv<32, Elem>(in, dk, dv);
     case 64: return launch_dkv<64, Elem>(in, dk, dv);
     case 128: return launch_dkv<128, Elem>(in, dk, dv);
+    case 256:  // bf16 only: the fp32 backward at D 256 is not ported
+      if constexpr (sizeof(Elem) == 2) return launch_dkv<256, Elem>(in, dk, dv);
+      return cudaErrorNotSupported;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -901,6 +979,9 @@ cudaError_t launch_dq_d(int D, const Inputs& in, void* dq) {
     case 32: return launch_dq<32, Elem>(in, dq);
     case 64: return launch_dq<64, Elem>(in, dq);
     case 128: return launch_dq<128, Elem>(in, dq);
+    case 256:  // bf16 only: the fp32 backward at D 256 is not ported
+      if constexpr (sizeof(Elem) == 2) return launch_dq<256, Elem>(in, dq);
+      return cudaErrorNotSupported;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -25,7 +25,12 @@
 // the A operand of p.v (its row sum taken unrounded); V is read by
 // ldmatrix.trans.  K/V tiles of 64 keys are staged by cp.async into a
 // double-buffered, swizzled bf16 layout, the next tile's copy overlapping the
-// current tile's products.
+// current tile's products.  Up to D 128 each warp holds its Q rows as A
+// fragments.  At D 256 (160 KB of shared memory) a block forms half of o's
+// columns (`NCOL` 128, at `col0` 0 or 128: two launches, each recomputing S
+// and the softmax, the first writing lse), so that o takes 64 accumulator
+// registers a thread, and reads its Q fragments from shared memory per
+// k-chunk (with all 256 columns ptxas spilled).
 //
 // fp32, `flash_fwd_tf32_kernel` (mma.sync m16n8k8 on TF32, tf32x3.cuh;
 // tiles, split and permutation: flash_attention_tf32.cuh): every fp32
@@ -37,17 +42,19 @@
 // and a row that sees a single key must get o = v to the bit, as the
 // backward's cancellation dP - delta then reads 1e-6 for every bit lost.  The
 // Q tile is staged once and split into big and small halves in shared
-// memory; each K/V tile of 32 keys is staged by cp.async and split once (K
-// into halves, V into big half and unrounded rest), read as B operands by all
-// four warps.  Each 8-key n-tile of the score accumulator is the split A
-// fragment of one k-chunk of P V through the permuted contraction index
-// (`acc_as_a`; V rows read by `load_bt`): p is not rounded to a narrower type,
-// and the row sum is taken from the same p.  p = exp2((s - m) * log2 e): the
-// row's largest element gets exactly 1.  Shared memory, two 64-row and four
+// memory; each K/V tile of 32 keys (16 at D 256) is staged by cp.async and
+// split once (K into halves, V into big half and unrounded rest), read as B
+// operands by all four warps.  Each 8-key n-tile of the score accumulator is
+// the split A fragment of one k-chunk of P V through the permuted contraction
+// index (`acc_as_a`; V rows read by `load_bt`): p is not rounded to a narrower
+// type, and the row sum is taken from the same p.  p = exp2((s - m) * log2 e):
+// the row's largest element gets exactly 1.  Shared memory, two 64-row and four
 // 32-row tiles of D + 4 words: 70 KB at D 64, three blocks a SM (with 64-key
 // tiles two fit, and the kernel ran 12 to 16 % slower at (1, 4096, 32, 64)
 // causal on an H100); one stage, so each block's copies wait for its
-// products and the other blocks' overlap them.
+// products and the other blocks' overlap them.  At D 256 the K/V tiles hold
+// 16 keys (195 KB; 32-key tiles would take 260 KB, over the 227 KB a block
+// may have), one block a SM.
 //
 // What bounds them on the H100: the two products, 4 B H pairs D operations
 // (pairs: the visible (query, key) pairs per head), against the 989 TFLOP/s
@@ -104,16 +111,22 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * fa_mma::ROWS * D * 5;  // Q, K x 2, V x 2
 }
 
-template <int D>
+template <int D, int NCOL>
 __global__ void __launch_bounds__(fa_mma::THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int H,
-                     float scale, int causal) {
+                     float scale, int causal, int col0_arg) {
   using namespace fa_mma;
   constexpr int TILE_ELEMS = ROWS * D;
-  constexpr int KC = D / 16;  // k-chunks of q.k^T
-  constexpr int NT = D / 8;   // n-tiles of the output
+  constexpr int KC = D / 16;    // k-chunks of q.k^T
+  constexpr int NT = NCOL / 8;  // n-tiles of this block's output columns
+  // the first output column: a multiple of 64, so that the swizzle of a V
+  // column chunk is that of its chunk within the half, shifted (see swizzle_at)
+  const int col0 = NCOL == D ? 0 : col0_arg;
+  // D 256 reads its Q fragments from shared memory per k-chunk, where
+  // narrower heads hold them in registers
+  constexpr bool Q_IN_REGS = D <= 128;
 
   extern __shared__ uint4 smem_fwd[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_fwd);
@@ -149,9 +162,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t qa[KC][4];
+  uint32_t qa[Q_IN_REGS ? KC : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) load_a<D>(qa[kc], Qs, warp * 16, kc, lane);
+    for (int kc = 0; kc < KC; ++kc) load_a<D>(qa[kc], Qs, warp * 16, kc, lane);
+  }
 
   float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
   float o[NT][4];
@@ -174,14 +189,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
+#pragma unroll(Q_IN_REGS ? KC : 4)
     for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qf[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qf[i] = qa[kc][i];
+      } else {
+        load_a<D>(qf, Qs, warp * 16, kc, lane);
+      }
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t kb[4];
         load_b<D>(kb, Kt, jp * 16, kc, lane);
-        mma_bf16(s[2 * jp], qa[kc], kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qa[kc], kb[2], kb[3]);
+        mma_bf16(s[2 * jp], qf, kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qf, kb[2], kb[3]);
       }
     }
 
@@ -244,9 +266,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
+      for (int np = 0; np < NCOL / 16; ++np) {
         uint32_t vb[4];
-        load_b_trans<D>(vb, Vt, kk * 16, np, lane);
+        load_b_trans<D>(vb, Vt + col0, kk * 16, np, lane);
         mma_bf16(o[2 * np], pa, vb[0], vb[1]);
         mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
       }
@@ -265,12 +287,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     if (t < T) {
       // l > 0: every in-range query sees at least its own key
       const float inv = 1.f / l[i];
-      __nv_bfloat16* dst = out + base + (long)t * ld + 2 * t4;
+      __nv_bfloat16* dst = out + base + (long)t * ld + col0 + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
             __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
-      if (lse != nullptr && t4 == 0) lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
+      if (lse != nullptr && t4 == 0 && col0 == 0)
+        lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
     }
   }
 }
@@ -281,13 +304,19 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 // each 32-key K/V tile is staged in one stage and split in place.
 // ---------------------------------------------------------------------------
 
-constexpr int BK = 32;  // keys of a staged K/V tile in the fp32 kernel
+// keys of a staged K/V tile in the fp32 kernel: 32, and 16 at D 256, where
+// 32-key tiles would ask for 266,240 bytes of shared memory (the H100 grants
+// a block 232,448)
+template <int D>
+__host__ __device__ constexpr int tf32_keys() {
+  return D <= 128 ? 32 : 16;
+}
 
 template <int D>
 constexpr size_t tf32_smem_bytes() {
   // Q as big and small halves (64 rows); K as big and small halves, V as big
-  // half and rest (32 rows each)
-  return sizeof(float) * (D + 4) * (2 * fa_mma::ROWS + 4 * BK);
+  // half and rest (tf32_keys rows each): 199,680 bytes at D 256
+  return sizeof(float) * (D + 4) * (2 * fa_mma::ROWS + 4 * tf32_keys<D>());
 }
 
 template <int D>
@@ -298,12 +327,13 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float scale, int causal) {
   using namespace fa_mma;
   using namespace flash::tf32;
+  constexpr int BK = tf32_keys<D>();  // keys of a staged K/V tile
   constexpr int QW = ROWS * (D + 4);  // words of the staged Q tile
   constexpr int KW = BK * (D + 4);    // words of a staged K or V tile
   constexpr int KC = D / 8;           // k-chunks of q.k^T; n-tiles of the output
   constexpr int NC = BK / 8;          // 8-key n-tiles of a K/V tile
-  // D 128 unrolls its loop over the k-chunks of q.k^T 8 times of 16 (ptxas
-  // spilled at 2 and 4)
+  // D 128 and 256 unroll their loop over the k-chunks of q.k^T 8 times (at
+  // D 128 ptxas spilled at 2 and 4)
   constexpr int UNROLL = D <= 64 ? KC : 8;
 
   extern __shared__ float4 smem_fwd_tf32[];
@@ -465,28 +495,40 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// each kernel and its dynamic shared memory by element type
-template <int D>
-auto fwd_kernel(const float*) { return flash_fwd_tf32_kernel<D>; }
-template <int D>
-auto fwd_kernel(const __nv_bfloat16*) { return flash_fwd_mma_kernel<D>; }
-
 // One block of fa_mma::THREADS per (64-query tile, head, batch row).  `Elem`
-// is float (the 3xTF32 kernel) or __nv_bfloat16 (the bf16 kernel).
+// is float (the 3xTF32 kernel) or __nv_bfloat16 (the bf16 kernel, launched
+// once per `NCOL` output columns: twice at D 256).
 template <int D, typename Elem>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
                    float* lse, int B, int T, int H, float scale, int causal,
                    cudaStream_t stream) {
-  constexpr size_t smem = sizeof(Elem) == 2 ? mma_smem_bytes<D>() : tf32_smem_bytes<D>();
-  const auto kernel = fwd_kernel<D>(static_cast<const Elem*>(nullptr));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((T + fa_mma::ROWS - 1) / fa_mma::ROWS, H, B);
-  kernel<<<grid, fa_mma::THREADS, smem, stream>>>(
-      static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v), seg,
-      static_cast<Elem*>(out), lse, T, H, scale, causal);
-  return cudaGetLastError();
+  if constexpr (sizeof(Elem) == 2) {
+    constexpr int NCOL = D > 128 ? D / 2 : D;
+    constexpr size_t smem = mma_smem_bytes<D>();
+    const auto kernel = flash_fwd_mma_kernel<D, NCOL>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    for (int col0 = 0; col0 < D; col0 += NCOL) {
+      kernel<<<grid, fa_mma::THREADS, smem, stream>>>(
+          static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
+          seg, static_cast<Elem*>(out), lse, T, H, scale, causal, col0);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  } else {
+    constexpr size_t smem = tf32_smem_bytes<D>();
+    const auto kernel = flash_fwd_tf32_kernel<D>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, fa_mma::THREADS, smem, stream>>>(
+        static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
+        seg, static_cast<Elem*>(out), lse, T, H, scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename Elem>
@@ -497,6 +539,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const i
     case 32: return launch<32, Elem>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
     case 64: return launch<64, Elem>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
     case 128: return launch<128, Elem>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
+    case 256: return launch<256, Elem>(q, k, v, seg, out, lse, B, T, H, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }

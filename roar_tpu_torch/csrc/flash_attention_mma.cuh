@@ -49,6 +49,20 @@ __device__ __forceinline__ int swizzle(int row, int chunk) {
   return row * D + phys * 8;
 }
 
+// swizzle<D>(row, c + bit) for a chunk c that is even and known at compile
+// time and a lane's bit (0 or 1).  The XOR reaches only the low three bits
+// of a chunk, so at D 256 c's upper bits are an offset the compiler adds as
+// an immediate: the fully unrolled loops over a row's 32 chunks then share
+// four address registers instead of holding one per chunk (which spilled).
+template <int D>
+__device__ __forceinline__ int swizzle_at(int row, int c, int bit) {
+  if constexpr (D > 128) {
+    return swizzle<D>(row, (c & 7) + bit) + (c & ~7) * 8;
+  } else {
+    return swizzle<D>(row, c + bit);
+  }
+}
+
 // 16 bytes from global to shared; with `valid` false the 16 bytes are zeros
 // and nothing is read (the caller passes an in-bounds address all the same)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -106,7 +120,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int D>
 __device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int row0, int kc,
                                        int lane) {
-  ldmatrix_x4(r, tile + swizzle<D>(row0 + (lane & 15), 2 * kc + (lane >> 4)));
+  ldmatrix_x4(r, tile + swizzle_at<D>(row0 + (lane & 15), 2 * kc, lane >> 4));
 }
 
 // B fragments of two n-tiles (rows n0 .. n0+15 of the tile, each row one
@@ -115,8 +129,8 @@ __device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int r
 template <int D>
 __device__ __forceinline__ void load_b(uint32_t (&r)[4], const bf16* tile, int n0, int kc,
                                        int lane) {
-  ldmatrix_x4(r, tile + swizzle<D>(n0 + (lane & 7) + ((lane >> 4) << 3),
-                                   2 * kc + ((lane >> 3) & 1)));
+  ldmatrix_x4(r, tile + swizzle_at<D>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kc,
+                                      (lane >> 3) & 1));
 }
 
 // B fragments of the tile read transposed: k runs over rows k0 .. k0+15, n
@@ -125,8 +139,8 @@ __device__ __forceinline__ void load_b(uint32_t (&r)[4], const bf16* tile, int n
 template <int D>
 __device__ __forceinline__ void load_b_trans(uint32_t (&r)[4], const bf16* tile, int k0, int np,
                                              int lane) {
-  ldmatrix_x4_trans(r, tile + swizzle<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                         2 * np + (lane >> 4)));
+  ldmatrix_x4_trans(r, tile + swizzle_at<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                            2 * np, lane >> 4));
 }
 
 // rows r0 .. r0+63 of x[b, :, h, :] (row t at base + t * ld) into a swizzled
@@ -171,20 +185,20 @@ __device__ __forceinline__ void segment_range(const int* __restrict__ segb, int 
   hi = __reduce_max_sync(0xffffffffu, mx);
 }
 
-// The first tile start t0, t0 + R, ... below `end` of R-row tiles (R 32 or
-// 64) that holds an in-range row whose segment id lies in [lo, hi] (`end` if
-// none).  `uniform` says that every in-range row of that tile carries the id
-// lo == hi, so that no element of it needs the segment mask.  Every warp
-// computes the same answer from the same ids.
+// The first tile start t0, t0 + R, ... below `end` of R-row tiles (R 16, 32
+// or 64) that holds an in-range row whose segment id lies in [lo, hi] (`end`
+// if none).  `uniform` says that every in-range row of that tile carries the
+// id lo == hi, so that no element of it needs the segment mask.  Every warp
+// computes the same answer from the same ids (a 16-row tile: lanes 0..15).
 template <int R = ROWS>
 __device__ __forceinline__ int next_tile(const int* __restrict__ segb, int t0, int end, int T,
                                          int lo, int hi, int lane, bool& uniform) {
   for (; t0 < end; t0 += R) {
     bool seen = false, other = false;
 #pragma unroll
-    for (int i = 0; i < R / 32; ++i) {
+    for (int i = 0; i < (R + 31) / 32; ++i) {
       const int r = t0 + lane + 32 * i;
-      if (r < T) {
+      if ((R >= 32 || lane < R) && r < T) {
         const int s = segb[r];
         seen |= s >= lo && s <= hi;
         other |= s != lo;

@@ -39,12 +39,25 @@ and each result as it is stored.  The plain versions round at the same places
 (the forward's against the row's final maximum, where the kernel rounds against
 its running maximum).
 
+Head sizes: the kernels are built at D 32, 64, 128 and 256 (`HEAD_DIMS`), at
+D 256 in bf16 for the forward and backward and in fp32 for the forward only.
+Any other D up to 128 takes the padded route (`kernel_head_dim`): q, k, v (and
+dO in the backward; o enters only through `delta`) are zero-padded to the next
+built size, which adds nothing to q.k^T and only zero columns to o, dq, dk and
+dv, and those columns are sliced off; `scale` stays the caller's (1/sqrt of
+the true D), and `lse` and `delta` are those of the true D.  D 80 and 100 (phi-2, pythia-2.8b,
+open_llama_3b, ...) run at 128 this way.
+
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises.  `LAUNCHES` counts the launches by kernel: "fwd", "dkv"
 and "dq" for the non-causal form, "causal_fwd", "causal_dkv" and "causal_dq"
 for the causal one; `LAUNCHES.clear()` sets them all to 0.  `LAUNCHES_BF16`
-counts the bf16 launches among them under the same keys.  The differentiable
-entry point is `roar_tpu_torch.ops.flash_attention.flash_self_attention`.
+counts the bf16 launches among them under the same keys, and
+`LAUNCHES_PADDED` those that took the padded route.  A call counts once,
+also at D 256 in bf16, where one call launches the forward and the dQ kernel
+over two column halves and the dK/dV kernel four times (dV and dK, each over
+two halves).  The differentiable entry point is
+`roar_tpu_torch.ops.flash_attention.flash_self_attention`.
 """
 
 from __future__ import annotations
@@ -53,11 +66,30 @@ from collections import Counter
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 LAUNCHES: Counter = Counter()
 LAUNCHES_BF16: Counter = Counter()
-HEAD_DIMS = (32, 64, 128)
+LAUNCHES_PADDED: Counter = Counter()
+HEAD_DIMS = (32, 64, 128, 256)  # the head sizes the kernels are built for
+PADDED_MAX = 128  # the largest built size the padded route pads up to
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_head_dim(d: int, dtype: torch.dtype, backward: bool) -> int:
+    """The head size of the kernel that runs a call at head size `d`: `d`
+    itself where a kernel is built for it, else the next built size up to
+    `PADDED_MAX` (the inputs are zero-padded to it).  Raises ValueError for
+    any other `d`, and NotImplementedError for the fp32 backward at D 256."""
+    if d == 256 and backward and dtype == torch.float32:
+        raise NotImplementedError("fp32 flash backward at head size 256 is not ported "
+                                  "(the fp32 dK/dV and dQ kernels are built up to D 128)")
+    if d in HEAD_DIMS:
+        return d
+    if 0 < d < PADDED_MAX:
+        return next(n for n in HEAD_DIMS if n > d)
+    raise ValueError(f"head dim {d} not supported (kernels at {HEAD_DIMS}, "
+                     f"others up to {PADDED_MAX} zero-padded)")
 
 
 def segment_ids(key_mask: Optional[torch.Tensor], batch: int, length: int,
@@ -122,14 +154,13 @@ def flash_self_attention_bwd_plain(q, k, v, key_mask, scale: float, o, lse, do,
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
-def _check_bthd(**tensors) -> Tuple[int, int, int, int]:
-    """Raise on what the kernels do not take; returns (B, T, H, D)."""
+def _check_bthd(backward: bool, **tensors) -> Tuple[int, int, int, int, int]:
+    """Raise on what the kernels do not take; returns (B, T, H, D, the
+    kernel's D)."""
     (first_name, first), *_ = tensors.items()
     if first.dim() != 4:
         raise ValueError(f"{first_name} must be [B, T, H, D], got {tuple(first.shape)}")
     b, t, h, d = first.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported (kernel takes {HEAD_DIMS})")
     if first.dtype not in DTYPES:
         raise TypeError(f"{first_name} must be float32 or bfloat16, got {first.dtype}")
     for name, x in tensors.items():
@@ -139,6 +170,7 @@ def _check_bthd(**tensors) -> Tuple[int, int, int, int]:
             raise TypeError(f"{name} is {x.dtype}, {first_name} is {first.dtype}")
         if x.device != first.device:
             raise ValueError(f"{name} is on {x.device}, {first_name} on {first.device}")
+    kernel_d = kernel_head_dim(d, first.dtype, backward)
     if first.device.type != "cuda":
         raise ValueError(f"flash_self_attention: no kernel for device {first.device}")
     for name, x in tensors.items():
@@ -146,13 +178,20 @@ def _check_bthd(**tensors) -> Tuple[int, int, int, int]:
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    return b, t, h, d
+    return b, t, h, d, kernel_d
 
 
-def _count(name: str, dtype: torch.dtype) -> None:
+def _pad(x: torch.Tensor, kernel_d: int) -> torch.Tensor:
+    """x [B, T, H, D] with zero columns up to the kernel's head size."""
+    return F.pad(x, (0, kernel_d - x.shape[-1]))
+
+
+def _count(name: str, dtype: torch.dtype, padded: bool) -> None:
     LAUNCHES[name] += 1
     if dtype == torch.bfloat16:
         LAUNCHES_BF16[name] += 1
+    if padded:
+        LAUNCHES_PADDED[name] += 1
 
 
 def flash_self_attention(q, k, v, key_mask, scale: float, return_lse: bool = False,
@@ -163,7 +202,10 @@ def flash_self_attention(q, k, v, key_mask, scale: float, return_lse: bool = Fal
     also the log-sum-exp residual [B, H, T]."""
     if q.device.type == "cpu":
         return flash_self_attention_plain(q, k, v, key_mask, scale, return_lse, causal)
-    b, t, h, d = _check_bthd(q=q, k=k, v=v)
+    b, t, h, d_true, d = _check_bthd(False, q=q, k=k, v=v)
+    padded = d != d_true
+    if padded:
+        q, k, v = (_pad(x, d) for x in (q, k, v))
     seg = segment_ids(key_mask, b, t, q.device).to(q.device).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device) if return_lse else None
@@ -178,7 +220,9 @@ def flash_self_attention(q, k, v, key_mask, scale: float, return_lse: bool = Fal
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(lib, err, "flash_attention_fwd launch")
-    _count("causal_fwd" if causal else "fwd", q.dtype)
+    _count("causal_fwd" if causal else "fwd", q.dtype, padded)
+    if padded:
+        out = out[..., :d_true].contiguous()
     return (out, lse) if return_lse else out
 
 
@@ -192,7 +236,7 @@ def flash_self_attention_bwd(q, k, v, key_mask, scale: float, o, lse, do,
     if q.device.type == "cpu":
         dq, dk, dv = flash_self_attention_bwd_plain(q, k, v, key_mask, scale, o, lse, do, causal)
         return (dq if need_dq else None, *((dk, dv) if need_dkv else (None, None)))
-    b, t, h, d = _check_bthd(q=q, k=k, v=v, o=o, do=do)
+    b, t, h, d_true, d = _check_bthd(True, q=q, k=k, v=v, o=o, do=do)
     if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 {(b, h, t)}, got {tuple(lse.shape)}")
     seg = segment_ids(key_mask, b, t, q.device).to(q.device).contiguous()
@@ -200,6 +244,9 @@ def flash_self_attention_bwd(q, k, v, key_mask, scale: float, o, lse, do,
         delta = (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()  # [B, H, T]
     elif delta.shape != (b, h, t) or delta.dtype != torch.float32 or not delta.is_contiguous():
         raise ValueError(f"delta must be contiguous float32 {(b, h, t)}")
+    padded = d != d_true
+    if padded:  # o enters only through delta, which the padding leaves as it is
+        q, k, v, do = (_pad(x, d) for x in (q, k, v, do))
 
     from roar_tpu_torch.kernels.library import check, load_library
 
@@ -213,10 +260,12 @@ def flash_self_attention_bwd(q, k, v, key_mask, scale: float, o, lse, do,
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         err = lib.roar_flash_attention_bwd_dkv(*shared, dk.data_ptr(), dv.data_ptr(), *tail)
         check(lib, err, "flash_attention_bwd_dkv launch")
-        _count("causal_dkv" if causal else "dkv", q.dtype)
+        _count("causal_dkv" if causal else "dkv", q.dtype, padded)
     if need_dq:
         dq = torch.empty_like(q)
         err = lib.roar_flash_attention_bwd_dq(*shared, dq.data_ptr(), *tail)
         check(lib, err, "flash_attention_bwd_dq launch")
-        _count("causal_dq" if causal else "dq", q.dtype)
+        _count("causal_dq" if causal else "dq", q.dtype, padded)
+    if padded:
+        dq, dk, dv = (None if x is None else x[..., :d_true].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

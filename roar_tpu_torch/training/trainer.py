@@ -175,19 +175,24 @@ class Trainer:
     def evaluate(self, state: TrainState, batches: Iterable[Dict[str, np.ndarray]],
                  epoch: int = 0) -> Dict[str, float]:
         """The task's metrics averaged over `batches`, in eval mode and
-        without gradients; one sync at the end."""
+        without gradients; one sync at the end.  Under bf16 the forward runs
+        in fp32 from the masters on the uncast batch, as the JAX trainer
+        validates; the compute dtype is restored after."""
         module = state.model.module
         was_training = module.training
         module.eval()
+        if self.compute_dtype is not None:
+            state.model.set_compute_dtype(None)
         totals: Dict[str, torch.Tensor] = {}
         n = 0
         try:
             for batch in batches:
-                _, metrics = state.model.loss_fn(
-                    to_device(batch, self.device, self.compute_dtype), epoch)
+                _, metrics = state.model.loss_fn(to_device(batch, self.device), epoch)
                 for k, v in metrics.items():
                     totals[k] = totals[k] + v if k in totals else v
                 n += 1
         finally:
             module.train(was_training)
+            if self.compute_dtype is not None:
+                state.model.set_compute_dtype(self.compute_dtype)
         return {k: float(v) / max(n, 1) for k, v in totals.items()}

@@ -93,13 +93,15 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,t,h,d", [(8, 256, 1, 64), (1, 200, 1, 64), (2, 200, 2, 32),
-                                     (2, 130, 2, 128)])
+                                     (2, 130, 2, 128), (4, 200, 2, 256), (2, 130, 2, 80),
+                                     (2, 70, 2, 100)])
 def test_cuda_kernel_matches_plain(b, t, h, d, dtype):
     """Ragged segment masks: a full row, a single valid key, half, T - 37, a
     pad-heavy row of 5 valid keys.  fp32 (the tensor-core kernel in 3xTF32,
     at fp32's level) against the cuBLAS fp32 einsum: summation order only.
     bf16 (the tensor-core kernel) at the bars of
-    `chip_smoke.assert_flash_close`, with `lse` and without."""
+    `chip_smoke.assert_flash_close`, with `lse` and without.  D 256 on its
+    own kernels; D 80 and 100 zero-padded to the D 128 kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -107,10 +109,12 @@ def test_cuda_kernel_matches_plain(b, t, h, d, dtype):
     lens = torch.tensor([t, 1, t // 2, t - 37, 5, t, 64, 65][:b], device="cuda")
     key_mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
     scale = 1.0 / d ** 0.5
-    before = fa.LAUNCHES.copy()
+    before, padded = fa.LAUNCHES.copy(), fa.LAUNCHES_PADDED.copy()
     got = fa.flash_self_attention(q, k, v, key_mask, scale)
     torch.cuda.synchronize()
     assert fa.LAUNCHES - before == {"fwd": 1}
+    assert fa.LAUNCHES_PADDED - padded == ({} if d in fa.HEAD_DIMS else {"fwd": 1})
+    assert got.shape == q.shape
     want, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, return_lse=True)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
@@ -270,8 +274,10 @@ def test_multihead_attn_gradients_match_jax():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,t,h,d", [(4, 200, 1, 64), (2, 130, 2, 32), (2, 70, 2, 128),
-                                     (32, 160, 1, 64)])
+                                     (32, 160, 1, 64), (4, 200, 2, 256), (4, 130, 2, 80),
+                                     (4, 70, 2, 100)])
 def test_cuda_backward_kernels_match_plain(b, t, h, d, dtype):
+    """The fp32 backward at D 256 is not ported: it raises by name."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -282,6 +288,11 @@ def test_cuda_backward_kernels_match_plain(b, t, h, d, dtype):
     scale = 1.0 / d ** 0.5
     before = fa.LAUNCHES.copy()
     out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True)
+    if d == 256 and dtype == torch.float32:
+        with pytest.raises(NotImplementedError, match="fp32 flash backward at head size 256"):
+            fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
+        assert fa.LAUNCHES - before == {"fwd": 1}
+        return
     got = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
     again = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
     torch.cuda.synchronize()
@@ -428,9 +439,15 @@ def test_bf16_plain_versions_round_like_the_kernels(causal):
 
 
 def test_wrapper_rejects_mixed_types_and_head_size_256():
-    q = torch.zeros(1, 8, 1, 256, device="meta")
-    with pytest.raises(ValueError, match="256"):
+    """D 512 has no kernel; D 256 has none for the fp32 backward (named in
+    the error); mixed and half types are refused."""
+    q = torch.zeros(1, 8, 1, 512, device="meta")
+    with pytest.raises(ValueError, match="512"):
         fa.flash_self_attention(q, q, q, None, 1.0, causal=True)
+    q = torch.zeros(1, 8, 1, 256, device="meta")
+    lse = torch.zeros(1, 1, 8, device="meta")
+    with pytest.raises(NotImplementedError, match="fp32 flash backward at head size 256"):
+        fa.flash_self_attention_bwd(q, q, q, None, 1.0, q, lse, q, causal=True)
     q = torch.zeros(1, 8, 1, 64, device="meta")
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_self_attention(q, q.bfloat16(), q, None, 1.0, causal=True)
@@ -439,11 +456,13 @@ def test_wrapper_rejects_mixed_types_and_head_size_256():
 
 
 # the card's cases: ragged T, B 4 x T 2048, D 32 and 128, a trailing pad mask,
-# T 1, and the GPT path's own shape
+# T 1, the GPT path's own shape, and D 256, 80 and 100 (the last two through
+# the padded route)
 CUDA_CAUSAL_CASES = [
     (2, 70, 2, 32, None), (2, 130, 2, 128, [130, 41]), (1, 200, 1, 64, None),
     (2, 1000, 2, 64, [1000, 333]), (4, 2048, 2, 64, None), (2, 1, 2, 64, None),
-    (1, 4096, 32, 64, None),
+    (1, 4096, 32, 64, None), (2, 300, 2, 256, [300, 77]), (1, 2048, 8, 256, None),
+    (2, 130, 2, 80, [130, 41]), (1, 200, 2, 100, None),
 ]
 
 
@@ -478,6 +497,13 @@ def test_cuda_causal_kernels_match_plain(case, dtype):
     scale = 1.0 / d ** 0.5
     before = fa.LAUNCHES.copy()
     out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True, causal=True)
+    if d == 256 and dtype == torch.float32:  # the fp32 backward at D 256 is not ported
+        with pytest.raises(NotImplementedError, match="head size 256"):
+            fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do, causal=True)
+        out_p, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, True, causal=True)
+        torch.testing.assert_close(out, out_p, atol=1e-4, rtol=1e-3)
+        torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-3)
+        return
     got = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do, causal=True)
     again = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do, causal=True)
     torch.cuda.synchronize()

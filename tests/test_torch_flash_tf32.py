@@ -65,6 +65,10 @@ RTOL = 1e-3      # chip_smoke.FLASH_BWD_RTOL
 # FastPitch's kind with a ragged T, a short row and a single valid key
 CASES = {"causal": (1, 512, 2, 64, None, True),
          "ragged_segments": (3, 200, 1, 64, [200, 117, 1], False)}
+# the forward alone at D 256, where its K/V tiles hold 16 keys (the fp32
+# backward at D 256 is not ported)
+FWD_ONLY_CASES = {"causal_d256": (1, 96, 1, 256, None, True),
+                  "ragged_segments_d256": (3, 80, 1, 256, [80, 33, 1], False)}
 
 
 def tf32_rna(v: np.ndarray) -> np.ndarray:
@@ -145,7 +149,7 @@ def emulate_bwd(q, k, v, do, lse, delta, seg, scale, causal, **order):
 def _case(name: str):
     """Seeded inputs of CASES[name], the plain fp32 forward's o and lse, and
     the plain fp32 backward (what the kernels are held against on the card)."""
-    b, t, h, d, lens, causal = CASES[name]
+    b, t, h, d, lens, causal = {**CASES, **FWD_ONLY_CASES}[name]
     rng = np.random.default_rng(0)
     q, k, v, do = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(4))
     mask = np.ones((b, t), bool) if lens is None else np.arange(t)[None] < np.array(lens)[:, None]
@@ -274,7 +278,7 @@ def test_permuted_contraction_index(seed):
 # ---------------------------------------------------------------------------
 # The forward (`flash_fwd_tf32_kernel`, csrc/flash_attention_fwd.cu)
 
-FWD_KEYS = 32  # keys of a staged K/V tile of the forward kernel
+FWD_KEYS = 32  # keys of a staged K/V tile of the forward kernel (16 at D 256)
 LOG2E = np.float32(1.4426950408889634)
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-3)  # chip_smoke.KERNEL_TOL: o and lse
 
@@ -285,10 +289,11 @@ def _exp2(x: np.ndarray) -> np.ndarray:
     return np.exp2(x.astype(np.float64)).astype(np.float32)
 
 
-def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exact_b=True):
+def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exact_b=True,
+                keys=FWD_KEYS):
     """(o [B, T, H, D], lse [B, H, T]) as `flash_fwd_tf32_kernel` forms them
     from fp32 q, k, v [B, T, H, D] and segment ids [B, T]: S = q.k^T in
-    `product`'s order; per 32-key tile, s = S * scale masked to -inf, the
+    `product`'s order; per tile of `keys` keys, s = S * scale masked to -inf, the
     running maximum m, alpha = 2^((m_old - m) log2 e), p = 2^((s - m) log2 e)
     (exactly 1 at the row's largest), o = o * alpha + p.V with p split as the
     A operand and V split exactly (`exact_b`); the row sum in each lane's
@@ -304,23 +309,23 @@ def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exa
         visible = visible & np.tril(np.ones((t, t), bool))
     f32 = np.float32
     x = np.where(visible, (s * f32(scale)).astype(f32), f32(-np.inf))
-    pad = (-t) % FWD_KEYS
+    pad = (-t) % keys
     x = np.concatenate([x, np.full((b, h, t, pad), -np.inf, f32)], -1)
     bv = np.concatenate([bv, np.zeros((b, h, pad, d), f32)], -2)
     m = np.full((b, h, t), -np.inf, f32)
     lanes = np.zeros((b, h, t, 4), f32)
     o = np.zeros((b, h, t, d), f32)
-    for k0 in range(0, t + pad, FWD_KEYS):
-        xt = x[..., k0:k0 + FWD_KEYS]
+    for k0 in range(0, t + pad, keys):
+        xt = x[..., k0:k0 + keys]
         m_new = np.maximum(m, xt.max(-1))
         m_use = np.where(m_new == -np.inf, f32(0), m_new)
         alpha = _exp2((m - m_use) * LOG2E)
         p = _exp2((xt - m_use[..., None]) * LOG2E)
         lanes = lanes * alpha[..., None]
-        for n in range(FWD_KEYS // 8):
+        for n in range(keys // 8):
             for e in range(2):
                 lanes = lanes + p[..., 8 * n + 2 * np.arange(4) + e]
-        o = product(p, bv[..., k0:k0 + FWD_KEYS, :], init=o * alpha[..., None],
+        o = product(p, bv[..., k0:k0 + keys, :], init=o * alpha[..., None],
                     exact_b=exact_b, **order)
         m = m_new
     l = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
@@ -332,7 +337,9 @@ def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exa
 @functools.lru_cache(maxsize=None)
 def _emulated_fwd(name: str, **order):
     inputs, _, _ = _case(name)
-    return emulate_fwd(*(inputs[n] for n in ("q", "k", "v", "seg", "scale", "causal")), **order)
+    keys = FWD_KEYS if inputs["q"].shape[-1] <= 128 else 16
+    return emulate_fwd(*(inputs[n] for n in ("q", "k", "v", "seg", "scale", "causal")),
+                       keys=keys, **order)
 
 
 @functools.lru_cache(maxsize=None)
@@ -364,6 +371,9 @@ def _upstream_fwd(name: str):
     return o, np.asarray(m) + np.log(np.asarray(l))
 
 
+FWD_NAMES = list(CASES) + list(FWD_ONLY_CASES)
+
+
 def _fwd_within_bars(o, lse, want_o, want_lse) -> bool:
     """o within KERNEL_TOL and within 1e-4 of its largest magnitude + rtol
     1e-3 (`assert_flash_close` in fp32), lse within KERNEL_TOL."""
@@ -376,12 +386,12 @@ def _fwd_within_bars(o, lse, want_o, want_lse) -> bool:
 
 
 @pytest.mark.parametrize("against", ["plain", "upstream"])
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", FWD_NAMES)
 def test_forward_kernel_order_holds_the_fp32_bars(name, against):
     """S in 3xTF32 and P V with V split exactly, truncating `mma`, flushed per
-    k-chunk, the online softmax per 32-key tile: o and lse within KERNEL_TOL
-    (and o within `assert_flash_close`'s fp32 bar) of the port's plain fp32
-    forward and of upstream's `mha_reference`."""
+    k-chunk, the online softmax per K/V tile (32 keys, 16 at D 256): o and lse
+    within KERNEL_TOL (and o within `assert_flash_close`'s fp32 bar) of the
+    port's plain fp32 forward and of upstream's `mha_reference`."""
     want_o, want_lse = _plain_fwd(name) if against == "plain" else _upstream_fwd(name)
     o, lse = _emulated_fwd(name)
     torch.testing.assert_close(torch.tensor(o), torch.tensor(want_o), **KERNEL_TOL)
@@ -389,7 +399,7 @@ def test_forward_kernel_order_holds_the_fp32_bars(name, against):
     assert _fwd_within_bars(o, lse, want_o, want_lse)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", FWD_NAMES)
 def test_forward_plain_tf32_fails_the_fp32_bars(name):
     """One TF32 product (big.big alone) in both products misses the bars, so
     they tell a forward that dropped the small terms."""
@@ -397,7 +407,7 @@ def test_forward_plain_tf32_fails_the_fp32_bars(name):
     assert not _fwd_within_bars(o, lse, *_plain_fwd(name))
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", FWD_NAMES)
 def test_forward_single_key_rows_get_v_exactly(name):
     """A row that sees one key (the first causal row; the ragged case's row
     of length 1) has p = 1, and with V split exactly its o is that key's v to

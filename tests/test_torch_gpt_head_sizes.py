@@ -1,0 +1,235 @@
+"""GPT at the head sizes outside 32 / 64 / 128 against the JAX package on the
+CPU, and the rules of the flash wrappers' head sizes.
+
+On the card the port runs D 256 on kernels of its own and D 80 / 100 on the
+D 128 kernels through zero-padding (`kernels/flash_attention.py`,
+`kernel_head_dim`).  Here the wrappers take their plain versions, and the JAX
+package its einsum route (`_flash_attention_available()` is false off the
+TPU).  Narrow widths, 2 layers, `use_flash=true`, the JAX module's initial
+parameters carried over by `load_gpt_params`, one numpy-seeded batch: logits
+at atol 2e-4 / rtol 1e-3, the loss, every gradient and three AdamW steps at
+rtol 3e-3 (the bars of tests/test_torch_gpt.py and test_torch_gpt_train.py).
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from flax.traverse_util import flatten_dict
+
+import jax
+import jax.numpy as jnp
+
+from roar_tpu.models.gpt_model import GPTLMModel as JaxGPTLMModel
+from roar_tpu.training.optim import build_optimizer as jax_build_optimizer
+from roar_tpu.training.trainer import create_train_state, make_train_step
+from roar_tpu_torch.kernels import flash_attention as fa
+from roar_tpu_torch.models.gpt_model import GPTLMModel
+from roar_tpu_torch.training import convert
+from roar_tpu_torch.training.optim import build_optimizer
+from roar_tpu_torch.training.trainer import TrainState, to_device, train_step
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+
+REPO = Path(__file__).resolve().parents[1]
+LOGIT_TOL = dict(atol=2e-4, rtol=1e-3)
+TOL = dict(rtol=3e-3, atol=1e-5)
+VOCAB, SEQ, N_STEPS = 70, 24, 3
+OPTIM = {"name": "adamw", "lr": 3e-4, "weight_decay": 0.1, "betas": [0.9, 0.95],
+         "sched": {"name": "CosineAnnealing", "warmup_ratio": 0.02, "min_lr": 3e-5,
+                   "max_steps": 10}}
+# (registry entry, overrides): the head size each gives
+CASES = {
+    "neox_d256": ("pythia-1b", dict(n_embd=512, n_head=2)),
+    "gemma_d256_one_group": ("gemma-2b", dict(n_embd=64, n_head=2, head_dim=256,
+                                              n_query_groups=1)),
+    "phi_d80": ("phi-2", dict(n_embd=160, n_head=2, padded_vocab_size=None)),
+    "llama_d100": ("open_llama_3b", dict(n_embd=200, n_head=2)),
+}
+HEAD_SIZES = {"neox_d256": 256, "gemma_d256_one_group": 256, "phi_d80": 80, "llama_d100": 100}
+
+
+def _cfg(case):
+    name, own = CASES[case]
+    return {"config_name": name, "n_layer": 2, "intermediate_size": 96, "vocab_size": VOCAB,
+            "padding_multiple": 1, "block_size": SEQ, "use_flash": True, **own}
+
+
+def _batch_np():
+    window = np.random.default_rng(0).integers(0, VOCAB, (2, SEQ + 1)).astype(np.int32)
+    return {"input_ids": window[:, :-1], "labels": window[:, 1:]}
+
+
+def _port_model(case, params):
+    model = GPTLMModel(_cfg(case))
+    convert.load_gpt_params(model.module, jax.device_get(params))
+    return model
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def jax_side(request):
+    """The JAX task's logits, loss, gradients and three AdamW steps."""
+    case = request.param
+    model = JaxGPTLMModel(_cfg(case))
+    batch = {k: jnp.asarray(v) for k, v in _batch_np().items()}
+    params = model.init_params(jax.random.PRNGKey(0), batch)
+    logits = model.module.apply(params, batch["input_ids"])
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(
+        lambda p: model.loss_fn(p, batch), has_aux=True))(params)
+    optimizer = jax_build_optimizer(OPTIM, gradient_clip_val=1.0)
+    step = make_train_step(lambda p, b, rng, epoch: model.loss_fn(p, b), optimizer,
+                           donate=False)
+    state = create_train_state(params, optimizer)
+    trajectory = []
+    for _ in range(N_STEPS):
+        state, step_metrics = step(state, batch, jax.random.PRNGKey(0), 0)
+        trajectory.append({k: float(v) for k, v in step_metrics.items()})
+    return {"case": case, "params": jax.device_get(params), "logits": np.asarray(logits),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": jax.device_get(grads), "trajectory": trajectory,
+            "final": jax.device_get(state.params)}
+
+
+def _assert_tree_close(got, want, what, rtol, atol):
+    got_flat, want_flat = flatten_dict(got), flatten_dict(want)
+    assert set(got_flat) == set(want_flat)
+    for path, value in want_flat.items():
+        np.testing.assert_allclose(got_flat[path], np.asarray(value), rtol=rtol, atol=atol,
+                                   err_msg=f"{what} {'/'.join(path)}")
+
+
+def test_head_size_and_logits_match_jax(jax_side):
+    model = _port_model(jax_side["case"], jax_side["params"])
+    assert model.config.head_size == HEAD_SIZES[jax_side["case"]]
+    with torch.no_grad():
+        got = model.module(torch.from_numpy(_batch_np()["input_ids"]).long()).numpy()
+    assert got.shape == jax_side["logits"].shape
+    np.testing.assert_allclose(got, jax_side["logits"], **LOGIT_TOL)
+
+
+def test_loss_and_every_gradient_match_jax(jax_side):
+    model = _port_model(jax_side["case"], jax_side["params"])
+    loss, metrics = model.loss_fn(to_device(_batch_np(), torch.device("cpu")))
+    for k, v in jax_side["metrics"].items():
+        np.testing.assert_allclose(float(metrics[k]), v, err_msg=k, **TOL)
+    loss.backward()
+    with torch.no_grad():  # the gradients in the parameters' places, as a tree
+        for p in model.module.parameters():
+            p.copy_(p.grad)
+    got = convert.gpt_to_jax_tree(model.module)
+    scale = max(float(np.abs(v).max()) for v in flatten_dict(jax_side["grads"]).values())
+    _assert_tree_close(got, jax_side["grads"], "grad", rtol=3e-3, atol=3e-6 * scale)
+
+
+def test_three_adamw_steps_follow_the_jax_trajectory(jax_side):
+    model = _port_model(jax_side["case"], jax_side["params"])
+    opt = build_optimizer(model.parameters(), OPTIM, gradient_clip_val=1.0)
+    state = TrainState(model=model, opt=opt)
+    batch = to_device(_batch_np(), torch.device("cpu"))
+    for want in jax_side["trajectory"]:
+        state, metrics = train_step(state, batch)
+        for k, v in want.items():
+            np.testing.assert_allclose(float(metrics[k]), v, err_msg=k, **TOL)
+    # AdamW moves a weight by about lr a step whatever its gradient's size:
+    # atol 2e-4 covers entries whose gradient is near rounding level
+    _assert_tree_close(convert.gpt_to_jax_tree(model.module), jax_side["final"], "params",
+                       rtol=3e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["segments", "causal"])
+@pytest.mark.parametrize("d", [80, 100])
+def test_zero_padding_to_the_kernel_head_size_changes_nothing(d, causal):
+    """The padded route's arithmetic, in the plain versions: q, k, v, o and dO
+    zero-padded to `kernel_head_dim(d)` (128) with the true-D scale give the
+    true-D results in their first d columns, zeros after, and the same lse."""
+    assert fa.kernel_head_dim(d, torch.float32, True) == 128
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 50, 2, d)).astype(np.float32))
+                   for _ in range(4))
+    mask = torch.arange(50)[None, :] < torch.tensor([50, 31])[:, None]
+    scale = 1.0 / d ** 0.5
+    o, lse = fa.flash_self_attention_plain(q, k, v, mask, scale, True, causal)
+    grads = fa.flash_self_attention_bwd_plain(q, k, v, mask, scale, o, lse, do, causal)
+    qp, kp, vp, op, dop = (fa._pad(x, 128) for x in (q, k, v, o, do))
+    o_pad, lse_pad = fa.flash_self_attention_plain(qp, kp, vp, mask, scale, True, causal)
+    grads_pad = fa.flash_self_attention_bwd_plain(qp, kp, vp, mask, scale, op, lse_pad, dop,
+                                                  causal)
+    torch.testing.assert_close(lse_pad, lse, rtol=1e-6, atol=1e-6)
+    for name, got, want in zip(("o", "dq", "dk", "dv"), (o_pad, *grads_pad), (o, *grads)):
+        assert got.shape[-1] == 128 and torch.equal(got[..., d:], torch.zeros_like(got[..., d:]))
+        scale_of = float(want.abs().max())
+        torch.testing.assert_close(got[..., :d], want, rtol=1e-6, atol=1e-6 * scale_of,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+def test_kernel_head_dim_maps_and_raises():
+    for dtype in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            assert [fa.kernel_head_dim(d, dtype, backward) for d in (16, 32, 48, 64, 80, 100,
+                                                                     128)] == \
+                [32, 32, 64, 64, 128, 128, 128]
+            for d in (129, 200, 255, 257, 512, 0):
+                with pytest.raises(ValueError, match="not supported"):
+                    fa.kernel_head_dim(d, dtype, backward)
+    assert fa.kernel_head_dim(256, torch.bfloat16, True) == 256
+    assert fa.kernel_head_dim(256, torch.float32, False) == 256
+    with pytest.raises(NotImplementedError, match="fp32 flash backward at head size 256"):
+        fa.kernel_head_dim(256, torch.float32, True)
+
+
+def test_chip_smoke_lists_and_parses_the_d256_instances():
+    """`phase_kernel_build` requires the four D 256 forms (the bf16 dK/dV
+    kernel as its two passes) and reads their mangled names."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+
+    d256 = sorted(i for i in cs.flash_instances() if i[2] == 256)
+    assert d256 == [("flash_bwd_dkv_mma_kernel.dk", "bfloat16", 256),
+                    ("flash_bwd_dkv_mma_kernel.dv", "bfloat16", 256),
+                    ("flash_bwd_dq_mma_kernel", "bfloat16", 256),
+                    ("flash_fwd_mma_kernel", "bfloat16", 256),
+                    ("flash_fwd_tf32_kernel", "float32", 256)]
+    space = "_ZN60_GLOBAL__N__5c1a7f2e_22_flash_attention_bwd_cu_9e8d7c6b"
+    tail = "EEEvPK13__nv_bfloat16S2_S2_PKiPKfS6_S2_PS0_S7_iifi"
+    assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi256ELi1ELi128{tail}") == \
+        ("flash_bwd_dkv_mma_kernel.dv", "bfloat16", 256)
+    assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi64ELi0ELi64{tail}") == \
+        ("flash_bwd_dkv_mma_kernel", "bfloat16", 64)
+    assert cs._flash_instance(f"{space}21flash_fwd_tf32_kernelILi256EEEvPKfS2_S2_PKiPfS5_iifi") \
+        == ("flash_fwd_tf32_kernel", "float32", 256)
+    assert cs._flash_instance(f"{space}20flash_fwd_mma_kernelILi256ELi128{tail}") == \
+        ("flash_fwd_mma_kernel", "bfloat16", 256)
+    for kernel, dtype, d in d256:
+        assert cs.flash_dynamic_smem(kernel, dtype, d) <= cs.H100_SMEM_PER_BLOCK
+    assert cs.flash_dynamic_smem("flash_fwd_tf32_kernel", "float32", 256) == 199680
+
+
+def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):
+    """`phase_train_gpt` for pythia-1b and `phase_gpt_head_sizes` at
+    rehearsal widths on the CPU: every check but the launch counts and the
+    timing (pythia's fp32 check is the validation forward: its fp32 backward
+    at D 256 is not ported)."""
+    sys.path.insert(0, str(REPO))
+    import json
+
+    import chip_smoke as cs
+
+    none = {"fwd": 0, "dkv": 0, "dq": 0}
+    out = cs.phase_train_gpt(torch.device("cpu"), narrow=True, seq_length=128, vocab_size=300,
+                             config_name="pythia-1b")  # its 8 updates (GPT_RUNS)
+    assert out == {"launches": none, "launches_bf16": none, "per_micro_batch": none,
+                   "fp32_check_launches": none}
+    heads = cs.phase_gpt_head_sizes(torch.device("cpu"), seq_length=48, narrow=True)
+    assert set(heads) == {name for name, _, _ in cs.GPT_HEAD_SIZE_RUNS}
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    check = [line for line in lines if line.get("step") == "kernel_path_vs_plain_path"]
+    assert len(check) == 1 and check[0]["config_name"] == "pythia-1b"
+    assert "forward_only" in check[0]["fp32"] and check[0]["fp32"]["layers"] == 2
+    rows = {line["config_name"]: line for line in lines if line.get("phase") == "gpt_head_sizes"}
+    assert {name: row["kernel_head_size"] for name, row in rows.items()} == \
+        {"phi-2": 128, "open_llama_3b": 128, "gemma-2b": 256}
+    assert all(row["bf16"]["whole_grad_l2_rel_err"] == 0.0 for row in rows.values())

@@ -189,6 +189,36 @@ def test_bf16_steps_keep_fp32_masters_and_follow_jax_loosely(jax_side):
     assert abs(jax_side["trajectory_bf16"][0]["loss"] - jax_side["trajectory"][0]["loss"]) > 1e-6
 
 
+def test_bf16_validation_runs_in_fp32_from_the_masters(jax_side):
+    """After one bf16 step, `Trainer.evaluate` gives what the JAX runner's
+    validation gives: the loss of the fp32 masters on the uncast batch (the
+    port's own fp32 forward, and the JAX task's `loss_fn` on the same masters,
+    at rtol 3e-3), not the bf16 forward's; the bf16 compute type is back
+    after it."""
+    model = _port_model(jax_side["params"])
+    opt = build_optimizer(model.parameters(), OPTIM, gradient_clip_val=CLIP)
+    trainer = Trainer(model=model, optimizer=opt, device="cpu", precision="bf16")
+    state = trainer.init_state()
+    state, _ = train_step(state, _torch_batch())
+    val = trainer.evaluate(state, [_batch_np()])
+    assert model.module.compute_dtype == torch.bfloat16 and model.module.training
+    model.set_compute_dtype(None)
+    with torch.no_grad():
+        _, fp32 = model.loss_fn(_torch_batch())
+    model.set_compute_dtype(torch.bfloat16)
+    with torch.no_grad():
+        _, bf16 = model.loss_fn(_torch_batch())
+    jmodel = JaxGPTLMModel(_cfg())
+    masters = convert.gpt_to_jax_tree(model.module)
+    _, want = jmodel.loss_fn(masters, {k: jnp.asarray(v) for k, v in _batch_np().items()},
+                             deterministic=True)
+    assert set(val) == set(want) == {"loss", "ppl", "token_acc"}
+    for k in val:
+        np.testing.assert_allclose(val[k], float(fp32[k]), rtol=1e-6, err_msg=k)
+        np.testing.assert_allclose(val[k], float(want[k]), err_msg=k, **TOL)
+    assert val["loss"] != float(bf16["loss"])  # the bf16 forward gives another loss
+
+
 def test_bf16_raises_for_a_task_without_a_bf16_form():
     class Task:
         module = torch.nn.Linear(2, 2)
@@ -371,7 +401,8 @@ def test_chip_smoke_gpt_phase_rehearsal_on_the_cpu(capsys):
     out = chip_smoke.phase_train_gpt(torch.device("cpu"), narrow=True, seq_length=256,
                                      vocab_size=300)
     none = {"fwd": 0, "dkv": 0, "dq": 0}
-    assert out == {"launches": none, "per_micro_batch": none, "fp32_check_launches": none}
+    assert out == {"launches": none, "launches_bf16": none, "per_micro_batch": none,
+                   "fp32_check_launches": none}
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
              if line.startswith("{")]
     steps = {line["step"]: line for line in lines if line.get("phase") == "train_gpt"}

@@ -185,13 +185,15 @@ K2_MANGLED = _VITERBI_NAMESPACE + "21pyin_backtrack_kernelEPKiS1_Piiiiii"
 def _build_log(k4_spill: int = 0, drop_k4=None, k1_spill: int = 0) -> str:
     """A log with every instance `chip_smoke.phase_kernel_build` requires."""
     import chip_smoke as cs
-    from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
     log = ""
-    for kernels in cs.FLASH_MMA_KERNELS.values():
-        for kernel in kernels:
-            for d in HEAD_DIMS:
-                log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{d}EEEvv", 128)
+    passes = {sfx: n for n, sfx in cs.DKV_PASSES.items()}
+    for kernel, _, d in cs.flash_instances():
+        name, _, sfx = kernel.partition(".")
+        ncol = f"Li{d if d <= 128 else d // 2}E" if "_mma_" in name else ""
+        args = f"Li{d}E" + (f"Li{passes['.' + sfx]}E" if sfx else
+                            "Li0E" if name == "flash_bwd_dkv_mma_kernel" else "") + ncol
+        log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}I{args}EEvv", 128)
     # the fp32 and the bf16 instances (last template argument 0 and 1)
     for bf16 in (0, 1):
         for view in ("fwd", "dx"):

@@ -181,6 +181,49 @@ def test_bundle_is_read_by_the_jax_package_and_served_by_the_port(trained):
     assert wave.dtype == np.int16 and wave.size == int(lens[0]) * 256
 
 
+def test_bf16_validation_runs_in_fp32_from_the_masters(corpus, tmp_path, monkeypatch):
+    """`trainer.precision=bf16`: the run's validation (after the epoch's two
+    bf16 steps) gives the metrics of the fp32 masters on the uncast batch, as
+    the JAX runner's `_val_metrics` does: the port's own fp32 forward of the
+    same masters, and the JAX task's `loss_fn` on them, at rtol 3e-3."""
+    from roar_tpu.models.fastpitch_model import FastPitchModel as JaxModel
+    from roar_tpu_torch.training.trainer import Trainer, to_device
+
+    seen = {}
+    evaluate = Trainer.evaluate
+
+    def spy(self, state, batches, epoch=0):
+        batches = list(batches)
+        metrics = evaluate(self, state, batches, epoch)
+        seen.update(batches=batches, epoch=epoch, metrics=metrics, dtype=self.compute_dtype,
+                    masters={k: v.clone() for k, v in state.model.module.state_dict().items()})
+        return metrics
+
+    monkeypatch.setattr(Trainer, "evaluate", spy)
+    cfg = _train_cfg(corpus, tmp_path, "trainer.precision=bf16")
+    fastpitch_torch.run(cfg)
+    assert seen["dtype"] == torch.bfloat16 and len(seen["batches"]) == 2
+    model = FastPitchModel(cfg["model"])
+    model.module.load_state_dict(seen["masters"])
+    model.module.eval()
+    jmodel = JaxModel(cfg["model"])
+    params = convert.fastpitch_to_jax_tree(model.module)
+    totals, jax_totals = {}, {}
+    with torch.no_grad():
+        for batch in seen["batches"]:
+            _, metrics = model.loss_fn(to_device(batch, torch.device("cpu")), seen["epoch"])
+            arrays = {k: jnp.asarray(v) for k, v in batch.items()
+                      if not isinstance(v, (str, list, tuple))}
+            _, jmetrics = jmodel.loss_fn(params, arrays, None, seen["epoch"], deterministic=True)
+            for k, v in metrics.items():
+                totals[k] = totals.get(k, 0.0) + float(v) / 2
+                jax_totals[k] = jax_totals.get(k, 0.0) + float(jmetrics[k]) / 2
+    assert set(seen["metrics"]) == set(totals)
+    for k, v in seen["metrics"].items():
+        np.testing.assert_allclose(v, totals[k], rtol=1e-6, atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(v, jax_totals[k], rtol=3e-3, atol=1e-6, err_msg=k)
+
+
 def test_bf16_and_model_parallel_raise(corpus, tmp_path, monkeypatch):
     # bf16 trains FastPitch (tests/test_torch_bf16_tts.py); the trainer still
     # refuses it, by the task's name, for a task without `set_compute_dtype`
