@@ -89,11 +89,12 @@ Phases, each printing JSON lines:
    row's own scale), and at the path's shape the times beside the bounds and
    `F.scaled_dot_product_attention(is_causal=True)` with its autograd;
    then kernel_flash_head_sizes: the same at the head sizes outside
-   32 / 64 / 128: D 256 (bf16 forward, dK/dV, dQ; fp32 forward, its
-   backward shown to raise) at pythia-1b's layer (1, 2048, 8, 256) causal
-   and at (4, 300, 2, 256) under a key mask, and D 80 / 100 through the
-   padded route (the D 128 kernels on zero-padded heads) at
-   (1, 2048, 32, 80|100), fp32 and bf16, each timed;
+   32 / 64 / 128: D 256 (forward, dK/dV, dQ in fp32 and bf16) at
+   pythia-1b's layer (1, 2048, 8, 256) causal, at (2, 300, 2, 256) causal
+   and at (4, 200, 2, 256) non-causal, both under a key mask, and D 80 / 100
+   through the padded route (the D 128 kernels on zero-padded heads) at
+   (1, 2048, 32, 80|100), fp32 and bf16, each timed but the causal case
+   under a mask;
 11. train_gpt: GPT causal-LM training at the full width and depth of
    tiny-llama-1.1b (22 layers, d 2048, 32 heads of 64 in 4 KV groups, SwiGLU
    5632, vocabulary 32000, 1.1 B parameters), S 4096, bf16 compute from fp32
@@ -112,12 +113,16 @@ Phases, each printing JSON lines:
    runs from the fp32 masters, so its forwards are fp32 launches.  The same
    again for pythia-1b (16 layers, d 2048, 8 heads of 256, GptNeoxMLP 8192,
    parallel residual, its own vocabulary 50254, 1.01 B parameters), S 2048,
-   whose fp32 check is the validation forward at full depth (the fp32
-   backward at D 256 is not ported);
+   8 updates; and pythia-1b once more in fp32, the precision of
+   configs/gpt_pretraining.yaml (no `trainer.precision`): 16 / 16 / 16 fp32
+   launches per micro-batch and no bf16 one, fp32 parameters and moments,
+   the kernels against the plain versions in one fp32 micro-batch at full
+   depth;
 12. gpt_head_sizes: one bf16 micro-batch each of phi-2 (D 80), open_llama_3b
    (D 100) and gemma-2b (D 256, one KV group) at full width and 2 layers,
    S 2048, seeded weights and tokens, the kernels against their plain
-   versions at phase 11's bf16 bars, with their (padded) launches.
+   versions at phase 11's bf16 bars, with their (padded) launches; and one
+   fp32 micro-batch of gemma-2b at phase 11's fp32 bars.
 
 Then the kernels line, the card line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -575,29 +580,25 @@ FLASH_MMA_KERNELS = {"bfloat16": ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_ker
                                  "flash_bwd_dq_tf32_kernel")}
 
 
-# the dK/dV passes of the bf16 kernel at D 256 (template argument PASS 1 and
-# 2), as `_flash_instance` names them
+# the dK/dV passes of the bf16 and fp32 kernels at D 256 (template argument
+# PASS 1 and 2), as `_flash_instance` names them
 DKV_PASSES = {"1": ".dv", "2": ".dk"}
 H100_SMEM_PER_BLOCK = 232448  # the most dynamic shared memory a block may have
 
 
 def flash_instances() -> list:
     """(kernel, dtype, D) of every flash kernel instance the launch functions
-    of csrc/flash_attention_{fwd,bwd}.cu can run: the six kernels at D 32, 64
-    and 128; at D 256 the bf16 forward, the bf16 dK/dV kernel's dV and dK
-    passes, the bf16 dQ kernel and the fp32 forward (the fp32 backward at
-    D 256 is not ported)."""
+    of csrc/flash_attention_{fwd,bwd}.cu can run: the six kernels at D 32, 64,
+    128 and 256, each dK/dV kernel at D 256 as its dV and dK passes."""
     from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
     out = []
     for dtype, kernels in FLASH_MMA_KERNELS.items():
         for kernel in kernels:
             for d in HEAD_DIMS:
-                if d <= 128:
-                    out.append((kernel, dtype, d))
-                elif kernel == "flash_bwd_dkv_mma_kernel":
+                if d > 128 and kernel.startswith("flash_bwd_dkv_"):
                     out += [(kernel + sfx, dtype, d) for sfx in DKV_PASSES.values()]
-                elif dtype == "bfloat16" or kernel == "flash_fwd_tf32_kernel":
+                else:
                     out.append((kernel, dtype, d))
     return out
 
@@ -605,7 +606,7 @@ def flash_instances() -> list:
 def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
     """Dynamic shared memory per block that the launch functions of
     csrc/flash_attention_{fwd,bwd}.cu ask for (ptxas reports static only)."""
-    tile, stride4 = 64 * d, 64 * (d + 4)
+    tile = 64 * d
     kernel = kernel.split(".")[0]  # a dK/dV pass asks for the kernel's memory
     if kernel == "flash_fwd_mma_kernel":
         return 2 * tile * 5
@@ -615,10 +616,13 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
         return 2 * tile * 6 + 4 * 64 * 4
     if kernel == "flash_bwd_dq_mma_kernel":
         return 2 * tile * 6
-    if kernel == "flash_bwd_dkv_tf32_kernel":
-        return 4 * stride4 * 6 + 4 * 64 * 2
-    if kernel == "flash_bwd_dq_tf32_kernel":
-        return 4 * stride4 * 6
+    # fp32 backward: the block's own tiles of 64 rows, the streamed ones (as
+    # big and small halves) of 64 rows, 16 at D 256
+    rows = 64 if d <= 128 else 16
+    if kernel == "flash_bwd_dkv_tf32_kernel":  # K, V; Q, dO halves; lse, delta rows
+        return 4 * (d + 4) * (2 * 64 + 4 * rows) + 4 * 2 * rows
+    if kernel == "flash_bwd_dq_tf32_kernel":  # Q, dO; K, V halves
+        return 4 * (d + 4) * (2 * 64 + 4 * rows)
     raise ValueError(f"unknown flash kernel {kernel}")
 
 
@@ -630,10 +634,10 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
     it may hold the source's name (`flash_attention_fwd_cu`) and end in
     digits, so each split of the digit run into namespace tail and length is
     tried.  The `_mma_` kernels take bf16, the others (`_tf32_`: 3xTF32
-    products on the tensor cores) fp32.  The bf16 dK/dV kernel's second
-    argument is its pass: 0 (both) keeps the name, 1 and 2 add ".dv" and
-    ".dk"; a bf16 kernel's last argument, the columns a block forms, is not
-    part of the key (one instance per head size and pass)."""
+    products on the tensor cores) fp32.  A dK/dV kernel's second argument is
+    its pass: 0 (both) keeps the name, 1 and 2 add ".dv" and ".dk"; a
+    kernel's last argument, the columns a launch forms, is not part of the
+    key (one instance per head size and pass)."""
     for found in re.finditer(r"(\d+)(?=flash_)", mangled):
         digits, start = found.group(1), found.end()
         for cut in range(len(digits)):
@@ -644,7 +648,7 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
                 dtype = "bfloat16" if "_mma_" in name else "float32"
                 if dim is None:
                     return name, dtype, 0
-                if name == "flash_bwd_dkv_mma_kernel":
+                if name.startswith("flash_bwd_dkv_"):
                     name += DKV_PASSES.get(dim.group(2), "")
                 return name, dtype, int(dim.group(1))
     return None
@@ -1627,13 +1631,15 @@ FLASH_CAUSAL_SMALL = [
 ]
 GPT_FLASH_SHAPE = (1, 4096, 32, 64)  # tiny-llama-1.1b at S 4096, GQA expanded
 # The head sizes outside 32 / 64 / 128 (shape, causal, valid lengths or None,
-# where): D 256 natively (pythia-1b's layer; a ragged non-causal case under
-# a key mask), and D 80 / 100 through the padded route (zero-padded to 128)
-# at the layer shapes of phi-2 and open_llama_3b at S 2048
+# where): D 256 natively (pythia-1b's layer; a causal and a non-causal case
+# under a key mask), and D 80 / 100 through the padded route (zero-padded to
+# 128) at the layer shapes of phi-2 and open_llama_3b at S 2048.  Each is
+# timed but the causal one under a mask (SDPA's `is_causal` takes no mask)
 FLASH_HEAD_SIZE_CASES = [
     ((1, 2048, 8, 256), True, None, "one layer of train_gpt_pythia: pythia-1b, one sequence "
                                     "of 2048"),
-    ((4, 300, 2, 256), False, [300, 1, 150, 263], "ragged non-causal under a key mask"),
+    ((2, 300, 2, 256), True, [300, 141], "ragged causal under a key mask"),
+    ((4, 200, 2, 256), False, [200, 1, 100, 173], "ragged non-causal under a key mask"),
     ((1, 2048, 32, 80), True, None, "one layer of phi-2 at S 2048; padded route, D 128"),
     ((1, 2048, 32, 100), True, None, "one layer of open_llama_3b at S 2048; padded route, "
                                      "D 128"),
@@ -1698,13 +1704,12 @@ def _flash_bounds(pairs: float, shape, elem_bytes: float, peak_flops: float) -> 
 
 def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], timed: bool,
                 where: str, phase: str = "kernel_flash_bwd", causal: bool = False,
-                dtype: torch.dtype = torch.float32, backward: bool = True) -> dict:
+                dtype: torch.dtype = torch.float32) -> dict:
     """The forward (with and without its log-sum-exp) and the two backward
     kernels against the plain versions on seeded q, k, v and cotangent of
     `shape` (B, T, H, D) and `dtype` under `key_mask` [B, T] (None: all valid)
     and `causal`; with `timed`, also the times beside the bounds and SDPA with
-    its autograd.  Without `backward`, the forward alone.  Emits one line and
-    returns its errors, times and bounds."""
+    its autograd.  Emits one line and returns its errors, times and bounds."""
     import torch.nn.functional as F
 
     from roar_tpu_torch.kernels import flash_attention as fa
@@ -1727,17 +1732,15 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
         errs = {"o": {"max_abs_err": float((out - out_p).abs().max())}}
     torch.testing.assert_close(lse, lse_p, **KERNEL_TOL)
     errs["lse"] = {"max_abs_err": float((lse - lse_p).abs().max())}
-    if backward:
-        got, want = _flash_backward_checks(q, k, v, key_mask, scale, out, lse, do, out_p, lse_p,
-                                           causal, errs)
+    got, want = _flash_backward_checks(q, k, v, key_mask, scale, out, lse, do, out_p, lse_p,
+                                       causal, errs)
     line = {"phase": phase, "where": where, "shape_bthd": list(shape), "causal": causal,
             "dtype": str(dtype).replace("torch.", ""),
             "key_lens": lens if b <= 4 else {"min": min(lens), "max": max(lens),
                                              "mean": float(np.mean(lens))},
-            "errors": errs, "tol": KERNEL_TOL, "backward": backward,
-            "bit_identical_across_two_runs": backward, "forward_unchanged_by_lse": True,
-            "function_launches_the_kernels": backward,
-            "function_vs_autograd_of_plain": backward and not bf16}
+            "errors": errs, "tol": KERNEL_TOL, "bit_identical_across_two_runs": True,
+            "forward_unchanged_by_lse": True, "function_launches_the_kernels": True,
+            "function_vs_autograd_of_plain": not bf16}
     if bf16:
         line.update(rtol=FLASH_BF16_RTOL, atol_rel_to_row_largest=FLASH_BF16_ROW_ATOL,
                     rel_l2_tol=FLASH_BF16_L2_TOL)
@@ -1751,19 +1754,16 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
         # the one PyTorch call that computes the same function: SDPA with
         # is_causal or the segment mask, and its autograd (a yardstick only;
         # the port never calls it); its backward gives dq, dk and dv together
-        qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_(backward) for z in (q, k, v))
+        qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_(True) for z in (q, k, v))
         if causal:
             how, library_call = {"is_causal": True}, "is_causal=True"
         else:
             how = {"attn_mask": key_mask[:, None, :, None] == key_mask[:, None, None, :]}
             library_call = "attn_mask=segment mask"
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale, **how)
-        results = [("o", lib_out, out_p)]
-        if backward:
-            lib_do = do.transpose(1, 2)
-            lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
-            results += list(zip(("dq", "dk", "dv"), lib_grads, want))
-        for name, a, w in results:
+        lib_do = do.transpose(1, 2)
+        lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
+        for name, a, w in [("o", lib_out, out_p), *zip(("dq", "dk", "dv"), lib_grads, want)]:
             a = a.transpose(1, 2).contiguous()
             if not bf16:
                 assert_flash_close(a, w, f"SDPA {name}")
@@ -1783,10 +1783,9 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
             "fwd_plain_ms": _time_ms(lambda: fa.flash_self_attention_plain(
                 q, k, v, key_mask, scale, True, causal), reps=5),
             "fwd_library_ms": _time_ms(lib_fwd),
+            **_flash_backward_times(q, k, v, key_mask, scale, out, lse, do, out_p, lse_p,
+                                    causal, lib_out, (qt, kt, vt), lib_do),
         }
-        if backward:
-            times.update(_flash_backward_times(q, k, v, key_mask, scale, out, lse, do, out_p,
-                                               lse_p, causal, lib_out, (qt, kt, vt), lib_do))
         # what this data needs: a query sees the keys of its segment, and with
         # `causal` those at or before it, so n^2 or n (n + 1) / 2 pairs for a
         # segment of n.  A bf16 element is two bytes and its products are held
@@ -1800,14 +1799,13 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
         if not bf16:
             case["bounds_fp32_fma"] = _flash_bounds(pairs, shape, 4.0, FP32_FLOPS)
             line["bounds_fp32_fma"] = case["bounds_fp32_fma"]
-        achieved = {"fwd": 4.0 * pairs * h * d / times["fwd_with_lse_ms"] / 1e9}
-        if backward:
-            achieved.update(dkv=8.0 * pairs * h * d / times["dkv_ms"] / 1e9,
-                            dq=6.0 * pairs * h * d / times["dq_ms"] / 1e9)
+        achieved = {"fwd": 4.0 * pairs * h * d / times["fwd_with_lse_ms"] / 1e9,
+                    "dkv": 8.0 * pairs * h * d / times["dkv_ms"] / 1e9,
+                    "dq": 6.0 * pairs * h * d / times["dq_ms"] / 1e9}
         line.update(times, bounds=bounds, visible_pairs_per_head=pairs, peak_flops=peak,
                     achieved_tflops=achieved,
-                    library_call=f"F.scaled_dot_product_attention({library_call})"
-                                 + (" and its autograd: dq, dk, dv together" if backward else ""))
+                    library_call=f"F.scaled_dot_product_attention({library_call}) and its "
+                                 "autograd: dq, dk, dv together")
         case.update(times=times, bounds=bounds)
     _emit(line)
     return case
@@ -1949,10 +1947,9 @@ def phase_kernel_flash_causal(device: torch.device) -> dict:
 def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
     """K5 at the head sizes outside 32 / 64 / 128 against the plain versions
     in fp32 and bf16 (`FLASH_HEAD_SIZE_CASES`), timed beside the bounds and
-    SDPA: at D 256 the bf16 forward, dK/dV and dQ and the fp32 forward (the
-    fp32 backward at D 256 must raise NotImplementedError), and the padded
-    route at D 80 and 100, forward and backward in both types, counted in
-    `LAUNCHES_PADDED`.  Returns {(shape, dtype name): case}."""
+    SDPA: at D 256 the forward, dK/dV and dQ kernels in both types, and the
+    padded route at D 80 and 100, forward and backward in both types,
+    counted in `LAUNCHES_PADDED`.  Returns {(shape, dtype name): case}."""
     from roar_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -1960,24 +1957,13 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
     for shape, causal, lens, where in FLASH_HEAD_SIZE_CASES:
         d = shape[3]
         for dtype in (torch.float32, torch.bfloat16):
-            backward = not (d == 256 and dtype == torch.float32)
             padded_before = fa.LAUNCHES_PADDED.copy()
-            case = _flash_case(gen, shape, _key_mask(lens, shape[1], device), True, where,
-                               "kernel_flash_head_sizes", causal=causal, dtype=dtype,
-                               backward=backward)
+            case = _flash_case(gen, shape, _key_mask(lens, shape[1], device),
+                               not (causal and lens), where, "kernel_flash_head_sizes",
+                               causal=causal, dtype=dtype)
             padded = fa.LAUNCHES_PADDED - padded_before
             if (d in fa.HEAD_DIMS) == bool(padded):
                 raise AssertionError(f"D {d}: padded launches {dict(padded)}")
-            if not backward:
-                x = torch.zeros(1, 64, 1, d, device=device)
-                lse = torch.zeros(1, 1, 64, device=device)
-                try:
-                    fa.flash_self_attention_bwd(x, x, x, None, 1.0, x, lse, x, causal=causal)
-                except NotImplementedError as err:
-                    if "head size 256" not in str(err):
-                        raise
-                else:
-                    raise AssertionError("the fp32 backward at D 256 did not raise")
             out[(shape, str(dtype).replace("torch.", ""))] = case
             torch.cuda.empty_cache()
     return out
@@ -2998,10 +2984,8 @@ GPT_NARROW = {"n_layer": 2, "n_embd": 64, "n_head": 4, "n_query_groups": 2,
               "intermediate_size": 96}
 # The registry architectures phase `train_gpt` trains at full width and
 # depth: the sequence length and the corpus's vocabulary (the entry's own),
-# the updates, what the run must build (layers, width, heads, KV groups, MLP
-# width, padded vocabulary, block size, parameters), and whether its fp32
-# check is a whole micro-batch or, at D 256 where the fp32 backward is not
-# ported, the fp32 validation forward at full depth.  pythia-1b takes 8
+# the updates, and what the run must build (layers, width, heads, KV groups,
+# MLP width, padded vocabulary, block size, parameters).  pythia-1b takes 8
 # updates: in its first ones each AdamW step overshoots (its first update
 # lifted the loss from 11.17 to 12.58 while the token accuracy rose from 0 to
 # 0.09, on an H100; at 4 layers on the CPU the mean loss of updates 1 to 8
@@ -3009,22 +2993,23 @@ GPT_NARROW = {"n_layer": 2, "n_embd": 64, "n_head": 4, "n_query_groups": 2,
 # not show whether it learns
 GPT_RUNS = {
     "tiny-llama-1.1b": {"seq_length": 4096, "vocab_size": 32000, "updates": 3,
-                        "fp32_backward": True,
                         "shape": (22, 2048, 32, 4, 5632, 32000, 4096, 1100048384)},
-    "pythia-1b": {"seq_length": 2048, "vocab_size": 50254, "updates": 8, "fp32_backward": False,
+    "pythia-1b": {"seq_length": 2048, "vocab_size": 50254, "updates": 8,
                   "shape": (16, 2048, 8, 8, 8192, 50304, 2048, 1011781632)},
 }
 
 
 def gpt_train_config(train_file: str, val_file: str, exp_dir: str, device: str = "cuda",
                      seq_length: int = 4096, vocab_size: int = 32000,
-                     config_name: str = "tiny-llama-1.1b") -> dict:
+                     config_name: str = "tiny-llama-1.1b",
+                     precision: Optional[str] = "bf16") -> dict:
     """The config phase `train_gpt` trains at, as a dict: the model block
     holds `config_name` and only the overrides it means (any other GPTConfig
     field there would override the entry's own), the optimizer, schedule,
     clip and logger blocks are those of configs/gpt_pretraining.yaml
     (tests/test_torch_gpt_train.py holds them to the YAML), with
-    `trainer.precision=bf16`, `trainer.accumulate_grad_batches=4`, batch 1,
+    `trainer.precision=<precision>` (None: no such key, so the YAML's fp32
+    applies), `trainer.accumulate_grad_batches=4`, batch 1,
     `trainer.max_steps=1000` (the schedule's horizon: 20 warm-up updates, of
     which the phase's one epoch takes the first three; from the YAML's peak
     rate at once, a model of this width loses ground on its first updates),
@@ -3037,12 +3022,14 @@ def gpt_train_config(train_file: str, val_file: str, exp_dir: str, device: str =
         "optim": {"name": "adamw", "lr": 3e-4, "weight_decay": 0.1, "betas": [0.9, 0.95],
                   "sched": {"name": "CosineAnnealing", "warmup_ratio": 0.02, "min_lr": 3e-5}},
     }
+    trainer = {"max_epochs": 1, "max_steps": GPT_SCHEDULE_STEPS, "gradient_clip_val": 1.0,
+               "log_every_n_steps": 1, "model_parallel_size": 1, "accumulate_grad_batches": 4,
+               "seed": 0}
+    if precision is not None:
+        trainer["precision"] = precision
     return {
         "name": "GPTPretraining", "train_dataset": train_file, "validation_dataset": val_file,
-        "model": model,
-        "trainer": {"max_epochs": 1, "max_steps": GPT_SCHEDULE_STEPS, "gradient_clip_val": 1.0,
-                    "log_every_n_steps": 1, "model_parallel_size": 1, "precision": "bf16",
-                    "accumulate_grad_batches": 4, "seed": 0},
+        "model": model, "trainer": trainer,
         "exp_manager": {"exp_dir": exp_dir, "name": "GPTPretraining",
                         "create_tensorboard_logger": True, "always_save_roar": True},
         "device": device,
@@ -3100,14 +3087,17 @@ def _grad_l2_rel(got, want, names=None):
 
 def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
                     seq_length: Optional[int] = None, vocab_size: Optional[int] = None,
-                    updates: Optional[int] = None,
-                    config_name: str = "tiny-llama-1.1b") -> dict:
+                    updates: Optional[int] = None, config_name: str = "tiny-llama-1.1b",
+                    precision: Optional[str] = "bf16") -> dict:
     """GPT causal-LM training through the CLI's `run` at the full width and
     depth of a `GPT_RUNS` entry, tiny-llama-1.1b or pythia-1b (`narrow`: a
     rehearsal width; `seq_length`, `vocab_size` and `updates` default to the
-    entry's);
-    returns the causal flash launch counts of that run (all, and the bf16
-    ones) and of its fp32 check, and on the card the step's timing."""
+    entry's), at `precision` "bf16" (from fp32 masters) or None (fp32, the
+    YAML's own).  Then one micro-batch with the kernels against one with the
+    plain versions: in a bf16 run at full depth in bf16 and at 4 layers in
+    fp32, in an fp32 run at full depth in fp32.  Returns the causal flash
+    launch counts of the run (all, and the bf16 ones) and of its fp32 check,
+    and on the card the step's timing."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "examples", "nlp"))
     import gpt_pretraining_torch as cli
@@ -3141,7 +3131,7 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
         write_lm_corpus(rng, train_file, val_file, n_words,
                         train_tokens=micro_batches * seq_length + seq_length // 2)
         cfg = gpt_train_config(train_file, val_file, os.path.join(tmp, "exp"), str(device),
-                               seq_length, vocab_size, config_name)
+                               seq_length, vocab_size, config_name, precision)
         if narrow:
             cfg["model"].update(GPT_NARROW)
 
@@ -3172,9 +3162,13 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
             raise AssertionError(f"the corpus gave {config.vocab_size} tokens, not {vocab_size}")
         if state.step != micro_batches or state.opt.count != updates:
             raise AssertionError(f"{state.step} micro-batches, {state.opt.count} updates")
-        if module.compute_dtype != torch.bfloat16 or any(
-                p.dtype != torch.float32 for p in module.parameters()):
-            raise AssertionError("not bf16 compute from fp32 master parameters")
+        compute = torch.bfloat16 if precision == "bf16" else None
+        moments = [m for st in state.opt.optimizer.state.values()
+                   for m in (st["exp_avg"], st["exp_avg_sq"])]
+        if module.compute_dtype != compute or len(moments) != 2 * len(list(module.parameters())) \
+                or any(t.dtype != torch.float32 for t in [*module.parameters(), *moments]):
+            raise AssertionError(f"not {compute or 'fp32'} compute from fp32 master parameters "
+                                 "and moments")
 
         root = os.path.join(tmp, "exp", "GPTPretraining")
         with open(os.path.join(root, "metrics.jsonl")) as f:
@@ -3203,18 +3197,20 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
         if not np.allclose(lrs, [schedule(i // accumulate) for i in range(micro_batches)],
                            rtol=1e-9, atol=0.0):
             raise AssertionError(f"learning rates {lrs} are not the schedule's")
-        # every attention of the run went through the causal kernels: a bf16
-        # forward, dkv and dq per layer and micro-batch (`remat_policy=flash`
-        # keeps the forward's results), an fp32 forward per layer and
-        # validation batch (validation runs from the fp32 masters), and
-        # nothing through the non-causal ones
+        # every attention of the run went through the causal kernels: a
+        # forward, dkv and dq per layer and micro-batch in the run's type
+        # (`remat_policy=flash` keeps the forward's results), an fp32 forward
+        # per layer and validation batch (validation runs from the fp32
+        # masters), and nothing through the non-causal ones
         steps = {"fwd": n_layer * micro_batches, "dkv": n_layer * micro_batches,
                  "dq": n_layer * micro_batches}
         want = {**steps, "fwd": steps["fwd"] + n_layer * n_val}
-        if on_card and (launches != want or launches_bf16 != steps):
+        want_bf16 = steps if precision == "bf16" else dict.fromkeys(steps, 0)
+        if on_card and (launches != want or launches_bf16 != want_bf16):
             raise AssertionError(f"causal flash launches {launches} (bf16 {launches_bf16}) != "
-                                 f"{want} (bf16 {steps})")
+                                 f"{want} (bf16 {want_bf16})")
         _emit({"phase": "train_gpt", "config_name": config_name, "step": "cli", "card": card,
+               "precision": precision or "32", "compute_dtype": str(compute),
                "config": {k: v for k, v in cfg["model"].items()
                           if k not in ("train_ds", "optim")},
                "parameters": n_params, "layers": n_layer, "micro_batches": micro_batches,
@@ -3223,7 +3219,8 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
                "per_micro_batch": {"fwd": (launches["fwd"] - n_layer * n_val) // micro_batches,
                                    "dkv": launches["dkv"] // micro_batches,
                                    "dq": launches["dq"] // micro_batches},
-               "fp32_fwd_per_validation_batch": (launches["fwd"] - launches_bf16["fwd"]) // n_val,
+               # a forward per dkv in the steps; the rest are validation's, all fp32
+               "fp32_fwd_per_validation_batch": (launches["fwd"] - launches["dkv"]) // n_val,
                "validation_batches": n_val, "loss_by_micro_batch": [r["loss"] for r in train],
                "loss_by_update": by_update, "token_acc_last": train[-1]["token_acc"],
                "val": {k: v for k, v in val[0].items() if k.startswith("val_")},
@@ -3283,17 +3280,20 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
     per_micro_batch = policy["flash"]["launches"]
     del policy
 
-    # bf16 at full depth: the trained model, kernels against plain versions
-    bf16_line = _gpt_bf16_kernels_vs_plain(model, batch, loss_k, grads_k)
-    del grads_k
-
-    if spec["fp32_backward"]:
+    if precision == "bf16":
+        # bf16 at full depth: the trained model, kernels against plain
+        # versions; then fp32 at 4 layers
+        bf16_line = _gpt_bf16_kernels_vs_plain(model, batch, loss_k, grads_k)
+        del grads_k
         fp32_line, step32 = _gpt_fp32_micro_batch(cfg, config, batch, device)
     else:
-        fp32_line, step32 = _gpt_fp32_validation_forward(model, batch)
+        # fp32 at full depth: the trained model, kernels against plain
+        bf16_line = None
+        fp32_line = _gpt_fp32_kernels_vs_plain(model, batch, loss_k, grads_k)
+        step32 = per_micro_batch
+        del grads_k
     sync()
-    want32 = fp32_line.pop("want_launches")
-    if on_card and step32 != want32:
+    if on_card and step32 != dict.fromkeys(("fwd", "dkv", "dq"), fp32_line["layers"]):
         raise AssertionError(f"the fp32 check launched {step32}")
     _emit({"phase": "train_gpt", "config_name": config_name, "step": "kernel_path_vs_plain_path",
            "batch_shape": list(batch["input_ids"].shape), "bf16": bf16_line, "fp32": fp32_line})
@@ -3322,7 +3322,8 @@ def _causal_launches_since(before: Counter, counts: Optional[Counter] = None,
 def _gpt_fp32_micro_batch(cfg: dict, config, batch: dict, device: torch.device) -> tuple:
     """fp32 at full width and 4 layers: a model of its own, seeded on the
     device, one micro-batch with the kernels against one with the plain
-    versions.  Returns (its line, its causal launches)."""
+    versions (`_gpt_fp32_kernels_vs_plain`).  Returns (its line, its causal
+    launches)."""
     from roar_tpu_torch.kernels import flash_attention as fa
     from roar_tpu_torch.models.gpt_model import GPTLMModel
 
@@ -3335,46 +3336,25 @@ def _gpt_fp32_micro_batch(cfg: dict, config, batch: dict, device: torch.device) 
     before = fa.LAUNCHES.copy()
     loss_k32, grads_k32 = _gpt_micro_batch(small, batch)
     step32 = _causal_launches_since(before)
+    line = _gpt_fp32_kernels_vs_plain(small, batch, loss_k32, grads_k32)
+    del grads_k32, small
+    return line, step32
+
+
+def _gpt_fp32_kernels_vs_plain(model, batch: dict, loss_k: float, grads_k) -> dict:
+    """One fp32 micro-batch with the plain versions against the kernels'
+    (`loss_k`, `grads_k`): the loss within GPT_FP32_LOSS_RTOL and the whole
+    gradient within GPT_FP32_GRAD_L2_TOL.  Returns the errors."""
     with _PlainFlash():
-        loss_p32, grads_p32 = _gpt_micro_batch(small, batch)
-    fp32_l2 = _grad_l2_rel(grads_k32, grads_p32)
-    n32 = small.config.n_layer
-    del grads_k32, grads_p32, small
-    if abs(loss_k32 - loss_p32) > GPT_FP32_LOSS_RTOL * abs(loss_p32) \
-            or fp32_l2 > GPT_FP32_GRAD_L2_TOL:
-        raise AssertionError(f"fp32, kernels vs plain: loss {loss_k32} vs {loss_p32}, whole "
+        loss_p, grads_p = _gpt_micro_batch(model, batch)
+    fp32_l2 = _grad_l2_rel(grads_k, grads_p)
+    del grads_p
+    if abs(loss_k - loss_p) > GPT_FP32_LOSS_RTOL * abs(loss_p) or fp32_l2 > GPT_FP32_GRAD_L2_TOL:
+        raise AssertionError(f"fp32, kernels vs plain: loss {loss_k} vs {loss_p}, whole "
                              f"gradient differs by {fp32_l2}")
-    return ({"layers": n32, "loss_kernels": loss_k32, "loss_plain": loss_p32,
-             "loss_rtol": GPT_FP32_LOSS_RTOL, "whole_grad_l2_rel_err": fp32_l2,
-             "grad_l2_tol": GPT_FP32_GRAD_L2_TOL,
-             "want_launches": {"fwd": n32, "dkv": n32, "dq": n32}}, step32)
-
-
-def _gpt_fp32_validation_forward(model, batch: dict) -> tuple:
-    """fp32 at full width and depth where the fp32 backward is not ported
-    (D 256): the loss as validation forms it (the trained fp32 masters, no
-    gradient) with the kernels against the plain versions.  Returns (its
-    line, its causal launches)."""
-    from roar_tpu_torch.kernels import flash_attention as fa
-
-    dtype = model.module.compute_dtype
-    model.set_compute_dtype(None)
-    try:
-        with torch.no_grad():
-            before = fa.LAUNCHES.copy()
-            loss_k32 = float(model.loss_fn(batch)[0])
-            step32 = _causal_launches_since(before)
-            with _PlainFlash():
-                loss_p32 = float(model.loss_fn(batch)[0])
-    finally:
-        model.set_compute_dtype(dtype)
-    if abs(loss_k32 - loss_p32) > GPT_FP32_LOSS_RTOL * abs(loss_p32):
-        raise AssertionError(f"fp32 validation forward, kernels vs plain: loss {loss_k32} vs "
-                             f"{loss_p32}")
-    n_layer = model.config.n_layer
-    return ({"layers": n_layer, "forward_only": "the fp32 backward at D 256 is not ported",
-             "loss_kernels": loss_k32, "loss_plain": loss_p32, "loss_rtol": GPT_FP32_LOSS_RTOL,
-             "want_launches": {"fwd": n_layer, "dkv": 0, "dq": 0}}, step32)
+    return {"layers": model.config.n_layer, "loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rtol": GPT_FP32_LOSS_RTOL, "whole_grad_l2_rel_err": fp32_l2,
+            "grad_l2_tol": GPT_FP32_GRAD_L2_TOL}
 
 
 def _gpt_bf16_kernels_vs_plain(model, batch: dict, loss_k: float, grads_k) -> dict:
@@ -3422,9 +3402,11 @@ def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int =
                          narrow: bool = False) -> dict:
     """One bf16 micro-batch of each `GPT_HEAD_SIZE_RUNS` entry (seeded
     weights, seeded tokens) with the kernels against one with the plain
-    versions, at the bars of `_gpt_bf16_kernels_vs_plain`; `narrow`: two heads
-    of the entry's head size and a small vocabulary, for a rehearsal on the
-    CPU.  Returns {name: causal launches, bf16 and padded ones}."""
+    versions, at the bars of `_gpt_bf16_kernels_vs_plain`, and at D 256
+    (gemma-2b) one fp32 micro-batch too, at those of
+    `_gpt_fp32_kernels_vs_plain`; `narrow`: two heads of the entry's head size
+    and a small vocabulary, for a rehearsal on the CPU.  Returns {name:
+    causal launches, bf16 and padded ones, and at D 256 the fp32 ones}."""
     from roar_tpu_torch.kernels import flash_attention as fa
     from roar_tpu_torch.models.gpt_model import GPTLMModel
 
@@ -3460,13 +3442,29 @@ def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int =
         if on_card and counts != {"all": want, "bf16": want, "padded": padded}:
             raise AssertionError(f"{name}: launches {counts}, want {want} (padded {padded})")
         line = _gpt_bf16_kernels_vs_plain(model, batch, loss_k, grads_k)
-        del grads_k, model
+        del grads_k
+        line32 = None
+        if head_size == 256:
+            # the GPT recipe's own precision: the same model and batch in fp32
+            model.set_compute_dtype(None)
+            _zero_launch_counts()
+            loss_k, grads_k = _gpt_micro_batch(model, batch)
+            if on_card:
+                torch.cuda.synchronize()
+            counts["fp32"] = _causal_launches_since(Counter(), strict=on_card)
+            none = dict.fromkeys(want, 0)
+            if on_card and (counts["fp32"] != want or _causal_launches_since(
+                    Counter(), fa.LAUNCHES_BF16) != none):
+                raise AssertionError(f"{name} fp32: launches {dict(fa.LAUNCHES)}, want {want}")
+            line32 = _gpt_fp32_kernels_vs_plain(model, batch, loss_k, grads_k)
+            del grads_k
+        del model
         _emit({"phase": "gpt_head_sizes", "config_name": name, "card": card,
                "head_size": head_size, "kernel_head_size": fa.kernel_head_dim(
                    head_size, torch.bfloat16, True), "kv_groups": config.n_query_groups,
                "n_head": config.n_head, "n_embd": config.n_embd, "parameters": count,
                "batch_shape": list(batch["input_ids"].shape), "launches": counts,
-               "bf16": line})
+               "bf16": line, "fp32": line32})
         out[name] = counts
         if on_card:
             torch.cuda.empty_cache()
@@ -4003,6 +4001,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     pythia = phase_train_gpt(device, card, config_name="pythia-1b")
     torch.cuda.empty_cache()
+    # configs/gpt_pretraining.yaml at its own precision, fp32, at D 256
+    pythia32 = phase_train_gpt(device, card, config_name="pythia-1b", precision=None)
+    torch.cuda.empty_cache()
     heads = phase_gpt_head_sizes(device, card)
 
     def pick(d):
@@ -4035,8 +4036,6 @@ def main() -> int:
         if "bounds_fp32_fma" in cases[-1]:
             fwd["bound_fp32_fma_ms"] = total(
                 lambda c: c["bounds_fp32_fma"]["fwd_with_lse"]["bound_ms"])
-        if "dkv_ms" not in cases[-1]["times"]:  # a forward-only case
-            return fwd, None
         bwd = {name: {"ms": total(lambda c: c["times"][f"{name}_ms"]),
                       "backward_ms": total(lambda c: c["times"]["backward_ms"]),
                       "plain_ms": total(lambda c: c["times"]["backward_plain_ms"]),
@@ -4091,15 +4090,16 @@ def main() -> int:
     causal_errors = list(fcausal["max_abs_err"].values())
     backward_kernels = (("dkv", ("dk", "dv")), ("dq", ("dq",)))
     # K5 at the head sizes outside 32 / 64 / 128 (phase
-    # `kernel_flash_head_sizes`): D 256 on the pythia-1b run (`launches`: its
-    # bf16 forwards, dkv and dq, and its fp32 validation forwards); the
-    # padded route at D 80 / 100 on the phi-2 / open_llama_3b micro-batches
-    # of phase `gpt_head_sizes` (bf16; `fp32` beside: the same call in fp32)
-    d256, ragged = (1, 2048, 8, 256), (4, 300, 2, 256)
+    # `kernel_flash_head_sizes`): D 256 on the pythia-1b runs (`launches`:
+    # the bf16 run's bf16 forwards, dkv and dq and its fp32 validation
+    # forwards; the fp32 run's fp32 forwards, dkv and dq); the padded route
+    # at D 80 / 100 on the phi-2 / open_llama_3b micro-batches of phase
+    # `gpt_head_sizes` (bf16; `fp32` beside: the same call in fp32)
+    d256, ragged = (1, 2048, 8, 256), (4, 200, 2, 256)
     d256_fwd, d256_bwd = flash_rows([fheads[(d256, "bfloat16")]])
-    d256_fwd32, _ = flash_rows([fheads[(d256, "float32")]])
+    d256_fwd32, d256_bwd32 = flash_rows([fheads[(d256, "float32")]])
     ragged_fwd, ragged_bwd = flash_rows([fheads[(ragged, "bfloat16")]])
-    ragged_fwd32, _ = flash_rows([fheads[(ragged, "float32")]])
+    ragged_fwd32, ragged_bwd32 = flash_rows([fheads[(ragged, "float32")]])
 
     def head_errors(d, dtype):
         return [case["errors"] for (shape, name), case in fheads.items()
@@ -4254,7 +4254,7 @@ def main() -> int:
            "train_fastpitch": fp16_bwd[name]}
           for name, grads in backward_kernels],
         # K5 at D 256: `launches` the pythia-1b run's; times at its layer
-        # shape, `ragged_non_causal` at (4, 300, 2, 256) under a key mask
+        # shape, `ragged_non_causal` at (4, 200, 2, 256) under a key mask
         {"name": "flash_attention_causal_fwd_d256", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
@@ -4271,15 +4271,29 @@ def main() -> int:
            "max_abs_err": worst(head_errors(256, "bfloat16"), *grads), **d256_bwd[name],
            "ragged_non_causal": ragged_bwd[name]}
           for name, grads in backward_kernels],
-        # fp32 (3xTF32) at D 256: the forward only (validation from the fp32
-        # masters); `launches` the pythia-1b run's validation forwards
+        # fp32 (3xTF32) at D 256: `launches` of the forward are the bf16
+        # pythia-1b run's validation forwards (from the fp32 masters), those
+        # of the backward the fp32 pythia-1b run's; `launches_train_fp32`
+        # every fp32 launch of that run, validation forwards included
         {"name": "flash_attention_causal_fwd_d256_fp32", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "float32",
          "kernel": "flash_fwd_tf32_kernel", "head_size": 256, "launches": pythia_fp32_fwd,
+         "launches_train_fp32": pythia32["launches"]["fwd"],
          "launches_fp32_check": pythia["fp32_check_launches"]["fwd"],
          "max_abs_err": worst(head_errors(256, "float32"), "o"), **d256_fwd32,
          "ragged_non_causal": ragged_fwd32},
+        *[{"name": f"flash_attention_causal_bwd_{name}_d256_fp32", "route": "cuda",
+           "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "float32",
+           "kernel": f"flash_bwd_{name}_tf32_kernel", "head_size": 256,
+           "launches": pythia32["launches"][name],
+           "launches_per_micro_batch": pythia32["per_micro_batch"][name],
+           "launches_fp32_check": pythia["fp32_check_launches"][name],
+           "launches_gpt_head_sizes": heads["gemma-2b"]["fp32"][name],
+           "max_abs_err": worst(head_errors(256, "float32"), *grads), **d256_bwd32[name],
+           "ragged_non_causal": ragged_bwd32[name]}
+          for name, grads in backward_kernels],
         *padded_rows,
     ]
     if not all(k["launches"] > 0 for k in kernels) or fp_train["launches"]["fwd"] == 0 \

@@ -24,10 +24,11 @@
 // Every output element belongs to one thread of one block and is summed in a
 // fixed order, so there are no float atomics and two runs give the same bits.
 //
-// Head sizes 32, 64 and 128 in both types, and 256 in bf16 (192 KB of shared
-// memory a block; a block then forms half of the output columns, and the
-// dK/dV kernel runs dV and dK as separate passes, see its notes).  The fp32
-// kernels at D 256 would need 391 KB as they stand and are not built.
+// Head sizes 32, 64, 128 and 256 in both types.  At D 256 (192 to 196 KB of
+// shared memory a block) a launch forms half of the output columns, and the
+// dK/dV kernel runs dV and dK as separate passes (see the bf16 kernel's
+// notes); the fp32 kernels there also stream 16-row tiles in place of 64-row
+// ones (see the fp32 kernels' notes).
 //
 // Both types share one block layout, 4 warps a block.  dK/dV: each warp owns
 // 16 keys of the block's 64-key tile as the rows of S^T = K q^T and
@@ -84,8 +85,10 @@
 // loop over key tiles ends at the query tile's own column, and the diagonal
 // tile is masked element by element; the dq kernels hand their query tiles
 // out longest first (the dkv kernels' first key tile is their longest
-// already).  Later work: wgmma / TMA, a fused five-product backward, and a
-// GQA-aware kernel.
+// already).  At D 256 the passes and column halves do eight (dK/dV) and five
+// (dQ) products where four and three would do, with one block a SM, and the
+// fp32 kernels' 16-row tiles wait on a copy every 16 rows.  Later work:
+// wgmma / TMA, a fused five-product backward, and a GQA-aware kernel.
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
@@ -525,54 +528,103 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // each A fragment is split after its load; the streamed tiles of the other
 // side, read as B operands by all four warps in both products, are split once
 // per tile in shared memory into a big and a small half (TF32 bit patterns).
+//
+// At D 256 that layout would ask for 399,872 B (dK/dV) and 399,360 B (dQ) of
+// shared memory, the card grants a block 232,448, and a whole row of dK and
+// dV takes 256 accumulators a thread.  So at D 256:
+//  - the streamed tiles hold 16 rows (`tf32_rows`), as the fp32 forward's
+//    K/V tiles do there: 199,808 B (dK/dV) and 199,680 B (dQ) beside the
+//    block's own 64-row fp32 tiles, one block a SM.  Tiles of 32 rows would
+//    take 266,240 B as split halves; stored unsplit and split at the
+//    fragment load they would fit, but every warp would then split every B
+//    word it reads, four times the split work of the shared split.
+//  - a launch forms half of the output columns (`NCOL` 128 at `col0` 0 and
+//    128), and the dK/dV kernel runs dV and dK as separate passes (`PASS`),
+//    as the bf16 kernels at D 256 do: each launch holds 64 accumulators a
+//    thread, in registers, with its output loop unrolled whole (196 to 212
+//    registers, no spill, no stack frame with nvcc 12.8; dK and dV of one
+//    half together are 128, which the D 128 kernels keep in the stack
+//    frame).  Four dK/dV launches and two dQ launches a call; the passes and
+//    halves recompute S^T (dV pass), S^T and dP^T (dK pass), S and dP (dQ):
+//    eight and five T x T x D products where the two kernels need four and
+//    three.
+// The passes, halves and 16-row tiles change the work, not the sums: a
+// streamed tile's rows enter each output sum in the order of a 64-row
+// tile's (8-row k-chunks, ascending), and a column of a half is summed as in
+// a whole row.
 // ---------------------------------------------------------------------------
 
 using namespace flash::tf32;
+
+// rows of a streamed tile of the fp32 kernels: 64, and 16 at D 256
+template <int D>
+__host__ __device__ constexpr int tf32_rows() {
+  return D <= 128 ? fa_mma::ROWS : 16;
+}
+
+// the output columns a launch forms, fp32 and bf16: all of them, and half of
+// them at D 256
+template <int D>
+__host__ __device__ constexpr int ncol() {
+  return D > 128 ? D / 2 : D;
+}
 
 // ---------------------------------------------------------------------------
 // The fp32 dK/dV kernel.  One block of 4 warps per 64-key tile; warp w owns
 // keys 16 w .. 16 w + 15 whole, as the rows of
 //   S^T = K Q^T  and  dP^T = V dO^T   (K and V as A fragments),
-// and loops over the visible 64-query tiles (from the diagonal with `causal`),
-// 8 NQ queries at a time:
+// and loops over the visible query tiles of `tf32_rows` rows (from the
+// diagonal with `causal`), 8 NQ queries at a time:
 //   P^T  = exp(S^T * scale - lse)            (0 where masked)
 //   dS^T = P^T o (dP^T - delta) * scale
 //   dV  += P^T dO,   dK += dS^T Q             (dO and Q rows read permuted)
 // Each query tile is staged by cp.async with its lse / delta rows and split in
 // place; one stage, so the copies of the next tile wait for this one's
-// products (two blocks a SM at D <= 64 overlap each other's).
+// products (two blocks a SM at D <= 64 overlap each other's).  `PASS` and
+// `NCOL` as in the bf16 kernel: DKV_BOTH and all columns up to D 128; at
+// D 256 a dV pass (no dP^T, no V tile) and a dK pass, each over a half.
 // ---------------------------------------------------------------------------
 
 template <int D>
 constexpr size_t dkv_tf32_smem_bytes() {
   // K, V, then Q and dO as big and small halves; lse and delta rows
-  return sizeof(float) * (6 * fa_mma::ROWS * (D + 4) + 2 * fa_mma::ROWS);
+  constexpr int R = tf32_rows<D>();
+  return sizeof(float) * ((2 * fa_mma::ROWS + 4 * R) * (D + 4) + 2 * R);
 }
 
-template <int D>
+template <int D, int PASS, int NCOL>
 __global__ void __launch_bounds__(fa_mma::THREADS)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const int* __restrict__ seg,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const float* __restrict__ dout, float* __restrict__ dk,
-                          float* __restrict__ dv, int T, int H, float scale, int causal) {
+                          float* __restrict__ dv, int T, int H, float scale, int causal,
+                          int col0_arg) {
   using namespace fa_mma;
-  constexpr int TW = ROWS * (D + 4);  // words of a staged tile
-  constexpr int KC = D / 8;           // k-chunks of the score products; n-tiles of dK, dV
-  // 8-query n-tiles a chunk, in pairs; D 128 keeps 128 accumulators a thread,
-  // takes 16 queries a chunk and unrolls its inner loops 4 times
+  constexpr int R = tf32_rows<D>();   // queries of a staged tile
+  constexpr int TW = ROWS * (D + 4);  // words of the K or V tile
+  constexpr int RW = R * (D + 4);     // words of a staged query tile's half
+  constexpr int KC = D / 8;           // k-chunks of the score products
+  constexpr int NT = NCOL / 8;        // n-tiles of this launch's columns of dK, dV
+  // 8-query n-tiles a chunk, in pairs; D 128 and 256 take 16 queries a chunk
   constexpr int NQ = D <= 64 ? 4 : 2;
+  // the score products' k-chunks unroll whole up to D 64, 4 times above; the
+  // output n-tiles unroll whole but at D 128, whose 128 accumulators a
+  // thread live in the stack frame
   constexpr int UNROLL = D <= 64 ? KC : 4;
+  constexpr int UNROLL_OUT = D == 128 ? 4 : NT;
+  constexpr bool DO_DV = PASS != DKV_DK, DO_DK = PASS != DKV_DV;
+  const int col0 = NCOL == D ? 0 : col0_arg;
 
   extern __shared__ float4 smem_dkv_tf32[];
   float* Ks = reinterpret_cast<float*>(smem_dkv_tf32);
   float* Vs = Ks + TW;
   float* Qbig = Vs + TW;
-  float* Qsmall = Qbig + TW;
-  float* Obig = Qsmall + TW;  // dO
-  float* Osmall = Obig + TW;
-  float* lse_s = Osmall + TW;     // [ROWS]
-  float* delta_s = lse_s + ROWS;  // [ROWS]
+  float* Qsmall = Qbig + RW;
+  float* Obig = Qsmall + RW;  // dO
+  float* Osmall = Obig + RW;
+  float* lse_s = Osmall + RW;  // [R]
+  float* delta_s = lse_s + R;  // [R]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -587,40 +639,43 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   segment_range(segb, k0, T, lane, klo, khi);
 
   stage_tile_f32<D>(Ks, k, base, ld, k0, T, tid);
-  stage_tile_f32<D>(Vs, v, base, ld, k0, T, tid);
+  if constexpr (DO_DK) stage_tile_f32<D>(Vs, v, base, ld, k0, T, tid);
   cp_async_commit();
   // causal: the query tiles before this key tile's own row see none of its keys
   bool uniform, uniform_next;
-  int q0 = next_tile(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
+  int q0 = next_tile<R>(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
 
   // this thread's two keys, rows g and g + 8 of the warp's 16
   const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
   const int seg0 = key0 < T ? segb[key0] : -1, seg1 = key1 < T ? segb[key1] : -1;
 
-  float acc_dk[KC][4], acc_dv[KC][4];
+  float acc_dk[DO_DK ? NT : 1][4], acc_dv[DO_DV ? NT : 1][4];
 #pragma unroll
-  for (int j = 0; j < KC; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (DO_DK) acc_dk[j][e] = 0.f;
+      if constexpr (DO_DV) acc_dv[j][e] = 0.f;
+    }
 
   while (q0 < T) {
-    stage_tile_f32<D>(Qbig, q, base, ld, q0, T, tid);
-    stage_tile_f32<D>(Obig, dout, base, ld, q0, T, tid);
-    stage_rows(lse_s, lse + row_base, q0, T, tid);
-    stage_rows(delta_s, delta + row_base, q0, T, tid);
+    stage_tile_f32<D, R>(Qbig, q, base, ld, q0, T, tid);
+    stage_tile_f32<D, R>(Obig, dout, base, ld, q0, T, tid);
+    stage_rows<R>(lse_s, lse + row_base, q0, T, tid);
+    if constexpr (DO_DK) stage_rows<R>(delta_s, delta + row_base, q0, T, tid);
     cp_async_commit();
-    const int qn = next_tile(segb, q0 + ROWS, T, T, klo, khi, lane, uniform_next);
+    const int qn = next_tile<R>(segb, q0 + R, T, T, klo, khi, lane, uniform_next);
     cp_async_wait<0>();
     __syncthreads();
-    split_tile_f32<D>(Qbig, Qsmall, tid);
-    split_tile_f32<D>(Obig, Osmall, tid);
+    split_tile_f32<D, false, R>(Qbig, Qsmall, tid);
+    split_tile_f32<D, false, R>(Obig, Osmall, tid);
     __syncthreads();
-    // the ragged edge, the diagonal tile (q0 == k0) and a tile whose ids are
-    // not all the key tile's single id are masked element by element
-    const bool masked = !uniform || q0 + ROWS > T || (causal && q0 < k0 + ROWS);
+    // the ragged edge, the tiles on the diagonal and a tile whose ids are not
+    // all the key tile's single id are masked element by element
+    const bool masked = !uniform || q0 + R > T || (causal && q0 < k0 + ROWS);
 
 #pragma unroll 1
-    for (int c0 = 0; c0 < ROWS; c0 += 8 * NQ) {  // queries c0 .. c0 + 8 NQ - 1 of the tile
+    for (int c0 = 0; c0 < R; c0 += 8 * NQ) {  // queries c0 .. c0 + 8 NQ - 1 of the tile
       float st[NQ][4], dpt[NQ][4];
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
@@ -630,18 +685,20 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
       for (int kc = 0; kc < KC; ++kc) {
         uint32_t kb[4], ks[4], vb[4], vs[4];
         load_a_split<D>(kb, ks, Ks, warp * 16, kc, lane);
-        load_a_split<D>(vb, vs, Vs, warp * 16, kc, lane);
+        if constexpr (DO_DK) load_a_split<D>(vb, vs, Vs, warp * 16, kc, lane);
 #pragma unroll
         for (int n = 0; n < NQ; n += 2) {
           uint32_t qb[4], qs[4], ob[4], os[4];
           load_b2<D>(qb, Qbig, c0 + 8 * n, kc, lane);
           load_b2<D>(qs, Qsmall, c0 + 8 * n, kc, lane);
-          load_b2<D>(ob, Obig, c0 + 8 * n, kc, lane);
-          load_b2<D>(os, Osmall, c0 + 8 * n, kc, lane);
+          if constexpr (DO_DK) {
+            load_b2<D>(ob, Obig, c0 + 8 * n, kc, lane);
+            load_b2<D>(os, Osmall, c0 + 8 * n, kc, lane);
+          }
           mma_3xtf32(st[n], kb, ks, qb[0], qb[1], qs[0], qs[1]);
-          mma_3xtf32(dpt[n], vb, vs, ob[0], ob[1], os[0], os[1]);
+          if constexpr (DO_DK) mma_3xtf32(dpt[n], vb, vs, ob[0], ob[1], os[0], os[1]);
           mma_3xtf32(st[n + 1], kb, ks, qb[2], qb[3], qs[2], qs[3]);
-          mma_3xtf32(dpt[n + 1], vb, vs, ob[2], ob[3], os[2], os[3]);
+          if constexpr (DO_DK) mma_3xtf32(dpt[n + 1], vb, vs, ob[2], ob[3], os[2], os[3]);
         }
       }
       // element (n, e): key row e < 2 ? g : g + 8, query c0 + 8 n + 2 t4 + (e & 1)
@@ -658,26 +715,31 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
                             (!causal || key <= query);
             p = ok ? p : 0.f;
           }
-          dpt[n][e] = p * (dpt[n][e] - delta_s[qc]) * scale;  // dS^T
+          if constexpr (DO_DK) dpt[n][e] = p * (dpt[n][e] - delta_s[qc]) * scale;  // dS^T
           st[n][e] = p;
         }
       }
       // n-tile n of P^T and dS^T is the A operand of the k-chunk over its 8
-      // queries: dV += P^T dO, dK += dS^T Q
+      // queries: dV += P^T dO, dK += dS^T Q, over this launch's columns
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         uint32_t pb[4], ps[4], sb[4], ss[4];
-        acc_as_a(st[n], pb, ps);
-        acc_as_a(dpt[n], sb, ss);
-#pragma unroll(UNROLL)
-        for (int j = 0; j < KC; ++j) {
-          uint32_t ob[2], os[2], qb[2], qs[2];
-          load_bt<D>(ob, Obig, c0 + 8 * n, j, g, t4);
-          load_bt<D>(os, Osmall, c0 + 8 * n, j, g, t4);
-          mma_3xtf32(acc_dv[j], pb, ps, ob[0], ob[1], os[0], os[1]);
-          load_bt<D>(qb, Qbig, c0 + 8 * n, j, g, t4);
-          load_bt<D>(qs, Qsmall, c0 + 8 * n, j, g, t4);
-          mma_3xtf32(acc_dk[j], sb, ss, qb[0], qb[1], qs[0], qs[1]);
+        if constexpr (DO_DV) acc_as_a(st[n], pb, ps);
+        if constexpr (DO_DK) acc_as_a(dpt[n], sb, ss);
+#pragma unroll(UNROLL_OUT)
+        for (int j = 0; j < NT; ++j) {
+          if constexpr (DO_DV) {
+            uint32_t ob[2], os[2];
+            load_bt<D>(ob, Obig + col0, c0 + 8 * n, j, g, t4);
+            load_bt<D>(os, Osmall + col0, c0 + 8 * n, j, g, t4);
+            mma_3xtf32(acc_dv[j], pb, ps, ob[0], ob[1], os[0], os[1]);
+          }
+          if constexpr (DO_DK) {
+            uint32_t qb[2], qs[2];
+            load_bt<D>(qb, Qbig + col0, c0 + 8 * n, j, g, t4);
+            load_bt<D>(qs, Qsmall + col0, c0 + 8 * n, j, g, t4);
+            mma_3xtf32(acc_dk[j], sb, ss, qb[0], qb[1], qs[0], qs[1]);
+          }
         }
       }
     }
@@ -687,18 +749,21 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   }
   cp_async_wait<0>();  // K and V of a block that saw no query tile
 
-  // element (j, e): key row e < 2 ? g : g + 8, head-dim column 8 j + 2 t4 + (e & 1)
+  // element (j, e): key row e < 2 ? g : g + 8, head-dim column
+  // col0 + 8 j + 2 t4 + (e & 1)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = i == 0 ? key0 : key1;
     if (t < T) {
-      const long at = base + (long)t * ld + 2 * t4;
+      const long at = base + (long)t * ld + col0 + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < KC; ++j) {
-        *reinterpret_cast<float2*>(dk + at + 8 * j) =
-            make_float2(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
-        *reinterpret_cast<float2*>(dv + at + 8 * j) =
-            make_float2(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+      for (int j = 0; j < NT; ++j) {
+        if constexpr (DO_DK)
+          *reinterpret_cast<float2*>(dk + at + 8 * j) =
+              make_float2(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
+        if constexpr (DO_DV)
+          *reinterpret_cast<float2*>(dv + at + 8 * j) =
+              make_float2(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
       }
     }
   }
@@ -708,43 +773,49 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
 // The fp32 dQ kernel.  One block of 4 warps per (64-query tile, head, batch
 // row); warp w owns queries 16 w .. 16 w + 15 whole, as the rows of
 //   S = Q K^T  and  dP = dO V^T   (Q and dO as A fragments),
-// and loops over the visible 64-key tiles (up to the diagonal with `causal`),
-// 8 NK keys at a time:
+// and loops over the visible key tiles of `tf32_rows` rows (up to the
+// diagonal with `causal`), 8 NK keys at a time:
 //   P  = exp(S * scale - lse)              (0 where masked)
 //   dS = P o (dP - delta) * scale
 //   dQ += dS K                             (K rows read permuted)
 // Each thread keeps the lse and delta of its two rows in registers.  Each key
-// tile is staged by cp.async and split in place, one stage, as in dK/dV.
+// tile is staged by cp.async and split in place, one stage, as in dK/dV.  A
+// launch forms `NCOL` columns of dQ from `col0` (half of them at D 256).
 // ---------------------------------------------------------------------------
 
 template <int D>
 constexpr size_t dq_tf32_smem_bytes() {
   // Q, dO, then K and V as big and small halves
-  return sizeof(float) * 6 * fa_mma::ROWS * (D + 4);
+  return sizeof(float) * (2 * fa_mma::ROWS + 4 * tf32_rows<D>()) * (D + 4);
 }
 
-template <int D>
+template <int D, int NCOL>
 __global__ void __launch_bounds__(fa_mma::THREADS)
 flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const int* __restrict__ seg,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const float* __restrict__ dout, float* __restrict__ dq, int T, int H,
-                         float scale, int causal) {
+                         float scale, int causal, int col0_arg) {
   using namespace fa_mma;
+  constexpr int R = tf32_rows<D>();  // keys of a staged tile
   constexpr int TW = ROWS * (D + 4);
-  constexpr int KC = D / 8;  // k-chunks of the score products; n-tiles of dQ
-  // 8-key n-tiles a chunk, in pairs; D 128 takes 16 keys a chunk and unrolls
-  // its inner loops 4 times
+  constexpr int RW = R * (D + 4);
+  constexpr int KC = D / 8;     // k-chunks of the score products
+  constexpr int NT = NCOL / 8;  // n-tiles of this launch's columns of dQ
+  // 8-key n-tiles a chunk, in pairs; D 128 and 256 take 16 keys a chunk
   constexpr int NK = D <= 64 ? 4 : 2;
+  // unrolled as in dK/dV: D 128's 64 accumulators live in the stack frame
   constexpr int UNROLL = D <= 64 ? KC : 4;
+  constexpr int UNROLL_OUT = D == 128 ? 4 : NT;
+  const int col0 = NCOL == D ? 0 : col0_arg;
 
   extern __shared__ float4 smem_dq_tf32[];
   float* Qs = reinterpret_cast<float*>(smem_dq_tf32);
   float* Os = Qs + TW;  // dO
   float* Kbig = Os + TW;
-  float* Ksmall = Kbig + TW;
-  float* Vbig = Ksmall + TW;
-  float* Vsmall = Vbig + TW;
+  float* Ksmall = Kbig + RW;
+  float* Vbig = Ksmall + RW;
+  float* Vsmall = Vbig + RW;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -757,14 +828,14 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
 
   int qlo, qhi;
   segment_range(segb, q0, T, lane, qlo, qhi);
-  // causal: the tiles past the diagonal tile (k0 == q0) hold no visible key
+  // causal: the tiles past the query tile's last row hold no visible key
   const int k_end = causal ? min(T, q0 + ROWS) : T;
 
   stage_tile_f32<D>(Qs, q, base, ld, q0, T, tid);
   stage_tile_f32<D>(Os, dout, base, ld, q0, T, tid);
   cp_async_commit();
   bool uniform, uniform_next;
-  int k0 = next_tile(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+  int k0 = next_tile<R>(segb, 0, k_end, T, qlo, qhi, lane, uniform);
 
   // this thread's two queries, rows g and g + 8 of the warp's 16; rows past T
   // are never stored
@@ -775,26 +846,26 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const float row_delta[2] = {row0 < T ? delta[row_base + row0] : 0.f,
                               row1 < T ? delta[row_base + row1] : 0.f};
 
-  float acc[KC][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int j = 0; j < KC; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   while (k0 < k_end) {  // always entered: every in-range query sees its own key
-    stage_tile_f32<D>(Kbig, k, base, ld, k0, T, tid);
-    stage_tile_f32<D>(Vbig, v, base, ld, k0, T, tid);
+    stage_tile_f32<D, R>(Kbig, k, base, ld, k0, T, tid);
+    stage_tile_f32<D, R>(Vbig, v, base, ld, k0, T, tid);
     cp_async_commit();
-    const int kn = next_tile(segb, k0 + ROWS, k_end, T, qlo, qhi, lane, uniform_next);
+    const int kn = next_tile<R>(segb, k0 + R, k_end, T, qlo, qhi, lane, uniform_next);
     cp_async_wait<0>();
     __syncthreads();
-    split_tile_f32<D>(Kbig, Ksmall, tid);
-    split_tile_f32<D>(Vbig, Vsmall, tid);
+    split_tile_f32<D, false, R>(Kbig, Ksmall, tid);
+    split_tile_f32<D, false, R>(Vbig, Vsmall, tid);
     __syncthreads();
-    // the ragged edge, the diagonal tile and a tile whose ids are not all the
-    // query tile's single id are masked element by element
-    const bool masked = !uniform || k0 + ROWS > T || (causal && k0 + ROWS > q0);
+    // the ragged edge, the tiles on the diagonal and a tile whose ids are not
+    // all the query tile's single id are masked element by element
+    const bool masked = !uniform || k0 + R > T || (causal && k0 + R > q0);
 
 #pragma unroll 1
-    for (int c0 = 0; c0 < ROWS; c0 += 8 * NK) {  // keys c0 .. c0 + 8 NK - 1 of the tile
+    for (int c0 = 0; c0 < R; c0 += 8 * NK) {  // keys c0 .. c0 + 8 NK - 1 of the tile
       float s[NK][4], dp[NK][4];
 #pragma unroll
       for (int n = 0; n < NK; ++n)
@@ -840,11 +911,11 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int n = 0; n < NK; ++n) {
         uint32_t sb[4], ss[4];
         acc_as_a(dp[n], sb, ss);
-#pragma unroll(UNROLL)
-        for (int j = 0; j < KC; ++j) {
+#pragma unroll(UNROLL_OUT)
+        for (int j = 0; j < NT; ++j) {
           uint32_t kb[2], ks[2];
-          load_bt<D>(kb, Kbig, c0 + 8 * n, j, g, t4);
-          load_bt<D>(ks, Ksmall, c0 + 8 * n, j, g, t4);
+          load_bt<D>(kb, Kbig + col0, c0 + 8 * n, j, g, t4);
+          load_bt<D>(ks, Ksmall + col0, c0 + 8 * n, j, g, t4);
           mma_3xtf32(acc[j], sb, ss, kb[0], kb[1], ks[0], ks[1]);
         }
       }
@@ -854,14 +925,15 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
     uniform = uniform_next;
   }
 
-  // element (j, e): query row e < 2 ? g : g + 8, head-dim column 8 j + 2 t4 + (e & 1)
+  // element (j, e): query row e < 2 ? g : g + 8, head-dim column
+  // col0 + 8 j + 2 t4 + (e & 1)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = i == 0 ? row0 : row1;
     if (t < T) {
-      float* dst = dq + base + (long)t * ld + 2 * t4;
+      float* dst = dq + base + (long)t * ld + col0 + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < KC; ++j)
+      for (int j = 0; j < NT; ++j)
         *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
     }
   }
@@ -895,69 +967,60 @@ inline dim3 grid_of(const Inputs& in) {
   return dim3((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
 }
 
-// bf16: one launch per `NCOL` columns (two at D 256), and at D 256 the dV
-// pass before the dK pass (see the dK/dV kernel's notes)
-template <int D, int PASS>
-cudaError_t launch_dkv_mma(const Inputs& in, void* dk, void* dv) {
-  constexpr int NCOL = D > 128 ? D / 2 : D;
-  const auto kernel = flash_bwd_dkv_mma_kernel<D, PASS, NCOL>;
-  cudaError_t err = prepare(kernel, dkv_mma_smem_bytes<D>());
-  for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += NCOL) {
-    kernel<<<grid_of(in), fa_mma::THREADS, dkv_mma_smem_bytes<D>(), in.stream>>>(
-        in_ptr<__nv_bfloat16>(in.q), in_ptr<__nv_bfloat16>(in.k), in_ptr<__nv_bfloat16>(in.v),
-        in.seg, in.lse, in.delta, in_ptr<__nv_bfloat16>(in.dout),
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), in.T, in.H, in.scale,
-        in.causal, col0);
+// `Elem` is float (the 3xTF32 kernels) or __nv_bfloat16 (the bf16 kernels);
+// both take the same arguments in the same order
+template <int D, int PASS, typename Elem>
+auto dkv_kernel() {
+  if constexpr (sizeof(Elem) == 2) return flash_bwd_dkv_mma_kernel<D, PASS, ncol<D>()>;
+  else return flash_bwd_dkv_tf32_kernel<D, PASS, ncol<D>()>;
+}
+
+template <int D, typename Elem>
+auto dq_kernel() {
+  if constexpr (sizeof(Elem) == 2) return flash_bwd_dq_mma_kernel<D, ncol<D>()>;
+  else return flash_bwd_dq_tf32_kernel<D, ncol<D>()>;
+}
+
+// one launch per `ncol` columns (two at D 256)
+template <int D, int PASS, typename Elem>
+cudaError_t launch_dkv_pass(const Inputs& in, void* dk, void* dv) {
+  constexpr size_t smem = sizeof(Elem) == 2 ? dkv_mma_smem_bytes<D>() : dkv_tf32_smem_bytes<D>();
+  const auto kernel = dkv_kernel<D, PASS, Elem>();
+  cudaError_t err = prepare(kernel, smem);
+  for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += ncol<D>()) {
+    kernel<<<grid_of(in), fa_mma::THREADS, smem, in.stream>>>(
+        in_ptr<Elem>(in.q), in_ptr<Elem>(in.k), in_ptr<Elem>(in.v), in.seg, in.lse, in.delta,
+        in_ptr<Elem>(in.dout), static_cast<Elem*>(dk), static_cast<Elem*>(dv), in.T, in.H,
+        in.scale, in.causal, col0);
     err = cudaGetLastError();
   }
   return err;
 }
 
-// `Elem` is float (the 3xTF32 kernels) or __nv_bfloat16 (the bf16 kernels)
+// at D 256 the dV pass before the dK pass (see the dK/dV kernels' notes)
 template <int D, typename Elem>
 cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
-  if constexpr (sizeof(Elem) == 2 && D > 128) {
-    const cudaError_t err = launch_dkv_mma<D, DKV_DV>(in, dk, dv);
+  if constexpr (D > 128) {
+    const cudaError_t err = launch_dkv_pass<D, DKV_DV, Elem>(in, dk, dv);
     if (err != cudaSuccess) return err;
-    return launch_dkv_mma<D, DKV_DK>(in, dk, dv);
-  } else if constexpr (sizeof(Elem) == 2) {
-    return launch_dkv_mma<D, DKV_BOTH>(in, dk, dv);
+    return launch_dkv_pass<D, DKV_DK, Elem>(in, dk, dv);
   } else {
-    const auto kernel = flash_bwd_dkv_tf32_kernel<D>;
-    const cudaError_t err = prepare(kernel, dkv_tf32_smem_bytes<D>());
-    if (err != cudaSuccess) return err;
-    kernel<<<grid_of(in), fa_mma::THREADS, dkv_tf32_smem_bytes<D>(), in.stream>>>(
-        in_ptr<float>(in.q), in_ptr<float>(in.k), in_ptr<float>(in.v), in.seg, in.lse,
-        in.delta, in_ptr<float>(in.dout), static_cast<float*>(dk), static_cast<float*>(dv),
-        in.T, in.H, in.scale, in.causal);
-    return cudaGetLastError();
+    return launch_dkv_pass<D, DKV_BOTH, Elem>(in, dk, dv);
   }
 }
 
 template <int D, typename Elem>
 cudaError_t launch_dq(const Inputs& in, void* dq) {
-  if constexpr (sizeof(Elem) == 2) {
-    constexpr int NCOL = D > 128 ? D / 2 : D;
-    const auto kernel = flash_bwd_dq_mma_kernel<D, NCOL>;
-    cudaError_t err = prepare(kernel, dq_mma_smem_bytes<D>());
-    for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += NCOL) {
-      kernel<<<grid_of(in), fa_mma::THREADS, dq_mma_smem_bytes<D>(), in.stream>>>(
-          in_ptr<__nv_bfloat16>(in.q), in_ptr<__nv_bfloat16>(in.k), in_ptr<__nv_bfloat16>(in.v),
-          in.seg, in.lse, in.delta, in_ptr<__nv_bfloat16>(in.dout),
-          static_cast<__nv_bfloat16*>(dq), in.T, in.H, in.scale, in.causal, col0);
-      err = cudaGetLastError();
-    }
-    return err;
-  } else {
-    const auto kernel = flash_bwd_dq_tf32_kernel<D>;
-    const cudaError_t err = prepare(kernel, dq_tf32_smem_bytes<D>());
-    if (err != cudaSuccess) return err;
-    kernel<<<grid_of(in), fa_mma::THREADS, dq_tf32_smem_bytes<D>(), in.stream>>>(
-        in_ptr<float>(in.q), in_ptr<float>(in.k), in_ptr<float>(in.v), in.seg, in.lse,
-        in.delta, in_ptr<float>(in.dout), static_cast<float*>(dq), in.T, in.H, in.scale,
-        in.causal);
-    return cudaGetLastError();
+  constexpr size_t smem = sizeof(Elem) == 2 ? dq_mma_smem_bytes<D>() : dq_tf32_smem_bytes<D>();
+  const auto kernel = dq_kernel<D, Elem>();
+  cudaError_t err = prepare(kernel, smem);
+  for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += ncol<D>()) {
+    kernel<<<grid_of(in), fa_mma::THREADS, smem, in.stream>>>(
+        in_ptr<Elem>(in.q), in_ptr<Elem>(in.k), in_ptr<Elem>(in.v), in.seg, in.lse, in.delta,
+        in_ptr<Elem>(in.dout), static_cast<Elem*>(dq), in.T, in.H, in.scale, in.causal, col0);
+    err = cudaGetLastError();
   }
+  return err;
 }
 
 template <typename Elem>
@@ -966,9 +1029,7 @@ cudaError_t launch_dkv_d(int D, const Inputs& in, void* dk, void* dv) {
     case 32: return launch_dkv<32, Elem>(in, dk, dv);
     case 64: return launch_dkv<64, Elem>(in, dk, dv);
     case 128: return launch_dkv<128, Elem>(in, dk, dv);
-    case 256:  // bf16 only: the fp32 backward at D 256 is not ported
-      if constexpr (sizeof(Elem) == 2) return launch_dkv<256, Elem>(in, dk, dv);
-      return cudaErrorNotSupported;
+    case 256: return launch_dkv<256, Elem>(in, dk, dv);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -979,9 +1040,7 @@ cudaError_t launch_dq_d(int D, const Inputs& in, void* dq) {
     case 32: return launch_dq<32, Elem>(in, dq);
     case 64: return launch_dq<64, Elem>(in, dq);
     case 128: return launch_dq<128, Elem>(in, dq);
-    case 256:  // bf16 only: the fp32 backward at D 256 is not ported
-      if constexpr (sizeof(Elem) == 2) return launch_dq<256, Elem>(in, dq);
-      return cudaErrorNotSupported;
+    case 256: return launch_dq<256, Elem>(in, dq);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -158,10 +158,11 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* __restrict__ x
   }
 }
 
-// rows r0 .. r0+63 of an fp32 [.., T] row (lse or delta) into dst[64]; past T: 0
+// rows r0 .. r0+R-1 of an fp32 [.., T] row (lse or delta) into dst[R]; past T: 0
+template <int R = ROWS>
 __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ x, int r0, int T,
                                            int tid) {
-  if (tid < ROWS) {
+  if (tid < R) {
     const bool in = r0 + tid < T;
     cp_async4(dst + tid, x + (in ? r0 + tid : 0), in);
   }

@@ -39,13 +39,13 @@ and each result as it is stored.  The plain versions round at the same places
 (the forward's against the row's final maximum, where the kernel rounds against
 its running maximum).
 
-Head sizes: the kernels are built at D 32, 64, 128 and 256 (`HEAD_DIMS`), at
-D 256 in bf16 for the forward and backward and in fp32 for the forward only.
-Any other D up to 128 takes the padded route (`kernel_head_dim`): q, k, v (and
-dO in the backward; o enters only through `delta`) are zero-padded to the next
-built size, which adds nothing to q.k^T and only zero columns to o, dq, dk and
-dv, and those columns are sliced off; `scale` stays the caller's (1/sqrt of
-the true D), and `lse` and `delta` are those of the true D.  D 80 and 100 (phi-2, pythia-2.8b,
+Head sizes: the kernels are built at D 32, 64, 128 and 256 (`HEAD_DIMS`), in
+both types, forward and backward.  Any other D up to 128 takes the padded
+route (`kernel_head_dim`): q, k, v (and dO in the backward; o enters only
+through `delta`) are zero-padded to the next built size, which adds nothing
+to q.k^T and only zero columns to o, dq, dk and dv, and those columns are
+sliced off; `scale` stays the caller's (1/sqrt of the true D), and `lse` and
+`delta` are those of the true D.  D 80 and 100 (phi-2, pythia-2.8b,
 open_llama_3b, ...) run at 128 this way.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
@@ -54,10 +54,10 @@ and "dq" for the non-causal form, "causal_fwd", "causal_dkv" and "causal_dq"
 for the causal one; `LAUNCHES.clear()` sets them all to 0.  `LAUNCHES_BF16`
 counts the bf16 launches among them under the same keys, and
 `LAUNCHES_PADDED` those that took the padded route.  A call counts once,
-also at D 256 in bf16, where one call launches the forward and the dQ kernel
-over two column halves and the dK/dV kernel four times (dV and dK, each over
-two halves).  The differentiable entry point is
-`roar_tpu_torch.ops.flash_attention.flash_self_attention`.
+also at D 256, where one call launches the dQ kernel over two column halves
+and the dK/dV kernel four times (dV and dK, each over two halves), in both
+types, and the bf16 forward over two halves.  The differentiable entry point
+is `roar_tpu_torch.ops.flash_attention.flash_self_attention`.
 """
 
 from __future__ import annotations
@@ -79,11 +79,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 def kernel_head_dim(d: int, dtype: torch.dtype, backward: bool) -> int:
     """The head size of the kernel that runs a call at head size `d`: `d`
     itself where a kernel is built for it, else the next built size up to
-    `PADDED_MAX` (the inputs are zero-padded to it).  Raises ValueError for
-    any other `d`, and NotImplementedError for the fp32 backward at D 256."""
-    if d == 256 and backward and dtype == torch.float32:
-        raise NotImplementedError("fp32 flash backward at head size 256 is not ported "
-                                  "(the fp32 dK/dV and dQ kernels are built up to D 128)")
+    `PADDED_MAX` (the inputs are zero-padded to it).  The same for either
+    type and direction; raises ValueError for any other `d`."""
     if d in HEAD_DIMS:
         return d
     if 0 < d < PADDED_MAX:

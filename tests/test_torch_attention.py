@@ -14,6 +14,9 @@ card's tests run where jax is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_attention.py -m cuda
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,9 @@ from roar_tpu_torch.kernels import flash_attention as fa
 from roar_tpu_torch.models.transformer import MultiHeadAttn
 from roar_tpu_torch.ops.flash_attention import flash_self_attention
 from roar_tpu_torch.training.convert import load_fastpitch_params
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 # fp32 on both sides; only the order of summation differs
 FP32_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -163,35 +169,46 @@ def test_plain_backward_matches_jax_grad_of_the_einsum_attention():
 def test_plain_backward_matches_upstream_reference_bwd_on_all_rows():
     """Upstream's `mha_reference_bwd` with SegmentIds and the residuals (l, m),
     garbage cotangents on the pad rows included; it takes [B, H, T, D] and
-    sm_scale 1 only."""
+    sm_scale 1 only.  At D 32 without `causal`, and at D 256 (the fp32
+    backward's head size since its kernels were ported) with it."""
     import jax.numpy as jnp
     from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, mha_reference_bwd
 
     rng = np.random.default_rng(3)
-    b, t, h, d = 2, 50, 2, 32
-    q, k, v, do = _qkv(rng, b, t, h, d)
-    q *= 0.3
-    lens = np.array([50, 17])
-    key_mask = np.arange(t)[None, :] < lens[:, None]
-    tq, tk, tv, tdo = (torch.from_numpy(z) for z in (q, k, v, do))
-    tmask = torch.from_numpy(key_mask)
-    o, lse = fa.flash_self_attention_plain(tq, tk, tv, tmask, 1.0, return_lse=True)
-    got = fa.flash_self_attention_bwd_plain(tq, tk, tv, tmask, 1.0, o, lse, tdo)
+    # (B, T, H, D, valid lengths, causal, q's scale: softmax of moderate
+    # width).  At D 256 dP sums 256 products, so its fp32 rounding, and dq's
+    # largest magnitude (36 here), are some 8 times D 32's: there each
+    # gradient's atol is FP32_TOL's taken relative to its largest magnitude
+    # (1e-5 at D 32's largest, about 4)
+    for b, t, h, d, lens, causal, q_scale in ((2, 50, 2, 32, [50, 17], False, 0.3),
+                                              (2, 40, 1, 256, [40, 23], True, 0.1)):
+        q, k, v, do = _qkv(rng, b, t, h, d)
+        q *= q_scale
+        key_mask = np.arange(t)[None, :] < np.array(lens)[:, None]
+        tq, tk, tv, tdo = (torch.from_numpy(z) for z in (q, k, v, do))
+        tmask = torch.from_numpy(key_mask)
+        o, lse = fa.flash_self_attention_plain(tq, tk, tv, tmask, 1.0, True, causal)
+        got = fa.flash_self_attention_bwd_plain(tq, tk, tv, tmask, 1.0, o, lse, tdo, causal)
 
-    ids = jnp.asarray((~key_mask).astype(np.int32))
-    scores = np.einsum("bqhd,bkhd->bhqk", q, k).astype(np.float64)
-    seg = (~key_mask).astype(np.int32)
-    scores = np.where(seg[:, None, :, None] == seg[:, None, None, :], scores, -np.inf)
-    m = scores.max(-1)
-    l = np.exp(scores - m[..., None]).sum(-1)
-    np.testing.assert_allclose(lse.numpy(), m + np.log(l), **FP32_TOL)
-    bhtd = lambda z: jnp.asarray(np.swapaxes(np.asarray(z), 1, 2))
-    dq, dk, dv, _ = mha_reference_bwd(
-        bhtd(q), bhtd(k), bhtd(v), None, SegmentIds(q=ids, kv=ids), bhtd(o.numpy()),
-        jnp.asarray(l, jnp.float32), jnp.asarray(m, jnp.float32), bhtd(do), sm_scale=1.0)
-    for name, g, w in zip("qkv", got, (dq, dk, dv)):
-        np.testing.assert_allclose(g.numpy(), np.swapaxes(np.asarray(w), 1, 2),
-                                   err_msg=f"d{name}", **FP32_TOL)
+        ids = jnp.asarray((~key_mask).astype(np.int32))
+        scores = np.einsum("bqhd,bkhd->bhqk", q, k).astype(np.float64)
+        seg = (~key_mask).astype(np.int32)
+        visible = seg[:, None, :, None] == seg[:, None, None, :]
+        if causal:
+            visible = visible & np.tril(np.ones((t, t), bool))
+        scores = np.where(visible, scores, -np.inf)
+        m = scores.max(-1)
+        l = np.exp(scores - m[..., None]).sum(-1)
+        np.testing.assert_allclose(lse.numpy(), m + np.log(l), **FP32_TOL)
+        bhtd = lambda z: jnp.asarray(np.swapaxes(np.asarray(z), 1, 2))
+        dq, dk, dv, _ = mha_reference_bwd(
+            bhtd(q), bhtd(k), bhtd(v), None, SegmentIds(q=ids, kv=ids), bhtd(o.numpy()),
+            jnp.asarray(l, jnp.float32), jnp.asarray(m, jnp.float32), bhtd(do), causal=causal,
+            sm_scale=1.0)
+        for name, g, w in zip("qkv", got, (dq, dk, dv)):
+            w = np.swapaxes(np.asarray(w), 1, 2)
+            tol = FP32_TOL if d == 32 else dict(FP32_TOL, atol=2.5e-6 * float(np.abs(w).max()))
+            np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name} at D {d}", **tol)
 
 
 @pytest.mark.parametrize("needs", [(True, True, True), (False, True, True), (True, False, False)])
@@ -277,7 +294,8 @@ def test_multihead_attn_gradients_match_jax():
                                      (32, 160, 1, 64), (4, 200, 2, 256), (4, 130, 2, 80),
                                      (4, 70, 2, 100)])
 def test_cuda_backward_kernels_match_plain(b, t, h, d, dtype):
-    """The fp32 backward at D 256 is not ported: it raises by name."""
+    """At D 256 both types run their own kernels (fp32 since its backward
+    was ported); D 80 and 100 take the padded route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -288,11 +306,6 @@ def test_cuda_backward_kernels_match_plain(b, t, h, d, dtype):
     scale = 1.0 / d ** 0.5
     before = fa.LAUNCHES.copy()
     out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True)
-    if d == 256 and dtype == torch.float32:
-        with pytest.raises(NotImplementedError, match="fp32 flash backward at head size 256"):
-            fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
-        assert fa.LAUNCHES - before == {"fwd": 1}
-        return
     got = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
     again = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do)
     torch.cuda.synchronize()
@@ -439,14 +452,15 @@ def test_bf16_plain_versions_round_like_the_kernels(causal):
 
 
 def test_wrapper_rejects_mixed_types_and_head_size_256():
-    """D 512 has no kernel; D 256 has none for the fp32 backward (named in
-    the error); mixed and half types are refused."""
+    """D 512 has no kernel; the fp32 backward at D 256 has one now, so the
+    wrapper passes its head size and refuses only the device (no kernel runs
+    on a meta tensor); mixed and half types are refused."""
     q = torch.zeros(1, 8, 1, 512, device="meta")
     with pytest.raises(ValueError, match="512"):
         fa.flash_self_attention(q, q, q, None, 1.0, causal=True)
     q = torch.zeros(1, 8, 1, 256, device="meta")
     lse = torch.zeros(1, 1, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="fp32 flash backward at head size 256"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         fa.flash_self_attention_bwd(q, q, q, None, 1.0, q, lse, q, causal=True)
     q = torch.zeros(1, 8, 1, 64, device="meta")
     with pytest.raises(TypeError, match="bfloat16"):
@@ -467,9 +481,6 @@ CUDA_CAUSAL_CASES = [
 
 
 def _chip_smoke():
-    import sys
-    from pathlib import Path
-
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
 
@@ -497,13 +508,6 @@ def test_cuda_causal_kernels_match_plain(case, dtype):
     scale = 1.0 / d ** 0.5
     before = fa.LAUNCHES.copy()
     out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True, causal=True)
-    if d == 256 and dtype == torch.float32:  # the fp32 backward at D 256 is not ported
-        with pytest.raises(NotImplementedError, match="head size 256"):
-            fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do, causal=True)
-        out_p, lse_p = fa.flash_self_attention_plain(q, k, v, key_mask, scale, True, causal=True)
-        torch.testing.assert_close(out, out_p, atol=1e-4, rtol=1e-3)
-        torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-3)
-        return
     got = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do, causal=True)
     again = fa.flash_self_attention_bwd(q, k, v, key_mask, scale, out, lse, do, causal=True)
     torch.cuda.synchronize()

@@ -62,13 +62,17 @@ from roar_tpu_torch.kernels import flash_attention as fa
 ATOL_REL = 1e-4  # chip_smoke.FLASH_BWD_ATOL_REL
 RTOL = 1e-3      # chip_smoke.FLASH_BWD_RTOL
 # (B, T, H, D, valid lengths or None, causal): the GPT path's kind, and
-# FastPitch's kind with a ragged T, a short row and a single valid key
+# FastPitch's kind with a ragged T, a short row and a single valid key; the
+# same two at D 256, where the forward's K/V tiles and the backward's
+# streamed tiles hold 16 rows
 CASES = {"causal": (1, 512, 2, 64, None, True),
-         "ragged_segments": (3, 200, 1, 64, [200, 117, 1], False)}
-# the forward alone at D 256, where its K/V tiles hold 16 keys (the fp32
-# backward at D 256 is not ported)
-FWD_ONLY_CASES = {"causal_d256": (1, 96, 1, 256, None, True),
-                  "ragged_segments_d256": (3, 80, 1, 256, [80, 33, 1], False)}
+         "ragged_segments": (3, 200, 1, 64, [200, 117, 1], False),
+         "causal_d256": (1, 96, 1, 256, None, True),
+         "ragged_segments_d256": (3, 80, 1, 256, [80, 33, 1], False)}
+D256_NAMES = ["causal_d256", "ragged_segments_d256"]
+# the backward kernels' walk at D 256: streamed tiles of 16 rows, a launch
+# over 128 of the 256 output columns, dV and dK in separate passes
+D256_WALK = dict(rows=16, cols=128, passes=True)
 
 
 def tf32_rna(v: np.ndarray) -> np.ndarray:
@@ -145,11 +149,78 @@ def emulate_bwd(q, k, v, do, lse, delta, seg, scale, causal, **order):
     return tuple(x.transpose(0, 2, 1, 3) for x in (dq, dk, dv))
 
 
+def _tile_visible(seg, causal, rows, cols):
+    """[B, 1, len(rows), len(cols)]: query `rows[i]` sees key `cols[j]`."""
+    visible = seg[:, None, rows, None] == seg[:, None, None, cols]
+    if causal:
+        visible = visible & (cols[None, :] <= rows[:, None])
+    return visible
+
+
+def emulate_bwd_walk(q, k, v, do, lse, delta, seg, scale, causal, rows=64, cols=None,
+                     passes=False, **order):
+    """(dq, dk, dv) [B, T, H, D] as the two kernels walk them, each product
+    in `product`'s order.  dK/dV: per 64-key tile, S^T = K Q^T and dP^T =
+    V dO^T (K and V the A operands), the query tiles of `rows` rows in turn
+    (from the key tile's first row with `causal`), dV += P^T dO and dK +=
+    dS^T Q over `cols` columns a launch; with `passes` a dV pass (no dP^T)
+    and a dK pass, each recomputing S^T.  dQ: per 64-query tile, S = Q K^T
+    and dP = dO V^T, the key tiles of `rows` rows up to the diagonal, dQ +=
+    dS K over `cols` columns a launch.  A tile the kernels skip for its
+    segment ids is walked here: its p is 0, which adds nothing."""
+    b, t, h, d = q.shape
+    cols = d if cols is None else cols
+    bq, bk, bv, bo = (np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v, do))
+    f32 = np.float32
+    dq, dk, dv = (np.zeros((b, h, t, d), f32) for _ in range(3))
+    swap = lambda x: np.ascontiguousarray(np.swapaxes(x, -1, -2))
+    for col0 in range(0, d, cols):
+        out = slice(col0, col0 + cols)
+        for which in (("dv", "dk") if passes else ("both",)):
+            for k0 in range(0, t, 64):
+                keys = np.arange(k0, min(k0 + 64, t))
+                kt, vt = bk[..., keys, :], bv[..., keys, :]
+                acc_dk = np.zeros((b, h, len(keys), cols), f32)
+                acc_dv = np.zeros_like(acc_dk)
+                for q0 in range(k0 if causal else 0, t, rows):
+                    qs = np.arange(q0, min(q0 + rows, t))
+                    qt, ot = bq[..., qs, :], bo[..., qs, :]
+                    st = product(kt, swap(qt), **order)
+                    visible = swap(_tile_visible(seg, causal, qs, keys))
+                    p = np.where(visible, np.exp(st * f32(scale) - lse[:, :, None, qs]),
+                                 f32(0)).astype(f32)
+                    if which != "dk":
+                        acc_dv = product(p, ot[..., out], init=acc_dv, **order)
+                    if which != "dv":
+                        dpt = product(vt, swap(ot), **order)
+                        ds = (p * (dpt - delta[:, :, None, qs]) * f32(scale)).astype(f32)
+                        acc_dk = product(ds, qt[..., out], init=acc_dk, **order)
+                if which != "dk":
+                    dv[..., keys, out] = acc_dv
+                if which != "dv":
+                    dk[..., keys, out] = acc_dk
+        for q0 in range(0, t, 64):
+            qs = np.arange(q0, min(q0 + 64, t))
+            qt, ot = bq[..., qs, :], bo[..., qs, :]
+            acc = np.zeros((b, h, len(qs), cols), f32)
+            for k0 in range(0, min(t, q0 + 64) if causal else t, rows):
+                keys = np.arange(k0, min(k0 + rows, t))
+                kt, vt = bk[..., keys, :], bv[..., keys, :]
+                s = product(qt, swap(kt), **order)
+                dp = product(ot, swap(vt), **order)
+                p = np.where(_tile_visible(seg, causal, qs, keys),
+                             np.exp(s * f32(scale) - lse[..., qs, None]), f32(0)).astype(f32)
+                ds = (p * (dp - delta[..., qs, None]) * f32(scale)).astype(f32)
+                acc = product(ds, kt[..., out], init=acc, **order)
+            dq[..., qs, out] = acc
+    return tuple(x.transpose(0, 2, 1, 3) for x in (dq, dk, dv))
+
+
 @functools.lru_cache(maxsize=None)
 def _case(name: str):
     """Seeded inputs of CASES[name], the plain fp32 forward's o and lse, and
     the plain fp32 backward (what the kernels are held against on the card)."""
-    b, t, h, d, lens, causal = {**CASES, **FWD_ONLY_CASES}[name]
+    b, t, h, d, lens, causal = CASES[name]
     rng = np.random.default_rng(0)
     q, k, v, do = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(4))
     mask = np.ones((b, t), bool) if lens is None else np.arange(t)[None] < np.array(lens)[:, None]
@@ -166,7 +237,10 @@ def _case(name: str):
 
 @functools.lru_cache(maxsize=None)
 def _emulated(name: str, three_terms: bool = True, flushed: bool = True):
+    """The kernels' backward: at D 256 in their walk (`D256_WALK`)."""
     inputs, _, _ = _case(name)
+    if name in D256_NAMES:
+        return emulate_bwd_walk(**inputs, **D256_WALK, three_terms=three_terms, flushed=flushed)
     return emulate_bwd(**inputs, three_terms=three_terms, flushed=flushed)
 
 
@@ -178,14 +252,15 @@ def _within_bar(got: np.ndarray, want: np.ndarray) -> bool:
 def _upstream_reference(name: str):
     """(dq, dk, dv) of upstream's `mha_reference_bwd` in fp32 with
     SegmentIds (and `causal`).  It takes sm_scale 1 only, so it is handed
-    q * scale (exact: scale is 2^-3 at D 64) and its dq is scaled back."""
+    q * scale (exact: scale is 2^-3 at D 64, 2^-4 at D 256) and its dq is
+    scaled back."""
     import jax.numpy as jnp
     from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, mha_reference_bwd
 
     inputs, o, _ = _case(name)
     q, k, v, do, seg = (inputs[n] for n in ("q", "k", "v", "do", "seg"))
     scale, causal, t = inputs["scale"], inputs["causal"], q.shape[1]
-    assert scale == 0.125
+    assert scale in (2.0 ** -3, 2.0 ** -4)
     qs = q * np.float32(scale)
     scores = np.einsum("bqhd,bkhd->bhqk", qs.astype(np.float64), k.astype(np.float64))
     visible = seg[:, None, :, None] == seg[:, None, None, :]
@@ -249,6 +324,22 @@ def test_flushed_sums_stay_at_fp32_level():
         assert flushed[i] <= 3 * fp32[i], (grad, flushed[i], fp32[i])
     for i, grad in ((1, "dk"), (2, "dv")):
         assert carried[i] > 5 * flushed[i], (grad, carried[i], flushed[i])
+
+
+@pytest.mark.parametrize("name", D256_NAMES)
+def test_d256_walk_keeps_the_order_of_the_sums(name):
+    """At D 256 the kernels stream 16-row tiles, form half of the columns a
+    launch and run dV and dK as separate passes; the same sums in the same
+    order come out of whole 64-row tiles, whole rows and one pass, bit for
+    bit.  The walk's dq, dk and dv sit within the fp32 bar of the
+    matrix-level emulation, whose score products take the operands the other
+    way round."""
+    inputs, _, _ = _case(name)
+    walked = _emulated(name)
+    whole = emulate_bwd_walk(**inputs)
+    for grad, got, want, flat in zip(("dq", "dk", "dv"), walked, whole, emulate_bwd(**inputs)):
+        np.testing.assert_array_equal(got, want, err_msg=grad)
+        assert _within_bar(got, flat), grad
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -371,7 +462,7 @@ def _upstream_fwd(name: str):
     return o, np.asarray(m) + np.log(np.asarray(l))
 
 
-FWD_NAMES = list(CASES) + list(FWD_ONLY_CASES)
+FWD_NAMES = list(CASES)
 
 
 def _fwd_within_bars(o, lse, want_o, want_lse) -> bool:

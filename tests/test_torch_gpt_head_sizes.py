@@ -174,24 +174,43 @@ def test_kernel_head_dim_maps_and_raises():
             for d in (129, 200, 255, 257, 512, 0):
                 with pytest.raises(ValueError, match="not supported"):
                     fa.kernel_head_dim(d, dtype, backward)
-    assert fa.kernel_head_dim(256, torch.bfloat16, True) == 256
-    assert fa.kernel_head_dim(256, torch.float32, False) == 256
-    with pytest.raises(NotImplementedError, match="fp32 flash backward at head size 256"):
-        fa.kernel_head_dim(256, torch.float32, True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            assert fa.kernel_head_dim(256, dtype, backward) == 256
 
 
 def test_chip_smoke_lists_and_parses_the_d256_instances():
-    """`phase_kernel_build` requires the four D 256 forms (the bf16 dK/dV
-    kernel as its two passes) and reads their mangled names."""
+    """`phase_kernel_build` requires the six D 256 forms (each dK/dV kernel
+    as its two passes) and reads their mangled names (the fp32 backward's as
+    nvcc 12.8 wrote them) and their shared memory."""
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
 
     d256 = sorted(i for i in cs.flash_instances() if i[2] == 256)
     assert d256 == [("flash_bwd_dkv_mma_kernel.dk", "bfloat16", 256),
                     ("flash_bwd_dkv_mma_kernel.dv", "bfloat16", 256),
+                    ("flash_bwd_dkv_tf32_kernel.dk", "float32", 256),
+                    ("flash_bwd_dkv_tf32_kernel.dv", "float32", 256),
                     ("flash_bwd_dq_mma_kernel", "bfloat16", 256),
+                    ("flash_bwd_dq_tf32_kernel", "float32", 256),
                     ("flash_fwd_mma_kernel", "bfloat16", 256),
                     ("flash_fwd_tf32_kernel", "float32", 256)]
+    bwd = "_ZN55_GLOBAL__N__bd9a39ae_22_flash_attention_bwd_cu_f7cbd94c"
+    tail32 = "EEEvPKfS2_S2_PKiS2_S2_S2_PfS5_iifii"
+    for p, name in (("1", "dv"), ("2", "dk")):
+        assert cs._flash_instance(f"{bwd}25flash_bwd_dkv_tf32_kernelILi256ELi{p}ELi128{tail32}") \
+            == (f"flash_bwd_dkv_tf32_kernel.{name}", "float32", 256)
+    assert cs._flash_instance(f"{bwd}25flash_bwd_dkv_tf32_kernelILi128ELi0ELi128{tail32}") == \
+        ("flash_bwd_dkv_tf32_kernel", "float32", 128)
+    assert cs._flash_instance(f"{bwd}24flash_bwd_dq_tf32_kernelILi256ELi128"
+                              "EEEvPKfS2_S2_PKiS2_S2_S2_Pfiifii") == \
+        ("flash_bwd_dq_tf32_kernel", "float32", 256)
+    # K, V; Q and dO as big and small halves of 16 rows; 16 lse and delta rows
+    assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_kernel.dv", "float32", 256) == \
+        cs.flash_dynamic_smem("flash_bwd_dkv_tf32_kernel.dk", "float32", 256) == \
+        4 * 260 * (2 * 64 + 4 * 16) + 4 * 2 * 16 == 199808
+    assert cs.flash_dynamic_smem("flash_bwd_dq_tf32_kernel", "float32", 256) == 199680
+    assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_kernel", "float32", 128) == 203264
     space = "_ZN60_GLOBAL__N__5c1a7f2e_22_flash_attention_bwd_cu_9e8d7c6b"
     tail = "EEEvPK13__nv_bfloat16S2_S2_PKiPKfS6_S2_PS0_S7_iifi"
     assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi256ELi1ELi128{tail}") == \
@@ -210,8 +229,8 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
 def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):
     """`phase_train_gpt` for pythia-1b and `phase_gpt_head_sizes` at
     rehearsal widths on the CPU: every check but the launch counts and the
-    timing (pythia's fp32 check is the validation forward: its fp32 backward
-    at D 256 is not ported)."""
+    timing (pythia's fp32 check is a micro-batch, kernels against plain, at
+    min(4, its layers) layers; gemma-2b adds an fp32 micro-batch)."""
     sys.path.insert(0, str(REPO))
     import json
 
@@ -228,8 +247,12 @@ def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):
              if line.startswith("{")]
     check = [line for line in lines if line.get("step") == "kernel_path_vs_plain_path"]
     assert len(check) == 1 and check[0]["config_name"] == "pythia-1b"
-    assert "forward_only" in check[0]["fp32"] and check[0]["fp32"]["layers"] == 2
+    assert check[0]["fp32"]["layers"] == 2 and check[0]["fp32"]["whole_grad_l2_rel_err"] == 0.0
     rows = {line["config_name"]: line for line in lines if line.get("phase") == "gpt_head_sizes"}
     assert {name: row["kernel_head_size"] for name, row in rows.items()} == \
         {"phi-2": 128, "open_llama_3b": 128, "gemma-2b": 256}
     assert all(row["bf16"]["whole_grad_l2_rel_err"] == 0.0 for row in rows.values())
+    assert {name: row["fp32"] is not None for name, row in rows.items()} == \
+        {"phi-2": False, "open_llama_3b": False, "gemma-2b": True}
+    assert rows["gemma-2b"]["fp32"]["whole_grad_l2_rel_err"] == 0.0
+    assert heads["gemma-2b"]["fp32"] == none

@@ -29,6 +29,9 @@ from roar_tpu_torch.training import convert
 from roar_tpu_torch.training.optim import build_optimizer
 from roar_tpu_torch.training.trainer import Trainer, TrainState, to_device, train_step
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+
 REPO = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(
     "gpt_pretraining_torch", REPO / "examples" / "nlp" / "gpt_pretraining_torch.py")
@@ -310,15 +313,27 @@ def _train_cfg(corpus, tmp_path, *more):
         "+exp_manager.always_save_roar=true", "+device=cpu", *more])
 
 
-@pytest.mark.parametrize("precision", ["32", "bf16"])
-def test_cli_run_trains_and_the_jax_package_restores_its_bundle(corpus, tmp_path, precision):
+# pythia-1b's family at 2 layers, narrow, with heads of 256: every field of
+# the YAML's model block that would override the entry's own set to its value
+PYTHIA_D256 = ("+model.config_name=pythia-1b", "model.n_embd=512", "model.n_head=2",
+               "model.norm_class=LayerNorm", "model.mlp_class=GptNeoxMLP")
+
+
+@pytest.mark.parametrize("precision,family", [("32", ()), ("bf16", ()), ("32", PYTHIA_D256)],
+                         ids=["32", "bf16", "32-pythia-d256"])
+def test_cli_run_trains_and_the_jax_package_restores_its_bundle(corpus, tmp_path, precision,
+                                                                 family):
     """The CLI's `run` on a tiny corpus: the loss falls, validation is logged,
     and the end-of-training `.roar` (stacked `h_scan` layout, fp32 masters)
     is restored by the JAX package's `restore_from` and gives the port's
-    logits."""
-    cfg = _train_cfg(corpus, tmp_path, f"+trainer.precision={precision}")
+    logits.  In tiny-llama's family in fp32 and bf16, and in pythia-1b's at
+    head size 256 in fp32 (the YAML's own precision)."""
+    cfg = _train_cfg(corpus, tmp_path, f"+trainer.precision={precision}", *family)
     state = gpt_pretraining_torch.run(cfg)
     model = state.model
+    if family:
+        assert (model.config.head_size, model.config.parallel_residual) == (256, True)
+        assert model.module.compute_dtype is None
     n_blocks = len(CausalLMDataset(SimpleWordTokenizer([str(corpus["train"])]),
                                    str(corpus["train"]), 32))
     assert state.step == 2 * (n_blocks // 2) and state.opt.count == state.step // 2
@@ -414,3 +429,30 @@ def test_chip_smoke_gpt_phase_rehearsal_on_the_cpu(capsys):
     bf16 = steps["kernel_path_vs_plain_path"]["bf16"]
     assert bf16["whole_grad_l2_rel_err"] == 0.0 and bf16["grad_l2_tol"] <= 2e-2
     assert bf16["attn_projection_grad_l2_rel_err"]["worst"] == 0.0
+
+
+def test_chip_smoke_fp32_gpt_run_rehearses_on_the_cpu(capsys):
+    """`phase_train_gpt` for pythia-1b at the YAML's own precision (fp32, no
+    `trainer.precision`) at a rehearsal width on the CPU: fp32 compute,
+    parameters and moments, the loss falling over its 8 updates, the bundle
+    equal to the masters, and one micro-batch at full depth with the kernels
+    against one with the plain versions (the same plain versions here)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    out = chip_smoke.phase_train_gpt(torch.device("cpu"), narrow=True, seq_length=128,
+                                     vocab_size=300, config_name="pythia-1b", precision=None)
+    none = {"fwd": 0, "dkv": 0, "dq": 0}
+    assert out == {"launches": none, "launches_bf16": none, "per_micro_batch": none,
+                   "fp32_check_launches": none}
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    steps = {line["step"]: line for line in lines if line.get("phase") == "train_gpt"}
+    assert set(steps) == {"cli", "bundle", "remat_policies", "kernel_path_vs_plain_path"}
+    cli = steps["cli"]
+    assert (cli["precision"], cli["compute_dtype"], cli["updates"]) == ("32", "None", 8)
+    assert cli["loss_by_update"][-1] < cli["loss_by_update"][0]
+    assert steps["bundle"]["parameters_equal_trained"]
+    check = steps["kernel_path_vs_plain_path"]
+    assert check["bf16"] is None and check["fp32"]["layers"] == 2
+    assert check["fp32"]["whole_grad_l2_rel_err"] == 0.0
