@@ -572,31 +572,36 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
             "bytes": nbytes, "operations": flops}
 
 
-# the flash kernels on the tensor cores, bf16 and fp32 (3xTF32): they must
-# not spill, and their SASS must hold HMMA instructions
-FLASH_MMA_KERNELS = {"bfloat16": ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
-                                  "flash_bwd_dq_mma_kernel"),
-                     "float32": ("flash_fwd_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
-                                 "flash_bwd_dq_tf32_kernel")}
+# the flash kernels on the tensor cores, bf16 and fp32 (3xTF32), with the
+# head sizes each is built for: they must not spill, and their SASS must hold
+# tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma).  At D 256 the
+# bf16 forward is the wgmma kernel and the fp32 backward the split kernels.
+FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64, 128),
+                                  "flash_fwd_wgmma_kernel": (256,),
+                                  "flash_bwd_dkv_mma_kernel": (32, 64, 128, 256),
+                                  "flash_bwd_dq_mma_kernel": (32, 64, 128, 256)},
+                     "float32": {"flash_fwd_tf32_kernel": (32, 64, 128, 256),
+                                 "flash_bwd_dkv_tf32_kernel": (32, 64, 128),
+                                 "flash_bwd_dkv_tf32_split_kernel": (256,),
+                                 "flash_bwd_dq_tf32_kernel": (32, 64, 128),
+                                 "flash_bwd_dq_tf32_split_kernel": (256,)}}
 
 
-# the dK/dV passes of the bf16 and fp32 kernels at D 256 (template argument
-# PASS 1 and 2), as `_flash_instance` names them
+# the dK/dV passes of the bf16 kernel at D 256 (template argument PASS 1 and
+# 2), as `_flash_instance` names them
 DKV_PASSES = {"1": ".dv", "2": ".dk"}
 H100_SMEM_PER_BLOCK = 232448  # the most dynamic shared memory a block may have
 
 
 def flash_instances() -> list:
     """(kernel, dtype, D) of every flash kernel instance the launch functions
-    of csrc/flash_attention_{fwd,bwd}.cu can run: the six kernels at D 32, 64,
-    128 and 256, each dK/dV kernel at D 256 as its dV and dK passes."""
-    from roar_tpu_torch.kernels.flash_attention import HEAD_DIMS
-
+    of csrc/flash_attention_{fwd,bwd}.cu can run: each kernel at its head
+    sizes, the bf16 dK/dV kernel at D 256 as its dV and dK passes."""
     out = []
     for dtype, kernels in FLASH_MMA_KERNELS.items():
-        for kernel in kernels:
-            for d in HEAD_DIMS:
-                if d > 128 and kernel.startswith("flash_bwd_dkv_"):
+        for kernel, dims in kernels.items():
+            for d in dims:
+                if d > 128 and kernel == "flash_bwd_dkv_mma_kernel":
                     out += [(kernel + sfx, dtype, d) for sfx in DKV_PASSES.values()]
                 else:
                     out.append((kernel, dtype, d))
@@ -610,19 +615,24 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
     kernel = kernel.split(".")[0]  # a dK/dV pass asks for the kernel's memory
     if kernel == "flash_fwd_mma_kernel":
         return 2 * tile * 5
+    if kernel == "flash_fwd_wgmma_kernel":  # Q 128 rows, K and V x 2 stages, 5 barriers, align
+        return 2 * d * (128 + 4 * 64) + 5 * 8 + 1024
     if kernel == "flash_fwd_tf32_kernel":  # Q tile 64 rows, K/V tiles 32 (16 at D 256)
         return 4 * (d + 4) * (2 * 64 + 4 * (32 if d <= 128 else 16))
     if kernel == "flash_bwd_dkv_mma_kernel":
         return 2 * tile * 6 + 4 * 64 * 4
     if kernel == "flash_bwd_dq_mma_kernel":
         return 2 * tile * 6
-    # fp32 backward: the block's own tiles of 64 rows, the streamed ones (as
-    # big and small halves) of 64 rows, 16 at D 256
-    rows = 64 if d <= 128 else 16
     if kernel == "flash_bwd_dkv_tf32_kernel":  # K, V; Q, dO halves; lse, delta rows
-        return 4 * (d + 4) * (2 * 64 + 4 * rows) + 4 * 2 * rows
+        return 4 * (d + 4) * 6 * 64 + 4 * 2 * 64
     if kernel == "flash_bwd_dq_tf32_kernel":  # Q, dO; K, V halves
-        return 4 * (d + 4) * (2 * 64 + 4 * rows)
+        return 4 * (d + 4) * 6 * 64
+    # the split kernels: their own tiles, the streamed ones x 2 stages, unsplit,
+    # and the partial score tiles (4096 words)
+    if kernel == "flash_bwd_dkv_tf32_split_kernel":  # 32 keys; 32-query tiles
+        return 4 * ((d + 4) * 6 * 32 + 4096)
+    if kernel == "flash_bwd_dq_tf32_split_kernel":  # 64 queries; 16-key tiles
+        return 4 * ((d + 4) * (2 * 64 + 4 * 16) + 4096)
     raise ValueError(f"unknown flash kernel {kernel}")
 
 
@@ -633,11 +643,11 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
     template arguments `I...E` (the head dim); the anonymous namespace before
     it may hold the source's name (`flash_attention_fwd_cu`) and end in
     digits, so each split of the digit run into namespace tail and length is
-    tried.  The `_mma_` kernels take bf16, the others (`_tf32_`: 3xTF32
-    products on the tensor cores) fp32.  A dK/dV kernel's second argument is
-    its pass: 0 (both) keeps the name, 1 and 2 add ".dv" and ".dk"; a
-    kernel's last argument, the columns a launch forms, is not part of the
-    key (one instance per head size and pass)."""
+    tried.  The `_tf32_` kernels (3xTF32 products on the tensor cores) take
+    fp32, the others (`_mma_`, `_wgmma_`) bf16.  The bf16 dK/dV kernel's
+    second argument is its pass: 0 (both) keeps the name, 1 and 2 add ".dv"
+    and ".dk"; its last argument, the columns a launch forms, is not part of
+    the key (one instance per head size and pass)."""
     for found in re.finditer(r"(\d+)(?=flash_)", mangled):
         digits, start = found.group(1), found.end()
         for cut in range(len(digits)):
@@ -645,10 +655,10 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
             name, args = mangled[start:start + n], mangled[start + n:]
             if name.endswith("_kernel") and args.startswith("I"):
                 dim = re.match(r"ILi(\d+)E(?:Li(\d+)E)?", args)
-                dtype = "bfloat16" if "_mma_" in name else "float32"
+                dtype = "float32" if "_tf32" in name else "bfloat16"
                 if dim is None:
                     return name, dtype, 0
-                if name.startswith("flash_bwd_dkv_"):
+                if name == "flash_bwd_dkv_mma_kernel":
                     name += DKV_PASSES.get(dim.group(2), "")
                 return name, dtype, int(dim.group(1))
     return None
@@ -729,9 +739,10 @@ def parse_ptxas(log: str) -> dict:
 
 
 def count_hmma(lib_path) -> Optional[dict]:
-    """{instance key: HMMA instructions in its SASS} of every flash and K3
-    instance, from `cuobjdump -sass`, or None where the tool is not
-    installed.  TF32 products show as `HMMA.1684.F32.TF32`."""
+    """{instance key: {"HMMA": n, "HGMMA": n}} of every flash, K3 and K4
+    instance: its tensor-core instructions in the SASS, from `cuobjdump
+    -sass`, or None where the tool is not installed.  HMMA is mma.sync (TF32
+    products show as `HMMA.1684.F32.TF32`), HGMMA wgmma."""
     import shutil
 
     tool = shutil.which("cuobjdump")
@@ -748,19 +759,22 @@ def count_hmma(lib_path) -> Optional[dict]:
         if "Function :" in line:
             current = _any_instance(line.split("Function :", 1)[1].strip())
             if current is not None:
-                counts[current] = 0
-        elif current is not None and "HMMA" in line:
-            counts[current] += 1
+                counts[current] = {"HMMA": 0, "HGMMA": 0}
+        elif current is not None:
+            for op in ("HMMA", "HGMMA"):
+                counts[current][op] += op in line
     return counts
 
 
 def phase_kernel_build(lib_path) -> dict:
     """Registers, shared memory and spills of every flash kernel instance,
     every K3 and K4 instance and every K1 and K2 instance from the build's
-    `ptxas -v` log, and where `cuobjdump` is installed the HMMA count of each
-    tensor-core kernel; raises if a tensor-core kernel (every flash kernel,
-    bf16 and fp32 in 3xTF32, K3 and K4) spills or has no HMMA, or if a K1 or
-    K2 instance spills or is missing."""
+    `ptxas -v` log, and where `cuobjdump` is installed the HMMA and HGMMA
+    counts of each tensor-core kernel; raises if a tensor-core kernel (every
+    flash kernel, bf16 and fp32 in 3xTF32, K3 and K4) spills or has no
+    tensor-core instruction (the wgmma forward no HGMMA), if a flash instance
+    asks for more shared memory than a block may have, or if a K1 or K2
+    instance spills or is missing."""
     everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
     table = {key: info for key, info in everything.items() if key[0].startswith("flash_")}
     hmma = count_hmma(lib_path)
@@ -769,7 +783,8 @@ def phase_kernel_build(lib_path) -> dict:
         row = {"kernel": kernel, "dtype": dtype, "head_dim": d, **info,
                "dynamic_smem_bytes": flash_dynamic_smem(kernel, dtype, d)}
         if hmma is not None:
-            row["hmma"] = hmma.get((kernel, dtype, d), 0)
+            found = hmma.get((kernel, dtype, d), {})
+            row.update(hmma=found.get("HMMA", 0), hgmma=found.get("HGMMA", 0))
         rows.append(row)
     for kernel, dtype, d in flash_instances():
         info = table.get((kernel, dtype, d))
@@ -777,8 +792,12 @@ def phase_kernel_build(lib_path) -> dict:
             raise AssertionError(f"{kernel}<{d}> is not in the ptxas log")
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
             raise AssertionError(f"{kernel}<{d}> spills: {info}")
-        if hmma is not None and hmma.get((kernel, dtype, d), 0) == 0:
-            raise AssertionError(f"{kernel}<{d}> has no HMMA instruction in its SASS")
+        if hmma is not None:
+            found = hmma.get((kernel, dtype, d), {})
+            if found.get("HMMA", 0) + found.get("HGMMA", 0) == 0:
+                raise AssertionError(f"{kernel}<{d}> has no tensor-core instruction in its SASS")
+            if "_wgmma_" in kernel and found.get("HGMMA", 0) == 0:
+                raise AssertionError(f"{kernel}<{d}> has no HGMMA instruction in its SASS")
         smem = flash_dynamic_smem(kernel, dtype, d) + info["static_smem_bytes"]
         if smem > H100_SMEM_PER_BLOCK:
             raise AssertionError(f"{kernel}<{d}> asks for {smem} bytes of shared memory")
@@ -803,7 +822,7 @@ def phase_kernel_build(lib_path) -> dict:
                "dtype": ("bfloat16 (one TF32 product of widened operands)"
                          if view.endswith("_bf16") else "float32 (3xTF32 products)"), **info}
         if hmma is not None:
-            row["hmma"] = hmma.get(key, 0)
+            row["hmma"] = hmma.get(key, {}).get("HMMA", 0)
             if row["hmma"] == 0:
                 raise AssertionError(f"{kernel}<{tiles}, {view}> has no HMMA instruction in "
                                      "its SASS")
@@ -4258,7 +4277,7 @@ def main() -> int:
         {"name": "flash_attention_causal_fwd_d256", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
-         "kernel": "flash_fwd_mma_kernel", "head_size": 256,
+         "kernel": "flash_fwd_wgmma_kernel", "head_size": 256,
          "launches": pythia["launches_bf16"]["fwd"],
          "launches_per_micro_batch": pythia["per_micro_batch"]["fwd"],
          "max_abs_err": worst(head_errors(256, "bfloat16"), "o"), **d256_fwd,
@@ -4286,7 +4305,7 @@ def main() -> int:
         *[{"name": f"flash_attention_causal_bwd_{name}_d256_fp32", "route": "cuda",
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "float32",
-           "kernel": f"flash_bwd_{name}_tf32_kernel", "head_size": 256,
+           "kernel": f"flash_bwd_{name}_tf32_split_kernel", "head_size": 256,
            "launches": pythia32["launches"][name],
            "launches_per_micro_batch": pythia32["per_micro_batch"][name],
            "launches_fp32_check": pythia["fp32_check_launches"][name],

@@ -24,13 +24,14 @@
 // Every output element belongs to one thread of one block and is summed in a
 // fixed order, so there are no float atomics and two runs give the same bits.
 //
-// Head sizes 32, 64, 128 and 256 in both types.  At D 256 (192 to 196 KB of
-// shared memory a block) a launch forms half of the output columns, and the
-// dK/dV kernel runs dV and dK as separate passes (see the bf16 kernel's
-// notes); the fp32 kernels there also stream 16-row tiles in place of 64-row
-// ones (see the fp32 kernels' notes).
+// Head sizes 32, 64, 128 and 256 in both types.  bf16 at D 256 (192 to 196
+// KB of shared memory a block): a launch forms half of the output columns,
+// and the dK/dV kernel runs dV and dK as separate passes (see the bf16
+// kernel's notes).  fp32 at D 256: the split kernels, 8 warps a block, each
+// score tile formed once and each kernel one launch (see their notes).
 //
-// Both types share one block layout, 4 warps a block.  dK/dV: each warp owns
+// Up to D 128 (and in bf16 at D 256) both types share one block layout, 4
+// warps a block.  dK/dV: each warp owns
 // 16 keys of the block's 64-key tile as the rows of S^T = K q^T and
 // dP^T = V dO^T, so that P^T and dS^T come out of the accumulators as the A
 // operands of dV += P^T dO and dK += dS^T q without leaving registers; q and dO
@@ -46,8 +47,9 @@
 // second products read their B operand by ldmatrix.trans; the streamed tiles
 // are double-buffered.
 //
-// fp32, `flash_bwd_dkv_tf32_kernel` and `flash_bwd_dq_tf32_kernel`: mma.sync
-// m16n8k8 on TF32 in 3xTF32 (tf32x3.cuh): every fp32 operand is split into
+// fp32, `flash_bwd_dkv_tf32_kernel` and `flash_bwd_dq_tf32_kernel` (up to
+// D 128; the D 256 split kernels share their arithmetic): mma.sync m16n8k8
+// on TF32 in 3xTF32 (tf32x3.cuh): every fp32 operand is split into
 // big + small, each k-chunk of 8 forms small.big, big.small and big.big in a
 // fresh accumulator, and one round-to-nearest add puts that into the thread's
 // fp32 sum (dK and dV sum over up to 4096 queries, 512 chunks: carried in one
@@ -85,10 +87,17 @@
 // loop over key tiles ends at the query tile's own column, and the diagonal
 // tile is masked element by element; the dq kernels hand their query tiles
 // out longest first (the dkv kernels' first key tile is their longest
-// already).  At D 256 the passes and column halves do eight (dK/dV) and five
-// (dQ) products where four and three would do, with one block a SM, and the
-// fp32 kernels' 16-row tiles wait on a copy every 16 rows.  Later work:
-// wgmma / TMA, a fused five-product backward, and a GQA-aware kernel.
+// already).  In bf16 at D 256 the passes and column halves do eight (dK/dV)
+// and five (dQ) products where four and three would do, with one block a
+// SM.  The fp32 split kernels at D 256 do four and three, 8 warps a block
+// (one a SM), and split every operand word as it is loaded (the price of
+// two stages of streamed tiles in 216,064 B): at (1, 2048, 8, 256) causal
+// dK/dV 1.570 / 1.519 ms and dQ 1.189 / 1.167 (13 / 13 % of their own
+// bounds) where the passes and halves took 5.034 / 5.115 and 2.872 / 2.844
+// (NVIDIA H100 80GB HBM3, 700.00 W, `scripts/flash_kernel_times_torch.py`).
+// Later work: wgmma / TMA (TF32 wgmma for fp32), the split layout for the
+// bf16 D 256 backward, a fused five-product backward, and a GQA-aware
+// kernel.
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
@@ -524,107 +533,67 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---------------------------------------------------------------------------
 // The fp32 kernels on the tensor cores, 3xTF32 (see the notes at the top).
-// The block's own tiles (K and V for dK/dV, Q and dO for dQ) stay fp32 and
-// each A fragment is split after its load; the streamed tiles of the other
-// side, read as B operands by all four warps in both products, are split once
-// per tile in shared memory into a big and a small half (TF32 bit patterns).
-//
-// At D 256 that layout would ask for 399,872 B (dK/dV) and 399,360 B (dQ) of
-// shared memory, the card grants a block 232,448, and a whole row of dK and
-// dV takes 256 accumulators a thread.  So at D 256:
-//  - the streamed tiles hold 16 rows (`tf32_rows`), as the fp32 forward's
-//    K/V tiles do there: 199,808 B (dK/dV) and 199,680 B (dQ) beside the
-//    block's own 64-row fp32 tiles, one block a SM.  Tiles of 32 rows would
-//    take 266,240 B as split halves; stored unsplit and split at the
-//    fragment load they would fit, but every warp would then split every B
-//    word it reads, four times the split work of the shared split.
-//  - a launch forms half of the output columns (`NCOL` 128 at `col0` 0 and
-//    128), and the dK/dV kernel runs dV and dK as separate passes (`PASS`),
-//    as the bf16 kernels at D 256 do: each launch holds 64 accumulators a
-//    thread, in registers, with its output loop unrolled whole (196 to 212
-//    registers, no spill, no stack frame with nvcc 12.8; dK and dV of one
-//    half together are 128, which the D 128 kernels keep in the stack
-//    frame).  Four dK/dV launches and two dQ launches a call; the passes and
-//    halves recompute S^T (dV pass), S^T and dP^T (dK pass), S and dP (dQ):
-//    eight and five T x T x D products where the two kernels need four and
-//    three.
-// The passes, halves and 16-row tiles change the work, not the sums: a
-// streamed tile's rows enter each output sum in the order of a 64-row
-// tile's (8-row k-chunks, ascending), and a column of a half is summed as in
-// a whole row.
+// Up to D 128: the block's own tiles (K and V for dK/dV, Q and dO for dQ)
+// stay fp32 and each A fragment is split after its load; the streamed tiles
+// of the other side, read as B operands by all four warps in both products,
+// are split once per tile in shared memory into a big and a small half (TF32
+// bit patterns).  At D 256 that layout would ask for 399,872 B (dK/dV) and
+// 399,360 B (dQ) of shared memory (the card grants a block 232,448) and a
+// whole row of dK and dV 256 accumulators a thread: see the D 256 kernels
+// further down.
 // ---------------------------------------------------------------------------
 
 using namespace flash::tf32;
 
-// rows of a streamed tile of the fp32 kernels: 64, and 16 at D 256
-template <int D>
-__host__ __device__ constexpr int tf32_rows() {
-  return D <= 128 ? fa_mma::ROWS : 16;
-}
-
-// the output columns a launch forms, fp32 and bf16: all of them, and half of
-// them at D 256
-template <int D>
-__host__ __device__ constexpr int ncol() {
-  return D > 128 ? D / 2 : D;
-}
-
 // ---------------------------------------------------------------------------
-// The fp32 dK/dV kernel.  One block of 4 warps per 64-key tile; warp w owns
-// keys 16 w .. 16 w + 15 whole, as the rows of
+// The fp32 dK/dV kernel up to D 128.  One block of 4 warps per 64-key tile;
+// warp w owns keys 16 w .. 16 w + 15 whole, as the rows of
 //   S^T = K Q^T  and  dP^T = V dO^T   (K and V as A fragments),
-// and loops over the visible query tiles of `tf32_rows` rows (from the
-// diagonal with `causal`), 8 NQ queries at a time:
+// and loops over the visible 64-query tiles (from the diagonal with
+// `causal`), 8 NQ queries at a time:
 //   P^T  = exp(S^T * scale - lse)            (0 where masked)
 //   dS^T = P^T o (dP^T - delta) * scale
 //   dV  += P^T dO,   dK += dS^T Q             (dO and Q rows read permuted)
 // Each query tile is staged by cp.async with its lse / delta rows and split in
 // place; one stage, so the copies of the next tile wait for this one's
-// products (two blocks a SM at D <= 64 overlap each other's).  `PASS` and
-// `NCOL` as in the bf16 kernel: DKV_BOTH and all columns up to D 128; at
-// D 256 a dV pass (no dP^T, no V tile) and a dK pass, each over a half.
+// products (two blocks a SM at D <= 64 overlap each other's).
 // ---------------------------------------------------------------------------
 
 template <int D>
 constexpr size_t dkv_tf32_smem_bytes() {
   // K, V, then Q and dO as big and small halves; lse and delta rows
-  constexpr int R = tf32_rows<D>();
-  return sizeof(float) * ((2 * fa_mma::ROWS + 4 * R) * (D + 4) + 2 * R);
+  return sizeof(float) * (6 * fa_mma::ROWS * (D + 4) + 2 * fa_mma::ROWS);
 }
 
-template <int D, int PASS, int NCOL>
+template <int D>
 __global__ void __launch_bounds__(fa_mma::THREADS)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const int* __restrict__ seg,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const float* __restrict__ dout, float* __restrict__ dk,
-                          float* __restrict__ dv, int T, int H, float scale, int causal,
-                          int col0_arg) {
+                          float* __restrict__ dv, int T, int H, float scale, int causal) {
   using namespace fa_mma;
-  constexpr int R = tf32_rows<D>();   // queries of a staged tile
-  constexpr int TW = ROWS * (D + 4);  // words of the K or V tile
-  constexpr int RW = R * (D + 4);     // words of a staged query tile's half
+  static_assert(D <= 128, "D 256 runs flash_bwd_dkv_tf32_split_kernel");
+  constexpr int TW = ROWS * (D + 4);  // words of a staged tile or half
   constexpr int KC = D / 8;           // k-chunks of the score products
-  constexpr int NT = NCOL / 8;        // n-tiles of this launch's columns of dK, dV
-  // 8-query n-tiles a chunk, in pairs; D 128 and 256 take 16 queries a chunk
+  constexpr int NT = D / 8;           // n-tiles of dK and dV
+  // 8-query n-tiles a chunk, in pairs; D 128 takes 16 queries a chunk
   constexpr int NQ = D <= 64 ? 4 : 2;
   // the score products' k-chunks unroll whole up to D 64, 4 times above; the
   // output n-tiles unroll whole but at D 128, whose 128 accumulators a
   // thread live in the stack frame
   constexpr int UNROLL = D <= 64 ? KC : 4;
   constexpr int UNROLL_OUT = D == 128 ? 4 : NT;
-  constexpr bool DO_DV = PASS != DKV_DK, DO_DK = PASS != DKV_DV;
-  const int col0 = NCOL == D ? 0 : col0_arg;
 
   extern __shared__ float4 smem_dkv_tf32[];
   float* Ks = reinterpret_cast<float*>(smem_dkv_tf32);
   float* Vs = Ks + TW;
   float* Qbig = Vs + TW;
-  float* Qsmall = Qbig + RW;
-  float* Obig = Qsmall + RW;  // dO
-  float* Osmall = Obig + RW;
-  float* lse_s = Osmall + RW;  // [R]
-  float* delta_s = lse_s + R;  // [R]
+  float* Qsmall = Qbig + TW;
+  float* Obig = Qsmall + TW;  // dO
+  float* Osmall = Obig + TW;
+  float* lse_s = Osmall + TW;     // [ROWS]
+  float* delta_s = lse_s + ROWS;  // [ROWS]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -639,43 +608,40 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   segment_range(segb, k0, T, lane, klo, khi);
 
   stage_tile_f32<D>(Ks, k, base, ld, k0, T, tid);
-  if constexpr (DO_DK) stage_tile_f32<D>(Vs, v, base, ld, k0, T, tid);
+  stage_tile_f32<D>(Vs, v, base, ld, k0, T, tid);
   cp_async_commit();
   // causal: the query tiles before this key tile's own row see none of its keys
   bool uniform, uniform_next;
-  int q0 = next_tile<R>(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
+  int q0 = next_tile(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
 
   // this thread's two keys, rows g and g + 8 of the warp's 16
   const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
   const int seg0 = key0 < T ? segb[key0] : -1, seg1 = key1 < T ? segb[key1] : -1;
 
-  float acc_dk[DO_DK ? NT : 1][4], acc_dv[DO_DV ? NT : 1][4];
+  float acc_dk[NT][4], acc_dv[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (DO_DK) acc_dk[j][e] = 0.f;
-      if constexpr (DO_DV) acc_dv[j][e] = 0.f;
-    }
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
 
   while (q0 < T) {
-    stage_tile_f32<D, R>(Qbig, q, base, ld, q0, T, tid);
-    stage_tile_f32<D, R>(Obig, dout, base, ld, q0, T, tid);
-    stage_rows<R>(lse_s, lse + row_base, q0, T, tid);
-    if constexpr (DO_DK) stage_rows<R>(delta_s, delta + row_base, q0, T, tid);
+    stage_tile_f32<D>(Qbig, q, base, ld, q0, T, tid);
+    stage_tile_f32<D>(Obig, dout, base, ld, q0, T, tid);
+    stage_rows(lse_s, lse + row_base, q0, T, tid);
+    stage_rows(delta_s, delta + row_base, q0, T, tid);
     cp_async_commit();
-    const int qn = next_tile<R>(segb, q0 + R, T, T, klo, khi, lane, uniform_next);
+    const int qn = next_tile(segb, q0 + ROWS, T, T, klo, khi, lane, uniform_next);
     cp_async_wait<0>();
     __syncthreads();
-    split_tile_f32<D, false, R>(Qbig, Qsmall, tid);
-    split_tile_f32<D, false, R>(Obig, Osmall, tid);
+    split_tile_f32<D>(Qbig, Qsmall, tid);
+    split_tile_f32<D>(Obig, Osmall, tid);
     __syncthreads();
-    // the ragged edge, the tiles on the diagonal and a tile whose ids are not
-    // all the key tile's single id are masked element by element
-    const bool masked = !uniform || q0 + R > T || (causal && q0 < k0 + ROWS);
+    // the ragged edge, the diagonal tile and a tile whose ids are not all the
+    // key tile's single id are masked element by element
+    const bool masked = !uniform || q0 + ROWS > T || (causal && q0 < k0 + ROWS);
 
 #pragma unroll 1
-    for (int c0 = 0; c0 < R; c0 += 8 * NQ) {  // queries c0 .. c0 + 8 NQ - 1 of the tile
+    for (int c0 = 0; c0 < ROWS; c0 += 8 * NQ) {  // queries c0 .. c0 + 8 NQ - 1 of the tile
       float st[NQ][4], dpt[NQ][4];
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
@@ -685,20 +651,18 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
       for (int kc = 0; kc < KC; ++kc) {
         uint32_t kb[4], ks[4], vb[4], vs[4];
         load_a_split<D>(kb, ks, Ks, warp * 16, kc, lane);
-        if constexpr (DO_DK) load_a_split<D>(vb, vs, Vs, warp * 16, kc, lane);
+        load_a_split<D>(vb, vs, Vs, warp * 16, kc, lane);
 #pragma unroll
         for (int n = 0; n < NQ; n += 2) {
           uint32_t qb[4], qs[4], ob[4], os[4];
           load_b2<D>(qb, Qbig, c0 + 8 * n, kc, lane);
           load_b2<D>(qs, Qsmall, c0 + 8 * n, kc, lane);
-          if constexpr (DO_DK) {
-            load_b2<D>(ob, Obig, c0 + 8 * n, kc, lane);
-            load_b2<D>(os, Osmall, c0 + 8 * n, kc, lane);
-          }
+          load_b2<D>(ob, Obig, c0 + 8 * n, kc, lane);
+          load_b2<D>(os, Osmall, c0 + 8 * n, kc, lane);
           mma_3xtf32(st[n], kb, ks, qb[0], qb[1], qs[0], qs[1]);
-          if constexpr (DO_DK) mma_3xtf32(dpt[n], vb, vs, ob[0], ob[1], os[0], os[1]);
+          mma_3xtf32(dpt[n], vb, vs, ob[0], ob[1], os[0], os[1]);
           mma_3xtf32(st[n + 1], kb, ks, qb[2], qb[3], qs[2], qs[3]);
-          if constexpr (DO_DK) mma_3xtf32(dpt[n + 1], vb, vs, ob[2], ob[3], os[2], os[3]);
+          mma_3xtf32(dpt[n + 1], vb, vs, ob[2], ob[3], os[2], os[3]);
         }
       }
       // element (n, e): key row e < 2 ? g : g + 8, query c0 + 8 n + 2 t4 + (e & 1)
@@ -715,31 +679,26 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
                             (!causal || key <= query);
             p = ok ? p : 0.f;
           }
-          if constexpr (DO_DK) dpt[n][e] = p * (dpt[n][e] - delta_s[qc]) * scale;  // dS^T
+          dpt[n][e] = p * (dpt[n][e] - delta_s[qc]) * scale;  // dS^T
           st[n][e] = p;
         }
       }
       // n-tile n of P^T and dS^T is the A operand of the k-chunk over its 8
-      // queries: dV += P^T dO, dK += dS^T Q, over this launch's columns
+      // queries: dV += P^T dO, dK += dS^T Q
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         uint32_t pb[4], ps[4], sb[4], ss[4];
-        if constexpr (DO_DV) acc_as_a(st[n], pb, ps);
-        if constexpr (DO_DK) acc_as_a(dpt[n], sb, ss);
+        acc_as_a(st[n], pb, ps);
+        acc_as_a(dpt[n], sb, ss);
 #pragma unroll(UNROLL_OUT)
         for (int j = 0; j < NT; ++j) {
-          if constexpr (DO_DV) {
-            uint32_t ob[2], os[2];
-            load_bt<D>(ob, Obig + col0, c0 + 8 * n, j, g, t4);
-            load_bt<D>(os, Osmall + col0, c0 + 8 * n, j, g, t4);
-            mma_3xtf32(acc_dv[j], pb, ps, ob[0], ob[1], os[0], os[1]);
-          }
-          if constexpr (DO_DK) {
-            uint32_t qb[2], qs[2];
-            load_bt<D>(qb, Qbig + col0, c0 + 8 * n, j, g, t4);
-            load_bt<D>(qs, Qsmall + col0, c0 + 8 * n, j, g, t4);
-            mma_3xtf32(acc_dk[j], sb, ss, qb[0], qb[1], qs[0], qs[1]);
-          }
+          uint32_t ob[2], os[2], qb[2], qs[2];
+          load_bt<D>(ob, Obig, c0 + 8 * n, j, g, t4);
+          load_bt<D>(os, Osmall, c0 + 8 * n, j, g, t4);
+          mma_3xtf32(acc_dv[j], pb, ps, ob[0], ob[1], os[0], os[1]);
+          load_bt<D>(qb, Qbig, c0 + 8 * n, j, g, t4);
+          load_bt<D>(qs, Qsmall, c0 + 8 * n, j, g, t4);
+          mma_3xtf32(acc_dk[j], sb, ss, qb[0], qb[1], qs[0], qs[1]);
         }
       }
     }
@@ -749,73 +708,67 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   }
   cp_async_wait<0>();  // K and V of a block that saw no query tile
 
-  // element (j, e): key row e < 2 ? g : g + 8, head-dim column
-  // col0 + 8 j + 2 t4 + (e & 1)
+  // element (j, e): key row e < 2 ? g : g + 8, head-dim column 8 j + 2 t4 + (e & 1)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = i == 0 ? key0 : key1;
     if (t < T) {
-      const long at = base + (long)t * ld + col0 + 2 * t4;
+      const long at = base + (long)t * ld + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        if constexpr (DO_DK)
-          *reinterpret_cast<float2*>(dk + at + 8 * j) =
-              make_float2(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
-        if constexpr (DO_DV)
-          *reinterpret_cast<float2*>(dv + at + 8 * j) =
-              make_float2(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+        *reinterpret_cast<float2*>(dk + at + 8 * j) =
+            make_float2(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
+        *reinterpret_cast<float2*>(dv + at + 8 * j) =
+            make_float2(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 dQ kernel.  One block of 4 warps per (64-query tile, head, batch
-// row); warp w owns queries 16 w .. 16 w + 15 whole, as the rows of
+// The fp32 dQ kernel up to D 128.  One block of 4 warps per (64-query tile,
+// head, batch row); warp w owns queries 16 w .. 16 w + 15 whole, as the rows of
 //   S = Q K^T  and  dP = dO V^T   (Q and dO as A fragments),
-// and loops over the visible key tiles of `tf32_rows` rows (up to the
-// diagonal with `causal`), 8 NK keys at a time:
+// and loops over the visible 64-key tiles (up to the diagonal with `causal`),
+// 8 NK keys at a time:
 //   P  = exp(S * scale - lse)              (0 where masked)
 //   dS = P o (dP - delta) * scale
 //   dQ += dS K                             (K rows read permuted)
 // Each thread keeps the lse and delta of its two rows in registers.  Each key
-// tile is staged by cp.async and split in place, one stage, as in dK/dV.  A
-// launch forms `NCOL` columns of dQ from `col0` (half of them at D 256).
+// tile is staged by cp.async and split in place, one stage, as in dK/dV.
 // ---------------------------------------------------------------------------
 
 template <int D>
 constexpr size_t dq_tf32_smem_bytes() {
   // Q, dO, then K and V as big and small halves
-  return sizeof(float) * (2 * fa_mma::ROWS + 4 * tf32_rows<D>()) * (D + 4);
+  return sizeof(float) * 6 * fa_mma::ROWS * (D + 4);
 }
 
-template <int D, int NCOL>
+template <int D>
 __global__ void __launch_bounds__(fa_mma::THREADS)
 flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const int* __restrict__ seg,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const float* __restrict__ dout, float* __restrict__ dq, int T, int H,
-                         float scale, int causal, int col0_arg) {
+                         float scale, int causal) {
   using namespace fa_mma;
-  constexpr int R = tf32_rows<D>();  // keys of a staged tile
+  static_assert(D <= 128, "D 256 runs flash_bwd_dq_tf32_split_kernel");
   constexpr int TW = ROWS * (D + 4);
-  constexpr int RW = R * (D + 4);
-  constexpr int KC = D / 8;     // k-chunks of the score products
-  constexpr int NT = NCOL / 8;  // n-tiles of this launch's columns of dQ
-  // 8-key n-tiles a chunk, in pairs; D 128 and 256 take 16 keys a chunk
+  constexpr int KC = D / 8;  // k-chunks of the score products
+  constexpr int NT = D / 8;  // n-tiles of dQ
+  // 8-key n-tiles a chunk, in pairs; D 128 takes 16 keys a chunk
   constexpr int NK = D <= 64 ? 4 : 2;
   // unrolled as in dK/dV: D 128's 64 accumulators live in the stack frame
   constexpr int UNROLL = D <= 64 ? KC : 4;
   constexpr int UNROLL_OUT = D == 128 ? 4 : NT;
-  const int col0 = NCOL == D ? 0 : col0_arg;
 
   extern __shared__ float4 smem_dq_tf32[];
   float* Qs = reinterpret_cast<float*>(smem_dq_tf32);
   float* Os = Qs + TW;  // dO
   float* Kbig = Os + TW;
-  float* Ksmall = Kbig + RW;
-  float* Vbig = Ksmall + RW;
-  float* Vsmall = Vbig + RW;
+  float* Ksmall = Kbig + TW;
+  float* Vbig = Ksmall + TW;
+  float* Vsmall = Vbig + TW;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -835,7 +788,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   stage_tile_f32<D>(Os, dout, base, ld, q0, T, tid);
   cp_async_commit();
   bool uniform, uniform_next;
-  int k0 = next_tile<R>(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+  int k0 = next_tile(segb, 0, k_end, T, qlo, qhi, lane, uniform);
 
   // this thread's two queries, rows g and g + 8 of the warp's 16; rows past T
   // are never stored
@@ -851,21 +804,21 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   while (k0 < k_end) {  // always entered: every in-range query sees its own key
-    stage_tile_f32<D, R>(Kbig, k, base, ld, k0, T, tid);
-    stage_tile_f32<D, R>(Vbig, v, base, ld, k0, T, tid);
+    stage_tile_f32<D>(Kbig, k, base, ld, k0, T, tid);
+    stage_tile_f32<D>(Vbig, v, base, ld, k0, T, tid);
     cp_async_commit();
-    const int kn = next_tile<R>(segb, k0 + R, k_end, T, qlo, qhi, lane, uniform_next);
+    const int kn = next_tile(segb, k0 + ROWS, k_end, T, qlo, qhi, lane, uniform_next);
     cp_async_wait<0>();
     __syncthreads();
-    split_tile_f32<D, false, R>(Kbig, Ksmall, tid);
-    split_tile_f32<D, false, R>(Vbig, Vsmall, tid);
+    split_tile_f32<D>(Kbig, Ksmall, tid);
+    split_tile_f32<D>(Vbig, Vsmall, tid);
     __syncthreads();
-    // the ragged edge, the tiles on the diagonal and a tile whose ids are not
-    // all the query tile's single id are masked element by element
-    const bool masked = !uniform || k0 + R > T || (causal && k0 + R > q0);
+    // the ragged edge, the diagonal tile and a tile whose ids are not all the
+    // query tile's single id are masked element by element
+    const bool masked = !uniform || k0 + ROWS > T || (causal && k0 + ROWS > q0);
 
 #pragma unroll 1
-    for (int c0 = 0; c0 < R; c0 += 8 * NK) {  // keys c0 .. c0 + 8 NK - 1 of the tile
+    for (int c0 = 0; c0 < ROWS; c0 += 8 * NK) {  // keys c0 .. c0 + 8 NK - 1 of the tile
       float s[NK][4], dp[NK][4];
 #pragma unroll
       for (int n = 0; n < NK; ++n)
@@ -914,8 +867,8 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll(UNROLL_OUT)
         for (int j = 0; j < NT; ++j) {
           uint32_t kb[2], ks[2];
-          load_bt<D>(kb, Kbig + col0, c0 + 8 * n, j, g, t4);
-          load_bt<D>(ks, Ksmall + col0, c0 + 8 * n, j, g, t4);
+          load_bt<D>(kb, Kbig, c0 + 8 * n, j, g, t4);
+          load_bt<D>(ks, Ksmall, c0 + 8 * n, j, g, t4);
           mma_3xtf32(acc[j], sb, ss, kb[0], kb[1], ks[0], ks[1]);
         }
       }
@@ -925,13 +878,391 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
     uniform = uniform_next;
   }
 
-  // element (j, e): query row e < 2 ? g : g + 8, head-dim column
-  // col0 + 8 j + 2 t4 + (e & 1)
+  // element (j, e): query row e < 2 ? g : g + 8, head-dim column 8 j + 2 t4 + (e & 1)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = i == 0 ? row0 : row1;
     if (t < T) {
-      float* dst = dq + base + (long)t * ld + col0 + 2 * t4;
+      float* dst = dq + base + (long)t * ld + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 kernels at D 256: each score tile formed once, one launch each.
+// A block of 8 warps; each warp owns 16 rows x 128 columns of one output
+// (64 accumulators a thread, no spill), so the two column halves of a row
+// are two warps, and the score products S and dP are split between the
+// warps that need them along their contraction over D: each warp forms the
+// half of a 16-row score tile that its own 128 columns of the operands give,
+// writes that partial sum to shared memory, and after a barrier of its
+// group adds its partner's in a fixed order (columns 0..127 first, then
+// 128..255), so that every warp of the group holds the whole tile, bit for
+// bit the same.  The score tiles' accumulators are then the A operands of
+// the gradient products through the permuted contraction index, as up to
+// D 128.  Every operand word is kept unsplit in shared memory and split as
+// it is loaded, which leaves the room for two stages of streamed tiles: the
+// next tile's cp.async runs under this tile's products.  `tests/
+// test_torch_flash_tf32.py` emulates this walk (`D256_WALK`): the split sums
+// hold the fp32 bar, and plain TF32 fails it.
+// ---------------------------------------------------------------------------
+
+constexpr int SPLIT_THREADS = 256;  // 8 warps
+constexpr int SPLIT_KEYS = 32;      // dK/dV: keys of a block, queries of a streamed tile
+constexpr int SPLIT_DQ_KEYS = 16;   // dQ: keys of a streamed tile (64 queries a block)
+
+// named barrier `id` (1..) over `threads` threads of the block
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int D>
+constexpr size_t dkv_split_smem_bytes() {
+  // K, V (32 keys); Q and dO x 2 stages (32 queries); partial score tiles of
+  // the two key groups: 4 of 16 x 32 each
+  return sizeof(float) * (6 * SPLIT_KEYS * (D + 4) + 2 * 4 * 16 * SPLIT_KEYS);
+}
+
+// dK/dV at D 256.  One block per 32-key tile; warp w: key group kg = w / 4
+// (keys 16 kg .. 16 kg + 15 of the tile), role w % 4: dV columns 0..127,
+// dV 128..255, dK 0..127, dK 128..255 (half hf = role % 2).  Per 32-query
+// tile (from the diagonal with `causal`):
+//   dV warps: S^T's half hf = K[:, hf] Q[:, hf]^T;  dK warps: dP^T's half hf
+//   = V[:, hf] dO[:, hf]^T   (4 query n-tiles, 16 k-chunks of 8)
+//   exchange; S^T = half 0 + half 1 (every warp), dP^T likewise (dK warps)
+//   P^T = exp(S^T * scale - lse), dS^T = P^T o (dP^T - delta) * scale
+//   dV[:, hf] += P^T dO[:, hf]  or  dK[:, hf] += dS^T Q[:, hf]
+// lse and delta of a tile's queries are read from device memory (L1).
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+flash_bwd_dkv_tf32_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const int* __restrict__ seg,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                const float* __restrict__ dout, float* __restrict__ dk,
+                                float* __restrict__ dv, int T, int H, float scale, int causal) {
+  using namespace fa_mma;
+  static_assert(D == 256, "the split form is built for D 256");
+  constexpr int R = SPLIT_KEYS;      // keys of the block, queries of a streamed tile
+  constexpr int TW = R * (D + 4);    // words of a tile
+  constexpr int KC = D / 16;         // k-chunks of a score product's half
+  constexpr int NQ = R / 8;          // query n-tiles of a score tile
+  constexpr int NT = D / 16;         // n-tiles of a warp's 128 output columns
+
+  extern __shared__ float4 smem_dkv_split[];
+  float* Ks = reinterpret_cast<float*>(smem_dkv_split);
+  float* Vs = Ks + TW;
+  float* Qs = Vs + TW;       // [2 stages][R][D + 4]
+  float* Os = Qs + 2 * TW;   // dO, [2 stages][R][D + 4]
+  float* Xs = Os + 2 * TW;   // [2 key groups][4 roles][16 values][32 lanes]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kg = warp >> 2, role = warp & 3, hf = role & 1;
+  const bool is_dk = role >= 2;
+  const int k0 = blockIdx.x * R;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+  const float* lse_b = lse + ((long)b * H + h) * T;
+  const float* delta_b = delta + ((long)b * H + h) * T;
+
+  int klo, khi;
+  segment_range<R>(segb, k0, T, lane, klo, khi);
+
+  stage_tile_f32<D, R, SPLIT_THREADS>(Ks, k, base, ld, k0, T, tid);
+  stage_tile_f32<D, R, SPLIT_THREADS>(Vs, v, base, ld, k0, T, tid);
+  // causal: the query tiles before this key tile's own row see none of its keys
+  bool uniform, uniform_next;
+  int q0 = next_tile<R>(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
+  if (q0 < T) {
+    stage_tile_f32<D, R, SPLIT_THREADS>(Qs, q, base, ld, q0, T, tid);
+    stage_tile_f32<D, R, SPLIT_THREADS>(Os, dout, base, ld, q0, T, tid);
+  }
+  cp_async_commit();
+
+  // this thread's two keys, rows g and g + 8 of its group's 16
+  const int key0 = k0 + 16 * kg + g, key1 = key0 + 8;
+  const int seg0 = key0 < T ? segb[key0] : -1, seg1 = key1 < T ? segb[key1] : -1;
+  // the score half this warp forms: S^T (K, Q) or dP^T (V, dO); the operand
+  // of its gradient product: dO or Q
+  const float* a_tile = is_dk ? Vs : Ks;
+  float* xg = Xs + kg * 4 * 16 * 32;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int stage = 0;
+  while (q0 < T) {
+    const int qn = next_tile<R>(segb, q0 + R, T, T, klo, khi, lane, uniform_next);
+    if (qn < T) {
+      stage_tile_f32<D, R, SPLIT_THREADS>(Qs + (stage ^ 1) * TW, q, base, ld, qn, T, tid);
+      stage_tile_f32<D, R, SPLIT_THREADS>(Os + (stage ^ 1) * TW, dout, base, ld, qn, T, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Qt = Qs + stage * TW;
+    const float* Ot = Os + stage * TW;
+    // the ragged edge, the tiles on the diagonal and a tile whose ids are not
+    // all the key tile's single id are masked element by element
+    const bool masked = !uniform || q0 + R > T || (causal && q0 < k0 + R);
+
+    // this warp's half of S^T or dP^T: element (n, e) at key row e < 2 ? g :
+    // g + 8, query 8 n + 2 t4 + (e & 1)
+    float part[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+    const float* b_tile = is_dk ? Ot : Qt;
+#pragma unroll 2
+    for (int kc = 0; kc < KC; ++kc) {
+      const int chunk = KC * hf + kc;  // 8-column chunk of the row
+      uint32_t ab[4], as[4];
+      load_a_split<D>(ab, as, a_tile, 16 * kg, chunk, lane);
+#pragma unroll
+      for (int n = 0; n < NQ; n += 2) {
+        uint32_t bb[4], bs[4];
+        load_b2_split<D>(bb, bs, b_tile, 8 * n, chunk, lane);
+        mma_3xtf32(part[n], ab, as, bb[0], bb[1], bs[0], bs[1]);
+        mma_3xtf32(part[n + 1], ab, as, bb[2], bb[3], bs[2], bs[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xg[(role * 16 + 4 * n + e) * 32 + lane] = part[n][e];
+    group_sync(1 + kg, 128);
+
+    // per query n-tile: the whole tile, half 0 + half 1, then P^T (dV warps)
+    // or dS^T (dK warps) as the A operand of the k-chunk over its 8 queries:
+    // dV[:, hf] += P^T dO[:, hf]  or  dK[:, hf] += dS^T Q[:, hf]
+    const float* g_tile = (is_dk ? Qt : Ot) + (D / 2) * hf;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      float pt[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * n + e;
+        const float st = xg[i * 32 + lane] + xg[(16 + i) * 32 + lane];
+        const int query = q0 + 8 * n + 2 * t4 + (e & 1);
+        const bool in = query < T;
+        float p = expf(st * scale - (in ? lse_b[query] : 0.f));
+        if (masked) {
+          const int key = e < 2 ? key0 : key1;
+          const bool ok = in && segb[query] == (e < 2 ? seg0 : seg1) &&
+                          (!causal || key <= query);
+          p = ok ? p : 0.f;
+        }
+        if (is_dk) {
+          const float dpt = xg[(32 + i) * 32 + lane] + xg[(48 + i) * 32 + lane];
+          p = p * (dpt - (in ? delta_b[query] : 0.f)) * scale;  // dS^T
+        }
+        pt[e] = p;
+      }
+      uint32_t pb[4], ps[4];
+      acc_as_a(pt, pb, ps);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bb[2], bs[2];
+        load_bt_split<D>(bb, bs, g_tile, 8 * n, j, g, t4);
+        mma_3xtf32(acc[j], pb, ps, bb[0], bb[1], bs[0], bs[1]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage and the partials
+    q0 = qn;
+    uniform = uniform_next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();  // K and V of a block that saw no query tile
+
+  // element (j, e): key row e < 2 ? g : g + 8, head-dim column
+  // 128 hf + 8 j + 2 t4 + (e & 1)
+  float* out = is_dk ? dk : dv;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = i == 0 ? key0 : key1;
+    if (t < T) {
+      float* dst = out + base + (long)t * ld + (D / 2) * hf + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_split_smem_bytes() {
+  // Q, dO (64 queries); K and V x 2 stages (16 keys); partial score tiles of
+  // the four query groups: 2 warps x (S, dP) of 16 x 8 each
+  return sizeof(float) *
+         ((2 * fa_mma::ROWS + 4 * SPLIT_DQ_KEYS) * (D + 4) + 4 * 2 * 16 * 32);
+}
+
+// dQ at D 256.  One block per (64-query tile, head, batch row); warp w: query
+// group qg = w / 2 (queries 16 qg .. 16 qg + 15), dQ columns 128 hf ..
+// 128 hf + 127 with hf = w % 2.  Per 16-key tile (up to the diagonal with
+// `causal`):
+//   S's and dP's half hf = Q[:, hf] K[:, hf]^T, dO[:, hf] V[:, hf]^T
+//   exchange with the partner warp; S = half 0 + half 1, dP likewise
+//   P = exp(S * scale - lse), dS = P o (dP - delta) * scale
+//   dQ[:, hf] += dS K[:, hf]
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+flash_bwd_dq_tf32_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const int* __restrict__ seg,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               const float* __restrict__ dout, float* __restrict__ dq, int T,
+                               int H, float scale, int causal) {
+  using namespace fa_mma;
+  static_assert(D == 256, "the split form is built for D 256");
+  constexpr int R = SPLIT_DQ_KEYS;    // keys of a streamed tile
+  constexpr int QW = ROWS * (D + 4);  // words of the Q or dO tile
+  constexpr int KW = R * (D + 4);     // words of a K or V tile
+  constexpr int KC = D / 16;          // k-chunks of a score product's half
+  constexpr int NK = R / 8;           // key n-tiles of a score tile
+  constexpr int NT = D / 16;          // n-tiles of a warp's 128 columns of dQ
+
+  extern __shared__ float4 smem_dq_split[];
+  float* Qs = reinterpret_cast<float*>(smem_dq_split);
+  float* Os = Qs + QW;      // dO
+  float* Ks = Os + QW;      // [2 stages][R][D + 4]
+  float* Vs = Ks + 2 * KW;  // [2 stages][R][D + 4]
+  float* Xs = Vs + 2 * KW;  // [4 query groups][2 halves][S 8, dP 8][32 lanes]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qg = warp >> 1, hf = warp & 1;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+  const long row_base = ((long)b * H + h) * T;
+
+  int qlo, qhi;
+  segment_range(segb, q0, T, lane, qlo, qhi);
+  // causal: the tiles past the query tile's last row hold no visible key
+  const int k_end = causal ? min(T, q0 + ROWS) : T;
+
+  stage_tile_f32<D, ROWS, SPLIT_THREADS>(Qs, q, base, ld, q0, T, tid);
+  stage_tile_f32<D, ROWS, SPLIT_THREADS>(Os, dout, base, ld, q0, T, tid);
+  bool uniform, uniform_next;
+  int k0 = next_tile<R>(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+  if (k0 < k_end) {  // always: every in-range query sees its own key
+    stage_tile_f32<D, R, SPLIT_THREADS>(Ks, k, base, ld, k0, T, tid);
+    stage_tile_f32<D, R, SPLIT_THREADS>(Vs, v, base, ld, k0, T, tid);
+  }
+  cp_async_commit();
+
+  // this thread's two queries, rows g and g + 8 of its group's 16; rows past T
+  // are never stored
+  const int row0 = q0 + 16 * qg + g, row1 = row0 + 8;
+  const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+  const float row_lse[2] = {row0 < T ? lse[row_base + row0] : 0.f,
+                            row1 < T ? lse[row_base + row1] : 0.f};
+  const float row_delta[2] = {row0 < T ? delta[row_base + row0] : 0.f,
+                              row1 < T ? delta[row_base + row1] : 0.f};
+  float* xg = Xs + qg * 2 * 16 * 32;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int stage = 0;
+  while (k0 < k_end) {
+    const int kn = next_tile<R>(segb, k0 + R, k_end, T, qlo, qhi, lane, uniform_next);
+    if (kn < k_end) {
+      stage_tile_f32<D, R, SPLIT_THREADS>(Ks + (stage ^ 1) * KW, k, base, ld, kn, T, tid);
+      stage_tile_f32<D, R, SPLIT_THREADS>(Vs + (stage ^ 1) * KW, v, base, ld, kn, T, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = Ks + stage * KW;
+    const float* Vt = Vs + stage * KW;
+    // the ragged edge, the tiles on the diagonal and a tile whose ids are not
+    // all the query tile's single id are masked element by element
+    const bool masked = !uniform || k0 + R > T || (causal && k0 + R > q0);
+
+    // this warp's halves of S and dP: element (n, e) at query row e < 2 ? g :
+    // g + 8, key 8 n + 2 t4 + (e & 1)
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 4
+    for (int kc = 0; kc < KC; ++kc) {
+      const int chunk = KC * hf + kc;  // 8-column chunk of the row
+      uint32_t qb[4], qs[4], ob[4], os[4], kb[4], ks[4], vb[4], vs[4];
+      load_a_split<D>(qb, qs, Qs, 16 * qg, chunk, lane);
+      load_a_split<D>(ob, os, Os, 16 * qg, chunk, lane);
+      load_b2_split<D>(kb, ks, Kt, 0, chunk, lane);
+      load_b2_split<D>(vb, vs, Vt, 0, chunk, lane);
+      mma_3xtf32(s[0], qb, qs, kb[0], kb[1], ks[0], ks[1]);
+      mma_3xtf32(dp[0], ob, os, vb[0], vb[1], vs[0], vs[1]);
+      mma_3xtf32(s[1], qb, qs, kb[2], kb[3], ks[2], ks[3]);
+      mma_3xtf32(dp[1], ob, os, vb[2], vb[3], vs[2], vs[3]);
+    }
+    float* mine = xg + hf * 16 * 32;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[(4 * n + e) * 32 + lane] = s[n][e];
+        mine[(8 + 4 * n + e) * 32 + lane] = dp[n][e];
+      }
+    group_sync(1 + qg, 64);
+
+    // the whole tiles, half 0 + half 1; then P and dS
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * n + e, r = e >> 1;
+        const float st = xg[i * 32 + lane] + xg[(16 + i) * 32 + lane];
+        const float dpt = xg[(8 + i) * 32 + lane] + xg[(24 + i) * 32 + lane];
+        float p = expf(st * scale - row_lse[r]);
+        if (masked) {
+          const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+          const int row = r == 0 ? row0 : row1;
+          const bool ok = key < T && segb[key] == (r == 0 ? seg0 : seg1) &&
+                          (!causal || key <= row);
+          p = ok ? p : 0.f;
+        }
+        dp[n][e] = p * (dpt - row_delta[r]) * scale;  // dS
+      }
+    }
+    // n-tile n of dS is the A operand of the k-chunk over its 8 keys
+    const float* g_tile = Kt + (D / 2) * hf;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      uint32_t sb[4], ss[4];
+      acc_as_a(dp[n], sb, ss);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t kb[2], ks[2];
+        load_bt_split<D>(kb, ks, g_tile, 8 * n, j, g, t4);
+        mma_3xtf32(acc[j], sb, ss, kb[0], kb[1], ks[0], ks[1]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage and the partials
+    k0 = kn;
+    uniform = uniform_next;
+    stage ^= 1;
+  }
+
+  // element (j, e): query row e < 2 ? g : g + 8, head-dim column
+  // 128 hf + 8 j + 2 t4 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = i == 0 ? row0 : row1;
+    if (t < T) {
+      float* dst = dq + base + (long)t * ld + (D / 2) * hf + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
@@ -956,71 +1287,100 @@ const T* in_ptr(const void* p) {
   return static_cast<const T*>(p);
 }
 
-// One block of fa_mma::THREADS per (64-row tile, head, batch row), for every
-// (pass, column half) of `launch_dkv` and `launch_dq`.
+using fa_mma::bf16;
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-inline dim3 grid_of(const Inputs& in) {
-  return dim3((in.T + fa_mma::ROWS - 1) / fa_mma::ROWS, in.H, in.B);
+// one block per (`rows`-row tile, head, batch row)
+inline dim3 grid_of(const Inputs& in, int rows = fa_mma::ROWS) {
+  return dim3((in.T + rows - 1) / rows, in.H, in.B);
 }
 
-// `Elem` is float (the 3xTF32 kernels) or __nv_bfloat16 (the bf16 kernels);
-// both take the same arguments in the same order
-template <int D, int PASS, typename Elem>
-auto dkv_kernel() {
-  if constexpr (sizeof(Elem) == 2) return flash_bwd_dkv_mma_kernel<D, PASS, ncol<D>()>;
-  else return flash_bwd_dkv_tf32_kernel<D, PASS, ncol<D>()>;
+// the output columns a bf16 launch forms: all of them, and half of them at
+// D 256
+template <int D>
+constexpr int ncol() {
+  return D > 128 ? D / 2 : D;
 }
 
-template <int D, typename Elem>
-auto dq_kernel() {
-  if constexpr (sizeof(Elem) == 2) return flash_bwd_dq_mma_kernel<D, ncol<D>()>;
-  else return flash_bwd_dq_tf32_kernel<D, ncol<D>()>;
-}
-
-// one launch per `ncol` columns (two at D 256)
-template <int D, int PASS, typename Elem>
-cudaError_t launch_dkv_pass(const Inputs& in, void* dk, void* dv) {
-  constexpr size_t smem = sizeof(Elem) == 2 ? dkv_mma_smem_bytes<D>() : dkv_tf32_smem_bytes<D>();
-  const auto kernel = dkv_kernel<D, PASS, Elem>();
+// bf16: one launch of 4 warps per `ncol` columns (two at D 256)
+template <int D, int PASS>
+cudaError_t launch_dkv_mma_pass(const Inputs& in, void* dk, void* dv) {
+  constexpr size_t smem = dkv_mma_smem_bytes<D>();
+  const auto kernel = flash_bwd_dkv_mma_kernel<D, PASS, ncol<D>()>;
   cudaError_t err = prepare(kernel, smem);
   for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += ncol<D>()) {
     kernel<<<grid_of(in), fa_mma::THREADS, smem, in.stream>>>(
-        in_ptr<Elem>(in.q), in_ptr<Elem>(in.k), in_ptr<Elem>(in.v), in.seg, in.lse, in.delta,
-        in_ptr<Elem>(in.dout), static_cast<Elem*>(dk), static_cast<Elem*>(dv), in.T, in.H,
+        in_ptr<bf16>(in.q), in_ptr<bf16>(in.k), in_ptr<bf16>(in.v), in.seg, in.lse, in.delta,
+        in_ptr<bf16>(in.dout), static_cast<bf16*>(dk), static_cast<bf16*>(dv), in.T, in.H,
         in.scale, in.causal, col0);
     err = cudaGetLastError();
   }
   return err;
 }
 
-// at D 256 the dV pass before the dK pass (see the dK/dV kernels' notes)
+// `Elem` is float (the 3xTF32 kernels) or bf16 (the bf16 kernels).
+// bf16 at D 256: the dV pass before the dK pass (see the dK/dV kernels'
+// notes); fp32 at D 256: the split kernel, one launch of 8 warps per 32-key
+// tile
 template <int D, typename Elem>
 cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
-  if constexpr (D > 128) {
-    const cudaError_t err = launch_dkv_pass<D, DKV_DV, Elem>(in, dk, dv);
+  if constexpr (sizeof(Elem) == 2 && D > 128) {
+    const cudaError_t err = launch_dkv_mma_pass<D, DKV_DV>(in, dk, dv);
     if (err != cudaSuccess) return err;
-    return launch_dkv_pass<D, DKV_DK, Elem>(in, dk, dv);
+    return launch_dkv_mma_pass<D, DKV_DK>(in, dk, dv);
+  } else if constexpr (sizeof(Elem) == 2) {
+    return launch_dkv_mma_pass<D, DKV_BOTH>(in, dk, dv);
   } else {
-    return launch_dkv_pass<D, DKV_BOTH, Elem>(in, dk, dv);
+    constexpr bool split = D > 128;
+    constexpr size_t smem = split ? dkv_split_smem_bytes<D>() : dkv_tf32_smem_bytes<D>();
+    const auto kernel = [] {
+      if constexpr (split) return flash_bwd_dkv_tf32_split_kernel<D>;
+      else return flash_bwd_dkv_tf32_kernel<D>;
+    }();
+    const cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid_of(in, split ? SPLIT_KEYS : fa_mma::ROWS),
+             split ? SPLIT_THREADS : fa_mma::THREADS, smem, in.stream>>>(
+        in_ptr<float>(in.q), in_ptr<float>(in.k), in_ptr<float>(in.v), in.seg, in.lse, in.delta,
+        in_ptr<float>(in.dout), static_cast<float*>(dk), static_cast<float*>(dv), in.T, in.H,
+        in.scale, in.causal);
+    return cudaGetLastError();
   }
 }
 
+// one launch a call but for bf16 at D 256 (one per column half); fp32 at
+// D 256: the split kernel, 8 warps per 64-query tile
 template <int D, typename Elem>
 cudaError_t launch_dq(const Inputs& in, void* dq) {
-  constexpr size_t smem = sizeof(Elem) == 2 ? dq_mma_smem_bytes<D>() : dq_tf32_smem_bytes<D>();
-  const auto kernel = dq_kernel<D, Elem>();
-  cudaError_t err = prepare(kernel, smem);
-  for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += ncol<D>()) {
-    kernel<<<grid_of(in), fa_mma::THREADS, smem, in.stream>>>(
-        in_ptr<Elem>(in.q), in_ptr<Elem>(in.k), in_ptr<Elem>(in.v), in.seg, in.lse, in.delta,
-        in_ptr<Elem>(in.dout), static_cast<Elem*>(dq), in.T, in.H, in.scale, in.causal, col0);
-    err = cudaGetLastError();
+  if constexpr (sizeof(Elem) == 2) {
+    constexpr size_t smem = dq_mma_smem_bytes<D>();
+    const auto kernel = flash_bwd_dq_mma_kernel<D, ncol<D>()>;
+    cudaError_t err = prepare(kernel, smem);
+    for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += ncol<D>()) {
+      kernel<<<grid_of(in), fa_mma::THREADS, smem, in.stream>>>(
+          in_ptr<bf16>(in.q), in_ptr<bf16>(in.k), in_ptr<bf16>(in.v), in.seg, in.lse, in.delta,
+          in_ptr<bf16>(in.dout), static_cast<bf16*>(dq), in.T, in.H, in.scale, in.causal, col0);
+      err = cudaGetLastError();
+    }
+    return err;
+  } else {
+    constexpr bool split = D > 128;
+    constexpr size_t smem = split ? dq_split_smem_bytes<D>() : dq_tf32_smem_bytes<D>();
+    const auto kernel = [] {
+      if constexpr (split) return flash_bwd_dq_tf32_split_kernel<D>;
+      else return flash_bwd_dq_tf32_kernel<D>;
+    }();
+    const cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid_of(in), split ? SPLIT_THREADS : fa_mma::THREADS, smem, in.stream>>>(
+        in_ptr<float>(in.q), in_ptr<float>(in.k), in_ptr<float>(in.v), in.seg, in.lse, in.delta,
+        in_ptr<float>(in.dout), static_cast<float*>(dq), in.T, in.H, in.scale, in.causal);
+    return cudaGetLastError();
   }
-  return err;
 }
 
 template <typename Elem>

@@ -11,26 +11,35 @@
 //
 // Layout: q, k, v, out are contiguous [B, T, H, D], fp32 or bf16 (see
 // flash_attention_common.cuh for the roundings of the bf16 form); seg is
-// [B, T] int32.  Two kernels, one block layout and one contract: one block of
-// 4 warps per (64-query tile, head, batch row); warp w owns query rows
-// 16 w .. 16 w + 15 whole, so that a row's running max and sum reduce within
-// its lane quad and no barrier sits between the two products.  Per key tile:
+// [B, T] int32.  Three kernels, one contract.  Up to D 128 (both types) and
+// at D 256 in fp32, one block of 4 warps per (64-query tile, head, batch
+// row); warp w owns query rows 16 w .. 16 w + 15 whole, so that a row's
+// running max and sum reduce within its lane quad and no barrier sits
+// between the two products.  Per key tile:
 //   S = Q K^T             (fp32 sums; then s = S * scale, masked)
 //   p = exp(s - m)        in registers, m the row's running maximum
 //   O = O * alpha + P V   (p stays in registers as the A operand)
 // so the [T, T] scores never reach device memory.
 //
-// bf16, `flash_fwd_mma_kernel` (mma.sync m16n8k16, fp32 sums;
+// bf16 up to D 128, `flash_fwd_mma_kernel` (mma.sync m16n8k16, fp32 sums;
 // flash_attention_mma.cuh): p's accumulator fragment is rounded to bf16 as
 // the A operand of p.v (its row sum taken unrounded); V is read by
 // ldmatrix.trans.  K/V tiles of 64 keys are staged by cp.async into a
 // double-buffered, swizzled bf16 layout, the next tile's copy overlapping the
-// current tile's products.  Up to D 128 each warp holds its Q rows as A
-// fragments.  At D 256 (160 KB of shared memory) a block forms half of o's
-// columns (`NCOL` 128, at `col0` 0 or 128: two launches, each recomputing S
-// and the softmax, the first writing lse), so that o takes 64 accumulator
-// registers a thread, and reads its Q fragments from shared memory per
-// k-chunk (with all 256 columns ptxas spilled).
+// current tile's products; each warp holds its Q rows as A fragments.
+//
+// bf16 at D 256, `flash_fwd_wgmma_kernel` (Hopper's wgmma, TMA, mbarriers
+// and setmaxnreg; flash_attention_wgmma.cuh): one launch, one block of three
+// warpgroups per 128-query tile.  A producer warp copies Q once and the K/V
+// tiles of 64 keys by TMA into a two-stage ring; two consumer warpgroups of
+// 64 rows each form S on wgmma m64n64k16 from shared memory and O += P V on
+// wgmma m64n256k16 with p (rounded to bf16) in registers and V read
+// transposed from shared memory, the whole row of o (128 fp32 registers a
+// thread, 232 a thread after setmaxnreg) in one pass, so S and the softmax
+// are formed once.  The mma form it replaced ran two launches a call, each
+// forming half of o's columns and recomputing S and the softmax (0.371 /
+// 0.377 ms against the wgmma form's 0.157 / 0.154 at (1, 2048, 8, 256)
+// causal, NVIDIA H100 80GB HBM3, 700.00 W, `scripts/flash_kernel_times_torch.py`).
 //
 // fp32, `flash_fwd_tf32_kernel` (mma.sync m16n8k8 on TF32, tf32x3.cuh;
 // tiles, split and permutation: flash_attention_tf32.cuh): every fp32
@@ -62,14 +71,17 @@
 // 165 TFLOP/s (the bound counts three for P V too, not the four it takes);
 // and, at D 64, as much again in per-element softmax work on the FMA and SFU
 // pipes (scale, mask, max, exp, row sum, rescale of o), with the splits and
-// flush adds beside it in fp32.  What holds them back from it:
-// `mma.sync` rather than `wgmma`, every warp reading the whole staged K/V
-// tile from shared memory (16 rows a warp), cp.async rather than TMA.  Later
-// work: wgmma on 64-row warpgroup tiles with TMA staging and warp
-// specialisation, 128-row query tiles, and a GQA-aware kernel (K/V are
-// repeated before the call today).
+// flush adds beside it in fp32.  What holds them back from it: up to D 128
+// and in fp32, `mma.sync` rather than `wgmma`, every warp reading the whole
+// staged K/V tile from shared memory (16 rows a warp), cp.async rather than
+// TMA; in the wgmma form, one block a SM (197 KB of shared memory), each
+// warpgroup's softmax waiting on its S product and its P V product on the
+// softmax (no overlap of one tile's softmax with the next tile's S, as
+// FA3's ping-pong and intra-warpgroup pipelining do).  Later work: that
+// overlap, 80-key tiles, the wgmma form at D 64 / 128 and in fp32 (TF32
+// wgmma), and a GQA-aware kernel (K/V are repeated before the call today).
 //
-// Both kernels: rows past T load as zeros and are never stored (T is never
+// Every kernel: rows past T load as zeros and are never stored (T is never
 // padded).  A K/V tile whose segment ids all lie outside the query tile's
 // [min, max] segment range is skipped without being loaded (pad keys for a
 // tile of valid queries, and the reverse); the ragged edge, the diagonal tile
@@ -87,14 +99,15 @@
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
 #include "flash_attention_tf32.cuh"
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
 using namespace flash;
 
 // ---------------------------------------------------------------------------
-// The bf16 form on the tensor cores.  One block of 4 warps per (64-query tile,
-// head, batch row); warp w owns query rows 16 w .. 16 w + 15 whole, so a row's
+// The bf16 form on the tensor cores up to D 128.  One block of 4 warps per
+// (64-query tile, head, batch row); warp w owns query rows 16 w .. 16 w + 15 whole, so a row's
 // running max and sum reduce within its lane quad.  Per 64-key tile:
 //   S = Q K^T   (mma.sync, fp32 sums; then s = S * scale, masked)
 //   p = exp(s - m)  rounded to bf16 in registers as the A operand of P V,
@@ -111,22 +124,17 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * fa_mma::ROWS * D * 5;  // Q, K x 2, V x 2
 }
 
-template <int D, int NCOL>
+template <int D>
 __global__ void __launch_bounds__(fa_mma::THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int H,
-                     float scale, int causal, int col0_arg) {
+                     float scale, int causal) {
   using namespace fa_mma;
+  static_assert(D <= 128, "D 256 runs flash_fwd_wgmma_kernel");
   constexpr int TILE_ELEMS = ROWS * D;
-  constexpr int KC = D / 16;    // k-chunks of q.k^T
-  constexpr int NT = NCOL / 8;  // n-tiles of this block's output columns
-  // the first output column: a multiple of 64, so that the swizzle of a V
-  // column chunk is that of its chunk within the half, shifted (see swizzle_at)
-  const int col0 = NCOL == D ? 0 : col0_arg;
-  // D 256 reads its Q fragments from shared memory per k-chunk, where
-  // narrower heads hold them in registers
-  constexpr bool Q_IN_REGS = D <= 128;
+  constexpr int KC = D / 16;  // k-chunks of q.k^T
+  constexpr int NT = D / 8;   // n-tiles of the output columns
 
   extern __shared__ uint4 smem_fwd[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_fwd);
@@ -162,11 +170,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t qa[Q_IN_REGS ? KC : 1][4];
-  if constexpr (Q_IN_REGS) {
+  uint32_t qa[KC][4];
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) load_a<D>(qa[kc], Qs, warp * 16, kc, lane);
-  }
+  for (int kc = 0; kc < KC; ++kc) load_a<D>(qa[kc], Qs, warp * 16, kc, lane);
 
   float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
   float o[NT][4];
@@ -189,21 +195,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll(Q_IN_REGS ? KC : 4)
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t qf[4];
-      if constexpr (Q_IN_REGS) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qf[i] = qa[kc][i];
-      } else {
-        load_a<D>(qf, Qs, warp * 16, kc, lane);
-      }
+    for (int kc = 0; kc < KC; ++kc) {
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t kb[4];
         load_b<D>(kb, Kt, jp * 16, kc, lane);
-        mma_bf16(s[2 * jp], qf, kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qf, kb[2], kb[3]);
+        mma_bf16(s[2 * jp], qa[kc], kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qa[kc], kb[2], kb[3]);
       }
     }
 
@@ -266,9 +265,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int np = 0; np < NCOL / 16; ++np) {
+      for (int np = 0; np < D / 16; ++np) {
         uint32_t vb[4];
-        load_b_trans<D>(vb, Vt + col0, kk * 16, np, lane);
+        load_b_trans<D>(vb, Vt, kk * 16, np, lane);
         mma_bf16(o[2 * np], pa, vb[0], vb[1]);
         mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
       }
@@ -287,13 +286,256 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     if (t < T) {
       // l > 0: every in-range query sees at least its own key
       const float inv = 1.f / l[i];
-      __nv_bfloat16* dst = out + base + (long)t * ld + col0 + 2 * t4;
+      __nv_bfloat16* dst = out + base + (long)t * ld + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
             __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
-      if (lse != nullptr && t4 == 0 && col0 == 0)
-        lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
+      if (lse != nullptr && t4 == 0) lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 form at D 256 on Hopper's own units (flash_attention_wgmma.cuh).
+// One launch a call; one block of 3 warpgroups per (128-query tile, head,
+// batch row): two consumer warpgroups of 64 query rows each and a producer
+// warpgroup, of which one warp issues the copies.
+//   producer:  Q once by TMA; the visible K/V tiles of 64 keys by TMA into a
+//              two-stage ring, each stage's `full` barrier counting the bytes
+//              in and its `empty` barrier the 8 consumer warps out, so the
+//              next tile's copy runs under this tile's products.
+//   consumers: per K/V tile, S = Q K^T on wgmma m64n64k16 (Q and K from
+//              shared memory, 16 k-steps over D); the online softmax in
+//              registers as the mma form does it (a row's max and sum within
+//              its lane quad); p rounded to bf16 as the register A operand of
+//              O += P V on wgmma m64n256k16, V read transposed (MN-major)
+//              from shared memory, 4 k-steps over the 64 keys.  o is 128 fp32
+//              registers a thread, the whole row, so S and the softmax are
+//              formed once (the mma form's two column-half launches formed
+//              them twice).
+// Every warp walks the same tile sequence (`next_tile` over the 128-row query
+// tile's segment range), so the producer and the consumers agree on it
+// without passing it through shared memory.  With `causal` a warpgroup skips
+// the products of a tile wholly above its own diagonal (still releasing the
+// stage), and only its diagonal, ragged and mixed-segment tiles are masked.
+// ---------------------------------------------------------------------------
+
+namespace fa_hop = flash::hopper;
+
+constexpr int WG_QROWS = 128;  // query rows of a block: two warpgroups of 64
+constexpr int WG_KROWS = 64;   // keys of a K/V tile
+constexpr int WG_THREADS = 384;  // 2 consumer warpgroups + 1 producer warpgroup
+
+template <int D>
+constexpr size_t wgmma_smem_bytes() {
+  // Q, then K and V x 2 stages, then 5 barriers; 1024 bytes to align the
+  // tiles to the swizzle's 1024-byte period
+  return 2 * (size_t)D * (WG_QROWS + 4 * WG_KROWS) + 5 * 8 + 1024;
+}
+
+// Registers: the block starts at 168 a thread (3 warpgroups fill the SM's
+// 64K; one block a SM, as the 197 KB of shared memory allows); then
+// `setmaxnreg` moves them: the producer warpgroup keeps 40, each consumer
+// thread gets 232 (128 x 40 + 256 x 232 = 64,512) for o (128), S (32) and
+// its P fragments (16) beside its row state.  At 168 a consumer spilled.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const int* __restrict__ seg,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int H,
+                       float scale, int causal) {
+  using namespace fa_hop;
+  using fa_mma::LOG2E;
+  using fa_mma::pack_bf16;
+  static_assert(D == 256, "the wgmma form is built for D 256");
+  constexpr int CB = D / 64;                              // 128-byte column blocks of a row
+  constexpr uint32_t Q_BLOCK = WG_QROWS * 128;            // bytes of a Q column block
+  constexpr uint32_t KV_BLOCK = WG_KROWS * 128;           // bytes of a K or V column block
+  constexpr uint32_t KV_TILE = CB * KV_BLOCK;             // bytes of a K or V tile
+  constexpr uint32_t Q_TILE = CB * Q_BLOCK;
+
+  extern __shared__ uint8_t smem_wg[];
+  const uint32_t sQ = (smem_u32(smem_wg) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + Q_TILE;           // [2 stages][CB][64 keys][64]
+  const uint32_t sV = sK + 2 * KV_TILE;      // [2 stages][CB][64 keys][64]
+  const uint32_t q_full = sV + 2 * KV_TILE;  // then full[2], empty[2]
+  const uint32_t full0 = q_full + 8, empty0 = q_full + 24;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * WG_QROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int* segb = seg + (long)b * T;
+
+  int qlo, qhi;
+  fa_mma::segment_range<WG_QROWS>(segb, q0, T, lane, qlo, qhi);
+  // causal: the tiles past the query tile's last row hold no visible key
+  const int k_end = causal ? min(T, q0 + WG_QROWS) : T;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  bool uniform, uniform_next;
+  int k0 = fa_mma::next_tile(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+
+  if (warp >= 8) {  // ---- the producer warpgroup: one warp copies ----
+    setmaxnreg_dec<40>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, Q_TILE);
+      for (int c = 0; c < CB; ++c) tma_load_4d(sQ + c * Q_BLOCK, &qmap, q_full, 64 * c, h, q0, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    while (k0 < k_end) {  // always entered: every in-range query sees its own key
+      if (lane == 0) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the round before freed this stage
+        const uint32_t full = full0 + 8 * stage;
+        mbar_arrive_expect_tx(full, 2 * KV_TILE);
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(sK + stage * KV_TILE + c * KV_BLOCK, &kmap, full, 64 * c, h, k0, b);
+          tma_load_4d(sV + stage * KV_TILE + c * KV_BLOCK, &vmap, full, 64 * c, h, k0, b);
+        }
+      }
+      k0 = fa_mma::next_tile(segb, k0 + WG_KROWS, k_end, T, qlo, qhi, lane, uniform_next);
+      if (++stage == 2) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {  // ---- the consumer warpgroups ----
+    setmaxnreg_inc<232>();
+    const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+    const int wq0 = q0 + 64 * wg;  // this warpgroup's first query row
+    // this thread's two rows, r and r + 8 of its warp's 16
+    const int row0 = wq0 + 16 * (warp & 3) + g, row1 = row0 + 8;
+    const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+
+    float m[2] = {flash::neg_inf(), flash::neg_inf()}, l[2] = {0.f, 0.f};
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    while (k0 < k_end) {
+      const int kn =
+          fa_mma::next_tile(segb, k0 + WG_KROWS, k_end, T, qlo, qhi, lane, uniform_next);
+      mbar_wait(full0 + 8 * stage, phase);
+      if (!causal || k0 <= wq0 + 63) {  // else the tile is wholly above this warpgroup's diagonal
+        const uint32_t kt = sK + stage * KV_TILE, vt = sV + stage * KV_TILE;
+        float s[32];
+        fence_operands(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc) {
+          // k-step kc: column block kc / 4, 32 bytes a step within it
+          const uint32_t at = (kc & 3) * 32;
+          wgmma_m64n64k16_ss(s, desc_sw128(sQ + (kc >> 2) * Q_BLOCK + wg * 64 * 128 + at, 16, 1024),
+                             desc_sw128(kt + (kc >> 2) * KV_BLOCK + at, 16, 1024), kc > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(s);
+
+        // The ragged edge, this warpgroup's diagonal tile and a tile whose ids
+        // are not all the query tile's single id are masked element by element.
+        const bool masked = !uniform || k0 + WG_KROWS > T || (causal && k0 + WG_KROWS > wq0);
+        float mx[2] = {flash::neg_inf(), flash::neg_inf()};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float x = s[i] * scale;
+          if (masked) {
+            const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+            const int row = (i & 2) ? row1 : row0;
+            const bool ok = key < T && segb[key] == ((i & 2) ? seg1 : seg0) &&
+                            (!causal || key <= row);
+            x = ok ? x : flash::neg_inf();
+          }
+          s[i] = x;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+        }
+        float alpha[2], mb[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          // a row that has seen no visible key yet keeps m = -inf; exponents
+          // are then taken against 0 so that no -inf - -inf makes a NaN
+          const float m_use = (m_new == flash::neg_inf()) ? 0.f : m_new;
+          alpha[r] = exp2f((m[r] - m_use) * LOG2E);
+          mb[r] = m_use * LOG2E;
+          m[r] = m_new;
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float p = exp2f(fmaf(s[i], LOG2E, -mb[(i >> 1) & 1]));
+          l[(i >> 1) & 1] += p;  // this thread's share of the row sum, unrounded
+          s[i] = p;
+        }
+        // the accumulators of n-tiles 2 kk and 2 kk + 1 are the A fragment of
+        // keys 16 kk .. 16 kk + 15, rounded to bf16 for p.v only
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* c = s + 8 * kk;
+          pa[kk][0] = pack_bf16(c[0], c[1]);
+          pa[kk][1] = pack_bf16(c[2], c[3]);
+          pa[kk][2] = pack_bf16(c[4], c[5]);
+          pa[kk][3] = pack_bf16(c[6], c[7]);
+        }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        // the rescaled o and the P fragments are written before the fence
+        fence_operands(o);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_operands(pa[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n256k16_rs_mn(o, pa[kk], desc_sw128(vt + kk * 16 * 128, KV_BLOCK, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // this warp is done with the stage
+      k0 = kn;
+      uniform = uniform_next;
+      if (++stage == 2) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // element i of o: row (i & 2) ? row1 : row0, column 8 (i / 4) + 2 t4 + (i & 1)
+    const long ld = (long)H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int t = r == 0 ? row0 : row1;
+      if (t < T) {
+        // l > 0: every in-range query sees at least its own key
+        const float inv = 1.f / l[r];
+        __nv_bfloat16* dst = out + (long)b * T * ld + (long)t * ld + (long)h * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        if (lse != nullptr && t4 == 0) lse[((long)b * H + h) * T + t] = m[r] + logf(l[r]);
+      }
     }
   }
 }
@@ -495,29 +737,43 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// One block of fa_mma::THREADS per (64-query tile, head, batch row).  `Elem`
-// is float (the 3xTF32 kernel) or __nv_bfloat16 (the bf16 kernel, launched
-// once per `NCOL` output columns: twice at D 256).
+// One launch a call.  fp32 (`Elem` float): the 3xTF32 kernel, one block of
+// fa_mma::THREADS per (64-query tile, head, batch row).  bf16: the mma.sync
+// kernel up to D 128, the same blocks; at D 256 the wgmma kernel, one block of
+// WG_THREADS per (128-query tile, head, batch row), its TMA maps built here.
 template <int D, typename Elem>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
                    float* lse, int B, int T, int H, float scale, int causal,
                    cudaStream_t stream) {
   const dim3 grid((T + fa_mma::ROWS - 1) / fa_mma::ROWS, H, B);
-  if constexpr (sizeof(Elem) == 2) {
-    constexpr int NCOL = D > 128 ? D / 2 : D;
-    constexpr size_t smem = mma_smem_bytes<D>();
-    const auto kernel = flash_fwd_mma_kernel<D, NCOL>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    for (int col0 = 0; col0 < D; col0 += NCOL) {
-      kernel<<<grid, fa_mma::THREADS, smem, stream>>>(
-          static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
-          seg, static_cast<Elem*>(out), lse, T, H, scale, causal, col0);
-      err = cudaGetLastError();
+  if constexpr (sizeof(Elem) == 2 && D > 128) {
+    CUtensorMap maps[3];
+    const void* xs[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i) {
+      const cudaError_t err = fa_hop::bf16_rows_map(&maps[i], xs[i], B, T, H, D,
+                                                    i == 0 ? WG_QROWS : WG_KROWS);
       if (err != cudaSuccess) return err;
     }
-    return cudaSuccess;
+    constexpr size_t smem = wgmma_smem_bytes<D>();
+    const auto kernel = flash_fwd_wgmma_kernel<D>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 wg_grid((T + WG_QROWS - 1) / WG_QROWS, H, B);
+    kernel<<<wg_grid, WG_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], seg,
+                                                  static_cast<Elem*>(out), lse, T, H, scale,
+                                                  causal);
+    return cudaGetLastError();
+  } else if constexpr (sizeof(Elem) == 2) {
+    constexpr size_t smem = mma_smem_bytes<D>();
+    const auto kernel = flash_fwd_mma_kernel<D>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, fa_mma::THREADS, smem, stream>>>(
+        static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
+        seg, static_cast<Elem*>(out), lse, T, H, scale, causal);
+    return cudaGetLastError();
   } else {
     constexpr size_t smem = tf32_smem_bytes<D>();
     const auto kernel = flash_fwd_tf32_kernel<D>;

@@ -168,13 +168,14 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
   }
 }
 
-// The [min, max] segment id of the in-range rows r0 .. r0+63, computed by
-// every warp on its own (no barrier).
+// The [min, max] segment id of the in-range rows r0 .. r0+R-1 (R 32, 64 or
+// 128), computed by every warp on its own (no barrier).
+template <int R = ROWS>
 __device__ __forceinline__ void segment_range(const int* __restrict__ segb, int r0, int T,
                                               int lane, int& lo, int& hi) {
   int mn = INT_MAX, mx = INT_MIN;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < R / 32; ++i) {
     const int r = r0 + lane + 32 * i;
     if (r < T) {
       const int s = segb[r];

@@ -32,14 +32,15 @@ using tf32x3::mma_3xtf32;
 using tf32x3::split_tf32_int;
 
 // rows r0 .. r0+R-1 of x[b, :, h, :] (row t at base + t * ld) into an fp32
-// tile of row stride D + 4 by 16-byte cp.async; rows past T are zero-filled
-template <int D, int R = mma::ROWS>
+// tile of row stride D + 4 by 16-byte cp.async, by a block of NTHREADS; rows
+// past T are zero-filled
+template <int D, int R = mma::ROWS, int NTHREADS = mma::THREADS>
 __device__ __forceinline__ void stage_tile_f32(float* dst, const float* __restrict__ x,
                                                long base, long ld, int r0, int T, int tid) {
   constexpr int CHUNKS = D / 4;
 #pragma unroll
-  for (int j = 0; j < R * CHUNKS / mma::THREADS; ++j) {
-    const int i = tid + j * mma::THREADS;
+  for (int j = 0; j < R * CHUNKS / NTHREADS; ++j) {
+    const int i = tid + j * NTHREADS;
     const int r = i / CHUNKS, c = i % CHUNKS;
     const bool in = r0 + r < T;
     mma::cp_async16(dst + r * (D + 4) + c * 4, x + base + (long)(in ? r0 + r : 0) * ld + c * 4,
@@ -153,6 +154,25 @@ __device__ __forceinline__ void load_bt(uint32_t (&r)[2], const float* half, int
   const float* p = half + (k0 + 2 * t) * (D + 4) + 8 * j + g;
   r[0] = __float_as_uint(p[0]);
   r[1] = __float_as_uint(p[D + 4]);
+}
+
+// load_b2 and load_bt of an unsplit fp32 tile, each word split after the load
+template <int D>
+__device__ __forceinline__ void load_b2_split(uint32_t (&big)[4], uint32_t (&small)[4],
+                                              const float* tile, int n0, int kc, int lane) {
+  uint32_t r[4];
+  load_b2<D>(r, tile, n0, kc, lane);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32_int(__uint_as_float(r[i]), big[i], small[i]);
+}
+
+template <int D>
+__device__ __forceinline__ void load_bt_split(uint32_t (&big)[2], uint32_t (&small)[2],
+                                              const float* tile, int k0, int j, int g, int t) {
+  uint32_t r[2];
+  load_bt<D>(r, tile, k0, j, g, t);
+  split_tf32_int(__uint_as_float(r[0]), big[0], small[0]);
+  split_tf32_int(__uint_as_float(r[1]), big[1], small[1]);
 }
 
 // the accumulator of one 8-wide n-tile (c0, c1 at (g, 2t..2t+1), c2, c3 at

@@ -35,6 +35,11 @@ error over the largest magnitude of dq, dk, dv against the plain version):
 (big.big only) 3e-4 to 1.2e-3, which fails the bar, so a kernel that dropped
 the small terms would fail it too.
 
+At D 256 the backward runs its split kernels: two warps form the halves of
+each score tile along D (columns 0..127 and 128..255), each half summed in
+the order above, and add them in fp32; `D256_WALK` and `split_product`
+emulate that walk, which holds the same bar while plain TF32 in it fails.
+
 The forward (`csrc/flash_attention_fwd.cu`) forms S = q.k^T the same way and,
 per 32-key tile, the online softmax (running maximum, p = 2^((s - m) log2 e),
 o rescaled by alpha) and P V with p's accumulator as the split A operand.
@@ -63,16 +68,18 @@ ATOL_REL = 1e-4  # chip_smoke.FLASH_BWD_ATOL_REL
 RTOL = 1e-3      # chip_smoke.FLASH_BWD_RTOL
 # (B, T, H, D, valid lengths or None, causal): the GPT path's kind, and
 # FastPitch's kind with a ragged T, a short row and a single valid key; the
-# same two at D 256, where the forward's K/V tiles and the backward's
-# streamed tiles hold 16 rows
+# same two at D 256, where the forward's K/V tiles hold 16 rows and the
+# backward runs its split kernels
 CASES = {"causal": (1, 512, 2, 64, None, True),
          "ragged_segments": (3, 200, 1, 64, [200, 117, 1], False),
          "causal_d256": (1, 96, 1, 256, None, True),
          "ragged_segments_d256": (3, 80, 1, 256, [80, 33, 1], False)}
 D256_NAMES = ["causal_d256", "ragged_segments_d256"]
-# the backward kernels' walk at D 256: streamed tiles of 16 rows, a launch
-# over 128 of the 256 output columns, dV and dK in separate passes
-D256_WALK = dict(rows=16, cols=128, passes=True)
+# the backward kernels' walk at D 256 (`flash_bwd_{dkv,dq}_tf32_split_kernel`):
+# dK/dV blocks of 32 keys over 32-query tiles, dQ's 16-key tiles, each warp
+# over 128 of the 256 output columns, and the score products S and dP split
+# along their contraction into two halves of 128 that two warps form and add
+D256_WALK = dict(key_block=32, dkv_rows=32, dq_rows=16, cols=128, parts=2)
 
 
 def tf32_rna(v: np.ndarray) -> np.ndarray:
@@ -157,17 +164,29 @@ def _tile_visible(seg, causal, rows, cols):
     return visible
 
 
-def emulate_bwd_walk(q, k, v, do, lse, delta, seg, scale, causal, rows=64, cols=None,
-                     passes=False, **order):
+def split_product(a: np.ndarray, b: np.ndarray, parts: int, **order) -> np.ndarray:
+    """a @ b with the contraction cut into `parts` equal parts, each summed in
+    `product`'s order (by its own warp), the parts' fp32 sums then added in
+    part order."""
+    n = a.shape[-1] // parts
+    total = product(a[..., :n], b[..., :n, :], **order)
+    for i in range(1, parts):
+        total = total + product(a[..., i * n:(i + 1) * n], b[..., i * n:(i + 1) * n, :], **order)
+    return total
+
+
+def emulate_bwd_walk(q, k, v, do, lse, delta, seg, scale, causal, key_block=64, dkv_rows=64,
+                     dq_rows=64, cols=None, parts=1, **order):
     """(dq, dk, dv) [B, T, H, D] as the two kernels walk them, each product
-    in `product`'s order.  dK/dV: per 64-key tile, S^T = K Q^T and dP^T =
-    V dO^T (K and V the A operands), the query tiles of `rows` rows in turn
-    (from the key tile's first row with `causal`), dV += P^T dO and dK +=
-    dS^T Q over `cols` columns a launch; with `passes` a dV pass (no dP^T)
-    and a dK pass, each recomputing S^T.  dQ: per 64-query tile, S = Q K^T
-    and dP = dO V^T, the key tiles of `rows` rows up to the diagonal, dQ +=
-    dS K over `cols` columns a launch.  A tile the kernels skip for its
-    segment ids is walked here: its p is 0, which adds nothing."""
+    in `product`'s order.  dK/dV: per block of `key_block` keys, S^T = K Q^T
+    and dP^T = V dO^T (K and V the A operands), the query tiles of
+    `dkv_rows` rows in turn (from the block's first key with `causal`), dV +=
+    P^T dO and dK += dS^T Q over `cols` columns at a time.  dQ: per 64-query
+    tile, S = Q K^T and dP = dO V^T, the key tiles of `dq_rows` rows up to
+    the diagonal, dQ += dS K over `cols` columns at a time.  The score
+    products are summed in `parts` parts along D (`split_product`).  A tile
+    the kernels skip for its segment ids is walked here: its p is 0, which
+    adds nothing."""
     b, t, h, d = q.shape
     cols = d if cols is None else cols
     bq, bk, bv, bo = (np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v, do))
@@ -176,38 +195,33 @@ def emulate_bwd_walk(q, k, v, do, lse, delta, seg, scale, causal, rows=64, cols=
     swap = lambda x: np.ascontiguousarray(np.swapaxes(x, -1, -2))
     for col0 in range(0, d, cols):
         out = slice(col0, col0 + cols)
-        for which in (("dv", "dk") if passes else ("both",)):
-            for k0 in range(0, t, 64):
-                keys = np.arange(k0, min(k0 + 64, t))
-                kt, vt = bk[..., keys, :], bv[..., keys, :]
-                acc_dk = np.zeros((b, h, len(keys), cols), f32)
-                acc_dv = np.zeros_like(acc_dk)
-                for q0 in range(k0 if causal else 0, t, rows):
-                    qs = np.arange(q0, min(q0 + rows, t))
-                    qt, ot = bq[..., qs, :], bo[..., qs, :]
-                    st = product(kt, swap(qt), **order)
-                    visible = swap(_tile_visible(seg, causal, qs, keys))
-                    p = np.where(visible, np.exp(st * f32(scale) - lse[:, :, None, qs]),
-                                 f32(0)).astype(f32)
-                    if which != "dk":
-                        acc_dv = product(p, ot[..., out], init=acc_dv, **order)
-                    if which != "dv":
-                        dpt = product(vt, swap(ot), **order)
-                        ds = (p * (dpt - delta[:, :, None, qs]) * f32(scale)).astype(f32)
-                        acc_dk = product(ds, qt[..., out], init=acc_dk, **order)
-                if which != "dk":
-                    dv[..., keys, out] = acc_dv
-                if which != "dv":
-                    dk[..., keys, out] = acc_dk
+        for k0 in range(0, t, key_block):
+            keys = np.arange(k0, min(k0 + key_block, t))
+            kt, vt = bk[..., keys, :], bv[..., keys, :]
+            acc_dk = np.zeros((b, h, len(keys), cols), f32)
+            acc_dv = np.zeros_like(acc_dk)
+            for q0 in range(k0 if causal else 0, t, dkv_rows):
+                qs = np.arange(q0, min(q0 + dkv_rows, t))
+                qt, ot = bq[..., qs, :], bo[..., qs, :]
+                st = split_product(kt, swap(qt), parts, **order)
+                visible = swap(_tile_visible(seg, causal, qs, keys))
+                p = np.where(visible, np.exp(st * f32(scale) - lse[:, :, None, qs]),
+                             f32(0)).astype(f32)
+                acc_dv = product(p, ot[..., out], init=acc_dv, **order)
+                dpt = split_product(vt, swap(ot), parts, **order)
+                ds = (p * (dpt - delta[:, :, None, qs]) * f32(scale)).astype(f32)
+                acc_dk = product(ds, qt[..., out], init=acc_dk, **order)
+            dv[..., keys, out] = acc_dv
+            dk[..., keys, out] = acc_dk
         for q0 in range(0, t, 64):
             qs = np.arange(q0, min(q0 + 64, t))
             qt, ot = bq[..., qs, :], bo[..., qs, :]
             acc = np.zeros((b, h, len(qs), cols), f32)
-            for k0 in range(0, min(t, q0 + 64) if causal else t, rows):
-                keys = np.arange(k0, min(k0 + rows, t))
+            for k0 in range(0, min(t, q0 + 64) if causal else t, dq_rows):
+                keys = np.arange(k0, min(k0 + dq_rows, t))
                 kt, vt = bk[..., keys, :], bv[..., keys, :]
-                s = product(qt, swap(kt), **order)
-                dp = product(ot, swap(vt), **order)
+                s = split_product(qt, swap(kt), parts, **order)
+                dp = split_product(ot, swap(vt), parts, **order)
                 p = np.where(_tile_visible(seg, causal, qs, keys),
                              np.exp(s * f32(scale) - lse[..., qs, None]), f32(0)).astype(f32)
                 ds = (p * (dp - delta[..., qs, None]) * f32(scale)).astype(f32)
@@ -328,18 +342,24 @@ def test_flushed_sums_stay_at_fp32_level():
 
 @pytest.mark.parametrize("name", D256_NAMES)
 def test_d256_walk_keeps_the_order_of_the_sums(name):
-    """At D 256 the kernels stream 16-row tiles, form half of the columns a
-    launch and run dV and dK as separate passes; the same sums in the same
-    order come out of whole 64-row tiles, whole rows and one pass, bit for
-    bit.  The walk's dq, dk and dv sit within the fp32 bar of the
-    matrix-level emulation, whose score products take the operands the other
-    way round."""
+    """At D 256 the split kernels walk 32-key blocks over 32-query tiles
+    (dK/dV) and 16-key tiles (dQ) and form 128 output columns a warp; the
+    same sums in the same order come out of 64-row tiles and whole rows, bit
+    for bit.  What changes the order is the split of S's and dP's
+    contraction into two halves added in fp32: it is not the one-walk sum
+    (some gradient differs from the unsplit walk's), and the split walk's
+    dq, dk and dv sit within the fp32 bar of the matrix-level emulation
+    (unsplit, its score products taking the operands the other way round);
+    `test_kernel_order_holds_the_fp32_bar` holds them to the plain version
+    and upstream's reference, and plain TF32 in the same walk fails there."""
     inputs, _, _ = _case(name)
     walked = _emulated(name)
-    whole = emulate_bwd_walk(**inputs)
+    whole = emulate_bwd_walk(**inputs, parts=D256_WALK["parts"])
+    unsplit = emulate_bwd_walk(**inputs)
     for grad, got, want, flat in zip(("dq", "dk", "dv"), walked, whole, emulate_bwd(**inputs)):
         np.testing.assert_array_equal(got, want, err_msg=grad)
         assert _within_bar(got, flat), grad
+    assert any(not np.array_equal(a, u) for a, u in zip(walked, unsplit))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

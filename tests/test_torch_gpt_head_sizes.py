@@ -180,36 +180,37 @@ def test_kernel_head_dim_maps_and_raises():
 
 
 def test_chip_smoke_lists_and_parses_the_d256_instances():
-    """`phase_kernel_build` requires the six D 256 forms (each dK/dV kernel
-    as its two passes) and reads their mangled names (the fp32 backward's as
-    nvcc 12.8 wrote them) and their shared memory."""
+    """`phase_kernel_build` requires the six D 256 forms (the bf16 dK/dV
+    kernel as its two passes; the bf16 forward on wgmma, the fp32 backward
+    as the split kernels), reads their mangled names (the mma and tf32 ones
+    as nvcc 12.8 wrote them) and their shared memory."""
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
 
     d256 = sorted(i for i in cs.flash_instances() if i[2] == 256)
     assert d256 == [("flash_bwd_dkv_mma_kernel.dk", "bfloat16", 256),
                     ("flash_bwd_dkv_mma_kernel.dv", "bfloat16", 256),
-                    ("flash_bwd_dkv_tf32_kernel.dk", "float32", 256),
-                    ("flash_bwd_dkv_tf32_kernel.dv", "float32", 256),
+                    ("flash_bwd_dkv_tf32_split_kernel", "float32", 256),
                     ("flash_bwd_dq_mma_kernel", "bfloat16", 256),
-                    ("flash_bwd_dq_tf32_kernel", "float32", 256),
-                    ("flash_fwd_mma_kernel", "bfloat16", 256),
-                    ("flash_fwd_tf32_kernel", "float32", 256)]
+                    ("flash_bwd_dq_tf32_split_kernel", "float32", 256),
+                    ("flash_fwd_tf32_kernel", "float32", 256),
+                    ("flash_fwd_wgmma_kernel", "bfloat16", 256)]
+    # the D <= 128 fp32 backward and bf16 forward kernels are not built at 256
+    assert not any(i[0] in ("flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel",
+                            "flash_fwd_mma_kernel") for i in d256)
     bwd = "_ZN55_GLOBAL__N__bd9a39ae_22_flash_attention_bwd_cu_f7cbd94c"
-    tail32 = "EEEvPKfS2_S2_PKiS2_S2_S2_PfS5_iifii"
-    for p, name in (("1", "dv"), ("2", "dk")):
-        assert cs._flash_instance(f"{bwd}25flash_bwd_dkv_tf32_kernelILi256ELi{p}ELi128{tail32}") \
-            == (f"flash_bwd_dkv_tf32_kernel.{name}", "float32", 256)
-    assert cs._flash_instance(f"{bwd}25flash_bwd_dkv_tf32_kernelILi128ELi0ELi128{tail32}") == \
+    tail32 = "EEvPKfS2_S2_PKiS2_S2_S2_PfS5_iifii"
+    assert cs._flash_instance(f"{bwd}31flash_bwd_dkv_tf32_split_kernelILi256{tail32}") == \
+        ("flash_bwd_dkv_tf32_split_kernel", "float32", 256)
+    assert cs._flash_instance(f"{bwd}25flash_bwd_dkv_tf32_kernelILi128{tail32}") == \
         ("flash_bwd_dkv_tf32_kernel", "float32", 128)
-    assert cs._flash_instance(f"{bwd}24flash_bwd_dq_tf32_kernelILi256ELi128"
-                              "EEEvPKfS2_S2_PKiS2_S2_S2_Pfiifii") == \
-        ("flash_bwd_dq_tf32_kernel", "float32", 256)
-    # K, V; Q and dO as big and small halves of 16 rows; 16 lse and delta rows
-    assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_kernel.dv", "float32", 256) == \
-        cs.flash_dynamic_smem("flash_bwd_dkv_tf32_kernel.dk", "float32", 256) == \
-        4 * 260 * (2 * 64 + 4 * 16) + 4 * 2 * 16 == 199808
-    assert cs.flash_dynamic_smem("flash_bwd_dq_tf32_kernel", "float32", 256) == 199680
+    assert cs._flash_instance(f"{bwd}30flash_bwd_dq_tf32_split_kernelILi256"
+                              "EEvPKfS2_S2_PKiS2_S2_S2_Pfiifi") == \
+        ("flash_bwd_dq_tf32_split_kernel", "float32", 256)
+    # K, V (32 keys); Q and dO x 2 stages of 32 rows; 4096 words of partial tiles
+    assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_split_kernel", "float32", 256) == \
+        4 * (260 * 6 * 32 + 4096) == 216064
+    assert cs.flash_dynamic_smem("flash_bwd_dq_tf32_split_kernel", "float32", 256) == 216064
     assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_kernel", "float32", 128) == 203264
     space = "_ZN60_GLOBAL__N__5c1a7f2e_22_flash_attention_bwd_cu_9e8d7c6b"
     tail = "EEEvPK13__nv_bfloat16S2_S2_PKiPKfS6_S2_PS0_S7_iifi"
@@ -219,11 +220,16 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
         ("flash_bwd_dkv_mma_kernel", "bfloat16", 64)
     assert cs._flash_instance(f"{space}21flash_fwd_tf32_kernelILi256EEEvPKfS2_S2_PKiPfS5_iifi") \
         == ("flash_fwd_tf32_kernel", "float32", 256)
-    assert cs._flash_instance(f"{space}20flash_fwd_mma_kernelILi256ELi128{tail}") == \
-        ("flash_fwd_mma_kernel", "bfloat16", 256)
+    assert cs._flash_instance(f"{space}20flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16") == \
+        ("flash_fwd_mma_kernel", "bfloat16", 128)
+    assert cs._flash_instance(f"{space}22flash_fwd_wgmma_kernelILi256EEEv14CUtensorMap_st") == \
+        ("flash_fwd_wgmma_kernel", "bfloat16", 256)
     for kernel, dtype, d in d256:
         assert cs.flash_dynamic_smem(kernel, dtype, d) <= cs.H100_SMEM_PER_BLOCK
     assert cs.flash_dynamic_smem("flash_fwd_tf32_kernel", "float32", 256) == 199680
+    # Q of 128 rows, K and V x 2 stages of 64, five barriers, 1 KB to align
+    assert cs.flash_dynamic_smem("flash_fwd_wgmma_kernel", "bfloat16", 256) == \
+        2 * 256 * (128 + 4 * 64) + 40 + 1024 == 197672
 
 
 def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):

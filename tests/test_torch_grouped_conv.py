@@ -190,10 +190,13 @@ def _build_log(k4_spill: int = 0, drop_k4=None, k1_spill: int = 0) -> str:
     passes = {sfx: n for n, sfx in cs.DKV_PASSES.items()}
     for kernel, _, d in cs.flash_instances():
         name, _, sfx = kernel.partition(".")
-        # every kernel but the fp32 forward takes the columns a launch forms
-        ncol = "" if name == "flash_fwd_tf32_kernel" else f"Li{d if d <= 128 else d // 2}E"
-        args = f"Li{d}E" + (f"Li{passes['.' + sfx]}E" if sfx else
-                            "Li0E" if name.startswith("flash_bwd_dkv_") else "") + ncol
+        # the head size; the bf16 dK/dV kernel's pass and both bf16 backward
+        # kernels' columns a launch forms after it
+        args = f"Li{d}E"
+        if name == "flash_bwd_dkv_mma_kernel":
+            args += f"Li{passes['.' + sfx] if sfx else 0}E"
+        if name in ("flash_bwd_dkv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+            args += f"Li{d if d <= 128 else d // 2}E"
         log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}I{args}EEvv", 128)
     # the fp32 and the bf16 instances (last template argument 0 and 1)
     for bf16 in (0, 1):
