@@ -575,44 +575,34 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
 # the flash kernels on the tensor cores, bf16 and fp32 (3xTF32), with the
 # head sizes each is built for: they must not spill, and their SASS must hold
 # tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma).  At D 256 the
-# bf16 forward is the wgmma kernel and the fp32 backward the split kernels.
+# bf16 forward, dK/dV and dQ are the wgmma kernels and the fp32 backward the
+# split kernels.
 FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64, 128),
                                   "flash_fwd_wgmma_kernel": (256,),
-                                  "flash_bwd_dkv_mma_kernel": (32, 64, 128, 256),
-                                  "flash_bwd_dq_mma_kernel": (32, 64, 128, 256)},
+                                  "flash_bwd_dkv_mma_kernel": (32, 64, 128),
+                                  "flash_bwd_dkv_wgmma_kernel": (256,),
+                                  "flash_bwd_dq_mma_kernel": (32, 64, 128),
+                                  "flash_bwd_dq_wgmma_kernel": (256,)},
                      "float32": {"flash_fwd_tf32_kernel": (32, 64, 128, 256),
                                  "flash_bwd_dkv_tf32_kernel": (32, 64, 128),
                                  "flash_bwd_dkv_tf32_split_kernel": (256,),
                                  "flash_bwd_dq_tf32_kernel": (32, 64, 128),
                                  "flash_bwd_dq_tf32_split_kernel": (256,)}}
-
-
-# the dK/dV passes of the bf16 kernel at D 256 (template argument PASS 1 and
-# 2), as `_flash_instance` names them
-DKV_PASSES = {"1": ".dv", "2": ".dk"}
 H100_SMEM_PER_BLOCK = 232448  # the most dynamic shared memory a block may have
 
 
 def flash_instances() -> list:
     """(kernel, dtype, D) of every flash kernel instance the launch functions
     of csrc/flash_attention_{fwd,bwd}.cu can run: each kernel at its head
-    sizes, the bf16 dK/dV kernel at D 256 as its dV and dK passes."""
-    out = []
-    for dtype, kernels in FLASH_MMA_KERNELS.items():
-        for kernel, dims in kernels.items():
-            for d in dims:
-                if d > 128 and kernel == "flash_bwd_dkv_mma_kernel":
-                    out += [(kernel + sfx, dtype, d) for sfx in DKV_PASSES.values()]
-                else:
-                    out.append((kernel, dtype, d))
-    return out
+    sizes."""
+    return [(kernel, dtype, d) for dtype, kernels in FLASH_MMA_KERNELS.items()
+            for kernel, dims in kernels.items() for d in dims]
 
 
 def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
     """Dynamic shared memory per block that the launch functions of
     csrc/flash_attention_{fwd,bwd}.cu ask for (ptxas reports static only)."""
     tile = 64 * d
-    kernel = kernel.split(".")[0]  # a dK/dV pass asks for the kernel's memory
     if kernel == "flash_fwd_mma_kernel":
         return 2 * tile * 5
     if kernel == "flash_fwd_wgmma_kernel":  # Q 128 rows, K and V x 2 stages, 5 barriers, align
@@ -623,6 +613,13 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
         return 2 * tile * 6 + 4 * 64 * 4
     if kernel == "flash_bwd_dq_mma_kernel":
         return 2 * tile * 6
+    # the wgmma backward: six 64-row tiles (the block's own two, the streamed
+    # two x 2 stages), 5 barriers, 1 KB to align; the exchange between the
+    # warpgroups: P^T in fp32 (dK/dV), P in fp32 and dS in bf16 (dQ)
+    if kernel == "flash_bwd_dkv_wgmma_kernel":
+        return 2 * tile * 6 + 4 * 64 * 64 + 5 * 8 + 1024
+    if kernel == "flash_bwd_dq_wgmma_kernel":
+        return 2 * tile * 6 + 6 * 64 * 64 + 5 * 8 + 1024
     if kernel == "flash_bwd_dkv_tf32_kernel":  # K, V; Q, dO halves; lse, delta rows
         return 4 * (d + 4) * 6 * 64 + 4 * 2 * 64
     if kernel == "flash_bwd_dq_tf32_kernel":  # Q, dO; K, V halves
@@ -644,23 +641,16 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
     it may hold the source's name (`flash_attention_fwd_cu`) and end in
     digits, so each split of the digit run into namespace tail and length is
     tried.  The `_tf32_` kernels (3xTF32 products on the tensor cores) take
-    fp32, the others (`_mma_`, `_wgmma_`) bf16.  The bf16 dK/dV kernel's
-    second argument is its pass: 0 (both) keeps the name, 1 and 2 add ".dv"
-    and ".dk"; its last argument, the columns a launch forms, is not part of
-    the key (one instance per head size and pass)."""
+    fp32, the others (`_mma_`, `_wgmma_`) bf16."""
     for found in re.finditer(r"(\d+)(?=flash_)", mangled):
         digits, start = found.group(1), found.end()
         for cut in range(len(digits)):
             n = int(digits[cut:])
             name, args = mangled[start:start + n], mangled[start + n:]
             if name.endswith("_kernel") and args.startswith("I"):
-                dim = re.match(r"ILi(\d+)E(?:Li(\d+)E)?", args)
+                dim = re.match(r"ILi(\d+)E", args)
                 dtype = "float32" if "_tf32" in name else "bfloat16"
-                if dim is None:
-                    return name, dtype, 0
-                if name == "flash_bwd_dkv_mma_kernel":
-                    name += DKV_PASSES.get(dim.group(2), "")
-                return name, dtype, int(dim.group(1))
+                return name, dtype, 0 if dim is None else int(dim.group(1))
     return None
 
 
@@ -772,9 +762,9 @@ def phase_kernel_build(lib_path) -> dict:
     `ptxas -v` log, and where `cuobjdump` is installed the HMMA and HGMMA
     counts of each tensor-core kernel; raises if a tensor-core kernel (every
     flash kernel, bf16 and fp32 in 3xTF32, K3 and K4) spills or has no
-    tensor-core instruction (the wgmma forward no HGMMA), if a flash instance
-    asks for more shared memory than a block may have, or if a K1 or K2
-    instance spills or is missing."""
+    tensor-core instruction (a wgmma kernel no HGMMA), if a wgmma kernel has a
+    stack frame, if a flash instance asks for more shared memory than a block
+    may have, or if a K1 or K2 instance spills or is missing."""
     everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
     table = {key: info for key, info in everything.items() if key[0].startswith("flash_")}
     hmma = count_hmma(lib_path)
@@ -792,6 +782,8 @@ def phase_kernel_build(lib_path) -> dict:
             raise AssertionError(f"{kernel}<{d}> is not in the ptxas log")
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
             raise AssertionError(f"{kernel}<{d}> spills: {info}")
+        if "_wgmma_" in kernel and info["stack_bytes"]:
+            raise AssertionError(f"{kernel}<{d}> has a stack frame: {info}")
         if hmma is not None:
             found = hmma.get((kernel, dtype, d), {})
             if found.get("HMMA", 0) + found.get("HGMMA", 0) == 0:
@@ -1963,12 +1955,66 @@ def phase_kernel_flash_causal(device: torch.device) -> dict:
     return {"max_abs_err": worst, "path": path}
 
 
+# the kernel one call of each K5 entry point launches at D 256, by type
+FLASH_D256_KERNELS = {"bfloat16": {"fwd": "flash_fwd_wgmma_kernel",
+                                   "dkv": "flash_bwd_dkv_wgmma_kernel",
+                                   "dq": "flash_bwd_dq_wgmma_kernel"},
+                      "float32": {"fwd": "flash_fwd_tf32_kernel",
+                                  "dkv": "flash_bwd_dkv_tf32_split_kernel",
+                                  "dq": "flash_bwd_dq_tf32_split_kernel"}}
+
+
+def _flash_kernels_per_call(shape, causal: bool, dtype: torch.dtype, device) -> dict:
+    """{"launches": {entry point: {kernel name: launches}}, "device_ms":
+    {entry point: ms}} of one call each of the forward (with `lse`), the dK/dV
+    and the dQ entry point at `shape`, read from the CUDA activity of
+    `torch.profiler` (the device time of the flash kernel alone, without the
+    wrapper's other work); raises unless each call launched its
+    `FLASH_D256_KERNELS` kernel once and no other flash kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from roar_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    q, k, v, do = (torch.randn(*shape, device=device, generator=gen).to(dtype) for _ in range(4))
+    scale = 1.0 / shape[3] ** 0.5
+    out, lse = fa.flash_self_attention(q, k, v, None, scale, return_lse=True, causal=causal)
+    delta = (out.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, None, scale, out, lse, do)
+    calls = {"fwd": lambda: fa.flash_self_attention(q, k, v, None, scale, return_lse=True,
+                                                    causal=causal),
+             "dkv": lambda: fa.flash_self_attention_bwd(*args, need_dq=False, delta=delta,
+                                                        causal=causal),
+             "dq": lambda: fa.flash_self_attention_bwd(*args, need_dkv=False, delta=delta,
+                                                       causal=causal)}
+    name = str(dtype).replace("torch.", "")
+    found = {"launches": {}, "device_ms": {}}
+    for entry, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        launched, micros = Counter(), 0.0
+        for event in prof.key_averages():
+            kernel = re.search(r"(flash_\w+_kernel)<", event.key)
+            if kernel is not None:
+                launched[kernel.group(1)] += event.count
+                micros += getattr(event, "device_time_total", None) or event.cuda_time_total
+        found["launches"][entry], found["device_ms"][entry] = dict(launched), micros / 1e3
+        if dict(launched) != {FLASH_D256_KERNELS[name][entry]: 1}:
+            raise AssertionError(f"one {entry} call at {shape} {name} launched {dict(launched)}")
+    return found
+
+
 def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
     """K5 at the head sizes outside 32 / 64 / 128 against the plain versions
     in fp32 and bf16 (`FLASH_HEAD_SIZE_CASES`), timed beside the bounds and
     SDPA: at D 256 the forward, dK/dV and dQ kernels in both types, and the
     padded route at D 80 and 100, forward and backward in both types,
-    counted in `LAUNCHES_PADDED`.  Returns {(shape, dtype name): case}."""
+    counted in `LAUNCHES_PADDED`.  At pythia-1b's layer the kernels one call
+    of each entry point launches (`kernels_per_call`: one, by the profiler).
+    Returns {(shape, dtype name): case}."""
     from roar_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -1983,6 +2029,11 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
             padded = fa.LAUNCHES_PADDED - padded_before
             if (d in fa.HEAD_DIMS) == bool(padded):
                 raise AssertionError(f"D {d}: padded launches {dict(padded)}")
+            if d == 256 and causal and lens is None:
+                case["kernels_per_call"] = _flash_kernels_per_call(shape, causal, dtype, device)
+                _emit({"phase": "kernel_flash_head_sizes", "shape_bthd": list(shape),
+                       "causal": causal, "dtype": str(dtype).replace("torch.", ""),
+                       "kernels_per_call": case["kernels_per_call"]})
             out[(shape, str(dtype).replace("torch.", ""))] = case
             torch.cuda.empty_cache()
     return out
@@ -4124,6 +4175,14 @@ def main() -> int:
         return [case["errors"] for (shape, name), case in fheads.items()
                 if shape[3] == d and name == dtype]
 
+    def per_call(d, dtype, entry):
+        """Launches of its kernel in one call and that launch's device ms,
+        by the profiler, at pythia-1b's layer."""
+        calls = fheads[((1, 2048, 8, d), dtype)]["kernels_per_call"]
+        return {"kernel_launches_per_call":
+                calls["launches"][entry][FLASH_D256_KERNELS[dtype][entry]],
+                "kernel_device_ms": calls["device_ms"][entry]}
+
     pythia_fp32_fwd = pythia["launches"]["fwd"] - pythia["launches_bf16"]["fwd"]
     padded_rows = []
     for d, config_name in ((80, "phi-2"), (100, "open_llama_3b")):
@@ -4278,15 +4337,21 @@ def main() -> int:
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
          "kernel": "flash_fwd_wgmma_kernel", "head_size": 256,
+         **per_call(256, "bfloat16", "fwd"),
          "launches": pythia["launches_bf16"]["fwd"],
          "launches_per_micro_batch": pythia["per_micro_batch"]["fwd"],
          "max_abs_err": worst(head_errors(256, "bfloat16"), "o"), **d256_fwd,
          "ragged_non_causal": ragged_fwd},
+        # the bf16 backward at D 256: one wgmma kernel launch a call;
+        # `launches_gpt_head_sizes` gemma-2b's bf16 micro-batch
         *[{"name": f"flash_attention_causal_bwd_{name}_d256", "route": "cuda",
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
-           "head_size": 256, "launches": pythia["launches_bf16"][name],
+           "kernel": f"flash_bwd_{name}_wgmma_kernel", "head_size": 256,
+           **per_call(256, "bfloat16", name),
+           "launches": pythia["launches_bf16"][name],
            "launches_per_micro_batch": pythia["per_micro_batch"][name],
+           "launches_gpt_head_sizes": heads["gemma-2b"]["bf16"][name],
            "max_abs_err": worst(head_errors(256, "bfloat16"), *grads), **d256_bwd[name],
            "ragged_non_causal": ragged_bwd[name]}
           for name, grads in backward_kernels],
@@ -4298,6 +4363,7 @@ def main() -> int:
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "float32",
          "kernel": "flash_fwd_tf32_kernel", "head_size": 256, "launches": pythia_fp32_fwd,
+         **per_call(256, "float32", "fwd"),
          "launches_train_fp32": pythia32["launches"]["fwd"],
          "launches_fp32_check": pythia["fp32_check_launches"]["fwd"],
          "max_abs_err": worst(head_errors(256, "float32"), "o"), **d256_fwd32,
@@ -4306,6 +4372,7 @@ def main() -> int:
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "float32",
            "kernel": f"flash_bwd_{name}_tf32_split_kernel", "head_size": 256,
+           **per_call(256, "float32", name),
            "launches": pythia32["launches"][name],
            "launches_per_micro_batch": pythia32["per_micro_batch"][name],
            "launches_fp32_check": pythia["fp32_check_launches"][name],

@@ -24,14 +24,15 @@
 // Every output element belongs to one thread of one block and is summed in a
 // fixed order, so there are no float atomics and two runs give the same bits.
 //
-// Head sizes 32, 64, 128 and 256 in both types.  bf16 at D 256 (192 to 196
-// KB of shared memory a block): a launch forms half of the output columns,
-// and the dK/dV kernel runs dV and dK as separate passes (see the bf16
-// kernel's notes).  fp32 at D 256: the split kernels, 8 warps a block, each
-// score tile formed once and each kernel one launch (see their notes).
+// Head sizes 32, 64, 128 and 256 in both types, one launch a call for each
+// kernel.  bf16 at D 256: the wgmma kernels, `flash_bwd_dkv_wgmma_kernel` and
+// `flash_bwd_dq_wgmma_kernel` (a producer warp of TMA copies and two consumer
+// warpgroups on wgmma, each score tile formed once; see their notes).  fp32
+// at D 256: the split kernels, 8 warps a block, each score tile formed once
+// (see their notes).
 //
-// Up to D 128 (and in bf16 at D 256) both types share one block layout, 4
-// warps a block.  dK/dV: each warp owns
+// Up to D 128 both types share one block layout, 4 warps a block.  dK/dV:
+// each warp owns
 // 16 keys of the block's 64-key tile as the rows of S^T = K q^T and
 // dP^T = V dO^T, so that P^T and dS^T come out of the accumulators as the A
 // operands of dV += P^T dO and dK += dS^T q without leaving registers; q and dO
@@ -40,8 +41,8 @@
 // operand of dQ += dS K; K and V tiles are staged by cp.async.  dQ, dK and dV
 // stay fp32 in registers until they are stored.
 //
-// bf16, `flash_bwd_dkv_mma_kernel` and `flash_bwd_dq_mma_kernel`: mma.sync
-// m16n8k16 with fp32 sums (flash_attention_mma.cuh) on XOR-swizzled bf16
+// bf16 up to D 128, `flash_bwd_dkv_mma_kernel` and `flash_bwd_dq_mma_kernel`:
+// mma.sync m16n8k16 with fp32 sums (flash_attention_mma.cuh) on XOR-swizzled bf16
 // tiles; the accumulators of two neighbouring 8-wide n-tiles are, element for
 // element, the A fragment of one 16-wide k-chunk of the next product; the
 // second products read their B operand by ldmatrix.trans; the streamed tiles
@@ -72,8 +73,8 @@
 // dout.v^T, so seven are done: dK/dV four (8 pairs D operations), dQ three
 // (6 pairs D).  bf16 is held against the 989 TFLOP/s dense bf16 peak; fp32
 // does three TF32 products for each, against 494.7 / 3 = 165 TFLOP/s (2.46x
-// the 67 TFLOP/s of the FMA pipe).  What holds them back from it: `mma.sync`
-// rather than `wgmma`, every warp reading the whole staged tile of the other
+// the 67 TFLOP/s of the FMA pipe).  What holds the mma.sync kernels (up to
+// D 128, and fp32 at D 256) back from it: `mma.sync` rather than `wgmma`, every warp reading the whole staged tile of the other
 // side from shared memory, cp.async rather than TMA, per-element work (exp,
 // masks, dS) of the same order as the products at D 64, and in fp32 the
 // splits (five integer and fp32 operations a word) and the flush adds (four
@@ -87,21 +88,32 @@
 // loop over key tiles ends at the query tile's own column, and the diagonal
 // tile is masked element by element; the dq kernels hand their query tiles
 // out longest first (the dkv kernels' first key tile is their longest
-// already).  In bf16 at D 256 the passes and column halves do eight (dK/dV)
-// and five (dQ) products where four and three would do, with one block a
-// SM.  The fp32 split kernels at D 256 do four and three, 8 warps a block
-// (one a SM), and split every operand word as it is loaded (the price of
-// two stages of streamed tiles in 216,064 B): at (1, 2048, 8, 256) causal
-// dK/dV 1.570 / 1.519 ms and dQ 1.189 / 1.167 (13 / 13 % of their own
-// bounds) where the passes and halves took 5.034 / 5.115 and 2.872 / 2.844
-// (NVIDIA H100 80GB HBM3, 700.00 W, `scripts/flash_kernel_times_torch.py`).
-// Later work: wgmma / TMA (TF32 wgmma for fp32), the split layout for the
-// bf16 D 256 backward, a fused five-product backward, and a GQA-aware
+// already).  At D 256 every kernel does its four (dK/dV) or three (dQ)
+// products once, one block a SM.  bf16 at (1, 2048, 8, 256) causal: the
+// products bound dK/dV at 0.0348 ms and dQ at 0.0261 over the 989 TFLOP/s
+// bf16 peak; the mma.sync kernels these wgmma kernels replaced, run as dV
+// and dK passes over two column halves (dK/dV, four launches) and over two
+// halves (dQ), did eight and five products and took 1.002 and 0.603 ms
+// (3.5 and 4.3 % of those bounds, NVIDIA H100 80GB HBM3, 700.00 W,
+// `scripts/flash_kernel_times_torch.py`; the wgmma kernels' times are in
+// PERF.md).  What still holds the wgmma kernels back: one block a SM, each
+// warpgroup's elementwise work waiting on its score product and its
+// gradient product on that work (no overlap of one tile's exp with the next
+// tile's products), and the hand-over between the warpgroups, which puts
+// the partner's elementwise work on the critical path.  The fp32 split
+// kernels at D 256, 8 warps a block (one a SM), split every operand word as
+// it is loaded (the price of two stages of streamed tiles in 216,064 B): at
+// (1, 2048, 8, 256) causal dK/dV 1.570 / 1.519 ms and dQ 1.189 / 1.167 (13 /
+// 13 % of their own bounds) where the passes and halves took 5.034 / 5.115
+// and 2.872 / 2.844 (NVIDIA H100 80GB HBM3, 700.00 W,
+// `scripts/flash_kernel_times_torch.py`).  Later work: TF32 wgmma for fp32,
+// wgmma / TMA up to D 128, a fused five-product backward, and a GQA-aware
 // kernel.
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
 #include "flash_attention_tf32.cuh"
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -118,19 +130,11 @@ namespace {
 // rows are double-buffered by cp.async.  dK and dV stay fp32 in registers and
 // are rounded once, as they are stored.  Each output element is one thread's
 // and is summed in a fixed order: no atomics, two runs give the same bits.
-//
-// `PASS`: 0 forms dK and dV in one loop.  At D 256 the two would take 256
-// accumulator registers a thread before anything else, so the launch runs
-// the kernel for dV (PASS 1: no dP^T, no V tile) and for dK (PASS 2), each
-// over half of the columns at a time (`NCOL` 128 at `col0` 0 and 128): four
-// launches, each recomputing S^T (and dP^T for dK) and holding 64
-// accumulators (with a whole dV or dK, 128 of them, ptxas spilled).
-// Each output comes out of the same sums in the same order as in one pass.
+// Up to D 128; at D 256 a whole row of dK and dV would be 256 accumulator
+// registers a thread, and `flash_bwd_dkv_wgmma_kernel` runs instead.
 // ---------------------------------------------------------------------------
 
 namespace fa_mma = flash::mma;
-
-constexpr int DKV_BOTH = 0, DKV_DV = 1, DKV_DK = 2;
 
 template <int D>
 constexpr size_t dkv_mma_smem_bytes() {
@@ -138,25 +142,22 @@ constexpr size_t dkv_mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * fa_mma::ROWS * D * 6 + sizeof(float) * fa_mma::ROWS * 4;
 }
 
-template <int D, int PASS, int NCOL>
+template <int D>
 __global__ void __launch_bounds__(fa_mma::THREADS)
 flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int T, int H, float scale, int causal,
-                         int col0_arg) {
+                         __nv_bfloat16* __restrict__ dv, int T, int H, float scale, int causal) {
   using namespace fa_mma;
+  static_assert(D <= 128, "D 256 runs flash_bwd_dkv_wgmma_kernel");
   constexpr int TILE_ELEMS = ROWS * D;
-  constexpr int KC = D / 16;    // k-chunks of the two score products
-  constexpr int NT = NCOL / 8;  // n-tiles of this block's columns of dK and dV
-  // the first column, a multiple of 64 (see swizzle_at)
-  const int col0 = NCOL == D ? 0 : col0_arg;
-  // D 128 and 256 read their K and V fragments from shared memory per chunk,
-  // to stay clear of spills; narrower heads hold them in registers
+  constexpr int KC = D / 16;  // k-chunks of the two score products
+  constexpr int NT = D / 8;   // n-tiles of dK and dV
+  // D 128 reads its K and V fragments from shared memory per chunk, to stay
+  // clear of spills; narrower heads hold them in registers
   constexpr bool KV_IN_REGS = D <= 64;
-  constexpr bool DO_DV = PASS != DKV_DK, DO_DK = PASS != DKV_DV;
 
   extern __shared__ uint4 smem_dkv[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_dkv);
@@ -179,7 +180,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   segment_range(segb, k0, T, lane, klo, khi);
 
   stage_tile<D>(Ks, k, base, ld, k0, T, tid);
-  if constexpr (DO_DK) stage_tile<D>(Vs, v, base, ld, k0, T, tid);
+  stage_tile<D>(Vs, v, base, ld, k0, T, tid);
   cp_async_commit();
   // causal: the query tiles before this key tile's own row see none of its keys
   bool uniform, uniform_next;
@@ -188,7 +189,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     stage_tile<D>(Qs, q, base, ld, q0, T, tid);
     stage_tile<D>(Os, dout, base, ld, q0, T, tid);
     stage_rows(lse_s, lse + row_base, q0, T, tid);
-    if constexpr (DO_DK) stage_rows(delta_s, delta + row_base, q0, T, tid);
+    stage_rows(delta_s, delta + row_base, q0, T, tid);
   }
   cp_async_commit();
 
@@ -207,13 +208,13 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  float acc_dk[DO_DK ? NT : 1][4], acc_dv[DO_DV ? NT : 1][4];
+  float acc_dk[NT][4], acc_dv[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if constexpr (DO_DK) acc_dk[j][e] = 0.f;
-      if constexpr (DO_DV) acc_dv[j][e] = 0.f;
+      acc_dk[j][e] = 0.f;
+      acc_dv[j][e] = 0.f;
     }
 
   const float scale_log2 = scale * LOG2E;
@@ -225,7 +226,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       stage_tile<D>(Qs + nx * TILE_ELEMS, q, base, ld, qn, T, tid);
       stage_tile<D>(Os + nx * TILE_ELEMS, dout, base, ld, qn, T, tid);
       stage_rows(lse_s + nx * ROWS, lse + row_base, qn, T, tid);
-      if constexpr (DO_DK) stage_rows(delta_s + nx * ROWS, delta + row_base, qn, T, tid);
+      stage_rows(delta_s + nx * ROWS, delta + row_base, qn, T, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -238,9 +239,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // not all the key tile's single id are masked element by element
     const bool masked = !uniform || q0 + ROWS > T || (causal && q0 < k0 + ROWS);
 
-    // D 128 keeps 128 accumulators a thread (each pass at D 256 64): one
-    // chunk at a time, so that the next chunk's fragment loads are not hoisted
-    // into registers it lacks
+    // D 128 keeps 128 accumulators a thread: one chunk at a time, so that the
+    // next chunk's fragment loads are not hoisted into registers it lacks
 #pragma unroll(KV_IN_REGS ? ROWS / 16 : 1)
     for (int c = 0; c < ROWS / 16; ++c) {  // queries 16 c .. 16 c + 15 of the tile
       float st[2][4], dpt[2][4];
@@ -259,19 +259,16 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
           }
         } else {
           load_a<D>(kf, Ks, warp * 16, kc, lane);
-          if constexpr (DO_DK) load_a<D>(vf, Vs, warp * 16, kc, lane);
+          load_a<D>(vf, Vs, warp * 16, kc, lane);
         }
-        // one pass issues both B loads before its products (a D 64 kernel
-        // that loaded dO after S's products ran 10 to 15 % slower on an H100)
+        // both B loads before the products (a D 64 kernel that loaded dO
+        // after S's products ran 10 to 15 % slower on an H100)
         load_b<D>(qb, Qt, c * 16, kc, lane);
-        if constexpr (PASS == DKV_BOTH) load_b<D>(ob, Ot, c * 16, kc, lane);
+        load_b<D>(ob, Ot, c * 16, kc, lane);
         mma_bf16(st[0], kf, qb[0], qb[1]);
         mma_bf16(st[1], kf, qb[2], qb[3]);
-        if constexpr (DO_DK) {
-          if constexpr (PASS != DKV_BOTH) load_b<D>(ob, Ot, c * 16, kc, lane);
-          mma_bf16(dpt[0], vf, ob[0], ob[1]);
-          mma_bf16(dpt[1], vf, ob[2], ob[3]);
-        }
+        mma_bf16(dpt[0], vf, ob[0], ob[1]);
+        mma_bf16(dpt[1], vf, ob[2], ob[3]);
       }
       // element (n, e): key row e < 2 ? g : g + 8, query 16 c + 8 n + 2 t4 + (e & 1)
 #pragma unroll
@@ -288,8 +285,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             (!causal || key <= query);
             p = ok ? p : 0.f;
           }
-          if constexpr (DO_DK)
-            dpt[n][e] = p * (dpt[n][e] - delta_t[qc]) * scale;  // dS^T, from the unrounded p
+          dpt[n][e] = p * (dpt[n][e] - delta_t[qc]) * scale;  // dS^T, from the unrounded p
           st[n][e] = p;
         }
       }
@@ -299,18 +295,14 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const uint32_t sa[4] = {pack_bf16(dpt[0][0], dpt[0][1]), pack_bf16(dpt[0][2], dpt[0][3]),
                               pack_bf16(dpt[1][0], dpt[1][1]), pack_bf16(dpt[1][2], dpt[1][3])};
 #pragma unroll
-      for (int np = 0; np < NCOL / 16; ++np) {
+      for (int np = 0; np < D / 16; ++np) {
         uint32_t ob[4], qb[4];
-        if constexpr (DO_DV) {
-          load_b_trans<D>(ob, Ot + col0, c * 16, np, lane);
-          mma_bf16(acc_dv[2 * np], pa, ob[0], ob[1]);
-          mma_bf16(acc_dv[2 * np + 1], pa, ob[2], ob[3]);
-        }
-        if constexpr (DO_DK) {
-          load_b_trans<D>(qb, Qt + col0, c * 16, np, lane);
-          mma_bf16(acc_dk[2 * np], sa, qb[0], qb[1]);
-          mma_bf16(acc_dk[2 * np + 1], sa, qb[2], qb[3]);
-        }
+        load_b_trans<D>(ob, Ot, c * 16, np, lane);
+        mma_bf16(acc_dv[2 * np], pa, ob[0], ob[1]);
+        mma_bf16(acc_dv[2 * np + 1], pa, ob[2], ob[3]);
+        load_b_trans<D>(qb, Qt, c * 16, np, lane);
+        mma_bf16(acc_dk[2 * np], sa, qb[0], qb[1]);
+        mma_bf16(acc_dk[2 * np + 1], sa, qb[2], qb[3]);
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
@@ -323,15 +315,13 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int t = i == 0 ? key0 : key1;
     if (t < T) {
-      const long at = base + (long)t * ld + col0 + 2 * t4;
+      const long at = base + (long)t * ld + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        if constexpr (DO_DK)
-          *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
-              __floats2bfloat162_rn(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
-        if constexpr (DO_DV)
-          *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
-              __floats2bfloat162_rn(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+            __floats2bfloat162_rn(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+            __floats2bfloat162_rn(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
       }
     }
   }
@@ -352,7 +342,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // time.  Each thread keeps the lse and delta of its two rows in registers.
 // K and V are double-buffered by cp.async.  dQ stays fp32 in registers and is
 // rounded once, as it is stored; each element is one thread's and is summed in
-// a fixed order: no atomics, two runs give the same bits.
+// a fixed order: no atomics, two runs give the same bits.  Up to D 128; D 256
+// runs `flash_bwd_dq_wgmma_kernel`.
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -360,26 +351,23 @@ constexpr size_t dq_mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * fa_mma::ROWS * D * 6;  // Q, dO, then K and V x 2
 }
 
-// Blocks a SM: up to D 128 ptxas chose at most 168 registers (three blocks
-// of 128 threads) by itself, and the bound keeps that; at D 256 one block
-// fits in shared memory, and with no bound ptxas still aimed at three and
-// spilled 40 B at 168 registers
-template <int D, int NCOL>
-__global__ void __launch_bounds__(fa_mma::THREADS, D > 128 ? 1 : 3)
+// Blocks a SM: ptxas chose at most 168 registers (three blocks of 128
+// threads) by itself, and the bound keeps that
+template <int D>
+__global__ void __launch_bounds__(fa_mma::THREADS, 3)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-                        int T, int H, float scale, int causal, int col0_arg) {
+                        int T, int H, float scale, int causal) {
   using namespace fa_mma;
+  static_assert(D <= 128, "D 256 runs flash_bwd_dq_wgmma_kernel");
   constexpr int TILE_ELEMS = ROWS * D;
-  constexpr int KC = D / 16;    // k-chunks of the two score products
-  constexpr int NT = NCOL / 8;  // n-tiles of this block's columns of dQ
-  // the first column, a multiple of 64 (see swizzle_at)
-  const int col0 = NCOL == D ? 0 : col0_arg;
-  // D 128 and 256 read their Q and dO fragments from shared memory per chunk,
-  // to stay clear of spills; narrower heads hold them in registers
+  constexpr int KC = D / 16;  // k-chunks of the two score products
+  constexpr int NT = D / 8;   // n-tiles of dQ
+  // D 128 reads its Q and dO fragments from shared memory per chunk, to stay
+  // clear of spills; narrower heads hold them in registers
   constexpr bool QO_IN_REGS = D <= 64;
 
   extern __shared__ uint4 smem_dq[];
@@ -454,9 +442,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // query tile's single id are masked element by element
     const bool masked = !uniform || k0 + ROWS > T || (causal && k0 + ROWS > q0);
 
-    // D 128 keeps 64 accumulators a thread (each column half at D 256 too):
-    // one chunk at a time, so that the next chunk's fragment loads are not
-    // hoisted into registers it lacks
+    // D 128 keeps 64 accumulators a thread: one chunk at a time, so that the
+    // next chunk's fragment loads are not hoisted into registers it lacks
 #pragma unroll(QO_IN_REGS ? ROWS / 16 : 1)
     for (int c = 0; c < ROWS / 16; ++c) {  // keys 16 c .. 16 c + 15 of the tile
       float s[2][4], dp[2][4];
@@ -505,9 +492,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const uint32_t sa[4] = {pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
                               pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
 #pragma unroll
-      for (int np = 0; np < NCOL / 16; ++np) {
+      for (int np = 0; np < D / 16; ++np) {
         uint32_t kb[4];
-        load_b_trans<D>(kb, Kt + col0, c * 16, np, lane);
+        load_b_trans<D>(kb, Kt, c * 16, np, lane);
         mma_bf16(acc[2 * np], sa, kb[0], kb[1]);
         mma_bf16(acc[2 * np + 1], sa, kb[2], kb[3]);
       }
@@ -522,7 +509,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int t = i == 0 ? row0 : row1;
     if (t < T) {
-      __nv_bfloat16* dst = dq + base + (long)t * ld + col0 + 2 * t4;
+      __nv_bfloat16* dst = dq + base + (long)t * ld + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
@@ -1270,6 +1257,496 @@ flash_bwd_dq_tf32_split_kernel(const float* __restrict__ q, const float* __restr
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 kernels at D 256 on Hopper's own units (flash_attention_wgmma.cuh),
+// laid out as the bf16 forward at D 256: one launch a call, one block of three
+// warpgroups, a producer warp whose TMA copies stream 64-row tiles into a
+// two-stage ring (each stage's `full` barrier counting the bytes in, its
+// `empty` barrier the 8 consumer warps out), and two consumer warpgroups
+// (`setmaxnreg`: 40 registers a producer thread, 232 a consumer thread).  Each
+// score tile is formed once, by one warpgroup, on wgmma m64n64k16 from shared
+// memory (16 k-steps over D); what the other warpgroup needs of it crosses in
+// shared memory between two named barriers.  The gradient products take their
+// A operand (p or dS, rounded to bf16) in registers and read their B operand
+// transposed (MN-major) from shared memory.  Every warp walks the same tiles
+// (`next_tile` over the block's own segment range), so the producer and the
+// consumers agree on them without passing them through shared memory; the
+// ragged edge, the diagonal tile and a tile whose ids are not all the block's
+// single id are masked element by element.  Rows past T arrive as TMA's zero
+// fill and are never stored.  lse and delta are read from device memory (L1)
+// before the score product they follow.
+// ---------------------------------------------------------------------------
+
+namespace fa_hop = flash::hopper;
+
+constexpr int WG_ROWS = 64;              // rows of every tile, the block's own and the streamed
+constexpr int WG_THREADS = 384;          // 2 consumer warpgroups + 1 producer warpgroup
+constexpr uint32_t WG_BLOCK = WG_ROWS * 128;  // bytes of a tile's 64-column block
+// named barriers between the two consumer warpgroups (0 is __syncthreads)
+constexpr int XCHG_A = 1, XCHG_B = 2;
+
+__device__ __forceinline__ void group_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// acc = A B^T over D (16 k-steps of wgmma m64n64k16), A and B 64-row tiles
+// of D / 64 swizzled column blocks at shared addresses `a` and `b`; committed,
+// not waited for
+template <int D>
+__device__ __forceinline__ void score_product(float (&acc)[32], uint32_t a, uint32_t b) {
+  using namespace fa_hop;
+  fence_operands(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    // k-step kc: column block kc / 4, 32 bytes a step within it
+    const uint32_t at = (kc >> 2) * WG_BLOCK + (kc & 3) * 32;
+    wgmma_m64n64k16_ss(acc, desc_sw128(a + at, 16, 1024), desc_sw128(b + at, 16, 1024), kc > 0);
+  }
+  wgmma_commit();
+}
+
+// the accumulators of n-tiles 2 kk and 2 kk + 1 of a 64 x 64 score tile as
+// the bf16 A fragment of rows 16 kk .. 16 kk + 15 of the next product's k
+__device__ __forceinline__ void score_as_a(const float (&s)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* c = s + 8 * kk;
+    a[kk][0] = fa_mma::pack_bf16(c[0], c[1]);
+    a[kk][1] = fa_mma::pack_bf16(c[2], c[3]);
+    a[kk][2] = fa_mma::pack_bf16(c[4], c[5]);
+    a[kk][3] = fa_mma::pack_bf16(c[6], c[7]);
+  }
+}
+
+template <int D>
+constexpr size_t dkv_wgmma_smem_bytes() {
+  // K, V; Q and dO x 2 stages; the P^T exchange (64 x 64 fp32); 5 barriers;
+  // 1024 bytes to align the tiles to the swizzle's period: 214,056 B
+  return 2 * (size_t)D * WG_ROWS * 6 + 4 * WG_ROWS * WG_ROWS + 5 * 8 + 1024;
+}
+
+template <int D>
+constexpr size_t dq_wgmma_smem_bytes() {
+  // Q, dO; K and V x 2 stages; the P exchange (fp32) and the dS exchange
+  // (bf16 A fragments); 5 barriers; 1024 to align: 222,248 B
+  return 2 * (size_t)D * WG_ROWS * 6 + 6 * WG_ROWS * WG_ROWS + 5 * 8 + 1024;
+}
+
+// dK/dV at D 256.  One block per 64-key tile; K and V are copied once and
+// stay, the visible 64-query tiles of Q and dO (from the diagonal with
+// `causal`) stream through the ring.  Warpgroup 0 owns dV, warpgroup 1 dK,
+// each a 64 x 256 fp32 accumulator (128 registers a thread, the whole row):
+//   wg 0:  S^T = K Q^T;  P^T = exp(S^T * scale - lse), 0 where masked
+//          P^T (fp32) -> shared memory;  dV += bf16(P^T) dO   (m64n256k16)
+//   wg 1:  dP^T = V dO^T;  P^T <- shared memory
+//          dS^T = P^T o (dP^T - delta) * scale   (from the unrounded P^T)
+//          dK += bf16(dS^T) Q                     (m64n256k16)
+// so the four products are each done once.  Thread i of one warpgroup holds
+// the score elements that thread i of the other holds, so the exchange is a
+// [32 values][128 threads] array: barrier A says a tile's P^T is written,
+// barrier B that it has been read (before the next tile's is written).
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap omap, const int* __restrict__ seg,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int T,
+                           int H, float scale, int causal) {
+  using namespace fa_hop;
+  using fa_mma::LOG2E;
+  static_assert(D == 256, "the wgmma form is built for D 256");
+  constexpr uint32_t TILE = (D / 64) * WG_BLOCK;  // bytes of a 64-row tile
+
+  extern __shared__ uint8_t smem_dkv_wg[];
+  const uint32_t base_u32 = smem_u32(smem_dkv_wg);
+  const uint32_t sK = (base_u32 + 1023u) & ~1023u;
+  const uint32_t sV = sK + TILE;
+  const uint32_t sQ = sV + TILE;      // [2 stages]
+  const uint32_t sO = sQ + 2 * TILE;  // dO, [2 stages]
+  const uint32_t sX = sO + 2 * TILE;  // P^T: [8 float4][128 threads]
+  const uint32_t kv_full = sX + 4 * WG_ROWS * WG_ROWS;  // then full[2], empty[2]
+  const uint32_t full0 = kv_full + 8, empty0 = kv_full + 24;
+  float4* xchg = reinterpret_cast<float4*>(smem_dkv_wg + (sX - base_u32));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * WG_ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int* segb = seg + (long)b * T;
+
+  int klo, khi;
+  fa_mma::segment_range(segb, k0, T, lane, klo, khi);
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // causal: the query tiles before this key tile's own row see none of its keys
+  bool uniform, uniform_next;
+  int q0 = fa_mma::next_tile(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
+
+  if (warp >= 8) {  // ---- the producer warpgroup: one warp copies ----
+    setmaxnreg_dec<40>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * TILE);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sK + c * WG_BLOCK, &kmap, kv_full, 64 * c, h, k0, b);
+        tma_load_4d(sV + c * WG_BLOCK, &vmap, kv_full, 64 * c, h, k0, b);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    while (q0 < T) {
+      if (lane == 0) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the round before freed this stage
+        const uint32_t full = full0 + 8 * stage;
+        mbar_arrive_expect_tx(full, 2 * TILE);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sQ + stage * TILE + c * WG_BLOCK, &qmap, full, 64 * c, h, q0, b);
+          tma_load_4d(sO + stage * TILE + c * WG_BLOCK, &omap, full, 64 * c, h, q0, b);
+        }
+      }
+      q0 = fa_mma::next_tile(segb, q0 + WG_ROWS, T, T, klo, khi, lane, uniform_next);
+      if (++stage == 2) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {  // ---- the consumer warpgroups ----
+    setmaxnreg_inc<232>();
+    const bool is_dk = warp >= 4;
+    const int wt = tid & 127, g = lane >> 2, t4 = lane & 3;
+    // this thread's two keys, rows g and g + 8 of its warp's 16
+    const int key0 = k0 + 16 * (warp & 3) + g, key1 = key0 + 8;
+    const int seg0 = key0 < T ? segb[key0] : -1, seg1 = key1 < T ? segb[key1] : -1;
+    const float* rows = (is_dk ? delta : lse) + ((long)b * H + h) * T;
+    const float scale_log2 = scale * LOG2E;
+
+    // dV (wg 0) or dK (wg 1): element i at key row (i & 2) ? key1 : key0,
+    // column 8 (i / 4) + 2 t4 + (i & 1)
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    bool first = true;
+    while (q0 < T) {
+      const int qn = fa_mma::next_tile(segb, q0 + WG_ROWS, T, T, klo, khi, lane, uniform_next);
+      // lse * log2 e (wg 0) or delta (wg 1) of this thread's 16 query
+      // columns, 8 j + 2 t4 + c; 0 past T, where p is masked to 0
+      float rv[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int query = q0 + 8 * (j >> 1) + 2 * t4 + (j & 1);
+        const float x = query < T ? rows[query] : 0.f;
+        rv[j] = is_dk ? x : x * LOG2E;
+      }
+      mbar_wait(full0 + 8 * stage, phase);
+      const uint32_t qt = sQ + stage * TILE, ot = sO + stage * TILE;
+      // element i of s: key row (i & 2) ? key1 : key0, query column
+      // 8 (i / 4) + 2 t4 + (i & 1) of the tile
+      float s[32];
+      score_product<D>(s, is_dk ? sV : sK, is_dk ? ot : qt);  // dP^T or S^T
+      wgmma_wait<0>();
+      fence_operands(s);
+
+      if (!is_dk) {
+        // the ragged edge, the diagonal tile (q0 == k0) and a tile whose ids
+        // are not all the key tile's single id are masked element by element
+        const bool masked = !uniform || q0 + WG_ROWS > T || (causal && q0 < k0 + WG_ROWS);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int j = 2 * (i >> 2) + (i & 1);
+          float p = exp2f(fmaf(s[i], scale_log2, -rv[j]));
+          if (masked) {
+            const int query = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+            const int key = (i & 2) ? key1 : key0;
+            const bool ok = query < T && segb[query] == ((i & 2) ? seg1 : seg0) &&
+                            (!causal || key <= query);
+            p = ok ? p : 0.f;
+          }
+          s[i] = p;
+        }
+        if (!first) group_sync(XCHG_B, 256);  // wg 1 has read the last tile's P^T
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          xchg[128 * i + wt] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+        group_arrive(XCHG_A, 256);
+      } else {
+        group_sync(XCHG_A, 256);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 p = xchg[128 * i + wt];
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = 4 * i + e;
+            // dS^T, from the unrounded P^T
+            s[n] = pv[e] * (s[n] - rv[2 * (n >> 2) + (n & 1)]) * scale;
+          }
+        }
+        if (qn < T) group_arrive(XCHG_B, 256);  // wg 0 may write the next tile's
+      }
+
+      // dV += bf16(P^T) dO  or  dK += bf16(dS^T) Q, the B tile read transposed
+      uint32_t pa[4][4];
+      score_as_a(s, pa);
+      fence_operands(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_operands(pa[kk]);
+      wgmma_fence();
+      const uint32_t grad_b = is_dk ? qt : ot;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n256k16_rs_mn(acc, pa[kk], desc_sw128(grad_b + kk * 16 * 128, WG_BLOCK, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // this warp is done with the stage
+      q0 = qn;
+      uniform = uniform_next;
+      first = false;
+      if (++stage == 2) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    __nv_bfloat16* out = is_dk ? dk : dv;
+    const long ld = (long)H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r == 0 ? key0 : key1;
+      if (t < T) {
+        __nv_bfloat16* dst = out + ((long)b * T + t) * ld + (long)h * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dQ at D 256.  One block per 64-query tile (handed out longest first with
+// `causal`); Q and dO are copied once and stay, the visible 64-key tiles of K
+// and V (up to the diagonal with `causal`) stream through the ring.  Each
+// warpgroup owns 128 columns of dQ (64 registers a thread):
+//   wg 0:  S = Q K^T;  P = exp(S * scale - lse), 0 where masked;  P -> wg 1
+//   wg 1:  dP = dO V^T;  dS = P o (dP - delta) * scale (from the unrounded P),
+//          rounded to bf16 as A fragments -> wg 0
+//   both:  dQ[:, 128 wg ..] += bf16(dS) K[:, 128 wg ..]   (m64n128k16)
+// so S and dP are each formed once and both halves of dQ take the same dS,
+// bit for bit.  Barrier A says a tile's P is written, barrier B that its dS
+// is; each warpgroup's wait on the other's next hand-over also orders its own
+// reads of this one before the other overwrites it.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap omap, const int* __restrict__ seg,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int T, int H, float scale, int causal) {
+  using namespace fa_hop;
+  using fa_mma::LOG2E;
+  static_assert(D == 256, "the wgmma form is built for D 256");
+  constexpr uint32_t TILE = (D / 64) * WG_BLOCK;
+
+  extern __shared__ uint8_t smem_dq_wg[];
+  const uint32_t base_u32 = smem_u32(smem_dq_wg);
+  const uint32_t sQ = (base_u32 + 1023u) & ~1023u;
+  const uint32_t sO = sQ + TILE;      // dO
+  const uint32_t sK = sO + TILE;      // [2 stages]
+  const uint32_t sV = sK + 2 * TILE;  // [2 stages]
+  const uint32_t sP = sV + 2 * TILE;  // P: [8 float4][128 threads]
+  const uint32_t sS = sP + 4 * WG_ROWS * WG_ROWS;  // dS: [4 uint4][128 threads]
+  const uint32_t q_full = sS + 2 * WG_ROWS * WG_ROWS;  // then full[2], empty[2]
+  const uint32_t full0 = q_full + 8, empty0 = q_full + 24;
+  float4* xp = reinterpret_cast<float4*>(smem_dq_wg + (sP - base_u32));
+  uint4* xs = reinterpret_cast<uint4*>(smem_dq_wg + (sS - base_u32));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * WG_ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int* segb = seg + (long)b * T;
+
+  int qlo, qhi;
+  fa_mma::segment_range(segb, q0, T, lane, qlo, qhi);
+  // causal: the tiles past the diagonal tile (k0 == q0) hold no visible key
+  const int k_end = causal ? min(T, q0 + WG_ROWS) : T;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  bool uniform, uniform_next;
+  int k0 = fa_mma::next_tile(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+
+  if (warp >= 8) {  // ---- the producer warpgroup: one warp copies ----
+    setmaxnreg_dec<40>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * TILE);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sQ + c * WG_BLOCK, &qmap, q_full, 64 * c, h, q0, b);
+        tma_load_4d(sO + c * WG_BLOCK, &omap, q_full, 64 * c, h, q0, b);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    while (k0 < k_end) {  // always entered: every in-range query sees its own key
+      if (lane == 0) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the round before freed this stage
+        const uint32_t full = full0 + 8 * stage;
+        mbar_arrive_expect_tx(full, 2 * TILE);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sK + stage * TILE + c * WG_BLOCK, &kmap, full, 64 * c, h, k0, b);
+          tma_load_4d(sV + stage * TILE + c * WG_BLOCK, &vmap, full, 64 * c, h, k0, b);
+        }
+      }
+      k0 = fa_mma::next_tile(segb, k0 + WG_ROWS, k_end, T, qlo, qhi, lane, uniform_next);
+      if (++stage == 2) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {  // ---- the consumer warpgroups ----
+    setmaxnreg_inc<232>();
+    const int wg = warp >> 2, wt = tid & 127, g = lane >> 2, t4 = lane & 3;
+    // this thread's two queries, rows g and g + 8 of its warp's 16; rows past
+    // T are never stored
+    const int row0 = q0 + 16 * (warp & 3) + g, row1 = row0 + 8;
+    const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+    const long row_base = ((long)b * H + h) * T;
+    const float lse_l2[2] = {row0 < T ? lse[row_base + row0] * LOG2E : 0.f,
+                             row1 < T ? lse[row_base + row1] * LOG2E : 0.f};
+    const float row_delta[2] = {row0 < T ? delta[row_base + row0] : 0.f,
+                                row1 < T ? delta[row_base + row1] : 0.f};
+    const float scale_log2 = scale * LOG2E;
+
+    // dQ: element i at row (i & 2) ? row1 : row0, column 128 wg + 8 (i / 4) + 2 t4 + (i & 1)
+    float acc[D / 4];
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    while (k0 < k_end) {
+      const int kn =
+          fa_mma::next_tile(segb, k0 + WG_ROWS, k_end, T, qlo, qhi, lane, uniform_next);
+      mbar_wait(full0 + 8 * stage, phase);
+      const uint32_t kt = sK + stage * TILE, vt = sV + stage * TILE;
+      // element i of s: query row (i & 2) ? row1 : row0, key 8 (i / 4) + 2 t4 + (i & 1)
+      float s[32];
+      score_product<D>(s, wg ? sO : sQ, wg ? vt : kt);  // dP or S
+      wgmma_wait<0>();
+      fence_operands(s);
+
+      uint32_t sa[4][4];  // bf16(dS), the A fragments of dQ += dS K
+      if (wg == 0) {
+        // the ragged edge, the diagonal tile and a tile whose ids are not all
+        // the query tile's single id are masked element by element
+        const bool masked = !uniform || k0 + WG_ROWS > T || (causal && k0 + WG_ROWS > q0);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          float p = exp2f(fmaf(s[i], scale_log2, -lse_l2[r]));
+          if (masked) {
+            const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+            const bool ok = key < T && segb[key] == (r ? seg1 : seg0) &&
+                            (!causal || key <= (r ? row1 : row0));
+            p = ok ? p : 0.f;
+          }
+          s[i] = p;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          xp[128 * i + wt] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+        group_arrive(XCHG_A, 256);
+        group_sync(XCHG_B, 256);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint4 x = xs[128 * kk + wt];
+          sa[kk][0] = x.x;
+          sa[kk][1] = x.y;
+          sa[kk][2] = x.z;
+          sa[kk][3] = x.w;
+        }
+      } else {
+        group_sync(XCHG_A, 256);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 p = xp[128 * i + wt];
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = 4 * i + e;
+            s[n] = pv[e] * (s[n] - row_delta[(n >> 1) & 1]) * scale;  // dS, from the unrounded p
+          }
+        }
+        score_as_a(s, sa);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          xs[128 * kk + wt] = make_uint4(sa[kk][0], sa[kk][1], sa[kk][2], sa[kk][3]);
+        group_arrive(XCHG_B, 256);
+      }
+
+      fence_operands(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_operands(sa[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k16_rs_mn(
+            acc, sa[kk], desc_sw128(kt + 2 * wg * WG_BLOCK + kk * 16 * 128, WG_BLOCK, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // this warp is done with the stage
+      k0 = kn;
+      uniform = uniform_next;
+      if (++stage == 2) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const long ld = (long)H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r == 0 ? row0 : row1;
+      if (t < T) {
+        __nv_bfloat16* dst = dq + ((long)b * T + t) * ld + (long)h * D + (D / 2) * wg + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // what both kernels read, as the C interface hands it over
 struct Inputs {
   const void *q, *k, *v;
@@ -1299,41 +1776,42 @@ inline dim3 grid_of(const Inputs& in, int rows = fa_mma::ROWS) {
   return dim3((in.T + rows - 1) / rows, in.H, in.B);
 }
 
-// the output columns a bf16 launch forms: all of them, and half of them at
-// D 256
-template <int D>
-constexpr int ncol() {
-  return D > 128 ? D / 2 : D;
-}
-
-// bf16: one launch of 4 warps per `ncol` columns (two at D 256)
-template <int D, int PASS>
-cudaError_t launch_dkv_mma_pass(const Inputs& in, void* dk, void* dv) {
-  constexpr size_t smem = dkv_mma_smem_bytes<D>();
-  const auto kernel = flash_bwd_dkv_mma_kernel<D, PASS, ncol<D>()>;
-  cudaError_t err = prepare(kernel, smem);
-  for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += ncol<D>()) {
-    kernel<<<grid_of(in), fa_mma::THREADS, smem, in.stream>>>(
-        in_ptr<bf16>(in.q), in_ptr<bf16>(in.k), in_ptr<bf16>(in.v), in.seg, in.lse, in.delta,
-        in_ptr<bf16>(in.dout), static_cast<bf16*>(dk), static_cast<bf16*>(dv), in.T, in.H,
-        in.scale, in.causal, col0);
-    err = cudaGetLastError();
+// bf16 at D 256: a wgmma kernel, one block of WG_THREADS per (64-row tile,
+// head, batch row), its four TMA maps (q, k, v, dO; 64-row boxes) built here
+template <int D, typename Kernel, typename... Out>
+cudaError_t launch_wgmma(Kernel kernel, size_t smem, const Inputs& in, Out*... out) {
+  CUtensorMap maps[4];
+  const void* xs[4] = {in.q, in.k, in.v, in.dout};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = fa_hop::bf16_rows_map(&maps[i], xs[i], in.B, in.T, in.H, D, WG_ROWS);
+    if (err != cudaSuccess) return err;
   }
-  return err;
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_of(in, WG_ROWS), WG_THREADS, smem, in.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], in.seg, in.lse, in.delta, static_cast<bf16*>(out)...,
+      in.T, in.H, in.scale, in.causal);
+  return cudaGetLastError();
 }
 
-// `Elem` is float (the 3xTF32 kernels) or bf16 (the bf16 kernels).
-// bf16 at D 256: the dV pass before the dK pass (see the dK/dV kernels'
-// notes); fp32 at D 256: the split kernel, one launch of 8 warps per 32-key
-// tile
+// One launch a call.  `Elem` is float (the 3xTF32 kernels) or bf16.  bf16: the
+// mma.sync kernel up to D 128, the wgmma kernel at D 256; fp32: one block of 4
+// warps per 64-key tile up to D 128, the split kernel (8 warps per 32-key
+// tile) at D 256
 template <int D, typename Elem>
 cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
   if constexpr (sizeof(Elem) == 2 && D > 128) {
-    const cudaError_t err = launch_dkv_mma_pass<D, DKV_DV>(in, dk, dv);
-    if (err != cudaSuccess) return err;
-    return launch_dkv_mma_pass<D, DKV_DK>(in, dk, dv);
+    return launch_wgmma<D>(flash_bwd_dkv_wgmma_kernel<D>, dkv_wgmma_smem_bytes<D>(), in, dk, dv);
   } else if constexpr (sizeof(Elem) == 2) {
-    return launch_dkv_mma_pass<D, DKV_BOTH>(in, dk, dv);
+    constexpr size_t smem = dkv_mma_smem_bytes<D>();
+    const auto kernel = flash_bwd_dkv_mma_kernel<D>;
+    const cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid_of(in), fa_mma::THREADS, smem, in.stream>>>(
+        in_ptr<bf16>(in.q), in_ptr<bf16>(in.k), in_ptr<bf16>(in.v), in.seg, in.lse, in.delta,
+        in_ptr<bf16>(in.dout), static_cast<bf16*>(dk), static_cast<bf16*>(dv), in.T, in.H,
+        in.scale, in.causal);
+    return cudaGetLastError();
   } else {
     constexpr bool split = D > 128;
     constexpr size_t smem = split ? dkv_split_smem_bytes<D>() : dkv_tf32_smem_bytes<D>();
@@ -1352,21 +1830,22 @@ cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
   }
 }
 
-// one launch a call but for bf16 at D 256 (one per column half); fp32 at
-// D 256: the split kernel, 8 warps per 64-query tile
+// One launch a call, per 64-query tile.  bf16: the mma.sync kernel up to
+// D 128, the wgmma kernel at D 256; fp32: 4 warps a block up to D 128, the
+// split kernel (8 warps) at D 256
 template <int D, typename Elem>
 cudaError_t launch_dq(const Inputs& in, void* dq) {
-  if constexpr (sizeof(Elem) == 2) {
+  if constexpr (sizeof(Elem) == 2 && D > 128) {
+    return launch_wgmma<D>(flash_bwd_dq_wgmma_kernel<D>, dq_wgmma_smem_bytes<D>(), in, dq);
+  } else if constexpr (sizeof(Elem) == 2) {
     constexpr size_t smem = dq_mma_smem_bytes<D>();
-    const auto kernel = flash_bwd_dq_mma_kernel<D, ncol<D>()>;
-    cudaError_t err = prepare(kernel, smem);
-    for (int col0 = 0; err == cudaSuccess && col0 < D; col0 += ncol<D>()) {
-      kernel<<<grid_of(in), fa_mma::THREADS, smem, in.stream>>>(
-          in_ptr<bf16>(in.q), in_ptr<bf16>(in.k), in_ptr<bf16>(in.v), in.seg, in.lse, in.delta,
-          in_ptr<bf16>(in.dout), static_cast<bf16*>(dq), in.T, in.H, in.scale, in.causal, col0);
-      err = cudaGetLastError();
-    }
-    return err;
+    const auto kernel = flash_bwd_dq_mma_kernel<D>;
+    const cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid_of(in), fa_mma::THREADS, smem, in.stream>>>(
+        in_ptr<bf16>(in.q), in_ptr<bf16>(in.k), in_ptr<bf16>(in.v), in.seg, in.lse, in.delta,
+        in_ptr<bf16>(in.dout), static_cast<bf16*>(dq), in.T, in.H, in.scale, in.causal);
+    return cudaGetLastError();
   } else {
     constexpr bool split = D > 128;
     constexpr size_t smem = split ? dq_split_smem_bytes<D>() : dq_tf32_smem_bytes<D>();

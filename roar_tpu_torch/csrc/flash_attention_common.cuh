@@ -7,7 +7,7 @@
 // kernel multiplies on the tensor cores: the fp32 forward, dK/dV and dQ
 // kernels in 3xTF32 (tf32x3.cuh, flash_attention_tf32.cuh), at fp32's level;
 // every bf16 kernel, the forward, dK/dV and dQ, keeps its tiles in bf16
-// (flash_attention_mma.cuh).  A bf16
+// (flash_attention_mma.cuh; at D 256 flash_attention_wgmma.cuh).  A bf16
 // kernel rounds to bf16 at exactly these places (the upstream Pallas kernels
 // round at the same ones, casting to the other operand's type before each of
 // the products named), as it packs its A fragments or stores:

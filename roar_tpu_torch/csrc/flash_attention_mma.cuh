@@ -1,8 +1,9 @@
 // The tensor-core building blocks of the bf16 flash-attention forward, dK/dV
-// and dQ kernels: `cp.async` staging of bf16 tiles into an XOR-swizzled shared
-// layout, `ldmatrix` fragment loads, `mma.sync.m16n8k16` on bf16 with fp32
-// accumulation, and the warp-level segment votes that decide which tiles a
-// block loads and which it must mask.
+// and dQ kernels up to D 128 (at D 256 they run on wgmma,
+// flash_attention_wgmma.cuh): `cp.async` staging of bf16 tiles into an
+// XOR-swizzled shared layout, `ldmatrix` fragment loads, `mma.sync.m16n8k16`
+// on bf16 with fp32 accumulation; and the warp-level segment votes that every
+// flash kernel uses to decide which tiles a block loads and which it must mask.
 //
 // Fragments of m16n8k16 (lane = 4 g + t, g = lane / 4, t = lane % 4):
 //   A, 16 x 16 row-major, four bf16 pairs:
@@ -47,20 +48,6 @@ template <int D>
 __device__ __forceinline__ int swizzle(int row, int chunk) {
   const int phys = (D >= 64) ? (chunk ^ (row & 7)) : (chunk ^ ((row >> 1) & 3));
   return row * D + phys * 8;
-}
-
-// swizzle<D>(row, c + bit) for a chunk c that is even and known at compile
-// time and a lane's bit (0 or 1).  The XOR reaches only the low three bits
-// of a chunk, so at D 256 c's upper bits are an offset the compiler adds as
-// an immediate: the fully unrolled loops over a row's 32 chunks then share
-// four address registers instead of holding one per chunk (which spilled).
-template <int D>
-__device__ __forceinline__ int swizzle_at(int row, int c, int bit) {
-  if constexpr (D > 128) {
-    return swizzle<D>(row, (c & 7) + bit) + (c & ~7) * 8;
-  } else {
-    return swizzle<D>(row, c + bit);
-  }
 }
 
 // 16 bytes from global to shared; with `valid` false the 16 bytes are zeros
@@ -120,7 +107,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int D>
 __device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int row0, int kc,
                                        int lane) {
-  ldmatrix_x4(r, tile + swizzle_at<D>(row0 + (lane & 15), 2 * kc, lane >> 4));
+  ldmatrix_x4(r, tile + swizzle<D>(row0 + (lane & 15), 2 * kc + (lane >> 4)));
 }
 
 // B fragments of two n-tiles (rows n0 .. n0+15 of the tile, each row one
@@ -129,8 +116,8 @@ __device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int r
 template <int D>
 __device__ __forceinline__ void load_b(uint32_t (&r)[4], const bf16* tile, int n0, int kc,
                                        int lane) {
-  ldmatrix_x4(r, tile + swizzle_at<D>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kc,
-                                      (lane >> 3) & 1));
+  ldmatrix_x4(r, tile + swizzle<D>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                                   2 * kc + ((lane >> 3) & 1)));
 }
 
 // B fragments of the tile read transposed: k runs over rows k0 .. k0+15, n
@@ -139,8 +126,8 @@ __device__ __forceinline__ void load_b(uint32_t (&r)[4], const bf16* tile, int n
 template <int D>
 __device__ __forceinline__ void load_b_trans(uint32_t (&r)[4], const bf16* tile, int k0, int np,
                                              int lane) {
-  ldmatrix_x4_trans(r, tile + swizzle_at<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                            2 * np, lane >> 4));
+  ldmatrix_x4_trans(r, tile + swizzle<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                         2 * np + (lane >> 4)));
 }
 
 // rows r0 .. r0+63 of x[b, :, h, :] (row t at base + t * ld) into a swizzled

@@ -1,8 +1,10 @@
-// Hopper's own building blocks for the bf16 flash-attention forward at D 256
-// (`flash_fwd_wgmma_kernel`, flash_attention_fwd.cu): TMA tile copies
-// (`cp.async.bulk.tensor`) that complete on `mbarrier`s, `wgmma` products
-// whose operands are read from shared memory through matrix descriptors, and
-// the host-side tensor maps the copies follow.
+// Hopper's own building blocks for the bf16 flash-attention kernels at D 256
+// (the forward `flash_fwd_wgmma_kernel`, flash_attention_fwd.cu; the dK/dV and
+// dQ kernels `flash_bwd_dkv_wgmma_kernel` and `flash_bwd_dq_wgmma_kernel`,
+// flash_attention_bwd.cu): TMA tile copies (`cp.async.bulk.tensor`) that
+// complete on `mbarrier`s, `wgmma` products whose operands are read from
+// shared memory through matrix descriptors, and the host-side tensor maps the
+// copies follow.
 //
 // Layout.  A bf16 tile of R rows and D columns lives in shared memory as D / 64
 // column blocks of [R][64] (128 bytes a row), each 1024-byte aligned and
@@ -10,13 +12,15 @@
 // of row r sits at chunk c ^ (r % 8).  A 128-byte swizzle caps a box's inner
 // dimension at 128 bytes, so one tile is D / 64 copies, one per block.  The
 // descriptors name the same swizzle (layout type 1):
-//   K-major operand (Q and K of S = Q K^T): rows 128 bytes apart, 8-row
-//     groups 1024 bytes apart (SBO); a 16-column k-step of a wgmma moves the
-//     start address by 32 bytes within the block, a block by R * 128 bytes.
-//   MN-major operand (V of O += P V, transposed: N = head-dim columns, K =
-//     keys = rows): 8-key groups 1024 bytes apart (SBO), the next 64 columns
-//     one block further (LBO = R * 128 bytes); a 16-key k-step moves the start
-//     by 2048 bytes.
+//   K-major operand (both operands of a score product: Q and K of S = Q K^T,
+//     dO and V of dP = dO V^T, and their transposes): rows 128 bytes apart,
+//     8-row groups 1024 bytes apart (SBO); a 16-column k-step of a wgmma moves
+//     the start address by 32 bytes within the block, a block by R * 128 bytes.
+//   MN-major operand (the B of a gradient product, read transposed: V of
+//     O += P V, dO of dV += P^T dO, Q of dK += dS^T Q, K of dQ += dS K; N =
+//     head-dim columns, K = rows): 8-row groups 1024 bytes apart (SBO), the
+//     next 64 columns one block further (LBO = R * 128 bytes); a 16-row k-step
+//     moves the start by 2048 bytes.
 //
 // Tensor maps.  `cuTensorMapEncodeTiled` is a driver-API function and the
 // library links no -lcuda: it is resolved once at run time through
@@ -206,6 +210,34 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs_mn(float (&d)[128], const ui
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A B, A [64 x 16] bf16 in registers and B [16 x 128] from shared memory,
+// MN-major: the 128-column form of the above, for a warpgroup that owns half
+// of an output row
+__device__ __forceinline__ void wgmma_m64n128k16_rs_mn(float (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      " %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 

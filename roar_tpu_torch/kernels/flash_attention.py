@@ -9,8 +9,8 @@ launches, `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`.  The
 kernels are `csrc/flash_attention_fwd.cu` and `csrc/flash_attention_bwd.cu`;
 their source notes say what bounds them on the H100 and what their design does
 about it.  Every kernel runs on the tensor cores: in bf16 the forward, the
-dK/dV and the dQ kernel on `mma.sync` (`csrc/flash_attention_mma.cuh`), the
-forward at D 256 on `wgmma` with TMA copies (`csrc/flash_attention_wgmma.cuh`);
+dK/dV and the dQ kernel on `mma.sync` (`csrc/flash_attention_mma.cuh`), and
+at D 256 all three on `wgmma` with TMA copies (`csrc/flash_attention_wgmma.cuh`);
 in fp32 the same three in 3xTF32 on `mma.sync` (TF32 products of operands
 split into big + small, each k-chunk's products flushed into a
 round-to-nearest fp32 sum: `csrc/tf32x3.cuh`, `csrc/flash_attention_tf32.cuh`),
@@ -54,11 +54,9 @@ the kernel or raises.  `LAUNCHES` counts the launches by kernel: "fwd", "dkv"
 and "dq" for the non-causal form, "causal_fwd", "causal_dkv" and "causal_dq"
 for the causal one; `LAUNCHES.clear()` sets them all to 0.  `LAUNCHES_BF16`
 counts the bf16 launches among them under the same keys, and
-`LAUNCHES_PADDED` those that took the padded route.  A call counts once.  It
-is one kernel launch but for the bf16 backward at D 256, where one call
-launches the dQ kernel over two column halves and the dK/dV kernel four
-times (dV and dK, each over two halves).  The differentiable entry point is
-`roar_tpu_torch.ops.flash_attention.flash_self_attention`.
+`LAUNCHES_PADDED` those that took the padded route.  A call counts once, and
+is one kernel launch, at every head size and in both types.  The
+differentiable entry point is `roar_tpu_torch.ops.flash_attention.flash_self_attention`.
 """
 
 from __future__ import annotations

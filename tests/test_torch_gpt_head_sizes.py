@@ -180,24 +180,28 @@ def test_kernel_head_dim_maps_and_raises():
 
 
 def test_chip_smoke_lists_and_parses_the_d256_instances():
-    """`phase_kernel_build` requires the six D 256 forms (the bf16 dK/dV
-    kernel as its two passes; the bf16 forward on wgmma, the fp32 backward
-    as the split kernels), reads their mangled names (the mma and tf32 ones
-    as nvcc 12.8 wrote them) and their shared memory."""
+    """`phase_kernel_build` requires the five D 256 forms (the bf16 forward,
+    dK/dV and dQ on wgmma, the fp32 forward and the fp32 backward as the split
+    kernels), reads their mangled names (as the card's nvcc wrote them) and
+    their shared memory; the bf16 mma.sync backward kernels are built up to
+    D 128 only, with one template argument."""
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
 
     d256 = sorted(i for i in cs.flash_instances() if i[2] == 256)
-    assert d256 == [("flash_bwd_dkv_mma_kernel.dk", "bfloat16", 256),
-                    ("flash_bwd_dkv_mma_kernel.dv", "bfloat16", 256),
-                    ("flash_bwd_dkv_tf32_split_kernel", "float32", 256),
-                    ("flash_bwd_dq_mma_kernel", "bfloat16", 256),
+    assert d256 == [("flash_bwd_dkv_tf32_split_kernel", "float32", 256),
+                    ("flash_bwd_dkv_wgmma_kernel", "bfloat16", 256),
                     ("flash_bwd_dq_tf32_split_kernel", "float32", 256),
+                    ("flash_bwd_dq_wgmma_kernel", "bfloat16", 256),
                     ("flash_fwd_tf32_kernel", "float32", 256),
                     ("flash_fwd_wgmma_kernel", "bfloat16", 256)]
-    # the D <= 128 fp32 backward and bf16 forward kernels are not built at 256
+    # the D <= 128 fp32 backward and bf16 kernels are not built at 256
     assert not any(i[0] in ("flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel",
-                            "flash_fwd_mma_kernel") for i in d256)
+                            "flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                            "flash_bwd_dq_mma_kernel") for i in d256)
+    assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dkv_mma_kernel") == \
+        sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dq_mma_kernel") == \
+        [32, 64, 128]
     bwd = "_ZN55_GLOBAL__N__bd9a39ae_22_flash_attention_bwd_cu_f7cbd94c"
     tail32 = "EEvPKfS2_S2_PKiS2_S2_S2_PfS5_iifii"
     assert cs._flash_instance(f"{bwd}31flash_bwd_dkv_tf32_split_kernelILi256{tail32}") == \
@@ -207,17 +211,32 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     assert cs._flash_instance(f"{bwd}30flash_bwd_dq_tf32_split_kernelILi256"
                               "EEvPKfS2_S2_PKiS2_S2_S2_Pfiifi") == \
         ("flash_bwd_dq_tf32_split_kernel", "float32", 256)
+    # the wgmma backward kernels take four tensor maps by value
+    maps = "EEEv14CUtensorMap_stS1_S1_S1_PKiPKfS5_P13__nv_bfloat16"
+    assert cs._flash_instance(f"{bwd}26flash_bwd_dkv_wgmma_kernelILi256{maps}S7_iifi") == \
+        ("flash_bwd_dkv_wgmma_kernel", "bfloat16", 256)
+    assert cs._flash_instance(f"{bwd}25flash_bwd_dq_wgmma_kernelILi256{maps}iifi") == \
+        ("flash_bwd_dq_wgmma_kernel", "bfloat16", 256)
+    # the kernel each D 256 entry point must launch once a call is built there
+    assert sorted((k, t) for t, entries in cs.FLASH_D256_KERNELS.items()
+                  for k in entries.values()) == [(k, t) for k, t, _ in d256]
     # K, V (32 keys); Q and dO x 2 stages of 32 rows; 4096 words of partial tiles
     assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_split_kernel", "float32", 256) == \
         4 * (260 * 6 * 32 + 4096) == 216064
     assert cs.flash_dynamic_smem("flash_bwd_dq_tf32_split_kernel", "float32", 256) == 216064
     assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_kernel", "float32", 128) == 203264
+    # six 64-row bf16 tiles, the exchange (P^T fp32; P fp32 + dS bf16), five
+    # barriers, 1 KB to align
+    assert cs.flash_dynamic_smem("flash_bwd_dkv_wgmma_kernel", "bfloat16", 256) == \
+        2 * 64 * 256 * 6 + 4 * 64 * 64 + 40 + 1024 == 214056
+    assert cs.flash_dynamic_smem("flash_bwd_dq_wgmma_kernel", "bfloat16", 256) == \
+        2 * 64 * 256 * 6 + 6 * 64 * 64 + 40 + 1024 == 222248
     space = "_ZN60_GLOBAL__N__5c1a7f2e_22_flash_attention_bwd_cu_9e8d7c6b"
-    tail = "EEEvPK13__nv_bfloat16S2_S2_PKiPKfS6_S2_PS0_S7_iifi"
-    assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi256ELi1ELi128{tail}") == \
-        ("flash_bwd_dkv_mma_kernel.dv", "bfloat16", 256)
-    assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi64ELi0ELi64{tail}") == \
+    tail = "EEvPK13__nv_bfloat16S2_S2_PKiPKfS6_S2_PS0_S7_iifi"
+    assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi64{tail}") == \
         ("flash_bwd_dkv_mma_kernel", "bfloat16", 64)
+    assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi128{tail}") == \
+        ("flash_bwd_dkv_mma_kernel", "bfloat16", 128)
     assert cs._flash_instance(f"{space}21flash_fwd_tf32_kernelILi256EEEvPKfS2_S2_PKiPfS5_iifi") \
         == ("flash_fwd_tf32_kernel", "float32", 256)
     assert cs._flash_instance(f"{space}20flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16") == \

@@ -187,17 +187,9 @@ def _build_log(k4_spill: int = 0, drop_k4=None, k1_spill: int = 0) -> str:
     import chip_smoke as cs
 
     log = ""
-    passes = {sfx: n for n, sfx in cs.DKV_PASSES.items()}
-    for kernel, _, d in cs.flash_instances():
-        name, _, sfx = kernel.partition(".")
-        # the head size; the bf16 dK/dV kernel's pass and both bf16 backward
-        # kernels' columns a launch forms after it
-        args = f"Li{d}E"
-        if name == "flash_bwd_dkv_mma_kernel":
-            args += f"Li{passes['.' + sfx] if sfx else 0}E"
-        if name in ("flash_bwd_dkv_mma_kernel", "flash_bwd_dq_mma_kernel"):
-            args += f"Li{d if d <= 128 else d // 2}E"
-        log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}I{args}EEvv", 128)
+    # every flash kernel's one template argument is its head size
+    for name, _, d in cs.flash_instances():
+        log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi{d}EEEvv", 128)
     # the fp32 and the bf16 instances (last template argument 0 and 1)
     for bf16 in (0, 1):
         for view in ("fwd", "dx"):
