@@ -575,15 +575,16 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
 # the flash kernels on the tensor cores, bf16 and fp32 (3xTF32), with the
 # head sizes each is built for: they must not spill, and their SASS must hold
 # tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma).  At D 256 the
-# bf16 forward, dK/dV and dQ are the wgmma kernels and the fp32 backward the
-# split kernels.
+# bf16 forward, dK/dV and dQ are the wgmma kernels and the fp32 forward, dK/dV
+# and dQ the split kernels.
 FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64, 128),
                                   "flash_fwd_wgmma_kernel": (256,),
                                   "flash_bwd_dkv_mma_kernel": (32, 64, 128),
                                   "flash_bwd_dkv_wgmma_kernel": (256,),
                                   "flash_bwd_dq_mma_kernel": (32, 64, 128),
                                   "flash_bwd_dq_wgmma_kernel": (256,)},
-                     "float32": {"flash_fwd_tf32_kernel": (32, 64, 128, 256),
+                     "float32": {"flash_fwd_tf32_kernel": (32, 64, 128),
+                                 "flash_fwd_tf32_split_kernel": (256,),
                                  "flash_bwd_dkv_tf32_kernel": (32, 64, 128),
                                  "flash_bwd_dkv_tf32_split_kernel": (256,),
                                  "flash_bwd_dq_tf32_kernel": (32, 64, 128),
@@ -607,8 +608,8 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
         return 2 * tile * 5
     if kernel == "flash_fwd_wgmma_kernel":  # Q 128 rows, K and V x 2 stages, 5 barriers, align
         return 2 * d * (128 + 4 * 64) + 5 * 8 + 1024
-    if kernel == "flash_fwd_tf32_kernel":  # Q tile 64 rows, K/V tiles 32 (16 at D 256)
-        return 4 * (d + 4) * (2 * 64 + 4 * (32 if d <= 128 else 16))
+    if kernel == "flash_fwd_tf32_kernel":  # Q tile 64 rows as two halves, K/V tiles 32
+        return 4 * (d + 4) * (2 * 64 + 4 * 32)
     if kernel == "flash_bwd_dkv_mma_kernel":
         return 2 * tile * 6 + 4 * 64 * 4
     if kernel == "flash_bwd_dq_mma_kernel":
@@ -625,7 +626,9 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
     if kernel == "flash_bwd_dq_tf32_kernel":  # Q, dO; K, V halves
         return 4 * (d + 4) * 6 * 64
     # the split kernels: their own tiles, the streamed ones x 2 stages, unsplit,
-    # and the partial score tiles (4096 words)
+    # and the partial score tiles (4096 words in the backward)
+    if kernel == "flash_fwd_tf32_split_kernel":  # 64 queries; 16-key tiles; S halves
+        return 4 * ((d + 4) * (64 + 4 * 16) + 2048)
     if kernel == "flash_bwd_dkv_tf32_split_kernel":  # 32 keys; 32-query tiles
         return 4 * ((d + 4) * 6 * 32 + 4096)
     if kernel == "flash_bwd_dq_tf32_split_kernel":  # 64 queries; 16-key tiles
@@ -762,9 +765,9 @@ def phase_kernel_build(lib_path) -> dict:
     `ptxas -v` log, and where `cuobjdump` is installed the HMMA and HGMMA
     counts of each tensor-core kernel; raises if a tensor-core kernel (every
     flash kernel, bf16 and fp32 in 3xTF32, K3 and K4) spills or has no
-    tensor-core instruction (a wgmma kernel no HGMMA), if a wgmma kernel has a
-    stack frame, if a flash instance asks for more shared memory than a block
-    may have, or if a K1 or K2 instance spills or is missing."""
+    tensor-core instruction (a wgmma kernel no HGMMA), if a wgmma or split
+    kernel has a stack frame, if a flash instance asks for more shared memory
+    than a block may have, or if a K1 or K2 instance spills or is missing."""
     everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
     table = {key: info for key, info in everything.items() if key[0].startswith("flash_")}
     hmma = count_hmma(lib_path)
@@ -782,7 +785,7 @@ def phase_kernel_build(lib_path) -> dict:
             raise AssertionError(f"{kernel}<{d}> is not in the ptxas log")
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
             raise AssertionError(f"{kernel}<{d}> spills: {info}")
-        if "_wgmma_" in kernel and info["stack_bytes"]:
+        if ("_wgmma_" in kernel or "_split_" in kernel) and info["stack_bytes"]:
             raise AssertionError(f"{kernel}<{d}> has a stack frame: {info}")
         if hmma is not None:
             found = hmma.get((kernel, dtype, d), {})
@@ -1713,14 +1716,50 @@ def _flash_bounds(pairs: float, shape, elem_bytes: float, peak_flops: float) -> 
             "fwd_with_lse": _bound(4 * elems + 2 * rows, 4.0 * ops, peak_flops)}
 
 
+def _single_key_rows(key_mask: Optional[torch.Tensor], shape, causal: bool,
+                     device) -> torch.Tensor:
+    """[B, T] bool: the rows that see exactly one key.  A row's segment is
+    the valid prefix or the pad suffix of its batch row, so the one key such
+    a row sees is at its own position (the first row of a segment with
+    `causal`; the segment's only row without)."""
+    b, t = shape[:2]
+    valid = (torch.ones(b, t, dtype=torch.bool, device=device) if key_mask is None
+             else key_mask.bool())
+    lens = valid.sum(1, keepdim=True)
+    pos = torch.arange(t, device=device)[None, :]
+    if causal:
+        seen = torch.where(valid, pos + 1, pos - lens + 1)
+    else:
+        seen = torch.where(valid, lens, t - lens)
+    return seen == 1
+
+
+def _forward_exact_checks(q, k, v, key_mask, scale: float, causal: bool, out) -> dict:
+    """The forward kernel run again gives the same bits, and every row that
+    sees a single key gets o equal to that key's v to the bit (p = 1 and V
+    split exactly); raises otherwise."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+
+    shape = tuple(q.shape)
+    again = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True, causal=causal)[0]
+    if not torch.equal(out, again):
+        raise AssertionError(f"flash fwd at {shape}: two runs differ")
+    rows = _single_key_rows(key_mask, shape, causal, q.device)
+    if not rows.any() or not torch.equal(out[rows], v[rows]):
+        raise AssertionError(f"flash fwd at {shape}: a single-key row's o is not its v")
+    return {"forward_bit_identical_across_two_runs": True,
+            "single_key_rows_o_equal_v": int(rows.sum()) * shape[2]}
+
+
 def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], timed: bool,
                 where: str, phase: str = "kernel_flash_bwd", causal: bool = False,
-                dtype: torch.dtype = torch.float32) -> dict:
+                dtype: torch.dtype = torch.float32, fwd_exact: bool = False) -> dict:
     """The forward (with and without its log-sum-exp) and the two backward
     kernels against the plain versions on seeded q, k, v and cotangent of
     `shape` (B, T, H, D) and `dtype` under `key_mask` [B, T] (None: all valid)
-    and `causal`; with `timed`, also the times beside the bounds and SDPA with
-    its autograd.  Emits one line and returns its errors, times and bounds."""
+    and `causal`; with `fwd_exact`, also the forward's `_forward_exact_checks`;
+    with `timed`, also the times beside the bounds and SDPA with its
+    autograd.  Emits one line and returns its errors, times and bounds."""
     import torch.nn.functional as F
 
     from roar_tpu_torch.kernels import flash_attention as fa
@@ -1743,6 +1782,7 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
         errs = {"o": {"max_abs_err": float((out - out_p).abs().max())}}
     torch.testing.assert_close(lse, lse_p, **KERNEL_TOL)
     errs["lse"] = {"max_abs_err": float((lse - lse_p).abs().max())}
+    exact = _forward_exact_checks(q, k, v, key_mask, scale, causal, out) if fwd_exact else {}
     got, want = _flash_backward_checks(q, k, v, key_mask, scale, out, lse, do, out_p, lse_p,
                                        causal, errs)
     line = {"phase": phase, "where": where, "shape_bthd": list(shape), "causal": causal,
@@ -1751,7 +1791,7 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
                                              "mean": float(np.mean(lens))},
             "errors": errs, "tol": KERNEL_TOL, "bit_identical_across_two_runs": True,
             "forward_unchanged_by_lse": True, "function_launches_the_kernels": True,
-            "function_vs_autograd_of_plain": not bf16}
+            "function_vs_autograd_of_plain": not bf16, **exact}
     if bf16:
         line.update(rtol=FLASH_BF16_RTOL, atol_rel_to_row_largest=FLASH_BF16_ROW_ATOL,
                     rel_l2_tol=FLASH_BF16_L2_TOL)
@@ -1959,17 +1999,18 @@ def phase_kernel_flash_causal(device: torch.device) -> dict:
 FLASH_D256_KERNELS = {"bfloat16": {"fwd": "flash_fwd_wgmma_kernel",
                                    "dkv": "flash_bwd_dkv_wgmma_kernel",
                                    "dq": "flash_bwd_dq_wgmma_kernel"},
-                      "float32": {"fwd": "flash_fwd_tf32_kernel",
+                      "float32": {"fwd": "flash_fwd_tf32_split_kernel",
                                   "dkv": "flash_bwd_dkv_tf32_split_kernel",
                                   "dq": "flash_bwd_dq_tf32_split_kernel"}}
 
 
-def _flash_kernels_per_call(shape, causal: bool, dtype: torch.dtype, device) -> dict:
+def _flash_kernels_per_call(shape, causal: bool, dtype: torch.dtype, device,
+                            key_mask: Optional[torch.Tensor] = None) -> dict:
     """{"launches": {entry point: {kernel name: launches}}, "device_ms":
     {entry point: ms}} of one call each of the forward (with `lse`), the dK/dV
-    and the dQ entry point at `shape`, read from the CUDA activity of
-    `torch.profiler` (the device time of the flash kernel alone, without the
-    wrapper's other work); raises unless each call launched its
+    and the dQ entry point at `shape` under `key_mask`, read from the CUDA
+    activity of `torch.profiler` (the device time of the flash kernel alone,
+    without the wrapper's other work); raises unless each call launched its
     `FLASH_D256_KERNELS` kernel once and no other flash kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1978,10 +2019,10 @@ def _flash_kernels_per_call(shape, causal: bool, dtype: torch.dtype, device) -> 
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     q, k, v, do = (torch.randn(*shape, device=device, generator=gen).to(dtype) for _ in range(4))
     scale = 1.0 / shape[3] ** 0.5
-    out, lse = fa.flash_self_attention(q, k, v, None, scale, return_lse=True, causal=causal)
+    out, lse = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True, causal=causal)
     delta = (out.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
-    args = (q, k, v, None, scale, out, lse, do)
-    calls = {"fwd": lambda: fa.flash_self_attention(q, k, v, None, scale, return_lse=True,
+    args = (q, k, v, key_mask, scale, out, lse, do)
+    calls = {"fwd": lambda: fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True,
                                                     causal=causal),
              "dkv": lambda: fa.flash_self_attention_bwd(*args, need_dq=False, delta=delta,
                                                         causal=causal),
@@ -2012,9 +2053,11 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
     in fp32 and bf16 (`FLASH_HEAD_SIZE_CASES`), timed beside the bounds and
     SDPA: at D 256 the forward, dK/dV and dQ kernels in both types, and the
     padded route at D 80 and 100, forward and backward in both types,
-    counted in `LAUNCHES_PADDED`.  At pythia-1b's layer the kernels one call
-    of each entry point launches (`kernels_per_call`: one, by the profiler).
-    Returns {(shape, dtype name): case}."""
+    counted in `LAUNCHES_PADDED`.  At pythia-1b's layer, and in fp32 at every
+    D 256 shape, the kernels one call of each entry point launches
+    (`kernels_per_call`: one, by the profiler); in fp32 at D 256 also the
+    forward's `_forward_exact_checks` (two runs the same bits, single-key
+    rows o == v).  Returns {(shape, dtype name): case}."""
     from roar_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -2023,17 +2066,20 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
         d = shape[3]
         for dtype in (torch.float32, torch.bfloat16):
             padded_before = fa.LAUNCHES_PADDED.copy()
-            case = _flash_case(gen, shape, _key_mask(lens, shape[1], device),
-                               not (causal and lens), where, "kernel_flash_head_sizes",
-                               causal=causal, dtype=dtype)
+            key_mask = _key_mask(lens, shape[1], device)
+            fp32_d256 = d == 256 and dtype == torch.float32
+            case = _flash_case(gen, shape, key_mask, not (causal and lens), where,
+                               "kernel_flash_head_sizes", causal=causal, dtype=dtype,
+                               fwd_exact=fp32_d256)
             padded = fa.LAUNCHES_PADDED - padded_before
             if (d in fa.HEAD_DIMS) == bool(padded):
                 raise AssertionError(f"D {d}: padded launches {dict(padded)}")
-            if d == 256 and causal and lens is None:
-                case["kernels_per_call"] = _flash_kernels_per_call(shape, causal, dtype, device)
+            if fp32_d256 or (d == 256 and causal and lens is None):
+                case["kernels_per_call"] = _flash_kernels_per_call(shape, causal, dtype, device,
+                                                                   key_mask)
                 _emit({"phase": "kernel_flash_head_sizes", "shape_bthd": list(shape),
                        "causal": causal, "dtype": str(dtype).replace("torch.", ""),
-                       "kernels_per_call": case["kernels_per_call"]})
+                       "key_lens": lens, "kernels_per_call": case["kernels_per_call"]})
             out[(shape, str(dtype).replace("torch.", ""))] = case
             torch.cuda.empty_cache()
     return out
@@ -4355,16 +4401,17 @@ def main() -> int:
            "max_abs_err": worst(head_errors(256, "bfloat16"), *grads), **d256_bwd[name],
            "ragged_non_causal": ragged_bwd[name]}
           for name, grads in backward_kernels],
-        # fp32 (3xTF32) at D 256: `launches` of the forward are the bf16
-        # pythia-1b run's validation forwards (from the fp32 masters), those
-        # of the backward the fp32 pythia-1b run's; `launches_train_fp32`
-        # every fp32 launch of that run, validation forwards included
+        # fp32 (3xTF32) at D 256: `launches` are the fp32 pythia-1b run's,
+        # its validation forwards included; `launches_validation_bf16_run`
+        # the bf16 run's validation forwards (from the fp32 masters)
         {"name": "flash_attention_causal_fwd_d256_fp32", "route": "cuda",
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "float32",
-         "kernel": "flash_fwd_tf32_kernel", "head_size": 256, "launches": pythia_fp32_fwd,
+         "kernel": "flash_fwd_tf32_split_kernel", "head_size": 256,
+         "launches": pythia32["launches"]["fwd"],
+         "launches_per_micro_batch": pythia32["per_micro_batch"]["fwd"],
          **per_call(256, "float32", "fwd"),
-         "launches_train_fp32": pythia32["launches"]["fwd"],
+         "launches_validation_bf16_run": pythia_fp32_fwd,
          "launches_fp32_check": pythia["fp32_check_launches"]["fwd"],
          "max_abs_err": worst(head_errors(256, "float32"), "o"), **d256_fwd32,
          "ragged_non_causal": ragged_fwd32},

@@ -901,11 +901,6 @@ constexpr int SPLIT_THREADS = 256;  // 8 warps
 constexpr int SPLIT_KEYS = 32;      // dK/dV: keys of a block, queries of a streamed tile
 constexpr int SPLIT_DQ_KEYS = 16;   // dQ: keys of a streamed tile (64 queries a block)
 
-// named barrier `id` (1..) over `threads` threads of the block
-__device__ __forceinline__ void group_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 template <int D>
 constexpr size_t dkv_split_smem_bytes() {
   // K, V (32 keys); Q and dO x 2 stages (32 queries); partial score tiles of

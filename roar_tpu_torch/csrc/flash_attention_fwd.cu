@@ -11,11 +11,11 @@
 //
 // Layout: q, k, v, out are contiguous [B, T, H, D], fp32 or bf16 (see
 // flash_attention_common.cuh for the roundings of the bf16 form); seg is
-// [B, T] int32.  Three kernels, one contract.  Up to D 128 (both types) and
-// at D 256 in fp32, one block of 4 warps per (64-query tile, head, batch
-// row); warp w owns query rows 16 w .. 16 w + 15 whole, so that a row's
-// running max and sum reduce within its lane quad and no barrier sits
-// between the two products.  Per key tile:
+// [B, T] int32.  Four kernels, one contract.  Up to D 128 (both types), one
+// block of 4 warps per (64-query tile, head, batch row); warp w owns query
+// rows 16 w .. 16 w + 15 whole, so that a row's running max and sum reduce
+// within its lane quad and no barrier sits between the two products.  Per
+// key tile:
 //   S = Q K^T             (fp32 sums; then s = S * scale, masked)
 //   p = exp(s - m)        in registers, m the row's running maximum
 //   O = O * alpha + P V   (p stays in registers as the A operand)
@@ -41,29 +41,46 @@
 // 0.377 ms against the wgmma form's 0.157 / 0.154 at (1, 2048, 8, 256)
 // causal, NVIDIA H100 80GB HBM3, 700.00 W, `scripts/flash_kernel_times_torch.py`).
 //
-// fp32, `flash_fwd_tf32_kernel` (mma.sync m16n8k8 on TF32, tf32x3.cuh;
-// tiles, split and permutation: flash_attention_tf32.cuh): every fp32
-// operand is split into TF32 parts, and each k-chunk of 8 forms its partial
-// products in a fresh accumulator that one round-to-nearest add puts into the
-// fp32 sum (the tensor cores' own sums truncate).  S = Q K^T is 3xTF32
-// (small.big, big.small, big.big).  P V splits V exactly, big + mid + low
-// (`mma_4xtf32`, four products): a two-part split keeps 22 of fp32's 24 bits,
-// and a row that sees a single key must get o = v to the bit, as the
+// fp32 up to D 128, `flash_fwd_tf32_kernel` (mma.sync m16n8k8 on TF32,
+// tf32x3.cuh; tiles, split and permutation: flash_attention_tf32.cuh): every
+// fp32 operand is split into TF32 parts, and each k-chunk of 8 forms its
+// partial products in a fresh accumulator that one round-to-nearest add puts
+// into the fp32 sum (the tensor cores' own sums truncate).  S = Q K^T is
+// 3xTF32 (small.big, big.small, big.big).  P V splits V exactly, big + mid +
+// low (`mma_4xtf32`, four products): a two-part split keeps 22 of fp32's 24
+// bits, and a row that sees a single key must get o = v to the bit, as the
 // backward's cancellation dP - delta then reads 1e-6 for every bit lost.  The
 // Q tile is staged once and split into big and small halves in shared
-// memory; each K/V tile of 32 keys (16 at D 256) is staged by cp.async and
-// split once (K into halves, V into big half and unrounded rest), read as B
-// operands by all four warps.  Each 8-key n-tile of the score accumulator is
-// the split A fragment of one k-chunk of P V through the permuted contraction
-// index (`acc_as_a`; V rows read by `load_bt`): p is not rounded to a narrower
-// type, and the row sum is taken from the same p.  p = exp2((s - m) * log2 e):
-// the row's largest element gets exactly 1.  Shared memory, two 64-row and four
-// 32-row tiles of D + 4 words: 70 KB at D 64, three blocks a SM (with 64-key
+// memory; each K/V tile of 32 keys is staged by cp.async and split once (K
+// into halves, V into big half and unrounded rest), read as B operands by all
+// four warps.  Each 8-key n-tile of the score accumulator is the split A
+// fragment of one k-chunk of P V through the permuted contraction index
+// (`acc_as_a`; V rows read by `load_bt`): p is not rounded to a narrower type,
+// and the row sum is taken from the same p.  p = exp2((s - m) * log2 e): the
+// row's largest element gets exactly 1.  Shared memory, two 64-row and four
+// 32-row tiles of D + 4 words: 68 KB at D 64, three blocks a SM (with 64-key
 // tiles two fit, and the kernel ran 12 to 16 % slower at (1, 4096, 32, 64)
 // causal on an H100); one stage, so each block's copies wait for its
-// products and the other blocks' overlap them.  At D 256 the K/V tiles hold
-// 16 keys (195 KB; 32-key tiles would take 260 KB, over the 227 KB a block
-// may have), one block a SM.
+// products and the other blocks' overlap them.
+//
+// fp32 at D 256, `flash_fwd_tf32_split_kernel`: the same arithmetic in the
+// layout of the backward's dQ split kernel.  A whole row of o is 128 fp32
+// accumulators a thread at D 256, and the D 128 layout with it took 255
+// registers, 16-key tiles in one stage and one block of 4 warps a SM.  Here
+// one block of 8 warps per 64-query tile; the two warps of a 16-row group
+// each own 128 of o's columns (64 accumulators) and form the half of each
+// score tile that their 128 columns of Q and K give, and add the halves in
+// fp32 across shared memory in one fixed order, so S, m, l and p are formed
+// once and both warps hold them bit for bit.  Q stays resident unsplit, K
+// and V are staged raw in two cp.async stages of 16 keys (141,312 B), and
+// every operand word is split as its fragment is loaded, so the next tile's
+// copy runs under this tile's products.  S's sum over D in two halves moves
+// o and lse by the last bits against the whole-row order it replaced, within
+// the fp32 bars (`tests/test_torch_flash_tf32.py` emulates both walks).  At
+// (1, 2048, 8, 256) causal it takes 0.903 / 0.908 ms where the form it
+// replaced took 1.481 / 1.519 in turns with it (11.5 % of its 0.104 ms
+// bound; SDPA in fp32 0.615 to 0.656; NVIDIA H100 80GB HBM3, 700.00 W,
+// `scripts/flash_kernel_times_torch.py`).
 //
 // What bounds them on the H100: the two products, 4 B H pairs D operations
 // (pairs: the visible (query, key) pairs per head), against the 989 TFLOP/s
@@ -74,12 +91,20 @@
 // flush adds beside it in fp32.  What holds them back from it: up to D 128
 // and in fp32, `mma.sync` rather than `wgmma`, every warp reading the whole
 // staged K/V tile from shared memory (16 rows a warp), cp.async rather than
-// TMA; in the wgmma form, one block a SM (197 KB of shared memory), each
-// warpgroup's softmax waiting on its S product and its P V product on the
-// softmax (no overlap of one tile's softmax with the next tile's S, as
-// FA3's ping-pong and intra-warpgroup pipelining do).  Later work: that
-// overlap, 80-key tiles, the wgmma form at D 64 / 128 and in fp32 (TF32
-// wgmma), and a GQA-aware kernel (K/V are repeated before the call today).
+// TMA; in the fp32 split form also two warps a scheduler, a barrier of the
+// two warps of a group between S and the softmax, and Q's fragments read and
+// split again for every key tile: its time follows its count of mma.sync
+// products as the backward's dQ split kernel's does (224 against 288 a warp
+// per 16 keys, 0.90 against 1.13 to 1.24 ms), and neither 16 warps nor
+// splitting K and V once a tile moved it; in the wgmma form, one block a SM
+// (197 KB of shared memory), each warpgroup's softmax waiting on its S
+// product and its P V product on the softmax (no overlap of one tile's
+// softmax with the next tile's S, as FA3's ping-pong and intra-warpgroup
+// pipelining do).  Later work: that overlap, 80-key tiles, the wgmma form at
+// D 64 / 128 and in fp32 (TF32 wgmma, which at D 256 needs Q's two halves
+// and V transposed in three parts in shared memory, over the 227 KB a block
+// may have beside K), and a GQA-aware kernel (K/V are repeated before the
+// call today).
 //
 // Every kernel: rows past T load as zeros and are never stored (T is never
 // padded).  A K/V tile whose segment ids all lie outside the query tile's
@@ -541,24 +566,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 form on the tensor cores, 3xTF32 (see the notes at the top).  The
-// bf16 kernel's block layout and loop; Q is held split in shared memory, and
-// each 32-key K/V tile is staged in one stage and split in place.
+// The fp32 form on the tensor cores up to D 128, 3xTF32 (see the notes at the
+// top).  The bf16 kernel's block layout and loop; Q is held split in shared
+// memory, and each 32-key K/V tile is staged in one stage and split in place.
 // ---------------------------------------------------------------------------
 
-// keys of a staged K/V tile in the fp32 kernel: 32, and 16 at D 256, where
-// 32-key tiles would ask for 266,240 bytes of shared memory (the H100 grants
-// a block 232,448)
-template <int D>
-__host__ __device__ constexpr int tf32_keys() {
-  return D <= 128 ? 32 : 16;
-}
+constexpr int TF32_KEYS = 32;  // keys of a staged K/V tile of the fp32 kernels
 
 template <int D>
 constexpr size_t tf32_smem_bytes() {
   // Q as big and small halves (64 rows); K as big and small halves, V as big
-  // half and rest (tf32_keys rows each): 199,680 bytes at D 256
-  return sizeof(float) * (D + 4) * (2 * fa_mma::ROWS + 4 * tf32_keys<D>());
+  // half and rest (32 rows each): 69,632 bytes at D 64
+  return sizeof(float) * (D + 4) * (2 * fa_mma::ROWS + 4 * TF32_KEYS);
 }
 
 template <int D>
@@ -569,13 +588,14 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float scale, int causal) {
   using namespace fa_mma;
   using namespace flash::tf32;
-  constexpr int BK = tf32_keys<D>();  // keys of a staged K/V tile
+  static_assert(D <= 128, "D 256 runs flash_fwd_tf32_split_kernel");
+  constexpr int BK = TF32_KEYS;       // keys of a staged K/V tile
   constexpr int QW = ROWS * (D + 4);  // words of the staged Q tile
   constexpr int KW = BK * (D + 4);    // words of a staged K or V tile
   constexpr int KC = D / 8;           // k-chunks of q.k^T; n-tiles of the output
   constexpr int NC = BK / 8;          // 8-key n-tiles of a K/V tile
-  // D 128 and 256 unroll their loop over the k-chunks of q.k^T 8 times (at
-  // D 128 ptxas spilled at 2 and 4)
+  // D 128 unrolls its loop over the k-chunks of q.k^T 8 times (ptxas spilled
+  // at 2 and 4)
   constexpr int UNROLL = D <= 64 ? KC : 8;
 
   extern __shared__ float4 smem_fwd_tf32[];
@@ -737,10 +757,232 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 form at D 256: the layout of the backward's dQ split kernel
+// (flash_attention_bwd.cu), with the online softmax in place of dS.  One
+// block of 8 warps per (64-query tile, head, batch row); warp w takes query
+// group qg = w / 2 (rows 16 qg .. 16 qg + 15) and o's columns 128 hf ..
+// 128 hf + 127, hf = w % 2 (64 accumulators a thread, where a whole row of o
+// is 128).  Per 16-key tile (up to the diagonal with `causal`):
+//   S's half hf = Q[:, hf] K[:, hf]^T     (3xTF32, 16 k-chunks of 8)
+//   exchange with the partner warp; S = half 0 + half 1 in fp32, so both
+//   warps of the group hold the same S, m, l and p to the bit
+//   s = S * scale masked; m, alpha, p = 2^((s - m) log2 e), l   (as up to D 128)
+//   O[:, hf] = O[:, hf] * alpha + P V[:, hf]   (V split exactly, mma_4xtf32)
+// Q stays resident unsplit, K and V are staged raw in two cp.async stages,
+// and every operand word is split into its TF32 parts as its fragment is
+// loaded, so the next tile's copy runs under this tile's products.  With
+// `causal` a query group skips the products of a tile wholly above its rows
+// (alpha would be 1 and p 0).  Measured against this form at (1, 2048, 8,
+// 256) causal (NVIDIA H100 80GB HBM3, 700.00 W): 32-key tiles (216,064 B)
+// spilled at 255 registers and ran no faster; 16 warps over column quarters
+// (128 registers a thread) ran about 5 % slower; K and V split once a tile
+// in shared memory, behind a second barrier, about 15 % slower.
+// ---------------------------------------------------------------------------
+
+constexpr int SPLIT_THREADS = 256;  // 8 warps
+constexpr int SPLIT_KEYS = 16;      // keys of a staged K/V tile
+
+template <int D>
+constexpr size_t tf32_split_smem_bytes() {
+  // Q (64 rows); K and V x 2 stages; each warp's half of its S tile, 8
+  // values a lane: 141,312 bytes at D 256
+  return sizeof(float) * ((fa_mma::ROWS + 4 * SPLIT_KEYS) * (D + 4) + 8 * 8 * 32);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+flash_fwd_tf32_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const int* __restrict__ seg,
+                            float* __restrict__ out, float* __restrict__ lse, int T, int H,
+                            float scale, int causal) {
+  using namespace fa_mma;
+  using namespace flash::tf32;
+  static_assert(D == 256, "the split form is built for D 256");
+  constexpr int BK = SPLIT_KEYS;      // keys of a staged K/V tile
+  constexpr int QW = ROWS * (D + 4);  // words of the Q tile
+  constexpr int KW = BK * (D + 4);    // words of a K or V tile
+  constexpr int KC = D / 16;          // k-chunks of S's half
+  constexpr int NC = BK / 8;          // 8-key n-tiles of a K/V tile
+  constexpr int NT = D / 16;          // n-tiles of a warp's 128 columns of o
+
+  extern __shared__ float4 smem_fwd_split[];
+  float* Qs = reinterpret_cast<float*>(smem_fwd_split);
+  float* Ks = Qs + QW;      // [2 stages][BK][D + 4]
+  float* Vs = Ks + 2 * KW;  // [2 stages][BK][D + 4]
+  float* Xs = Vs + 2 * KW;  // [8 warps][4 NC values][32 lanes]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qg = warp >> 1, hf = warp & 1;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+
+  int qlo, qhi;
+  segment_range(segb, q0, T, lane, qlo, qhi);
+  // causal: the keys past the query tile's last row are visible to none of it
+  const int k_end = causal ? min(T, q0 + ROWS) : T;
+
+  stage_tile_f32<D, ROWS, SPLIT_THREADS>(Qs, q, base, ld, q0, T, tid);
+  bool uniform, uniform_next;
+  int k0 = next_tile<BK>(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+  if (k0 < k_end) {  // always: every in-range query sees its own key
+    stage_tile_f32<D, BK, SPLIT_THREADS>(Ks, k, base, ld, k0, T, tid);
+    stage_tile_f32<D, BK, SPLIT_THREADS>(Vs, v, base, ld, k0, T, tid);
+  }
+  cp_async_commit();
+
+  // this thread's two rows, g and g + 8 of its group's 16
+  const int row0 = q0 + 16 * qg + g, row1 = row0 + 8;
+  const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+  float* mine = Xs + warp * 4 * NC * 32 + lane;
+  const float* theirs = Xs + (warp ^ 1) * 4 * NC * 32 + lane;
+
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  int stage = 0;
+  while (k0 < k_end) {
+    const int kn = next_tile<BK>(segb, k0 + BK, k_end, T, qlo, qhi, lane, uniform_next);
+    // this tile (and Q) has landed, and every warp is done with the other
+    // stage and with its partner's half of the last S
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kn < k_end) {
+      stage_tile_f32<D, BK, SPLIT_THREADS>(Ks + (stage ^ 1) * KW, k, base, ld, kn, T, tid);
+      stage_tile_f32<D, BK, SPLIT_THREADS>(Vs + (stage ^ 1) * KW, v, base, ld, kn, T, tid);
+    }
+    cp_async_commit();
+    const float* Kt = Ks + stage * KW;
+    const float* Vt = Vs + stage * KW;
+
+    if (!causal || k0 <= q0 + 16 * qg + 15) {  // else the tile is above the group's rows
+      // this warp's half of S: element (n, e) at row e < 2 ? g : g + 8, key
+      // k0 + 8 n + 2 t4 + (e & 1)
+      float s[NC][4];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+      for (int kc = 0; kc < KC; ++kc) {
+        const int chunk = KC * hf + kc;  // 8-column chunk of the row
+        uint32_t qb[4], qs[4];
+        load_a_split<D>(qb, qs, Qs, 16 * qg, chunk, lane);
+#pragma unroll
+        for (int n = 0; n < NC; n += 2) {
+          uint32_t kb[4], ks[4];
+          load_b2_split<D>(kb, ks, Kt, 8 * n, chunk, lane);
+          mma_3xtf32(s[n], qb, qs, kb[0], kb[1], ks[0], ks[1]);
+          mma_3xtf32(s[n + 1], qb, qs, kb[2], kb[3], ks[2], ks[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = s[n][e];
+      group_sync(1 + qg, 64);
+
+      // the whole tile, half 0 + half 1 (the same sum in either warp); the
+      // ragged edge, the group's diagonal tiles and a tile whose ids are not
+      // all the query tile's single id are masked element by element
+      const bool masked = !uniform || k0 + BK > T || (causal && k0 + BK > q0 + 16 * qg);
+      float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = (s[n][e] + theirs[(4 * n + e) * 32]) * scale;
+          if (masked) {
+            const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+            const int row = e < 2 ? row0 : row1;
+            const bool ok = key < T && segb[key] == (e < 2 ? seg0 : seg1) &&
+                            (!causal || key <= row);
+            x = ok ? x : neg_inf();
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2], m_use[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        // a row that has seen no visible key yet keeps m = -inf; exponents
+        // are then taken against 0 so that no -inf - -inf makes a NaN
+        m_use[i] = (m_new == neg_inf()) ? 0.f : m_new;
+        alpha[i] = exp2f((m[i] - m_use[i]) * LOG2E);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // (s - m) first: the row's largest element gets exactly 1
+          const float p = exp2f((s[n][e] - m_use[e >> 1]) * LOG2E);
+          l[e >> 1] += p;  // this thread's share of the row sum, of the p that enters P V
+          s[n][e] = p;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+      // n-tile n of p is the A operand of the k-chunk over its 8 keys; each
+      // of this warp's output n-tiles takes the chunks in key order
+      const float* v_half = Vt + (D / 2) * hf;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        uint32_t pb[4], ps[4];
+        acc_as_a(s[n], pb, ps);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t vb[2], vr[2];
+          load_bt_rest<D>(vb, vr, v_half, 8 * n, j, g, t4);
+          mma_4xtf32(o[j], pb, ps, vb[0], vb[1], vr[0], vr[1]);
+        }
+      }
+    }
+    k0 = kn;
+    uniform = uniform_next;
+    stage ^= 1;
+  }
+
+  // element (j, e) of o: row e < 2 ? g : g + 8, head-dim column
+  // 128 hf + 8 j + 2 t4 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int t = i == 0 ? row0 : row1;
+    if (t < T) {
+      // l > 0: every in-range query sees at least its own key
+      const float inv = 1.f / l[i];
+      float* dst = out + base + (long)t * ld + (D / 2) * hf + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+      if (lse != nullptr && hf == 0 && t4 == 0)
+        lse[((long)b * H + h) * T + t] = m[i] + logf(l[i]);
+    }
+  }
+}
+
 // One launch a call.  fp32 (`Elem` float): the 3xTF32 kernel, one block of
-// fa_mma::THREADS per (64-query tile, head, batch row).  bf16: the mma.sync
-// kernel up to D 128, the same blocks; at D 256 the wgmma kernel, one block of
-// WG_THREADS per (128-query tile, head, batch row), its TMA maps built here.
+// fa_mma::THREADS per (64-query tile, head, batch row), at D 256 the split
+// kernel, one block of SPLIT_THREADS.  bf16: the mma.sync kernel up to D 128,
+// the same blocks; at D 256 the wgmma kernel, one block of WG_THREADS per
+// (128-query tile, head, batch row), its TMA maps built here.
 template <int D, typename Elem>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
                    float* lse, int B, int T, int H, float scale, int causal,
@@ -775,12 +1017,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
         seg, static_cast<Elem*>(out), lse, T, H, scale, causal);
     return cudaGetLastError();
   } else {
-    constexpr size_t smem = tf32_smem_bytes<D>();
-    const auto kernel = flash_fwd_tf32_kernel<D>;
+    constexpr bool split = D > 128;
+    constexpr size_t smem = split ? tf32_split_smem_bytes<D>() : tf32_smem_bytes<D>();
+    const auto kernel = [] {
+      if constexpr (split) return flash_fwd_tf32_split_kernel<D>;
+      else return flash_fwd_tf32_kernel<D>;
+    }();
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, fa_mma::THREADS, smem, stream>>>(
+    kernel<<<grid, split ? SPLIT_THREADS : fa_mma::THREADS, smem, stream>>>(
         static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
         seg, static_cast<Elem*>(out), lse, T, H, scale, causal);
     return cudaGetLastError();

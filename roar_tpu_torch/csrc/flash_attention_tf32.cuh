@@ -175,6 +175,27 @@ __device__ __forceinline__ void load_bt_split(uint32_t (&big)[2], uint32_t (&sma
   split_tf32_int(__uint_as_float(r[1]), big[1], small[1]);
 }
 
+// load_bt of an unsplit fp32 tile as the big half and the whole rest v - big,
+// unrounded (`split_tile_f32<D, true>`'s bits), for `mma_4xtf32`
+template <int D>
+__device__ __forceinline__ void load_bt_rest(uint32_t (&big)[2], uint32_t (&rest)[2],
+                                             const float* tile, int k0, int j, int g, int t) {
+  uint32_t r[2];
+  load_bt<D>(r, tile, k0, j, g, t);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    big[i] = tf32x3::tf32_int(__uint_as_float(r[i]));
+    rest[i] = __float_as_uint(__uint_as_float(r[i]) - __uint_as_float(big[i]));
+  }
+}
+
+// named barrier `id` (1..) over `threads` threads of the block: the warps
+// that share a score tile (the split kernels) or hand one across (the bf16
+// wgmma backward)
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // the accumulator of one 8-wide n-tile (c0, c1 at (g, 2t..2t+1), c2, c3 at
 // (g+8, 2t..2t+1)) as the split A fragment of the k-chunk over those 8
 // columns, permuted as `load_bt` reads B: A's column t is C's column 2t, A's

@@ -42,17 +42,21 @@ emulate that walk, which holds the same bar while plain TF32 in it fails.
 
 The forward (`csrc/flash_attention_fwd.cu`) forms S = q.k^T the same way and,
 per 32-key tile, the online softmax (running maximum, p = 2^((s - m) log2 e),
-o rescaled by alpha) and P V with p's accumulator as the split A operand.
+o rescaled by alpha) and P V with p's accumulator as the split A operand.  At
+D 256 its split kernel forms S as the backward's split kernels do, two halves
+of 128 columns added in fp32, per 16-key tile (`FWD_D256_WALK`).
 For P V it splits V exactly, big + mid + low (`mma_4xtf32`: the rest v - big
 with its 13 low bits cleared, and what remains), since a row that sees one
 key must get o = v to the bit; `test_forward_single_key_rows_get_v_exactly`
 shows that a two-part split misses bits there.  The emulation holds o and lse
 to `chip_smoke.KERNEL_TOL` (and o to `assert_flash_close`'s fp32 bar)
 against the port's plain fp32 forward and upstream's `mha_reference` at the
-same two cases.  What it reads: o 1.9e-7 to 3.3e-7 of its largest magnitude,
-lse 4.8e-7 to 9.5e-7 absolute (0.0017 to 0.0026 of KERNEL_TOL); plain TF32 in
-both products 2.1e-4 to 4.4e-4 of the largest magnitude, 2.7 to 3.8 times
-KERNEL_TOL, which fails it.
+four cases.  What it reads: o 1.9e-7 to 6.4e-7 of its largest magnitude,
+lse 4.8e-7 to 9.5e-7 absolute (0.0020 to 0.0081 of KERNEL_TOL); plain TF32 in
+both products 2.1e-4 to 4.4e-4 of the largest magnitude, 2.7 to 4.3 times
+KERNEL_TOL, which fails it.  At D 256 the split walk's o sits 1.5e-7 to
+1.8e-7 of the largest magnitude from the whole-row order over 16-key tiles
+that the kernel before it took.
 """
 
 import functools
@@ -68,8 +72,8 @@ ATOL_REL = 1e-4  # chip_smoke.FLASH_BWD_ATOL_REL
 RTOL = 1e-3      # chip_smoke.FLASH_BWD_RTOL
 # (B, T, H, D, valid lengths or None, causal): the GPT path's kind, and
 # FastPitch's kind with a ragged T, a short row and a single valid key; the
-# same two at D 256, where the forward's K/V tiles hold 16 rows and the
-# backward runs its split kernels
+# same two at D 256, where the forward and the backward run their split
+# kernels
 CASES = {"causal": (1, 512, 2, 64, None, True),
          "ragged_segments": (3, 200, 1, 64, [200, 117, 1], False),
          "causal_d256": (1, 96, 1, 256, None, True),
@@ -389,7 +393,10 @@ def test_permuted_contraction_index(seed):
 # ---------------------------------------------------------------------------
 # The forward (`flash_fwd_tf32_kernel`, csrc/flash_attention_fwd.cu)
 
-FWD_KEYS = 32  # keys of a staged K/V tile of the forward kernel (16 at D 256)
+FWD_KEYS = 32  # keys of a staged K/V tile of the forward kernel up to D 128
+# the forward's walk at D 256 (`flash_fwd_tf32_split_kernel`): 16-key tiles,
+# S's contraction split into two halves of 128 that two warps form and add
+FWD_D256_WALK = dict(keys=16, parts=2)
 LOG2E = np.float32(1.4426950408889634)
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-3)  # chip_smoke.KERNEL_TOL: o and lse
 
@@ -401,10 +408,12 @@ def _exp2(x: np.ndarray) -> np.ndarray:
 
 
 def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exact_b=True,
-                keys=FWD_KEYS):
+                keys=FWD_KEYS, parts=1):
     """(o [B, T, H, D], lse [B, H, T]) as `flash_fwd_tf32_kernel` forms them
     from fp32 q, k, v [B, T, H, D] and segment ids [B, T]: S = q.k^T in
-    `product`'s order; per tile of `keys` keys, s = S * scale masked to -inf, the
+    `product`'s order, in `parts` parts along D added in fp32
+    (`split_product`; the split kernel's two halves at D 256); per tile of
+    `keys` keys, s = S * scale masked to -inf, the
     running maximum m, alpha = 2^((m_old - m) log2 e), p = 2^((s - m) log2 e)
     (exactly 1 at the row's largest), o = o * alpha + p.V with p split as the
     A operand and V split exactly (`exact_b`); the row sum in each lane's
@@ -414,7 +423,7 @@ def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exa
     b, t, h, d = q.shape
     bq, bk, bv = (np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v))
     order = dict(three_terms=three_terms, flushed=flushed)
-    s = product(bq, bk.transpose(0, 1, 3, 2), **order)
+    s = split_product(bq, bk.transpose(0, 1, 3, 2), parts, **order)
     visible = seg[:, None, :, None] == seg[:, None, None, :]
     if causal:
         visible = visible & np.tril(np.ones((t, t), bool))
@@ -445,12 +454,17 @@ def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exa
     return o.transpose(0, 2, 1, 3), lse
 
 
+def _fwd_inputs(name: str) -> tuple:
+    inputs, _, _ = _case(name)
+    return tuple(inputs[n] for n in ("q", "k", "v", "seg", "scale", "causal"))
+
+
 @functools.lru_cache(maxsize=None)
 def _emulated_fwd(name: str, **order):
-    inputs, _, _ = _case(name)
-    keys = FWD_KEYS if inputs["q"].shape[-1] <= 128 else 16
-    return emulate_fwd(*(inputs[n] for n in ("q", "k", "v", "seg", "scale", "causal")),
-                       keys=keys, **order)
+    """The kernels' forward: at D 256 in the split kernel's walk
+    (`FWD_D256_WALK`)."""
+    walk = FWD_D256_WALK if name in D256_NAMES else {}
+    return emulate_fwd(*_fwd_inputs(name), **walk, **order)
 
 
 @functools.lru_cache(maxsize=None)
@@ -499,8 +513,9 @@ def _fwd_within_bars(o, lse, want_o, want_lse) -> bool:
 @pytest.mark.parametrize("against", ["plain", "upstream"])
 @pytest.mark.parametrize("name", FWD_NAMES)
 def test_forward_kernel_order_holds_the_fp32_bars(name, against):
-    """S in 3xTF32 and P V with V split exactly, truncating `mma`, flushed per
-    k-chunk, the online softmax per K/V tile (32 keys, 16 at D 256): o and lse
+    """S in 3xTF32 (at D 256 in two halves added in fp32) and P V with V
+    split exactly, truncating `mma`, flushed per k-chunk, the online softmax
+    per K/V tile (32 keys, 16 at D 256): o and lse
     within KERNEL_TOL (and o within `assert_flash_close`'s fp32 bar) of the
     port's plain fp32 forward and of upstream's `mha_reference`."""
     want_o, want_lse = _plain_fwd(name) if against == "plain" else _upstream_fwd(name)
@@ -531,3 +546,15 @@ def test_forward_single_key_rows_get_v_exactly(name):
     two_part = _emulated_fwd(name, exact_b=False)[0][rows]
     np.testing.assert_array_equal(exact, v)
     assert not np.array_equal(two_part, v)
+
+
+@pytest.mark.parametrize("name", D256_NAMES)
+def test_forward_d256_walk_parts_from_the_whole_d_order_within_the_bar(name):
+    """At D 256 the split kernel forms S in two halves of 128 columns added in
+    fp32, over the 16-key tiles of the kernel it replaced, which summed
+    whole rows: o of the two orders is not the same bits, and the split
+    walk's o and lse sit within the fp32 bars of the whole-D order's."""
+    split = _emulated_fwd(name)
+    whole = emulate_fwd(*_fwd_inputs(name), keys=FWD_D256_WALK["keys"])
+    assert _fwd_within_bars(*split, *whole)
+    assert not np.array_equal(split[0], whole[0])

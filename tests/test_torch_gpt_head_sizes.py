@@ -180,8 +180,8 @@ def test_kernel_head_dim_maps_and_raises():
 
 
 def test_chip_smoke_lists_and_parses_the_d256_instances():
-    """`phase_kernel_build` requires the five D 256 forms (the bf16 forward,
-    dK/dV and dQ on wgmma, the fp32 forward and the fp32 backward as the split
+    """`phase_kernel_build` requires the six D 256 forms (the bf16 forward,
+    dK/dV and dQ on wgmma, the fp32 forward, dK/dV and dQ as the split
     kernels), reads their mangled names (as the card's nvcc wrote them) and
     their shared memory; the bf16 mma.sync backward kernels are built up to
     D 128 only, with one template argument."""
@@ -193,11 +193,12 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
                     ("flash_bwd_dkv_wgmma_kernel", "bfloat16", 256),
                     ("flash_bwd_dq_tf32_split_kernel", "float32", 256),
                     ("flash_bwd_dq_wgmma_kernel", "bfloat16", 256),
-                    ("flash_fwd_tf32_kernel", "float32", 256),
+                    ("flash_fwd_tf32_split_kernel", "float32", 256),
                     ("flash_fwd_wgmma_kernel", "bfloat16", 256)]
-    # the D <= 128 fp32 backward and bf16 kernels are not built at 256
+    # the D <= 128 fp32 and bf16 kernels are not built at 256
     assert not any(i[0] in ("flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel",
-                            "flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                            "flash_fwd_tf32_kernel", "flash_fwd_mma_kernel",
+                            "flash_bwd_dkv_mma_kernel",
                             "flash_bwd_dq_mma_kernel") for i in d256)
     assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dkv_mma_kernel") == \
         sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dq_mma_kernel") == \
@@ -237,18 +238,60 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
         ("flash_bwd_dkv_mma_kernel", "bfloat16", 64)
     assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi128{tail}") == \
         ("flash_bwd_dkv_mma_kernel", "bfloat16", 128)
-    assert cs._flash_instance(f"{space}21flash_fwd_tf32_kernelILi256EEEvPKfS2_S2_PKiPfS5_iifi") \
-        == ("flash_fwd_tf32_kernel", "float32", 256)
+    assert cs._flash_instance(f"{space}21flash_fwd_tf32_kernelILi128EEEvPKfS2_S2_PKiPfS5_iifi") \
+        == ("flash_fwd_tf32_kernel", "float32", 128)
+    assert cs._flash_instance(
+        f"{space}27flash_fwd_tf32_split_kernelILi256EEEvPKfS2_S2_PKiPfS5_iifi") == \
+        ("flash_fwd_tf32_split_kernel", "float32", 256)
     assert cs._flash_instance(f"{space}20flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16") == \
         ("flash_fwd_mma_kernel", "bfloat16", 128)
     assert cs._flash_instance(f"{space}22flash_fwd_wgmma_kernelILi256EEEv14CUtensorMap_st") == \
         ("flash_fwd_wgmma_kernel", "bfloat16", 256)
     for kernel, dtype, d in d256:
         assert cs.flash_dynamic_smem(kernel, dtype, d) <= cs.H100_SMEM_PER_BLOCK
-    assert cs.flash_dynamic_smem("flash_fwd_tf32_kernel", "float32", 256) == 199680
+    # Q (64 rows); K and V x 2 stages of 16 keys; 2048 words of S halves
+    assert cs.flash_dynamic_smem("flash_fwd_tf32_split_kernel", "float32", 256) == \
+        4 * (260 * (64 + 4 * 16) + 2048) == 141312
+    assert cs.flash_dynamic_smem("flash_fwd_tf32_kernel", "float32", 128) == 135168
     # Q of 128 rows, K and V x 2 stages of 64, five barriers, 1 KB to align
     assert cs.flash_dynamic_smem("flash_fwd_wgmma_kernel", "bfloat16", 256) == \
         2 * 256 * (128 + 4 * 64) + 40 + 1024 == 197672
+
+
+@pytest.mark.parametrize("shape, causal, lens", [
+    ((1, 20, 2, 8), True, None),
+    ((2, 30, 2, 8), True, [30, 14]),
+    ((4, 20, 2, 8), False, [20, 1, 10, 17])])
+def test_chip_smoke_finds_the_single_key_rows(shape, causal, lens):
+    """`_single_key_rows` at the kinds of phase `kernel_flash_head_sizes`'s
+    fp32 D 256 shapes, cut short: the first row of each batch row and, under
+    a key mask, the first pad row with `causal`; the one valid row of a
+    length-1 batch row without.  `_forward_exact_checks` holds them on the
+    CPU, where the wrapper takes the plain forward: o equals v there."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from roar_tpu_torch.kernels import flash_attention as fa
+
+    device = torch.device("cpu")
+    key_mask = cs._key_mask(lens, shape[1], device)
+    rows = cs._single_key_rows(key_mask, shape, causal, device)
+    want = torch.zeros(shape[:2], dtype=torch.bool)
+    if causal:
+        want[:, 0] = True
+        for b, n in enumerate(lens or []):
+            if n < shape[1]:
+                want[b, n] = True
+    else:
+        for b, n in enumerate(lens):
+            want[b, 0] = n == 1
+            want[b, shape[1] - 1] = shape[1] - n == 1
+    assert torch.equal(rows, want)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(*shape, generator=gen) for _ in range(3))
+    scale = shape[3] ** -0.5
+    out = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True, causal=causal)[0]
+    found = cs._forward_exact_checks(q, k, v, key_mask, scale, causal, out)
+    assert found["single_key_rows_o_equal_v"] == int(want.sum()) * shape[2]
 
 
 def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):
