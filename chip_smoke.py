@@ -658,18 +658,28 @@ def _flash_instance(mangled: str) -> Optional[tuple]:
 
 
 def _conv_instance(mangled: str) -> Optional[tuple]:
-    """("conv_mma_kernel", view, (WN, NT, MT)) of a K3 instance's mangled
-    name (template arguments: warps along the output channels, n-tiles and
-    m-tiles per warp, dX, bf16), view "fwd" or "dx", or ("dw_mma_kernel",
-    "dw", (NT, MT)) of a K4 instance's (n-tiles of the block, m-tiles per
-    warp, bf16), else None.  A bf16 instance's view ends in "_bf16"; a name
-    without the bf16 argument is an fp32 instance."""
-    found = re.search(r"(conv_mma_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E(?:Lb([01])E)?",
-                      mangled)
+    """("conv_mma_kernel", view, (WN, NT, MT)) of an fp32 K3 instance's
+    mangled name (template arguments: warps along the output channels,
+    n-tiles and m-tiles per warp, dX), view "fwd" or "dx";
+    ("conv_bf16_kernel", "fwd_dx_bf16", (MT, NT, WM, WN)) of a bf16 K3 main
+    kernel's (m-tiles and n-tiles per warp, warps along the positions and the
+    output channels; forward and dX are one routine), ("fold_bf16_kernel",
+    "layout_bf16", (ST,)) of its layout pass's, ("pack_w_bf16_kernel",
+    "pack_bf16", ()) of its weight pack's; ("dw_mma_kernel", "dw", (NT, MT))
+    of a K4 instance's (n-tiles of the block, m-tiles per warp, bf16; a bf16
+    instance's view is "dw_bf16"), else None."""
+    found = re.search(r"(conv_mma_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", mangled)
     if found is not None:
-        view = ("dx" if found.group(5) == "1" else "fwd") + (
-            "_bf16" if found.group(6) == "1" else "")
-        return found.group(1), view, tuple(int(found.group(i)) for i in (2, 3, 4))
+        return (found.group(1), "dx" if found.group(5) == "1" else "fwd",
+                tuple(int(found.group(i)) for i in (2, 3, 4)))
+    found = re.search(r"(conv_bf16_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if found is not None:
+        return found.group(1), "fwd_dx_bf16", tuple(int(found.group(i)) for i in (2, 3, 4, 5))
+    found = re.search(r"(fold_bf16_kernel)ILi(\d+)E", mangled)
+    if found is not None:
+        return found.group(1), "layout_bf16", (int(found.group(2)),)
+    if "pack_w_bf16_kernel" in mangled:
+        return "pack_w_bf16_kernel", "pack_bf16", ()
     found = re.search(r"(dw_mma_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?", mangled)
     if found is not None:
         return (found.group(1), "dw_bf16" if found.group(4) == "1" else "dw",
@@ -677,10 +687,17 @@ def _conv_instance(mangled: str) -> Optional[tuple]:
     return None
 
 
-# the K3 instances `dispatch_conv_mma` of csrc/grouped_conv.cu can launch,
-# and the K4 instances of `roar_grouped_conv_dw` (`dw_tiles`)
+# the fp32 K3 instances `dispatch_conv_mma` of csrc/grouped_conv.cu can
+# launch, the bf16 K3 main kernels `run_conv_bf16` can launch (MT, NT, WM,
+# WN) and its layout pass's (the folded phases a row: 1, 2, 4 or 0, read at
+# run time), and the K4 instances of `roar_grouped_conv_dw` (`dw_tiles`)
 CONV_MMA_TILES = [(wn, nt, mt) for wn, nt in ((1, 1), (1, 2), (1, 4), (2, 4)) for mt in (1, 2)]
+CONV_BF16_TILES = [(4, 1, 8, 1), (2, 2, 8, 1), (2, 4, 8, 1), (2, 4, 4, 2)]
+FOLD_BF16_PHASES = [(1,), (2,), (4,), (0,)]
 DW_MMA_TILES = [(1, 4), (2, 4), (4, 4), (8, 2)]
+# the bf16 K3 main kernel's dynamic shared memory: its ring of stages, each
+# at most `kBf16StageBytes`, fits what two blocks a SM may have
+CONV_BF16_MAX_DYNAMIC_SMEM = 228 * 1024 // 2 - 1024
 
 
 def _viterbi_instance(mangled: str) -> Optional[tuple]:
@@ -732,10 +749,11 @@ def parse_ptxas(log: str) -> dict:
 
 
 def count_hmma(lib_path) -> Optional[dict]:
-    """{instance key: {"HMMA": n, "HGMMA": n}} of every flash, K3 and K4
-    instance: its tensor-core instructions in the SASS, from `cuobjdump
-    -sass`, or None where the tool is not installed.  HMMA is mma.sync (TF32
-    products show as `HMMA.1684.F32.TF32`), HGMMA wgmma."""
+    """{instance key: {"HMMA": n, "HGMMA": n, "HMMA.16816.F32.BF16": n}} of
+    every flash, K3 and K4 instance: its tensor-core instructions in the SASS,
+    from `cuobjdump -sass`, or None where the tool is not installed.  HMMA is
+    mma.sync (TF32 products show as `HMMA.1684.F32.TF32`, bf16 m16n8k16 ones
+    as `HMMA.16816.F32.BF16`), HGMMA wgmma."""
     import shutil
 
     tool = shutil.which("cuobjdump")
@@ -752,9 +770,9 @@ def count_hmma(lib_path) -> Optional[dict]:
         if "Function :" in line:
             current = _any_instance(line.split("Function :", 1)[1].strip())
             if current is not None:
-                counts[current] = {"HMMA": 0, "HGMMA": 0}
+                counts[current] = {"HMMA": 0, "HGMMA": 0, "HMMA.16816.F32.BF16": 0}
         elif current is not None:
-            for op in ("HMMA", "HGMMA"):
+            for op in ("HMMA", "HGMMA", "HMMA.16816.F32.BF16"):
                 counts[current][op] += op in line
     return counts
 
@@ -768,7 +786,8 @@ def phase_kernel_build(lib_path) -> dict:
     tensor-core instruction (a wgmma kernel no HGMMA), if a wgmma or split
     kernel has a stack frame, if a flash instance asks for more shared memory
     than a block may have, or if a K1 or K2 instance spills or is missing."""
-    everything = parse_ptxas(lib_path.with_suffix(".log").read_text())
+    log = lib_path.with_suffix(".log").read_text()
+    everything = parse_ptxas(log)
     table = {key: info for key, info in everything.items() if key[0].startswith("flash_")}
     hmma = count_hmma(lib_path)
     rows = []
@@ -796,14 +815,19 @@ def phase_kernel_build(lib_path) -> dict:
         smem = flash_dynamic_smem(kernel, dtype, d) + info["static_smem_bytes"]
         if smem > H100_SMEM_PER_BLOCK:
             raise AssertionError(f"{kernel}<{d}> asks for {smem} bytes of shared memory")
-    # K3 and K4 in fp32 (3xTF32 products) and in bf16 (one exact TF32
-    # product of the widened operands, fp32 sums; y and dX written in bf16,
-    # dW in fp32): one dynamic shared memory size per launch
-    # (csrc/grouped_conv.cu `k3_smem`, `launch_dw`), so none is listed here
+    # K3 and K4 in fp32 (3xTF32 products), K4 in bf16 (one exact TF32
+    # product of the widened operands), K3 in bf16 (its main kernel on
+    # m16n8k16 bf16 products with fp32 sums, its layout pass and weight
+    # pack): one dynamic shared memory size per launch (csrc/grouped_conv.cu
+    # `k3_smem`, `launch_dw`, `launch_conv_bf16`), so only the bf16 K3 main
+    # kernel's largest is listed.  No instance may spill; the bf16 K3 main
+    # kernel may have no stack frame and must hold bf16 m16n8k16 products
     conv_rows = []
-    for kernel, view, tiles in ([("conv_mma_kernel", view + sfx, tiles)
-                                 for sfx in ("", "_bf16") for view in ("fwd", "dx")
+    for kernel, view, tiles in ([("conv_mma_kernel", view, tiles) for view in ("fwd", "dx")
                                  for tiles in CONV_MMA_TILES]
+                                + [("conv_bf16_kernel", "fwd_dx_bf16", t) for t in CONV_BF16_TILES]
+                                + [("fold_bf16_kernel", "layout_bf16", t) for t in FOLD_BF16_PHASES]
+                                + [("pack_w_bf16_kernel", "pack_bf16", ())]
                                 + [("dw_mma_kernel", "dw" + sfx, tiles)
                                    for sfx in ("", "_bf16") for tiles in DW_MMA_TILES]):
         key = (kernel, view, tiles)
@@ -812,16 +836,34 @@ def phase_kernel_build(lib_path) -> dict:
             raise AssertionError(f"{kernel}<{tiles}, {view}> is not in the ptxas log")
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
             raise AssertionError(f"{kernel}<{tiles}, {view}> spills: {info}")
-        row = {"kernel": kernel, "view": view,
-               ("nt_mt" if view.startswith("dw") else "wn_nt_mt"): list(tiles),
-               "dtype": ("bfloat16 (one TF32 product of widened operands)"
-                         if view.endswith("_bf16") else "float32 (3xTF32 products)"), **info}
-        if hmma is not None:
-            row["hmma"] = hmma.get(key, {}).get("HMMA", 0)
+        names = {"conv_mma_kernel": "wn_nt_mt", "conv_bf16_kernel": "mt_nt_wm_wn",
+                 "fold_bf16_kernel": "phases_a_row"}
+        dtype = ("float32 (3xTF32 products)" if view in ("fwd", "dx", "dw")
+                 else "bfloat16 (one TF32 product of widened operands)" if view == "dw_bf16"
+                 else "bfloat16 (m16n8k16 bf16 products, fp32 sums)")
+        row = {"kernel": kernel, "view": view, names.get(kernel, "nt_mt"): list(tiles),
+               "dtype": dtype, **info}
+        if kernel == "conv_bf16_kernel":
+            if info["stack_bytes"]:
+                raise AssertionError(f"{kernel}<{tiles}> has a stack frame: {info}")
+            row["dynamic_smem_bytes_max"] = CONV_BF16_MAX_DYNAMIC_SMEM
+            if CONV_BF16_MAX_DYNAMIC_SMEM + info["static_smem_bytes"] > H100_SMEM_PER_BLOCK:
+                raise AssertionError(f"{kernel}<{tiles}> may ask for too much shared memory")
+        if hmma is not None and kernel in ("conv_mma_kernel", "conv_bf16_kernel",
+                                           "dw_mma_kernel"):
+            found = hmma.get(key, {})
+            row["hmma"] = found.get("HMMA", 0)
+            if kernel == "conv_bf16_kernel":
+                row["hmma_16816_bf16"] = found.get("HMMA.16816.F32.BF16", 0)
+                if row["hmma_16816_bf16"] == 0:
+                    raise AssertionError(f"{kernel}<{tiles}> has no HMMA.16816.F32.BF16 "
+                                         "instruction in its SASS")
             if row["hmma"] == 0:
                 raise AssertionError(f"{kernel}<{tiles}, {view}> has no HMMA instruction in "
                                      "its SASS")
         conv_rows.append(row)
+    if re.search(r"conv_mma_kernelI(?:Li\d+E){3}Lb[01]ELb", log):
+        raise AssertionError("a bf16 instance of conv_mma_kernel is still built")
     # K1 (one instance per band width, 101 and the run-time one, and lanes a
     # bin, 1 / 2 / 4 / 8) and K2: dynamic shared memory depends on the launch
     viterbi_rows = []
@@ -1486,9 +1528,52 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
                     d_opt=build_optimizer(model.d_parameters(), optim_cfg))
                 result["timing"] = _time_gan_step(timing_state, batch, card, phase,
                                                   {n: (gk, n) for n in _PlainGroupedConv.NAMES})
+                if bf16:
+                    result["k3_device"] = _k3_bf16_device_time(
+                        lambda: gan_train_step(timing_state, batch), phase, card)
             return result
     finally:
         torch.backends.cudnn.benchmark = benchmark_was
+
+
+# the kernels of one bf16 K3 call (csrc/grouped_conv.cu): weight pack, layout
+# pass, main kernel; forward and dX launch the same three
+K3_BF16_KERNELS = ("pack_w_bf16_kernel", "fold_bf16_kernel", "conv_bf16_kernel")
+
+
+def _k3_bf16_device_time(step, phase: str, card: str) -> dict:
+    """K3's device time inside one bf16 `step()`, from the CUDA activity of
+    `torch.profiler`: the summed device time of the bf16 K3 kernels (every
+    forward and dX call's pack, layout pass and main kernel) and their
+    launches, beside the device time of every kernel of the step.  Unlike
+    the CUDA events of `_time_inside`, it holds no host gaps between
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    launches, micros, every = Counter(), Counter(), 0.0
+    for event in prof.key_averages():
+        t = (event.device_time_total if hasattr(event, "device_time_total")
+             else event.cuda_time_total)
+        every += t
+        found = re.search(r"(" + "|".join(K3_BF16_KERNELS) + r")\b", event.key)
+        if found is not None:
+            launches[found.group(1)] += event.count
+            micros[found.group(1)] += t
+    k3 = sum(micros.values()) / 1e3
+    line = {"phase": phase, "step": "k3_device_time", "card": card,
+            "k3_device_ms_per_step": k3,
+            "by_kernel_ms": {k: micros[k] / 1e3 for k in K3_BF16_KERNELS},
+            "launches_per_step": {k: launches[k] for k in K3_BF16_KERNELS},
+            "all_kernels_device_ms_per_step": every / 1e3,
+            "k3_share_of_device_time": k3 / max(every / 1e3, 1e-9),
+            "method": "torch.profiler CUDA activity over one step after one warm step"}
+    _emit(line)
+    return line
 
 
 def _batches(cfg: dict):
@@ -1657,7 +1742,11 @@ FLASH_HEAD_SIZE_CASES = [
     ((1, 2048, 32, 80), True, None, "one layer of phi-2 at S 2048; padded route, D 128"),
     ((1, 2048, 32, 100), True, None, "one layer of open_llama_3b at S 2048; padded route, "
                                      "D 128"),
+    # D 128 natively, at the layer of the registry's llama-2-7b (32 heads of
+    # 128) at S 4096: 67 of the registry's entries have D 128
+    ((1, 4096, 32, 128), True, None, "one layer of llama-2-7b at S 4096; native D 128"),
 ]
+LLAMA_D128_SHAPE = (1, 4096, 32, 128)
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
@@ -4212,6 +4301,9 @@ def main() -> int:
     # at D 80 / 100 on the phi-2 / open_llama_3b micro-batches of phase
     # `gpt_head_sizes` (bf16; `fp32` beside: the same call in fp32)
     d256, ragged = (1, 2048, 8, 256), (4, 200, 2, 256)
+    # D 128 at llama-2-7b's layer, both types (no run of the path trains it)
+    d128_fwd, d128_bwd = flash_rows([fheads[(LLAMA_D128_SHAPE, "bfloat16")]])
+    d128_fwd32, d128_bwd32 = flash_rows([fheads[(LLAMA_D128_SHAPE, "float32")]])
     d256_fwd, d256_bwd = flash_rows([fheads[(d256, "bfloat16")]])
     d256_fwd32, d256_bwd32 = flash_rows([fheads[(d256, "float32")]])
     ragged_fwd, ragged_bwd = flash_rows([fheads[(ragged, "bfloat16")]])
@@ -4288,14 +4380,22 @@ def main() -> int:
          "lse_max_abs_err": worst(causal_errors, "lse"), **causal_fwd,
          "fp32": {**causal_fwd32, "kernel": "flash_fwd_tf32_kernel",
                   "launches": gpt["fp32_check_launches"]["fwd"],
-                  "launches_validation": gpt["launches"]["fwd"] - gpt["launches_bf16"]["fwd"]}},
+                  "launches_validation": gpt["launches"]["fwd"] - gpt["launches_bf16"]["fwd"]},
+         "llama_2_7b_d128": {"shape_bthd": list(LLAMA_D128_SHAPE), **d128_fwd,
+                             "max_abs_err": worst(head_errors(128, "bfloat16"), "o"),
+                             "fp32": {**d128_fwd32,
+                                      "max_abs_err": worst(head_errors(128, "float32"), "o")}}},
         *[{"name": f"flash_attention_causal_bwd_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
            "launches": gpt["launches"][name],
            "launches_per_micro_batch": gpt["per_micro_batch"][name],
            "max_abs_err": worst(causal_errors, *grads), **causal_bwd[name],
-           "fp32": causal_bwd32[name]}
+           "fp32": causal_bwd32[name],
+           "llama_2_7b_d128": {"shape_bthd": list(LLAMA_D128_SHAPE), **d128_bwd[name],
+                               "max_abs_err": worst(head_errors(128, "bfloat16"), *grads),
+                               "fp32": {**d128_bwd32[name], "max_abs_err":
+                                        worst(head_errors(128, "float32"), *grads)}}}
           for name, grads in backward_kernels],
         {"name": "pyin_viterbi_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
@@ -4339,9 +4439,17 @@ def main() -> int:
         # shipped), `launches_train_hifigan_bf16` the bf16 HiFi-GAN run's; the
         # times and bounds summed over the 15 shapes at JETS's 32 x 16384, and
         # in `train_hifigan` at 32 x 8192; library = cuDNN in bf16; bounds at
-        # the dense bf16 rate
+        # the dense bf16 rate.  A bf16 K3 call (one count) launches its weight
+        # pack, layout pass and main kernel; `k3_device_ms_per_step_hifigan`
+        # is the three's device time, forward and dX, inside one bf16
+        # HiFi-GAN step, by the profiler
         *[{"name": f"grouped_conv_{name}_bf16", "route": "cuda",
            "source": "roar_tpu_torch/csrc/grouped_conv.cu", "replaces": replaces,
+           "kernel": "dw_mma_kernel" if name == "dw" else "conv_bf16_kernel",
+           **({} if name == "dw" else {
+               "kernels_per_call": list(K3_BF16_KERNELS),
+               "k3_device_ms_per_step_hifigan": train_bf16["k3_device"]["k3_device_ms_per_step"],
+               "k3_launches_per_step_hifigan": train_bf16["k3_device"]["launches_per_step"]}),
            "dtype": "bfloat16", "launches": jets_bf16["launches_bf16"][f"grouped_conv_{name}"],
            "launches_train_hifigan_bf16": train_bf16["launches_bf16"][name],
            "max_abs_err": max(conv_bf16[name]["max_abs_err"],

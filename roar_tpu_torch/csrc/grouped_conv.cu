@@ -4,10 +4,12 @@
 // Replace roar_tpu/ops/grouped_conv.py `_core_kernel` (K3: the forward and,
 // with a phase-packed transposed weight, dX) and `_dw_kernel` (K4: dW).  The
 // TPU kernels fold the stride into channels and pack taps so that a 128-row
-// matrix unit sees 128-lane tiles at static offsets; none of that is carried
-// over.  Here stride, padding and group count are run-time arguments and the
-// kernels index the raw tensors: x [B, Cin, W], w [Cout, Cin/G, k] (torch's
-// layout), y [B, Cout, Wout], Wout = (W + 2 pad - k) / s + 1.
+// matrix unit sees 128-lane tiles at static offsets.  The fp32 kernels and
+// K4 carry none of that over: stride, padding and group count are run-time
+// arguments and they index the raw tensors: x [B, Cin, W], w [Cout, Cin/G, k]
+// (torch's layout), y [B, Cout, Wout], Wout = (W + 2 pad - k) / s + 1.  The
+// bf16 K3 folds the stride into channels as the TPU does, channels-last
+// (below).
 //
 //   fwd  y[b, g Og + o, n]  = sum_{c, j} w[g Og + o, c, j] x[b, g Cg + c, n s + j - pad]
 //   dX   dx[b, g Cg + c, m] = sum_{o, j : (m + pad - j) % s == 0}
@@ -21,7 +23,7 @@
 // element, 650 to 5000 FLOP per 4-byte output, far above the card's 20 fp32
 // FLOP per byte, so the bound is an arithmetic rate, not device memory.
 //
-// K3 (`conv_mma_kernel`, ONE device routine behind both entry points) runs
+// K3 in fp32 (`conv_mma_kernel`, ONE device routine behind both entry points) runs
 //   on the tensor cores: an implicit GEMM per (batch, group) with M = output
 //   positions, N = the group's output channels, K = (input channel, tap)
 //   pairs, and `mma.sync.m16n8k8` on TF32 with fp32 sums, in 3xTF32
@@ -100,29 +102,56 @@
 //   atomics, so two runs give the same bits.
 //
 // bf16 (the JAX package's bf16 step: bf16 operands, fp32 sums, y and dX
-//   written in bf16, dW in fp32) is the same three kernels with BF16 = true.
-//   Their products run on the tensor cores as ONE TF32 product per
-//   multiply-add, and that product is exact: a bf16 value's 8-bit
-//   significand fits TF32's 11, so widening it to fp32 loses nothing and the
-//   product of two such values is exact in the fp32 accumulator.  No split,
-//   no second or third product.  Operands are read from device memory as
-//   bf16 (2 bytes each, half the fp32 traffic) and widened as they are
-//   staged, by plain loads through registers (a 2-byte `cp.async` does not
-//   exist, and the odd widths of the discriminator's scales rule out 4-byte
-//   pairs without a per-row shift), into the fp32 layouts above, so that the
-//   fragment walks are the fp32 kernels' own.  The sums go straight into the
-//   accumulators, with no per-k-chunk flush: their truncation (about 2.4e-5
-//   of the scale over 2624 products) is far below the bf16 rounding of y and
-//   dX (2^-9) and of the dW the op rounds to the weight's type.  y and dX
-//   are rounded to bf16 once, at the store.  Its bound is the operations
-//   over the dense bf16 rate (the card's rate for the same work), not the
-//   TF32 rate these products run at.
+//   written in bf16, dW in fp32).
+// K4 in bf16 is `dw_mma_kernel` with BF16 = true: ONE TF32 product per
+//   multiply-add, which is exact (a bf16 value's 8-bit significand fits
+//   TF32's 11), operands loaded as bf16 and widened to fp32 as they are
+//   staged, sums with no per-k-chunk flush (their truncation, about 2.4e-5
+//   of the scale over 2624 products, is far below the bf16 rounding of the
+//   dW the op rounds to the weight's type).
+// K3 in bf16 (`conv_bf16_kernel`, forward and dX one device routine) is
+//   bound by operations too: at the discriminator's 15 shapes 2 k Cg FLOP an
+//   output element is 656 to 5248 FLOP per 2-byte output, far above
+//   the card's 295 bf16 FLOP per byte, so its bound is the dense bf16 rate.
+//   What kept a direct kernel far from it: odd widths (8193, 4097) put a
+//   channel row of x on a 2-byte boundary, so no 16-byte or TMA copy of the
+//   raw rows exists; a strided Toeplitz view needs per-element gathers; and
+//   bf16 widened to fp32 in shared memory halves the channels a stage holds.
+//   So a call is three launches:
+//   - `pack_w_bf16_kernel` packs the weights K-major in the folded channel
+//     order (the TPU's `_pack_w_fwd` / `_pack_w_dx`, for dX each output
+//     phase's reversed sub-sampled weight), zero past the taps;
+//   - `fold_bf16_kernel`, the layout pass, writes the input channels-last
+//     with the stride folded into channels (the TPU's `_fold_x`): x'[g][b][m]
+//     [c s + ph] = x[b][g Cg + c][m s + ph - pad], rows of Kc = Cg s rounded
+//     up to 16 channels, the halo zero; for dX dy the same with s 1 (each
+//     output phase of dX is a stride-1 correlation of dy).  A stride-s conv
+//     over k taps becomes a stride-1 conv over ceil(k / s) taps whose A tile
+//     for tap t is the row-shifted contiguous tile x'[p + t], and the rows of
+//     consecutive batch rows are consecutive, so one GEMM runs over B L flat
+//     rows and a short layer's tile takes the next batch row's positions
+//     (the halo rows between them are computed and dropped);
+//   - `conv_bf16_kernel` multiplies: stages of (taps, channels) by 16-byte
+//     `cp.async` into a ring of three, bf16 kept bf16 in shared memory, the
+//     next two stages' copies in flight under this one's products, each
+//     block walking several position tiles as one stream of stages;
+//     `ldmatrix` and `mma.sync.m16n8k16` bf16 at the bf16 rate with fp32
+//     sums (products of bf16 values are exact, so no flush is needed), y or
+//     dX rounded once to bf16 through shared memory.
+//   The pack and the layout pass move bytes (x read once and its folded copy
+//   written once: about 1.1 GB over the 15 shapes at 32 x 16384) and count in
+//   K3's time.  No atomics: each output is one accumulator summed in a fixed
+//   order, so two runs give the same bits.
 //
-// `wgmma`, TMA and warp specialisation are later work.
+// A `wgmma` form of the bf16 main kernel (A by `ldmatrix` from the window,
+// since a row-shifted tile is no descriptor's; B 128-byte swizzled through a
+// descriptor; N 32 or 64) measured slower on an H100 than `mma.sync` at the
+// discriminator's widths.  TMA and warp specialisation are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
@@ -135,6 +164,8 @@ using flash::mma::cp_async16;
 using flash::mma::cp_async4;
 using flash::mma::cp_async_commit;
 using flash::mma::cp_async_wait;
+using flash::mma::ldmatrix_x4;
+using flash::mma::mma_bf16;
 using tf32x3::mma_3xtf32;
 using tf32x3::mma_tf32;
 using tf32x3::split_tf32;
@@ -147,8 +178,6 @@ using Elem = std::conditional_t<BF16, bf16, float>;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -196,10 +225,10 @@ __host__ __device__ inline K3Smem k3_smem(const ConvGeom& q, bool dx, int bm, in
 // gradient, `in` is dy and `out` is dx, blockIdx.z = batch * s + phase.
 // `cc` input channels per stage; `st_shift` = log2 of the view's stride, or
 // -1 when it is not a power of two.
-template <int WN, int NT, int MT, bool DX, bool BF16>
+template <int WN, int NT, int MT, bool DX>
 __global__ void __launch_bounds__(kThreads, 2)
-conv_mma_kernel(const Elem<BF16>* __restrict__ in, const Elem<BF16>* __restrict__ w,
-                Elem<BF16>* __restrict__ out, ConvGeom q, int cc, int st_shift) {
+conv_mma_kernel(const float* __restrict__ in, const float* __restrict__ w,
+                float* __restrict__ out, ConvGeom q, int cc, int st_shift) {
   constexpr int WM = kWarps / WN;
   constexpr int BM = WM * MT * 16;  // output positions per block
   constexpr int BN = WN * NT * 8;   // output channels per block
@@ -246,7 +275,7 @@ conv_mma_kernel(const Elem<BF16>* __restrict__ in, const Elem<BF16>* __restrict_
 
   const int xw = (BM - 1) * st + taps;  // window length in input positions
   const int p0 = n0 * st - pd;          // input position of the window's start
-  const Elem<BF16>* in_g = in + (static_cast<size_t>(b) * q.G + grp) * kc * win;
+  const float* in_g = in + (static_cast<size_t>(b) * q.G + grp) * kc * win;
   // weight offset of (row n, stage channel 0, column offset 0): forward
   // w[g Og + o0 + n][c0 + c][j]; dX w[g Og + c0 + c][o0 + n][j0 + s (taps-1-j)]
   auto w_row = [&](int c0, int n) -> size_t {
@@ -256,31 +285,20 @@ conv_mma_kernel(const Elem<BF16>* __restrict__ in, const Elem<BF16>* __restrict_
                     static_cast<size_t>(c0) * q.k;
   };
 
-  // stage `s` into buffer `buf`: position p0 + i of channel c0 + c goes to
-  // word c cs + (i % st) pl + i / st of the window.  fp32 by `cp.async`;
-  // bf16 by loads widened to fp32 on the way
+  // stage `s` into buffer `buf` by `cp.async`: position p0 + i of channel
+  // c0 + c goes to word c cs + (i % st) pl + i / st of the window
   auto copy_stage = [&](int s, int buf) {
     const int c0 = s * cc;
     float* xs = smem + buf * L.stage;
     float* ws = xs + cc * L.cs;
     for (int c = 0; c < cc; ++c) {
       const bool c_ok = c0 + c < kc;
-      const Elem<BF16>* src = in_g + static_cast<size_t>(c_ok ? c0 + c : 0) * win;
-      if constexpr (BF16) {
-#pragma unroll 4
-        for (int i = tid; i < xw; i += kThreads) {
-          const int p = p0 + i;
-          const int ix = st_shift >= 0 ? i >> st_shift : i / st;
-          xs[c * L.cs + (i - ix * st) * L.pl + ix] =
-              c_ok && p >= 0 && p < win ? widen(src[p]) : 0.0f;
-        }
-      } else {
-        for (int i = tid; i < xw; i += kThreads) {
-          const int p = p0 + i;
-          const bool ok = c_ok && p >= 0 && p < win;
-          const int ix = st_shift >= 0 ? i >> st_shift : i / st;
-          cp_async4(xs + c * L.cs + (i - ix * st) * L.pl + ix, ok ? src + p : in, ok);
-        }
+      const float* src = in_g + static_cast<size_t>(c_ok ? c0 + c : 0) * win;
+      for (int i = tid; i < xw; i += kThreads) {
+        const int p = p0 + i;
+        const bool ok = c_ok && p >= 0 && p < win;
+        const int ix = st_shift >= 0 ? i >> st_shift : i / st;
+        cp_async4(xs + c * L.cs + (i - ix * st) * L.pl + ix, ok ? src + p : in, ok);
       }
     }
     for (int kk = lane; kk < kpad; kk += 32) {
@@ -288,11 +306,7 @@ conv_mma_kernel(const Elem<BF16>* __restrict__ in, const Elem<BF16>* __restrict_
       const bool k_ok = c0 + wch[kk] < kc;
       for (int n = warp; n < BN; n += kWarps) {
         const bool ok = k_ok && o0 + n < oc;
-        if constexpr (BF16) {
-          ws[n * L.ksp + kk] = ok ? widen(w[w_row(c0, n) + off]) : 0.0f;
-        } else {
-          cp_async4(ws + n * L.ksp + kk, ok ? w + w_row(c0, n) + off : w, ok);
-        }
+        cp_async4(ws + n * L.ksp + kk, ok ? w + w_row(c0, n) + off : w, ok);
       }
     }
   };
@@ -312,25 +326,6 @@ conv_mma_kernel(const Elem<BF16>* __restrict__ in, const Elem<BF16>* __restrict_
 #pragma unroll 1  // unrolled twice, a warp's 2 x 4 fragment tiles spill
     for (int k0 = 0; k0 < kpad; k0 += 8) {
       const int ca = xoff[k0 + t4] + row0, cb = xoff[k0 + t4 + 4] + row0;
-      if constexpr (BF16) {  // widened bf16 words are TF32 values: one exact product
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int m = 16 * mt;
-          a[mt][0] = __float_as_uint(xs[ca + m]);
-          a[mt][1] = __float_as_uint(xs[ca + m + 8]);
-          a[mt][2] = __float_as_uint(xs[cb + m]);
-          a[mt][3] = __float_as_uint(xs[cb + m + 8]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint32_t b0 = __float_as_uint(wrow[nt * 8 * L.ksp + k0]);
-          const uint32_t b1 = __float_as_uint(wrow[nt * 8 * L.ksp + k0 + 4]);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], a[mt], b0, b1);
-        }
-        continue;
-      }
       uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -376,11 +371,10 @@ conv_mma_kernel(const Elem<BF16>* __restrict__ in, const Elem<BF16>* __restrict_
         const int o = o0 + wn * NT * 8 + 8 * nt + 2 * t4 + (e & 1);
         if (pos >= nout || o >= oc) continue;
         if (DX) {
-          store(out + ((static_cast<size_t>(b) * q.G + grp) * q.Cg + o) * q.W + pos * q.s + r,
-                acc[mt][nt][e]);
+          out[((static_cast<size_t>(b) * q.G + grp) * q.Cg + o) * q.W + pos * q.s + r] =
+              acc[mt][nt][e];
         } else {
-          store(out + ((static_cast<size_t>(b) * q.G + grp) * q.Og + o) * q.Wout + pos,
-                acc[mt][nt][e]);
+          out[((static_cast<size_t>(b) * q.G + grp) * q.Og + o) * q.Wout + pos] = acc[mt][nt][e];
         }
       }
     }
@@ -620,9 +614,9 @@ int k3_channels_per_stage(const ConvGeom& q, bool dx, int bm, int bn) {
   return k3_smem(q, dx, bm, bn, cc).bytes() <= kMaxSmem ? cc : 0;
 }
 
-template <int WN, int NT, int MT, bool DX, bool BF16>
-int launch_conv_mma(const Elem<BF16>* in, const Elem<BF16>* w, Elem<BF16>* out,
-                    const ConvGeom& q, cudaStream_t stream) {
+template <int WN, int NT, int MT, bool DX>
+int launch_conv_mma(const float* in, const float* w, float* out, const ConvGeom& q,
+                    cudaStream_t stream) {
   constexpr int BM = (kWarps / WN) * MT * 16, BN = WN * NT * 8;
   const int oc = DX ? q.Cg : q.Og;
   const int nout = DX ? (q.W + q.s - 1) / q.s : q.Wout;  // the most any phase has
@@ -632,7 +626,7 @@ int launch_conv_mma(const Elem<BF16>* in, const Elem<BF16>* w, Elem<BF16>* out,
   const long long grid_y = static_cast<long long>(q.G) * ((oc + BN - 1) / BN);
   const long long grid_z = static_cast<long long>(q.B) * (DX ? q.s : 1);
   if (grid_y > 65535 || grid_z > 65535) return cudaErrorInvalidValue;
-  auto kernel = conv_mma_kernel<WN, NT, MT, DX, BF16>;
+  auto kernel = conv_mma_kernel<WN, NT, MT, DX>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -654,20 +648,20 @@ int padded(int n, int tile) { return (n + tile - 1) / tile * tile; }
 // group's (wider groups take several blocks), one warp across up to 32 of
 // them; positions per block: the warps' rows x 16 or twice that, the less
 // padded, the larger on a tie.
-template <bool DX, bool BF16>
+template <bool DX>
 int dispatch_conv_mma(const void* in_, const void* w_, void* out_, const ConvGeom& q,
                       cudaStream_t stream) {
-  const auto* in = static_cast<const Elem<BF16>*>(in_);
-  const auto* w = static_cast<const Elem<BF16>*>(w_);
-  auto* out = static_cast<Elem<BF16>*>(out_);
+  const auto* in = static_cast<const float*>(in_);
+  const auto* w = static_cast<const float*>(w_);
+  auto* out = static_cast<float*>(out_);
   const int oc = DX ? q.Cg : q.Og;
   const int nout = DX ? (q.W + q.s - 1) / q.s : q.Wout;
 #define ROAR_CASE(WN_, NT_)                                                        \
   {                                                                                \
     constexpr int bm = (kWarps / WN_) * 16;                                        \
     return padded(nout, bm) < padded(nout, 2 * bm)                                 \
-               ? launch_conv_mma<WN_, NT_, 1, DX, BF16>(in, w, out, q, stream)     \
-               : launch_conv_mma<WN_, NT_, 2, DX, BF16>(in, w, out, q, stream);    \
+               ? launch_conv_mma<WN_, NT_, 1, DX>(in, w, out, q, stream)           \
+               : launch_conv_mma<WN_, NT_, 2, DX>(in, w, out, q, stream);          \
   }
   if (oc <= 8) ROAR_CASE(1, 1)
   if (oc <= 16) ROAR_CASE(1, 2)
@@ -754,6 +748,510 @@ int launch_dw(const Elem<BF16>* x, const Elem<BF16>* dy, float* dw, float* works
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K3 in bf16: a weight pack, a layout pass and one tensor-core kernel.
+
+// One bf16 K3 call as a stride-1 correlation over a folded, channels-last
+// input.  The input tensor (x for the forward, dy for dX) has C channels per
+// group and width `win`; its fold is in'[g][b][m][c st + ph] = in[b][g C + c]
+// [m st + ph - off] (zero outside the width and past C st), rows of Kc
+// channels (C st rounded up to 16: whole 16-byte pieces, whole k-steps of
+// 16), L rows per (group, batch row).  Output q of phase r in batch row b is
+// flat row p = b L + q of its group and reads flat rows p + base + u,
+// u < taps.
+struct Bf16View {
+  int B, G;
+  int dx;      // 0 forward, 1 input gradient
+  int C, win;  // input channels per group and width
+  int st;      // phases folded into a row: s (forward), 1 (dX)
+  int off;     // row 0 starts at input position -off
+  int pl;      // dX: rows of zeros before dy's first position
+  int L;       // folded rows per (group, batch row)
+  int Kc;      // folded channels per row, a multiple of 16
+  int T;       // taps per packed weight row (the most any phase has)
+  int OC;      // output channels per group
+  int phases;  // 1 (forward), s (dX)
+  int ck, tg;  // main kernel: channels and taps per stage
+  int tpb;     // main kernel: position tiles a block walks
+};
+
+// Phase r of a view: `taps` taps, `nout` outputs, output q reads folded rows
+// q + base .. q + base + taps - 1 of its batch row.  dX phase r (outputs
+// m = q s + r) takes the taps j = j0 + s u of the weight, reversed: a
+// stride-1 correlation of dy (see the note at the top).
+struct Bf16Phase {
+  int taps, base, nout, j0;
+};
+
+__host__ __device__ inline Bf16Phase bf16_phase(const ConvGeom& q, const Bf16View& v, int r) {
+  if (!v.dx) return {v.T, 0, q.Wout, 0};
+  const int j0 = (r + q.pad) % q.s, d = (r + q.pad) / q.s;
+  const int taps = j0 < q.k ? (q.k - j0 + q.s - 1) / q.s : 0;
+  return {taps, v.pl - (taps - 1 - d), (q.W - r + q.s - 1) / q.s, j0};
+}
+
+Bf16View bf16_view(const ConvGeom& q, bool dx) {
+  Bf16View v{};
+  v.B = q.B; v.G = q.G; v.dx = dx;
+  v.T = (q.k + q.s - 1) / q.s;
+  if (!dx) {
+    v.C = q.Cg; v.win = q.W; v.st = q.s; v.off = q.pad; v.pl = 0;
+    v.L = q.Wout + v.T - 1; v.OC = q.Og; v.phases = 1;
+  } else {
+    v.C = q.Og; v.win = q.Wout; v.st = 1; v.OC = q.Cg; v.phases = q.s;
+    // zeros before dy: enough for the phase that reaches furthest left
+    for (int r = 0; r < q.s; ++r) {
+      const int d = (r + q.pad) / q.s, taps = bf16_phase(q, v, r).taps;
+      if (taps > 0) v.pl = max(v.pl, taps - 1 - d);
+    }
+    v.off = v.pl;
+    v.L = 1;
+    for (int r = 0; r < q.s; ++r) {
+      const Bf16Phase p = bf16_phase(q, v, r);
+      if (p.taps > 0) v.L = max(v.L, p.base + p.nout + p.taps - 1);
+    }
+  }
+  v.Kc = (v.C * v.st + 15) / 16 * 16;
+  return v;
+}
+
+// the folded input's elements, rounded up so that the packed weights after
+// it start 256-byte aligned
+size_t bf16_fold_elems(const Bf16View& v) {
+  return (static_cast<size_t>(v.G) * v.B * v.L * v.Kc + 127) / 128 * 128;
+}
+
+size_t bf16_workspace_bytes(const Bf16View& v) {
+  return 2 * (bf16_fold_elems(v) + static_cast<size_t>(v.phases) * v.G * v.OC * v.T * v.Kc);
+}
+
+// The weights in the order of the folded channels, K-major: forward
+// wp[g][o][t][c s + ph] = w[g Og + o][c][t s + ph]; dX phase r
+// wp[r][g][c][u][o] = w[g Og + o][c][j0 + s (taps - 1 - u)] (the reversed
+// sub-sampled weight); zero past the taps and channels.  A block writes one
+// packed row (T Kc values) from the sources staged in shared memory, read
+// in their own order: the forward's row (g, o) is w's row g Og + o (Cg k
+// values), dX's row (r, g, c) takes the k taps of channel c from each of the
+// group's Og rows.
+constexpr int kPackThreads = 128;
+
+__global__ void __launch_bounds__(kPackThreads)
+pack_w_bf16_kernel(const bf16* __restrict__ w, bf16* __restrict__ wp, ConvGeom q, Bf16View v) {
+  extern __shared__ __align__(16) unsigned char pack_raw[];
+  bf16* src = reinterpret_cast<bf16*>(pack_raw);
+  const int n = blockIdx.x, g = blockIdx.y, r = blockIdx.z;
+  const int len = v.T * v.Kc;
+  bf16* dst = wp + ((static_cast<size_t>(r) * v.G + g) * v.OC + n) * len;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  if (!v.dx) {
+    const bf16* row = w + (static_cast<size_t>(g) * q.Og + n) * q.Cg * q.k;
+    for (int i = threadIdx.x; i < q.Cg * q.k; i += kPackThreads) src[i] = row[i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += kPackThreads) {
+      const int t = i / v.Kc, cf = i - t * v.Kc;
+      const int c = cf / q.s, j = t * q.s + (cf - c * q.s);
+      dst[i] = c < q.Cg && j < q.k ? src[c * q.k + j] : zero;
+    }
+  } else {
+    for (int i = threadIdx.x; i < q.Og * q.k; i += kPackThreads) {
+      const int o = i / q.k;
+      src[i] = w[((static_cast<size_t>(g) * q.Og + o) * q.Cg + n) * q.k + (i - o * q.k)];
+    }
+    __syncthreads();
+    const Bf16Phase p = bf16_phase(q, v, r);
+    for (int i = threadIdx.x; i < len; i += kPackThreads) {
+      const int u = i / v.Kc, o = i - u * v.Kc;
+      dst[i] = o < q.Og && u < p.taps ? src[o * q.k + p.j0 + q.s * (p.taps - 1 - u)] : zero;
+    }
+  }
+}
+
+constexpr int kStages = 3;                 // the main kernel's ring of stages
+constexpr int kBf16Sms = 132;              // the H100's SMs
+constexpr int kBf16Waves = 4;              // main kernel: blocks for about 4 waves
+constexpr int kFoldCols = 64;              // folded channels a block of the layout pass writes
+constexpr int kFoldTile = 64 * (kFoldCols + 2);  // its staged tile, bf16
+constexpr int kFoldThreads = 256;
+
+// Folded rows a block of the layout pass writes: 64 rows of 64 channels, or
+// as many more rows as fewer channels leave room for (a multiple of 8)
+__host__ __device__ inline int fold_rows(int kc) {
+  const int cols = kc < kFoldCols ? kc : kFoldCols;
+  return kFoldTile / (cols + 2) / 8 * 8;
+}
+
+// The layout pass: block (rows m0.., channels cc0.., group x batch row) reads
+// each input channel's stretch of rows x st positions, in aligned 16-byte
+// pieces where the source is 16-byte aligned (the pieces straddle the
+// stretch's ends; only its positions are kept), transposes it in shared
+// memory (a row of an odd count of words: the writes of consecutive
+// positions fall in distinct banks) and writes whole 16-byte pieces of
+// folded rows.  ST is the view's st where it is 1, 2 or 4, else 0 (read at
+// run time).
+template <int ST>
+__global__ void __launch_bounds__(kFoldThreads)
+fold_bf16_kernel(const bf16* __restrict__ src, bf16* __restrict__ dst, Bf16View v,
+                 long long numel, int vec) {
+  __shared__ __align__(16) bf16 tile[kFoldTile];
+  const int st = ST > 0 ? ST : v.st;
+  const int rows = fold_rows(v.Kc);
+  const int cols = min(kFoldCols, v.Kc - static_cast<int>(blockIdx.y) * kFoldCols);
+  const int pitch = cols + 2;
+  const int m0 = blockIdx.x * rows, cc0 = blockIdx.y * kFoldCols;
+  const int g = blockIdx.z / v.B, b = blockIdx.z - g * v.B;
+  const int creal = v.C * st;
+  const int c_lo = cc0 / st, c_hi = min(v.C, (cc0 + cols + st - 1) / st);
+  const int span = rows * st;
+  const int p0 = m0 * st - v.off;
+  const long long base = (static_cast<long long>(b) * v.G + g) * v.C * v.win;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  // zeros where the stretch leaves the width or the channels run out
+  if (p0 < 0 || p0 + span > v.win || cc0 + cols > creal)
+    for (int i = threadIdx.x; i < rows * pitch; i += kFoldThreads) tile[i] = zero;
+  __syncthreads();
+  const int lo = max(p0, 0), hi = min(p0 + span, v.win);
+  // position pos of stretch channel c_lo + cr goes to tile row (pos - p0) / st
+  auto put = [&](int cr, int pos, bf16 val) {
+    const int e = pos - p0, m = e / st;
+    const int col = (c_lo + cr) * st + (e - m * st) - cc0;
+    if (col >= 0 && col < cols) tile[m * pitch + col] = val;
+  };
+  if (lo < hi) {
+    if (vec) {
+      // pieces of 8 covering elements base + c win + lo .. base + c win + hi - 1
+      const int per = (hi - lo + 14) / 8 + 1;
+      const int n = (c_hi - c_lo) * per;
+      for (int i = threadIdx.x; i < n; i += kFoldThreads) {
+        const int cr = i / per;
+        const long long row = base + static_cast<long long>(c_lo + cr) * v.win;
+        const long long first = (row + lo) >> 3;
+        const long long el0 = (first + (i - cr * per)) * 8;
+        if (el0 >= row + hi) continue;
+        if (el0 + 8 <= numel) {
+          const uint4 piece = *reinterpret_cast<const uint4*>(src + el0);
+          const bf16* vals = reinterpret_cast<const bf16*>(&piece);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const long long pos = el0 + j - row;
+            if (pos >= lo && pos < hi) put(cr, static_cast<int>(pos), vals[j]);
+          }
+        } else {
+          for (int j = 0; j < 8 && el0 + j < numel; ++j) {
+            const long long pos = el0 + j - row;
+            if (pos >= lo && pos < hi) put(cr, static_cast<int>(pos), src[el0 + j]);
+          }
+        }
+      }
+    } else {
+      const int len = hi - lo, n = (c_hi - c_lo) * len;
+      for (int i = threadIdx.x; i < n; i += kFoldThreads) {
+        const int cr = i / len, pos = lo + (i - cr * len);
+        put(cr, pos, src[base + static_cast<long long>(c_lo + cr) * v.win + pos]);
+      }
+    }
+  }
+  __syncthreads();
+  const int pieces = cols / 8;
+  for (int i = threadIdx.x; i < rows * pieces; i += kFoldThreads) {
+    const int m = i / pieces, piece = i - m * pieces;
+    if (m0 + m >= v.L) break;
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(tile + m * pitch + piece * 8);
+    *reinterpret_cast<uint4*>(dst + ((static_cast<size_t>(g) * v.B + b) * v.L + m0 + m) * v.Kc +
+                              cc0 + piece * 8) = make_uint4(words[0], words[1], words[2], words[3]);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// The main kernel.  Block (`tpb` tiles of BM flat rows of the group's B L
+// folded rows, group x BN output channels, phase): an implicit GEMM per
+// tile with M = flat rows, N = output channels, K = (channel chunk, tap,
+// channel) in k-steps of 16.  A stage is `tg` taps x `ck` channels of one
+// tile: the A window (flat rows p0 + base + t0 .. p0 + base + t0 + BM + tg -
+// 2, which holds the row-shifted A tiles of all its taps) and the B tile
+// (tg x BN packed weight rows), each by 16-byte `cp.async` into rows padded
+// by 16 bytes (any 8 consecutive rows fall in distinct banks for
+// `ldmatrix`).  The block's tiles are one stream of stages through a ring of
+// kStages buffers: the copies of the next kStages - 1 stages, the next
+// tile's first ones too, fly while this one is multiplied, so a tile's
+// epilogue and the next one's first copies overlap.  Warps WM x WN, each MT
+// m-tiles of 16 by NT n-tiles of 8; tap t's A fragment is `ldmatrix.x4` at
+// rows t + the warp's, B `ldmatrix.x4` of two n-tiles, each k-step's
+// fragments loaded one step ahead; `mma.sync.m16n8k16` bf16 with fp32 sums.
+// At a tile's last stage the epilogue rounds y (or dX) once to bf16 in a
+// shared [BN][BM + 8] tile and stores channels-first, consecutive threads on
+// consecutive positions; flat rows past a batch row's outputs are dropped.
+template <int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN, 2)
+conv_bf16_kernel(const bf16* __restrict__ xf, const bf16* __restrict__ wp, bf16* __restrict__ out,
+                 ConvGeom q, Bf16View v) {
+  constexpr int kT = 32 * WM * WN;
+  constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
+  constexpr int CP = BM + 8;  // the epilogue tile's row, bf16
+  constexpr int PT = kT < BM ? kT : BM;  // epilogue: threads along the positions
+  static_assert(kT % PT == 0 && BM % PT == 0, "epilogue threads");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+
+  const int r = blockIdx.z;
+  const Bf16Phase ph = bf16_phase(q, v, r);
+  const int rows = v.B * v.L;
+  const int tile0 = blockIdx.x * v.tpb;
+  const int n_tiles = min(v.tpb, (rows + BM - 1) / BM - tile0);
+  const int o_tiles = (v.OC + BN - 1) / BN;
+  const int grp = blockIdx.y / o_tiles, o0 = (blockIdx.y - grp * o_tiles) * BN;
+  const bf16* xg = xf + static_cast<size_t>(grp) * rows * v.Kc;
+  const bf16* wg = wp + ((static_cast<size_t>(r) * v.G + grp) * v.OC + o0) * v.T * v.Kc;
+  const int pitch = v.ck + 8;
+  const int a_rows = BM + v.tg - 1;
+  const int stage = (a_rows + v.tg * BN) * pitch;
+  bf16* epi = smem + kStages * stage;
+  const int n_groups = (ph.taps + v.tg - 1) / v.tg;
+  const int n_stages = n_groups * (v.Kc / v.ck);  // a tile's
+  const int vs = v.ck == 64 ? 3 : v.ck == 32 ? 2 : 1;  // log2 of a row's 16-byte pieces
+  const int vm = (1 << vs) - 1;
+
+  // stage gs of the block's stream: stage gs % n_stages of tile gs / n_stages
+  auto load = [&](int gs, int buf) {
+    const int tile = gs / n_stages, s = gs - tile * n_stages;
+    const int chunk = s / n_groups, t0 = (s - chunk * n_groups) * v.tg;
+    const int tn = min(v.tg, ph.taps - t0), c0 = chunk * v.ck;
+    bf16* as = smem + buf * stage;
+    bf16* bs = as + a_rows * pitch;
+    const int row0 = (tile0 + tile) * BM + ph.base + t0;
+    const int an = (BM + tn - 1) << vs;
+    for (int i = tid; i < an; i += kT) {
+      const int row = i >> vs, piece = i & vm;
+      const bool ok = row0 + row < rows;
+      cp_async16(as + row * pitch + piece * 8,
+                 ok ? xg + static_cast<size_t>(row0 + row) * v.Kc + c0 + piece * 8 : xg, ok);
+    }
+    const int bn = (tn * BN) << vs;
+    for (int i = tid; i < bn; i += kT) {
+      const int rr = i >> vs, piece = i & vm;
+      const int t = rr / BN, n = rr - t * BN;
+      const bool ok = o0 + n < v.OC;
+      cp_async16(bs + rr * pitch + piece * 8,
+                 ok ? wg + (static_cast<size_t>(n) * v.T + t0 + t) * v.Kc + c0 + piece * 8 : wp,
+                 ok);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  // ldmatrix row addresses: A lane l -> row l % 16, column 8 (l / 16); B (x4,
+  // two n-tiles) lane l -> n (l % 8) + 8 (l / 16), column 8 ((l / 8) % 2),
+  // whose lanes 0-15 are also the x2 load's
+  const int a_off = (wm * MT * 16 + (lane & 15)) * pitch + (lane >> 4) * 8;
+  const int b_off = (wn * NT * 8 + (lane & 7) + ((lane >> 4) << 3)) * pitch + ((lane >> 3) & 1) * 8;
+  const int kq = vs - 1;  // log2 of a stage row's k-steps of 16
+
+  // a stage's k-steps, tap-major: k-step ks is tap ks >> kq, columns
+  // 16 (ks & (2^kq - 1)); each step's fragments are loaded one step ahead
+  auto compute = [&](int s, int buf) {
+    const int t0 = (s % n_groups) * v.tg;
+    const int steps = min(v.tg, ph.taps - t0) << kq;
+    const bf16* as = smem + buf * stage + a_off;
+    const bf16* bs = smem + buf * stage + a_rows * pitch + b_off;
+    uint32_t a[2][MT][4], b[2][NT][2];
+    auto frags = [&](int ks, int f) {
+      const int t = ks >> kq, kk = (ks & ((1 << kq) - 1)) * 16;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[f][mt], as + (t + mt * 16) * pitch + kk);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r4[4];
+        ldmatrix_x4(r4, bs + (t * BN + np * 16) * pitch + kk);
+        b[f][2 * np][0] = r4[0];
+        b[f][2 * np][1] = r4[1];
+        b[f][2 * np + 1][0] = r4[2];
+        b[f][2 * np + 1][1] = r4[3];
+      }
+      if constexpr (NT % 2 == 1)
+        ldmatrix_x2(b[f][NT - 1], bs + (t * BN + (NT - 1) * 8) * pitch + kk);
+    };
+    auto products = [&](int f) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[f][mt], b[f][nt][0], b[f][nt][1]);
+    };
+    frags(0, 0);
+#pragma unroll 1
+    for (int ks = 0; ks + 1 < steps; ks += 2) {
+      frags(ks + 1, 1);
+      products(0);
+      if (ks + 2 < steps) frags(ks + 2, 0);
+      products(1);
+    }
+    if (steps & 1) products(0);
+  };
+
+  // tile `tile` of the block: the accumulators rounded once to bf16 through
+  // the epilogue tile, stored channels-first, then zeroed
+  const int ow = v.dx ? q.W : q.Wout, ps = v.dx ? q.s : 1;
+  auto epilogue = [&](int tile) {
+    const int g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = wm * MT * 16 + mt * 16 + g8 + 8 * (e >> 1);
+          const int col = wn * NT * 8 + nt * 8 + 2 * t4 + (e & 1);
+          epi[col * CP + row] = __float2bfloat16_rn(acc[mt][nt][e]);
+          acc[mt][nt][e] = 0.0f;
+        }
+    __syncthreads();
+    for (int i = tid % PT; i < BM; i += PT) {
+      const int p = (tile0 + tile) * BM + i;
+      const int bb = p / v.L, pos = p - bb * v.L;
+      if (p >= rows || pos >= ph.nout) continue;
+      bf16* dst = out + ((static_cast<size_t>(bb) * v.G + grp) * v.OC + o0) * ow + pos * ps + r;
+      for (int o = tid / PT; o < BN && o0 + o < v.OC; o += kT / PT)
+        dst[static_cast<size_t>(o) * ow] = epi[o * CP + i];
+    }
+  };
+
+  if (n_stages == 0) {  // a dX phase no tap reaches: zeros
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      epilogue(tile);
+      __syncthreads();
+    }
+    return;
+  }
+  // one barrier a stage: after it, this stage's copies have landed for every
+  // thread and the buffer of the stage before is free for a new copy; the
+  // epilogue tile is rewritten only after the next stage's barrier
+  const int total = n_tiles * n_stages;
+#pragma unroll
+  for (int gs = 0; gs < kStages - 1; ++gs) {
+    if (gs < total) load(gs, gs);
+    cp_async_commit();
+  }
+  for (int gs = 0; gs < total; ++gs) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (gs + kStages - 1 < total) load(gs + kStages - 1, (gs + kStages - 1) % kStages);
+    cp_async_commit();
+    const int s = gs % n_stages;
+    compute(s, gs % kStages);
+    if (s == n_stages - 1) epilogue(gs / n_stages);
+  }
+}
+
+// the main kernel's epilogue tile, bytes
+constexpr int bf16_epi_bytes(int bm, int bn) { return 2 * bn * (bm + 8); }
+
+// Channels and taps a stage of the main kernel holds: of the chunk sizes 64,
+// 32, 16 that divide Kc, with the taps split into groups as even as the
+// budget (kStages stages and the epilogue tile in what two blocks a SM may
+// have) allows, the one that copies the fewest window elements into shared
+// memory (the weights are copied once whatever the split), counting 2048
+// elements for each stage's barrier.
+bool bf16_stages(Bf16View& v, int bm, int bn) {
+  const int budget = (static_cast<int>(kTwoBlockSmem) - bf16_epi_bytes(bm, bn)) / kStages;
+  long long best = -1;
+  for (int ck = 64; ck >= 16; ck /= 2) {
+    if (v.Kc % ck) continue;
+    const int pitch = ck + 8;
+    const int tmax = min(v.T, (budget / (2 * pitch) - bm + 1) / (1 + bn));
+    if (tmax < 1) continue;
+    const int groups = (v.T + tmax - 1) / tmax;
+    const int tg = (v.T + groups - 1) / groups;
+    const long long cost =
+        static_cast<long long>(v.Kc / ck) * groups * ((bm + tg - 1) * ck + 2048);
+    if (best < 0 || cost < best) {
+      best = cost;
+      v.ck = ck;
+      v.tg = tg;
+    }
+  }
+  return best >= 0;
+}
+
+template <int MT, int NT, int WM, int WN>
+int launch_conv_bf16(const bf16* xf, const bf16* wp, bf16* out, const ConvGeom& q, Bf16View v,
+                     cudaStream_t stream) {
+  constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
+  if (!bf16_stages(v, BM, BN)) return cudaErrorInvalidValue;
+  const size_t stage = static_cast<size_t>(BM + v.tg - 1 + v.tg * BN) * (v.ck + 8);
+  const size_t smem = 2 * kStages * stage + bf16_epi_bytes(BM, BN);
+  const long long m_tiles = (static_cast<long long>(v.B) * v.L + BM - 1) / BM;
+  const long long grid_y = static_cast<long long>(v.G) * ((v.OC + BN - 1) / BN);
+  if (smem > kMaxSmem || m_tiles > 0x7fffffff || grid_y > 65535 || v.phases > 65535)
+    return cudaErrorInvalidValue;
+  // tiles a block walks: enough blocks for about kBf16Waves waves of two
+  // blocks a SM, no more tiles a block than that leaves
+  const long long others = grid_y * v.phases;
+  const long long slots = 2LL * kBf16Sms * kBf16Waves;
+  v.tpb = static_cast<int>(std::max(1LL, m_tiles * others / slots));
+  const long long grid_x = (m_tiles + v.tpb - 1) / v.tpb;
+  auto kernel = conv_bf16_kernel<MT, NT, WM, WN>;
+  // once an instance: the most any launch asks for (the chooser's budget)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kTwoBlockSmem));
+  if (attr != cudaSuccess) return attr;
+  if (smem > kTwoBlockSmem) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(grid_x), static_cast<unsigned>(grid_y), v.phases);
+  kernel<<<grid, 32 * WM * WN, smem, stream>>>(xf, wp, out, q, v);
+  return cudaGetLastError();
+}
+
+// One bf16 K3 call: pack the weights and fold the input into `workspace`,
+// then run the main kernel.  Output channels per block: 8, 16 or 32 (8 warps
+// along the positions, 256 positions) or 64 (4 x 2 warps, 128 positions).
+int run_conv_bf16(const bf16* in, const bf16* w, bf16* out, bf16* workspace, const ConvGeom& q,
+                  bool dx, cudaStream_t stream) {
+  const Bf16View v = bf16_view(q, dx);
+  bf16* xf = workspace;
+  bf16* wp = workspace + bf16_fold_elems(v);
+  const long long fold_z = static_cast<long long>(v.G) * v.B;
+  const size_t pack_smem = 2 * static_cast<size_t>(dx ? q.Og : q.Cg) * q.k;
+  if (fold_z > 65535 || v.G > 65535 || v.phases > 65535 || pack_smem > kMaxSmem ||
+      static_cast<long long>(v.T) * v.Kc > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  if (pack_smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(pack_w_bf16_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(pack_smem));
+    if (err != cudaSuccess) return err;
+  }
+  pack_w_bf16_kernel<<<dim3(v.OC, v.G, v.phases), kPackThreads, pack_smem, stream>>>(w, wp, q, v);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rows = fold_rows(v.Kc);
+  const dim3 fold_grid((v.L + rows - 1) / rows, (v.Kc + kFoldCols - 1) / kFoldCols,
+                       static_cast<unsigned>(fold_z));
+  const long long numel = fold_z * v.C * v.win;
+  const int vec = aligned16(in);
+  switch (v.st) {
+    case 1: fold_bf16_kernel<1><<<fold_grid, kFoldThreads, 0, stream>>>(in, xf, v, numel, vec); break;
+    case 2: fold_bf16_kernel<2><<<fold_grid, kFoldThreads, 0, stream>>>(in, xf, v, numel, vec); break;
+    case 4: fold_bf16_kernel<4><<<fold_grid, kFoldThreads, 0, stream>>>(in, xf, v, numel, vec); break;
+    default: fold_bf16_kernel<0><<<fold_grid, kFoldThreads, 0, stream>>>(in, xf, v, numel, vec);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (v.OC <= 8) return launch_conv_bf16<4, 1, 8, 1>(xf, wp, out, q, v, stream);
+  if (v.OC <= 16) return launch_conv_bf16<2, 2, 8, 1>(xf, wp, out, q, v, stream);
+  if (v.OC <= 32) return launch_conv_bf16<2, 4, 8, 1>(xf, wp, out, q, v, stream);
+  return launch_conv_bf16<2, 4, 4, 2>(xf, wp, out, q, v, stream);
+}
+
 ConvGeom make_geom(int B, int Cin, int W, int Cout, int k, int s, int pad, int G, int Wout) {
   ConvGeom q;
   q.B = B; q.G = G; q.Cg = G > 0 ? Cin / G : 0; q.Og = G > 0 ? Cout / G : 0;
@@ -766,13 +1264,25 @@ ConvGeom make_geom(int B, int Cin, int W, int Cout, int k, int s, int pad, int G
 // contiguous: x [B, Cin, W], w [Cout, Cin/G, k], y and dy [B, Cout, Wout],
 // fp32 or (the `_bf16` entries) bf16; dW and its workspace are fp32 in both.
 
-template <bool DX, bool BF16>
+template <bool DX>
 int conv_entry(const void* in, const void* w, void* out, int B, int Cin, int W, int Cout, int k,
                int s, int pad, int G, int Wout, void* stream) {
   if (G < 1 || Cin % G || Cout % G) return cudaErrorInvalidValue;
   const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
   if (!geom_ok(q)) return cudaErrorInvalidValue;
-  return dispatch_conv_mma<DX, BF16>(in, w, out, q, static_cast<cudaStream_t>(stream));
+  return dispatch_conv_mma<DX>(in, w, out, q, static_cast<cudaStream_t>(stream));
+}
+
+template <bool DX>
+int conv_bf16_entry(const void* in, const void* w, void* out, void* workspace, int B, int Cin,
+                    int W, int Cout, int k, int s, int pad, int G, int Wout, void* stream) {
+  if (G < 1 || Cin % G || Cout % G || workspace == nullptr || !aligned16(workspace))
+    return cudaErrorInvalidValue;
+  const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
+  if (!geom_ok(q)) return cudaErrorInvalidValue;
+  return run_conv_bf16(static_cast<const bf16*>(in), static_cast<const bf16*>(w),
+                       static_cast<bf16*>(out), static_cast<bf16*>(workspace), q, DX,
+                       static_cast<cudaStream_t>(stream));
 }
 
 template <bool BF16>
@@ -797,16 +1307,38 @@ int dw_entry(const void* x, const void* dy, void* dw, void* workspace, int B, in
 
 }  // namespace
 
-#define ROAR_CONV_ENTRY(NAME, DX, BF16)                                                        \
+#define ROAR_CONV_ENTRY(NAME, DX)                                                              \
   extern "C" int NAME(const void* in, const void* w, void* out, int B, int Cin, int W,       \
                       int Cout, int k, int s, int pad, int G, int Wout, void* stream) {      \
-    return conv_entry<DX, BF16>(in, w, out, B, Cin, W, Cout, k, s, pad, G, Wout, stream);    \
+    return conv_entry<DX>(in, w, out, B, Cin, W, Cout, k, s, pad, G, Wout, stream);          \
   }
-ROAR_CONV_ENTRY(roar_grouped_conv_fwd, false, false)
-ROAR_CONV_ENTRY(roar_grouped_conv_dx, true, false)
-ROAR_CONV_ENTRY(roar_grouped_conv_fwd_bf16, false, true)
-ROAR_CONV_ENTRY(roar_grouped_conv_dx_bf16, true, true)
+ROAR_CONV_ENTRY(roar_grouped_conv_fwd, false)
+ROAR_CONV_ENTRY(roar_grouped_conv_dx, true)
 #undef ROAR_CONV_ENTRY
+
+// bf16 forward (in = x, out = y) and dX (in = dy, out = dx): `workspace` holds
+// the folded input and the packed weights, `roar_grouped_conv_bf16_workspace`
+// bytes, 16-byte aligned
+#define ROAR_CONV_BF16_ENTRY(NAME, DX)                                                         \
+  extern "C" int NAME(const void* in, const void* w, void* out, void* workspace, int B,      \
+                      int Cin, int W, int Cout, int k, int s, int pad, int G, int Wout,      \
+                      void* stream) {                                                        \
+    return conv_bf16_entry<DX>(in, w, out, workspace, B, Cin, W, Cout, k, s, pad, G, Wout,   \
+                               stream);                                                      \
+  }
+ROAR_CONV_BF16_ENTRY(roar_grouped_conv_fwd_bf16, false)
+ROAR_CONV_BF16_ENTRY(roar_grouped_conv_dx_bf16, true)
+#undef ROAR_CONV_BF16_ENTRY
+
+// Bytes of the workspace a bf16 forward (dx = 0) or dX (dx = 1) call needs; 0
+// for sizes the kernels do not take.
+extern "C" long long roar_grouped_conv_bf16_workspace(int dx, int B, int Cin, int W, int Cout,
+                                                      int k, int s, int pad, int G, int Wout) {
+  if (G < 1 || Cin % G || Cout % G) return 0;
+  const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
+  if (!geom_ok(q)) return 0;
+  return static_cast<long long>(bf16_workspace_bytes(bf16_view(q, dx != 0)));
+}
 
 // Number of parts the weight gradient splits batch x width into; the caller
 // allocates a workspace of parts * Cout * Cin/G * k floats when it is > 1.

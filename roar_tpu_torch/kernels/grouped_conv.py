@@ -7,13 +7,15 @@ dX) and `_dw_kernel` (K4, dW).  The kernels are in `csrc/grouped_conv.cu`;
 its source note says what bounds them on the H100 and what the design does
 about it.  In fp32, K3 and K4 multiply on the tensor cores in 3xTF32 (each
 fp32 operand split into two TF32 parts, three products per multiply-add,
-fp32 sums: about 1e-7 to 3e-6 of the result's scale).  In bf16 (the JAX
-package's bf16 step) they read bf16, form each product exactly as one TF32
-product of the widened values, sum in fp32 and write y and dX in bf16,
-rounded once, and dW in fp32, the TPU kernel's output types
-(roar_tpu/ops/grouped_conv.py:253,326).  The TPU kernel's fold,
-pack and tile helpers are not ported: the CUDA kernels take stride, padding
-and groups at run time and index the raw tensors.
+fp32 sums: about 1e-7 to 3e-6 of the result's scale); they take stride,
+padding and groups at run time and index the raw tensors.  In bf16 (the JAX
+package's bf16 step) K3 folds the stride into channels as the TPU kernel
+does (`_fold_x`, `_pack_w_fwd`, `_pack_w_dx`), but channels-last: each call
+packs the weights and writes the folded input into a scratch tensor the
+wrapper allocates, then multiplies bf16 products on the tensor cores at the
+bf16 rate with fp32 sums and writes y and dX in bf16, rounded once; K4 forms
+each product exactly as one TF32 product of the widened values and writes dW
+in fp32, the TPU kernel's output types (roar_tpu/ops/grouped_conv.py:253,326).
 
 Layouts: activations [B, C, W] as in the JAX op; the weight is torch's
 [Cout, Cin/G, k] (the JAX op takes flax's [k, Cin/G, Cout]).  Output channel
@@ -32,6 +34,8 @@ call, its reduction pass included).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -139,6 +143,20 @@ def _cuda_or_plain(name: str, t: torch.Tensor) -> bool:
     return True
 
 
+@functools.lru_cache(maxsize=256)
+def _bf16_workspace_bytes(lib, dx: bool, shape: tuple) -> int:
+    nbytes = lib.roar_grouped_conv_bf16_workspace(int(dx), *shape)
+    if nbytes < 1:
+        raise ValueError(f"grouped_conv bf16: the kernel does not take shape {shape}")
+    return nbytes
+
+
+def _bf16_workspace(lib, dx: bool, shape: tuple, device: torch.device) -> torch.Tensor:
+    """The bf16 K3 call's scratch: the folded channels-last input and the
+    packed weights, sized by the library (once a shape)."""
+    return torch.empty(_bf16_workspace_bytes(lib, dx, shape), dtype=torch.uint8, device=device)
+
+
 def grouped_conv_fwd(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
                      groups: int) -> torch.Tensor:
     """Grouped conv forward: x [B, Cin, W], w [Cout, Cin/G, k] -> [B, Cout, Wout]."""
@@ -158,9 +176,14 @@ def grouped_conv_fwd(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int
 
     lib = load_library()
     bf16 = x.dtype == torch.bfloat16
-    launch = lib.roar_grouped_conv_fwd_bf16 if bf16 else lib.roar_grouped_conv_fwd
-    err = launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, cin, width, cout, k, stride,
-                 padding, groups, wout, torch.cuda.current_stream(x.device).cuda_stream)
+    shape = (b, cin, width, cout, k, stride, padding, groups, wout)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bf16:
+        workspace = _bf16_workspace(lib, False, shape, x.device)
+        err = lib.roar_grouped_conv_fwd_bf16(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                             workspace.data_ptr(), *shape, stream)
+    else:
+        err = lib.roar_grouped_conv_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), *shape, stream)
     check(lib, err, "grouped_conv_fwd launch")
     global LAUNCHES_FWD, LAUNCHES_FWD_BF16
     if bf16:
@@ -191,9 +214,14 @@ def grouped_conv_dx(dy: torch.Tensor, w: torch.Tensor, in_width: int, stride: in
 
     lib = load_library()
     bf16 = dy.dtype == torch.bfloat16
-    launch = lib.roar_grouped_conv_dx_bf16 if bf16 else lib.roar_grouped_conv_dx
-    err = launch(dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b, cin, in_width, cout, k, stride,
-                 padding, groups, wout, torch.cuda.current_stream(dy.device).cuda_stream)
+    shape = (b, cin, in_width, cout, k, stride, padding, groups, wout)
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    if bf16:
+        workspace = _bf16_workspace(lib, True, shape, dy.device)
+        err = lib.roar_grouped_conv_dx_bf16(dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                                            workspace.data_ptr(), *shape, stream)
+    else:
+        err = lib.roar_grouped_conv_dx(dy.data_ptr(), w.data_ptr(), dx.data_ptr(), *shape, stream)
     check(lib, err, "grouped_conv_dx launch")
     global LAUNCHES_DX, LAUNCHES_DX_BF16
     if bf16:

@@ -105,11 +105,17 @@ def load_library() -> ctypes.CDLL:
     bt.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     bt.restype = ctypes.c_int
     conv_shape = [ctypes.c_int] * 9  # B, Cin, W, Cout, k, stride, pad, G, Wout
-    for name in ("roar_grouped_conv_fwd", "roar_grouped_conv_dx", "roar_grouped_conv_fwd_bf16",
-                 "roar_grouped_conv_dx_bf16"):
+    for name in ("roar_grouped_conv_fwd", "roar_grouped_conv_dx"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + conv_shape + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # bf16: in, w, out, workspace (`roar_grouped_conv_bf16_workspace` bytes)
+    for name in ("roar_grouped_conv_fwd_bf16", "roar_grouped_conv_dx_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + conv_shape + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.roar_grouped_conv_bf16_workspace.argtypes = [ctypes.c_int] + conv_shape  # dx, ...
+    lib.roar_grouped_conv_bf16_workspace.restype = ctypes.c_longlong
     lib.roar_grouped_conv_dw_parts.argtypes = conv_shape
     lib.roar_grouped_conv_dw_parts.restype = ctypes.c_int
     for name in ("roar_grouped_conv_dw", "roar_grouped_conv_dw_bf16"):

@@ -166,6 +166,12 @@ def test_kernels_match_plain_on_the_card():
 _NAMESPACE = "_ZN54_GLOBAL__N__5d1e6a7c_15_grouped_conv_cu_8f3c2b1e"
 K3_MANGLED = _NAMESPACE + "15conv_mma_kernelILi2ELi4ELi2ELb1EEEvPKfS2_PfNS_8ConvGeomEii"
 K4_MANGLED = _NAMESPACE + "13dw_mma_kernelILi8ELi2EEEvPKfS2_PfNS_8ConvGeomENS_8DwLayoutE"
+# the bf16 K3: main kernel (MT, NT, WM, WN), layout pass (phases a row), weight pack
+K3_BF16_MANGLED = (_NAMESPACE + "16conv_bf16_kernelILi2ELi4ELi4ELi2EEEvPK13__nv_bfloat16S3_PS1_"
+                   "NS_8ConvGeomENS_8Bf16ViewE")
+FOLD_MANGLED = (_NAMESPACE + "16fold_bf16_kernelILi2EEEvPK13__nv_bfloat16PS1_NS_8Bf16ViewExi")
+PACK_MANGLED = (_NAMESPACE + "18pack_w_bf16_kernelEPK13__nv_bfloat16PS0_NS_8ConvGeomE"
+                "NS_8Bf16ViewE")
 
 
 def _ptxas_entry(mangled: str, registers: int, spill: int = 0) -> str:
@@ -190,13 +196,19 @@ def _build_log(k4_spill: int = 0, drop_k4=None, k1_spill: int = 0) -> str:
     # every flash kernel's one template argument is its head size
     for name, _, d in cs.flash_instances():
         log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi{d}EEEvv", 128)
-    # the fp32 and the bf16 instances (last template argument 0 and 1)
+    # K3 in fp32 (forward and dX), K3 in bf16 (main kernel, layout pass,
+    # weight pack); K4 in fp32 and bf16 (last template argument 0 and 1)
+    for view in ("fwd", "dx"):
+        for wn, nt, mt in cs.CONV_MMA_TILES:
+            log += _ptxas_entry(K3_MANGLED.replace(
+                "ILi2ELi4ELi2ELb1E", f"ILi{wn}ELi{nt}ELi{mt}ELb{int(view == 'dx')}E"), 100)
+    for tiles in cs.CONV_BF16_TILES:
+        log += _ptxas_entry(K3_BF16_MANGLED.replace(
+            "ILi2ELi4ELi4ELi2E", "I" + "".join(f"Li{t}E" for t in tiles)), 110)
+    for (phases,) in cs.FOLD_BF16_PHASES:
+        log += _ptxas_entry(FOLD_MANGLED.replace("ILi2E", f"ILi{phases}E"), 32)
+    log += _ptxas_entry(PACK_MANGLED, 20)
     for bf16 in (0, 1):
-        for view in ("fwd", "dx"):
-            for wn, nt, mt in cs.CONV_MMA_TILES:
-                log += _ptxas_entry(K3_MANGLED.replace(
-                    "ILi2ELi4ELi2ELb1E", f"ILi{wn}ELi{nt}ELi{mt}ELb{int(view == 'dx')}ELb{bf16}E"),
-                    100)
         for nt, mt in cs.DW_MMA_TILES:
             if (nt, mt) != drop_k4 or bf16:
                 log += _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", f"ILi{nt}ELi{mt}ELb{bf16}E"),
@@ -212,18 +224,21 @@ def test_ptxas_parser_reads_k3_and_k4_instances():
     import chip_smoke as cs
 
     table = cs.parse_ptxas(_ptxas_entry(K3_MANGLED, 122) + _ptxas_entry(K4_MANGLED, 128, 8)
-                           + _ptxas_entry(K3_MANGLED.replace("ELb1E", "ELb1ELb1E"), 90)
+                           + _ptxas_entry(K3_BF16_MANGLED, 90) + _ptxas_entry(FOLD_MANGLED, 31)
+                           + _ptxas_entry(PACK_MANGLED, 20)
                            + _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", "ILi8ELi2ELb1E"), 96))
     assert set(table) == {("conv_mma_kernel", "dx", (2, 4, 2)), ("dw_mma_kernel", "dw", (8, 2)),
-                          ("conv_mma_kernel", "dx_bf16", (2, 4, 2)),
+                          ("conv_bf16_kernel", "fwd_dx_bf16", (2, 4, 4, 2)),
+                          ("fold_bf16_kernel", "layout_bf16", (2,)),
+                          ("pack_w_bf16_kernel", "pack_bf16", ()),
                           ("dw_mma_kernel", "dw_bf16", (8, 2))}
-    assert table[("conv_mma_kernel", "dx_bf16", (2, 4, 2))]["registers"] == 90
+    assert table[("conv_bf16_kernel", "fwd_dx_bf16", (2, 4, 4, 2))]["registers"] == 90
     assert table[("conv_mma_kernel", "dx", (2, 4, 2))]["registers"] == 122
     k4 = table[("dw_mma_kernel", "dw", (8, 2))]
     assert (k4["registers"], k4["spill_store_bytes"], k4["spill_load_bytes"]) == (128, 8, 8)
 
 
-@pytest.mark.parametrize("fault", [None, "spill", "missing", "viterbi_spill"])
+@pytest.mark.parametrize("fault", [None, "spill", "missing", "viterbi_spill", "stale_bf16_k3"])
 def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, monkeypatch,
                                                                      fault):
     import chip_smoke as cs
@@ -232,16 +247,23 @@ def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, mo
     log = _build_log(k4_spill=8 if fault == "spill" else 0,
                      drop_k4=(2, 4) if fault == "missing" else None,
                      k1_spill=8 if fault == "viterbi_spill" else 0)
+    if fault == "stale_bf16_k3":  # a bf16 instance of the fp32 K3 routine, as before the fold
+        log += _ptxas_entry(K3_MANGLED.replace("ELb1E", "ELb1ELb1E"), 90)
     (tmp_path / "lib.log").write_text(log)
     if fault is None:
         line = cs.phase_kernel_build(tmp_path / "lib.so")
         k4 = [row for row in line["grouped_conv_instances"] if row["kernel"] == "dw_mma_kernel"]
         assert [tuple(row["nt_mt"]) for row in k4] == cs.DW_MMA_TILES * 2  # fp32, then bf16
         assert [row["view"] for row in k4] == ["dw"] * 4 + ["dw_bf16"] * 4
-        assert len(line["grouped_conv_instances"]) == 4 * len(cs.CONV_MMA_TILES) + len(k4)
+        assert len(line["grouped_conv_instances"]) == (
+            2 * len(cs.CONV_MMA_TILES) + len(cs.CONV_BF16_TILES) + len(cs.FOLD_BF16_PHASES) + 1
+            + len(k4))
         assert len(line["viterbi_instances"]) == 9  # K1 at two widths x four splits, K2
     elif fault == "viterbi_spill":
         with pytest.raises(AssertionError, match="pyin_viterbi_fwd_kernel.*spills"):
+            cs.phase_kernel_build(tmp_path / "lib.so")
+    elif fault == "stale_bf16_k3":
+        with pytest.raises(AssertionError, match="bf16 instance of conv_mma_kernel"):
             cs.phase_kernel_build(tmp_path / "lib.so")
     else:
         match = "spills" if fault == "spill" else "not in the ptxas log"
