@@ -664,10 +664,14 @@ def _conv_instance(mangled: str) -> Optional[tuple]:
     ("conv_bf16_kernel", "fwd_dx_bf16", (MT, NT, WM, WN)) of a bf16 K3 main
     kernel's (m-tiles and n-tiles per warp, warps along the positions and the
     output channels; forward and dX are one routine), ("fold_bf16_kernel",
-    "layout_bf16", (ST,)) of its layout pass's, ("pack_w_bf16_kernel",
-    "pack_bf16", ()) of its weight pack's; ("dw_mma_kernel", "dw", (NT, MT))
-    of a K4 instance's (n-tiles of the block, m-tiles per warp, bf16; a bf16
-    instance's view is "dw_bf16"), else None."""
+    "layout_bf16", (ST,)) of its layout pass's (the bf16 K4's two layout
+    passes too), ("pack_w_bf16_kernel", "pack_bf16", ()) of its weight
+    pack's; ("dw_mma_kernel", "dw", (NT, MT)) of an fp32 K4 instance's
+    (n-tiles of the block, m-tiles per warp);
+    ("dw_bf16_kernel", "dw_bf16", (MT, NT, WM, WN)) of a bf16 K4 main
+    kernel's (m-tiles and n-tiles per warp, warps along the (tap, channel)
+    pairs and the output channels), ("dw_unpack_bf16_kernel",
+    "dw_unpack_bf16", ()) of its reduce-and-unpack pass's, else None."""
     found = re.search(r"(conv_mma_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", mangled)
     if found is not None:
         return (found.group(1), "dx" if found.group(5) == "1" else "fwd",
@@ -680,24 +684,42 @@ def _conv_instance(mangled: str) -> Optional[tuple]:
         return found.group(1), "layout_bf16", (int(found.group(2)),)
     if "pack_w_bf16_kernel" in mangled:
         return "pack_w_bf16_kernel", "pack_bf16", ()
-    found = re.search(r"(dw_mma_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?", mangled)
+    found = re.search(r"(dw_mma_kernel)ILi(\d+)ELi(\d+)E", mangled)
     if found is not None:
-        return (found.group(1), "dw_bf16" if found.group(4) == "1" else "dw",
-                (int(found.group(2)), int(found.group(3))))
+        return found.group(1), "dw", (int(found.group(2)), int(found.group(3)))
+    found = re.search(r"(dw_bf16_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if found is not None:
+        return found.group(1), "dw_bf16", tuple(int(found.group(i)) for i in (2, 3, 4, 5))
+    if "dw_unpack_bf16_kernel" in mangled:
+        return "dw_unpack_bf16_kernel", "dw_unpack_bf16", ()
     return None
 
 
 # the fp32 K3 instances `dispatch_conv_mma` of csrc/grouped_conv.cu can
 # launch, the bf16 K3 main kernels `run_conv_bf16` can launch (MT, NT, WM,
 # WN) and its layout pass's (the folded phases a row: 1, 2, 4 or 0, read at
-# run time), and the K4 instances of `roar_grouped_conv_dw` (`dw_tiles`)
+# run time), the fp32 K4 instances of `roar_grouped_conv_dw` (`dw_tiles`) and
+# the bf16 K4 main kernels `run_dw_bf16` can launch (MT, NT, WM, WN)
 CONV_MMA_TILES = [(wn, nt, mt) for wn, nt in ((1, 1), (1, 2), (1, 4), (2, 4)) for mt in (1, 2)]
 CONV_BF16_TILES = [(4, 1, 8, 1), (2, 2, 8, 1), (2, 4, 8, 1), (2, 4, 4, 2)]
 FOLD_BF16_PHASES = [(1,), (2,), (4,), (0,)]
 DW_MMA_TILES = [(1, 4), (2, 4), (4, 4), (8, 2)]
+DW_BF16_TILES = [(4, 2, 8, 1), (4, 4, 8, 1), (4, 4, 4, 2)]
 # the bf16 K3 main kernel's dynamic shared memory: its ring of stages, each
 # at most `kBf16StageBytes`, fits what two blocks a SM may have
 CONV_BF16_MAX_DYNAMIC_SMEM = 228 * 1024 // 2 - 1024
+
+
+def dw_bf16_max_dynamic_smem(tiles) -> int:
+    """The most dynamic shared memory a launch of a bf16 K4 main kernel
+    instance asks for (csrc/grouped_conv.cu `launch_dw_bf16`): three stages
+    of 128 flat rows, each the x' window of 128 + tg - 1 rows of 16 cq + 8
+    channels (tg at most the block's m-tiles over cq) and 128 dy' rows of BN
+    + 8 channels, bf16, at the worst chunk count cq."""
+    mt, nt, wm, wn = tiles
+    mb, bn = wm * mt, wn * nt * 8
+    return max(2 * 3 * ((128 + mb // cq - 1) * (16 * cq + 8) + 128 * (bn + 8))
+               for cq in (1, 2, 4))
 
 
 def _viterbi_instance(mangled: str) -> Optional[tuple]:
@@ -815,21 +837,24 @@ def phase_kernel_build(lib_path) -> dict:
         smem = flash_dynamic_smem(kernel, dtype, d) + info["static_smem_bytes"]
         if smem > H100_SMEM_PER_BLOCK:
             raise AssertionError(f"{kernel}<{d}> asks for {smem} bytes of shared memory")
-    # K3 and K4 in fp32 (3xTF32 products), K4 in bf16 (one exact TF32
-    # product of the widened operands), K3 in bf16 (its main kernel on
-    # m16n8k16 bf16 products with fp32 sums, its layout pass and weight
-    # pack): one dynamic shared memory size per launch (csrc/grouped_conv.cu
-    # `k3_smem`, `launch_dw`, `launch_conv_bf16`), so only the bf16 K3 main
-    # kernel's largest is listed.  No instance may spill; the bf16 K3 main
-    # kernel may have no stack frame and must hold bf16 m16n8k16 products
+    # K3 and K4 in fp32 (3xTF32 products), K3 and K4 in bf16 (main kernels
+    # on m16n8k16 bf16 products with fp32 sums; K3's layout pass, which K4
+    # runs too, and weight pack; K4's reduce-and-unpack pass): one dynamic
+    # shared memory size per launch (csrc/grouped_conv.cu `k3_smem`,
+    # `launch_dw`, `launch_conv_bf16`, `launch_dw_bf16`), so only each bf16
+    # main kernel's largest is listed.  No instance may spill; the bf16 main
+    # kernels and K4's unpack may have no stack frame, and the main kernels
+    # must hold bf16 m16n8k16 products
     conv_rows = []
+    bf16_main = ("conv_bf16_kernel", "dw_bf16_kernel")
     for kernel, view, tiles in ([("conv_mma_kernel", view, tiles) for view in ("fwd", "dx")
                                  for tiles in CONV_MMA_TILES]
                                 + [("conv_bf16_kernel", "fwd_dx_bf16", t) for t in CONV_BF16_TILES]
                                 + [("fold_bf16_kernel", "layout_bf16", t) for t in FOLD_BF16_PHASES]
                                 + [("pack_w_bf16_kernel", "pack_bf16", ())]
-                                + [("dw_mma_kernel", "dw" + sfx, tiles)
-                                   for sfx in ("", "_bf16") for tiles in DW_MMA_TILES]):
+                                + [("dw_mma_kernel", "dw", tiles) for tiles in DW_MMA_TILES]
+                                + [("dw_bf16_kernel", "dw_bf16", t) for t in DW_BF16_TILES]
+                                + [("dw_unpack_bf16_kernel", "dw_unpack_bf16", ())]):
         key = (kernel, view, tiles)
         info = everything.get(key)
         if info is None or info["registers"] is None:
@@ -837,23 +862,26 @@ def phase_kernel_build(lib_path) -> dict:
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
             raise AssertionError(f"{kernel}<{tiles}, {view}> spills: {info}")
         names = {"conv_mma_kernel": "wn_nt_mt", "conv_bf16_kernel": "mt_nt_wm_wn",
-                 "fold_bf16_kernel": "phases_a_row"}
+                 "dw_bf16_kernel": "mt_nt_wm_wn", "fold_bf16_kernel": "phases_a_row"}
         dtype = ("float32 (3xTF32 products)" if view in ("fwd", "dx", "dw")
-                 else "bfloat16 (one TF32 product of widened operands)" if view == "dw_bf16"
+                 else "float32 (parts added in part order)" if view == "dw_unpack_bf16"
                  else "bfloat16 (m16n8k16 bf16 products, fp32 sums)")
         row = {"kernel": kernel, "view": view, names.get(kernel, "nt_mt"): list(tiles),
                "dtype": dtype, **info}
-        if kernel == "conv_bf16_kernel":
-            if info["stack_bytes"]:
-                raise AssertionError(f"{kernel}<{tiles}> has a stack frame: {info}")
-            row["dynamic_smem_bytes_max"] = CONV_BF16_MAX_DYNAMIC_SMEM
-            if CONV_BF16_MAX_DYNAMIC_SMEM + info["static_smem_bytes"] > H100_SMEM_PER_BLOCK:
+        if kernel in bf16_main + ("dw_unpack_bf16_kernel",) and info["stack_bytes"]:
+            raise AssertionError(f"{kernel}<{tiles}> has a stack frame: {info}")
+        if kernel in bf16_main:
+            row["dynamic_smem_bytes_max"] = (CONV_BF16_MAX_DYNAMIC_SMEM
+                                             if kernel == "conv_bf16_kernel"
+                                             else dw_bf16_max_dynamic_smem(tiles))
+            if row["dynamic_smem_bytes_max"] + info["static_smem_bytes"] > H100_SMEM_PER_BLOCK:
                 raise AssertionError(f"{kernel}<{tiles}> may ask for too much shared memory")
-        if hmma is not None and kernel in ("conv_mma_kernel", "conv_bf16_kernel",
-                                           "dw_mma_kernel"):
+        if kernel == "dw_unpack_bf16_kernel":  # a dw row, 4 Cg k bytes: the plan takes no more
+            row["dynamic_smem_bytes_max"] = H100_SMEM_PER_BLOCK
+        if hmma is not None and kernel in ("conv_mma_kernel", "dw_mma_kernel") + bf16_main:
             found = hmma.get(key, {})
             row["hmma"] = found.get("HMMA", 0)
-            if kernel == "conv_bf16_kernel":
+            if kernel in bf16_main:
                 row["hmma_16816_bf16"] = found.get("HMMA.16816.F32.BF16", 0)
                 if row["hmma_16816_bf16"] == 0:
                     raise AssertionError(f"{kernel}<{tiles}> has no HMMA.16816.F32.BF16 "
@@ -864,6 +892,8 @@ def phase_kernel_build(lib_path) -> dict:
         conv_rows.append(row)
     if re.search(r"conv_mma_kernelI(?:Li\d+E){3}Lb[01]ELb", log):
         raise AssertionError("a bf16 instance of conv_mma_kernel is still built")
+    if re.search(r"dw_mma_kernelI(?:Li\d+E){2}Lb1E", log):
+        raise AssertionError("a bf16 instance of dw_mma_kernel is still built")
     # K1 (one instance per band width, 101 and the run-time one, and lanes a
     # bin, 1 / 2 / 4 / 8) and K2: dynamic shared memory depends on the launch
     viterbi_rows = []
@@ -1529,7 +1559,7 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
                 result["timing"] = _time_gan_step(timing_state, batch, card, phase,
                                                   {n: (gk, n) for n in _PlainGroupedConv.NAMES})
                 if bf16:
-                    result["k3_device"] = _k3_bf16_device_time(
+                    result["conv_device"] = _conv_bf16_device_time(
                         lambda: gan_train_step(timing_state, batch), phase, card)
             return result
     finally:
@@ -1537,16 +1567,51 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
 
 
 # the kernels of one bf16 K3 call (csrc/grouped_conv.cu): weight pack, layout
-# pass, main kernel; forward and dX launch the same three
+# pass, main kernel; forward and dX launch the same three.  Those of one bf16
+# K4 call, by role: the layout pass of x, that of dy (the same kernel as
+# K3's), the main kernel, the reduce-and-unpack pass
 K3_BF16_KERNELS = ("pack_w_bf16_kernel", "fold_bf16_kernel", "conv_bf16_kernel")
+K4_BF16_KERNELS = ("fold_bf16_kernel", "fold_bf16_kernel", "dw_bf16_kernel",
+                   "dw_unpack_bf16_kernel")
+K4_BF16_ROLES = ("fold_x", "fold_dy", "dw_bf16_kernel", "dw_unpack_bf16_kernel")
+_CONV_BF16_NAME = re.compile(r"(?<!\w)(pack_w_bf16_kernel|fold_bf16_kernel|conv_bf16_kernel|"
+                             r"dw_bf16_kernel|dw_unpack_bf16_kernel)\b")
 
 
-def _k3_bf16_device_time(step, phase: str, card: str) -> dict:
-    """K3's device time inside one bf16 `step()`, from the CUDA activity of
-    `torch.profiler`: the summed device time of the bf16 K3 kernels (every
-    forward and dX call's pack, layout pass and main kernel) and their
-    launches, beside the device time of every kernel of the step.  Unlike
-    the CUDA events of `_time_inside`, it holds no host gaps between
+def attribute_conv_bf16_launches(launches) -> list:
+    """(call, role) of each bf16 K3/K4 kernel launch, `launches` being their
+    kernel names in launch order on one stream: call "k3" or "k4", role the
+    kernel's name or, for K4's layout passes, "fold_x" / "fold_dy".  The
+    layout pass is one kernel for both: a launch of it belongs to the call
+    whose main kernel comes next, K4's when that is `dw_bf16_kernel`, where
+    the first of its two is x's and the second dy's."""
+    out, pending = [], []
+    for i, name in enumerate(launches):
+        if name == "fold_bf16_kernel":
+            pending.append(i)
+            out.append(None)
+            continue
+        if name in ("conv_bf16_kernel", "dw_bf16_kernel"):
+            k4 = name == "dw_bf16_kernel"
+            if len(pending) != (2 if k4 else 1):
+                raise AssertionError(f"{len(pending)} layout passes before {name} at launch {i}")
+            for role, j in zip(("fold_x", "fold_dy") if k4 else ("fold_bf16_kernel",), pending):
+                out[j] = ("k4" if k4 else "k3", role)
+            pending = []
+        out.append(("k4" if name.startswith("dw_") else "k3", name))
+    if pending:
+        raise AssertionError(f"layout passes with no main kernel after them: {pending}")
+    return out
+
+
+def _conv_bf16_device_time(step, phase: str, card: str) -> dict:
+    """The bf16 K3's and K4's device time inside one bf16 `step()`, from the
+    CUDA activity of `torch.profiler`: each call's kernels' summed device
+    time by kernel (K3: every forward and dX call's pack, layout pass and
+    main kernel; K4: every dW call's two layout passes, main kernel and
+    reduce-and-unpack pass, told apart by `attribute_conv_bf16_launches`) and
+    their launches, beside the device time of every kernel of the step.
+    Unlike the CUDA events of `_time_inside`, it holds no host gaps between
     launches."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1555,23 +1620,34 @@ def _k3_bf16_device_time(step, phase: str, card: str) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    launches, micros, every = Counter(), Counter(), 0.0
+    every = 0.0
     for event in prof.key_averages():
-        t = (event.device_time_total if hasattr(event, "device_time_total")
-             else event.cuda_time_total)
-        every += t
-        found = re.search(r"(" + "|".join(K3_BF16_KERNELS) + r")\b", event.key)
+        every += (event.device_time_total if hasattr(event, "device_time_total")
+                  else event.cuda_time_total)
+    kernels = []
+    for event in prof.events():
+        found = _CONV_BF16_NAME.search(event.name)
         if found is not None:
-            launches[found.group(1)] += event.count
-            micros[found.group(1)] += t
-    k3 = sum(micros.values()) / 1e3
-    line = {"phase": phase, "step": "k3_device_time", "card": card,
-            "k3_device_ms_per_step": k3,
-            "by_kernel_ms": {k: micros[k] / 1e3 for k in K3_BF16_KERNELS},
-            "launches_per_step": {k: launches[k] for k in K3_BF16_KERNELS},
-            "all_kernels_device_ms_per_step": every / 1e3,
-            "k3_share_of_device_time": k3 / max(every / 1e3, 1e-9),
-            "method": "torch.profiler CUDA activity over one step after one warm step"}
+            kernels.append((event.time_range.start, found.group(1),
+                            event.time_range.elapsed_us()))
+    kernels.sort()
+    launches, micros = Counter(), Counter()
+    for (call, role), (_, _, us) in zip(attribute_conv_bf16_launches([k[1] for k in kernels]),
+                                        kernels):
+        launches[call, role] += 1
+        micros[call, role] += us
+    roles = {"k3": K3_BF16_KERNELS, "k4": K4_BF16_ROLES}
+    line = {"phase": phase, "step": "conv_bf16_device_time", "card": card}
+    for call, names in roles.items():
+        line[f"{call}_device_ms_per_step"] = sum(micros[call, r] for r in names) / 1e3
+        line[f"{call}_by_kernel_ms"] = {r: micros[call, r] / 1e3 for r in names}
+        line[f"{call}_launches_per_step"] = {r: launches[call, r] for r in names}
+        line[f"{call}_share_of_device_time"] = (line[f"{call}_device_ms_per_step"]
+                                                / max(every / 1e3, 1e-9))
+    if len(set(line["k4_launches_per_step"].values())) != 1:
+        raise AssertionError(f"K4's kernels launched unevenly: {line['k4_launches_per_step']}")
+    line.update(all_kernels_device_ms_per_step=every / 1e3,
+                method="torch.profiler CUDA activity over one step after one warm step")
     _emit(line)
     return line
 
@@ -4440,16 +4516,17 @@ def main() -> int:
         # times and bounds summed over the 15 shapes at JETS's 32 x 16384, and
         # in `train_hifigan` at 32 x 8192; library = cuDNN in bf16; bounds at
         # the dense bf16 rate.  A bf16 K3 call (one count) launches its weight
-        # pack, layout pass and main kernel; `k3_device_ms_per_step_hifigan`
-        # is the three's device time, forward and dX, inside one bf16
-        # HiFi-GAN step, by the profiler
+        # pack, layout pass and main kernel, a bf16 K4 call its two layout
+        # passes, main kernel and reduce-and-unpack pass;
+        # `device_ms_per_step_hifigan` is their device time (K3: forward and
+        # dX) inside one bf16 HiFi-GAN step, by the profiler, by kernel in
+        # `by_kernel_ms_hifigan`
         *[{"name": f"grouped_conv_{name}_bf16", "route": "cuda",
            "source": "roar_tpu_torch/csrc/grouped_conv.cu", "replaces": replaces,
-           "kernel": "dw_mma_kernel" if name == "dw" else "conv_bf16_kernel",
-           **({} if name == "dw" else {
-               "kernels_per_call": list(K3_BF16_KERNELS),
-               "k3_device_ms_per_step_hifigan": train_bf16["k3_device"]["k3_device_ms_per_step"],
-               "k3_launches_per_step_hifigan": train_bf16["k3_device"]["launches_per_step"]}),
+           "kernel": "dw_bf16_kernel" if name == "dw" else "conv_bf16_kernel",
+           "kernels_per_call": list(K4_BF16_KERNELS if name == "dw" else K3_BF16_KERNELS),
+           **{f"{key}_hifigan": train_bf16["conv_device"][("k4_" if name == "dw" else "k3_") + key]
+              for key in ("device_ms_per_step", "by_kernel_ms", "launches_per_step")},
            "dtype": "bfloat16", "launches": jets_bf16["launches_bf16"][f"grouped_conv_{name}"],
            "launches_train_hifigan_bf16": train_bf16["launches_bf16"][name],
            "max_abs_err": max(conv_bf16[name]["max_abs_err"],

@@ -4,11 +4,11 @@
 // Replace roar_tpu/ops/grouped_conv.py `_core_kernel` (K3: the forward and,
 // with a phase-packed transposed weight, dX) and `_dw_kernel` (K4: dW).  The
 // TPU kernels fold the stride into channels and pack taps so that a 128-row
-// matrix unit sees 128-lane tiles at static offsets.  The fp32 kernels and
-// K4 carry none of that over: stride, padding and group count are run-time
-// arguments and they index the raw tensors: x [B, Cin, W], w [Cout, Cin/G, k]
-// (torch's layout), y [B, Cout, Wout], Wout = (W + 2 pad - k) / s + 1.  The
-// bf16 K3 folds the stride into channels as the TPU does, channels-last
+// matrix unit sees 128-lane tiles at static offsets.  The fp32 kernels carry
+// none of that over: stride, padding and group count are run-time arguments
+// and they index the raw tensors: x [B, Cin, W], w [Cout, Cin/G, k] (torch's
+// layout), y [B, Cout, Wout], Wout = (W + 2 pad - k) / s + 1.  The bf16 K3
+// and K4 fold the stride into channels as the TPU does, channels-last
 // (below).
 //
 //   fwd  y[b, g Og + o, n]  = sum_{c, j} w[g Og + o, c, j] x[b, g Cg + c, n s + j - pad]
@@ -66,10 +66,10 @@
 //   is packed in device memory.  Tail positions that no tap reaches get 0.
 //   No atomics: each output is one accumulator of one thread, summed in a
 //   fixed order, so two runs give the same bits.
-// K4 (`dw_mma_kernel` + `dw_reduce_kernel`) also runs on the tensor cores in
-//   3xTF32: an implicit GEMM per group with M = the group's (input channel,
-//   tap) pairs, N = its output channels (one n-tile of 8 per 8 of them, up
-//   to 64 a block) and K = batch x width positions.  The TPU kernel carries
+// K4 in fp32 (`dw_mma_kernel` + `dw_reduce_kernel`) also runs on the tensor
+//   cores in 3xTF32: an implicit GEMM per group with M = the group's (input
+//   channel, tap) pairs, N = its output channels (one n-tile of 8 per 8 of
+//   them, up to 64 a block) and K = batch x width positions.  The TPU kernel carries
 //   its sum along a sequential grid axis; blocks here run in no order, and
 //   the output (G x Og x Cg k values) alone cannot fill 132 SMs, so the
 //   positions are split into `parts` (a count that depends on the shape
@@ -103,12 +103,6 @@
 //
 // bf16 (the JAX package's bf16 step: bf16 operands, fp32 sums, y and dX
 //   written in bf16, dW in fp32).
-// K4 in bf16 is `dw_mma_kernel` with BF16 = true: ONE TF32 product per
-//   multiply-add, which is exact (a bf16 value's 8-bit significand fits
-//   TF32's 11), operands loaded as bf16 and widened to fp32 as they are
-//   staged, sums with no per-k-chunk flush (their truncation, about 2.4e-5
-//   of the scale over 2624 products, is far below the bf16 rounding of the
-//   dW the op rounds to the weight's type).
 // K3 in bf16 (`conv_bf16_kernel`, forward and dX one device routine) is
 //   bound by operations too: at the discriminator's 15 shapes 2 k Cg FLOP an
 //   output element is 656 to 5248 FLOP per 2-byte output, far above
@@ -143,6 +137,31 @@
 //   K3's time.  No atomics: each output is one accumulator summed in a fixed
 //   order, so two runs give the same bits.
 //
+// K4 in bf16 (`dw_bf16_kernel` + `dw_unpack_bf16_kernel`) is bound by
+//   operations as K3 is, and met the same obstacles (odd widths, a strided
+//   Toeplitz view gathered word by word, bf16 widened in shared memory), so it
+//   contracts the same folded layout, as the TPU's `_dw` contracts the
+//   forward's folded x.  A call is four launches:
+//   - `fold_bf16_kernel` folds x with the forward's view into x' (L = Wout +
+//     T - 1 rows a batch row), and again dy with C = Og, s 1, to the same
+//     rows: dy'[g][b L + n][o] = dy[b][g Og + o][n], zero at n >= Wout;
+//   - `dw_bf16_kernel`: one implicit GEMM per group, dWf[g][o][t][cf] = sum
+//     over flat rows p of dy'[p][o] x'[p + t][cf], with M = (tap, folded
+//     channel) pairs, N = output channels, K = the B L flat rows, split into
+//     `parts` (a count that depends on the shape only) so that the small
+//     output fills the card.  A stage of 128 flat rows holds the x' window
+//     that contains the row-shifted A tiles of all the block's taps and the
+//     dy' rows, by 16-byte `cp.async` into a ring of three, bf16 kept bf16;
+//     K runs along the rows, so A and B are `ldmatrix.trans` loads, and
+//     products run on `mma.sync.m16n8k16` bf16 with fp32 sums (exact
+//     products, no flush); a block writes its part's sums to a workspace;
+//   - `dw_unpack_bf16_kernel` adds the parts in part order and writes
+//     dw[g Og + o][c][t s + ph] from dWf[g][o][t][c s + ph], dropping the
+//     padded channels and taps, a dw row at a time through shared memory
+//     (reads and writes in order).
+//   The zero rows of dy' make the halo rows between batch rows add nothing.
+//   No atomics: two runs give the same bits.
+//
 // A `wgmma` form of the bf16 main kernel (A by `ldmatrix` from the window,
 // since a row-shifted tile is no descriptor's; B 128-byte swizzled through a
 // descriptor; N 32 or 64) measured slower on an H100 than `mma.sync` at the
@@ -153,7 +172,6 @@
 
 #include <algorithm>
 #include <cstdint>
-#include <type_traits>
 
 #include "flash_attention_mma.cuh"  // cp.async helpers
 #include "tf32x3.cuh"
@@ -165,19 +183,12 @@ using flash::mma::cp_async4;
 using flash::mma::cp_async_commit;
 using flash::mma::cp_async_wait;
 using flash::mma::ldmatrix_x4;
+using flash::mma::ldmatrix_x4_trans;
 using flash::mma::mma_bf16;
 using tf32x3::mma_3xtf32;
-using tf32x3::mma_tf32;
 using tf32x3::split_tf32;
 using tf32x3::split_tf32_int;
 using bf16 = __nv_bfloat16;
-
-// the element type of a kernel's device-memory operands
-template <bool BF16>
-using Elem = std::conditional_t<BF16, bf16, float>;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -398,9 +409,9 @@ struct DwLayout {
 // y: group and output-channel tile, z: part).  Writes
 // out[part][g Og + o][c k + j] for its tile.  The block's warps split the
 // pairs, each MT m-tiles of 16 by NT n-tiles of 8 (all the block's outputs).
-template <int NT, int MT, bool BF16>
+template <int NT, int MT>
 __global__ void __launch_bounds__(kDwThreads)
-dw_mma_kernel(const Elem<BF16>* __restrict__ x, const Elem<BF16>* __restrict__ dy,
+dw_mma_kernel(const float* __restrict__ x, const float* __restrict__ dy,
               float* __restrict__ out, ConvGeom q, DwLayout L) {
   constexpr int BM = kDwWarps * MT * 16;
   constexpr int BN = NT * 8;
@@ -459,18 +470,12 @@ dw_mma_kernel(const Elem<BF16>* __restrict__ x, const Elem<BF16>* __restrict__ d
     const int n0 = (item - b * n_tiles) * kDwTile;
     const int nv8 = positions(item), len4 = window(nv8);
     const int p0 = n0 * q.s - q.pad;
-    const Elem<BF16>* xg = x + (static_cast<size_t>(b) * q.G + grp) * q.Cg * q.W;
+    const float* xg = x + (static_cast<size_t>(b) * q.G + grp) * q.Cg * q.W;
     // a warp per channel window, a thread per copy: no division
     for (int c = warp; c < L.nch; c += kDwWarps) {
       const bool c_ok = c_lo + c < q.Cg;
-      const Elem<BF16>* src = xg + static_cast<size_t>(c_ok ? c_lo + c : 0) * q.W;
-      if constexpr (BF16) {  // loads widened to fp32 on the way
-#pragma unroll 4
-        for (int i = lane; i < len4; i += 32) {
-          const int p = p0 + i;
-          raw[c * L.cs + i] = c_ok && p >= 0 && p < q.W ? widen(src[p]) : 0.0f;
-        }
-      } else if (L.vec_x) {  // W, p0 multiples of 4: a chunk is all inside or all outside
+      const float* src = xg + static_cast<size_t>(c_ok ? c_lo + c : 0) * q.W;
+      if (L.vec_x) {  // W, p0 multiples of 4: a chunk is all inside or all outside
         for (int w = 4 * lane; w < len4; w += 128) {
           const int p = p0 + w;
           const bool ok = c_ok && p >= 0 && p < q.W;
@@ -484,17 +489,9 @@ dw_mma_kernel(const Elem<BF16>* __restrict__ x, const Elem<BF16>* __restrict__ d
         }
       }
     }
-    const Elem<BF16>* dg = dy + ((static_cast<size_t>(b) * q.G + grp) * q.Og + o0) * q.Wout + n0;
+    const float* dg = dy + ((static_cast<size_t>(b) * q.G + grp) * q.Og + o0) * q.Wout + n0;
     float* ds = raw + L.xw;
-    if constexpr (BF16) {
-#pragma unroll 4
-      for (int i = tid; i < BN * kDwTile; i += kDwThreads) {
-        const int o = i / kDwTile, n = i % kDwTile;
-        if (n >= nv8) continue;
-        const bool ok = o0 + o < q.Og && n0 + n < q.Wout;
-        ds[o * kDwRowStride + n] = ok ? widen(dg[static_cast<size_t>(o) * q.Wout + n]) : 0.0f;
-      }
-    } else if (L.vec_dy) {  // Wout, n0 multiples of 4
+    if (L.vec_dy) {  // Wout, n0 multiples of 4
       constexpr int chunks = kDwTile / 4;
       for (int i = tid; i < BN * chunks; i += kDwThreads) {
         const int o = i / chunks, n = (i % chunks) * 4;
@@ -519,25 +516,6 @@ dw_mma_kernel(const Elem<BF16>* __restrict__ x, const Elem<BF16>* __restrict__ d
 #pragma unroll 1
     for (int k0 = 0; k0 < n_valid; k0 += 8) {
       const int pa = (k0 + t4) * q.s, pb = pa + 4 * q.s;
-      if constexpr (BF16) {  // widened bf16 words are TF32 values: one exact product
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          a[mt][0] = __float_as_uint(buf[roff[mt][0] + pa]);
-          a[mt][1] = __float_as_uint(buf[roff[mt][1] + pa]);
-          a[mt][2] = __float_as_uint(buf[roff[mt][0] + pb]);
-          a[mt][3] = __float_as_uint(buf[roff[mt][1] + pb]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int d = nt * 8 * kDwRowStride + k0;
-          const uint32_t b0 = __float_as_uint(dsrc[d]), b1 = __float_as_uint(dsrc[d + 4]);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            if (mt < live) mma_tf32(acc[mt][nt], a[mt], b0, b1);
-        }
-        continue;
-      }
       uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -715,9 +693,9 @@ int dw_channel_stride(int len4, int k, int s) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int NT, int MT, bool BF16>
-int launch_dw(const Elem<BF16>* x, const Elem<BF16>* dy, float* dw, float* workspace,
-              const ConvGeom& q, int parts, cudaStream_t stream) {
+template <int NT, int MT>
+int launch_dw(const float* x, const float* dy, float* dw, float* workspace, const ConvGeom& q,
+              int parts, cudaStream_t stream) {
   constexpr int BM = kDwWarps * MT * 16, BN = NT * 8;
   int base, total;
   dw_shape(q, &base, &total);
@@ -727,12 +705,12 @@ int launch_dw(const Elem<BF16>* x, const Elem<BF16>* dy, float* dw, float* works
   L.xw = L.nch * L.cs;
   L.stage = L.xw + BN * kDwRowStride;
   L.per_part = (total + parts - 1) / parts;
-  L.vec_x = !BF16 && q.W % 4 == 0 && q.pad % 4 == 0 && aligned16(x);
-  L.vec_dy = !BF16 && q.Wout % 4 == 0 && aligned16(dy);
+  L.vec_x = q.W % 4 == 0 && q.pad % 4 == 0 && aligned16(x);
+  L.vec_dy = q.Wout % 4 == 0 && aligned16(dy);
   const size_t smem = 2ull * 4 * L.stage;
   const long long grid_y = static_cast<long long>(q.G) * ((q.Og + BN - 1) / BN);
   if (smem > kMaxSmem || grid_y > 65535 || parts > 65535) return cudaErrorInvalidValue;
-  auto kernel = dw_mma_kernel<NT, MT, BF16>;
+  auto kernel = dw_mma_kernel<NT, MT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1211,6 +1189,24 @@ int launch_conv_bf16(const bf16* xf, const bf16* wp, bf16* out, const ConvGeom& 
   return cudaGetLastError();
 }
 
+// The layout pass of `in` (a view's channels-first input) into `out`; the
+// grid's z is G x B, at most 65535 (the callers check).
+cudaError_t launch_fold(const bf16* in, bf16* out, const Bf16View& v, cudaStream_t stream) {
+  const long long z = static_cast<long long>(v.G) * v.B;
+  const int rows = fold_rows(v.Kc);
+  const dim3 grid((v.L + rows - 1) / rows, (v.Kc + kFoldCols - 1) / kFoldCols,
+                  static_cast<unsigned>(z));
+  const long long numel = z * v.C * v.win;
+  const int vec = aligned16(in);
+  switch (v.st) {
+    case 1: fold_bf16_kernel<1><<<grid, kFoldThreads, 0, stream>>>(in, out, v, numel, vec); break;
+    case 2: fold_bf16_kernel<2><<<grid, kFoldThreads, 0, stream>>>(in, out, v, numel, vec); break;
+    case 4: fold_bf16_kernel<4><<<grid, kFoldThreads, 0, stream>>>(in, out, v, numel, vec); break;
+    default: fold_bf16_kernel<0><<<grid, kFoldThreads, 0, stream>>>(in, out, v, numel, vec);
+  }
+  return cudaGetLastError();
+}
+
 // One bf16 K3 call: pack the weights and fold the input into `workspace`,
 // then run the main kernel.  Output channels per block: 8, 16 or 32 (8 warps
 // along the positions, 256 positions) or 64 (4 x 2 warps, 128 positions).
@@ -1233,23 +1229,335 @@ int run_conv_bf16(const bf16* in, const bf16* w, bf16* out, bf16* workspace, con
   pack_w_bf16_kernel<<<dim3(v.OC, v.G, v.phases), kPackThreads, pack_smem, stream>>>(w, wp, q, v);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int rows = fold_rows(v.Kc);
-  const dim3 fold_grid((v.L + rows - 1) / rows, (v.Kc + kFoldCols - 1) / kFoldCols,
-                       static_cast<unsigned>(fold_z));
-  const long long numel = fold_z * v.C * v.win;
-  const int vec = aligned16(in);
-  switch (v.st) {
-    case 1: fold_bf16_kernel<1><<<fold_grid, kFoldThreads, 0, stream>>>(in, xf, v, numel, vec); break;
-    case 2: fold_bf16_kernel<2><<<fold_grid, kFoldThreads, 0, stream>>>(in, xf, v, numel, vec); break;
-    case 4: fold_bf16_kernel<4><<<fold_grid, kFoldThreads, 0, stream>>>(in, xf, v, numel, vec); break;
-    default: fold_bf16_kernel<0><<<fold_grid, kFoldThreads, 0, stream>>>(in, xf, v, numel, vec);
-  }
-  err = cudaGetLastError();
+  err = launch_fold(in, xf, v, stream);
   if (err != cudaSuccess) return err;
   if (v.OC <= 8) return launch_conv_bf16<4, 1, 8, 1>(xf, wp, out, q, v, stream);
   if (v.OC <= 16) return launch_conv_bf16<2, 2, 8, 1>(xf, wp, out, q, v, stream);
   if (v.OC <= 32) return launch_conv_bf16<2, 4, 8, 1>(xf, wp, out, q, v, stream);
   return launch_conv_bf16<2, 4, 4, 2>(xf, wp, out, q, v, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K4 in bf16: two layout passes, a tensor-core kernel, a reduce-and-unpack pass.
+
+constexpr int kDwBK = 128;                   // flat rows a stage of the main kernel
+constexpr int kDwBf16Blocks = 4 * kBf16Sms;  // main kernel: about two waves of two blocks a SM
+constexpr int kDwMinStages = 8;              // stages a part walks at the least, where it can
+
+// One bf16 dW call (see the note at the top).  x' is the forward's fold
+// (`bf16_view(q, false)`: L = Wout + T - 1 rows a batch row, Kx = Cg s
+// rounded up to 16 channels), dy' the fold of dy to the same rows (C = Og,
+// st 1, off 0: dy'[g][b L + n][o] = dy[b][g Og + o][n], zero at n >= Wout):
+//   dWf[g][o][t][cf] = sum over flat rows p < B L of dy'[g][p][o] x'[g][p + t][cf],
+// dw[g Og + o][c][t s + ph] = dWf[g][o][t][c s + ph].  Flat row p = b L + n
+// with n < Wout meets x' rows n + t < L of its own batch row; dy' is zero on
+// the rows n >= Wout, so the halo rows between batch rows add nothing.
+// A block of the main kernel owns `tg` taps x 16 `cq` folded channels of x'
+// (its `mb` m-tiles of 16, tap-major) by `bn` output channels, over the
+// stages (kDwBK flat rows each) of one part.
+struct DwBf16Plan {
+  int ok;
+  Bf16View xv, dv;       // the folds of x and dy
+  int T, Og, Kx, Kd;     // taps, output channels a group, folded channels of x' and dy'
+  int mb, bn;            // the main kernel's m-tiles and output channels a block
+  int cq, tg, tgroups;   // 16-channel chunks and taps a block; blocks along the taps
+  int chunks;            // blocks along x's folded channels
+  int per_part, parts;   // stages a part; parts
+};
+
+// The main kernel's m-tiles and output channels a block by the group's
+// output channels (its instances, `run_dw_bf16`), then the block's channels
+// and taps: of the chunk counts 4, 2, 1 that divide Kx / 16, with the taps
+// split into groups as even as mb / cq allows, the one of least cost,
+// counting for each block its m-tile slots (whether a tap fills them or not:
+// a warp's slots past the taps idle) at 16 kDwBK elements and the elements
+// it stages.  Then the parts: enough blocks for kDwBf16Blocks, each part at
+// least kDwMinStages stages where the rows allow.  All of it depends on the
+// shape alone.
+DwBf16Plan dw_bf16_plan(const ConvGeom& q) {
+  DwBf16Plan P{};
+  P.xv = bf16_view(q, false);
+  P.T = P.xv.T;
+  P.Og = q.Og;
+  P.Kx = P.xv.Kc;
+  P.Kd = (q.Og + 15) / 16 * 16;
+  P.dv = P.xv;
+  P.dv.C = q.Og; P.dv.win = q.Wout; P.dv.st = 1; P.dv.off = 0; P.dv.pl = 0; P.dv.Kc = P.Kd;
+  if (q.Og <= 16) { P.mb = 32; P.bn = 16; }
+  else if (q.Og <= 32) { P.mb = 32; P.bn = 32; }
+  else { P.mb = 16; P.bn = 64; }
+  long long best = -1;
+  for (int cq = 4; cq >= 1; cq /= 2) {
+    if ((P.Kx / 16) % cq) continue;
+    const int tmax = P.mb / cq;
+    const int groups = (P.T + tmax - 1) / tmax, tg = (P.T + groups - 1) / groups;
+    const long long blocks = static_cast<long long>(groups) * (P.Kx / (16 * cq));
+    const long long cost = blocks * (16LL * kDwBK * P.mb + 16LL * cq * (kDwBK + tg - 1) +
+                                     static_cast<long long>(kDwBK) * P.bn);
+    if (best < 0 || cost < best) {
+      best = cost;
+      P.cq = cq;
+      P.tg = tg;
+      P.tgroups = groups;
+      P.chunks = P.Kx / (16 * cq);
+    }
+  }
+  const long long rows = static_cast<long long>(q.B) * P.xv.L;
+  const long long stages = (rows + kDwBK - 1) / kDwBK;
+  const long long n_tiles = (q.Og + P.bn - 1) / P.bn;
+  const long long base = static_cast<long long>(P.tgroups) * P.chunks * q.G * n_tiles;
+  long long parts = (kDwBf16Blocks + base - 1) / base;
+  parts = std::min(parts, std::max(1LL, stages / kDwMinStages));
+  const long long per = (stages + parts - 1) / parts;
+  P.per_part = static_cast<int>(per);
+  P.parts = static_cast<int>((stages + per - 1) / per);  // no empty part
+  P.ok = rows + kDwBK + P.T < 0x7fffffff && static_cast<long long>(q.G) * q.B <= 65535 &&
+         q.G * n_tiles <= 65535 && P.parts <= 65535 &&
+         4LL * q.Cg * q.k <= static_cast<long long>(kMaxSmem);
+  return P;
+}
+
+size_t dw_bf16_parts_elems(const DwBf16Plan& P) {
+  return static_cast<size_t>(P.parts) * P.xv.G * P.Og * P.T * P.Kx;
+}
+
+size_t dw_bf16_workspace_bytes(const DwBf16Plan& P) {
+  return 2 * (bf16_fold_elems(P.xv) + bf16_fold_elems(P.dv)) + 4 * dw_bf16_parts_elems(P);
+}
+
+// The main kernel.  Block (tap group x channel chunk, group x BN output
+// channels, part): an implicit GEMM with M = (tap, folded channel) pairs,
+// N = output channels, K = the part's flat rows in k-steps of 16.  A stage
+// is kDwBK flat rows p0 ..: the x' window of rows p0 + t0 .. p0 + t0 +
+// kDwBK + tg - 2 (the row-shifted A tiles of all the block's taps) for its
+// 16 cq channels, and the dy' rows p0 .. p0 + kDwBK - 1 for its output
+// channels, each by 16-byte `cp.async` with zero fill past B L into rows
+// padded by 16 bytes (any 8 consecutive rows in distinct banks), in a ring
+// of kStages buffers, the next two stages' copies in flight under this
+// one's products.  Warps WM x WN, each MT m-tiles by NT n-tiles of 8; K runs
+// along the staged rows, so A (m-tile i: tap ti, channels 16 ci ..) is
+// `ldmatrix.x4.trans` at window rows ti + the k-step's, and B
+// `ldmatrix.x4.trans` of two n-tiles of dy' rows; `mma.sync.m16n8k16` bf16
+// with fp32 sums (products of bf16 values are exact).  A warp's m-tiles past
+// the block's taps are skipped.  The sums go to the part's slice of the
+// workspace, parts[part][g][o][t][cf] (fp32); no atomics.
+template <int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN, 2)
+dw_bf16_kernel(const bf16* __restrict__ xf, const bf16* __restrict__ dyf,
+               float* __restrict__ parts_out, DwBf16Plan P) {
+  constexpr int kT = 32 * WM * WN;
+  constexpr int BN = WN * NT * 8;
+  constexpr int BP = BN + 8;  // a staged dy' row, bf16
+  constexpr int pieces = BN / 8;
+  static_assert(NT % 2 == 0, "B fragments come two n-tiles a load");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+
+  const int rows = P.xv.B * P.xv.L;
+  const int tgi = blockIdx.x / P.chunks;
+  const int c0 = (blockIdx.x - tgi * P.chunks) * 16 * P.cq;
+  const int t0 = tgi * P.tg, tn = min(P.tg, P.T - t0);
+  const int n_tiles = (P.Og + BN - 1) / BN;
+  const int grp = blockIdx.y / n_tiles, n0 = (blockIdx.y - grp * n_tiles) * BN;
+  const int first = blockIdx.z * P.per_part;
+  const int n_stages = min(P.per_part, (rows + kDwBK - 1) / kDwBK - first);
+  const int ap = 16 * P.cq + 8;  // a staged x' row, bf16
+  const int a_rows = kDwBK + P.tg - 1;
+  const int stage = a_rows * ap + kDwBK * BP;
+  const int vs = P.cq == 4 ? 3 : P.cq;  // log2 of a window row's 16-byte pieces
+  const bf16* xg = xf + static_cast<size_t>(grp) * rows * P.Kx;
+  const bf16* dg = dyf + static_cast<size_t>(grp) * rows * P.Kd;
+  // m-tile i of this warp is the block's m-tile wm MT + i: tap (wm MT + i) /
+  // cq, channel chunk (wm MT + i) % cq; those below `live` hold a tap
+  const int live = min(MT, max(0, tn * P.cq - wm * MT));
+
+  auto load = [&](int ls, int buf) {
+    const int p0 = (first + ls) * kDwBK;
+    bf16* as = smem + buf * stage;
+    bf16* bs = as + a_rows * ap;
+    const int an = (kDwBK + tn - 1) << vs, vm = (1 << vs) - 1;
+    for (int i = tid; i < an; i += kT) {
+      const int r = i >> vs, piece = i & vm;
+      const int row = p0 + t0 + r;
+      const bool ok = row < rows;
+      cp_async16(as + r * ap + piece * 8,
+                 ok ? xg + static_cast<size_t>(row) * P.Kx + c0 + piece * 8 : xf, ok);
+    }
+    for (int i = tid; i < kDwBK * pieces; i += kT) {
+      const int r = i / pieces, piece = i - r * pieces;
+      const int col = n0 + piece * 8;
+      const bool ok = p0 + r < rows && col < P.Kd;
+      cp_async16(bs + r * BP + piece * 8,
+                 ok ? dg + static_cast<size_t>(p0 + r) * P.Kd + col : dyf, ok);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.0f;
+
+  // ldmatrix.trans row addresses, K along the staged rows: A lane l -> row
+  // (l % 8) + 8 (l / 16), column 8 ((l / 8) % 2) of its 16 x 16 tile; B lane
+  // l -> row (l % 8) + 8 ((l / 8) % 2), column 8 (l / 16) of two n-tiles
+  int a_off[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int mi = wm * MT + i;
+    a_off[i] = (mi / P.cq + (lane & 7) + ((lane >> 4) << 3)) * ap + (mi % P.cq) * 16 +
+               (((lane >> 3) & 1) << 3);
+  }
+  const int b_off =
+      ((lane & 7) + (((lane >> 3) & 1) << 3)) * BP + wn * NT * 8 + ((lane >> 4) << 3);
+
+  auto compute = [&](int buf) {
+    const bf16* as = smem + buf * stage;
+    const bf16* bs = as + a_rows * ap + b_off;
+#pragma unroll
+    for (int ks = 0; ks < kDwBK / 16; ++ks) {
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        if (i < live) ldmatrix_x4_trans(a[i], as + a_off[i] + ks * 16 * ap);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r4[4];
+        ldmatrix_x4_trans(r4, bs + ks * 16 * BP + np * 16);
+        b[2 * np][0] = r4[0];
+        b[2 * np][1] = r4[1];
+        b[2 * np + 1][0] = r4[2];
+        b[2 * np + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        if (i < live)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[i][nt], a[i], b[nt][0], b[nt][1]);
+    }
+  };
+
+  // one barrier a stage: after it, this stage's copies have landed for every
+  // thread and the buffer of the stage before is free for a new copy
+#pragma unroll
+  for (int gs = 0; gs < kStages - 1; ++gs) {
+    if (gs < n_stages) load(gs, gs);
+    cp_async_commit();
+  }
+  for (int gs = 0; gs < n_stages; ++gs) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (gs + kStages - 1 < n_stages) load(gs + kStages - 1, (gs + kStages - 1) % kStages);
+    cp_async_commit();
+    if (live > 0) compute(gs % kStages);
+  }
+
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const size_t m_len = static_cast<size_t>(P.T) * P.Kx;
+  float* dst = parts_out + (static_cast<size_t>(blockIdx.z) * P.xv.G + grp) * P.Og * m_len;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    if (i >= live) continue;
+    const int mi = wm * MT + i;
+    const size_t m0 = static_cast<size_t>(t0 + mi / P.cq) * P.Kx + c0 + (mi % P.cq) * 16 + g8;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = n0 + wn * NT * 8 + nt * 8 + 2 * t4 + (e & 1);
+        if (o < P.Og) dst[o * m_len + m0 + 8 * (e >> 1)] = acc[i][nt][e];
+      }
+  }
+}
+
+// The reduce-and-unpack pass: a block per output channel g Og + o.  Its
+// threads walk the part slices' row (g, o) in order, (t, cf), adding the
+// parts in part order (their loads issued eight at a time), and put each
+// sum at (c, t s + ph) (cf = c s + ph) of the dw row in shared memory,
+// dropping cf >= Cg s and t s + ph >= k; then the row (Cg k floats) is
+// written out whole: reads and writes in order.
+constexpr int kUnpackThreads = 512;
+
+__global__ void __launch_bounds__(kUnpackThreads)
+dw_unpack_bf16_kernel(const float* __restrict__ parts_in, float* __restrict__ dw, ConvGeom q,
+                      DwBf16Plan P) {
+  extern __shared__ float dw_row[];
+  const size_t oc = blockIdx.x;  // g Og + o
+  const int m_len = P.T * P.Kx;
+  const size_t per = static_cast<size_t>(q.G) * q.Og * m_len;
+  for (int i = threadIdx.x; i < m_len; i += kUnpackThreads) {
+    const int t = i / P.Kx, cf = i - t * P.Kx;
+    const int c = cf / q.s, j = t * q.s + (cf - c * q.s);
+    if (c >= q.Cg || j >= q.k) continue;
+    const float* src = parts_in + oc * m_len + i;
+    float sum = 0.0f;
+    for (int p = 0; p < P.parts; p += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = p + u < P.parts ? src[(p + u) * per] : 0.0f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (p + u < P.parts) sum += v[u];
+    }
+    dw_row[c * q.k + j] = sum;
+  }
+  __syncthreads();
+  float* dst = dw + oc * q.Cg * q.k;
+  for (int i = threadIdx.x; i < q.Cg * q.k; i += kUnpackThreads) dst[i] = dw_row[i];
+}
+
+template <int MT, int NT, int WM, int WN>
+cudaError_t launch_dw_bf16(const bf16* xf, const bf16* dyf, float* parts, const ConvGeom& q,
+                           const DwBf16Plan& P, cudaStream_t stream) {
+  constexpr int BN = WN * NT * 8;
+  if (WM * MT != P.mb || BN != P.bn) return cudaErrorInvalidValue;
+  const size_t stage = static_cast<size_t>(kDwBK + P.tg - 1) * (16 * P.cq + 8) +
+                       static_cast<size_t>(kDwBK) * (BN + 8);
+  const size_t smem = 2 * kStages * stage;
+  auto kernel = dw_bf16_kernel<MT, NT, WM, WN>;
+  // once an instance: what two blocks a SM may have, the most a launch asks for
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kTwoBlockSmem));
+  if (attr != cudaSuccess) return attr;
+  if (smem > kTwoBlockSmem) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(P.tgroups * P.chunks),
+                  static_cast<unsigned>(q.G * ((q.Og + BN - 1) / BN)), P.parts);
+  kernel<<<grid, 32 * WM * WN, smem, stream>>>(xf, dyf, parts, P);
+  return cudaGetLastError();
+}
+
+// One bf16 dW call: fold x and dy into `workspace`, run the main kernel into
+// the parts after them, then add the parts and unpack into dw.  Tiles a
+// block: 32 m-tiles by 16 output channels (8 warps along M, 4 x 2 tiles a
+// warp), 32 by 32 (4 x 4), or 16 by 64 (4 x 2 warps, 4 x 4 tiles a warp).
+int run_dw_bf16(const bf16* x, const bf16* dy, float* dw, void* workspace, const ConvGeom& q,
+                cudaStream_t stream) {
+  const DwBf16Plan P = dw_bf16_plan(q);
+  if (!P.ok) return cudaErrorInvalidValue;
+  bf16* xf = static_cast<bf16*>(workspace);
+  bf16* dyf = xf + bf16_fold_elems(P.xv);
+  float* parts = reinterpret_cast<float*>(dyf + bf16_fold_elems(P.dv));
+  cudaError_t err = launch_fold(x, xf, P.xv, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_fold(dy, dyf, P.dv, stream);
+  if (err != cudaSuccess) return err;
+  if (P.bn == 16) err = launch_dw_bf16<4, 2, 8, 1>(xf, dyf, parts, q, P, stream);
+  else if (P.bn == 32) err = launch_dw_bf16<4, 4, 8, 1>(xf, dyf, parts, q, P, stream);
+  else err = launch_dw_bf16<4, 4, 4, 2>(xf, dyf, parts, q, P, stream);
+  if (err != cudaSuccess) return err;
+  const size_t row = 4 * static_cast<size_t>(q.Cg) * q.k;
+  if (row > 48 * 1024) {
+    err = cudaFuncSetAttribute(dw_unpack_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(row));
+    if (err != cudaSuccess) return err;
+  }
+  dw_unpack_bf16_kernel<<<static_cast<unsigned>(q.G * q.Og), kUnpackThreads, row, stream>>>(
+      parts, dw, q, P);
+  return cudaGetLastError();
 }
 
 ConvGeom make_geom(int B, int Cin, int W, int Cout, int k, int s, int pad, int G, int Wout) {
@@ -1285,24 +1593,33 @@ int conv_bf16_entry(const void* in, const void* w, void* out, void* workspace, i
                        static_cast<cudaStream_t>(stream));
 }
 
-template <bool BF16>
 int dw_entry(const void* x, const void* dy, void* dw, void* workspace, int B, int Cin, int W,
              int Cout, int k, int s, int pad, int G, int Wout, int parts, void* stream) {
   if (G < 1 || Cin % G || Cout % G) return cudaErrorInvalidValue;
   const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
   if (!geom_ok(q) || parts != dw_parts(q) || (parts > 1 && workspace == nullptr))
     return cudaErrorInvalidValue;
-  const auto* xp = static_cast<const Elem<BF16>*>(x);
-  const auto* dyp = static_cast<const Elem<BF16>*>(dy);
+  const auto* xp = static_cast<const float*>(x);
+  const auto* dyp = static_cast<const float*>(dy);
   float* dwp = static_cast<float*>(dw);
   float* ws = static_cast<float*>(workspace);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dw_tiles(q).nt) {
-    case 1: return launch_dw<1, 4, BF16>(xp, dyp, dwp, ws, q, parts, st);
-    case 2: return launch_dw<2, 4, BF16>(xp, dyp, dwp, ws, q, parts, st);
-    case 4: return launch_dw<4, 4, BF16>(xp, dyp, dwp, ws, q, parts, st);
-    default: return launch_dw<8, 2, BF16>(xp, dyp, dwp, ws, q, parts, st);
+    case 1: return launch_dw<1, 4>(xp, dyp, dwp, ws, q, parts, st);
+    case 2: return launch_dw<2, 4>(xp, dyp, dwp, ws, q, parts, st);
+    case 4: return launch_dw<4, 4>(xp, dyp, dwp, ws, q, parts, st);
+    default: return launch_dw<8, 2>(xp, dyp, dwp, ws, q, parts, st);
   }
+}
+
+int dw_bf16_entry(const void* x, const void* dy, void* dw, void* workspace, int B, int Cin, int W,
+                  int Cout, int k, int s, int pad, int G, int Wout, void* stream) {
+  if (G < 1 || Cin % G || Cout % G || workspace == nullptr || !aligned16(workspace))
+    return cudaErrorInvalidValue;
+  const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
+  if (!geom_ok(q)) return cudaErrorInvalidValue;
+  return run_dw_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+                     static_cast<float*>(dw), workspace, q, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1340,8 +1657,9 @@ extern "C" long long roar_grouped_conv_bf16_workspace(int dx, int B, int Cin, in
   return static_cast<long long>(bf16_workspace_bytes(bf16_view(q, dx != 0)));
 }
 
-// Number of parts the weight gradient splits batch x width into; the caller
-// allocates a workspace of parts * Cout * Cin/G * k floats when it is > 1.
+// Number of parts the fp32 weight gradient splits batch x width into; the
+// caller allocates a workspace of parts * Cout * Cin/G * k floats when it is
+// > 1.
 extern "C" int roar_grouped_conv_dw_parts(
     int B, int Cin, int W, int Cout, int k, int s, int pad, int G, int Wout) {
   if (G < 1 || Cin % G || Cout % G) return 0;
@@ -1352,14 +1670,24 @@ extern "C" int roar_grouped_conv_dw_parts(
 extern "C" int roar_grouped_conv_dw(
     const void* x, const void* dy, void* dw, void* workspace, int B, int Cin, int W, int Cout,
     int k, int s, int pad, int G, int Wout, int parts, void* stream) {
-  return dw_entry<false>(x, dy, dw, workspace, B, Cin, W, Cout, k, s, pad, G, Wout, parts,
-                         stream);
+  return dw_entry(x, dy, dw, workspace, B, Cin, W, Cout, k, s, pad, G, Wout, parts, stream);
 }
 
-// x and dy bf16, dW fp32 (the TPU kernel's output type)
+// Bytes of the workspace a bf16 dW call needs (the two folded inputs and the
+// parts); 0 for sizes the kernels do not take.
+extern "C" long long roar_grouped_conv_dw_bf16_workspace(int B, int Cin, int W, int Cout, int k,
+                                                         int s, int pad, int G, int Wout) {
+  if (G < 1 || Cin % G || Cout % G) return 0;
+  const ConvGeom q = make_geom(B, Cin, W, Cout, k, s, pad, G, Wout);
+  if (!geom_ok(q)) return 0;
+  const DwBf16Plan plan = dw_bf16_plan(q);
+  return plan.ok ? static_cast<long long>(dw_bf16_workspace_bytes(plan)) : 0;
+}
+
+// x and dy bf16, dW fp32 (the TPU kernel's output type); `workspace`:
+// `roar_grouped_conv_dw_bf16_workspace` bytes, 16-byte aligned
 extern "C" int roar_grouped_conv_dw_bf16(
     const void* x, const void* dy, void* dw, void* workspace, int B, int Cin, int W, int Cout,
-    int k, int s, int pad, int G, int Wout, int parts, void* stream) {
-  return dw_entry<true>(x, dy, dw, workspace, B, Cin, W, Cout, k, s, pad, G, Wout, parts,
-                        stream);
+    int k, int s, int pad, int G, int Wout, void* stream) {
+  return dw_bf16_entry(x, dy, dw, workspace, B, Cin, W, Cout, k, s, pad, G, Wout, stream);
 }

@@ -13,9 +13,11 @@ package's bf16 step) K3 folds the stride into channels as the TPU kernel
 does (`_fold_x`, `_pack_w_fwd`, `_pack_w_dx`), but channels-last: each call
 packs the weights and writes the folded input into a scratch tensor the
 wrapper allocates, then multiplies bf16 products on the tensor cores at the
-bf16 rate with fp32 sums and writes y and dX in bf16, rounded once; K4 forms
-each product exactly as one TF32 product of the widened values and writes dW
-in fp32, the TPU kernel's output types (roar_tpu/ops/grouped_conv.py:253,326).
+bf16 rate with fp32 sums and writes y and dX in bf16, rounded once; K4
+folds x the same way and dy to the same rows into a scratch tensor,
+contracts them over the flat rows in parts on the tensor cores at the bf16
+rate with fp32 sums, and adds the parts in part order into dW in fp32, the
+TPU kernels' output types (roar_tpu/ops/grouped_conv.py:253,326).
 
 Layouts: activations [B, C, W] as in the JAX op; the weight is torch's
 [Cout, Cin/G, k] (the JAX op takes flax's [k, Cin/G, Cout]).  Output channel
@@ -29,8 +31,8 @@ bf16.
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises.  `LAUNCHES_FWD`, `LAUNCHES_DX` and
 `LAUNCHES_DW` count the fp32 kernels' launches, `LAUNCHES_FWD_BF16`,
-`LAUNCHES_DX_BF16` and `LAUNCHES_DW_BF16` the bf16 ones (dW counts one per
-call, its reduction pass included).
+`LAUNCHES_DX_BF16` and `LAUNCHES_DW_BF16` the bf16 ones (one per call, each
+call's layout passes and its reduction pass included).
 """
 
 from __future__ import annotations
@@ -144,17 +146,20 @@ def _cuda_or_plain(name: str, t: torch.Tensor) -> bool:
 
 
 @functools.lru_cache(maxsize=256)
-def _bf16_workspace_bytes(lib, dx: bool, shape: tuple) -> int:
-    nbytes = lib.roar_grouped_conv_bf16_workspace(int(dx), *shape)
+def _bf16_workspace_bytes(lib, call: str, shape: tuple) -> int:
+    nbytes = (lib.roar_grouped_conv_dw_bf16_workspace(*shape) if call == "dw"
+              else lib.roar_grouped_conv_bf16_workspace(int(call == "dx"), *shape))
     if nbytes < 1:
-        raise ValueError(f"grouped_conv bf16: the kernel does not take shape {shape}")
+        raise ValueError(f"grouped_conv {call} bf16: the kernel does not take shape {shape}")
     return nbytes
 
 
-def _bf16_workspace(lib, dx: bool, shape: tuple, device: torch.device) -> torch.Tensor:
-    """The bf16 K3 call's scratch: the folded channels-last input and the
-    packed weights, sized by the library (once a shape)."""
-    return torch.empty(_bf16_workspace_bytes(lib, dx, shape), dtype=torch.uint8, device=device)
+def _bf16_workspace(lib, call: str, shape: tuple, device: torch.device) -> torch.Tensor:
+    """A bf16 call's scratch, sized by the library (once a shape): for the
+    forward and dX (`call` "fwd", "dx") the folded channels-last input and
+    the packed weights; for dW ("dw") the folded x and dy and the parts'
+    fp32 sums."""
+    return torch.empty(_bf16_workspace_bytes(lib, call, shape), dtype=torch.uint8, device=device)
 
 
 def grouped_conv_fwd(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
@@ -179,7 +184,7 @@ def grouped_conv_fwd(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int
     shape = (b, cin, width, cout, k, stride, padding, groups, wout)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if bf16:
-        workspace = _bf16_workspace(lib, False, shape, x.device)
+        workspace = _bf16_workspace(lib, "fwd", shape, x.device)
         err = lib.roar_grouped_conv_fwd_bf16(x.data_ptr(), w.data_ptr(), y.data_ptr(),
                                              workspace.data_ptr(), *shape, stream)
     else:
@@ -217,7 +222,7 @@ def grouped_conv_dx(dy: torch.Tensor, w: torch.Tensor, in_width: int, stride: in
     shape = (b, cin, in_width, cout, k, stride, padding, groups, wout)
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     if bf16:
-        workspace = _bf16_workspace(lib, True, shape, dy.device)
+        workspace = _bf16_workspace(lib, "dx", shape, dy.device)
         err = lib.roar_grouped_conv_dx_bf16(dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
                                             workspace.data_ptr(), *shape, stream)
     else:
@@ -257,16 +262,21 @@ def grouped_conv_dw(x: torch.Tensor, dy: torch.Tensor, kernel_size: int, stride:
 
     lib = load_library()
     shape = (b, cin, width, cout, k, stride, padding, groups, wout)
-    parts = lib.roar_grouped_conv_dw_parts(*shape)
-    if parts < 1:
-        raise ValueError(f"grouped_conv_dw: the kernel does not take shape {shape}")
-    workspace = (torch.empty((parts, *dw.shape), dtype=torch.float32, device=x.device)
-                 if parts > 1 else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     bf16 = x.dtype == torch.bfloat16
-    launch = lib.roar_grouped_conv_dw_bf16 if bf16 else lib.roar_grouped_conv_dw
-    err = launch(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-                 workspace.data_ptr() if workspace is not None else None, *shape, parts,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    if bf16:
+        workspace = _bf16_workspace(lib, "dw", shape, x.device)
+        err = lib.roar_grouped_conv_dw_bf16(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                                            workspace.data_ptr(), *shape, stream)
+    else:
+        parts = lib.roar_grouped_conv_dw_parts(*shape)
+        if parts < 1:
+            raise ValueError(f"grouped_conv_dw: the kernel does not take shape {shape}")
+        workspace = (torch.empty((parts, *dw.shape), dtype=torch.float32, device=x.device)
+                     if parts > 1 else None)
+        err = lib.roar_grouped_conv_dw(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                                       workspace.data_ptr() if workspace is not None else None,
+                                       *shape, parts, stream)
     check(lib, err, "grouped_conv_dw launch")
     global LAUNCHES_DW, LAUNCHES_DW_BF16
     if bf16:

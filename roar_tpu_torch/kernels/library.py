@@ -118,10 +118,15 @@ def load_library() -> ctypes.CDLL:
     lib.roar_grouped_conv_bf16_workspace.restype = ctypes.c_longlong
     lib.roar_grouped_conv_dw_parts.argtypes = conv_shape
     lib.roar_grouped_conv_dw_parts.restype = ctypes.c_int
-    for name in ("roar_grouped_conv_dw", "roar_grouped_conv_dw_bf16"):
-        dw = getattr(lib, name)
-        dw.argtypes = [ctypes.c_void_p] * 4 + conv_shape + [ctypes.c_int, ctypes.c_void_p]
-        dw.restype = ctypes.c_int
+    # fp32 dW: x, dy, dw, workspace (parts * dw floats), ..., parts
+    lib.roar_grouped_conv_dw.argtypes = ([ctypes.c_void_p] * 4 + conv_shape
+                                         + [ctypes.c_int, ctypes.c_void_p])
+    lib.roar_grouped_conv_dw.restype = ctypes.c_int
+    # bf16 dW: x, dy, dw, workspace (`roar_grouped_conv_dw_bf16_workspace` bytes)
+    lib.roar_grouped_conv_dw_bf16.argtypes = [ctypes.c_void_p] * 4 + conv_shape + [ctypes.c_void_p]
+    lib.roar_grouped_conv_dw_bf16.restype = ctypes.c_int
+    lib.roar_grouped_conv_dw_bf16_workspace.argtypes = conv_shape
+    lib.roar_grouped_conv_dw_bf16_workspace.restype = ctypes.c_longlong
     lib.roar_cuda_error_string.argtypes = [ctypes.c_int]
     lib.roar_cuda_error_string.restype = ctypes.c_char_p
     return lib

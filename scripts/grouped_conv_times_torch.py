@@ -28,8 +28,10 @@ bit-identity across checkouts), the bounds (fp32: three TF32 products over
 the dense TF32 rate, the fp32 FMA rate beside it; bf16: the dense bf16 rate)
 and the card's name and power limit.  With `--by-kernel`, each kernel call's
 device time by CUDA kernel, from `torch.profiler` over 3 calls (a bf16
-forward or dX call is a weight pack, a layout pass and the main kernel),
-per shape (`by_kernel_ms`) and summed (`by_kernel_ms` of each total).
+forward or dX call is a weight pack, a layout pass and the main kernel; a
+bf16 dW call two layout passes, summed under `fold_bf16_kernel`, the main
+kernel and the reduce-and-unpack pass), per shape (`by_kernel_ms`) and
+summed (`by_kernel_ms` of each total).
 """
 
 from __future__ import annotations

@@ -172,6 +172,10 @@ K3_BF16_MANGLED = (_NAMESPACE + "16conv_bf16_kernelILi2ELi4ELi4ELi2EEEvPK13__nv_
 FOLD_MANGLED = (_NAMESPACE + "16fold_bf16_kernelILi2EEEvPK13__nv_bfloat16PS1_NS_8Bf16ViewExi")
 PACK_MANGLED = (_NAMESPACE + "18pack_w_bf16_kernelEPK13__nv_bfloat16PS0_NS_8ConvGeomE"
                 "NS_8Bf16ViewE")
+# the bf16 K4: main kernel (MT, NT, WM, WN), reduce-and-unpack pass
+DW_BF16_MANGLED = (_NAMESPACE + "14dw_bf16_kernelILi4ELi4ELi4ELi2EEEvPK13__nv_bfloat16S3_PfNS_"
+                   "10DwBf16PlanE")
+UNPACK_MANGLED = _NAMESPACE + "21dw_unpack_bf16_kernelEPKfPfNS_8ConvGeomENS_10DwBf16PlanE"
 
 
 def _ptxas_entry(mangled: str, registers: int, spill: int = 0) -> str:
@@ -197,7 +201,7 @@ def _build_log(k4_spill: int = 0, drop_k4=None, k1_spill: int = 0) -> str:
     for name, _, d in cs.flash_instances():
         log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi{d}EEEvv", 128)
     # K3 in fp32 (forward and dX), K3 in bf16 (main kernel, layout pass,
-    # weight pack); K4 in fp32 and bf16 (last template argument 0 and 1)
+    # weight pack); K4 in fp32, K4 in bf16 (main kernel, unpack)
     for view in ("fwd", "dx"):
         for wn, nt, mt in cs.CONV_MMA_TILES:
             log += _ptxas_entry(K3_MANGLED.replace(
@@ -208,11 +212,14 @@ def _build_log(k4_spill: int = 0, drop_k4=None, k1_spill: int = 0) -> str:
     for (phases,) in cs.FOLD_BF16_PHASES:
         log += _ptxas_entry(FOLD_MANGLED.replace("ILi2E", f"ILi{phases}E"), 32)
     log += _ptxas_entry(PACK_MANGLED, 20)
-    for bf16 in (0, 1):
-        for nt, mt in cs.DW_MMA_TILES:
-            if (nt, mt) != drop_k4 or bf16:
-                log += _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", f"ILi{nt}ELi{mt}ELb{bf16}E"),
-                                    128, k4_spill if (nt, mt) == (8, 2) and not bf16 else 0)
+    for nt, mt in cs.DW_MMA_TILES:
+        if (nt, mt) != drop_k4:
+            log += _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", f"ILi{nt}ELi{mt}E"), 128,
+                                k4_spill if (nt, mt) == (8, 2) else 0)
+    for tiles in cs.DW_BF16_TILES:
+        log += _ptxas_entry(DW_BF16_MANGLED.replace(
+            "ILi4ELi4ELi4ELi2E", "I" + "".join(f"Li{t}E" for t in tiles)), 120)
+    log += _ptxas_entry(UNPACK_MANGLED, 16)
     for width in (101, 0):
         for lanes in (1, 2, 4, 8):
             log += _ptxas_entry(K1_MANGLED.replace("ILi101ELi4E", f"ILi{width}ELi{lanes}E"), 64,
@@ -225,20 +232,23 @@ def test_ptxas_parser_reads_k3_and_k4_instances():
 
     table = cs.parse_ptxas(_ptxas_entry(K3_MANGLED, 122) + _ptxas_entry(K4_MANGLED, 128, 8)
                            + _ptxas_entry(K3_BF16_MANGLED, 90) + _ptxas_entry(FOLD_MANGLED, 31)
-                           + _ptxas_entry(PACK_MANGLED, 20)
-                           + _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", "ILi8ELi2ELb1E"), 96))
+                           + _ptxas_entry(PACK_MANGLED, 20) + _ptxas_entry(DW_BF16_MANGLED, 96)
+                           + _ptxas_entry(UNPACK_MANGLED, 16))
     assert set(table) == {("conv_mma_kernel", "dx", (2, 4, 2)), ("dw_mma_kernel", "dw", (8, 2)),
                           ("conv_bf16_kernel", "fwd_dx_bf16", (2, 4, 4, 2)),
                           ("fold_bf16_kernel", "layout_bf16", (2,)),
                           ("pack_w_bf16_kernel", "pack_bf16", ()),
-                          ("dw_mma_kernel", "dw_bf16", (8, 2))}
+                          ("dw_bf16_kernel", "dw_bf16", (4, 4, 4, 2)),
+                          ("dw_unpack_bf16_kernel", "dw_unpack_bf16", ())}
+    assert table[("dw_bf16_kernel", "dw_bf16", (4, 4, 4, 2))]["registers"] == 96
     assert table[("conv_bf16_kernel", "fwd_dx_bf16", (2, 4, 4, 2))]["registers"] == 90
     assert table[("conv_mma_kernel", "dx", (2, 4, 2))]["registers"] == 122
     k4 = table[("dw_mma_kernel", "dw", (8, 2))]
     assert (k4["registers"], k4["spill_store_bytes"], k4["spill_load_bytes"]) == (128, 8, 8)
 
 
-@pytest.mark.parametrize("fault", [None, "spill", "missing", "viterbi_spill", "stale_bf16_k3"])
+@pytest.mark.parametrize("fault", [None, "spill", "missing", "viterbi_spill", "stale_bf16_k3",
+                                   "stale_bf16_k4"])
 def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, monkeypatch,
                                                                      fault):
     import chip_smoke as cs
@@ -249,23 +259,52 @@ def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, mo
                      k1_spill=8 if fault == "viterbi_spill" else 0)
     if fault == "stale_bf16_k3":  # a bf16 instance of the fp32 K3 routine, as before the fold
         log += _ptxas_entry(K3_MANGLED.replace("ELb1E", "ELb1ELb1E"), 90)
+    if fault == "stale_bf16_k4":  # a bf16 instance of the fp32 K4 routine, as before the fold
+        log += _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", "ILi8ELi2ELb1E"), 96)
     (tmp_path / "lib.log").write_text(log)
     if fault is None:
         line = cs.phase_kernel_build(tmp_path / "lib.so")
-        k4 = [row for row in line["grouped_conv_instances"] if row["kernel"] == "dw_mma_kernel"]
-        assert [tuple(row["nt_mt"]) for row in k4] == cs.DW_MMA_TILES * 2  # fp32, then bf16
-        assert [row["view"] for row in k4] == ["dw"] * 4 + ["dw_bf16"] * 4
-        assert len(line["grouped_conv_instances"]) == (
+        rows = line["grouped_conv_instances"]
+        k4 = [row for row in rows if row["kernel"] == "dw_mma_kernel"]
+        assert [tuple(row["nt_mt"]) for row in k4] == cs.DW_MMA_TILES
+        assert [row["view"] for row in k4] == ["dw"] * 4
+        k4_bf16 = [row for row in rows if row["kernel"] == "dw_bf16_kernel"]
+        assert [tuple(row["mt_nt_wm_wn"]) for row in k4_bf16] == cs.DW_BF16_TILES
+        assert all(0 < row["dynamic_smem_bytes_max"] <= cs.CONV_BF16_MAX_DYNAMIC_SMEM
+                   for row in k4_bf16)  # two blocks a SM
+        assert [row["view"] for row in rows if row["kernel"] == "dw_unpack_bf16_kernel"] == [
+            "dw_unpack_bf16"]
+        assert len(rows) == (
             2 * len(cs.CONV_MMA_TILES) + len(cs.CONV_BF16_TILES) + len(cs.FOLD_BF16_PHASES) + 1
-            + len(k4))
+            + len(k4) + len(k4_bf16) + 1)
         assert len(line["viterbi_instances"]) == 9  # K1 at two widths x four splits, K2
     elif fault == "viterbi_spill":
         with pytest.raises(AssertionError, match="pyin_viterbi_fwd_kernel.*spills"):
             cs.phase_kernel_build(tmp_path / "lib.so")
-    elif fault == "stale_bf16_k3":
-        with pytest.raises(AssertionError, match="bf16 instance of conv_mma_kernel"):
+    elif fault in ("stale_bf16_k3", "stale_bf16_k4"):
+        kernel = "conv_mma_kernel" if fault == "stale_bf16_k3" else "dw_mma_kernel"
+        with pytest.raises(AssertionError, match=f"bf16 instance of {kernel}"):
             cs.phase_kernel_build(tmp_path / "lib.so")
     else:
         match = "spills" if fault == "spill" else "not in the ptxas log"
         with pytest.raises(AssertionError, match=f"dw_mma_kernel.*{match}"):
             cs.phase_kernel_build(tmp_path / "lib.so")
+
+
+def test_bf16_layout_passes_go_to_the_call_whose_main_kernel_follows():
+    """A bf16 K3 call launches pack, layout pass, main kernel; a K4 call two
+    layout passes (x, then dy), its main kernel and its unpack: the profiled
+    step tells K4's layout passes from K3's by the main kernel after them."""
+    import chip_smoke as cs
+
+    launches = (["pack_w_bf16_kernel", "fold_bf16_kernel", "conv_bf16_kernel"]
+                + list(cs.K4_BF16_KERNELS) + ["pack_w_bf16_kernel", "fold_bf16_kernel",
+                                              "conv_bf16_kernel"])
+    assert cs.attribute_conv_bf16_launches(launches) == (
+        [("k3", "pack_w_bf16_kernel"), ("k3", "fold_bf16_kernel"), ("k3", "conv_bf16_kernel")]
+        + [("k4", role) for role in cs.K4_BF16_ROLES]
+        + [("k3", "pack_w_bf16_kernel"), ("k3", "fold_bf16_kernel"), ("k3", "conv_bf16_kernel")])
+    with pytest.raises(AssertionError, match="1 layout passes before dw_bf16_kernel"):
+        cs.attribute_conv_bf16_launches(["fold_bf16_kernel", "dw_bf16_kernel"])
+    with pytest.raises(AssertionError, match="no main kernel after them"):
+        cs.attribute_conv_bf16_launches(["fold_bf16_kernel"])

@@ -190,9 +190,11 @@ def test_bf16_kernels_match_plain_on_the_card():
         assert torch.equal(got[1], gk.grouped_conv_dx(cot, w, wid, s, pad, g))
         assert torch.equal(got[2], gk.grouped_conv_dw(x, cot, k, s, pad, g))
         # contiguous views whose data start 2 bytes past a 16-byte boundary:
-        # the layout pass reads them element by element, to the same bits
+        # the layout passes read them element by element, to the same bits
         def off_by_one(t):
             return torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape).copy_(t)
 
         assert torch.equal(got[0], gk.grouped_conv_fwd(off_by_one(x), w, s, pad, g))
         assert torch.equal(got[1], gk.grouped_conv_dx(off_by_one(cot), w, wid, s, pad, g))
+        assert torch.equal(got[2], gk.grouped_conv_dw(off_by_one(x), off_by_one(cot), k, s, pad,
+                                                      g))
