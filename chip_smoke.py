@@ -576,13 +576,14 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
 # head sizes each is built for: they must not spill, and their SASS must hold
 # tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma).  At D 256 the
 # bf16 forward, dK/dV and dQ are the wgmma kernels and the fp32 forward, dK/dV
-# and dQ the split kernels.
+# and dQ the split kernels; at D 128 the bf16 dK/dV and dQ are wgmma kernels
+# too (128-row blocks, each warpgroup owning its 64 rows whole).
 FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64, 128),
                                   "flash_fwd_wgmma_kernel": (256,),
-                                  "flash_bwd_dkv_mma_kernel": (32, 64, 128),
-                                  "flash_bwd_dkv_wgmma_kernel": (256,),
-                                  "flash_bwd_dq_mma_kernel": (32, 64, 128),
-                                  "flash_bwd_dq_wgmma_kernel": (256,)},
+                                  "flash_bwd_dkv_mma_kernel": (32, 64),
+                                  "flash_bwd_dkv_wgmma_kernel": (128, 256),
+                                  "flash_bwd_dq_mma_kernel": (32, 64),
+                                  "flash_bwd_dq_wgmma_kernel": (128, 256)},
                      "float32": {"flash_fwd_tf32_kernel": (32, 64, 128),
                                  "flash_fwd_tf32_split_kernel": (256,),
                                  "flash_bwd_dkv_tf32_kernel": (32, 64, 128),
@@ -614,8 +615,14 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
         return 2 * tile * 6 + 4 * 64 * 4
     if kernel == "flash_bwd_dq_mma_kernel":
         return 2 * tile * 6
-    # the wgmma backward: six 64-row tiles (the block's own two, the streamed
-    # two x 2 stages), 5 barriers, 1 KB to align; the exchange between the
+    # the wgmma backward at D 128: the block's own two 128-row tiles, the
+    # streamed two 64-row tiles x 2 stages, 5 barriers, 1 KB to align; dK/dV
+    # also each stage's lse and delta rows (2 x 64 fp32)
+    if kernel in ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel") and d == 128:
+        rows = 2 * 4 * 64 * 2 if kernel == "flash_bwd_dkv_wgmma_kernel" else 0
+        return 2 * d * (2 * 128 + 2 * 64 * 2) + rows + 5 * 8 + 1024
+    # at D 256: six 64-row tiles (the block's own two, the streamed two x 2
+    # stages), 5 barriers, 1 KB to align; the exchange between the
     # warpgroups: P^T in fp32 (dK/dV), P in fp32 and dS in bf16 (dQ)
     if kernel == "flash_bwd_dkv_wgmma_kernel":
         return 2 * tile * 6 + 4 * 64 * 64 + 5 * 8 + 1024
@@ -807,7 +814,9 @@ def phase_kernel_build(lib_path) -> dict:
     flash kernel, bf16 and fp32 in 3xTF32, K3 and K4) spills or has no
     tensor-core instruction (a wgmma kernel no HGMMA), if a wgmma or split
     kernel has a stack frame, if a flash instance asks for more shared memory
-    than a block may have, or if a K1 or K2 instance spills or is missing."""
+    than a block may have, if a flash instance is built that no launch runs
+    (a stale bf16 mma.sync backward at D 128), or if a K1 or K2 instance
+    spills or is missing."""
     log = lib_path.with_suffix(".log").read_text()
     everything = parse_ptxas(log)
     table = {key: info for key, info in everything.items() if key[0].startswith("flash_")}
@@ -820,6 +829,9 @@ def phase_kernel_build(lib_path) -> dict:
             found = hmma.get((kernel, dtype, d), {})
             row.update(hmma=found.get("HMMA", 0), hgmma=found.get("HGMMA", 0))
         rows.append(row)
+    stale = sorted(set(table) - set(flash_instances()))
+    if stale:
+        raise AssertionError(f"flash kernel instances that no launch runs are built: {stale}")
     for kernel, dtype, d in flash_instances():
         info = table.get((kernel, dtype, d))
         if info is None or info["registers"] is None:
@@ -1819,8 +1831,12 @@ FLASH_HEAD_SIZE_CASES = [
     ((1, 2048, 32, 100), True, None, "one layer of open_llama_3b at S 2048; padded route, "
                                      "D 128"),
     # D 128 natively, at the layer of the registry's llama-2-7b (32 heads of
-    # 128) at S 4096: 67 of the registry's entries have D 128
+    # 128) at S 4096: 67 of the registry's entries have D 128; and a causal
+    # and a non-causal case under a key mask, as at D 256
     ((1, 4096, 32, 128), True, None, "one layer of llama-2-7b at S 4096; native D 128"),
+    ((2, 300, 2, 128), True, [300, 141], "ragged causal under a key mask; native D 128"),
+    ((4, 200, 2, 128), False, [200, 1, 100, 173], "ragged non-causal under a key mask; "
+                                                   "native D 128"),
 ]
 LLAMA_D128_SHAPE = (1, 4096, 32, 128)
 
@@ -2160,13 +2176,27 @@ def phase_kernel_flash_causal(device: torch.device) -> dict:
     return {"max_abs_err": worst, "path": path}
 
 
-# the kernel one call of each K5 entry point launches at D 256, by type
+# the kernel one call of each K5 entry point launches at D 256, by type, and
+# in bf16 at D 128
 FLASH_D256_KERNELS = {"bfloat16": {"fwd": "flash_fwd_wgmma_kernel",
                                    "dkv": "flash_bwd_dkv_wgmma_kernel",
                                    "dq": "flash_bwd_dq_wgmma_kernel"},
                       "float32": {"fwd": "flash_fwd_tf32_split_kernel",
                                   "dkv": "flash_bwd_dkv_tf32_split_kernel",
                                   "dq": "flash_bwd_dq_tf32_split_kernel"}}
+FLASH_D128_BF16_KERNELS = {"fwd": "flash_fwd_mma_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
+                           "dq": "flash_bwd_dq_wgmma_kernel"}
+
+
+def flash_kernels_of_a_call(d: int, dtype: str) -> Optional[dict]:
+    """{entry point: the one flash kernel a call launches} at head size `d`
+    in `dtype` ("bfloat16" or "float32") where phase
+    `kernel_flash_head_sizes` checks it by the profiler, else None."""
+    if d == 256:
+        return FLASH_D256_KERNELS[dtype]
+    if d == 128 and dtype == "bfloat16":
+        return FLASH_D128_BF16_KERNELS
+    return None
 
 
 def _flash_kernels_per_call(shape, causal: bool, dtype: torch.dtype, device,
@@ -2176,7 +2206,10 @@ def _flash_kernels_per_call(shape, causal: bool, dtype: torch.dtype, device,
     and the dQ entry point at `shape` under `key_mask`, read from the CUDA
     activity of `torch.profiler` (the device time of the flash kernel alone,
     without the wrapper's other work); raises unless each call launched its
-    `FLASH_D256_KERNELS` kernel once and no other flash kernel."""
+    `flash_kernels_of_a_call` kernel once and no other flash kernel.  A
+    window whose record holds no flash kernel at all (the activity buffer
+    came back empty: on an H100 now and then, three windows in a row once)
+    is profiled again, up to five times; `windows` counts them."""
     from torch.profiler import ProfilerActivity, profile
 
     from roar_tpu_torch.kernels import flash_attention as fa
@@ -2194,21 +2227,26 @@ def _flash_kernels_per_call(shape, causal: bool, dtype: torch.dtype, device,
              "dq": lambda: fa.flash_self_attention_bwd(*args, need_dkv=False, delta=delta,
                                                        causal=causal)}
     name = str(dtype).replace("torch.", "")
-    found = {"launches": {}, "device_ms": {}}
+    expected = flash_kernels_of_a_call(shape[3], name)
+    found = {"launches": {}, "device_ms": {}, "windows": {}}
     for entry, call in calls.items():
         call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        launched, micros = Counter(), 0.0
-        for event in prof.key_averages():
-            kernel = re.search(r"(flash_\w+_kernel)<", event.key)
-            if kernel is not None:
-                launched[kernel.group(1)] += event.count
-                micros += getattr(event, "device_time_total", None) or event.cuda_time_total
+        for window in range(1, 6):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            launched, micros = Counter(), 0.0
+            for event in prof.key_averages():
+                kernel = re.search(r"(flash_\w+_kernel)<", event.key)
+                if kernel is not None:
+                    launched[kernel.group(1)] += event.count
+                    micros += getattr(event, "device_time_total", None) or event.cuda_time_total
+            if launched:
+                break
         found["launches"][entry], found["device_ms"][entry] = dict(launched), micros / 1e3
-        if dict(launched) != {FLASH_D256_KERNELS[name][entry]: 1}:
+        found["windows"][entry] = window
+        if dict(launched) != {expected[entry]: 1}:
             raise AssertionError(f"one {entry} call at {shape} {name} launched {dict(launched)}")
     return found
 
@@ -2216,13 +2254,14 @@ def _flash_kernels_per_call(shape, causal: bool, dtype: torch.dtype, device,
 def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
     """K5 at the head sizes outside 32 / 64 / 128 against the plain versions
     in fp32 and bf16 (`FLASH_HEAD_SIZE_CASES`), timed beside the bounds and
-    SDPA: at D 256 the forward, dK/dV and dQ kernels in both types, and the
-    padded route at D 80 and 100, forward and backward in both types,
-    counted in `LAUNCHES_PADDED`.  At pythia-1b's layer, and in fp32 at every
-    D 256 shape, the kernels one call of each entry point launches
-    (`kernels_per_call`: one, by the profiler); in fp32 at D 256 also the
-    forward's `_forward_exact_checks` (two runs the same bits, single-key
-    rows o == v).  Returns {(shape, dtype name): case}."""
+    SDPA: at D 256 the forward, dK/dV and dQ kernels in both types, at D 128
+    the same (in bf16 the wgmma backward kernels), and the padded route at
+    D 80 and 100, forward and backward in both types, counted in
+    `LAUNCHES_PADDED`.  At pythia-1b's and llama-2-7b's layers in bf16 and
+    at every D 256 shape in fp32, the kernels one call of each entry point
+    launches (`kernels_per_call`: one, by the profiler); in fp32 at D 256
+    also the forward's `_forward_exact_checks` (two runs the same bits,
+    single-key rows o == v).  Returns {(shape, dtype name): case}."""
     from roar_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -2239,7 +2278,8 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
             padded = fa.LAUNCHES_PADDED - padded_before
             if (d in fa.HEAD_DIMS) == bool(padded):
                 raise AssertionError(f"D {d}: padded launches {dict(padded)}")
-            if fp32_d256 or (d == 256 and causal and lens is None):
+            layer = d in (128, 256) and causal and lens is None  # a model's layer
+            if fp32_d256 or (layer and dtype == torch.bfloat16):
                 case["kernels_per_call"] = _flash_kernels_per_call(shape, causal, dtype, device,
                                                                    key_mask)
                 _emit({"phase": "kernel_flash_head_sizes", "shape_bthd": list(shape),
@@ -3670,13 +3710,17 @@ def _gpt_bf16_kernels_vs_plain(model, batch: dict, loss_k: float, grads_k) -> di
             "worst_tensor_grad_l2_rel_err": {"tensor": worst_any, "err": by_tensor[worst_any]}}
 
 
-# Registry entries at a head size outside 32 / 64 / 128, one bf16
-# micro-batch each at full width and 2 layers, S 2048, the entry's own
-# vocabulary: (name, head size, parameters at 2 layers).  phi-2 and
-# open_llama_3b take the padded route; gemma-2b runs D 256 with its one KV
-# group repeated to the 8 query heads
+# Registry entries at the head sizes whose kernels the GPT recipe's
+# tiny-llama (D 64) does not run, one bf16 micro-batch each at full width and
+# 2 layers, S 2048, the entry's own vocabulary: (name, head size, parameters
+# at 2 layers).  phi-2 and open_llama_3b take the padded route; gemma-2b runs
+# D 256 with its one KV group repeated to the 8 query heads; llama-2-7b runs
+# the D 128 kernels (its 2 x 131,072,000 of embedding and head, 2 x
+# 202,383,360 of layers and 4096 of final norm), at its own S 4096
+# (`GPT_HEAD_SIZE_SEQ`)
 GPT_HEAD_SIZE_RUNS = [("phi-2", 80, 419543040), ("open_llama_3b", 100, 452624000),
-                      ("gemma-2b", 256, 1268787200)]
+                      ("gemma-2b", 256, 1268787200), ("llama-2-7b", 128, 666914816)]
+GPT_HEAD_SIZE_SEQ = {"llama-2-7b": 4096}
 
 
 def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int = 2048,
@@ -3685,9 +3729,11 @@ def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int =
     weights, seeded tokens) with the kernels against one with the plain
     versions, at the bars of `_gpt_bf16_kernels_vs_plain`, and at D 256
     (gemma-2b) one fp32 micro-batch too, at those of
-    `_gpt_fp32_kernels_vs_plain`; `narrow`: two heads of the entry's head size
-    and a small vocabulary, for a rehearsal on the CPU.  Returns {name:
-    causal launches, bf16 and padded ones, and at D 256 the fp32 ones}."""
+    `_gpt_fp32_kernels_vs_plain`; each at `seq_length` tokens but those of
+    `GPT_HEAD_SIZE_SEQ`; `narrow`: two heads of the entry's head size, a
+    small vocabulary and `seq_length` tokens throughout, for a rehearsal on
+    the CPU.  Returns {name: causal launches, bf16 and padded ones, and at
+    D 256 the fp32 ones}."""
     from roar_tpu_torch.kernels import flash_attention as fa
     from roar_tpu_torch.models.gpt_model import GPTLMModel
 
@@ -3709,7 +3755,8 @@ def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int =
         if config.head_size != head_size or (not narrow and count != n_params):
             raise AssertionError(f"{name}: head size {config.head_size}, {count} parameters")
         model.set_compute_dtype(torch.bfloat16)
-        tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (1, seq_length + 1)))
+        seq = seq_length if narrow else GPT_HEAD_SIZE_SEQ.get(name, seq_length)
+        tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (1, seq + 1)))
         batch = {"input_ids": tokens[:, :-1].to(device), "labels": tokens[:, 1:].to(device)}
         _zero_launch_counts()
         loss_k, grads_k = _gpt_micro_batch(model, batch)
@@ -4370,16 +4417,19 @@ def main() -> int:
     causal_fwd32, causal_bwd32 = flash_rows([fcausal["path"]["float32"]])
     causal_errors = list(fcausal["max_abs_err"].values())
     backward_kernels = (("dkv", ("dk", "dv")), ("dq", ("dq",)))
-    # K5 at the head sizes outside 32 / 64 / 128 (phase
+    # K5 at the head sizes outside 32 / 64 and at D 128 (phase
     # `kernel_flash_head_sizes`): D 256 on the pythia-1b runs (`launches`:
     # the bf16 run's bf16 forwards, dkv and dq and its fp32 validation
     # forwards; the fp32 run's fp32 forwards, dkv and dq); the padded route
     # at D 80 / 100 on the phi-2 / open_llama_3b micro-batches of phase
     # `gpt_head_sizes` (bf16; `fp32` beside: the same call in fp32)
     d256, ragged = (1, 2048, 8, 256), (4, 200, 2, 256)
-    # D 128 at llama-2-7b's layer, both types (no run of the path trains it)
+    # D 128 at llama-2-7b's layer, both types (`launches`: phase
+    # `gpt_head_sizes`'s llama-2-7b micro-batch), and at (4, 200, 2, 128)
+    # under a key mask
     d128_fwd, d128_bwd = flash_rows([fheads[(LLAMA_D128_SHAPE, "bfloat16")]])
     d128_fwd32, d128_bwd32 = flash_rows([fheads[(LLAMA_D128_SHAPE, "float32")]])
+    _, ragged128_bwd = flash_rows([fheads[((4, 200, 2, 128), "bfloat16")]])
     d256_fwd, d256_bwd = flash_rows([fheads[(d256, "bfloat16")]])
     d256_fwd32, d256_bwd32 = flash_rows([fheads[(d256, "float32")]])
     ragged_fwd, ragged_bwd = flash_rows([fheads[(ragged, "bfloat16")]])
@@ -4389,12 +4439,12 @@ def main() -> int:
         return [case["errors"] for (shape, name), case in fheads.items()
                 if shape[3] == d and name == dtype]
 
-    def per_call(d, dtype, entry):
+    def per_call(shape, dtype, entry):
         """Launches of its kernel in one call and that launch's device ms,
-        by the profiler, at pythia-1b's layer."""
-        calls = fheads[((1, 2048, 8, d), dtype)]["kernels_per_call"]
+        by the profiler, at `shape` (pythia-1b's layer at D 256)."""
+        calls = fheads[(shape, dtype)]["kernels_per_call"]
         return {"kernel_launches_per_call":
-                calls["launches"][entry][FLASH_D256_KERNELS[dtype][entry]],
+                calls["launches"][entry][flash_kernels_of_a_call(shape[3], dtype)[entry]],
                 "kernel_device_ms": calls["device_ms"][entry]}
 
     pythia_fp32_fwd = pythia["launches"]["fwd"] - pythia["launches_bf16"]["fwd"]
@@ -4416,6 +4466,7 @@ def main() -> int:
              "fp32": {**fwd32, "max_abs_err": worst(errors32, "o")}},
             *[{"name": f"flash_attention_causal_bwd_{name}_padded_d{d}",
                "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu", **common,
+               "kernel": f"flash_bwd_{name}_wgmma_kernel",
                "launches": launches[name], "max_abs_err": worst(errors16, *grads),
                **bwd16[name], "fp32": {**bwd32[name], "max_abs_err": worst(errors32, *grads)}}
               for name, grads in backward_kernels]]
@@ -4458,6 +4509,8 @@ def main() -> int:
                   "launches": gpt["fp32_check_launches"]["fwd"],
                   "launches_validation": gpt["launches"]["fwd"] - gpt["launches_bf16"]["fwd"]},
          "llama_2_7b_d128": {"shape_bthd": list(LLAMA_D128_SHAPE), **d128_fwd,
+                             "launches_gpt_head_sizes": heads["llama-2-7b"]["bf16"]["fwd"],
+                             **per_call(LLAMA_D128_SHAPE, "bfloat16", "fwd"),
                              "max_abs_err": worst(head_errors(128, "bfloat16"), "o"),
                              "fp32": {**d128_fwd32,
                                       "max_abs_err": worst(head_errors(128, "float32"), "o")}}},
@@ -4467,11 +4520,22 @@ def main() -> int:
            "launches": gpt["launches"][name],
            "launches_per_micro_batch": gpt["per_micro_batch"][name],
            "max_abs_err": worst(causal_errors, *grads), **causal_bwd[name],
-           "fp32": causal_bwd32[name],
-           "llama_2_7b_d128": {"shape_bthd": list(LLAMA_D128_SHAPE), **d128_bwd[name],
-                               "max_abs_err": worst(head_errors(128, "bfloat16"), *grads),
-                               "fp32": {**d128_bwd32[name], "max_abs_err":
-                                        worst(head_errors(128, "float32"), *grads)}}}
+           "fp32": causal_bwd32[name]}
+          for name, grads in backward_kernels],
+        # the bf16 backward at D 128: one wgmma kernel launch a call;
+        # `launches` the llama-2-7b micro-batch's of phase `gpt_head_sizes`;
+        # times at its layer (1, 4096, 32, 128), `ragged_non_causal` at
+        # (4, 200, 2, 128) under a key mask; `fp32` the same call in fp32
+        *[{"name": f"flash_attention_causal_bwd_{name}_d128", "route": "cuda",
+           "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
+           "kernel": f"flash_bwd_{name}_wgmma_kernel", "head_size": 128,
+           "shape_bthd": list(LLAMA_D128_SHAPE), **per_call(LLAMA_D128_SHAPE, "bfloat16", name),
+           "launches": heads["llama-2-7b"]["bf16"][name],
+           "max_abs_err": worst(head_errors(128, "bfloat16"), *grads), **d128_bwd[name],
+           "ragged_non_causal": ragged128_bwd[name],
+           "fp32": {**d128_bwd32[name], "kernel": f"flash_bwd_{name}_tf32_kernel",
+                    "max_abs_err": worst(head_errors(128, "float32"), *grads)}}
           for name, grads in backward_kernels],
         {"name": "pyin_viterbi_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
@@ -4568,7 +4632,7 @@ def main() -> int:
          "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
          "kernel": "flash_fwd_wgmma_kernel", "head_size": 256,
-         **per_call(256, "bfloat16", "fwd"),
+         **per_call(d256, "bfloat16", "fwd"),
          "launches": pythia["launches_bf16"]["fwd"],
          "launches_per_micro_batch": pythia["per_micro_batch"]["fwd"],
          "max_abs_err": worst(head_errors(256, "bfloat16"), "o"), **d256_fwd,
@@ -4579,7 +4643,7 @@ def main() -> int:
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
            "kernel": f"flash_bwd_{name}_wgmma_kernel", "head_size": 256,
-           **per_call(256, "bfloat16", name),
+           **per_call(d256, "bfloat16", name),
            "launches": pythia["launches_bf16"][name],
            "launches_per_micro_batch": pythia["per_micro_batch"][name],
            "launches_gpt_head_sizes": heads["gemma-2b"]["bf16"][name],
@@ -4595,7 +4659,7 @@ def main() -> int:
          "kernel": "flash_fwd_tf32_split_kernel", "head_size": 256,
          "launches": pythia32["launches"]["fwd"],
          "launches_per_micro_batch": pythia32["per_micro_batch"]["fwd"],
-         **per_call(256, "float32", "fwd"),
+         **per_call(d256, "float32", "fwd"),
          "launches_validation_bf16_run": pythia_fp32_fwd,
          "launches_fp32_check": pythia["fp32_check_launches"]["fwd"],
          "max_abs_err": worst(head_errors(256, "float32"), "o"), **d256_fwd32,
@@ -4604,7 +4668,7 @@ def main() -> int:
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "float32",
            "kernel": f"flash_bwd_{name}_tf32_split_kernel", "head_size": 256,
-           **per_call(256, "float32", name),
+           **per_call(d256, "float32", name),
            "launches": pythia32["launches"][name],
            "launches_per_micro_batch": pythia32["per_micro_batch"][name],
            "launches_fp32_check": pythia["fp32_check_launches"][name],

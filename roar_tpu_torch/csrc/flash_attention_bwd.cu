@@ -25,14 +25,16 @@
 // fixed order, so there are no float atomics and two runs give the same bits.
 //
 // Head sizes 32, 64, 128 and 256 in both types, one launch a call for each
-// kernel.  bf16 at D 256: the wgmma kernels, `flash_bwd_dkv_wgmma_kernel` and
-// `flash_bwd_dq_wgmma_kernel` (a producer warp of TMA copies and two consumer
-// warpgroups on wgmma, each score tile formed once; see their notes).  fp32
-// at D 256: the split kernels, 8 warps a block, each score tile formed once
-// (see their notes).
+// kernel.  bf16 at D 128 and 256: the wgmma kernels, `flash_bwd_dkv_wgmma_kernel`
+// and `flash_bwd_dq_wgmma_kernel` (a producer warp of TMA copies and two
+// consumer warpgroups on wgmma, each score tile formed once; at D 128 a block
+// owns 128 rows and each warpgroup 64 of them whole, at D 256 a block owns 64
+// and the warpgroups split the work of a tile; see their notes).  fp32 at
+// D 256: the split kernels, 8 warps a block, each score tile formed once (see
+// their notes).
 //
-// Up to D 128 both types share one block layout, 4 warps a block.  dK/dV:
-// each warp owns
+// The fp32 kernels up to D 128 and the bf16 ones up to D 64 share one block
+// layout, 4 warps a block.  dK/dV: each warp owns
 // 16 keys of the block's 64-key tile as the rows of S^T = K q^T and
 // dP^T = V dO^T, so that P^T and dS^T come out of the accumulators as the A
 // operands of dV += P^T dO and dK += dS^T q without leaving registers; q and dO
@@ -41,7 +43,7 @@
 // operand of dQ += dS K; K and V tiles are staged by cp.async.  dQ, dK and dV
 // stay fp32 in registers until they are stored.
 //
-// bf16 up to D 128, `flash_bwd_dkv_mma_kernel` and `flash_bwd_dq_mma_kernel`:
+// bf16 up to D 64, `flash_bwd_dkv_mma_kernel` and `flash_bwd_dq_mma_kernel`:
 // mma.sync m16n8k16 with fp32 sums (flash_attention_mma.cuh) on XOR-swizzled bf16
 // tiles; the accumulators of two neighbouring 8-wide n-tiles are, element for
 // element, the A fragment of one 16-wide k-chunk of the next product; the
@@ -73,9 +75,10 @@
 // dout.v^T, so seven are done: dK/dV four (8 pairs D operations), dQ three
 // (6 pairs D).  bf16 is held against the 989 TFLOP/s dense bf16 peak; fp32
 // does three TF32 products for each, against 494.7 / 3 = 165 TFLOP/s (2.46x
-// the 67 TFLOP/s of the FMA pipe).  What holds the mma.sync kernels (up to
-// D 128, and fp32 at D 256) back from it: `mma.sync` rather than `wgmma`, every warp reading the whole staged tile of the other
-// side from shared memory, cp.async rather than TMA, per-element work (exp,
+// the 67 TFLOP/s of the FMA pipe).  What holds the mma.sync kernels (bf16
+// up to D 64, fp32 up to D 128 and at D 256) back from it: `mma.sync` rather
+// than `wgmma`, every warp reading the whole staged tile of the other side
+// from shared memory, cp.async rather than TMA, per-element work (exp,
 // masks, dS) of the same order as the products at D 64, and in fp32 the
 // splits (five integer and fp32 operations a word) and the flush adds (four
 // a k-chunk, about a fifth of the fp32 kernels' time), issued beside the
@@ -107,8 +110,8 @@
 // 13 % of their own bounds) where the passes and halves took 5.034 / 5.115
 // and 2.872 / 2.844 (NVIDIA H100 80GB HBM3, 700.00 W,
 // `scripts/flash_kernel_times_torch.py`).  Later work: TF32 wgmma for fp32,
-// wgmma / TMA up to D 128, a fused five-product backward, and a GQA-aware
-// kernel.
+// wgmma / TMA at D 32 and 64 in bf16, a fused five-product backward, and a
+// GQA-aware kernel.
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
@@ -130,8 +133,7 @@ namespace {
 // rows are double-buffered by cp.async.  dK and dV stay fp32 in registers and
 // are rounded once, as they are stored.  Each output element is one thread's
 // and is summed in a fixed order: no atomics, two runs give the same bits.
-// Up to D 128; at D 256 a whole row of dK and dV would be 256 accumulator
-// registers a thread, and `flash_bwd_dkv_wgmma_kernel` runs instead.
+// Up to D 64; at D 128 and 256 `flash_bwd_dkv_wgmma_kernel` runs instead.
 // ---------------------------------------------------------------------------
 
 namespace fa_mma = flash::mma;
@@ -151,13 +153,10 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int T, int H, float scale, int causal) {
   using namespace fa_mma;
-  static_assert(D <= 128, "D 256 runs flash_bwd_dkv_wgmma_kernel");
+  static_assert(D <= 64, "D 128 and 256 run flash_bwd_dkv_wgmma_kernel");
   constexpr int TILE_ELEMS = ROWS * D;
   constexpr int KC = D / 16;  // k-chunks of the two score products
   constexpr int NT = D / 8;   // n-tiles of dK and dV
-  // D 128 reads its K and V fragments from shared memory per chunk, to stay
-  // clear of spills; narrower heads hold them in registers
-  constexpr bool KV_IN_REGS = D <= 64;
 
   extern __shared__ uint4 smem_dkv[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_dkv);
@@ -199,13 +198,11 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t ka[KV_IN_REGS ? KC : 1][4], va[KV_IN_REGS ? KC : 1][4];
-  if constexpr (KV_IN_REGS) {
+  uint32_t ka[KC][4], va[KC][4];
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      load_a<D>(ka[kc], Ks, warp * 16, kc, lane);
-      load_a<D>(va[kc], Vs, warp * 16, kc, lane);
-    }
+  for (int kc = 0; kc < KC; ++kc) {
+    load_a<D>(ka[kc], Ks, warp * 16, kc, lane);
+    load_a<D>(va[kc], Vs, warp * 16, kc, lane);
   }
 
   float acc_dk[NT][4], acc_dv[NT][4];
@@ -239,9 +236,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // not all the key tile's single id are masked element by element
     const bool masked = !uniform || q0 + ROWS > T || (causal && q0 < k0 + ROWS);
 
-    // D 128 keeps 128 accumulators a thread: one chunk at a time, so that the
-    // next chunk's fragment loads are not hoisted into registers it lacks
-#pragma unroll(KV_IN_REGS ? ROWS / 16 : 1)
+#pragma unroll(ROWS / 16)
     for (int c = 0; c < ROWS / 16; ++c) {  // queries 16 c .. 16 c + 15 of the tile
       float st[2][4], dpt[2][4];
 #pragma unroll
@@ -250,25 +245,15 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
-        uint32_t kf[4], vf[4], qb[4], ob[4];
-        if constexpr (KV_IN_REGS) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            kf[i] = ka[kc][i];
-            vf[i] = va[kc][i];
-          }
-        } else {
-          load_a<D>(kf, Ks, warp * 16, kc, lane);
-          load_a<D>(vf, Vs, warp * 16, kc, lane);
-        }
+        uint32_t qb[4], ob[4];
         // both B loads before the products (a D 64 kernel that loaded dO
         // after S's products ran 10 to 15 % slower on an H100)
         load_b<D>(qb, Qt, c * 16, kc, lane);
         load_b<D>(ob, Ot, c * 16, kc, lane);
-        mma_bf16(st[0], kf, qb[0], qb[1]);
-        mma_bf16(st[1], kf, qb[2], qb[3]);
-        mma_bf16(dpt[0], vf, ob[0], ob[1]);
-        mma_bf16(dpt[1], vf, ob[2], ob[3]);
+        mma_bf16(st[0], ka[kc], qb[0], qb[1]);
+        mma_bf16(st[1], ka[kc], qb[2], qb[3]);
+        mma_bf16(dpt[0], va[kc], ob[0], ob[1]);
+        mma_bf16(dpt[1], va[kc], ob[2], ob[3]);
       }
       // element (n, e): key row e < 2 ? g : g + 8, query 16 c + 8 n + 2 t4 + (e & 1)
 #pragma unroll
@@ -342,8 +327,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // time.  Each thread keeps the lse and delta of its two rows in registers.
 // K and V are double-buffered by cp.async.  dQ stays fp32 in registers and is
 // rounded once, as it is stored; each element is one thread's and is summed in
-// a fixed order: no atomics, two runs give the same bits.  Up to D 128; D 256
-// runs `flash_bwd_dq_wgmma_kernel`.
+// a fixed order: no atomics, two runs give the same bits.  Up to D 64; D 128
+// and 256 run `flash_bwd_dq_wgmma_kernel`.
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -362,13 +347,10 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
                         int T, int H, float scale, int causal) {
   using namespace fa_mma;
-  static_assert(D <= 128, "D 256 runs flash_bwd_dq_wgmma_kernel");
+  static_assert(D <= 64, "D 128 and 256 run flash_bwd_dq_wgmma_kernel");
   constexpr int TILE_ELEMS = ROWS * D;
   constexpr int KC = D / 16;  // k-chunks of the two score products
   constexpr int NT = D / 8;   // n-tiles of dQ
-  // D 128 reads its Q and dO fragments from shared memory per chunk, to stay
-  // clear of spills; narrower heads hold them in registers
-  constexpr bool QO_IN_REGS = D <= 64;
 
   extern __shared__ uint4 smem_dq[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_dq);
@@ -412,13 +394,11 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t qa[QO_IN_REGS ? KC : 1][4], oa[QO_IN_REGS ? KC : 1][4];
-  if constexpr (QO_IN_REGS) {
+  uint32_t qa[KC][4], oa[KC][4];
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      load_a<D>(qa[kc], Qs, warp * 16, kc, lane);
-      load_a<D>(oa[kc], Os, warp * 16, kc, lane);
-    }
+  for (int kc = 0; kc < KC; ++kc) {
+    load_a<D>(qa[kc], Qs, warp * 16, kc, lane);
+    load_a<D>(oa[kc], Os, warp * 16, kc, lane);
   }
 
   float acc[NT][4];
@@ -442,9 +422,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // query tile's single id are masked element by element
     const bool masked = !uniform || k0 + ROWS > T || (causal && k0 + ROWS > q0);
 
-    // D 128 keeps 64 accumulators a thread: one chunk at a time, so that the
-    // next chunk's fragment loads are not hoisted into registers it lacks
-#pragma unroll(QO_IN_REGS ? ROWS / 16 : 1)
+#pragma unroll(ROWS / 16)
     for (int c = 0; c < ROWS / 16; ++c) {  // keys 16 c .. 16 c + 15 of the tile
       float s[2][4], dp[2][4];
 #pragma unroll
@@ -453,23 +431,13 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
-        uint32_t qf[4], of[4], kb[4], vb[4];
-        if constexpr (QO_IN_REGS) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            qf[i] = qa[kc][i];
-            of[i] = oa[kc][i];
-          }
-        } else {
-          load_a<D>(qf, Qs, warp * 16, kc, lane);
-          load_a<D>(of, Os, warp * 16, kc, lane);
-        }
+        uint32_t kb[4], vb[4];
         load_b<D>(kb, Kt, c * 16, kc, lane);
         load_b<D>(vb, Vt, c * 16, kc, lane);
-        mma_bf16(s[0], qf, kb[0], kb[1]);
-        mma_bf16(s[1], qf, kb[2], kb[3]);
-        mma_bf16(dp[0], of, vb[0], vb[1]);
-        mma_bf16(dp[1], of, vb[2], vb[3]);
+        mma_bf16(s[0], qa[kc], kb[0], kb[1]);
+        mma_bf16(s[1], qa[kc], kb[2], kb[3]);
+        mma_bf16(dp[0], oa[kc], vb[0], vb[1]);
+        mma_bf16(dp[1], oa[kc], vb[2], vb[3]);
       }
       // element (n, e): query row e < 2 ? g : g + 8, key 16 c + 8 n + 2 t4 + (e & 1)
 #pragma unroll
@@ -1742,6 +1710,470 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 kernels at D 128 on Hopper's own units (flash_attention_wgmma.cuh),
+// each warpgroup owning its rows whole.  At D 128 a thread can hold a 64-row
+// warpgroup's share of two 64 x 128 fp32 accumulators (dK and dV: 64 + 64
+// registers), so no tile crosses between the warpgroups, unlike at D 256:
+// each consumer warpgroup forms its own score tiles S and dP (wgmma m64n64k16
+// from shared memory, 8 k-steps over D), its own P and dS in registers, and
+// its own gradient products (m64n128k16, the bf16 P or dS as the register A
+// operand, the B tile read transposed), so one warpgroup's exp runs under the
+// other's products with no barrier between them.  A block owns 128 rows (two
+// warpgroups of 64) and streams 64-row tiles of the other side, so every
+// streamed tile is read by 128 rows: half the L2 reads of a 64-row block.
+// One launch a call, one block of three warpgroups (a producer warp, two
+// consumer warpgroups; `setmaxnreg` 24 / 240: 128 x 24 + 256 x 240 = 64,512
+// of the SM's 65,536).  The producer TMA-copies the block's own 128-row tiles
+// once and the streamed tiles into a ring of OWN_STAGES stages (each stage's
+// `full` barrier counting the bytes in and its `empty` barrier the 8 consumer
+// warps out); every warp walks the same tiles (`next_tile` over the 128-row
+// block's segment range, so a skipped tile holds no row that any of the
+// block's rows sees).  With `causal` a warpgroup skips the products of a
+// tile wholly on the far side of its own diagonal, still releasing the stage,
+// and only its diagonal, ragged and mixed-segment tiles are masked element by
+// element.  Rows past T arrive as TMA's zero fill and are never stored.  The
+// fp32 sums, the roundings and the fixed order per output element are those
+// of the kernels above: no atomics, two runs give the same bits.
+// ---------------------------------------------------------------------------
+
+constexpr int OWN_ROWS = 128;   // rows of a block's own tile: two warpgroups of 64
+constexpr int OWN_STAGES = 2;   // stages of the ring of streamed 64-row tiles
+constexpr uint32_t OWN_BLOCK = OWN_ROWS * 128;  // bytes of an own tile's 64-column block
+
+template <int D>
+constexpr size_t dkv_own_smem_bytes() {
+  // K, V (128 rows); Q and dO x stages (64 rows); each stage's lse and delta
+  // rows (fp32); 1 + 2 x stages barriers; 1024 bytes to align: 133,160 B
+  return 2 * (size_t)D * (2 * OWN_ROWS + 2 * WG_ROWS * OWN_STAGES) +
+         2 * 4 * WG_ROWS * OWN_STAGES + (1 + 2 * OWN_STAGES) * 8 + 1024;
+}
+
+template <int D>
+constexpr size_t dq_own_smem_bytes() {
+  // Q, dO (128 rows); K and V x stages (64 rows); barriers; align: 132,136 B
+  return 2 * (size_t)D * (2 * OWN_ROWS + 2 * WG_ROWS * OWN_STAGES) + (1 + 2 * OWN_STAGES) * 8 +
+         1024;
+}
+
+// S (or S^T) into `s` and dP (or dP^T) into `dp`, each A B^T over D with A
+// this warpgroup's 64 rows of a 128-row tile and B a streamed 64-row tile
+// (K-major, swizzled): two commit groups, S first, neither waited for
+template <int D>
+__device__ __forceinline__ void own_score_products(float (&s)[32], float (&dp)[32], uint32_t sa,
+                                                   uint32_t sb, uint32_t da, uint32_t db) {
+  using namespace fa_hop;
+  fence_operands(s);
+  fence_operands(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    // k-step kc: column block kc / 4, 32 bytes a step within it
+    const uint32_t a = (kc >> 2) * OWN_BLOCK + (kc & 3) * 32;
+    const uint32_t b = (kc >> 2) * WG_BLOCK + (kc & 3) * 32;
+    wgmma_m64n64k16_ss(s, desc_sw128(sa + a, 16, 1024), desc_sw128(sb + b, 16, 1024), kc > 0);
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    const uint32_t a = (kc >> 2) * OWN_BLOCK + (kc & 3) * 32;
+    const uint32_t b = (kc >> 2) * WG_BLOCK + (kc & 3) * 32;
+    wgmma_m64n64k16_ss(dp, desc_sw128(da + a, 16, 1024), desc_sw128(db + b, 16, 1024), kc > 0);
+  }
+  wgmma_commit();
+}
+
+// dK/dV at D 128.  One block per 128-key tile; K and V are copied once and
+// stay, the visible 64-query tiles of Q and dO (from the block's diagonal
+// with `causal`) stream through the ring with their lse (times log2 e) and
+// delta rows, which the producer warp's lanes store into the stage beside
+// them (0 past T) before they arrive on its `full` barrier.  Warpgroup w owns
+// keys 64 w .. 64 w + 63 of the tile, their dK and dV whole:
+//   S^T = K Q^T,  dP^T = V dO^T                      (m64n64k16, 8 k-steps)
+//   P^T = exp(S^T * scale - lse), 0 where masked
+//   dS^T = P^T o (dP^T - delta) * scale              (from the unrounded P^T)
+//   dV += bf16(P^T) dO,  dK += bf16(dS^T) Q          (m64n128k16, 4 k-steps)
+// P^T is formed while dP^T's product is still running.
+template <>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel<128>(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const __grid_constant__ CUtensorMap omap,
+                                const int* __restrict__ seg, const float* __restrict__ lse,
+                                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int T, int H, float scale,
+                                int causal) {
+  using namespace fa_hop;
+  using fa_mma::LOG2E;
+  constexpr int D = 128;
+  constexpr uint32_t OWN_TILE = (D / 64) * OWN_BLOCK;  // bytes of a 128-row tile
+  constexpr uint32_t TILE = (D / 64) * WG_BLOCK;       // bytes of a streamed 64-row tile
+
+  extern __shared__ uint8_t smem_dkv_own[];
+  const uint32_t base_u32 = smem_u32(smem_dkv_own);
+  const uint32_t sK = (base_u32 + 1023u) & ~1023u;
+  const uint32_t sV = sK + OWN_TILE;
+  const uint32_t sQ = sV + OWN_TILE;              // [stages]
+  const uint32_t sO = sQ + OWN_STAGES * TILE;     // dO, [stages]
+  const uint32_t sR = sO + OWN_STAGES * TILE;     // [stages][lse * log2 e, delta][64] fp32
+  const uint32_t kv_full = sR + OWN_STAGES * 2 * WG_ROWS * 4;  // then full[stages], empty[stages]
+  const uint32_t full0 = kv_full + 8, empty0 = full0 + 8 * OWN_STAGES;
+  float* rows_s = reinterpret_cast<float*>(smem_dkv_own + (sR - base_u32));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * OWN_ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int* segb = seg + (long)b * T;
+
+  int klo, khi;
+  fa_mma::segment_range<OWN_ROWS>(segb, k0, T, lane, klo, khi);
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < OWN_STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 32);   // every lane of the producer warp
+      mbar_init(empty0 + 8 * st, 8);   // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // causal: the query tiles before this key tile's own row see none of its keys
+  bool uniform, uniform_next;
+  int q0 = fa_mma::next_tile(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
+
+  if (warp >= 8) {  // ---- the producer warpgroup: one warp copies ----
+    setmaxnreg_dec<24>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * OWN_TILE);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sK + c * OWN_BLOCK, &kmap, kv_full, 64 * c, h, k0, b);
+        tma_load_4d(sV + c * OWN_BLOCK, &vmap, kv_full, 64 * c, h, k0, b);
+      }
+    }
+    const long row_base = ((long)b * H + h) * T;
+    int stage = 0;
+    uint32_t phase = 0;
+    while (q0 < T) {
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the round before freed this stage
+      float* rows_t = rows_s + stage * 2 * WG_ROWS;
+      for (int i = lane; i < WG_ROWS; i += 32) {
+        const int query = q0 + i;
+        rows_t[i] = query < T ? lse[row_base + query] * LOG2E : 0.f;
+        rows_t[WG_ROWS + i] = query < T ? delta[row_base + query] : 0.f;
+      }
+      const uint32_t full = full0 + 8 * stage;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full, 2 * TILE);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sQ + stage * TILE + c * WG_BLOCK, &qmap, full, 64 * c, h, q0, b);
+          tma_load_4d(sO + stage * TILE + c * WG_BLOCK, &omap, full, 64 * c, h, q0, b);
+        }
+      } else {
+        mbar_arrive(full);  // releases this lane's lse and delta stores
+      }
+      q0 = fa_mma::next_tile(segb, q0 + WG_ROWS, T, T, klo, khi, lane, uniform_next);
+      if (++stage == OWN_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {  // ---- the consumer warpgroups ----
+    setmaxnreg_inc<240>();
+    const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+    const int wk0 = k0 + 64 * wg;  // this warpgroup's first key
+    // this thread's two keys, rows g and g + 8 of its warp's 16
+    const int key0 = wk0 + 16 * (warp & 3) + g, key1 = key0 + 8;
+    const int seg0 = key0 < T ? segb[key0] : -1, seg1 = key1 < T ? segb[key1] : -1;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t ka = sK + wg * WG_BLOCK, va = sV + wg * WG_BLOCK;  // this warpgroup's rows
+
+    // element i at key row (i & 2) ? key1 : key0, column 8 (i / 4) + 2 t4 + (i & 1)
+    float acc_dv[D / 2], acc_dk[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_dv[i] = acc_dk[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    while (q0 < T) {
+      const int qn = fa_mma::next_tile(segb, q0 + WG_ROWS, T, T, klo, khi, lane, uniform_next);
+      mbar_wait(full0 + 8 * stage, phase);
+      if (!causal || q0 + WG_ROWS > wk0) {  // else every query of the tile precedes these keys
+        const uint32_t qt = sQ + stage * TILE, ot = sO + stage * TILE;
+        const float* lse_t = rows_s + stage * 2 * WG_ROWS;
+        const float* delta_t = lse_t + WG_ROWS;
+        // element i of s and dp: key row (i & 2) ? key1 : key0, query column
+        // 8 (i / 4) + 2 t4 + (i & 1) of the tile
+        float s[32], dp[32];
+        own_score_products<D>(s, dp, ka, qt, va, ot);  // S^T, dP^T
+        wgmma_wait<1>();
+        fence_operands(s);
+        // the ragged edge, this warpgroup's diagonal tile (q0 == wk0) and a
+        // tile whose ids are not all the key tile's single id are masked
+        // element by element
+        const bool masked = !uniform || q0 + WG_ROWS > T || (causal && q0 < wk0 + WG_ROWS);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 row = *reinterpret_cast<const float2*>(lse_t + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float p = exp2f(fmaf(s[i], scale_log2, -((e & 1) ? row.y : row.x)));
+            if (masked) {
+              const int query = q0 + 8 * j + 2 * t4 + (e & 1);
+              const int key = (e & 2) ? key1 : key0;
+              const bool ok = query < T && segb[query] == ((e & 2) ? seg1 : seg0) &&
+                              (!causal || key <= query);
+              p = ok ? p : 0.f;
+            }
+            s[i] = p;
+          }
+        }
+        wgmma_wait<0>();
+        fence_operands(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 row = *reinterpret_cast<const float2*>(delta_t + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            // dS^T, from the unrounded P^T
+            dp[i] = s[i] * (dp[i] - ((e & 1) ? row.y : row.x)) * scale;
+          }
+        }
+        // dV += bf16(P^T) dO,  dK += bf16(dS^T) Q, the B tiles read transposed
+        uint32_t pa[4][4], sa[4][4];
+        score_as_a(s, pa);
+        score_as_a(dp, sa);
+        fence_operands(acc_dv);
+        fence_operands(acc_dk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          fence_operands(pa[kk]);
+          fence_operands(sa[kk]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k16_rs_mn(acc_dv, pa[kk], desc_sw128(ot + kk * 16 * 128, WG_BLOCK, 1024));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k16_rs_mn(acc_dk, sa[kk], desc_sw128(qt + kk * 16 * 128, WG_BLOCK, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(acc_dv);
+        fence_operands(acc_dk);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // this warp is done with the stage
+      q0 = qn;
+      uniform = uniform_next;
+      if (++stage == OWN_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const long ld = (long)H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r == 0 ? key0 : key1;
+      if (t < T) {
+        const long at = ((long)b * T + t) * ld + (long)h * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+              __floats2bfloat162_rn(acc_dk[4 * j + 2 * r], acc_dk[4 * j + 2 * r + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+              __floats2bfloat162_rn(acc_dv[4 * j + 2 * r], acc_dv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dQ at D 128.  One block per 128-query tile (handed out longest first with
+// `causal`); Q and dO are copied once and stay, the visible 64-key tiles of K
+// and V (up to the block's diagonal with `causal`) stream through the ring.
+// Warpgroup w owns queries 64 w .. 64 w + 63 of the tile, their dQ whole (64
+// registers a thread), and each thread keeps its two rows' lse and delta:
+//   S = Q K^T,  dP = dO V^T                          (m64n64k16, 8 k-steps)
+//   P = exp(S * scale - lse), 0 where masked
+//   dS = P o (dP - delta) * scale                    (from the unrounded P)
+//   dQ += bf16(dS) K                                 (m64n128k16, 4 k-steps)
+template <>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_wgmma_kernel<128>(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap omap,
+                               const int* __restrict__ seg, const float* __restrict__ lse,
+                               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                               int T, int H, float scale, int causal) {
+  using namespace fa_hop;
+  using fa_mma::LOG2E;
+  constexpr int D = 128;
+  constexpr uint32_t OWN_TILE = (D / 64) * OWN_BLOCK;
+  constexpr uint32_t TILE = (D / 64) * WG_BLOCK;
+
+  extern __shared__ uint8_t smem_dq_own[];
+  const uint32_t sQ = (smem_u32(smem_dq_own) + 1023u) & ~1023u;
+  const uint32_t sO = sQ + OWN_TILE;              // dO
+  const uint32_t sK = sO + OWN_TILE;              // [stages]
+  const uint32_t sV = sK + OWN_STAGES * TILE;     // [stages]
+  const uint32_t q_full = sV + OWN_STAGES * TILE;  // then full[stages], empty[stages]
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * OWN_STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * OWN_ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int* segb = seg + (long)b * T;
+
+  int qlo, qhi;
+  fa_mma::segment_range<OWN_ROWS>(segb, q0, T, lane, qlo, qhi);
+  // causal: the tiles past the block's last row hold no visible key
+  const int k_end = causal ? min(T, q0 + OWN_ROWS) : T;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < OWN_STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  bool uniform, uniform_next;
+  int k0 = fa_mma::next_tile(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+
+  if (warp >= 8) {  // ---- the producer warpgroup: one warp copies ----
+    setmaxnreg_dec<24>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * OWN_TILE);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sQ + c * OWN_BLOCK, &qmap, q_full, 64 * c, h, q0, b);
+        tma_load_4d(sO + c * OWN_BLOCK, &omap, q_full, 64 * c, h, q0, b);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    while (k0 < k_end) {  // always entered: every in-range query sees its own key
+      if (lane == 0) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the round before freed this stage
+        const uint32_t full = full0 + 8 * stage;
+        mbar_arrive_expect_tx(full, 2 * TILE);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sK + stage * TILE + c * WG_BLOCK, &kmap, full, 64 * c, h, k0, b);
+          tma_load_4d(sV + stage * TILE + c * WG_BLOCK, &vmap, full, 64 * c, h, k0, b);
+        }
+      }
+      k0 = fa_mma::next_tile(segb, k0 + WG_ROWS, k_end, T, qlo, qhi, lane, uniform_next);
+      if (++stage == OWN_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {  // ---- the consumer warpgroups ----
+    setmaxnreg_inc<240>();
+    const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+    const int wq0 = q0 + 64 * wg;  // this warpgroup's first query
+    // this thread's two queries, rows g and g + 8 of its warp's 16; rows past
+    // T are never stored
+    const int row0 = wq0 + 16 * (warp & 3) + g, row1 = row0 + 8;
+    const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+    const long row_base = ((long)b * H + h) * T;
+    const float lse_l2[2] = {row0 < T ? lse[row_base + row0] * LOG2E : 0.f,
+                             row1 < T ? lse[row_base + row1] * LOG2E : 0.f};
+    const float row_delta[2] = {row0 < T ? delta[row_base + row0] : 0.f,
+                                row1 < T ? delta[row_base + row1] : 0.f};
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t qa = sQ + wg * WG_BLOCK, oa = sO + wg * WG_BLOCK;  // this warpgroup's rows
+
+    // dQ: element i at row (i & 2) ? row1 : row0, column 8 (i / 4) + 2 t4 + (i & 1)
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    while (k0 < k_end) {
+      const int kn =
+          fa_mma::next_tile(segb, k0 + WG_ROWS, k_end, T, qlo, qhi, lane, uniform_next);
+      mbar_wait(full0 + 8 * stage, phase);
+      if (!causal || k0 < wq0 + WG_ROWS) {  // else every key of the tile follows these queries
+        const uint32_t kt = sK + stage * TILE, vt = sV + stage * TILE;
+        // element i of s and dp: query row (i & 2) ? row1 : row0, key
+        // 8 (i / 4) + 2 t4 + (i & 1) of the tile
+        float s[32], dp[32];
+        own_score_products<D>(s, dp, qa, kt, oa, vt);  // S, dP
+        wgmma_wait<1>();
+        fence_operands(s);
+        // the ragged edge, this warpgroup's diagonal tile and a tile whose
+        // ids are not all the query tile's single id are masked element by
+        // element
+        const bool masked = !uniform || k0 + WG_ROWS > T || (causal && k0 + WG_ROWS > wq0);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          float p = exp2f(fmaf(s[i], scale_log2, -lse_l2[r]));
+          if (masked) {
+            const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+            const bool ok = key < T && segb[key] == (r ? seg1 : seg0) &&
+                            (!causal || key <= (r ? row1 : row0));
+            p = ok ? p : 0.f;
+          }
+          s[i] = p;
+        }
+        wgmma_wait<0>();
+        fence_operands(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)  // dS, from the unrounded p
+          dp[i] = s[i] * (dp[i] - row_delta[(i >> 1) & 1]) * scale;
+        // dQ += bf16(dS) K, K read transposed
+        uint32_t sa[4][4];
+        score_as_a(dp, sa);
+        fence_operands(acc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_operands(sa[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k16_rs_mn(acc, sa[kk], desc_sw128(kt + kk * 16 * 128, WG_BLOCK, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // this warp is done with the stage
+      k0 = kn;
+      uniform = uniform_next;
+      if (++stage == OWN_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const long ld = (long)H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r == 0 ? row0 : row1;
+      if (t < T) {
+        __nv_bfloat16* dst = dq + ((long)b * T + t) * ld + (long)h * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // what both kernels read, as the C interface hands it over
 struct Inputs {
   const void *q, *k, *v;
@@ -1771,32 +2203,40 @@ inline dim3 grid_of(const Inputs& in, int rows = fa_mma::ROWS) {
   return dim3((in.T + rows - 1) / rows, in.H, in.B);
 }
 
-// bf16 at D 256: a wgmma kernel, one block of WG_THREADS per (64-row tile,
-// head, batch row), its four TMA maps (q, k, v, dO; 64-row boxes) built here
+// bf16 at D 128 and 256: a wgmma kernel, one block of WG_THREADS per
+// (`rows`-row tile, head, batch row), its four TMA maps (q, k, v, dO) built
+// here with boxes of `qo_rows` rows for q and dO and `kv_rows` for k and v
 template <int D, typename Kernel, typename... Out>
-cudaError_t launch_wgmma(Kernel kernel, size_t smem, const Inputs& in, Out*... out) {
+cudaError_t launch_wgmma(Kernel kernel, size_t smem, const Inputs& in, int rows, int qo_rows,
+                         int kv_rows, Out*... out) {
   CUtensorMap maps[4];
   const void* xs[4] = {in.q, in.k, in.v, in.dout};
+  const int boxes[4] = {qo_rows, kv_rows, kv_rows, qo_rows};
   for (int i = 0; i < 4; ++i) {
-    const cudaError_t err = fa_hop::bf16_rows_map(&maps[i], xs[i], in.B, in.T, in.H, D, WG_ROWS);
+    const cudaError_t err = fa_hop::bf16_rows_map(&maps[i], xs[i], in.B, in.T, in.H, D, boxes[i]);
     if (err != cudaSuccess) return err;
   }
   const cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid_of(in, WG_ROWS), WG_THREADS, smem, in.stream>>>(
+  kernel<<<grid_of(in, rows), WG_THREADS, smem, in.stream>>>(
       maps[0], maps[1], maps[2], maps[3], in.seg, in.lse, in.delta, static_cast<bf16*>(out)...,
       in.T, in.H, in.scale, in.causal);
   return cudaGetLastError();
 }
 
 // One launch a call.  `Elem` is float (the 3xTF32 kernels) or bf16.  bf16: the
-// mma.sync kernel up to D 128, the wgmma kernel at D 256; fp32: one block of 4
-// warps per 64-key tile up to D 128, the split kernel (8 warps per 32-key
-// tile) at D 256
+// mma.sync kernel up to D 64, the wgmma kernel at D 128 (a block per 128-key
+// tile, 64-query tiles streamed) and 256 (per 64-key tile); fp32: one block
+// of 4 warps per 64-key tile up to D 128, the split kernel (8 warps per
+// 32-key tile) at D 256
 template <int D, typename Elem>
 cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
-  if constexpr (sizeof(Elem) == 2 && D > 128) {
-    return launch_wgmma<D>(flash_bwd_dkv_wgmma_kernel<D>, dkv_wgmma_smem_bytes<D>(), in, dk, dv);
+  if constexpr (sizeof(Elem) == 2 && D == 128) {
+    return launch_wgmma<D>(flash_bwd_dkv_wgmma_kernel<D>, dkv_own_smem_bytes<D>(), in, OWN_ROWS,
+                           WG_ROWS, OWN_ROWS, dk, dv);
+  } else if constexpr (sizeof(Elem) == 2 && D > 128) {
+    return launch_wgmma<D>(flash_bwd_dkv_wgmma_kernel<D>, dkv_wgmma_smem_bytes<D>(), in, WG_ROWS,
+                           WG_ROWS, WG_ROWS, dk, dv);
   } else if constexpr (sizeof(Elem) == 2) {
     constexpr size_t smem = dkv_mma_smem_bytes<D>();
     const auto kernel = flash_bwd_dkv_mma_kernel<D>;
@@ -1825,13 +2265,18 @@ cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
   }
 }
 
-// One launch a call, per 64-query tile.  bf16: the mma.sync kernel up to
-// D 128, the wgmma kernel at D 256; fp32: 4 warps a block up to D 128, the
-// split kernel (8 warps) at D 256
+// One launch a call.  bf16: the mma.sync kernel up to D 64 (per 64-query
+// tile), the wgmma kernel at D 128 (per 128-query tile, 64-key tiles
+// streamed) and 256 (per 64-query tile); fp32: 4 warps per 64-query tile up
+// to D 128, the split kernel (8 warps) at D 256
 template <int D, typename Elem>
 cudaError_t launch_dq(const Inputs& in, void* dq) {
-  if constexpr (sizeof(Elem) == 2 && D > 128) {
-    return launch_wgmma<D>(flash_bwd_dq_wgmma_kernel<D>, dq_wgmma_smem_bytes<D>(), in, dq);
+  if constexpr (sizeof(Elem) == 2 && D == 128) {
+    return launch_wgmma<D>(flash_bwd_dq_wgmma_kernel<D>, dq_own_smem_bytes<D>(), in, OWN_ROWS,
+                           OWN_ROWS, WG_ROWS, dq);
+  } else if constexpr (sizeof(Elem) == 2 && D > 128) {
+    return launch_wgmma<D>(flash_bwd_dq_wgmma_kernel<D>, dq_wgmma_smem_bytes<D>(), in, WG_ROWS,
+                           WG_ROWS, WG_ROWS, dq);
   } else if constexpr (sizeof(Elem) == 2) {
     constexpr size_t smem = dq_mma_smem_bytes<D>();
     const auto kernel = flash_bwd_dq_mma_kernel<D>;

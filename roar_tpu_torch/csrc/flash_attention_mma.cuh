@@ -1,5 +1,5 @@
-// The tensor-core building blocks of the bf16 flash-attention forward, dK/dV
-// and dQ kernels up to D 128 (at D 256 they run on wgmma,
+// The tensor-core building blocks of the bf16 flash-attention forward up to
+// D 128 and dK/dV and dQ kernels up to D 64 (the rest run on wgmma,
 // flash_attention_wgmma.cuh): `cp.async` staging of bf16 tiles into an
 // XOR-swizzled shared layout, `ldmatrix` fragment loads, `mma.sync.m16n8k16`
 // on bf16 with fp32 accumulation; and the warp-level segment votes that every

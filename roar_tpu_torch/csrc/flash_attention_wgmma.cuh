@@ -1,7 +1,7 @@
 // Hopper's own building blocks for the bf16 flash-attention kernels at D 256
-// (the forward `flash_fwd_wgmma_kernel`, flash_attention_fwd.cu; the dK/dV and
-// dQ kernels `flash_bwd_dkv_wgmma_kernel` and `flash_bwd_dq_wgmma_kernel`,
-// flash_attention_bwd.cu): TMA tile copies (`cp.async.bulk.tensor`) that
+// (the forward `flash_fwd_wgmma_kernel`, flash_attention_fwd.cu) and at D 128
+// and 256 (the dK/dV and dQ kernels `flash_bwd_dkv_wgmma_kernel` and
+// `flash_bwd_dq_wgmma_kernel`, flash_attention_bwd.cu): TMA tile copies (`cp.async.bulk.tensor`) that
 // complete on `mbarrier`s, `wgmma` products whose operands are read from
 // shared memory through matrix descriptors, and the host-side tensor maps the
 // copies follow.
@@ -215,7 +215,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs_mn(float (&d)[128], const ui
 
 // d += A B, A [64 x 16] bf16 in registers and B [16 x 128] from shared memory,
 // MN-major: the 128-column form of the above, for a warpgroup that owns half
-// of an output row
+// of an output row at D 256 or a whole one at D 128
 __device__ __forceinline__ void wgmma_m64n128k16_rs_mn(float (&d)[64], const uint32_t (&a)[4],
                                                        uint64_t desc_b) {
   asm volatile(

@@ -9,8 +9,9 @@ launches, `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`.  The
 kernels are `csrc/flash_attention_fwd.cu` and `csrc/flash_attention_bwd.cu`;
 their source notes say what bounds them on the H100 and what their design does
 about it.  Every kernel runs on the tensor cores: in bf16 the forward, the
-dK/dV and the dQ kernel on `mma.sync` (`csrc/flash_attention_mma.cuh`), and
-at D 256 all three on `wgmma` with TMA copies (`csrc/flash_attention_wgmma.cuh`);
+dK/dV and the dQ kernel on `mma.sync` (`csrc/flash_attention_mma.cuh`), but
+the dK/dV and dQ kernels at D 128 and all three at D 256 on `wgmma` with TMA
+copies (`csrc/flash_attention_wgmma.cuh`);
 in fp32 the same three in 3xTF32 on `mma.sync` (TF32 products of operands
 split into big + small, each k-chunk's products flushed into a
 round-to-nearest fp32 sum: `csrc/tf32x3.cuh`, `csrc/flash_attention_tf32.cuh`),

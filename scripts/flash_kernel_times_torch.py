@@ -27,7 +27,12 @@ largest difference of o, lse and each gradient from the plain versions
 largest magnitude.  `bits` holds a short SHA-256 of each kernel's result,
 the backward's taken from the plain forward's o and lse, so that two
 checkouts' kernels can be shown bit-identical (or not) on the same inputs.
-Prints one JSON line per shape with the card's name and power limit.
+In bf16 without a mask, `streamed_tile_gb` reckons from the shape the bytes
+of the other side's 64-row tiles that the dK/dV kernel (Q and dO) and the dQ
+kernel (K and V) read a call, mostly from L2, at the kernel's head size,
+when a block owns 64 rows (the mma.sync kernels at D <= 64, the wgmma ones at
+D 256) or 128 (the wgmma ones at D 128).  Prints one JSON line per shape with the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -44,6 +49,20 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 494.7e12
 FP32_FLOPS = 67e12
 CASES = (((1, 4096, 32, 64), True), ((32, 864, 1, 64), False))
+TILE = 64  # rows of a streamed tile
+
+
+def streamed_tile_gb(b: int, t: int, h: int, d: int, causal: bool, rows: int) -> dict:
+    """GB of streamed 64-row bf16 tiles (two tensors each) that the dK/dV and
+    the dQ kernel read a call when a block owns `rows` rows, no mask: with
+    `causal` a dK/dV block walks the tiles from its own first row on and a dQ
+    block those up to its last row; without, every tile."""
+    tiles = -(-t // TILE)
+    walked = {"dkv": 0, "dq": 0}
+    for r0 in range(0, t, rows):
+        walked["dkv"] += tiles - r0 // TILE if causal else tiles
+        walked["dq"] += -(-min(t, r0 + rows) // TILE) if causal else tiles
+    return {name: n * b * h * 2 * TILE * d * 2 / 1e9 for name, n in walked.items()}
 
 
 def main() -> int:
@@ -143,6 +162,11 @@ def main() -> int:
         results = (out, lse, *fa.flash_self_attention_bwd(q, k, v, key_mask, scale,
                                                           out_p.contiguous(), lse_p, do,
                                                           causal=causal))
+        if dtype == torch.bfloat16 and not args.ragged:
+            kernel_d = fa.kernel_head_dim(d, dtype, True)  # the padded route's tiles
+            result["streamed_tile_gb"] = {
+                f"{rows}_row_blocks": streamed_tile_gb(b, t, h, kernel_d, causal, rows)
+                for rows in (64, 128)}
         result["bits"] = {name: hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy()
                                                .tobytes()).hexdigest()[:16]
                           for name, x in zip(("o", "lse", "dq", "dk", "dv"), results)}

@@ -1,9 +1,10 @@
-"""GPT at the head sizes outside 32 / 64 / 128 against the JAX package on the
-CPU, and the rules of the flash wrappers' head sizes.
+"""GPT at the head sizes whose kernels the GPT recipe's tiny-llama (D 64)
+does not run against the JAX package on the CPU, and the rules of the flash
+wrappers' head sizes.
 
-On the card the port runs D 256 on kernels of its own and D 80 / 100 on the
-D 128 kernels through zero-padding (`kernels/flash_attention.py`,
-`kernel_head_dim`).  Here the wrappers take their plain versions, and the JAX
+On the card the port runs D 256 and D 128 on kernels of their own (in bf16
+the backward on wgmma at both) and D 80 / 100 on the D 128 kernels through
+zero-padding (`kernels/flash_attention.py`, `kernel_head_dim`).  Here the wrappers take their plain versions, and the JAX
 package its einsum route (`_flash_attention_available()` is false off the
 TPU).  Narrow widths, 2 layers, `use_flash=true`, the JAX module's initial
 parameters carried over by `load_gpt_params`, one numpy-seeded batch: logits
@@ -48,8 +49,10 @@ CASES = {
                                               n_query_groups=1)),
     "phi_d80": ("phi-2", dict(n_embd=160, n_head=2, padded_vocab_size=None)),
     "llama_d100": ("open_llama_3b", dict(n_embd=200, n_head=2)),
+    "llama_d128": ("llama-2-7b", dict(n_embd=256, n_head=2)),
 }
-HEAD_SIZES = {"neox_d256": 256, "gemma_d256_one_group": 256, "phi_d80": 80, "llama_d100": 100}
+HEAD_SIZES = {"neox_d256": 256, "gemma_d256_one_group": 256, "phi_d80": 80, "llama_d100": 100,
+              "llama_d128": 128}
 
 
 def _cfg(case):
@@ -183,8 +186,9 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     """`phase_kernel_build` requires the six D 256 forms (the bf16 forward,
     dK/dV and dQ on wgmma, the fp32 forward, dK/dV and dQ as the split
     kernels), reads their mangled names (as the card's nvcc wrote them) and
-    their shared memory; the bf16 mma.sync backward kernels are built up to
-    D 128 only, with one template argument."""
+    their shared memory; the bf16 backward at D 128 runs the wgmma kernels
+    too, and the bf16 mma.sync backward kernels are built up to D 64 only,
+    with one template argument."""
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
 
@@ -202,7 +206,10 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
                             "flash_bwd_dq_mma_kernel") for i in d256)
     assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dkv_mma_kernel") == \
         sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dq_mma_kernel") == \
-        [32, 64, 128]
+        [32, 64]
+    assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dkv_wgmma_kernel") == \
+        sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dq_wgmma_kernel") == \
+        [128, 256]
     bwd = "_ZN55_GLOBAL__N__bd9a39ae_22_flash_attention_bwd_cu_f7cbd94c"
     tail32 = "EEvPKfS2_S2_PKiS2_S2_S2_PfS5_iifii"
     assert cs._flash_instance(f"{bwd}31flash_bwd_dkv_tf32_split_kernelILi256{tail32}") == \
@@ -218,6 +225,8 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
         ("flash_bwd_dkv_wgmma_kernel", "bfloat16", 256)
     assert cs._flash_instance(f"{bwd}25flash_bwd_dq_wgmma_kernelILi256{maps}iifi") == \
         ("flash_bwd_dq_wgmma_kernel", "bfloat16", 256)
+    assert cs._flash_instance(f"{bwd}26flash_bwd_dkv_wgmma_kernelILi128{maps}S7_iifi") == \
+        ("flash_bwd_dkv_wgmma_kernel", "bfloat16", 128)
     # the kernel each D 256 entry point must launch once a call is built there
     assert sorted((k, t) for t, entries in cs.FLASH_D256_KERNELS.items()
                   for k in entries.values()) == [(k, t) for k, t, _ in d256]
@@ -232,6 +241,17 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
         2 * 64 * 256 * 6 + 4 * 64 * 64 + 40 + 1024 == 214056
     assert cs.flash_dynamic_smem("flash_bwd_dq_wgmma_kernel", "bfloat16", 256) == \
         2 * 64 * 256 * 6 + 6 * 64 * 64 + 40 + 1024 == 222248
+    # D 128: two 128-row tiles, two 64-row tiles x 2 stages (dK/dV: with
+    # their lse and delta rows), five barriers, 1 KB to align
+    assert cs.flash_dynamic_smem("flash_bwd_dkv_wgmma_kernel", "bfloat16", 128) == \
+        2 * 128 * (256 + 256) + 2 * 4 * 64 * 2 + 40 + 1024 == 133160
+    assert cs.flash_dynamic_smem("flash_bwd_dq_wgmma_kernel", "bfloat16", 128) == \
+        2 * 128 * (256 + 256) + 40 + 1024 == 132136
+    # the kernel a bf16 call launches at D 128, where the profiler checks it
+    assert cs.flash_kernels_of_a_call(128, "bfloat16") == {
+        "fwd": "flash_fwd_mma_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
+        "dq": "flash_bwd_dq_wgmma_kernel"}
+    assert cs.flash_kernels_of_a_call(128, "float32") is None
     space = "_ZN60_GLOBAL__N__5c1a7f2e_22_flash_attention_bwd_cu_9e8d7c6b"
     tail = "EEvPK13__nv_bfloat16S2_S2_PKiPKfS6_S2_PS0_S7_iifi"
     assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi64{tail}") == \
@@ -318,9 +338,11 @@ def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):
     assert check[0]["fp32"]["layers"] == 2 and check[0]["fp32"]["whole_grad_l2_rel_err"] == 0.0
     rows = {line["config_name"]: line for line in lines if line.get("phase") == "gpt_head_sizes"}
     assert {name: row["kernel_head_size"] for name, row in rows.items()} == \
-        {"phi-2": 128, "open_llama_3b": 128, "gemma-2b": 256}
+        {"phi-2": 128, "open_llama_3b": 128, "gemma-2b": 256, "llama-2-7b": 128}
     assert all(row["bf16"]["whole_grad_l2_rel_err"] == 0.0 for row in rows.values())
     assert {name: row["fp32"] is not None for name, row in rows.items()} == \
-        {"phi-2": False, "open_llama_3b": False, "gemma-2b": True}
+        {"phi-2": False, "open_llama_3b": False, "gemma-2b": True, "llama-2-7b": False}
+    # a rehearsal runs every entry at its own `seq_length`
+    assert all(row["batch_shape"] == [1, 48] for row in rows.values())
     assert rows["gemma-2b"]["fp32"]["whole_grad_l2_rel_err"] == 0.0
     assert heads["gemma-2b"]["fp32"] == none

@@ -248,7 +248,7 @@ def test_ptxas_parser_reads_k3_and_k4_instances():
 
 
 @pytest.mark.parametrize("fault", [None, "spill", "missing", "viterbi_spill", "stale_bf16_k3",
-                                   "stale_bf16_k4"])
+                                   "stale_bf16_k4", "stale_bf16_flash_bwd"])
 def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, monkeypatch,
                                                                      fault):
     import chip_smoke as cs
@@ -261,6 +261,9 @@ def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, mo
         log += _ptxas_entry(K3_MANGLED.replace("ELb1E", "ELb1ELb1E"), 90)
     if fault == "stale_bf16_k4":  # a bf16 instance of the fp32 K4 routine, as before the fold
         log += _ptxas_entry(K4_MANGLED.replace("ILi8ELi2E", "ILi8ELi2ELb1E"), 96)
+    if fault == "stale_bf16_flash_bwd":  # the mma.sync dK/dV kernel at D 128, as before wgmma
+        name = "flash_bwd_dkv_mma_kernel"
+        log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi128EEEvv", 254)
     (tmp_path / "lib.log").write_text(log)
     if fault is None:
         line = cs.phase_kernel_build(tmp_path / "lib.so")
@@ -280,6 +283,9 @@ def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, mo
         assert len(line["viterbi_instances"]) == 9  # K1 at two widths x four splits, K2
     elif fault == "viterbi_spill":
         with pytest.raises(AssertionError, match="pyin_viterbi_fwd_kernel.*spills"):
+            cs.phase_kernel_build(tmp_path / "lib.so")
+    elif fault == "stale_bf16_flash_bwd":
+        with pytest.raises(AssertionError, match="no launch runs.*flash_bwd_dkv_mma_kernel"):
             cs.phase_kernel_build(tmp_path / "lib.so")
     elif fault in ("stale_bf16_k3", "stale_bf16_k4"):
         kernel = "conv_mma_kernel" if fault == "stale_bf16_k3" else "dw_mma_kernel"
