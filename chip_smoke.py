@@ -576,10 +576,12 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
 # head sizes each is built for: they must not spill, and their SASS must hold
 # tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma).  At D 256 the
 # bf16 forward, dK/dV and dQ are the wgmma kernels and the fp32 forward, dK/dV
-# and dQ the split kernels; at D 128 the bf16 dK/dV and dQ are wgmma kernels
-# too (128-row blocks, each warpgroup owning its 64 rows whole).
-FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64, 128),
-                                  "flash_fwd_wgmma_kernel": (256,),
+# and dQ the split kernels; at D 128 the bf16 forward, dK/dV and dQ are wgmma
+# kernels too (128-row blocks, each warpgroup owning its 64 rows whole; the
+# forward's `<128>` instance issues the next tile's scores beside this tile's
+# P V, and must not be serialised by ptxas).
+FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64),
+                                  "flash_fwd_wgmma_kernel": (128, 256),
                                   "flash_bwd_dkv_mma_kernel": (32, 64),
                                   "flash_bwd_dkv_wgmma_kernel": (128, 256),
                                   "flash_bwd_dq_mma_kernel": (32, 64),
@@ -591,6 +593,9 @@ FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64, 128),
                                  "flash_bwd_dq_tf32_kernel": (32, 64, 128),
                                  "flash_bwd_dq_tf32_split_kernel": (256,)}}
 H100_SMEM_PER_BLOCK = 232448  # the most dynamic shared memory a block may have
+# the wgmma instances whose products ptxas must not serialise (its C7515 and
+# kindred warnings, `wgmma_serialized` of phase `kernel_build`)
+FLASH_WGMMA_UNSERIALIZED = {("flash_fwd_wgmma_kernel", "bfloat16", 128)}
 
 
 def flash_instances() -> list:
@@ -607,6 +612,8 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
     tile = 64 * d
     if kernel == "flash_fwd_mma_kernel":
         return 2 * tile * 5
+    if kernel == "flash_fwd_wgmma_kernel" and d == 128:  # Q 128 rows, K and V x 3 stages
+        return 2 * d * (128 + 6 * 128) + 10 * 8 + 1024    # of 128 keys, 10 barriers, align
     if kernel == "flash_fwd_wgmma_kernel":  # Q 128 rows, K and V x 2 stages, 5 barriers, align
         return 2 * d * (128 + 4 * 64) + 5 * 8 + 1024
     if kernel == "flash_fwd_tf32_kernel":  # Q tile 64 rows as two halves, K/V tiles 32
@@ -746,10 +753,13 @@ def _any_instance(mangled: str) -> Optional[tuple]:
 
 
 def parse_ptxas(log: str) -> dict:
-    """{instance key: registers, spill bytes, stack, static shared memory} of
-    every flash kernel instance (keyed (kernel, dtype, D)), K3 and K4
-    instance (keyed (kernel, view, tiles)) and K1 and K2 instance (keyed
-    (kernel, W, P) and (kernel,)) in a `ptxas -v` log."""
+    """{instance key: registers, spill bytes, stack, static shared memory,
+    wgmma serialisation warnings} of every flash kernel instance (keyed
+    (kernel, dtype, D)), K3 and K4 instance (keyed (kernel, view, tiles)) and
+    K1 and K2 instance (keyed (kernel, W, P) and (kernel,)) in a `ptxas -v`
+    log.  `wgmma_serialized` lists the codes of ptxas's "wgmma.mma_async
+    instructions are serialized" warnings (C7515 among them) for the
+    function the warning names, or else the one being compiled."""
     out, current = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -758,7 +768,14 @@ def parse_ptxas(log: str) -> dict:
             if current is not None:
                 out[current] = {"registers": None, "spill_store_bytes": None,
                                 "spill_load_bytes": None, "stack_bytes": None,
-                                "static_smem_bytes": 0}
+                                "static_smem_bytes": 0, "wgmma_serialized": []}
+            continue
+        serial = re.search(r"\((C\d+)\)", line)
+        if serial and "wgmma" in line and "serializ" in line:
+            named = re.search(r"function '([^']+)'", line)
+            key = _any_instance(named.group(1)) if named else current
+            if key in out:
+                out[key]["wgmma_serialized"].append(serial.group(1))
             continue
         if current is None:
             continue
@@ -810,13 +827,16 @@ def phase_kernel_build(lib_path) -> dict:
     """Registers, shared memory and spills of every flash kernel instance,
     every K3 and K4 instance and every K1 and K2 instance from the build's
     `ptxas -v` log, and where `cuobjdump` is installed the HMMA and HGMMA
-    counts of each tensor-core kernel; raises if a tensor-core kernel (every
-    flash kernel, bf16 and fp32 in 3xTF32, K3 and K4) spills or has no
-    tensor-core instruction (a wgmma kernel no HGMMA), if a wgmma or split
-    kernel has a stack frame, if a flash instance asks for more shared memory
-    than a block may have, if a flash instance is built that no launch runs
-    (a stale bf16 mma.sync backward at D 128), or if a K1 or K2 instance
-    spills or is missing."""
+    counts of each tensor-core kernel, and per wgmma instance whether ptxas
+    serialised its products (`c7515`, `wgmma_serialized`); raises if a
+    tensor-core kernel (every flash kernel, bf16 and fp32 in 3xTF32, K3 and
+    K4) spills or has no tensor-core instruction (a wgmma kernel no HGMMA),
+    if a wgmma or split kernel has a stack frame, if an instance of
+    `FLASH_WGMMA_UNSERIALIZED` (the bf16 forward at D 128) was serialised, if
+    a flash instance asks for more shared memory than a block may have, if a
+    flash instance is built that no launch runs (a stale bf16 mma.sync
+    forward or backward at D 128), or if a K1 or K2 instance spills or is
+    missing."""
     log = lib_path.with_suffix(".log").read_text()
     everything = parse_ptxas(log)
     table = {key: info for key, info in everything.items() if key[0].startswith("flash_")}
@@ -825,6 +845,8 @@ def phase_kernel_build(lib_path) -> dict:
     for (kernel, dtype, d), info in sorted(table.items()):
         row = {"kernel": kernel, "dtype": dtype, "head_dim": d, **info,
                "dynamic_smem_bytes": flash_dynamic_smem(kernel, dtype, d)}
+        if "_wgmma_" in kernel:
+            row.update(c7515="C7515" in info["wgmma_serialized"])
         if hmma is not None:
             found = hmma.get((kernel, dtype, d), {})
             row.update(hmma=found.get("HMMA", 0), hgmma=found.get("HGMMA", 0))
@@ -840,6 +862,9 @@ def phase_kernel_build(lib_path) -> dict:
             raise AssertionError(f"{kernel}<{d}> spills: {info}")
         if ("_wgmma_" in kernel or "_split_" in kernel) and info["stack_bytes"]:
             raise AssertionError(f"{kernel}<{d}> has a stack frame: {info}")
+        if (kernel, dtype, d) in FLASH_WGMMA_UNSERIALIZED and info["wgmma_serialized"]:
+            raise AssertionError(f"{kernel}<{d}>: ptxas serialised its wgmma products "
+                                 f"({info['wgmma_serialized']})")
         if hmma is not None:
             found = hmma.get((kernel, dtype, d), {})
             if found.get("HMMA", 0) + found.get("HGMMA", 0) == 0:
@@ -2184,7 +2209,7 @@ FLASH_D256_KERNELS = {"bfloat16": {"fwd": "flash_fwd_wgmma_kernel",
                       "float32": {"fwd": "flash_fwd_tf32_split_kernel",
                                   "dkv": "flash_bwd_dkv_tf32_split_kernel",
                                   "dq": "flash_bwd_dq_tf32_split_kernel"}}
-FLASH_D128_BF16_KERNELS = {"fwd": "flash_fwd_mma_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
+FLASH_D128_BF16_KERNELS = {"fwd": "flash_fwd_wgmma_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
                            "dq": "flash_bwd_dq_wgmma_kernel"}
 
 
@@ -2255,13 +2280,14 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
     """K5 at the head sizes outside 32 / 64 / 128 against the plain versions
     in fp32 and bf16 (`FLASH_HEAD_SIZE_CASES`), timed beside the bounds and
     SDPA: at D 256 the forward, dK/dV and dQ kernels in both types, at D 128
-    the same (in bf16 the wgmma backward kernels), and the padded route at
+    the same (in bf16 the wgmma forward, dK/dV and dQ kernels), and the padded route at
     D 80 and 100, forward and backward in both types, counted in
     `LAUNCHES_PADDED`.  At pythia-1b's and llama-2-7b's layers in bf16 and
     at every D 256 shape in fp32, the kernels one call of each entry point
     launches (`kernels_per_call`: one, by the profiler); in fp32 at D 256
-    also the forward's `_forward_exact_checks` (two runs the same bits,
-    single-key rows o == v).  Returns {(shape, dtype name): case}."""
+    and in bf16 at D 128 (the wgmma forward) also the forward's
+    `_forward_exact_checks` (two runs the same bits, single-key rows o == v:
+    in bf16 p = 1 there and v is bf16).  Returns {(shape, dtype name): case}."""
     from roar_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -2272,9 +2298,10 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
             padded_before = fa.LAUNCHES_PADDED.copy()
             key_mask = _key_mask(lens, shape[1], device)
             fp32_d256 = d == 256 and dtype == torch.float32
+            bf16_d128 = d == 128 and dtype == torch.bfloat16
             case = _flash_case(gen, shape, key_mask, not (causal and lens), where,
                                "kernel_flash_head_sizes", causal=causal, dtype=dtype,
-                               fwd_exact=fp32_d256)
+                               fwd_exact=fp32_d256 or bf16_d128)
             padded = fa.LAUNCHES_PADDED - padded_before
             if (d in fa.HEAD_DIMS) == bool(padded):
                 raise AssertionError(f"D {d}: padded launches {dict(padded)}")
@@ -4296,7 +4323,8 @@ def main() -> int:
     lib_path = build_library()
     load_library()
     ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln
+             or "serializ" in ln]
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
            "library": os.path.relpath(lib_path), "ptxas": ptxas})
     phase_kernel_build(lib_path)
@@ -4462,6 +4490,7 @@ def main() -> int:
         padded_rows += [
             {"name": f"flash_attention_causal_fwd_padded_d{d}",
              "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu", **common,
+             "kernel": FLASH_D128_BF16_KERNELS["fwd"],
              "launches": launches["fwd"], "max_abs_err": worst(errors16, "o"), **fwd16,
              "fp32": {**fwd32, "max_abs_err": worst(errors32, "o")}},
             *[{"name": f"flash_attention_causal_bwd_{name}_padded_d{d}",
@@ -4508,7 +4537,8 @@ def main() -> int:
          "fp32": {**causal_fwd32, "kernel": "flash_fwd_tf32_kernel",
                   "launches": gpt["fp32_check_launches"]["fwd"],
                   "launches_validation": gpt["launches"]["fwd"] - gpt["launches_bf16"]["fwd"]},
-         "llama_2_7b_d128": {"shape_bthd": list(LLAMA_D128_SHAPE), **d128_fwd,
+         "llama_2_7b_d128": {"shape_bthd": list(LLAMA_D128_SHAPE),
+                             "kernel": FLASH_D128_BF16_KERNELS["fwd"], **d128_fwd,
                              "launches_gpt_head_sizes": heads["llama-2-7b"]["bf16"]["fwd"],
                              **per_call(LLAMA_D128_SHAPE, "bfloat16", "fwd"),
                              "max_abs_err": worst(head_errors(128, "bfloat16"), "o"),

@@ -1248,10 +1248,6 @@ constexpr uint32_t WG_BLOCK = WG_ROWS * 128;  // bytes of a tile's 64-column blo
 // named barriers between the two consumer warpgroups (0 is __syncthreads)
 constexpr int XCHG_A = 1, XCHG_B = 2;
 
-__device__ __forceinline__ void group_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // acc = A B^T over D (16 k-steps of wgmma m64n64k16), A and B 64-row tiles
 // of D / 64 swizzled column blocks at shared addresses `a` and `b`; committed,
 // not waited for
@@ -1267,19 +1263,6 @@ __device__ __forceinline__ void score_product(float (&acc)[32], uint32_t a, uint
     wgmma_m64n64k16_ss(acc, desc_sw128(a + at, 16, 1024), desc_sw128(b + at, 16, 1024), kc > 0);
   }
   wgmma_commit();
-}
-
-// the accumulators of n-tiles 2 kk and 2 kk + 1 of a 64 x 64 score tile as
-// the bf16 A fragment of rows 16 kk .. 16 kk + 15 of the next product's k
-__device__ __forceinline__ void score_as_a(const float (&s)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const float* c = s + 8 * kk;
-    a[kk][0] = fa_mma::pack_bf16(c[0], c[1]);
-    a[kk][1] = fa_mma::pack_bf16(c[2], c[3]);
-    a[kk][2] = fa_mma::pack_bf16(c[4], c[5]);
-    a[kk][3] = fa_mma::pack_bf16(c[6], c[7]);
-  }
 }
 
 template <int D>

@@ -11,8 +11,8 @@
 //
 // Layout: q, k, v, out are contiguous [B, T, H, D], fp32 or bf16 (see
 // flash_attention_common.cuh for the roundings of the bf16 form); seg is
-// [B, T] int32.  Four kernels, one contract.  Up to D 128 (both types), one
-// block of 4 warps per (64-query tile, head, batch row); warp w owns query
+// [B, T] int32.  Four kernels, one contract.  Up to D 64 in bf16 and D 128
+// in fp32, one block of 4 warps per (64-query tile, head, batch row); warp w owns query
 // rows 16 w .. 16 w + 15 whole, so that a row's running max and sum reduce
 // within its lane quad and no barrier sits between the two products.  Per
 // key tile:
@@ -21,16 +21,16 @@
 //   O = O * alpha + P V   (p stays in registers as the A operand)
 // so the [T, T] scores never reach device memory.
 //
-// bf16 up to D 128, `flash_fwd_mma_kernel` (mma.sync m16n8k16, fp32 sums;
+// bf16 up to D 64, `flash_fwd_mma_kernel` (mma.sync m16n8k16, fp32 sums;
 // flash_attention_mma.cuh): p's accumulator fragment is rounded to bf16 as
 // the A operand of p.v (its row sum taken unrounded); V is read by
 // ldmatrix.trans.  K/V tiles of 64 keys are staged by cp.async into a
 // double-buffered, swizzled bf16 layout, the next tile's copy overlapping the
 // current tile's products; each warp holds its Q rows as A fragments.
 //
-// bf16 at D 256, `flash_fwd_wgmma_kernel` (Hopper's wgmma, TMA, mbarriers
-// and setmaxnreg; flash_attention_wgmma.cuh): one launch, one block of three
-// warpgroups per 128-query tile.  A producer warp copies Q once and the K/V
+// bf16 at D 128 and 256, `flash_fwd_wgmma_kernel` (Hopper's wgmma, TMA,
+// mbarriers and setmaxnreg; flash_attention_wgmma.cuh): one launch, one block
+// of three warpgroups per 128-query tile.  At D 256 a producer warp copies Q once and the K/V
 // tiles of 64 keys by TMA into a two-stage ring; two consumer warpgroups of
 // 64 rows each form S on wgmma m64n64k16 from shared memory and O += P V on
 // wgmma m64n256k16 with p (rounded to bf16) in registers and V read
@@ -40,6 +40,15 @@
 // forming half of o's columns and recomputing S and the softmax (0.371 /
 // 0.377 ms against the wgmma form's 0.157 / 0.154 at (1, 2048, 8, 256)
 // causal, NVIDIA H100 80GB HBM3, 700.00 W, `scripts/flash_kernel_times_torch.py`).
+// At D 128 the `<128>` specialisation keeps that block and streams K/V
+// tiles of 128 keys through a ring of three stages, K and V on barriers of
+// their own; a thread's share of o is 64 registers (m64n128k16 for O += P V),
+// which leaves room for the next tile's score product to be in flight beside
+// the last tile's P V (FA3's intra-warpgroup order), and the two warpgroups
+// take turns issuing their products, so each one's softmax runs under
+// products.  It replaced `flash_fwd_mma_kernel<128>` (0.754 / 0.766 ms
+// against 0.375 / 0.394 at (1, 4096, 32, 128) causal, NVIDIA H100 80GB HBM3,
+// 700.00 W, `scripts/flash_kernel_times_torch.py`).
 //
 // fp32 up to D 128, `flash_fwd_tf32_kernel` (mma.sync m16n8k8 on TF32,
 // tf32x3.cuh; tiles, split and permutation: flash_attention_tf32.cuh): every
@@ -88,7 +97,7 @@
 // 165 TFLOP/s (the bound counts three for P V too, not the four it takes);
 // and, at D 64, as much again in per-element softmax work on the FMA and SFU
 // pipes (scale, mask, max, exp, row sum, rescale of o), with the splits and
-// flush adds beside it in fp32.  What holds them back from it: up to D 128
+// flush adds beside it in fp32.  What holds them back from it: up to D 64
 // and in fp32, `mma.sync` rather than `wgmma`, every warp reading the whole
 // staged K/V tile from shared memory (16 rows a warp), cp.async rather than
 // TMA; in the fp32 split form also two warps a scheduler, a barrier of the
@@ -96,12 +105,16 @@
 // split again for every key tile: its time follows its count of mma.sync
 // products as the backward's dQ split kernel's does (224 against 288 a warp
 // per 16 keys, 0.90 against 1.13 to 1.24 ms), and neither 16 warps nor
-// splitting K and V once a tile moved it; in the wgmma form, one block a SM
-// (197 KB of shared memory), each warpgroup's softmax waiting on its S
-// product and its P V product on the softmax (no overlap of one tile's
-// softmax with the next tile's S, as FA3's ping-pong and intra-warpgroup
-// pipelining do).  Later work: that overlap, 80-key tiles, the wgmma form at
-// D 64 / 128 and in fp32 (TF32 wgmma, which at D 256 needs Q's two halves
+// splitting K and V once a tile moved it; in the wgmma form at D 256, one
+// block a SM (197 KB of shared memory), each warpgroup's softmax waiting on
+// its S product and its P V product on the softmax (the D 128 form overlaps
+// them, FA3's way; at (1, 4096, 32, 128) causal it reaches 35 to 37 % of
+// its bound, NVIDIA H100 80GB HBM3, 700.00 W,
+// `scripts/flash_kernel_times_torch.py`: by its SASS the softmax is about
+// 500 instructions a warp a tile, near the other warpgroup's products in
+// issue slots).  Later work: that
+// overlap at D 256, 80-key tiles, the wgmma form at D 64 and in fp32 (TF32
+// wgmma, which at D 256 needs Q's two halves
 // and V transposed in three parts in shared memory, over the 227 KB a block
 // may have beside K), and a GQA-aware kernel (K/V are repeated before the
 // call today).
@@ -156,7 +169,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int H,
                      float scale, int causal) {
   using namespace fa_mma;
-  static_assert(D <= 128, "D 256 runs flash_fwd_wgmma_kernel");
+  static_assert(D <= 64, "D 128 and 256 run flash_fwd_wgmma_kernel");
   constexpr int TILE_ELEMS = ROWS * D;
   constexpr int KC = D / 16;  // k-chunks of q.k^T
   constexpr int NT = D / 8;   // n-tiles of the output columns
@@ -560,6 +573,337 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
               __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
         if (lse != nullptr && t4 == 0) lse[((long)b * H + h) * T + t] = m[r] + logf(l[r]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 form at D 128 on Hopper's own units: the D 256 kernel's block (a
+// producer warp, two consumer warpgroups of 64 query rows, Q copied once by
+// TMA, K/V tiles streamed by TMA into an mbarrier ring), laid out for D 128.
+// A thread's share of o is 64 fp32 registers (m64n128k16 for O += P V),
+// which leaves room for a score tile of 128 keys in flight (64 registers,
+// m64n128k16 from shared memory: a third fewer operand bytes per product
+// than 64-key tiles) beside the bf16 P fragments of the tile before (32),
+// under `setmaxnreg` 24 / 240.  Per warpgroup, in FA3's intra-warpgroup
+// order:
+//   first tile:  S_0 = Q K_0^T; its softmax
+//   tile j > 0:  wait for P_{j-2} V_{j-2} and release its stage; o *=
+//                alpha_{j-1}; P_{j-1} rounded to bf16 into registers; issue
+//                S_j = Q K_j^T, then O += P_{j-1} V_{j-1}, two commit groups;
+//                wait for S_j alone; the softmax of S_j (scale, mask, max,
+//                exp, row sum) runs on the FMA and SFU pipes while
+//                P_{j-1} V_{j-1} runs on the tensor cores
+//   after the walk: o *= alpha; O += P_last V_last
+// No product is issued under a branch, so ptxas keeps every wgmma
+// asynchronous (`kernel_build` checks its log for the warnings that say
+// otherwise).  The wait for a tile's P V sits at the top of the next round,
+// after the copy waits: ptxas schedules a wait at the top of its basic
+// block, and a wait at the end of the round ran before that round's
+// exponents (read from the SASS).  The two warpgroups take turns issuing
+// their products (FA3's ping-pong, named barriers 1 and 2), so that one's
+// softmax also runs under the other's products; for their turns to pair up
+// both walk the block's tiles, and the 128-query block's diagonal tile is
+// the last of both, masked element by element.  K and V of a stage have
+// barriers of their own, so S_j starts when K_j has landed; three stages
+// (Q 32 KB, 64 KB a stage: 230,480 B, one block a SM) keep the next tile's
+// copy in flight while a stage is still read.  The sums per output element
+// run one tile at a time: o rescaled, then the tile's 16-key k-steps in
+// turn.  Measured against 64-key tiles, two stages, no turns, Q in
+// registers and the scale folded into the exponent: PERF.md §6.
+// ---------------------------------------------------------------------------
+
+constexpr int FWD128_KEYS = 128;  // keys of a K/V tile at D 128
+constexpr int FWD128_STAGES = 3;  // stages of the K/V ring at D 128
+
+constexpr size_t wgmma128_smem_bytes() {
+  // Q (128 rows), then K and V x FWD128_STAGES, then the Q barrier and a K
+  // `full`, V `full` and `empty` barrier a stage; 1024 bytes to align the
+  // tiles to the swizzle's 1024-byte period
+  return 2 * 128 * (WG_QROWS + 2 * FWD128_STAGES * FWD128_KEYS) + (1 + 3 * FWD128_STAGES) * 8 +
+         1024;
+}
+static_assert(wgmma128_smem_bytes() <= 232448, "more shared memory than a block may have");
+
+// 2^x on the SFU alone: exp2f's guard for a subnormal result costs three
+// instructions an element, and such a p (below 2^-126) is flushed to 0 here,
+// far under any rounding of o or of its row sum (the row's largest p is 1)
+__device__ __forceinline__ float fwd_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one 64 x 128 score tile in place, as the D 256
+// kernel forms it: s (this thread's 64 elements of a wgmma m64n128
+// accumulator, rows row0 and row1) becomes p = exp(s * scale - m), masked
+// elements 0; the rows' running max m and unrounded sum l are updated, and
+// alpha is what o is to be rescaled by.  `masked`: the ragged edge, the
+// diagonal tile and a tile whose ids are not all the query tile's single id
+// are masked element by element, without a branch an element (the segment
+// ids are read only where `uniform` is false); the rest are only scaled.
+__device__ __forceinline__ void fwd_online_softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+                                                   float (&alpha)[2], bool masked, bool uniform,
+                                                   int k0, const int* __restrict__ segb, int T,
+                                                   int seg0, int seg1, int row0, int row1,
+                                                   int t4, int causal, float scale) {
+  using fa_mma::LOG2E;
+  float mx[2] = {flash::neg_inf(), flash::neg_inf()};
+  if (!masked) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      s[i] *= scale;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const int row = (i & 2) ? row1 : row0;
+      // a uniform tile's in-range ids are all the rows' own
+      const bool same =
+          uniform | (__ldg(segb + min(key, T - 1)) == ((i & 2) ? seg1 : seg0));
+      const bool ok = (key < T) & same & (!causal | (key <= row));
+      const float x = ok ? s[i] * scale : flash::neg_inf();
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+  }
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    // a row that has seen no visible key yet keeps m = -inf; exponents are
+    // then taken against 0 so that no -inf - -inf makes a NaN
+    const float m_use = (m_new == flash::neg_inf()) ? 0.f : m_new;
+    alpha[r] = fwd_exp2((m[r] - m_use) * LOG2E);
+    mb[r] = m_use * LOG2E;
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float p = fwd_exp2(fmaf(s[i], LOG2E, -mb[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += p;  // this thread's share of the row sum, unrounded
+    s[i] = p;
+  }
+}
+
+template <>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma_kernel<128>(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap, const int* __restrict__ seg,
+                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int H,
+                            float scale, int causal) {
+  using namespace fa_hop;
+  constexpr int D = 128;
+  constexpr int KT = FWD128_KEYS;
+  constexpr int STAGES = FWD128_STAGES;
+  constexpr uint32_t Q_BLOCK = WG_QROWS * 128;  // bytes of a Q column block (64 columns)
+  constexpr uint32_t KV_BLOCK = KT * 128;       // bytes of a K or V column block
+  constexpr uint32_t Q_TILE = (D / 64) * Q_BLOCK;
+  constexpr uint32_t KV_TILE = (D / 64) * KV_BLOCK;
+
+  extern __shared__ uint8_t smem_wg128[];
+  const uint32_t sQ = (smem_u32(smem_wg128) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + Q_TILE;                // [STAGES][D / 64][KT keys][64]
+  const uint32_t sV = sK + STAGES * KV_TILE;      // [STAGES][D / 64][KT keys][64]
+  const uint32_t q_full = sV + STAGES * KV_TILE;  // then k_full, v_full, empty [STAGES]
+  const uint32_t k_full0 = q_full + 8, v_full0 = k_full0 + 8 * STAGES,
+                 empty0 = v_full0 + 8 * STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * WG_QROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int* segb = seg + (long)b * T;
+
+  int qlo, qhi;
+  fa_mma::segment_range<WG_QROWS>(segb, q0, T, lane, qlo, qhi);
+  // causal: the tiles past the query tile's last row hold no visible key
+  const int k_end = causal ? min(T, q0 + WG_QROWS) : T;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full0 + 8 * st, 1);
+      mbar_init(v_full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  bool uniform, uniform_next;
+  if (warp >= 8) {  // ---- the producer warpgroup: one warp copies ----
+    setmaxnreg_dec<24>();
+    if (warp > 8) return;
+    int k0 = fa_mma::next_tile<KT>(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, Q_TILE);
+      for (int c = 0; c < D / 64; ++c) tma_load_4d(sQ + c * Q_BLOCK, &qmap, q_full, 64 * c, h, q0, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    while (k0 < k_end) {  // always entered: every in-range query sees its own key
+      if (lane == 0) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the round before freed this stage
+        const uint32_t kf = k_full0 + 8 * stage, vf = v_full0 + 8 * stage;
+        mbar_arrive_expect_tx(kf, KV_TILE);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sK + stage * KV_TILE + c * KV_BLOCK, &kmap, kf, 64 * c, h, k0, b);
+        mbar_arrive_expect_tx(vf, KV_TILE);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sV + stage * KV_TILE + c * KV_BLOCK, &vmap, vf, 64 * c, h, k0, b);
+      }
+      k0 = fa_mma::next_tile<KT>(segb, k0 + KT, k_end, T, qlo, qhi, lane, uniform);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {  // ---- the consumer warpgroups ----
+    setmaxnreg_inc<240>();
+    const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+    const int wq0 = q0 + 64 * wg;  // this warpgroup's first query row
+    // this thread's two rows, r and r + 8 of its warp's 16
+    const int row0 = wq0 + 16 * (warp & 3) + g, row1 = row0 + 8;
+    const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+    const uint32_t qa = sQ + wg * 64 * 128;  // this warpgroup's rows of each Q column block
+
+    // S = Q K^T over D for this warpgroup's 64 rows: 8 k-steps of m64n128k16
+    // from shared memory (k-step kc: column block kc / 4, 32 bytes a step
+    // within it), one commit group
+    const auto issue_scores = [&](float (&s)[64], uint32_t kt) {
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const uint32_t at = (kc & 3) * 32;
+        wgmma_m64n128k16_ss(s, desc_sw128(qa + (kc >> 2) * Q_BLOCK + at, 16, 1024),
+                            desc_sw128(kt + (kc >> 2) * KV_BLOCK + at, 16, 1024), kc > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V: 8 k-steps of m64n128k16 over the tile's keys, p in registers,
+    // V read transposed (MN-major), one commit group
+    const auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[8][4], uint32_t vt) {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n128k16_rs_mn(o, pa[kk], desc_sw128(vt + kk * 16 * 128, KV_BLOCK, 1024));
+      wgmma_commit();
+    };
+    const auto masked_tile = [&](int k0, bool uni) {
+      return !uni || k0 + KT > T || (causal && k0 + KT > wq0);
+    };
+    // the turns: warpgroup w waits on barrier 1 + w before it issues its
+    // products, then lets the other one go; warpgroup 0 goes first
+    const auto my_turn = [&] { flash::tf32::group_sync(1 + wg, 256); };
+    const auto their_turn = [&] { flash::tf32::group_arrive(2 - wg, 256); };
+    if (wg == 0) flash::tf32::group_arrive(1, 256);
+
+    float m[2] = {flash::neg_inf(), flash::neg_inf()}, l[2] = {0.f, 0.f}, alpha[2];
+    // element i of o: row (i & 2) ? row1 : row0, column 8 (i / 4) + 2 t4 + (i & 1)
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float s[64];
+    uint32_t pa[8][4];
+    // the first tile: its scores alone
+    int k0 = fa_mma::next_tile<KT>(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full0, 0);
+    fence_operands(s);
+    my_turn();
+    wgmma_fence();
+    issue_scores(s, sK);
+    their_turn();
+    int kn = fa_mma::next_tile<KT>(segb, k0 + KT, k_end, T, qlo, qhi, lane, uniform_next);
+    wgmma_wait<0>();
+    fence_operands(s);
+    fwd_online_softmax(s, m, l, alpha, masked_tile(k0, uniform), uniform, k0, segb, T, seg0,
+                       seg1, row0, row1, t4, causal, scale);
+    // stages: `cur` holds the tile whose p is in s, `held` the one whose P V
+    // is in flight (-1: none), `stage` the next tile's
+    int cur = 0, held = -1, stage = 1;
+    uint32_t cur_phase = 0, phase = 0;
+    k0 = kn;
+    uniform = uniform_next;
+
+    // Each tile's P V is waited for at the top of the next round, after the
+    // copy waits: ptxas places a wait at the top of its basic block, and a
+    // wait at the end of the round would run before that round's exponents.
+    while (k0 < k_end) {
+      mbar_wait(k_full0 + 8 * stage, phase);
+      mbar_wait(v_full0 + 8 * cur, cur_phase);
+      wgmma_wait<0>();  // the P V before
+      fence_operands(o);
+      if (held >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * held);  // this warp is done with that stage
+      }
+      // o = o * alpha + P V, the tile's P rounded to bf16 as the A operand
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      score_as_a(s, pa);
+      fence_operands(o);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) fence_operands(pa[kk]);
+      fence_operands(s);
+      my_turn();
+      wgmma_fence();
+      issue_scores(s, sK + stage * KV_TILE);
+      issue_pv(o, pa, sV + cur * KV_TILE);
+      their_turn();
+      // the walk's next tile, voted on while the products run
+      kn = fa_mma::next_tile<KT>(segb, k0 + KT, k_end, T, qlo, qhi, lane, uniform_next);
+      wgmma_wait<1>();  // S of this tile; the tile before's P V still runs
+      fence_operands(s);
+      fwd_online_softmax(s, m, l, alpha, masked_tile(k0, uniform), uniform, k0, segb, T, seg0,
+                         seg1, row0, row1, t4, causal, scale);
+      held = cur;
+      cur = stage;
+      cur_phase = phase;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      k0 = kn;
+      uniform = uniform_next;
+    }
+
+    // the last tile's P V
+    mbar_wait(v_full0 + 8 * cur, cur_phase);
+    wgmma_wait<0>();
+    fence_operands(o);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    score_as_a(s, pa);
+    fence_operands(o);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) fence_operands(pa[kk]);
+    wgmma_fence();
+    issue_pv(o, pa, sV + cur * KV_TILE);
+    wgmma_wait<0>();
+    fence_operands(o);
+
+    const long ld = (long)H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int t = r == 0 ? row0 : row1;
+      if (t < T) {
+        // l > 0: every in-range query sees at least its own key
+        const float inv = 1.f / l[r];
+        __nv_bfloat16* dst = out + (long)b * T * ld + (long)t * ld + (long)h * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        if (lse != nullptr && t4 == 0)
+          lse[((long)b * H + h) * T + t] = m[r] + logf(l[r]);
       }
     }
   }
@@ -980,23 +1324,23 @@ flash_fwd_tf32_split_kernel(const float* __restrict__ q, const float* __restrict
 
 // One launch a call.  fp32 (`Elem` float): the 3xTF32 kernel, one block of
 // fa_mma::THREADS per (64-query tile, head, batch row), at D 256 the split
-// kernel, one block of SPLIT_THREADS.  bf16: the mma.sync kernel up to D 128,
-// the same blocks; at D 256 the wgmma kernel, one block of WG_THREADS per
-// (128-query tile, head, batch row), its TMA maps built here.
+// kernel, one block of SPLIT_THREADS.  bf16: the mma.sync kernel up to D 64,
+// the same blocks; at D 128 and 256 the wgmma kernel, one block of
+// WG_THREADS per (128-query tile, head, batch row), its TMA maps built here.
 template <int D, typename Elem>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
                    float* lse, int B, int T, int H, float scale, int causal,
                    cudaStream_t stream) {
   const dim3 grid((T + fa_mma::ROWS - 1) / fa_mma::ROWS, H, B);
-  if constexpr (sizeof(Elem) == 2 && D > 128) {
+  if constexpr (sizeof(Elem) == 2 && D >= 128) {
     CUtensorMap maps[3];
     const void* xs[3] = {q, k, v};
     for (int i = 0; i < 3; ++i) {
-      const cudaError_t err = fa_hop::bf16_rows_map(&maps[i], xs[i], B, T, H, D,
-                                                    i == 0 ? WG_QROWS : WG_KROWS);
+      const cudaError_t err = fa_hop::bf16_rows_map(
+          &maps[i], xs[i], B, T, H, D, i == 0 ? WG_QROWS : D == 128 ? FWD128_KEYS : WG_KROWS);
       if (err != cudaSuccess) return err;
     }
-    constexpr size_t smem = wgmma_smem_bytes<D>();
+    constexpr size_t smem = D == 128 ? wgmma128_smem_bytes() : wgmma_smem_bytes<D>();
     const auto kernel = flash_fwd_wgmma_kernel<D>;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -191,9 +191,15 @@ __device__ __forceinline__ void load_bt_rest(uint32_t (&big)[2], uint32_t (&rest
 
 // named barrier `id` (1..) over `threads` threads of the block: the warps
 // that share a score tile (the split kernels) or hand one across (the bf16
-// wgmma backward)
+// wgmma backward), and the two warpgroups that take turns (the bf16 wgmma
+// forward at D 128)
 __device__ __forceinline__ void group_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// this thread's arrival on named barrier `id`, without waiting
+__device__ __forceinline__ void group_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // the accumulator of one 8-wide n-tile (c0, c1 at (g, 2t..2t+1), c2, c3 at

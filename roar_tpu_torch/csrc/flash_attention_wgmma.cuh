@@ -1,6 +1,6 @@
-// Hopper's own building blocks for the bf16 flash-attention kernels at D 256
-// (the forward `flash_fwd_wgmma_kernel`, flash_attention_fwd.cu) and at D 128
-// and 256 (the dK/dV and dQ kernels `flash_bwd_dkv_wgmma_kernel` and
+// Hopper's own building blocks for the bf16 flash-attention kernels at D 128
+// and 256 (the forward `flash_fwd_wgmma_kernel`, flash_attention_fwd.cu, and
+// the dK/dV and dQ kernels `flash_bwd_dkv_wgmma_kernel` and
 // `flash_bwd_dq_wgmma_kernel`, flash_attention_bwd.cu): TMA tile copies (`cp.async.bulk.tensor`) that
 // complete on `mbarrier`s, `wgmma` products whose operands are read from
 // shared memory through matrix descriptors, and the host-side tensor maps the
@@ -37,6 +37,8 @@
 
 #include <climits>
 #include <cstdint>
+
+#include "flash_attention_mma.cuh"
 
 namespace flash {
 namespace hopper {
@@ -170,6 +172,33 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (+)= A B, A [64 x 16] and B [16 x 128] (K-major) from shared memory: the
+// 128-column form of the above, for a score tile of 128 keys
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      " %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d += A B, A [64 x 16] bf16 in registers and B [16 x 256] from shared memory,
 // MN-major (transposed: B's rows are 16 keys of a [keys][columns] tile)
 __device__ __forceinline__ void wgmma_m64n256k16_rs_mn(float (&d)[128], const uint32_t (&a)[4],
@@ -239,6 +268,21 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_mn(float (&d)[64], const uin
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// the accumulators of n-tiles 2 kk and 2 kk + 1 of a 64-row score tile (N
+// elements a thread, 2 N columns) as the bf16 A fragment of rows 16 kk ..
+// 16 kk + 15 of the next product's k (p.v, or a gradient product)
+template <int N>
+__device__ __forceinline__ void score_as_a(const float (&s)[N], uint32_t (&a)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    const float* c = s + 8 * kk;
+    a[kk][0] = mma::pack_bf16(c[0], c[1]);
+    a[kk][1] = mma::pack_bf16(c[2], c[3]);
+    a[kk][2] = mma::pack_bf16(c[4], c[5]);
+    a[kk][3] = mma::pack_bf16(c[6], c[7]);
+  }
 }
 
 // ---- the host side ----------------------------------------------------------

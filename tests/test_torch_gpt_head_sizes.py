@@ -3,7 +3,7 @@ does not run against the JAX package on the CPU, and the rules of the flash
 wrappers' head sizes.
 
 On the card the port runs D 256 and D 128 on kernels of their own (in bf16
-the backward on wgmma at both) and D 80 / 100 on the D 128 kernels through
+the forward and the backward on wgmma at both) and D 80 / 100 on the D 128 kernels through
 zero-padding (`kernels/flash_attention.py`, `kernel_head_dim`).  Here the wrappers take their plain versions, and the JAX
 package its einsum route (`_flash_attention_available()` is false off the
 TPU).  Narrow widths, 2 layers, `use_flash=true`, the JAX module's initial
@@ -186,9 +186,10 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     """`phase_kernel_build` requires the six D 256 forms (the bf16 forward,
     dK/dV and dQ on wgmma, the fp32 forward, dK/dV and dQ as the split
     kernels), reads their mangled names (as the card's nvcc wrote them) and
-    their shared memory; the bf16 backward at D 128 runs the wgmma kernels
-    too, and the bf16 mma.sync backward kernels are built up to D 64 only,
-    with one template argument."""
+    their shared memory; the bf16 forward and backward at D 128 run the wgmma
+    kernels too (the forward's `<128>` instance must not be serialised by
+    ptxas), and the bf16 mma.sync forward and backward kernels are built up
+    to D 64 only, with one template argument."""
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
 
@@ -210,6 +211,10 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dkv_wgmma_kernel") == \
         sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dq_wgmma_kernel") == \
         [128, 256]
+    assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_fwd_mma_kernel") == [32, 64]
+    assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_fwd_wgmma_kernel") == \
+        [128, 256]
+    assert cs.FLASH_WGMMA_UNSERIALIZED == {("flash_fwd_wgmma_kernel", "bfloat16", 128)}
     bwd = "_ZN55_GLOBAL__N__bd9a39ae_22_flash_attention_bwd_cu_f7cbd94c"
     tail32 = "EEvPKfS2_S2_PKiS2_S2_S2_PfS5_iifii"
     assert cs._flash_instance(f"{bwd}31flash_bwd_dkv_tf32_split_kernelILi256{tail32}") == \
@@ -249,7 +254,7 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
         2 * 128 * (256 + 256) + 40 + 1024 == 132136
     # the kernel a bf16 call launches at D 128, where the profiler checks it
     assert cs.flash_kernels_of_a_call(128, "bfloat16") == {
-        "fwd": "flash_fwd_mma_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
+        "fwd": "flash_fwd_wgmma_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
         "dq": "flash_bwd_dq_wgmma_kernel"}
     assert cs.flash_kernels_of_a_call(128, "float32") is None
     space = "_ZN60_GLOBAL__N__5c1a7f2e_22_flash_attention_bwd_cu_9e8d7c6b"
@@ -263,10 +268,15 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     assert cs._flash_instance(
         f"{space}27flash_fwd_tf32_split_kernelILi256EEEvPKfS2_S2_PKiPfS5_iifi") == \
         ("flash_fwd_tf32_split_kernel", "float32", 256)
-    assert cs._flash_instance(f"{space}20flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16") == \
-        ("flash_fwd_mma_kernel", "bfloat16", 128)
+    assert cs._flash_instance(f"{space}20flash_fwd_mma_kernelILi64EEEvPK13__nv_bfloat16") == \
+        ("flash_fwd_mma_kernel", "bfloat16", 64)
     assert cs._flash_instance(f"{space}22flash_fwd_wgmma_kernelILi256EEEv14CUtensorMap_st") == \
         ("flash_fwd_wgmma_kernel", "bfloat16", 256)
+    # the forward's D 128 instance, an explicit specialisation of the same template
+    fwd = "_ZN55_GLOBAL__N__bd9a39ae_22_flash_attention_fwd_cu_f7cbd94c"
+    assert cs._flash_instance(f"{fwd}22flash_fwd_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_"
+                              "PKiP13__nv_bfloat16Pfiifi") == \
+        ("flash_fwd_wgmma_kernel", "bfloat16", 128)
     for kernel, dtype, d in d256:
         assert cs.flash_dynamic_smem(kernel, dtype, d) <= cs.H100_SMEM_PER_BLOCK
     # Q (64 rows); K and V x 2 stages of 16 keys; 2048 words of S halves
@@ -276,6 +286,10 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     # Q of 128 rows, K and V x 2 stages of 64, five barriers, 1 KB to align
     assert cs.flash_dynamic_smem("flash_fwd_wgmma_kernel", "bfloat16", 256) == \
         2 * 256 * (128 + 4 * 64) + 40 + 1024 == 197672
+    # at D 128: Q of 128 rows, K and V x 3 stages of 128 keys, ten barriers
+    # (Q; K full, V full, empty a stage), 1 KB to align: one block a SM
+    assert cs.flash_dynamic_smem("flash_fwd_wgmma_kernel", "bfloat16", 128) == \
+        2 * 128 * (128 + 6 * 128) + 80 + 1024 == 230480 <= cs.H100_SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("shape, causal, lens", [
@@ -312,6 +326,33 @@ def test_chip_smoke_finds_the_single_key_rows(shape, causal, lens):
     out = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True, causal=causal)[0]
     found = cs._forward_exact_checks(q, k, v, key_mask, scale, causal, out)
     assert found["single_key_rows_o_equal_v"] == int(want.sum()) * shape[2]
+
+
+@pytest.mark.parametrize("shape, causal, lens", [
+    ((1, 20, 2, 128), True, None),
+    ((2, 30, 2, 128), True, [30, 14]),
+    ((4, 20, 2, 128), False, [20, 1, 10, 17])])
+def test_chip_smoke_exact_forward_checks_hold_in_bf16(shape, causal, lens):
+    """`_forward_exact_checks` as phase `kernel_flash_head_sizes` runs it on
+    the bf16 forward at D 128, at those shapes' kinds cut short: a single-key
+    row's p is 1 and its row sum 1, so its o is its bf16 v to the bit; two
+    runs give the same bits.  On the CPU the wrapper takes the plain forward."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from roar_tpu_torch.kernels import flash_attention as fa
+
+    device = torch.device("cpu")
+    key_mask = cs._key_mask(lens, shape[1], device)
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(*shape, generator=gen).bfloat16() for _ in range(3))
+    scale = shape[3] ** -0.5
+    out = fa.flash_self_attention(q, k, v, key_mask, scale, return_lse=True, causal=causal)[0]
+    found = cs._forward_exact_checks(q, k, v, key_mask, scale, causal, out)
+    rows = cs._single_key_rows(key_mask, shape, causal, device)
+    assert found["single_key_rows_o_equal_v"] == int(rows.sum()) * shape[2] > 0
+    # a row that sees two keys is not its v
+    two = cs._single_key_rows(None, shape, True, device).roll(1, dims=1)
+    assert not torch.equal(out[two], v[two])
 
 
 def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):

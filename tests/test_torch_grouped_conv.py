@@ -248,7 +248,8 @@ def test_ptxas_parser_reads_k3_and_k4_instances():
 
 
 @pytest.mark.parametrize("fault", [None, "spill", "missing", "viterbi_spill", "stale_bf16_k3",
-                                   "stale_bf16_k4", "stale_bf16_flash_bwd"])
+                                   "stale_bf16_k4", "stale_bf16_flash_bwd", "stale_bf16_flash_fwd",
+                                   "serialized_flash_fwd_d128", "serialized_flash_bwd_d256"])
 def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, monkeypatch,
                                                                      fault):
     import chip_smoke as cs
@@ -264,6 +265,16 @@ def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, mo
     if fault == "stale_bf16_flash_bwd":  # the mma.sync dK/dV kernel at D 128, as before wgmma
         name = "flash_bwd_dkv_mma_kernel"
         log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi128EEEvv", 254)
+    if fault == "stale_bf16_flash_fwd":  # the mma.sync forward at D 128, as before wgmma
+        name = "flash_fwd_mma_kernel"
+        log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi128EEEvv", 168)
+    if fault in ("serialized_flash_fwd_d128", "serialized_flash_bwd_d256"):
+        # ptxas's warning that it serialised a kernel's wgmma products, naming it
+        name, d = (("flash_fwd_wgmma_kernel", 128) if fault == "serialized_flash_fwd_d128"
+                   else ("flash_bwd_dq_wgmma_kernel", 256))
+        log += (f"ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+                f"instructions are serialized due to the presence of Extern calls in the "
+                f"function '_ZN12_GLOBAL__N_1{len(name)}{name}ILi{d}EEEvv'\n")
     (tmp_path / "lib.log").write_text(log)
     if fault is None:
         line = cs.phase_kernel_build(tmp_path / "lib.so")
@@ -287,6 +298,19 @@ def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, mo
     elif fault == "stale_bf16_flash_bwd":
         with pytest.raises(AssertionError, match="no launch runs.*flash_bwd_dkv_mma_kernel"):
             cs.phase_kernel_build(tmp_path / "lib.so")
+    elif fault == "stale_bf16_flash_fwd":
+        with pytest.raises(AssertionError, match="no launch runs.*flash_fwd_mma_kernel"):
+            cs.phase_kernel_build(tmp_path / "lib.so")
+    elif fault == "serialized_flash_fwd_d128":
+        with pytest.raises(AssertionError, match="flash_fwd_wgmma_kernel<128>.*serialised.*C7515"):
+            cs.phase_kernel_build(tmp_path / "lib.so")
+    elif fault == "serialized_flash_bwd_d256":
+        # reported for every wgmma instance, raised for the D 128 forward only
+        rows = cs.phase_kernel_build(tmp_path / "lib.so")["instances"]
+        flags = {(row["kernel"], row["head_dim"]): row["c7515"] for row in rows
+                 if "_wgmma_" in row["kernel"]}
+        assert flags.pop(("flash_bwd_dq_wgmma_kernel", 256)) is True
+        assert len(flags) == 5 and not any(flags.values())
     elif fault in ("stale_bf16_k3", "stale_bf16_k4"):
         kernel = "conv_mma_kernel" if fault == "stale_bf16_k3" else "dw_mma_kernel"
         with pytest.raises(AssertionError, match=f"bf16 instance of {kernel}"):
