@@ -579,7 +579,9 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
 # and dQ the split kernels; at D 128 the bf16 forward, dK/dV and dQ are wgmma
 # kernels too (128-row blocks, each warpgroup owning its 64 rows whole; the
 # forward's `<128>` instance issues the next tile's scores beside this tile's
-# P V, and must not be serialised by ptxas).
+# P V, and must not be serialised by ptxas); the fp32 dK/dV and dQ at D 128
+# are the pair kernels (8 warps, each score tile formed once by one warp of a
+# pair and handed to the other).
 FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64),
                                   "flash_fwd_wgmma_kernel": (128, 256),
                                   "flash_bwd_dkv_mma_kernel": (32, 64),
@@ -588,9 +590,11 @@ FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64),
                                   "flash_bwd_dq_wgmma_kernel": (128, 256)},
                      "float32": {"flash_fwd_tf32_kernel": (32, 64, 128),
                                  "flash_fwd_tf32_split_kernel": (256,),
-                                 "flash_bwd_dkv_tf32_kernel": (32, 64, 128),
+                                 "flash_bwd_dkv_tf32_kernel": (32, 64),
+                                 "flash_bwd_dkv_tf32_pair_kernel": (128,),
                                  "flash_bwd_dkv_tf32_split_kernel": (256,),
-                                 "flash_bwd_dq_tf32_kernel": (32, 64, 128),
+                                 "flash_bwd_dq_tf32_kernel": (32, 64),
+                                 "flash_bwd_dq_tf32_pair_kernel": (128,),
                                  "flash_bwd_dq_tf32_split_kernel": (256,)}}
 H100_SMEM_PER_BLOCK = 232448  # the most dynamic shared memory a block may have
 # the wgmma instances whose products ptxas must not serialise (its C7515 and
@@ -639,6 +643,14 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
         return 4 * (d + 4) * 6 * 64 + 4 * 2 * 64
     if kernel == "flash_bwd_dq_tf32_kernel":  # Q, dO; K, V halves
         return 4 * (d + 4) * 6 * 64
+    # the pair kernels at D 128: their own tiles, the streamed ones x 2
+    # stages, unsplit; the score tiles handed across (P^T: 4 x 16 x 64 words;
+    # P and dP: 4 x 2 x 16 x 32), dK/dV also each stage's lse and delta rows
+    # and the dK warps' dS^T of a half tile (4 x 16 x 32)
+    if kernel == "flash_bwd_dkv_tf32_pair_kernel":  # 64 keys; 64-query tiles
+        return 4 * ((d + 4) * 6 * 64 + 4096 + 4 * 64 + 2048)
+    if kernel == "flash_bwd_dq_tf32_pair_kernel":  # 64 queries; 32-key tiles
+        return 4 * ((d + 4) * (2 * 64 + 4 * 32) + 4096)
     # the split kernels: their own tiles, the streamed ones x 2 stages, unsplit,
     # and the partial score tiles (4096 words in the backward)
     if kernel == "flash_fwd_tf32_split_kernel":  # 64 queries; 16-key tiles; S halves
@@ -860,7 +872,8 @@ def phase_kernel_build(lib_path) -> dict:
             raise AssertionError(f"{kernel}<{d}> is not in the ptxas log")
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
             raise AssertionError(f"{kernel}<{d}> spills: {info}")
-        if ("_wgmma_" in kernel or "_split_" in kernel) and info["stack_bytes"]:
+        if any(form in kernel for form in ("_wgmma_", "_split_", "_pair_")) \
+                and info["stack_bytes"]:
             raise AssertionError(f"{kernel}<{d}> has a stack frame: {info}")
         if (kernel, dtype, d) in FLASH_WGMMA_UNSERIALIZED and info["wgmma_serialized"]:
             raise AssertionError(f"{kernel}<{d}>: ptxas serialised its wgmma products "
@@ -2201,27 +2214,27 @@ def phase_kernel_flash_causal(device: torch.device) -> dict:
     return {"max_abs_err": worst, "path": path}
 
 
-# the kernel one call of each K5 entry point launches at D 256, by type, and
-# in bf16 at D 128
+# the kernel one call of each K5 entry point launches at D 256 and D 128, by
+# type
 FLASH_D256_KERNELS = {"bfloat16": {"fwd": "flash_fwd_wgmma_kernel",
                                    "dkv": "flash_bwd_dkv_wgmma_kernel",
                                    "dq": "flash_bwd_dq_wgmma_kernel"},
                       "float32": {"fwd": "flash_fwd_tf32_split_kernel",
                                   "dkv": "flash_bwd_dkv_tf32_split_kernel",
                                   "dq": "flash_bwd_dq_tf32_split_kernel"}}
-FLASH_D128_BF16_KERNELS = {"fwd": "flash_fwd_wgmma_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
-                           "dq": "flash_bwd_dq_wgmma_kernel"}
+FLASH_D128_KERNELS = {"bfloat16": {"fwd": "flash_fwd_wgmma_kernel",
+                                   "dkv": "flash_bwd_dkv_wgmma_kernel",
+                                   "dq": "flash_bwd_dq_wgmma_kernel"},
+                      "float32": {"fwd": "flash_fwd_tf32_kernel",
+                                  "dkv": "flash_bwd_dkv_tf32_pair_kernel",
+                                  "dq": "flash_bwd_dq_tf32_pair_kernel"}}
 
 
 def flash_kernels_of_a_call(d: int, dtype: str) -> Optional[dict]:
     """{entry point: the one flash kernel a call launches} at head size `d`
     in `dtype` ("bfloat16" or "float32") where phase
     `kernel_flash_head_sizes` checks it by the profiler, else None."""
-    if d == 256:
-        return FLASH_D256_KERNELS[dtype]
-    if d == 128 and dtype == "bfloat16":
-        return FLASH_D128_BF16_KERNELS
-    return None
+    return {256: FLASH_D256_KERNELS, 128: FLASH_D128_KERNELS}.get(d, {}).get(dtype)
 
 
 def _flash_kernels_per_call(shape, causal: bool, dtype: torch.dtype, device,
@@ -2282,9 +2295,10 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
     SDPA: at D 256 the forward, dK/dV and dQ kernels in both types, at D 128
     the same (in bf16 the wgmma forward, dK/dV and dQ kernels), and the padded route at
     D 80 and 100, forward and backward in both types, counted in
-    `LAUNCHES_PADDED`.  At pythia-1b's and llama-2-7b's layers in bf16 and
-    at every D 256 shape in fp32, the kernels one call of each entry point
-    launches (`kernels_per_call`: one, by the profiler); in fp32 at D 256
+    `LAUNCHES_PADDED`.  At pythia-1b's and llama-2-7b's layers in bf16, at
+    llama-2-7b's in fp32 and at every D 256 shape in fp32, the kernels one
+    call of each entry point launches (`kernels_per_call`: one, by the
+    profiler); in fp32 at D 256
     and in bf16 at D 128 (the wgmma forward) also the forward's
     `_forward_exact_checks` (two runs the same bits, single-key rows o == v:
     in bf16 p = 1 there and v is bf16).  Returns {(shape, dtype name): case}."""
@@ -2306,7 +2320,7 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
             if (d in fa.HEAD_DIMS) == bool(padded):
                 raise AssertionError(f"D {d}: padded launches {dict(padded)}")
             layer = d in (128, 256) and causal and lens is None  # a model's layer
-            if fp32_d256 or (layer and dtype == torch.bfloat16):
+            if fp32_d256 or (layer and (dtype == torch.bfloat16 or d == 128)):
                 case["kernels_per_call"] = _flash_kernels_per_call(shape, causal, dtype, device,
                                                                    key_mask)
                 _emit({"phase": "kernel_flash_head_sizes", "shape_bthd": list(shape),
@@ -3748,19 +3762,24 @@ def _gpt_bf16_kernels_vs_plain(model, batch: dict, loss_k: float, grads_k) -> di
 GPT_HEAD_SIZE_RUNS = [("phi-2", 80, 419543040), ("open_llama_3b", 100, 452624000),
                       ("gemma-2b", 256, 1268787200), ("llama-2-7b", 128, 666914816)]
 GPT_HEAD_SIZE_SEQ = {"llama-2-7b": 4096}
+# the entries that also take one fp32 micro-batch (the GPT recipe's own
+# precision): the fp32 kernels at D 256 (gemma-2b), D 128 (llama-2-7b) and
+# D 80 through the padded route to D 128 (phi-2)
+GPT_HEAD_SIZE_FP32 = ("phi-2", "gemma-2b", "llama-2-7b")
 
 
 def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int = 2048,
                          narrow: bool = False) -> dict:
     """One bf16 micro-batch of each `GPT_HEAD_SIZE_RUNS` entry (seeded
     weights, seeded tokens) with the kernels against one with the plain
-    versions, at the bars of `_gpt_bf16_kernels_vs_plain`, and at D 256
-    (gemma-2b) one fp32 micro-batch too, at those of
-    `_gpt_fp32_kernels_vs_plain`; each at `seq_length` tokens but those of
+    versions, at the bars of `_gpt_bf16_kernels_vs_plain`, and for the
+    entries of `GPT_HEAD_SIZE_FP32` one fp32 micro-batch too, at those of
+    `_gpt_fp32_kernels_vs_plain` (on the card: 2 / 2 / 2 fp32 launches, no
+    bf16 one, phi-2's all padded); each at `seq_length` tokens but those of
     `GPT_HEAD_SIZE_SEQ`; `narrow`: two heads of the entry's head size, a
     small vocabulary and `seq_length` tokens throughout, for a rehearsal on
-    the CPU.  Returns {name: causal launches, bf16 and padded ones, and at
-    D 256 the fp32 ones}."""
+    the CPU.  Returns {name: causal launches, bf16 and padded ones, and for
+    `GPT_HEAD_SIZE_FP32` the fp32 ones and their padded ones}."""
     from roar_tpu_torch.kernels import flash_attention as fa
     from roar_tpu_torch.models.gpt_model import GPTLMModel
 
@@ -3799,7 +3818,7 @@ def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int =
         line = _gpt_bf16_kernels_vs_plain(model, batch, loss_k, grads_k)
         del grads_k
         line32 = None
-        if head_size == 256:
+        if name in GPT_HEAD_SIZE_FP32:
             # the GPT recipe's own precision: the same model and batch in fp32
             model.set_compute_dtype(None)
             _zero_launch_counts()
@@ -3807,10 +3826,13 @@ def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int =
             if on_card:
                 torch.cuda.synchronize()
             counts["fp32"] = _causal_launches_since(Counter(), strict=on_card)
+            counts["fp32_padded"] = _causal_launches_since(Counter(), fa.LAUNCHES_PADDED)
             none = dict.fromkeys(want, 0)
-            if on_card and (counts["fp32"] != want or _causal_launches_since(
-                    Counter(), fa.LAUNCHES_BF16) != none):
-                raise AssertionError(f"{name} fp32: launches {dict(fa.LAUNCHES)}, want {want}")
+            if on_card and (counts["fp32"] != want or counts["fp32_padded"] != padded
+                            or _causal_launches_since(Counter(), fa.LAUNCHES_BF16) != none):
+                raise AssertionError(f"{name} fp32: launches {dict(fa.LAUNCHES)} (padded "
+                                     f"{dict(fa.LAUNCHES_PADDED)}), want {want} (padded "
+                                     f"{padded})")
             line32 = _gpt_fp32_kernels_vs_plain(model, batch, loss_k, grads_k)
             del grads_k
         del model
@@ -4476,6 +4498,7 @@ def main() -> int:
                 "kernel_device_ms": calls["device_ms"][entry]}
 
     pythia_fp32_fwd = pythia["launches"]["fwd"] - pythia["launches_bf16"]["fwd"]
+    d128_bf16, d128_fp32 = FLASH_D128_KERNELS["bfloat16"], FLASH_D128_KERNELS["float32"]
     padded_rows = []
     for d, config_name in ((80, "phi-2"), (100, "open_llama_3b")):
         shape = (1, 2048, 32, d)
@@ -4483,6 +4506,7 @@ def main() -> int:
         fwd32, bwd32 = flash_rows([fheads[(shape, "float32")]])
         errors16, errors32 = head_errors(d, "bfloat16"), head_errors(d, "float32")
         launches = heads[config_name]["padded"]
+        launches32 = heads[config_name].get("fp32_padded", {})  # phi-2's fp32 micro-batch
         common = {"route": "cuda", "padded_to": 128, "replaces": "roar_tpu/models/gpt.py:491",
                   "causal": True, "dtype": "bfloat16", "head_size": d,
                   "padding": "roar_tpu_torch/kernels/flash_attention.py (kernel_head_dim)",
@@ -4490,14 +4514,17 @@ def main() -> int:
         padded_rows += [
             {"name": f"flash_attention_causal_fwd_padded_d{d}",
              "source": "roar_tpu_torch/csrc/flash_attention_fwd.cu", **common,
-             "kernel": FLASH_D128_BF16_KERNELS["fwd"],
+             "kernel": d128_bf16["fwd"],
              "launches": launches["fwd"], "max_abs_err": worst(errors16, "o"), **fwd16,
-             "fp32": {**fwd32, "max_abs_err": worst(errors32, "o")}},
+             "fp32": {**fwd32, "kernel": d128_fp32["fwd"],
+                      "launches": launches32.get("fwd"), "max_abs_err": worst(errors32, "o")}},
             *[{"name": f"flash_attention_causal_bwd_{name}_padded_d{d}",
                "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu", **common,
                "kernel": f"flash_bwd_{name}_wgmma_kernel",
                "launches": launches[name], "max_abs_err": worst(errors16, *grads),
-               **bwd16[name], "fp32": {**bwd32[name], "max_abs_err": worst(errors32, *grads)}}
+               **bwd16[name], "fp32": {**bwd32[name], "kernel": d128_fp32[name],
+                                       "launches": launches32.get(name),
+                                       "max_abs_err": worst(errors32, *grads)}}
               for name, grads in backward_kernels]]
     kernels = [
         # fp32 (3xTF32) on both of its paths: `launches` is serving's,
@@ -4538,11 +4565,14 @@ def main() -> int:
                   "launches": gpt["fp32_check_launches"]["fwd"],
                   "launches_validation": gpt["launches"]["fwd"] - gpt["launches_bf16"]["fwd"]},
          "llama_2_7b_d128": {"shape_bthd": list(LLAMA_D128_SHAPE),
-                             "kernel": FLASH_D128_BF16_KERNELS["fwd"], **d128_fwd,
+                             "kernel": d128_bf16["fwd"], **d128_fwd,
                              "launches_gpt_head_sizes": heads["llama-2-7b"]["bf16"]["fwd"],
                              **per_call(LLAMA_D128_SHAPE, "bfloat16", "fwd"),
                              "max_abs_err": worst(head_errors(128, "bfloat16"), "o"),
-                             "fp32": {**d128_fwd32,
+                             "fp32": {**d128_fwd32, "kernel": d128_fp32["fwd"],
+                                      **per_call(LLAMA_D128_SHAPE, "float32", "fwd"),
+                                      "launches_gpt_head_sizes":
+                                          heads["llama-2-7b"]["fp32"]["fwd"],
                                       "max_abs_err": worst(head_errors(128, "float32"), "o")}}},
         *[{"name": f"flash_attention_causal_bwd_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -4555,7 +4585,7 @@ def main() -> int:
         # the bf16 backward at D 128: one wgmma kernel launch a call;
         # `launches` the llama-2-7b micro-batch's of phase `gpt_head_sizes`;
         # times at its layer (1, 4096, 32, 128), `ragged_non_causal` at
-        # (4, 200, 2, 128) under a key mask; `fp32` the same call in fp32
+        # (4, 200, 2, 128) under a key mask
         *[{"name": f"flash_attention_causal_bwd_{name}_d128", "route": "cuda",
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "bfloat16",
@@ -4563,9 +4593,18 @@ def main() -> int:
            "shape_bthd": list(LLAMA_D128_SHAPE), **per_call(LLAMA_D128_SHAPE, "bfloat16", name),
            "launches": heads["llama-2-7b"]["bf16"][name],
            "max_abs_err": worst(head_errors(128, "bfloat16"), *grads), **d128_bwd[name],
-           "ragged_non_causal": ragged128_bwd[name],
-           "fp32": {**d128_bwd32[name], "kernel": f"flash_bwd_{name}_tf32_kernel",
-                    "max_abs_err": worst(head_errors(128, "float32"), *grads)}}
+           "ragged_non_causal": ragged128_bwd[name]}
+          for name, grads in backward_kernels],
+        # the fp32 backward at D 128: one pair kernel launch a call;
+        # `launches` the llama-2-7b fp32 micro-batch's of phase
+        # `gpt_head_sizes`; times at its layer (1, 4096, 32, 128)
+        *[{"name": f"flash_attention_causal_bwd_{name}_d128_fp32", "route": "cuda",
+           "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "roar_tpu/models/gpt.py:491", "causal": True, "dtype": "float32",
+           "kernel": d128_fp32[name], "head_size": 128,
+           "shape_bthd": list(LLAMA_D128_SHAPE), **per_call(LLAMA_D128_SHAPE, "float32", name),
+           "launches": heads["llama-2-7b"]["fp32"][name],
+           "max_abs_err": worst(head_errors(128, "float32"), *grads), **d128_bwd32[name]}
           for name, grads in backward_kernels],
         {"name": "pyin_viterbi_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",

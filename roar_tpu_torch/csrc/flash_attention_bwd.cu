@@ -30,11 +30,11 @@
 // consumer warpgroups on wgmma, each score tile formed once; at D 128 a block
 // owns 128 rows and each warpgroup 64 of them whole, at D 256 a block owns 64
 // and the warpgroups split the work of a tile; see their notes).  fp32 at
-// D 256: the split kernels, 8 warps a block, each score tile formed once (see
-// their notes).
+// D 256: the split kernels, at D 128 the pair kernels, 8 warps a block, each
+// score tile formed once (see their notes).
 //
-// The fp32 kernels up to D 128 and the bf16 ones up to D 64 share one block
-// layout, 4 warps a block.  dK/dV: each warp owns
+// The fp32 kernels and the bf16 ones up to D 64 share one block layout, 4
+// warps a block.  dK/dV: each warp owns
 // 16 keys of the block's 64-key tile as the rows of S^T = K q^T and
 // dP^T = V dO^T, so that P^T and dS^T come out of the accumulators as the A
 // operands of dV += P^T dO and dK += dS^T q without leaving registers; q and dO
@@ -51,8 +51,8 @@
 // are double-buffered.
 //
 // fp32, `flash_bwd_dkv_tf32_kernel` and `flash_bwd_dq_tf32_kernel` (up to
-// D 128; the D 256 split kernels share their arithmetic): mma.sync m16n8k8
-// on TF32 in 3xTF32 (tf32x3.cuh): every fp32 operand is split into
+// D 64; the D 128 pair and D 256 split kernels share their arithmetic):
+// mma.sync m16n8k8 on TF32 in 3xTF32 (tf32x3.cuh): every fp32 operand is split into
 // big + small, each k-chunk of 8 forms small.big, big.small and big.big in a
 // fresh accumulator, and one round-to-nearest add puts that into the thread's
 // fp32 sum (dK and dV sum over up to 4096 queries, 512 chunks: carried in one
@@ -76,7 +76,7 @@
 // (6 pairs D).  bf16 is held against the 989 TFLOP/s dense bf16 peak; fp32
 // does three TF32 products for each, against 494.7 / 3 = 165 TFLOP/s (2.46x
 // the 67 TFLOP/s of the FMA pipe).  What holds the mma.sync kernels (bf16
-// up to D 64, fp32 up to D 128 and at D 256) back from it: `mma.sync` rather
+// up to D 64, fp32 at every D) back from it: `mma.sync` rather
 // than `wgmma`, every warp reading the whole staged tile of the other side
 // from shared memory, cp.async rather than TMA, per-element work (exp,
 // masks, dS) of the same order as the products at D 64, and in fp32 the
@@ -109,7 +109,8 @@
 // (1, 2048, 8, 256) causal dK/dV 1.570 / 1.519 ms and dQ 1.189 / 1.167 (13 /
 // 13 % of their own bounds) where the passes and halves took 5.034 / 5.115
 // and 2.872 / 2.844 (NVIDIA H100 80GB HBM3, 700.00 W,
-// `scripts/flash_kernel_times_torch.py`).  Later work: TF32 wgmma for fp32,
+// `scripts/flash_kernel_times_torch.py`); the pair kernels at D 128 the
+// same way (see their notes).  Later work: TF32 wgmma for fp32,
 // wgmma / TMA at D 32 and 64 in bf16, a fused five-product backward, and a
 // GQA-aware kernel.
 
@@ -488,20 +489,22 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---------------------------------------------------------------------------
 // The fp32 kernels on the tensor cores, 3xTF32 (see the notes at the top).
-// Up to D 128: the block's own tiles (K and V for dK/dV, Q and dO for dQ)
+// Up to D 64: the block's own tiles (K and V for dK/dV, Q and dO for dQ)
 // stay fp32 and each A fragment is split after its load; the streamed tiles
 // of the other side, read as B operands by all four warps in both products,
 // are split once per tile in shared memory into a big and a small half (TF32
 // bit patterns).  At D 256 that layout would ask for 399,872 B (dK/dV) and
 // 399,360 B (dQ) of shared memory (the card grants a block 232,448) and a
 // whole row of dK and dV 256 accumulators a thread: see the D 256 kernels
-// further down.
+// further down.  At D 128 it took 203,264 B (one stage, one block of 4 warps a
+// SM) and 128 (dK/dV) and 64 (dQ) accumulators a thread, indexed at run time
+// in the stack frame: see the D 128 pair kernels.
 // ---------------------------------------------------------------------------
 
 using namespace flash::tf32;
 
 // ---------------------------------------------------------------------------
-// The fp32 dK/dV kernel up to D 128.  One block of 4 warps per 64-key tile;
+// The fp32 dK/dV kernel up to D 64.  One block of 4 warps per 64-key tile;
 // warp w owns keys 16 w .. 16 w + 15 whole, as the rows of
 //   S^T = K Q^T  and  dP^T = V dO^T   (K and V as A fragments),
 // and loops over the visible 64-query tiles (from the diagonal with
@@ -511,7 +514,7 @@ using namespace flash::tf32;
 //   dV  += P^T dO,   dK += dS^T Q             (dO and Q rows read permuted)
 // Each query tile is staged by cp.async with its lse / delta rows and split in
 // place; one stage, so the copies of the next tile wait for this one's
-// products (two blocks a SM at D <= 64 overlap each other's).
+// products (two blocks a SM overlap each other's).
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -528,17 +531,11 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
                           const float* __restrict__ dout, float* __restrict__ dk,
                           float* __restrict__ dv, int T, int H, float scale, int causal) {
   using namespace fa_mma;
-  static_assert(D <= 128, "D 256 runs flash_bwd_dkv_tf32_split_kernel");
+  static_assert(D <= 64, "D 128 runs flash_bwd_dkv_tf32_pair_kernel, D 256 the split kernel");
   constexpr int TW = ROWS * (D + 4);  // words of a staged tile or half
   constexpr int KC = D / 8;           // k-chunks of the score products
   constexpr int NT = D / 8;           // n-tiles of dK and dV
-  // 8-query n-tiles a chunk, in pairs; D 128 takes 16 queries a chunk
-  constexpr int NQ = D <= 64 ? 4 : 2;
-  // the score products' k-chunks unroll whole up to D 64, 4 times above; the
-  // output n-tiles unroll whole but at D 128, whose 128 accumulators a
-  // thread live in the stack frame
-  constexpr int UNROLL = D <= 64 ? KC : 4;
-  constexpr int UNROLL_OUT = D == 128 ? 4 : NT;
+  constexpr int NQ = 4;               // 8-query n-tiles a chunk, in pairs
 
   extern __shared__ float4 smem_dkv_tf32[];
   float* Ks = reinterpret_cast<float*>(smem_dkv_tf32);
@@ -602,7 +599,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
       for (int n = 0; n < NQ; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll(UNROLL)
+#pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
         uint32_t kb[4], ks[4], vb[4], vs[4];
         load_a_split<D>(kb, ks, Ks, warp * 16, kc, lane);
@@ -645,7 +642,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
         uint32_t pb[4], ps[4], sb[4], ss[4];
         acc_as_a(st[n], pb, ps);
         acc_as_a(dpt[n], sb, ss);
-#pragma unroll(UNROLL_OUT)
+#pragma unroll
         for (int j = 0; j < NT; ++j) {
           uint32_t ob[2], os[2], qb[2], qs[2];
           load_bt<D>(ob, Obig, c0 + 8 * n, j, g, t4);
@@ -681,7 +678,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 dQ kernel up to D 128.  One block of 4 warps per (64-query tile,
+// The fp32 dQ kernel up to D 64.  One block of 4 warps per (64-query tile,
 // head, batch row); warp w owns queries 16 w .. 16 w + 15 whole, as the rows of
 //   S = Q K^T  and  dP = dO V^T   (Q and dO as A fragments),
 // and loops over the visible 64-key tiles (up to the diagonal with `causal`),
@@ -707,15 +704,11 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ dout, float* __restrict__ dq, int T, int H,
                          float scale, int causal) {
   using namespace fa_mma;
-  static_assert(D <= 128, "D 256 runs flash_bwd_dq_tf32_split_kernel");
+  static_assert(D <= 64, "D 128 runs flash_bwd_dq_tf32_pair_kernel, D 256 the split kernel");
   constexpr int TW = ROWS * (D + 4);
   constexpr int KC = D / 8;  // k-chunks of the score products
   constexpr int NT = D / 8;  // n-tiles of dQ
-  // 8-key n-tiles a chunk, in pairs; D 128 takes 16 keys a chunk
-  constexpr int NK = D <= 64 ? 4 : 2;
-  // unrolled as in dK/dV: D 128's 64 accumulators live in the stack frame
-  constexpr int UNROLL = D <= 64 ? KC : 4;
-  constexpr int UNROLL_OUT = D == 128 ? 4 : NT;
+  constexpr int NK = 4;      // 8-key n-tiles a chunk, in pairs
 
   extern __shared__ float4 smem_dq_tf32[];
   float* Qs = reinterpret_cast<float*>(smem_dq_tf32);
@@ -779,7 +772,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll(UNROLL)
+#pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
         uint32_t qb[4], qs[4], ob[4], os[4];
         load_a_split<D>(qb, qs, Qs, warp * 16, kc, lane);
@@ -819,7 +812,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int n = 0; n < NK; ++n) {
         uint32_t sb[4], ss[4];
         acc_as_a(dp[n], sb, ss);
-#pragma unroll(UNROLL_OUT)
+#pragma unroll
         for (int j = 0; j < NT; ++j) {
           uint32_t kb[2], ks[2];
           load_bt<D>(kb, Kbig, c0 + 8 * n, j, g, t4);
@@ -857,8 +850,8 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
 // group adds its partner's in a fixed order (columns 0..127 first, then
 // 128..255), so that every warp of the group holds the whole tile, bit for
 // bit the same.  The score tiles' accumulators are then the A operands of
-// the gradient products through the permuted contraction index, as up to
-// D 128.  Every operand word is kept unsplit in shared memory and split as
+// the gradient products through the permuted contraction index, as at D 64
+// and 128.  Every operand word is kept unsplit in shared memory and split as
 // it is loaded, which leaves the room for two stages of streamed tiles: the
 // next tile's cp.async runs under this tile's products.  `tests/
 // test_torch_flash_tf32.py` emulates this walk (`D256_WALK`): the split sums
@@ -1213,6 +1206,429 @@ flash_bwd_dq_tf32_split_kernel(const float* __restrict__ q, const float* __restr
     const int t = i == 0 ? row0 : row1;
     if (t < T) {
       float* dst = dq + base + (long)t * ld + (D / 2) * hf + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 kernels at D 128: each score tile formed once, one launch each.
+// They replace the same upstream kernels as every kernel here,
+// `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`, causal from
+// roar_tpu/models/gpt.py:491-535 at head size 128 (and 80 and 100, padded).
+// A block of 8 warps in 4 row groups of 16 rows; warp w belongs to group
+// w % 4 with role w / 4.  The two warps of a group each form one score tile
+// over the whole of D (16 k-chunks of 8: the D 256 split kernels' walk with
+// `parts` 1) and hand across shared memory what the other needs of it,
+// behind a named barrier of the pair.  Each warp's output is at most 64
+// accumulators a thread, indexed by constants only: no stack frame.  Every
+// operand word is kept unsplit in shared memory and split as it is loaded,
+// as in the split kernels, which leaves the room for two stages of streamed
+// tiles: the next tile's cp.async runs under this tile's products.  Sums as
+// in every fp32 kernel: 3xTF32 per k-chunk, flushed into the thread's fp32
+// sum; the score products over D in k-chunk order, the gradient products
+// over the streamed rows in walk order (from the diagonal for dK/dV, up to
+// it for dQ), so two runs give the same bits, the 4-warp kernels' bits
+// before them.  `tests/test_torch_flash_tf32.py` emulates this walk
+// (`D128_WALK`).
+//
+// What bounds them on the H100: at (1, 4096, 32, 128) causal their own
+// products, 1.667 ms (dK/dV, four) and 1.251 (dQ, three) over the 3xTF32
+// rate.  The 4-warp kernels they replace took 15.9 and 11.2 ms (10.5 and
+// 11.1 %): 128 (dK/dV) and 64 (dQ) accumulators a thread indexed at run time
+// in the stack frame, the streamed tiles' split halves filling 203 KB (one
+// stage, 4 warps a SM).  These take 6.74 to 6.93 and 5.37 to 5.45 ms (24 to
+// 25 and 23 %; NVIDIA H100 80GB HBM3, 700.00 W,
+// `scripts/flash_kernel_times_torch.py` in turns with them).  What is left:
+// mma.sync rather than wgmma, the integer splits of every loaded word (each
+// streamed tile split alike by the 4 row groups) and the flush adds beside
+// the tensor cores, and one block of 8 warps a SM.
+// ---------------------------------------------------------------------------
+
+constexpr int PAIR_THREADS = 256;  // 8 warps: 4 row groups x 2 roles
+constexpr int PAIR_DQ_KEYS = 32;   // dQ: keys of a streamed tile
+
+template <int D>
+constexpr size_t dkv_pair_smem_bytes() {
+  // K, V; Q and dO x 2 stages (64 rows each); P^T of the 4 key groups (16 x
+  // 64 each); lse and delta rows x 2 stages; dS^T of a half tile of the 4 key
+  // groups (16 x 32 each): 228,352 B at D 128
+  return sizeof(float) * (6 * fa_mma::ROWS * (D + 4) + 4 * 16 * fa_mma::ROWS +
+                          4 * fa_mma::ROWS + 4 * 16 * 32);
+}
+
+// dK/dV at D 128.  One block per 64-key tile; group kg owns keys 16 kg ..
+// 16 kg + 15.  Per 64-query tile (from the diagonal with `causal`), its two
+// halves of 32 queries in turn:
+//   dV warp: S^T = K Q^T, P^T = exp(S^T * scale - lse) (0 where masked),
+//            P^T handed over;                          dV += P^T dO
+//   dK warp: dP^T = V dO^T, takes P^T,
+//            dS^T = P^T o (dP^T - delta) * scale;      dK += dS^T Q
+// Q, dO and their lse and delta rows are staged by cp.async in two stages.
+// A 64-query score tile (32 registers) or the gradient product's loop over
+// its n-tiles unrolled made ptxas spill (255 registers; 36 to 76 bytes), so
+// a half is one score tile of 16 registers, and the gradient product reads
+// its A operand back from shared memory an n-tile at a time (250 registers
+// with the score product's k-chunks unrolled 4 times, 208 with 2).
+template <int D>
+__global__ void __launch_bounds__(PAIR_THREADS, 1)
+flash_bwd_dkv_tf32_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const int* __restrict__ seg,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               const float* __restrict__ dout, float* __restrict__ dk,
+                               float* __restrict__ dv, int T, int H, float scale, int causal) {
+  using namespace fa_mma;
+  static_assert(D == 128, "the pair form is built for D 128");
+  constexpr int TW = ROWS * (D + 4);  // words of a tile
+  constexpr int KC = D / 8;           // k-chunks of a score product
+  constexpr int NQ = 4;               // query n-tiles of a half tile's score tile
+  constexpr int NT = D / 8;           // n-tiles of a warp's output rows
+
+  extern __shared__ float4 smem_dkv_pair[];
+  float* Ks = reinterpret_cast<float*>(smem_dkv_pair);
+  float* Vs = Ks + TW;
+  float* Qs = Vs + TW;                      // [2 stages][ROWS][D + 4]
+  float* Os = Qs + 2 * TW;                  // dO, [2 stages][ROWS][D + 4]
+  float* Ps = Os + 2 * TW;                  // P^T, [4 key groups][2 halves][4 NQ][32 lanes]
+  float* lse_s = Ps + 4 * 2 * 4 * NQ * 32;  // [2 stages][ROWS]
+  float* delta_s = lse_s + 2 * ROWS;        // [2 stages][ROWS]
+  float* Ds = delta_s + 2 * ROWS;           // dS^T of a half, [4 key groups][4 NQ][32 lanes]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kg = warp & 3;
+  const bool is_dk = warp >= 4;
+  const int k0 = blockIdx.x * ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+  const long row_base = ((long)b * H + h) * T;
+
+  int klo, khi;
+  segment_range(segb, k0, T, lane, klo, khi);
+
+  stage_tile_f32<D, ROWS, PAIR_THREADS>(Ks, k, base, ld, k0, T, tid);
+  stage_tile_f32<D, ROWS, PAIR_THREADS>(Vs, v, base, ld, k0, T, tid);
+  // causal: the query tiles before this key tile's own row see none of its keys
+  bool uniform, uniform_next;
+  int q0 = next_tile(segb, causal ? k0 : 0, T, T, klo, khi, lane, uniform);
+  if (q0 < T) {
+    stage_tile_f32<D, ROWS, PAIR_THREADS>(Qs, q, base, ld, q0, T, tid);
+    stage_tile_f32<D, ROWS, PAIR_THREADS>(Os, dout, base, ld, q0, T, tid);
+    stage_rows(lse_s, lse + row_base, q0, T, tid);
+    stage_rows(delta_s, delta + row_base, q0, T, tid);
+  }
+  cp_async_commit();
+
+  // this thread's two keys, rows g and g + 8 of its group's 16
+  const int key0 = k0 + 16 * kg + g, key1 = key0 + 8;
+  const int seg0 = key0 < T ? segb[key0] : -1, seg1 = key1 < T ? segb[key1] : -1;
+  // the operand of this warp's score tile that the block keeps: K or V
+  const float* a_tile = is_dk ? Vs : Ks;
+  float* pt_s = Ps + kg * 2 * 4 * NQ * 32;
+  float* ds_s = Ds + kg * 4 * NQ * 32;  // the dK warp's own
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int stage = 0;
+  while (q0 < T) {
+    const int qn = next_tile(segb, q0 + ROWS, T, T, klo, khi, lane, uniform_next);
+    if (qn < T) {
+      const int nx = stage ^ 1;
+      stage_tile_f32<D, ROWS, PAIR_THREADS>(Qs + nx * TW, q, base, ld, qn, T, tid);
+      stage_tile_f32<D, ROWS, PAIR_THREADS>(Os + nx * TW, dout, base, ld, qn, T, tid);
+      stage_rows(lse_s + nx * ROWS, lse + row_base, qn, T, tid);
+      stage_rows(delta_s + nx * ROWS, delta + row_base, qn, T, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Qt = Qs + stage * TW;
+    const float* Ot = Os + stage * TW;
+    const float* lse_t = lse_s + stage * ROWS;
+    const float* delta_t = delta_s + stage * ROWS;
+    // the ragged edge, the diagonal tile and a tile whose ids are not all the
+    // key tile's single id are masked element by element
+    const bool masked = !uniform || q0 + ROWS > T || (causal && q0 < k0 + ROWS);
+
+    // two halves of 32 queries in turn, each with its own named barrier of
+    // the pair (1 + kg, then 5 + kg), so that a score tile is 16 registers
+    const float* b_tile = is_dk ? Ot : Qt;
+    const float* g_tile = is_dk ? Qt : Ot;
+#pragma unroll 1
+    for (int hq = 0; hq < 2; ++hq) {
+      const int c0 = 32 * hq;  // queries c0 .. c0 + 31 of the tile
+      // S^T (dV warps) or dP^T (dK warps): element (n, e) at key row e < 2 ?
+      // g : g + 8, query c0 + 8 n + 2 t4 + (e & 1)
+      float sc[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll 4
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t ab[4], as[4];
+        load_a_split<D>(ab, as, a_tile, 16 * kg, kc, lane);
+#pragma unroll
+        for (int n = 0; n < NQ; n += 2) {
+          uint32_t bb[4], bs[4];
+          load_b2_split<D>(bb, bs, b_tile, c0 + 8 * n, kc, lane);
+          mma_3xtf32(sc[n], ab, as, bb[0], bb[1], bs[0], bs[1]);
+          mma_3xtf32(sc[n + 1], ab, as, bb[2], bb[3], bs[2], bs[3]);
+        }
+      }
+      float* pt_h = pt_s + hq * 4 * NQ * 32;
+      if (!is_dk) {
+        // P^T, kept and handed to the group's dK warp
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = c0 + 8 * n + 2 * t4 + (e & 1);
+            float p = expf(sc[n][e] * scale - lse_t[qc]);
+            if (masked) {
+              const int query = q0 + qc;
+              const int key = e < 2 ? key0 : key1;
+              const bool ok = query < T && segb[query] == (e < 2 ? seg0 : seg1) &&
+                              (!causal || key <= query);
+              p = ok ? p : 0.f;
+            }
+            pt_h[(4 * n + e) * 32 + lane] = p;
+          }
+        }
+        group_arrive(1 + kg + 4 * hq, 64);
+      } else {
+        group_sync(1 + kg + 4 * hq, 64);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = c0 + 8 * n + 2 * t4 + (e & 1);
+            const float p = pt_h[(4 * n + e) * 32 + lane];
+            ds_s[(4 * n + e) * 32 + lane] = p * (sc[n][e] - delta_t[qc]) * scale;  // dS^T
+          }
+        }
+      }
+      // n-tile n of P^T (dV warps) or dS^T (dK warps) is the A operand of the
+      // k-chunk over its 8 queries: dV += P^T dO or dK += dS^T Q.  Each lane
+      // reads its own values back from shared memory, an n-tile at a time, so
+      // that the loop over n-tiles stays rolled
+      const float* a_h = is_dk ? ds_s : pt_h;
+#pragma unroll 1
+      for (int n = 0; n < NQ; ++n) {
+        const float a[4] = {a_h[(4 * n) * 32 + lane], a_h[(4 * n + 1) * 32 + lane],
+                            a_h[(4 * n + 2) * 32 + lane], a_h[(4 * n + 3) * 32 + lane]};
+        uint32_t pb[4], ps[4];
+        acc_as_a(a, pb, ps);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t bb[2], bs[2];
+          load_bt_split<D>(bb, bs, g_tile, c0 + 8 * n, j, g, t4);
+          mma_3xtf32(acc[j], pb, ps, bb[0], bb[1], bs[0], bs[1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage and with P^T
+    q0 = qn;
+    uniform = uniform_next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();  // K and V of a block that saw no query tile
+
+  // element (j, e): key row e < 2 ? g : g + 8, head-dim column 8 j + 2 t4 + (e & 1)
+  float* out = is_dk ? dk : dv;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = i == 0 ? key0 : key1;
+    if (t < T) {
+      float* dst = out + base + (long)t * ld + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_pair_smem_bytes() {
+  // Q, dO (64 queries); K and V x 2 stages (32 keys); the P and dP tiles of
+  // the 4 query groups (16 x 32 each): 151,552 B at D 128
+  return sizeof(float) *
+         ((2 * fa_mma::ROWS + 4 * PAIR_DQ_KEYS) * (D + 4) + 4 * 2 * 16 * PAIR_DQ_KEYS);
+}
+
+// dQ at D 128.  One block per (64-query tile, head, batch row); group qg
+// owns queries 16 qg .. 16 qg + 15.  Per 32-key tile (up to the diagonal
+// with `causal`):
+//   role 0: S = Q K^T, P = exp(S * scale - lse) (0 where masked);
+//   role 1: dP = dO V^T
+//   P and dP swapped; both: dS = P o (dP - delta) * scale, the same bits
+//   role r: dQ[:, 64 r .. 64 r + 63] += dS K[:, 64 r ..]
+// K and V are staged by cp.async in two stages.
+template <int D>
+__global__ void __launch_bounds__(PAIR_THREADS, 1)
+flash_bwd_dq_tf32_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const int* __restrict__ seg,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              const float* __restrict__ dout, float* __restrict__ dq, int T,
+                              int H, float scale, int causal) {
+  using namespace fa_mma;
+  static_assert(D == 128, "the pair form is built for D 128");
+  constexpr int R = PAIR_DQ_KEYS;     // keys of a streamed tile
+  constexpr int QW = ROWS * (D + 4);  // words of the Q or dO tile
+  constexpr int KW = R * (D + 4);     // words of a K or V tile
+  constexpr int KC = D / 8;           // k-chunks of a score product
+  constexpr int NK = R / 8;           // key n-tiles of a score tile
+  constexpr int NT = D / 16;          // n-tiles of a warp's 64 columns of dQ
+  constexpr int XW = 4 * NK * 32;     // words of one warp's score tile
+
+  extern __shared__ float4 smem_dq_pair[];
+  float* Qs = reinterpret_cast<float*>(smem_dq_pair);
+  float* Os = Qs + QW;      // dO
+  float* Ks = Os + QW;      // [2 stages][R][D + 4]
+  float* Vs = Ks + 2 * KW;  // [2 stages][R][D + 4]
+  float* Xs = Vs + 2 * KW;  // [4 query groups][2 roles][4 NK values][32 lanes]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qg = warp & 3, role = warp >> 2;
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long ld = (long)H * D;
+  const long base = (long)b * T * ld + (long)h * D;
+  const int* segb = seg + (long)b * T;
+  const long row_base = ((long)b * H + h) * T;
+
+  int qlo, qhi;
+  segment_range(segb, q0, T, lane, qlo, qhi);
+  // causal: the tiles past the query tile's last row hold no visible key
+  const int k_end = causal ? min(T, q0 + ROWS) : T;
+
+  stage_tile_f32<D, ROWS, PAIR_THREADS>(Qs, q, base, ld, q0, T, tid);
+  stage_tile_f32<D, ROWS, PAIR_THREADS>(Os, dout, base, ld, q0, T, tid);
+  bool uniform, uniform_next;
+  int k0 = next_tile<R>(segb, 0, k_end, T, qlo, qhi, lane, uniform);
+  if (k0 < k_end) {  // always: every in-range query sees its own key
+    stage_tile_f32<D, R, PAIR_THREADS>(Ks, k, base, ld, k0, T, tid);
+    stage_tile_f32<D, R, PAIR_THREADS>(Vs, v, base, ld, k0, T, tid);
+  }
+  cp_async_commit();
+
+  // this thread's two queries, rows g and g + 8 of its group's 16; rows past T
+  // are never stored
+  const int row0 = q0 + 16 * qg + g, row1 = row0 + 8;
+  const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+  const float row_lse[2] = {row0 < T ? lse[row_base + row0] : 0.f,
+                            row1 < T ? lse[row_base + row1] : 0.f};
+  const float row_delta[2] = {row0 < T ? delta[row_base + row0] : 0.f,
+                              row1 < T ? delta[row_base + row1] : 0.f};
+  // the operand of this warp's score tile that the block keeps: Q or dO
+  const float* a_tile = role ? Os : Qs;
+  float* mine = Xs + (2 * qg + role) * XW;
+  const float* theirs = Xs + (2 * qg + (role ^ 1)) * XW;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int stage = 0;
+  while (k0 < k_end) {
+    const int kn = next_tile<R>(segb, k0 + R, k_end, T, qlo, qhi, lane, uniform_next);
+    if (kn < k_end) {
+      stage_tile_f32<D, R, PAIR_THREADS>(Ks + (stage ^ 1) * KW, k, base, ld, kn, T, tid);
+      stage_tile_f32<D, R, PAIR_THREADS>(Vs + (stage ^ 1) * KW, v, base, ld, kn, T, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = Ks + stage * KW;
+    const float* Vt = Vs + stage * KW;
+    // the ragged edge, the tiles on the diagonal and a tile whose ids are not
+    // all the query tile's single id are masked element by element
+    const bool masked = !uniform || k0 + R > T || (causal && k0 + R > q0);
+
+    // S (role 0) or dP (role 1): element (n, e) at query row e < 2 ? g :
+    // g + 8, key 8 n + 2 t4 + (e & 1)
+    float sc[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    const float* b_tile = role ? Vt : Kt;
+#pragma unroll 4
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t ab[4], as[4];
+      load_a_split<D>(ab, as, a_tile, 16 * qg, kc, lane);
+#pragma unroll
+      for (int n = 0; n < NK; n += 2) {
+        uint32_t bb[4], bs[4];
+        load_b2_split<D>(bb, bs, b_tile, 8 * n, kc, lane);
+        mma_3xtf32(sc[n], ab, as, bb[0], bb[1], bs[0], bs[1]);
+        mma_3xtf32(sc[n + 1], ab, as, bb[2], bb[3], bs[2], bs[3]);
+      }
+    }
+    if (role == 0) {  // P
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = expf(sc[n][e] * scale - row_lse[r]);
+          if (masked) {
+            const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+            const int row = r == 0 ? row0 : row1;
+            const bool ok = key < T && segb[key] == (r == 0 ? seg0 : seg1) &&
+                            (!causal || key <= row);
+            p = ok ? p : 0.f;
+          }
+          sc[n][e] = p;
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32 + lane] = sc[n][e];
+    group_sync(1 + qg, 64);
+
+    // dS from P and dP, the same bits in both warps of the group
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float other = theirs[(4 * n + e) * 32 + lane];
+        const float p = role ? other : sc[n][e];
+        const float dp = role ? sc[n][e] : other;
+        sc[n][e] = p * (dp - row_delta[e >> 1]) * scale;
+      }
+    }
+    // n-tile n of dS is the A operand of the k-chunk over its 8 keys
+    const float* g_tile = Kt + (D / 2) * role;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      uint32_t sb[4], ss[4];
+      acc_as_a(sc[n], sb, ss);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t kb[2], ks[2];
+        load_bt_split<D>(kb, ks, g_tile, 8 * n, j, g, t4);
+        mma_3xtf32(acc[j], sb, ss, kb[0], kb[1], ks[0], ks[1]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage and the score tiles
+    k0 = kn;
+    uniform = uniform_next;
+    stage ^= 1;
+  }
+
+  // element (j, e): query row e < 2 ? g : g + 8, head-dim column
+  // 64 role + 8 j + 2 t4 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = i == 0 ? row0 : row1;
+    if (t < T) {
+      float* dst = dq + base + (long)t * ld + (D / 2) * role + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
@@ -2207,11 +2623,23 @@ cudaError_t launch_wgmma(Kernel kernel, size_t smem, const Inputs& in, int rows,
   return cudaGetLastError();
 }
 
+// fp32 (3xTF32): one block of `threads` per (`rows`-row tile, head, batch row)
+template <typename Kernel, typename... Out>
+cudaError_t launch_f32(Kernel kernel, size_t smem, const Inputs& in, int rows, int threads,
+                       Out*... out) {
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_of(in, rows), threads, smem, in.stream>>>(
+      in_ptr<float>(in.q), in_ptr<float>(in.k), in_ptr<float>(in.v), in.seg, in.lse, in.delta,
+      in_ptr<float>(in.dout), static_cast<float*>(out)..., in.T, in.H, in.scale, in.causal);
+  return cudaGetLastError();
+}
+
 // One launch a call.  `Elem` is float (the 3xTF32 kernels) or bf16.  bf16: the
 // mma.sync kernel up to D 64, the wgmma kernel at D 128 (a block per 128-key
 // tile, 64-query tiles streamed) and 256 (per 64-key tile); fp32: one block
-// of 4 warps per 64-key tile up to D 128, the split kernel (8 warps per
-// 32-key tile) at D 256
+// of 4 warps per 64-key tile up to D 64, the pair kernel (8 warps per 64-key
+// tile) at D 128, the split kernel (8 warps per 32-key tile) at D 256
 template <int D, typename Elem>
 cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
   if constexpr (sizeof(Elem) == 2 && D == 128) {
@@ -2230,28 +2658,23 @@ cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv) {
         in_ptr<bf16>(in.dout), static_cast<bf16*>(dk), static_cast<bf16*>(dv), in.T, in.H,
         in.scale, in.causal);
     return cudaGetLastError();
+  } else if constexpr (D <= 64) {
+    return launch_f32(flash_bwd_dkv_tf32_kernel<D>, dkv_tf32_smem_bytes<D>(), in, fa_mma::ROWS,
+                      fa_mma::THREADS, dk, dv);
+  } else if constexpr (D == 128) {
+    return launch_f32(flash_bwd_dkv_tf32_pair_kernel<D>, dkv_pair_smem_bytes<D>(), in,
+                      fa_mma::ROWS, PAIR_THREADS, dk, dv);
   } else {
-    constexpr bool split = D > 128;
-    constexpr size_t smem = split ? dkv_split_smem_bytes<D>() : dkv_tf32_smem_bytes<D>();
-    const auto kernel = [] {
-      if constexpr (split) return flash_bwd_dkv_tf32_split_kernel<D>;
-      else return flash_bwd_dkv_tf32_kernel<D>;
-    }();
-    const cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid_of(in, split ? SPLIT_KEYS : fa_mma::ROWS),
-             split ? SPLIT_THREADS : fa_mma::THREADS, smem, in.stream>>>(
-        in_ptr<float>(in.q), in_ptr<float>(in.k), in_ptr<float>(in.v), in.seg, in.lse, in.delta,
-        in_ptr<float>(in.dout), static_cast<float*>(dk), static_cast<float*>(dv), in.T, in.H,
-        in.scale, in.causal);
-    return cudaGetLastError();
+    return launch_f32(flash_bwd_dkv_tf32_split_kernel<D>, dkv_split_smem_bytes<D>(), in,
+                      SPLIT_KEYS, SPLIT_THREADS, dk, dv);
   }
 }
 
 // One launch a call.  bf16: the mma.sync kernel up to D 64 (per 64-query
 // tile), the wgmma kernel at D 128 (per 128-query tile, 64-key tiles
 // streamed) and 256 (per 64-query tile); fp32: 4 warps per 64-query tile up
-// to D 128, the split kernel (8 warps) at D 256
+// to D 64, the pair kernel (8 warps, 32-key tiles streamed) at D 128, the
+// split kernel (8 warps) at D 256
 template <int D, typename Elem>
 cudaError_t launch_dq(const Inputs& in, void* dq) {
   if constexpr (sizeof(Elem) == 2 && D == 128) {
@@ -2269,19 +2692,15 @@ cudaError_t launch_dq(const Inputs& in, void* dq) {
         in_ptr<bf16>(in.q), in_ptr<bf16>(in.k), in_ptr<bf16>(in.v), in.seg, in.lse, in.delta,
         in_ptr<bf16>(in.dout), static_cast<bf16*>(dq), in.T, in.H, in.scale, in.causal);
     return cudaGetLastError();
+  } else if constexpr (D <= 64) {
+    return launch_f32(flash_bwd_dq_tf32_kernel<D>, dq_tf32_smem_bytes<D>(), in, fa_mma::ROWS,
+                      fa_mma::THREADS, dq);
+  } else if constexpr (D == 128) {
+    return launch_f32(flash_bwd_dq_tf32_pair_kernel<D>, dq_pair_smem_bytes<D>(), in,
+                      fa_mma::ROWS, PAIR_THREADS, dq);
   } else {
-    constexpr bool split = D > 128;
-    constexpr size_t smem = split ? dq_split_smem_bytes<D>() : dq_tf32_smem_bytes<D>();
-    const auto kernel = [] {
-      if constexpr (split) return flash_bwd_dq_tf32_split_kernel<D>;
-      else return flash_bwd_dq_tf32_kernel<D>;
-    }();
-    const cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid_of(in), split ? SPLIT_THREADS : fa_mma::THREADS, smem, in.stream>>>(
-        in_ptr<float>(in.q), in_ptr<float>(in.k), in_ptr<float>(in.v), in.seg, in.lse, in.delta,
-        in_ptr<float>(in.dout), static_cast<float*>(dq), in.T, in.H, in.scale, in.causal);
-    return cudaGetLastError();
+    return launch_f32(flash_bwd_dq_tf32_split_kernel<D>, dq_split_smem_bytes<D>(), in,
+                      fa_mma::ROWS, SPLIT_THREADS, dq);
   }
 }
 

@@ -39,6 +39,15 @@ At D 256 the backward runs its split kernels: two warps form the halves of
 each score tile along D (columns 0..127 and 128..255), each half summed in
 the order above, and add them in fp32; `D256_WALK` and `split_product`
 emulate that walk, which holds the same bar while plain TF32 in it fails.
+At D 128 it runs its pair kernels: each score tile formed once over the
+whole of D by one warp (`parts` 1), dK/dV over 64-key blocks and 64-query
+tiles, 128 output columns a warp, dQ over 32-key tiles, 64 output columns
+a warp (`D128_WALK`); the same bar holds there and plain TF32 fails it.
+D 128's scale 2^-3.5 is no power of two, so q * scale is not exact in fp32
+and upstream's `mha_reference_bwd`, which takes scale 1 only, could not be
+handed the same function: every D 128 case hands all sides (the emulated
+kernels, the port's plain version and upstream's reference) the same
+pre-scaled q, fp32(q * 2^-3.5), with scale 1 (`_case`).
 
 The forward (`csrc/flash_attention_fwd.cu`) forms S = q.k^T the same way and,
 per 32-key tile, the online softmax (running maximum, p = 2^((s - m) log2 e),
@@ -73,17 +82,25 @@ RTOL = 1e-3      # chip_smoke.FLASH_BWD_RTOL
 # (B, T, H, D, valid lengths or None, causal): the GPT path's kind, and
 # FastPitch's kind with a ragged T, a short row and a single valid key; the
 # same two at D 256, where the forward and the backward run their split
-# kernels
+# kernels, and at D 128, where the backward runs its pair kernels
 CASES = {"causal": (1, 512, 2, 64, None, True),
          "ragged_segments": (3, 200, 1, 64, [200, 117, 1], False),
          "causal_d256": (1, 96, 1, 256, None, True),
-         "ragged_segments_d256": (3, 80, 1, 256, [80, 33, 1], False)}
+         "ragged_segments_d256": (3, 80, 1, 256, [80, 33, 1], False),
+         "causal_d128": (1, 160, 1, 128, None, True),
+         "ragged_segments_d128": (3, 100, 1, 128, [100, 41, 1], False)}
 D256_NAMES = ["causal_d256", "ragged_segments_d256"]
+D128_NAMES = ["causal_d128", "ragged_segments_d128"]
 # the backward kernels' walk at D 256 (`flash_bwd_{dkv,dq}_tf32_split_kernel`):
 # dK/dV blocks of 32 keys over 32-query tiles, dQ's 16-key tiles, each warp
 # over 128 of the 256 output columns, and the score products S and dP split
 # along their contraction into two halves of 128 that two warps form and add
 D256_WALK = dict(key_block=32, dkv_rows=32, dq_rows=16, cols=128, parts=2)
+# the backward kernels' walk at D 128 (`flash_bwd_{dkv,dq}_tf32_pair_kernel`):
+# dK/dV blocks of 64 keys over 64-query tiles, each warp over all 128
+# columns of dV or dK; dQ's 32-key tiles, each warp over 64 of dQ's columns;
+# each score tile formed whole by one warp
+D128_WALK = dict(key_block=64, dkv_rows=64, dq_rows=32, cols=128, dq_cols=64, parts=1)
 
 
 def tf32_rna(v: np.ndarray) -> np.ndarray:
@@ -180,19 +197,21 @@ def split_product(a: np.ndarray, b: np.ndarray, parts: int, **order) -> np.ndarr
 
 
 def emulate_bwd_walk(q, k, v, do, lse, delta, seg, scale, causal, key_block=64, dkv_rows=64,
-                     dq_rows=64, cols=None, parts=1, **order):
+                     dq_rows=64, cols=None, dq_cols=None, parts=1, **order):
     """(dq, dk, dv) [B, T, H, D] as the two kernels walk them, each product
     in `product`'s order.  dK/dV: per block of `key_block` keys, S^T = K Q^T
     and dP^T = V dO^T (K and V the A operands), the query tiles of
     `dkv_rows` rows in turn (from the block's first key with `causal`), dV +=
     P^T dO and dK += dS^T Q over `cols` columns at a time.  dQ: per 64-query
     tile, S = Q K^T and dP = dO V^T, the key tiles of `dq_rows` rows up to
-    the diagonal, dQ += dS K over `cols` columns at a time.  The score
+    the diagonal, dQ += dS K over `dq_cols` (default `cols`) columns at a
+    time.  The score
     products are summed in `parts` parts along D (`split_product`).  A tile
     the kernels skip for its segment ids is walked here: its p is 0, which
     adds nothing."""
     b, t, h, d = q.shape
     cols = d if cols is None else cols
+    dq_cols = cols if dq_cols is None else dq_cols
     bq, bk, bv, bo = (np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v, do))
     f32 = np.float32
     dq, dk, dv = (np.zeros((b, h, t, d), f32) for _ in range(3))
@@ -217,10 +236,12 @@ def emulate_bwd_walk(q, k, v, do, lse, delta, seg, scale, causal, key_block=64, 
                 acc_dk = product(ds, qt[..., out], init=acc_dk, **order)
             dv[..., keys, out] = acc_dv
             dk[..., keys, out] = acc_dk
+    for col0 in range(0, d, dq_cols):
+        out = slice(col0, col0 + dq_cols)
         for q0 in range(0, t, 64):
             qs = np.arange(q0, min(q0 + 64, t))
             qt, ot = bq[..., qs, :], bo[..., qs, :]
-            acc = np.zeros((b, h, len(qs), cols), f32)
+            acc = np.zeros((b, h, len(qs), dq_cols), f32)
             for k0 in range(0, min(t, q0 + 64) if causal else t, dq_rows):
                 keys = np.arange(k0, min(k0 + dq_rows, t))
                 kt, vt = bk[..., keys, :], bv[..., keys, :]
@@ -243,6 +264,9 @@ def _case(name: str):
     q, k, v, do = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(4))
     mask = np.ones((b, t), bool) if lens is None else np.arange(t)[None] < np.array(lens)[:, None]
     scale = 1.0 / np.sqrt(d)
+    if not np.log2(scale).is_integer():
+        # D 128's 2^-3.5: every side takes the same pre-scaled q with scale 1
+        q, scale = (q * np.float32(scale)).astype(np.float32), 1.0
     tq, tk, tv, tdo = (torch.from_numpy(z) for z in (q, k, v, do))
     tmask = torch.from_numpy(mask)
     o, lse = fa.flash_self_attention_plain(tq, tk, tv, tmask, scale, True, causal)
@@ -255,10 +279,12 @@ def _case(name: str):
 
 @functools.lru_cache(maxsize=None)
 def _emulated(name: str, three_terms: bool = True, flushed: bool = True):
-    """The kernels' backward: at D 256 in their walk (`D256_WALK`)."""
+    """The kernels' backward: at D 256 and 128 in their walks (`D256_WALK`,
+    `D128_WALK`)."""
     inputs, _, _ = _case(name)
-    if name in D256_NAMES:
-        return emulate_bwd_walk(**inputs, **D256_WALK, three_terms=three_terms, flushed=flushed)
+    walk = D256_WALK if name in D256_NAMES else D128_WALK if name in D128_NAMES else None
+    if walk is not None:
+        return emulate_bwd_walk(**inputs, **walk, three_terms=three_terms, flushed=flushed)
     return emulate_bwd(**inputs, three_terms=three_terms, flushed=flushed)
 
 
@@ -270,15 +296,15 @@ def _within_bar(got: np.ndarray, want: np.ndarray) -> bool:
 def _upstream_reference(name: str):
     """(dq, dk, dv) of upstream's `mha_reference_bwd` in fp32 with
     SegmentIds (and `causal`).  It takes sm_scale 1 only, so it is handed
-    q * scale (exact: scale is 2^-3 at D 64, 2^-4 at D 256) and its dq is
-    scaled back."""
+    q * scale (exact: scale is 2^-3 at D 64, 2^-4 at D 256, and 1 at D 128,
+    whose q comes pre-scaled from `_case`) and its dq is scaled back."""
     import jax.numpy as jnp
     from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, mha_reference_bwd
 
     inputs, o, _ = _case(name)
     q, k, v, do, seg = (inputs[n] for n in ("q", "k", "v", "do", "seg"))
     scale, causal, t = inputs["scale"], inputs["causal"], q.shape[1]
-    assert scale in (2.0 ** -3, 2.0 ** -4)
+    assert scale in (1.0, 2.0 ** -3, 2.0 ** -4)
     qs = q * np.float32(scale)
     scores = np.einsum("bqhd,bkhd->bhqk", qs.astype(np.float64), k.astype(np.float64))
     visible = seg[:, None, :, None] == seg[:, None, None, :]
@@ -364,6 +390,24 @@ def test_d256_walk_keeps_the_order_of_the_sums(name):
         np.testing.assert_array_equal(got, want, err_msg=grad)
         assert _within_bar(got, flat), grad
     assert any(not np.array_equal(a, u) for a, u in zip(walked, unsplit))
+
+
+@pytest.mark.parametrize("name", D128_NAMES)
+def test_d128_walk_keeps_the_order_of_the_sums(name):
+    """At D 128 the pair kernels form each score tile whole (`parts` 1) and
+    walk 64-key blocks over 64-query tiles (dK/dV, 128 output columns a
+    warp) and 32-key tiles (dQ, 64 columns a warp): the same sums in the same
+    order as 64-row tiles and whole rows give, bit for bit, and within the
+    fp32 bar of the matrix-level emulation (whose score products take the
+    operands the other way round).  `test_kernel_order_holds_the_fp32_bar`
+    holds the walk to the plain version and upstream's reference, and plain
+    TF32 in the same walk fails there."""
+    inputs, _, _ = _case(name)
+    walked = _emulated(name)
+    whole = emulate_bwd_walk(**inputs)
+    for grad, got, want, flat in zip(("dq", "dk", "dv"), walked, whole, emulate_bwd(**inputs)):
+        np.testing.assert_array_equal(got, want, err_msg=grad)
+        assert _within_bar(got, flat), grad
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -219,8 +219,8 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     tail32 = "EEvPKfS2_S2_PKiS2_S2_S2_PfS5_iifii"
     assert cs._flash_instance(f"{bwd}31flash_bwd_dkv_tf32_split_kernelILi256{tail32}") == \
         ("flash_bwd_dkv_tf32_split_kernel", "float32", 256)
-    assert cs._flash_instance(f"{bwd}25flash_bwd_dkv_tf32_kernelILi128{tail32}") == \
-        ("flash_bwd_dkv_tf32_kernel", "float32", 128)
+    assert cs._flash_instance(f"{bwd}25flash_bwd_dkv_tf32_kernelILi64{tail32}") == \
+        ("flash_bwd_dkv_tf32_kernel", "float32", 64)
     assert cs._flash_instance(f"{bwd}30flash_bwd_dq_tf32_split_kernelILi256"
                               "EEvPKfS2_S2_PKiS2_S2_S2_Pfiifi") == \
         ("flash_bwd_dq_tf32_split_kernel", "float32", 256)
@@ -239,7 +239,24 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_split_kernel", "float32", 256) == \
         4 * (260 * 6 * 32 + 4096) == 216064
     assert cs.flash_dynamic_smem("flash_bwd_dq_tf32_split_kernel", "float32", 256) == 216064
-    assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_kernel", "float32", 128) == 203264
+    # the fp32 backward at D 128 runs the pair kernels (the 4-warp kernels are
+    # built up to D 64): K, V; Q and dO x 2 stages of 64 rows; P^T of the 4 key
+    # groups (4096 words); each stage's lse and delta rows; the dK warps' dS^T
+    # of a half tile (2048 words).  dQ: Q, dO; K and V x 2 stages of 32 keys;
+    # P and dP of the 4 query groups (4096 words)
+    assert sorted(i for i in cs.flash_instances() if i[1:] == ("float32", 128)) == [
+        ("flash_bwd_dkv_tf32_pair_kernel", "float32", 128),
+        ("flash_bwd_dq_tf32_pair_kernel", "float32", 128),
+        ("flash_fwd_tf32_kernel", "float32", 128)]
+    assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dkv_tf32_kernel") == \
+        sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dq_tf32_kernel") == \
+        [32, 64]
+    assert cs.flash_dynamic_smem("flash_bwd_dkv_tf32_pair_kernel", "float32", 128) == \
+        4 * (132 * 6 * 64 + 4096 + 4 * 64 + 2048) == 228352
+    assert cs.flash_dynamic_smem("flash_bwd_dq_tf32_pair_kernel", "float32", 128) == \
+        4 * (132 * (2 * 64 + 4 * 32) + 4096) == 151552
+    assert cs._flash_instance(f"{bwd}30flash_bwd_dkv_tf32_pair_kernelILi128{tail32}") == \
+        ("flash_bwd_dkv_tf32_pair_kernel", "float32", 128)
     # six 64-row bf16 tiles, the exchange (P^T fp32; P fp32 + dS bf16), five
     # barriers, 1 KB to align
     assert cs.flash_dynamic_smem("flash_bwd_dkv_wgmma_kernel", "bfloat16", 256) == \
@@ -252,11 +269,14 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
         2 * 128 * (256 + 256) + 2 * 4 * 64 * 2 + 40 + 1024 == 133160
     assert cs.flash_dynamic_smem("flash_bwd_dq_wgmma_kernel", "bfloat16", 128) == \
         2 * 128 * (256 + 256) + 40 + 1024 == 132136
-    # the kernel a bf16 call launches at D 128, where the profiler checks it
+    # the kernel a call launches at D 128, where the profiler checks it
     assert cs.flash_kernels_of_a_call(128, "bfloat16") == {
         "fwd": "flash_fwd_wgmma_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
         "dq": "flash_bwd_dq_wgmma_kernel"}
-    assert cs.flash_kernels_of_a_call(128, "float32") is None
+    assert cs.flash_kernels_of_a_call(128, "float32") == {
+        "fwd": "flash_fwd_tf32_kernel", "dkv": "flash_bwd_dkv_tf32_pair_kernel",
+        "dq": "flash_bwd_dq_tf32_pair_kernel"}
+    assert cs.flash_kernels_of_a_call(64, "float32") is None
     space = "_ZN60_GLOBAL__N__5c1a7f2e_22_flash_attention_bwd_cu_9e8d7c6b"
     tail = "EEvPK13__nv_bfloat16S2_S2_PKiPKfS6_S2_PS0_S7_iifi"
     assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi64{tail}") == \
@@ -359,7 +379,8 @@ def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):
     """`phase_train_gpt` for pythia-1b and `phase_gpt_head_sizes` at
     rehearsal widths on the CPU: every check but the launch counts and the
     timing (pythia's fp32 check is a micro-batch, kernels against plain, at
-    min(4, its layers) layers; gemma-2b adds an fp32 micro-batch)."""
+    min(4, its layers) layers; phi-2, gemma-2b and llama-2-7b add an fp32
+    micro-batch, whose launch counts, all and padded, come back zero here)."""
     sys.path.insert(0, str(REPO))
     import json
 
@@ -382,8 +403,11 @@ def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):
         {"phi-2": 128, "open_llama_3b": 128, "gemma-2b": 256, "llama-2-7b": 128}
     assert all(row["bf16"]["whole_grad_l2_rel_err"] == 0.0 for row in rows.values())
     assert {name: row["fp32"] is not None for name, row in rows.items()} == \
-        {"phi-2": False, "open_llama_3b": False, "gemma-2b": True, "llama-2-7b": False}
+        {"phi-2": True, "open_llama_3b": False, "gemma-2b": True, "llama-2-7b": True}
+    assert set(cs.GPT_HEAD_SIZE_FP32) == {"phi-2", "gemma-2b", "llama-2-7b"}
     # a rehearsal runs every entry at its own `seq_length`
     assert all(row["batch_shape"] == [1, 48] for row in rows.values())
-    assert rows["gemma-2b"]["fp32"]["whole_grad_l2_rel_err"] == 0.0
-    assert heads["gemma-2b"]["fp32"] == none
+    for name in cs.GPT_HEAD_SIZE_FP32:
+        assert rows[name]["fp32"]["whole_grad_l2_rel_err"] == 0.0
+        assert heads[name]["fp32"] == heads[name]["fp32_padded"] == none
+        assert rows[name]["launches"]["fp32"] == none

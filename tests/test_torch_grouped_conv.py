@@ -249,7 +249,8 @@ def test_ptxas_parser_reads_k3_and_k4_instances():
 
 @pytest.mark.parametrize("fault", [None, "spill", "missing", "viterbi_spill", "stale_bf16_k3",
                                    "stale_bf16_k4", "stale_bf16_flash_bwd", "stale_bf16_flash_fwd",
-                                   "serialized_flash_fwd_d128", "serialized_flash_bwd_d256"])
+                                   "serialized_flash_fwd_d128", "serialized_flash_bwd_d256",
+                                   "stale_fp32_flash_bwd_d128", "stack_frame_flash_bwd_d128"])
 def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, monkeypatch,
                                                                      fault):
     import chip_smoke as cs
@@ -268,6 +269,14 @@ def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, mo
     if fault == "stale_bf16_flash_fwd":  # the mma.sync forward at D 128, as before wgmma
         name = "flash_fwd_mma_kernel"
         log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi128EEEvv", 168)
+    if fault == "stale_fp32_flash_bwd_d128":  # the 4-warp fp32 dK/dV kernel at D 128
+        name = "flash_bwd_dkv_tf32_kernel"
+        log += _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi128EEEvv", 255, 8)
+    if fault == "stack_frame_flash_bwd_d128":  # a pair kernel that indexes its sums at run time
+        name = "flash_bwd_dq_tf32_pair_kernel"
+        entry = _ptxas_entry(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi128EEEvv", 128)
+        assert entry in log
+        log = log.replace(entry, entry.replace(" 0 bytes stack frame", " 256 bytes stack frame"))
     if fault in ("serialized_flash_fwd_d128", "serialized_flash_bwd_d256"):
         # ptxas's warning that it serialised a kernel's wgmma products, naming it
         name, d = (("flash_fwd_wgmma_kernel", 128) if fault == "serialized_flash_fwd_d128"
@@ -300,6 +309,12 @@ def test_kernel_build_lists_every_k4_instance_and_raises_on_a_fault(tmp_path, mo
             cs.phase_kernel_build(tmp_path / "lib.so")
     elif fault == "stale_bf16_flash_fwd":
         with pytest.raises(AssertionError, match="no launch runs.*flash_fwd_mma_kernel"):
+            cs.phase_kernel_build(tmp_path / "lib.so")
+    elif fault == "stale_fp32_flash_bwd_d128":
+        with pytest.raises(AssertionError, match="no launch runs.*flash_bwd_dkv_tf32_kernel"):
+            cs.phase_kernel_build(tmp_path / "lib.so")
+    elif fault == "stack_frame_flash_bwd_d128":
+        with pytest.raises(AssertionError, match="flash_bwd_dq_tf32_pair_kernel<128> has a stack"):
             cs.phase_kernel_build(tmp_path / "lib.so")
     elif fault == "serialized_flash_fwd_d128":
         with pytest.raises(AssertionError, match="flash_fwd_wgmma_kernel<128>.*serialised.*C7515"):
