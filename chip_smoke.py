@@ -581,15 +581,16 @@ def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS) -> dict:
 # forward's `<128>` instance issues the next tile's scores beside this tile's
 # P V, and must not be serialised by ptxas); the fp32 dK/dV and dQ at D 128
 # are the pair kernels (8 warps, each score tile formed once by one warp of a
-# pair and handed to the other).
+# pair and handed to the other), and the fp32 forward at D 128 is the split
+# kernel's `<128>` instance (8 warps, S's contraction split across a pair).
 FLASH_MMA_KERNELS = {"bfloat16": {"flash_fwd_mma_kernel": (32, 64),
                                   "flash_fwd_wgmma_kernel": (128, 256),
                                   "flash_bwd_dkv_mma_kernel": (32, 64),
                                   "flash_bwd_dkv_wgmma_kernel": (128, 256),
                                   "flash_bwd_dq_mma_kernel": (32, 64),
                                   "flash_bwd_dq_wgmma_kernel": (128, 256)},
-                     "float32": {"flash_fwd_tf32_kernel": (32, 64, 128),
-                                 "flash_fwd_tf32_split_kernel": (256,),
+                     "float32": {"flash_fwd_tf32_kernel": (32, 64),
+                                 "flash_fwd_tf32_split_kernel": (128, 256),
                                  "flash_bwd_dkv_tf32_kernel": (32, 64),
                                  "flash_bwd_dkv_tf32_pair_kernel": (128,),
                                  "flash_bwd_dkv_tf32_split_kernel": (256,),
@@ -653,8 +654,11 @@ def flash_dynamic_smem(kernel: str, dtype: str, d: int) -> int:
         return 4 * ((d + 4) * (2 * 64 + 4 * 32) + 4096)
     # the split kernels: their own tiles, the streamed ones x 2 stages, unsplit,
     # and the partial score tiles (4096 words in the backward)
-    if kernel == "flash_fwd_tf32_split_kernel":  # 64 queries; 16-key tiles; S halves
-        return 4 * ((d + 4) * (64 + 4 * 16) + 2048)
+    # the split forward: 64 queries (at D 128 Q's two TF32 halves), K and V
+    # in 2 stages of 16 keys at D 256, 3 stages of 32 at D 128; S halves
+    if kernel == "flash_fwd_tf32_split_kernel":
+        keys, stages, q_rows = (16, 2, 64) if d == 256 else (32, 3, 2 * 64)
+        return 4 * ((d + 4) * (q_rows + 2 * stages * keys) + 8 * (keys // 2) * 32)
     if kernel == "flash_bwd_dkv_tf32_split_kernel":  # 32 keys; 32-query tiles
         return 4 * ((d + 4) * 6 * 32 + 4096)
     if kernel == "flash_bwd_dq_tf32_split_kernel":  # 64 queries; 16-key tiles
@@ -1976,7 +1980,8 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
     """The forward (with and without its log-sum-exp) and the two backward
     kernels against the plain versions on seeded q, k, v and cotangent of
     `shape` (B, T, H, D) and `dtype` under `key_mask` [B, T] (None: all valid)
-    and `causal`; with `fwd_exact`, also the forward's `_forward_exact_checks`;
+    and `causal`; with `fwd_exact`, also the forward's `_forward_exact_checks`
+    (and in fp32 o within `assert_flash_close`'s bar beside KERNEL_TOL);
     with `timed`, also the times beside the bounds and SDPA with its
     autograd.  Emits one line and returns its errors, times and bounds."""
     import torch.nn.functional as F
@@ -1999,6 +2004,8 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
     else:
         torch.testing.assert_close(out, out_p, **KERNEL_TOL)
         errs = {"o": {"max_abs_err": float((out - out_p).abs().max())}}
+        if fwd_exact:  # the split forward: also the fp32 bar
+            errs["o"] = assert_flash_close(out, out_p, f"o at {shape} {dtype}")
     torch.testing.assert_close(lse, lse_p, **KERNEL_TOL)
     errs["lse"] = {"max_abs_err": float((lse - lse_p).abs().max())}
     exact = _forward_exact_checks(q, k, v, key_mask, scale, causal, out) if fwd_exact else {}
@@ -2225,7 +2232,7 @@ FLASH_D256_KERNELS = {"bfloat16": {"fwd": "flash_fwd_wgmma_kernel",
 FLASH_D128_KERNELS = {"bfloat16": {"fwd": "flash_fwd_wgmma_kernel",
                                    "dkv": "flash_bwd_dkv_wgmma_kernel",
                                    "dq": "flash_bwd_dq_wgmma_kernel"},
-                      "float32": {"fwd": "flash_fwd_tf32_kernel",
+                      "float32": {"fwd": "flash_fwd_tf32_split_kernel",
                                   "dkv": "flash_bwd_dkv_tf32_pair_kernel",
                                   "dq": "flash_bwd_dq_tf32_pair_kernel"}}
 
@@ -2298,8 +2305,8 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
     `LAUNCHES_PADDED`.  At pythia-1b's and llama-2-7b's layers in bf16, at
     llama-2-7b's in fp32 and at every D 256 shape in fp32, the kernels one
     call of each entry point launches (`kernels_per_call`: one, by the
-    profiler); in fp32 at D 256
-    and in bf16 at D 128 (the wgmma forward) also the forward's
+    profiler); in fp32 at D 256, 128 and the padded 80 / 100 (the split
+    forward) and in bf16 at D 128 (the wgmma forward) also the forward's
     `_forward_exact_checks` (two runs the same bits, single-key rows o == v:
     in bf16 p = 1 there and v is bf16).  Returns {(shape, dtype name): case}."""
     from roar_tpu_torch.kernels import flash_attention as fa
@@ -2313,9 +2320,11 @@ def phase_kernel_flash_head_sizes(device: torch.device) -> dict:
             key_mask = _key_mask(lens, shape[1], device)
             fp32_d256 = d == 256 and dtype == torch.float32
             bf16_d128 = d == 128 and dtype == torch.bfloat16
+            # the fp32 split forward: D 256, 128 and the padded 80 / 100
+            fp32_split = dtype == torch.float32 and fa.kernel_head_dim(d, dtype, False) >= 128
             case = _flash_case(gen, shape, key_mask, not (causal and lens), where,
                                "kernel_flash_head_sizes", causal=causal, dtype=dtype,
-                               fwd_exact=fp32_d256 or bf16_d128)
+                               fwd_exact=fp32_split or bf16_d128)
             padded = fa.LAUNCHES_PADDED - padded_before
             if (d in fa.HEAD_DIMS) == bool(padded):
                 raise AssertionError(f"D {d}: padded launches {dict(padded)}")

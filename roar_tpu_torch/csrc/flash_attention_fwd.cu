@@ -11,8 +11,8 @@
 //
 // Layout: q, k, v, out are contiguous [B, T, H, D], fp32 or bf16 (see
 // flash_attention_common.cuh for the roundings of the bf16 form); seg is
-// [B, T] int32.  Four kernels, one contract.  Up to D 64 in bf16 and D 128
-// in fp32, one block of 4 warps per (64-query tile, head, batch row); warp w owns query
+// [B, T] int32.  Four kernels, one contract.  Up to D 64, in bf16 and fp32,
+// one block of 4 warps per (64-query tile, head, batch row); warp w owns query
 // rows 16 w .. 16 w + 15 whole, so that a row's running max and sum reduce
 // within its lane quad and no barrier sits between the two products.  Per
 // key tile:
@@ -50,7 +50,7 @@
 // against 0.375 / 0.394 at (1, 4096, 32, 128) causal, NVIDIA H100 80GB HBM3,
 // 700.00 W, `scripts/flash_kernel_times_torch.py`).
 //
-// fp32 up to D 128, `flash_fwd_tf32_kernel` (mma.sync m16n8k8 on TF32,
+// fp32 up to D 64, `flash_fwd_tf32_kernel` (mma.sync m16n8k8 on TF32,
 // tf32x3.cuh; tiles, split and permutation: flash_attention_tf32.cuh): every
 // fp32 operand is split into TF32 parts, and each k-chunk of 8 forms its
 // partial products in a fresh accumulator that one round-to-nearest add puts
@@ -72,23 +72,30 @@
 // causal on an H100); one stage, so each block's copies wait for its
 // products and the other blocks' overlap them.
 //
-// fp32 at D 256, `flash_fwd_tf32_split_kernel`: the same arithmetic in the
-// layout of the backward's dQ split kernel.  A whole row of o is 128 fp32
-// accumulators a thread at D 256, and the D 128 layout with it took 255
-// registers, 16-key tiles in one stage and one block of 4 warps a SM.  Here
-// one block of 8 warps per 64-query tile; the two warps of a 16-row group
-// each own 128 of o's columns (64 accumulators) and form the half of each
-// score tile that their 128 columns of Q and K give, and add the halves in
-// fp32 across shared memory in one fixed order, so S, m, l and p are formed
-// once and both warps hold them bit for bit.  Q stays resident unsplit, K
-// and V are staged raw in two cp.async stages of 16 keys (141,312 B), and
-// every operand word is split as its fragment is loaded, so the next tile's
-// copy runs under this tile's products.  S's sum over D in two halves moves
-// o and lse by the last bits against the whole-row order it replaced, within
-// the fp32 bars (`tests/test_torch_flash_tf32.py` emulates both walks).  At
-// (1, 2048, 8, 256) causal it takes 0.903 / 0.908 ms where the form it
-// replaced took 1.481 / 1.519 in turns with it (11.5 % of its 0.104 ms
-// bound; SDPA in fp32 0.615 to 0.656; NVIDIA H100 80GB HBM3, 700.00 W,
+// fp32 at D 128 and 256, `flash_fwd_tf32_split_kernel`: the same arithmetic
+// in the layout of the backward's dQ split kernel.  A whole row of o is 64 /
+// 128 fp32 accumulators a thread at D 128 / 256, and the 4-warp layout with
+// it took 168 / 255 registers, one K/V stage and one block of 4 warps a SM.
+// Here one block of 8 warps per 64-query tile; the two warps of a 16-row
+// group each own half of o's columns (32 / 64 accumulators) and form the
+// half of each score tile that their half of Q's and K's columns gives, and
+// add the halves in fp32 across shared memory in one fixed order, so S, m, l
+// and p are formed once and both warps hold them bit for bit.  K and V are
+// staged raw by cp.async, and every one of their operand words is split as
+// its fragment is loaded, so the next tile's copy runs under this tile's
+// products.  At D 256 Q stays resident unsplit (split as loaded), K and V
+// come in two stages of 16 keys (141,312 B); at D 128 Q is split once into
+// halves, K and V come in three stages of 32 keys, and the groups of rows
+// 32 .. 63 add each tile's P V at the start of the next tile, so that the
+// two warps a scheduler holds are in different phases (185,344 B).  S's sum
+// over D in two halves moves o and lse by the last bits against the
+// whole-row order it replaced, within the fp32 bars
+// (`tests/test_torch_flash_tf32.py` emulates both walks).  At (1, 2048, 8,
+// 256) causal it takes 0.903 / 0.908 ms where the form it replaced took
+// 1.481 / 1.519 in turns with it (11.5 % of its 0.104 ms bound; SDPA in fp32
+// 0.615 to 0.656); at (1, 4096, 32, 128) causal 4.139 / 4.173 ms against
+// the 4-warp form's 7.717 / 7.842 (20.0 % of its 0.834 ms bound; SDPA in
+// fp32 3.21 to 3.30; NVIDIA H100 80GB HBM3, 700.00 W,
 // `scripts/flash_kernel_times_torch.py`).
 //
 // What bounds them on the H100: the two products, 4 B H pairs D operations
@@ -101,11 +108,16 @@
 // and in fp32, `mma.sync` rather than `wgmma`, every warp reading the whole
 // staged K/V tile from shared memory (16 rows a warp), cp.async rather than
 // TMA; in the fp32 split form also two warps a scheduler, a barrier of the
-// two warps of a group between S and the softmax, and Q's fragments read and
-// split again for every key tile: its time follows its count of mma.sync
-// products as the backward's dQ split kernel's does (224 against 288 a warp
-// per 16 keys, 0.90 against 1.13 to 1.24 ms), and neither 16 warps nor
-// splitting K and V once a tile moved it; in the wgmma form at D 256, one
+// two warps of a group between S and the softmax, and (at D 256) Q's
+// fragments read and split again for every key tile: its time follows its
+// count of mma.sync products as the backward's dQ split kernel's does (224
+// against 288 a warp per 16 keys, 0.90 against 1.13 to 1.24 ms), and neither
+// 16 warps nor splitting K and V once a tile moved it.  At D 128 it forms
+// its products at 114 TFLOP/s, 68 % of what chains of three and four
+// products into a fresh accumulator reach at 8 warps a SM alone (141 and
+// 193 TFLOP/s; 215 for independent products, 262 at 16 warps;
+// `scripts/mma_tf32_rate_torch.py`): the 3xTF32 chains' latency with two
+// warps a scheduler.  In the wgmma form at D 256, one
 // block a SM (197 KB of shared memory), each warpgroup's softmax waiting on
 // its S product and its P V product on the softmax (the D 128 form overlaps
 // them, FA3's way; at (1, 4096, 32, 128) causal it reaches 35 to 37 % of
@@ -910,9 +922,10 @@ flash_fwd_wgmma_kernel<128>(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 form on the tensor cores up to D 128, 3xTF32 (see the notes at the
-// top).  The bf16 kernel's block layout and loop; Q is held split in shared
-// memory, and each 32-key K/V tile is staged in one stage and split in place.
+// The fp32 form on the tensor cores at D 32 and 64, 3xTF32 (see the notes at
+// the top).  The bf16 kernel's block layout and loop; Q is held split in
+// shared memory, and each 32-key K/V tile is staged in one stage and split in
+// place.
 // ---------------------------------------------------------------------------
 
 constexpr int TF32_KEYS = 32;  // keys of a staged K/V tile of the fp32 kernels
@@ -932,15 +945,12 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float scale, int causal) {
   using namespace fa_mma;
   using namespace flash::tf32;
-  static_assert(D <= 128, "D 256 runs flash_fwd_tf32_split_kernel");
+  static_assert(D <= 64, "D 128 and 256 run flash_fwd_tf32_split_kernel");
   constexpr int BK = TF32_KEYS;       // keys of a staged K/V tile
   constexpr int QW = ROWS * (D + 4);  // words of the staged Q tile
   constexpr int KW = BK * (D + 4);    // words of a staged K or V tile
   constexpr int KC = D / 8;           // k-chunks of q.k^T; n-tiles of the output
   constexpr int NC = BK / 8;          // 8-key n-tiles of a K/V tile
-  // D 128 unrolls its loop over the k-chunks of q.k^T 8 times (ptxas spilled
-  // at 2 and 4)
-  constexpr int UNROLL = D <= 64 ? KC : 8;
 
   extern __shared__ float4 smem_fwd_tf32[];
   float* Qbig = reinterpret_cast<float*>(smem_fwd_tf32);
@@ -996,7 +1006,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[NC][4];
 #pragma unroll
     for (int n = 0; n < NC; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll(UNROLL)
+#pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
       uint32_t qb[4], qs[4];
       load_a_f32<D>(qb, Qbig, warp * 16, kc, lane);
@@ -1062,8 +1072,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       o[j][3] *= alpha[1];
     }
     // n-tile n of p is the A operand of the k-chunk over its 8 keys; each
-    // output n-tile j takes the tile's k-chunks in turn (at D 128 the other
-    // loop order spills)
+    // output n-tile j takes the tile's k-chunks in turn
     uint32_t pb[NC][4], ps[NC][4];
 #pragma unroll
     for (int n = 0; n < NC; ++n) acc_as_a(s[n], pb[n], ps[n]);
@@ -1102,36 +1111,94 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 form at D 256: the layout of the backward's dQ split kernel
+// The fp32 form at D 128 and 256: the layout of the backward's dQ split kernel
 // (flash_attention_bwd.cu), with the online softmax in place of dS.  One
 // block of 8 warps per (64-query tile, head, batch row); warp w takes query
-// group qg = w / 2 (rows 16 qg .. 16 qg + 15) and o's columns 128 hf ..
-// 128 hf + 127, hf = w % 2 (64 accumulators a thread, where a whole row of o
-// is 128).  Per 16-key tile (up to the diagonal with `causal`):
-//   S's half hf = Q[:, hf] K[:, hf]^T     (3xTF32, 16 k-chunks of 8)
+// group qg = w / 2 (rows 16 qg .. 16 qg + 15) and o's columns D/2 hf ..
+// D/2 hf + D/2 - 1, hf = w % 2 (D/8 accumulators a thread).  Per K/V tile
+// (up to the diagonal with `causal`):
+//   S's half hf = Q[:, hf] K[:, hf]^T     (3xTF32, D/16 k-chunks of 8)
 //   exchange with the partner warp; S = half 0 + half 1 in fp32, so both
 //   warps of the group hold the same S, m, l and p to the bit
-//   s = S * scale masked; m, alpha, p = 2^((s - m) log2 e), l   (as up to D 128)
+//   s = S * scale masked; m, alpha, p = 2^((s - m) log2 e), l   (as up to D 64)
 //   O[:, hf] = O[:, hf] * alpha + P V[:, hf]   (V split exactly, mma_4xtf32)
-// Q stays resident unsplit, K and V are staged raw in two cp.async stages,
-// and every operand word is split into its TF32 parts as its fragment is
-// loaded, so the next tile's copy runs under this tile's products.  With
+// K and V are staged raw by cp.async, and each of their operand words is
+// split into its TF32 parts as its fragment is loaded, so the next tile's
+// copy runs under this tile's products; Q stays resident, raw (split as
+// loaded) or split once into big and small halves (`SplitFwd`).  With
 // `causal` a query group skips the products of a tile wholly above its rows
-// (alpha would be 1 and p 0).  Measured against this form at (1, 2048, 8,
+// (alpha would be 1 and p 0).  With `LAG` the groups of rows 32 .. 63 add a
+// tile's P V at the start of the next tile instead of at the end of its own
+// (the same sums in the same order), so that warp w, leading, forms S or
+// P V while warp w + 4, on the same scheduler, runs its softmax, and the
+// reverse; the tile before last stays resident, so the ring has three
+// stages.
+//
+// Replaces, at both head sizes, the upstream Pallas `flash_attention`
+// forward (`_flash_attention_kernel`) that roar_tpu/models/gpt.py:491-535
+// and roar_tpu/models/transformer.py:72-114 reach.  Bound: 4 B H pairs D
+// operations in three TF32 products each, 0.834 ms at (1, 4096, 32, 128)
+// causal on the H100's 494.7 TFLOP/s (operations).
+//
+// At D 256 (16-key tiles, Q raw), measured against this form at (1, 2048, 8,
 // 256) causal (NVIDIA H100 80GB HBM3, 700.00 W): 32-key tiles (216,064 B)
 // spilled at 255 registers and ran no faster; 16 warps over column quarters
 // (128 registers a thread) ran about 5 % slower; K and V split once a tile
-// in shared memory, behind a second barrier, about 15 % slower.
+// in shared memory, behind a second barrier, about 15 % slower.  At D 128
+// (32-key tiles, Q in halves, three stages, LAG), in turns at (1, 4096, 32,
+// 128) causal (NVIDIA H100 80GB HBM3, 700.00 W,
+// `scripts/flash_kernel_times_torch.py --dtype float32` on checkouts of
+// each form; the card's pace moved between calls, so each form stands
+// beside the two-stage form with Q in halves and no LAG of the same call):
+//   this form 4.22 / 4.19, 4.46 / 4.50, 4.30 / 4.26 ms against 4.35 / 4.31,
+//     4.53 / 4.61, 4.58 / 4.64; three stages without LAG 4.42 / 4.49
+//     against 4.35 / 4.31;
+//   Q split as loaded (the D 256 way): 4.42 / 4.47 against 4.27 / 4.15;
+//   16-key tiles, 128 registers, two blocks a SM (109,568 B): 4.20 / 4.23,
+//     4.21 / 4.20, 4.28 / 4.21 against 4.27 / 4.15, 4.30 / 4.30, 4.35 /
+//     4.31; the same with Q split as loaded spilled: 4.56 / 4.64;
+//   64-key tiles (Q split as loaded) spilled at 255 registers: 4.82 / 4.98
+//     against 4.27 / 4.15;
+//   the S loop unrolled 4 times, not 8: 4.49 / 4.44 against 4.27 / 4.15,
+//     and with LAG 4.21 / 4.36 against this form's 4.30 / 4.26;
+//   K, or K and V, split once a tile in shared memory behind a second
+//     barrier: 4.57 / 4.57, 4.85 / 4.82 against 4.30 / 4.30; split instead
+//     by each thread as its own copies land, with no second barrier: 4.78 /
+//     4.70, 4.62 / 4.71 against 4.53 / 4.61 (fewer instructions, more time);
+// the 4-warp form before it 7.72 to 7.98.
 // ---------------------------------------------------------------------------
 
 constexpr int SPLIT_THREADS = 256;  // 8 warps
-constexpr int SPLIT_KEYS = 16;      // keys of a staged K/V tile
+
+// the split form's key tile, Q's layout and unroll by head size
+template <int D>
+struct SplitFwd;
+template <>
+struct SplitFwd<128> {
+  static constexpr int KEYS = 32;         // keys of a staged K/V tile
+  static constexpr bool Q_HALVES = true;  // Q split once into big and small halves
+  static constexpr int UNROLL = 8;        // of the loop over S's k-chunks
+  static constexpr bool LAG = true;       // groups 2 and 3 add P V a phase later
+  static constexpr int STAGES = LAG ? 3 : 2;  // of the K/V ring
+};
+template <>
+struct SplitFwd<256> {
+  static constexpr int KEYS = 16;
+  static constexpr bool Q_HALVES = false;
+  static constexpr int UNROLL = 4;
+  static constexpr bool LAG = false;
+  static constexpr int STAGES = 2;
+};
 
 template <int D>
 constexpr size_t tf32_split_smem_bytes() {
-  // Q (64 rows); K and V x 2 stages; each warp's half of its S tile, 8
-  // values a lane: 141,312 bytes at D 256
-  return sizeof(float) * ((fa_mma::ROWS + 4 * SPLIT_KEYS) * (D + 4) + 8 * 8 * 32);
+  using C = SplitFwd<D>;
+  // Q (64 rows; or its two halves); K and V x STAGES; each warp's half of
+  // its S tile, KEYS / 2 values a lane: 141,312 bytes at D 256, 185,344 at
+  // D 128
+  return sizeof(float) *
+         (((C::Q_HALVES ? 2 : 1) * fa_mma::ROWS + 2 * C::STAGES * C::KEYS) * (D + 4) +
+          8 * (C::KEYS / 2) * 32);
 }
 
 template <int D>
@@ -1142,19 +1209,22 @@ flash_fwd_tf32_split_kernel(const float* __restrict__ q, const float* __restrict
                             float scale, int causal) {
   using namespace fa_mma;
   using namespace flash::tf32;
-  static_assert(D == 256, "the split form is built for D 256");
-  constexpr int BK = SPLIT_KEYS;      // keys of a staged K/V tile
+  using C = SplitFwd<D>;
+  constexpr int BK = C::KEYS;         // keys of a staged K/V tile
   constexpr int QW = ROWS * (D + 4);  // words of the Q tile
   constexpr int KW = BK * (D + 4);    // words of a K or V tile
   constexpr int KC = D / 16;          // k-chunks of S's half
   constexpr int NC = BK / 8;          // 8-key n-tiles of a K/V tile
-  constexpr int NT = D / 16;          // n-tiles of a warp's 128 columns of o
+  constexpr int NT = D / 16;          // n-tiles of a warp's half of o's columns
+  constexpr int UNROLL = C::UNROLL;
+  static_assert(!C::LAG || C::STAGES >= 3, "a lagged P V reads the tile before last");
 
   extern __shared__ float4 smem_fwd_split[];
-  float* Qs = reinterpret_cast<float*>(smem_fwd_split);
-  float* Ks = Qs + QW;      // [2 stages][BK][D + 4]
-  float* Vs = Ks + 2 * KW;  // [2 stages][BK][D + 4]
-  float* Xs = Vs + 2 * KW;  // [8 warps][4 NC values][32 lanes]
+  float* Qs = reinterpret_cast<float*>(smem_fwd_split);  // Q, or its big half
+  float* Qsmall = Qs + QW;                               // Q's small half (Q_HALVES)
+  float* Ks = Qs + (C::Q_HALVES ? 2 : 1) * QW;           // [STAGES][BK][D + 4]
+  float* Vs = Ks + C::STAGES * KW;                       // [STAGES][BK][D + 4]
+  float* Xs = Vs + C::STAGES * KW;                       // [8 warps][4 NC values][32 lanes]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -1171,6 +1241,7 @@ flash_fwd_tf32_split_kernel(const float* __restrict__ q, const float* __restrict
   const int k_end = causal ? min(T, q0 + ROWS) : T;
 
   stage_tile_f32<D, ROWS, SPLIT_THREADS>(Qs, q, base, ld, q0, T, tid);
+  if constexpr (C::Q_HALVES) cp_async_commit();  // Q in a group of its own
   bool uniform, uniform_next;
   int k0 = next_tile<BK>(segb, 0, k_end, T, qlo, qhi, lane, uniform);
   if (k0 < k_end) {  // always: every in-range query sees its own key
@@ -1182,6 +1253,12 @@ flash_fwd_tf32_split_kernel(const float* __restrict__ q, const float* __restrict
   // this thread's two rows, g and g + 8 of its group's 16
   const int row0 = q0 + 16 * qg + g, row1 = row0 + 8;
   const int seg0 = row0 < T ? segb[row0] : -1, seg1 = row1 < T ? segb[row1] : -1;
+  if constexpr (C::Q_HALVES) {
+    // Q has landed: each thread splits the words it copied itself (no
+    // barrier waits for that), and the loop's first barrier shows them
+    cp_async_wait<1>();
+    split_tile_f32<D, false, ROWS, SPLIT_THREADS>(Qs, Qsmall, tid);
+  }
   float* mine = Xs + warp * 4 * NC * 32 + lane;
   const float* theirs = Xs + (warp ^ 1) * 4 * NC * 32 + lane;
 
@@ -1190,32 +1267,64 @@ flash_fwd_tf32_split_kernel(const float* __restrict__ q, const float* __restrict
 #pragma unroll
   for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
+  // o = o + P V[:, hf] for the p in s (after its o * alpha), n-tile n of p
+  // the A operand of the k-chunk over its 8 keys; each of this warp's output
+  // n-tiles takes the chunks in key order
+  float s[NC][4];
+  auto add_pv = [&](int st) {
+    const float* v_half = Vs + st * KW + (D / 2) * hf;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      uint32_t pb[4], ps[4];
+      acc_as_a(s[n], pb, ps);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t vb[2], vr[2];
+        load_bt_rest<D>(vb, vr, v_half, 8 * n, j, g, t4);
+        mma_4xtf32(o[j], pb, ps, vb[0], vb[1], vr[0], vr[1]);
+      }
+    }
+  };
+  // with LAG, groups 2 and 3 add a tile's P V at the start of the next
+  // iteration, so that each scheduler's two warps (w and w + 4) are in
+  // different phases: one's softmax runs beside the other's products
+  const bool lag = C::LAG && qg >= 2;
+  int pending = -1;  // the stage of a lagged P V
+
   int stage = 0;
   while (k0 < k_end) {
     const int kn = next_tile<BK>(segb, k0 + BK, k_end, T, qlo, qhi, lane, uniform_next);
-    // this tile (and Q) has landed, and every warp is done with the other
-    // stage and with its partner's half of the last S
+    // this tile (and Q) has landed, and every warp is done with the stage
+    // the next copy fills and with its partner's half of the last S
     cp_async_wait<0>();
     __syncthreads();
+    const int next = stage + 1 == C::STAGES ? 0 : stage + 1;
     if (kn < k_end) {
-      stage_tile_f32<D, BK, SPLIT_THREADS>(Ks + (stage ^ 1) * KW, k, base, ld, kn, T, tid);
-      stage_tile_f32<D, BK, SPLIT_THREADS>(Vs + (stage ^ 1) * KW, v, base, ld, kn, T, tid);
+      stage_tile_f32<D, BK, SPLIT_THREADS>(Ks + next * KW, k, base, ld, kn, T, tid);
+      stage_tile_f32<D, BK, SPLIT_THREADS>(Vs + next * KW, v, base, ld, kn, T, tid);
     }
     cp_async_commit();
     const float* Kt = Ks + stage * KW;
-    const float* Vt = Vs + stage * KW;
+    if (lag && pending >= 0) {
+      add_pv(pending);
+      pending = -1;
+    }
 
     if (!causal || k0 <= q0 + 16 * qg + 15) {  // else the tile is above the group's rows
       // this warp's half of S: element (n, e) at row e < 2 ? g : g + 8, key
       // k0 + 8 n + 2 t4 + (e & 1)
-      float s[NC][4];
 #pragma unroll
       for (int n = 0; n < NC; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll 4
+#pragma unroll(UNROLL)
       for (int kc = 0; kc < KC; ++kc) {
         const int chunk = KC * hf + kc;  // 8-column chunk of the row
         uint32_t qb[4], qs[4];
-        load_a_split<D>(qb, qs, Qs, 16 * qg, chunk, lane);
+        if constexpr (C::Q_HALVES) {
+          load_a_f32<D>(qb, Qs, 16 * qg, chunk, lane);
+          load_a_f32<D>(qs, Qsmall, 16 * qg, chunk, lane);
+        } else {
+          load_a_split<D>(qb, qs, Qs, 16 * qg, chunk, lane);
+        }
 #pragma unroll
         for (int n = 0; n < NC; n += 2) {
           uint32_t kb[4], ks[4];
@@ -1281,28 +1390,19 @@ flash_fwd_tf32_split_kernel(const float* __restrict__ q, const float* __restrict
         o[j][2] *= alpha[1];
         o[j][3] *= alpha[1];
       }
-      // n-tile n of p is the A operand of the k-chunk over its 8 keys; each
-      // of this warp's output n-tiles takes the chunks in key order
-      const float* v_half = Vt + (D / 2) * hf;
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        uint32_t pb[4], ps[4];
-        acc_as_a(s[n], pb, ps);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          uint32_t vb[2], vr[2];
-          load_bt_rest<D>(vb, vr, v_half, 8 * n, j, g, t4);
-          mma_4xtf32(o[j], pb, ps, vb[0], vb[1], vr[0], vr[1]);
-        }
-      }
+      if (lag)
+        pending = stage;
+      else
+        add_pv(stage);
     }
     k0 = kn;
     uniform = uniform_next;
-    stage ^= 1;
+    stage = next;
   }
+  if (pending >= 0) add_pv(pending);
 
   // element (j, e) of o: row e < 2 ? g : g + 8, head-dim column
-  // 128 hf + 8 j + 2 t4 + (e & 1)
+  // D/2 hf + 8 j + 2 t4 + (e & 1)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -1322,11 +1422,12 @@ flash_fwd_tf32_split_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
-// One launch a call.  fp32 (`Elem` float): the 3xTF32 kernel, one block of
-// fa_mma::THREADS per (64-query tile, head, batch row), at D 256 the split
-// kernel, one block of SPLIT_THREADS.  bf16: the mma.sync kernel up to D 64,
-// the same blocks; at D 128 and 256 the wgmma kernel, one block of
-// WG_THREADS per (128-query tile, head, batch row), its TMA maps built here.
+// One launch a call.  fp32 (`Elem` float): up to D 64 the 4-warp 3xTF32
+// kernel, one block of fa_mma::THREADS per (64-query tile, head, batch row),
+// at D 128 and 256 the split kernel, one block of SPLIT_THREADS.  bf16: the
+// mma.sync kernel up to D 64, the same blocks; at D 128 and 256 the wgmma
+// kernel, one block of WG_THREADS per (128-query tile, head, batch row), its
+// TMA maps built here.
 template <int D, typename Elem>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
                    float* lse, int B, int T, int H, float scale, int causal,
@@ -1361,8 +1462,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
         seg, static_cast<Elem*>(out), lse, T, H, scale, causal);
     return cudaGetLastError();
   } else {
-    constexpr bool split = D > 128;
-    constexpr size_t smem = split ? tf32_split_smem_bytes<D>() : tf32_smem_bytes<D>();
+    constexpr bool split = D >= 128;
+    constexpr size_t smem = [] {
+      if constexpr (split) return tf32_split_smem_bytes<D>();
+      else return tf32_smem_bytes<D>();
+    }();
     const auto kernel = [] {
       if constexpr (split) return flash_fwd_tf32_split_kernel<D>;
       else return flash_fwd_tf32_kernel<D>;

@@ -50,13 +50,14 @@ __device__ __forceinline__ void stage_tile_f32(float* dst, const float* __restri
 
 // every word v of a staged R-row tile replaced by its big half tf32(v), and
 // written to the same place of `small`: its small half tf32(v - big), or with
-// `REST` the whole rest v - big, unrounded (for `split_rest`)
-template <int D, bool REST = false, int R = mma::ROWS>
+// `REST` the whole rest v - big, unrounded (for `split_rest`); by a block of
+// NTHREADS, each thread the words `stage_tile_f32` copies for it
+template <int D, bool REST = false, int R = mma::ROWS, int NTHREADS = mma::THREADS>
 __device__ __forceinline__ void split_tile_f32(float* big, float* small, int tid) {
   constexpr int CHUNKS = D / 4;
 #pragma unroll
-  for (int j = 0; j < R * CHUNKS / mma::THREADS; ++j) {
-    const int i = tid + j * mma::THREADS;
+  for (int j = 0; j < R * CHUNKS / NTHREADS; ++j) {
+    const int i = tid + j * NTHREADS;
     const int at = (i / CHUNKS) * (D + 4) + (i % CHUNKS) * 4;
     const float4 v = *reinterpret_cast<const float4*>(big + at);
     uint4 hi, lo;

@@ -45,27 +45,30 @@ tiles, 128 output columns a warp, dQ over 32-key tiles, 64 output columns
 a warp (`D128_WALK`); the same bar holds there and plain TF32 fails it.
 D 128's scale 2^-3.5 is no power of two, so q * scale is not exact in fp32
 and upstream's `mha_reference_bwd`, which takes scale 1 only, could not be
-handed the same function: every D 128 case hands all sides (the emulated
-kernels, the port's plain version and upstream's reference) the same
-pre-scaled q, fp32(q * 2^-3.5), with scale 1 (`_case`).
+handed the same function: every D 128 case of the backward hands all sides
+(the emulated kernels, the port's plain version and upstream's reference)
+the same pre-scaled q, fp32(q * 2^-3.5), with scale 1 (`_case`).  The
+forward's references take any scale, so its D 128 cases run at the true
+scale 2^-3.5 on an unscaled q (`_fwd_case`).
 
 The forward (`csrc/flash_attention_fwd.cu`) forms S = q.k^T the same way and,
 per 32-key tile, the online softmax (running maximum, p = 2^((s - m) log2 e),
 o rescaled by alpha) and P V with p's accumulator as the split A operand.  At
-D 256 its split kernel forms S as the backward's split kernels do, two halves
-of 128 columns added in fp32, per 16-key tile (`FWD_D256_WALK`).
+D 256 and 128 its split kernel forms S as the backward's split kernels do,
+two halves of D / 2 columns added in fp32, per 16-key tile at D 256
+(`FWD_D256_WALK`) and per 32-key tile at D 128 (`FWD_D128_WALK`).
 For P V it splits V exactly, big + mid + low (`mma_4xtf32`: the rest v - big
 with its 13 low bits cleared, and what remains), since a row that sees one
 key must get o = v to the bit; `test_forward_single_key_rows_get_v_exactly`
 shows that a two-part split misses bits there.  The emulation holds o and lse
 to `chip_smoke.KERNEL_TOL` (and o to `assert_flash_close`'s fp32 bar)
 against the port's plain fp32 forward and upstream's `mha_reference` at the
-four cases.  What it reads: o 1.9e-7 to 6.4e-7 of its largest magnitude,
-lse 4.8e-7 to 9.5e-7 absolute (0.0020 to 0.0081 of KERNEL_TOL); plain TF32 in
+six cases.  What it reads: o 1.8e-7 to 6.4e-7 of its largest magnitude,
+lse 4.8e-7 to 9.5e-7 absolute (0.0017 to 0.0081 of KERNEL_TOL); plain TF32 in
 both products 2.1e-4 to 4.4e-4 of the largest magnitude, 2.7 to 4.3 times
-KERNEL_TOL, which fails it.  At D 256 the split walk's o sits 1.5e-7 to
-1.8e-7 of the largest magnitude from the whole-row order over 16-key tiles
-that the kernel before it took.
+KERNEL_TOL, which fails it.  The split walks' o sits 1.5e-7 to 1.8e-7 (D
+256) and 1.4e-7 to 1.6e-7 (D 128) of the largest magnitude from the
+whole-row order of the kernels before them, over the same key tiles.
 """
 
 import functools
@@ -256,14 +259,22 @@ def emulate_bwd_walk(q, k, v, do, lse, delta, seg, scale, causal, key_block=64, 
 
 
 @functools.lru_cache(maxsize=None)
-def _case(name: str):
-    """Seeded inputs of CASES[name], the plain fp32 forward's o and lse, and
-    the plain fp32 backward (what the kernels are held against on the card)."""
-    b, t, h, d, lens, causal = CASES[name]
+def _draw(name: str):
+    """Seeded fp32 q, k, v, do [B, T, H, D] of CASES[name], its valid-key
+    mask [B, T] and its scale 1/sqrt(D)."""
+    b, t, h, d, lens, _ = CASES[name]
     rng = np.random.default_rng(0)
     q, k, v, do = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(4))
     mask = np.ones((b, t), bool) if lens is None else np.arange(t)[None] < np.array(lens)[:, None]
-    scale = 1.0 / np.sqrt(d)
+    return q, k, v, do, mask, 1.0 / np.sqrt(d)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name: str):
+    """Seeded inputs of CASES[name], the plain fp32 forward's o and lse, and
+    the plain fp32 backward (what the kernels are held against on the card)."""
+    causal = CASES[name][-1]
+    q, k, v, do, mask, scale = _draw(name)
     if not np.log2(scale).is_integer():
         # D 128's 2^-3.5: every side takes the same pre-scaled q with scale 1
         q, scale = (q * np.float32(scale)).astype(np.float32), 1.0
@@ -435,12 +446,15 @@ def test_permuted_contraction_index(seed):
 
 
 # ---------------------------------------------------------------------------
-# The forward (`flash_fwd_tf32_kernel`, csrc/flash_attention_fwd.cu)
+# The forward (`flash_fwd_tf32_kernel` and, at D 128 and 256,
+# `flash_fwd_tf32_split_kernel`, csrc/flash_attention_fwd.cu)
 
-FWD_KEYS = 32  # keys of a staged K/V tile of the forward kernel up to D 128
-# the forward's walk at D 256 (`flash_fwd_tf32_split_kernel`): 16-key tiles,
-# S's contraction split into two halves of 128 that two warps form and add
+FWD_KEYS = 32  # keys of a staged K/V tile of the 4-warp forward (D 32 / 64)
+# the forward's walks at D 256 and 128 (`flash_fwd_tf32_split_kernel`): 16-
+# and 32-key tiles, S's contraction split into two halves of D / 2 that two
+# warps form and add
 FWD_D256_WALK = dict(keys=16, parts=2)
+FWD_D128_WALK = dict(keys=32, parts=2)
 LOG2E = np.float32(1.4426950408889634)
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-3)  # chip_smoke.KERNEL_TOL: o and lse
 
@@ -456,11 +470,11 @@ def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exa
     """(o [B, T, H, D], lse [B, H, T]) as `flash_fwd_tf32_kernel` forms them
     from fp32 q, k, v [B, T, H, D] and segment ids [B, T]: S = q.k^T in
     `product`'s order, in `parts` parts along D added in fp32
-    (`split_product`; the split kernel's two halves at D 256); per tile of
-    `keys` keys, s = S * scale masked to -inf, the
-    running maximum m, alpha = 2^((m_old - m) log2 e), p = 2^((s - m) log2 e)
-    (exactly 1 at the row's largest), o = o * alpha + p.V with p split as the
-    A operand and V split exactly (`exact_b`); the row sum in each lane's
+    (`split_product`; the split kernel's two halves at D 128 and 256); per
+    tile of `keys` keys, s = S * scale masked to -inf, the running maximum m,
+    alpha = 2^((m_old - m) log2 e), p = 2^((s - m) log2 e) (exactly 1 at the
+    row's largest), o = o * alpha + p.V with p split as the A operand and V
+    split exactly (`exact_b`); the row sum in each lane's
     order (keys 8 n + 2 t + e of a tile for lane t, a quad's four sums added
     pairwise at the end), o / l and lse = m + log l.  A tile the kernel skips
     is all masked here, which changes nothing: alpha is 1 and p 0."""
@@ -498,39 +512,51 @@ def emulate_fwd(q, k, v, seg, scale, causal, three_terms=True, flushed=True, exa
     return o.transpose(0, 2, 1, 3), lse
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_case(name: str):
+    """The forward's inputs of CASES[name] (q, k, v, segment ids, scale,
+    causal) at the true scale 1/sqrt(D) on an unscaled q, where the
+    backward's D 128 cases take a pre-scaled q with scale 1 (`_case`), and
+    the plain fp32 forward's (o, lse): what the card holds the kernel
+    against."""
+    q, k, v, _, mask, scale = _draw(name)
+    causal = CASES[name][-1]
+    tq, tk, tv = (torch.from_numpy(z) for z in (q, k, v))
+    o, lse = fa.flash_self_attention_plain(tq, tk, tv, torch.from_numpy(mask), scale, True,
+                                           causal)
+    inputs = dict(q=q, k=k, v=v, seg=(~mask).astype(np.int32), scale=scale, causal=causal)
+    return inputs, o.numpy(), lse.numpy()
+
+
 def _fwd_inputs(name: str) -> tuple:
-    inputs, _, _ = _case(name)
+    inputs, _, _ = _fwd_case(name)
     return tuple(inputs[n] for n in ("q", "k", "v", "seg", "scale", "causal"))
 
 
 @functools.lru_cache(maxsize=None)
 def _emulated_fwd(name: str, **order):
-    """The kernels' forward: at D 256 in the split kernel's walk
-    (`FWD_D256_WALK`)."""
-    walk = FWD_D256_WALK if name in D256_NAMES else {}
+    """The kernels' forward: at D 256 and 128 in the split kernel's walks
+    (`FWD_D256_WALK`, `FWD_D128_WALK`)."""
+    walk = (FWD_D256_WALK if name in D256_NAMES else FWD_D128_WALK if name in D128_NAMES
+            else {})
     return emulate_fwd(*_fwd_inputs(name), **walk, **order)
 
 
-@functools.lru_cache(maxsize=None)
 def _plain_fwd(name: str):
-    """(o, lse) of the port's plain fp32 forward (what the card holds the
-    kernel against)."""
-    inputs, o, _ = _case(name)
-    mask = torch.from_numpy(inputs["seg"] == 0)
-    q, k, v = (torch.from_numpy(inputs[n]) for n in ("q", "k", "v"))
-    _, lse = fa.flash_self_attention_plain(q, k, v, mask, inputs["scale"], True,
-                                           inputs["causal"])
-    return o, lse.numpy()
+    """(o, lse) of the port's plain fp32 forward."""
+    _, o, lse = _fwd_case(name)
+    return o, lse
 
 
 def _upstream_fwd(name: str):
     """(o, lse) of upstream's `mha_reference` in fp32 with SegmentIds (and
-    `causal`); lse = m + log l from its residuals."""
+    `causal`) at the forward case's scale; lse = m + log l from its
+    residuals."""
     import jax.numpy as jnp
     from jax.experimental.pallas.ops.tpu.flash_attention import (
         SegmentIds, mha_reference, mha_reference_no_custom_vjp)
 
-    inputs, _, _ = _case(name)
+    inputs, _, _ = _fwd_case(name)
     q, k, v = (jnp.asarray(np.swapaxes(inputs[n], 1, 2)) for n in ("q", "k", "v"))
     ids = jnp.asarray(inputs["seg"])
     how = dict(segment_ids=SegmentIds(q=ids, kv=ids), causal=inputs["causal"],
@@ -557,9 +583,9 @@ def _fwd_within_bars(o, lse, want_o, want_lse) -> bool:
 @pytest.mark.parametrize("against", ["plain", "upstream"])
 @pytest.mark.parametrize("name", FWD_NAMES)
 def test_forward_kernel_order_holds_the_fp32_bars(name, against):
-    """S in 3xTF32 (at D 256 in two halves added in fp32) and P V with V
-    split exactly, truncating `mma`, flushed per k-chunk, the online softmax
-    per K/V tile (32 keys, 16 at D 256): o and lse
+    """S in 3xTF32 (at D 128 and 256 in two halves added in fp32) and P V
+    with V split exactly, truncating `mma`, flushed per k-chunk, the online
+    softmax per K/V tile (32 keys, 16 at D 256): o and lse
     within KERNEL_TOL (and o within `assert_flash_close`'s fp32 bar) of the
     port's plain fp32 forward and of upstream's `mha_reference`."""
     want_o, want_lse = _plain_fwd(name) if against == "plain" else _upstream_fwd(name)
@@ -583,13 +609,28 @@ def test_forward_single_key_rows_get_v_exactly(name):
     of length 1) has p = 1, and with V split exactly its o is that key's v to
     the bit, as the backward's dP - delta needs; a two-part split of V (3xTF32
     on both products) misses bits there."""
-    inputs, _, _ = _case(name)
+    inputs, _, _ = _fwd_case(name)
     rows = (slice(None), 0) if inputs["causal"] else (2, 0)  # (batch, token)
     v = inputs["v"][rows]
     exact = _emulated_fwd(name)[0][rows]
     two_part = _emulated_fwd(name, exact_b=False)[0][rows]
     np.testing.assert_array_equal(exact, v)
     assert not np.array_equal(two_part, v)
+
+
+@pytest.mark.parametrize("name", D128_NAMES)
+def test_forward_d128_walk_parts_from_the_whole_d_order_within_the_bar(name):
+    """At D 128 the split kernel forms S in two halves of 64 columns added in
+    fp32 per 32-key tile, at the true scale 2^-3.5 on an unscaled q; the
+    4-warp kernel it replaced summed whole rows over 32-key tiles: o of the
+    two orders is not the same bits, and the split walk's o and lse sit
+    within the fp32 bars of the whole-D order's."""
+    inputs = _fwd_inputs(name)
+    assert np.float32(inputs[4]) == np.float32(2.0 ** -3.5)
+    split = _emulated_fwd(name)
+    whole = emulate_fwd(*inputs, keys=FWD_KEYS)
+    assert _fwd_within_bars(*split, *whole)
+    assert not np.array_equal(split[0], whole[0])
 
 
 @pytest.mark.parametrize("name", D256_NAMES)

@@ -189,7 +189,9 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     their shared memory; the bf16 forward and backward at D 128 run the wgmma
     kernels too (the forward's `<128>` instance must not be serialised by
     ptxas), and the bf16 mma.sync forward and backward kernels are built up
-    to D 64 only, with one template argument."""
+    to D 64 only, with one template argument; the fp32 forward at D 128 is
+    the split kernel's `<128>` instance, the 4-warp fp32 forward built up to
+    D 64 only."""
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
 
@@ -247,7 +249,11 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     assert sorted(i for i in cs.flash_instances() if i[1:] == ("float32", 128)) == [
         ("flash_bwd_dkv_tf32_pair_kernel", "float32", 128),
         ("flash_bwd_dq_tf32_pair_kernel", "float32", 128),
-        ("flash_fwd_tf32_kernel", "float32", 128)]
+        ("flash_fwd_tf32_split_kernel", "float32", 128)]
+    # and the forward at D 128 the split kernel (the 4-warp forward is built
+    # up to D 64)
+    assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_fwd_tf32_kernel") == \
+        [32, 64]
     assert sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dkv_tf32_kernel") == \
         sorted(d for k, t, d in cs.flash_instances() if k == "flash_bwd_dq_tf32_kernel") == \
         [32, 64]
@@ -274,7 +280,7 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
         "fwd": "flash_fwd_wgmma_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
         "dq": "flash_bwd_dq_wgmma_kernel"}
     assert cs.flash_kernels_of_a_call(128, "float32") == {
-        "fwd": "flash_fwd_tf32_kernel", "dkv": "flash_bwd_dkv_tf32_pair_kernel",
+        "fwd": "flash_fwd_tf32_split_kernel", "dkv": "flash_bwd_dkv_tf32_pair_kernel",
         "dq": "flash_bwd_dq_tf32_pair_kernel"}
     assert cs.flash_kernels_of_a_call(64, "float32") is None
     space = "_ZN60_GLOBAL__N__5c1a7f2e_22_flash_attention_bwd_cu_9e8d7c6b"
@@ -283,8 +289,11 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
         ("flash_bwd_dkv_mma_kernel", "bfloat16", 64)
     assert cs._flash_instance(f"{space}24flash_bwd_dkv_mma_kernelILi128{tail}") == \
         ("flash_bwd_dkv_mma_kernel", "bfloat16", 128)
-    assert cs._flash_instance(f"{space}21flash_fwd_tf32_kernelILi128EEEvPKfS2_S2_PKiPfS5_iifi") \
-        == ("flash_fwd_tf32_kernel", "float32", 128)
+    assert cs._flash_instance(f"{space}21flash_fwd_tf32_kernelILi64EEEvPKfS2_S2_PKiPfS5_iifi") \
+        == ("flash_fwd_tf32_kernel", "float32", 64)
+    assert cs._flash_instance(
+        f"{space}27flash_fwd_tf32_split_kernelILi128EEEvPKfS2_S2_PKiPfS5_iifi") == \
+        ("flash_fwd_tf32_split_kernel", "float32", 128)
     assert cs._flash_instance(
         f"{space}27flash_fwd_tf32_split_kernelILi256EEEvPKfS2_S2_PKiPfS5_iifi") == \
         ("flash_fwd_tf32_split_kernel", "float32", 256)
@@ -302,7 +311,11 @@ def test_chip_smoke_lists_and_parses_the_d256_instances():
     # Q (64 rows); K and V x 2 stages of 16 keys; 2048 words of S halves
     assert cs.flash_dynamic_smem("flash_fwd_tf32_split_kernel", "float32", 256) == \
         4 * (260 * (64 + 4 * 16) + 2048) == 141312
-    assert cs.flash_dynamic_smem("flash_fwd_tf32_kernel", "float32", 128) == 135168
+    # at D 128: Q's two halves (2 x 64 rows); K and V x 3 stages of 32 keys;
+    # 4096 words of S halves
+    assert cs.flash_dynamic_smem("flash_fwd_tf32_split_kernel", "float32", 128) == \
+        4 * (132 * (2 * 64 + 6 * 32) + 4096) == 185344
+    assert cs.flash_dynamic_smem("flash_fwd_tf32_kernel", "float32", 64) == 69632
     # Q of 128 rows, K and V x 2 stages of 64, five barriers, 1 KB to align
     assert cs.flash_dynamic_smem("flash_fwd_wgmma_kernel", "bfloat16", 256) == \
         2 * 256 * (128 + 4 * 64) + 40 + 1024 == 197672
