@@ -79,7 +79,17 @@ Phases, each printing JSON lines:
    durations that sum to the mel lengths, segment starts inside the valid
    frames), the flash kernels held and timed at the step's two shapes; then
    the step time, its split, the kernels' and MAS's time in it and peak
-   memory.
+   memory.  Then train_jets_bf16, the same at the YAML's bf16-mixed, and
+   train_jets_conformer: configs/jets_22050_conformer.yaml (6 + 6 Conformer
+   layers of two heads of 64 with RoPE, conv modules of kernel 31) at its
+   bf16-mixed with `use_flash` on, 4 steps: the Conformer's attention
+   dropout is 0.1 whatever `dropatt` says, so the steps and validation (a
+   training-mode forward, as the JAX runner's) take the einsum path: 0 / 0 /
+   0 flash and 30 / 30 / 15 bf16 grouped-conv launches a step; the saved
+   `.roar` synthesises through the fp32 flash forward (12 a call), which is
+   held against its plain version and timed, forward only, at the shapes the
+   synthesis of 8 texts gave it; one D+G step kernels against plain at the
+   bf16 bars; the step time, its split and peak memory.
 
 10. kernel_flash_causal: the causal flash-attention kernels (forward with and
    without the log-sum-exp, dK/dV, dQ) against their plain versions in fp32
@@ -363,7 +373,8 @@ def jets_sup_data_config(manifest: str, sup_dir: str, device: str = "cuda") -> d
 
 def jets_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_dir: str,
                       pitch_mean: float, pitch_std: float, device: str = "cuda",
-                      max_steps: int = 8, batch_size: int = 16, precision=32) -> dict:
+                      max_steps: int = 8, batch_size: int = 16, precision=32,
+                      conformer: bool = False) -> dict:
     """configs/jets_22050_align.yaml as the loader resolves it, for the keys
     the training CLI reads, with only the overrides of the configuration that
     runs the attention kernels: `model.{input_fft,output_fft}.use_flash=true`
@@ -375,11 +386,22 @@ def jets_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_
     it to the YAML).  Full width and depth: d 384, 6 + 6 FFT layers of one
     head of 64, predictors 256 wide, the HiFi-GAN v1 generator from 384
     channels, MPD and the grouped MSD at full channels, segments of 64
-    frames."""
+    frames.
+
+    `conformer=True`: configs/jets_22050_conformer.yaml (which includes the
+    align YAML) with the one override `model.{input_fft,output_fft}.use_flash=
+    true`: 6 + 6 Conformer layers of two heads of 64 with RoPE, a conv module
+    of kernel 31, `dropatt` the YAML's 0.1 (the Conformer's attention dropout
+    is 0.1 whatever it says, so training takes the einsum path and only
+    deterministic forwards reach the kernels)."""
     cond = ["add", "layernorm"]
     fft = {"n_layer": 6, "n_head": 1, "d_model": 384, "d_head": 64, "d_inner": 1536,
            "kernel_size": 3, "dropout": 0.1, "dropatt": 0.0, "condition_types": cond,
            "use_flash": True}
+    if conformer:
+        fft.update(n_head=2, kernel_size=31, dropatt=0.1, encoder_type="conformer",
+                   use_rope=True)
+    name = "JETS-Conformer" if conformer else "JETS"
     predictor = {"input_size": 384, "kernel_size": 3, "filter_size": 256, "dropout": 0.1,
                  "n_layers": 2, "condition_types": cond}
     pitch = {"pitch_fmin": 65.40639132514966, "pitch_fmax": 2093.004522404789,
@@ -426,11 +448,11 @@ def jets_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_
         "max_steps": 2500000,
     }
     return {
-        "name": "JETS", "model": model,
+        "name": name, "model": model,
         "trainer": {"max_steps": max_steps, "precision": precision, "max_epochs": 1000,
                     "gradient_clip_val": 1000.0, "log_every_n_steps": 1, "seed": 0,
                     "model_parallel_size": 1},
-        "exp_manager": {"exp_dir": exp_dir, "name": "JETS", "resume_if_exists": False,
+        "exp_manager": {"exp_dir": exp_dir, "name": name, "resume_if_exists": False,
                         "always_save_roar": True},
         "device": device,
     }
@@ -1976,14 +1998,18 @@ def _forward_exact_checks(q, k, v, key_mask, scale: float, causal: bool, out) ->
 
 def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], timed: bool,
                 where: str, phase: str = "kernel_flash_bwd", causal: bool = False,
-                dtype: torch.dtype = torch.float32, fwd_exact: bool = False) -> dict:
+                dtype: torch.dtype = torch.float32, fwd_exact: bool = False,
+                forward_only: bool = False) -> dict:
     """The forward (with and without its log-sum-exp) and the two backward
     kernels against the plain versions on seeded q, k, v and cotangent of
     `shape` (B, T, H, D) and `dtype` under `key_mask` [B, T] (None: all valid)
     and `causal`; with `fwd_exact`, also the forward's `_forward_exact_checks`
     (and in fp32 o within `assert_flash_close`'s bar beside KERNEL_TOL);
     with `timed`, also the times beside the bounds and SDPA with its
-    autograd.  Emits one line and returns its errors, times and bounds."""
+    autograd.  `forward_only` (a path that runs no backward) leaves the
+    backward kernels out and adds the bound of the forward without its
+    log-sum-exp (`fwd`).  Emits one line and returns its errors, times and
+    bounds."""
     import torch.nn.functional as F
 
     from roar_tpu_torch.kernels import flash_attention as fa
@@ -2009,15 +2035,18 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
     torch.testing.assert_close(lse, lse_p, **KERNEL_TOL)
     errs["lse"] = {"max_abs_err": float((lse - lse_p).abs().max())}
     exact = _forward_exact_checks(q, k, v, key_mask, scale, causal, out) if fwd_exact else {}
-    got, want = _flash_backward_checks(q, k, v, key_mask, scale, out, lse, do, out_p, lse_p,
-                                       causal, errs)
     line = {"phase": phase, "where": where, "shape_bthd": list(shape), "causal": causal,
             "dtype": str(dtype).replace("torch.", ""),
             "key_lens": lens if b <= 4 else {"min": min(lens), "max": max(lens),
                                              "mean": float(np.mean(lens))},
-            "errors": errs, "tol": KERNEL_TOL, "bit_identical_across_two_runs": True,
-            "forward_unchanged_by_lse": True, "function_launches_the_kernels": True,
-            "function_vs_autograd_of_plain": not bf16, **exact}
+            "errors": errs, "tol": KERNEL_TOL, "forward_unchanged_by_lse": True, **exact}
+    if forward_only:
+        line["forward_only"] = True
+    else:
+        got, want = _flash_backward_checks(q, k, v, key_mask, scale, out, lse, do, out_p, lse_p,
+                                           causal, errs)
+        line.update(bit_identical_across_two_runs=True, function_launches_the_kernels=True,
+                    function_vs_autograd_of_plain=not bf16)
     if bf16:
         line.update(rtol=FLASH_BF16_RTOL, atol_rel_to_row_largest=FLASH_BF16_ROW_ATOL,
                     rel_l2_tol=FLASH_BF16_L2_TOL)
@@ -2039,8 +2068,11 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
             library_call = "attn_mask=segment mask"
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale, **how)
         lib_do = do.transpose(1, 2)
-        lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
-        for name, a, w in [("o", lib_out, out_p), *zip(("dq", "dk", "dv"), lib_grads, want)]:
+        checked = [("o", lib_out, out_p)]
+        if not forward_only:
+            lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
+            checked += list(zip(("dq", "dk", "dv"), lib_grads, want))
+        for name, a, w in checked:
             a = a.transpose(1, 2).contiguous()
             if not bf16:
                 assert_flash_close(a, w, f"SDPA {name}")
@@ -2060,9 +2092,10 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
             "fwd_plain_ms": _time_ms(lambda: fa.flash_self_attention_plain(
                 q, k, v, key_mask, scale, True, causal), reps=5),
             "fwd_library_ms": _time_ms(lib_fwd),
-            **_flash_backward_times(q, k, v, key_mask, scale, out, lse, do, out_p, lse_p,
-                                    causal, lib_out, (qt, kt, vt), lib_do),
         }
+        if not forward_only:
+            times.update(_flash_backward_times(q, k, v, key_mask, scale, out, lse, do, out_p,
+                                               lse_p, causal, lib_out, (qt, kt, vt), lib_do))
         # what this data needs: a query sees the keys of its segment, and with
         # `causal` those at or before it, so n^2 or n (n + 1) / 2 pairs for a
         # segment of n.  A bf16 element is two bytes and its products are held
@@ -2076,9 +2109,17 @@ def _flash_case(gen: torch.Generator, shape, key_mask: Optional[torch.Tensor], t
         if not bf16:
             case["bounds_fp32_fma"] = _flash_bounds(pairs, shape, 4.0, FP32_FLOPS)
             line["bounds_fp32_fma"] = case["bounds_fp32_fma"]
-        achieved = {"fwd": 4.0 * pairs * h * d / times["fwd_with_lse_ms"] / 1e9,
-                    "dkv": 8.0 * pairs * h * d / times["dkv_ms"] / 1e9,
-                    "dq": 6.0 * pairs * h * d / times["dq_ms"] / 1e9}
+        achieved = {"fwd": 4.0 * pairs * h * d / times["fwd_with_lse_ms"] / 1e9}
+        if forward_only:
+            # q, k, v read and o written, the segment row read: no lse row
+            elems = (2.0 if bf16 else 4.0) * b * t * h * d
+            bounds["fwd"] = _bound(4 * elems + 4.0 * b * h * t, 4.0 * pairs * h * d, peak)
+            if not bf16:
+                case["bounds_fp32_fma"]["fwd"] = _bound(4 * elems + 4.0 * b * h * t,
+                                                        4.0 * pairs * h * d, FP32_FLOPS)
+        else:
+            achieved.update(dkv=8.0 * pairs * h * d / times["dkv_ms"] / 1e9,
+                            dq=6.0 * pairs * h * d / times["dq_ms"] / 1e9)
         line.update(times, bounds=bounds, visible_pairs_per_head=pairs, peak_flops=peak,
                     achieved_tflops=achieved,
                     library_call=f"F.scaled_dot_product_attention({library_call}) and its "
@@ -2864,7 +2905,8 @@ def _narrow_jets(cfg: dict) -> None:
 
 def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 64,
                      n_val: int = 16, steps: int = 8, batch_size: int = 16,
-                     max_seconds: float = 10.0, narrow: bool = False, precision=32) -> dict:
+                     max_seconds: float = 10.0, narrow: bool = False, precision=32,
+                     conformer: bool = False) -> dict:
     """JETS training: sup-data extraction at the model's STFT, then the
     training CLI's `run`; the kernel step against the plain step; the
     `.roar` loaded and synthesised from.  Returns the launch counts of that
@@ -2877,7 +2919,15 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
     stays fp32, as the JAX runner's), the kernel step is held to the plain
     step at the bf16 bars (BF16_STEP_*), and a hard alignment that MAS flips
     between the two paths is counted, then fed from the kernel path to the
-    plain path before the rest is compared."""
+    plain path before the rest is compared.
+
+    `conformer=True` (phase `train_jets_conformer`, with
+    `precision="bf16-mixed"`) trains configs/jets_22050_conformer.yaml
+    (`jets_train_config`): the steps and validation (a training-mode forward)
+    take the einsum path (0 flash launches; the bf16 K3/K4 as before),
+    synthesis the fp32 flash forward at two heads, which is held and timed
+    forward only at the two shapes and key lengths the synthesis of 8 texts
+    gives it."""
     import copy
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2900,7 +2950,9 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
 
     on_card = device.type == "cuda"
     bf16 = precision != 32
-    phase = "train_jets_bf16" if bf16 else "train_jets"
+    phase = "train_jets_conformer" if conformer else (
+        "train_jets_bf16" if bf16 else "train_jets")
+    phase_t0 = time.perf_counter()
 
     def sync():
         if on_card:
@@ -2953,7 +3005,7 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                 raise AssertionError(f"{sup_launches} Viterbi launches for {n_buckets} buckets")
             cfg = jets_train_config(
                 manifest, val_manifest, sup_dir, os.path.join(tmp, "exp"), stats["pitch_mean"],
-                stats["pitch_std"], str(device), steps, batch_size, precision)
+                stats["pitch_std"], str(device), steps, batch_size, precision, conformer)
             if narrow:
                 _narrow_jets(cfg)
             steps_per_epoch = n_utterances // batch_size
@@ -2977,19 +3029,34 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
             # a step: every attention layer forward, dK/dV and dQ once; each
             # grouped conv forward and dX in the D pass and in the G pass, dW
             # in the D pass only; a validation batch: the forwards of the
-            # generator graph and of the G pass's discriminators
-            want = {"fwd": n_attn * (steps + val_batches), "dkv": n_attn * steps,
-                    "dq": n_attn * steps,
+            # generator graph and of the G pass's discriminators.  Validation
+            # runs the training-mode forward, as the JAX runner's
+            # (roar_tpu/training/run.py:569-570), so the Conformer, whose
+            # attention dropout is active there, launches no flash kernel
+            n_step_attn = 0 if conformer else n_attn
+            want = {"fwd": n_step_attn * (steps + val_batches),
+                    "dkv": n_step_attn * steps, "dq": n_step_attn * steps,
                     "grouped_conv_fwd": n_grouped * (2 * steps + val_batches),
                     "grouped_conv_dx": 2 * n_grouped * steps, "grouped_conv_dw": n_grouped * steps}
             # under bf16 every launch of the steps is a bf16 one, validation's fp32
-            want_bf16 = ({**want, "fwd": n_attn * steps, "grouped_conv_fwd": 2 * n_grouped * steps}
+            want_bf16 = ({**want, "fwd": n_step_attn * steps,
+                          "grouped_conv_fwd": 2 * n_grouped * steps}
                          if bf16 else dict.fromkeys(want, 0))
             if state.step != steps or n_attn != (4 if narrow else 12) or n_grouped != 15:
                 raise AssertionError(f"{state.step} steps, {n_attn} attention layers, "
                                      f"{n_grouped} grouped convs")
-            if model.attention_paths() != {"input_fft": "flash", "output_fft": "flash"}:
+            path = "einsum" if conformer else "flash"
+            if model.attention_paths() != {"input_fft": path, "output_fft": path}:
                 raise AssertionError(f"attention paths {model.attention_paths()}")
+            stacks = (module.encoder_module.stack, module.decoder_module)
+            was = module.training
+            module.eval()
+            eval_paths = [s.attention_path() for s in stacks]
+            module.train(was)
+            if eval_paths != ["flash", "flash"]:
+                raise AssertionError(f"attention paths in eval mode {eval_paths}")
+            if conformer and type(stacks[1]).__name__ != "FFConformerDecoder":
+                raise AssertionError(f"the decoder is a {type(stacks[1]).__name__}")
             if model.compute_dtype != (torch.bfloat16 if bf16 else None):
                 raise AssertionError(f"the run trained in {model.compute_dtype}, not {precision}")
             if on_card and (launches != want or launches_bf16 != want_bf16):
@@ -2998,7 +3065,7 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                                      f"in the G pass, validation ran a backward, or a step ran "
                                      f"in the wrong type")
 
-            root = os.path.join(tmp, "exp", "JETS")
+            root = os.path.join(tmp, "exp", cfg["name"])
             with open(os.path.join(root, "metrics.jsonl")) as f:
                 records = [json.loads(line) for line in f if line.strip()]
             train = [r for r in records if "d_loss" in r]
@@ -3033,6 +3100,7 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
             del fresh
             _emit({"phase": phase, "step": "cli", "card": card, "steps": steps,
                    "precision": precision, "launches_bf16": launches_bf16,
+                   "attention_paths": {"training": path, "eval": "flash"},
                    "batch": batch_size, "utterances": n_utterances, "validation_utterances": n_val,
                    "seconds_of_audio": float(seconds[:n_utterances].sum()),
                    "sup_data": {**{k: stats[k] for k in ("pitch_mean", "pitch_std",
@@ -3049,11 +3117,24 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                    "val": {k: v for k, v in val[-1].items() if k.startswith("val_")},
                    "lr": lrs, "spectral_norm_convs_updated": len(moved), "wall_s": wall,
                    "wall_includes": "model build, WAV and cache reads, logging every step (a "
-                                    "sync each), two validation batches, checkpoints, bundle",
+                                    f"sync each), {val_batches} validation batches, checkpoints, "
+                                    "bundle",
                    "peak_device_memory_bytes": peak})
 
-            synth = _jets_bundle_synthesis(state, root, device, n_attn,
-                                           max_mel_len=128 if narrow else 1024, phase=phase)
+            # what synthesis hands the attention kernels: shape -> key mask
+            synth_given, flash_forward = {}, fa.flash_self_attention
+
+            def noting_synth(q, k, v, key_mask, scale, **kwargs):
+                synth_given.setdefault(tuple(q.shape), key_mask)
+                return flash_forward(q, k, v, key_mask, scale, **kwargs)
+
+            fa.flash_self_attention = noting_synth
+            try:
+                synth = _jets_bundle_synthesis(state, root, device, n_attn,
+                                               max_mel_len=128 if narrow else 1024, phase=phase,
+                                               name=cfg["name"])
+            finally:
+                fa.flash_self_attention = flash_forward
 
             # one D+G step, kernels against plain versions: same weights, batch,
             # segment starts and dropout masks
@@ -3101,10 +3182,11 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                 fa.flash_self_attention = flash_forward
             step_launches = dict(fa.LAUNCHES - before)
             step_bf16 = dict(fa.LAUNCHES_BF16 - before_bf16)
-            if on_card and (step_launches != dict.fromkeys(("fwd", "dkv", "dq"), n_attn)
+            want_step = dict.fromkeys(("fwd", "dkv", "dq"), n_step_attn) if n_step_attn else {}
+            if on_card and (step_launches != want_step
                             or step_bf16 != (step_launches if bf16 else {})):
                 raise AssertionError(f"one step launched {step_launches} (bf16 {step_bf16}), not "
-                                     f"{n_attn} of each")
+                                     f"{n_step_attn} of each")
             with _PlainFlash(), _PlainGroupedConv():
                 metrics_p, out_p = one_step(twin)
             frames_apart = int((out_k["attn_hard"] != out_p["attn_hard"]).any(-1).sum())
@@ -3196,17 +3278,24 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
 
             # the attention kernels against their plain versions at the shapes
             # and key lengths that step gave them: the encoder's (text bucket)
-            # and the decoder's (mel bucket)
+            # and the decoder's (mel bucket); the Conformer's forward (fp32) at
+            # those the synthesis of 8 texts gave it
             flash = {}
             if on_card:
+                if conformer:
+                    given = {k: m for k, m in synth_given.items() if k[0] == 8}
+                    where = f"the synthesis of 8 texts in {phase}, its key lengths"
+                else:
+                    where = f"the longest batch of {phase}, its own key lengths"
                 if len(given) != 2 or any(m is None for m in given.values()):
-                    raise AssertionError(f"the step gave its attention {list(given)}")
+                    raise AssertionError(f"the {'synthesis' if conformer else 'step'} gave its "
+                                         f"attention {list(given)}")
                 gen = torch.Generator(device=device).manual_seed(SEED)
                 for shape, key_mask in sorted(given.items()):
                     flash[shape[1]] = _flash_case(
-                        gen, shape, key_mask, True,
-                        f"the longest batch of {phase}, its own key lengths", phase=phase,
-                        dtype=torch.bfloat16 if bf16 else torch.float32)
+                        gen, shape, key_mask, True, where, phase=phase,
+                        dtype=torch.bfloat16 if bf16 and not conformer else torch.float32,
+                        forward_only=conformer)
 
             result = {"launches": launches, "sup_launches": sup_launches, "flash": flash,
                       "synthesis": synth}
@@ -3230,13 +3319,19 @@ def phase_train_jets(device: torch.device, card: str = "", n_utterances: int = 6
                          "mas": (jets_mod, "binarize_attention")}
                 result["timing"] = _time_gan_step(timing_state, batch, card, phase, timed,
                                                   epoch=1)
+            result["phase_wall_s"] = time.perf_counter() - phase_t0
+            _emit({"phase": phase, "step": "wall", "card": card,
+                   "seconds": result["phase_wall_s"],
+                   "method": "host clock around the whole phase: WAVs, sup-data, the run, "
+                             "synthesis, the step comparisons, the kernel cases, the timing"})
             return result
     finally:
         torch.backends.cudnn.benchmark = benchmark_was
 
 
 def _jets_bundle_synthesis(state, root: str, device: torch.device, n_attn: int,
-                           max_mel_len: int = 1024, phase: str = "train_jets") -> dict:
+                           max_mel_len: int = 1024, phase: str = "train_jets",
+                           name: str = "JETS") -> dict:
     """The saved `.roar` loaded into a fresh JETSModel (its parameters the
     trained ones), then `convert_text_to_waveform` into a `max_mel_len`
     bucket on one Bengali text and on a batch of 8: the flash forwards per
@@ -3249,7 +3344,7 @@ def _jets_bundle_synthesis(state, root: str, device: torch.device, n_attn: int,
     from roar_tpu_torch.training.save_restore import restore_from
 
     on_card = device.type == "cuda"
-    path = os.path.join(root, "checkpoints", "JETS.roar")
+    path = os.path.join(root, "checkpoints", f"{name}.roar")
     bundle_cfg, tree = restore_from(path)
     served = JETSModel(bundle_cfg["model"])
     convert.load_jets_bundle(served.module, served.mpd, served.msd, tree)
@@ -3284,11 +3379,12 @@ def _jets_bundle_synthesis(state, root: str, device: torch.device, n_attn: int,
 
         before = fa.LAUNCHES["fwd"]
         wav, frames = call()
+        launched = fa.LAUNCHES["fwd"] - before
         if on_card:
             torch.cuda.synchronize()
-            if fa.LAUNCHES["fwd"] - before != n_attn:
-                raise AssertionError(f"{fa.LAUNCHES['fwd'] - before} flash forwards for one "
-                                     f"synthesis call, not {n_attn}")
+            if launched != n_attn:
+                raise AssertionError(f"{launched} flash forwards for one synthesis call, not "
+                                     f"{n_attn}")
         with _PlainFlash():
             wav_p, frames_p = call()
         fa.flash_self_attention = unmasked
@@ -3312,7 +3408,8 @@ def _jets_bundle_synthesis(state, root: str, device: torch.device, n_attn: int,
         if on_card and planted <= JETS_WAV_PLANTED_MIN * JETS_WAV_REL_TOL * rms:
             raise AssertionError(f"batch {n}: dropping the key mask moves the audio by only "
                                  f"{planted / rms} of its RMS")
-        line = {"batch": n, "num_frames": frames.tolist(), "samples": lens,
+        line = {"batch": n, "flash_fwd_launches": launched, "num_frames": frames.tolist(),
+                "samples": lens,
                 "samples_per_frame": hop, "wav_rms": rms, "max_abs_err_vs_plain": err,
                 "rel_err_vs_plain": err / rms, "planted_unmasked_rel_err": planted / rms}
         if on_card:
@@ -4384,6 +4481,9 @@ def main() -> int:
     # configs/jets_22050_align.yaml at its shipped precision, full width and depth
     jets_bf16 = phase_train_jets(device, card, precision="bf16-mixed")
     torch.cuda.empty_cache()
+    # configs/jets_22050_conformer.yaml at its shipped bf16-mixed, use_flash on
+    jets_conf = phase_train_jets(device, card, steps=4, precision="bf16-mixed", conformer=True)
+    torch.cuda.empty_cache()
     gpt = phase_train_gpt(device, card)
     torch.cuda.empty_cache()
     pythia = phase_train_gpt(device, card, config_name="pythia-1b")
@@ -4459,6 +4559,29 @@ def main() -> int:
                          + [case["errors"] for case in jets16_flash.values()])
     flash_errors = ([case["errors"] for case in flash.values()]
                     + [case["errors"] for case in jets_flash.values()] + [fbwd["max_abs_err"]])
+
+    # K5 at two heads on the JETS-Conformer path: fp32 forwards of synthesis
+    # (the steps and validation take the einsum path), held and timed forward
+    # only at the shapes the synthesis of 8 texts gave it, summed
+    conf_cases = [jets_conf["flash"][t] for t in sorted(jets_conf["flash"])]
+
+    def conf_total(get):
+        return sum(get(case) for case in conf_cases)
+
+    conf_fwd = {"ms": conf_total(lambda c: c["times"]["fwd_ms"]),
+                "plain_ms": conf_total(lambda c: c["times"]["fwd_plain_ms"]),
+                "bound_ms": conf_total(lambda c: c["bounds"]["fwd"]["bound_ms"]),
+                "bound_by": conf_cases[-1]["bounds"]["fwd"]["bound_by"],
+                "library_ms": conf_total(lambda c: c["times"]["fwd_library_ms"]),
+                "bound_fp32_fma_ms": conf_total(
+                    lambda c: c["bounds_fp32_fma"]["fwd"]["bound_ms"]),
+                "max_abs_err": worst([c["errors"] for c in conf_cases], "o"),
+                "heads": 2, "rope": True, "shapes_t": sorted(jets_conf["flash"]),
+                "launches_per_synthesis_call": jets_conf["synthesis"]["batch_8"][
+                    "flash_fwd_launches"]}
+    conf_fwd["bound_share"] = conf_fwd["bound_ms"] / conf_fwd["ms"]
+    conf_synth_launches = sum(jets_conf["synthesis"][f"batch_{n}"]["flash_fwd_launches"]
+                              for n in (1, 8))
 
     def by_bucket(cases):
         return {str(t): {**case["times"], **{k: v["bound_ms"] for k, v in case["bounds"].items()},
@@ -4547,12 +4670,15 @@ def main() -> int:
          "replaces": "roar_tpu/models/transformer.py:72", "causal": False,
          "launches": run["launches"], "launches_train_fastpitch": fp_train["launches"]["fwd"],
          "launches_train_jets": jets["launches"]["fwd"],
-         "max_abs_err": max(kern["max_abs_err"], worst(flash_errors, "o")),
+         "launches_train_jets_conformer": conf_synth_launches,
+         "max_abs_err": max(kern["max_abs_err"], worst(flash_errors, "o"),
+                            conf_fwd["max_abs_err"]),
          **pick(kern), "library_ms": kern["library_ms"],
          "bound_fp32_fma_ms": kern["bound_fp32_fma_ms"],
          "train_fastpitch": {**flash_fwd, "lse_max_abs_err": worst(flash_errors, "lse"),
                              "by_mel_or_text_bucket": by_bucket(flash)},
-         "train_jets": {**jets_fwd, "by_mel_or_text_bucket": by_bucket(jets_flash)}},
+         "train_jets": {**jets_fwd, "by_mel_or_text_bucket": by_bucket(jets_flash)},
+         "train_jets_conformer": conf_fwd},
         # `launches` and the times: the FastPitch step's; `train_jets`: the
         # JETS step's two shapes
         *[{"name": f"flash_attention_bwd_{name}", "route": "cuda",
@@ -4619,7 +4745,8 @@ def main() -> int:
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:34",
          "launches": sup["launches"]["fwd"],
-         "launches_train_jets": jets["sup_launches"]["fwd"], "max_abs_err": 0.0,
+         "launches_train_jets": jets["sup_launches"]["fwd"],
+         "launches_train_jets_conformer": jets_conf["sup_launches"]["fwd"], "max_abs_err": 0.0,
          **pick(vit["fwd"]), "library_ms": None, "cluster": vit["fwd"]["cluster"],
          "max_active_clusters": vit["fwd"]["max_active_clusters"],
          "cluster_sweep": vit["sweep"], "b128": pick(vit["fwd_b128"]),
@@ -4630,7 +4757,9 @@ def main() -> int:
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:279",
          "launches": sup["launches"]["backtrack"],
-         "launches_train_jets": jets["sup_launches"]["backtrack"], "max_abs_err": 0.0,
+         "launches_train_jets": jets["sup_launches"]["backtrack"],
+         "launches_train_jets_conformer": jets_conf["sup_launches"]["backtrack"],
+         "max_abs_err": 0.0,
          **pick(vit["backtrack"]), "library_ms": None, "b128": pick(vit["backtrack_b128"]),
          "train_jets": {**pick(vit["backtrack_jets"]), "shape_btnw": list(VITERBI_CASES[5])}},
         # K3 and K4: times and bounds summed over the 15 grouped-conv shapes
@@ -4641,6 +4770,8 @@ def main() -> int:
            "source": "roar_tpu_torch/csrc/grouped_conv.cu", "replaces": replaces,
            "launches": train["launches"][name],
            "launches_train_jets": jets["launches"][f"grouped_conv_{name}"],
+           **({"launches_train_jets_conformer": jets_conf["launches"]["grouped_conv_fwd"]
+               - jets_conf["launches_bf16"]["grouped_conv_fwd"]} if name == "fwd" else {}),
            "max_abs_err": max(conv[name]["max_abs_err"], conv16k[name]["max_abs_err"]),
            "max_rel_err": max(conv[name]["max_rel_err"], conv16k[name]["max_rel_err"]),
            **pick(conv[name]), "library_ms": conv[name]["library_ms"],
@@ -4670,6 +4801,7 @@ def main() -> int:
            **{f"{key}_hifigan": train_bf16["conv_device"][("k4_" if name == "dw" else "k3_") + key]
               for key in ("device_ms_per_step", "by_kernel_ms", "launches_per_step")},
            "dtype": "bfloat16", "launches": jets_bf16["launches_bf16"][f"grouped_conv_{name}"],
+           "launches_train_jets_conformer": jets_conf["launches_bf16"][f"grouped_conv_{name}"],
            "launches_train_hifigan_bf16": train_bf16["launches_bf16"][name],
            "max_abs_err": max(conv_bf16[name]["max_abs_err"],
                               conv16k_bf16[name]["max_abs_err"]),
@@ -4758,6 +4890,7 @@ def main() -> int:
     ]
     if not all(k["launches"] > 0 for k in kernels) or fp_train["launches"]["fwd"] == 0 \
             or not all(k.get("launches_train_jets", 1) > 0 for k in kernels) \
+            or not all(k.get("launches_train_jets_conformer", 1) > 0 for k in kernels) \
             or not all(k.get(f"launches_{p}_bf16", 1) > 0 for k in kernels
                        for p in ("train_hifigan", "train_fastpitch")):
         raise AssertionError(f"a kernel was launched no time on its path: {kernels}")

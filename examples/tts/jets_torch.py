@@ -13,8 +13,11 @@ layer runs the hand-written flash-attention kernels, forward and backward;
 the multi-scale discriminator's grouped convs always run the grouped-conv
 kernels on the card.  The YAML's `trainer.precision: bf16-mixed` trains in
 bf16 from fp32 masters, through the kernels' bf16 forms; `trainer.precision=32`
-trains in fp32.  `device=cpu` runs the same loop on the host with the
-kernels' plain versions.  `run(cfg)` takes the loaded config as a Python
+trains in fp32.  With `--config-name=jets_22050_conformer` both stacks are
+Conformers with rotary position embeddings; their attention dropout is 0.1
+whatever `dropatt` says (as in the JAX package), so training and validation
+take the einsum path and only synthesis reaches the flash forward.
+`device=cpu` runs the same loop on the host with the kernels' plain versions.  `run(cfg)` takes the loaded config as a Python
 dict.
 """
 

@@ -6,8 +6,9 @@ training `forward` (fastpitch.py:270-401: encoder FFT -> duration, pitch and
 energy predictors -> aligner + MAS on the device -> pitch/energy embeddings ->
 length regulation by the hard durations -> decoder FFT -> mel projection) and
 `infer` (fastpitch.py:403-456: the same with predicted durations into a
-caller-chosen decoder bucket).  Dropout acts in training mode only.  GST is
-not ported yet.
+caller-chosen decoder bucket).  `make_encoder` and `make_decoder` build the
+FFT transformer or the Conformer stack that `FFTConfig.encoder_type` names.
+Dropout acts in training mode only.  GST is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from roar_tpu_torch.models.aligner import AlignmentEncoder
+from roar_tpu_torch.models.conformer import FFConformerDecoder, FFConformerEncoder
 from roar_tpu_torch.models.submodules import (
     XAVIER_GAINS,
     ConditionalInput,
@@ -100,6 +102,7 @@ class FFTConfig:
     condition_types: Sequence[str] = ()
     use_rope: bool = False
     use_flash: bool = False
+    encoder_type: str = "transformer"  # or "conformer"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,10 +129,28 @@ def _predictor(cfg: PredictorConfig) -> TemporalPredictor:
                              cfg.n_layers, cfg.condition_types, cfg.dropout)
 
 
-def _fft_kwargs(cfg: FFTConfig) -> Dict[str, object]:
-    return dict(pre_lnorm=cfg.pre_lnorm, condition_types=cfg.condition_types,
-                use_rope=cfg.use_rope, use_flash=cfg.use_flash, dropout=cfg.dropout,
-                dropatt=cfg.dropatt, dropemb=cfg.dropemb)
+def _common(cfg: FFTConfig) -> Dict[str, object]:
+    return dict(condition_types=cfg.condition_types, use_rope=cfg.use_rope,
+                use_flash=cfg.use_flash, dropout=cfg.dropout, dropatt=cfg.dropatt,
+                dropemb=cfg.dropemb)
+
+
+def make_encoder(cfg: FFTConfig, n_embed: int, d_embed: int, padding_idx: int) -> nn.Module:
+    """The encoder stack `cfg.encoder_type` names: the Conformer
+    (`kernel_size` its conv module's) or the FFT transformer."""
+    sizes = (cfg.n_layer, cfg.n_head, cfg.d_model, cfg.d_head, cfg.d_inner, cfg.kernel_size)
+    embed = dict(n_embed=n_embed, d_embed=d_embed, padding_idx=padding_idx)
+    if cfg.encoder_type == "conformer":
+        return FFConformerEncoder(*sizes, **embed, **_common(cfg))
+    return FFTransformerEncoder(*sizes, **embed, pre_lnorm=cfg.pre_lnorm, **_common(cfg))
+
+
+def make_decoder(cfg: FFTConfig) -> nn.Module:
+    """The decoder stack `cfg.encoder_type` names."""
+    sizes = (cfg.n_layer, cfg.n_head, cfg.d_model, cfg.d_head, cfg.d_inner, cfg.kernel_size)
+    if cfg.encoder_type == "conformer":
+        return FFConformerDecoder(*sizes, **_common(cfg))
+    return FFTransformerDecoder(*sizes, pre_lnorm=cfg.pre_lnorm, **_common(cfg))
 
 
 @torch.no_grad()
@@ -190,14 +211,8 @@ class FastPitchModule(nn.Module):
         self.condition_prosody = speaker_emb_condition_prosody
         self.condition_decoder = speaker_emb_condition_decoder
         self.condition_aligner = speaker_emb_condition_aligner
-        e = encoder
-        self.encoder_module = FFTransformerEncoder(
-            e.n_layer, e.n_head, e.d_model, e.d_head, e.d_inner, e.kernel_size,
-            n_embed=n_symbols, d_embed=d, padding_idx=padding_idx, **_fft_kwargs(e))
-        o = decoder
-        self.decoder_module = FFTransformerDecoder(
-            o.n_layer, o.n_head, o.d_model, o.d_head, o.d_inner, o.kernel_size,
-            **_fft_kwargs(o))
+        self.encoder_module = make_encoder(encoder, n_symbols, d, padding_idx)
+        self.decoder_module = make_decoder(decoder)
         self.duration_predictor_module = _predictor(duration_predictor)
         self.pitch_predictor_module = _predictor(pitch_predictor)
         self.energy_predictor_module = _predictor(energy_predictor) if energy_predictor else None

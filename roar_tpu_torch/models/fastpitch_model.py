@@ -61,13 +61,17 @@ def strip_inert_conditioning(cfg: Dict[str, Any], n_speakers: int, use_gst: bool
 
 
 def _fft_config(cfg: Dict[str, Any]) -> FFTConfig:
-    if cfg.get("encoder_type", "conformer" if "Conformer" in cfg.get("_target_", "") else
-               "transformer") != "transformer":
-        raise NotImplementedError("only the transformer FFT stack is ported")
-    if cfg.get("adapter_dim", 0):
-        raise NotImplementedError("adapters are not ported")
-    if cfg.get("remat", False):
-        raise NotImplementedError("remat (recomputing layer activations) is not ported")
+    """One FFT stack's block as an FFTConfig.  `encoder_type` (else
+    "Conformer" in `_target_`) picks the stack; a Conformer stack ignores
+    `pre_lnorm`, `adapter_dim` and `remat`, as the JAX package's factories
+    do, and the transformer raises on the last two."""
+    encoder_type = cfg.get("encoder_type",
+                           "conformer" if "Conformer" in cfg.get("_target_", "") else "transformer")
+    if encoder_type != "conformer":
+        if cfg.get("adapter_dim", 0):
+            raise NotImplementedError("adapters (adapter_dim) are not ported")
+        if cfg.get("remat", False):
+            raise NotImplementedError("remat (recomputing layer activations) is not ported")
     return FFTConfig(
         n_layer=cfg.get("n_layer", 6),
         n_head=cfg.get("n_head", 1),
@@ -82,6 +86,7 @@ def _fft_config(cfg: Dict[str, Any]) -> FFTConfig:
         condition_types=tuple(cfg.get("condition_types", ())),
         use_rope=cfg.get("use_rope", False),
         use_flash=cfg.get("use_flash", cfg.get("use_flash_attention", False)),
+        encoder_type=encoder_type,
     )
 
 

@@ -28,16 +28,13 @@ from roar_tpu_torch.models.fastpitch import (
     AlignerConfig,
     FFTConfig,
     PredictorConfig,
-    _fft_kwargs,
     _predictor,
+    make_decoder,
+    make_encoder,
 )
 from roar_tpu_torch.models.hifigan import Generator
 from roar_tpu_torch.models.submodules import Conv1d, Embedding, set_dropout_generator
-from roar_tpu_torch.models.transformer import (
-    FFTransformerDecoder,
-    FFTransformerEncoder,
-    conv1d_btc,
-)
+from roar_tpu_torch.models.transformer import conv1d_btc
 from roar_tpu_torch.ops.lengths import (
     average_features,
     log_to_duration,
@@ -76,13 +73,8 @@ class JETSModule(nn.Module):
         self.condition_decoder = speaker_emb_condition_decoder
         self.condition_aligner = speaker_emb_condition_aligner
         self.segment_generator: Optional[torch.Generator] = None
-        e, o = encoder, decoder
-        self.encoder_module = FFTransformerEncoder(
-            e.n_layer, e.n_head, e.d_model, e.d_head, e.d_inner, e.kernel_size,
-            n_embed=n_symbols, d_embed=d, padding_idx=padding_idx, **_fft_kwargs(e))
-        self.decoder_module = FFTransformerDecoder(
-            o.n_layer, o.n_head, o.d_model, o.d_head, o.d_inner, o.kernel_size,
-            **_fft_kwargs(o))
+        self.encoder_module = make_encoder(encoder, n_symbols, d, padding_idx)
+        self.decoder_module = make_decoder(decoder)
         self.duration_predictor_module = _predictor(duration_predictor)
         self.pitch_predictor_module = _predictor(pitch_predictor)
         self.energy_predictor_module = _predictor(energy_predictor) if energy_predictor else None

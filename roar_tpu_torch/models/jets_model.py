@@ -19,8 +19,9 @@ both the aligner's input mel and the segments' mel loss, as in the JAX
 package.  bf16 (`precision: bf16-mixed`, the shipped config): `set_compute_dtype`
 makes every layer of the generator graph and of the discriminators cast its
 parameters where it uses them, and training/gan.py casts the batch.
-`maybe_remat_disc` is not ported; the Conformer stacks and GST raise
-`NotImplementedError`.
+The FFT stacks are the transformer or the Conformer (RoPE attention,
+configs/jets_22050_conformer.yaml).  `maybe_remat_disc` is not ported; GST
+raises `NotImplementedError`.
 """
 
 from __future__ import annotations

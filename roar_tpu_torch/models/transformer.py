@@ -4,7 +4,9 @@ Port of roar_tpu/models/transformer.py: sinusoidal positions, `MultiHeadAttn`,
 `PositionwiseConvFF`, `TransformerLayer`, `FFTransformerDecoder` and
 `FFTransformerEncoder`.  Activations are [B, T, C] and attention heads
 [B, T, H, D], as in the JAX package.  `dropout`, `dropatt` and `dropemb` act
-in training mode only (`submodules.Dropout`).
+in training mode only (`submodules.Dropout`).  `use_rope` rotates q and k
+(`ops.rope`, the half-split form, in fp32) after the head split and before
+either attention path.
 
 Attention has two paths, as in JAX:
 - `use_flash=True`: `ops.flash_attention.flash_self_attention`, the CUDA
@@ -37,6 +39,7 @@ from roar_tpu_torch.models.submodules import (
     Linear,
 )
 from roar_tpu_torch.ops.flash_attention import flash_self_attention
+from roar_tpu_torch.ops.rope import apply_rope, build_rope_cache
 
 _MASK_NEG = -1e9
 
@@ -54,6 +57,14 @@ def sinusoidal_positional_embedding(length: int, d_model: int, device=None,
     return torch.as_tensor(emb, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def rope_tables(length: int, d_head: int, device=None):
+    """(cos, sin) float32 [length, d_head / 2] of `ops.rope.build_rope_cache`
+    on `device`, moved there once per length."""
+    cos, sin = build_rope_cache(length, d_head)
+    return torch.as_tensor(cos, device=device), torch.as_tensor(sin, device=device)
+
+
 def conv1d_btc(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     """Apply a channels-first Conv1d to a [B, T, C] tensor."""
     return conv(x.transpose(1, 2)).transpose(1, 2)
@@ -66,10 +77,8 @@ class MultiHeadAttn(nn.Module):
                  condition_types: Sequence[str] = (), use_rope: bool = False,
                  use_flash: bool = False, dropout: float = 0.0, dropatt: float = 0.0):
         super().__init__()
-        if use_rope:
-            raise NotImplementedError("RoPE attention is not ported yet")
         self.n_head, self.d_head = n_head, d_head
-        self.pre_lnorm, self.use_flash = pre_lnorm, use_flash
+        self.pre_lnorm, self.use_flash, self.use_rope = pre_lnorm, use_flash, use_rope
         self.scale = 1.0 / math.sqrt(d_head)
         self.qkv_net = Linear(d_model, 3 * n_head * d_head)
         self.o_net = Linear(n_head * d_head, d_model, bias=False)
@@ -90,6 +99,9 @@ class MultiHeadAttn(nn.Module):
         b, t, _ = x.shape
         q, k, v = (z.reshape(b, t, self.n_head, self.d_head).contiguous()
                    for z in self.qkv_net(x).chunk(3, dim=-1))
+        if self.use_rope:
+            cos, sin = rope_tables(t, self.d_head, x.device)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         if self.attention_path() == "flash":
             attn = flash_self_attention(q, k, v, key_mask, self.scale)
         else:
@@ -175,9 +187,25 @@ class FFTransformerDecoder(nn.Module):
         return x, mask
 
 
-class FFTransformerEncoder(nn.Module):
+class TokenEncoder(nn.Module):
     """Token embedding (the padding token embeds to zero and defines the mask)
-    followed by an FFTransformerDecoder stack."""
+    followed by a stack over the embeddings; subclasses build `word_emb`,
+    `padding_idx` and `stack`."""
+
+    def embed(self, tokens):
+        """(embeddings with the padding token's zeroed [B, T, C], mask [B, T, 1])."""
+        mask = (tokens != self.padding_idx)[..., None]
+        emb = self.word_emb(tokens)
+        mask = mask.to(emb.dtype)
+        return emb * mask, mask
+
+    def forward(self, tokens, conditioning=None):
+        emb, mask = self.embed(tokens)
+        return self.stack(emb, mask, conditioning)
+
+
+class FFTransformerEncoder(TokenEncoder):
+    """Token embedding followed by an FFTransformerDecoder stack."""
 
     def __init__(self, n_layer: int, n_head: int, d_model: int, d_head: int,
                  d_inner: int, kernel_size: int, n_embed: int,
@@ -191,14 +219,3 @@ class FFTransformerEncoder(nn.Module):
         self.stack = FFTransformerDecoder(n_layer, n_head, d_model, d_head, d_inner,
                                           kernel_size, pre_lnorm, condition_types,
                                           use_rope, use_flash, dropout, dropatt, dropemb)
-
-    def embed(self, tokens):
-        """(embeddings with the padding token's zeroed [B, T, C], mask [B, T, 1])."""
-        mask = (tokens != self.padding_idx)[..., None]
-        emb = self.word_emb(tokens)
-        mask = mask.to(emb.dtype)
-        return emb * mask, mask
-
-    def forward(self, tokens, conditioning=None):
-        emb, mask = self.embed(tokens)
-        return self.stack(emb, mask, conditioning)

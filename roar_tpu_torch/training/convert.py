@@ -22,7 +22,10 @@ port's modules from the JAX trees, `to_jax_tree` writes them back as the
 
 FastPitch is a change of layout only as well: `load_fastpitch_params` fills a
 port `FastPitchModule` (or any of its sub-modules) from the flax tree and
-`fastpitch_to_jax_tree` writes it back.
+`fastpitch_to_jax_tree` writes it back, with FFT transformer or Conformer
+stacks (a Conformer layer's scopes: `ff1` / `ff2` with `Dense_0`, `Dense_1`
+and `layer_norm`, `self_attn`, and `convolutional_block` with `Conv_0`, the
+depthwise `Conv_1`, `LayerNorm_0`, `Conv_2` and `layer_norm`).
 
 GPT is a change of layout only too: `load_gpt_params` fills a port `GPT` from
 the flax tree in either block layout (`h_0 .. h_{L-1}`, or `h_scan` with a
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from roar_tpu_torch.models.conformer import ConvolutionalModule, PositionwiseFF
 from roar_tpu_torch.models.fastpitch import ConvReLUNorm
 from roar_tpu_torch.models.gpt import GPT, RMSNorm
 from roar_tpu_torch.models.hifigan import (
@@ -121,6 +125,11 @@ def _flax_child(parent: nn.Module, name: str) -> str:
         return {"conv1": "Conv_0", "conv2": "Conv_1"}.get(name, name)
     if isinstance(parent, (ConvReLUNorm, ConvNorm)) and name == "conv":
         return "Conv_0"
+    if isinstance(parent, PositionwiseFF):
+        return {"linear_in": "Dense_0", "linear_out": "Dense_1"}.get(name, name)
+    if isinstance(parent, ConvolutionalModule):
+        return {"pointwise_in": "Conv_0", "depthwise": "Conv_1", "norm": "LayerNorm_0",
+                "pointwise_out": "Conv_2"}.get(name, name)
     return name
 
 

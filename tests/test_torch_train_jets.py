@@ -229,4 +229,4 @@ def test_chip_smoke_jets_phase_rehearsal_on_the_cpu(capsys):
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
              if line.startswith("{")]
     assert [r["step"] for r in lines if r.get("phase") == "train_jets"] == [
-        "cli", "bundle_synthesis", "kernel_path_vs_plain_path"]
+        "cli", "bundle_synthesis", "kernel_path_vs_plain_path", "wall"]
