@@ -132,7 +132,35 @@ Phases, each printing JSON lines:
    (D 100) and gemma-2b (D 256, one KV group) at full width and 2 layers,
    S 2048, seeded weights and tokens, the kernels against their plain
    versions at phase 11's bf16 bars, with their (padded) launches; and one
-   fp32 micro-batch of gemma-2b at phase 11's fp32 bars.
+   fp32 micro-batch of gemma-2b at phase 11's fp32 bars.  llama-2-7b (D 128)
+   and Mixtral-8x7B-v0.1 (D 128 under a mixture-of-experts MLP: 8 experts of
+   14336, top 2; 3,164,688,384 parameters at 2 layers) at S 4096, each in
+   bf16 and fp32; Mixtral's plain passes are fed the kernel pass's expert
+   choice, the tokens the plain pass would route elsewhere are counted, and
+   one micro-batch is timed in each type;
+13. train_fastpitch_44100: configs/fastpitch_44100_align.yaml at its bf16, 64
+   utterances at 44.1 kHz, sup-data at n_fft 2048 / hop 512 (one launch of
+   each Viterbi kernel per bucket of 16, pitch_mean / pitch_std from it), 4
+   steps (12 / 12 / 12 bf16 flash launches a step), the checks of phase 8,
+   and the bundle served with the v1_44100 generator, a batch of 8 texts of
+   one text bucket and one single text without `warmup()`; then
+   train_hifigan_44100 (configs/hifigan_44100.yaml, v1_44100, fp32 as the
+   YAML ships it, 4 steps of 16 x 8192, 30 / 30 / 15 launches a step, timed)
+   and train_hifigan_v2 / train_hifigan_v3 (hifigan_22050.yaml with the v2 /
+   v3 generator at full width: 2 steps, the D+G step kernels against plain at
+   phase 6's bars, the bundle synthesised);
+14. generate_gpt (after train_gpt, from its bundle): tiny-llama-1.1b in fp32
+   through `TextGeneration` on 4 prompts for 32 new tokens, greedy and sampled
+   (temperature 0.8, top-k 40, top-p 0.9, repetition penalty 1.2, end_id,
+   min_length 8); the cached decode launches no flash kernel, and one forward
+   of each generated sequence without a cache (22 causal fp32 flash
+   forwards) gives the cached decode's logits within 1e-3 of their largest
+   magnitude; prefill ms and decode tokens/s;
+15. train_bert: configs/bert_pretraining.yaml at its widths (6 layers, d 512,
+   8 heads, seq 128, batch 32, fp32) through the CLI's `run` on a seeded
+   corpus, 16 steps and a validation pass; finite losses, a fixed batch's
+   loss below its loss at the initial parameters, the `.roar` equal to the
+   trained parameters; one step's time.
 
 Then the kernels line, the card line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -144,6 +172,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -242,40 +271,62 @@ def fastpitch_config() -> dict:
     }
 
 
-def hifigan_config() -> dict:
-    """The `model` block of configs/hifigan_22050.yaml that the port reads:
-    the preprocessor and the v1 generator."""
+# configs/hifigan/generator/*.yaml
+HIFIGAN_GENERATORS = {
+    "v1": {"resblock": 1, "upsample_rates": [8, 8, 2, 2],
+           "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 512,
+           "resblock_kernel_sizes": [3, 7, 11],
+           "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]]},
+    "v1_44100": {"resblock": 1, "upsample_rates": [8, 8, 4, 2],
+                 "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 512,
+                 "resblock_kernel_sizes": [3, 7, 11],
+                 "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]]},
+    "v2": {"resblock": 1, "upsample_rates": [8, 8, 2, 2],
+           "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 128,
+           "resblock_kernel_sizes": [3, 7, 11],
+           "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]]},
+    "v3": {"resblock": 2, "upsample_rates": [8, 8, 4], "upsample_kernel_sizes": [16, 16, 8],
+           "upsample_initial_channel": 256, "resblock_kernel_sizes": [3, 5, 7],
+           "resblock_dilation_sizes": [[1, 2], [2, 6], [3, 12]]},
+}
+# n_fft (= window) and hop of configs/hifigan_22050.yaml and hifigan_44100.yaml
+HIFIGAN_STFT = {22050: (1024, 256), 44100: (2048, 512)}
+
+
+def hifigan_config(sample_rate: int = 22050, generator: str = "v1") -> dict:
+    """The `model` block of configs/hifigan_22050.yaml (or, at 44100,
+    configs/hifigan_44100.yaml) that the port reads: the preprocessor and
+    the generator of configs/hifigan/generator/<generator>.yaml."""
+    n_fft, hop = HIFIGAN_STFT[sample_rate]
     return {
         "preprocessor": {
-            "nfilt": 80, "lowfreq": 0, "highfreq": 8000, "n_fft": 1024, "n_window_size": 1024,
-            "n_window_stride": 256, "pad_to": 0, "pad_value": -11.52, "sample_rate": 22050,
-            "window": "hann", "normalize": None, "preemph": None, "dither": 0.0, "log": True,
-            "log_zero_guard_type": "clamp", "log_zero_guard_value": 1e-05, "mag_power": 1.0,
-            "exact_pad": True,
+            "nfilt": 80, "lowfreq": 0, "highfreq": 8000, "n_fft": n_fft, "n_window_size": n_fft,
+            "n_window_stride": hop, "pad_to": 0, "pad_value": -11.52,
+            "sample_rate": sample_rate, "window": "hann", "normalize": None, "preemph": None,
+            "dither": 0.0, "log": True, "log_zero_guard_type": "clamp",
+            "log_zero_guard_value": 1e-05, "mag_power": 1.0, "exact_pad": True,
         },
-        "generator": {
-            "resblock": 1, "upsample_rates": [8, 8, 2, 2],
-            "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 512,
-            "resblock_kernel_sizes": [3, 7, 11],
-            "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
-        },
+        "generator": dict(HIFIGAN_GENERATORS[generator]),
     }
 
 
 def hifigan_train_config(manifest: str, exp_dir: str, device: str = "cuda", max_steps: int = 8,
                          batch_size: int = 16, n_segments: int = 8192, debug: bool = False,
-                         precision=None) -> dict:
+                         precision=None, sample_rate: int = 22050,
+                         generator: str = "v1") -> dict:
     """configs/hifigan_22050.yaml as the loader resolves it, for the keys the
     training CLI reads, with `trainer.max_steps`, `trainer.log_every_n_steps=1`
     `trainer.max_epochs` and `exp_manager.always_save_roar=true`
     (tests/test_torch_train_gan.py holds it to the YAML), and with `precision`
-    `trainer.precision` (the YAML sets none: fp32).  Two epochs of 64
-    utterances are 8 steps.  No validation set: they end before epoch 20."""
+    `trainer.precision` (the YAML sets none: fp32); at `sample_rate` 44100
+    configs/hifigan_44100.yaml, with `generator` the generator YAML it
+    includes.  Two epochs of 64 utterances are 8 steps.  No validation set:
+    they end before epoch 20."""
     model = {
-        **hifigan_config(),
+        **hifigan_config(sample_rate, generator),
         "train_ds": {
             "dataset": {"_target_": "roar_tpu.data.dataset.VocoderDataset",
-                        "manifest_filepath": manifest, "sample_rate": 22050,
+                        "manifest_filepath": manifest, "sample_rate": sample_rate,
                         "n_segments": n_segments, "max_duration": None, "min_duration": 0.75},
             "dataloader_params": {"drop_last": False, "shuffle": True, "batch_size": batch_size,
                                   "num_workers": 4},
@@ -300,7 +351,8 @@ def hifigan_train_config(manifest: str, exp_dir: str, device: str = "cuda", max_
 
 def fastpitch_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_dir: str,
                            pitch_mean: float, pitch_std: float, device: str = "cuda",
-                           max_steps: int = 8, batch_size: int = 32, precision=32) -> dict:
+                           max_steps: int = 8, batch_size: int = 32, precision=32,
+                           sample_rate: int = 22050) -> dict:
     """configs/fastpitch_22050_align.yaml as the loader resolves it, for the
     keys the training CLI reads, with the overrides of the configuration that
     runs the attention kernels: `model.{input_fft,output_fft}.use_flash=true`
@@ -309,7 +361,9 @@ def fastpitch_train_config(train_manifest: str, val_manifest: str, sup_dir: str,
     `sup_data_types`, `trainer.precision=32` (or the YAML's own `bf16` with
     `precision="bf16"`), `trainer.max_steps`,
     `trainer.log_every_n_steps=1` and `exp_manager.always_save_roar=true`
-    (tests/test_torch_train_supervised.py holds it to the YAML)."""
+    (tests/test_torch_train_supervised.py holds it to the YAML).  At
+    `sample_rate` 44100 it is configs/fastpitch_44100_align.yaml, which
+    differs in that key alone."""
     model = fastpitch_config()
     for fft in ("input_fft", "output_fft"):
         model[fft].update(dropout=0.1, dropatt=0.0, dropemb=0.0)
@@ -318,14 +372,14 @@ def fastpitch_train_config(train_manifest: str, val_manifest: str, sup_dir: str,
     model["energy_predictor"] = dict(model["pitch_predictor"])
     model["preprocessor"] = {
         "features": 80, "lowfreq": 0, "highfreq": 8000, "n_fft": 2048, "n_window_size": 2048,
-        "n_window_stride": 512, "pad_to": 1, "pad_value": 0, "sample_rate": 22050,
+        "n_window_stride": 512, "pad_to": 1, "pad_value": 0, "sample_rate": sample_rate,
         "window": "hann", "normalize": None, "preemph": None, "dither": 0.0, "log": True,
         "log_zero_guard_type": "add", "log_zero_guard_value": 1e-05, "mag_power": 1.0,
     }
 
     def dataset(manifest):
         return {"_target_": "roar_tpu.data.dataset.TTSDataset", "manifest_filepath": manifest,
-                "sample_rate": 22050, "sup_data_path": sup_dir,
+                "sample_rate": sample_rate, "sup_data_path": sup_dir,
                 "sup_data_types": ["align_prior_matrix", "pitch", "speaker_id", "energy"],
                 "n_fft": 2048, "win_length": 2048, "hop_length": 512, "window": "hann",
                 "n_mels": 80, "lowfreq": 0, "highfreq": 8000, "max_duration": None,
@@ -1441,12 +1495,18 @@ class _PlainGroupedConv:
 
 def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int = 64,
                         steps: int = 8, batch_size: int = 16, n_segments: int = 8192,
-                        debug: bool = False, precision=None) -> dict:
+                        debug: bool = False, precision=None, sample_rate: int = 22050,
+                        generator: str = "v1", timed: bool = True) -> dict:
     """HiFi-GAN training through the CLI's `run`; returns the grouped-conv
     launch counts of that run.  With `precision="bf16"` (phase
     `train_hifigan_bf16`) the run trains with `trainer.precision=bf16`: every
     grouped conv of a step is a bf16 launch, and the kernel step is held to
-    the plain step at the bf16 step's bars."""
+    the plain step at the bf16 step's bars.  `sample_rate` 44100 trains
+    configs/hifigan_44100.yaml on audio at that rate (phase
+    `train_hifigan_44100`), `generator` names the generator YAML (phases
+    `train_hifigan_v2`, `train_hifigan_v3`); the MSD sees `n_segments`
+    samples whatever the rate, so its grouped convs keep their shapes.
+    `timed=False` leaves out the step timing."""
     import copy
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "tts"))
@@ -1465,6 +1525,9 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
     on_card = device.type == "cuda"
     bf16 = precision is not None
     phase = "train_hifigan_bf16" if bf16 else "train_hifigan"
+    if generator != "v1":
+        phase += "_44100" if sample_rate == 44100 else f"_{generator}"
+    hop = HIFIGAN_STFT[sample_rate][1]
 
     def sync():
         if on_card:
@@ -1478,14 +1541,15 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
         with tempfile.TemporaryDirectory() as tmp:
             entries = []
             for i in range(n_utterances):
-                audio = synth_utterance(rng, float(rng.uniform(1.0, 2.0)))[0]
+                audio = synth_utterance(rng, float(rng.uniform(1.0, 2.0)), sr=sample_rate)[0]
                 path = os.path.join(tmp, f"utt{i:03d}.wav")
-                write_wav(path, audio, SUP_SAMPLE_RATE)
-                entries.append({"audio_filepath": path, "duration": len(audio) / SUP_SAMPLE_RATE})
+                write_wav(path, audio, sample_rate)
+                entries.append({"audio_filepath": path, "duration": len(audio) / sample_rate})
             manifest = os.path.join(tmp, "train_manifest.json")
             write_manifest(manifest, entries)
             cfg = hifigan_train_config(manifest, os.path.join(tmp, "exp"), str(device), steps,
-                                       batch_size, n_segments, debug, precision)
+                                       batch_size, n_segments, debug, precision, sample_rate,
+                                       generator)
 
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
@@ -1541,7 +1605,9 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
             if len(moved) != 8 or not all(moved):
                 raise AssertionError(f"spectral-norm stats of scale 0 not updated: {moved}")
             _emit({"phase": phase, "step": "cli", "card": card, "steps": steps,
-                   "precision": precision, "batch": batch_size, "segment": n_segments,
+                   "precision": precision, "sample_rate": sample_rate, "generator": generator,
+                   "generator_parameters": sum(p.numel() for p in model.generator.parameters()),
+                   "batch": batch_size, "segment": n_segments,
                    "utterances": n_utterances, "grouped_conv_launches": launches,
                    "grouped_conv_launches_bf16": launches_bf16,
                    "per_step": {k: v // steps for k, v in launches.items()},
@@ -1568,7 +1634,7 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
                 model.set_compute_dtype(None)  # the fp32 masters, as the bundle holds them
                 trained_audio = model.generator(mel)
                 model.set_compute_dtype(torch.bfloat16 if bf16 else None)
-            if tuple(audio.shape) != (1, 64 * 256) or not torch.isfinite(audio).all():
+            if tuple(audio.shape) != (1, 64 * hop) or not torch.isfinite(audio).all():
                 raise AssertionError(f"vocoder output {tuple(audio.shape)} or not finite")
             fold_err = float((audio - trained_audio).abs().max())
             if fold_err > 1e-4:
@@ -1628,7 +1694,7 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
             result = {"launches": launches}
             if bf16:
                 result["launches_bf16"] = launches_bf16
-            if on_card:
+            if on_card and timed:
                 timing_state = GANTrainState(
                     model=model, g_opt=build_optimizer(model.g_parameters(), optim_cfg),
                     d_opt=build_optimizer(model.d_parameters(), optim_cfg))
@@ -2447,16 +2513,69 @@ def _longest_tts_batch(cfg: dict, tokenizer, device: torch.device) -> dict:
     return to_device(next(iter(batch_iterator(dataset, [longest], BucketSpec()))), device)
 
 
+def _serve_one_bucket(engine, fastpitch, card: str, phase: str) -> dict:
+    """A batch of 8 texts of one text bucket and one single text of it through
+    `engine.synthesize_batch`, three calls each, without `warmup()`: the
+    first call of each shape meets the convolutions untuned (cuDNN picks its
+    algorithms then), so its time is reported apart.  Checks the sample
+    counts against the frames FastPitch gives the same tokens."""
+    from roar_tpu_torch.kernels import flash_attention as fa
+
+    buckets = {}
+    for sentence in TAMIL_SENTENCES:
+        bucket = engine._text_bucket(len(fastpitch.parse(sentence)[0]))
+        buckets.setdefault(bucket, []).append(sentence)
+    bucket, texts = max(buckets.items(), key=lambda kv: (len(kv[1]), -kv[0]))
+    texts = [texts[i % len(texts)] for i in range(8)]
+    speakers = [i % fastpitch.module.n_speakers for i in range(8)]
+    sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
+    before = fa.LAUNCHES["fwd"]
+    programs = engine.programs_run
+    out = {}
+    for name, batch, spk in (("batch_8", texts, speakers), ("batch_1", texts[:1], speakers[:1])):
+        seconds, waves = [], None
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            waves = engine.synthesize_batch(batch, spk)
+            seconds.append(time.perf_counter() - t0)
+        if not all(w.dtype == np.int16 and w.size > 0 and w.size % engine.hop == 0
+                   for w in waves):
+            raise AssertionError(f"{name}: served audio {[w.size for w in waves]}")
+        audio_s = sum(w.size for w in waves) / engine.sample_rate
+        out[name] = {"first_call_s": seconds[0], "later_calls_s": seconds[1:],
+                     "audio_s": audio_s, "rtf_later": float(np.median(seconds[1:])) / audio_s}
+    launches = fa.LAUNCHES["fwd"] - before
+    n_attn = (len(fastpitch.module.encoder_module.stack.layers)
+              + len(fastpitch.module.decoder_module.layers))
+    if engine.device.type == "cuda" and launches != n_attn * (engine.programs_run - programs):
+        raise AssertionError(f"{launches} flash launches for "
+                             f"{engine.programs_run - programs} programs")
+    line = {"phase": phase, "step": "serve", "card": card, "text_bucket": bucket,
+            "sample_rate": engine.sample_rate, "hop": engine.hop, "warmup": False,
+            "flash_launches": launches, **out}
+    _emit(line)
+    return line
+
+
 def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: int = 128,
                           steps: int = 8, batch_size: int = 32, max_seconds: float = 10.0,
-                          narrow: bool = False, precision=32) -> dict:
+                          narrow: bool = False, precision=32, sample_rate: int = SUP_SAMPLE_RATE,
+                          serve: bool = False) -> dict:
     """FastPitch training with learned alignment: sup-data extraction, then
     the training CLI's `run`; returns the flash-attention launch counts of
     that run.  With `precision="bf16"` (phase `train_fastpitch_bf16`, the
     YAML's own precision) every launch is a bf16 one, and the kernel step is
     held to the plain step at the bf16 step's bars; a hard alignment that MAS
     flips between the two paths is counted, then fed from the kernel path to
-    the plain path before the rest is compared."""
+    the plain path before the rest is compared.  `sample_rate` 44100 (phase
+    `train_fastpitch_44100`) trains configs/fastpitch_44100_align.yaml on
+    audio at that rate and serves the bundle with the v1_44100 generator of
+    configs/hifigan_44100.yaml.  With `serve`, the Viterbi launches of the
+    sup-data extraction are counted (one of each kernel per bucket of 16) and
+    returned, and the engine also synthesises a batch of 8 texts of one text
+    bucket and one single text, three times each without `warmup()`, the first
+    call's time reported apart."""
     import copy
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2476,9 +2595,13 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
     from roar_tpu_torch.training.optim import noam_annealing
     from roar_tpu_torch.training.save_restore import restore_from
 
+    from roar_tpu_torch.kernels import pyin_viterbi as pv
+
     on_card = device.type == "cuda"
     bf16 = precision != 32
     phase = "train_fastpitch_bf16" if bf16 else "train_fastpitch"
+    if sample_rate != SUP_SAMPLE_RATE:
+        phase = f"train_fastpitch_{sample_rate}"
 
     def sync():
         if on_card:
@@ -2499,15 +2622,15 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
             seconds[0] = max_seconds
             entries = []
             for i, sec in enumerate(seconds):
-                audio = synth_utterance(rng, float(sec))[0]
+                audio = synth_utterance(rng, float(sec), sr=sample_rate)[0]
                 frames = len(audio) // 512 + 1
                 # a text its mel can hold: at least two frames per token
                 fits = [j for j, n in enumerate(n_tokens) if 2 * n <= frames]
                 if not fits:
                     raise AssertionError(f"no sentence fits {frames} mel frames")
                 path = os.path.join(wav_dir, f"utt{i:03d}.wav")
-                write_wav(path, audio, SUP_SAMPLE_RATE)
-                entries.append({"audio_filepath": path, "duration": len(audio) / SUP_SAMPLE_RATE,
+                write_wav(path, audio, sample_rate)
+                entries.append({"audio_filepath": path, "duration": len(audio) / sample_rate,
                                 "text": TAMIL_SENTENCES[fits[int(rng.integers(len(fits)))]],
                                 "speaker_id": i % 4})
             manifest = os.path.join(tmp, "train_manifest.json")
@@ -2517,10 +2640,18 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
 
             # stage 1 feeds stage 2: pitch, energy and the prior's lengths come from this cache
             sup_dir = os.path.join(tmp, "sup")
-            stats = sup_cli.run(sup_data_config(manifest, sup_dir, str(device)))
+            sup_cfg = sup_data_config(manifest, sup_dir, str(device), sample_rate)
+            pv.LAUNCHES_FWD, pv.LAUNCHES_BACKTRACK = 0, 0
+            stats = sup_cli.run(sup_cfg)
+            sync()
+            sup_launches = {"fwd": pv.LAUNCHES_FWD, "backtrack": pv.LAUNCHES_BACKTRACK}
+            n_buckets = -(-n_utterances // sup_cfg["batch_size"])
+            if on_card and sup_launches != {"fwd": n_buckets, "backtrack": n_buckets}:
+                raise AssertionError(f"{sup_launches} Viterbi launches for {n_buckets} buckets")
+            # the YAML's pitch_mean / pitch_std (`???`) from the extracted pitch
             cfg = fastpitch_train_config(
                 manifest, val_manifest, sup_dir, os.path.join(tmp, "exp"), stats["pitch_mean"],
-                stats["pitch_std"], str(device), steps, batch_size, precision)
+                stats["pitch_std"], str(device), steps, batch_size, precision, sample_rate)
             if narrow:
                 _narrow_fastpitch(cfg)
             steps_per_epoch = n_utterances // batch_size
@@ -2582,8 +2713,10 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                    "precision": precision, "flash_launches_bf16": launches_bf16,
                    "batch": batch_size, "utterances": n_utterances,
                    "seconds_of_audio": float(seconds.sum()),
-                   "sup_data": {k: stats[k] for k in ("pitch_mean", "pitch_std", "mel_frames",
-                                                      "seconds")},
+                   "sample_rate": sample_rate,
+                   "sup_data": {**{k: stats[k] for k in ("pitch_mean", "pitch_std", "mel_frames",
+                                                         "seconds")},
+                                "viterbi_launches": sup_launches},
                    "flash_launches": launches, "attention_layers": n_attn,
                    "per_step": {k: launches[k] // steps for k in ("dkv", "dq")},
                    "validation_batches": val_batches,
@@ -2711,7 +2844,8 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                                          state.model.module.state_dict().items()):
                 if not torch.equal(a, b.cpu()):
                     raise AssertionError(f"bundle parameter {name} is not the trained one")
-            hg_cfg = hifigan_config()
+            hg_cfg = (hifigan_config(sample_rate, "v1_44100") if sample_rate == 44100
+                      else hifigan_config())
             if narrow:
                 hg_cfg["generator"]["upsample_initial_channel"] = 16
             vocoder = vocoder_from_config(hg_cfg)
@@ -2723,6 +2857,7 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                 mel, n_frames = served.generate_spectrogram(
                     tokens, torch.tensor([1], device=device), max_mel_len=1024)
                 (wave,) = engine.synthesize_batch([sentence], [1])
+                serving = _serve_one_bucket(engine, served, card, phase) if serve else None
             finally:
                 engine.close()
             if tuple(mel.shape) != (1, 1024, 80) or not torch.isfinite(mel).all():
@@ -2732,13 +2867,16 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                 raise AssertionError(f"served audio: {wave.dtype}, {wave.size} samples for "
                                      f"{int(n_frames[0])} mel frames")
             _emit({"phase": phase, "step": "bundle",
-                   "bundle_bytes": os.path.getsize(path),
+                   "bundle_bytes": os.path.getsize(path), "vocoder_hop": engine.hop,
+                   "sample_rate": engine.sample_rate,
                    "parameters_equal_trained": True, "mel_shape": list(mel.shape),
                    "mel_frames": int(n_frames[0]), "served_samples": int(wave.size)})
 
             result = {"launches": launches}
             if bf16:
                 result.update(launches_bf16=launches_bf16, mas_frames_apart=frames_apart)
+            if serve:
+                result.update(sup_launches=sup_launches, serving=serving)
             if on_card:
                 result["flash"] = flash
                 result["timing"] = _time_fastpitch_step(model, batch, cfg, card, phase)
@@ -3556,7 +3694,7 @@ def _grad_l2_rel(got, want, names=None):
 def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
                     seq_length: Optional[int] = None, vocab_size: Optional[int] = None,
                     updates: Optional[int] = None, config_name: str = "tiny-llama-1.1b",
-                    precision: Optional[str] = "bf16") -> dict:
+                    precision: Optional[str] = "bf16", keep_dir: Optional[str] = None) -> dict:
     """GPT causal-LM training through the CLI's `run` at the full width and
     depth of a `GPT_RUNS` entry, tiny-llama-1.1b or pythia-1b (`narrow`: a
     rehearsal width; `seq_length`, `vocab_size` and `updates` default to the
@@ -3565,7 +3703,9 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
     plain versions: in a bf16 run at full depth in bf16 and at 4 layers in
     fp32, in an fp32 run at full depth in fp32.  Returns the causal flash
     launch counts of the run (all, and the bf16 ones) and of its fp32 check,
-    and on the card the step's timing."""
+    and on the card the step's timing; with `keep_dir`, the saved bundle and
+    the corpus files are moved there and their paths returned as `bundle`
+    (what phase `generate_gpt` reads)."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "examples", "nlp"))
     import gpt_pretraining_torch as cli
@@ -3715,6 +3855,10 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
                "bundle_bytes": os.path.getsize(path),
                "layout": "h_scan", "parameters_equal_trained": True})
         del loaded, tree, flat
+        kept = None
+        if keep_dir is not None:
+            kept = {"path": shutil.move(path, keep_dir),
+                    "corpus": [shutil.move(f, keep_dir) for f in (train_file, val_file)]}
 
     # one micro-batch under each remat policy
     batch = to_device(dataset.collate([dataset[0]]), device)
@@ -3770,6 +3914,8 @@ def phase_train_gpt(device: torch.device, card: str = "", narrow: bool = False,
 
     result = {"launches": launches, "launches_bf16": launches_bf16,
               "per_micro_batch": per_micro_batch, "fp32_check_launches": step32}
+    if kept is not None:
+        result["bundle"] = kept
     if on_card:
         result["timing"] = _time_gpt_step(state, batch, accumulate, card)
     return result
@@ -3864,14 +4010,77 @@ def _gpt_bf16_kernels_vs_plain(model, batch: dict, loss_k: float, grads_k) -> di
 # D 256 with its one KV group repeated to the 8 query heads; llama-2-7b runs
 # the D 128 kernels (its 2 x 131,072,000 of embedding and head, 2 x
 # 202,383,360 of layers and 4096 of final norm), at its own S 4096
-# (`GPT_HEAD_SIZE_SEQ`)
+# (`GPT_HEAD_SIZE_SEQ`).  Mixtral-8x7B-v0.1 runs the D 128 kernels under a
+# mixture-of-experts MLP (8 experts of 14336, top 2; 2 x 1,451,270,144 of
+# layers, 2 x 131,072,000 of embedding and head, 4096 of final norm), at S 4096
 GPT_HEAD_SIZE_RUNS = [("phi-2", 80, 419543040), ("open_llama_3b", 100, 452624000),
-                      ("gemma-2b", 256, 1268787200), ("llama-2-7b", 128, 666914816)]
-GPT_HEAD_SIZE_SEQ = {"llama-2-7b": 4096}
+                      ("gemma-2b", 256, 1268787200), ("llama-2-7b", 128, 666914816),
+                      ("Mixtral-8x7B-v0.1", 128, 3164688384)]
+GPT_HEAD_SIZE_SEQ = {"llama-2-7b": 4096, "Mixtral-8x7B-v0.1": 4096}
 # the entries that also take one fp32 micro-batch (the GPT recipe's own
-# precision): the fp32 kernels at D 256 (gemma-2b), D 128 (llama-2-7b) and
-# D 80 through the padded route to D 128 (phi-2)
-GPT_HEAD_SIZE_FP32 = ("phi-2", "gemma-2b", "llama-2-7b")
+# precision): the fp32 kernels at D 256 (gemma-2b), D 128 (llama-2-7b,
+# Mixtral) and D 80 through the padded route to D 128 (phi-2)
+GPT_HEAD_SIZE_FP32 = ("phi-2", "gemma-2b", "llama-2-7b", "Mixtral-8x7B-v0.1")
+
+
+def _time_micro_batch(model, batch: dict) -> dict:
+    """The device time of one micro-batch (forward, backward to every
+    parameter's gradient) by CUDA events: median of 3 after 1 warm."""
+    ms = []
+    for i in range(4):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        _, grads = _gpt_micro_batch(model, batch)
+        b.record()
+        del grads
+        torch.cuda.synchronize()
+        if i:
+            ms.append(a.elapsed_time(b))
+    return {"ms": float(np.median(ms)), "ms_all": ms,
+            "tokens_per_s": int(batch["input_ids"].numel()) / float(np.median(ms)) * 1e3,
+            "method": "CUDA events around one micro-batch (forward, backward), median of 3 "
+                      "after 1 warm; `_gpt_micro_batch` reads the loss back, a sync"}
+
+
+def _moe_layers(module) -> list:
+    from roar_tpu_torch.models.moe import MoEMLP
+
+    return [m for m in module.modules() if isinstance(m, MoEMLP)]
+
+
+def _moe_kernels_vs_plain(model, batch: dict, loss_k: float, grads_k, versus) -> dict:
+    """`versus(model, batch, loss_k, grads_k)` (a `_gpt_*_kernels_vs_plain`)
+    for a model with MoE MLPs.  bf16 or fp32 rounding in the attention moves
+    router probabilities that nearly tie past each other, so the plain pass
+    may route some tokens to other experts and its expert gradients then
+    differ by whole tokens: the plain pass is fed the kernel pass's expert
+    choice, and the tokens whose own choice (given the fed routing upstream)
+    differs are counted.  A first plain pass on its own routing is reported
+    beside it, unheld."""
+    layers = _moe_layers(model.module)
+    routing = [m.last_choice.clone() for m in layers]  # the kernel pass's
+    with _PlainFlash():
+        loss_o, grads_o = _gpt_micro_batch(model, batch)
+    own = {"loss": loss_o, "whole_grad_l2_rel_err": _grad_l2_rel(grads_k, grads_o),
+           "tokens_routed_differently": [
+               int((m.last_choice.sort(-1).values != r.sort(-1).values).any(-1).sum())
+               for m, r in zip(layers, routing)]}
+    del grads_o
+    for m, r in zip(layers, routing):
+        m.route_override = r
+    try:
+        line = versus(model, batch, loss_k, grads_k)
+    finally:
+        for m in layers:
+            m.route_override = None
+    line["tokens_routed_differently_fed"] = [
+        int((m.last_choice.sort(-1).values != r.sort(-1).values).any(-1).sum())
+        for m, r in zip(layers, routing)]
+    line["tokens"] = int(batch["input_ids"].numel())
+    line["plain_on_its_own_routing"] = own
+    line["routing"] = "the plain pass is fed the kernel pass's expert choice"
+    return line
 
 
 def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int = 2048,
@@ -3898,6 +4107,9 @@ def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int =
         if narrow:
             cfg.update(n_embd=2 * head_size, n_head=2, intermediate_size=64, vocab_size=300,
                        n_query_groups=1 if name.startswith("gemma") else 2)
+        t0 = time.perf_counter()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         with device:
             model = GPTLMModel(cfg)
         model.module.to(device)
@@ -3921,7 +4133,9 @@ def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int =
         padded = want if head_size not in fa.HEAD_DIMS else dict.fromkeys(want, 0)
         if on_card and counts != {"all": want, "bf16": want, "padded": padded}:
             raise AssertionError(f"{name}: launches {counts}, want {want} (padded {padded})")
-        line = _gpt_bf16_kernels_vs_plain(model, batch, loss_k, grads_k)
+        moe = bool(_moe_layers(model.module))
+        line = (_moe_kernels_vs_plain(model, batch, loss_k, grads_k, _gpt_bf16_kernels_vs_plain)
+                if moe else _gpt_bf16_kernels_vs_plain(model, batch, loss_k, grads_k))
         del grads_k
         line32 = None
         if name in GPT_HEAD_SIZE_FP32:
@@ -3939,15 +4153,25 @@ def phase_gpt_head_sizes(device: torch.device, card: str = "", seq_length: int =
                 raise AssertionError(f"{name} fp32: launches {dict(fa.LAUNCHES)} (padded "
                                      f"{dict(fa.LAUNCHES_PADDED)}), want {want} (padded "
                                      f"{padded})")
-            line32 = _gpt_fp32_kernels_vs_plain(model, batch, loss_k, grads_k)
+            line32 = (_moe_kernels_vs_plain(model, batch, loss_k, grads_k,
+                                            _gpt_fp32_kernels_vs_plain)
+                      if moe else _gpt_fp32_kernels_vs_plain(model, batch, loss_k, grads_k))
             del grads_k
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        timing = None
+        if on_card and moe:  # one micro-batch's time in each type, the kernels' path
+            timing = {}
+            for dtype, compute in (("bf16", torch.bfloat16), ("fp32", None)):
+                model.set_compute_dtype(compute)
+                timing[dtype] = _time_micro_batch(model, batch)
         del model
         _emit({"phase": "gpt_head_sizes", "config_name": name, "card": card,
                "head_size": head_size, "kernel_head_size": fa.kernel_head_dim(
                    head_size, torch.bfloat16, True), "kv_groups": config.n_query_groups,
                "n_head": config.n_head, "n_embd": config.n_embd, "parameters": count,
                "batch_shape": list(batch["input_ids"].shape), "launches": counts,
-               "bf16": line, "fp32": line32})
+               "bf16": line, "fp32": line32, "peak_device_memory_bytes": peak,
+               "micro_batch_timing": timing, "seconds": time.perf_counter() - t0})
         out[name] = counts
         if on_card:
             torch.cuda.empty_cache()
@@ -4021,6 +4245,324 @@ def _time_gpt_step(state, batch: dict, accumulate: int, card: str) -> dict:
                         "halves and the attention backward kernels; batch already on the card"}
     _emit(timing)
     return timing
+
+
+# the generation check: the logits each new token was drawn from (KV-cached
+# decode, einsum attention over the cache) against one forward of the whole
+# sequence without a cache (the causal flash kernels), fp32, within this
+# fraction of the largest logit magnitude
+GENERATE_LOGITS_REL_TOL = 1e-3
+GENERATE_NEW_TOKENS = 32
+GENERATE_PROMPT_WORDS = 8
+
+
+class _WordTokenizer:
+    """A SimpleWordTokenizer as TextGeneration takes a tokenizer: called on
+    a string it gives ids, `decode` gives the words back.  Decoding samples
+    over the padded vocabulary, as the JAX package's does."""
+
+    def __init__(self, tokenizer):
+        self.tokenizer = tokenizer
+
+    def __call__(self, text: str):
+        return self.tokenizer.text_to_ids(text)
+
+    def decode(self, ids) -> str:
+        """The words of `ids`; an id of the padded vocabulary past the words
+        reads `<id>`."""
+        n = self.tokenizer.vocab_size
+        return " ".join(self.tokenizer.ids_to_tokens([i])[0] if i < n else f"<{i}>"
+                        for i in map(int, ids))
+
+
+def phase_generate_gpt(device: torch.device, bundle: dict, card: str = "",
+                       n_prompts: int = 4, new_tokens: int = GENERATE_NEW_TOKENS) -> dict:
+    """Text generation from the bundle phase `train_gpt` saved (`bundle`: its
+    path and corpus files): the model loaded in fp32 through the converter,
+    `TextGeneration` on `n_prompts` prompts of the corpus's words for
+    `new_tokens` tokens, greedy and sampled (temperature 0.8, top-k 40, top-p
+    0.9, repetition penalty 1.2, the EOS id as `end_id`, `min_length` 8).
+    Checks: the decode launches no flash kernel; `generate_tokens` with the
+    same settings and seed gives the same tokens; one forward of each
+    generated sequence without a cache (n_layer causal fp32 flash forwards)
+    gives logits at every new position within GENERATE_LOGITS_REL_TOL of the
+    largest logit magnitude of the cached decode's.  Prefill ms and decode
+    tokens/s (CUDA events, median of 3).  Returns the causal launch counts."""
+    from roar_tpu_torch.data.lm_dataset import SimpleWordTokenizer
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models.gpt import init_kv_caches
+    from roar_tpu_torch.models.gpt_model import GPTLMModel
+    from roar_tpu_torch.models.text_generation import TextGeneration, generate_tokens
+    from roar_tpu_torch.training import convert
+    from roar_tpu_torch.training.save_restore import restore_from
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    bundle_cfg, tree = restore_from(bundle["path"])
+    with device:  # the cached decode takes the unrolled blocks
+        module = GPTLMModel({**bundle_cfg["model"], "scan_layers": False, "remat": False}).module
+    convert.load_gpt_params(module.to(device), tree)
+    del tree
+    module.eval()
+    config = module.config
+    words = SimpleWordTokenizer(bundle["corpus"], max_vocab=config.vocab_size)
+    if words.vocab_size != config.vocab_size:
+        raise AssertionError(f"tokenizer of {words.vocab_size} words for a model of "
+                             f"{config.vocab_size}")
+    tok = _WordTokenizer(words)
+    with open(bundle["corpus"][0], encoding="utf-8") as f:
+        lines = [line.split() for line in f if line.strip()]
+    prompts = [" ".join(line[:GENERATE_PROMPT_WORDS]) for line in lines[:n_prompts]]
+    t0 = len(tok(prompts[0]))
+    if any(len(tok(p)) != t0 for p in prompts):
+        raise AssertionError(f"prompts of unequal lengths: {prompts}")
+    runs = {"greedy": {"use_greedy": True},
+            "sampled": {"use_greedy": False, "temperature": 0.8, "top_k": 40, "top_p": 0.9,
+                        "repetition_penalty": 1.2}}
+    lengths = {"greedy": {"max_length": new_tokens},
+               "sampled": {"max_length": new_tokens, "min_length": 8}}
+    end_ids = {"greedy": None, "sampled": words.eos_id}
+    _zero_launch_counts()
+    lines_out, checks = {}, {}
+    for name, sp in runs.items():
+        before = fa.LAUNCHES.copy()
+        engine = TextGeneration(module, tok, end_id=end_ids[name])
+        out = engine.generate(prompts, lengths[name], sp,
+                              generator=torch.Generator(device=device).manual_seed(SEED))
+        prompt = torch.tensor([tok(p) for p in prompts], device=device)
+        toks, logp, logits = generate_tokens(
+            module, prompt, lengths[name], sp, end_id=end_ids[name],
+            generator=torch.Generator(device=device).manual_seed(SEED), return_logits=True)
+        sync()
+        if fa.LAUNCHES - before:
+            raise AssertionError(f"the cached decode launched flash kernels: "
+                                 f"{dict(fa.LAUNCHES - before)}")
+        if toks.tolist() != out["token_ids"]:
+            raise AssertionError(f"{name}: generate_tokens and TextGeneration differ")
+        new = toks[:, t0:]
+        if name == "sampled":
+            if (new[:, :8] == words.eos_id).any():
+                raise AssertionError("an end token before min_length")
+        before = fa.LAUNCHES.copy()
+        with torch.no_grad():
+            full = module(toks[:, :-1])[:, t0 - 1:].float()
+        sync()
+        launched = _causal_launches_since(before, strict=on_card)
+        if on_card and launched != {"fwd": config.n_layer, "dkv": 0, "dq": 0}:
+            raise AssertionError(f"the full forward launched {launched}")
+        scale = float(full.abs().max())
+        err = float((full - logits).abs().max())
+        if not err <= GENERATE_LOGITS_REL_TOL * scale or not torch.isfinite(logp).all():
+            raise AssertionError(f"{name}: cached decode logits differ from the full forward's "
+                                 f"by {err}, largest magnitude {scale}")
+        checks[name] = {"max_abs_err": err, "logit_abs_max": scale,
+                        "rel_err": err / scale, "tol": GENERATE_LOGITS_REL_TOL,
+                        "full_forward_launches": launched}
+        lines_out[name] = [tok.decode(row[t0:]) for row in out["token_ids"]]
+    launches = _causal_launches_since(Counter(), strict=on_card)
+
+    timing = None
+    if on_card:
+        prompt = torch.tensor([tok(p) for p in prompts], device=device)
+
+        def events(fn):
+            ms = []
+            for _ in range(3):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+            return float(np.median(ms)), ms
+
+        def prefill():
+            with torch.no_grad():
+                module(prompt, 0, init_kv_caches(config, len(prompts), device=device))
+
+        prefill_ms, prefill_all = events(prefill)
+        total_ms, total_all = events(lambda: generate_tokens(
+            module, prompt, {"max_length": new_tokens}))
+        decode_ms = total_ms - prefill_ms
+        timing = {"prefill_ms": prefill_ms, "prefill_ms_all": prefill_all,
+                  "generate_ms": total_ms, "generate_ms_all": total_all,
+                  "decode_ms": decode_ms,
+                  "decode_tokens_per_s": len(prompts) * new_tokens / decode_ms * 1e3,
+                  "method": "CUDA events, median of 3; generate = prefill + one cached step "
+                            "a new token (greedy), each step's attention over the whole "
+                            f"{config.block_size}-position cache"}
+    _emit({"phase": "generate_gpt", "card": card, "config_name": "tiny-llama-1.1b",
+           "prompts": prompts, "prompt_tokens": t0, "new_tokens": new_tokens,
+           "settings": {n: {**runs[n], **lengths[n], "end_id": end_ids[n]} for n in runs},
+           "continuations": lines_out, "checks": checks, "causal_flash_launches": launches,
+           "timing": timing})
+    del module
+    return {"launches": launches, "timing": timing}
+
+
+BERT_STEPS = 16
+BERT_VOCAB = 8000
+
+
+def write_bert_corpus(rng: np.random.Generator, train_file: str, val_file: str, n_train: int,
+                      n_val: int, n_words: int = BERT_VOCAB - 6) -> None:
+    """Seeded sentences, one a line, of 6 to 60 words drawn from a Zipf law
+    over `n_words` words; the validation file starts with every word once,
+    so the tokenizer meets all of them."""
+    words = np.array([f"w{i}" for i in range(n_words)])
+    weights = 1.0 / np.arange(1, n_words + 1)
+    p = weights / weights.sum()
+    every = rng.permutation(n_words)
+    for path, n_lines, head in ((train_file, n_train, None), (val_file, n_val, every)):
+        with open(path, "w", encoding="utf-8") as f:
+            if head is not None:
+                for at in range(0, len(head), 60):
+                    f.write(" ".join(words[head[at:at + 60]]) + "\n")
+            for _ in range(n_lines):
+                f.write(" ".join(words[rng.choice(n_words, int(rng.integers(6, 60)), p=p)])
+                        + "\n")
+
+
+def bert_train_config(train_file: str, val_file: str, exp_dir: str, device: str = "cuda"
+                      ) -> dict:
+    """configs/bert_pretraining.yaml as the loader resolves it (6 layers, d
+    512, 8 heads, d_inner 2048, seq 128, batch 32, dropout 0.1, AdamW 1e-4
+    cosine, clip 1.0, one epoch), with `trainer.log_every_n_steps=1` and
+    `exp_manager.always_save_roar=true`."""
+    model = {"vocab_size": BERT_VOCAB, "n_layer": 6, "n_head": 8, "d_model": 512,
+             "d_inner": 2048, "dropout": 0.1, "dropatt": 0.1, "type_vocab_size": 2,
+             "nsp_weight": 1.0, "max_seq_length": 128, "mask_prob": 0.15,
+             "short_seq_prob": 0.1, "seq_a_ratio": 0.6,
+             "train_ds": {"dataloader_params": {"batch_size": 32, "shuffle": True}},
+             "optim": {"name": "adamw", "lr": 1e-4, "weight_decay": 0.01,
+                       "sched": {"name": "CosineAnnealing", "warmup_ratio": 0.05,
+                                 "min_lr": 1e-6}}}
+    return {"name": "BertPretraining", "train_dataset": train_file, "validation_dataset": val_file,
+            "model": model,
+            "trainer": {"max_epochs": 1, "max_steps": None, "gradient_clip_val": 1.0,
+                        "log_every_n_steps": 1, "model_parallel_size": 1},
+            "exp_manager": {"exp_dir": exp_dir, "name": "BertPretraining",
+                            "create_tensorboard_logger": True, "always_save_roar": True},
+            "device": device}
+
+
+def phase_train_bert(device: torch.device, card: str = "", steps: int = BERT_STEPS,
+                     narrow: bool = False) -> dict:
+    """BERT pretraining (MLM + NSP) through the CLI's `run` at the widths of
+    configs/bert_pretraining.yaml on a seeded corpus of `32 * steps`
+    sentences: one epoch of `steps` steps and a validation pass.  Checks:
+    finite losses, a loss that falls (that of one fixed training batch in eval
+    mode, from the trained parameters below that from the initial ones drawn
+    again from the run's seed), a finite validation record, and the saved
+    `.roar` loaded back equal to the trained parameters; then, on the card,
+    one step's time (CUDA events, median of 5 after 2 warm)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "examples", "nlp"))
+    import bert_pretraining_torch as cli
+
+    from roar_tpu_torch.models.bert import BertPretrainingModel
+    from roar_tpu_torch.training import convert
+    from roar_tpu_torch.training.save_restore import restore_from
+    from roar_tpu_torch.training.trainer import to_device, train_step
+
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(SEED + 7)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_file, val_file = os.path.join(tmp, "train.txt"), os.path.join(tmp, "val.txt")
+        write_bert_corpus(rng, train_file, val_file, 32 * steps, 32,
+                          n_words=200 if narrow else BERT_VOCAB - 6)
+        cfg = bert_train_config(train_file, val_file, os.path.join(tmp, "exp"), str(device))
+        if narrow:
+            cfg["model"].update(n_layer=2, d_model=64, n_head=4, d_inner=96)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = cli.run(cfg)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        model = state.model
+        config = model.config
+        n_params = sum(p.numel() for p in model.parameters())
+        if not narrow and (config.n_layer, config.d_model, config.n_head, config.d_inner,
+                           config.vocab_size) != (6, 512, 8, 2048, BERT_VOCAB):
+            raise AssertionError(f"not the YAML's widths: {config}")
+        root = os.path.join(tmp, "exp", "BertPretraining")
+        with open(os.path.join(root, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        train = [r for r in records if "mlm_loss" in r]
+        val = [r for r in records if "val_loss" in r]
+        if len(train) != steps or state.step != steps:
+            raise AssertionError(f"{len(train)} logged steps, {state.step} run, not {steps}")
+        if not all(np.isfinite(r[k]) for r in train for k in ("loss", "mlm_loss", "nsp_loss",
+                                                               "grad_norm")):
+            raise AssertionError(f"a training metric is not finite: {train}")
+        mlm = [r["mlm_loss"] for r in train]
+        # the loss of one fixed training batch, dropout off, from the initial
+        # parameters (drawn again from the run's seed) and from the trained ones
+        dataset = cli.BertPretrainingDataset(
+            cli.SimpleWordTokenizer([train_file, val_file], max_vocab=BERT_VOCAB),
+            train_file, max_seq_length=cfg["model"]["max_seq_length"])
+        batch = to_device(dataset.collate([dataset[i] for i in range(32)]), device)
+        with device:
+            initial = BertPretrainingModel(cfg["model"] | {"vocab_size": config.vocab_size})
+        initial.module.to(device)
+        initial.init_parameters(torch.Generator(device=device).manual_seed(0))
+        fixed = {}
+        for name, task in (("initial", initial), ("trained", model)):
+            task.module.eval()
+            with torch.no_grad():
+                fixed[name] = {k: float(v) for k, v in task.loss_fn(batch)[1].items()}
+        model.module.train()
+        del initial
+        if not fixed["trained"]["loss"] < fixed["initial"]["loss"]:
+            raise AssertionError(f"the loss of a fixed batch does not fall: {fixed}")
+        if len(val) != 1 or not all(np.isfinite(v) for v in val[0].values()):
+            raise AssertionError(f"validation records {val}")
+        path = os.path.join(root, "checkpoints", "BertPretraining.roar")
+        bundle_cfg, tree = restore_from(path)
+        with device:
+            loaded = BertPretrainingModel(bundle_cfg["model"])
+        convert.load_bert_params(loaded.module, tree)
+        for (name, a), b in zip(loaded.module.state_dict().items(),
+                                model.module.state_dict().values()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"bundle parameter {name} is not the trained one")
+        _emit({"phase": "train_bert", "step": "cli", "card": card, "steps": steps,
+               "batch": 32, "seq": cfg["model"]["max_seq_length"],
+               "parameters": n_params, "layers": config.n_layer, "d_model": config.d_model,
+               "vocab_size": config.vocab_size, "mlm_loss": mlm,
+               "fixed_batch_eval": fixed,
+               "loss_first": train[0]["loss"], "loss_last": train[-1]["loss"],
+               "val": {k: v for k, v in val[0].items() if k.startswith("val_")},
+               "wall_s": wall, "peak_device_memory_bytes": peak,
+               "bundle_bytes": os.path.getsize(path), "parameters_equal_trained": True,
+               "wall_includes": "tokenizer, sentence index, model build, logging every step "
+                                "(a sync each), validation, checkpoint, bundle"})
+        timing = None
+        if on_card:
+            ms = []
+            for i in range(7):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                a.record()
+                train_step(state, batch)
+                b.record()
+                torch.cuda.synchronize()
+                if i >= 2:
+                    ms.append(a.elapsed_time(b))
+            timing = {"step_ms": float(np.median(ms)), "step_ms_all": ms,
+                      "tokens_per_s": 32 * 128 / float(np.median(ms)) * 1e3,
+                      "method": "CUDA events around train_step (forward, backward, clip, "
+                                "AdamW) on one batch of 32 x 128 on the card, median of 5 "
+                                "after 2 warm"}
+            _emit({"phase": "train_bert", "step": "timing", "card": card, **timing})
+    return {"steps": steps, "timing": timing}
 
 
 def _post(url: str, payload: dict, timeout: float = 300.0):
@@ -4166,14 +4708,16 @@ def phase_slice(device: torch.device, fp_cfg: dict, hg_cfg: dict, sentences,
     return {"launches": launches}
 
 
-def sup_data_config(manifest: str, sup_dir: str, device: str = "cuda") -> dict:
+def sup_data_config(manifest: str, sup_dir: str, device: str = "cuda",
+                    sample_rate: int = SUP_SAMPLE_RATE) -> dict:
     """configs/ds_for_fastpitch_align.yaml as the loader resolves it, for the
     keys the extraction script reads (tests/test_torch_sup_data.py holds it
-    to the YAML)."""
+    to the YAML), with `sample_rate=<sample_rate>` (44100: the STFT of
+    configs/fastpitch_44100_align.yaml, n_fft and window 2048, hop 512)."""
     return {
         "dataset": {
             "manifest_filepath": manifest, "sup_data_path": sup_dir,
-            "sample_rate": SUP_SAMPLE_RATE, "n_fft": 2048, "win_length": 2048,
+            "sample_rate": sample_rate, "n_fft": 2048, "win_length": 2048,
             "hop_length": 512, "window": "hann", "n_mels": 80, "lowfreq": 0, "highfreq": 8000,
             "pitch_fmin": 65.40639132514966, "pitch_fmax": 2093.004522404789,
         },
@@ -4476,6 +5020,19 @@ def main() -> int:
     fp_train_bf16 = phase_train_fastpitch(device, card, n_utterances=64, steps=4,
                                           precision="bf16")
     torch.cuda.empty_cache()
+    # configs/fastpitch_44100_align.yaml at its own bf16, served with the
+    # v1_44100 generator of configs/hifigan_44100.yaml; then that YAML trained
+    # at its own fp32, and the v2 and v3 generators under hifigan_22050.yaml
+    fp44 = phase_train_fastpitch(device, card, n_utterances=64, steps=4, precision="bf16",
+                                 sample_rate=44100, serve=True)
+    torch.cuda.empty_cache()
+    hg44 = phase_train_hifigan(device, card, n_utterances=32, steps=4, sample_rate=44100,
+                               generator="v1_44100")
+    hg_v2 = phase_train_hifigan(device, card, n_utterances=16, steps=2, generator="v2",
+                                timed=False)
+    hg_v3 = phase_train_hifigan(device, card, n_utterances=16, steps=2, generator="v3",
+                                timed=False)
+    torch.cuda.empty_cache()
     jets = phase_train_jets(device, card)
     torch.cuda.empty_cache()
     # configs/jets_22050_align.yaml at its shipped precision, full width and depth
@@ -4484,7 +5041,15 @@ def main() -> int:
     # configs/jets_22050_conformer.yaml at its shipped bf16-mixed, use_flash on
     jets_conf = phase_train_jets(device, card, steps=4, precision="bf16-mixed", conformer=True)
     torch.cuda.empty_cache()
-    gpt = phase_train_gpt(device, card)
+    kept = tempfile.mkdtemp()
+    try:
+        gpt = phase_train_gpt(device, card, keep_dir=kept)
+        torch.cuda.empty_cache()
+        gen = phase_generate_gpt(device, gpt["bundle"], card)
+    finally:
+        shutil.rmtree(kept)
+    torch.cuda.empty_cache()
+    bert = phase_train_bert(device, card)
     torch.cuda.empty_cache()
     pythia = phase_train_gpt(device, card, config_name="pythia-1b")
     torch.cuda.empty_cache()
@@ -4631,6 +5196,7 @@ def main() -> int:
 
     pythia_fp32_fwd = pythia["launches"]["fwd"] - pythia["launches_bf16"]["fwd"]
     d128_bf16, d128_fp32 = FLASH_D128_KERNELS["bfloat16"], FLASH_D128_KERNELS["float32"]
+    mixtral = "Mixtral-8x7B-v0.1"
     padded_rows = []
     for d, config_name in ((80, "phi-2"), (100, "open_llama_3b")):
         shape = (1, 2048, 32, d)
@@ -4669,6 +5235,9 @@ def main() -> int:
          "kernel": "flash_fwd_tf32_kernel", "dtype": "float32",
          "replaces": "roar_tpu/models/transformer.py:72", "causal": False,
          "launches": run["launches"], "launches_train_fastpitch": fp_train["launches"]["fwd"],
+         "launches_serve_44100": fp44["serving"]["flash_launches"],
+         "launches_validation_fastpitch_44100": fp44["launches"]["fwd"]
+         - fp44["launches_bf16"]["fwd"],
          "launches_train_jets": jets["launches"]["fwd"],
          "launches_train_jets_conformer": conf_synth_launches,
          "max_abs_err": max(kern["max_abs_err"], worst(flash_errors, "o"),
@@ -4698,16 +5267,20 @@ def main() -> int:
          "lse_max_abs_err": worst(causal_errors, "lse"), **causal_fwd,
          "fp32": {**causal_fwd32, "kernel": "flash_fwd_tf32_kernel",
                   "launches": gpt["fp32_check_launches"]["fwd"],
-                  "launches_validation": gpt["launches"]["fwd"] - gpt["launches_bf16"]["fwd"]},
+                  "launches_validation": gpt["launches"]["fwd"] - gpt["launches_bf16"]["fwd"],
+                  "launches_generate_gpt": gen["launches"]["fwd"]},
          "llama_2_7b_d128": {"shape_bthd": list(LLAMA_D128_SHAPE),
                              "kernel": d128_bf16["fwd"], **d128_fwd,
                              "launches_gpt_head_sizes": heads["llama-2-7b"]["bf16"]["fwd"],
+                             "launches_gpt_head_sizes_mixtral": heads[mixtral]["bf16"]["fwd"],
                              **per_call(LLAMA_D128_SHAPE, "bfloat16", "fwd"),
                              "max_abs_err": worst(head_errors(128, "bfloat16"), "o"),
                              "fp32": {**d128_fwd32, "kernel": d128_fp32["fwd"],
                                       **per_call(LLAMA_D128_SHAPE, "float32", "fwd"),
                                       "launches_gpt_head_sizes":
                                           heads["llama-2-7b"]["fp32"]["fwd"],
+                                      "launches_gpt_head_sizes_mixtral":
+                                          heads[mixtral]["fp32"]["fwd"],
                                       "max_abs_err": worst(head_errors(128, "float32"), "o")}}},
         *[{"name": f"flash_attention_causal_bwd_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -4727,6 +5300,7 @@ def main() -> int:
            "kernel": f"flash_bwd_{name}_wgmma_kernel", "head_size": 128,
            "shape_bthd": list(LLAMA_D128_SHAPE), **per_call(LLAMA_D128_SHAPE, "bfloat16", name),
            "launches": heads["llama-2-7b"]["bf16"][name],
+           "launches_gpt_head_sizes_mixtral": heads[mixtral]["bf16"][name],
            "max_abs_err": worst(head_errors(128, "bfloat16"), *grads), **d128_bwd[name],
            "ragged_non_causal": ragged128_bwd[name]}
           for name, grads in backward_kernels],
@@ -4739,12 +5313,14 @@ def main() -> int:
            "kernel": d128_fp32[name], "head_size": 128,
            "shape_bthd": list(LLAMA_D128_SHAPE), **per_call(LLAMA_D128_SHAPE, "float32", name),
            "launches": heads["llama-2-7b"]["fp32"][name],
+           "launches_gpt_head_sizes_mixtral": heads[mixtral]["fp32"][name],
            "max_abs_err": worst(head_errors(128, "float32"), *grads), **d128_bwd32[name]}
           for name, grads in backward_kernels],
         {"name": "pyin_viterbi_fwd", "route": "cuda",
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:34",
          "launches": sup["launches"]["fwd"],
+         "launches_train_fastpitch_44100": fp44["sup_launches"]["fwd"],
          "launches_train_jets": jets["sup_launches"]["fwd"],
          "launches_train_jets_conformer": jets_conf["sup_launches"]["fwd"], "max_abs_err": 0.0,
          **pick(vit["fwd"]), "library_ms": None, "cluster": vit["fwd"]["cluster"],
@@ -4757,6 +5333,7 @@ def main() -> int:
          "source": "roar_tpu_torch/csrc/pyin_viterbi.cu",
          "replaces": "roar_tpu/ops/pyin_pallas.py:279",
          "launches": sup["launches"]["backtrack"],
+         "launches_train_fastpitch_44100": fp44["sup_launches"]["backtrack"],
          "launches_train_jets": jets["sup_launches"]["backtrack"],
          "launches_train_jets_conformer": jets_conf["sup_launches"]["backtrack"],
          "max_abs_err": 0.0,
@@ -4769,6 +5346,8 @@ def main() -> int:
         *[{"name": f"grouped_conv_{name}", "route": "cuda",
            "source": "roar_tpu_torch/csrc/grouped_conv.cu", "replaces": replaces,
            "launches": train["launches"][name],
+           **{f"launches_train_hifigan_{tag}": run_["launches"][name]
+              for tag, run_ in (("44100", hg44), ("v2", hg_v2), ("v3", hg_v3))},
            "launches_train_jets": jets["launches"][f"grouped_conv_{name}"],
            **({"launches_train_jets_conformer": jets_conf["launches"]["grouped_conv_fwd"]
                - jets_conf["launches_bf16"]["grouped_conv_fwd"]} if name == "fwd" else {}),
@@ -4826,6 +5405,7 @@ def main() -> int:
          "replaces": "roar_tpu/models/transformer.py:72", "causal": False,
          "launches": jets_bf16["launches_bf16"]["fwd"],
          "launches_train_fastpitch_bf16": fp_train_bf16["launches_bf16"]["fwd"],
+         "launches_train_fastpitch_44100": fp44["launches_bf16"]["fwd"],
          "max_abs_err": worst(bf16_flash_errors, "o"), **jets16_fwd,
          "train_fastpitch": fp16_fwd},
         *[{"name": f"flash_attention_bwd_{name}_bf16", "route": "cuda",
@@ -4833,6 +5413,7 @@ def main() -> int:
            "replaces": "roar_tpu/models/transformer.py:110", "causal": False,
            "launches": jets_bf16["launches_bf16"][name],
            "launches_train_fastpitch_bf16": fp_train_bf16["launches_bf16"][name],
+           "launches_train_fastpitch_44100": fp44["launches_bf16"][name],
            "max_abs_err": worst(bf16_flash_errors, *grads), **jets16_bwd[name],
            "train_fastpitch": fp16_bwd[name]}
           for name, grads in backward_kernels],
@@ -4888,6 +5469,14 @@ def main() -> int:
           for name, grads in backward_kernels],
         *padded_rows,
     ]
+    def new_counts(row):  # this slice's runs, top level and one level down
+        nested = [v for v in row.values() if isinstance(v, dict)]
+        return [v for d in (row, *nested) for key, v in d.items()
+                if key.endswith(("_44100", "_v2", "_v3", "_mixtral", "_generate_gpt"))
+                and key.startswith("launches")]
+
+    if not all(n > 0 for k in kernels for n in new_counts(k)):
+        raise AssertionError(f"a kernel was launched no time on a run of this slice: {kernels}")
     if not all(k["launches"] > 0 for k in kernels) or fp_train["launches"]["fwd"] == 0 \
             or not all(k.get("launches_train_jets", 1) > 0 for k in kernels) \
             or not all(k.get("launches_train_jets_conformer", 1) > 0 for k in kernels) \

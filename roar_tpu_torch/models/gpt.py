@@ -3,8 +3,10 @@
 Port of roar_tpu/models/gpt.py: `GPTConfig` with every field, the whole
 registry `GPT_CONFIGS` and `config_from_name` (copied data), `RMSNorm`, the
 three MLPs, `CausalSelfAttention`, `Block`, `GPT`, `init_kv_caches` and
-`generate`.  `mlp_class="LLaMAMoE"` raises `NotImplementedError` (the MoE MLP
-is not ported yet), and the pipelined forward is not ported.
+`generate`.  `mlp_class="LLaMAMoE"` builds `models/moe.py::MoEMLP`; each
+block keeps its newest aux losses, detached, as `moe_aux`, which no loss reads
+(the JAX `Block` sows them, gpt.py:626-631, and no loss adds them).  The pipelined
+forward is not ported.
 
 Attention takes one of two routes, as in the JAX package (gpt.py:579-616):
 with `use_flash`, no KV cache and `pos_offset == 0`, K and V are repeated to
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from roar_tpu_torch.models.moe import MoEMLP
 from roar_tpu_torch.models.submodules import trunc_normal_
 from roar_tpu_torch.ops.flash_attention import flash_self_attention
 from roar_tpu_torch.ops.rope import apply_rope, build_rope_cache
@@ -487,9 +490,8 @@ def _make_mlp(cfg: GPTConfig) -> nn.Module:
         return GptNeoxMLP(cfg.n_embd, inter, bias=cfg.bias,
                           gelu_approximate=cfg.gelu_approximate)
     if cfg.mlp_class == "LLaMAMoE":
-        raise NotImplementedError(
-            "mlp_class=LLaMAMoE (the mixture-of-experts MLP of roar_tpu/models/moe.py) is not "
-            "ported yet")
+        return MoEMLP(cfg.n_embd, n_experts=cfg.n_expert, ff_dim=inter,
+                      top_k=cfg.n_expert_per_token)
     raise ValueError(f"unknown mlp_class {cfg.mlp_class!r}")
 
 
@@ -585,6 +587,14 @@ class Block(nn.Module):
         if not (cfg.parallel_residual and cfg.shared_attention_norm):
             self.norm_2 = _make_norm(cfg)
         self.mlp = _make_mlp(cfg)
+        self.moe_aux: Optional[Dict[str, torch.Tensor]] = None
+
+    def _mlp(self, x):
+        out = self.mlp(x)
+        if isinstance(self.mlp, MoEMLP):  # (y, aux losses)
+            out, aux = out
+            self.moe_aux = {k: v.detach() for k, v in aux.items()}
+        return out
 
     def _finish(self, x, x_norm, h):
         """Residuals and MLP, from the block's input, its first norm and the
@@ -593,9 +603,9 @@ class Block(nn.Module):
         if cfg.parallel_residual:
             # falcon-7b / phi share norm_1 between the attention and MLP branches
             m_in = x_norm if cfg.shared_attention_norm else self.norm_2(x)
-            return x + h + self.mlp(m_in)
+            return x + h + self._mlp(m_in)
         x = x + h
-        return x + self.mlp(self.norm_2(x))
+        return x + self._mlp(self.norm_2(x))
 
     def forward(self, x, cos, sin, pos_offset: int = 0, kv_cache: Optional[KVCache] = None,
                 mask=None):
@@ -691,10 +701,15 @@ class GPT(nn.Module):
 def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """Draw every parameter under `module` from the distribution the flax
     module's initialisers use: lecun-normal kernels and zero biases for the
-    linear layers, fan-in normal embeddings, norms at (1, 0).  The numbers
-    are drawn on the generator's device: give one on the parameters' device
-    to draw a large model there."""
+    linear layers, fan-in normal embeddings, norms at (1, 0), and the MoE
+    experts' [E, in, out] weights lecun-normal over a fan-in of E * in (flax
+    counts the leading axis as receptive field).  The numbers are drawn on the
+    generator's device: give one on the parameters' device to draw a large
+    model there."""
     for m in module.modules():
+        if isinstance(m, MoEMLP):
+            for w in (m.w_gate, m.w_up, m.w_down):
+                trunc_normal_(w, (w.shape[0] * w.shape[1]) ** -0.5, generator)
         if isinstance(m, nn.Linear):
             trunc_normal_(m.weight, m.weight.shape[1] ** -0.5, generator)
             if m.bias is not None:

@@ -30,7 +30,14 @@ depthwise `Conv_1`, `LayerNorm_0`, `Conv_2` and `layer_norm`).
 GPT is a change of layout only too: `load_gpt_params` fills a port `GPT` from
 the flax tree in either block layout (`h_0 .. h_{L-1}`, or `h_scan` with a
 leading layer axis per leaf, what `scan_layers=True` trains), and
-`gpt_to_jax_tree` writes the layout the module's `scan_layers` names.
+`gpt_to_jax_tree` writes the layout the module's `scan_layers` names.  A
+Mixtral block's `mlp` is the MoE layer: `mlp/router/kernel` as a Dense, and
+`mlp/w_gate`, `mlp/w_up`, `mlp/w_down` ([E, in, out]) as they are.
+
+BERT is a change of layout only as well: `load_bert_params` fills any port
+module of `models/bert.py` (`BertForPreTraining`, `BertForMaskedLM`,
+`BertEncoder`) from the flax tree, `layers.{i}` being `layers_{i}`, and
+`bert_to_jax_tree` writes it back.
 
 JETS joins the two: `load_jets_params` fills a port `JETSModule` from the
 flax tree, its FastPitch-graph scopes as FastPitch's and its `generator` scope
@@ -44,12 +51,14 @@ only).
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from roar_tpu_torch.models.bert import BertOnlyMLMHead
 from roar_tpu_torch.models.conformer import ConvolutionalModule, PositionwiseFF
 from roar_tpu_torch.models.fastpitch import ConvReLUNorm
 from roar_tpu_torch.models.gpt import GPT, RMSNorm
@@ -61,6 +70,7 @@ from roar_tpu_torch.models.hifigan import (
     SpectralNormConv,
     WeightNormConv,
 )
+from roar_tpu_torch.models.moe import MoEMLP
 from roar_tpu_torch.models.submodules import ConditionalInput, ConditionalLayerNorm, ConvNorm
 from roar_tpu_torch.models.transformer import PositionwiseConvFF
 
@@ -166,6 +176,10 @@ def _leaf_names(module: nn.Module, path: str):
             if module.elementwise_affine else []
     elif isinstance(module, RMSNorm):
         return [("weight", "scale", None)]
+    elif isinstance(module, MoEMLP):  # the experts' own leaves; `router` is a child
+        return [(name, name, None) for name in ("w_gate", "w_up", "w_down")]
+    elif isinstance(module, BertOnlyMLMHead):  # its decoder bias; the layers are children
+        return [("bias", "bias", None)]
     else:
         raise TypeError(f"no conversion for {type(module).__name__} at {path}")
     if module.bias is not None:
@@ -218,14 +232,41 @@ def fastpitch_to_jax_tree(module: nn.Module) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _gpt_sites(module: GPT):
-    """(torch prefix, flax scope, leaf module) of every parameter-holding leaf
-    module of a port GPT, blocks in the unrolled `h_{i}` naming."""
+def _scoped_sites(module: nn.Module, blocks: str):
+    """(torch prefix, flax scope, module) of every module under `module` that
+    holds parameters of its own; the torch names are the flax scopes, with
+    the list `blocks.{i}` named `blocks_{i}` (flax's naming of a loop's
+    modules)."""
+    pattern = re.compile(rf"(^|\.){blocks}\.(\d+)")
     for name, leaf in module.named_modules():
-        if name and not list(leaf.children()) and next(leaf.parameters(recurse=False), None) \
-                is not None:
-            scope = name.replace("h.", "h_", 1) if name.startswith("h.") else name
+        if name and next(leaf.parameters(recurse=False), None) is not None:
+            scope = pattern.sub(rf"\1{blocks}_\2", name)
             yield name + ".", scope.replace(".", "/"), leaf
+
+
+def _state_from_sites(leaves: _Leaves, sites) -> Dict[str, np.ndarray]:
+    """The state_dict entries of `sites`, each taken from its JAX leaf."""
+    sd: Dict[str, np.ndarray] = {}
+    for torch_prefix, path, leaf in sites:
+        for torch_name, flax_name, axes in _leaf_names(leaf, path):
+            value = leaves.take(f"{path}/{flax_name}")
+            sd[torch_prefix + torch_name] = value if axes is None else value.transpose(axes)
+    return sd
+
+
+def _tree_from_sites(module: nn.Module, sites) -> Dict[Tuple[str, ...], np.ndarray]:
+    """{flax path: array} of every parameter of `module`, through `sites`;
+    a parameter no site writes raises."""
+    state = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+    flat: Dict[Tuple[str, ...], np.ndarray] = {}
+    for torch_prefix, path, leaf in sites:
+        for torch_name, flax_name, axes in _leaf_names(leaf, path):
+            value = state.pop(torch_prefix + torch_name)
+            flat[(*path.split("/"), flax_name)] = np.ascontiguousarray(
+                value if axes is None else value.transpose(axes))
+    if state:
+        raise ValueError(f"port parameters not written to the JAX tree: {sorted(state)}")
+    return flat
 
 
 def load_gpt_params(module: GPT, params: Mapping[str, Any]) -> GPT:
@@ -241,11 +282,7 @@ def load_gpt_params(module: GPT, params: Mapping[str, Any]) -> GPT:
                              f"{module.config.n_layer}")
         for i, layer in enumerate(value):
             leaves.leaves[f"h_{i}/{path[len('h_scan/'):]}"] = layer
-    sd: Dict[str, np.ndarray] = {}
-    for torch_prefix, path, leaf in _gpt_sites(module):
-        for torch_name, flax_name, axes in _leaf_names(leaf, path):
-            value = leaves.take(f"{path}/{flax_name}")
-            sd[torch_prefix + torch_name] = value if axes is None else value.transpose(axes)
+    sd = _state_from_sites(leaves, _scoped_sites(module, "h"))
     leaves.check_consumed()
     _load(module, sd)
     return module
@@ -255,21 +292,36 @@ def gpt_to_jax_tree(module: GPT) -> Dict[str, Any]:
     """{'params': ...} of a port GPT in the flax tree's names and layouts:
     what `roar_tpu`'s `GPTLMModel` applies and its `restore_from` reads.
     With `scan_layers` the blocks are stacked under `h_scan`."""
-    state = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
-    flat: Dict[Tuple[str, ...], np.ndarray] = {}
-    for torch_prefix, path, leaf in _gpt_sites(module):
-        for torch_name, flax_name, axes in _leaf_names(leaf, path):
-            value = state.pop(torch_prefix + torch_name)
-            flat[(*path.split("/"), flax_name)] = np.ascontiguousarray(
-                value if axes is None else value.transpose(axes))
-    if state:
-        raise ValueError(f"port parameters not written to the JAX tree: {sorted(state)}")
+    flat = _tree_from_sites(module, _scoped_sites(module, "h"))
     if module.config.scan_layers:
         n_layer = module.config.n_layer
         for key in [k for k in flat if k[0] == "h_0"]:
             flat[("h_scan", *key[1:])] = np.stack(
                 [flat.pop((f"h_{i}", *key[1:])) for i in range(n_layer)])
     return {"params": _nest(flat)}
+
+
+# ---------------------------------------------------------------------------
+# BERT: the port's names are the flax scopes (`bert.layers.2.mlp` is
+# `bert/layers_2/mlp`)
+# ---------------------------------------------------------------------------
+
+
+def load_bert_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Fill a port BERT module from the JAX module's tree.  An unconsumed
+    leaf or an unfilled parameter raises."""
+    leaves = _Leaves(params)
+    sd = _state_from_sites(leaves, _scoped_sites(module, "layers"))
+    leaves.check_consumed()
+    _load(module, sd)
+    return module
+
+
+def bert_to_jax_tree(module: nn.Module) -> Dict[str, Any]:
+    """{'params': ...} of a port BERT module in the flax tree's names and
+    layouts: what `roar_tpu`'s `BertPretrainingModel` applies and its
+    `restore_from` reads.  The reverse of `load_bert_params`."""
+    return {"params": _nest(_tree_from_sites(module, _scoped_sites(module, "layers")))}
 
 
 # ---------------------------------------------------------------------------

@@ -268,10 +268,17 @@ def test_config_registry_names_patterns_and_overrides():
 
 
 def test_llama_moe_raises_not_implemented():
+    """`mlp_class="LLaMAMoE"` builds the MoE MLP now; what the port still
+    leaves out of it, expert parallelism, raises by name."""
+    from roar_tpu_torch.models import moe
+
     cfg = tgpt.config_from_name("Mixtral-8x7B-v0.1", n_layer=1, n_embd=32, n_head=4,
                                 n_query_groups=2, intermediate_size=64, vocab_size=50)
-    with pytest.raises(NotImplementedError, match="LLaMAMoE"):
-        tgpt.GPT(cfg)
+    assert isinstance(tgpt.GPT(cfg).h[0].mlp, moe.MoEMLP)
+    with pytest.raises(NotImplementedError, match="expert_axis"):
+        moe.MoEMLP(32, expert_axis="expert")
+    with pytest.raises(NotImplementedError, match="expert_shardings"):
+        moe.expert_shardings({}, None)
 
 
 def test_bf16_compute_keeps_fp32_masters_and_gives_fp32_gradients():

@@ -393,7 +393,9 @@ def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):
     rehearsal widths on the CPU: every check but the launch counts and the
     timing (pythia's fp32 check is a micro-batch, kernels against plain, at
     min(4, its layers) layers; phi-2, gemma-2b and llama-2-7b add an fp32
-    micro-batch, whose launch counts, all and padded, come back zero here)."""
+    micro-batch, whose launch counts, all and padded, come back zero here;
+    Mixtral's plain passes are fed the kernel pass's expert choice, and on the
+    CPU no token is routed differently)."""
     sys.path.insert(0, str(REPO))
     import json
 
@@ -413,11 +415,18 @@ def test_chip_smoke_head_size_phases_rehearse_on_the_cpu(capsys):
     assert check[0]["fp32"]["layers"] == 2 and check[0]["fp32"]["whole_grad_l2_rel_err"] == 0.0
     rows = {line["config_name"]: line for line in lines if line.get("phase") == "gpt_head_sizes"}
     assert {name: row["kernel_head_size"] for name, row in rows.items()} == \
-        {"phi-2": 128, "open_llama_3b": 128, "gemma-2b": 256, "llama-2-7b": 128}
+        {"phi-2": 128, "open_llama_3b": 128, "gemma-2b": 256, "llama-2-7b": 128,
+         "Mixtral-8x7B-v0.1": 128}
     assert all(row["bf16"]["whole_grad_l2_rel_err"] == 0.0 for row in rows.values())
     assert {name: row["fp32"] is not None for name, row in rows.items()} == \
-        {"phi-2": True, "open_llama_3b": False, "gemma-2b": True, "llama-2-7b": True}
-    assert set(cs.GPT_HEAD_SIZE_FP32) == {"phi-2", "gemma-2b", "llama-2-7b"}
+        {"phi-2": True, "open_llama_3b": False, "gemma-2b": True, "llama-2-7b": True,
+         "Mixtral-8x7B-v0.1": True}
+    assert set(cs.GPT_HEAD_SIZE_FP32) == {"phi-2", "gemma-2b", "llama-2-7b",
+                                          "Mixtral-8x7B-v0.1"}
+    for dtype in ("bf16", "fp32"):
+        moe = rows["Mixtral-8x7B-v0.1"][dtype]
+        assert moe["tokens_routed_differently_fed"] == [0, 0] and moe["tokens"] == 48
+        assert moe["plain_on_its_own_routing"]["tokens_routed_differently"] == [0, 0]
     # a rehearsal runs every entry at its own `seq_length`
     assert all(row["batch_shape"] == [1, 48] for row in rows.values())
     for name in cs.GPT_HEAD_SIZE_FP32:

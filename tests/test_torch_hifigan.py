@@ -6,6 +6,8 @@ goes through roar_tpu_torch.training.convert, which folds weight norm once.
 Narrow channels, real upsample geometry.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,3 +107,30 @@ def test_folded_trainable_generator_equals_the_loaded_serving_form(cfg):
                                    served(torch.from_numpy(mel)).numpy(), **PARITY_TOL)
     with pytest.raises(ValueError, match="folded weights already"):
         folded.fold_weight_norm()
+
+
+GENERATOR_YAMLS = Path(__file__).resolve().parents[1] / "configs" / "hifigan" / "generator"
+
+
+@pytest.mark.parametrize("name", ["v1_44100", "v2", "v3"])
+def test_full_width_generator_parity(name):
+    """The shipped generators at full width (v1_44100: 512 channels and
+    upsample 8 x 8 x 4 x 2 = hop 512; v2: 128 channels; v3: 256 channels,
+    resblock 2, 8 x 8 x 4) on a short 80-band mel, the JAX generator's tree
+    carried over by the converter."""
+    import yaml
+
+    cfg = yaml.safe_load((GENERATOR_YAMLS / f"{name}.yaml").read_text())
+    cfg.pop("_target_")
+    rng = np.random.default_rng(3)
+    n_mel, t = 80, 5
+    mel = rng.standard_normal((1, t, n_mel)).astype(np.float32)
+    jgen = jax_generator(cfg, n_mel)
+    params = _random_tree(jgen, mel, rng)
+    want = np.asarray(jgen.apply(params, jnp.asarray(mel)))
+    gen = load_generator_params(generator_from_config(cfg, n_mel), params)
+    with torch.no_grad():
+        got = gen(torch.from_numpy(mel)).numpy()
+    hop = {"v1_44100": 512, "v2": 256, "v3": 256}[name]
+    assert gen.upsample_factor == hop and got.shape == (1, t * hop) == want.shape
+    np.testing.assert_allclose(got, want, **PARITY_TOL)
