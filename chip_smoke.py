@@ -58,7 +58,22 @@ Phases, each printing JSON lines:
    sum to the mel lengths, the flash kernels held and timed as in phase 7 at
    the two shapes and key lengths that step gave them (the kernels line takes
    these), and the saved `.roar` served by `SynthesisEngine`; then the step
-   time, its split and the kernels' share.
+   time, its split and the kernels' share.  Then phase finetune_fastpitch on
+   that run's corpus, sup-data and bundle: adapters (`adapter_dim` 64) in all
+   12 layers are the identity at insertion (`torch.equal` mels); the adapters
+   CLI `fastpitch_finetune_adapters_torch.run` on 64 utterances for 2 epochs
+   of 2 steps (12 / 12 / 12 fp32 flash launches a step, about 0.6 M
+   trainable parameters, every frozen tensor equal to the bundle's and every
+   adapter tensor moved); one fine-tune step with the kernels against one
+   with their plain versions at this phase's bars; `fastpitch_torch.run` with
+   `freeze_updates` (the aligner frozen for updates 1 to 2, decoder layer 0
+   for 2 to 3, each tensor and its AdamW state checked at every update),
+   early stopping after the second validation (4 of 6 steps), the artifacts
+   with a Griffin-Lim preview WAV, the profiler window over steps 3 and 4
+   (its trace names the fp32 K5 kernels; the device-busy share), TensorBoard
+   and the snapshot, and the SIGTERM handler put back; `run_test` on 16
+   utterances on both paths; and the fine-tune step's time beside this
+   phase's.
 9. train_jets: JETS (the FastPitch graph + the HiFi-GAN v1 generator,
    end-to-end text->wav) at the full width and depth of
    configs/jets_22050_align.yaml (flash attention on, `dropatt` 0, 4
@@ -168,6 +183,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2561,7 +2577,7 @@ def _serve_one_bucket(engine, fastpitch, card: str, phase: str) -> dict:
 def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: int = 128,
                           steps: int = 8, batch_size: int = 32, max_seconds: float = 10.0,
                           narrow: bool = False, precision=32, sample_rate: int = SUP_SAMPLE_RATE,
-                          serve: bool = False) -> dict:
+                          serve: bool = False, keep_dir: Optional[str] = None) -> dict:
     """FastPitch training with learned alignment: sup-data extraction, then
     the training CLI's `run`; returns the flash-attention launch counts of
     that run.  With `precision="bf16"` (phase `train_fastpitch_bf16`, the
@@ -2575,7 +2591,9 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
     sup-data extraction are counted (one of each kernel per bucket of 16) and
     returned, and the engine also synthesises a batch of 8 texts of one text
     bucket and one single text, three times each without `warmup()`, the first
-    call's time reported apart."""
+    call's time reported apart.  With `keep_dir`, the run works there and
+    leaves its corpus, sup-data and bundle behind, and the result's `kept`
+    names them (phase `finetune_fastpitch` reads it)."""
     import copy
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2615,7 +2633,8 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
     # workspaces cuDNN tries would also count as this phase's peak memory)
     torch.backends.cudnn.benchmark = False
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with (contextlib.nullcontext(keep_dir) if keep_dir is not None
+              else tempfile.TemporaryDirectory()) as tmp:
             wav_dir = os.path.join(tmp, "wavs")
             os.makedirs(wav_dir)
             seconds = rng.uniform(min(2.0, max_seconds / 2), max_seconds, n_utterances)
@@ -2880,6 +2899,10 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
             if on_card:
                 result["flash"] = flash
                 result["timing"] = _time_fastpitch_step(model, batch, cfg, card, phase)
+            if keep_dir is not None:
+                result["kept"] = {"dir": tmp, "cfg": cfg, "entries": entries, "bundle": path,
+                                  "batch": batch, "step_ms": result.get("timing", {}).get(
+                                      "step_ms")}
             return result
     finally:
         torch.backends.cudnn.benchmark = benchmark_was
@@ -2971,6 +2994,400 @@ def _time_fastpitch_step(model, batch, cfg: dict, card: str,
               "method": "CUDA events; median of 5 steps after 2 warm steps; TF32 off; batch "
                         "already on the card; `losses` holds the forward of forward-sum, "
                         "`backward` its backward"}
+    _emit(timing)
+    return timing
+
+
+# phase finetune_fastpitch: adapter fine-tuning of the bundle phase
+# train_fastpitch leaves (fp32, flash on, `dropatt` 0).  The kernel step is
+# held to the plain step at FastPitch's bars (every loss term at
+# FP_TRAIN_LOSS_RTOL, the whole gradient at FP_TRAIN_GRAD_L2_TOL) and each
+# adapter tensor's gradient at FP_TRAIN_TENSOR_L2_TOL; `run_test`'s metrics
+# on the two paths at FT_TEST_RTOL
+FT_ADAPTER_DIM = 64
+FT_TEST_RTOL = 1e-4
+FT_FREEZE = {"aligner_module": 2, "decoder_module/layers_0": [2, 3]}
+
+
+def _padded_tokens(model, sentences, device) -> torch.Tensor:
+    """The sentences' tokens, padded with the pad id to one length."""
+    rows = [model.parse(s)[0] for s in sentences]
+    width = max(len(r) for r in rows)
+    pad = model.tokenizer.pad
+    return torch.tensor(np.stack([np.pad(r, (0, width - len(r)), constant_values=pad)
+                                  for r in rows]), dtype=torch.long, device=device)
+
+
+def _adapter_config(model_cfg: dict, adapter_dim: int) -> dict:
+    import copy
+
+    out = copy.deepcopy(model_cfg)
+    for fft in ("input_fft", "output_fft"):
+        out[fft]["adapter_dim"] = adapter_dim
+    return out
+
+
+def phase_finetune_fastpitch(device: torch.device, kept: dict, card: str = "",
+                             n_utterances: int = 64, n_test: int = 16, batch_size: int = 32,
+                             narrow: bool = False, timed: bool = True) -> dict:
+    """Adapter fine-tuning of FastPitch from the bundle, corpus and sup-data of
+    phase `train_fastpitch` (`kept`): the identity at insertion, the adapters
+    CLI for 2 epochs, one fine-tune step with the kernels against one with
+    their plain versions, the training engine's freezing, early stopping,
+    artifacts, profiler window and snapshot on the FastPitch CLI, and
+    `run_test` on both paths; returns the CLI run's flash launches."""
+    import copy
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "examples", "tts"))
+    import fastpitch_finetune_adapters_torch as ft_cli
+    import fastpitch_torch as fp_cli
+
+    from roar_tpu_torch.data.audio import read_wav
+    from roar_tpu_torch.data.dataset import BucketSpec
+    from roar_tpu_torch.data.manifest import write_manifest
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models.fastpitch_model import FastPitchModel
+    from roar_tpu_torch.training import convert
+    from roar_tpu_torch.training import run as run_mod
+    from roar_tpu_torch.training import trainer as trainer_mod
+    from roar_tpu_torch.training.finetune import count_trainable, masked_optimizer
+    from roar_tpu_torch.training.save_restore import restore_from, transfer_params
+
+    on_card = device.type == "cuda"
+    phase = "finetune_fastpitch"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    adapter_dim = 8 if narrow else FT_ADAPTER_DIM
+    tmp, base_cfg, entries = kept["dir"], kept["cfg"], kept["entries"]
+    if len(entries) < n_utterances + n_test:
+        raise AssertionError(f"{len(entries)} utterances kept, {n_utterances + n_test} needed")
+    bundle_cfg, tree = restore_from(kept["bundle"])
+    bundle = convert.flatten_params(tree)
+
+    # 1. the identity at insertion: the bundle's model and the same weights
+    # with an adapter in every layer give the same mel, bit for bit
+    base = FastPitchModel(bundle_cfg["model"])
+    convert.load_fastpitch_params(base.module, tree)
+    adapted = FastPitchModel(_adapter_config(bundle_cfg["model"], adapter_dim),
+                             generator=torch.Generator().manual_seed(SEED))
+    new_tree, loaded, skipped = transfer_params(adapted.to_jax_tree(), tree)
+    if set(loaded) != {f"params/{p}" for p in bundle} or \
+            not all("/adapter/" in p for p in skipped):
+        raise AssertionError(f"transplant: {len(loaded)} loaded of {len(bundle)}, skipped "
+                             f"{[p for p in skipped if '/adapter/' not in p]}")
+    convert.load_fastpitch_params(adapted.module, new_tree)
+    n_speakers = base.module.n_speakers
+    tokens = _padded_tokens(base, TAMIL_SENTENCES[:8], device)
+    speakers = torch.arange(8, device=device) % n_speakers
+    outs = []
+    for m in (base, adapted):
+        m.module.to(device).eval()
+        with torch.no_grad():
+            outs.append(m.module.infer(tokens, speaker=speakers, max_mel_len=1024))
+    sync()
+    if not (torch.equal(outs[0]["spect"], outs[1]["spect"])
+            and torch.equal(outs[0]["num_frames"], outs[1]["num_frames"])):
+        raise AssertionError("the adapters are not the identity at insertion")
+    _emit({"phase": phase, "step": "identity_at_insertion", "texts": 8,
+           "tensors_transplanted": len(loaded), "adapter_tensors_skipped": len(skipped),
+           "mel_shape": list(outs[0]["spect"].shape), "mel_equal": True})
+    del base, adapted, outs
+
+    # 2. the adapters CLI on `n_utterances` for 2 epochs
+    ft_manifest = os.path.join(tmp, "finetune_manifest.json")
+    test_manifest = os.path.join(tmp, "test_manifest.json")
+    write_manifest(ft_manifest, entries[:n_utterances])
+    write_manifest(test_manifest, entries[n_utterances:n_utterances + n_test])
+    cfg = copy.deepcopy(base_cfg)
+    cfg["model"]["train_ds"]["dataset"]["manifest_filepath"] = ft_manifest
+    cfg["model"]["train_ds"]["dataloader_params"]["batch_size"] = batch_size
+    cfg["trainer"]["max_epochs"] = 2
+    cfg["exp_manager"]["exp_dir"] = os.path.join(tmp, "exp_finetune")
+    cfg.update(pretrained=kept["bundle"], adapter_dim=adapter_dim, device=str(device))
+    steps = 2 * (n_utterances // batch_size)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    state = ft_cli.run(cfg)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: fa.LAUNCHES[k] for k in ("fwd", "dkv", "dq")}
+    model = state.model
+    module = model.module
+    n_attn = len(module.encoder_module.stack.layers) + len(module.decoder_module.layers)
+    if state.step != steps or n_attn != (4 if narrow else 12):
+        raise AssertionError(f"{state.step} steps, {n_attn} attention layers")
+    if on_card and launches != dict.fromkeys(("fwd", "dkv", "dq"), n_attn * steps):
+        raise AssertionError(f"adapters CLI: flash launches {launches} for {steps} steps")
+    n_train, n_total = count_trainable(model, ft_cli.TRAINABLE)
+    d_model = module.decoder_module.d_model
+    want_train = n_attn * (2 * d_model * adapter_dim + adapter_dim + 3 * d_model) \
+        + n_speakers * module.speaker_table.weight.shape[1]
+    if n_train != want_train:
+        raise AssertionError(f"{n_train} trainable parameters, {want_train} expected")
+    seed = int(cfg["trainer"].get("seed", 0))
+    initial = convert.flatten_params(FastPitchModel(
+        _adapter_config(cfg["model"], adapter_dim),
+        generator=torch.Generator().manual_seed(seed)).to_jax_tree())
+    trained = convert.flatten_params(model.to_jax_tree())
+    moved = [p for p in trained if "/adapter/" in p and not np.array_equal(trained[p], initial[p])]
+    n_adapter = sum("/adapter/" in p for p in trained)
+    frozen_moved = [p for p in trained if "/adapter/" not in p and "speaker_table" not in p
+                    and not np.array_equal(trained[p], bundle[p])]
+    if len(moved) != n_adapter or frozen_moved:
+        raise AssertionError(f"{len(moved)} of {n_adapter} adapter tensors moved; frozen "
+                             f"tensors that moved: {frozen_moved}")
+    root = os.path.join(cfg["exp_manager"]["exp_dir"], "fastpitch_adapters")
+    with open(os.path.join(root, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    if not records or not all(np.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"adapters CLI metrics {records}")
+    print(f"{phase}: training {n_train} of {n_total} parameters "
+          f"({n_train / 1e6:.3f}M of {n_total / 1e6:.2f}M)", flush=True)
+    _emit({"phase": phase, "step": "adapters_cli", "card": card, "steps": steps,
+           "batch": batch_size, "utterances": n_utterances, "adapter_dim": adapter_dim,
+           "trainable_parameters": n_train, "total_parameters": n_total,
+           "adapter_tensors_moved": len(moved), "frozen_tensors_equal_bundle": True,
+           "flash_launches": launches, "losses": [r["loss"] for r in records],
+           "grad_norm": [r["grad_norm"] for r in records], "wall_s": wall})
+
+    # 3. one fine-tune step with the kernels against one with their plain
+    # versions: same state, batch and dropout masks
+    batch = _longest_tts_batch(cfg, model.tokenizer, device)
+    epoch = 1
+
+    def one_step(m):
+        m.set_dropout_generator(torch.Generator(device=device).manual_seed(7))
+        m.module.train()
+        m.module.zero_grad(set_to_none=True)
+        seen = {}
+        hook = m.module.register_forward_hook(
+            lambda mod, args, out: seen.update(durs=out["attn_hard_dur"]))
+        try:
+            loss, metrics = m.loss_fn(batch, epoch)
+        finally:
+            hook.remove()
+        loss.backward()
+        sync()
+        return {k: float(v) for k, v in metrics.items()}, seen
+
+    twin = copy.deepcopy(model)
+    before = fa.LAUNCHES.copy()
+    metrics_k, seen_k = one_step(model)
+    step_launches = dict(fa.LAUNCHES - before)
+    if on_card and step_launches != dict.fromkeys(("fwd", "dkv", "dq"), n_attn):
+        raise AssertionError(f"one fine-tune step launched {step_launches}")
+    with _PlainFlash():
+        metrics_p, seen_p = one_step(twin)
+    for k in FP_LOSS_TERMS:
+        if not _loss_close(metrics_k[k], metrics_p[k], FP_TRAIN_LOSS_RTOL):
+            raise AssertionError(f"{k}: kernels {metrics_k[k]} vs plain {metrics_p[k]}")
+    if not torch.equal(seen_k["durs"], seen_p["durs"]):
+        raise AssertionError("hard alignments differ between the kernel and plain paths")
+    pairs = [(name, pk, pp) for (name, pk), (_, pp) in zip(module.named_parameters(),
+                                                           twin.module.named_parameters())]
+    whole = _grad_errors(pairs, float("inf"))
+    adapters = _grad_errors([t for t in pairs if ".adapter." in t[0]], FP_TRAIN_TENSOR_L2_TOL)
+    if whole["whole_l2"] > FP_TRAIN_GRAD_L2_TOL or adapters["failures"]:
+        raise AssertionError(f"whole gradient {whole['whole_l2']} (L2, relative); "
+                             f"{adapters['failures'][:1]}")
+    _emit({"phase": phase, "step": "kernel_path_vs_plain_path", "epoch": epoch,
+           "batch_shapes": {k: list(v.shape) for k, v in batch.items()},
+           "kernels": metrics_k, "plain": metrics_p, "loss_rtol": FP_TRAIN_LOSS_RTOL,
+           "whole_grad_l2_rel_err": whole["whole_l2"], "grad_l2_tol": FP_TRAIN_GRAD_L2_TOL,
+           "adapter_tensors": len(adapters["tensors"]),
+           "max_adapter_grad_l2_rel_err": adapters["worst_l2"][0],
+           "worst_adapter_tensor": adapters["worst_l2"][1],
+           "tensor_l2_tol": FP_TRAIN_TENSOR_L2_TOL, "launches_per_step": step_launches})
+    del twin
+
+    # 4. the training engine on the FastPitch CLI: freezing, early stopping,
+    # artifacts, the profiler window, TensorBoard and the snapshot
+    eng = copy.deepcopy(base_cfg)
+    eng["model"]["train_ds"]["dataset"]["manifest_filepath"] = ft_manifest
+    eng["model"]["train_ds"]["dataloader_params"]["batch_size"] = batch_size
+    eng["model"]["freeze_updates"] = {"enabled": True, "modules": dict(FT_FREEZE)}
+    eng["model"]["profile"] = {"enabled": True, "start_step": 2, "end_step": 4}
+    # a few steps teach no durations: without a floor of a frame a token the
+    # artifact's synthesis gives an empty mel, and its preview fails (in
+    # silence, as in the JAX package); durations in training come from MAS
+    eng["model"]["min_token_duration"] = 1
+    eng["trainer"].update(max_epochs=3, max_steps=6)
+    eng["exp_manager"].update(
+        exp_dir=os.path.join(tmp, "exp_engine"), always_save_roar=False, log_artifacts=True,
+        create_tensorboard_logger=True, create_early_stopping_callback=True,
+        early_stopping_callback_params={"monitor": "val_loss", "mode": "min",
+                                        "min_delta": 1e9, "patience": 1})
+    watched = ("aligner_module.", "decoder_module.layers.0.")
+    snaps = []
+    real_step = trainer_mod.train_step
+
+    def snapshot(st):
+        opt_state = st.opt.optimizer.state
+        return {name: (p.detach().clone(),
+                       {k: v.detach().clone() for k, v in opt_state.get(p, {}).items()})
+                for name, p in st.model.module.named_parameters() if name.startswith(watched)}
+
+    def recording(st, *args, **kwargs):
+        if not snaps:
+            snaps.append(snapshot(st))
+        out = real_step(st, *args, **kwargs)
+        snaps.append(snapshot(out[0]))
+        return out
+
+    handler_before = signal.getsignal(signal.SIGTERM)
+    trainer_mod.train_step = recording
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        eng_state = fp_cli.run(eng)
+    finally:
+        trainer_mod.train_step = real_step
+    sync()
+    eng_wall = time.perf_counter() - t0
+    eng_launches = {k: fa.LAUNCHES[k] for k in ("fwd", "dkv", "dq")}
+    if signal.getsignal(signal.SIGTERM) != handler_before:
+        raise AssertionError("the SIGTERM handler was not put back after the run")
+    eng_root = os.path.join(eng["exp_manager"]["exp_dir"], "FastPitch")
+    with open(os.path.join(eng_root, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    val = [r for r in records if "val_loss" in r]
+    if eng_state.step != 4 or len(val) != 2 or len(snaps) != 5:
+        raise AssertionError(f"early stopping: {eng_state.step} steps, {len(val)} validations")
+    # a group is frozen at update u when the schedule says so: every tensor
+    # and its AdamW state as after update u - 1; once out of its window it
+    # moves, bias-corrected at the shared count
+    frozen_at = {"aligner_module.": {1, 2}, "decoder_module.layers.0.": {2, 3}}
+    windows = {}
+    for group, updates in frozen_at.items():
+        names = [n for n in snaps[0] if n.startswith(group)]
+        for u in range(1, 5):
+            prev, now = snaps[u - 1], snaps[u]
+            same = [torch.equal(now[n][0], prev[n][0]) and now[n][1].keys() == prev[n][1].keys()
+                    and all(torch.equal(now[n][1][k], prev[n][1][k]) for k in now[n][1])
+                    for n in names]
+            steps_now = {int(now[n][1]["step"]) for n in names if "step" in now[n][1]}
+            if u in updates and not all(same):
+                raise AssertionError(f"{group} moved at update {u}, inside its window")
+            if u not in updates and (all(same) or steps_now != {u}):
+                raise AssertionError(f"{group} at update {u}: moved {not all(same)}, "
+                                     f"AdamW steps {steps_now}")
+        windows[group.rstrip(".")] = {"frozen_updates": sorted(updates),
+                                      "tensors": len(names)}
+    artifacts = os.path.join(eng_root, "artifacts")
+    previews = sorted(f for f in os.listdir(artifacts) if f.endswith("_preview.wav"))
+    if len(previews) != 2:
+        with open(os.path.join(eng_root, "log_process-0.txt")) as f:
+            logged = [line.strip() for line in f if "WARNING" in line]
+        raise AssertionError(f"artifacts written: {sorted(os.listdir(artifacts))}; {logged}")
+    preview, sr = read_wav(os.path.join(artifacts, previews[0]))
+    if sr != model.sample_rate or not np.isfinite(preview).all() or not np.abs(preview).max() > 0:
+        raise AssertionError(f"preview WAV: {sr} Hz, peak {np.abs(preview).max()}")
+    with open(os.path.join(eng_root, "profile", "summary.json")) as f:
+        profile = json.load(f)
+    if not os.path.exists(profile["trace"]) or (profile["first_step"],
+                                                profile["last_step"]) != (3, 4):
+        raise AssertionError(f"profiler window {profile}")
+    # the window: after step 2 (the end of epoch 1) to after step 4, so it
+    # holds epoch 1's validation batch and artifact synthesis, then steps 3, 4
+    val_per_round = min(batch_size, len(entries)) // batch_size
+    k5 = {k: sum(n for name, n in profile["device_kernels"].items() if k in name)
+          for k in ("flash_fwd_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
+                    "flash_bwd_dq_tf32_kernel")}
+    want_k5 = dict(zip(k5, (n_attn * (2 + val_per_round + 1), 2 * n_attn, 2 * n_attn)))
+    if on_card and k5 != want_k5:
+        raise AssertionError(f"the trace's fp32 K5 launches {k5}, {want_k5} wanted")
+    for name in ("cmd-args.log", "config.yaml"):
+        if not os.path.exists(os.path.join(eng_root, name)):
+            raise AssertionError(f"{name} missing from the run directory")
+    tb_dir = os.path.join(eng_root, "tb")
+    tensorboard = os.path.isdir(tb_dir) and any(
+        f.startswith("events.out.tfevents") for f in os.listdir(tb_dir))
+    print(f"{phase}: TensorBoard {'active' if tensorboard else 'absent (no-op)'}; device busy "
+          f"{profile['device_busy_share']:.3f} of the profiled window", flush=True)
+    want_fwd = n_attn * (4 + 2 * val_per_round + len(previews))
+    if on_card and eng_launches != {"fwd": want_fwd, "dkv": 4 * n_attn, "dq": 4 * n_attn}:
+        raise AssertionError(f"engine run: flash launches {eng_launches}, {want_fwd} forwards")
+    _emit({"phase": phase, "step": "engine", "card": card, "steps": eng_state.step,
+           "validations": len(val), "freeze_windows": windows,
+           "early_stop": {"monitor": "val_loss", "min_delta": 1e9, "patience": 1,
+                          "stopped_at_step": eng_state.step, "of_steps": 6},
+           "previews": previews, "preview_peak": float(np.abs(preview).max()),
+           "tensorboard_active": tensorboard,
+           "profile": {k: v for k, v in profile.items() if k != "device_kernels"},
+           "trace_fp32_k5_launches": k5, "flash_launches": eng_launches,
+           "sigterm_handler_restored": True, "wall_s": eng_wall})
+
+    # 5. run_test on the fine-tuned state, kernels against plain
+    rt_cfg = copy.deepcopy(cfg)
+    rt_cfg["model"]["test_ds"] = {"dataloader_params": {"batch_size": n_test}}
+    test_ds = run_mod.build_tts_dataset(
+        {**cfg["model"]["train_ds"]["dataset"], "manifest_filepath": test_manifest},
+        model.tokenizer, device)
+    before = fa.LAUNCHES.copy()
+    got_k = run_mod.run_test(rt_cfg, model, test_ds, state=state, buckets=BucketSpec(),
+                             device=device)
+    rt_launches = dict(fa.LAUNCHES - before)
+    with _PlainFlash():
+        got_p = run_mod.run_test(rt_cfg, model, test_ds, state=state, buckets=BucketSpec(),
+                                 device=device)
+    if set(got_k) != set(got_p) or "test_loss" not in got_k or not all(
+            _loss_close(got_k[k], got_p[k], FT_TEST_RTOL) and np.isfinite(got_k[k])
+            for k in got_p):
+        raise AssertionError(f"run_test: kernels {got_k} vs plain {got_p}")
+    if on_card and rt_launches != {"fwd": n_attn}:
+        raise AssertionError(f"run_test launched {rt_launches}")
+    _emit({"phase": phase, "step": "run_test", "test_utterances": n_test, "kernels": got_k,
+           "plain": got_p, "rtol": FT_TEST_RTOL, "flash_launches": rt_launches})
+
+    result = {"launches": launches, "launches_engine": eng_launches,
+              "launches_per_step": step_launches, "profile": profile,
+              "tensorboard": tensorboard}
+    if on_card and timed:
+        result["timing"] = _time_finetune_step(model, kept["batch"], cfg, card,
+                                               kept.get("step_ms"))
+    result["wall_s"] = time.perf_counter() - t_phase
+    _emit({"phase": phase, "step": "wall", "card": card, "wall_s": result["wall_s"]})
+    return result
+
+
+def _time_finetune_step(model, batch, cfg: dict, card: str, fastpitch_step_ms) -> dict:
+    """The adapter fine-tune step (every gradient, the masked AdamW update of
+    the adapters and the speaker table) on phase train_fastpitch's timed
+    batch: CUDA events around each of 6 steps, the median of the last 5."""
+    import fastpitch_finetune_adapters_torch as ft_cli
+
+    from roar_tpu_torch.training.finetune import masked_optimizer
+    from roar_tpu_torch.training.trainer import TrainState, train_step
+
+    device = batch["audio"].device
+    generator = torch.Generator(device=device).manual_seed(0)
+    model.set_dropout_generator(generator)
+    state = TrainState(model=model, opt=masked_optimizer(cfg["model"]["optim"], model,
+                                                         ft_cli.TRAINABLE),
+                       dropout_generator=generator)
+    spans = []
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_step(state, batch, 0)
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    step_ms = float(np.median(spans[1:]))
+    timing = {"phase": "finetune_fastpitch", "step": "timing", "card": card,
+              "batch_shapes": {k: list(batch[k].shape) for k in ("text", "audio", "pitch")},
+              "step_ms": step_ms, "step_ms_all": spans,
+              "train_fastpitch_step_ms": fastpitch_step_ms,
+              "ratio_to_train_fastpitch": step_ms / fastpitch_step_ms if fastpitch_step_ms
+              else None,
+              "method": "CUDA events around train_step; median of steps 2 to 6; TF32 off; "
+                        "the batch of train_fastpitch's timing, already on the card"}
     _emit(timing)
     return timing
 
@@ -5016,7 +5433,16 @@ def main() -> int:
     sup = phase_supdata(device, card)
     train = phase_train_hifigan(device, card)
     train_bf16 = phase_train_hifigan(device, card, n_utterances=32, steps=4, precision="bf16")
-    fp_train = phase_train_fastpitch(device, card)
+    # phase train_fastpitch leaves its corpus, sup-data and bundle for the
+    # adapter fine-tuning of phase finetune_fastpitch
+    fp_dir = tempfile.mkdtemp()
+    try:
+        fp_train = phase_train_fastpitch(device, card, keep_dir=fp_dir)
+        torch.cuda.empty_cache()
+        ft = phase_finetune_fastpitch(device, fp_train.pop("kept"), card)
+    finally:
+        shutil.rmtree(fp_dir)
+    torch.cuda.empty_cache()
     fp_train_bf16 = phase_train_fastpitch(device, card, n_utterances=64, steps=4,
                                           precision="bf16")
     torch.cuda.empty_cache()
@@ -5235,6 +5661,7 @@ def main() -> int:
          "kernel": "flash_fwd_tf32_kernel", "dtype": "float32",
          "replaces": "roar_tpu/models/transformer.py:72", "causal": False,
          "launches": run["launches"], "launches_train_fastpitch": fp_train["launches"]["fwd"],
+         "launches_finetune_fastpitch": ft["launches"]["fwd"],
          "launches_serve_44100": fp44["serving"]["flash_launches"],
          "launches_validation_fastpitch_44100": fp44["launches"]["fwd"]
          - fp44["launches_bf16"]["fwd"],
@@ -5254,6 +5681,7 @@ def main() -> int:
            "source": "roar_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "roar_tpu/models/transformer.py:110", "causal": False,
            "launches": fp_train["launches"][name],
+           "launches_finetune_fastpitch": ft["launches"][name],
            "launches_train_jets": jets["launches"][name],
            "max_abs_err": worst(flash_errors, *grads), **flash_bwd[name],
            "train_jets": jets_bwd[name]}
@@ -5472,7 +5900,8 @@ def main() -> int:
     def new_counts(row):  # this slice's runs, top level and one level down
         nested = [v for v in row.values() if isinstance(v, dict)]
         return [v for d in (row, *nested) for key, v in d.items()
-                if key.endswith(("_44100", "_v2", "_v3", "_mixtral", "_generate_gpt"))
+                if key.endswith(("_44100", "_v2", "_v3", "_mixtral", "_generate_gpt",
+                                 "_finetune_fastpitch"))
                 and key.startswith("launches")]
 
     if not all(n > 0 for k in kernels for n in new_counts(k)):

@@ -34,6 +34,7 @@ from roar_tpu_torch.models.submodules import (
     trunc_normal_,
 )
 from roar_tpu_torch.models.transformer import (
+    AdapterBlock,
     FFTransformerDecoder,
     FFTransformerEncoder,
     conv1d_btc,
@@ -103,6 +104,7 @@ class FFTConfig:
     use_rope: bool = False
     use_flash: bool = False
     encoder_type: str = "transformer"  # or "conformer"
+    adapter_dim: int = 0  # > 0 puts a bottleneck adapter in every transformer layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +144,8 @@ def make_encoder(cfg: FFTConfig, n_embed: int, d_embed: int, padding_idx: int) -
     embed = dict(n_embed=n_embed, d_embed=d_embed, padding_idx=padding_idx)
     if cfg.encoder_type == "conformer":
         return FFConformerEncoder(*sizes, **embed, **_common(cfg))
-    return FFTransformerEncoder(*sizes, **embed, pre_lnorm=cfg.pre_lnorm, **_common(cfg))
+    return FFTransformerEncoder(*sizes, **embed, pre_lnorm=cfg.pre_lnorm,
+                                adapter_dim=cfg.adapter_dim, **_common(cfg))
 
 
 def make_decoder(cfg: FFTConfig) -> nn.Module:
@@ -150,7 +153,8 @@ def make_decoder(cfg: FFTConfig) -> nn.Module:
     sizes = (cfg.n_layer, cfg.n_head, cfg.d_model, cfg.d_head, cfg.d_inner, cfg.kernel_size)
     if cfg.encoder_type == "conformer":
         return FFConformerDecoder(*sizes, **_common(cfg))
-    return FFTransformerDecoder(*sizes, pre_lnorm=cfg.pre_lnorm, **_common(cfg))
+    return FFTransformerDecoder(*sizes, pre_lnorm=cfg.pre_lnorm, adapter_dim=cfg.adapter_dim,
+                                **_common(cfg))
 
 
 @torch.no_grad()
@@ -158,8 +162,9 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
     """Draw every parameter under `module` from the distribution the flax
     module's initialisers use: lecun-normal kernels and zero biases for Dense
     and Conv, xavier-uniform with the named gain for `ConvNorm`, fan-in
-    normal embeddings, LayerNorm at (1, 0), and conditional-LayerNorm
-    projections at the identity (weights 0, scale bias 1)."""
+    normal embeddings, LayerNorm at (1, 0), conditional-LayerNorm
+    projections at the identity (weights 0, scale bias 1), and each adapter's
+    `up` at zero."""
     xavier = {id(m.conv): XAVIER_GAINS[m.w_init_gain] for m in module.modules()
               if isinstance(m, ConvNorm)}
     for m in module.modules():
@@ -184,6 +189,8 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
             m.scale_proj.weight.zero_()
             m.scale_proj.bias.fill_(1.0)
             m.shift_proj.weight.zero_()
+        elif isinstance(m, AdapterBlock):
+            m.up.weight.zero_()
 
 
 class FastPitchModule(nn.Module):

@@ -64,14 +64,11 @@ def _fft_config(cfg: Dict[str, Any]) -> FFTConfig:
     """One FFT stack's block as an FFTConfig.  `encoder_type` (else
     "Conformer" in `_target_`) picks the stack; a Conformer stack ignores
     `pre_lnorm`, `adapter_dim` and `remat`, as the JAX package's factories
-    do, and the transformer raises on the last two."""
+    do; a transformer stack takes `adapter_dim` and raises on `remat`."""
     encoder_type = cfg.get("encoder_type",
                            "conformer" if "Conformer" in cfg.get("_target_", "") else "transformer")
-    if encoder_type != "conformer":
-        if cfg.get("adapter_dim", 0):
-            raise NotImplementedError("adapters (adapter_dim) are not ported")
-        if cfg.get("remat", False):
-            raise NotImplementedError("remat (recomputing layer activations) is not ported")
+    if encoder_type != "conformer" and cfg.get("remat", False):
+        raise NotImplementedError("remat (recomputing layer activations) is not ported")
     return FFTConfig(
         n_layer=cfg.get("n_layer", 6),
         n_head=cfg.get("n_head", 1),
@@ -87,6 +84,7 @@ def _fft_config(cfg: Dict[str, Any]) -> FFTConfig:
         use_rope=cfg.get("use_rope", False),
         use_flash=cfg.get("use_flash", cfg.get("use_flash_attention", False)),
         encoder_type=encoder_type,
+        adapter_dim=int(cfg.get("adapter_dim", 0) or 0),
     )
 
 
@@ -244,6 +242,15 @@ class FastPitchModel:
         from roar_tpu_torch.training import convert
 
         return convert.fastpitch_to_jax_tree(self.module)
+
+    def flax_paths(self) -> Dict[str, str]:
+        """{parameter name: '/'-joined path of the leaf in the JAX task's
+        parameter tree}, 'params/' first, as the JAX package's path
+        patterns see it (`freeze_updates`, `finetune.param_labels`)."""
+        from roar_tpu_torch.training import convert
+
+        return {name: f"params/{path}"
+                for name, path in convert.fastpitch_flax_paths(self.module).items()}
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
         """Draw the dropout masks of training-mode forwards from `generator`

@@ -8,8 +8,8 @@ trainable `(v, scale)` form, MPD and MSD, and the D and G losses that
 training/gan.py steps.  The modules hold their own parameters, so the loss
 functions take tensors only.
 
-`compute_stft_bias` and `denoise` wait for the port of ops/griffin_lim.py
-and raise `NotImplementedError`.
+`compute_stft_bias` and `denoise` subtract the generator's bias spectrum
+through `ops/griffin_lim.istft`.
 """
 
 from __future__ import annotations
@@ -199,12 +199,36 @@ class HifiGanModel:
         with torch.no_grad():
             return self.generator(spec)
 
-    def compute_stft_bias(self):
-        raise NotImplementedError(
-            "compute_stft_bias needs the port of roar_tpu/ops/griffin_lim.py "
-            "(`stft_magnitude` of the generator's bias audio feeds `denoise`, whose inverse "
-            "STFT is not ported yet)")
+    @torch.no_grad()
+    def compute_stft_bias(self) -> torch.Tensor:
+        """The generator's bias magnitude spectrum [1, F, 1]: |STFT| of its
+        output on a zero mel of 88 frames, first frame
+        (roar_tpu/models/hifigan_model.py:240-254)."""
+        from roar_tpu_torch.ops.spectrogram import stft_magnitude
 
-    def denoise(self, audio, strength: float = 0.0025, stft_bias=None):
-        raise NotImplementedError(
-            "denoise needs `istft` of roar_tpu/ops/griffin_lim.py, which is not ported yet")
+        device = next(self.generator.parameters()).device
+        zero_mel = torch.zeros(1, 88, self.mel_cfg.nfilt, device=device)
+        mag = stft_magnitude(self.generator(zero_mel), n_fft=self.mel_cfg.fft_length,
+                             hop_length=self.mel_cfg.hop_length,
+                             win_length=self.mel_cfg.win_length, window=self.mel_cfg.window,
+                             center=True)
+        return mag[:, :, 0:1]
+
+    @torch.no_grad()
+    def denoise(self, audio: torch.Tensor, strength: float = 0.0025,
+                stft_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Subtract `strength` times the generator's bias spectrum from the
+        magnitudes of `audio` [B, S], clipped at 0, phase kept
+        (roar_tpu/models/hifigan_model.py:256-289)."""
+        from roar_tpu_torch.ops.griffin_lim import _stft_complex, istft
+
+        if stft_bias is None:
+            stft_bias = self.compute_stft_bias()
+        cfg = self.mel_cfg
+        n_fft, hop, win = cfg.fft_length, cfg.hop_length, cfg.win_length
+        t = audio.shape[-1] // hop + 1
+        re, im = _stft_complex(audio.float(), n_fft, hop, win, cfg.window, t)
+        mag = torch.sqrt(re * re + im * im + 1e-12)
+        new_mag = torch.clamp(mag - strength * stft_bias, min=0.0)
+        scale = new_mag / torch.clamp(mag, min=1e-8)
+        return istft(re * scale, im * scale, n_fft, hop, win, cfg.window, length=audio.shape[-1])

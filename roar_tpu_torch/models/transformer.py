@@ -1,8 +1,8 @@
 """FastPitch "FFT" transformer blocks, for serving and training.
 
 Port of roar_tpu/models/transformer.py: sinusoidal positions, `MultiHeadAttn`,
-`PositionwiseConvFF`, `TransformerLayer`, `FFTransformerDecoder` and
-`FFTransformerEncoder`.  Activations are [B, T, C] and attention heads
+`PositionwiseConvFF`, `AdapterBlock`, `TransformerLayer`, `FFTransformerDecoder`
+and `FFTransformerEncoder`.  Activations are [B, T, C] and attention heads
 [B, T, H, D], as in the JAX package.  `dropout`, `dropatt` and `dropemb` act
 in training mode only (`submodules.Dropout`).  `use_rope` rotates q and k
 (`ops.rope`, the half-split form, in fp32) after the head split and before
@@ -31,11 +31,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from roar_tpu_torch.models.submodules import (
+    LN_EPS,
     ConditionalInput,
     ConditionalLayerNorm,
     Conv1d,
     Dropout,
     Embedding,
+    LayerNorm,
     Linear,
 )
 from roar_tpu_torch.ops.flash_attention import flash_self_attention
@@ -140,21 +142,44 @@ class PositionwiseConvFF(nn.Module):
         return self.layer_norm(x + self._core(x), conditioning)
 
 
+class AdapterBlock(nn.Module):
+    """Residual bottleneck adapter: x + up(relu(down(LayerNorm(x)))), with
+    `up` zero at construction so that the adapter is the identity where it is
+    inserted (flax scopes `adapter/LayerNorm_0`, `adapter/down`,
+    `adapter/up`)."""
+
+    def __init__(self, d_model: int, dim: int):
+        super().__init__()
+        self.norm = LayerNorm(d_model, eps=LN_EPS)
+        self.down = Linear(d_model, dim)
+        self.up = Linear(dim, d_model)
+        with torch.no_grad():
+            self.up.weight.zero_()
+            self.up.bias.zero_()
+
+    def forward(self, x):
+        return x + self.up(F.relu(self.down(self.norm(x))))
+
+
 class TransformerLayer(nn.Module):
     def __init__(self, n_head: int, d_model: int, d_head: int, d_inner: int,
                  kernel_size: int, pre_lnorm: bool = False,
                  condition_types: Sequence[str] = (), use_rope: bool = False,
-                 use_flash: bool = False, dropout: float = 0.0, dropatt: float = 0.0):
+                 use_flash: bool = False, dropout: float = 0.0, dropatt: float = 0.0,
+                 adapter_dim: int = 0):
         super().__init__()
         self.dec_attn = MultiHeadAttn(n_head, d_model, d_head, pre_lnorm,
                                       condition_types, use_rope, use_flash, dropout, dropatt)
         self.pos_ff = PositionwiseConvFF(d_model, d_inner, kernel_size, pre_lnorm,
                                          condition_types, dropout)
+        self.adapter = AdapterBlock(d_model, adapter_dim) if adapter_dim > 0 else None
 
     def forward(self, x, mask, conditioning=None):
         # mask: [B, T, 1] float, 1 = valid
         out = self.dec_attn(x, key_mask=mask[..., 0] > 0, conditioning=conditioning)
         out = self.pos_ff(out * mask, conditioning)
+        if self.adapter is not None:
+            out = self.adapter(out)
         return out * mask
 
 
@@ -166,14 +191,15 @@ class FFTransformerDecoder(nn.Module):
                  d_inner: int, kernel_size: int, pre_lnorm: bool = False,
                  condition_types: Sequence[str] = (), use_rope: bool = False,
                  use_flash: bool = False, dropout: float = 0.0, dropatt: float = 0.0,
-                 dropemb: float = 0.0):
+                 dropemb: float = 0.0, adapter_dim: int = 0):
         super().__init__()
         self.d_model = d_model
         self.cond_input = ConditionalInput(d_model, d_model, condition_types)
         self.dropemb = Dropout(dropemb)
         self.layers = nn.ModuleList(
             TransformerLayer(n_head, d_model, d_head, d_inner, kernel_size, pre_lnorm,
-                             condition_types, use_rope, use_flash, dropout, dropatt)
+                             condition_types, use_rope, use_flash, dropout, dropatt,
+                             adapter_dim)
             for _ in range(n_layer))
 
     def attention_path(self) -> str:
@@ -212,10 +238,11 @@ class FFTransformerEncoder(TokenEncoder):
                  d_embed: Optional[int] = None, padding_idx: int = 0,
                  pre_lnorm: bool = False, condition_types: Sequence[str] = (),
                  use_rope: bool = False, use_flash: bool = False, dropout: float = 0.0,
-                 dropatt: float = 0.0, dropemb: float = 0.0):
+                 dropatt: float = 0.0, dropemb: float = 0.0, adapter_dim: int = 0):
         super().__init__()
         self.padding_idx = padding_idx
         self.word_emb = Embedding(n_embed, d_embed or d_model)
         self.stack = FFTransformerDecoder(n_layer, n_head, d_model, d_head, d_inner,
                                           kernel_size, pre_lnorm, condition_types,
-                                          use_rope, use_flash, dropout, dropatt, dropemb)
+                                          use_rope, use_flash, dropout, dropatt, dropemb,
+                                          adapter_dim)

@@ -25,7 +25,11 @@ port `FastPitchModule` (or any of its sub-modules) from the flax tree and
 `fastpitch_to_jax_tree` writes it back, with FFT transformer or Conformer
 stacks (a Conformer layer's scopes: `ff1` / `ff2` with `Dense_0`, `Dense_1`
 and `layer_norm`, `self_attn`, and `convolutional_block` with `Conv_0`, the
-depthwise `Conv_1`, `LayerNorm_0`, `Conv_2` and `layer_norm`).
+depthwise `Conv_1`, `LayerNorm_0`, `Conv_2` and `layer_norm`), and with a
+transformer layer's adapter (`adapter/LayerNorm_0`, `adapter/down`,
+`adapter/up`).  `fastpitch_flax_paths` names each port parameter by its flax
+path, which is what the JAX package's path regexes (`finetune.param_labels`,
+`freeze_updates`) match.
 
 GPT is a change of layout only too: `load_gpt_params` fills a port `GPT` from
 the flax tree in either block layout (`h_0 .. h_{L-1}`, or `h_scan` with a
@@ -72,7 +76,7 @@ from roar_tpu_torch.models.hifigan import (
 )
 from roar_tpu_torch.models.moe import MoEMLP
 from roar_tpu_torch.models.submodules import ConditionalInput, ConditionalLayerNorm, ConvNorm
-from roar_tpu_torch.models.transformer import PositionwiseConvFF
+from roar_tpu_torch.models.transformer import AdapterBlock, PositionwiseConvFF
 
 WN_EPS = 1e-12  # flax nn.WeightNorm's epsilon
 FASTPITCH_SKIPPED = ("aligner_module/",)
@@ -137,6 +141,8 @@ def _flax_child(parent: nn.Module, name: str) -> str:
         return "Conv_0"
     if isinstance(parent, PositionwiseFF):
         return {"linear_in": "Dense_0", "linear_out": "Dense_1"}.get(name, name)
+    if isinstance(parent, AdapterBlock):
+        return {"norm": "LayerNorm_0"}.get(name, name)
     if isinstance(parent, ConvolutionalModule):
         return {"pointwise_in": "Conv_0", "depthwise": "Conv_1", "norm": "LayerNorm_0",
                 "pointwise_out": "Conv_2"}.get(name, name)
@@ -209,6 +215,17 @@ def load_fastpitch_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Mo
     leaves.check_consumed()
     _load(module, sd)
     return module
+
+
+def fastpitch_flax_paths(module: nn.Module) -> Dict[str, str]:
+    """{torch parameter name: '/'-joined flax path} of every parameter of a
+    port FastPitchModule, as `fastpitch_to_jax_tree` writes it, without the
+    leading 'params'."""
+    paths = {}
+    for torch_prefix, path, leaf in _fastpitch_sites(module):
+        for torch_name, flax_name, _ in _leaf_names(leaf, path):
+            paths[torch_prefix + torch_name] = f"{path}/{flax_name}"
+    return paths
 
 
 def fastpitch_to_jax_tree(module: nn.Module) -> Dict[str, Any]:

@@ -10,10 +10,19 @@ differs between the two libraries and is matched here:
 - `weight_decay` defaults to 0.0 (torch.optim.AdamW's own default is 0.01);
 - `adam` with weight decay is L2 regularisation added to the gradient;
 - gradient clipping is optax's `clip_by_global_norm`: gradients are scaled
-  by max_norm / norm only when norm >= max_norm, with no epsilon.
+  by max_norm / norm only when norm >= max_norm, with no epsilon;
+- adadelta, adamax, adagrad and rmsprop are optax's update rules, written
+  here (`Adadelta`, `Adamax`, `Adagrad`, `RMSprop`): torch.optim's classes of
+  those names start, scale or guard differently (adagrad's accumulator
+  starts at 0.1 and its eps sits inside the root; rmsprop decays by 0.9,
+  keeps eps inside the root and takes momentum on the learning-rate-scaled
+  update);
+- under dynamic freezing (`ScheduledOptimizer.shared_count`) every update
+  counts once for every parameter, as optax's one `count` does: a parameter
+  that sat out some updates is bias-corrected at the shared count when it
+  moves again.
 
-Optimizers: sgd, adam, adamw (adadelta, adamax, adagrad and rmsprop of the
-JAX registry are not ported yet and raise).
+Optimizers: sgd, adam, adamw, adadelta, adamax, adagrad, rmsprop.
 """
 
 from __future__ import annotations
@@ -176,6 +185,122 @@ def get_schedule(name: str, initial_lr: float, max_steps: Optional[int] = None,
     return _SCHEDULES[name](initial_lr=initial_lr, **kwargs)
 
 
+class _OptaxRule(torch.optim.Optimizer):
+    """A torch optimizer whose `step` applies one optax update rule to every
+    parameter that has a gradient; `lr` is the group's learning rate."""
+
+    def init_state(self, p: torch.Tensor) -> dict:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(self.init_state(p))
+                self.update(p, p.grad, state, group)
+        return None
+
+
+class Adadelta(_OptaxRule):
+    """optax.adadelta(lr): e_g <- rho e_g + (1 - rho) g^2;
+    d = sqrt(e_x + eps) / sqrt(e_g + eps) * g; e_x <- rho e_x + (1 - rho) d^2;
+    p <- p - lr d."""
+
+    def __init__(self, params, lr: float, rho: float = 0.9, eps: float = 1e-6):
+        super().__init__(params, dict(lr=lr, rho=rho, eps=eps))
+
+    def init_state(self, p):
+        return {"e_g": torch.zeros_like(p), "e_x": torch.zeros_like(p)}
+
+    def update(self, p, g, state, group):
+        rho, eps = group["rho"], group["eps"]
+        state["e_g"].mul_(rho).add_((1 - rho) * g * g)
+        d = torch.sqrt(state["e_x"] + eps) / torch.sqrt(state["e_g"] + eps) * g
+        state["e_x"].mul_(rho).add_((1 - rho) * d * d)
+        p.sub_(group["lr"] * d)
+
+
+class Adagrad(_OptaxRule):
+    """optax.adagrad(lr): the sum of squares starts at 0.1;
+    p <- p - lr g / sqrt(sum + 1e-7) (0 where the sum is 0)."""
+
+    def __init__(self, params, lr: float, initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, initial_accumulator_value=initial_accumulator_value,
+                                      eps=eps))
+
+    def init_state(self, p):
+        return {"sum_of_squares": torch.full_like(p, self.defaults["initial_accumulator_value"])}
+
+    def update(self, p, g, state, group):
+        acc = state["sum_of_squares"]
+        acc.add_(g * g)
+        scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]), torch.zeros_like(acc))
+        p.sub_(group["lr"] * (scale * g))
+
+
+class RMSprop(_OptaxRule):
+    """optax.rmsprop(lr, momentum=m, eps=eps): nu <- 0.9 nu + 0.1 g^2 (from 0);
+    u = -lr g / sqrt(nu + eps); with momentum, trace <- u + m trace and
+    p <- p + trace; without, p <- p + u."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8,
+                 momentum: Optional[float] = None):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, momentum=momentum))
+
+    def init_state(self, p):
+        state = {"nu": torch.zeros_like(p)}
+        if self.defaults["momentum"] is not None:
+            state["trace"] = torch.zeros_like(p)
+        return state
+
+    def update(self, p, g, state, group):
+        decay = group["decay"]
+        state["nu"].mul_(decay).add_((1 - decay) * g * g)
+        u = -group["lr"] * (torch.rsqrt(state["nu"] + group["eps"]) * g)
+        if group["momentum"] is not None:
+            u = state["trace"].mul_(group["momentum"]).add_(u)
+        p.add_(u)
+
+
+class Adamax(_OptaxRule):
+    """optax.adamax(lr, b1, b2, eps): mu <- b1 mu + (1 - b1) g;
+    nu <- max(|g| + eps, b2 nu); p <- p - lr (mu / (1 - b1^count)) / nu, the
+    count taken after this update."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
+
+    def init_state(self, p):
+        return {"step": torch.tensor(0.0), "mu": torch.zeros_like(p),
+                "nu": torch.zeros_like(p)}
+
+    def update(self, p, g, state, group):
+        b1, b2 = group["betas"]
+        state["step"] += 1
+        state["mu"].mul_(b1).add_((1 - b1) * g)
+        torch.maximum(g.abs() + group["eps"], b2 * state["nu"], out=state["nu"])
+        correction = 1 - b1 ** float(state["step"])
+        p.sub_(group["lr"] * ((state["mu"] / correction) / state["nu"]))
+
+
+def _init_adam_state(optimizer: torch.optim.Optimizer, group: dict, p: torch.Tensor) -> dict:
+    """The empty state torch.optim.Adam / AdamW give a parameter at its first
+    update, filled in before it so that its step can be set."""
+    on_device = group.get("capturable") or group.get("fused")
+    state = {"step": torch.tensor(0.0, dtype=torch.float32,
+                                  device=p.device if on_device else None),
+             "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+             "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+    if group.get("amsgrad"):
+        state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    return state
+
+
 def get_optimizer(name: str, params: Iterable[torch.nn.Parameter], learning_rate: float,
                   betas=(0.9, 0.999), weight_decay: float = 0.0, eps: float = 1e-8,
                   momentum: float = 0.9, **_unused) -> torch.optim.Optimizer:
@@ -188,8 +313,15 @@ def get_optimizer(name: str, params: Iterable[torch.nn.Parameter], learning_rate
     if name == "adamw":
         return torch.optim.AdamW(params, lr=learning_rate, betas=tuple(betas), eps=eps,
                                  weight_decay=weight_decay)
-    if name in ("adadelta", "adamax", "adagrad", "rmsprop"):
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet (sgd, adam, adamw are)")
+    # as the JAX registry: adadelta and adagrad take only the learning rate
+    if name == "adadelta":
+        return Adadelta(params, lr=learning_rate)
+    if name == "adamax":
+        return Adamax(params, lr=learning_rate, betas=tuple(betas), eps=eps)
+    if name == "adagrad":
+        return Adagrad(params, lr=learning_rate)
+    if name == "rmsprop":
+        return RMSprop(params, lr=learning_rate, eps=eps, momentum=momentum)
     raise ValueError(f"Unknown optimizer {name!r}")
 
 
@@ -223,6 +355,10 @@ class ScheduledOptimizer:
         self.base_lr = base_lr
         self.gradient_clip_val = gradient_clip_val
         self.count = 0
+        # set under dynamic freezing: a parameter without a `.grad` sits out
+        # an update, and its own step is then set to `count` before the next
+        # one it takes part in (optax's shared count)
+        self.shared_count = False
 
     @property
     def params(self):
@@ -243,9 +379,29 @@ class ScheduledOptimizer:
             group["lr"] = lr
         if self.gradient_clip_val:
             clip_by_global_norm(self.params, self.gradient_clip_val, norm=grad_norm)
+        if self.shared_count:
+            self._share_count()
         self.optimizer.step()
         self.count += 1
         return lr
+
+    def _share_count(self) -> None:
+        """Set the step of every parameter about to be updated to the number
+        of updates done so far (the optimizer adds one, as optax's count
+        does); a parameter that has not moved yet gets its empty state now."""
+        opt = self.optimizer
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = opt.state[p]
+                if not state and self.count:
+                    if isinstance(opt, _OptaxRule):
+                        state.update(opt.init_state(p))
+                    elif isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+                        state.update(_init_adam_state(opt, group, p))
+                if "step" in state:
+                    state["step"] = torch.full_like(state["step"], float(self.count))
 
     def state_dict(self) -> Dict[str, Any]:
         return {"optimizer": self.optimizer.state_dict(), "count": self.count}

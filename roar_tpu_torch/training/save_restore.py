@@ -8,13 +8,14 @@ the parameter tree: nested maps whose array leaves are msgpack ext type 1,
 writes the same encoding, so roar_tpu's `restore_from` reads the port's
 bundles.  pyyaml and msgpack are imported here only, when a bundle is read
 or written.
+`transfer_params` is the JAX package's warm start on such trees.
 """
 
 from __future__ import annotations
 
 import io
 import tarfile
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -120,3 +121,47 @@ def save_to(path: str, cfg: Dict[str, Any], params: Mapping[str, Any]) -> None:
             info = tarfile.TarInfo(name)
             info.size = len(data)
             tar.addfile(info, io.BytesIO(data))
+
+
+def _flat_paths(tree: Mapping[str, Any], prefix: str = ""):
+    """('/'-joined path, leaf) of a nested dict, keys in sorted order (the
+    order `jax.tree_util` walks a dict in)."""
+    for key in sorted(tree):
+        value = tree[key]
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            yield from _flat_paths(value, path + "/")
+        else:
+            yield path, value
+
+
+def transfer_params(target: Mapping[str, Any], source: Mapping[str, Any],
+                    include: Optional[List[str]] = None, exclude: Optional[List[str]] = None
+                    ) -> Tuple[Dict[str, Any], List[str], List[str]]:
+    """Warm start (roar_tpu/training/save_restore.py:68-110): copy each leaf
+    of `source` into `target` where the '/'-joined paths are equal and the
+    shapes agree; `include` / `exclude` are substring filters on the path.
+    Both are nested dicts of arrays (a `.roar` bundle's tree, or
+    `convert.fastpitch_to_jax_tree`'s).  Returns (new target, loaded paths,
+    skipped paths); `target` is not modified."""
+    src = dict(_flat_paths(source))
+    loaded, skipped = [], []
+
+    def build(node, prefix):
+        out = {}
+        for key in sorted(node):
+            value, path = node[key], f"{prefix}{key}"
+            if isinstance(value, Mapping):
+                out[key] = build(value, path + "/")
+                continue
+            candidate = src.get(path)
+            ok = candidate is not None and np.shape(candidate) == np.shape(value)
+            if ok and include:
+                ok = any(s in path for s in include)
+            if ok and exclude:
+                ok = not any(s in path for s in exclude)
+            (loaded if ok else skipped).append(path)
+            out[key] = candidate if ok else value
+        return out
+
+    return build(target, ""), loaded, skipped

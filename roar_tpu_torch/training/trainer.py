@@ -12,6 +12,20 @@ update, as `optax.MultiSteps` does) the global-norm clip and the optimizer
 update of `optim.ScheduledOptimizer`.  Metrics stay tensors on the device: the
 host waits for the device only where it logs.
 
+Dynamic freezing (`freeze_updates`, roar_tpu/training/trainer.py:74-125 and
+153-227): `{"enabled": true, "modules": {name: N | [start, end]}}`.  A name
+matches a parameter when its '/'-separated parts are a contiguous run of the
+parameter's flax path (the task's `flax_paths()`); the longest match wins, and
+a name that matches nothing raises.  Scalar N freezes while the update number
+(`step // accumulate_grad_batches + 1`) is <= N, -1 for ever; [start, end]
+inside the window, `end == -1` leaving it open.  A frozen parameter gets no
+`.grad` for that update, so the optimizer leaves it and its state alone, and
+its gradient is left out of `grad_norm` and of the clip; the optimizer's
+count goes on for all (`ScheduledOptimizer.shared_count`).  A task may hold
+parameters its optimizer does not (`finetune.masked_optimizer`): their
+gradients are computed and counted in `grad_norm`, as the JAX step takes the
+norm before `optax.multi_transform` zeroes them, and they never move.
+
 `precision="bf16"` is what roar_tpu/training/trainer.py:152-174 does: the
 parameters and the optimizer state stay fp32, forward and backward run on a
 bf16 cast of the parameters and of the batch's floating tensors, and the
@@ -19,9 +33,10 @@ gradients come back in fp32.  A task takes it by declaring
 `set_compute_dtype(dtype)` (`GPTLMModel` and `FastPitchModel` do); for any
 other task it raises `NotImplementedError`.
 
-Not ported: `freeze_updates` (dynamic freezing), tensor-parallel rules and the
-device mesh; each raises `NotImplementedError`.  There is no EMA of the
-parameters.
+`Trainer.callbacks` are called as `cb(state, metrics)` after every step.
+
+Not ported: tensor-parallel rules and the device mesh; each raises
+`NotImplementedError`.  There is no EMA of the parameters.
 """
 
 from __future__ import annotations
@@ -47,6 +62,51 @@ def to_device(batch: Dict[str, Any], device: torch.device,
     return out
 
 
+def freeze_flag(update: int, spec) -> bool:
+    """Is a module with schedule `spec` frozen at (1-based) `update`?"""
+    if isinstance(spec, (list, tuple)):
+        start, end = spec
+        return start <= update and (update <= end or end == -1)
+    return update <= spec or spec == -1
+
+
+class FreezeSchedule:
+    """Which parameters sit out which updates (the JAX `_freeze_specs`):
+    `modules` maps a '/'-joined module name to N or [start, end];
+    `flax_paths` maps each parameter name to its flax path."""
+
+    def __init__(self, modules: Dict[str, Any], flax_paths: Dict[str, str]):
+        for name, spec in modules.items():
+            if isinstance(spec, (list, tuple)) and len(spec) != 2:
+                raise ValueError(
+                    f"freeze_updates modules list cannot have more than two elements "
+                    f"({name}: {list(spec)})")
+        paths = {name: tuple(path.split("/")) for name, path in flax_paths.items()}
+        parts = {name: tuple(name.split("/")) for name in modules}
+
+        def matches(name_parts, path):
+            n = len(name_parts)
+            return any(path[i:i + n] == name_parts for i in range(len(path) - n + 1))
+
+        for name, name_parts in parts.items():
+            if not any(matches(name_parts, p) for p in paths.values()):
+                raise ValueError(
+                    f"freeze_updates module '{name}' matches no parameter path; "
+                    f"top-level params: {sorted({p[0] for p in paths.values()})}")
+        self.specs: Dict[str, Any] = {}
+        for pname, path in paths.items():
+            best, best_len = None, -1
+            for name, name_parts in parts.items():
+                if len(name_parts) > best_len and matches(name_parts, path):
+                    best, best_len = modules[name], len(name_parts)
+            if best is not None:
+                self.specs[pname] = best
+
+    def frozen(self, update: int) -> set:
+        """Names of the parameters frozen at `update`."""
+        return {name for name, spec in self.specs.items() if freeze_flag(update, spec)}
+
+
 @dataclasses.dataclass
 class TrainState:
     """What a supervised run carries from step to step.  `step` counts
@@ -57,6 +117,7 @@ class TrainState:
     opt: ScheduledOptimizer
     step: int = 0
     dropout_generator: Optional[torch.Generator] = None
+    freeze: Optional[FreezeSchedule] = None
 
     def state_dict(self) -> Dict[str, Any]:
         state = {"step": self.step, "module": self.model.module.state_dict(),
@@ -86,24 +147,34 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], epoch: int = 0
     mark = mark or (lambda name: None)
     model.module.train()
     loss, metrics = model.loss_fn(batch, epoch, mark=mark)
-    params = opt.params
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    named = list(model.module.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
     # a parameter the loss does not reach has a zero gradient, as in JAX
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
     mark("backward")
-    metrics["grad_norm"] = global_norm(grads)
 
     k = max(int(accumulate_grad_batches), 1)
+    frozen = state.freeze.frozen(state.step // k + 1) if state.freeze is not None else set()
+    metrics["grad_norm"] = global_norm(
+        [g for (name, _), g in zip(named, grads) if name not in frozen])
+    updated = {id(p) for p in opt.params}
     first_of_group = state.step % k == 0
-    for p, g in zip(params, grads):
+    for (name, p), g in zip(named, grads):
+        if id(p) not in updated:
+            continue
+        if name in frozen:  # the window holds for the whole group
+            p.grad = None
+            continue
         if k > 1:
             g = g / k
         p.grad = g if first_of_group else p.grad + g
     state.step += 1
     if state.step % k == 0:
-        # without accumulation the `.grad`s are this batch's gradients: the
-        # clip reuses their norm
-        opt.step(grad_norm=metrics["grad_norm"] if k == 1 else None)
+        # without accumulation, and with every parameter the norm counts in
+        # the optimizer, the `.grad`s are the ones `grad_norm` measured: the
+        # clip reuses it
+        same = k == 1 and len(updated) == len(named)
+        opt.step(grad_norm=metrics["grad_norm"] if same else None)
     mark("optimizer")
     return state, metrics
 
@@ -125,6 +196,7 @@ class Trainer:
     freeze_updates: Optional[Dict[str, Any]] = None
     tp_rules: Optional[Any] = None
     mesh: Optional[Any] = None
+    callbacks: Tuple = ()
 
     def __post_init__(self):
         self.compute_dtype = None
@@ -134,8 +206,16 @@ class Trainer:
                     f"precision=bf16 (bf16 compute with fp32 master weights) is not ported for "
                     f"{type(self.model).__name__}; train in fp32")
             self.compute_dtype = torch.bfloat16
+        self.freeze = None
         if self.freeze_updates and self.freeze_updates.get("enabled", False):
-            raise NotImplementedError("freeze_updates (dynamic freezing) is not ported yet")
+            modules = dict(self.freeze_updates.get("modules") or {})
+            if modules:
+                if not hasattr(self.model, "flax_paths"):
+                    raise NotImplementedError(
+                        f"freeze_updates needs the task's flax paths; "
+                        f"{type(self.model).__name__} has no `flax_paths()`")
+                self.freeze = FreezeSchedule(modules, self.model.flax_paths())
+                self.optimizer.shared_count = True
         if self.tp_rules is not None or self.mesh is not None:
             raise NotImplementedError("tensor-parallel rules and device meshes are not ported: "
                                       "the port trains on one device")
@@ -149,7 +229,8 @@ class Trainer:
             self.model.set_compute_dtype(self.compute_dtype)
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.model.set_dropout_generator(generator)
-        return TrainState(model=self.model, opt=self.optimizer, dropout_generator=generator)
+        return TrainState(model=self.model, opt=self.optimizer, dropout_generator=generator,
+                          freeze=self.freeze)
 
     def run_epoch(self, state: TrainState, batches: Iterable[Dict[str, np.ndarray]],
                   epoch: int = 0, logger=None) -> Tuple[TrainState, Dict[str, float]]:
@@ -166,6 +247,8 @@ class Trainer:
                 host["train_step_timing"] = (time.perf_counter() - t0) / (i + 1)
                 logger.log_metrics(host, step=state.step)
             last_metrics = metrics
+            for cb in self.callbacks:
+                cb(state, metrics)
             if self.max_steps is not None and state.step >= self.max_steps:
                 self.reached_max_steps = True
                 break

@@ -322,8 +322,11 @@ def test_flash_with_active_dropatt_takes_the_einsum_path():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="remat"):
         FastPitchModel({**_cfg(), "input_fft": {**_cfg()["input_fft"], "remat": True}})
-    with pytest.raises(NotImplementedError, match="adapters"):
-        FastPitchModel({**_cfg(), "output_fft": {**_cfg()["output_fft"], "adapter_dim": 8}})
+    # adapters are ported: one per decoder layer, none in the encoder here
+    adapted = FastPitchModel({**_cfg(), "output_fft": {**_cfg()["output_fft"], "adapter_dim": 8}})
+    assert all(layer.adapter.down.out_features == 8
+               for layer in adapted.module.decoder_module.layers)
+    assert all(layer.adapter is None for layer in adapted.module.encoder_module.stack.layers)
     with pytest.raises(NotImplementedError, match="GST"):
         FastPitchModel({**_cfg(), "use_gst": True})
     model = FastPitchModel(_cfg())
@@ -336,8 +339,12 @@ def test_unported_options_raise():
 
     with pytest.raises(NotImplementedError, match="bf16.*TaskWithoutComputeDtype"):
         Trainer(TaskWithoutComputeDtype(), opt, device="cpu", precision="bf16")
-    with pytest.raises(NotImplementedError, match="freeze_updates"):
-        Trainer(model, opt, device="cpu", freeze_updates={"enabled": True, "modules": {}})
+    # freeze_updates is ported: the aligner sits out updates 1 and 2
+    freezing = Trainer(model, opt, device="cpu",
+                       freeze_updates={"enabled": True, "modules": {"aligner_module": 2}})
+    aligner = {n for n, _ in model.module.named_parameters() if n.startswith("aligner_module.")}
+    assert freezing.freeze.frozen(2) == aligner and not freezing.freeze.frozen(3)
+    assert opt.shared_count
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(model, opt, device="cpu", mesh=object())
 

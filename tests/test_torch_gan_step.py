@@ -202,7 +202,10 @@ def test_precomputed_mel_in_the_batch_wins_and_unported_parts_raise():
     assert model._input_mel({**batch, "mel": mel}) is mel
     assert model._input_mel(batch).shape == (2, 2048 // 128, 32)
     assert model.convert_spectrogram_to_audio(mel).shape == (2, 4 * 128)
-    with pytest.raises(NotImplementedError, match="griffin_lim"):
-        model.compute_stft_bias()
-    with pytest.raises(NotImplementedError, match="istft"):
-        model.denoise(torch.zeros(1, 512))
+    # ported (tests/test_torch_griffin_lim.py holds them to JAX): the bias
+    # spectrum of the generator, and denoise at strength 0 is the STFT round trip
+    bias = model.compute_stft_bias()
+    assert bias.shape == (1, 512 // 2 + 1, 1) and torch.isfinite(bias).all()
+    audio = 0.1 * torch.randn(1, 4096, generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(model.denoise(audio, strength=0.0, stft_bias=bias)[:, 512:3584],
+                               audio[:, 512:3584], rtol=0, atol=1e-5)

@@ -365,12 +365,12 @@ def test_unported_options_raise_by_name():
         run.train_gan({"trainer": {"precision": "bf16-mixed"}, "model": {}},
                       TaskWithoutComputeDtype(), None, device="cpu")
     # a Conformer stack builds (tests/test_torch_conformer.py holds it to JAX);
-    # an adapter on a transformer stack is still not ported
+    # an adapter on a transformer stack builds too (tests/test_torch_finetune.py)
     cfg = _cfg()
     cfg["input_fft"] = {**cfg["input_fft"], "encoder_type": "conformer"}
     assert type(JETSModel(cfg).module.encoder_module).__name__ == "FFConformerEncoder"
-    with pytest.raises(NotImplementedError, match="adapter_dim"):
-        JETSModel({**_cfg(), "output_fft": {**_cfg()["output_fft"], "adapter_dim": 8}})
+    adapted = JETSModel({**_cfg(), "output_fft": {**_cfg()["output_fft"], "adapter_dim": 8}})
+    assert all(layer.adapter is not None for layer in adapted.module.decoder_module.layers)
     with pytest.raises(NotImplementedError, match="GST"):
         JETSModel({**_cfg(), "use_gst": True})
     with pytest.raises(ValueError, match="upsample"):

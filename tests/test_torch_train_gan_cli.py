@@ -135,3 +135,25 @@ def test_checkpoint_keeps_the_hifigan_layout(trained):
     assert set(saved) == {"step", "generator", "mpd", "msd", "g_opt", "d_opt"}
     for name, module in state.model.state_modules().items():
         assert set(saved[name]) == set(module.state_dict()), name
+
+
+def test_early_stopping_stops_train_gan_after_the_second_validation(corpus, tmp_path):
+    """`create_early_stopping_callback` in the GAN runner, as roar_tpu's
+    `train_gan` feeds it: an unreachable `min_delta` and patience 0 stop the
+    run after the second validation round of six epochs."""
+    import signal
+
+    before = signal.getsignal(signal.SIGTERM)
+    cfg = _train_cfg(corpus[0], tmp_path, "trainer.max_steps=1000", "trainer.max_epochs=6",
+                     "exp_manager.create_tensorboard_logger=false",
+                     "+exp_manager.create_early_stopping_callback=true",
+                     "+exp_manager.early_stopping_callback_params.monitor=val_g_mel_loss",
+                     "+exp_manager.early_stopping_callback_params.min_delta=1e9",
+                     "+exp_manager.early_stopping_callback_params.patience=0")
+    state = hifigan_torch.run(cfg)
+    records = [json.loads(line) for line in
+               (tmp_path / "HifiGan" / "metrics.jsonl").read_text().splitlines()]
+    val = [r for r in records if "val_g_mel_loss" in r]
+    steps_per_epoch = val[0]["step"]
+    assert len(val) == 2 and state.step == 2 * steps_per_epoch
+    assert signal.getsignal(signal.SIGTERM) == before
