@@ -73,7 +73,23 @@ Phases, each printing JSON lines:
    (its trace names the fp32 K5 kernels; the device-busy share), TensorBoard
    and the snapshot, and the SIGTERM handler put back; `run_test` on 16
    utterances on both paths; and the fine-tune step's time beside this
-   phase's.
+   phase's.  Then phase align_and_train_durations on the same corpus: the
+   Aligner CLI `aligner_torch.main` on configs/aligner.yaml (embedding 384,
+   batch 64, 2 epochs, FastPitch's STFT and tokenizer; the bin loss switches
+   on at epoch 1), `align` of all 128 utterances (durations summing to the
+   mel lengths) written as `.npy` files, the FastPitch CLI with
+   `learn_alignment: false` and `remat` on both stacks on those durations
+   for 4 steps (24 / 12 / 12 fp32 flash launches a step), the step with
+   `remat` against the step without it bit for bit (losses, gradients,
+   generator state; the recomputed o and lse equal the first forward's)
+   under deterministic algorithms, kernels against plain, the step time and
+   peak memory on both sides beside the learned-alignment step, one bf16
+   step (24 / 12 / 12 bf16 launches), `parse` through the ENCharParser and
+   `infer`, and GST's `infer` at the config's width (kernel path against
+   plain path, 12 flash forwards, two references giving two mels); then
+   train_hifigan_dataset: configs/hifigan_dataset/hifigan_22050.yaml as it
+   ships (its `dataset_meta` VocoderDataset, bf16-mixed), 2 steps with the
+   checks of phase 6 (30 / 30 / 15 bf16 grouped-conv launches a step).
 9. train_jets: JETS (the FastPitch graph + the HiFi-GAN v1 generator,
    end-to-end text->wav) at the full width and depth of
    configs/jets_22050_align.yaml (flash attention on, `dropatt` 0, 4
@@ -363,6 +379,32 @@ def hifigan_train_config(manifest: str, exp_dir: str, device: str = "cuda", max_
                         "always_save_roar": True},
         "device": device,
     }
+
+
+def hifigan_dataset_train_config(manifest: str, wav_dir: str, exp_dir: str, device: str = "cuda",
+                                 max_steps: int = 2, batch_size: int = 16, n_samples: int = 8192,
+                                 debug: bool = False) -> dict:
+    """configs/hifigan_dataset/hifigan_22050.yaml through the port's loader:
+    its `dataset_meta` VocoderDataset (one sub-dataset, `manifest` with
+    `wav_dir`) for training and validation, at its own precision (bf16-mixed)
+    and batch, with `trainer.max_steps`, `max_epochs=2`,
+    `trainer.log_every_n_steps=1`, `exp_manager.always_save_roar=true` and
+    no TensorBoard logger.  Validation keeps the recipe's 3 s floor and runs
+    every 10 epochs: none within the run."""
+    from roar_tpu_torch.config.config import load_config
+
+    meta = f"{{corpus: {{manifest_path: {manifest}, audio_dir: {wav_dir}}}}}"
+    overrides = [f"train_ds_meta={meta}", f"val_ds_meta={meta}", "max_epochs=2",
+                 f"batch_size={batch_size}", f"train_n_samples={n_samples}",
+                 f"trainer.max_steps={max_steps}", "trainer.log_every_n_steps=1",
+                 f"exp_manager.exp_dir={exp_dir}", "exp_manager.create_tensorboard_logger=false",
+                 "+exp_manager.always_save_roar=true", f"+device={device}",
+                 "model.train_ds.dataloader_params.num_workers=4"]
+    if debug:
+        overrides.append("+model.debug=true")
+    here = os.path.dirname(os.path.abspath(__file__))
+    return load_config(os.path.join(here, "configs", "hifigan_dataset", "hifigan_22050.yaml"),
+                       overrides=overrides)
 
 
 def fastpitch_train_config(train_manifest: str, val_manifest: str, sup_dir: str, exp_dir: str,
@@ -1512,9 +1554,14 @@ class _PlainGroupedConv:
 def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int = 64,
                         steps: int = 8, batch_size: int = 16, n_segments: int = 8192,
                         debug: bool = False, precision=None, sample_rate: int = 22050,
-                        generator: str = "v1", timed: bool = True) -> dict:
+                        generator: str = "v1", timed: bool = True,
+                        dataset_meta: bool = False) -> dict:
     """HiFi-GAN training through the CLI's `run`; returns the grouped-conv
-    launch counts of that run.  With `precision="bf16"` (phase
+    launch counts of that run.  With `dataset_meta` (phase
+    `train_hifigan_dataset`) the config is configs/hifigan_dataset/hifigan_22050.yaml
+    (`hifigan_dataset_train_config`): the `dataset_meta` VocoderDataset, random
+    `n_segments` crops from its seeded generator, the exact-pad mel front end,
+    ExponentialLR, and the YAML's bf16-mixed.  With `precision="bf16"` (phase
     `train_hifigan_bf16`) the run trains with `trainer.precision=bf16`: every
     grouped conv of a step is a bf16 launch, and the kernel step is held to
     the plain step at the bf16 step's bars.  `sample_rate` 44100 trains
@@ -1539,10 +1586,14 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
     from roar_tpu_torch.training.save_restore import restore_from
 
     on_card = device.type == "cuda"
+    if dataset_meta:
+        precision = "bf16-mixed"  # the recipe's own
     bf16 = precision is not None
     phase = "train_hifigan_bf16" if bf16 else "train_hifigan"
     if generator != "v1":
         phase += "_44100" if sample_rate == 44100 else f"_{generator}"
+    if dataset_meta:
+        phase = "train_hifigan_dataset"
     hop = HIFIGAN_STFT[sample_rate][1]
 
     def sync():
@@ -1563,9 +1614,14 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
                 entries.append({"audio_filepath": path, "duration": len(audio) / sample_rate})
             manifest = os.path.join(tmp, "train_manifest.json")
             write_manifest(manifest, entries)
-            cfg = hifigan_train_config(manifest, os.path.join(tmp, "exp"), str(device), steps,
-                                       batch_size, n_segments, debug, precision, sample_rate,
-                                       generator)
+            if dataset_meta:
+                cfg = hifigan_dataset_train_config(manifest, tmp, os.path.join(tmp, "exp"),
+                                                   str(device), steps, batch_size, n_segments,
+                                                   debug)
+            else:
+                cfg = hifigan_train_config(manifest, os.path.join(tmp, "exp"), str(device),
+                                           steps, batch_size, n_segments, debug, precision,
+                                           sample_rate, generator)
 
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
@@ -1605,8 +1661,8 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
                     raise AssertionError(f"step {r['step']}: {bad} not finite")
             sched = cfg["model"]["optim"]["sched"]
             schedule = get_schedule(sched["name"], cfg["model"]["optim"]["lr"],
-                                    max_steps=cfg["model"]["max_steps"], min_lr=sched["min_lr"],
-                                    warmup_ratio=sched["warmup_ratio"])
+                                    max_steps=cfg["model"].get("max_steps"),
+                                    **{k: v for k, v in sched.items() if k != "name"})
             lrs = [r["lr"] for r in records]
             if not np.allclose(lrs, [schedule(i) for i in range(steps)], rtol=1e-9, atol=0.0):
                 raise AssertionError(f"learning rates {lrs} are not the schedule's")
@@ -1622,6 +1678,8 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
                 raise AssertionError(f"spectral-norm stats of scale 0 not updated: {moved}")
             _emit({"phase": phase, "step": "cli", "card": card, "steps": steps,
                    "precision": precision, "sample_rate": sample_rate, "generator": generator,
+                   "dataset": type(cli.build_vocoder_dataset(
+                       cfg["model"]["train_ds"]["dataset"])).__module__,
                    "generator_parameters": sum(p.numel() for p in model.generator.parameters()),
                    "batch": batch_size, "segment": n_segments,
                    "utterances": n_utterances, "grouped_conv_launches": launches,
@@ -1661,7 +1719,7 @@ def phase_train_hifigan(device: torch.device, card: str = "", n_utterances: int 
 
             # one D+G step, kernels against plain versions, same weights and batch
             batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in next(iter(_batches(cfg))).items()}
+                     for k, v in next(iter(_batches(cfg))).items() if isinstance(v, np.ndarray)}
             optim_cfg = {"name": "adamw", "lr": TRAIN_LR, "betas": [0.8, 0.99]}
 
             def one_step(m):
@@ -2900,9 +2958,10 @@ def phase_train_fastpitch(device: torch.device, card: str = "", n_utterances: in
                 result["flash"] = flash
                 result["timing"] = _time_fastpitch_step(model, batch, cfg, card, phase)
             if keep_dir is not None:
+                timing = result.get("timing", {})
                 result["kept"] = {"dir": tmp, "cfg": cfg, "entries": entries, "bundle": path,
-                                  "batch": batch, "step_ms": result.get("timing", {}).get(
-                                      "step_ms")}
+                                  "batch": batch, "step_ms": timing.get("step_ms"),
+                                  "peak_bytes": timing.get("peak_device_memory_bytes")}
             return result
     finally:
         torch.backends.cudnn.benchmark = benchmark_was
@@ -3400,6 +3459,479 @@ def _time_finetune_step(model, batch, cfg: dict, card: str, fastpitch_step_ms) -
 # FP_TRAIN_GRAD_L2_TOL.  The hard alignment must be the same on both paths:
 # the aligner reads the encoder output, which passed through six attention
 # layers, and a flipped MAS decision would change every later gradient
+# phase align_and_train_durations: the recipe without learned alignment on
+# train_fastpitch's corpus, sup-data and bundle.  The standalone Aligner
+# (configs/aligner.yaml at its widths, with FastPitch's STFT and tokenizer so
+# that its durations count FastPitch's frames and tokens) trains, aligns the
+# corpus and writes each utterance's durations; FastPitch then trains on them
+# with `learn_alignment: false` and `remat` on both FFT stacks: K5's forward
+# runs again in the backward, DUR_LAUNCHES_PER_LAYER a layer and step.  The
+# step with `remat` is held to the step without it bit for bit (losses, every
+# gradient, the dropout generator's state) under torch's deterministic
+# algorithms, which make the gathers', cumsums' and convolutions' backwards
+# add in a fixed order; the kernel step to the plain step at FastPitch's bars
+DUR_STEPS = 4
+ALIGNER_BATCH = 64
+ALIGNER_EPOCHS = 2
+DUR_LAUNCHES_PER_LAYER = {"fwd": 2, "dkv": 1, "dq": 1}
+DUR_LOSS_TERMS = ("loss", "mel_loss", "dur_loss", "pitch_loss", "energy_loss")
+ENGLISH_SENTENCES = ["Dr. Smith bought 2 cars on the 3rd of May.",
+                     "The quick brown fox jumps over the lazy dog.",
+                     "At 7:30pm we paid $12.50, 25% more than before.",
+                     "Mr. Jones, please call me back tomorrow."]
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms (warnings collected, not raised) and
+    cuDNN's deterministic convolutions, restored on exit.  Uninitialised
+    memory is left as training leaves it (no NaN fill)."""
+    import warnings
+
+    import torch.utils.deterministic as det
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic, det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic = was[2]
+        det.fill_uninitialized_memory = was[3]
+
+
+def _set_remat(model, on: bool) -> None:
+    model.module.encoder_module.stack.remat = on
+    model.module.decoder_module.remat = on
+
+
+def phase_align_and_train_durations(device: torch.device, kept: dict, card: str = "",
+                                    steps: int = DUR_STEPS, aligner_batch: int = ALIGNER_BATCH,
+                                    aligner_epochs: int = ALIGNER_EPOCHS,
+                                    narrow: bool = False) -> dict:
+    """The Aligner CLI on phase `train_fastpitch`'s corpus (`kept`), its
+    durations, the FastPitch CLI trained on them with `remat`, and GST's
+    `infer` at the config's width; returns the launch counts of each run."""
+    import copy
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "examples", "tts"))
+    import aligner_torch
+    import fastpitch_torch as fp_cli
+
+    from roar_tpu_torch.config.config import load_config
+    from roar_tpu_torch.data.audio import read_wav
+    from roar_tpu_torch.data.dataset import BucketSpec
+    from roar_tpu_torch.data.manifest import write_manifest
+    from roar_tpu_torch.data.parsers import ENCharParser
+    from roar_tpu_torch.data.sampling import LengthBucketBatchSampler
+    from roar_tpu_torch.kernels import flash_attention as fa
+    from roar_tpu_torch.models.fastpitch import FastPitchModule, init_parameters
+    from roar_tpu_torch.models.fastpitch_model import _fft_config, _predictor_config
+    from roar_tpu_torch.ops.spectrogram import log_mel_spectrogram
+    from roar_tpu_torch.training.run import batch_iterator, build_tts_dataset
+    from roar_tpu_torch.training.trainer import to_device
+
+    on_card = device.type == "cuda"
+    phase = "align_and_train_durations"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    base_cfg = copy.deepcopy(kept["cfg"])
+    fp_model_cfg = base_cfg["model"]
+    ds_cfg = fp_model_cfg["train_ds"]["dataset"]
+    work = os.path.join(kept["dir"], "durations")
+    os.makedirs(work, exist_ok=True)
+    benchmark_was = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        # 1. the Aligner CLI on configs/aligner.yaml: FastPitch's STFT and
+        # tokenizer, `trainer.max_epochs` small enough that the bin loss
+        # switches on inside the run (epoch ceil(0.2 * max_epochs))
+        overrides = [
+            f"train_dataset={ds_cfg['manifest_filepath']}",
+            f"sup_data_path={ds_cfg['sup_data_path']}",
+            f"n_window_size={ds_cfg['win_length']}", f"n_window_stride={ds_cfg['hop_length']}",
+            f"n_fft={ds_cfg['n_fft']}",
+            *[f"model.text_tokenizer.{k}={v}" for k, v in fp_model_cfg["text_tokenizer"].items()],
+            f"trainer.max_epochs={aligner_epochs}", "trainer.log_every_n_steps=1",
+            f"model.train_ds.dataloader_params.batch_size={aligner_batch}",
+            f"exp_manager.exp_dir={os.path.join(work, 'aligner_exp')}",
+            "exp_manager.create_tensorboard_logger=false", "+exp_manager.always_save_roar=true",
+            f"+device={device}"]
+        if narrow:
+            overrides += ["model.symbols_embedding_dim=32",
+                          "model.alignment_encoder.n_att_channels=16"]
+        a_cfg = load_config(os.path.join(here, "configs", "aligner.yaml"), overrides=overrides)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        a_state = aligner_torch.main(["--config-name=aligner", *overrides])
+        sync()
+        a_wall = time.perf_counter() - t0
+        aligner = a_state.model
+        with open(os.path.join(work, "aligner_exp", "Aligner", "metrics.jsonl")) as f:
+            a_records = [json.loads(line) for line in f if line.strip()]
+        steps_per_epoch = len(kept["entries"]) // aligner_batch
+        if a_state.step != aligner_epochs * steps_per_epoch or len(a_records) != a_state.step:
+            raise AssertionError(f"aligner: {a_state.step} steps, {len(a_records)} records")
+        bad = [r["step"] for r in a_records
+               if not all(np.isfinite(r[k]) for k in ("loss", "forward_sum_loss", "bin_loss"))]
+        start = aligner.bin_loss_start_epoch
+        first_bin = next((r["step"] for r in a_records if r["bin_loss"] > 0.0), None)
+        if bad or start >= aligner_epochs or first_bin != start * steps_per_epoch + 1:
+            raise AssertionError(f"aligner: steps {bad} not finite, bin loss from epoch {start} "
+                                 f"but first seen at step {first_bin}")
+        _emit({"phase": phase, "step": "aligner_cli", "card": card, "steps": a_state.step,
+               "batch": aligner_batch, "epochs": aligner_epochs,
+               "symbols_embedding_dim": aligner.module.embed.embedding_dim,
+               "n_att_channels": a_cfg["model"]["alignment_encoder"]["n_att_channels"],
+               "hop_length": aligner.mel_cfg.hop_length, "n_fft": aligner.mel_cfg.n_fft,
+               "bin_loss_start_epoch": start, "bin_loss_first_step": first_bin,
+               "bin_loss_scale_at_start": aligner.bin_loss_scale(start),
+               "losses": [{k: r[k] for k in ("step", "forward_sum_loss", "bin_loss", "loss")}
+                          for r in a_records], "wall_s": a_wall})
+
+        # 2. each utterance's durations in FastPitch's frames, as .npy files
+        dataset = build_tts_dataset(a_cfg["model"]["train_ds"]["dataset"], aligner.tokenizer,
+                                    device)
+        sampler = LengthBucketBatchSampler(dataset.lengths, batch_size=aligner_batch,
+                                           shuffle=False, drop_last=False)
+        entries, zero_tokens, t0 = [], 0, time.perf_counter()
+        for idxs, batch in zip(sampler, batch_iterator(dataset, sampler, BucketSpec())):
+            batch = to_device(batch, device)
+            durs, _ = aligner.align(batch)
+            if not torch.equal(durs.sum(1).long(), batch["mel_len"].long()):
+                raise AssertionError(f"durations sum to {durs.sum(1).tolist()}, mel lengths "
+                                     f"are {batch['mel_len'].tolist()}")
+            for row, i in enumerate(idxs):
+                n = int(batch["text_len"][row])
+                d = durs[row, :n].cpu().numpy().astype(np.int32)
+                zero_tokens += int((d == 0).sum())
+                path = os.path.join(work, f"durs_{i:03d}.npy")
+                np.save(path, d)
+                entries.append({**dataset.entries[i], "duration_filepath": path})
+        sync()
+        entries.sort(key=lambda e: e["audio_filepath"])
+        dur_manifest = os.path.join(work, "train_durations.json")
+        dur_val = os.path.join(work, "val_durations.json")
+        write_manifest(dur_manifest, entries)
+        batch_size = fp_model_cfg["train_ds"]["dataloader_params"]["batch_size"]
+        write_manifest(dur_val, entries[:batch_size])
+        _emit({"phase": phase, "step": "align", "utterances": len(entries),
+               "durations_sum_to_mel_lengths": True, "tokens": int(sum(
+                   len(np.load(e["duration_filepath"])) for e in entries)),
+               "tokens_of_zero_frames": zero_tokens, "wall_s": time.perf_counter() - t0})
+
+        # 3. FastPitch on those durations: no aligner, `remat` on both stacks
+        cfg = copy.deepcopy(base_cfg)
+        model_cfg = cfg["model"]
+        model_cfg["learn_alignment"] = False
+        model_cfg.pop("alignment_module", None)
+        for fft in ("input_fft", "output_fft"):
+            model_cfg[fft]["remat"] = True
+        for key, path in (("train_ds", dur_manifest), ("validation_ds", dur_val)):
+            model_cfg[key]["dataset"].update(
+                manifest_filepath=path, sup_data_types=["pitch", "speaker_id", "energy",
+                                                        "durations"])
+        cfg["trainer"]["max_steps"] = steps
+        cfg["exp_manager"]["exp_dir"] = os.path.join(work, "fp_exp")
+        steps_per_epoch = len(entries) // batch_size
+        val_batches = -(-steps // steps_per_epoch) - 1
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        state = fp_cli.run(cfg)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: fa.LAUNCHES[k] for k in ("fwd", "dkv", "dq")}
+        launches_bf16 = {k: fa.LAUNCHES_BF16[k] for k in ("fwd", "dkv", "dq")}
+        model = state.model
+        module = model.module
+        n_attn = len(module.encoder_module.stack.layers) + len(module.decoder_module.layers)
+        want = {k: n * n_attn * steps for k, n in DUR_LAUNCHES_PER_LAYER.items()}
+        want["fwd"] += n_attn * val_batches
+        if state.step != steps or model.learn_alignment or module.aligner_module is not None \
+                or not (module.decoder_module.remat and module.encoder_module.stack.remat):
+            raise AssertionError(f"{state.step} steps; learn_alignment {model.learn_alignment}")
+        if on_card and (launches != want or any(launches_bf16.values())):
+            raise AssertionError(f"flash launches {launches} (bf16 {launches_bf16}) != {want}: "
+                                 f"the checkpoint did not recompute K5's forward, or a layer "
+                                 f"went round its kernel")
+        with open(os.path.join(work, "fp_exp", "FastPitch", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        train = [r for r in records if "mel_loss" in r]
+        if [r["step"] for r in train] != list(range(1, steps + 1)) or any(
+                not all(np.isfinite(r.get(k, np.nan)) for k in DUR_LOSS_TERMS + ("grad_norm",))
+                or "ctc_loss" in r or "bin_loss" in r for r in train):
+            raise AssertionError(f"training records {train}")
+        _emit({"phase": phase, "step": "fastpitch_cli", "card": card, "steps": steps,
+               "batch": batch_size, "remat": True, "learn_alignment": False,
+               "flash_launches": launches, "flash_launches_bf16": launches_bf16,
+               "per_step": {k: n * n_attn for k, n in DUR_LAUNCHES_PER_LAYER.items()},
+               "validation_batches": val_batches,
+               "losses_first": {k: train[0][k] for k in DUR_LOSS_TERMS},
+               "losses_last": {k: train[-1][k] for k in DUR_LOSS_TERMS},
+               "grad_norm": [r["grad_norm"] for r in train], "wall_s": wall,
+               "peak_device_memory_bytes": torch.cuda.max_memory_allocated() if on_card
+               else None})
+
+        # 4. one step with remat and one without: same weights, batch and
+        # generator seed, deterministic algorithms
+        batch = _longest_tts_batch(cfg, model.tokenizer, device)
+
+        def one_pass(m, b, epoch=0):
+            generator = torch.Generator(device=device).manual_seed(7)
+            m.set_dropout_generator(generator)
+            m.module.train()
+            m.module.zero_grad(set_to_none=True)
+            before = fa.LAUNCHES.copy()
+            loss, metrics = m.loss_fn(b, epoch)
+            loss.backward()
+            sync()
+            return {"metrics": metrics, "launches": dict(fa.LAUNCHES - before),
+                    "grads": [p.grad for p in m.module.parameters()],
+                    "generator": generator.get_state()}
+
+        twin = copy.deepcopy(model)
+        _set_remat(twin, False)
+        outs, forward = [], fa.flash_self_attention
+
+        def keeping(*args, **kwargs):
+            result = forward(*args, **kwargs)
+            outs.append(result)
+            return result
+
+        with _deterministic() as caught:
+            fa.flash_self_attention = keeping
+            try:
+                with_remat = one_pass(model, batch)
+            finally:
+                fa.flash_self_attention = forward
+            without = one_pass(twin, batch)
+        recomputed_equal = len(outs) == 2 * n_attn and all(
+            torch.equal(o1, o2) and torch.equal(l1, l2)
+            for (o1, l1), (o2, l2) in zip(outs[:n_attn], outs[n_attn:][::-1]))
+        del outs
+        equal = {"losses": all(torch.equal(with_remat["metrics"][k], without["metrics"][k])
+                               for k in without["metrics"]),
+                 "gradients": all(torch.equal(a, b) for a, b in zip(with_remat["grads"],
+                                                                     without["grads"])),
+                 "generator_state": torch.equal(with_remat["generator"], without["generator"]),
+                 "recomputed_o_and_lse": recomputed_equal}
+        want_step = {k: n * n_attn for k, n in DUR_LAUNCHES_PER_LAYER.items()}
+        if on_card and (with_remat["launches"] != want_step
+                        or without["launches"] != dict.fromkeys(want_step, n_attn)):
+            raise AssertionError(f"one step launched {with_remat['launches']} with remat, "
+                                 f"{without['launches']} without")
+        if not all(equal.values()):
+            raise AssertionError(f"remat changed the step: {equal}")
+        _emit({"phase": phase, "step": "remat_vs_without", "equal": equal,
+               "launches_with_remat": with_remat["launches"],
+               "launches_without": without["launches"],
+               "loss": float(with_remat["metrics"]["loss"]),
+               "deterministic_algorithms": True,
+               "nondeterminism_warnings": sorted({str(w.message)[:160] for w in caught})})
+        del with_remat, without, twin
+
+        # 5. kernels against plain versions, remat on, at FastPitch's bars
+        twin = copy.deepcopy(model)
+        kern = one_pass(model, batch, epoch=50)
+        with _PlainFlash():
+            plain = one_pass(twin, batch, epoch=50)
+        metrics_k = {k: float(v) for k, v in kern["metrics"].items()}
+        metrics_p = {k: float(v) for k, v in plain["metrics"].items()}
+        for k in DUR_LOSS_TERMS:
+            if not _loss_close(metrics_k[k], metrics_p[k], FP_TRAIN_LOSS_RTOL):
+                raise AssertionError(f"{k}: kernels {metrics_k[k]} vs plain {metrics_p[k]}")
+        grads = _grad_errors([(n, pk, pp) for (n, pk), (_, pp) in
+                              zip(model.module.named_parameters(),
+                                  twin.module.named_parameters())], FP_TRAIN_TENSOR_L2_TOL)
+        if grads["failures"] or grads["whole_l2"] > FP_TRAIN_GRAD_L2_TOL:
+            raise AssertionError(grads["failures"][:1] or f"whole gradient {grads['whole_l2']}")
+        _emit({"phase": phase, "step": "kernel_path_vs_plain_path", "remat": True,
+               "batch_shapes": {k: list(v.shape) for k, v in batch.items()},
+               "kernels": metrics_k, "plain": metrics_p, "loss_rtol": FP_TRAIN_LOSS_RTOL,
+               "whole_grad_l2_rel_err": grads["whole_l2"], "grad_l2_tol": FP_TRAIN_GRAD_L2_TOL,
+               "max_grad_l2_rel_err": grads["worst_l2"][0],
+               "worst_gradient_tensor": grads["worst_l2"][1],
+               "tensor_l2_tol": FP_TRAIN_TENSOR_L2_TOL})
+        del kern, plain, twin
+        model.module.zero_grad(set_to_none=True)
+
+        # 6. the step's time and peak memory with remat and without
+        timing = None
+        if on_card:
+            timing = {name: _time_durations_step(model, batch, cfg, on)
+                      for name, on in (("remat", True), ("without_remat", False))}
+            _set_remat(model, True)
+            timing = {"phase": phase, "step": "timing", "card": card, **timing,
+                      "learned_alignment_step_ms": kept.get("step_ms"),
+                      "learned_alignment_peak_bytes": kept.get("peak_bytes"),
+                      "batch_shapes": {k: list(batch[k].shape) for k in ("text", "audio",
+                                                                          "pitch")},
+                      "method": "CUDA events; median of 5 steps after 2 warm steps; TF32 off; "
+                                "batch already on the card; peak from a reset before the "
+                                "warm steps"}
+            _emit(timing)
+
+        # 7. one bf16 step at the YAML's precision, remat on
+        model.set_compute_dtype(torch.bfloat16)
+        batch16 = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                   for k, v in batch.items()}
+        before16 = fa.LAUNCHES_BF16.copy()
+        try:
+            step16 = one_pass(model, batch16)
+        finally:
+            model.set_compute_dtype(None)
+            model.module.zero_grad(set_to_none=True)
+        launches16 = {k: fa.LAUNCHES_BF16[k] - before16[k] for k in ("fwd", "dkv", "dq")}
+        if on_card and launches16 != want_step:
+            raise AssertionError(f"the bf16 step launched {launches16} bf16 kernels")
+        if not all(math.isfinite(float(v)) for v in step16["metrics"].values()):
+            raise AssertionError(f"bf16 step metrics {step16['metrics']}")
+        _emit({"phase": phase, "step": "bf16_step", "remat": True, "launches_bf16": launches16,
+               "metrics": {k: float(v) for k, v in step16["metrics"].items()}})
+        del step16
+
+        # 8. parse through the ENCharParser (no learned alignment), then infer
+        tokens = _padded_tokens(model, ENGLISH_SENTENCES, device)
+        if not isinstance(model._parser, ENCharParser):
+            raise AssertionError(f"parse used {type(getattr(model, '_parser', None))}")
+        speakers = torch.arange(len(ENGLISH_SENTENCES), device=device) % module.n_speakers
+        module.eval()
+        before = fa.LAUNCHES["fwd"]
+        with torch.no_grad():
+            out = module.infer(tokens, speaker=speakers, max_mel_len=1024)
+        sync()
+        infer_launches = fa.LAUNCHES["fwd"] - before
+        if (on_card and infer_launches != n_attn) or not torch.isfinite(out["spect"]).all():
+            raise AssertionError(f"infer: {infer_launches} flash forwards, finite "
+                                 f"{bool(torch.isfinite(out['spect']).all())}")
+        _emit({"phase": phase, "step": "parse_and_infer", "sentences": ENGLISH_SENTENCES,
+               "tokens": [int((row != model.tokenizer.pad).sum()) for row in tokens],
+               "decoded": [model._parser.decode(model.parse(s)[0]) for s in ENGLISH_SENTENCES],
+               "mel_shape": list(out["spect"].shape),
+               "num_frames": out["num_frames"].tolist(), "flash_launches": infer_launches})
+        del model, state, module
+
+        # 9. GST: FastPitchModule with use_gst at the config's width through
+        # infer, the reference mels two of the corpus's utterances
+        gst = FastPitchModule(
+            n_symbols=len(aligner.tokenizer.tokens), padding_idx=aligner.tokenizer.pad,
+            encoder=_fft_config(fp_model_cfg["input_fft"]),
+            decoder=_fft_config(fp_model_cfg["output_fft"]),
+            duration_predictor=_predictor_config(fp_model_cfg["duration_predictor"]),
+            pitch_predictor=_predictor_config(fp_model_cfg["pitch_predictor"]),
+            energy_predictor=_predictor_config(fp_model_cfg["energy_predictor"]),
+            n_speakers=fp_model_cfg["speaker_encoder"]["lookup_module"]["n_speakers"],
+            symbols_embedding_dim=fp_model_cfg["symbols_embedding_dim"],
+            n_mel_channels=fp_model_cfg["n_mel_channels"],
+            speaker_emb_condition_prosody=True, speaker_emb_condition_decoder=True,
+            use_gst=True)
+        init_parameters(gst, torch.Generator().manual_seed(SEED))
+        with torch.no_grad():  # every token lasts FRAMES_PER_TOKEN frames
+            gst.duration_predictor_module.fc.weight.zero_()
+            gst.duration_predictor_module.fc.bias.fill_(float(np.log(FRAMES_PER_TOKEN + 1)))
+        gst.to(device).eval()
+        refs = []
+        for e in (kept["entries"][0], kept["entries"][1]):
+            audio = torch.from_numpy(read_wav(e["audio_filepath"])[0][None]).to(device)
+            mel, lens = log_mel_spectrogram(audio, torch.tensor([audio.shape[1]], device=device),
+                                            aligner.mel_cfg)
+            refs.append((mel.transpose(1, 2).contiguous(), lens))
+        rows = [aligner.tokenizer(s) for s in TAMIL_SENTENCES[:2]]
+        width = max(len(r) for r in rows)
+        text = torch.tensor([r + [aligner.tokenizer.pad] * (width - len(r)) for r in rows],
+                            device=device)
+        ref = (torch.cat([refs[0][0]] * 2), torch.cat([refs[0][1]] * 2))
+        ref2 = (torch.cat([refs[1][0]] * 2), torch.cat([refs[1][1]] * 2))
+        speaker = torch.tensor([1, 2], device=device)
+
+        def gst_infer(reference):
+            with torch.no_grad():
+                return gst.infer(text, speaker=speaker, max_mel_len=1024,
+                                 reference_spec=reference[0], reference_spec_lens=reference[1])
+
+        before = fa.LAUNCHES["fwd"]
+        out_k = gst_infer(ref)
+        sync()
+        gst_launches = fa.LAUNCHES["fwd"] - before
+        with _PlainFlash():
+            out_p = gst_infer(ref)
+        out_2 = gst_infer(ref2)
+        err = float((out_k["spect"] - out_p["spect"]).abs().max())
+        if (on_card and gst_launches != n_attn) or \
+                not torch.allclose(out_k["spect"], out_p["spect"], **MEL_TOL) or \
+                not torch.equal(out_k["num_frames"], out_p["num_frames"]):
+            raise AssertionError(f"GST infer: {gst_launches} flash forwards, kernel path vs "
+                                 f"plain path {err}")
+        if torch.allclose(out_k["spect"], out_2["spect"], **MEL_TOL):
+            raise AssertionError("two reference mels gave the same mel")
+        _emit({"phase": phase, "step": "gst_infer",
+               "gst_size": gst.gst_module.style_attention.gst_size,
+               "gst_parameters": sum(p.numel() for p in gst.gst_module.parameters()),
+               "reference_frames": [int(refs[0][1][0]), int(refs[1][1][0])],
+               "flash_launches": gst_launches, "kernel_vs_plain_max_abs": err,
+               "mel_tol": MEL_TOL, "num_frames": out_k["num_frames"].tolist(),
+               "references_differ_max_abs": float((out_k["spect"] - out_2["spect"]).abs().max())})
+        wall_phase = time.perf_counter() - t_phase
+        _emit({"phase": phase, "step": "wall", "wall_s": wall_phase})
+        return {"launches": launches, "step_launches": want_step, "launches_bf16": launches16,
+                "infer_launches": infer_launches, "gst_launches": gst_launches,
+                "timing": timing, "wall_s": wall_phase}
+    finally:
+        torch.backends.cudnn.benchmark = benchmark_was
+
+
+def _time_durations_step(model, batch, cfg: dict, remat: bool) -> dict:
+    """One given-durations step with `remat` on or off: median of 5 after 2
+    warm steps by CUDA events, its split by the marks of `loss_fn` and
+    `train_step`, and the peak device memory of those 7 steps."""
+    from roar_tpu_torch.training.optim import build_optimizer
+    from roar_tpu_torch.training.trainer import TrainState, train_step
+
+    _set_remat(model, remat)
+    device = batch["audio"].device
+    generator = torch.Generator(device=device).manual_seed(0)
+    model.set_dropout_generator(generator)
+    state = TrainState(model=model, opt=build_optimizer(
+        model.parameters(), cfg["model"]["optim"],
+        gradient_clip_val=cfg["trainer"]["gradient_clip_val"]), dropout_generator=generator)
+    parts = ("mel_front_end", "model_forward", "losses", "backward", "optimizer")
+    events, totals, splits = {}, [], {p: [] for p in parts}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(7):
+        events.clear()
+        mark("start")
+        train_step(state, batch, 0, mark=mark)
+        torch.cuda.synchronize()
+        if i < 2:
+            continue
+        totals.append(events["start"].elapsed_time(events["optimizer"]))
+        for before, name in zip(("start",) + parts, parts):
+            splits[name].append(events[before].elapsed_time(events[name]))
+    model.module.zero_grad(set_to_none=True)
+    return {"step_ms": float(np.median(totals)), "step_ms_all": totals,
+            "split_ms": {p: float(np.median(v)) for p, v in splits.items()},
+            "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
 JETS_G_TERMS = ("g_mel_loss", "dur_loss", "pitch_loss", "energy_loss", "ctc_loss", "bin_loss",
                 "g_fm_loss", "g_adv_loss")
 JETS_LOSS_TERMS = ("d_loss", "g_loss", "d_loss_mpd", "d_loss_msd") + JETS_G_TERMS
@@ -5439,9 +5971,19 @@ def main() -> int:
     try:
         fp_train = phase_train_fastpitch(device, card, keep_dir=fp_dir)
         torch.cuda.empty_cache()
-        ft = phase_finetune_fastpitch(device, fp_train.pop("kept"), card)
+        fp_kept = fp_train.pop("kept")
+        ft = phase_finetune_fastpitch(device, fp_kept, card)
+        torch.cuda.empty_cache()
+        # the recipe without learned alignment on the same corpus: the
+        # Aligner, its durations, FastPitch trained on them with remat; GST
+        durations = phase_align_and_train_durations(device, fp_kept, card)
+        del fp_kept
     finally:
         shutil.rmtree(fp_dir)
+    torch.cuda.empty_cache()
+    # configs/hifigan_dataset/hifigan_22050.yaml: the dataset_meta VocoderDataset
+    hg_dataset = phase_train_hifigan(device, card, n_utterances=32, steps=2, dataset_meta=True,
+                                     timed=False)
     torch.cuda.empty_cache()
     fp_train_bf16 = phase_train_fastpitch(device, card, n_utterances=64, steps=4,
                                           precision="bf16")
@@ -5662,6 +6204,8 @@ def main() -> int:
          "replaces": "roar_tpu/models/transformer.py:72", "causal": False,
          "launches": run["launches"], "launches_train_fastpitch": fp_train["launches"]["fwd"],
          "launches_finetune_fastpitch": ft["launches"]["fwd"],
+         "launches_align_and_train_durations": durations["launches"]["fwd"],
+         "launches_gst_infer": durations["gst_launches"],
          "launches_serve_44100": fp44["serving"]["flash_launches"],
          "launches_validation_fastpitch_44100": fp44["launches"]["fwd"]
          - fp44["launches_bf16"]["fwd"],
@@ -5682,6 +6226,7 @@ def main() -> int:
            "replaces": "roar_tpu/models/transformer.py:110", "causal": False,
            "launches": fp_train["launches"][name],
            "launches_finetune_fastpitch": ft["launches"][name],
+           "launches_align_and_train_durations": durations["launches"][name],
            "launches_train_jets": jets["launches"][name],
            "max_abs_err": worst(flash_errors, *grads), **flash_bwd[name],
            "train_jets": jets_bwd[name]}
@@ -5810,6 +6355,7 @@ def main() -> int:
            "dtype": "bfloat16", "launches": jets_bf16["launches_bf16"][f"grouped_conv_{name}"],
            "launches_train_jets_conformer": jets_conf["launches_bf16"][f"grouped_conv_{name}"],
            "launches_train_hifigan_bf16": train_bf16["launches_bf16"][name],
+           "launches_train_hifigan_dataset": hg_dataset["launches_bf16"][name],
            "max_abs_err": max(conv_bf16[name]["max_abs_err"],
                               conv16k_bf16[name]["max_abs_err"]),
            "max_rel_err": max(conv_bf16[name]["max_rel_err"],
@@ -5834,6 +6380,7 @@ def main() -> int:
          "launches": jets_bf16["launches_bf16"]["fwd"],
          "launches_train_fastpitch_bf16": fp_train_bf16["launches_bf16"]["fwd"],
          "launches_train_fastpitch_44100": fp44["launches_bf16"]["fwd"],
+         "launches_align_and_train_durations_bf16": durations["launches_bf16"]["fwd"],
          "max_abs_err": worst(bf16_flash_errors, "o"), **jets16_fwd,
          "train_fastpitch": fp16_fwd},
         *[{"name": f"flash_attention_bwd_{name}_bf16", "route": "cuda",
@@ -5842,6 +6389,7 @@ def main() -> int:
            "launches": jets_bf16["launches_bf16"][name],
            "launches_train_fastpitch_bf16": fp_train_bf16["launches_bf16"][name],
            "launches_train_fastpitch_44100": fp44["launches_bf16"][name],
+           "launches_align_and_train_durations_bf16": durations["launches_bf16"][name],
            "max_abs_err": worst(bf16_flash_errors, *grads), **jets16_bwd[name],
            "train_fastpitch": fp16_bwd[name]}
           for name, grads in backward_kernels],
@@ -5901,7 +6449,8 @@ def main() -> int:
         nested = [v for v in row.values() if isinstance(v, dict)]
         return [v for d in (row, *nested) for key, v in d.items()
                 if key.endswith(("_44100", "_v2", "_v3", "_mixtral", "_generate_gpt",
-                                 "_finetune_fastpitch"))
+                                 "_finetune_fastpitch", "_durations", "_durations_bf16",
+                                 "_gst_infer", "_hifigan_dataset"))
                 and key.startswith("launches")]
 
     if not all(n > 0 for k in kernels for n in new_counts(k)):

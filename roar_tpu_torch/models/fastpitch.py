@@ -7,8 +7,12 @@ energy predictors -> aligner + MAS on the device -> pitch/energy embeddings ->
 length regulation by the hard durations -> decoder FFT -> mel projection) and
 `infer` (fastpitch.py:403-456: the same with predicted durations into a
 caller-chosen decoder bucket).  `make_encoder` and `make_decoder` build the
-FFT transformer or the Conformer stack that `FFTConfig.encoder_type` names.
-Dropout acts in training mode only.  GST is not ported yet.
+FFT transformer or the Conformer stack that `FFTConfig.encoder_type` names;
+`FFTConfig.remat` recomputes a transformer stack's layers in the backward (a
+Conformer stack ignores it, as in JAX).  With `use_gst` a `GlobalStyleToken`
+embeds a reference mel (`reference_spec`, `reference_spec_lens`) and adds it to
+the speaker embedding (fastpitch.py:240-268).  Dropout acts in training mode
+only.
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ from roar_tpu_torch.models.submodules import (
     ConvNorm,
     Dropout,
     Embedding,
+    GlobalStyleToken,
     Linear,
+    StyleAttention,
     trunc_normal_,
 )
 from roar_tpu_torch.models.transformer import (
@@ -105,6 +111,7 @@ class FFTConfig:
     use_flash: bool = False
     encoder_type: str = "transformer"  # or "conformer"
     adapter_dim: int = 0  # > 0 puts a bottleneck adapter in every transformer layer
+    remat: bool = False  # recompute each transformer layer in the backward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +152,7 @@ def make_encoder(cfg: FFTConfig, n_embed: int, d_embed: int, padding_idx: int) -
     if cfg.encoder_type == "conformer":
         return FFConformerEncoder(*sizes, **embed, **_common(cfg))
     return FFTransformerEncoder(*sizes, **embed, pre_lnorm=cfg.pre_lnorm,
-                                adapter_dim=cfg.adapter_dim, **_common(cfg))
+                                adapter_dim=cfg.adapter_dim, remat=cfg.remat, **_common(cfg))
 
 
 def make_decoder(cfg: FFTConfig) -> nn.Module:
@@ -154,7 +161,7 @@ def make_decoder(cfg: FFTConfig) -> nn.Module:
     if cfg.encoder_type == "conformer":
         return FFConformerDecoder(*sizes, **_common(cfg))
     return FFTransformerDecoder(*sizes, pre_lnorm=cfg.pre_lnorm, adapter_dim=cfg.adapter_dim,
-                                **_common(cfg))
+                                remat=cfg.remat, **_common(cfg))
 
 
 @torch.no_grad()
@@ -163,12 +170,12 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
     module's initialisers use: lecun-normal kernels and zero biases for Dense
     and Conv, xavier-uniform with the named gain for `ConvNorm`, fan-in
     normal embeddings, LayerNorm at (1, 0), conditional-LayerNorm
-    projections at the identity (weights 0, scale bias 1), and each adapter's
-    `up` at zero."""
+    projections at the identity (weights 0, scale bias 1), each adapter's
+    `up` at zero, and GST's style tokens from normal(0.5)."""
     xavier = {id(m.conv): XAVIER_GAINS[m.w_init_gain] for m in module.modules()
               if isinstance(m, ConvNorm)}
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             if id(m) in xavier:
                 fan_out = m.weight.shape[0] * (m.weight.shape[2] if m.weight.dim() == 3 else 1)
@@ -184,6 +191,8 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
         elif isinstance(m, nn.LayerNorm) and m.elementwise_affine:
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, StyleAttention):
+            m.style_tokens.copy_(torch.randn(m.style_tokens.shape, generator=generator) * 0.5)
     for m in module.modules():
         if isinstance(m, ConditionalLayerNorm) and m.condition:
             m.scale_proj.weight.zero_()
@@ -208,7 +217,8 @@ class FastPitchModule(nn.Module):
                  speaker_emb_condition_prosody: bool = False,
                  speaker_emb_condition_decoder: bool = False,
                  aligner: Optional[AlignerConfig] = None, use_log_energy: bool = True,
-                 speaker_emb_condition_aligner: bool = False):
+                 speaker_emb_condition_aligner: bool = False, use_gst: bool = False,
+                 gst_size: int = 0):
         super().__init__()
         d = symbols_embedding_dim
         self.n_speakers = n_speakers
@@ -225,6 +235,8 @@ class FastPitchModule(nn.Module):
         self.energy_predictor_module = _predictor(energy_predictor) if energy_predictor else None
         if n_speakers > 1:
             self.speaker_table = Embedding(n_speakers, d)
+        # gst_size 0 means symbols_embedding_dim
+        self.gst_module = GlobalStyleToken(n_mel_channels, gst_size or d) if use_gst else None
         self.pitch_emb = Conv1d(1, d, pitch_embedding_kernel_size, padding="same")
         if energy_predictor is not None:
             self.energy_emb = Conv1d(1, d, energy_embedding_kernel_size, padding="same")
@@ -241,10 +253,16 @@ class FastPitchModule(nn.Module):
     def learn_alignment(self) -> bool:
         return self.aligner_module is not None
 
-    def get_speaker_embedding(self, speaker):
+    def get_speaker_embedding(self, speaker, reference_spec=None, reference_spec_lens=None):
+        """The lookup embedding, the GST embedding of `reference_spec`, or
+        their sum when both are there: [B, 1, D], or None."""
+        emb = None
         if self.n_speakers > 1 and speaker is not None:
-            return self.speaker_table(speaker)[:, None, :]  # [B, 1, D]
-        return None
+            emb = self.speaker_table(speaker)[:, None, :]  # [B, 1, D]
+        if self.gst_module is not None and reference_spec is not None:
+            gst = self.gst_module(reference_spec, reference_spec_lens)[:, None, :]
+            emb = gst if emb is None else emb + gst
+        return emb
 
     def forward(self, text: torch.Tensor, durs: Optional[torch.Tensor] = None,
                 pitch: Optional[torch.Tensor] = None, energy: Optional[torch.Tensor] = None,
@@ -253,10 +271,13 @@ class FastPitchModule(nn.Module):
                 attn_prior: Optional[torch.Tensor] = None,
                 mel_lens: Optional[torch.Tensor] = None,
                 input_lens: Optional[torch.Tensor] = None,
-                max_mel_len: Optional[int] = None) -> Dict[str, Optional[torch.Tensor]]:
+                max_mel_len: Optional[int] = None,
+                reference_spec: Optional[torch.Tensor] = None,
+                reference_spec_lens: Optional[torch.Tensor] = None
+                ) -> Dict[str, Optional[torch.Tensor]]:
         """Training / teacher-forced forward (roar_tpu/models/fastpitch.py:270-401).
         spec: [B, T_mel, n_mel] ground-truth mel when alignment is learned."""
-        spk_emb = self.get_speaker_embedding(speaker)
+        spk_emb = self.get_speaker_embedding(speaker, reference_spec, reference_spec_lens)
         prosody_cond = spk_emb if self.condition_prosody else None
         decoder_cond = spk_emb if self.condition_decoder else None
         aligner_cond = spk_emb if self.condition_aligner else None
@@ -335,10 +356,11 @@ class FastPitchModule(nn.Module):
     def infer(self, text: torch.Tensor, pitch: Optional[torch.Tensor] = None,
               speaker: Optional[torch.Tensor] = None,
               energy: Optional[torch.Tensor] = None, pace: float = 1.0,
-              max_mel_len: int = 2048) -> Dict[str, torch.Tensor]:
+              max_mel_len: int = 2048, reference_spec: Optional[torch.Tensor] = None,
+              reference_spec_lens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """text [B, T_text] -> spect [B, max_mel_len, n_mel] and num_frames [B]
         (roar_tpu/models/fastpitch.py:403-456)."""
-        spk_emb = self.get_speaker_embedding(speaker)
+        spk_emb = self.get_speaker_embedding(speaker, reference_spec, reference_spec_lens)
         prosody_cond = spk_emb if self.condition_prosody else None
         decoder_cond = spk_emb if self.condition_decoder else None
 

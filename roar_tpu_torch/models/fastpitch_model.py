@@ -2,11 +2,15 @@
 
 Port of roar_tpu/models/fastpitch_model.py: `_fft_config`, `_predictor_config`,
 `preprocessor_config`, `strip_inert_conditioning` and `FastPitchModel`
-(tokenizer, normalizer hook, `parse`, `generate_spectrogram`, the mel front end
-of a batch, `loss_fn` with the `bin_loss` warm-up by epoch,
+(tokenizer, normalizer hook, `parse` (the tokenizer with learned alignment,
+an ENCharParser over the tokenizer's charset without), `generate_spectrogram`,
+the mel front end of a batch, `loss_fn` with the `bin_loss` warm-up by epoch,
+or on the batch's `durations` without learned alignment,
 `interpolate_speaker`).  It reads the same YAML-shaped config dict as the JAX
-package.  The parameters live in `self.module`; `loss_fn(batch, epoch)` takes
-a batch of tensors on the module's device.
+package.  `use_gst` is read as the JAX task reads it, by
+`strip_inert_conditioning` alone: the JAX task builds no GST module and feeds
+no reference mel (ROADMAP N10).  The parameters live in `self.module`;
+`loss_fn(batch, epoch)` takes a batch of tensors on the module's device.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from roar_tpu_torch.data import tokenizers
+from roar_tpu_torch.data.parsers import make_parser
 from roar_tpu_torch.losses.fastpitch_losses import (
     duration_loss,
     energy_loss,
@@ -64,11 +69,9 @@ def _fft_config(cfg: Dict[str, Any]) -> FFTConfig:
     """One FFT stack's block as an FFTConfig.  `encoder_type` (else
     "Conformer" in `_target_`) picks the stack; a Conformer stack ignores
     `pre_lnorm`, `adapter_dim` and `remat`, as the JAX package's factories
-    do; a transformer stack takes `adapter_dim` and raises on `remat`."""
+    do; a transformer stack takes `adapter_dim` and `remat`."""
     encoder_type = cfg.get("encoder_type",
                            "conformer" if "Conformer" in cfg.get("_target_", "") else "transformer")
-    if encoder_type != "conformer" and cfg.get("remat", False):
-        raise NotImplementedError("remat (recomputing layer activations) is not ported")
     return FFTConfig(
         n_layer=cfg.get("n_layer", 6),
         n_head=cfg.get("n_head", 1),
@@ -85,6 +88,7 @@ def _fft_config(cfg: Dict[str, Any]) -> FFTConfig:
         use_flash=cfg.get("use_flash", cfg.get("use_flash_attention", False)),
         encoder_type=encoder_type,
         adapter_dim=int(cfg.get("adapter_dim", 0) or 0),
+        remat=bool(cfg.get("remat", False)),
     )
 
 
@@ -187,9 +191,7 @@ class FastPitchModel:
         lookup = (cfg.get("speaker_encoder") or {}).get("lookup_module") or {}
         if lookup.get("n_speakers"):
             n_speakers = lookup["n_speakers"]
-        if cfg.get("use_gst"):
-            raise NotImplementedError("GST conditioning is not ported")
-        cfg = strip_inert_conditioning(cfg, n_speakers, False)
+        cfg = strip_inert_conditioning(cfg, n_speakers, bool(cfg.get("use_gst")))
         energy_cfg = cfg.get("energy_predictor")
         aligner_cfg = cfg.get("alignment_module")
         self.learn_alignment = cfg.get("learn_alignment", aligner_cfg is not None)
@@ -360,15 +362,17 @@ class FastPitchModel:
 
     def parse(self, text: str) -> np.ndarray:
         """Text -> [1, T] int32 token ids: optional normalizer, then the
-        tokenizer (the learned-alignment path)."""
+        tokenizer when alignment is learned, otherwise an ENCharParser over
+        the tokenizer's tokens (made once and kept on the instance)."""
         if self.tokenizer is None:
             raise ValueError("No tokenizer configured")
-        if not self.learn_alignment:
-            raise NotImplementedError("the ENCharParser path (learn_alignment: false) "
-                                      "is not ported")
         if self.normalizer_call is not None:
             text = self.normalizer_call(text, **self.text_normalizer_call_kwargs)
-        return np.asarray(self.tokenizer(text), np.int32)[None]
+        if self.learn_alignment:
+            return np.asarray(self.tokenizer(text), np.int32)[None]
+        if not hasattr(self, "_parser"):
+            self._parser = make_parser(labels=getattr(self.tokenizer, "tokens", None), name="en")
+        return np.asarray(self._parser(text), np.int32)[None]
 
     @torch.inference_mode()
     def generate_spectrogram(self, tokens: torch.Tensor, speaker=None, pace: float = 1.0,

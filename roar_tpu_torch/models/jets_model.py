@@ -20,8 +20,9 @@ package.  bf16 (`precision: bf16-mixed`, the shipped config): `set_compute_dtype
 makes every layer of the generator graph and of the discriminators cast its
 parameters where it uses them, and training/gan.py casts the batch.
 The FFT stacks are the transformer or the Conformer (RoPE attention,
-configs/jets_22050_conformer.yaml).  `maybe_remat_disc` is not ported; GST
-raises `NotImplementedError`.
+configs/jets_22050_conformer.yaml); `remat` on a transformer stack recomputes
+its layers in the backward.  `use_gst` is ignored, as the JAX task ignores it
+(ROADMAP N10).  `maybe_remat_disc` is not ported.
 """
 
 from __future__ import annotations
@@ -69,8 +70,6 @@ class JETSModel:
 
     def __init__(self, cfg: Dict[str, Any], generator: Optional[torch.Generator] = None):
         self.cfg = cfg
-        if cfg.get("use_gst"):
-            raise NotImplementedError("GST conditioning is not ported")
         tok_cfg = cfg.get("text_tokenizer")
         self.tokenizer = make_tokenizer(tok_cfg) if tok_cfg else None
         n_symbols = cfg.get("n_symbols") or len(self.tokenizer.tokens)

@@ -1,8 +1,9 @@
 """Shared neural submodules: `ConvNorm`, conditional LayerNorm, conditional
-input, and the dropout the training modules share; and the parameterised
-layers of the TTS models with their compute type.
+input, the speaker embeddings, the global style token (GST) and the dropout
+the training modules share; and the parameterised layers of the TTS models
+with their compute type.
 
-Port of roar_tpu/models/submodules.py:54-163.  Activations are [B, T, C].
+Port of roar_tpu/models/submodules.py:54-279.  Activations are [B, T, C].
 LayerNorm epsilon is 1e-6, flax's default, not torch's 1e-5.
 
 Compute type.  The JAX package trains in bf16 by casting the whole parameter
@@ -20,6 +21,7 @@ casts; with `compute_dtype` None nothing is cast.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -89,6 +91,12 @@ class ConvTranspose1d(CastsParameters, nn.ConvTranspose1d):
                                   self.groups, self.dilation)
 
 
+class Conv2d(CastsParameters, nn.Conv2d):
+    def forward(self, x):
+        x, (w, b) = self.operands(x, self.weight, self.bias)
+        return self._conv_forward(x, w, b)
+
+
 class LayerNorm(CastsParameters, nn.LayerNorm):
     def forward(self, x):
         x, (w, b) = self.operands(x, self.weight, self.bias)
@@ -131,6 +139,37 @@ def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def replay_dropout_generators(module: nn.Module):
+    """`context_fn` of a `torch.utils.checkpoint` around `module`: the forward
+    context saves the state of every distinct generator the module's
+    `Dropout`s draw from; the recompute context sets those states back, so the
+    recomputed forward draws the same masks, and on exit restores the states
+    the generators held before the recompute.  `preserve_rng_state` covers
+    only torch's global generators, which a `Dropout` without a generator
+    uses."""
+    generators = list({id(m.generator): m.generator for m in module.modules()
+                       if isinstance(m, Dropout) and m.generator is not None}.values())
+    saved: List[torch.Tensor] = []
+
+    @contextlib.contextmanager
+    def forward():
+        saved[:] = [g.get_state() for g in generators]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in generators]
+        for g, state in zip(generators, saved):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(generators, now):
+                g.set_state(state)
+
+    return forward(), recompute()
 
 
 class ConvNorm(nn.Module):
@@ -201,3 +240,128 @@ class ConditionalInput(nn.Module):
             c = conditioning.expand(x.shape[0], x.shape[1], conditioning.shape[-1])
             x = self.concat_proj(torch.cat([x, c], dim=-1))
         return x
+
+
+class SpeakerLookupTable(nn.Module):
+    """Trainable speaker embedding table (flax scope `Embed_0`)."""
+
+    def __init__(self, n_speakers: int, embedding_dim: int):
+        super().__init__()
+        self.table = Embedding(n_speakers, embedding_dim)
+
+    def forward(self, speaker):
+        return self.table(speaker)
+
+
+class SpeakerEncoder(nn.Module):
+    """The lookup embedding or a projection of a precomputed one
+    (`precomputed_embedding_dim` -> `embedding_dim`, flax scope `Dense_0`),
+    as [B, 1, D]; None with neither."""
+
+    def __init__(self, lookup: Optional[SpeakerLookupTable] = None,
+                 precomputed_embedding_dim: Optional[int] = None,
+                 embedding_dim: Optional[int] = None):
+        super().__init__()
+        self.lookup = lookup
+        self.proj = (Linear(precomputed_embedding_dim, embedding_dim)
+                     if precomputed_embedding_dim is not None else None)
+
+    def forward(self, batch_size: int, speaker=None, embedding=None):
+        if self.proj is not None:
+            if embedding is None:
+                raise ValueError("precomputed speaker embedding expected")
+            return self.proj(embedding)[:, None, :]
+        if self.lookup is not None:
+            if speaker is None:
+                raise ValueError("speaker ids required for lookup embedding")
+            return self.lookup(speaker)[:, None, :]
+        return None
+
+
+def _same_pad_2d(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Pad the last two axes of [B, C, H, W] as flax's `padding="SAME"` does:
+    ceil(n / stride) outputs, the total padding split with its smaller half
+    before (at stride 2 and an even n: none before, one after)."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):  # F.pad takes the last axis first
+        total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+class ReferenceEncoder(nn.Module):
+    """Mel reference encoder: six 3 x 3 stride-2 convs with "SAME" padding
+    over the [B, T, n_mel] image, each followed by a LayerNorm over its
+    channels and a ReLU, then the mean over the first ceil(len / 64) frames
+    (all frames without lengths) of the flattened (n_mel, channels) axes, a
+    projection and tanh.  Flax scopes `convs_{i}`, `norm_{i}`, `proj`."""
+
+    def __init__(self, n_mel: int, ref_enc_filters: Sequence[int] = (32, 32, 64, 64, 128, 128),
+                 gru_rnn_units: int = 128):
+        super().__init__()
+        chans = [1, *ref_enc_filters]
+        self.convs = nn.ModuleList(Conv2d(chans[i], chans[i + 1], 3, stride=2)
+                                   for i in range(len(ref_enc_filters)))
+        self.norm = nn.ModuleList(LayerNorm(c, eps=LN_EPS) for c in ref_enc_filters)
+        m = n_mel
+        for _ in ref_enc_filters:
+            m = -(-m // 2)
+        self.proj = Linear(m * chans[-1], gru_rnn_units)
+
+    def forward(self, spec, spec_lens=None):
+        x = spec[:, None]  # [B, 1, T, n_mel]
+        for conv, norm in zip(self.convs, self.norm):
+            x = conv(_same_pad_2d(x, 3, 2))
+            x = F.relu(norm(x.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
+        b, c, t, m = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(b, t, m * c)  # channels fastest, as flax flattens
+        if spec_lens is not None:
+            down = 2 ** len(self.convs)
+            lens = torch.clamp((spec_lens + down - 1) // down, min=1)
+            mask = (torch.arange(t, device=x.device)[None, :] < lens[:, None]).to(x.dtype)
+            mask = mask[..., None]
+            pooled = (x * mask).sum(1) / torch.clamp(mask.sum(1), min=1.0)
+        else:
+            pooled = x.mean(1)
+        return torch.tanh(self.proj(pooled))  # [B, gru_rnn_units]
+
+
+class StyleAttention(CastsParameters, nn.Module):
+    """Multi-head attention of the reference embedding over a learned bank of
+    `n_style_token` style tokens (tanh applied where they are used; q, k and
+    v projections without bias)."""
+
+    def __init__(self, gst_size: int = 128, n_style_token: int = 10, n_style_attn_head: int = 4):
+        super().__init__()
+        self.gst_size, self.n_head = gst_size, n_style_attn_head
+        d_k = gst_size // n_style_attn_head
+        self.style_tokens = nn.Parameter(torch.randn(n_style_token, d_k) * 0.5)
+        self.q_proj = Linear(gst_size, gst_size, bias=False)
+        self.k_proj = Linear(d_k, gst_size, bias=False)
+        self.v_proj = Linear(d_k, gst_size, bias=False)
+
+    def forward(self, ref_emb):
+        b, h = ref_emb.shape[0], self.n_head
+        d = self.gst_size // h
+        keys = torch.tanh(self.cast_parameter(self.style_tokens))[None].expand(b, -1, -1)
+        n = keys.shape[1]
+        q = self.q_proj(ref_emb).reshape(b, h, 1, d)
+        k = self.k_proj(keys).reshape(b, n, h, d).transpose(1, 2)
+        v = self.v_proj(keys).reshape(b, n, h, d).transpose(1, 2)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(d)
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, v).reshape(b, self.gst_size)
+
+
+class GlobalStyleToken(nn.Module):
+    """ReferenceEncoder (its output `gst_size` wide) + StyleAttention:
+    [B, T, n_mel] reference mel -> [B, gst_size]."""
+
+    def __init__(self, n_mel: int, gst_size: int = 128, n_style_token: int = 10,
+                 n_style_attn_head: int = 4):
+        super().__init__()
+        self.reference_encoder = ReferenceEncoder(n_mel, gru_rnn_units=gst_size)
+        self.style_attention = StyleAttention(gst_size, n_style_token, n_style_attn_head)
+
+    def forward(self, ref_spec, ref_spec_lens=None):
+        return self.style_attention(self.reference_encoder(ref_spec, ref_spec_lens))

@@ -17,6 +17,14 @@ Both give the same valid rows; pad rows are zeroed by the layer's mask.
 The flash kernels cannot drop attention probabilities, so, as in JAX
 (roar_tpu/models/transformer.py:165-166), `use_flash` with `dropatt > 0`
 takes the einsum path while the module is in training mode.
+
+`remat`: in a training-mode forward with gradients on, each layer runs under
+`torch.utils.checkpoint` (non-reentrant), so its activations are recomputed in
+the backward instead of kept: a memory option.  The attention's autograd
+Function sits inside the checkpoint, so the flash forward is launched again
+in the backward.  The recomputation draws the same dropout masks as the first
+forward: `submodules.replay_dropout_generators` restores each explicit
+generator's state around it, as flax's `nn.remat` replays the same rng.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from roar_tpu_torch.models.submodules import (
     LN_EPS,
@@ -39,6 +48,7 @@ from roar_tpu_torch.models.submodules import (
     Embedding,
     LayerNorm,
     Linear,
+    replay_dropout_generators,
 )
 from roar_tpu_torch.ops.flash_attention import flash_self_attention
 from roar_tpu_torch.ops.rope import apply_rope, build_rope_cache
@@ -191,9 +201,10 @@ class FFTransformerDecoder(nn.Module):
                  d_inner: int, kernel_size: int, pre_lnorm: bool = False,
                  condition_types: Sequence[str] = (), use_rope: bool = False,
                  use_flash: bool = False, dropout: float = 0.0, dropatt: float = 0.0,
-                 dropemb: float = 0.0, adapter_dim: int = 0):
+                 dropemb: float = 0.0, adapter_dim: int = 0, remat: bool = False):
         super().__init__()
         self.d_model = d_model
+        self.remat = remat
         self.cond_input = ConditionalInput(d_model, d_model, condition_types)
         self.dropemb = Dropout(dropemb)
         self.layers = nn.ModuleList(
@@ -208,8 +219,13 @@ class FFTransformerDecoder(nn.Module):
     def forward(self, x, mask, conditioning=None):
         pos = sinusoidal_positional_embedding(x.shape[1], self.d_model, x.device, x.dtype)
         x = self.dropemb(self.cond_input(x + pos[None] * mask, conditioning))
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, mask, conditioning)
+            if remat:
+                x = checkpoint(layer, x, mask, conditioning, use_reentrant=False,
+                               context_fn=functools.partial(replay_dropout_generators, layer))
+            else:
+                x = layer(x, mask, conditioning)
         return x, mask
 
 
@@ -238,11 +254,12 @@ class FFTransformerEncoder(TokenEncoder):
                  d_embed: Optional[int] = None, padding_idx: int = 0,
                  pre_lnorm: bool = False, condition_types: Sequence[str] = (),
                  use_rope: bool = False, use_flash: bool = False, dropout: float = 0.0,
-                 dropatt: float = 0.0, dropemb: float = 0.0, adapter_dim: int = 0):
+                 dropatt: float = 0.0, dropemb: float = 0.0, adapter_dim: int = 0,
+                 remat: bool = False):
         super().__init__()
         self.padding_idx = padding_idx
         self.word_emb = Embedding(n_embed, d_embed or d_model)
         self.stack = FFTransformerDecoder(n_layer, n_head, d_model, d_head, d_inner,
                                           kernel_size, pre_lnorm, condition_types,
                                           use_rope, use_flash, dropout, dropatt, dropemb,
-                                          adapter_dim)
+                                          adapter_dim, remat)

@@ -43,6 +43,12 @@ module of `models/bert.py` (`BertForPreTraining`, `BertForMaskedLM`,
 `BertEncoder`) from the flax tree, `layers.{i}` being `layers_{i}`, and
 `bert_to_jax_tree` writes it back.
 
+The standalone Aligner's `AlignerNet` uses FastPitch's scopes:
+`load_aligner_params` / `aligner_to_jax_tree` map `embed` and
+`alignment_encoder`.  GST (`gst_module`) maps `reference_encoder/convs_{i}`
+(HWIO kernels to OIHW), `reference_encoder/norm_{i}`, `reference_encoder/proj`
+and `style_attention/{style_tokens, q_proj, k_proj, v_proj}`.
+
 JETS joins the two: `load_jets_params` fills a port `JETSModule` from the
 flax tree, its FastPitch-graph scopes as FastPitch's and its `generator` scope
 as the trainable generator's, and `jets_to_jax_tree` writes it back.
@@ -75,7 +81,14 @@ from roar_tpu_torch.models.hifigan import (
     WeightNormConv,
 )
 from roar_tpu_torch.models.moe import MoEMLP
-from roar_tpu_torch.models.submodules import ConditionalInput, ConditionalLayerNorm, ConvNorm
+from roar_tpu_torch.models.submodules import (
+    ConditionalInput,
+    ConditionalLayerNorm,
+    ConvNorm,
+    SpeakerEncoder,
+    SpeakerLookupTable,
+    StyleAttention,
+)
 from roar_tpu_torch.models.transformer import AdapterBlock, PositionwiseConvFF
 
 WN_EPS = 1e-12  # flax nn.WeightNorm's epsilon
@@ -118,6 +131,16 @@ class _Leaves:
             raise ValueError(f"JAX leaves not consumed by the port: {sorted(self.leaves)}")
 
 
+def _join(scope: str, name: str) -> str:
+    """A leaf's '/'-joined flax path: its scope ('' at the root) and name."""
+    return f"{scope}/{name}" if scope else name
+
+
+def _flax_layout(value: np.ndarray, axes) -> np.ndarray:
+    """A torch array in the flax layout: the inverse of `_leaf_names`' axes."""
+    return value if axes is None else value.transpose(np.argsort(axes))
+
+
 def _load(module: nn.Module, sd: Dict[str, np.ndarray]) -> None:
     expected = set(module.state_dict())
     if set(sd) != expected:
@@ -143,6 +166,10 @@ def _flax_child(parent: nn.Module, name: str) -> str:
         return {"linear_in": "Dense_0", "linear_out": "Dense_1"}.get(name, name)
     if isinstance(parent, AdapterBlock):
         return {"norm": "LayerNorm_0"}.get(name, name)
+    if isinstance(parent, SpeakerLookupTable):
+        return "Embed_0"
+    if isinstance(parent, SpeakerEncoder):
+        return {"proj": "Dense_0"}.get(name, name)
     if isinstance(parent, ConvolutionalModule):
         return {"pointwise_in": "Conv_0", "depthwise": "Conv_1", "norm": "LayerNorm_0",
                 "pointwise_out": "Conv_2"}.get(name, name)
@@ -150,14 +177,14 @@ def _flax_child(parent: nn.Module, name: str) -> str:
 
 
 def _fastpitch_sites(module: nn.Module, torch_prefix: str = "", flax_prefix: str = ""):
-    """(torch prefix, flax scope, leaf module) of every parameter-holding leaf
-    module under `module`, in registration order."""
+    """(torch prefix, flax scope, module) of every module under `module` that
+    holds parameters of its own (a leaf module, or GST's `StyleAttention`
+    with its token bank), in registration order."""
     if next(module.parameters(), None) is None:
         return
     children = list(module.named_children())
-    if not children:
+    if not children or next(module.parameters(recurse=False), None) is not None:
         yield torch_prefix, flax_prefix.rstrip("/"), module
-        return
     for name, child in children:
         if isinstance(child, nn.ModuleList):
             for i, sub in enumerate(child):
@@ -170,11 +197,16 @@ def _fastpitch_sites(module: nn.Module, torch_prefix: str = "", flax_prefix: str
 
 def _leaf_names(module: nn.Module, path: str):
     """(torch parameter name, flax leaf name, axes that turn the flax array
-    into the torch one) of one leaf module; the same axes turn it back."""
+    into the torch one) of the parameters a module holds itself;
+    `_flax_layout` turns them back."""
     if isinstance(module, nn.Linear):
         names = [("weight", "kernel", (1, 0))]
     elif isinstance(module, nn.Conv1d):
         names = [("weight", "kernel", (2, 1, 0))]
+    elif isinstance(module, nn.Conv2d):  # HWIO -> OIHW
+        names = [("weight", "kernel", (3, 2, 0, 1))]
+    elif isinstance(module, StyleAttention):  # its token bank; the projections are children
+        return [("style_tokens", "style_tokens", None)]
     elif isinstance(module, nn.Embedding):
         return [("weight", "embedding", None)]
     elif isinstance(module, nn.LayerNorm):
@@ -210,7 +242,7 @@ def load_fastpitch_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Mo
         for torch_name, flax_name, axes in _leaf_names(leaf, path):
             if torch_prefix + torch_name in keep:
                 continue
-            value = leaves.take(f"{path}/{flax_name}")
+            value = leaves.take(_join(path, flax_name))
             sd[torch_prefix + torch_name] = value if axes is None else value.transpose(axes)
     leaves.check_consumed()
     _load(module, sd)
@@ -224,7 +256,7 @@ def fastpitch_flax_paths(module: nn.Module) -> Dict[str, str]:
     paths = {}
     for torch_prefix, path, leaf in _fastpitch_sites(module):
         for torch_name, flax_name, _ in _leaf_names(leaf, path):
-            paths[torch_prefix + torch_name] = f"{path}/{flax_name}"
+            paths[torch_prefix + torch_name] = _join(path, flax_name)
     return paths
 
 
@@ -232,16 +264,24 @@ def fastpitch_to_jax_tree(module: nn.Module) -> Dict[str, Any]:
     """{'params': ...} of a port FastPitchModule in the flax tree's names and
     layouts: what `roar_tpu`'s `FastPitchModel` applies and its `restore_from`
     reads.  The reverse of `load_fastpitch_params`."""
-    state = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
-    flat: Dict[Tuple[str, ...], np.ndarray] = {}
-    for torch_prefix, path, leaf in _fastpitch_sites(module):
-        for torch_name, flax_name, axes in _leaf_names(leaf, path):
-            value = state.pop(torch_prefix + torch_name)
-            flat[(*path.split("/"), flax_name)] = np.ascontiguousarray(
-                value if axes is None else value.transpose(axes))
-    if state:
-        raise ValueError(f"port parameters not written to the JAX tree: {sorted(state)}")
-    return {"params": _nest(flat)}
+    return {"params": _nest(_tree_from_sites(module, _fastpitch_sites(module)))}
+
+
+def load_aligner_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Fill a port `AlignerNet` from the JAX AlignerNet's tree (`embed`,
+    `alignment_encoder` with FastPitch's aligner scopes).  An unconsumed leaf
+    or an unfilled parameter raises."""
+    leaves = _Leaves(params)
+    sd = _state_from_sites(leaves, _fastpitch_sites(module))
+    leaves.check_consumed()
+    _load(module, sd)
+    return module
+
+
+def aligner_to_jax_tree(module: nn.Module) -> Dict[str, Any]:
+    """{'params': ...} of a port `AlignerNet` in the flax tree's names and
+    layouts; the reverse of `load_aligner_params`."""
+    return {"params": _nest(_tree_from_sites(module, _fastpitch_sites(module)))}
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +306,7 @@ def _state_from_sites(leaves: _Leaves, sites) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
     for torch_prefix, path, leaf in sites:
         for torch_name, flax_name, axes in _leaf_names(leaf, path):
-            value = leaves.take(f"{path}/{flax_name}")
+            value = leaves.take(_join(path, flax_name))
             sd[torch_prefix + torch_name] = value if axes is None else value.transpose(axes)
     return sd
 
@@ -279,8 +319,8 @@ def _tree_from_sites(module: nn.Module, sites) -> Dict[Tuple[str, ...], np.ndarr
     for torch_prefix, path, leaf in sites:
         for torch_name, flax_name, axes in _leaf_names(leaf, path):
             value = state.pop(torch_prefix + torch_name)
-            flat[(*path.split("/"), flax_name)] = np.ascontiguousarray(
-                value if axes is None else value.transpose(axes))
+            flat[tuple(_join(path, flax_name).split("/"))] = np.ascontiguousarray(
+                _flax_layout(value, axes))
     if state:
         raise ValueError(f"port parameters not written to the JAX tree: {sorted(state)}")
     return flat
@@ -594,7 +634,7 @@ def load_jets_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     sd: Dict[str, np.ndarray] = {}
     for torch_prefix, path, leaf in _jets_sites(module):
         for torch_name, flax_name, axes in _leaf_names(leaf, path):
-            value = leaves.take(f"{path}/{flax_name}")
+            value = leaves.take(_join(path, flax_name))
             sd[torch_prefix + torch_name] = value if axes is None else value.transpose(axes)
     leaves.check_consumed()
     gen = module.generator
@@ -614,8 +654,8 @@ def jets_to_jax_tree(module: nn.Module) -> Dict[str, Any]:
     for torch_prefix, path, leaf in _jets_sites(module):
         for torch_name, flax_name, axes in _leaf_names(leaf, path):
             value = state.pop(torch_prefix + torch_name)
-            flat[(*path.split("/"), flax_name)] = np.ascontiguousarray(
-                value if axes is None else value.transpose(axes))
+            flat[tuple(_join(path, flax_name).split("/"))] = np.ascontiguousarray(
+                _flax_layout(value, axes))
     if state:
         raise ValueError(f"port parameters not written to the JAX tree: {sorted(state)}")
     tree = _nest(flat)

@@ -42,15 +42,17 @@ def build_tts_dataset(ds_cfg: Dict[str, Any], tokenizer, device="cuda") -> TTSDa
     return TTSDataset(**kwargs, device=device)
 
 
-def build_vocoder_dataset(ds_cfg: Dict[str, Any]) -> VocoderDataset:
-    """A VocoderDataset from a `train_ds.dataset` block.  The block's
-    `_target_` names the JAX package's class; the port builds its own class
-    for that role.  The `dataset_meta` family is not ported."""
+def build_vocoder_dataset(ds_cfg: Dict[str, Any]):
+    """A vocoder dataset from a `train_ds.dataset` block: the `dataset_meta`
+    family (`data/vocoder_dataset.py`) when the block has `dataset_meta` or
+    its `_target_` names `vocoder_dataset`, its None values dropped, else the
+    manifest_filepath `VocoderDataset`.  The block's `_target_` names the JAX
+    package's class; the port builds its own class for that role."""
     kwargs = {k: v for k, v in ds_cfg.items() if k != "_target_"}
     if "dataset_meta" in kwargs or "vocoder_dataset" in ds_cfg.get("_target_", ""):
-        raise NotImplementedError(
-            "the dataset_meta vocoder dataset (roar_tpu/data/vocoder_dataset.py) is not "
-            "ported yet; use a manifest_filepath VocoderDataset")
+        from roar_tpu_torch.data.vocoder_dataset import VocoderDataset as MetaVocoderDataset
+
+        return MetaVocoderDataset(**{k: v for k, v in kwargs.items() if v is not None})
     return VocoderDataset(**kwargs)
 
 

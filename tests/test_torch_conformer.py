@@ -41,6 +41,7 @@ from roar_tpu.models.transformer import MultiHeadAttn as JaxMultiHeadAttn
 from roar_tpu.training.trainer import cast_floating
 from roar_tpu_torch.kernels import flash_attention as fa
 from roar_tpu_torch.models import conformer
+from roar_tpu_torch.models.fastpitch import make_decoder
 from roar_tpu_torch.models.fastpitch_model import FastPitchModel, _fft_config, spec_from_batch
 from roar_tpu_torch.models.jets_model import JETSModel
 from roar_tpu_torch.models.transformer import MultiHeadAttn
@@ -586,5 +587,7 @@ def test_fft_config_picks_the_stack_and_ignores_what_the_conformer_does_not_take
     cfg = _fft_config({**_conformer_fft(), "adapter_dim": 8, "remat": True, "pre_lnorm": True})
     assert cfg.encoder_type == "conformer" and cfg.use_rope
     assert _fft_config({"adapter_dim": 8}).adapter_dim == 8  # a transformer stack takes it
-    with pytest.raises(NotImplementedError, match="remat"):
-        _fft_config({"remat": True})
+    # and remat (tests/test_torch_remat.py); the Conformer stack built from
+    # `cfg` above ignores it
+    assert _fft_config({"remat": True}).remat
+    assert not hasattr(make_decoder(cfg), "remat")

@@ -320,15 +320,18 @@ def test_flash_with_active_dropatt_takes_the_einsum_path():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        FastPitchModel({**_cfg(), "input_fft": {**_cfg()["input_fft"], "remat": True}})
+    # remat is ported: the stack recomputes its layers (tests/test_torch_remat.py)
+    remat = FastPitchModel({**_cfg(), "input_fft": {**_cfg()["input_fft"], "remat": True}})
+    assert remat.module.encoder_module.stack.remat and not remat.module.decoder_module.remat
     # adapters are ported: one per decoder layer, none in the encoder here
     adapted = FastPitchModel({**_cfg(), "output_fft": {**_cfg()["output_fft"], "adapter_dim": 8}})
     assert all(layer.adapter.down.out_features == 8
                for layer in adapted.module.decoder_module.layers)
     assert all(layer.adapter is None for layer in adapted.module.encoder_module.stack.layers)
-    with pytest.raises(NotImplementedError, match="GST"):
-        FastPitchModel({**_cfg(), "use_gst": True})
+    # use_gst is read as the JAX task reads it: no GST module, the conditioning kept
+    # (tests/test_torch_gst.py)
+    gst = FastPitchModel({**_cfg(), "use_gst": True})
+    assert gst.module.gst_module is None and gst.module.n_speakers == 3
     model = FastPitchModel(_cfg())
     opt = build_optimizer(model.parameters(), OPTIM)
     # FastPitch takes bf16 (set_compute_dtype); a task without it raises by name

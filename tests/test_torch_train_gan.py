@@ -103,8 +103,9 @@ def test_validation_set_naming_and_dataset_by_role(corpus, tmp_path):
     assert run._val_sets(sets, {"validation_ds": {"val_dl_idx": 1}})[1] == 1
     with pytest.raises(ValueError, match="out of range"):
         run._val_sets(sets, {"validation_ds": {"val_dl_idx": 2}})
-    with pytest.raises(NotImplementedError, match="dataset_meta"):
-        run.build_vocoder_dataset({"dataset_meta": {}, "sample_rate": SR})
+    # a dataset_meta block builds the dataset_meta family (tests/test_torch_vocoder_dataset.py)
+    meta = run.build_vocoder_dataset({"dataset_meta": {}, "sample_rate": SR})
+    assert type(meta).__module__ == "roar_tpu_torch.data.vocoder_dataset" and len(meta) == 0
 
 
 def test_batch_iterator_threads_keep_the_order(corpus):
